@@ -1,0 +1,2 @@
+"""Models and serving of the port (counterpart of ``bigdl_tpu/models``):
+the transformer LM, its generation loop and ``LMServer``."""

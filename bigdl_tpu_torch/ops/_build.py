@@ -1,0 +1,156 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
+library with a plain C interface and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). Libraries go to
+``build/bigdl_tpu_torch/`` at the repository root, named by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one is
+reused. A failed build raises with ``nvcc``'s stderr. Nothing is built when
+the module is imported: the first wrapper call on a CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "bigdl_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: kernel -> (C entry, argument types); pointers and the stream are c_void_p
+ENTRIES = {
+    "flash_fwd": ("bt_flash_fwd",
+                  [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
+    "int8_matmul": ("bt_int8_matmul", [_P] * 4 + [_I] * 3 + [_P]),
+}
+KERNELS = tuple(ENTRIES)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+#: ``nvcc -Xptxas -v`` report per kernel built in this process
+#: (registers, shared memory, spills)
+BUILD_LOGS: Dict[str, str] = {}
+
+
+class LaunchCounter:
+    """Thread-safe count of kernel launches (or of calls down a path)."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Optional[subprocess.Popen]:
+    """Start the build of one kernel, or return None when it is built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
+    if proc is None:
+        return
+    out_text, err_text = proc.communicate()
+    out = _target(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {proc.returncode}):\n{err_text}{out_text}")
+    BUILD_LOGS[name] = err_text + out_text
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build(names: Iterable[str] = KERNELS) -> float:
+    """Build the named kernels, all ``nvcc`` processes at once; returns the
+    seconds it took (0 when everything was already built)."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        procs = {}
+        try:
+            for name in names:
+                procs[name] = _start(name)
+        finally:
+            # wait for every started nvcc, even when a later start raised
+            errors = []
+            for name, proc in procs.items():
+                try:
+                    _finish(name, proc)
+                except RuntimeError as e:
+                    errors.append(str(e))
+            if errors:
+                raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed, with
+    its C entry's signature declared."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_target(name)))
+            symbol, argtypes = ENTRIES[name]
+            getattr(lib, symbol).argtypes = argtypes
+            getattr(lib, symbol).restype = ctypes.c_int
+            lib.bt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.bt_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+    return lib
+
+
+def check_status(lib: ctypes.CDLL, name: str, status: int) -> None:
+    """Raise when a kernel's C entry returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {status} "
+                           f"({lib.bt_cuda_error_string(status).decode()})")
