@@ -14,6 +14,10 @@ plain PyTorch version.
 Served today: ``models.transformer.build_lm`` ->
 ``nn.quantized.quantize_model`` / ``cast_model`` ->
 ``models.generation.generate`` -> ``models.lm_server.LMServer``.
+
+Trained today: ``build_lm`` -> ``optim.Optimizer(model, dataset,
+nn.FusedLMHeadCriterion())`` with ``AdamW``, ``set_precision("bf16")`` and
+gradient clipping -> ``optimize()``.
 """
 
 __version__ = "0.1.0"

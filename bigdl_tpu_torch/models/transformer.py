@@ -10,11 +10,11 @@ import torch
 from bigdl_tpu_torch.nn.attention import PositionalEncoding, TransformerEncoder
 from bigdl_tpu_torch.nn.containers import Sequential
 from bigdl_tpu_torch.nn.linear import LMHead, LookupTable, TiedLMHead
+from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # argument -> (its default, the ROADMAP item that will port other values)
 _NOT_PORTED = {
-    "dropout": (0.0, "A2 (training slice)"),
     "seq_axis": (None, "A6 (distributed plane)"),
     "seq_mode": ("ring", "A6 (distributed plane)"),
     "seq_layout": ("contiguous", "A6 (distributed plane)"),
@@ -30,8 +30,9 @@ _NOT_PORTED = {
 
 def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
              ffn_dim: int = 256, num_layers: int = 2, max_len: int = 1024,
-             fused_head: bool = False, tie_embeddings: bool = False,
-             rope: bool = False, activation: str = "gelu",
+             dropout: float = 0.0, fused_head: bool = False,
+             tie_embeddings: bool = False, rope: bool = False,
+             activation: str = "gelu",
              norm: str = "layer", num_kv_heads: Optional[int] = None,
              rope_theta: float = 10000.0, pos: str = "sinusoidal",
              bias: bool = True, *, device: DeviceLike = "cuda",
@@ -40,7 +41,9 @@ def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
 
     The arguments mirror the reference's ``build_lm``. ``rope=True,
     activation="swiglu", norm="rms", bias=False, tie_embeddings=True`` with
-    ``num_kv_heads`` is the Llama block recipe. The head is ``TiedLMHead``
+    ``num_kv_heads`` is the Llama block recipe. ``dropout`` goes into the
+    positional encoding (under RoPE a ``Dropout`` on the embedding stream)
+    and into every block. The head is ``TiedLMHead``
     when ``tie_embeddings``, else ``LMHead`` (``fused_head=True``); the
     reference's unfused ``TimeDistributed(Linear) + LogSoftMax`` tail and
     every other reference argument at a non-default value raise
@@ -69,12 +72,16 @@ def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
         embed = LookupTable(vocab_size, embed_dim)
         m = Sequential().add(embed)
         if not rope:
-            m.add(PositionalEncoding(embed_dim, max_len))
+            m.add(PositionalEncoding(embed_dim, max_len, dropout))
+        elif dropout:
+            # the embedding-stream dropout the positional encoding applies
+            m.add(Dropout(dropout))
         m.add(TransformerEncoder(num_layers, embed_dim, num_heads, ffn_dim,
                                  activation=activation, causal=True,
                                  rope=rope, norm=norm,
                                  num_kv_heads=num_kv_heads,
-                                 rope_theta=rope_theta, bias=bias))
+                                 rope_theta=rope_theta, bias=bias,
+                                 dropout=dropout))
         if tie_embeddings:
             m.add(TiedLMHead(embed))
         else:

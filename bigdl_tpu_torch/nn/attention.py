@@ -3,14 +3,18 @@
 
 Ported: ``LayerNorm``, ``RMSNorm``, ``PositionalEncoding``, ``rope_rotate``
 (rotate-half pairing, no ``rope_scaling``), ``MultiHeadAttention`` (GQA,
-RoPE, causal; incremental decode over a linear KV cache), and the
-``TransformerEncoderLayer`` / ``TransformerEncoder`` stack. Sliding windows,
-the rolling and continuous caches, context parallelism, MoE and attention
-dropout are later slices (ROADMAP A2-A6).
+RoPE, causal, attention-probability dropout; incremental decode over a
+linear KV cache), and the ``TransformerEncoderLayer`` /
+``TransformerEncoder`` stack with residual dropout. Sliding windows, the
+rolling and continuous caches, context parallelism and MoE are later slices
+(ROADMAP A3-A6).
 
 The KV cache is module state (``enable_decode``) that the eager forward
 updates in place; there is no functional-apply layer. Unmasked attention on
-a CUDA tensor goes through kernel K1 (``ops/flash_attention.py``).
+a CUDA tensor goes through kernels K1 (forward) and K2/K3 (backward) of
+``ops/flash_attention.py``, except under attention dropout in training
+mode, which takes the plain core (the kernels never form normalised
+probabilities).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.ops import attention_core, flash_attention
 from bigdl_tpu_torch.ops.precision import match_compute
 from bigdl_tpu_torch.utils.device import module_device
@@ -65,11 +70,13 @@ class RMSNorm(Module):
 
 
 class PositionalEncoding(Module):
-    """Sinusoidal position encoding added to (B, S, E) input. While decoding
-    the positions continue from ``decode_pos``."""
+    """Sinusoidal position encoding added to (B, S, E) input, then dropout.
+    While decoding the positions continue from ``decode_pos``."""
 
-    def __init__(self, embed_dim: int, max_len: int = 4096):
+    def __init__(self, embed_dim: int, max_len: int = 4096,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout)
         pos = np.arange(max_len)[:, None]
         div = np.exp(np.arange(0, embed_dim, 2)
                      * (-np.log(10000.0) / embed_dim))
@@ -91,7 +98,7 @@ class PositionalEncoding(Module):
         start = self.decode_pos if self._decode else 0
         if self._decode:
             self.decode_pos += s
-        return input + self.pe[start:start + s].to(input.dtype)
+        return self.dropout(input + self.pe[start:start + s].to(input.dtype))
 
 
 def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
@@ -122,7 +129,7 @@ class MultiHeadAttention(Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  with_bias: bool = True, causal: bool = False,
                  rope: bool = False, num_kv_heads: Optional[int] = None,
-                 rope_theta: float = 10000.0):
+                 rope_theta: float = 10000.0, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must divide num_heads")
@@ -149,6 +156,8 @@ class MultiHeadAttention(Module):
         if with_bias:
             self.in_proj_bias = torch.nn.Parameter(torch.zeros(rows))
             self.out_proj_bias = torch.nn.Parameter(torch.zeros(embed_dim))
+        # attention-probability dropout: its rate and generator
+        self.attn_drop = Dropout(dropout)
         self.decode_pos = 0
         self._decode_prefilled = False
 
@@ -271,6 +280,11 @@ class MultiHeadAttention(Module):
         return self._out_projection(ctx.reshape(b, s, self.embed_dim))
 
     def _attend(self, q, k, v, mask):
+        drop = self.attn_drop.p if self.training else 0.0
+        if drop > 0.0:  # probability dropout needs the plain core
+            return attention_core.dot_product_attention(
+                q, k, v, mask=mask, causal=self.causal, dropout_p=drop,
+                generator=self.attn_drop.generator(q.device))
         if flash_attention.use_flash(q, mask):
             return flash_attention.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
@@ -285,13 +299,15 @@ class TransformerEncoderLayer(Module):
     ``activation``: ``"gelu"`` (tanh form, GPT-2's gelu_new) or ``"swiglu"``
     (Llama's gated FFN ``W2(silu(W1 x) * Wg x)``); the reference's
     post-norm block and its other activations are not ported. ``bias=False``
-    drops every affine bias (the Llama convention)."""
+    drops every affine bias (the Llama convention). ``dropout`` drops the
+    attention probabilities and both residual branches in training mode."""
 
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int,
                  activation: str = "gelu", causal: bool = False,
                  rope: bool = False, norm: str = "layer",
                  num_kv_heads: Optional[int] = None,
-                 rope_theta: float = 10000.0, bias: bool = True):
+                 rope_theta: float = 10000.0, bias: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         if activation not in ("gelu", "swiglu"):
             raise ValueError(f"unknown activation {activation!r}: 'gelu' or "
@@ -299,7 +315,8 @@ class TransformerEncoderLayer(Module):
         self.activation = activation
         self.self_attn = MultiHeadAttention(
             embed_dim, num_heads, with_bias=bias, causal=causal, rope=rope,
-            num_kv_heads=num_kv_heads, rope_theta=rope_theta)
+            num_kv_heads=num_kv_heads, rope_theta=rope_theta, dropout=dropout)
+        self.drop = Dropout(dropout)
         self.linear1 = Linear(embed_dim, ffn_dim, with_bias=bias)
         self.linear2 = Linear(ffn_dim, embed_dim, with_bias=bias)
         if activation == "swiglu":
@@ -317,8 +334,8 @@ class TransformerEncoderLayer(Module):
         return self.linear2(F.gelu(self.linear1(x), approximate="tanh"))
 
     def forward(self, input):
-        x = input + self.self_attn(self.norm1(input))
-        return x + self._ffn(self.norm2(x))
+        x = input + self.drop(self.self_attn(self.norm1(input)))
+        return x + self.drop(self._ffn(self.norm2(x)))
 
 
 class TransformerEncoder(Module):
@@ -329,14 +346,16 @@ class TransformerEncoder(Module):
                  ffn_dim: int, activation: str = "gelu",
                  causal: bool = False, rope: bool = False,
                  norm: str = "layer", num_kv_heads: Optional[int] = None,
-                 rope_theta: float = 10000.0, bias: bool = True):
+                 rope_theta: float = 10000.0, bias: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerEncoderLayer(
                 embed_dim, num_heads, ffn_dim, activation=activation,
                 causal=causal, rope=rope, norm=norm,
-                num_kv_heads=num_kv_heads, rope_theta=rope_theta, bias=bias))
+                num_kv_heads=num_kv_heads, rope_theta=rope_theta, bias=bias,
+                dropout=dropout))
         self.final_norm = (RMSNorm(embed_dim) if norm == "rms"
                            else LayerNorm(embed_dim))
 

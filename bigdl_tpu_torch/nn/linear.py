@@ -62,16 +62,12 @@ class LookupTable(Module):
 
 
 class _VocabHead(Module):
-    """What the two LM heads share: eval-mode only (the training-mode output,
-    the Table the fused cross-entropy takes, waits for the training slice),
-    and the last position only while decoding."""
+    """What the two LM heads share: the last position only while decoding.
 
-    def _check_eval(self):
-        if self.training:
-            raise NotImplementedError(
-                f"{type(self).__name__}: the training-mode output (fused "
-                "cross-entropy) is not ported yet (ROADMAP A2); call "
-                "evaluate_mode()")
+    In training mode a head returns the tuple ``(hidden, weight[, bias])``
+    that ``FusedLMHeadCriterion`` takes (the reference's ``Table``), so the
+    (B, S, vocab) logits are never formed; in eval mode it returns
+    log-probabilities."""
 
     def _last(self, input):
         return input[:, -1:] if self._decode else input
@@ -79,7 +75,7 @@ class _VocabHead(Module):
 
 class LMHead(_VocabHead):
     """Vocabulary projection of the fused-CE LM tail (reference
-    ``nn/linear.py:LMHead``): log-probabilities in eval mode."""
+    ``nn/linear.py:LMHead``)."""
 
     def __init__(self, input_size: int, vocab_size: int,
                  with_bias: bool = True):
@@ -92,7 +88,10 @@ class LMHead(_VocabHead):
             self.bias = _uniform((vocab_size,), input_size)
 
     def forward(self, input):
-        self._check_eval()
+        if self.training:
+            if self.with_bias:
+                return input, self.weight, self.bias
+            return input, self.weight
         input = self._last(input)
         y = torch.matmul(match_compute(input, self.weight), self.weight.T)
         if self.with_bias:
@@ -104,7 +103,9 @@ class TiedLMHead(_VocabHead):
     """Vocabulary projection tied to the embedding table (reference
     ``nn/linear.py:TiedLMHead``). Holds a plain reference to the
     ``LookupTable`` (not a registered child, so the table is stored once)
-    and reads its weight at forward time."""
+    and reads its weight at forward time. Training mode hands out that live
+    parameter (never a copy), so its gradient sums the lookup's and the
+    head's."""
 
     def __init__(self, embed: LookupTable):
         super().__init__()
@@ -112,8 +113,9 @@ class TiedLMHead(_VocabHead):
         object.__setattr__(self, "embed_ref", embed)
 
     def forward(self, input):
-        self._check_eval()
-        input = self._last(input)
         w = self.embed_ref.weight
+        if self.training:
+            return input, w
+        input = self._last(input)
         y = torch.matmul(match_compute(input, w), w.T)
         return torch.log_softmax(y, dim=-1)

@@ -65,6 +65,12 @@ class _QuantizedMixin:
     def _bias(self, name: str = "bias"):
         return self._buffers[name] if self.with_bias else None
 
+    def _check_eval(self):
+        if self.training:
+            raise NotImplementedError(
+                f"{type(self).__name__} is an inference-only twin; call "
+                "evaluate_mode()")
+
 
 class QuantizedLinear(_QuantizedMixin, Linear):
     """Linear with an int8 weight and per-row scale (inference-only)."""

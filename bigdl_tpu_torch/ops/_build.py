@@ -27,12 +27,13 @@ BUILD_DIR = _PKG.parent / "build" / "bigdl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: kernel -> (C entry, argument types); pointers and the stream are c_void_p
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: source -> {C entry: argument types}; pointers and the stream are c_void_p
 ENTRIES = {
-    "flash_fwd": ("bt_flash_fwd",
-                  [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
-    "int8_matmul": ("bt_int8_matmul", [_P] * 4 + [_I] * 3 + [_P]),
+    "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]},
+    "flash_bwd": {"bt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+                  "bt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]},
+    "int8_matmul": {"bt_int8_matmul": [_P] * 4 + [_I] * 3 + [_P]},
 }
 KERNELS = tuple(ENTRIES)
 
@@ -130,8 +131,8 @@ def build(names: Iterable[str] = KERNELS) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed, with
-    its C entry's signature declared."""
+    """The loaded library of source ``name``, built first if needed, with
+    its C entries' signatures declared."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -140,9 +141,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
-            symbol, argtypes = ENTRIES[name]
-            getattr(lib, symbol).argtypes = argtypes
-            getattr(lib, symbol).restype = ctypes.c_int
+            for symbol, argtypes in ENTRIES[name].items():
+                getattr(lib, symbol).argtypes = argtypes
+                getattr(lib, symbol).restype = ctypes.c_int
             lib.bt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.bt_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

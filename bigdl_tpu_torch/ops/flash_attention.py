@@ -1,14 +1,20 @@
-"""Flash-attention forward (counterpart of ``bigdl_tpu/ops/flash_attention.py``).
+"""Flash attention, forward and backward (counterpart of
+``bigdl_tpu/ops/flash_attention.py``).
 
 ``flash_attention_with_lse(q, k, v, causal, scale)`` returns
 ``(o (B, Sq, N, D), lse (B, N, Sq) f32)``: softmax attention and the row
 log-sum-exp of the scaled, masked logits. A row with every key masked gets
 ``o = 0`` and the finite sentinel ``lse = float32.min``, never -inf.
 
-On a CUDA tensor it launches kernel K1 (``csrc/flash_fwd.cu``, the port of
-the Pallas ``_fwd_kernel``) or raises; on a CPU tensor it runs
-``flash_attention_plain``, the same function in plain PyTorch. The backward
-kernels (K2, K3) are not ported yet, so this module is forward-only.
+Both outputs are differentiable through one ``torch.autograd.Function``,
+``FlashAttention``, on every device, as the reference's ``custom_vjp``: the
+backward takes cotangents for ``o`` AND ``lse`` and folds the latter into
+``delta = rowsum(dO * O) - g_lse``. On a CUDA tensor the forward launches
+kernel K1 (``csrc/flash_fwd.cu``, the port of ``_fwd_kernel``) and the
+backward kernels K2 (dQ) and K3 (dK, dV) (``csrc/flash_bwd.cu``, the ports
+of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), or raises; on a CPU tensor
+they run ``flash_attention_plain`` and ``flash_attention_bwd_plain``, the
+same functions in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -23,8 +29,11 @@ NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of kernel K1 (counted where the kernel is launched, nowhere else)
+#: launches of kernels K1, K2 and K3 (each counted where the kernel is
+#: launched, nowhere else)
 LAUNCHES = _build.LaunchCounter()
+LAUNCHES_DQ = _build.LaunchCounter()
+LAUNCHES_DKV = _build.LaunchCounter()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,7 +58,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise ``ValueError`` for what kernel K1 does not take."""
+    """Raise ``ValueError`` for what kernels K1, K2 and K3 do not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, S, N, D) tensors")
     if k.shape != v.shape:
@@ -87,18 +96,157 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
+def bwd_delta(o: torch.Tensor, g_o: torch.Tensor,
+              g_lse: Optional[torch.Tensor]) -> torch.Tensor:
+    """``delta = rowsum(dO * O) - g_lse`` as (B, N, Sq) f32: the LSE
+    cotangent enters the softmax jacobian where its diagonal term sits.
+    One reduction outside the kernels, as in the reference."""
+    delta = (g_o.float() * o.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def _p_ds(q, k, v, g_o, lse, delta, causal: bool, scale: float):
+    """The backward's (p, dS) in f32, (B, N, Sq, Sk), recomputed from the
+    LSE; the exponent of a masked position is set to 0 BEFORE ``exp`` (a
+    dead row's sentinel LSE would overflow it) and its ``p`` to 0."""
+    sq, sk = q.shape[1], k.shape[1]
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        valid = valid.tril()
+    expo = torch.where(valid, logits - lse[..., None], 0.0)
+    p = torch.where(valid, torch.exp(expo), 0.0)
+    dp = torch.einsum("bqnd,bknd->bnqk", g_o.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_plain(q, k, v, g_o, lse, delta, causal: bool,
+                       scale: float) -> torch.Tensor:
+    """K2's function in plain PyTorch: dQ = dS K, in q's dtype."""
+    _, ds = _p_ds(q, k, v, g_o, lse, delta, causal, scale)
+    return torch.einsum("bnqk,bknd->bqnd", ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, g_o, lse, delta, causal: bool,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function in plain PyTorch: dK = dS^T Q, dV = P^T dO."""
+    p, ds = _p_ds(q, k, v, g_o, lse, delta, causal, scale)
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, q.float())
+    dv = torch.einsum("bnqk,bqnd->bknd", p, g_o.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd_args(q, k, v, g_o, lse, delta) -> None:
+    check_args(q, k, v)
+    b, sq, n, _ = q.shape
+    if g_o.shape != q.shape or g_o.dtype != q.dtype or not g_o.is_contiguous():
+        raise ValueError("g_o must be a contiguous tensor of q's shape and "
+                         "dtype")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b, n, sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (B, N, Sq) "
+                             "float32 tensor")
+
+
+def _bwd_inputs(q, k, v, g_o, lse, delta):
+    """The input pointers both backward kernels take."""
+    return tuple(t.data_ptr() for t in (q, k, v, g_o, lse, delta))
+
+
+def _bwd_shape(q, k, causal: bool, scale: float):
+    b, sq, n, d = q.shape
+    return (b, n, sq, k.shape[1], d, float(scale), int(causal),
+            DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dq(q, k, v, g_o, lse, delta, causal: bool,
+                 scale: float) -> torch.Tensor:
+    """dQ: kernel K2 on CUDA tensors, ``flash_bwd_dq_plain`` on CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, g_o, lse, delta, causal, scale)
+    _check_bwd_args(q, k, v, g_o, lse, delta)
+    lib = _build.load("flash_bwd")
+    dq = torch.empty_like(q)
+    status = lib.bt_flash_bwd_dq(
+        *_bwd_inputs(q, k, v, g_o, lse, delta), dq.data_ptr(),
+        *_bwd_shape(q, k, causal, scale))
+    _build.check_status(lib, "flash_bwd_dq", status)
+    LAUNCHES_DQ.add()
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g_o, lse, delta, causal: bool,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV): kernel K3 on CUDA tensors, ``flash_bwd_dkv_plain`` on CPU
+    ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, g_o, lse, delta, causal, scale)
+    _check_bwd_args(q, k, v, g_o, lse, delta)
+    lib = _build.load("flash_bwd")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = lib.bt_flash_bwd_dkv(
+        *_bwd_inputs(q, k, v, g_o, lse, delta), dk.data_ptr(),
+        dv.data_ptr(), *_bwd_shape(q, k, causal, scale))
+    _build.check_status(lib, "flash_bwd_dkv", status)
+    LAUNCHES_DKV.add()
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, g_o: torch.Tensor,
+                              g_lse: Optional[torch.Tensor], causal: bool,
+                              scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """K2 and K3's function in plain PyTorch, in f32: ``(dq, dk, dv)`` in
+    the inputs' dtypes, with ``p`` recomputed from the saved LSE.
+    ``g_lse`` may be None."""
+    delta = bwd_delta(o, g_o, g_lse)
+    dq = flash_bwd_dq_plain(q, k, v, g_o, lse, delta, causal, scale)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, g_o, lse, delta, causal, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse)`` of ``(q, k, v)`` with the reference's VJP: kernels K1 /
+    K2 + K3 on CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, causal, scale)
+        elif q.device.type == "cuda":
+            o, lse = _flash_fwd_cuda(q, k, v, causal, scale)
+        else:
+            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        g_o = (torch.zeros_like(o) if g_o is None
+               else g_o.to(q.dtype).contiguous())
+        delta = bwd_delta(o, g_o, g_lse)
+        args = (q, k, v, g_o, lse, delta, ctx.causal, ctx.scale)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = False, scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention over (B, S, N, D) tensors returning ``(o, lse (B, N, Sq))``.
-    Kernel K1 on CUDA tensors, the plain version on CPU tensors."""
+    """Attention over (B, S, N, D) tensors returning ``(o, lse (B, N, Sq))``,
+    both differentiable (``FlashAttention``)."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _flash_fwd_cuda(q, k, v, causal, scale)
+    return FlashAttention.apply(q, k, v, causal, float(scale))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

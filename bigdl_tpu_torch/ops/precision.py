@@ -1,7 +1,16 @@
-"""Mixed-precision helpers (counterpart of ``bigdl_tpu/ops/precision.py``;
-only ``match_compute`` is ported so far)."""
+"""Mixed-precision helpers (counterpart of ``bigdl_tpu/ops/precision.py``:
+``match_compute`` and ``DtypePolicy`` are ported).
+
+Policy: the master parameters stay f32 and the optimizer updates them;
+under ``DtypePolicy.bf16()`` the training forward and backward run on bf16
+copies of them (``cast_params_for_compute``, handed to
+``torch.func.functional_call``), and autograd brings the gradients back
+through the casts to the f32 masters.
+"""
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -14,3 +23,36 @@ def match_compute(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             and torch.finfo(w.dtype).bits < torch.finfo(x.dtype).bits):
         return x.to(w.dtype)
     return x
+
+
+class DtypePolicy:
+    """Compute and parameter dtypes of a training run."""
+
+    def __init__(self, compute_dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        self.compute_dtype = compute_dtype
+        self.param_dtype = param_dtype
+
+    @staticmethod
+    def fp32() -> "DtypePolicy":
+        return DtypePolicy()
+
+    @staticmethod
+    def bf16() -> "DtypePolicy":
+        """bf16 compute over f32 master parameters."""
+        return DtypePolicy(compute_dtype=torch.bfloat16)
+
+    @property
+    def is_mixed(self) -> bool:
+        return self.compute_dtype != self.param_dtype
+
+    def cast_params_for_compute(self, params: Dict[str, torch.Tensor]
+                                ) -> Dict[str, torch.Tensor]:
+        """Compute-dtype copies of the float parameters, still linked to
+        them by autograd. Inputs are never cast here: layers cast their
+        activations at the matmul (``match_compute``), so token ids stay
+        exact (bf16 has 8 mantissa bits)."""
+        if not self.is_mixed:
+            return dict(params)
+        return {name: p.to(self.compute_dtype) if p.is_floating_point() else p
+                for name, p in params.items()}

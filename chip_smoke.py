@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive bigdl_tpu_torch's serving path on one CUDA card and check it.
+"""Drive bigdl_tpu_torch's serving and training paths on one CUDA card and
+check them.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -11,7 +12,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    versions, and the build of every CUDA kernel from ``bigdl_tpu_torch/csrc``
    (all ``nvcc`` processes at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, with the tolerances stated below;
+   the serving and training paths' shapes, with the tolerances stated
+   below; the flash backward (K2, K3) through the autograd ``Function``
+   against ``flash_attention_bwd_plain`` fed the same o, lse and
+   cotangents, and against autograd through the plain attention core;
 3. slice: the 134M Llama-recipe LM (``scripts/int8_decode_bench.py``'s
    ``134m`` config: V=32000, E=768, 12 heads, 4 kv heads, FFN 3072, 12
    layers, RoPE, SwiGLU, RMSNorm, tied embeddings) built from a seed at full
@@ -21,10 +25,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``generate`` on the same prompts, and the launch counters, zeroed just
    before serving, must show that the prefill ran kernel K1 and the int8
    decode kernel K4;
+3b. training: the same config built on the card from seed 7. Every
+   parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
+   grammar, through K1/K2/K3, must be finite and within GRAD_RTOL (relative
+   L2, per tensor) of a CPU copy carrying the same weights, which takes the
+   plain path. Then ``Optimizer`` trains 20 iterations at B=8, S=512 with
+   ``set_precision("bf16")``, ``AdamW`` and global-L2 clipping at 1.0: the
+   losses must be finite, the mean of the last five below the first, and
+   K1, K2 and K3 each launched exactly 12 x 20 times (counters zeroed just
+   before the run);
 4. timing: each kernel is checked once more against its plain version at
    the served shape, then it (``ms``), its plain version (``plain_ms``) and
    one PyTorch library call for the same function (``library_ms``) are
-   timed as device time by ``torch.profiler``; the bound (``bound_ms``) is
+   timed as device time by ``torch.profiler``, or by CUDA events where the
+   profiler records nothing (K2 and K3 at the training shape, B=8 S=512
+   N=12 D=64 bf16 causal); the bound (``bound_ms``) is
    the larger of the bytes the function must move over 3.35 TB/s and its
    operations over 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
 
@@ -51,6 +66,8 @@ VOCAB = 32000
 NEW_TOKENS = 32
 PROMPT_LENS = (384, 128)
 REQUESTS_PER_LEN = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_LR, TRAIN_DECAY, TRAIN_CLIP = 3e-3, 0.01, 1.0
 
 
 def log(obj) -> None:
@@ -62,23 +79,62 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def device_ms(fn, iters: int, warmup: int = 3):
+PROFILER_TRIES = 3
+
+
+def profiled(fn, what: str):
+    """Runs ``fn`` once under ``torch.profiler`` (CUDA activity) and returns
+    ([(kernel name, device us)], wall seconds of the run). An H100 run has
+    seen the profiler, after many sessions in one process, come back with
+    no device time for work that launched kernels; such a run is logged and
+    repeated, at most PROFILER_TRIES times. Returns (None, None) when no
+    run recorded device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILER_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.self_device_time_total)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        if rows:
+            return rows, wall
+        log({"profiler_recorded_nothing": what, "attempt": attempt})
+    return None, None
+
+
+def device_ms(fn, iters: int, what: str, warmup: int = 3):
     """Device milliseconds per run of ``fn``: the kernel time that
     ``torch.profiler`` records over ``iters`` runs (host gaps between
     launches excluded), and the three kernels that took the most of it.
-    Raises when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    When the profiler records nothing (see ``profiled``), the time between
+    two CUDA events around the same ``iters`` runs instead, which counts
+    the gaps between launches too; that is logged as ``timed_with_events``
+    and the kernel list then names the timer."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def runs():
         for _ in range(iters):
             fn()
+
+    rows, _ = profiled(runs, what)
+    if rows is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+        start.record()
+        runs()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        check(ms > 0, f"{what}: neither the profiler nor CUDA events "
+                      "measured any time")
+        log({"timed_with_events": what, "ms": ms})
+        return ms, [("cuda events (profiler recorded nothing)", ms * 1e3)]
     total_us = sum(t for _, t in rows)
-    check(total_us > 0, "the profiler recorded no device time")
     top = sorted(rows, key=lambda r: -r[1])[:3]
     return total_us / iters / 1e3, [(k[:60], t / iters) for k, t in top]
 
@@ -175,6 +231,127 @@ def check_flash():
     log({"check": "flash_fwd", "cases": len(cases) + 2, "max_abs_err_o": worst})
 
 
+BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-5
+BWD_BF16_ATOL = 1e-5
+
+
+def bwd_close(got: torch.Tensor, ref: torch.Tensor):
+    """A backward kernel's output against the plain version's, element by
+    element. float32: within BWD_F32_RTOL * max|ref| + BWD_F32_ATOL (f32
+    sums of up to Sk or Sq products in another order). bfloat16: within one
+    bf16 step of the element, 2^-7 * |ref|, plus BWD_BF16_ATOL: both round
+    an f32 sum to bf16, and where that sum is near zero its f32 ordering
+    error is large against the element's own step (on an H100 the largest
+    excess over one step measured 4.6e-8, so the atol keeps a margin of
+    200). Returns (max |got - ref|, the largest excess over the one-step
+    part in bf16, or the error over max|ref| in f32, whether all hold)."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    if got.dtype == torch.bfloat16:
+        step = 2 ** -7 * r.abs()
+        ok = diff <= step + BWD_BF16_ATOL
+        excess = (diff - step).clamp_min(0).max().item()
+    else:
+        ok = diff <= BWD_F32_RTOL * r.abs().max() + BWD_F32_ATOL
+        excess = (diff.max() / r.abs().max().clamp_min(1e-30)).item()
+    return (diff.max().item(), excess,
+            bool(ok.all().item() and torch.isfinite(g).all().item()))
+
+
+def _function_grads(q, k, v, g_o, g_lse, causal):
+    """(o, lse, dq, dk, dv) through ``FlashAttention``: K1, then K2 + K3."""
+    from bigdl_tpu_torch.ops.flash_attention import flash_attention_with_lse
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    if g_lse is None:
+        o.backward(g_o)
+    else:
+        torch.autograd.backward((o, lse), (g_o, g_lse))
+    return o.detach(), lse.detach(), q.grad, k.grad, v.grad
+
+
+def check_flash_bwd():
+    """K2 and K3 through the autograd Function against
+    ``flash_attention_bwd_plain`` fed the same o, lse and cotangents (see
+    ``bwd_close``): at the training shape in bf16 (B=8 S=512 N=12 D=64,
+    causal, with and without an LSE cotangent), f32 causal and full at
+    S in {384, 333}, D=128, Sq != Sk, one row, and the dead row of
+    ``check_flash``. Then the Function against autograd through the plain
+    attention core at the training shape in f32. Returns the worst
+    |error| of dQ (K2) and of dK/dV (K3) at the training shape."""
+    from bigdl_tpu_torch.ops.attention_core import dot_product_attention
+    from bigdl_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_train = CONFIG["num_heads"]
+    cases = [(bf16, True, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n_train, 64, g)
+             for g in (False, True)]
+    cases += [(f32, causal, 2, s, s, n_train, 64, True)
+              for causal in (True, False) for s in (384, 333)]
+    cases += [(bf16, False, 2, 333, 333, n_train, 64, True),
+              (bf16, True, 1, 200, 200, 4, 128, True),
+              (f32, True, 2, 333, 333, 3, 128, False),
+              (f32, False, 2, 100, 333, 3, 64, True),
+              (bf16, False, 2, 333, 100, 3, 128, True),
+              (f32, True, 4, 1, 1, n_train, 64, True)]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    excess = {f32: 0.0, bf16: 0.0}
+    for dt, causal, b, sq, sk, n, d, with_g_lse in cases:
+        q, k, v = _qkv(gen, b, sq, sk, n, d, dt)
+        g_o = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        g_lse = (torch.randn((b, n, sq), generator=gen, device="cuda")
+                 if with_g_lse else None)
+        o, lse, *grads = _function_grads(q, k, v, g_o, g_lse, causal)
+        plain = flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
+                                          causal, 1.0 / d ** 0.5)
+        torch.cuda.synchronize()
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, plain):
+            err, ex, ok = bwd_close(got, ref)
+            check(ok and got.shape == ref.shape and got.dtype == dt,
+                  f"flash bwd {name} {dt} causal={causal} B={b} Sq={sq} "
+                  f"Sk={sk} N={n} D={d} g_lse={with_g_lse}: |err| {err} "
+                  f"(bf16: excess over one step; f32: over max|ref|: {ex})")
+            excess[dt] = max(excess[dt], ex)
+            if (b, sq) == (TRAIN_BATCH, TRAIN_SEQ):
+                key = "dq" if name == "dq" else "dkv"
+                worst[key] = max(worst[key], err)
+    for dt in (f32, bf16):
+        # the dead row of check_flash: (b=0, s=5, h=0) sees only -inf logits
+        q, k, v = _qkv(gen, 1, 70, 70, 2, 64, dt)
+        q[0, 5, 0] = 0
+        q[0, 5, 0, 0] = -3e38
+        k[:, :, 0, 0] = 100
+        g_o = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        g_lse = torch.randn((1, 2, 70), generator=gen, device="cuda")
+        o, lse, *grads = _function_grads(q, k, v, g_o, g_lse, True)
+        plain = flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse, True,
+                                          1.0 / 8)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, plain):
+            err, _, ok = bwd_close(got, ref)
+            check(ok and torch.isfinite(ref.float()).all().item(),
+                  f"dead-row {name} ({dt}): |err| {err}")
+        check(grads[0][0, 5, 0].abs().max().item() == 0.0,
+              f"dead-row dQ is not 0 ({dt})")
+    # the Function against autograd through the plain core, f32, training shape
+    q, k, v = _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n_train, 64, f32)
+    g_o = torch.randn(q.shape, generator=gen, device="cuda")
+    _, _, *grads = _function_grads(q, k, v, g_o, None, True)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    dot_product_attention(*ts, causal=True).backward(g_o)
+    autograd_err = 0.0
+    for name, got, t in zip(("dq", "dk", "dv"), grads, ts):
+        err, _, ok = bwd_close(got, t.grad)
+        check(ok, f"Function vs autograd of the plain core, {name}: {err}")
+        autograd_err = max(autograd_err, err)
+    log({"check": "flash_bwd", "cases": len(cases) + 3,
+         "max_abs_err_dq_train_shape": worst["dq"],
+         "max_abs_err_dkv_train_shape": worst["dkv"],
+         "bf16_max_excess_over_one_step": excess[bf16],
+         "f32_max_err_over_max_ref": excess[f32],
+         "function_vs_plain_core_autograd_f32": autograd_err})
+    return worst
+
+
 def check_int8():
     """K4 against ``int8_matmul_plain`` through the public ``int8_matmul``
     (compute dtype f32, with and without a bias), M in {1, 4 (the served
@@ -262,14 +439,19 @@ def time_generate(model, prompts) -> dict:
     run(NEW_TOKENS)  # warm-up
     t1 = min(run(1) for _ in range(3))
     tn = min(run(NEW_TOKENS) for _ in range(3))
-    busy_ms, top = device_ms(lambda: generate(model, batch, NEW_TOKENS,
-                                              greedy=True, device="cuda"), 1, 0)
     b, s = batch.shape
+    rows, _ = profiled(lambda: generate(model, batch, NEW_TOKENS, greedy=True,
+                                        device="cuda"), f"decode B={b} S={s}")
+    # None ("not measured") when the profiler recorded nothing
+    busy = (None if rows is None
+            else sum(t for _, t in rows) / 1e6 / tn)
+    top = ([] if rows is None else
+           [(k[:60], t) for k, t in sorted(rows, key=lambda r: -r[1])[:3]])
     return {"batch": b, "prompt_len": s, "new_tokens": NEW_TOKENS,
             "prefill_ms": t1 * 1e3,
             "decode_ms_per_token": (tn - t1) / (NEW_TOKENS - 1) * 1e3,
             "tokens_per_s": b * NEW_TOKENS / tn,
-            "device_busy_share": busy_ms / (tn * 1e3), "top_kernels_us": top}
+            "device_busy_share": busy, "top_kernels_us": top}
 
 
 def run_slice():
@@ -355,6 +537,146 @@ def run_slice():
     return twins["int8"], launches
 
 
+# -------------------------------------------------------------- 3b. training
+GRAD_RTOL = 1e-3
+
+
+def grad_check(model) -> None:
+    """Every parameter's gradient of one f32 batch (B=1, S=128) on the card
+    (K1, K2, K3) against a CPU copy with the same weights (the plain path):
+    finite, and within GRAD_RTOL in relative L2 per tensor (f32 sums in
+    other orders; the two paths agree to ~1e-6)."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.interop.state_dict import (export_lm_state_dict,
+                                                    import_lm_state_dict)
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    cpu = build_lm(VOCAB, **CONFIG, device="cpu", seed=0)
+    import_lm_state_dict(cpu, export_lm_state_dict(model))
+    sample = synthetic_corpus(1, 128, VOCAB, seed=1)[0]
+    grads = []   # the card's, then the CPU's
+    for m in (model, cpu):
+        dev = next(m.parameters()).device
+        m.train()
+        m.zero_grad(set_to_none=True)
+        for c in (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV):
+            c.reset()
+        ids = torch.as_tensor(sample.feature[None], device=dev)
+        tgt = torch.as_tensor(sample.label[None], device=dev)
+        FusedLMHeadCriterion()(m(ids), tgt).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        if dev.type == "cuda":
+            layers = CONFIG["num_layers"]
+            check((fa.LAUNCHES.value, fa.LAUNCHES_DQ.value,
+                   fa.LAUNCHES_DKV.value) == (layers,) * 3,
+                  "the card's gradient did not run K1, K2 and K3 once a layer")
+    model.zero_grad(set_to_none=True)
+    worst, worst_name = 0.0, ""
+    for name, ref in grads[1].items():
+        got = grads[0][name]
+        check(got is not None and torch.isfinite(got).all().item(),
+              f"gradient of {name} on the card is missing or not finite")
+        rel = ((got.cpu() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        check(rel <= GRAD_RTOL, f"gradient of {name}: relative L2 {rel}")
+        if rel > worst:
+            worst, worst_name = rel, name
+    log({"check": "grad_134m_f32_B1_S128", "params": len(grads[1]),
+         "max_rel_l2": worst, "worst_param": worst_name})
+
+
+def _train(model, ds, steps: int):
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
+    opt = (Optimizer(model, ds, FusedLMHeadCriterion(), device="cuda")
+           .set_precision("bf16")
+           .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                   weightdecay=TRAIN_DECAY))
+           .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+           .set_end_when(Trigger.max_iteration(steps)))
+    opt.optimize()
+    torch.cuda.synchronize()
+    return opt.history
+
+
+def lm_head_ce_peak_mib() -> float:
+    """Peak device memory of the fused LM-head CE's forward and backward at
+    the training shape (N = 8 x 512 rows, V=32000, E=768, bf16, the
+    default chunk 16384), above what its inputs hold."""
+    from bigdl_tpu_torch.ops.lm_head_ce import fused_lm_head_ce
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, e = TRAIN_BATCH * TRAIN_SEQ, CONFIG["embed_dim"]
+    h = torch.randn((n, e), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((VOCAB, e), generator=gen, device="cuda").to(torch.bfloat16)
+    tgt = torch.randint(1, VOCAB + 1, (n,), generator=gen, device="cuda")
+    h.requires_grad_()
+    w.requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_lm_head_ce(h, w, None, tgt).backward()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def run_training() -> dict:
+    """Phase 3b; returns the K1, K2, K3 launches of the 20-step run."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    model = build_lm(VOCAB, **CONFIG, device="cuda", seed=7)
+    grad_check(model)
+    log({"grad_check_s": time.perf_counter() - t0})
+    samples = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS, TRAIN_SEQ, VOCAB,
+                               seed=17)
+    ds = DataSet.array(samples, seed=0) >> SampleToBatch(TRAIN_BATCH)
+    counters = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t1 = time.perf_counter()
+    history = _train(model, ds, TRAIN_STEPS)
+    train_s = time.perf_counter() - t1
+    k1, k2, k3 = (c.value for c in counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [h["loss"] for h in history]
+    step_s = float(np.median([h["seconds"] for h in history[3:]]))
+    want = CONFIG["num_layers"] * TRAIN_STEPS
+    log({"train": "134m", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "precision": "bf16", "optim": f"AdamW lr={TRAIN_LR} "
+         f"decay={TRAIN_DECAY}", "clip_l2": TRAIN_CLIP, "losses": losses})
+    log({"train_steps": len(losses), "train_s": train_s,
+         "step_ms_median": step_s * 1e3,
+         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+         "peak_allocated_mib": peak_mib, "k1_launches": k1,
+         "k2_launches": k2, "k3_launches": k3})
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"loss did not fall: first {losses[0]}, last five {losses[-5:]}")
+    check(k1 == k2 == k3 == want,
+          f"training launched K1/K2/K3 {k1}/{k2}/{k3} times, want {want}")
+
+    # device busy share: kernel time over the wall time of 4 more steps;
+    # None ("not measured") when the profiler recorded nothing
+    extra = DataSet.array(samples[:4 * TRAIN_BATCH], seed=1) \
+        >> SampleToBatch(TRAIN_BATCH)
+    rows, wall = profiled(lambda: _train(model, extra, 4), "training steps")
+    busy = None if rows is None else sum(t for _, t in rows) / 1e6 / wall
+    top = ([] if rows is None else
+           sorted(((k[:60], t / 4) for k, t in rows), key=lambda r: -r[1])[:6])
+    log({"train_device_busy_share": busy, "profiled_steps": 4,
+         "profiled_wall_s": wall, "top_kernels_us_per_step": top,
+         "lm_head_ce_peak_mib": lm_head_ce_peak_mib()})
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_fwd": k1, "flash_bwd_dq": k2, "flash_bwd_dkv": k3}
+
+
 # ----------------------------------------------------------------- 4. timing
 def time_flash(launches: int) -> dict:
     from bigdl_tpu_torch.ops.flash_attention import (flash_attention_plain,
@@ -371,10 +693,11 @@ def time_flash(launches: int) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms, _ = device_ms(lambda: flash_attention_with_lse(q, k, v, causal=True),
-                      50)
+                      50, "flash_fwd")
     plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                            20)
-    library_ms, _ = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
+                            20, "flash_fwd plain")
+    library_ms, _ = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 50,
+                              "flash_fwd library")
     nbytes = 4 * b * s * n * d * 2 + b * n * s * 4   # q, k, v, o; lse f32
     ops = 4 * b * n * d * (s * (s + 1) // 2)         # causal (q, k) pairs
     bound_ms, bound_by = bound(nbytes, ops)
@@ -384,7 +707,66 @@ def time_flash(launches: int) -> dict:
             "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "work": f"one causal prefill launch, bf16 B={b} S={s} N={n} D={d}"}
+            "work": f"one causal prefill launch, bf16 B={b} S={s} N={n} "
+                    f"D={d}; launches: serving and training runs together"}
+
+
+def time_flash_bwd(launches: dict) -> list:
+    """K2 and K3 at the training shape (bf16, causal): one launch each,
+    its plain version, and the backward of ``scaled_dot_product_attention``
+    (one call for dQ, dK and dV, so the same number on both rows)."""
+    from bigdl_tpu_torch.ops.flash_attention import (
+        bwd_delta, flash_attention_with_lse, flash_bwd_dkv,
+        flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
+    b, s, n, d = TRAIN_BATCH, TRAIN_SEQ, CONFIG["num_heads"], 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
+    g_o = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    args = (q, k, v, g_o, lse, bwd_delta(o, g_o, None), True, 1.0 / d ** 0.5)
+    dq, (dk, dv) = flash_bwd_dq(*args), flash_bwd_dkv(*args)
+    pdq, (pdk, pdv) = flash_bwd_dq_plain(*args), flash_bwd_dkv_plain(*args)
+    errs = {}
+    for name, got, ref in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        errs[name], _, ok = bwd_close(got, ref)
+        check(ok, f"flash bwd {name} at the timed shape: |err| {errs[name]}")
+    ms_dq, _ = device_ms(lambda: flash_bwd_dq(*args), 20, "flash_bwd_dq")
+    ms_dkv, _ = device_ms(lambda: flash_bwd_dkv(*args), 20, "flash_bwd_dkv")
+    plain_dq, _ = device_ms(lambda: flash_bwd_dq_plain(*args), 5,
+                            "flash_bwd_dq plain")
+    plain_dkv, _ = device_ms(lambda: flash_bwd_dkv_plain(*args), 5,
+                             "flash_bwd_dkv plain")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    g_t = g_o.transpose(1, 2)
+    library_ms, _ = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), g_t, retain_graph=True), 20, "flash_bwd library")
+    bsnd, bns = b * s * n * d, b * n * s
+    pairs = b * n * s * (s + 1) // 2                 # causal (q, k) pairs
+    reads = 4 * bsnd * 2 + 2 * bns * 4               # q, k, v, dO; lse, delta
+    dq_bound = bound(reads + bsnd * 2, 3 * 2 * d * pairs)
+    dkv_bound = bound(reads + 2 * bsnd * 2, 4 * 2 * d * pairs)
+    work = f"one causal backward launch, bf16 B={b} S={s} N={n} D={d}"
+    lib_note = ("library_ms: the backward of scaled_dot_product_attention, "
+                "one call for dQ, dK and dV")
+    return [{"name": "flash_bwd_dq", "route": "cuda",
+             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "bigdl_tpu/ops/flash_attention.py:146",
+             "launches": launches["flash_bwd_dq"], "max_abs_err": errs["dq"],
+             "ms": ms_dq, "plain_ms": plain_dq, "bound_ms": dq_bound[0],
+             "bound_by": dq_bound[1], "library_ms": library_ms,
+             "work": f"{work}; {lib_note}"},
+            {"name": "flash_bwd_dkv", "route": "cuda",
+             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "bigdl_tpu/ops/flash_attention.py:186",
+             "launches": launches["flash_bwd_dkv"],
+             "max_abs_err": max(errs["dk"], errs["dv"]),
+             "ms": ms_dkv, "plain_ms": plain_dkv, "bound_ms": dkv_bound[0],
+             "bound_by": dkv_bound[1], "library_ms": library_ms,
+             "work": f"{work}; {lib_note}"}]
 
 
 def time_int8(twin, launches: int) -> dict:
@@ -429,9 +811,9 @@ def time_int8(twin, launches: int) -> dict:
         for (x, _, _), wd in zip(calls, deq):
             x @ wd.T
 
-    ms, _ = device_ms(kernel, 20)
-    plain_ms, _ = device_ms(plain, 10)
-    library_ms, _ = device_ms(library, 20)
+    ms, _ = device_ms(kernel, 20, "int8_matmul")
+    plain_ms, _ = device_ms(plain, 10, "int8_matmul plain")
+    library_ms, _ = device_ms(library, 20, "int8_matmul library")
     nbytes = sum(x.numel() * 2 + w.numel() + s.numel() * 4
                  + x.shape[0] * w.shape[0] * 4 for x, w, s in calls)
     ops = sum(2 * x.shape[0] * w.numel() for x, w, _ in calls)
@@ -440,8 +822,10 @@ def time_int8(twin, launches: int) -> dict:
     for (x, w, s), wd in zip(calls, deq):
         key = f"{w.shape[0]}x{w.shape[1]}"
         if key not in shapes:
-            one, _ = device_ms(lambda: int8_matmul_kernel(x, w, s), 50)
-            lib_one, _ = device_ms(lambda: x @ wd.T, 50)
+            one, _ = device_ms(lambda: int8_matmul_kernel(x, w, s), 50,
+                               f"int8_matmul {key}")
+            lib_one, _ = device_ms(lambda: x @ wd.T, 50,
+                                   f"int8_matmul {key} library")
             shapes[key] = {"ms": one, "library_ms": lib_one, "bound_ms": bound(
                 w.numel() + x.numel() * 2 + s.numel() * 4
                 + x.shape[0] * w.shape[0] * 4, 2 * x.shape[0] * w.numel())[0]}
@@ -466,9 +850,12 @@ def main() -> int:
     t0 = time.perf_counter()
     card = environment()
     check_flash()
+    check_flash_bwd()
     check_int8()
     int8_twin, launches = run_slice()
-    kernels = [time_flash(launches["flash_fwd"]),
+    train_launches = run_training()
+    kernels = [time_flash(launches["flash_fwd"] + train_launches["flash_fwd"]),
+               *time_flash_bwd(train_launches),
                time_int8(int8_twin, launches["int8_matmul"])]
     log({"total_s": time.perf_counter() - t0})
     print(card, flush=True)

@@ -17,8 +17,12 @@ import torch
 
 from bigdl_tpu_torch.models.generation import generate
 from bigdl_tpu_torch.models.lm_server import LMServer
+from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
 from bigdl_tpu_torch.models.transformer import build_lm
+from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
 from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+from bigdl_tpu_torch.optim.optimizer import Optimizer
 from bigdl_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
@@ -55,7 +59,7 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and bad == "[]"
+    assert int(n) >= 25 and bad == "[]"
 
 
 def test_sources_import_no_jax_or_reference():
@@ -75,10 +79,12 @@ def test_scan_pattern_catches_reference_imports():
 
 
 def test_kernel_sources_exist_and_name_what_they_replace():
-    for name, ref in (("flash_fwd", "bigdl_tpu/ops/flash_attention.py"),
-                      ("int8_matmul", "bigdl_tpu/ops/int8_matmul.py")):
+    fa = "bigdl_tpu/ops/flash_attention.py"
+    for name, refs in (("flash_fwd", (fa, "_fwd_kernel")),
+                       ("flash_bwd", (fa, "_bwd_dq_kernel", "_bwd_dkv_kernel")),
+                       ("int8_matmul", ("bigdl_tpu/ops/int8_matmul.py",))):
         text = (PKG / "csrc" / f"{name}.cu").read_text()
-        assert ref in text and "sm_90a" in text
+        assert all(ref in text for ref in refs) and "sm_90a" in text
 
 
 def _require_no_card():
@@ -107,7 +113,7 @@ def test_build_lm_raises_without_card():
 
 
 @pytest.mark.parametrize("entry", ["generate", "LMServer", "quantize_model",
-                                   "cast_model"])
+                                   "cast_model", "Optimizer"])
 def test_entry_points_raise_without_card(entry):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -116,6 +122,9 @@ def test_entry_points_raise_without_card(entry):
         "LMServer": lambda: LMServer(model, greedy=True),
         "quantize_model": lambda: quantize_model(model),
         "cast_model": lambda: cast_model(model),
+        "Optimizer": lambda: Optimizer(
+            model, DataSet.array(synthetic_corpus(2, 4, 50)) >> SampleToBatch(2),
+            FusedLMHeadCriterion()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -288,7 +288,7 @@ def test_prefill_takes_plain_core_on_cpu():
     assert flash_attention.LAUNCHES.value == before
 
 
-@pytest.mark.parametrize("bad", [dict(dropout=0.1), dict(window=4),
+@pytest.mark.parametrize("bad", [dict(norm_eps=1e-5), dict(window=4),
                                  dict(pos="learned"), dict(qkv_bias=True),
                                  dict(tie_embeddings=False, fused_head=False)])
 def test_build_lm_rejects_unported_options(bad):
