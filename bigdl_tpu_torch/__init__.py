@@ -17,7 +17,10 @@ Served today: ``models.transformer.build_lm`` ->
 
 Trained today: ``build_lm`` -> ``optim.Optimizer(model, dataset,
 nn.FusedLMHeadCriterion())`` with ``AdamW``, ``set_precision("bf16")`` and
-gradient clipping -> ``optimize()``.
+gradient clipping -> ``optimize()``; and ``models.resnet.build`` (ResNet-50,
+NHWC, with the fused conv+BN kernels behind ``BIGDL_TPU_FUSED_1X1`` /
+``BIGDL_TPU_FUSED_3X3``) -> ``Optimizer(model, dataset,
+nn.ClassNLLCriterion())`` with ``SGD`` -> ``optimize()``.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-"""Torch-convention state_dict interop for the causal LM (counterpart of
-``bigdl_tpu/interop/state_dict.py``).
+"""Weight interop (counterpart of ``bigdl_tpu/interop/state_dict.py``):
+torch-convention state dicts for the causal LM, and the reference's module
+trees for every other model (below ``flatten_tree``).
 
 This is how weights cross between the two packages: the reference's
 ``export_lm_state_dict`` writes a ``{name: f32 numpy array}`` dict in the
@@ -116,4 +117,65 @@ def import_lm_state_dict(model, state_dict: Dict[str, Any]):
     with torch.no_grad():
         for param, val in staged:
             param.copy_(torch.from_numpy(val))
+    return model
+
+
+# ------------------------------------------------- module trees (the ResNet slice)
+def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested ``{name: subtree or array}`` dict, such as the reference's
+    ``parameter_tree()`` or ``buffer_tree()``, as ``{dotted name: f32
+    numpy array}``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, value in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(value, dict):
+            out.update(flatten_tree(value, key + "."))
+        else:
+            out[key] = np.asarray(value, np.float32)
+    return out
+
+
+def export_tree_state(model: torch.nn.Module
+                      ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """``(params, buffers)`` of a model as ``{dotted name: f32 numpy
+    array}`` dicts. The names and layouts are the reference's
+    ``parameter_tree()`` and ``buffer_tree()`` flattened with dots
+    (children ``"0"``, ``"1"``, ..., conv weights HWIO)."""
+    def numpy(t):
+        return t.detach().float().cpu().numpy()
+    return ({n: numpy(p) for n, p in model.named_parameters()},
+            {n: numpy(b) for n, b in model.named_buffers()})
+
+
+def _check_names(kind: str, want: Dict[str, torch.Tensor],
+                 got: Dict[str, Any]) -> None:
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"{kind}: missing {missing[:4]}"
+                       f"{'...' if len(missing) > 4 else ''}, unexpected "
+                       f"{extra[:4]}{'...' if len(extra) > 4 else ''}")
+
+
+def import_tree_state(model: torch.nn.Module, params: Dict[str, Any],
+                      buffers: Dict[str, Any]) -> torch.nn.Module:
+    """Load ``{dotted name: array}`` parameters and buffers (the shape of
+    ``export_tree_state``'s, or the reference's trees through
+    ``flatten_tree``) into ``model`` in place. Every name must be present
+    and no other; every shape is checked before anything is written, so a
+    rejected state leaves the model as it was. Values are copied into the
+    existing tensors, on their device and in their dtype."""
+    staged = []
+    for kind, want, got in (("params", dict(model.named_parameters()), params),
+                            ("buffers", dict(model.named_buffers()), buffers)):
+        _check_names(kind, want, got)
+        for name, t in want.items():
+            val = np.array(got[name], np.float32)  # an owned copy
+            if tuple(val.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {val.shape} != expected "
+                                 f"{tuple(t.shape)}")
+            staged.append((t, val))
+    with torch.no_grad():
+        for t, val in staged:
+            t.copy_(torch.from_numpy(val))
     return model

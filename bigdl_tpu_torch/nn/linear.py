@@ -3,39 +3,44 @@
 
 Weight layouts keep the reference's (and Torch's) conventions: (out, in)
 for ``Linear`` and the heads, (vocab, dim) for the embedding table.
-Parameters are drawn from PyTorch's default generator with the reference's
-distributions; weights that must match another model are carried across
-with ``interop.state_dict``.
+Parameters are drawn with the reference's distributions from the
+``generator`` a builder passes (PyTorch's default one when it passes
+none); weights that must match another model are carried across with
+``interop.state_dict``.
 """
 
 from __future__ import annotations
 
-import math
+from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.nn import initialization as init
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.precision import match_compute
 
 
-def _uniform(shape, fan_in: int) -> torch.nn.Parameter:
+def _uniform(shape, fan_in: int,
+             generator: Optional[torch.Generator] = None
+             ) -> torch.nn.Parameter:
     """Torch default init: uniform(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
-    stdv = 1.0 / math.sqrt(max(1, fan_in))
-    return torch.nn.Parameter(torch.empty(shape).uniform_(-stdv, stdv))
+    return torch.nn.Parameter(init.default_init(shape, fan_in, generator))
 
 
 class Linear(Module):
     """Affine map ``y = x W^T + b`` (reference ``nn/linear.py:Linear``)."""
 
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True):
+                 with_bias: bool = True, *,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
-        self.weight = _uniform((output_size, input_size), input_size)
+        self.weight = _uniform((output_size, input_size), input_size,
+                               generator)
         if with_bias:
-            self.bias = _uniform((output_size,), input_size)
+            self.bias = _uniform((output_size,), input_size, generator)
 
     def forward(self, input):
         y = torch.matmul(match_compute(input, self.weight), self.weight.T)

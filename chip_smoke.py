@@ -15,7 +15,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the serving and training paths' shapes, with the tolerances stated
    below; the flash backward (K2, K3) through the autograd ``Function``
    against ``flash_attention_bwd_plain`` fed the same o, lse and
-   cotangents, and against autograd through the plain attention core;
+   cotangents, and against autograd through the plain attention core; the
+   fused conv+BN-statistics kernels K5 (1x1 matmul) and K6 (3x3 conv) at
+   every distinct fused shape of ResNet-50 at B=32 and the reference
+   tests' ragged shapes, f32 and bf16, and at every fused shape of the
+   training run (B=256) in bf16, with bit-identical statistics on a second
+   run, and their training ``Function``s against autograd through the
+   plain composition;
 3. slice: the 134M Llama-recipe LM (``scripts/int8_decode_bench.py``'s
    ``134m`` config: V=32000, E=768, 12 heads, 4 kv heads, FFN 3072, 12
    layers, RoPE, SwiGLU, RMSNorm, tied embeddings) built from a seed at full
@@ -34,19 +40,40 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    losses must be finite, the mean of the last five below the first, and
    K1, K2 and K3 each launched exactly 12 x 20 times (counters zeroed just
    before the run);
+3c. ResNet-50 (bench.py's resnet50 workload, ``resnet.build(1000, 50)``,
+   full width and depth) with both fusion gates set: every gradient and
+   updated running statistic of one f32 batch (B=8, 224x224) on the card,
+   measured against an f64 CPU copy and held to twice the unfused card
+   model's distance from it, with the losses of a CPU f32 copy and of the
+   unfused card model on the same weights; then ``Optimizer`` trains 20 iterations at B=256 of bench.py's recipe
+   (constant N(0, 1) images, ``ClassNLLCriterion``, SGD 0.1 with momentum
+   0.9, bf16 compute over f32 masters): finite, falling losses, K5 and K6
+   launched exactly 36 x 20 and 13 x 20 times, every running statistic
+   finite and moved, and the trained model's eval forward (BN folded)
+   equal to the unfused model's; then the A/B with the gates unset
+   (cuDNN convs and ``batch_norm_train``): step time, images/s, device
+   busy share, peak memory and the top kernels of both paths;
 4. timing: each kernel is checked once more against its plain version at
    the served shape, then it (``ms``), its plain version (``plain_ms``) and
    one PyTorch library call for the same function (``library_ms``) are
    timed as device time by ``torch.profiler``, or by CUDA events where the
    profiler records nothing (K2 and K3 at the training shape, B=8 S=512
-   N=12 D=64 bf16 causal); the bound (``bound_ms``) is
-   the larger of the bytes the function must move over 3.35 TB/s and its
-   operations over 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
+   N=12 D=64 bf16 causal; K5 and K6 at ResNet-50's stage-1 and stage-4
+   shapes at B=256, bf16, where the library time is the cuBLAS product or
+   the cuDNN conv plus one ``torch.var_mean`` of its output); the bound
+   (``bound_ms``) is the larger of the bytes the function must move over
+   3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
+   bf16 dense).
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
+
+``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
+and runs only phase 3c's gradient check, once per seed, printing each
+seed's readings and no result line.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -387,6 +414,183 @@ def check_int8():
          "max_rel_err": worst})
 
 
+CONV_F32_RTOL, CONV_F32_ATOL = 1e-4, 1e-5
+CONV_BF16_ATOL = 1e-5
+STATS_RTOL = 1e-5
+CONV_GRAD_RTOL = 1e-4
+RESNET_WIDTHS, RESNET_REPS = (64, 128, 256, 512), (3, 4, 6, 3)
+
+
+def resnet50_conv_shapes(b: int):
+    """The distinct conv shapes of ResNet-50's fused pairs at batch b:
+    1x1 as (N, H, W, Cin, Cout, stride), the stride-2 projections taking the
+    full-resolution input that the module subsamples, and stride-1 3x3 as
+    (N, H, W, Cin, Cout)."""
+    ones, threes = [], []
+    hw, n_in = 56, 64
+    for stage, (width, reps) in enumerate(zip(RESNET_WIDTHS, RESNET_REPS)):
+        for i in range(reps):
+            stride = 2 if stage > 0 and i == 0 else 1
+            out_hw = hw // stride
+            ones.append((b, hw, hw, n_in, width, 1))
+            if stride == 1:
+                threes.append((b, hw, hw, width, width))
+            ones.append((b, out_hw, out_hw, width, 4 * width, 1))
+            if i == 0:
+                ones.append((b, hw, hw, n_in, 4 * width, stride))
+            hw, n_in = out_hw, 4 * width
+    return list(dict.fromkeys(ones)), list(dict.fromkeys(threes))
+
+
+def y_close(got: torch.Tensor, ref: torch.Tensor):
+    """A fused kernel's y against its plain version's, element by element.
+    float32: within CONV_F32_RTOL * max|ref| + CONV_F32_ATOL (f32 sums of up
+    to 9 * 512 products in another order). bfloat16: within one bf16 step
+    of the element, 2^-7 * |ref|, plus CONV_BF16_ATOL: both round an f32
+    sum to bf16, and where that sum is near zero its f32 ordering error can
+    exceed the element's own step (on an H100 the largest excess over one
+    step measured 1.2e-6, at the training run's B=256 shapes, so the atol
+    keeps a margin of 8). Returns (max
+    |got - ref|, the largest excess over the one-step part in bf16 or the
+    error over max|ref| in f32, whether every element holds)."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    if got.dtype == torch.bfloat16:
+        step = 2 ** -7 * r.abs()
+        ok = diff <= step + CONV_BF16_ATOL
+        excess = (diff - step).clamp_min(0).max().item()
+    else:
+        ok = diff <= CONV_F32_RTOL * r.abs().max() + CONV_F32_ATOL
+        excess = (diff.max() / r.abs().max().clamp_min(1e-30)).item()
+    return (diff.max().item(), excess,
+            bool(ok.all().item() and torch.isfinite(g).all().item()))
+
+
+def stats_close(got, ref, y_ref: torch.Tensor):
+    """The kernel's (col_sum, col_sumsq) against the plain version's, per
+    channel, within STATS_RTOL of sum|y| and of sum y^2 of that channel
+    (f32 sums of up to 802,816 values in another order; an H100 run
+    measured at most 6.7e-7, in f32 and bf16 alike, since both sum f32
+    products). Returns the largest error over those scales and whether
+    both hold."""
+    y = y_ref.float().reshape(-1, y_ref.shape[-1])
+    worst, ok = 0.0, True
+    for g, r, scale in ((got[0], ref[0], y.abs().sum(0)),
+                        (got[1], ref[1], (y * y).sum(0))):
+        rel = ((g - r).abs() / scale.clamp_min(1e-30)).max().item()
+        worst = max(worst, rel)
+        ok = ok and rel <= STATS_RTOL and bool(torch.isfinite(g).all().item())
+    return worst, ok
+
+
+def check_conv_bn():
+    """K5 and K6 against ``matmul_with_stats_plain`` and
+    ``conv3x3_with_stats_plain`` through the public wrappers, at every
+    distinct fused 1x1 and stride-1 3x3 shape of ResNet-50 at B=32 (the
+    stride-2 projections through the module's subsample and copy) and at
+    the reference tests' ragged shapes (K=3, K=12, odd 5x7 images, Cin=3,
+    Cout off the 64-channel tile), each in f32 and bf16, and at every such
+    shape of the training run (B=RESNET_BATCH, bf16): y as in ``y_close``,
+    the statistics as in ``stats_close``, and two runs of each kernel give
+    bit-identical statistics."""
+    from bigdl_tpu_torch.ops.conv3x3_bn import (conv3x3_with_stats,
+                                                conv3x3_with_stats_plain)
+    from bigdl_tpu_torch.ops.matmul_bn import (matmul_with_stats,
+                                               matmul_with_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    ones, threes = resnet50_conv_shapes(32)
+    mm_cases = ones + [(1, 1, m, k, n, 1) for m, k, n in
+                       ((512, 64, 256), (300, 48, 100), (64, 16, 128),
+                        (257, 3, 5), (1000, 12, 70))]
+    conv_cases = threes + [(2, 8, 8, 4, 8), (1, 5, 7, 3, 2), (3, 4, 4, 8, 16),
+                           (2, 6, 9, 16, 70)]
+    train_ones, train_threes = resnet50_conv_shapes(RESNET_BATCH)
+    runs = [(f32, mm_cases, conv_cases), (bf16, mm_cases, conv_cases),
+            (bf16, train_ones, train_threes)]
+    worst = {f32: 0.0, bf16: 0.0, "stats": 0.0}
+
+    def one(name, fn, plain, x, w):
+        got, again, ref = fn(x, w), fn(x, w), plain(x, w)
+        torch.cuda.synchronize()
+        err, ex, ok = y_close(got[0], ref[0])
+        st, st_ok = stats_close(got[1:], ref[1:], ref[0])
+        same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+        check(ok and st_ok and same and got[0].shape == ref[0].shape
+              and got[0].dtype == x.dtype,
+              f"{name} {x.dtype}: |y err| {err} (excess {ex}), stats "
+              f"{st}, deterministic {same}")
+        worst[x.dtype] = max(worst[x.dtype], ex)
+        worst["stats"] = max(worst["stats"], st)
+
+    for dt, k5_cases, k6_cases in runs:
+        for n, h, w, cin, cout, s in k5_cases:
+            x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
+            wt = (torch.randn((cin, cout), generator=gen, device="cuda")
+                  / cin ** 0.5).to(dt)
+            x2d = x[:, ::s, ::s, :].reshape(-1, cin)  # as FusedConv1x1BN does
+            one(f"K5 M={x2d.shape[0]} K={cin} N={cout} stride={s}",
+                matmul_with_stats, matmul_with_stats_plain, x2d, wt)
+        for n, h, w, cin, cout in k6_cases:
+            x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
+            wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+                  / (9 * cin) ** 0.5).to(dt)
+            one(f"K6 N={n} {h}x{w} {cin}->{cout}", conv3x3_with_stats,
+                conv3x3_with_stats_plain, x, wt)
+    log({"check": "conv_bn_kernels",
+         "cases": sum(len(a) + len(b) for _, a, b in runs),
+         "k5_shapes_resnet50_b32": len(ones), "k6_shapes_resnet50_b32":
+         len(threes), f"k5_k6_shapes_resnet50_b{RESNET_BATCH}_bf16":
+         [len(train_ones), len(train_threes)],
+         "f32_max_err_over_max_ref": worst[f32],
+         "bf16_max_excess_over_one_step": worst[bf16],
+         "stats_max_err_over_scale": worst["stats"]})
+
+
+def check_conv_bn_autograd():
+    """``conv1x1_bn_train`` (K5) and ``conv3x3_bn_train`` (K6) against
+    autograd through the plain composition (the f32 product or conv, then
+    ``batch_norm_train``), in f32 at ResNet-50 stage-3 shapes (B=32, 14x14:
+    1x1 1024 -> 256, 3x3 256 -> 256), with a random cotangent: out, dx,
+    dw, dgamma and dbeta within CONV_GRAD_RTOL of max|ref| per tensor."""
+    from bigdl_tpu_torch.ops.batch_norm import batch_norm_train
+    from bigdl_tpu_torch.ops.conv3x3_bn import _conv3x3, conv3x3_bn_train
+    from bigdl_tpu_torch.ops.conv_bn import conv1x1_bn_train
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    cases = {
+        "conv1x1_bn_train": (conv1x1_bn_train, lambda x, w: x @ w,
+                             rnd(32 * 14 * 14, 1024), rnd(1024, 256) / 32),
+        "conv3x3_bn_train": (conv3x3_bn_train, _conv3x3,
+                             rnd(32, 14, 14, 256), rnd(3, 3, 256, 256) / 48)}
+    worst = {}
+    for name, (fused, product, x, w) in cases.items():
+        cout = w.shape[-1]
+        g, b = 1 + 0.1 * rnd(cout), 0.1 * rnd(cout)
+        cot = rnd(*x.shape[:-1], cout)
+        grads = []
+        for path in ("fused", "plain"):
+            ts = [t.detach().clone().requires_grad_() for t in (x, w, g, b)]
+            if path == "fused":
+                out, _, _ = fused(*ts, 1e-5)
+            else:
+                out, _, _ = batch_norm_train(product(ts[0], ts[1]), ts[2],
+                                             ts[3], 1e-5)
+            out.backward(cot)
+            grads.append([out.detach()] + [t.grad for t in ts])
+        torch.cuda.synchronize()
+        errs = []
+        for what, got, ref in zip(("out", "dx", "dw", "dgamma", "dbeta"),
+                                  *grads):
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            check(err <= CONV_GRAD_RTOL and torch.isfinite(got).all().item(),
+                  f"{name} {what} against autograd of the plain composition:"
+                  f" {err} of max|ref|")
+            errs.append(err)
+        worst[name] = max(errs)
+    log({"check": "conv_bn_autograd_f32", **worst})
+
+
 # ------------------------------------------------------------------ 3. slice
 def serve(model, prompts):
     """All prompts from threads through one LMServer; returns the answers,
@@ -677,6 +881,361 @@ def run_training() -> dict:
     return {"flash_fwd": k1, "flash_bwd_dq": k2, "flash_bwd_dkv": k3}
 
 
+# -------------------------------------------------------------- 3c. ResNet-50
+RESNET_BATCH, RESNET_STEPS, AB_STEPS = 256, 20, 5
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_GRAD_BATCH = 8
+RESNET_GRAD_SEED = 11
+RESNET_LOSS_RTOL = 1e-5
+GRAD_TRUTH_FACTOR = 2
+EVAL_RTOL = 1e-4
+FUSION_GATES = ("BIGDL_TPU_FUSED_1X1", "BIGDL_TPU_FUSED_3X3")
+K5_PER_STEP, K6_PER_STEP = 36, 13
+_CONV_BN_FIELDS = ("weight", "bias", "gamma", "beta", "running_mean",
+                   "running_var")
+
+
+def build_resnet50(fused: bool, device: str, seed: int):
+    """``resnet.build(1000, 50)``, bench.py's resnet50 workload, with both
+    fusion gates set (``fused``) or unset; the environment is restored."""
+    from bigdl_tpu_torch.models import resnet
+    saved = {g: os.environ.get(g) for g in FUSION_GATES}
+    try:
+        for g in FUSION_GATES:
+            if fused:
+                os.environ[g] = "1"
+            else:
+                os.environ.pop(g, None)
+        return resnet.build(1000, 50, device=device, seed=seed)
+    finally:
+        for g, v in saved.items():
+            if v is None:
+                os.environ.pop(g, None)
+            else:
+                os.environ[g] = v
+
+
+def state_units(model):
+    """The model's state as ``(kind, {field: tensor})`` units in forward
+    order, named alike whether or not conv+BN pairs are fused: every pair
+    (a fused module, or a conv followed by a ``BatchNormalization``) is one
+    ``"conv_bn"`` unit of ``_CONV_BN_FIELDS``; every other leaf module with
+    parameters or buffers is a unit of its own, named by its class. Pairs
+    are found by registration order, which is forward order in the ResNet
+    builders."""
+    from bigdl_tpu_torch.nn.fused import _FusedConvBN
+    from bigdl_tpu_torch.nn.normalization import BatchNormalization
+    leaves = [m for m in model.modules()
+              if not m._modules and (m._parameters or m._buffers)]
+    units, i = [], 0
+    while i < len(leaves):
+        m = leaves[i]
+        nxt = leaves[i + 1] if i + 1 < len(leaves) else None
+        if isinstance(m, _FusedConvBN):
+            units.append(("conv_bn", {f: getattr(m, f) for f in _CONV_BN_FIELDS
+                                      if hasattr(m, f)}))
+            i += 1
+        elif (not isinstance(m, BatchNormalization)
+              and isinstance(nxt, BatchNormalization) and nxt.affine):
+            unit = {"weight": m.weight, "gamma": nxt.weight, "beta": nxt.bias,
+                    "running_mean": nxt.running_mean,
+                    "running_var": nxt.running_var}
+            if getattr(m, "with_bias", False):
+                unit["bias"] = m.bias
+            units.append(("conv_bn", unit))
+            i += 2
+        else:
+            units.append((type(m).__name__,
+                          {**dict(m.named_parameters()),
+                           **dict(m.named_buffers())}))
+            i += 1
+    return units
+
+
+def transfer_state(src, dst):
+    """Copy every parameter and buffer of ``src`` into ``dst`` where the two
+    models are the same network but one fuses conv+BN pairs that the other
+    keeps apart (a ResNet built with and without the fusion gates): a
+    ``FusedConv1x1BN``/``FusedConv3x3BN`` carries its conv weight (HWIO,
+    the same layout), ``gamma``, ``beta`` and running statistics to and
+    from a conv and the ``BatchNormalization`` after it. Shapes are checked
+    before anything is written."""
+    a, b = state_units(src), state_units(dst)
+    if len(a) != len(b):
+        raise ValueError(f"the models differ: {len(a)} and {len(b)} units "
+                         "with state")
+    pairs = []
+    for (kind_a, ta), (kind_b, tb) in zip(a, b):
+        if kind_a != kind_b or sorted(ta) != sorted(tb):
+            raise ValueError(f"the models differ: {kind_a}{sorted(ta)} vs "
+                             f"{kind_b}{sorted(tb)}")
+        for f, t in ta.items():
+            if t.shape != tb[f].shape:
+                raise ValueError(f"{kind_a}.{f}: shape {tuple(t.shape)} vs "
+                                 f"{tuple(tb[f].shape)}")
+            pairs.append((tb[f], t))
+    with torch.no_grad():
+        for dst_t, src_t in pairs:
+            dst_t.copy_(src_t)
+    return dst
+
+
+def imagenet_batch(b: int, seed: int):
+    """bench.py's constant data: N(0, 1) NHWC images and 1-based labels."""
+    from bigdl_tpu_torch.dataset.base import MiniBatch
+    rng = np.random.default_rng(seed)
+    return MiniBatch(rng.normal(0, 1, (b, 224, 224, 3)).astype(np.float32),
+                     rng.integers(1, 1001, (b,)).astype(np.float32))
+
+
+def conv_bn_counters():
+    from bigdl_tpu_torch.ops import conv3x3_bn, matmul_bn
+    return matmul_bn.LAUNCHES, conv3x3_bn.LAUNCHES
+
+
+def _unit_state(model):
+    """{name: gradient of a parameter, or a buffer} over every parameter
+    and buffer, named by ``state_units`` so that a fused and an unfused
+    model agree."""
+    return {f"{i}:{kind}.{field}": (t.grad if t.requires_grad else t)
+            for i, (kind, unit) in enumerate(state_units(model))
+            for field, t in sorted(unit.items())}
+
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def resnet_grad_check(seed: int = RESNET_GRAD_SEED) -> dict:
+    """ResNet-50, one f32 batch of RESNET_GRAD_BATCH images at 224x224,
+    through four models that carry the same weights (built from ``seed``):
+    the fused model on the card (K5 and K6); its CPU copy
+    (``export_tree_state`` -> ``import_tree_state``), which takes the
+    kernels' plain versions; the unfused model (gates unset, weights
+    through ``transfer_state``) on the card, cuDNN convs and
+    ``batch_norm_train``; and the unfused model on the CPU in f64, the
+    reference that each f32 path is measured against. The f32 losses agree
+    with the f64 one within RESNET_LOSS_RTOL; the card launches K5 and K6
+    once per fused pair and the unfused model neither. Every gradient and
+    updated running statistic of the fused model on the card is finite,
+    and its relative L2 distance to the f64 reference is within GRAD_RTOL
+    or within GRAD_TRUTH_FACTOR times the unfused card model's distance for
+    the same tensor, whichever is larger: ResNet-50 at random init turns
+    f32 rounding into percent-level gradient differences on every f32 path,
+    so the library path's own distance to the truth is the scale the
+    kernels' path is held to. Returns the readings."""
+    from bigdl_tpu_torch.interop.state_dict import (export_tree_state,
+                                                    import_tree_state)
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    card = build_resnet50(True, "cuda", seed=seed)
+    cpu = build_resnet50(True, "cpu", seed=seed + 1)
+    import_tree_state(cpu, *export_tree_state(card))
+    plain_card = build_resnet50(False, "cuda", seed=seed + 2)
+    truth = build_resnet50(False, "cpu", seed=seed + 3)
+    for m in (plain_card, truth):
+        transfer_state(card, m)
+    truth.double()
+    batch = imagenet_batch(RESNET_GRAD_BATCH, seed + 4)
+    k5, k6 = conv_bn_counters()
+    losses, states = [], []
+    for m in (card, cpu, plain_card, truth):
+        p = next(m.parameters())
+        m.train()
+        k5.reset()
+        k6.reset()
+        x = torch.as_tensor(batch.data, device=p.device).to(p.dtype)
+        loss = ClassNLLCriterion()(m(x), torch.as_tensor(batch.labels,
+                                                         device=p.device))
+        loss.backward()
+        losses.append(loss.item())
+        states.append(_unit_state(m))
+        want = ((K5_PER_STEP, K6_PER_STEP) if m is card else (0, 0))
+        check((k5.value, k6.value) == want,
+              f"the gradient run launched K5/K6 {k5.value}/{k6.value} times,"
+              f" want {want}")
+    for got in losses[:3]:
+        rel = abs(got - losses[3]) / abs(losses[3])
+        check(rel <= RESNET_LOSS_RTOL,
+              f"ResNet-50 losses {losses} (fused card, fused CPU, unfused "
+              f"card, f64): {rel}")
+    fused, fused_cpu, lib, ref = states
+    dist = {f"{path}_{kind}": [] for path in ("fused_card", "fused_cpu_f32",
+                                              "unfused_card")
+            for kind in ("grads", "running_stats")}
+    over, worst, by_depth = [], {"ratio": 0.0, "name": ""}, []
+    for name, want in ref.items():
+        got = fused[name]
+        check(got is not None and torch.isfinite(got).all().item(),
+              f"{name} on the card is missing or not finite")
+        d_f, d_u = _rel_l2(got, want), _rel_l2(lib[name], want)
+        kind = "running_stats" if "running_" in name else "grads"
+        dist[f"fused_card_{kind}"].append(d_f)
+        dist[f"fused_cpu_f32_{kind}"].append(_rel_l2(fused_cpu[name], want))
+        dist[f"unfused_card_{kind}"].append(d_u)
+        if name.endswith("conv_bn.weight") or "Linear" in name:
+            by_depth.append((name, d_u))
+        if d_f > max(GRAD_RTOL, GRAD_TRUTH_FACTOR * d_u):
+            over.append((name, d_f, d_u))
+        ratio = d_f / max(d_u, GRAD_RTOL)
+        if ratio > worst["ratio"]:
+            worst.update(ratio=ratio, name=name)
+    readings = {"check": f"grad_resnet50_f32_B{RESNET_GRAD_BATCH}_vs_f64",
+                "seed": seed, "tensors": len(ref),
+                "losses_fused_card_fused_cpu_unfused_card_f64": losses,
+                **{f"{k}_rel_l2_median": float(np.median(v))
+                   for k, v in dist.items()},
+                **{f"{k}_rel_l2_max": max(v) for k, v in dist.items()},
+                "max_ratio_fused_over_unfused_card": worst["ratio"],
+                "worst_ratio_tensor": worst["name"],
+                # the unfused card model's weight-gradient distance from the
+                # stem (first) to the head (last): every eighth conv, the
+                # last conv and the head's Linear
+                "unfused_card_weight_grad_by_depth":
+                    by_depth[::8] + by_depth[-3:],
+                "fused_card_vs_fused_cpu_rel_l2_median": float(np.median(
+                    [_rel_l2(fused[n], fused_cpu[n]) for n in ref]))}
+    log(readings)
+    check(not over, f"{len(over)} tensors of the fused card model are further"
+          f" than {GRAD_TRUTH_FACTOR}x the unfused card model from the f64 "
+          f"reference, e.g. (name, fused, unfused): {over[:3]}")
+    return readings
+
+
+def train_resnet(model, batch, steps: int):
+    """bench.py's recipe through ``Optimizer``: ``ClassNLLCriterion``,
+    SGD(0.1, momentum 0.9), bf16 compute over f32 masters; the dataset is
+    the one constant batch, ``steps`` times."""
+    from bigdl_tpu_torch.dataset.base import DataSet
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    opt = (Optimizer(model, DataSet.array([batch] * steps, seed=0),
+                     ClassNLLCriterion(), device="cuda")
+           .set_precision("bf16")
+           .set_optim_method(SGD(learningrate=RESNET_LR,
+                                 momentum=RESNET_MOMENTUM))
+           .set_end_when(Trigger.max_iteration(steps)))
+    opt.optimize()
+    torch.cuda.synchronize()
+    return opt.history
+
+
+def profile_steps(model, batch, what: str) -> dict:
+    """Device busy share and the top five kernels over two more steps;
+    None ("not measured") when the profiler recorded nothing."""
+    rows, wall = profiled(lambda: train_resnet(model, batch, 2), what)
+    if rows is None:
+        return {"device_busy_share": None, "top_kernels_ms_per_step": []}
+    per_step = sorted(((k[:70], t / 2e3) for k, t in rows),
+                      key=lambda r: -r[1])
+    layout = [(k, ms) for k, ms in per_step
+              if any(w in k.lower() for w in ("copy", "nchw", "nhwc",
+                                               "transpose"))]
+    return {"device_busy_share": sum(t for _, t in rows) / 1e6 / wall,
+            "kernel_ms_per_step": sum(t for _, t in rows) / 2e3,
+            "top_kernels_ms_per_step": per_step[:5],
+            "copy_and_layout_kernels_ms_per_step": layout[:6]}
+
+
+def run_resnet() -> dict:
+    """Phase 3c; returns the K5 and K6 launches of the 20-step run."""
+    from bigdl_tpu_torch.nn.conv import SpatialConvolution
+    t0 = time.perf_counter()
+    resnet_grad_check()
+    log({"resnet_grad_check_s": time.perf_counter() - t0})
+    batch = imagenet_batch(RESNET_BATCH, 5)
+    t1 = time.perf_counter()
+    torch.as_tensor(batch.data).pin_memory().to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    log({"batch_mib": batch.data.nbytes / 2 ** 20,
+         "pin_and_copy_ms": (time.perf_counter() - t1) * 1e3})
+
+    model = build_resnet50(True, "cuda", seed=7)
+    k5, k6 = conv_bn_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.reset()
+    k6.reset()
+    history = train_resnet(model, batch, RESNET_STEPS)
+    launches = {"matmul_bn": k5.value, "conv3x3_bn": k6.value}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [h["loss"] for h in history]
+    # the last iteration's interval is cut short: its loss is fetched right
+    # after the one before it
+    step_s = float(np.median([h["seconds"] for h in history[5:-1]]))
+    log({"train": "resnet50", "batch": RESNET_BATCH, "precision": "bf16",
+         "optim": f"SGD lr={RESNET_LR} momentum={RESNET_MOMENTUM}",
+         "fused": True, "losses": losses})
+    fused = {"step_ms_median": step_s * 1e3,
+             "images_per_s": RESNET_BATCH / step_s,
+             "peak_allocated_mib": peak_mib}
+    check(len(losses) == RESNET_STEPS and all(np.isfinite(losses)),
+          f"ResNet-50 losses {losses}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"ResNet-50 loss did not fall: first {losses[0]}, last five "
+          f"{losses[-5:]}")
+    want = {"matmul_bn": K5_PER_STEP * RESNET_STEPS,
+            "conv3x3_bn": K6_PER_STEP * RESNET_STEPS}
+    check(launches == want, f"training launched {launches}, want {want}")
+    for name, buf in model.named_buffers():
+        start = 0.0 if name.endswith("running_mean") else 1.0
+        check(torch.isfinite(buf).all().item()
+              and (buf - start).abs().max().item() > 0,
+              f"running statistic {name} is not finite or did not move")
+
+    # the trained fused model in eval mode (BN folded, no kernel) against
+    # the unfused model carrying the same weights and buffers, within
+    # EVAL_RTOL of max(1, max|log-prob|): f32 convs of folded or unfolded
+    # weights (an H100 run measured 4.3e-5 at max|log-prob| 17.3)
+    plain = build_resnet50(False, "cuda", seed=8)
+    transfer_state(model, plain)
+    x = torch.as_tensor(batch.data[:8], device="cuda")
+    model.eval()
+    plain.eval()
+    with torch.no_grad():
+        got, ref = model(x), plain(x)
+    eval_err = (got - ref).abs().max().item()
+    check(got.shape == (x.shape[0], 1000) and torch.isfinite(got).all().item()
+          and eval_err <= EVAL_RTOL * max(1.0, ref.abs().max().item()),
+          f"eval: fused vs unfused log-probs differ by {eval_err}")
+    log({"check": "resnet50_eval_fused_vs_unfused_f32",
+         "max_abs_err": eval_err, "max_abs_ref": ref.abs().max().item()})
+    model.train()
+    plain.train()
+    fused.update(profile_steps(model, batch, "resnet50 fused steps"))
+    del model
+    torch.cuda.empty_cache()
+
+    # the A/B: the reference's default path (cuDNN convs + batch_norm_train)
+    torch.cuda.reset_peak_memory_stats()
+    k5.reset()
+    k6.reset()
+    hist = train_resnet(plain, batch, AB_STEPS + 4)
+    check((k5.value, k6.value) == (0, 0), "the unfused path launched K5/K6")
+    step_u = float(np.median([h["seconds"] for h in hist[3:-1]]))
+    unfused = {"step_ms_median": step_u * 1e3,
+               "images_per_s": RESNET_BATCH / step_u,
+               "peak_allocated_mib": torch.cuda.max_memory_allocated()
+               / 2 ** 20,
+               "losses": [h["loss"] for h in hist]}
+    unfused.update(profile_steps(plain, batch, "resnet50 unfused steps"))
+    # a plain conv's NHWC input is a channels-last view and its output
+    # comes back NHWC-contiguous: no copy around cuDNN
+    conv = next(m for m in plain.modules()
+                if isinstance(m, SpatialConvolution) and m.kernel_h == 3)
+    xin = torch.randn(32, 56, 56, conv.n_input_plane, device="cuda")
+    with torch.no_grad():
+        out = conv(xin)
+    layout = {"input_view_channels_last": xin.permute(0, 3, 1, 2)
+              .is_contiguous(memory_format=torch.channels_last),
+              "output_nhwc_contiguous": out.is_contiguous()}
+    log({"ab": "resnet50_train_bf16_B256", "fused_k5_k6": fused,
+         "unfused_cudnn": unfused, "plain_conv_layout": layout})
+    del plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------------------- 4. timing
 def time_flash(launches: int) -> dict:
     from bigdl_tpu_torch.ops.flash_attention import (flash_attention_plain,
@@ -840,7 +1399,96 @@ def time_int8(twin, launches: int) -> dict:
                     f"{sum(w.numel() for _, w, _ in calls)} weight bytes"}
 
 
-def main() -> int:
+def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
+    """One fused-statistics kernel at one shape: checked once more against
+    its plain version, then its device time, its plain version's, and the
+    library's product and one fused reduction of the product's two sums
+    (``torch.var_mean``: one read of y, the same information)."""
+    got, ref = kernel(x, w), plain(x, w)
+    torch.cuda.synchronize()
+    err, _, ok = y_close(got[0], ref[0])
+    _, st_ok = stats_close(got[1:], ref[1:], ref[0])
+    check(ok and st_ok, f"{name} at the timed shape: |y err| {err}")
+    y = library(x, w)
+    y2d = y.reshape(-1, y.shape[-1])
+    ms, _ = device_ms(lambda: kernel(x, w), 10, name)
+    plain_ms, _ = device_ms(lambda: plain(x, w), 3, f"{name} plain")
+    product_ms, _ = device_ms(lambda: library(x, w), 10, f"{name} library")
+    reduce_ms, _ = device_ms(
+        lambda: torch.var_mean(y2d, dim=0, correction=0), 10,
+        f"{name} library reduction")
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": product_ms + reduce_ms,
+            "library_product_ms": product_ms,
+            "library_reduction_ms": reduce_ms, "max_abs_err": err}
+
+
+def time_conv_bn(launches: dict) -> list:
+    """K5 and K6 in bf16 at B=256: the largest-M shape (stage 1) as the
+    entry's numbers and the deepest one (stage 4) beside them. The bound
+    counts x, w and y in bf16 and the two f32 sums once each, and
+    2 * M * K * N (K6: 2 * N * H * W * 9 * Cin * Cout) operations."""
+    from bigdl_tpu_torch.ops.conv3x3_bn import (_conv3x3,
+                                                conv3x3_with_stats_kernel,
+                                                conv3x3_with_stats_plain)
+    from bigdl_tpu_torch.ops.matmul_bn import (matmul_with_stats_kernel,
+                                               matmul_with_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    b = RESNET_BATCH
+    k5 = {}
+    for stage, (m, k, n) in (("stage1", (b * 56 * 56, 64, 256)),
+                             ("stage4", (b * 7 * 7, 512, 2048))):
+        x, w = rnd(m, k).to(bf16), (rnd(k, n) / k ** 0.5).to(bf16)
+        k5[stage] = _time_stats_kernel(
+            f"matmul_bn {stage}", matmul_with_stats_kernel,
+            matmul_with_stats_plain, lambda x, w: x @ w, x, w,
+            2 * (m * k + k * n + m * n) + 8 * n, 2 * m * k * n)
+        k5[stage]["shape"] = f"M={m} K={k} N={n} bf16"
+    k6 = {}
+    for stage, (h, c) in (("stage1", (56, 64)), ("stage4", (7, 512))):
+        x, w = rnd(b, h, h, c).to(bf16), (rnd(3, 3, c, c) / (3 * c ** 0.5)
+                                          ).to(bf16)
+        k6[stage] = _time_stats_kernel(
+            f"conv3x3_bn {stage}", conv3x3_with_stats_kernel,
+            conv3x3_with_stats_plain, _conv3x3, x, w,
+            2 * (2 * b * h * h * c + 9 * c * c) + 8 * c,
+            2 * b * h * h * 9 * c * c)
+        k6[stage]["shape"] = f"N={b} {h}x{h} {c}->{c} bf16"
+    entries = []
+    for name, src, ref, per, lib in (
+            ("matmul_bn", "matmul_bn.cu", "bigdl_tpu/ops/matmul_bn.py:67", k5,
+             "x @ w (cuBLAS) + torch.var_mean of y"),
+            ("conv3x3_bn", "conv3x3_bn.cu", "bigdl_tpu/ops/conv3x3_bn.py:68",
+             k6, "F.conv2d (cuDNN) + torch.var_mean of y")):
+        main = per["stage1"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"bigdl_tpu_torch/csrc/{src}", "replaces": ref,
+            "launches": launches[name], "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_product_ms": main["library_product_ms"],
+            "library_reduction_ms": main["library_reduction_ms"],
+            "work": f"one launch at the stage-1 shape, {main['shape']}; "
+                    f"library_ms: {lib}; launches: the 20-step ResNet-50 "
+                    "training run",
+            "stage4": per["stage4"]})
+    log({"conv_bn_timing": {"matmul_bn": k5, "conv3x3_bn": k6}})
+    return entries
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--resnet-grad-seeds", type=int, nargs="+", metavar="SEED",
+        help="run only the kernels' build and phase 3c's ResNet-50 gradient "
+             "check against the f64 reference, once per seed, and print "
+             "each seed's readings (no result line)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -849,14 +1497,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = environment()
+    if args.resnet_grad_seeds:
+        failed = []
+        for seed in args.resnet_grad_seeds:
+            try:
+                resnet_grad_check(seed)
+            except RuntimeError as e:  # every seed is read; raised below
+                log({"seed": seed, "failed": str(e)})
+                failed.append(seed)
+        log({"total_s": time.perf_counter() - t0, "card": card})
+        check(not failed, f"the gradient check failed for seeds {failed}")
+        return 0
     check_flash()
     check_flash_bwd()
     check_int8()
+    check_conv_bn()
+    check_conv_bn_autograd()
     int8_twin, launches = run_slice()
     train_launches = run_training()
+    resnet_launches = run_resnet()
     kernels = [time_flash(launches["flash_fwd"] + train_launches["flash_fwd"]),
                *time_flash_bwd(train_launches),
-               time_int8(int8_twin, launches["int8_matmul"])]
+               time_int8(int8_twin, launches["int8_matmul"]),
+               *time_conv_bn(resnet_launches)]
     log({"total_s": time.perf_counter() - t0})
     print(card, flush=True)
     log({"kernels": kernels})

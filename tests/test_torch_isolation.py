@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from bigdl_tpu_torch.models.generation import generate
+from bigdl_tpu_torch.models import resnet
 from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
 from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
@@ -82,7 +83,11 @@ def test_kernel_sources_exist_and_name_what_they_replace():
     fa = "bigdl_tpu/ops/flash_attention.py"
     for name, refs in (("flash_fwd", (fa, "_fwd_kernel")),
                        ("flash_bwd", (fa, "_bwd_dq_kernel", "_bwd_dkv_kernel")),
-                       ("int8_matmul", ("bigdl_tpu/ops/int8_matmul.py",))):
+                       ("int8_matmul", ("bigdl_tpu/ops/int8_matmul.py",)),
+                       ("matmul_bn", ("bigdl_tpu/ops/matmul_bn.py",
+                                      "matmul_with_stats")),
+                       ("conv3x3_bn", ("bigdl_tpu/ops/conv3x3_bn.py",
+                                       "conv3x3_with_stats"))):
         text = (PKG / "csrc" / f"{name}.cu").read_text()
         assert all(ref in text for ref in refs) and "sm_90a" in text
 
@@ -113,7 +118,8 @@ def test_build_lm_raises_without_card():
 
 
 @pytest.mark.parametrize("entry", ["generate", "LMServer", "quantize_model",
-                                   "cast_model", "Optimizer"])
+                                   "cast_model", "Optimizer", "resnet.build",
+                                   "resnet.build_cifar"])
 def test_entry_points_raise_without_card(entry):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -125,6 +131,8 @@ def test_entry_points_raise_without_card(entry):
         "Optimizer": lambda: Optimizer(
             model, DataSet.array(synthetic_corpus(2, 4, 50)) >> SampleToBatch(2),
             FusedLMHeadCriterion()),
+        "resnet.build": lambda: resnet.build(10, 18),
+        "resnet.build_cifar": lambda: resnet.build_cifar(10, 8),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -136,6 +144,10 @@ def test_entry_points_run_when_cpu_is_asked_for():
     assert out.shape == (1, 5)
     assert quantize_model(model, device="cpu") is not model
     assert cast_model(model, device="cpu") is not model
+    net = resnet.build_cifar(10, 8, device="cpu").evaluate_mode()
+    assert net(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
+    assert next(resnet.build(10, 18, device="cpu").parameters()).device.type \
+        == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_card():
