@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: source -> {C entry: argument types}; pointers and the stream are c_void_p
 ENTRIES = {
     "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]},
@@ -38,6 +39,12 @@ ENTRIES = {
                   "bt_matmul_stats_row_blocks": [_I]},
     "conv3x3_bn": {"bt_conv3x3_stats": [_P] * 7 + [_I] * 6 + [_P],
                    "bt_conv3x3_stats_row_blocks": [_I] * 3},
+    "hbm_roof": {"bt_hbm_blocks": [_I] * 3,
+                 "bt_hbm_copy": [_P, _P, _L, _I, _I, _I, _P],
+                 "bt_hbm_read": [_P] * 4 + [_L, _I, _I, _I, _P],
+                 "bt_hbm_triad": [_P] * 3 + [_L, _I, _I, _I, _P],
+                 "bt_hbm_staged_blocks": [_I] * 2,
+                 "bt_hbm_staged_copy": [_P, _P, _L, _I, _I, _I, _P]},
 }
 KERNELS = tuple(ENTRIES)
 

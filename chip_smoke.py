@@ -21,7 +21,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    tests' ragged shapes, f32 and bf16, and at every fused shape of the
    training run (B=256) in bf16, with bit-identical statistics on a second
    run, and their training ``Function``s against autograd through the
-   plain composition;
+   plain composition; the HBM streaming kernels K7 (copy, read and triad,
+   the staged copy, the direct copy over several streams) at the probe's
+   1 GiB shape and at ragged sizes (``check_hbm_roof``), K7c's launches
+   side by side in a profiler trace, and the operation that
+   ``Tensor.copy_`` (the probe's library copy) runs;
 3. slice: the 134M Llama-recipe LM (``scripts/int8_decode_bench.py``'s
    ``134m`` config: V=32000, E=768, 12 heads, 4 kv heads, FFN 3072, 12
    layers, RoPE, SwiGLU, RMSNorm, tied embeddings) built from a seed at full
@@ -53,6 +57,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    equal to the unfused model's; then the A/B with the gates unset
    (cuDNN convs and ``batch_norm_train``): step time, images/s, device
    busy share, peak memory and the top kernels of both paths;
+4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
+   --gib 1`` (``main``, every family, one calibration, no waiting), its
+   K7 launch counts against the counts its chains predict, and no reading
+   above the data sheet's rate; its ``roofline_hbm`` line holds
+   ``roof_gbps``, the highest copy or read rate of a hand-written probe;
 4. timing: each kernel is checked once more against its plain version at
    the served shape, then it (``ms``), its plain version (``plain_ms``) and
    one PyTorch library call for the same function (``library_ms``) are
@@ -63,7 +72,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the cuDNN conv plus one ``torch.var_mean`` of its output); the bound
    (``bound_ms``) is the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
-   bf16 dense).
+   bf16 dense), and ``bound_measured_ms`` prices the same bytes at the
+   roof measured in phase 4a. K7's rows come from phase 4a's run: the best
+   reading of each sweep per pass over 1 GiB, the eager chain as
+   ``plain_ms`` and one PyTorch call as ``library_ms``.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
@@ -166,10 +178,25 @@ def device_ms(fn, iters: int, what: str, warmup: int = 3):
     return total_us / iters / 1e3, [(k[:60], t / iters) for k, t in top]
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time of a unit of work on the card by the data sheet
+    (``bound_ms``, and which term sets it), with the bytes and operations
+    it counts, so that ``add_measured_bound`` can price the bytes at the
+    measured HBM roof."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
+    """``bound_measured_ms``: the bytes term over the HBM roof measured in
+    phase 4a, the operations term unchanged (``stage4`` too)."""
+    entry["bound_measured_ms"] = max(entry["bytes"] / hbm_bytes_per_s,
+                                     entry["operations"] / BF16_OPS_PER_S) * 1e3
+    if "stage4" in entry:
+        add_measured_bound(entry["stage4"], hbm_bytes_per_s)
+    return entry
 
 
 # ------------------------------------------------------------ 1. environment
@@ -589,6 +616,183 @@ def check_conv_bn_autograd():
             errs.append(err)
         worst[name] = max(errs)
     log({"check": "conv_bn_autograd_f32", **worst})
+
+
+HBM_PROBE_BYTES = 1 << 30   # the probe's --gib 1: bytes of each array
+READ_RTOL = 1e-6
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 steps, element by element, from the bit patterns
+    (+0 and -0 are one value)."""
+    def ordered(t):
+        u = t.view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - u, u)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def kernel_spans(prof, name_part: str) -> list:
+    """(start, end) in us of the device kernels of a profiler session whose
+    name holds ``name_part``."""
+    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if name_part in e.name and e.time_range.end > e.time_range.start
+                  and "cuda" in str(e.device_type).lower())
+
+
+def most_at_once(spans) -> int:
+    """The most spans that run at one time."""
+    # an end sorts before a start at the same time: touching is not overlap
+    edges = sorted([(s, 1) for s, _ in spans] + [(e, -1) for _, e in spans])
+    now = most = 0
+    for _, step in edges:
+        now += step
+        most = max(most, now)
+    return most
+
+
+def direct_copy_overlap() -> dict:
+    """K7c at every stream count over the probe's 1 GiB shape, once under
+    the profiler: the most of its launches that ran side by side, which
+    must be at least two for two streams or more. Each launch has its
+    share of the SMs, so all of them can; how many do depends on how fast
+    the host issues them (an H100 run saw 7 of 8 under the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.ops import hbm_roof as hr
+    from bigdl_tpu_torch.scripts.roofline_hbm import DMA_STREAMS, hbm_dma_shape
+    seen = {}
+    for ns in DMA_STREAMS:
+        x = torch.ones(hbm_dma_shape(HBM_PROBE_BYTES, ns), dtype=torch.bfloat16,
+                       device="cuda")
+        out = hr.direct_copy(x, ns)
+        for _ in range(PROFILER_TRIES):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                hr.direct_copy(x, ns, out)
+                torch.cuda.synchronize()
+            spans = kernel_spans(prof, "copy_kernel")
+            if len(spans) == ns:
+                break
+        else:   # not measured: the profiler missed launches
+            seen[ns] = {"not_measured_kernels_seen": len(spans)}
+            continue
+        seen[ns] = {"most_at_once": most_at_once(spans),
+                    "span_us": spans[-1][1] - spans[0][0],
+                    "kernel_us": [e - s for s, e in spans]}
+        check(seen[ns]["most_at_once"] >= min(ns, 2),
+              f"K7c with {ns} streams ran at most {seen[ns]['most_at_once']} "
+              "launch at once")
+    return seen
+
+
+def copy_device_ops():
+    """The device operations that ``Tensor.copy_`` of 1 GiB of bf16 runs
+    (the probe's library copy), from the profiler; None when it recorded
+    nothing."""
+    x = torch.ones(HBM_PROBE_BYTES // 2, dtype=torch.bfloat16, device="cuda")
+    y = torch.empty_like(x)
+    rows, _ = profiled(lambda: y.copy_(x), "Tensor.copy_")
+    return None if rows is None else [k for k, _ in rows]
+
+
+def check_hbm_roof() -> dict:
+    """The K7 kernels against their plain versions on seeded N(0, 1) bf16
+    inputs, at the probe's timed size (1 GiB an array) and at ragged sizes:
+    K7a at every (threads, vecs, grid) of the probe's sweep, with n off the
+    16-byte vector and the grid's tile; K7b at every (chunk, nbuf) of the
+    sweep, and on one block with fewer chunks than slots, with a chunk
+    count that the slots do not divide, a short last chunk and a tail under
+    16 bytes; K7c at every stream count, on the reference's trimmed shapes
+    from a row count that no stream count divides. Copies must be
+    bit-identical; triad within one bf16 step of ``triad_plain`` (the count
+    of elements one step apart is logged); read within READ_RTOL x sum|x| of
+    an f64 sum, and two runs must give the same bits. Then K7c's overlap
+    and the operations of ``Tensor.copy_``. Returns each kernel's largest
+    |kernel - plain| at the timed size."""
+    from bigdl_tpu_torch.ops import hbm_roof as hr
+    from bigdl_tpu_torch.scripts.roofline_hbm import (AUTO_SWEEP, DMA_STREAMS,
+                                                      MANUAL_SWEEP,
+                                                      hbm_dma_shape)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    n_timed = HBM_PROBE_BYTES // 2
+    errs = {k: 0.0 for k in hr.COUNTERS}
+    tally = {"cases": 0, "triad_elements": 0, "triad_one_step": 0,
+             "read_max_err_over_sum_abs": 0.0}
+
+    def copied(name, got, x):
+        check(torch.equal(got, x), f"{name}: the copy differs ({x.numel()} "
+                                   "values)")
+        tally["cases"] += 1
+
+    def k7a(n, timed):
+        a, b = rnd(n), rnd(n)
+        seed = torch.randn((1, 1), generator=gen, device="cuda")
+        ref64 = seed.double() + a.double().sum()
+        sum_abs = a.double().abs().sum().item()
+        plain_read, plain_triad = hr.read_sum_plain(seed, a), hr.triad_plain(a, b)
+        for threads, vecs, grid in AUTO_SWEEP:
+            knobs = dict(threads=threads, vecs=vecs, grid=grid)
+            what = f"n={n} block {threads}x{vecs} {grid} grid"
+            copied(f"hbm copy {what}", hr.copy(a, **knobs), a)
+            r1, r2 = hr.read_sum(seed, a, **knobs), hr.read_sum(seed, a, **knobs)
+            rel = abs(r1.double() - ref64).item() / sum_abs
+            check(rel <= READ_RTOL and torch.equal(r1, r2),
+                  f"hbm read {what}: {rel} of sum|x| from the f64 sum, "
+                  f"runs equal {torch.equal(r1, r2)}")
+            t = hr.triad(a, b, **knobs)
+            ulps = bf16_ulps(t, plain_triad)
+            worst = ulps.max().item()
+            check(worst <= 1, f"hbm triad {what}: {worst} bf16 steps off")
+            tally["triad_elements"] += n
+            tally["triad_one_step"] += int((ulps == 1).sum().item())
+            tally["read_max_err_over_sum_abs"] = max(
+                tally["read_max_err_over_sum_abs"], rel)
+            tally["cases"] += 2
+            if timed:
+                errs["hbm_read"] = max(errs["hbm_read"],
+                                       (r1 - plain_read).abs().item())
+                errs["hbm_triad"] = max(errs["hbm_triad"], (
+                    t.float() - plain_triad.float()).abs().max().item())
+
+    k7a(n_timed, True)
+    for n in (2 ** 20 + 3, 8 * 1000 + 7, 5):
+        k7a(n, False)
+
+    x = rnd(n_timed)
+    for chunk, nbuf in MANUAL_SWEEP:
+        copied(f"hbm staged copy {chunk}x{nbuf}",
+               hr.staged_copy(x, chunk, nbuf), x)
+    # (elements, chunk bytes, slots, blocks; 0 = the persistent grid)
+    for n, chunk, nbuf, blocks in (
+            (3 * 8192 + 5, 16384, 4, 1),      # 3 chunks < 4 slots, 10-byte tail
+            (6 * 8192 + 100, 16384, 4, 1),    # 7 chunks, 7 % 4 slots, short last
+            (7 * 8192 + 1000, 16384, 3, 1),   # 8 chunks, 8 % 3 slots
+            (2 ** 20 + 3, 49152, 4, 0),       # ragged ranges on the whole grid
+            (2 ** 20, 16384, 2, 3),           # three blocks, many fills a slot
+            (5, 16, 2, 0)):                   # the tail alone
+        x = rnd(n)
+        copied(f"hbm staged copy n={n} {chunk}x{nbuf} blocks={blocks}",
+               hr.staged_copy(x, chunk, nbuf, blocks=blocks), x)
+
+    for total in (HBM_PROBE_BYTES, 1001 * 2048 + 1234):
+        for ns in DMA_STREAMS:
+            x = rnd(*hbm_dma_shape(total, ns))
+            copied(f"hbm direct copy {tuple(x.shape)} nstreams={ns}",
+                   hr.direct_copy(x, ns), x)
+    try:
+        hr.direct_copy(rnd(1001, 1024), 8)
+        check(False, "hbm direct copy took rows that 8 streams do not split")
+    except ValueError:
+        pass
+    torch.cuda.synchronize()
+    log({"check": "hbm_roof", **tally, **{f"max_abs_err_{k}": v
+                                          for k, v in errs.items()},
+         # before any other profiler session: late in a long process the
+         # profiler has come back empty for both
+         "direct_copy_overlap": direct_copy_overlap(),
+         "copy__device_ops": copy_device_ops()})
+    return errs
 
 
 # ------------------------------------------------------------------ 3. slice
@@ -1236,6 +1440,89 @@ def run_resnet() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ 4a. HBM roof
+def run_roofline():
+    """Phase 4a: the probe's ``main`` at 1 GiB with every family and one
+    calibration, its K7 launch counts against the counts its chains
+    predict, and every rate within the data sheet's. Returns (the probe's
+    result, the launches)."""
+    from bigdl_tpu_torch.ops import hbm_roof as hr
+    from bigdl_tpu_torch.scripts import roofline_hbm as probe
+    torch.cuda.empty_cache()
+    for c in hr.COUNTERS.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = probe.main(["--gib", str(HBM_PROBE_BYTES / 2 ** 30),
+                      "--calibration-tries", "1"])
+    seconds = time.perf_counter() - t0
+    launches = {name: c.value for name, c in hr.COUNTERS.items()}
+    p = probe.PASSES_PER_READING
+    want = {"hbm_copy": p * len(probe.AUTO_SWEEP),
+            "hbm_read": p * len(probe.AUTO_SWEEP),
+            "hbm_triad": p * len(probe.AUTO_SWEEP),
+            "hbm_staged_copy": p * len(probe.MANUAL_SWEEP),
+            "hbm_direct_copy": p * sum(probe.DMA_STREAMS)}
+    check(launches == want, f"the probe launched {launches}, want {want}")
+    rates = [r[k] for fam in ("auto", "manual", "hbm_dma", "eager", "library")
+             for r in (res[fam] if isinstance(res[fam], list) else [res[fam]])
+             for k in r if k.endswith("_gbps")]
+    # no stream can beat the memory's own rate: a reading above it is a
+    # fault of the timing
+    check(all(r is not None and 0 < r <= 1.01 * HBM_BYTES_PER_S / 1e9
+              for r in rates),
+          f"the probe read a rate that is not positive or is above the data "
+          f"sheet's {HBM_BYTES_PER_S / 1e9} GB/s: {rates}")
+    log({"roofline": {"probe_s": seconds, "launches": launches,
+                      "roof_gbps": res["roof_gbps"], "roof_from": res["roof_from"],
+                      "library_copy_gbps": res["library_copy_gbps"]}})
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+LIBRARY_CALLS = {"copy": "Tensor.copy_",
+                 "read": "torch.sum(x, dtype=float32), the seed's add left out",
+                 "triad": "torch.add(a, b, alpha=2)"}
+
+
+def hbm_roof_rows(res: dict, launches: dict, errs: dict) -> list:
+    """K7's rows of the ``kernels`` line from the probe's run: for each
+    kernel the best reading of its sweep as ``ms`` (one pass over 1 GiB),
+    the eager chain as ``plain_ms`` and one PyTorch call as
+    ``library_ms``."""
+    from bigdl_tpu_torch.scripts.roofline_hbm import hbm_dma_shape
+    total = res["total_bytes"]
+    n = total // 2
+    ref = "scripts/roofline_pallas.py"
+    best = lambda readings, key: max(readings, key=lambda r: r[f"{key}_gbps"])
+    dma = best(res["hbm_dma"], "copy")
+    dma_rows, lanes = hbm_dma_shape(total, dma["nstreams"])  # trimmed
+    entries = []
+    for name, reading, key, replaces, nbytes, ops, how in (
+            ("hbm_copy", best(res["auto"], "copy"), "copy", f"{ref}:108",
+             2 * n * 2, 0,
+             "block (threads x 16-byte vectors) {block}, {grid} grid"),
+            ("hbm_read", best(res["auto"], "read"), "read", f"{ref}:108",
+             n * 2, n, "block {block}, {grid} grid"),
+            ("hbm_triad", best(res["auto"], "triad"), "triad", f"{ref}:108",
+             3 * n * 2, 2 * n, "block {block}, {grid} grid"),
+            ("hbm_staged_copy", best(res["manual"], "copy"), "copy",
+             f"{ref}:205", 2 * n * 2, 0, "chunk {block}, nbuf {nbuf}"),
+            ("hbm_direct_copy", dma, "copy", f"{ref}:243",
+             2 * dma_rows * lanes * 2, 0, "nstreams {nstreams}")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/hbm_roof.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": reading[f"{key}_ms"], "plain_ms": res["eager"][f"{key}_ms"],
+            **bound(nbytes, ops), "library_ms": res["library"][f"{key}_ms"],
+            "gbps": reading[f"{key}_gbps"],
+            "work": f"one {key} pass over {total / 2 ** 30:g} GiB of bf16 "
+                    f"(n = {n}), the best of the probe's sweep: "
+                    + how.format(**reading) + "; plain_ms: eager PyTorch; "
+                    "library_ms: " + LIBRARY_CALLS[key]})
+    return entries
+
+
 # ----------------------------------------------------------------- 4. timing
 def time_flash(launches: int) -> dict:
     from bigdl_tpu_torch.ops.flash_attention import (flash_attention_plain,
@@ -1259,13 +1546,12 @@ def time_flash(launches: int) -> dict:
                               "flash_fwd library")
     nbytes = 4 * b * s * n * d * 2 + b * n * s * 4   # q, k, v, o; lse f32
     ops = 4 * b * n * d * (s * (s + 1) // 2)         # causal (q, k) pairs
-    bound_ms, bound_by = bound(nbytes, ops)
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
             "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "library_ms": library_ms,
             "work": f"one causal prefill launch, bf16 B={b} S={s} N={n} "
                     f"D={d}; launches: serving and training runs together"}
 
@@ -1315,16 +1601,16 @@ def time_flash_bwd(launches: dict) -> list:
              "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "bigdl_tpu/ops/flash_attention.py:146",
              "launches": launches["flash_bwd_dq"], "max_abs_err": errs["dq"],
-             "ms": ms_dq, "plain_ms": plain_dq, "bound_ms": dq_bound[0],
-             "bound_by": dq_bound[1], "library_ms": library_ms,
+             "ms": ms_dq, "plain_ms": plain_dq, **dq_bound,
+             "library_ms": library_ms,
              "work": f"{work}; {lib_note}"},
             {"name": "flash_bwd_dkv", "route": "cuda",
              "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "bigdl_tpu/ops/flash_attention.py:186",
              "launches": launches["flash_bwd_dkv"],
              "max_abs_err": max(errs["dk"], errs["dv"]),
-             "ms": ms_dkv, "plain_ms": plain_dkv, "bound_ms": dkv_bound[0],
-             "bound_by": dkv_bound[1], "library_ms": library_ms,
+             "ms": ms_dkv, "plain_ms": plain_dkv, **dkv_bound,
+             "library_ms": library_ms,
              "work": f"{work}; {lib_note}"}]
 
 
@@ -1376,7 +1662,6 @@ def time_int8(twin, launches: int) -> dict:
     nbytes = sum(x.numel() * 2 + w.numel() + s.numel() * 4
                  + x.shape[0] * w.shape[0] * 4 for x, w, s in calls)
     ops = sum(2 * x.shape[0] * w.numel() for x, w, _ in calls)
-    bound_ms, bound_by = bound(nbytes, ops)
     shapes = {}
     for (x, w, s), wd in zip(calls, deq):
         key = f"{w.shape[0]}x{w.shape[1]}"
@@ -1387,14 +1672,15 @@ def time_int8(twin, launches: int) -> dict:
                                    f"int8_matmul {key} library")
             shapes[key] = {"ms": one, "library_ms": lib_one, "bound_ms": bound(
                 w.numel() + x.numel() * 2 + s.numel() * 4
-                + x.shape[0] * w.shape[0] * 4, 2 * x.shape[0] * w.numel())[0]}
+                + x.shape[0] * w.shape[0] * 4,
+                2 * x.shape[0] * w.numel())["bound_ms"]}
     log({"int8_shapes_M4": shapes})
     return {"name": "int8_matmul", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "bigdl_tpu/ops/int8_matmul.py:92",
             "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "library_ms": library_ms,
             "work": f"one int8 decode token: {len(calls)} launches at M={m}, "
                     f"{sum(w.numel() for _, w, _ in calls)} weight bytes"}
 
@@ -1417,9 +1703,8 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
     reduce_ms, _ = device_ms(
         lambda: torch.var_mean(y2d, dim=0, correction=0), 10,
         f"{name} library reduction")
-    bound_ms, bound_by = bound(nbytes, ops)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": product_ms + reduce_ms,
+    return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "library_ms": product_ms + reduce_ms,
             "library_product_ms": product_ms,
             "library_reduction_ms": reduce_ms, "max_abs_err": err}
 
@@ -1469,7 +1754,8 @@ def time_conv_bn(launches: dict) -> list:
             "source": f"bigdl_tpu_torch/csrc/{src}", "replaces": ref,
             "launches": launches[name], "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            **{k: main[k] for k in ("bound_ms", "bound_by", "bytes",
+                                    "operations")},
             "library_ms": main["library_ms"],
             "library_product_ms": main["library_product_ms"],
             "library_reduction_ms": main["library_reduction_ms"],
@@ -1513,13 +1799,18 @@ def main(argv=None) -> int:
     check_int8()
     check_conv_bn()
     check_conv_bn_autograd()
+    hbm_errs = check_hbm_roof()
     int8_twin, launches = run_slice()
     train_launches = run_training()
     resnet_launches = run_resnet()
+    roof, roof_launches = run_roofline()
     kernels = [time_flash(launches["flash_fwd"] + train_launches["flash_fwd"]),
                *time_flash_bwd(train_launches),
                time_int8(int8_twin, launches["int8_matmul"]),
-               *time_conv_bn(resnet_launches)]
+               *time_conv_bn(resnet_launches),
+               *hbm_roof_rows(roof, roof_launches, hbm_errs)]
+    for entry in kernels:
+        add_measured_bound(entry, roof["roof_gbps"] * 1e9)
     log({"total_s": time.perf_counter() - t0})
     print(card, flush=True)
     log({"kernels": kernels})

@@ -24,6 +24,7 @@ from bigdl_tpu_torch.models.transformer import build_lm
 from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
 from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
 from bigdl_tpu_torch.optim.optimizer import Optimizer
+from bigdl_tpu_torch.scripts import roofline_hbm
 from bigdl_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
@@ -87,7 +88,10 @@ def test_kernel_sources_exist_and_name_what_they_replace():
                        ("matmul_bn", ("bigdl_tpu/ops/matmul_bn.py",
                                       "matmul_with_stats")),
                        ("conv3x3_bn", ("bigdl_tpu/ops/conv3x3_bn.py",
-                                       "conv3x3_with_stats"))):
+                                       "conv3x3_with_stats")),
+                       ("hbm_roof", ("scripts/roofline_pallas.py",
+                                     "bench_auto", "bench_manual",
+                                     "bench_hbm_dma"))):
         text = (PKG / "csrc" / f"{name}.cu").read_text()
         assert all(ref in text for ref in refs) and "sm_90a" in text
 
@@ -119,7 +123,7 @@ def test_build_lm_raises_without_card():
 
 @pytest.mark.parametrize("entry", ["generate", "LMServer", "quantize_model",
                                    "cast_model", "Optimizer", "resnet.build",
-                                   "resnet.build_cifar"])
+                                   "resnet.build_cifar", "roofline_hbm.main"])
 def test_entry_points_raise_without_card(entry):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -133,6 +137,7 @@ def test_entry_points_raise_without_card(entry):
             FusedLMHeadCriterion()),
         "resnet.build": lambda: resnet.build(10, 18),
         "resnet.build_cifar": lambda: resnet.build_cifar(10, 8),
+        "roofline_hbm.main": lambda: roofline_hbm.main(["--gib", "1"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
