@@ -17,14 +17,45 @@
 // + 103 MB, 0.061 ms at 3.35 TB/s); the operations are
 // 2 * N * H * W * 9 * Cin * Cout (59.2 GFLOP, 0.060 ms at 989 TFLOP/s), so
 // the two bounds are about equal at stage 1 and the operations bound the
-// deeper stages. This simple design does not reach either: its products
-// are f32 FMA on the CUDA cores (67 TFLOP/s peak), so it is bound by its
-// own arithmetic. What it keeps from the TPU kernel is what saves bytes:
-// SAME padding happens in shared memory (no padded or im2col copy of x is
-// ever written to device memory), and the statistics are reduced from the
-// f32 accumulator, so y is never re-read for them.
+// deeper stages. Both variants keep from the TPU kernel what saves bytes:
+// SAME padding never makes a padded or im2col copy of x in device memory,
+// and the statistics are reduced from the f32 accumulator, so y is never
+// re-read for them.
 //
-// Design. One block of 256 threads per (image, run of 128 output pixels of
+// Two variants; ops/conv3x3_bn.py:kernel_variant picks one.
+//
+// "mma" (conv3x3_stats_mma_kernel, C entry bt_conv3x3_stats_mma): bf16 x
+// and w with Cin and Cout multiples of 8, which is every 3x3 conv of
+// ResNet-50. An implicit GEMM on the tensor cores: M is the output pixel
+// index over N * H * W (a 128-row tile may cross images, so a 7 x 7 stage-4
+// image no longer leaves most of a tile idle), N is Cout (64 a tile), K is
+// 9 * Cin, walked in steps of one tap x 32 input channels, the nine taps of
+// a channel chunk in turn, so a step's rows are neighbours of the previous
+// step's in L2. Each step's A tile (128 pixels x 32 channels of one tap) is
+// gathered with 16-byte cp.async; a row whose tap falls outside the image
+// (or past N * H * W, or past Cin) is zero-filled by the copy itself
+// (src-size 0): that is the SAME padding. The B tile is 32 rows of w viewed
+// as (9 * Cin, Cout). Tiles go through a 4-stage shared-memory ring (rows
+// padded by 16 bytes, so ldmatrix is free of bank conflicts); four warps,
+// each 64 pixels x 32 channels, run mma.sync m16n8k16 bf16 -> f32 on
+// fragments from ldmatrix (.trans for B). The tensor cores' own sums are
+// taken over one step only (32 products, from zero) and added to the f32
+// accumulators by ordinary rounded adds, so a long K (4,608 at 512
+// channels) sums in f32 as the plain version does: summed in the tensor
+// cores all the way, bf16 y passed one step by up to 8.7e-6 and the
+// statistics erred by up to 7.9e-6 of their scale on an H100, against
+// limits of 1e-5. The epilogue stages the bf16 y tile in the ring and
+// writes it in 16-byte pieces. Bound: the tensor cores at the deeper
+// stages; at 168 registers a thread, 3 blocks an SM, the mma.sync issue
+// rate, not the data sheet's 989 TFLOP/s (which needs wgmma), is the
+// ceiling. Stage 1 (K = 576) has 8x the tiles of stage 4 for the same
+// operations and took 1.5x as long: there the per-tile costs, the ring's
+// fill and the epilogue, take about a third of the time.
+//
+// "fma" (conv3x3_stats_kernel, C entry bt_conv3x3_stats): f32, and bf16
+// with Cin or Cout not a multiple of 8. It is the first port's design and
+// is bound by its own arithmetic: f32 FMA on the CUDA cores (67 TFLOP/s).
+// One block of 256 threads per (image, run of 128 output pixels of
 // that image in row-major order, i.e. a band of output rows, 64 output
 // channels); each thread owns 8 pixels x 4 channels. Cin is walked in
 // chunks of 16: the chunk's input rows that the band needs, plus a
@@ -37,14 +68,19 @@
 // Shared memory is dynamic, (9*16*64 + 16*rows*(W+2)) floats, above 48 KB
 // after cudaFuncSetAttribute.
 //
-// Epilogue and statistics as in matmul_bn.cu: y rounded to x's dtype, one
-// f32 partial per (block, channel) summed over the block in a fixed order,
-// then a second kernel in this file sums the partials of each channel in a
-// fixed order. No atomics: the statistics are the same bits on every run.
+// Epilogue and statistics, both variants: y rounded to x's dtype, one f32
+// partial per (block, channel) summed over the block in a fixed order
+// (mma: a fixed shuffle tree within a warp, then the two row warps in
+// turn), then column_reduce_kernel sums the partials of each channel in a
+// fixed order: in one pass for fma, in two for mma (64 slabs of rows, then
+// the slabs: one pass over stage 1's 6,272 rows ran on 2 blocks and took
+// 46 us). No atomics: the statistics are the same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -182,8 +218,10 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
 constexpr int RED_COLS = 32;   // channels per reduction block
 constexpr int RED_LANES = 16;  // row lanes per channel
 
-// sum[c] = sum_r psum[r, c] (and the same for psq), in a fixed order:
-// lane l adds rows l, l + 16, ... in turn, then lane 0 adds the 16 lanes.
+// sum[y, c] = sum_r psum[r, c] over slab y of the R rows (and the same for
+// psq), in a fixed order: slab y is rows [y * per, (y + 1) * per) with
+// per = ceil(R / gridDim.y); lane l adds the slab's rows l, l + 16, ... in
+// turn, then lane 0 adds the 16 lanes. With one slab it is the whole sum.
 __global__ void __launch_bounds__(RED_COLS * RED_LANES)
 column_reduce_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
                      float* __restrict__ sum, float* __restrict__ sumsq,
@@ -191,9 +229,11 @@ column_reduce_kernel(const float* __restrict__ psum, const float* __restrict__ p
   __shared__ float ss[RED_LANES][RED_COLS + 1];
   __shared__ float qq[RED_LANES][RED_COLS + 1];
   const int c = blockIdx.x * RED_COLS + threadIdx.x;
+  const int per = (R + gridDim.y - 1) / gridDim.y;
+  const int r1 = min(R, (int)(blockIdx.y + 1) * per);
   float s = 0.f, q = 0.f;
   if (c < N) {
-    for (int r = threadIdx.y; r < R; r += RED_LANES) {
+    for (int r = blockIdx.y * per + threadIdx.y; r < r1; r += RED_LANES) {
       s += psum[(long)r * N + c];
       q += psq[(long)r * N + c];
     }
@@ -207,8 +247,8 @@ column_reduce_kernel(const float* __restrict__ psum, const float* __restrict__ p
       ts += ss[l][threadIdx.x];
       tq += qq[l][threadIdx.x];
     }
-    sum[c] = ts;
-    sumsq[c] = tq;
+    sum[(long)blockIdx.y * N + c] = ts;
+    sumsq[(long)blockIdx.y * N + c] = tq;
   }
 }
 
@@ -244,6 +284,249 @@ int launch(const void* x, const void* w, void* y, void* psum, void* psq,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ mma variant
+constexpr int MBM = 128;             // output pixels per block
+constexpr int MBN = 64;              // output channels per block
+constexpr int MBK = 32;              // input channels of one tap per K step
+constexpr int MSTAGES = 4;          // shared-memory ring depth
+constexpr int WARPS_M = 2;          // warps along the pixels (2 along Cout)
+constexpr int MTHREADS = WARPS_M * 2 * 32;
+constexpr int WTM = MBM / WARPS_M / 16;  // 16-row tiles per warp
+constexpr int A_PITCH = MBK + 8;     // bf16 per staged A row (80 bytes)
+constexpr int B_PITCH = MBN + 8;     // bf16 per staged B row (144 bytes)
+constexpr int Y_PITCH = MBN + 8;     // bf16 per staged y row in the epilogue
+constexpr int A_STAGE = MBM * A_PITCH;
+constexpr int B_STAGE = MBK * B_PITCH;
+constexpr int MMA_SMEM = MSTAGES * (A_STAGE + B_STAGE) * 2;
+static_assert(MBM * Y_PITCH <= MSTAGES * A_STAGE, "the y tile fits in the ring");
+constexpr int A_ROW_STEP = MTHREADS / (MBK / 8);  // rows between a thread's A rows
+constexpr int A_ROWS_PER_THREAD = MBM / A_ROW_STEP;
+constexpr int B_ROW_STEP = MTHREADS / (MBN / 8);
+constexpr int B_ROWS_PER_THREAD = MBK / B_ROW_STEP;
+constexpr int RED_SLABS = 64;        // first pass of the statistics' reduction
+
+__global__ void __launch_bounds__(MTHREADS)
+conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w,
+                         __nv_bfloat16* __restrict__ y, float* __restrict__ psum,
+                         float* __restrict__ psq, int H, int W, int Cin,
+                         int Cout, int M) {
+  using namespace mma_bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Bs = As + MSTAGES * A_STAGE;
+  __shared__ float red_s[WARPS_M][MBN];
+  __shared__ float red_q[WARPS_M][MBN];
+
+  const int n0 = blockIdx.x * MBN;
+  const int m0 = blockIdx.y * MBM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;  // pixel and channel slice
+  const int g = lane / 4, t = lane % 4;
+
+  // the A rows this thread copies: rows tid/4 + A_ROW_STEP i, 8 channels at
+  // (tid % 4) * 8; an image position, or h = -4 (always outside) past M
+  const int a_piece = (tid % 4) * 8;
+  int a_h[A_ROWS_PER_THREAD], a_w[A_ROWS_PER_THREAD];
+  long a_off[A_ROWS_PER_THREAD];  // element offset of (n, h, w, 0) in x
+#pragma unroll
+  for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
+    const int p = m0 + tid / 4 + A_ROW_STEP * i;
+    const int hw = p % (H * W);
+    a_h[i] = p < M ? hw / W : -4;
+    a_w[i] = hw % W;
+    a_off[i] = (long)p * Cin;
+  }
+  const int b_piece = (tid % 8) * 8;
+  const bool b_col_in = n0 + b_piece < Cout;
+
+  const int chunks = (Cin + MBK - 1) / MBK;
+  const int steps = 9 * chunks;
+
+  // K step s: tap s % 9 of input channels (s / 9) * MBK ..
+  auto load_step = [&](int s, int slot) {
+    const int tap = s % 9, ci0 = (s / 9) * MBK;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const bool ci_in = ci0 + a_piece < Cin;
+    const long shift = ((long)dy * W + dx) * Cin + ci0 + a_piece;
+    __nv_bfloat16* as = As + slot * A_STAGE;
+#pragma unroll
+    for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
+      const int ih = a_h[i] + dy, iw = a_w[i] + dx;
+      const bool in = ci_in && ih >= 0 && ih < H && iw >= 0 && iw < W;
+      cp_async16(as + (tid / 4 + A_ROW_STEP * i) * A_PITCH + a_piece,
+                 in ? x + a_off[i] + shift : x, in);
+    }
+    __nv_bfloat16* bs = Bs + slot * B_STAGE;
+#pragma unroll
+    for (int i = 0; i < B_ROWS_PER_THREAD; ++i) {
+      const int r = tid / 8 + B_ROW_STEP * i;
+      const bool in = b_col_in && ci0 + r < Cin;
+      cp_async16(bs + r * B_PITCH + b_piece,
+                 in ? w + ((long)tap * Cin + ci0 + r) * Cout + n0 + b_piece : w, in);
+    }
+  };
+
+  float acc[WTM][4][4];  // [m tile of 16][n tile of 8][fragment]
+#pragma unroll
+  for (int i = 0; i < WTM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < MSTAGES - 1; ++s) {
+    if (s < steps) load_step(s, s);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<MSTAGES - 2>();  // step s has landed (this thread's copies)
+    __syncthreads();               // ... and every thread's; slot of s-1 free
+    const int next = s + MSTAGES - 1;
+    if (next < steps) load_step(next, next % MSTAGES);
+    cp_async_commit();
+
+    const int slot = s % MSTAGES;
+    const __nv_bfloat16* as = As + slot * A_STAGE + wm * (MBM / WARPS_M) * A_PITCH;
+    const __nv_bfloat16* bs = Bs + slot * B_STAGE + wn * 32;
+    uint32_t bf[2][4][2];  // [k half][n tile][register]
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, bs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * B_PITCH
+                                 + np * 16 + (lane / 16) * 8);
+        bf[kk][2 * np][0] = r[0];
+        bf[kk][2 * np][1] = r[1];
+        bf[kk][2 * np + 1][0] = r[2];
+        bf[kk][2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+    for (int mt = 0; mt < WTM; ++mt) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        ldmatrix_x4(af[kk], as + (mt * 16 + lane % 16) * A_PITCH + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        // the step's 32 products summed by the tensor cores from zero, then
+        // added to the f32 accumulator with a rounded add
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_16816(part, af[0], bf[0][nt][0], bf[0][nt][1]);
+        mma_16816(part, af[1], bf[1][nt][0], bf[1][nt][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it now stages y
+
+  // epilogue: y rounded to bf16 into shared memory, then written out in
+  // 16-byte pieces (a row of the tile is 128 contiguous bytes); each
+  // channel's sums over the block's pixels from the f32 values
+  __nv_bfloat16* ys = As;  // [MBM][Y_PITCH]
+  float cs[4][2], cq[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = wn * 32 + nt * 8 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) cs[nt][j] = cq[nt][j] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < WTM; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        const int r = wm * (MBM / WARPS_M) + mt * 16 + g + 8 * half;
+        *reinterpret_cast<__nv_bfloat162*>(ys + r * Y_PITCH + c) =
+            __floats2bfloat162_rn(v0, v1);
+        // rows past M hold zeros (their A rows were zero-filled)
+        cs[nt][0] += v0;
+        cs[nt][1] += v1;
+        cq[nt][0] += v0 * v0;
+        cq[nt][1] += v1 * v1;
+      }
+  }
+  // over the 8 lanes that share t (fixed tree), then the row warps in turn
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], off);
+        cq[nt][j] += __shfl_xor_sync(0xffffffffu, cq[nt][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red_s[wm][wn * 32 + nt * 8 + 2 * t + j] = cs[nt][j];
+        red_q[wm][wn * 32 + nt * 8 + 2 * t + j] = cq[nt][j];
+      }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < MBM * (MBN / 8) / MTHREADS; ++i) {
+    const int piece = tid + MTHREADS * i;
+    const int r = piece / (MBN / 8), c = (piece % (MBN / 8)) * 8;
+    if (m0 + r < M && n0 + c < Cout)
+      *reinterpret_cast<uint4*>(y + (long)(m0 + r) * Cout + n0 + c) =
+          *reinterpret_cast<const uint4*>(ys + r * Y_PITCH + c);
+  }
+  if (tid < MBN && n0 + tid < Cout) {
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int i = 0; i < WARPS_M; ++i) {
+      s += red_s[i][tid];
+      q += red_q[i][tid];
+    }
+    psum[(long)blockIdx.y * Cout + n0 + tid] = s;
+    psq[(long)blockIdx.y * Cout + n0 + tid] = q;
+  }
+}
+
+// psum and psq hold ceil(M / MBM) + RED_SLABS rows: one per block, then
+// the first reduction pass's slab sums
+int launch_mma(const void* x, const void* w, void* y, void* psum, void* psq,
+               void* sum, void* sumsq, int N, int H, int W, int Cin, int Cout,
+               cudaStream_t stream) {
+  static bool allowed = false;
+  if (!allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_stats_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MMA_SMEM);
+    if (err != cudaSuccess) return err;
+    allowed = true;
+  }
+  const int M = N * H * W;
+  const dim3 grid((Cout + MBN - 1) / MBN, (M + MBM - 1) / MBM);
+  float* ps = static_cast<float*>(psum);
+  float* pq = static_cast<float*>(psq);
+  conv3x3_stats_mma_kernel<<<grid, MTHREADS, MMA_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(y), ps, pq, H, W, Cin, Cout, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // two fixed-order passes: the block rows in RED_SLABS slabs, then the slabs
+  const long slab_rows = (long)grid.y * Cout;
+  const dim3 red_block(RED_COLS, RED_LANES);
+  column_reduce_kernel<<<dim3((Cout + RED_COLS - 1) / RED_COLS, RED_SLABS),
+                         red_block, 0, stream>>>(ps, pq, ps + slab_rows,
+                                                 pq + slab_rows, grid.y, Cout);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  column_reduce_kernel<<<dim3((Cout + RED_COLS - 1) / RED_COLS), red_block, 0,
+                         stream>>>(ps + slab_rows, pq + slab_rows,
+                                   static_cast<float*>(sum),
+                                   static_cast<float*>(sumsq), RED_SLABS, Cout);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y (N, H, W, Cout) in x's dtype; psum, psq f32 (N * ceil(H*W / 128), Cout)
@@ -266,6 +549,27 @@ extern "C" int bt_conv3x3_stats(const void* x, const void* w, void* y,
 // Rows of the partials scratch: one per (image, band of 128 pixels).
 extern "C" int bt_conv3x3_stats_row_blocks(int N, int H, int W) {
   return N * ((H * W + TP - 1) / TP);
+}
+
+// The "mma" variant: bf16 x, w and y, Cin and Cout multiples of 8; the
+// other arguments as bt_conv3x3_stats's, with psum and psq
+// (bt_conv3x3_stats_mma_row_blocks(N, H, W), Cout).
+extern "C" int bt_conv3x3_stats_mma(const void* x, const void* w, void* y,
+                                    void* psum, void* psq, void* sum, void* sumsq,
+                                    int N, int H, int W, int Cin, int Cout,
+                                    void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 != 0 ||
+      Cout % 8 != 0)
+    return cudaErrorInvalidValue;
+  if ((long)N * H * W > (long)MBM * 65535) return cudaErrorInvalidValue;
+  return launch_mma(x, w, y, psum, psq, sum, sumsq, N, H, W, Cin, Cout,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Rows of the mma variant's partials scratch: one per 128 output pixels,
+// then RED_SLABS for the first pass of the statistics' reduction.
+extern "C" int bt_conv3x3_stats_mma_row_blocks(int N, int H, int W) {
+  return (N * H * W + MBM - 1) / MBM + RED_SLABS;
 }
 
 extern "C" const char* bt_cuda_error_string(int code) {

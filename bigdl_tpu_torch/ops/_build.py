@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to
 ``build/bigdl_tpu_torch/`` at the repository root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused. A failed build raises with ``nvcc``'s stderr. Nothing is built when
-the module is imported: the first wrapper call on a CUDA tensor builds.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused; each library's
+``-Xptxas -v`` report is kept beside it. A failed build raises with
+``nvcc``'s stderr. Nothing is built when the module is imported: the first
+wrapper call on a CUDA tensor builds.
 """
 
 from __future__ import annotations
@@ -31,14 +33,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: source -> {C entry: argument types}; pointers and the stream are c_void_p
 ENTRIES = {
-    "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]},
+    "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
+                  "bt_flash_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
     "flash_bwd": {"bt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
                   "bt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]},
     "int8_matmul": {"bt_int8_matmul": [_P] * 4 + [_I] * 3 + [_P]},
     "matmul_bn": {"bt_matmul_stats": [_P] * 7 + [_I] * 4 + [_P],
                   "bt_matmul_stats_row_blocks": [_I]},
     "conv3x3_bn": {"bt_conv3x3_stats": [_P] * 7 + [_I] * 6 + [_P],
-                   "bt_conv3x3_stats_row_blocks": [_I] * 3},
+                   "bt_conv3x3_stats_row_blocks": [_I] * 3,
+                   "bt_conv3x3_stats_mma": [_P] * 7 + [_I] * 5 + [_P],
+                   "bt_conv3x3_stats_mma_row_blocks": [_I] * 3},
     "hbm_roof": {"bt_hbm_blocks": [_I] * 3,
                  "bt_hbm_copy": [_P, _P, _L, _I, _I, _I, _P],
                  "bt_hbm_read": [_P] * 4 + [_L, _I, _I, _I, _P],
@@ -50,8 +55,8 @@ KERNELS = tuple(ENTRIES)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-#: ``nvcc -Xptxas -v`` report per kernel built in this process
-#: (registers, shared memory, spills)
+#: ``nvcc -Xptxas -v`` report per kernel source built or loaded in this
+#: process (registers, shared memory, spills)
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -87,16 +92,24 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library of ``name``, named by a hash of its source, every shared
+    header in ``csrc/`` (sorted by name) and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:
-    """Start the build of one kernel, or return None when it is built."""
+    """Start the build of one kernel, or return None when it is built (its
+    ``-Xptxas -v`` report is then read from beside the library)."""
     out = _target(name)
     if out.exists():
+        report = out.with_suffix(".ptxas.txt")
+        if name not in BUILD_LOGS and report.exists():
+            BUILD_LOGS[name] = report.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -116,6 +129,7 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{err_text}{out_text}")
     BUILD_LOGS[name] = err_text + out_text
+    out.with_suffix(".ptxas.txt").write_text(BUILD_LOGS[name])
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 

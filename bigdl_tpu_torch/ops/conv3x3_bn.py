@@ -6,10 +6,14 @@ stride-1 SAME-padded conv of x (N, H, W, Cin) NHWC with w (3, 3, Cin, Cout)
 HWIO in f32, and from the f32 result, before it is rounded, the per-channel
 sum and sum of squares over (N, H, W) (f32, shape (Cout,)); y is returned
 in x's dtype. On a CUDA tensor this is kernel K6 (``csrc/conv3x3_bn.cu``,
-the port of the Pallas ``_kernel``): the padding happens in shared memory
-(no padded copy of x), the statistics come from the accumulator in a fixed
-order (no atomics). On a CPU tensor it is ``conv3x3_with_stats_plain``.
-Mixed dtypes are promoted first, as the reference's ``jnp.dot`` would.
+the port of the Pallas ``_kernel``) in one of two variants that
+``kernel_variant`` picks: ``"mma"``, an implicit GEMM on the tensor cores
+for bf16 with Cin and Cout multiples of 8 (every ResNet-50 3x3), and
+``"fma"``, f32 FMA on the CUDA cores, for the rest. Neither makes a padded
+copy of x, and both take the statistics from the f32 accumulator in a
+fixed order (no atomics). On a CPU tensor it is
+``conv3x3_with_stats_plain``. Mixed dtypes are promoted first, as the
+reference's ``jnp.dot`` would.
 
 ``conv3x3_bn_train(x, w, gamma, beta, eps) -> (out, mean, var)`` is the
 reference's ``custom_vjp`` as a ``torch.autograd.Function``: the forward
@@ -29,10 +33,22 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops.batch_norm import bn_from_stats, bn_input_grad
 
-#: launches of kernel K6 (counted where the kernel is launched, nowhere else)
+#: launches of kernel K6, either variant (counted where the kernel is
+#: launched, nowhere else), and of its "mma" variant alone
 LAUNCHES = _build.LaunchCounter()
+LAUNCHES_MMA = _build.LaunchCounter()
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The K6 variant for x (N, H, W, Cin) and w (3, 3, Cin, Cout) of one
+    dtype: ``"mma"`` (tensor cores) for bf16 with Cin and Cout multiples of
+    8, ``"fma"`` (CUDA cores) otherwise."""
+    cin, cout = w.shape[2], w.shape[3]
+    if x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+        return "mma"
+    return "fma"
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -65,18 +81,26 @@ def conv3x3_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     lib = _build.load("conv3x3_bn")
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
-    rows = lib.bt_conv3x3_stats_row_blocks(n, h, wd)
+    mma = kernel_variant(x, w) == "mma"
+    rows = (lib.bt_conv3x3_stats_mma_row_blocks if mma
+            else lib.bt_conv3x3_stats_row_blocks)(n, h, wd)
     dev = x.device
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     partials = torch.empty((2, rows, cout), dtype=torch.float32, device=dev)
     stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
-    status = lib.bt_conv3x3_stats(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), partials[0].data_ptr(),
-        partials[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        n, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), partials[0].data_ptr(),
+            partials[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            n, h, wd, cin, cout)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mma:
+        status = lib.bt_conv3x3_stats_mma(*args, stream)
+    else:
+        status = lib.bt_conv3x3_stats(*args, int(x.dtype == torch.bfloat16),
+                                      stream)
     _build.check_status(lib, "conv3x3_bn", status)
     LAUNCHES.add()
+    if mma:
+        LAUNCHES_MMA.add()
     return y, stats[0], stats[1]
 
 

@@ -10,7 +10,9 @@ Both outputs are differentiable through one ``torch.autograd.Function``,
 ``FlashAttention``, on every device, as the reference's ``custom_vjp``: the
 backward takes cotangents for ``o`` AND ``lse`` and folds the latter into
 ``delta = rowsum(dO * O) - g_lse``. On a CUDA tensor the forward launches
-kernel K1 (``csrc/flash_fwd.cu``, the port of ``_fwd_kernel``) and the
+kernel K1 (``csrc/flash_fwd.cu``, the port of ``_fwd_kernel``) in the
+variant ``kernel_variant`` picks (``"mma"``, tensor cores, for bf16;
+``"fma"``, CUDA cores, for float32), and the
 backward kernels K2 (dQ) and K3 (dK, dV) (``csrc/flash_bwd.cu``, the ports
 of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), or raises; on a CPU tensor
 they run ``flash_attention_plain`` and ``flash_attention_bwd_plain``, the
@@ -29,11 +31,20 @@ NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of kernels K1, K2 and K3 (each counted where the kernel is
-#: launched, nowhere else)
+#: launches of kernels K1 (either variant; ``LAUNCHES_MMA``: its "mma"
+#: variant alone), K2 and K3 (each counted where the kernel is launched,
+#: nowhere else)
 LAUNCHES = _build.LaunchCounter()
+LAUNCHES_MMA = _build.LaunchCounter()
 LAUNCHES_DQ = _build.LaunchCounter()
 LAUNCHES_DKV = _build.LaunchCounter()
+
+
+def kernel_variant(q: torch.Tensor) -> str:
+    """The K1 variant for q of a dtype and head_dim that ``check_args``
+    takes: ``"mma"`` (tensor cores) for bfloat16, ``"fma"`` (CUDA cores) for
+    float32."""
+    return "mma" if q.dtype == torch.bfloat16 else "fma"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,12 +98,18 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     sk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    status = lib.bt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, n, sq, sk, d, float(scale), int(causal), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, n, sq, sk, d, float(scale), int(causal))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    mma = kernel_variant(q) == "mma"
+    if mma:
+        status = lib.bt_flash_fwd_mma(*args, stream)
+    else:
+        status = lib.bt_flash_fwd(*args, DTYPES[q.dtype], stream)
     _build.check_status(lib, "flash_fwd", status)
     LAUNCHES.add()
+    if mma:
+        LAUNCHES_MMA.add()
     return o, lse
 
 

@@ -13,8 +13,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (all ``nvcc`` processes at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes, with the tolerances stated
-   below; the flash backward (K2, K3) through the autograd ``Function``
-   against ``flash_attention_bwd_plain`` fed the same o, lse and
+   below; K1's and K6's cases each log the variant they took (``mma`` on
+   the tensor cores for bf16, ``fma`` for the rest), checked by the
+   ``LAUNCHES_MMA`` counters; the flash backward (K2, K3) through the
+   autograd ``Function`` against ``flash_attention_bwd_plain`` fed the same o, lse and
    cotangents, and against autograd through the plain attention core; the
    fused conv+BN-statistics kernels K5 (1x1 matmul) and K6 (3x3 conv) at
    every distinct fused shape of ResNet-50 at B=32 and the reference
@@ -33,8 +35,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    serve 8 requests from threads through ``LMServer`` (prompts of 384 and
    128 tokens, 32 new tokens, greedy). Every answer must equal a direct
    ``generate`` on the same prompts, and the launch counters, zeroed just
-   before serving, must show that the prefill ran kernel K1 and the int8
-   decode kernel K4;
+   before serving, must show that the prefill ran kernel K1 (its ``mma``
+   variant only) and the int8 decode kernel K4;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
    grammar, through K1/K2/K3, must be finite and within GRAD_RTOL (relative
@@ -42,8 +44,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    plain path. Then ``Optimizer`` trains 20 iterations at B=8, S=512 with
    ``set_precision("bf16")``, ``AdamW`` and global-L2 clipping at 1.0: the
    losses must be finite, the mean of the last five below the first, and
-   K1, K2 and K3 each launched exactly 12 x 20 times (counters zeroed just
-   before the run);
+   K1 (every launch ``mma``), K2 and K3 each launched exactly 12 x 20
+   times (counters zeroed just before the run);
 3c. ResNet-50 (bench.py's resnet50 workload, ``resnet.build(1000, 50)``,
    full width and depth) with both fusion gates set: every gradient and
    updated running statistic of one f32 batch (B=8, 224x224) on the card,
@@ -52,8 +54,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    unfused card model on the same weights; then ``Optimizer`` trains 20 iterations at B=256 of bench.py's recipe
    (constant N(0, 1) images, ``ClassNLLCriterion``, SGD 0.1 with momentum
    0.9, bf16 compute over f32 masters): finite, falling losses, K5 and K6
-   launched exactly 36 x 20 and 13 x 20 times, every running statistic
-   finite and moved, and the trained model's eval forward (BN folded)
+   launched exactly 36 x 20 and 13 x 20 times (every K6 launch ``mma``),
+   every running statistic finite and moved, and the trained model's eval forward (BN folded)
    equal to the unfused model's; then the A/B with the gates unset
    (cuDNN convs and ``batch_norm_train``): step time, images/s, device
    busy share, peak memory and the top kernels of both paths;
@@ -65,15 +67,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 4. timing: each kernel is checked once more against its plain version at
    the served shape, then it (``ms``), its plain version (``plain_ms``) and
    one PyTorch library call for the same function (``library_ms``) are
-   timed as device time by ``torch.profiler``, or by CUDA events where the
-   profiler records nothing (K2 and K3 at the training shape, B=8 S=512
-   N=12 D=64 bf16 causal; K5 and K6 at ResNet-50's stage-1 and stage-4
-   shapes at B=256, bf16, where the library time is the cuBLAS product or
-   the cuDNN conv plus one ``torch.var_mean`` of its output); the bound
+   timed: K1 (at the served shape and, as ``train``, at the training
+   shape), K5 and K6 (at ResNet-50's stage-1 and stage-4 shapes at B=256,
+   bf16, where the library time is the cuBLAS product or the cuDNN conv
+   plus one ``torch.var_mean`` of its output) by CUDA events around
+   CUDA-graph replays (``graph_ms``), with the profiler's reading beside as
+   ``ms_profiler``; K2 and K3 (at the training shape, B=8 S=512 N=12 D=64
+   bf16 causal) and K4 as device time by ``torch.profiler``, or by CUDA
+   events where the profiler records nothing; the bound
    (``bound_ms``) is the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
    bf16 dense), and ``bound_measured_ms`` prices the same bytes at the
-   roof measured in phase 4a. K7's rows come from phase 4a's run: the best
+   roof measured in phase 4a. The rows of the kernels redesigned for the
+   tensor cores (K1, K6) add their PR 4 time as ``ms_pr4`` (a constant,
+   not re-measured), the variant timed and its ``-Xptxas -v`` report.
+   K7's rows come from phase 4a's run: the best
    reading of each sweep per pass over 1 GiB, the eager chain as
    ``plain_ms`` and one PyTorch call as ``library_ms``.
 
@@ -178,6 +186,38 @@ def device_ms(fn, iters: int, what: str, warmup: int = 3):
     return total_us / iters / 1e3, [(k[:60], t / iters) for k, t in top]
 
 
+def graph_ms(fn, what: str, per_graph: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around
+    ``replays`` replays of one CUDA graph that holds ``per_graph`` calls,
+    so neither host gaps nor the profiler enter (the profiler's reading of
+    one sub-millisecond launch has moved by up to 2x between runs of this
+    script, and in one run fell to 0.6x of this timing)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up, as capture wants, on a side stream
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * per_graph)
+    check(ms > 0, f"{what}: the graph's replays measured no time")
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time of a unit of work on the card by the data sheet
     (``bound_ms``, and which term sets it), with the bytes and operations
@@ -191,12 +231,29 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     """``bound_measured_ms``: the bytes term over the HBM roof measured in
-    phase 4a, the operations term unchanged (``stage4`` too)."""
+    phase 4a, the operations term unchanged (the second readings,
+    ``stage4`` and ``train``, too)."""
     entry["bound_measured_ms"] = max(entry["bytes"] / hbm_bytes_per_s,
                                      entry["operations"] / BF16_OPS_PER_S) * 1e3
-    if "stage4" in entry:
-        add_measured_bound(entry["stage4"], hbm_bytes_per_s)
+    for second in ("stage4", "train"):
+        if second in entry:
+            add_measured_bound(entry[second], hbm_bytes_per_s)
     return entry
+
+
+def ptxas_report(source: str, kernel: str) -> dict:
+    """``nvcc -Xptxas -v``'s lines (registers, shared memory, stack and
+    spills) for each entry function of ``source`` whose name holds
+    ``kernel``, from ``_build.BUILD_LOGS`` (the report of the build, kept
+    beside the library)."""
+    from bigdl_tpu_torch.ops import _build
+    report, entry = {}, None
+    for line in _build.BUILD_LOGS.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line else None
+        elif entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.split(": ", 1)[-1].strip())
+    return report
 
 
 # ------------------------------------------------------------ 1. environment
@@ -240,34 +297,57 @@ def flash_o_close(o: torch.Tensor, po: torch.Tensor):
     return diff.max().item(), bool((diff <= tol).all().item())
 
 
+def launched_variant(counters, variant_of, fn):
+    """Runs ``fn`` (one kernel call) and returns the variant that
+    ``variant_of`` names, checked against the counters (``LAUNCHES``,
+    ``LAUNCHES_MMA``): one launch, and one "mma" launch exactly when the
+    variant is "mma"."""
+    total, mma = counters
+    before = (total.value, mma.value)
+    out = fn()
+    want = variant_of()
+    got = (total.value - before[0], mma.value - before[1])
+    check(got == (1, int(want == "mma")),
+          f"{want} call counted {got} (launches, mma launches)")
+    return want, out
+
+
 def check_flash():
     """K1 against ``flash_attention_plain`` (O as in ``flash_o_close``, LSE
     within FLASH_ATOL), at the served prefill shapes (B=4, S in {384, 128},
-    causal) and at ragged, full, D=128, Sq != Sk and single-row cases."""
-    from bigdl_tpu_torch.ops.flash_attention import (NEG, flash_attention_plain,
-                                                     flash_attention_with_lse)
+    causal), the training shape (B=8, S=512, causal, bf16) and at ragged,
+    full, D=128, Sq != Sk and single-row cases; every bf16 case takes the
+    "mma" variant and every f32 case the "fma" one."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtypes = (torch.float32, torch.bfloat16)
     cases = [(dt, causal, 2, s, s, 12, 64)
              for dt in dtypes for causal in (True, False) for s in (384, 333)]
     cases += [(dt, True, REQUESTS_PER_LEN, s, s, 12, 64)
               for dt in dtypes for s in PROMPT_LENS]
-    cases += [(torch.bfloat16, True, 1, 200, 200, 4, 128),
+    cases += [(torch.bfloat16, True, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 12, 64),
+              (torch.bfloat16, True, 1, 200, 200, 4, 128),
               (torch.float32, False, 2, 100, 333, 3, 128),
               (torch.float32, True, 4, 1, 1, 12, 64)]
-    worst = 0.0
+    counters = (fa.LAUNCHES, fa.LAUNCHES_MMA)
+    worst, variants = 0.0, {}
     for dt, causal, b, sq, sk, n, d in cases:
         q, k, v = _qkv(gen, b, sq, sk, n, d, dt)
-        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
-        po, plse = flash_attention_plain(q, k, v, causal=causal)
+        variant, (o, lse) = launched_variant(
+            counters, lambda: fa.kernel_variant(q),
+            lambda: fa.flash_attention_with_lse(q, k, v, causal=causal))
+        po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err_o, ok_o = flash_o_close(o, po)
         err_l = (lse - plse).abs().max().item()
+        what = f"{dt} causal={causal} B={b} Sq={sq} Sk={sk} N={n} D={d}"
         check(o.shape == q.shape and lse.shape == (b, n, sq)
               and o.dtype == dt, f"flash output shapes, B={b} Sq={sq}")
         check(ok_o and err_l <= FLASH_ATOL,
-              f"flash {dt} causal={causal} B={b} Sq={sq} Sk={sk} N={n} D={d}:"
-              f" |dO|={err_o} |dLSE|={err_l}")
+              f"flash {what}: |dO|={err_o} |dLSE|={err_l}")
+        check(variant == ("mma" if dt == torch.bfloat16 else "fma"),
+              f"flash {what} took the {variant} variant")
+        variants[what] = variant
         worst = max(worst, err_o)
     for dt in (torch.float32, torch.bfloat16):
         # dead row: every logit of (b=0, s=5, h=0) overflows to -inf
@@ -275,14 +355,18 @@ def check_flash():
         q[0, 5, 0] = 0
         q[0, 5, 0, 0] = -3e38
         k[:, :, 0, 0] = 100
-        o, lse = flash_attention_with_lse(q, k, v, causal=True)
-        po, plse = flash_attention_plain(q, k, v, causal=True)
-        check(lse[0, 0, 5].item() == NEG and plse[0, 0, 5].item() == NEG,
-              f"dead-row LSE sentinel ({dt})")
+        variant, (o, lse) = launched_variant(
+            counters, lambda: fa.kernel_variant(q),
+            lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
+        po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+        check(lse[0, 0, 5].item() == fa.NEG and plse[0, 0, 5].item() == fa.NEG,
+              f"dead-row LSE sentinel ({dt}, {variant})")
         check(o[0, 5, 0].abs().max().item() == 0.0, f"dead-row O ({dt})")
         check(torch.isfinite(o.float()).all().item()
               and torch.isfinite(lse).all().item(), f"dead-row finite ({dt})")
-    log({"check": "flash_fwd", "cases": len(cases) + 2, "max_abs_err_o": worst})
+        variants[f"{dt} dead row"] = variant
+    log({"check": "flash_fwd", "cases": len(cases) + 2, "max_abs_err_o": worst,
+         "variants": variants})
 
 
 BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-5
@@ -520,6 +604,7 @@ def check_conv_bn():
     shape of the training run (B=RESNET_BATCH, bf16): y as in ``y_close``,
     the statistics as in ``stats_close``, and two runs of each kernel give
     bit-identical statistics."""
+    from bigdl_tpu_torch.ops import conv3x3_bn
     from bigdl_tpu_torch.ops.conv3x3_bn import (conv3x3_with_stats,
                                                 conv3x3_with_stats_plain)
     from bigdl_tpu_torch.ops.matmul_bn import (matmul_with_stats,
@@ -536,6 +621,7 @@ def check_conv_bn():
     runs = [(f32, mm_cases, conv_cases), (bf16, mm_cases, conv_cases),
             (bf16, train_ones, train_threes)]
     worst = {f32: 0.0, bf16: 0.0, "stats": 0.0}
+    k6_variants = {}
 
     def one(name, fn, plain, x, w):
         got, again, ref = fn(x, w), fn(x, w), plain(x, w)
@@ -562,8 +648,17 @@ def check_conv_bn():
             x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
             wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
                   / (9 * cin) ** 0.5).to(dt)
-            one(f"K6 N={n} {h}x{w} {cin}->{cout}", conv3x3_with_stats,
-                conv3x3_with_stats_plain, x, wt)
+            name = f"K6 N={n} {h}x{w} {cin}->{cout}"
+            variant = conv3x3_bn.kernel_variant(x, wt)
+            mma_before = conv3x3_bn.LAUNCHES_MMA.value
+            one(name, conv3x3_with_stats, conv3x3_with_stats_plain, x, wt)
+            # one() calls the kernel twice
+            check(conv3x3_bn.LAUNCHES_MMA.value - mma_before
+                  == 2 * (variant == "mma"), f"{name} {dt}: mma launches")
+            check(variant == ("mma" if dt == bf16 and cin % 8 == 0
+                              and cout % 8 == 0 else "fma"),
+                  f"{name} {dt} took the {variant} variant")
+            k6_variants[f"{name} {str(dt)[6:]}"] = variant
     log({"check": "conv_bn_kernels",
          "cases": sum(len(a) + len(b) for _, a, b in runs),
          "k5_shapes_resnet50_b32": len(ones), "k6_shapes_resnet50_b32":
@@ -571,7 +666,8 @@ def check_conv_bn():
          [len(train_ones), len(train_threes)],
          "f32_max_err_over_max_ref": worst[f32],
          "bf16_max_excess_over_one_step": worst[bf16],
-         "stats_max_err_over_scale": worst["stats"]})
+         "stats_max_err_over_scale": worst["stats"],
+         "k6_variants": k6_variants})
 
 
 def check_conv_bn_autograd():
@@ -880,18 +976,19 @@ def run_slice():
                   for _ in range(REQUESTS_PER_LEN)] for s in PROMPT_LENS}
     prompts = [p for s in PROMPT_LENS for p in groups[s]]
 
-    counters = (flash_attention.LAUNCHES, int8_matmul.LAUNCHES,
-                int8_matmul.DEQUANT_CALLS)
-    launches = {"flash_fwd": 0, "int8_matmul": 0}
+    counters = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_MMA,
+                int8_matmul.LAUNCHES, int8_matmul.DEQUANT_CALLS)
+    launches = {"flash_fwd": 0, "flash_fwd_mma": 0, "int8_matmul": 0}
     answers = {}
     for name, model in twins.items():
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.reset()
         results, batches, seconds = serve(model, prompts)
-        k1, k4, deq = (c.value for c in counters)
+        k1, k1_mma, k4, deq = (c.value for c in counters)
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         launches["flash_fwd"] += k1
+        launches["flash_fwd_mma"] += k1_mma
         launches["int8_matmul"] += k4
         answers[name] = results
         layers = CONFIG["num_layers"]
@@ -901,11 +998,13 @@ def run_slice():
         # only (M = 4), then NEW_TOKENS - 1 single-token steps
         k4_want = (1 + per_token * (NEW_TOKENS - 1)) * batches
         log({"twin": name, "served": len(results), "batches": batches,
-             "serve_s": seconds, "k1_launches": k1, "k4_launches": k4,
-             "dequant_calls": deq, "peak_allocated_mib": peak_mb})
+             "serve_s": seconds, "k1_launches": k1, "k1_mma_launches": k1_mma,
+             "k4_launches": k4, "dequant_calls": deq,
+             "peak_allocated_mib": peak_mb})
         check(batches == len(PROMPT_LENS), f"{name}: {batches} batches")
-        check(k1 == layers * batches and k1 > 0,
-              f"{name}: prefill launched K1 {k1} times")
+        check(k1_mma == k1 == layers * batches and k1 > 0,
+              f"{name}: prefill launched K1 {k1} times, {k1_mma} of them "
+              "the mma variant")
         if name == "int8":
             check(k4 == k4_want and k4 > 0 and deq == (per_token - 1) * batches,
                   f"int8 twin launched K4 {k4} times (want {k4_want}), "
@@ -968,7 +1067,8 @@ def grad_check(model) -> None:
         dev = next(m.parameters()).device
         m.train()
         m.zero_grad(set_to_none=True)
-        for c in (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV):
+        for c in (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ,
+                  fa.LAUNCHES_DKV):
             c.reset()
         ids = torch.as_tensor(sample.feature[None], device=dev)
         tgt = torch.as_tensor(sample.label[None], device=dev)
@@ -979,6 +1079,8 @@ def grad_check(model) -> None:
             check((fa.LAUNCHES.value, fa.LAUNCHES_DQ.value,
                    fa.LAUNCHES_DKV.value) == (layers,) * 3,
                   "the card's gradient did not run K1, K2 and K3 once a layer")
+            check(fa.LAUNCHES_MMA.value == 0,
+                  "the f32 gradient check ran K1's mma variant")
     model.zero_grad(set_to_none=True)
     worst, worst_name = 0.0, ""
     for name, ref in grads[1].items():
@@ -1041,7 +1143,7 @@ def run_training() -> dict:
     samples = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS, TRAIN_SEQ, VOCAB,
                                seed=17)
     ds = DataSet.array(samples, seed=0) >> SampleToBatch(TRAIN_BATCH)
-    counters = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    counters = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -1049,7 +1151,7 @@ def run_training() -> dict:
     t1 = time.perf_counter()
     history = _train(model, ds, TRAIN_STEPS)
     train_s = time.perf_counter() - t1
-    k1, k2, k3 = (c.value for c in counters)
+    k1, k1_mma, k2, k3 = (c.value for c in counters)
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     losses = [h["loss"] for h in history]
     step_s = float(np.median([h["seconds"] for h in history[3:]]))
@@ -1061,13 +1163,14 @@ def run_training() -> dict:
          "step_ms_median": step_s * 1e3,
          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
          "peak_allocated_mib": peak_mib, "k1_launches": k1,
-         "k2_launches": k2, "k3_launches": k3})
+         "k1_mma_launches": k1_mma, "k2_launches": k2, "k3_launches": k3})
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"training losses {losses}")
     check(float(np.mean(losses[-5:])) < losses[0],
           f"loss did not fall: first {losses[0]}, last five {losses[-5:]}")
-    check(k1 == k2 == k3 == want,
-          f"training launched K1/K2/K3 {k1}/{k2}/{k3} times, want {want}")
+    check(k1 == k1_mma == k2 == k3 == want,
+          f"training launched K1 (mma)/K2/K3 {k1} ({k1_mma})/{k2}/{k3} times, "
+          f"want {want}")
 
     # device busy share: kernel time over the wall time of 4 more steps;
     # None ("not measured") when the profiler recorded nothing
@@ -1082,7 +1185,8 @@ def run_training() -> dict:
          "lm_head_ce_peak_mib": lm_head_ce_peak_mib()})
     del model
     torch.cuda.empty_cache()
-    return {"flash_fwd": k1, "flash_bwd_dq": k2, "flash_bwd_dkv": k3}
+    return {"flash_fwd": k1, "flash_fwd_mma": k1_mma, "flash_bwd_dq": k2,
+            "flash_bwd_dkv": k3}
 
 
 # -------------------------------------------------------------- 3c. ResNet-50
@@ -1193,8 +1297,9 @@ def imagenet_batch(b: int, seed: int):
 
 
 def conv_bn_counters():
+    """K5's, K6's and K6's "mma" variant's launch counters."""
     from bigdl_tpu_torch.ops import conv3x3_bn, matmul_bn
-    return matmul_bn.LAUNCHES, conv3x3_bn.LAUNCHES
+    return matmul_bn.LAUNCHES, conv3x3_bn.LAUNCHES, conv3x3_bn.LAUNCHES_MMA
 
 
 def _unit_state(model):
@@ -1241,7 +1346,7 @@ def resnet_grad_check(seed: int = RESNET_GRAD_SEED) -> dict:
         transfer_state(card, m)
     truth.double()
     batch = imagenet_batch(RESNET_GRAD_BATCH, seed + 4)
-    k5, k6 = conv_bn_counters()
+    k5, k6, _ = conv_bn_counters()
     losses, states = [], []
     for m in (card, cpu, plain_card, truth):
         p = next(m.parameters())
@@ -1325,8 +1430,10 @@ def train_resnet(model, batch, steps: int):
 
 
 def profile_steps(model, batch, what: str) -> dict:
-    """Device busy share and the top five kernels over two more steps;
-    None ("not measured") when the profiler recorded nothing."""
+    """Device busy share, the top five kernels and the fused kernels' time
+    (K6: ``conv3x3_stats``, K5: ``matmul_stats``, and the statistics pass
+    both share, ``column_reduce``) over two more steps; None ("not
+    measured") when the profiler recorded nothing."""
     rows, wall = profiled(lambda: train_resnet(model, batch, 2), what)
     if rows is None:
         return {"device_busy_share": None, "top_kernels_ms_per_step": []}
@@ -1335,9 +1442,12 @@ def profile_steps(model, batch, what: str) -> dict:
     layout = [(k, ms) for k, ms in per_step
               if any(w in k.lower() for w in ("copy", "nchw", "nhwc",
                                                "transpose"))]
+    fused = {part: sum(t for k, t in rows if part in k) / 2e3
+             for part in ("conv3x3_stats", "matmul_stats", "column_reduce")}
     return {"device_busy_share": sum(t for _, t in rows) / 1e6 / wall,
             "kernel_ms_per_step": sum(t for _, t in rows) / 2e3,
             "top_kernels_ms_per_step": per_step[:5],
+            "fused_kernels_ms_per_step": fused,
             "copy_and_layout_kernels_ms_per_step": layout[:6]}
 
 
@@ -1355,13 +1465,14 @@ def run_resnet() -> dict:
          "pin_and_copy_ms": (time.perf_counter() - t1) * 1e3})
 
     model = build_resnet50(True, "cuda", seed=7)
-    k5, k6 = conv_bn_counters()
+    k5, k6, k6_mma = conv_bn_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k5.reset()
-    k6.reset()
+    for c in (k5, k6, k6_mma):
+        c.reset()
     history = train_resnet(model, batch, RESNET_STEPS)
-    launches = {"matmul_bn": k5.value, "conv3x3_bn": k6.value}
+    launches = {"matmul_bn": k5.value, "conv3x3_bn": k6.value,
+                "conv3x3_bn_mma": k6_mma.value}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     losses = [h["loss"] for h in history]
     # the last iteration's interval is cut short: its loss is fetched right
@@ -1379,7 +1490,8 @@ def run_resnet() -> dict:
           f"ResNet-50 loss did not fall: first {losses[0]}, last five "
           f"{losses[-5:]}")
     want = {"matmul_bn": K5_PER_STEP * RESNET_STEPS,
-            "conv3x3_bn": K6_PER_STEP * RESNET_STEPS}
+            "conv3x3_bn": K6_PER_STEP * RESNET_STEPS,
+            "conv3x3_bn_mma": K6_PER_STEP * RESNET_STEPS}
     check(launches == want, f"training launched {launches}, want {want}")
     for name, buf in model.named_buffers():
         start = 0.0 if name.endswith("running_mean") else 1.0
@@ -1524,36 +1636,68 @@ def hbm_roof_rows(res: dict, launches: dict, errs: dict) -> list:
 
 
 # ----------------------------------------------------------------- 4. timing
-def time_flash(launches: int) -> dict:
+#: the PR 4 times of the redesigned kernels' bf16 paths, then f32 FMA
+#: (PERF.md section 6, PR 4; NVIDIA H100 80GB HBM3, 700 W), beside the new
+#: ones; PR 4 did not time K1 at the training shape
+MS_PR4_FROM = "PERF.md section 6, PR 4, chip call 6"
+MS_PR4 = {"flash_fwd": 0.1448, "conv3x3_bn": {"stage1": 1.598, "stage4": 3.445}}
+
+
+def _time_flash_shape(b: int, s: int, seed: int) -> dict:
+    """K1 at one causal bf16 shape (N=12, D=64): checked once more against
+    its plain version, then its device time, its plain version's and
+    ``scaled_dot_product_attention``'s, and its bound."""
     from bigdl_tpu_torch.ops.flash_attention import (flash_attention_plain,
                                                      flash_attention_with_lse)
-    b, s, n, d = REQUESTS_PER_LEN, PROMPT_LENS[0], CONFIG["num_heads"], 64
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, d = CONFIG["num_heads"], 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
     o, lse = flash_attention_with_lse(q, k, v, causal=True)
     po, plse = flash_attention_plain(q, k, v, causal=True)
     err, ok = flash_o_close(o, po)
     err_l = (lse - plse).abs().max().item()
     check(ok and err_l <= FLASH_ATOL,
-          f"flash at the served shape: |dO|={err} |dLSE|={err_l}")
+          f"flash at the timed shape B={b} S={s}: |dO|={err} |dLSE|={err_l}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms, _ = device_ms(lambda: flash_attention_with_lse(q, k, v, causal=True),
-                      50, "flash_fwd")
-    plain_ms, _ = device_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                            20, "flash_fwd plain")
-    library_ms, _ = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 50,
-                              "flash_fwd library")
+    kernel = lambda: flash_attention_with_lse(q, k, v, causal=True)
+    what = f"flash_fwd B={b} S={s}"
+    ms = graph_ms(kernel, what, per_graph=50)
+    plain_ms = graph_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                        f"{what} plain", per_graph=5)
+    library_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                          f"{what} library", per_graph=50)
+    ms_profiler, _ = device_ms(kernel, 50, what)
     nbytes = 4 * b * s * n * d * 2 + b * n * s * 4   # q, k, v, o; lse f32
     ops = 4 * b * n * d * (s * (s + 1) // 2)         # causal (q, k) pairs
+    return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "library_ms": library_ms, "max_abs_err": err,
+            "ms_profiler": ms_profiler,
+            "shape": f"causal bf16 B={b} S={s} N={n} D={d}"}
+
+
+def time_flash(launches: dict) -> dict:
+    """K1's row: the served prefill shape (B=4, S=384) as the row's numbers
+    and the training shape (B=8, S=512) beside them as ``train``."""
+    served = _time_flash_shape(REQUESTS_PER_LEN, PROMPT_LENS[0], 3)
+    train = _time_flash_shape(TRAIN_BATCH, TRAIN_SEQ, 13)
+    train["ms_pr4"] = None
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
-            "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
-            "library_ms": library_ms,
-            "work": f"one causal prefill launch, bf16 B={b} S={s} N={n} "
-                    f"D={d}; launches: serving and training runs together"}
+            "launches": launches["flash_fwd"],
+            "launches_mma": launches["flash_fwd_mma"],
+            "max_abs_err": served["max_abs_err"], "ms": served["ms"],
+            "ms_pr4": MS_PR4["flash_fwd"], "ms_pr4_from": MS_PR4_FROM,
+            "plain_ms": served["plain_ms"],
+            **{k: served[k] for k in ("bound_ms", "bound_by", "bytes",
+                                      "operations")},
+            "library_ms": served["library_ms"], "variant": "mma",
+            "ptxas": ptxas_report("flash_fwd", "flash_fwd_mma_kernel"),
+            "work": f"one prefill launch, {served['shape']}; library_ms: "
+                    "scaled_dot_product_attention; launches: serving and "
+                    f"training runs together; train: {train['shape']}",
+            "train": train}
 
 
 def time_flash_bwd(launches: dict) -> list:
@@ -1689,24 +1833,28 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
     """One fused-statistics kernel at one shape: checked once more against
     its plain version, then its device time, its plain version's, and the
     library's product and one fused reduction of the product's two sums
-    (``torch.var_mean``: one read of y, the same information)."""
+    (``torch.var_mean``: one read of y, the same information), each by
+    ``graph_ms``; the profiler's reading of the kernel beside them."""
     got, ref = kernel(x, w), plain(x, w)
     torch.cuda.synchronize()
     err, _, ok = y_close(got[0], ref[0])
     _, st_ok = stats_close(got[1:], ref[1:], ref[0])
     check(ok and st_ok, f"{name} at the timed shape: |y err| {err}")
+    del got, ref
     y = library(x, w)
     y2d = y.reshape(-1, y.shape[-1])
-    ms, _ = device_ms(lambda: kernel(x, w), 10, name)
-    plain_ms, _ = device_ms(lambda: plain(x, w), 3, f"{name} plain")
-    product_ms, _ = device_ms(lambda: library(x, w), 10, f"{name} library")
-    reduce_ms, _ = device_ms(
-        lambda: torch.var_mean(y2d, dim=0, correction=0), 10,
-        f"{name} library reduction")
+    ms = graph_ms(lambda: kernel(x, w), name)
+    plain_ms = graph_ms(lambda: plain(x, w), f"{name} plain", per_graph=3,
+                        replays=3)
+    product_ms = graph_ms(lambda: library(x, w), f"{name} library")
+    reduce_ms = graph_ms(lambda: torch.var_mean(y2d, dim=0, correction=0),
+                         f"{name} library reduction")
+    ms_profiler, _ = device_ms(lambda: kernel(x, w), 10, name)
     return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
             "library_ms": product_ms + reduce_ms,
             "library_product_ms": product_ms,
-            "library_reduction_ms": reduce_ms, "max_abs_err": err}
+            "library_reduction_ms": reduce_ms, "max_abs_err": err,
+            "ms_profiler": ms_profiler}
 
 
 def time_conv_bn(launches: dict) -> list:
@@ -1742,6 +1890,7 @@ def time_conv_bn(launches: dict) -> list:
             2 * (2 * b * h * h * c + 9 * c * c) + 8 * c,
             2 * b * h * h * 9 * c * c)
         k6[stage]["shape"] = f"N={b} {h}x{h} {c}->{c} bf16"
+        k6[stage]["ms_pr4"] = MS_PR4["conv3x3_bn"][stage]
     entries = []
     for name, src, ref, per, lib in (
             ("matmul_bn", "matmul_bn.cu", "bigdl_tpu/ops/matmul_bn.py:67", k5,
@@ -1763,6 +1912,12 @@ def time_conv_bn(launches: dict) -> list:
                     f"library_ms: {lib}; launches: the 20-step ResNet-50 "
                     "training run",
             "stage4": per["stage4"]})
+    k6_row = entries[1]
+    k6_row.update({"launches_mma": launches["conv3x3_bn_mma"],
+                   "ms_pr4": MS_PR4["conv3x3_bn"]["stage1"],
+                   "ms_pr4_from": MS_PR4_FROM, "variant": "mma",
+                   "ptxas": ptxas_report("conv3x3_bn",
+                                         "conv3x3_stats_mma_kernel")})
     log({"conv_bn_timing": {"matmul_bn": k5, "conv3x3_bn": k6}})
     return entries
 
@@ -1804,7 +1959,8 @@ def main(argv=None) -> int:
     train_launches = run_training()
     resnet_launches = run_resnet()
     roof, roof_launches = run_roofline()
-    kernels = [time_flash(launches["flash_fwd"] + train_launches["flash_fwd"]),
+    kernels = [time_flash({k: launches[k] + train_launches[k]
+                           for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd(train_launches),
                time_int8(int8_twin, launches["int8_matmul"]),
                *time_conv_bn(resnet_launches),

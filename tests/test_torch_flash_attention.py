@@ -100,6 +100,67 @@ def test_use_flash_only_for_cuda_tensors():
     assert not fa.use_flash(q, None)  # the CPU keeps the plain core
 
 
+BF16_STEP, FLASH_ATOL = 2.0 ** -7, 5e-5  # chip_smoke.py's bf16 rule for O
+
+
+def _mma_numerics(q, k, v, split, block_k=64):
+    """The bf16 "mma" variant of K1 in plain torch, causal: f32 logits of
+    bf16 q and k, scaled after the product; the online softmax over tiles
+    of ``block_k`` keys in f32; p summed in f32 for l, and multiplied by V
+    as bf16 hi + lo (``split``) or as one bf16 value; f32 accumulators."""
+    b, sq, n, d = q.shape
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    m = torch.full((b, n, sq, 1), NEG)
+    l = torch.zeros((b, n, sq, 1))
+    acc = torch.zeros((b, n, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[1], block_k):
+        s = (qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)) * d ** -0.5
+        keys = torch.arange(k0, k0 + s.shape[-1])[None, :]
+        s = torch.where(keys <= rows, s, torch.tensor(NEG))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        dead = m_new <= NEG / 2
+        p = torch.where(dead, 0.0, torch.exp(s - m_new))
+        corr = torch.where(dead, 1.0, torch.exp(m - m_new))
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        vt = vf[:, :, k0:k0 + block_k]
+        acc = acc * corr + hi @ vt
+        if split:
+            acc = acc + (p - hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    o = acc / l.clamp_min(1e-37)
+    lse = torch.where(m <= NEG / 2, torch.tensor(NEG), m + torch.log(l))
+    return o.permute(0, 2, 1, 3).to(torch.bfloat16), lse[..., 0]
+
+
+def _served_qkv():
+    # the served prefill shape: B=4, S=384, 12 heads, D=64, bf16
+    return tuple(torch.from_numpy(a).to(torch.bfloat16)
+                 for a in _qkv(4, 384, 384, 12, 64, seed=11))
+
+
+def _excess(o, po):
+    """The largest amount by which |o - po| passes the bf16 rule."""
+    diff = (o.float() - po.float()).abs()
+    return (diff - (BF16_STEP * po.float().abs() + FLASH_ATOL)).max().item()
+
+
+def test_mma_design_with_split_p_keeps_the_bf16_tolerance():
+    q, k, v = _served_qkv()
+    po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+    o, lse = _mma_numerics(q, k, v, split=True)
+    assert _excess(o, po) <= 0.0
+    assert (lse - plse).abs().max().item() <= FLASH_ATOL
+
+
+def test_mma_design_with_one_bf16_p_breaks_the_tolerance():
+    q, k, v = _served_qkv()
+    po, _ = fa.flash_attention_plain(q, k, v, causal=True)
+    o, _ = _mma_numerics(q, k, v, split=False)
+    assert _excess(o, po) > 1e-4  # ~2e-3 at this shape
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "heads", "contiguous",
                                  "rank"])
 def test_kernel_argument_checks(bad):
