@@ -263,13 +263,10 @@ int launch(const void* x, const void* w, void* y, void* psum, void* psq,
   const int smem = dynamic_smem(H, W);
   if (smem + STATIC_SMEM > MAX_SMEM) return cudaErrorInvalidValue;
   if (smem + STATIC_SMEM > 48 * 1024) {
-    static int allowed = 0;  // per instantiation: the largest size set so far
-    if (smem > allowed) {
-      cudaError_t err = cudaFuncSetAttribute(
-          conv3x3_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      allowed = smem;
-    }
+    // set on every launch: the attribute is per device, and the call is cheap
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
   const dim3 grid((Cout + TC - 1) / TC, (H * W + TP - 1) / TP, N);
   conv3x3_stats_kernel<T><<<grid, THREADS, smem, stream>>>(
@@ -495,14 +492,11 @@ conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
 int launch_mma(const void* x, const void* w, void* y, void* psum, void* psq,
                void* sum, void* sumsq, int N, int H, int W, int Cin, int Cout,
                cudaStream_t stream) {
-  static bool allowed = false;
-  if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_stats_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MMA_SMEM);
-    if (err != cudaSuccess) return err;
-    allowed = true;
-  }
+  // set on every launch: the attribute is per device, and the call is cheap
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_stats_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MMA_SMEM);
+  if (err != cudaSuccess) return err;
   const int M = N * H * W;
   const dim3 grid((Cout + MBN - 1) / MBN, (M + MBM - 1) / MBM);
   float* ps = static_cast<float*>(psum);
@@ -510,7 +504,7 @@ int launch_mma(const void* x, const void* w, void* y, void* psum, void* psq,
   conv3x3_stats_mma_kernel<<<grid, MTHREADS, MMA_SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<__nv_bfloat16*>(y), ps, pq, H, W, Cin, Cout, M);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // two fixed-order passes: the block rows in RED_SLABS slabs, then the slabs
   const long slab_rows = (long)grid.y * Cout;

@@ -401,13 +401,10 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int batch, int n_heads, int sq, int sk,
                        float scale, int causal, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<D>();
-  static bool allowed = false;
-  if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed = true;
-  }
+  // set on every launch: the attribute is per device, and the call is cheap
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(batch * n_heads, (sq + BQ - 1) / BQ);
   flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

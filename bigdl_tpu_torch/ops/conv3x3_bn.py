@@ -69,19 +69,23 @@ def conv3x3_with_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
 
 def conv3x3_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     """Launch kernel K6 on CUDA tensors: x (N, H, W, Cin) and w
-    (3, 3, Cin, Cout) of one dtype (f32 or bf16), both contiguous."""
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError("conv3x3_with_stats_kernel needs x and w on one "
-                         "CUDA device")
+    (3, 3, Cin, Cout) of one dtype (f32 or bf16), both contiguous (and
+    16-byte aligned for the "mma" variant, which reads them with 16-byte
+    copies)."""
     if x.dtype != w.dtype or x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"K6 takes f32 or bf16 x and w of one dtype, got "
                          f"{x.dtype} and {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("K6 takes contiguous x and w")
+    mma = kernel_variant(x, w) == "mma"
+    if mma and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("K6's mma variant takes 16-byte aligned x and w")
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError("conv3x3_with_stats_kernel needs x and w on one "
+                         "CUDA device")
     lib = _build.load("conv3x3_bn")
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
-    mma = kernel_variant(x, w) == "mma"
     rows = (lib.bt_conv3x3_stats_mma_row_blocks if mma
             else lib.bt_conv3x3_stats_row_blocks)(n, h, wd)
     dev = x.device

@@ -93,6 +93,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     check_args(q, k, v)
+    mma = kernel_variant(q) == "mma"
+    if mma and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("K1's mma variant takes 16-byte aligned q, k and v")
+    if q.device.type != "cuda":
+        raise ValueError("K1 needs CUDA tensors")
     lib = _build.load("flash_fwd")
     b, sq, n, d = q.shape
     sk = k.shape[1]
@@ -101,7 +106,6 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, n, sq, sk, d, float(scale), int(causal))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    mma = kernel_variant(q) == "mma"
     if mma:
         status = lib.bt_flash_fwd_mma(*args, stream)
     else:

@@ -67,20 +67,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 4. timing: each kernel is checked once more against its plain version at
    the served shape, then it (``ms``), its plain version (``plain_ms``) and
    one PyTorch library call for the same function (``library_ms``) are
-   timed: K1 (at the served shape and, as ``train``, at the training
-   shape), K5 and K6 (at ResNet-50's stage-1 and stage-4 shapes at B=256,
-   bf16, where the library time is the cuBLAS product or the cuDNN conv
-   plus one ``torch.var_mean`` of its output) by CUDA events around
-   CUDA-graph replays (``graph_ms``), with the profiler's reading beside as
-   ``ms_profiler``; K2 and K3 (at the training shape, B=8 S=512 N=12 D=64
-   bf16 causal) and K4 as device time by ``torch.profiler``, or by CUDA
-   events where the profiler records nothing; the bound
+   timed, each by CUDA events around CUDA-graph replays (``graph_ms``): K1
+   (at the served shape and, as ``train``, at the training shape), K2 and
+   K3 (at the training shape, B=8 S=512 N=12 D=64 bf16 causal; the library
+   time is the forward and backward of ``scaled_dot_product_attention``
+   less its forward), K4 (one int8 decode token) and K5 and K6 (at
+   ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
+   library time is the cuBLAS product or the cuDNN conv plus one
+   ``torch.var_mean`` of its output); the bound
    (``bound_ms``) is the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
    bf16 dense), and ``bound_measured_ms`` prices the same bytes at the
-   roof measured in phase 4a. The rows of the kernels redesigned for the
-   tensor cores (K1, K6) add their PR 4 time as ``ms_pr4`` (a constant,
-   not re-measured), the variant timed and its ``-Xptxas -v`` report.
+   roof measured in phase 4a. Phase 1 logs each kernel's ``-Xptxas -v``
+   report (registers, shared memory, spills) and whether this run built it.
    K7's rows come from phase 4a's run: the best
    reading of each sweep per pass over 1 GiB, the eager chain as
    ``plain_ms`` and one PyTorch call as ``library_ms``.
@@ -91,9 +90,16 @@ limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
 seed's readings and no result line.
+
+``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
+from DIR (for example an earlier commit unpacked by ``git archive``),
+builds its kernels and times K1, K2, K3, K5 and K6 as phase 4 does,
+printing the rows and no result line: an earlier version's kernels and
+this one's on one timer, within one machine.
 """
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -152,40 +158,6 @@ def profiled(fn, what: str):
     return None, None
 
 
-def device_ms(fn, iters: int, what: str, warmup: int = 3):
-    """Device milliseconds per run of ``fn``: the kernel time that
-    ``torch.profiler`` records over ``iters`` runs (host gaps between
-    launches excluded), and the three kernels that took the most of it.
-    When the profiler records nothing (see ``profiled``), the time between
-    two CUDA events around the same ``iters`` runs instead, which counts
-    the gaps between launches too; that is logged as ``timed_with_events``
-    and the kernel list then names the timer."""
-    for _ in range(warmup):
-        fn()
-
-    def runs():
-        for _ in range(iters):
-            fn()
-
-    rows, _ = profiled(runs, what)
-    if rows is None:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        runs()
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / iters
-        check(ms > 0, f"{what}: neither the profiler nor CUDA events "
-                      "measured any time")
-        log({"timed_with_events": what, "ms": ms})
-        return ms, [("cuda events (profiler recorded nothing)", ms * 1e3)]
-    total_us = sum(t for _, t in rows)
-    top = sorted(rows, key=lambda r: -r[1])[:3]
-    return total_us / iters / 1e3, [(k[:60], t / iters) for k, t in top]
-
-
 def graph_ms(fn, what: str, per_graph: int = 20, replays: int = 5) -> float:
     """Device milliseconds per call of ``fn``: CUDA events around
     ``replays`` replays of one CUDA graph that holds ``per_graph`` calls,
@@ -241,16 +213,13 @@ def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     return entry
 
 
-def ptxas_report(source: str, kernel: str) -> dict:
+def ptxas_report(text: str) -> dict:
     """``nvcc -Xptxas -v``'s lines (registers, shared memory, stack and
-    spills) for each entry function of ``source`` whose name holds
-    ``kernel``, from ``_build.BUILD_LOGS`` (the report of the build, kept
-    beside the library)."""
-    from bigdl_tpu_torch.ops import _build
+    spills) by entry function."""
     report, entry = {}, None
-    for line in _build.BUILD_LOGS.get(source, "").splitlines():
+    for line in text.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1] if kernel in line else None
+            entry = line.split("'")[1]
         elif entry and ("registers" in line or "spill" in line):
             report.setdefault(entry, []).append(line.split(": ", 1)[-1].strip())
     return report
@@ -266,12 +235,12 @@ def environment():
     log({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0),
          "capability": list(torch.cuda.get_device_capability(0))})
+    cached = {name: _build._target(name).exists() for name in _build.KERNELS}
     build_s = _build.build()
     log({"kernel_build_s": build_s, "kernels": list(_build.KERNELS)})
     for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        log({"ptxas": name, "built_in_this_run": not cached[name],
+             "entries": ptxas_report(text)})
     return card
 
 
@@ -1636,13 +1605,6 @@ def hbm_roof_rows(res: dict, launches: dict, errs: dict) -> list:
 
 
 # ----------------------------------------------------------------- 4. timing
-#: the PR 4 times of the redesigned kernels' bf16 paths, then f32 FMA
-#: (PERF.md section 6, PR 4; NVIDIA H100 80GB HBM3, 700 W), beside the new
-#: ones; PR 4 did not time K1 at the training shape
-MS_PR4_FROM = "PERF.md section 6, PR 4, chip call 6"
-MS_PR4 = {"flash_fwd": 0.1448, "conv3x3_bn": {"stage1": 1.598, "stage4": 3.445}}
-
-
 def _time_flash_shape(b: int, s: int, seed: int) -> dict:
     """K1 at one causal bf16 shape (N=12, D=64): checked once more against
     its plain version, then its device time, its plain version's and
@@ -1667,12 +1629,10 @@ def _time_flash_shape(b: int, s: int, seed: int) -> dict:
                         f"{what} plain", per_graph=5)
     library_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
                           f"{what} library", per_graph=50)
-    ms_profiler, _ = device_ms(kernel, 50, what)
     nbytes = 4 * b * s * n * d * 2 + b * n * s * 4   # q, k, v, o; lse f32
     ops = 4 * b * n * d * (s * (s + 1) // 2)         # causal (q, k) pairs
     return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
             "library_ms": library_ms, "max_abs_err": err,
-            "ms_profiler": ms_profiler,
             "shape": f"causal bf16 B={b} S={s} N={n} D={d}"}
 
 
@@ -1681,19 +1641,16 @@ def time_flash(launches: dict) -> dict:
     and the training shape (B=8, S=512) beside them as ``train``."""
     served = _time_flash_shape(REQUESTS_PER_LEN, PROMPT_LENS[0], 3)
     train = _time_flash_shape(TRAIN_BATCH, TRAIN_SEQ, 13)
-    train["ms_pr4"] = None
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
             "launches": launches["flash_fwd"],
             "launches_mma": launches["flash_fwd_mma"],
             "max_abs_err": served["max_abs_err"], "ms": served["ms"],
-            "ms_pr4": MS_PR4["flash_fwd"], "ms_pr4_from": MS_PR4_FROM,
             "plain_ms": served["plain_ms"],
             **{k: served[k] for k in ("bound_ms", "bound_by", "bytes",
                                       "operations")},
             "library_ms": served["library_ms"], "variant": "mma",
-            "ptxas": ptxas_report("flash_fwd", "flash_fwd_mma_kernel"),
             "work": f"one prefill launch, {served['shape']}; library_ms: "
                     "scaled_dot_product_attention; launches: serving and "
                     f"training runs together; train: {train['shape']}",
@@ -1703,7 +1660,8 @@ def time_flash(launches: dict) -> dict:
 def time_flash_bwd(launches: dict) -> list:
     """K2 and K3 at the training shape (bf16, causal): one launch each,
     its plain version, and the backward of ``scaled_dot_product_attention``
-    (one call for dQ, dK and dV, so the same number on both rows)."""
+    (one call for dQ, dK and dV, so the same number on both rows), timed
+    as its forward and backward in one graph less its forward alone."""
     from bigdl_tpu_torch.ops.flash_attention import (
         bwd_delta, flash_attention_with_lse, flash_bwd_dkv,
         flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
@@ -1720,19 +1678,24 @@ def time_flash_bwd(launches: dict) -> list:
     for name, got, ref in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
         errs[name], _, ok = bwd_close(got, ref)
         check(ok, f"flash bwd {name} at the timed shape: |err| {errs[name]}")
-    ms_dq, _ = device_ms(lambda: flash_bwd_dq(*args), 20, "flash_bwd_dq")
-    ms_dkv, _ = device_ms(lambda: flash_bwd_dkv(*args), 20, "flash_bwd_dkv")
-    plain_dq, _ = device_ms(lambda: flash_bwd_dq_plain(*args), 5,
-                            "flash_bwd_dq plain")
-    plain_dkv, _ = device_ms(lambda: flash_bwd_dkv_plain(*args), 5,
-                             "flash_bwd_dkv plain")
+    ms_dq = graph_ms(lambda: flash_bwd_dq(*args), "flash_bwd_dq")
+    ms_dkv = graph_ms(lambda: flash_bwd_dkv(*args), "flash_bwd_dkv")
+    plain_dq = graph_ms(lambda: flash_bwd_dq_plain(*args),
+                        "flash_bwd_dq plain", per_graph=3, replays=3)
+    plain_dkv = graph_ms(lambda: flash_bwd_dkv_plain(*args),
+                         "flash_bwd_dkv plain", per_graph=3, replays=3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=True)
     g_t = g_o.transpose(1, 2)
-    library_ms, _ = device_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), g_t, retain_graph=True), 20, "flash_bwd library")
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    fwd_ms = graph_ms(sdpa, "flash_bwd library forward")
+    fwd_bwd_ms = graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                      g_t),
+                          "flash_bwd library forward and backward")
+    library_ms = fwd_bwd_ms - fwd_ms
+    log({"flash_bwd_library_ms": {"forward": fwd_ms,
+                                  "forward_and_backward": fwd_bwd_ms}})
     bsnd, bns = b * s * n * d, b * n * s
     pairs = b * n * s * (s + 1) // 2                 # causal (q, k) pairs
     reads = 4 * bsnd * 2 + 2 * bns * 4               # q, k, v, dO; lse, delta
@@ -1740,7 +1703,8 @@ def time_flash_bwd(launches: dict) -> list:
     dkv_bound = bound(reads + 2 * bsnd * 2, 4 * 2 * d * pairs)
     work = f"one causal backward launch, bf16 B={b} S={s} N={n} D={d}"
     lib_note = ("library_ms: the backward of scaled_dot_product_attention, "
-                "one call for dQ, dK and dV")
+                "one call for dQ, dK and dV (its forward and backward "
+                "less its forward)")
     return [{"name": "flash_bwd_dq", "route": "cuda",
              "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "bigdl_tpu/ops/flash_attention.py:146",
@@ -1800,9 +1764,9 @@ def time_int8(twin, launches: int) -> dict:
         for (x, _, _), wd in zip(calls, deq):
             x @ wd.T
 
-    ms, _ = device_ms(kernel, 20, "int8_matmul")
-    plain_ms, _ = device_ms(plain, 10, "int8_matmul plain")
-    library_ms, _ = device_ms(library, 20, "int8_matmul library")
+    ms = graph_ms(kernel, "int8_matmul")
+    plain_ms = graph_ms(plain, "int8_matmul plain", per_graph=3, replays=3)
+    library_ms = graph_ms(library, "int8_matmul library")
     nbytes = sum(x.numel() * 2 + w.numel() + s.numel() * 4
                  + x.shape[0] * w.shape[0] * 4 for x, w, s in calls)
     ops = sum(2 * x.shape[0] * w.numel() for x, w, _ in calls)
@@ -1810,10 +1774,10 @@ def time_int8(twin, launches: int) -> dict:
     for (x, w, s), wd in zip(calls, deq):
         key = f"{w.shape[0]}x{w.shape[1]}"
         if key not in shapes:
-            one, _ = device_ms(lambda: int8_matmul_kernel(x, w, s), 50,
-                               f"int8_matmul {key}")
-            lib_one, _ = device_ms(lambda: x @ wd.T, 50,
-                                   f"int8_matmul {key} library")
+            one = graph_ms(lambda: int8_matmul_kernel(x, w, s),
+                           f"int8_matmul {key}", per_graph=50)
+            lib_one = graph_ms(lambda: x @ wd.T, f"int8_matmul {key} library",
+                               per_graph=50)
             shapes[key] = {"ms": one, "library_ms": lib_one, "bound_ms": bound(
                 w.numel() + x.numel() * 2 + s.numel() * 4
                 + x.shape[0] * w.shape[0] * 4,
@@ -1834,7 +1798,7 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
     its plain version, then its device time, its plain version's, and the
     library's product and one fused reduction of the product's two sums
     (``torch.var_mean``: one read of y, the same information), each by
-    ``graph_ms``; the profiler's reading of the kernel beside them."""
+    ``graph_ms``."""
     got, ref = kernel(x, w), plain(x, w)
     torch.cuda.synchronize()
     err, _, ok = y_close(got[0], ref[0])
@@ -1849,12 +1813,10 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
     product_ms = graph_ms(lambda: library(x, w), f"{name} library")
     reduce_ms = graph_ms(lambda: torch.var_mean(y2d, dim=0, correction=0),
                          f"{name} library reduction")
-    ms_profiler, _ = device_ms(lambda: kernel(x, w), 10, name)
     return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
             "library_ms": product_ms + reduce_ms,
             "library_product_ms": product_ms,
-            "library_reduction_ms": reduce_ms, "max_abs_err": err,
-            "ms_profiler": ms_profiler}
+            "library_reduction_ms": reduce_ms, "max_abs_err": err}
 
 
 def time_conv_bn(launches: dict) -> list:
@@ -1890,7 +1852,6 @@ def time_conv_bn(launches: dict) -> list:
             2 * (2 * b * h * h * c + 9 * c * c) + 8 * c,
             2 * b * h * h * 9 * c * c)
         k6[stage]["shape"] = f"N={b} {h}x{h} {c}->{c} bf16"
-        k6[stage]["ms_pr4"] = MS_PR4["conv3x3_bn"][stage]
     entries = []
     for name, src, ref, per, lib in (
             ("matmul_bn", "matmul_bn.cu", "bigdl_tpu/ops/matmul_bn.py:67", k5,
@@ -1914,10 +1875,7 @@ def time_conv_bn(launches: dict) -> list:
             "stage4": per["stage4"]})
     k6_row = entries[1]
     k6_row.update({"launches_mma": launches["conv3x3_bn_mma"],
-                   "ms_pr4": MS_PR4["conv3x3_bn"]["stage1"],
-                   "ms_pr4_from": MS_PR4_FROM, "variant": "mma",
-                   "ptxas": ptxas_report("conv3x3_bn",
-                                         "conv3x3_stats_mma_kernel")})
+                   "variant": "mma"})
     log({"conv_bn_timing": {"matmul_bn": k5, "conv3x3_bn": k6}})
     return entries
 
@@ -1929,15 +1887,33 @@ def main(argv=None) -> int:
         help="run only the kernels' build and phase 3c's ResNet-50 gradient "
              "check against the f64 reference, once per seed, and print "
              "each seed's readings (no result line)")
+    parser.add_argument(
+        "--time-kernels-of", metavar="DIR",
+        help="import bigdl_tpu_torch from DIR (e.g. an unpacked earlier "
+             "commit), build its kernels, time K1, K2, K3, K5 and K6 as "
+             "phase 4 does and print the rows (no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.time_kernels_of:
+        sys.path.insert(0, os.path.abspath(args.time_kernels_of))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = environment()
+    if args.time_kernels_of:
+        import bigdl_tpu_torch
+        none = collections.defaultdict(int)
+        rows = [time_flash(none), *time_flash_bwd(none), *time_conv_bn(none)]
+        for row in rows:  # the counts and the variant describe a main path
+            for key in ("launches", "launches_mma", "variant"):
+                row.pop(key, None)
+        log({"timed_package": os.path.dirname(bigdl_tpu_torch.__file__),
+             "card": card, "total_s": time.perf_counter() - t0,
+             "kernels_timed": rows})
+        return 0
     if args.resnet_grad_seeds:
         failed = []
         for seed in args.resnet_grad_seeds:

@@ -98,3 +98,45 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
     assert _counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3_bn.conv3x3_with_stats_kernel(xb, wb)
+
+
+def _view_at(shape, dtype, offset):
+    """A contiguous view of ``shape`` that starts ``offset`` elements into
+    a fresh buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("offset", [1, 4])
+def test_conv_mma_refuses_a_misaligned_view(which, offset):
+    # the mma variant reads x and w with 16-byte copies: a view that starts
+    # 2 or 8 bytes into its buffer is refused before any launch
+    shapes = ((2, 5, 7, 16), (3, 3, 16, 8))
+    args = [_view_at(s, torch.bfloat16, offset if i == which else 0)
+            for i, s in enumerate(shapes)]
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16
+    assert conv3x3_bn.kernel_variant(*args) == "mma"
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_bn.conv3x3_with_stats_kernel(*args)
+    # the fma variant has no such rule: f32 gets as far as the device check
+    args = [_view_at(s, torch.float32, offset if i == which else 0)
+            for i, s in enumerate(shapes)]
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3_bn.conv3x3_with_stats_kernel(*args)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_mma_refuses_a_misaligned_view(which):
+    qkv = [_view_at((1, 9, 2, 64), torch.bfloat16, 1 if i == which else 0)
+           for i in range(3)]
+    assert flash_attention.kernel_variant(qkv[0]) == "mma"
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention._flash_fwd_cuda(*qkv, True, 0.125)
+    qkv = [_view_at((1, 9, 2, 64), torch.float32, 1 if i == which else 0)
+           for i in range(3)]
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention._flash_fwd_cuda(*qkv, True, 0.125)
+    aligned = [_view_at((1, 9, 2, 64), torch.bfloat16, 0) for _ in range(3)]
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention._flash_fwd_cuda(*aligned, True, 0.125)
