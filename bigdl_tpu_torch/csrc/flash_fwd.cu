@@ -202,27 +202,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
 
 template <int D>
-__host__ __device__ constexpr int mma_pitch() { return D + 8; }  // bf16 per staged row
-
-template <int D>
 __host__ __device__ constexpr int mma_smem_bytes() {
-  return (BQ + 4 * BK) * mma_pitch<D>() * 2;
-}
-
-// rows [0, 64) of a (positions, heads, D) slab into a staged tile; rows at
-// or past `rows` are zero-filled
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long stride, int rows, int tid) {
-  constexpr int PIECES = D / 8;  // 16-byte pieces per row
-#pragma unroll
-  for (int i = tid; i < BK * PIECES; i += MMA_THREADS) {
-    const int r = i / PIECES, c = (i % PIECES) * 8;
-    const bool in = r < rows;
-    mma_bf16::cp_async16(dst + r * mma_pitch<D>() + c,
-                         in ? src + r * stride + c : src, in);
-  }
+  return (BQ + 4 * BK) * mma_bf16::tile_pitch<D>() * 2;
 }
 
 template <int D>
@@ -233,7 +214,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int n_heads, int sq, int sk, float scale, int causal) {
   using namespace mma_bf16;
-  constexpr int P = mma_pitch<D>();
+  constexpr int P = tile_pitch<D>();
   constexpr int KD = D / 16;   // k16 steps of Q K^T
   constexpr int NT = BK / 8;   // 8-key tiles of S
   constexpr int OT = D / 8;    // 8-column tiles of O
@@ -261,10 +242,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     nkb = min(nkb, last_q / BK + 1);
   }
 
-  stage_rows<D>(qs, q + ((long)b * sq + q0) * stride + (long)h * D, stride,
-                sq - q0, tid);
-  stage_rows<D>(ks, kb, stride, sk, tid);
-  stage_rows<D>(vs, vb, stride, sk, tid);
+  stage_rows<BQ, D, MMA_THREADS>(qs, q + ((long)b * sq + q0) * stride + (long)h * D,
+                                 stride, sq - q0, tid);
+  stage_rows<BK, D, MMA_THREADS>(ks, kb, stride, sk, tid);
+  stage_rows<BK, D, MMA_THREADS>(vs, vb, stride, sk, tid);
   cp_async_commit();
 
   const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
@@ -281,8 +262,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int buf = it & 1;
     if (it + 1 < nkb) {
       const int k1 = (it + 1) * BK;
-      stage_rows<D>(ks + (buf ^ 1) * BK * P, kb + k1 * stride, stride, sk - k1, tid);
-      stage_rows<D>(vs + (buf ^ 1) * BK * P, vb + k1 * stride, stride, sk - k1, tid);
+      stage_rows<BK, D, MMA_THREADS>(ks + (buf ^ 1) * BK * P, kb + k1 * stride, stride,
+                                     sk - k1, tid);
+      stage_rows<BK, D, MMA_THREADS>(vs + (buf ^ 1) * BK * P, vb + k1 * stride, stride,
+                                     sk - k1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -292,7 +275,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * P + kk * 16 + (lane / 16) * 8);
+        frag_a<D>(qf[kk], qs, warp * 16, kk * 16, lane);
     }
     const __nv_bfloat16* kt = ks + buf * BK * P;
     const __nv_bfloat16* vt = vs + buf * BK * P;
@@ -308,8 +291,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t r[4];
-        ldmatrix_x4(r, kt + (np * 16 + lane % 8 + (lane / 16) * 8) * P + kk * 16
-                           + ((lane / 8) % 2) * 8);
+        frag_b_rows<D>(r, kt, np * 16, kk * 16, lane);
         mma_16816(s[2 * np], qf[kk], r[0], r[1]);
         mma_16816(s[2 * np + 1], qf[kk], r[2], r[3]);
       }
@@ -349,10 +331,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const float p0 = dead[r] ? 0.f : expf(s[j][2 * r] - m_new[r]);
         const float p1 = dead[r] ? 0.f : expf(s[j][2 * r + 1] - m_new[r]);
         psum[r] += p0 + p1;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(hi);
-        ph[j / 2][2 * (j % 2) + r] = *reinterpret_cast<const uint32_t*>(&hi);
-        pl[j / 2][2 * (j % 2) + r] = pack_bf16(p0 - hf.x, p1 - hf.y);
+        uint32_t pieces[2];
+        split_bf16<2>(pieces, p0, p1);
+        ph[j / 2][2 * (j % 2) + r] = pieces[0];
+        pl[j / 2][2 * (j % 2) + r] = pieces[1];
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
@@ -367,8 +349,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dp = 0; dp < OT / 2; ++dp) {
         uint32_t r[4];
-        ldmatrix_x4_trans(r, vt + (j2 * 16 + lane % 8 + ((lane / 8) % 2) * 8) * P
-                                 + dp * 16 + (lane / 16) * 8);
+        frag_b_cols<D>(r, vt, j2 * 16, dp * 16, lane);
         mma_16816(acc[2 * dp], ph[j2], r[0], r[1]);
         mma_16816(acc[2 * dp], pl[j2], r[0], r[1]);
         mma_16816(acc[2 * dp + 1], ph[j2], r[2], r[3]);

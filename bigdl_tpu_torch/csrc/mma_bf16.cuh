@@ -1,7 +1,8 @@
 // Inline-PTX helpers for the bf16 tensor-core kernels of the port
-// (sm_90a): asynchronous 16-byte copies into shared memory, ldmatrix
-// fragment loads and the m16n8k16 bf16 product with f32 accumulators.
-// Included by conv3x3_bn.cu and flash_fwd.cu.
+// (sm_90a): asynchronous copies into shared memory, ldmatrix fragment
+// loads, the m16n8k16 bf16 product with f32 accumulators, and the split of
+// f32 values into bf16 pieces. Included by conv3x3_bn.cu, flash_fwd.cu and
+// flash_bwd.cu.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4; each 32-bit register holds two bf16, the lower column in
@@ -34,6 +35,36 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
+// 4 bytes global -> shared (through L1), zero-filled when !valid; for f32
+// rows whose start is not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// bf16 elements per row of a staged tile of D columns: 16 bytes of padding,
+// so that ldmatrix reads it free of bank conflicts
+template <int D>
+__host__ __device__ constexpr int tile_pitch() { return D + 8; }
+
+// ROWS rows of D bf16 (positions `stride` elements apart in global memory)
+// into a shared tile of row pitch tile_pitch<D>(), by THREADS threads; rows
+// at or past `rows` are zero-filled and read nothing. Commit the group
+// after it.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long stride, int rows, int tid) {
+  constexpr int PIECES = D / 8;  // 16-byte pieces per row
+#pragma unroll
+  for (int i = tid; i < ROWS * PIECES; i += THREADS) {
+    const int r = i / PIECES, c = (i % PIECES) * 8;
+    const bool in = r < rows;
+    cp_async16(dst + r * tile_pitch<D>() + c, in ? src + r * stride + c : src, in);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -56,6 +87,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) 
                : "r"(smem_addr(p)));
 }
 
+// The fragments of a warp's product from a staged tile of D columns (pitch
+// tile_pitch<D>()), rows [r0, r0 + 16) x columns [c0, c0 + 16):
+// as A (row-major, the tile itself)
+template <int D>
+__device__ __forceinline__ void frag_a(uint32_t r[4], const __nv_bfloat16* tile,
+                                       int r0, int c0, int lane) {
+  ldmatrix_x4(r, tile + (r0 + lane % 16) * tile_pitch<D>() + c0 + (lane / 16) * 8);
+}
+
+// as two B operands whose columns are the tile's rows (S = Q K^T's K):
+// b0, b1 = r[0], r[1] for rows r0 .. r0 + 7, r[2], r[3] for the next 8
+template <int D>
+__device__ __forceinline__ void frag_b_rows(uint32_t r[4], const __nv_bfloat16* tile,
+                                            int r0, int c0, int lane) {
+  ldmatrix_x4(r, tile + (r0 + lane % 8 + (lane / 16) * 8) * tile_pitch<D>() + c0
+                     + ((lane / 8) % 2) * 8);
+}
+
+// as two B operands that are the tile itself, its rows the depth (P V's
+// V): r[0], r[1] for columns c0 .. c0 + 7, r[2], r[3] for the next 8
+template <int D>
+__device__ __forceinline__ void frag_b_cols(uint32_t r[4], const __nv_bfloat16* tile,
+                                            int r0, int c0, int lane) {
+  ldmatrix_x4_trans(r, tile + (r0 + lane % 8 + ((lane / 8) % 2) * 8) * tile_pitch<D>()
+                           + c0 + (lane / 16) * 8);
+}
+
 // d += a * b over one 16 x 8 x 16 tile, bf16 in, f32 accumulators
 __device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {
@@ -66,10 +124,19 @@ __device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two f32 rounded to bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two f32 (x0 in the low half) as N packed bf16 pieces, largest first:
+// piece i is the bf16 rounding of what pieces 0..i-1 left (each remainder
+// is exact in f32), so the pieces sum to x within 2^-8N |x|
+template <int N>
+__device__ __forceinline__ void split_bf16(uint32_t out[N], float x0, float x1) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    out[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 hf = __bfloat1622float2(h);
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
 }
 
 }  // namespace mma_bf16

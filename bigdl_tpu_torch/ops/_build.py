@@ -36,7 +36,9 @@ ENTRIES = {
     "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
                   "bt_flash_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
     "flash_bwd": {"bt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
-                  "bt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]},
+                  "bt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+                  "bt_flash_bwd_dq_mma": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+                  "bt_flash_bwd_dkv_mma": [_P] * 8 + [_I] * 5 + [_F, _I, _P]},
     "int8_matmul": {"bt_int8_matmul": [_P] * 4 + [_I] * 3 + [_P]},
     "matmul_bn": {"bt_matmul_stats": [_P] * 7 + [_I] * 4 + [_P],
                   "bt_matmul_stats_row_blocks": [_I]},
@@ -165,13 +167,19 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_target(name)))
-            for symbol, argtypes in ENTRIES[name].items():
-                getattr(lib, symbol).argtypes = argtypes
-                getattr(lib, symbol).restype = ctypes.c_int
-            lib.bt_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.bt_cuda_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
+            lib = _LIBS[name] = open_library(_target(name), name)
+    return lib
+
+
+def open_library(path: Path, name: str) -> ctypes.CDLL:
+    """The library at ``path``, built from source ``name`` or a copy of it,
+    loaded with its C entries' signatures declared."""
+    lib = ctypes.CDLL(str(path))
+    for symbol, argtypes in ENTRIES[name].items():
+        getattr(lib, symbol).argtypes = argtypes
+        getattr(lib, symbol).restype = ctypes.c_int
+    lib.bt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.bt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 

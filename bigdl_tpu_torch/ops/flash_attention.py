@@ -10,13 +10,13 @@ Both outputs are differentiable through one ``torch.autograd.Function``,
 ``FlashAttention``, on every device, as the reference's ``custom_vjp``: the
 backward takes cotangents for ``o`` AND ``lse`` and folds the latter into
 ``delta = rowsum(dO * O) - g_lse``. On a CUDA tensor the forward launches
-kernel K1 (``csrc/flash_fwd.cu``, the port of ``_fwd_kernel``) in the
-variant ``kernel_variant`` picks (``"mma"``, tensor cores, for bf16;
-``"fma"``, CUDA cores, for float32), and the
+kernel K1 (``csrc/flash_fwd.cu``, the port of ``_fwd_kernel``) and the
 backward kernels K2 (dQ) and K3 (dK, dV) (``csrc/flash_bwd.cu``, the ports
-of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), or raises; on a CPU tensor
-they run ``flash_attention_plain`` and ``flash_attention_bwd_plain``, the
-same functions in plain PyTorch.
+of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), each in the variant
+``kernel_variant`` picks (``"mma"``, tensor cores, for bf16; ``"fma"``,
+CUDA cores, for float32), or raises; on a CPU tensor they run
+``flash_attention_plain`` and ``flash_attention_bwd_plain``, the same
+functions in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,19 +31,20 @@ NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of kernels K1 (either variant; ``LAUNCHES_MMA``: its "mma"
-#: variant alone), K2 and K3 (each counted where the kernel is launched,
-#: nowhere else)
+#: launches of kernels K1, K2 and K3 (either variant; ``*_MMA``: the "mma"
+#: variant alone), each counted where the kernel is launched, nowhere else
 LAUNCHES = _build.LaunchCounter()
 LAUNCHES_MMA = _build.LaunchCounter()
 LAUNCHES_DQ = _build.LaunchCounter()
+LAUNCHES_DQ_MMA = _build.LaunchCounter()
 LAUNCHES_DKV = _build.LaunchCounter()
+LAUNCHES_DKV_MMA = _build.LaunchCounter()
 
 
 def kernel_variant(q: torch.Tensor) -> str:
-    """The K1 variant for q of a dtype and head_dim that ``check_args``
-    takes: ``"mma"`` (tensor cores) for bfloat16, ``"fma"`` (CUDA cores) for
-    float32."""
+    """The K1, K2 and K3 variant for q of a dtype and head_dim that
+    ``check_args`` takes: ``"mma"`` (tensor cores) for bfloat16, ``"fma"``
+    (CUDA cores) for float32."""
     return "mma" if q.dtype == torch.bfloat16 else "fma"
 
 
@@ -172,15 +173,38 @@ def _check_bwd_args(q, k, v, g_o, lse, delta) -> None:
                              "float32 tensor")
 
 
-def _bwd_inputs(q, k, v, g_o, lse, delta):
-    """The input pointers both backward kernels take."""
-    return tuple(t.data_ptr() for t in (q, k, v, g_o, lse, delta))
+def bwd_variant(q, k, v, g_o, lse, delta) -> str:
+    """Raise ``ValueError`` for what K2 and K3 do not take, else return the
+    variant both launch for these inputs (``kernel_variant``): the "mma"
+    variant reads q, k, v and g_o with 16-byte copies, so it needs each to
+    start 16-byte aligned."""
+    _check_bwd_args(q, k, v, g_o, lse, delta)
+    variant = kernel_variant(q)
+    if variant == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, g_o)):
+        raise ValueError("K2's and K3's mma variant takes 16-byte aligned q, "
+                         "k, v and g_o")
+    return variant
 
 
-def _bwd_shape(q, k, causal: bool, scale: float):
+def _bwd_launch(kernel: str, outs, q, k, v, g_o, lse, delta, causal: bool,
+                scale: float) -> bool:
+    """Launch K2 (``kernel`` "flash_bwd_dq", outs (dq,)) or K3
+    ("flash_bwd_dkv", outs (dk, dv)) in its variant; returns whether that
+    was "mma"."""
+    mma = bwd_variant(q, k, v, g_o, lse, delta) == "mma"
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors")
+    lib = _build.load("flash_bwd")
     b, sq, n, d = q.shape
-    return (b, n, sq, k.shape[1], d, float(scale), int(causal),
-            DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    args = (*(t.data_ptr() for t in (q, k, v, g_o, lse, delta, *outs)),
+            b, n, sq, k.shape[1], d, float(scale), int(causal))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if mma:
+        status = getattr(lib, f"bt_{kernel}_mma")(*args, stream)
+    else:
+        status = getattr(lib, f"bt_{kernel}")(*args, DTYPES[q.dtype], stream)
+    _build.check_status(lib, kernel, status)
+    return mma
 
 
 def flash_bwd_dq(q, k, v, g_o, lse, delta, causal: bool,
@@ -188,14 +212,12 @@ def flash_bwd_dq(q, k, v, g_o, lse, delta, causal: bool,
     """dQ: kernel K2 on CUDA tensors, ``flash_bwd_dq_plain`` on CPU ones."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, g_o, lse, delta, causal, scale)
-    _check_bwd_args(q, k, v, g_o, lse, delta)
-    lib = _build.load("flash_bwd")
     dq = torch.empty_like(q)
-    status = lib.bt_flash_bwd_dq(
-        *_bwd_inputs(q, k, v, g_o, lse, delta), dq.data_ptr(),
-        *_bwd_shape(q, k, causal, scale))
-    _build.check_status(lib, "flash_bwd_dq", status)
+    mma = _bwd_launch("flash_bwd_dq", (dq,), q, k, v, g_o, lse, delta,
+                      causal, scale)
     LAUNCHES_DQ.add()
+    if mma:
+        LAUNCHES_DQ_MMA.add()
     return dq
 
 
@@ -205,14 +227,12 @@ def flash_bwd_dkv(q, k, v, g_o, lse, delta, causal: bool,
     ones."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g_o, lse, delta, causal, scale)
-    _check_bwd_args(q, k, v, g_o, lse, delta)
-    lib = _build.load("flash_bwd")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = lib.bt_flash_bwd_dkv(
-        *_bwd_inputs(q, k, v, g_o, lse, delta), dk.data_ptr(),
-        dv.data_ptr(), *_bwd_shape(q, k, causal, scale))
-    _build.check_status(lib, "flash_bwd_dkv", status)
+    mma = _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, g_o, lse, delta,
+                      causal, scale)
     LAUNCHES_DKV.add()
+    if mma:
+        LAUNCHES_DKV_MMA.add()
     return dk, dv
 
 

@@ -13,9 +13,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (all ``nvcc`` processes at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes, with the tolerances stated
-   below; K1's and K6's cases each log the variant they took (``mma`` on
-   the tensor cores for bf16, ``fma`` for the rest), checked by the
-   ``LAUNCHES_MMA`` counters; the flash backward (K2, K3) through the
+   below; K1's, K2's, K3's and K6's cases each log the variant they took
+   (``mma`` on the tensor cores for bf16, ``fma`` for the rest), checked by
+   the ``LAUNCHES*_MMA`` counters; the flash backward (K2, K3) through the
    autograd ``Function`` against ``flash_attention_bwd_plain`` fed the same o, lse and
    cotangents, and against autograd through the plain attention core; the
    fused conv+BN-statistics kernels K5 (1x1 matmul) and K6 (3x3 conv) at
@@ -39,13 +39,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    variant only) and the int8 decode kernel K4;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
-   grammar, through K1/K2/K3, must be finite and within GRAD_RTOL (relative
-   L2, per tensor) of a CPU copy carrying the same weights, which takes the
-   plain path. Then ``Optimizer`` trains 20 iterations at B=8, S=512 with
+   grammar, through K1/K2/K3 (their ``fma`` variants, no ``mma`` launch),
+   must be finite and within GRAD_RTOL (relative L2, per tensor) of a CPU
+   copy carrying the same weights, which takes the plain path. Then
+   ``Optimizer`` trains 20 iterations at B=8, S=512 with
    ``set_precision("bf16")``, ``AdamW`` and global-L2 clipping at 1.0: the
    losses must be finite, the mean of the last five below the first, and
-   K1 (every launch ``mma``), K2 and K3 each launched exactly 12 x 20
-   times (counters zeroed just before the run);
+   K1, K2 and K3 each launched exactly 12 x 20 times, every launch ``mma``
+   (counters zeroed just before the run);
 3c. ResNet-50 (bench.py's resnet50 workload, ``resnet.build(1000, 50)``,
    full width and depth) with both fusion gates set: every gradient and
    updated running statistic of one f32 batch (B=8, 224x224) on the card,
@@ -69,9 +70,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    one PyTorch library call for the same function (``library_ms``) are
    timed, each by CUDA events around CUDA-graph replays (``graph_ms``): K1
    (at the served shape and, as ``train``, at the training shape), K2 and
-   K3 (at the training shape, B=8 S=512 N=12 D=64 bf16 causal; the library
-   time is the forward and backward of ``scaled_dot_product_attention``
-   less its forward), K4 (one int8 decode token) and K5 and K6 (at
+   K3 (their ``mma`` variants at the training shape, B=8 S=512 N=12 D=64
+   bf16 causal; the library time is the forward and backward of
+   ``scaled_dot_product_attention`` less its forward), K4 (one int8 decode token) and K5 and K6 (at
    ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
    library time is the cuBLAS product or the cuDNN conv plus one
    ``torch.var_mean`` of its output); the bound
@@ -90,6 +91,14 @@ limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
 seed's readings and no result line.
+
+``python3 chip_smoke.py --flash-bwd-sums`` builds the kernels and a copy
+of ``csrc/flash_bwd.cu`` whose mma variants sum each 16-deep step's bf16
+pieces from zero before adding them to the running f32 sums, and prints,
+for both, the ``-Xptxas -v`` report, the bf16 backward's largest excess
+over one step at the training shape (seeds 5-8, with and without an LSE
+cotangent) and K2's and K3's times at D=64 and D=128, and no result line:
+the readings behind the kernels' accumulation.
 
 ``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
 from DIR (for example an earlier commit unpacked by ``git archive``),
@@ -267,17 +276,17 @@ def flash_o_close(o: torch.Tensor, po: torch.Tensor):
 
 
 def launched_variant(counters, variant_of, fn):
-    """Runs ``fn`` (one kernel call) and returns the variant that
-    ``variant_of`` names, checked against the counters (``LAUNCHES``,
-    ``LAUNCHES_MMA``): one launch, and one "mma" launch exactly when the
-    variant is "mma"."""
-    total, mma = counters
-    before = (total.value, mma.value)
+    """Runs ``fn`` (one launch of each kernel that ``counters`` lists as
+    (``LAUNCHES``, ``LAUNCHES_MMA``) pairs) and returns the variant that
+    ``variant_of`` names, checked against every pair: one launch, and one
+    "mma" launch exactly when the variant is "mma"."""
+    before = [(total.value, mma.value) for total, mma in counters]
     out = fn()
     want = variant_of()
-    got = (total.value - before[0], mma.value - before[1])
-    check(got == (1, int(want == "mma")),
-          f"{want} call counted {got} (launches, mma launches)")
+    for (total, mma), (t0, m0) in zip(counters, before):
+        got = (total.value - t0, mma.value - m0)
+        check(got == (1, int(want == "mma")),
+              f"{want} call counted {got} (launches, mma launches)")
     return want, out
 
 
@@ -298,7 +307,7 @@ def check_flash():
               (torch.bfloat16, True, 1, 200, 200, 4, 128),
               (torch.float32, False, 2, 100, 333, 3, 128),
               (torch.float32, True, 4, 1, 1, 12, 64)]
-    counters = (fa.LAUNCHES, fa.LAUNCHES_MMA)
+    counters = [(fa.LAUNCHES, fa.LAUNCHES_MMA)]
     worst, variants = 0.0, {}
     for dt, causal, b, sq, sk, n, d in cases:
         q, k, v = _qkv(gen, b, sq, sk, n, d, dt)
@@ -348,9 +357,10 @@ def bwd_close(got: torch.Tensor, ref: torch.Tensor):
     sums of up to Sk or Sq products in another order). bfloat16: within one
     bf16 step of the element, 2^-7 * |ref|, plus BWD_BF16_ATOL: both round
     an f32 sum to bf16, and where that sum is near zero its f32 ordering
-    error is large against the element's own step (on an H100 the largest
-    excess over one step measured 4.6e-8, so the atol keeps a margin of
-    200). Returns (max |got - ref|, the largest excess over the one-step
+    error, and in the mma variants the split of p and dS into bf16 pieces,
+    is large against the element's own step (on an H100 the largest excess
+    over one step measured 4.6e-8 with the f32 FMA kernels and 5.2e-6 with
+    the mma variants, over seeds 5-8 by ``--flash-bwd-sums``). Returns (max |got - ref|, the largest excess over the one-step
     part in bf16, or the error over max|ref| in f32, whether all hold)."""
     g, r = got.float(), ref.float()
     diff = (g - r).abs()
@@ -384,11 +394,27 @@ def check_flash_bwd():
     causal, with and without an LSE cotangent), f32 causal and full at
     S in {384, 333}, D=128, Sq != Sk, one row, and the dead row of
     ``check_flash``. Then the Function against autograd through the plain
-    attention core at the training shape in f32. Returns the worst
-    |error| of dQ (K2) and of dK/dV (K3) at the training shape."""
+    attention core at the training shape in f32. Every bf16 case (D=128
+    included) must launch K2's and K3's "mma" variants and every f32 case
+    their "fma" ones, by the counters. Returns the worst |error| of dQ (K2)
+    and of dK/dV (K3) at the training shape."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops.attention_core import dot_product_attention
     from bigdl_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
     gen = torch.Generator(device="cuda").manual_seed(6)
+    counters = [(fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA),
+                (fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)]
+    variants = {}
+
+    def grads_of(q, k, v, g_o, g_lse, causal, what):
+        variant, out = launched_variant(
+            counters, lambda: fa.kernel_variant(q),
+            lambda: _function_grads(q, k, v, g_o, g_lse, causal))
+        check(variant == ("mma" if q.dtype == torch.bfloat16 else "fma"),
+              f"flash bwd {what} took the {variant} variant")
+        variants[what] = variant
+        return out
+
     bf16, f32 = torch.bfloat16, torch.float32
     n_train = CONFIG["num_heads"]
     cases = [(bf16, True, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n_train, 64, g)
@@ -408,15 +434,16 @@ def check_flash_bwd():
         g_o = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
         g_lse = (torch.randn((b, n, sq), generator=gen, device="cuda")
                  if with_g_lse else None)
-        o, lse, *grads = _function_grads(q, k, v, g_o, g_lse, causal)
+        what = (f"{dt} causal={causal} B={b} Sq={sq} Sk={sk} N={n} D={d} "
+                f"g_lse={with_g_lse}")
+        o, lse, *grads = grads_of(q, k, v, g_o, g_lse, causal, what)
         plain = flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
                                           causal, 1.0 / d ** 0.5)
         torch.cuda.synchronize()
         for name, got, ref in zip(("dq", "dk", "dv"), grads, plain):
             err, ex, ok = bwd_close(got, ref)
             check(ok and got.shape == ref.shape and got.dtype == dt,
-                  f"flash bwd {name} {dt} causal={causal} B={b} Sq={sq} "
-                  f"Sk={sk} N={n} D={d} g_lse={with_g_lse}: |err| {err} "
+                  f"flash bwd {name} {what}: |err| {err} "
                   f"(bf16: excess over one step; f32: over max|ref|: {ex})")
             excess[dt] = max(excess[dt], ex)
             if (b, sq) == (TRAIN_BATCH, TRAIN_SEQ):
@@ -430,7 +457,7 @@ def check_flash_bwd():
         k[:, :, 0, 0] = 100
         g_o = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
         g_lse = torch.randn((1, 2, 70), generator=gen, device="cuda")
-        o, lse, *grads = _function_grads(q, k, v, g_o, g_lse, True)
+        o, lse, *grads = grads_of(q, k, v, g_o, g_lse, True, f"{dt} dead row")
         plain = flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse, True,
                                           1.0 / 8)
         for name, got, ref in zip(("dq", "dk", "dv"), grads, plain):
@@ -442,7 +469,7 @@ def check_flash_bwd():
     # the Function against autograd through the plain core, f32, training shape
     q, k, v = _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n_train, 64, f32)
     g_o = torch.randn(q.shape, generator=gen, device="cuda")
-    _, _, *grads = _function_grads(q, k, v, g_o, None, True)
+    _, _, *grads = grads_of(q, k, v, g_o, None, True, "f32 vs plain core")
     ts = [t.detach().requires_grad_() for t in (q, k, v)]
     dot_product_attention(*ts, causal=True).backward(g_o)
     autograd_err = 0.0
@@ -455,7 +482,8 @@ def check_flash_bwd():
          "max_abs_err_dkv_train_shape": worst["dkv"],
          "bf16_max_excess_over_one_step": excess[bf16],
          "f32_max_err_over_max_ref": excess[f32],
-         "function_vs_plain_core_autograd_f32": autograd_err})
+         "function_vs_plain_core_autograd_f32": autograd_err,
+         "variants": variants})
     return worst
 
 
@@ -1037,7 +1065,7 @@ def grad_check(model) -> None:
         m.train()
         m.zero_grad(set_to_none=True)
         for c in (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ,
-                  fa.LAUNCHES_DKV):
+                  fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA):
             c.reset()
         ids = torch.as_tensor(sample.feature[None], device=dev)
         tgt = torch.as_tensor(sample.label[None], device=dev)
@@ -1048,8 +1076,9 @@ def grad_check(model) -> None:
             check((fa.LAUNCHES.value, fa.LAUNCHES_DQ.value,
                    fa.LAUNCHES_DKV.value) == (layers,) * 3,
                   "the card's gradient did not run K1, K2 and K3 once a layer")
-            check(fa.LAUNCHES_MMA.value == 0,
-                  "the f32 gradient check ran K1's mma variant")
+            check((fa.LAUNCHES_MMA.value, fa.LAUNCHES_DQ_MMA.value,
+                   fa.LAUNCHES_DKV_MMA.value) == (0, 0, 0),
+                  "the f32 gradient check ran an mma variant of K1, K2 or K3")
     model.zero_grad(set_to_none=True)
     worst, worst_name = 0.0, ""
     for name, ref in grads[1].items():
@@ -1099,7 +1128,8 @@ def lm_head_ce_peak_mib() -> float:
 
 
 def run_training() -> dict:
-    """Phase 3b; returns the K1, K2, K3 launches of the 20-step run."""
+    """Phase 3b; returns the K1, K2, K3 launches of the 20-step run (all,
+    and of the "mma" variants)."""
     from bigdl_tpu_torch.apps.transformer import synthetic_corpus
     from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
     from bigdl_tpu_torch.models.transformer import build_lm
@@ -1112,7 +1142,8 @@ def run_training() -> dict:
     samples = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS, TRAIN_SEQ, VOCAB,
                                seed=17)
     ds = DataSet.array(samples, seed=0) >> SampleToBatch(TRAIN_BATCH)
-    counters = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+    counters = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ,
+                fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -1120,7 +1151,7 @@ def run_training() -> dict:
     t1 = time.perf_counter()
     history = _train(model, ds, TRAIN_STEPS)
     train_s = time.perf_counter() - t1
-    k1, k1_mma, k2, k3 = (c.value for c in counters)
+    k1, k1_mma, k2, k2_mma, k3, k3_mma = (c.value for c in counters)
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     losses = [h["loss"] for h in history]
     step_s = float(np.median([h["seconds"] for h in history[3:]]))
@@ -1132,14 +1163,16 @@ def run_training() -> dict:
          "step_ms_median": step_s * 1e3,
          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
          "peak_allocated_mib": peak_mib, "k1_launches": k1,
-         "k1_mma_launches": k1_mma, "k2_launches": k2, "k3_launches": k3})
+         "k1_mma_launches": k1_mma, "k2_launches": k2,
+         "k2_mma_launches": k2_mma, "k3_launches": k3,
+         "k3_mma_launches": k3_mma})
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"training losses {losses}")
     check(float(np.mean(losses[-5:])) < losses[0],
           f"loss did not fall: first {losses[0]}, last five {losses[-5:]}")
-    check(k1 == k1_mma == k2 == k3 == want,
-          f"training launched K1 (mma)/K2/K3 {k1} ({k1_mma})/{k2}/{k3} times, "
-          f"want {want}")
+    check(k1 == k1_mma == k2 == k2_mma == k3 == k3_mma == want,
+          f"training launched K1/K2/K3 {k1}/{k2}/{k3} times ({k1_mma}/"
+          f"{k2_mma}/{k3_mma} of them mma), want {want}, all mma")
 
     # device busy share: kernel time over the wall time of 4 more steps;
     # None ("not measured") when the profiler recorded nothing
@@ -1155,7 +1188,8 @@ def run_training() -> dict:
     del model
     torch.cuda.empty_cache()
     return {"flash_fwd": k1, "flash_fwd_mma": k1_mma, "flash_bwd_dq": k2,
-            "flash_bwd_dkv": k3}
+            "flash_bwd_dq_mma": k2_mma, "flash_bwd_dkv": k3,
+            "flash_bwd_dkv_mma": k3_mma}
 
 
 # -------------------------------------------------------------- 3c. ResNet-50
@@ -1658,8 +1692,9 @@ def time_flash(launches: dict) -> dict:
 
 
 def time_flash_bwd(launches: dict) -> list:
-    """K2 and K3 at the training shape (bf16, causal): one launch each,
-    its plain version, and the backward of ``scaled_dot_product_attention``
+    """K2 and K3 at the training shape (bf16, causal, so their "mma"
+    variants, which phase 3b counts): one launch each, its plain version,
+    and the backward of ``scaled_dot_product_attention``
     (one call for dQ, dK and dV, so the same number on both rows), timed
     as its forward and backward in one graph less its forward alone."""
     from bigdl_tpu_torch.ops.flash_attention import (
@@ -1708,17 +1743,20 @@ def time_flash_bwd(launches: dict) -> list:
     return [{"name": "flash_bwd_dq", "route": "cuda",
              "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "bigdl_tpu/ops/flash_attention.py:146",
-             "launches": launches["flash_bwd_dq"], "max_abs_err": errs["dq"],
+             "launches": launches["flash_bwd_dq"],
+             "launches_mma": launches["flash_bwd_dq_mma"],
+             "max_abs_err": errs["dq"],
              "ms": ms_dq, "plain_ms": plain_dq, **dq_bound,
-             "library_ms": library_ms,
+             "library_ms": library_ms, "variant": "mma",
              "work": f"{work}; {lib_note}"},
             {"name": "flash_bwd_dkv", "route": "cuda",
              "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "bigdl_tpu/ops/flash_attention.py:186",
              "launches": launches["flash_bwd_dkv"],
+             "launches_mma": launches["flash_bwd_dkv_mma"],
              "max_abs_err": max(errs["dk"], errs["dv"]),
              "ms": ms_dkv, "plain_ms": plain_dkv, **dkv_bound,
-             "library_ms": library_ms,
+             "library_ms": library_ms, "variant": "mma",
              "work": f"{work}; {lib_note}"}]
 
 
@@ -1880,6 +1918,98 @@ def time_conv_bn(launches: dict) -> list:
     return entries
 
 
+def _step_sums_source(src: str) -> str:
+    """``flash_bwd.cu`` with each bf16-piece product of the mma variants
+    (dQ += dS K, dV += P^T dO, dK += dS^T Q) summed from zero over one
+    16-deep step, smallest piece first, and then added to the running f32
+    sums, instead of every piece added straight into them."""
+    for acc, frag, n in (("acc", "dsf[j2][i]", 2), ("acc_v", "pf[i]", 3),
+                         ("acc_k", "dsf[i]", 2)):
+        loop = ("#pragma unroll\n"
+                f"        for (int i = 0; i < {n}; ++i) {{\n"
+                f"          mma_16816({acc}[2 * nd], {frag}, r[0], r[1]);\n"
+                f"          mma_16816({acc}[2 * nd + 1], {frag}, r[2], r[3]);\n"
+                "        }")
+        steps = ("{ float t0[4] = {}, t1[4] = {};\n"
+                 "#pragma unroll\n"
+                 f"        for (int i = {n - 1}; i >= 0; --i) {{\n"
+                 f"          mma_16816(t0, {frag}, r[0], r[1]);\n"
+                 f"          mma_16816(t1, {frag}, r[2], r[3]);\n"
+                 "        }\n"
+                 "#pragma unroll\n"
+                 "        for (int e = 0; e < 4; ++e)\n"
+                 f"          {acc}[2 * nd][e] += t0[e], {acc}[2 * nd + 1][e] += t1[e]; }}")
+        check(src.count(loop) == 1, f"flash_bwd.cu has no single {acc} loop")
+        src = src.replace(loop, steps)
+    return src
+
+
+def flash_bwd_sums() -> None:
+    """``--flash-bwd-sums``: the readings behind how K2's and K3's mma
+    variants accumulate. For the shipped kernels and for a copy built from
+    ``_step_sums_source``: the ``-Xptxas -v`` report; the largest excess
+    over one bf16 step of dQ, dK and dV (``bwd_close``) at the training
+    shape, seeds 5-8, with and without an LSE cotangent; and K2's and K3's
+    ``graph_ms`` at the training shape, D=64 (N=12) and D=128 (N=6, the
+    same bytes)."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    shipped = _build.load("flash_bwd")
+    alt_dir = _build.BUILD_DIR.parent / "flash_bwd_step_sums"
+    alt_dir.mkdir(parents=True, exist_ok=True)
+    src = alt_dir / "flash_bwd_step_sums.cu"
+    src.write_text(_step_sums_source(
+        (_build.SRC_DIR / "flash_bwd.cu").read_text()))
+    so = alt_dir / "libflash_bwd_step_sums.so"
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                          str(_build.SRC_DIR), "-o", str(so), str(src)],
+                         capture_output=True, text=True)
+    check(out.returncode == 0, f"nvcc failed on the step-sums copy:\n"
+                               f"{out.stderr[-3000:]}")
+    step_sums = _build.open_library(so, "flash_bwd")
+    reports = {"shipped": _build.BUILD_LOGS["flash_bwd"],
+               "step_sums": out.stderr + out.stdout}
+    try:
+        for name, lib in (("shipped", shipped), ("step_sums", step_sums)):
+            _build._LIBS["flash_bwd"] = lib
+            worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+            for seed in (5, 6, 7, 8):
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                q, k, v = _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                               CONFIG["num_heads"], 64, torch.bfloat16)
+                g_o = torch.randn(q.shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                for with_g_lse in (False, True):
+                    g_lse = (torch.randn(
+                        (TRAIN_BATCH, CONFIG["num_heads"], TRAIN_SEQ),
+                        generator=gen, device="cuda") if with_g_lse else None)
+                    o, lse, *grads = _function_grads(q, k, v, g_o, g_lse,
+                                                     True)
+                    plain = fa.flash_attention_bwd_plain(
+                        q, k, v, o, lse, g_o, g_lse, True, 0.125)
+                    for g, got, ref in zip(worst, grads, plain):
+                        worst[g] = max(worst[g], bwd_close(got, ref)[1])
+            ms = {}
+            for d, n in ((64, CONFIG["num_heads"]), (128, 6)):
+                gen = torch.Generator(device="cuda").manual_seed(3)
+                q, k, v = _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n, d,
+                               torch.bfloat16)
+                g_o = torch.randn(q.shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                with torch.no_grad():
+                    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+                args = (q, k, v, g_o, lse, fa.bwd_delta(o, g_o, None), True,
+                        d ** -0.5)
+                ms[f"D={d}"] = {
+                    "dq": graph_ms(lambda: fa.flash_bwd_dq(*args), "dq"),
+                    "dkv": graph_ms(lambda: fa.flash_bwd_dkv(*args), "dkv")}
+            log({"flash_bwd_sums": name,
+                 "ptxas": ptxas_report(reports[name]),
+                 "max_excess_over_one_step_seeds_5_8": worst, "ms": ms})
+    finally:
+        _build._LIBS["flash_bwd"] = shipped
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1887,6 +2017,12 @@ def main(argv=None) -> int:
         help="run only the kernels' build and phase 3c's ResNet-50 gradient "
              "check against the f64 reference, once per seed, and print "
              "each seed's readings (no result line)")
+    parser.add_argument(
+        "--flash-bwd-sums", action="store_true",
+        help="build the kernels and a copy of flash_bwd.cu whose mma "
+             "variants sum each step's bf16 pieces before adding them, and "
+             "print each one's ptxas report, bf16 excess over seeds 5-8 and "
+             "times (no result line)")
     parser.add_argument(
         "--time-kernels-of", metavar="DIR",
         help="import bigdl_tpu_torch from DIR (e.g. an unpacked earlier "
@@ -1913,6 +2049,10 @@ def main(argv=None) -> int:
         log({"timed_package": os.path.dirname(bigdl_tpu_torch.__file__),
              "card": card, "total_s": time.perf_counter() - t0,
              "kernels_timed": rows})
+        return 0
+    if args.flash_bwd_sums:
+        flash_bwd_sums()
+        log({"total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.resnet_grad_seeds:
         failed = []

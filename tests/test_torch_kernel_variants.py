@@ -1,11 +1,13 @@
-"""Which variant of kernels K1 and K6 a CUDA tensor takes, on the CPU.
+"""Which variant of kernels K1, K2, K3 and K6 a CUDA tensor takes, on the
+CPU.
 
-Both kernels have an "mma" variant on the tensor cores and an "fma" one on
-the CUDA cores. ``conv3x3_bn.kernel_variant`` and
-``flash_attention.kernel_variant`` are plain functions, so the routing is
-tested here: every bf16 3x3 conv of ResNet-50 and every bf16 attention
-takes "mma", f32 and the ragged convs take "fma". On CPU tensors the
-wrappers run their plain versions and count no launch of either variant.
+Each kernel has an "mma" variant on the tensor cores and an "fma" one on
+the CUDA cores. ``conv3x3_bn.kernel_variant``,
+``flash_attention.kernel_variant`` and ``flash_attention.bwd_variant`` are
+plain functions, so the routing is tested here: every bf16 3x3 conv of
+ResNet-50 and every bf16 attention, forward and backward, takes "mma", f32
+and the ragged convs take "fma". On CPU tensors the wrappers run their
+plain versions and count no launch of either variant.
 """
 
 import numpy as np
@@ -140,3 +142,67 @@ def test_flash_mma_refuses_a_misaligned_view(which):
     aligned = [_view_at((1, 9, 2, 64), torch.bfloat16, 0) for _ in range(3)]
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention._flash_fwd_cuda(*aligned, True, 0.125)
+
+
+def _bwd_args(dtype, d=64, misaligned=None):
+    """(q, k, v, g_o, lse, delta) of B=1 S=9 N=2 as the backward kernels
+    take them; ``misaligned`` (0-3) starts that one 2 bytes (bf16) or 4
+    bytes (f32) into its buffer."""
+    qkvg = [_view_at((1, 9, 2, d), dtype, int(i == misaligned))
+            for i in range(4)]
+    return (*qkvg, torch.zeros((1, 2, 9)), torch.zeros((1, 2, 9)))
+
+
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_bwd_variant_by_dtype(d):
+    # both head dims take mma in bf16: D=128 has no fma fallback
+    assert flash_attention.bwd_variant(*_bwd_args(torch.bfloat16, d)) == "mma"
+    assert flash_attention.bwd_variant(*_bwd_args(torch.float32, d)) == "fma"
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+def test_flash_bwd_mma_refuses_a_misaligned_view(kernel, which):
+    # q, k, v or g_o 2 bytes into its buffer: refused before any launch
+    args = _bwd_args(torch.bfloat16, misaligned=which)
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16
+    outs = (torch.empty_like(args[0]),) * (1 if kernel == "flash_bwd_dq" else 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.bwd_variant(*args)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention._bwd_launch(kernel, outs, *args, True, 0.125)
+    # f32 takes fma, which has no such rule: it gets as far as the device
+    args = _bwd_args(torch.float32, misaligned=which)
+    assert flash_attention.bwd_variant(*args) == "fma"
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention._bwd_launch(kernel, outs, *args, True, 0.125)
+    aligned = _bwd_args(torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention._bwd_launch(kernel, outs, *aligned, True, 0.125)
+
+
+def _bwd_counts():
+    fa = flash_attention
+    return tuple(c.value for c in (fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA,
+                                   fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_backward_counts_no_launch(dtype):
+    rng = np.random.default_rng(1)
+    q, k, v, g_o = (torch.from_numpy(rng.standard_normal((1, 7, 2, 64),
+                                                         np.float32))
+                    .to(dtype) for _ in range(4))
+    before = _bwd_counts()
+    o, lse = flash_attention.flash_attention_plain(q, k, v, True, 0.125)
+    args = (q, k, v, g_o, lse, flash_attention.bwd_delta(o, g_o, None), True,
+            0.125)
+    assert torch.equal(flash_attention.flash_bwd_dq(*args),
+                       flash_attention.flash_bwd_dq_plain(*args))
+    for got, want in zip(flash_attention.flash_bwd_dkv(*args),
+                         flash_attention.flash_bwd_dkv_plain(*args)):
+        assert torch.equal(got, want)
+    qt = q.clone().requires_grad_()
+    flash_attention.flash_attention(qt, k, v, causal=True).backward(g_o)
+    assert qt.grad is not None and qt.grad.dtype == dtype
+    assert _bwd_counts() == before
