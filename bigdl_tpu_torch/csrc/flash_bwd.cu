@@ -58,24 +58,25 @@
 // first, as K1 does (under a causal mask the longest blocks start first);
 // K3's key tile 0, which sees every query tile, is among the first blocks
 // scheduled. What bounds them: neither the bytes nor the tensor cores'
-// rate; a tile pair costs K2 4 and K3 7 products of 64 x 64 x D (the bf16
-// pieces counted), on mma.sync at 2 (K3: 242 registers at D=64) or 3 (K2:
-// 168) blocks an SM, so each block's chain of tiles, with the f32 work
+// rate; a tile pair costs K2 4 and K3 8 products of 64 x 64 x D (the bf16
+// pieces counted), on mma.sync at the 2 (K3) or 3 (K2) blocks an SM that
+// their registers allow, so each block's chain of tiles, with the f32 work
 // between its products (exp, the splits), sets the time.
 // Precision: q, k, v and dO are bf16, so S and dP are exact products summed
 // in f32. p and dS are f32, and one bf16 rounding of either would miss the
 // bf16 check by about 3e-3 (tests/test_torch_flash_bwd_mma.py emulates the
-// splits on the CPU). So dS enters dQ = dS K and dK = dS^T Q as bf16
-// hi + lo (two products each; the pieces hold dS to 2^-16), and p enters
-// dV = P^T dO in three bf16 pieces (to 2^-24): dV's column sums run over
-// up to Sq queries with large weights on the early keys, and hi + lo there
-// reached 99% of the check's atol at the training shape in the CPU
-// emulation. Every product adds straight into the running f32
-// accumulators: summing each 16-deep step's pieces from zero and adding
-// them (what K6 needs over its long sums) moved no gradient's excess over
-// one bf16 step by more than 1e-7 on an H100, cost time in both kernels
-// and spilled in K3 (`python3 chip_smoke.py --flash-bwd-sums` builds that
-// copy and reads both).
+// splits on the CPU). So they enter the products as sums of bf16 pieces,
+// each piece the rounding of what the earlier ones left: two pieces hold a
+// value to 2^-16, three to 2^-24. dQ = dS K takes dS as hi + lo (sums over
+// at most Sk keys; on an H100 the largest excess over one bf16 step was
+// 3.0e-6, under half the check's 1e-5 atol). dV = P^T dO and dK = dS^T Q
+// take three pieces: their column sums run over up to Sq queries with
+// large weights on the early keys, and two pieces read 9.9e-6 for dV in
+// the CPU emulation and 5.2e-6 for dK on an H100, past half the atol.
+// Every product adds straight into the running f32 accumulators: summing
+// each 16-deep step's pieces from zero first (what K6 needs over its long
+// sums) moved no gradient's excess by more than 1e-7 on an H100, cost time
+// in both kernels and spilled in K3.
 //
 // "fma" (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; C entries
 // bt_flash_bwd_dq, bt_flash_bwd_dkv): float32, the first port's design.
@@ -667,12 +668,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // p^T and dS^T in f32 with each column's (query's) LSE and delta; per
-    // k16 step j2 (queries 16 j2 .. +15), p^T in three bf16 pieces and dS^T
-    // in two as A fragments, then dV += P^T dO and dK += dS^T Q
+    // k16 step j2 (queries 16 j2 .. +15), p^T and dS^T each in three bf16
+    // pieces as A fragments, then dV += P^T dO and dK += dS^T Q
     const int q0 = qt * BQ;
 #pragma unroll
     for (int j2 = 0; j2 < NT / 2; ++j2) {
-      uint32_t pf[3][4], dsf[2][4];
+      uint32_t pf[3][4], dsf[3][4];
 #pragma unroll
       for (int half = 0; half < 2; ++half)
 #pragma unroll
@@ -688,13 +689,14 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             p[c] = valid ? expf(expo) : 0.f;
             ds[c] = p[c] * (dp[j][2 * r + c] - dt[col]) * scale;
           }
-          uint32_t pp[3], dd[2];
+          uint32_t pp[3], dd[3];
           split_bf16<3>(pp, p[0], p[1]);
-          split_bf16<2>(dd, ds[0], ds[1]);
+          split_bf16<3>(dd, ds[0], ds[1]);
 #pragma unroll
-          for (int i = 0; i < 3; ++i) pf[i][2 * half + r] = pp[i];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) dsf[i][2 * half + r] = dd[i];
+          for (int i = 0; i < 3; ++i) {
+            pf[i][2 * half + r] = pp[i];
+            dsf[i][2 * half + r] = dd[i];
+          }
         }
 #pragma unroll
       for (int nd = 0; nd < OT / 2; ++nd) {
@@ -707,7 +709,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         frag_b_cols<D>(r, qtile, j2 * 16, nd * 16, lane);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
+        for (int i = 0; i < 3; ++i) {
           mma_16816(acc_k[2 * nd], dsf[i], r[0], r[1]);
           mma_16816(acc_k[2 * nd + 1], dsf[i], r[2], r[3]);
         }

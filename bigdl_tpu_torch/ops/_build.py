@@ -167,19 +167,13 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = open_library(_target(name), name)
-    return lib
-
-
-def open_library(path: Path, name: str) -> ctypes.CDLL:
-    """The library at ``path``, built from source ``name`` or a copy of it,
-    loaded with its C entries' signatures declared."""
-    lib = ctypes.CDLL(str(path))
-    for symbol, argtypes in ENTRIES[name].items():
-        getattr(lib, symbol).argtypes = argtypes
-        getattr(lib, symbol).restype = ctypes.c_int
-    lib.bt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.bt_cuda_error_string.restype = ctypes.c_char_p
+            lib = ctypes.CDLL(str(_target(name)))
+            for symbol, argtypes in ENTRIES[name].items():
+                getattr(lib, symbol).argtypes = argtypes
+                getattr(lib, symbol).restype = ctypes.c_int
+            lib.bt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.bt_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib
 
 

@@ -92,14 +92,6 @@ limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 and runs only phase 3c's gradient check, once per seed, printing each
 seed's readings and no result line.
 
-``python3 chip_smoke.py --flash-bwd-sums`` builds the kernels and a copy
-of ``csrc/flash_bwd.cu`` whose mma variants sum each 16-deep step's bf16
-pieces from zero before adding them to the running f32 sums, and prints,
-for both, the ``-Xptxas -v`` report, the bf16 backward's largest excess
-over one step at the training shape (seeds 5-8, with and without an LSE
-cotangent) and K2's and K3's times at D=64 and D=128, and no result line:
-the readings behind the kernels' accumulation.
-
 ``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
 from DIR (for example an earlier commit unpacked by ``git archive``),
 builds its kernels and times K1, K2, K3, K5 and K6 as phase 4 does,
@@ -359,9 +351,11 @@ def bwd_close(got: torch.Tensor, ref: torch.Tensor):
     an f32 sum to bf16, and where that sum is near zero its f32 ordering
     error, and in the mma variants the split of p and dS into bf16 pieces,
     is large against the element's own step (on an H100 the largest excess
-    over one step measured 4.6e-8 with the f32 FMA kernels and 5.2e-6 with
-    the mma variants, over seeds 5-8 by ``--flash-bwd-sums``). Returns (max |got - ref|, the largest excess over the one-step
-    part in bf16, or the error over max|ref| in f32, whether all hold)."""
+    over one step measured 4.6e-8 with the f32 FMA kernels; the mma
+    variants' reading per gradient, seeds 5-8 at the training shape, is
+    ``check_flash_bwd``'s log). Returns (max |got - ref|, the largest
+    excess over the one-step part in bf16, or the error over max|ref| in
+    f32, whether all hold)."""
     g, r = got.float(), ref.float()
     diff = (g - r).abs()
     if got.dtype == torch.bfloat16:
@@ -391,8 +385,9 @@ def check_flash_bwd():
     """K2 and K3 through the autograd Function against
     ``flash_attention_bwd_plain`` fed the same o, lse and cotangents (see
     ``bwd_close``): at the training shape in bf16 (B=8 S=512 N=12 D=64,
-    causal, with and without an LSE cotangent), f32 causal and full at
-    S in {384, 333}, D=128, Sq != Sk, one row, and the dead row of
+    causal, with and without an LSE cotangent, inputs from seeds 5-8, each
+    gradient's largest excess over one bf16 step logged), f32 causal and
+    full at S in {384, 333}, D=128, Sq != Sk, one row, and the dead row of
     ``check_flash``. Then the Function against autograd through the plain
     attention core at the training shape in f32. Every bf16 case (D=128
     included) must launch K2's and K3's "mma" variants and every f32 case
@@ -417,25 +412,33 @@ def check_flash_bwd():
 
     bf16, f32 = torch.bfloat16, torch.float32
     n_train = CONFIG["num_heads"]
-    cases = [(bf16, True, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n_train, 64, g)
-             for g in (False, True)]
-    cases += [(f32, causal, 2, s, s, n_train, 64, True)
+    # (dtype, causal, B, Sq, Sk, N, D, with an LSE cotangent, input seed:
+    # None draws from ``gen``, a number from a generator of its own)
+    train = [(bf16, True, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n_train, 64, g,
+              seed) for seed in (5, 6, 7, 8) for g in (False, True)]
+    others = [(f32, causal, 2, s, s, n_train, 64, True)
               for causal in (True, False) for s in (384, 333)]
-    cases += [(bf16, False, 2, 333, 333, n_train, 64, True),
-              (bf16, True, 1, 200, 200, 4, 128, True),
-              (f32, True, 2, 333, 333, 3, 128, False),
-              (f32, False, 2, 100, 333, 3, 64, True),
-              (bf16, False, 2, 333, 100, 3, 128, True),
-              (f32, True, 4, 1, 1, n_train, 64, True)]
+    others += [(bf16, False, 2, 333, 333, n_train, 64, True),
+               (bf16, True, 1, 200, 200, 4, 128, True),
+               (f32, True, 2, 333, 333, 3, 128, False),
+               (f32, False, 2, 100, 333, 3, 64, True),
+               (bf16, False, 2, 333, 100, 3, 128, True),
+               (f32, True, 4, 1, 1, n_train, 64, True)]
+    cases = train + [case + (None,) for case in others]
     worst = {"dq": 0.0, "dkv": 0.0}
     excess = {f32: 0.0, bf16: 0.0}
-    for dt, causal, b, sq, sk, n, d, with_g_lse in cases:
-        q, k, v = _qkv(gen, b, sq, sk, n, d, dt)
-        g_o = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-        g_lse = (torch.randn((b, n, sq), generator=gen, device="cuda")
+    train_excess = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for dt, causal, b, sq, sk, n, d, with_g_lse, seed in cases:
+        g = gen if seed is None else torch.Generator(
+            device="cuda").manual_seed(seed)
+        q, k, v = _qkv(g, b, sq, sk, n, d, dt)
+        g_o = torch.randn(q.shape, generator=g, device="cuda").to(dt)
+        g_lse = (torch.randn((b, n, sq), generator=g, device="cuda")
                  if with_g_lse else None)
         what = (f"{dt} causal={causal} B={b} Sq={sq} Sk={sk} N={n} D={d} "
                 f"g_lse={with_g_lse}")
+        if seed is not None:
+            what += f" seed={seed}"
         o, lse, *grads = grads_of(q, k, v, g_o, g_lse, causal, what)
         plain = flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
                                           causal, 1.0 / d ** 0.5)
@@ -446,6 +449,8 @@ def check_flash_bwd():
                   f"flash bwd {name} {what}: |err| {err} "
                   f"(bf16: excess over one step; f32: over max|ref|: {ex})")
             excess[dt] = max(excess[dt], ex)
+            if seed is not None:
+                train_excess[name] = max(train_excess[name], ex)
             if (b, sq) == (TRAIN_BATCH, TRAIN_SEQ):
                 key = "dq" if name == "dq" else "dkv"
                 worst[key] = max(worst[key], err)
@@ -481,6 +486,7 @@ def check_flash_bwd():
          "max_abs_err_dq_train_shape": worst["dq"],
          "max_abs_err_dkv_train_shape": worst["dkv"],
          "bf16_max_excess_over_one_step": excess[bf16],
+         "bf16_train_shape_excess_over_one_step_seeds_5_8": train_excess,
          "f32_max_err_over_max_ref": excess[f32],
          "function_vs_plain_core_autograd_f32": autograd_err,
          "variants": variants})
@@ -1918,98 +1924,6 @@ def time_conv_bn(launches: dict) -> list:
     return entries
 
 
-def _step_sums_source(src: str) -> str:
-    """``flash_bwd.cu`` with each bf16-piece product of the mma variants
-    (dQ += dS K, dV += P^T dO, dK += dS^T Q) summed from zero over one
-    16-deep step, smallest piece first, and then added to the running f32
-    sums, instead of every piece added straight into them."""
-    for acc, frag, n in (("acc", "dsf[j2][i]", 2), ("acc_v", "pf[i]", 3),
-                         ("acc_k", "dsf[i]", 2)):
-        loop = ("#pragma unroll\n"
-                f"        for (int i = 0; i < {n}; ++i) {{\n"
-                f"          mma_16816({acc}[2 * nd], {frag}, r[0], r[1]);\n"
-                f"          mma_16816({acc}[2 * nd + 1], {frag}, r[2], r[3]);\n"
-                "        }")
-        steps = ("{ float t0[4] = {}, t1[4] = {};\n"
-                 "#pragma unroll\n"
-                 f"        for (int i = {n - 1}; i >= 0; --i) {{\n"
-                 f"          mma_16816(t0, {frag}, r[0], r[1]);\n"
-                 f"          mma_16816(t1, {frag}, r[2], r[3]);\n"
-                 "        }\n"
-                 "#pragma unroll\n"
-                 "        for (int e = 0; e < 4; ++e)\n"
-                 f"          {acc}[2 * nd][e] += t0[e], {acc}[2 * nd + 1][e] += t1[e]; }}")
-        check(src.count(loop) == 1, f"flash_bwd.cu has no single {acc} loop")
-        src = src.replace(loop, steps)
-    return src
-
-
-def flash_bwd_sums() -> None:
-    """``--flash-bwd-sums``: the readings behind how K2's and K3's mma
-    variants accumulate. For the shipped kernels and for a copy built from
-    ``_step_sums_source``: the ``-Xptxas -v`` report; the largest excess
-    over one bf16 step of dQ, dK and dV (``bwd_close``) at the training
-    shape, seeds 5-8, with and without an LSE cotangent; and K2's and K3's
-    ``graph_ms`` at the training shape, D=64 (N=12) and D=128 (N=6, the
-    same bytes)."""
-    from bigdl_tpu_torch.ops import _build
-    from bigdl_tpu_torch.ops import flash_attention as fa
-    shipped = _build.load("flash_bwd")
-    alt_dir = _build.BUILD_DIR.parent / "flash_bwd_step_sums"
-    alt_dir.mkdir(parents=True, exist_ok=True)
-    src = alt_dir / "flash_bwd_step_sums.cu"
-    src.write_text(_step_sums_source(
-        (_build.SRC_DIR / "flash_bwd.cu").read_text()))
-    so = alt_dir / "libflash_bwd_step_sums.so"
-    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                          str(_build.SRC_DIR), "-o", str(so), str(src)],
-                         capture_output=True, text=True)
-    check(out.returncode == 0, f"nvcc failed on the step-sums copy:\n"
-                               f"{out.stderr[-3000:]}")
-    step_sums = _build.open_library(so, "flash_bwd")
-    reports = {"shipped": _build.BUILD_LOGS["flash_bwd"],
-               "step_sums": out.stderr + out.stdout}
-    try:
-        for name, lib in (("shipped", shipped), ("step_sums", step_sums)):
-            _build._LIBS["flash_bwd"] = lib
-            worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-            for seed in (5, 6, 7, 8):
-                gen = torch.Generator(device="cuda").manual_seed(seed)
-                q, k, v = _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
-                               CONFIG["num_heads"], 64, torch.bfloat16)
-                g_o = torch.randn(q.shape, generator=gen,
-                                  device="cuda").to(torch.bfloat16)
-                for with_g_lse in (False, True):
-                    g_lse = (torch.randn(
-                        (TRAIN_BATCH, CONFIG["num_heads"], TRAIN_SEQ),
-                        generator=gen, device="cuda") if with_g_lse else None)
-                    o, lse, *grads = _function_grads(q, k, v, g_o, g_lse,
-                                                     True)
-                    plain = fa.flash_attention_bwd_plain(
-                        q, k, v, o, lse, g_o, g_lse, True, 0.125)
-                    for g, got, ref in zip(worst, grads, plain):
-                        worst[g] = max(worst[g], bwd_close(got, ref)[1])
-            ms = {}
-            for d, n in ((64, CONFIG["num_heads"]), (128, 6)):
-                gen = torch.Generator(device="cuda").manual_seed(3)
-                q, k, v = _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, n, d,
-                               torch.bfloat16)
-                g_o = torch.randn(q.shape, generator=gen,
-                                  device="cuda").to(torch.bfloat16)
-                with torch.no_grad():
-                    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
-                args = (q, k, v, g_o, lse, fa.bwd_delta(o, g_o, None), True,
-                        d ** -0.5)
-                ms[f"D={d}"] = {
-                    "dq": graph_ms(lambda: fa.flash_bwd_dq(*args), "dq"),
-                    "dkv": graph_ms(lambda: fa.flash_bwd_dkv(*args), "dkv")}
-            log({"flash_bwd_sums": name,
-                 "ptxas": ptxas_report(reports[name]),
-                 "max_excess_over_one_step_seeds_5_8": worst, "ms": ms})
-    finally:
-        _build._LIBS["flash_bwd"] = shipped
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2017,12 +1931,6 @@ def main(argv=None) -> int:
         help="run only the kernels' build and phase 3c's ResNet-50 gradient "
              "check against the f64 reference, once per seed, and print "
              "each seed's readings (no result line)")
-    parser.add_argument(
-        "--flash-bwd-sums", action="store_true",
-        help="build the kernels and a copy of flash_bwd.cu whose mma "
-             "variants sum each step's bf16 pieces before adding them, and "
-             "print each one's ptxas report, bf16 excess over seeds 5-8 and "
-             "times (no result line)")
     parser.add_argument(
         "--time-kernels-of", metavar="DIR",
         help="import bigdl_tpu_torch from DIR (e.g. an unpacked earlier "
@@ -2049,10 +1957,6 @@ def main(argv=None) -> int:
         log({"timed_package": os.path.dirname(bigdl_tpu_torch.__file__),
              "card": card, "total_s": time.perf_counter() - t0,
              "kernels_timed": rows})
-        return 0
-    if args.flash_bwd_sums:
-        flash_bwd_sums()
-        log({"total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.resnet_grad_seeds:
         failed = []
