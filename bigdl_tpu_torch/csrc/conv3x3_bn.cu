@@ -74,12 +74,15 @@
 // turn), then column_reduce_kernel sums the partials of each channel in a
 // fixed order: in one pass for fma, in two for mma (64 slabs of rows, then
 // the slabs: one pass over stage 1's 6,272 rows ran on 2 blocks and took
-// 46 us). No atomics: the statistics are the same bits on every run.
+// 46 us). No atomics: the statistics are the same bits on every run. The
+// mma variant's tile, step, y epilogue and both reduction passes live in
+// col_stats.cuh, shared with K5's mma variant (matmul_bn.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "col_stats.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -215,43 +218,6 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-constexpr int RED_COLS = 32;   // channels per reduction block
-constexpr int RED_LANES = 16;  // row lanes per channel
-
-// sum[y, c] = sum_r psum[r, c] over slab y of the R rows (and the same for
-// psq), in a fixed order: slab y is rows [y * per, (y + 1) * per) with
-// per = ceil(R / gridDim.y); lane l adds the slab's rows l, l + 16, ... in
-// turn, then lane 0 adds the 16 lanes. With one slab it is the whole sum.
-__global__ void __launch_bounds__(RED_COLS * RED_LANES)
-column_reduce_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
-                     float* __restrict__ sum, float* __restrict__ sumsq,
-                     int R, int N) {
-  __shared__ float ss[RED_LANES][RED_COLS + 1];
-  __shared__ float qq[RED_LANES][RED_COLS + 1];
-  const int c = blockIdx.x * RED_COLS + threadIdx.x;
-  const int per = (R + gridDim.y - 1) / gridDim.y;
-  const int r1 = min(R, (int)(blockIdx.y + 1) * per);
-  float s = 0.f, q = 0.f;
-  if (c < N) {
-    for (int r = blockIdx.y * per + threadIdx.y; r < r1; r += RED_LANES) {
-      s += psum[(long)r * N + c];
-      q += psq[(long)r * N + c];
-    }
-  }
-  ss[threadIdx.y][threadIdx.x] = s;
-  qq[threadIdx.y][threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < N) {
-    float ts = 0.f, tq = 0.f;
-    for (int l = 0; l < RED_LANES; ++l) {
-      ts += ss[l][threadIdx.x];
-      tq += qq[l][threadIdx.x];
-    }
-    sum[(long)blockIdx.y * N + c] = ts;
-    sumsq[(long)blockIdx.y * N + c] = tq;
-  }
-}
-
 int dynamic_smem(int H, int W) {
   return (W_FLOATS + CK * staged_rows(H, W) * (W + 2)) * 4;
 }
@@ -274,35 +240,35 @@ int launch(const void* x, const void* w, void* y, void* psum, void* psq,
       static_cast<float*>(psum), static_cast<float*>(psq), H, W, Cin, Cout);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  column_reduce_kernel<<<dim3((Cout + RED_COLS - 1) / RED_COLS),
-                         dim3(RED_COLS, RED_LANES), 0, stream>>>(
+  // one fixed-order pass over the block rows
+  col_stats::column_reduce_kernel<<<dim3((Cout + col_stats::RED_COLS - 1) /
+                                         col_stats::RED_COLS),
+                                    dim3(col_stats::RED_COLS, col_stats::RED_LANES),
+                                    0, stream>>>(
       static_cast<const float*>(psum), static_cast<const float*>(psq),
       static_cast<float*>(sum), static_cast<float*>(sumsq), N * grid.y, Cout);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ mma variant
-constexpr int MBM = 128;             // output pixels per block
-constexpr int MBN = 64;              // output channels per block
-constexpr int MBK = 32;              // input channels of one tap per K step
-constexpr int MSTAGES = 4;          // shared-memory ring depth
-constexpr int WARPS_M = 2;          // warps along the pixels (2 along Cout)
-constexpr int MTHREADS = WARPS_M * 2 * 32;
-constexpr int WTM = MBM / WARPS_M / 16;  // 16-row tiles per warp
-constexpr int A_PITCH = MBK + 8;     // bf16 per staged A row (80 bytes)
-constexpr int B_PITCH = MBN + 8;     // bf16 per staged B row (144 bytes)
-constexpr int Y_PITCH = MBN + 8;     // bf16 per staged y row in the epilogue
-constexpr int A_STAGE = MBM * A_PITCH;
-constexpr int B_STAGE = MBK * B_PITCH;
+// The tile, the step's products, the y epilogue and the statistics' two
+// passes are col_stats.cuh's (shared with K5's mma variant); what is K6's
+// own is the A gather: the step's rows are the output pixels' neighbours
+// under one tap.
+using col_stats::A_PITCH;
+using col_stats::A_STAGE;
+using col_stats::B_STAGE;
+using col_stats::MMA_THREADS;
+constexpr int MBM = col_stats::BM;   // output pixels per block
+constexpr int MBN = col_stats::BN;   // output channels per block
+constexpr int MBK = col_stats::BK;   // input channels of one tap per K step
+constexpr int MSTAGES = 4;           // shared-memory ring depth
 constexpr int MMA_SMEM = MSTAGES * (A_STAGE + B_STAGE) * 2;
-static_assert(MBM * Y_PITCH <= MSTAGES * A_STAGE, "the y tile fits in the ring");
-constexpr int A_ROW_STEP = MTHREADS / (MBK / 8);  // rows between a thread's A rows
+static_assert(col_stats::Y_TILE <= MSTAGES * A_STAGE, "the y tile fits in the ring");
+constexpr int A_ROW_STEP = MMA_THREADS / (MBK / 8);  // rows between a thread's A rows
 constexpr int A_ROWS_PER_THREAD = MBM / A_ROW_STEP;
-constexpr int B_ROW_STEP = MTHREADS / (MBN / 8);
-constexpr int B_ROWS_PER_THREAD = MBK / B_ROW_STEP;
-constexpr int RED_SLABS = 64;        // first pass of the statistics' reduction
 
-__global__ void __launch_bounds__(MTHREADS)
+__global__ void __launch_bounds__(MMA_THREADS)
 conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
                          const __nv_bfloat16* __restrict__ w,
                          __nv_bfloat16* __restrict__ y, float* __restrict__ psum,
@@ -312,14 +278,12 @@ conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Bs = As + MSTAGES * A_STAGE;
-  __shared__ float red_s[WARPS_M][MBN];
-  __shared__ float red_q[WARPS_M][MBN];
+  __shared__ float red_s[col_stats::WARPS_M][MBN];
+  __shared__ float red_q[col_stats::WARPS_M][MBN];
 
   const int n0 = blockIdx.x * MBN;
   const int m0 = blockIdx.y * MBM;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;  // pixel and channel slice
-  const int g = lane / 4, t = lane % 4;
 
   // the A rows this thread copies: rows tid/4 + A_ROW_STEP i, 8 channels at
   // (tid % 4) * 8; an image position, or h = -4 (always outside) past M
@@ -334,13 +298,12 @@ conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
     a_w[i] = hw % W;
     a_off[i] = (long)p * Cin;
   }
-  const int b_piece = (tid % 8) * 8;
-  const bool b_col_in = n0 + b_piece < Cout;
 
   const int chunks = (Cin + MBK - 1) / MBK;
   const int steps = 9 * chunks;
 
-  // K step s: tap s % 9 of input channels (s / 9) * MBK ..
+  // K step s: tap s % 9 of input channels (s / 9) * MBK ..; B is w viewed
+  // as (9 * Cin, Cout)
   auto load_step = [&](int s, int slot) {
     const int tap = s % 9, ci0 = (s / 9) * MBK;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
@@ -354,23 +317,12 @@ conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
       cp_async16(as + (tid / 4 + A_ROW_STEP * i) * A_PITCH + a_piece,
                  in ? x + a_off[i] + shift : x, in);
     }
-    __nv_bfloat16* bs = Bs + slot * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < B_ROWS_PER_THREAD; ++i) {
-      const int r = tid / 8 + B_ROW_STEP * i;
-      const bool in = b_col_in && ci0 + r < Cin;
-      cp_async16(bs + r * B_PITCH + b_piece,
-                 in ? w + ((long)tap * Cin + ci0 + r) * Cout + n0 + b_piece : w, in);
-    }
+    col_stats::load_b(Bs + slot * B_STAGE, w, (long)tap * Cin + ci0, Cin - ci0,
+                      Cout, n0, tid);
   };
 
-  float acc[WTM][4][4];  // [m tile of 16][n tile of 8][fragment]
-#pragma unroll
-  for (int i = 0; i < WTM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  col_stats::Acc acc;
+  col_stats::zero(acc);
 
 #pragma unroll
   for (int s = 0; s < MSTAGES - 1; ++s) {
@@ -384,107 +336,16 @@ conv3x3_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const int next = s + MSTAGES - 1;
     if (next < steps) load_step(next, next % MSTAGES);
     cp_async_commit();
-
     const int slot = s % MSTAGES;
-    const __nv_bfloat16* as = As + slot * A_STAGE + wm * (MBM / WARPS_M) * A_PITCH;
-    const __nv_bfloat16* bs = Bs + slot * B_STAGE + wn * 32;
-    uint32_t bf[2][4][2];  // [k half][n tile][register]
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * B_PITCH
-                                 + np * 16 + (lane / 16) * 8);
-        bf[kk][2 * np][0] = r[0];
-        bf[kk][2 * np][1] = r[1];
-        bf[kk][2 * np + 1][0] = r[2];
-        bf[kk][2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-    for (int mt = 0; mt < WTM; ++mt) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        ldmatrix_x4(af[kk], as + (mt * 16 + lane % 16) * A_PITCH + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        // the step's 32 products summed by the tensor cores from zero, then
-        // added to the f32 accumulator with a rounded add
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_16816(part, af[0], bf[0][nt][0], bf[0][nt][1]);
-        mma_16816(part, af[1], bf[1][nt][0], bf[1][nt][1]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
-      }
-    }
+    col_stats::mma_step(acc, As + slot * A_STAGE, Bs + slot * B_STAGE, warp, lane);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring: it now stages y
 
-  // epilogue: y rounded to bf16 into shared memory, then written out in
-  // 16-byte pieces (a row of the tile is 128 contiguous bytes); each
-  // channel's sums over the block's pixels from the f32 values
-  __nv_bfloat16* ys = As;  // [MBM][Y_PITCH]
-  float cs[4][2], cq[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = wn * 32 + nt * 8 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) cs[nt][j] = cq[nt][j] = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < WTM; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
-        const int r = wm * (MBM / WARPS_M) + mt * 16 + g + 8 * half;
-        *reinterpret_cast<__nv_bfloat162*>(ys + r * Y_PITCH + c) =
-            __floats2bfloat162_rn(v0, v1);
-        // rows past M hold zeros (their A rows were zero-filled)
-        cs[nt][0] += v0;
-        cs[nt][1] += v1;
-        cq[nt][0] += v0 * v0;
-        cq[nt][1] += v1 * v1;
-      }
-  }
-  // over the 8 lanes that share t (fixed tree), then the row warps in turn
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) {
-        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], off);
-        cq[nt][j] += __shfl_xor_sync(0xffffffffu, cq[nt][j], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red_s[wm][wn * 32 + nt * 8 + 2 * t + j] = cs[nt][j];
-        red_q[wm][wn * 32 + nt * 8 + 2 * t + j] = cq[nt][j];
-      }
-  }
+  col_stats::stage_y(acc, As, red_s, red_q, warp, lane);
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < MBM * (MBN / 8) / MTHREADS; ++i) {
-    const int piece = tid + MTHREADS * i;
-    const int r = piece / (MBN / 8), c = (piece % (MBN / 8)) * 8;
-    if (m0 + r < M && n0 + c < Cout)
-      *reinterpret_cast<uint4*>(y + (long)(m0 + r) * Cout + n0 + c) =
-          *reinterpret_cast<const uint4*>(ys + r * Y_PITCH + c);
-  }
-  if (tid < MBN && n0 + tid < Cout) {
-    float s = 0.f, q = 0.f;
-#pragma unroll
-    for (int i = 0; i < WARPS_M; ++i) {
-      s += red_s[i][tid];
-      q += red_q[i][tid];
-    }
-    psum[(long)blockIdx.y * Cout + n0 + tid] = s;
-    psq[(long)blockIdx.y * Cout + n0 + tid] = q;
-  }
+  col_stats::store_tile(y, As, red_s, red_q, psum, psq, blockIdx.y, m0, n0, M,
+                        Cout, tid);
 }
 
 // psum and psq hold ceil(M / MBM) + RED_SLABS rows: one per block, then
@@ -501,24 +362,13 @@ int launch_mma(const void* x, const void* w, void* y, void* psum, void* psq,
   const dim3 grid((Cout + MBN - 1) / MBN, (M + MBM - 1) / MBM);
   float* ps = static_cast<float*>(psum);
   float* pq = static_cast<float*>(psq);
-  conv3x3_stats_mma_kernel<<<grid, MTHREADS, MMA_SMEM, stream>>>(
+  conv3x3_stats_mma_kernel<<<grid, MMA_THREADS, MMA_SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<__nv_bfloat16*>(y), ps, pq, H, W, Cin, Cout, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // two fixed-order passes: the block rows in RED_SLABS slabs, then the slabs
-  const long slab_rows = (long)grid.y * Cout;
-  const dim3 red_block(RED_COLS, RED_LANES);
-  column_reduce_kernel<<<dim3((Cout + RED_COLS - 1) / RED_COLS, RED_SLABS),
-                         red_block, 0, stream>>>(ps, pq, ps + slab_rows,
-                                                 pq + slab_rows, grid.y, Cout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  column_reduce_kernel<<<dim3((Cout + RED_COLS - 1) / RED_COLS), red_block, 0,
-                         stream>>>(ps + slab_rows, pq + slab_rows,
-                                   static_cast<float*>(sum),
-                                   static_cast<float*>(sumsq), RED_SLABS, Cout);
-  return cudaGetLastError();
+  return col_stats::reduce_two_pass(ps, pq, grid.y, Cout, static_cast<float*>(sum),
+                                    static_cast<float*>(sumsq), stream);
 }
 
 }  // namespace
@@ -563,7 +413,7 @@ extern "C" int bt_conv3x3_stats_mma(const void* x, const void* w, void* y,
 // Rows of the mma variant's partials scratch: one per 128 output pixels,
 // then RED_SLABS for the first pass of the statistics' reduction.
 extern "C" int bt_conv3x3_stats_mma_row_blocks(int N, int H, int W) {
-  return (N * H * W + MBM - 1) / MBM + RED_SLABS;
+  return (N * H * W + MBM - 1) / MBM + col_stats::RED_SLABS;
 }
 
 extern "C" const char* bt_cuda_error_string(int code) {

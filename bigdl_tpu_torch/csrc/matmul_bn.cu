@@ -12,37 +12,67 @@
 //
 // What bounds it on the H100: the bytes are x read once, w read once and y
 // written once (bf16 ResNet-50 at B=256, stage 1's 64 -> 256 expansion:
-// M = 802,816, K = 64, N = 256, 103 MB + 411 MB, 0.15 ms at 3.35 TB/s);
+// M = 802,816, K = 64, N = 256, 103 MB + 411 MB, 0.153 ms at 3.35 TB/s);
 // the operations are 2*M*K*N (26.3 GFLOP, 0.027 ms at 989 TFLOP/s). So the
 // bytes bound the wide, shallow shapes of stage 1, and the operations the
 // deep ones (stage 4's 512 -> 2048 at M = 12,544: 66 MB, 0.020 ms, against
-// 26.3 GFLOP, 0.027 ms). This simple
-// design does not reach it: products are f32 FMA on the CUDA cores (67
-// TFLOP/s peak, not the tensor cores), so at these shapes it is bound by
-// its own arithmetic. What it does about the bytes is what the TPU kernel
-// does: y is written once and never re-read for the statistics, which are
+// 26.3 GFLOP, 0.027 ms). Both variants keep from the TPU kernel what saves
+// bytes: y is written once and never re-read for the statistics, which are
 // reduced from the f32 tile while it is still in registers.
 //
-// Design. One block of 256 threads per 128 x 64 tile of y; each thread
-// owns 8 rows x 4 columns. K is walked in chunks of 16: the x chunk is
-// staged transposed (xs[k][m]) and the w chunk as is (ws[k][n]), both
-// widened to f32, so the inner step is three 16-byte shared loads for 32
-// FMAs. x is read with 16-byte vector loads when K and x's address allow
-// (K % 4 == 0 for f32, K % 8 == 0 for bf16, 16-byte aligned) and by a
-// scalar path of the same kernel otherwise (K = 3, K = 12). Ragged rows
-// and columns are bounds-checked, not padded: the zeros staged for them add
-// nothing to either sum, and nothing is stored for them.
+// Two variants; ops/matmul_bn.py:kernel_variant picks one.
 //
-// Epilogue: y rounded to x's dtype; each thread sums its 8 rows' values
-// and squares per column, the block adds its 16 row groups in a fixed
-// order and writes one f32 partial per column to a (row_blocks, N)
-// scratch. A second kernel in this file sums the partials of each column,
-// again in a fixed order. No atomics: the statistics are the same bits on
-// every run, as on the TPU's sequential grid.
+// "mma" (matmul_stats_mma_kernel, C entry bt_matmul_stats_mma): bf16 x and
+// w with K and N multiples of 8, 16-byte aligned, which is every 1x1 conv
+// of ResNet-50. Products on the tensor cores (mma.sync m16n8k16 bf16 ->
+// f32 on ldmatrix fragments, .trans for w) through a 2-stage cp.async ring
+// of 128 x 32 x-tiles and 32 x 64 w-tiles; a row past M or a column past K
+// is zero-filled by the copy (src-size 0), adds nothing to either sum and
+// is not stored. The tile, the step, the y epilogue and the statistics are
+// col_stats.cuh's, shared with K6's mma variant: each 32-deep step is
+// summed from zero on the tensor cores and added to the f32 accumulators
+// with a rounded add (over K = 2,048 the tensor cores' own sums would
+// drift); bf16 y is staged in shared memory and written in 16-byte pieces;
+// the per-column partials are a fixed shuffle tree, then the two row warps
+// in turn. What is K5's own is the grid: persistent, one block per free
+// slot (4 an SM), walking tiles N fastest, with the (tile, K step) pairs of
+// a block as one stream through the ring. At stage 1, K = 64 is two ring
+// steps, so a tile's fill and epilogue would otherwise be most of its
+// time: here the next tile's loads are in flight while the current tile's
+// y is staged in a buffer of its own and written out. Neighbouring tiles
+// in flight share their rows of x, so the N-tiles of a row block read x
+// from L2 after the first. Bound: the bytes at stage 1 (chip_smoke.py's
+// kernels line on an H100: 0.246 ms, 62% of the data sheet's bound); at
+// stage 4 the mma.sync issue rate, not the data sheet's 989 TFLOP/s, which
+// needs wgmma: 0.155 ms, 170 TFLOP/s (K6 reaches 240 on the same tile over
+// a 9x longer K, with fewer epilogues per product).
+//
+// "fma" (matmul_stats_kernel, C entry bt_matmul_stats): f32, and bf16 with
+// K or N off the multiple of 8 (the reference tests' K = 3 and K = 12). It
+// is the first port's design, bound by its own arithmetic: f32 FMA on the
+// CUDA cores (67 TFLOP/s peak). One block of 256 threads per 128 x 64 tile
+// of y; each thread owns 8 rows x 4 columns. K is walked in chunks of 16:
+// the x chunk is staged transposed (xs[k][m]) and the w chunk as is
+// (ws[k][n]), both widened to f32, so the inner step is three 16-byte
+// shared loads for 32 FMAs. x is read with 16-byte vector loads when K and
+// x's address allow (K % 4 == 0 for f32, K % 8 == 0 for bf16, 16-byte
+// aligned) and by a scalar path of the same kernel otherwise. Ragged rows
+// and columns are bounds-checked, not padded. Its epilogue rounds y to x's
+// dtype; each thread sums its 8 rows' values and squares per column, and
+// the block adds its 16 row groups in a fixed order.
+//
+// Statistics, both variants: one f32 partial per (row block, column) in a
+// (row_blocks, N) scratch, then col_stats.cuh's two fixed-order passes
+// (RED_SLABS slabs of rows, then the slabs; one pass over stage 1's 6,272
+// rows would run on 8 blocks). No atomics: the statistics are the same
+// bits on every run, as on the TPU's sequential grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "col_stats.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -182,39 +212,6 @@ matmul_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-constexpr int RED_COLS = 32;   // columns per reduction block
-constexpr int RED_LANES = 16;  // row lanes per column
-
-// sum[c] = sum_r psum[r, c] (and the same for psq), in a fixed order:
-// lane l adds rows l, l + 16, ... in turn, then lane 0 adds the 16 lanes.
-__global__ void __launch_bounds__(RED_COLS * RED_LANES)
-column_reduce_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
-                     float* __restrict__ sum, float* __restrict__ sumsq,
-                     int R, int N) {
-  __shared__ float ss[RED_LANES][RED_COLS + 1];
-  __shared__ float qq[RED_LANES][RED_COLS + 1];
-  const int c = blockIdx.x * RED_COLS + threadIdx.x;
-  float s = 0.f, q = 0.f;
-  if (c < N) {
-    for (int r = threadIdx.y; r < R; r += RED_LANES) {
-      s += psum[(long)r * N + c];
-      q += psq[(long)r * N + c];
-    }
-  }
-  ss[threadIdx.y][threadIdx.x] = s;
-  qq[threadIdx.y][threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < N) {
-    float ts = 0.f, tq = 0.f;
-    for (int l = 0; l < RED_LANES; ++l) {
-      ts += ss[l][threadIdx.x];
-      tq += qq[l][threadIdx.x];
-    }
-    sum[c] = ts;
-    sumsq[c] = tq;
-  }
-}
-
 template <typename T>
 int launch(const void* x, const void* w, void* y, void* psum, void* psq,
            void* sum, void* sumsq, int M, int K, int N, cudaStream_t stream) {
@@ -232,15 +229,132 @@ int launch(const void* x, const void* w, void* y, void* psum, void* psq,
     matmul_stats_kernel<T, false><<<grid, THREADS, 0, stream>>>(xt, wt, yt, ps, pq, M, K, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 rgrid((N + RED_COLS - 1) / RED_COLS);
-  column_reduce_kernel<<<rgrid, dim3(RED_COLS, RED_LANES), 0, stream>>>(
-      ps, pq, static_cast<float*>(sum), static_cast<float*>(sumsq), grid.y, N);
-  return cudaGetLastError();
+  return col_stats::reduce_two_pass(ps, pq, grid.y, N, static_cast<float*>(sum),
+                                    static_cast<float*>(sumsq), stream);
+}
+
+// ------------------------------------------------------------ mma variant
+namespace cs = col_stats;
+
+// A persistent grid over 128 x 64 tiles of y (col_stats.cuh's tile, step,
+// y epilogue and statistics, shared with K6), N fastest: the blocks in
+// flight at once hold neighbouring tiles, so the N-tiles of a row block
+// read x from L2 after its first read from device memory. Block b takes
+// tiles b, b + grid, ...; its (tile, K step) pairs form one stream through
+// the cp.async ring, so the next tile's first steps are in flight while
+// the current tile's epilogue stages y in its own buffer and writes it.
+// 2 stages: 48 KB a block, so 4 blocks an SM (128 registers allow 4). On an
+// H100, over the ResNet-50 step's shapes, 2 stages (4 blocks an SM) were
+// faster than 3 (3 blocks) or 4 (2 blocks): resident warps hide more than a
+// deeper ring does.
+constexpr int K5_STAGES = 2;
+constexpr int K5_SMEM =
+    (K5_STAGES * (cs::A_STAGE + cs::B_STAGE) + cs::Y_TILE) * 2;
+constexpr int K5_A_ROW_STEP = cs::MMA_THREADS / (cs::BK / 8);
+constexpr int K5_A_ROWS_PER_THREAD = cs::BM / K5_A_ROW_STEP;
+
+__global__ void __launch_bounds__(cs::MMA_THREADS)
+matmul_stats_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ y, float* __restrict__ psum,
+                        float* __restrict__ psq, int M, int K, int N,
+                        int n_tiles, int tiles) {
+  using namespace mma_bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Bs = As + K5_STAGES * cs::A_STAGE;
+  __nv_bfloat16* Ys = Bs + K5_STAGES * cs::B_STAGE;
+  __shared__ float red_s[cs::WARPS_M][cs::BN];
+  __shared__ float red_q[cs::WARPS_M][cs::BN];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ksteps = (K + cs::BK - 1) / cs::BK;
+  const int grid = gridDim.x, block = blockIdx.x;
+  const int total = (tiles - block + grid - 1) / grid * ksteps;
+  const int a_piece = (tid % 4) * 8;  // 8 columns of each of the thread's A rows
+
+  // stream position g: K step g % ksteps of this block's tile g / ksteps;
+  // A rows past M and columns past K are zero-filled by the copy
+  auto load_step = [&](int g, int slot) {
+    const int tile = block + (g / ksteps) * grid;
+    const int k0 = (g % ksteps) * cs::BK;
+    const int m0 = (tile / n_tiles) * cs::BM, n0 = (tile % n_tiles) * cs::BN;
+    const bool k_in = k0 + a_piece < K;
+    __nv_bfloat16* as = As + slot * cs::A_STAGE;
+#pragma unroll
+    for (int i = 0; i < K5_A_ROWS_PER_THREAD; ++i) {
+      const int r = tid / 4 + K5_A_ROW_STEP * i;
+      const bool in = k_in && m0 + r < M;
+      cp_async16(as + r * cs::A_PITCH + a_piece,
+                 in ? x + (long)(m0 + r) * K + k0 + a_piece : x, in);
+    }
+    cs::load_b(Bs + slot * cs::B_STAGE, w, k0, K - k0, N, n0, tid);
+  };
+
+  cs::Acc acc;
+  cs::zero(acc);
+#pragma unroll
+  for (int s = 0; s < K5_STAGES - 1; ++s) {
+    if (s < total) load_step(s, s);
+    cp_async_commit();
+  }
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<K5_STAGES - 2>();  // position g has landed (this thread's)
+    __syncthreads();                 // ... and every thread's; slot of g-1 free
+    const int next = g + K5_STAGES - 1;
+    if (next < total) load_step(next, next % K5_STAGES);
+    cp_async_commit();
+    const int slot = g % K5_STAGES;
+    cs::mma_step(acc, As + slot * cs::A_STAGE, Bs + slot * cs::B_STAGE, warp, lane);
+    if (g % ksteps == ksteps - 1) {
+      // the tile is done: Ys and red_* were last read before this
+      // iteration's __syncthreads, so they are free
+      const int tile = block + (g / ksteps) * grid;
+      const int mt = tile / n_tiles;
+      cs::stage_y(acc, Ys, red_s, red_q, warp, lane);
+      __syncthreads();
+      cs::store_tile(y, Ys, red_s, red_q, psum, psq, mt, mt * cs::BM,
+                     (tile % n_tiles) * cs::BN, M, N, tid);
+      cs::zero(acc);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// psum and psq hold ceil(M / 128) + RED_SLABS rows: one per row block, then
+// the first reduction pass's slab sums
+int launch_mma(const void* x, const void* w, void* y, void* psum, void* psq,
+               void* sum, void* sumsq, int M, int K, int N, cudaStream_t stream) {
+  // set on every launch: the attribute is per device, and the call is cheap
+  cudaError_t err = cudaFuncSetAttribute(
+      matmul_stats_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K5_SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, matmul_stats_mma_kernel, cs::MMA_THREADS, K5_SMEM);
+  if (err != cudaSuccess) return err;
+  const int m_tiles = (M + cs::BM - 1) / cs::BM, n_tiles = (N + cs::BN - 1) / cs::BN;
+  const long tiles = (long)m_tiles * n_tiles;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const long resident = (long)sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  float* ps = static_cast<float*>(psum);
+  float* pq = static_cast<float*>(psq);
+  matmul_stats_mma_kernel<<<grid, cs::MMA_THREADS, K5_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(y), ps, pq, M, K, N, n_tiles, (int)tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return cs::reduce_two_pass(ps, pq, m_tiles, N, static_cast<float*>(sum),
+                             static_cast<float*>(sumsq), stream);
 }
 
 }  // namespace
 
-// y (M, N) in x's dtype; psum, psq f32 (ceil(M / 128), N) scratch; sum,
+// y (M, N) in x's dtype; psum, psq f32 (bt_matmul_stats_row_blocks(M), N)
+// scratch; sum,
 // sumsq f32 (N,). is_bf16 selects bf16 x, w and y, else f32. Returns a
 // cudaError_t (0 on success).
 extern "C" int bt_matmul_stats(const void* x, const void* w, void* y,
@@ -253,7 +367,24 @@ extern "C" int bt_matmul_stats(const void* x, const void* w, void* y,
                  : launch<float>(x, w, y, psum, psq, sum, sumsq, M, K, N, s);
 }
 
-extern "C" int bt_matmul_stats_row_blocks(int M) { return (M + BM - 1) / BM; }
+// The "mma" variant: bf16 x, w and y, K and N multiples of 8, x and w
+// 16-byte aligned; the other arguments as bt_matmul_stats's.
+extern "C" int bt_matmul_stats_mma(const void* x, const void* w, void* y,
+                                   void* psum, void* psq, void* sum, void* sumsq,
+                                   int M, int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 != 0 || N % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return cudaErrorMisalignedAddress;
+  return launch_mma(x, w, y, psum, psq, sum, sumsq, M, K, N,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Rows of the partials scratch, both variants: one per 128 rows of x, then
+// RED_SLABS for the first pass of the statistics' reduction.
+extern "C" int bt_matmul_stats_row_blocks(int M) {
+  return (M + BM - 1) / BM + col_stats::RED_SLABS;
+}
 
 extern "C" const char* bt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -39,8 +39,10 @@ ENTRIES = {
                   "bt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
                   "bt_flash_bwd_dq_mma": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
                   "bt_flash_bwd_dkv_mma": [_P] * 8 + [_I] * 5 + [_F, _I, _P]},
-    "int8_matmul": {"bt_int8_matmul": [_P] * 4 + [_I] * 3 + [_P]},
+    "int8_matmul": {"bt_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],
+                    "bt_int8_empty_launch": [_P]},
     "matmul_bn": {"bt_matmul_stats": [_P] * 7 + [_I] * 4 + [_P],
+                  "bt_matmul_stats_mma": [_P] * 7 + [_I] * 3 + [_P],
                   "bt_matmul_stats_row_blocks": [_I]},
     "conv3x3_bn": {"bt_conv3x3_stats": [_P] * 7 + [_I] * 6 + [_P],
                    "bt_conv3x3_stats_row_blocks": [_I] * 3,

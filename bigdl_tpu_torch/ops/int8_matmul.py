@@ -16,6 +16,8 @@ Kernel rule, re-derived for the H100 from the reference's TPU rule
 reference's decode shape limit (larger M reuses each weight byte enough
 for a plain matmul); ``K % 16 == 0`` lets every weight and x load be one
 aligned 16-byte vector. Any O qualifies: the kernel masks the last rows.
+K4 splits K over a block's warps and sums their partials in a fixed order,
+so y is the same bits on every run.
 """
 
 from __future__ import annotations

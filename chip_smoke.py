@@ -13,9 +13,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (all ``nvcc`` processes at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes, with the tolerances stated
-   below; K1's, K2's, K3's and K6's cases each log the variant they took
-   (``mma`` on the tensor cores for bf16, ``fma`` for the rest), checked by
-   the ``LAUNCHES*_MMA`` counters; the flash backward (K2, K3) through the
+   below; K1's, K2's, K3's, K5's and K6's cases each log the variant they
+   took (``mma`` on the tensor cores for bf16, ``fma`` for the rest),
+   checked by the ``LAUNCHES*_MMA`` counters; K4 and K5/K6 give the same
+   bits on a second run; the flash backward (K2, K3) through the
    autograd ``Function`` against ``flash_attention_bwd_plain`` fed the same o, lse and
    cotangents, and against autograd through the plain attention core; the
    fused conv+BN-statistics kernels K5 (1x1 matmul) and K6 (3x3 conv) at
@@ -55,7 +56,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    unfused card model on the same weights; then ``Optimizer`` trains 20 iterations at B=256 of bench.py's recipe
    (constant N(0, 1) images, ``ClassNLLCriterion``, SGD 0.1 with momentum
    0.9, bf16 compute over f32 masters): finite, falling losses, K5 and K6
-   launched exactly 36 x 20 and 13 x 20 times (every K6 launch ``mma``),
+   launched exactly 36 x 20 and 13 x 20 times (every launch ``mma``),
    every running statistic finite and moved, and the trained model's eval forward (BN folded)
    equal to the unfused model's; then the A/B with the gates unset
    (cuDNN convs and ``batch_norm_train``): step time, images/s, device
@@ -72,10 +73,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (at the served shape and, as ``train``, at the training shape), K2 and
    K3 (their ``mma`` variants at the training shape, B=8 S=512 N=12 D=64
    bf16 causal; the library time is the forward and backward of
-   ``scaled_dot_product_attention`` less its forward), K4 (one int8 decode token) and K5 and K6 (at
+   ``scaled_dot_product_attention`` less its forward), K4 (one int8
+   decode token of the 134m config, its 85 weights at their shapes made
+   from a seed, and each distinct shape alone, with an empty kernel
+   launched as often for the least time of a launch) and K5 and K6 (at
    ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
    library time is the cuBLAS product or the cuDNN conv plus one
-   ``torch.var_mean`` of its output); the bound
+   ``torch.var_mean`` of its output; K5 also at each of the training
+   step's 15 distinct 1x1 shapes, summed over its 36 launches); the bound
    (``bound_ms``) is the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
    bf16 dense), and ``bound_measured_ms`` prices the same bytes at the
@@ -94,7 +99,7 @@ seed's readings and no result line.
 
 ``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
 from DIR (for example an earlier commit unpacked by ``git archive``),
-builds its kernels and times K1, K2, K3, K5 and K6 as phase 4 does,
+builds its kernels and times K1-K6 as phase 4 does,
 printing the rows and no result line: an earlier version's kernels and
 this one's on one timer, within one machine.
 """
@@ -205,12 +210,14 @@ def bound(nbytes: float, ops: float) -> dict:
 def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     """``bound_measured_ms``: the bytes term over the HBM roof measured in
     phase 4a, the operations term unchanged (the second readings,
-    ``stage4`` and ``train``, too)."""
+    ``stage4`` and ``train``, and K4's ``shapes``, too)."""
     entry["bound_measured_ms"] = max(entry["bytes"] / hbm_bytes_per_s,
                                      entry["operations"] / BF16_OPS_PER_S) * 1e3
     for second in ("stage4", "train"):
         if second in entry:
             add_measured_bound(entry[second], hbm_bytes_per_s)
+    for shape in entry.get("shapes", {}).values():
+        add_measured_bound(shape, hbm_bytes_per_s)
     return entry
 
 
@@ -496,8 +503,10 @@ def check_flash_bwd():
 def check_int8():
     """K4 against ``int8_matmul_plain`` through the public ``int8_matmul``
     (compute dtype f32, with and without a bias), M in {1, 4 (the served
-    decode batch), 8}. Tolerance: INT8_RTOL of max|y|: the same exact
-    int8 x bf16 products summed in f32 in another order (K <= 3072)."""
+    decode batch), 8} and the larger M of the rule; two runs give the same
+    bits (K4 reduces its split-K partials in a fixed order). Tolerance:
+    INT8_RTOL of max|y|: the same exact int8 x bf16 products summed in f32
+    in another order (K <= 3072)."""
     from bigdl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
     shapes = [(768, 768), (256, 768), (3072, 768), (768, 3072), (32000, 768),
@@ -514,15 +523,17 @@ def check_int8():
         for xdt in (torch.float32, torch.bfloat16):
             for b in (None, bias):
                 y = int8_matmul(x.to(xdt), w, s, b, torch.float32)
+                again = int8_matmul(x.to(xdt), w, s, b, torch.float32)
                 ref = int8_matmul_plain(x.to(xdt), w, s.reshape(o))
                 if b is not None:
                     ref = ref + b
                 torch.cuda.synchronize()
                 err = (y - ref).abs().max().item()
                 tol = INT8_RTOL * ref.abs().max().item()
-                check(y.shape == (m, o) and err <= tol,
+                check(y.shape == (m, o) and err <= tol
+                      and torch.equal(y, again),
                       f"int8 M={m} O={o} K={kd} x={xdt} bias={b is not None}:"
-                      f" err {err} > {tol}")
+                      f" err {err} > {tol}, or two runs differ")
                 worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
     log({"check": "int8_matmul", "cases": 4 * len(cases),
          "max_rel_err": worst})
@@ -535,11 +546,11 @@ CONV_GRAD_RTOL = 1e-4
 RESNET_WIDTHS, RESNET_REPS = (64, 128, 256, 512), (3, 4, 6, 3)
 
 
-def resnet50_conv_shapes(b: int):
-    """The distinct conv shapes of ResNet-50's fused pairs at batch b:
-    1x1 as (N, H, W, Cin, Cout, stride), the stride-2 projections taking the
-    full-resolution input that the module subsamples, and stride-1 3x3 as
-    (N, H, W, Cin, Cout)."""
+def resnet50_convs(b: int):
+    """Every conv of ResNet-50's fused pairs at batch b, in model order:
+    1x1 as (N, H, W, Cin, Cout, stride), the stride-2 projections taking
+    the full-resolution input that the module subsamples, and stride-1 3x3
+    as (N, H, W, Cin, Cout)."""
     ones, threes = [], []
     hw, n_in = 56, 64
     for stage, (width, reps) in enumerate(zip(RESNET_WIDTHS, RESNET_REPS)):
@@ -553,7 +564,22 @@ def resnet50_conv_shapes(b: int):
             if i == 0:
                 ones.append((b, hw, hw, n_in, 4 * width, stride))
             hw, n_in = out_hw, 4 * width
+    return ones, threes
+
+
+def resnet50_conv_shapes(b: int):
+    """The distinct shapes of ``resnet50_convs(b)``."""
+    ones, threes = resnet50_convs(b)
     return list(dict.fromkeys(ones)), list(dict.fromkeys(threes))
+
+
+def resnet50_1x1_step(b: int) -> collections.Counter:
+    """K5's launches in one training step at batch b: {(M, K, N): count}
+    (a stride-2 projection's M after the subsample)."""
+    ones, _ = resnet50_convs(b)
+    return collections.Counter(
+        (n * ((h + s - 1) // s) * ((w + s - 1) // s), cin, cout)
+        for n, h, w, cin, cout, s in ones)
 
 
 def y_close(got: torch.Tensor, ref: torch.Tensor):
@@ -606,8 +632,12 @@ def check_conv_bn():
     Cout off the 64-channel tile), each in f32 and bf16, and at every such
     shape of the training run (B=RESNET_BATCH, bf16): y as in ``y_close``,
     the statistics as in ``stats_close``, and two runs of each kernel give
-    bit-identical statistics."""
-    from bigdl_tpu_torch.ops import conv3x3_bn
+    bit-identical statistics. Each case takes the variant its kernel's rule
+    names (bf16 with both channel counts multiples of 8: ``mma``), checked
+    by the ``LAUNCHES_MMA`` counters; K5's and K6's bf16 excess over one
+    step is logged apart, and K5's must stay within half of
+    CONV_BF16_ATOL."""
+    from bigdl_tpu_torch.ops import conv3x3_bn, matmul_bn
     from bigdl_tpu_torch.ops.conv3x3_bn import (conv3x3_with_stats,
                                                 conv3x3_with_stats_plain)
     from bigdl_tpu_torch.ops.matmul_bn import (matmul_with_stats,
@@ -623,10 +653,18 @@ def check_conv_bn():
     train_ones, train_threes = resnet50_conv_shapes(RESNET_BATCH)
     runs = [(f32, mm_cases, conv_cases), (bf16, mm_cases, conv_cases),
             (bf16, train_ones, train_threes)]
-    worst = {f32: 0.0, bf16: 0.0, "stats": 0.0}
-    k6_variants = {}
+    worst = {f32: 0.0, "K5": 0.0, "K6": 0.0, "stats": 0.0}
+    variants = {"K5": {}, "K6": {}}
 
-    def one(name, fn, plain, x, w):
+    def one(kernel, name, fn, plain, x, w, module):
+        """Two runs of ``fn`` against ``plain``; the variant taken (from
+        ``module.kernel_variant``, checked against the rule, bf16 with both
+        channel counts, w's last two dimensions, multiples of 8: ``mma``,
+        and against the mma launches counted)."""
+        variant = module.kernel_variant(x, w)
+        want = ("mma" if x.dtype == bf16 and w.shape[-2] % 8 == 0
+                and w.shape[-1] % 8 == 0 else "fma")
+        mma_before = module.LAUNCHES_MMA.value
         got, again, ref = fn(x, w), fn(x, w), plain(x, w)
         torch.cuda.synchronize()
         err, ex, ok = y_close(got[0], ref[0])
@@ -636,8 +674,13 @@ def check_conv_bn():
               and got[0].dtype == x.dtype,
               f"{name} {x.dtype}: |y err| {err} (excess {ex}), stats "
               f"{st}, deterministic {same}")
-        worst[x.dtype] = max(worst[x.dtype], ex)
+        check(variant == want, f"{name} {x.dtype} took the {variant} variant")
+        check(module.LAUNCHES_MMA.value - mma_before == 2 * (variant == "mma"),
+              f"{name} {x.dtype}: mma launches")
+        key = f32 if x.dtype == f32 else kernel
+        worst[key] = max(worst[key], ex)
         worst["stats"] = max(worst["stats"], st)
+        variants[kernel][f"{name} {str(x.dtype)[6:]}"] = variant
 
     for dt, k5_cases, k6_cases in runs:
         for n, h, w, cin, cout, s in k5_cases:
@@ -645,32 +688,28 @@ def check_conv_bn():
             wt = (torch.randn((cin, cout), generator=gen, device="cuda")
                   / cin ** 0.5).to(dt)
             x2d = x[:, ::s, ::s, :].reshape(-1, cin)  # as FusedConv1x1BN does
-            one(f"K5 M={x2d.shape[0]} K={cin} N={cout} stride={s}",
-                matmul_with_stats, matmul_with_stats_plain, x2d, wt)
+            one("K5", f"K5 M={x2d.shape[0]} K={cin} N={cout} stride={s}",
+                matmul_with_stats, matmul_with_stats_plain, x2d, wt, matmul_bn)
         for n, h, w, cin, cout in k6_cases:
             x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
             wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
                   / (9 * cin) ** 0.5).to(dt)
-            name = f"K6 N={n} {h}x{w} {cin}->{cout}"
-            variant = conv3x3_bn.kernel_variant(x, wt)
-            mma_before = conv3x3_bn.LAUNCHES_MMA.value
-            one(name, conv3x3_with_stats, conv3x3_with_stats_plain, x, wt)
-            # one() calls the kernel twice
-            check(conv3x3_bn.LAUNCHES_MMA.value - mma_before
-                  == 2 * (variant == "mma"), f"{name} {dt}: mma launches")
-            check(variant == ("mma" if dt == bf16 and cin % 8 == 0
-                              and cout % 8 == 0 else "fma"),
-                  f"{name} {dt} took the {variant} variant")
-            k6_variants[f"{name} {str(dt)[6:]}"] = variant
+            one("K6", f"K6 N={n} {h}x{w} {cin}->{cout}", conv3x3_with_stats,
+                conv3x3_with_stats_plain, x, wt, conv3x3_bn)
+    # the mma designs are held to half the bf16 atol (K6 read 1.6e-6)
+    check(worst["K5"] <= CONV_BF16_ATOL / 2,
+          f"K5 bf16 excess over one step {worst['K5']} > {CONV_BF16_ATOL / 2}")
     log({"check": "conv_bn_kernels",
          "cases": sum(len(a) + len(b) for _, a, b in runs),
          "k5_shapes_resnet50_b32": len(ones), "k6_shapes_resnet50_b32":
          len(threes), f"k5_k6_shapes_resnet50_b{RESNET_BATCH}_bf16":
          [len(train_ones), len(train_threes)],
          "f32_max_err_over_max_ref": worst[f32],
-         "bf16_max_excess_over_one_step": worst[bf16],
+         "bf16_max_excess_over_one_step": max(worst["K5"], worst["K6"]),
+         "k5_bf16_max_excess_over_one_step": worst["K5"],
+         "k6_bf16_max_excess_over_one_step": worst["K6"],
          "stats_max_err_over_scale": worst["stats"],
-         "k6_variants": k6_variants})
+         "k5_variants": variants["K5"], "k6_variants": variants["K6"]})
 
 
 def check_conv_bn_autograd():
@@ -1044,7 +1083,7 @@ def run_slice():
     for name, model in twins.items():
         for s in PROMPT_LENS:
             log({"twin": name, **time_generate(model, groups[s])})
-    return twins["int8"], launches
+    return launches
 
 
 # -------------------------------------------------------------- 3b. training
@@ -1306,9 +1345,10 @@ def imagenet_batch(b: int, seed: int):
 
 
 def conv_bn_counters():
-    """K5's, K6's and K6's "mma" variant's launch counters."""
+    """K5's and K6's launch counters, each with its "mma" variant's."""
     from bigdl_tpu_torch.ops import conv3x3_bn, matmul_bn
-    return matmul_bn.LAUNCHES, conv3x3_bn.LAUNCHES, conv3x3_bn.LAUNCHES_MMA
+    return (matmul_bn.LAUNCHES, matmul_bn.LAUNCHES_MMA, conv3x3_bn.LAUNCHES,
+            conv3x3_bn.LAUNCHES_MMA)
 
 
 def _unit_state(model):
@@ -1355,7 +1395,7 @@ def resnet_grad_check(seed: int = RESNET_GRAD_SEED) -> dict:
         transfer_state(card, m)
     truth.double()
     batch = imagenet_batch(RESNET_GRAD_BATCH, seed + 4)
-    k5, k6, _ = conv_bn_counters()
+    k5, _, k6, _ = conv_bn_counters()
     losses, states = [], []
     for m in (card, cpu, plain_card, truth):
         p = next(m.parameters())
@@ -1474,14 +1514,14 @@ def run_resnet() -> dict:
          "pin_and_copy_ms": (time.perf_counter() - t1) * 1e3})
 
     model = build_resnet50(True, "cuda", seed=7)
-    k5, k6, k6_mma = conv_bn_counters()
+    k5, k5_mma, k6, k6_mma = conv_bn_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (k5, k6, k6_mma):
+    for c in (k5, k5_mma, k6, k6_mma):
         c.reset()
     history = train_resnet(model, batch, RESNET_STEPS)
-    launches = {"matmul_bn": k5.value, "conv3x3_bn": k6.value,
-                "conv3x3_bn_mma": k6_mma.value}
+    launches = {"matmul_bn": k5.value, "matmul_bn_mma": k5_mma.value,
+                "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     losses = [h["loss"] for h in history]
     # the last iteration's interval is cut short: its loss is fetched right
@@ -1499,6 +1539,7 @@ def run_resnet() -> dict:
           f"ResNet-50 loss did not fall: first {losses[0]}, last five "
           f"{losses[-5:]}")
     want = {"matmul_bn": K5_PER_STEP * RESNET_STEPS,
+            "matmul_bn_mma": K5_PER_STEP * RESNET_STEPS,
             "conv3x3_bn": K6_PER_STEP * RESNET_STEPS,
             "conv3x3_bn_mma": K6_PER_STEP * RESNET_STEPS}
     check(launches == want, f"training launched {launches}, want {want}")
@@ -1766,27 +1807,35 @@ def time_flash_bwd(launches: dict) -> list:
              "work": f"{work}; {lib_note}"}]
 
 
-def time_int8(twin, launches: int) -> dict:
+def int8_decode_shapes():
+    """(O, K) of the 85 K4 launches of one int8 decode token of the 134m
+    config, in the order the model runs them: per layer q, k, v, out, up,
+    gate, down, then the tied LM head."""
+    e, f = CONFIG["embed_dim"], CONFIG["ffn_dim"]
+    e_kv = e // CONFIG["num_heads"] * CONFIG["num_kv_heads"]
+    layer = [(e, e), (e_kv, e), (e_kv, e), (e, e), (f, e), (f, e), (e, f)]
+    return layer * CONFIG["num_layers"] + [(VOCAB, e)]
+
+
+def time_int8(launches: int) -> dict:
+    """K4 over one int8 decode token at M=REQUESTS_PER_LEN: the 85 weights
+    at their shapes, random int8 and scales from a seed (so an earlier
+    tree's K4 is timed on the same inputs); the token, each distinct shape
+    (``shapes``, with its bound and library time) and, where the tree has
+    it, an empty kernel launched as often (``empty_launch_ms``: the least
+    time of a launch in the same graph)."""
+    from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
                                                  int8_matmul_plain)
     m = REQUESTS_PER_LEN
-    enc = twin[1]
-    e, ekv = CONFIG["embed_dim"], twin[1].layer0.self_attn._e_kv
-    weights = []
-    for i in range(enc.num_layers):
-        layer = enc._modules[f"layer{i}"]
-        a = layer.self_attn
-        wq, sq = a.in_proj_weight_q, a.in_proj_weight_scale
-        weights += [(wq[:e], sq[:e]), (wq[e:e + ekv], sq[e:e + ekv]),
-                    (wq[e + ekv:], sq[e + ekv:]),
-                    (a.out_proj_weight_q, a.out_proj_weight_scale)]
-        weights += [(lin.weight_q, lin.weight_scale) for lin in
-                    (layer.linear1, layer.linear_gate, layer.linear2)]
-    weights.append((twin[0].weight_q, twin[0].weight_scale))
     gen = torch.Generator(device="cuda").manual_seed(4)
-    calls = [(torch.randn((m, w.shape[1]), generator=gen, device="cuda")
-              .to(torch.bfloat16), w, s.reshape(-1).contiguous())
-             for w, s in weights]
+    calls = []
+    for o, k in int8_decode_shapes():
+        w = torch.randint(-128, 128, (o, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sc = torch.rand((o,), generator=gen, device="cuda") * 1e-2 + 1e-3
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        calls.append((x, w, sc))
     deq = [(w.float() * s[:, None]).to(torch.bfloat16) for _, w, s in calls]
     err = 0.0
     for x, w, s in calls:
@@ -1808,41 +1857,53 @@ def time_int8(twin, launches: int) -> dict:
         for (x, _, _), wd in zip(calls, deq):
             x @ wd.T
 
+    def nbytes_ops(x, w, s):
+        return (x.numel() * 2 + w.numel() + s.numel() * 4
+                + x.shape[0] * w.shape[0] * 4, 2 * x.shape[0] * w.numel())
+
     ms = graph_ms(kernel, "int8_matmul")
     plain_ms = graph_ms(plain, "int8_matmul plain", per_graph=3, replays=3)
     library_ms = graph_ms(library, "int8_matmul library")
-    nbytes = sum(x.numel() * 2 + w.numel() + s.numel() * 4
-                 + x.shape[0] * w.shape[0] * 4 for x, w, s in calls)
-    ops = sum(2 * x.shape[0] * w.numel() for x, w, _ in calls)
+    extra = {}
+    if "bt_int8_empty_launch" in _build.ENTRIES["int8_matmul"]:
+        lib = _build.load("int8_matmul")
+
+        def empty():
+            for _ in calls:
+                lib.bt_int8_empty_launch(torch.cuda.current_stream().cuda_stream)
+        extra["empty_launch_ms"] = graph_ms(empty, "empty launches") / len(calls)
+    nbytes = sum(nbytes_ops(*c)[0] for c in calls)
+    ops = sum(nbytes_ops(*c)[1] for c in calls)
     shapes = {}
     for (x, w, s), wd in zip(calls, deq):
         key = f"{w.shape[0]}x{w.shape[1]}"
-        if key not in shapes:
-            one = graph_ms(lambda: int8_matmul_kernel(x, w, s),
-                           f"int8_matmul {key}", per_graph=50)
-            lib_one = graph_ms(lambda: x @ wd.T, f"int8_matmul {key} library",
-                               per_graph=50)
-            shapes[key] = {"ms": one, "library_ms": lib_one, "bound_ms": bound(
-                w.numel() + x.numel() * 2 + s.numel() * 4
-                + x.shape[0] * w.shape[0] * 4,
-                2 * x.shape[0] * w.numel())["bound_ms"]}
-    log({"int8_shapes_M4": shapes})
+        if key in shapes:
+            shapes[key]["count"] += 1
+            continue
+        one = graph_ms(lambda: int8_matmul_kernel(x, w, s),
+                       f"int8_matmul {key}", per_graph=50)
+        lib_one = graph_ms(lambda: x @ wd.T, f"int8_matmul {key} library",
+                           per_graph=50)
+        shapes[key] = {"count": 1, "ms": one, "library_ms": lib_one,
+                       **bound(*nbytes_ops(x, w, s))}
     return {"name": "int8_matmul", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "bigdl_tpu/ops/int8_matmul.py:92",
             "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
-            "library_ms": library_ms,
+            "library_ms": library_ms, **extra, "shapes": shapes,
             "work": f"one int8 decode token: {len(calls)} launches at M={m}, "
-                    f"{sum(w.numel() for _, w, _ in calls)} weight bytes"}
+                    f"{sum(w.numel() for _, w, _ in calls)} weight bytes; "
+                    "library_ms: x @ w_bf16.T (cuBLAS, twice the bytes)"}
 
 
-def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
+def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops,
+                       time_plain=True):
     """One fused-statistics kernel at one shape: checked once more against
-    its plain version, then its device time, its plain version's, and the
-    library's product and one fused reduction of the product's two sums
-    (``torch.var_mean``: one read of y, the same information), each by
-    ``graph_ms``."""
+    its plain version, then its device time, its plain version's (unless
+    ``time_plain`` is false), and the library's product and one fused
+    reduction of the product's two sums (``torch.var_mean``: one read of y,
+    the same information), each by ``graph_ms``."""
     got, ref = kernel(x, w), plain(x, w)
     torch.cuda.synchronize()
     err, _, ok = y_close(got[0], ref[0])
@@ -1852,22 +1913,31 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops):
     y = library(x, w)
     y2d = y.reshape(-1, y.shape[-1])
     ms = graph_ms(lambda: kernel(x, w), name)
-    plain_ms = graph_ms(lambda: plain(x, w), f"{name} plain", per_graph=3,
-                        replays=3)
+    out = {"ms": ms}
+    if time_plain:
+        out["plain_ms"] = graph_ms(lambda: plain(x, w), f"{name} plain",
+                                   per_graph=3, replays=3)
     product_ms = graph_ms(lambda: library(x, w), f"{name} library")
     reduce_ms = graph_ms(lambda: torch.var_mean(y2d, dim=0, correction=0),
                          f"{name} library reduction")
-    return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+    return {**out, **bound(nbytes, ops),
             "library_ms": product_ms + reduce_ms,
             "library_product_ms": product_ms,
             "library_reduction_ms": reduce_ms, "max_abs_err": err}
 
 
+K5_STAGE_SHAPES = {"stage1": (RESNET_BATCH * 56 * 56, 64, 256),
+                   "stage4": (RESNET_BATCH * 7 * 7, 512, 2048)}
+
+
 def time_conv_bn(launches: dict) -> list:
     """K5 and K6 in bf16 at B=256: the largest-M shape (stage 1) as the
-    entry's numbers and the deepest one (stage 4) beside them. The bound
-    counts x, w and y in bf16 and the two f32 sums once each, and
-    2 * M * K * N (K6: 2 * N * H * W * 9 * Cin * Cout) operations."""
+    entry's numbers and the deepest one (stage 4) beside them; K5 also at
+    every distinct 1x1 shape of the training step (``step``: each shape's
+    time, bound and library time, and their sums over the step's 36
+    launches). The bound counts x, w and y in bf16 and the two f32 sums
+    once each, and 2 * M * K * N (K6: 2 * N * H * W * 9 * Cin * Cout)
+    operations."""
     from bigdl_tpu_torch.ops.conv3x3_bn import (_conv3x3,
                                                 conv3x3_with_stats_kernel,
                                                 conv3x3_with_stats_plain)
@@ -1877,15 +1947,28 @@ def time_conv_bn(launches: dict) -> list:
     bf16 = torch.bfloat16
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     b = RESNET_BATCH
-    k5 = {}
-    for stage, (m, k, n) in (("stage1", (b * 56 * 56, 64, 256)),
-                             ("stage4", (b * 7 * 7, 512, 2048))):
+    k5, step = {}, {}
+    stage_of = {shape: stage for stage, shape in K5_STAGE_SHAPES.items()}
+    for (m, k, n), count in resnet50_1x1_step(b).items():
         x, w = rnd(m, k).to(bf16), (rnd(k, n) / k ** 0.5).to(bf16)
-        k5[stage] = _time_stats_kernel(
-            f"matmul_bn {stage}", matmul_with_stats_kernel,
+        stage = stage_of.get((m, k, n))
+        row = _time_stats_kernel(
+            f"matmul_bn M={m} K={k} N={n}", matmul_with_stats_kernel,
             matmul_with_stats_plain, lambda x, w: x @ w, x, w,
-            2 * (m * k + k * n + m * n) + 8 * n, 2 * m * k * n)
-        k5[stage]["shape"] = f"M={m} K={k} N={n} bf16"
+            2 * (m * k + k * n + m * n) + 8 * n, 2 * m * k * n,
+            time_plain=stage is not None)
+        del x, w
+        if stage:
+            k5[stage] = {**row, "shape": f"M={m} K={k} N={n} bf16"}
+        step[f"M={m} K={k} N={n}"] = {"count": count, **{
+            key: row[key] for key in ("ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+    check(sum(r["count"] for r in step.values()) == K5_PER_STEP,
+          f"the step's 1x1 shapes count {len(step)}")
+    k5_step = {key: sum(r["count"] * r[src] for r in step.values())
+               for key, src in (("step_ms", "ms"),
+                                ("library_step_ms", "library_ms"),
+                                ("bound_step_ms", "bound_ms"))}
     k6 = {}
     for stage, (h, c) in (("stage1", (56, 64)), ("stage4", (7, 512))):
         x, w = rnd(b, h, h, c).to(bf16), (rnd(3, 3, c, c) / (3 * c ** 0.5)
@@ -1906,7 +1989,9 @@ def time_conv_bn(launches: dict) -> list:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"bigdl_tpu_torch/csrc/{src}", "replaces": ref,
-            "launches": launches[name], "max_abs_err": main["max_abs_err"],
+            "launches": launches[name],
+            "launches_mma": launches[f"{name}_mma"], "variant": "mma",
+            "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             **{k: main[k] for k in ("bound_ms", "bound_by", "bytes",
                                     "operations")},
@@ -1917,10 +2002,9 @@ def time_conv_bn(launches: dict) -> list:
                     f"library_ms: {lib}; launches: the 20-step ResNet-50 "
                     "training run",
             "stage4": per["stage4"]})
-    k6_row = entries[1]
-    k6_row.update({"launches_mma": launches["conv3x3_bn_mma"],
-                   "variant": "mma"})
-    log({"conv_bn_timing": {"matmul_bn": k5, "conv3x3_bn": k6}})
+    entries[0].update({**k5_step, "step": step})
+    log({"conv_bn_timing": {"matmul_bn": k5, "matmul_bn_step": k5_step,
+                            "conv3x3_bn": k6}})
     return entries
 
 
@@ -1934,7 +2018,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--time-kernels-of", metavar="DIR",
         help="import bigdl_tpu_torch from DIR (e.g. an unpacked earlier "
-             "commit), build its kernels, time K1, K2, K3, K5 and K6 as "
+             "commit), build its kernels, time K1-K6 as "
              "phase 4 does and print the rows (no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1950,7 +2034,8 @@ def main(argv=None) -> int:
     if args.time_kernels_of:
         import bigdl_tpu_torch
         none = collections.defaultdict(int)
-        rows = [time_flash(none), *time_flash_bwd(none), *time_conv_bn(none)]
+        rows = [time_flash(none), *time_flash_bwd(none), time_int8(0),
+                *time_conv_bn(none)]
         for row in rows:  # the counts and the variant describe a main path
             for key in ("launches", "launches_mma", "variant"):
                 row.pop(key, None)
@@ -1975,14 +2060,14 @@ def main(argv=None) -> int:
     check_conv_bn()
     check_conv_bn_autograd()
     hbm_errs = check_hbm_roof()
-    int8_twin, launches = run_slice()
+    launches = run_slice()
     train_launches = run_training()
     resnet_launches = run_resnet()
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + train_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd(train_launches),
-               time_int8(int8_twin, launches["int8_matmul"]),
+               time_int8(launches["int8_matmul"]),
                *time_conv_bn(resnet_launches),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:

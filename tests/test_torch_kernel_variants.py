@@ -1,22 +1,29 @@
-"""Which variant of kernels K1, K2, K3 and K6 a CUDA tensor takes, on the
-CPU.
+"""Which variant of kernels K1, K2, K3, K5 and K6 a CUDA tensor takes, on
+the CPU.
 
 Each kernel has an "mma" variant on the tensor cores and an "fma" one on
-the CUDA cores. ``conv3x3_bn.kernel_variant``,
+the CUDA cores. ``matmul_bn.kernel_variant``, ``conv3x3_bn.kernel_variant``,
 ``flash_attention.kernel_variant`` and ``flash_attention.bwd_variant`` are
-plain functions, so the routing is tested here: every bf16 3x3 conv of
-ResNet-50 and every bf16 attention, forward and backward, takes "mma", f32
-and the ragged convs take "fma". On CPU tensors the wrappers run their
-plain versions and count no launch of either variant.
+plain functions, so the routing is tested here: every bf16 1x1 and 3x3
+conv of ResNet-50 and every bf16 attention, forward and backward, takes
+"mma", f32 and the ragged shapes take "fma". On CPU tensors the wrappers
+(K4's too) run their plain versions and count no launch of either variant.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu_torch.ops import conv3x3_bn, flash_attention
+from bigdl_tpu_torch.ops import conv3x3_bn, flash_attention, int8_matmul, matmul_bn
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One CPU thread for this file's tests, restored after each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 WIDTHS, REPS = (64, 128, 256, 512), (3, 4, 6, 3)
 
@@ -32,6 +39,60 @@ def resnet50_3x3_shapes(b):
                 threes.append((b, hw, hw, width, width))
             hw //= stride
     return list(dict.fromkeys(threes))
+
+
+def resnet50_1x1_shapes(b):
+    """The distinct (M, K, N) of ResNet-50's fused 1x1 convs at batch b,
+    a stride-2 projection's M after the module's subsample (as
+    ``chip_smoke.py`` lists them)."""
+    ones, hw, n_in = [], 56, 64
+    for stage, (width, reps) in enumerate(zip(WIDTHS, REPS)):
+        for i in range(reps):
+            stride = 2 if stage > 0 and i == 0 else 1
+            out_hw = hw // stride
+            ones.append((b * hw * hw, n_in, width))
+            ones.append((b * out_hw * out_hw, width, 4 * width))
+            if i == 0:
+                ones.append((b * out_hw * out_hw, n_in, 4 * width))
+            hw, n_in = out_hw, 4 * width
+    return list(dict.fromkeys(ones))
+
+
+def _mm_args(m, k, n, dtype):
+    """x (m, K) as a zero-stride view (no memory however large m is) and w
+    (K, N)."""
+    return (torch.zeros(1, dtype=dtype).expand(m, k),
+            torch.zeros((k, n), dtype=dtype))
+
+
+def test_the_resnet50_1x1_shape_list():
+    shapes = resnet50_1x1_shapes(256)
+    assert len(shapes) == 15
+    assert shapes[:4] == [(802816, 64, 64), (802816, 64, 256),
+                          (802816, 256, 64), (802816, 256, 128)]
+    assert (12544, 512, 2048) in shapes and (200704, 256, 512) in shapes
+    assert {(k, n) for _, k, n in shapes} == {
+        (k, n) for _, k, n in resnet50_1x1_shapes(32)}
+
+
+@pytest.mark.parametrize("b", [32, 256])
+def test_every_resnet50_bf16_1x1_takes_mma(b):
+    for shape in resnet50_1x1_shapes(b):
+        assert matmul_bn.kernel_variant(*_mm_args(*shape, torch.bfloat16)) \
+            == "mma", shape
+        assert matmul_bn.kernel_variant(*_mm_args(*shape, torch.float32)) \
+            == "fma", shape
+
+
+@pytest.mark.parametrize("m, k, n, want", [
+    (257, 3, 5, "fma"), (1000, 12, 70, "fma"), (300, 48, 100, "fma"),
+    (64, 16, 128, "mma"), (512, 64, 256, "mma"), (7, 8, 70, "fma"),
+    (7, 12, 64, "fma")])
+def test_ragged_1x1_take_fma(m, k, n, want):
+    # the rule: bf16 with K and N multiples of 8 takes mma (the reference
+    # tests' K=3 and K=12, and N=70 or 100, do not)
+    assert matmul_bn.kernel_variant(*_mm_args(m, k, n, torch.bfloat16)) == want
+    assert matmul_bn.kernel_variant(*_mm_args(m, k, n, torch.float32)) == "fma"
 
 
 def _conv_args(n, h, w, cin, cout, dtype):
@@ -79,7 +140,9 @@ def test_flash_variant_by_dtype(d):
 
 def _counts():
     return (conv3x3_bn.LAUNCHES.value, conv3x3_bn.LAUNCHES_MMA.value,
-            flash_attention.LAUNCHES.value, flash_attention.LAUNCHES_MMA.value)
+            flash_attention.LAUNCHES.value, flash_attention.LAUNCHES_MMA.value,
+            matmul_bn.LAUNCHES.value, matmul_bn.LAUNCHES_MMA.value,
+            int8_matmul.LAUNCHES.value)
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
@@ -97,9 +160,25 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
     o, lse = flash_attention.flash_attention_with_lse(q, k, v, causal=True)
     po, plse = flash_attention.flash_attention_plain(q, k, v, causal=True)
     assert torch.equal(o, po) and torch.equal(lse, plse)
+    x2 = torch.from_numpy(rng.standard_normal((37, 16), np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((16, 24), np.float32))
+    x2b, w2b = x2.to(torch.bfloat16), w2.to(torch.bfloat16)
+    assert matmul_bn.kernel_variant(x2b, w2b) == "mma"
+    got = matmul_bn.matmul_with_stats(x2b, w2b)
+    ref = matmul_bn.matmul_with_stats_plain(x2b, w2b)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    wq = torch.from_numpy(rng.integers(-128, 128, (24, 16), dtype=np.int8))
+    scale = torch.from_numpy(rng.random((24, 1), np.float32))
+    y = int8_matmul.int8_matmul(x2[:4], wq, scale, None, torch.float32)
+    assert torch.equal(y, int8_matmul.int8_matmul_plain(x2[:4], wq,
+                                                        scale.reshape(24)))
     assert _counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3_bn.conv3x3_with_stats_kernel(xb, wb)
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_bn.matmul_with_stats_kernel(x2b, w2b)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_matmul.int8_matmul_kernel(x2b[:4], wq, scale.reshape(24))
 
 
 def _view_at(shape, dtype, offset):
@@ -126,6 +205,28 @@ def test_conv_mma_refuses_a_misaligned_view(which, offset):
             for i, s in enumerate(shapes)]
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3_bn.conv3x3_with_stats_kernel(*args)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("offset", [1, 4])
+def test_matmul_mma_refuses_a_misaligned_view(which, offset):
+    # K5's mma variant reads x and w with 16-byte copies: a view that starts
+    # 2 or 8 bytes into its buffer is refused before any device check
+    shapes = ((37, 16), (16, 24))
+    args = [_view_at(s, torch.bfloat16, offset if i == which else 0)
+            for i, s in enumerate(shapes)]
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16
+    assert matmul_bn.kernel_variant(*args) == "mma"
+    with pytest.raises(ValueError, match="16-byte"):
+        matmul_bn.matmul_with_stats_kernel(*args)
+    # the fma variant has no such rule: f32 gets as far as the device check
+    args = [_view_at(s, torch.float32, offset if i == which else 0)
+            for i, s in enumerate(shapes)]
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_bn.matmul_with_stats_kernel(*args)
+    aligned = [_view_at(s, torch.bfloat16, 0) for s in shapes]
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_bn.matmul_with_stats_kernel(*aligned)
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])
