@@ -40,18 +40,56 @@
 // bulk asynchronous copy. One thread of each block issues cp.async.bulk
 // from device to shared memory, completing on the slot's mbarrier with the
 // byte count; when the slot has landed it issues cp.async.bulk from shared
-// to device memory in a bulk group, and refills the slot only after
-// cp.async.bulk.wait_group.read says that drain has read it (the
-// reference's order). Each block owns one contiguous range, cut into
-// `chunk`-byte pieces with a smaller last piece; the slots live in dynamic
-// shared memory (up to 227 KB, allowed by cudaFuncSetAttribute). The bulk
-// copy needs 16-byte addresses and sizes: the range covers the largest
-// multiple of 16 bytes, and the last (at most 14) bytes are copied by one
-// thread with plain loads.
+// to device memory in a bulk group, and refills a slot only after
+// cp.async.bulk.wait_group.read says the store that drains it has read it
+// (the reference's order). The first port streamed ~7% slower than
+// Tensor.copy_ on an H100, held back by:
+//   (1) its persistent grid's fixed split: each block owned 1/G of the
+//       bytes, but blocks stream at unequal rates (stamped on an H100 at
+//       1 GiB, of blocks given equal shares the first ended before half
+//       the kernel's time), so the copy waited out the slowest while the
+//       memory idled;
+//   (2) one contiguous range a block: hundreds of address streams ~1 MB
+//       apart;
+//   (3) each refill waited for the store just issued from its own slot.
+// Now a block's n-th fill goes to slot n mod nbuf and holds the chunk that
+// `take(n)` returns:
+//   - deal DYNAMIC: the next value of a counter that all blocks share
+//     (zeroed on the stream by the C entry), so a faster block takes more
+//     chunks, every block ends within a few us of the others, and the
+//     chunks in flight sit on neighbouring addresses. The atomic is issued
+//     before the slot's wait, which hides its round trip.
+//   - deals ROUND_ROBIN (chunk c to block c mod G) and CONTIGUOUS (a run
+//     of whole chunks a block) keep the fixed split, for the probe to show
+//     what it costs.
+//   - the refill lags the store by `lag` fills: after committing the store
+//     of fill j, wait_group.read `lag` (every store but the newest `lag` has
+//     read its slot) and refill the slot of fill j - lag, so `lag` stores
+//     and nbuf - lag loads stay in flight; lag 0 is the reference's order
+//     (0 <= lag < nbuf). On an H100 a lag gains ~1.5% at 3 slots and
+//     little at 4.
+//   - the slots' bytes set the blocks an SM (occupancy calculator); on an
+//     H100 one block of 128-192 KB of slots an SM reads best, against
+//     Little's law's ~26 KB of loads an SM (3.35 TB/s x ~1 us over 132 SMs).
+// An L2 evict-first policy on both bulk copies read slower on an H100 at
+// every point tried, so the copies carry none. The chunks are `chunk`-byte pieces of
+// the largest multiple of 16 bytes (the bulk copy needs 16-byte addresses
+// and sizes), the last one shorter; the last (at most 14) bytes are copied
+// by one thread with plain loads. Fill j is its slot's (j / nbuf)-th, so
+// the wait for it is on mbarrier phase parity (j / nbuf) & 1.
 //
-// K7c is K7a's register copy launched once per range, each launch on its
-// own stream with its share of the persistent grid (the wrapper in ops/hbm_roof.py
-// joins the streams), as the TPU runs its DMA engines side by side.
+// K7c: the first port launched K7a's register copy once per range, each on
+// its own stream behind an event, with a 1/nstreams share of the
+// persistent grid: the same fixed split. Now one launch gives every range
+// a full grid (one tile of threads x V vectors a block, which the hardware
+// hands to whichever SM frees first): block b copies tile b / nstreams of
+// range b mod nstreams, so the ranges run side by side by construction
+// with no stream or event (`ranged_copy_kernel`). One launch per range on
+// its own stream, also on full grids, read no faster.
+//
+// Both can stamp %globaltimer into a buffer that only a check passes: K7b
+// at the start and end of every block, K7c at the start of each range's
+// first block and the end of its last.
 //
 // Every entry returns a cudaError_t (0 on success); the *_blocks entries
 // return the persistent grid, or minus the error code.
@@ -228,52 +266,131 @@ __device__ __forceinline__ void bulk_load(uint32_t slot, const unsigned char* sr
       :: "r"(slot), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// Copy `bytes` from the slot at `slot` to device memory at dst, as one bulk
+// group.
 __device__ __forceinline__ void bulk_store(unsigned char* dst, uint32_t slot, int bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                :: "l"(dst), "r"(slot), "r"(bytes) : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// Wait until every bulk store group but the newest `lag` has read its
+// shared memory (wait_group.read takes its count as an immediate).
+__device__ __forceinline__ void bulk_wait_read(int lag) {
+  switch (lag) {
+#define BT_WAIT_READ(n) \
+  case n: asm volatile("cp.async.bulk.wait_group.read " #n ";\n" ::: "memory"); break;
+    BT_WAIT_READ(1) BT_WAIT_READ(2) BT_WAIT_READ(3) BT_WAIT_READ(4)
+    BT_WAIT_READ(5) BT_WAIT_READ(6) BT_WAIT_READ(7)  // lag < nbuf <= MAX_NBUF
+#undef BT_WAIT_READ
+    default: asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+enum Deal { CONTIGUOUS = 0, ROUND_ROBIN = 1, DYNAMIC = 2 };
+
 __global__ void __launch_bounds__(STAGED_THREADS)
 staged_copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ out,
-                   long long nbytes16, int tail_bytes, long long per_block, int chunk, int nbuf) {
+                   long long nbytes16, int tail_bytes, int chunk, int nbuf, int lag, int deal,
+                   unsigned long long* __restrict__ counter,
+                   unsigned long long* __restrict__ stamps) {
   extern __shared__ __align__(128) unsigned char slots[];
   __shared__ __align__(8) uint64_t full[MAX_NBUF];
   if (threadIdx.x != 0) return;
+  if (stamps) stamps[2 * blockIdx.x] = globaltimer();
   if (blockIdx.x == 0)
     for (int i = 0; i < tail_bytes; ++i) out[nbytes16 + i] = x[nbytes16 + i];
-  const long long begin = (long long)blockIdx.x * per_block;
-  const long long end = begin + per_block < nbytes16 ? begin + per_block : nbytes16;
-  if (begin >= end) return;
-  const long long range = end - begin;
-  const long long nchunks = (range + chunk - 1) / chunk;
+  const long long nchunks = (nbytes16 + chunk - 1) / chunk;
+  // the static deals: this block's n-th chunk is first + n * step, n < count
+  const long long blocks = gridDim.x, b = blockIdx.x;
+  const long long per = (nchunks + blocks - 1) / blocks;
+  const long long first = deal == CONTIGUOUS ? b * per : b;
+  const long long step = deal == CONTIGUOUS ? 1 : blocks;
+  const long long count = deal == CONTIGUOUS ? nchunks - first < per ? nchunks - first : per
+                                             : b < nchunks ? (nchunks - 1 - b) / blocks + 1 : 0;
+  // the chunk of this block's n-th fill, nchunks when there is none
+  auto take = [&](long long n) -> long long {
+    if (deal == DYNAMIC) return (long long)atomicAdd(counter, 1ull);
+    return n < count ? first + n * step : nchunks;
+  };
   for (int s = 0; s < nbuf; ++s)
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(&full[s])) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   const uint32_t base = smem_addr(slots);
-  auto bytes_of = [&](long long idx) {
-    const long long left = range - idx * chunk;
+  long long held[MAX_NBUF];  // the chunk in each slot
+  auto bytes_of = [&](long long c) {
+    const long long left = nbytes16 - c * chunk;
     return (int)(left < chunk ? left : chunk);
   };
-  const long long first = nchunks < nbuf ? nchunks : nbuf;
-  for (long long s = 0; s < first; ++s)
-    bulk_load(base + (uint32_t)(s * chunk), x + begin + s * chunk, bytes_of(s),
-              smem_addr(&full[s]));
-  for (long long idx = 0; idx < nchunks; ++idx) {
-    const int s = (int)(idx % nbuf);
-    const uint32_t slot = base + (uint32_t)s * chunk;
-    // the slot's (idx / nbuf)-th fill: mbarrier phases alternate 0, 1, 0, ...
-    mbar_wait(smem_addr(&full[s]), (uint32_t)((idx / nbuf) & 1));
+  auto load = [&](int s, long long c) {
+    held[s] = c;
+    bulk_load(base + (uint32_t)s * chunk, x + c * chunk, bytes_of(c), smem_addr(&full[s]));
+  };
+  long long n = 0;  // fills issued; fill n goes to slot n mod nbuf
+  for (; n < nbuf; ++n) {
+    const long long c = take(n);
+    if (c >= nchunks) break;
+    load((int)n, c);
+  }
+  bool more = n == nbuf;
+  for (long long j = 0; j < n; ++j) {
+    const int s = (int)(j % nbuf);
+    // fill n refills the slot of fill j - lag, whose store has then read it
+    const bool refill = more && j >= lag;
+    const long long next = refill ? take(n) : nchunks;  // before the wait: hides an atomic
+    // fill j is its slot's (j / nbuf)-th: mbarrier phases alternate 0, 1, 0, ...
+    mbar_wait(smem_addr(&full[s]), (uint32_t)((j / nbuf) & 1));
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    bulk_store(out + begin + idx * chunk, slot, bytes_of(idx));
-    if (idx + nbuf < nchunks) {
-      // refill only after this drain has read the slot
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      bulk_load(slot, x + begin + (idx + nbuf) * chunk, bytes_of(idx + nbuf), smem_addr(&full[s]));
+    bulk_store(out + held[s] * chunk, base + (uint32_t)s * chunk, bytes_of(held[s]));
+    if (next < nchunks) {
+      bulk_wait_read(lag);
+      load((int)(n % nbuf), next);
+      ++n;
+    } else if (refill) {
+      more = false;
     }
   }
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (stamps) stamps[2 * blockIdx.x + 1] = globaltimer();
+}
+
+// K7c, one launch: block b copies tile b / nranges of range b mod nranges,
+// each range `span` 16-byte vectors; a full grid, one tile of
+// threads x V vectors a block. With `stamps`, thread 0 of each range's first
+// block writes its start and of its last block its end (after the block's
+// stores are issued) at stamps[2 r] and stamps[2 r + 1].
+template <int V>
+__global__ void __launch_bounds__(MAX_THREADS)
+ranged_copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, long long span,
+                   int nranges, unsigned long long* __restrict__ stamps) {
+  const int r = (int)(blockIdx.x % nranges);
+  const long long tile = blockIdx.x / nranges;
+  if (stamps && tile == 0 && threadIdx.x == 0) stamps[2 * r] = globaltimer();
+  const uint4* xr = x + r * span;
+  uint4* outr = out + r * span;
+  const long long i0 = tile * blockDim.x * V + threadIdx.x;
+  uint4 v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const long long i = i0 + (long long)j * blockDim.x;
+    if (i < span) v[j] = __ldcs(xr + i);
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const long long i = i0 + (long long)j * blockDim.x;
+    if (i < span) __stcs(outr + i, v[j]);
+  }
+  if (stamps && tile == gridDim.x / nranges - 1) {
+    __syncthreads();
+    if (threadIdx.x == 0) stamps[2 * r + 1] = globaltimer();
+  }
 }
 
 int sm_count(int* sms) {
@@ -332,6 +449,13 @@ void launch_triad(const void* a, const void* b, void* out, long long n, int thre
 
 bool valid_staged(int chunk, int nbuf) {
   return chunk >= 16 && chunk % 16 == 0 && nbuf >= 1 && nbuf <= MAX_NBUF;
+}
+
+template <int V>
+void launch_ranged(const void* x, void* out, long long span, int nranges, int threads,
+                   int blocks_per_range, unsigned long long* stamps, cudaStream_t s) {
+  ranged_copy_kernel<V><<<(unsigned)((long long)nranges * blocks_per_range), threads, 0, s>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), span, nranges, stamps);
 }
 
 int allow_staged_smem(int chunk, int nbuf) {
@@ -410,18 +534,48 @@ extern "C" int bt_hbm_staged_blocks(int chunk, int nbuf) {
 }
 
 // out = x for nbytes bytes through `nbuf` shared-memory slots of `chunk`
-// bytes a block; `blocks` blocks, each owning one contiguous range.
+// bytes a block, refilling each slot `lag` stores after its own, on
+// `blocks` blocks; `deal` 0 gives each block a contiguous run of chunks, 1
+// chunk c to block c mod blocks, 2 each block the next chunk of `counter`
+// (8 bytes of device scratch, zeroed on the stream here). `stamps`: null,
+// or 2 x blocks u64 for each block's start and end %globaltimer.
 extern "C" int bt_hbm_staged_copy(const void* x, void* out, long long nbytes, int chunk, int nbuf,
-                                  int blocks, void* stream) {
-  if (nbytes <= 0 || blocks <= 0 || !valid_staged(chunk, nbuf)) return cudaErrorInvalidValue;
+                                  int lag, int deal, int blocks, void* counter, void* stamps,
+                                  void* stream) {
+  if (nbytes <= 0 || blocks <= 0 || !valid_staged(chunk, nbuf) || lag < 0 || lag >= nbuf ||
+      deal < CONTIGUOUS || deal > DYNAMIC || (deal == DYNAMIC && !counter))
+    return cudaErrorInvalidValue;
   int err = allow_staged_smem(chunk, nbuf);
   if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (deal == DYNAMIC) {
+    err = cudaMemsetAsync(counter, 0, sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return err;
+  }
   const long long nbytes16 = nbytes / 16 * 16;
-  const long long per_block = ((nbytes16 + blocks - 1) / blocks + 15) / 16 * 16;
-  staged_copy_kernel<<<blocks, STAGED_THREADS, (size_t)chunk * nbuf,
-                       static_cast<cudaStream_t>(stream)>>>(
+  staged_copy_kernel<<<blocks, STAGED_THREADS, (size_t)chunk * nbuf, s>>>(
       static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out), nbytes16,
-      (int)(nbytes - nbytes16), per_block, chunk, nbuf);
+      (int)(nbytes - nbytes16), chunk, nbuf, lag, deal,
+      static_cast<unsigned long long*>(counter), static_cast<unsigned long long*>(stamps));
+  return cudaGetLastError();
+}
+
+// out = x over `nranges` ranges of `span` 16-byte vectors each, in one
+// launch of nranges x blocks_per_range blocks (K7c); `stamps` null, or
+// 2 x nranges u64 for each range's first start and last end.
+extern "C" int bt_hbm_ranged_copy(const void* x, void* out, long long span, int nranges,
+                                  int threads, int vecs, int blocks_per_range, void* stamps,
+                                  void* stream) {
+  if (span <= 0 || nranges <= 0 || blocks_per_range <= 0 || !valid_shape(threads, vecs) ||
+      (long long)nranges * blocks_per_range > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* st = static_cast<unsigned long long*>(stamps);
+  switch (vecs) {
+    case 1: launch_ranged<1>(x, out, span, nranges, threads, blocks_per_range, st, s); break;
+    case 2: launch_ranged<2>(x, out, span, nranges, threads, blocks_per_range, st, s); break;
+    default: launch_ranged<4>(x, out, span, nranges, threads, blocks_per_range, st, s); break;
+  }
   return cudaGetLastError();
 }
 

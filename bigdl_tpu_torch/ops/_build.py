@@ -53,7 +53,8 @@ ENTRIES = {
                  "bt_hbm_read": [_P] * 4 + [_L, _I, _I, _I, _P],
                  "bt_hbm_triad": [_P] * 3 + [_L, _I, _I, _I, _P],
                  "bt_hbm_staged_blocks": [_I] * 2,
-                 "bt_hbm_staged_copy": [_P, _P, _L, _I, _I, _I, _P]},
+                 "bt_hbm_staged_copy": [_P, _P, _L] + [_I] * 5 + [_P, _P, _P],
+                 "bt_hbm_ranged_copy": [_P, _P, _L] + [_I] * 4 + [_P, _P]},
 }
 KERNELS = tuple(ENTRIES)
 

@@ -8,10 +8,12 @@ CUDA tensor and its plain version on a CPU tensor:
   reference's ``bench_auto`` kernels): ``out = x``; ``seed + sum(f32(x))``;
   ``a + b * 2`` in f32, rounded once to bf16;
 - ``staged_copy(x, chunk_bytes, nbuf)`` (K7b, ``bench_manual``): a copy
-  staged through ``nbuf`` shared-memory slots of ``chunk_bytes`` per block;
-- ``direct_copy(x, nstreams)`` (K7c, ``bench_hbm_dma``): K7a's register
-  copy launched once per disjoint row range, each on its own stream, the
-  streams joined before the call returns.
+  staged through ``nbuf`` shared-memory slots of ``chunk_bytes`` per block,
+  each slot refilled ``lag`` stores after its own, each block taking its
+  next chunk from a shared counter (or a static deal, for comparison);
+- ``direct_copy(x, nstreams)`` (K7c, ``bench_hbm_dma``): a register copy
+  over ``nstreams`` disjoint row ranges side by side, each range on a full
+  grid, in one launch whose blocks alternate between the ranges.
 
 Every function takes its output buffer (``out``), so that a timed chain can
 alternate between two buffers allocated ahead of it; without one it
@@ -21,7 +23,7 @@ raises on what its kernel does not take, on every device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +37,10 @@ VECS = (1, 2, 4)
 GRIDS = ("persistent", "full")
 DEFAULT_THREADS, DEFAULT_VECS, DEFAULT_GRID = 256, 4, "persistent"
 MAX_NBUF = 8
+#: K7b's chunk dealing (csrc's ``Deal`` codes, in order): a contiguous run
+#: of chunks a block, chunk c to block c mod G, or each block the next
+#: chunk of a shared counter
+DEALS = ("contiguous", "round_robin", "dynamic")
 _KINDS = {"copy": 0, "read": 1, "triad": 2}
 
 #: launches of each K7 kernel (counted where the kernel is launched)
@@ -48,7 +54,6 @@ COUNTERS = {"hbm_copy": LAUNCHES_COPY, "hbm_read": LAUNCHES_READ,
             "hbm_direct_copy": LAUNCHES_DIRECT}
 
 _BLOCKS: Dict[Tuple, int] = {}
-_STREAMS: Dict[int, List[torch.cuda.Stream]] = {}
 
 
 def copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -200,44 +205,69 @@ def triad(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None,
     return out
 
 
+def _check_stamps(name: str, stamps: Optional[torch.Tensor], n: int,
+                  like: torch.Tensor) -> None:
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.numel() != n
+                               or not stamps.is_contiguous()
+                               or stamps.device != like.device):
+        raise ValueError(f"{name}: stamps must be {n} contiguous int64 "
+                         f"values on {like.device}")
+
+
 def staged_copy(x: torch.Tensor, chunk_bytes: int, nbuf: int,
-                out: Optional[torch.Tensor] = None,
-                blocks: int = 0) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None, blocks: int = 0,
+                lag: int = 0, deal: str = "dynamic",
+                stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = x`` through ``nbuf`` shared-memory slots of ``chunk_bytes``
-    (a multiple of 16) per block (K7b); ``blocks`` 0 takes the persistent
-    grid."""
+    (a multiple of 16) per block (K7b), each slot refilled ``lag`` stores
+    after the store that drains it (0 <= lag < nbuf; 0 is the reference's
+    order), the chunks dealt to the blocks by ``deal`` (one of DEALS);
+    ``blocks`` 0 takes the persistent grid. ``stamps`` (2 x blocks
+    int64, for a check) takes each block's start and end in ns of
+    %globaltimer."""
     _check("hbm staged copy", x)
-    if chunk_bytes < 16 or chunk_bytes % 16 or not 1 <= nbuf <= MAX_NBUF:
+    if (chunk_bytes < 16 or chunk_bytes % 16 or not 1 <= nbuf <= MAX_NBUF
+            or not 0 <= lag < nbuf or deal not in DEALS):
         raise ValueError(f"hbm staged copy: chunk_bytes {chunk_bytes} (a "
-                         f"multiple of 16) or nbuf {nbuf} (1..{MAX_NBUF}) "
-                         "out of range")
+                         f"multiple of 16), nbuf {nbuf} (1..{MAX_NBUF}), "
+                         f"lag {lag} (0..nbuf-1) or deal {deal!r} (one of "
+                         f"{DEALS}) out of range")
     out = _check_out("hbm staged copy", out, x, x)
     if x.device.type == "cpu":
         return out.copy_(copy_plain(x))
     lib = _build.load("hbm_roof")
+    blocks = blocks or staged_blocks(chunk_bytes, nbuf)
+    _check_stamps("hbm staged copy", stamps, 2 * blocks, x)
+    # the dynamic deal's counter, zeroed by the C entry on x's stream
+    counter = (torch.empty(1, dtype=torch.int64, device=x.device)
+               if deal == "dynamic" else None)
     status = lib.bt_hbm_staged_copy(
-        x.data_ptr(), out.data_ptr(), x.numel() * 2, chunk_bytes, nbuf,
-        blocks or staged_blocks(chunk_bytes, nbuf), _stream(x))
+        x.data_ptr(), out.data_ptr(), x.numel() * 2, chunk_bytes, nbuf, lag,
+        DEALS.index(deal), blocks,
+        None if counter is None else counter.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), _stream(x))
     _build.check_status(lib, "hbm staged copy", status)
     LAUNCHES_STAGED.add()
     return out
 
 
-def _side_streams(device: torch.device, n: int) -> List[torch.cuda.Stream]:
-    streams = _STREAMS.setdefault(device.index, [])
-    while len(streams) < n:
-        streams.append(torch.cuda.Stream(device))
-    return streams[:n]
+def direct_blocks_per_range(span: int, threads: int = DEFAULT_THREADS,
+                            vecs: int = DEFAULT_VECS) -> int:
+    """K7c's full grid over one range of ``span`` bf16 values: one tile of
+    ``threads`` x ``vecs`` 16-byte vectors a block."""
+    return max(1, -(-(span // 8) // (threads * vecs)))
 
 
 def direct_copy(x: torch.Tensor, nstreams: int,
                 out: Optional[torch.Tensor] = None,
-                threads: int = DEFAULT_THREADS,
-                vecs: int = DEFAULT_VECS) -> torch.Tensor:
+                threads: int = DEFAULT_THREADS, vecs: int = DEFAULT_VECS,
+                stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = x`` for a 2-D ``x`` whose rows split into ``nstreams``
-    ranges (K7c): one launch of the register copy per range, each on its
-    own stream with its share of the persistent grid; the caller's stream
-    waits for all of them."""
+    ranges (K7c): one launch, each range on a full grid, block b on range
+    b mod nstreams, so the ranges run side by side. ``stamps`` (2 x nstreams
+    int64, for a check) takes each range's first block's start and last
+    block's end in ns of %globaltimer."""
     _check("hbm direct copy", x)
     _check_knobs(threads, vecs)
     if x.dim() != 2 or nstreams < 1 or x.shape[0] % nstreams:
@@ -247,22 +277,15 @@ def direct_copy(x: torch.Tensor, nstreams: int,
     if span % 8:
         raise ValueError("hbm direct copy: each range must be a whole number "
                          "of 16-byte vectors")
+    _check_stamps("hbm direct copy", stamps, 2 * nstreams, x)
     out = _check_out("hbm direct copy", out, x, x)
     if x.device.type == "cpu":
         return out.copy_(copy_plain(x))
     lib = _build.load("hbm_roof")
-    blocks = max(1, persistent_blocks("copy", threads, vecs) // nstreams)
-    caller = torch.cuda.current_stream(x.device)
-    ready = torch.cuda.Event()
-    ready.record(caller)
-    sides = _side_streams(x.device, nstreams)
-    for s, side in enumerate(sides):
-        side.wait_event(ready)
-        status = lib.bt_hbm_copy(x.data_ptr() + s * span * 2,
-                                 out.data_ptr() + s * span * 2, span, threads,
-                                 vecs, blocks, side.cuda_stream)
-        _build.check_status(lib, "hbm direct copy", status)
-        LAUNCHES_DIRECT.add()
-    for side in sides:
-        caller.wait_stream(side)
+    status = lib.bt_hbm_ranged_copy(
+        x.data_ptr(), out.data_ptr(), span // 8, nstreams, threads, vecs,
+        direct_blocks_per_range(span, threads, vecs),
+        None if stamps is None else stamps.data_ptr(), _stream(x))
+    _build.check_status(lib, "hbm direct copy", status)
+    LAUNCHES_DIRECT.add()
     return out

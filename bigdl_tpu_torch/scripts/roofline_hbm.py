@@ -10,9 +10,12 @@ K7 kernels of ``ops/hbm_roof.py``:
    (``"block": "<threads>x<vecs>"``) and the grid (``persistent``: the
    blocks the SMs hold at once; ``full``: one tile a block);
 2. ``manual``: the copy staged through ``nbuf`` shared-memory slots of
-   ``chunk`` bytes with bulk asynchronous copies (K7b);
-3. ``hbm_dma``: the register copy over ``nstreams`` disjoint row ranges,
-   one launch per range, each on its own stream (K7c);
+   ``chunk`` bytes with bulk asynchronous copies (K7b), swept over the
+   chunk, the slots, the refill's ``lag`` behind the store and the chunks'
+   ``deal`` to the blocks (``dynamic``: the next chunk of a shared counter;
+   ``round_robin`` or ``contiguous``: a fixed share each);
+3. ``hbm_dma``: the register copy over ``nstreams`` disjoint row ranges
+   side by side, each on a full grid, in one launch (K7c);
 4. ``eager``: the same three chains in eager PyTorch, the yardstick a
    hand-written probe has to beat (the reference's ``bench_xla``);
 5. ``library``: one PyTorch call per pass: ``Tensor.copy_``,
@@ -54,8 +57,17 @@ CLEAN_WAIT_S = 20
 FAMILIES = ("auto", "manual", "hbm_dma", "eager", "library")
 AUTO_SWEEP = tuple((t, v, g) for g in hbm_roof.GRIDS for t in hbm_roof.THREADS
                    for v in hbm_roof.VECS)
-MANUAL_SWEEP = tuple((kib * 1024, nbuf) for kib in (16, 32, 48)
-                     for nbuf in (2, 4))
+#: K7b: (chunk bytes, slots, lag, deal). The first port's order (lag 0,
+#: contiguous runs) at its best point; the three deals at lag 0 and at a
+#: lag of 2 on one shape (chip_smoke.STAGED_DEALS_AT); then the dynamic deal
+#: at other chunks, slots and lags (one block an SM for each).
+MANUAL_SWEEP = (
+    (16384, 2, 0, "contiguous"),
+    (32768, 4, 0, "contiguous"), (32768, 4, 0, "round_robin"),
+    (32768, 4, 0, "dynamic"), (32768, 4, 2, "contiguous"),
+    (32768, 4, 2, "round_robin"), (32768, 4, 2, "dynamic"),
+    (16384, 8, 4, "dynamic"), (49152, 3, 0, "dynamic"),
+    (49152, 3, 2, "dynamic"), (49152, 4, 3, "dynamic"))
 DMA_STREAMS = (1, 2, 4, 8)
 K_SMALL, K_LARGE, ITERS, WARMUP = 4, 24, 2, 2
 # Each chain is timed REPEATS times, in turns, and its least time kept: a
@@ -178,13 +190,21 @@ def bench_auto(total_bytes: int, threads: int, vecs: int, grid: str,
 
 
 def bench_manual(total_bytes: int, chunk_bytes: int, nbuf: int,
-                 device: torch.device) -> dict:
-    """K7b: the copy staged through ``nbuf`` slots of ``chunk_bytes``."""
+                 device: torch.device, lag: int = 0,
+                 deal: str = "dynamic") -> dict:
+    """K7b: the copy staged through ``nbuf`` slots of ``chunk_bytes``, each
+    refilled ``lag`` stores after its own, the chunks dealt by ``deal``;
+    ``blocks_per_sm`` is the persistent grid's (None on the CPU)."""
     n, x, _, bufs = _streams(total_bytes, device)
+    knobs = dict(lag=lag, deal=deal)
     make = _chain(lambda t, out: hbm_roof.staged_copy(t, chunk_bytes, nbuf,
-                                                      out), bufs)
-    out = {"block": f"{chunk_bytes // 1024}KiB", "nbuf": nbuf,
-           "device": device.type}
+                                                      out, **knobs), bufs)
+    per_sm = None
+    if device.type == "cuda":
+        per_sm = hbm_roof.staged_blocks(chunk_bytes, nbuf) // (
+            torch.cuda.get_device_properties(device).multi_processor_count)
+    out = {"block": f"{chunk_bytes // 1024}KiB", "nbuf": nbuf, **knobs,
+           "blocks_per_sm": per_sm, "device": device.type}
     _reading(out, "copy", 2 * n * 2, _slope_timed(make, lambda o: o, x))
     return out
 
@@ -363,8 +383,9 @@ def main(argv=None) -> dict:
             _log(res["auto"][-1])
     if "manual" not in skip:
         res["manual"] = []
-        for chunk, nbuf in MANUAL_SWEEP:
-            res["manual"].append(bench_manual(total, chunk, nbuf, device))
+        for chunk, nbuf, lag, deal in MANUAL_SWEEP:
+            res["manual"].append(bench_manual(total, chunk, nbuf, device,
+                                              lag, deal))
             _log(res["manual"][-1])
     res["roof_gbps"], res["roof_from"] = roof(res)
     res["library_copy_gbps"] = res.get("library", {}).get("copy_gbps")

@@ -25,10 +25,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    training run (B=256) in bf16, with bit-identical statistics on a second
    run, and their training ``Function``s against autograd through the
    plain composition; the HBM streaming kernels K7 (copy, read and triad,
-   the staged copy, the direct copy over several streams) at the probe's
-   1 GiB shape and at ragged sizes (``check_hbm_roof``), K7c's launches
-   side by side in a profiler trace, and the operation that
-   ``Tensor.copy_`` (the probe's library copy) runs;
+   the staged copy at every point of the probe's sweep, the direct copy
+   over several ranges) at the probe's 1 GiB shape and at ragged sizes,
+   K7b at every lag and deal (``check_hbm_roof``); K7c's ranges side by
+   side by their %globaltimer stamps; when K7b's blocks end under each
+   deal (stamps); and the operation that ``Tensor.copy_`` (the probe's
+   library copy) runs;
 3. slice: the 134M Llama-recipe LM (``scripts/int8_decode_bench.py``'s
    ``134m`` config: V=32000, E=768, 12 heads, 4 kv heads, FFN 3072, 12
    layers, RoPE, SwiGLU, RMSNorm, tied embeddings) built from a seed at full
@@ -99,9 +101,10 @@ seed's readings and no result line.
 
 ``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
 from DIR (for example an earlier commit unpacked by ``git archive``),
-builds its kernels and times K1-K6 as phase 4 does,
-printing the rows and no result line: an earlier version's kernels and
-this one's on one timer, within one machine.
+builds its kernels, times K1-K6 as phase 4 does and runs DIR's probe with
+only its K7b (``manual``), K7c (``hbm_dma``) and ``library`` families at
+1 GiB, printing the rows and no result line: an earlier version's kernels
+and this one's on one timer, within one machine.
 """
 
 import argparse
@@ -757,6 +760,7 @@ def check_conv_bn_autograd():
 
 
 HBM_PROBE_BYTES = 1 << 30   # the probe's --gib 1: bytes of each array
+STAGED_DEALS_AT = (32768, 4, 0)  # K7b (chunk, slots, lag) read at every deal
 READ_RTOL = 1e-6
 
 
@@ -769,32 +773,13 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
-def kernel_spans(prof, name_part: str) -> list:
-    """(start, end) in us of the device kernels of a profiler session whose
-    name holds ``name_part``."""
-    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                  if name_part in e.name and e.time_range.end > e.time_range.start
-                  and "cuda" in str(e.device_type).lower())
-
-
-def most_at_once(spans) -> int:
-    """The most spans that run at one time."""
-    # an end sorts before a start at the same time: touching is not overlap
-    edges = sorted([(s, 1) for s, _ in spans] + [(e, -1) for _, e in spans])
-    now = most = 0
-    for _, step in edges:
-        now += step
-        most = max(most, now)
-    return most
-
-
 def direct_copy_overlap() -> dict:
-    """K7c at every stream count over the probe's 1 GiB shape, once under
-    the profiler: the most of its launches that ran side by side, which
-    must be at least two for two streams or more. Each launch has its
-    share of the SMs, so all of them can; how many do depends on how fast
-    the host issues them (an H100 run saw 7 of 8 under the profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+    """K7c at every stream count over the probe's 1 GiB shape, once with
+    its %globaltimer stamps: each range's first block's start and last
+    block's end. The ranges ran side by side when the latest start comes
+    before the earliest end, which must hold for two streams or more: one
+    launch deals neighbouring blocks to different ranges, so it holds by
+    construction unless the launch is serialised."""
     from bigdl_tpu_torch.ops import hbm_roof as hr
     from bigdl_tpu_torch.scripts.roofline_hbm import DMA_STREAMS, hbm_dma_shape
     seen = {}
@@ -802,24 +787,44 @@ def direct_copy_overlap() -> dict:
         x = torch.ones(hbm_dma_shape(HBM_PROBE_BYTES, ns), dtype=torch.bfloat16,
                        device="cuda")
         out = hr.direct_copy(x, ns)
-        for _ in range(PROFILER_TRIES):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                hr.direct_copy(x, ns, out)
-                torch.cuda.synchronize()
-            spans = kernel_spans(prof, "copy_kernel")
-            if len(spans) == ns:
-                break
-        else:   # not measured: the profiler missed launches
-            seen[ns] = {"not_measured_kernels_seen": len(spans)}
-            continue
-        seen[ns] = {"most_at_once": most_at_once(spans),
-                    "span_us": spans[-1][1] - spans[0][0],
-                    "kernel_us": [e - s for s, e in spans]}
-        check(seen[ns]["most_at_once"] >= min(ns, 2),
-              f"K7c with {ns} streams ran at most {seen[ns]['most_at_once']} "
-              "launch at once")
+        stamps = torch.zeros(2 * ns, dtype=torch.int64, device="cuda")
+        hr.direct_copy(x, ns, out, stamps=stamps)
+        ranges = stamps.view(ns, 2).tolist()
+        t0 = min(start for start, _ in ranges)
+        together = (min(end for _, end in ranges)
+                    - max(start for start, _ in ranges)) / 1e3
+        seen[ns] = {"ranges_us": [[(a - t0) / 1e3, (b - t0) / 1e3]
+                                  for a, b in ranges],
+                    "all_ranges_running_us": together}
+        check(ns == 1 or together > 0,
+              f"K7c's {ns} ranges did not all run at one time: {ranges}")
     return seen
+
+
+def staged_block_ends() -> dict:
+    """K7b once with %globaltimer stamps at the probe's 1 GiB, at
+    STAGED_DEALS_AT (a point the probe times at every deal): for each deal,
+    when its blocks end (least, median, 90th percentile, last; us from the
+    first start). Every block of a static deal has the same share of the
+    chunks, so the spread of its ends is the spread of the blocks' rates,
+    which the persistent grid waits out; the dynamic deal hands the faster
+    blocks more chunks."""
+    from bigdl_tpu_torch.ops import hbm_roof as hr
+    chunk, nbuf, lag = STAGED_DEALS_AT
+    blocks = hr.staged_blocks(chunk, nbuf)
+    x = torch.ones(HBM_PROBE_BYTES // 2, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    stamps = torch.zeros(2 * blocks, dtype=torch.int64, device="cuda")
+    q = torch.tensor([0.0, 0.5, 0.9, 1.0], dtype=torch.float64, device="cuda")
+    ends = {}
+    for deal in hr.DEALS:
+        hr.staged_copy(x, chunk, nbuf, out, lag=lag, deal=deal)  # warm-up
+        hr.staged_copy(x, chunk, nbuf, out, lag=lag, deal=deal, stamps=stamps)
+        se = stamps.view(blocks, 2).double()
+        end = (se[:, 1] - se[:, 0].min()) / 1e3
+        ends[deal] = [round(v, 3) for v in torch.quantile(end, q).tolist()]
+    return {"chunk_nbuf_lag": list(STAGED_DEALS_AT), "blocks": blocks,
+            "end_us_min_median_p90_max": ends}
 
 
 def copy_device_ops():
@@ -836,16 +841,17 @@ def check_hbm_roof() -> dict:
     """The K7 kernels against their plain versions on seeded N(0, 1) bf16
     inputs, at the probe's timed size (1 GiB an array) and at ragged sizes:
     K7a at every (threads, vecs, grid) of the probe's sweep, with n off the
-    16-byte vector and the grid's tile; K7b at every (chunk, nbuf) of the
-    sweep, and on one block with fewer chunks than slots, with a chunk
-    count that the slots do not divide, a short last chunk and a tail under
-    16 bytes; K7c at every stream count, on the reference's trimmed shapes
-    from a row count that no stream count divides. Copies must be
-    bit-identical; triad within one bf16 step of ``triad_plain`` (the count
-    of elements one step apart is logged); read within READ_RTOL x sum|x| of
-    an f64 sum, and two runs must give the same bits. Then K7c's overlap
-    and the operations of ``Tensor.copy_``. Returns each kernel's largest
-    |kernel - plain| at the timed size."""
+    16-byte vector and the grid's tile; K7b at every (chunk, nbuf, lag,
+    deal) of the sweep, and at every lag and deal on one block with fewer
+    chunks than slots, with a chunk count that the slots do not divide, a
+    short last chunk and a tail under 16 bytes; K7c at every stream count,
+    on the reference's trimmed shapes from a row count that no stream count
+    divides. Copies must be bit-identical; triad within one bf16 step of
+    ``triad_plain`` (the count of elements one step apart is logged); read
+    within READ_RTOL x sum|x| of an f64 sum, and two runs must give the same
+    bits. Then K7c's overlap, K7b's block ends and the operations of
+    ``Tensor.copy_``. Returns each kernel's largest |kernel - plain| at the
+    timed size."""
     from bigdl_tpu_torch.ops import hbm_roof as hr
     from bigdl_tpu_torch.scripts.roofline_hbm import (AUTO_SWEEP, DMA_STREAMS,
                                                       MANUAL_SWEEP,
@@ -898,10 +904,11 @@ def check_hbm_roof() -> dict:
         k7a(n, False)
 
     x = rnd(n_timed)
-    for chunk, nbuf in MANUAL_SWEEP:
-        copied(f"hbm staged copy {chunk}x{nbuf}",
-               hr.staged_copy(x, chunk, nbuf), x)
-    # (elements, chunk bytes, slots, blocks; 0 = the persistent grid)
+    for chunk, nbuf, lag, deal in MANUAL_SWEEP:
+        copied(f"hbm staged copy {chunk}x{nbuf} lag {lag} {deal}",
+               hr.staged_copy(x, chunk, nbuf, lag=lag, deal=deal), x)
+    # (elements, chunk bytes, slots, blocks; 0 = the persistent grid), each
+    # at every lag and deal
     for n, chunk, nbuf, blocks in (
             (3 * 8192 + 5, 16384, 4, 1),      # 3 chunks < 4 slots, 10-byte tail
             (6 * 8192 + 100, 16384, 4, 1),    # 7 chunks, 7 % 4 slots, short last
@@ -910,8 +917,11 @@ def check_hbm_roof() -> dict:
             (2 ** 20, 16384, 2, 3),           # three blocks, many fills a slot
             (5, 16, 2, 0)):                   # the tail alone
         x = rnd(n)
-        copied(f"hbm staged copy n={n} {chunk}x{nbuf} blocks={blocks}",
-               hr.staged_copy(x, chunk, nbuf, blocks=blocks), x)
+        for lag in range(nbuf):
+            for deal in hr.DEALS:
+                copied(f"hbm staged copy n={n} {chunk}x{nbuf} lag {lag} {deal} "
+                       f"blocks={blocks}", hr.staged_copy(
+                           x, chunk, nbuf, blocks=blocks, lag=lag, deal=deal), x)
 
     for total in (HBM_PROBE_BYTES, 1001 * 2048 + 1234):
         for ns in DMA_STREAMS:
@@ -926,9 +936,10 @@ def check_hbm_roof() -> dict:
     torch.cuda.synchronize()
     log({"check": "hbm_roof", **tally, **{f"max_abs_err_{k}": v
                                           for k, v in errs.items()},
-         # before any other profiler session: late in a long process the
-         # profiler has come back empty for both
          "direct_copy_overlap": direct_copy_overlap(),
+         "staged_block_ends": staged_block_ends(),
+         # before any other profiler session: late in a long process the
+         # profiler has come back empty
          "copy__device_ops": copy_device_ops()})
     return errs
 
@@ -1623,7 +1634,7 @@ def run_roofline():
             "hbm_read": p * len(probe.AUTO_SWEEP),
             "hbm_triad": p * len(probe.AUTO_SWEEP),
             "hbm_staged_copy": p * len(probe.MANUAL_SWEEP),
-            "hbm_direct_copy": p * sum(probe.DMA_STREAMS)}
+            "hbm_direct_copy": p * len(probe.DMA_STREAMS)}
     check(launches == want, f"the probe launched {launches}, want {want}")
     rates = [r[k] for fam in ("auto", "manual", "hbm_dma", "eager", "library")
              for r in (res[fam] if isinstance(res[fam], list) else [res[fam]])
@@ -1668,9 +1679,12 @@ def hbm_roof_rows(res: dict, launches: dict, errs: dict) -> list:
             ("hbm_triad", best(res["auto"], "triad"), "triad", f"{ref}:108",
              3 * n * 2, 2 * n, "block {block}, {grid} grid"),
             ("hbm_staged_copy", best(res["manual"], "copy"), "copy",
-             f"{ref}:205", 2 * n * 2, 0, "chunk {block}, nbuf {nbuf}"),
+             f"{ref}:205", 2 * n * 2, 0,
+             "chunk {block}, nbuf {nbuf}, lag {lag}, {deal} deal, "
+             "{blocks_per_sm} blocks an SM"),
             ("hbm_direct_copy", dma, "copy", f"{ref}:243",
-             2 * dma_rows * lanes * 2, 0, "nstreams {nstreams}")):
+             2 * dma_rows * lanes * 2, 0,
+             "nstreams {nstreams}, one launch, a full grid a range")):
         entries.append({
             "name": name, "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/hbm_roof.cu", "replaces": replaces,
@@ -1683,6 +1697,22 @@ def hbm_roof_rows(res: dict, launches: dict, errs: dict) -> list:
                     + how.format(**reading) + "; plain_ms: eager PyTorch; "
                     "library_ms: " + LIBRARY_CALLS[key]})
     return entries
+
+
+def time_probe_families() -> dict:
+    """The probe of the imported package at 1 GiB with only its
+    ``manual`` (K7b), ``hbm_dma`` (K7c) and ``library`` families, one
+    calibration: each family's readings and the best K7b and K7c pass
+    beside ``copy_``'s, so that ``--time-kernels-of`` puts an earlier
+    tree's K7b and K7c on this run's timer."""
+    from bigdl_tpu_torch.scripts import roofline_hbm as probe
+    res = probe.main(["--gib", str(HBM_PROBE_BYTES / 2 ** 30), "--skip",
+                      "auto,eager", "--calibration-tries", "1"])
+    best = lambda fam: min(r["copy_ms"] for r in res[fam])
+    return {"manual": res["manual"], "hbm_dma": res["hbm_dma"],
+            "library": res["library"], "best_manual_copy_ms": best("manual"),
+            "best_hbm_dma_copy_ms": best("hbm_dma"),
+            "library_copy_ms": res["library"]["copy_ms"]}
 
 
 # ----------------------------------------------------------------- 4. timing
@@ -2018,8 +2048,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--time-kernels-of", metavar="DIR",
         help="import bigdl_tpu_torch from DIR (e.g. an unpacked earlier "
-             "commit), build its kernels, time K1-K6 as "
-             "phase 4 does and print the rows (no result line)")
+             "commit), build its kernels, time K1-K6 as phase 4 does and "
+             "K7b, K7c and copy_ with DIR's probe, and print the rows (no "
+             "result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2041,7 +2072,7 @@ def main(argv=None) -> int:
                 row.pop(key, None)
         log({"timed_package": os.path.dirname(bigdl_tpu_torch.__file__),
              "card": card, "total_s": time.perf_counter() - t0,
-             "kernels_timed": rows})
+             "kernels_timed": rows, "k7_timed": time_probe_families()})
         return 0
     if args.resnet_grad_seeds:
         failed = []
