@@ -11,7 +11,18 @@ the fused top-k / Gumbel-max path), and ``generate`` with greedy,
 temperature, top-k and top-p sampling, ``eos_id`` / ``pad_id``,
 ``repetition_penalty`` and ``min_new_tokens``. Beam search and the rolling
 cache (ROADMAP A3) and ``mesh`` decoding (ROADMAP A6) raise
-``NotImplementedError``.
+``NotImplementedError``; ``generate_speculative`` is a later slice
+(ROADMAP A.1).
+
+The serving engine's prefill machinery (``models/serving.py``) is here as
+plain functions over module state: the per-request state partition
+(``partition_prefill_state`` / ``load_prefill_state``), its wire format
+(``serialize_prefill_state`` / ``deserialize_prefill_state``), the
+position rewinds (``_set_decode_pos``, ``_shift_decode_pos``) and the
+chunked and bucketed b=1 prefill functions. The reference threads these
+states through jitted programs; here the functions swap a state into the
+modules, run the eager forward and read the state back, so the caller
+holds ``_model_lock(model)`` around them.
 
 Token ids are 1-based, as everywhere in the reference. Random draws come
 from an explicit ``torch.Generator``: the same seed gives other samples
@@ -20,10 +31,12 @@ than the reference's ``jax.random`` keys.
 
 from __future__ import annotations
 
+import io
 import threading
 import weakref
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention, PositionalEncoding
@@ -136,6 +149,10 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
                                   "(ROADMAP A6)")
     if repetition_penalty <= 0:
         raise ValueError("repetition_penalty must be > 0")
+    if any(m._continuous for m in _decode_modules(model)[0]):
+        raise ValueError("the model is being served by a ContinuousLMServer "
+                         "(its caches hold the slots); close the server or "
+                         "generate with another instance")
     if num_beams == 1:
         greedy = True  # width-1 beam search is greedy decoding
     dev = check_module_device(model, device)
@@ -216,3 +233,151 @@ def _decode(model, prompt, max_new_tokens, generator, sampling, eos_id,
         tok = nxt
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The serving engine's prefill machinery
+# ---------------------------------------------------------------------------
+
+def _set_decode_pos(model: Module, value: int) -> None:
+    """Set every ``decode_pos`` (attention caches and positional
+    encodings) to ``value``: the chunked prefill's rewind past the pads of
+    a ragged final chunk."""
+    for m in model.modules():
+        if isinstance(m, (MultiHeadAttention, PositionalEncoding)):
+            m.decode_pos = (torch.full_like(m.decode_pos, value)
+                            if torch.is_tensor(m.decode_pos) else value)
+
+
+def _shift_decode_pos(model: Module, delta: torch.Tensor) -> None:
+    """Add ``delta`` to every ``decode_pos``: with a (B,) tensor of
+    non-positive offsets on a continuous cache, the per-row rollback of a
+    speculative round (each slot to its own accepted boundary)."""
+    for m in model.modules():
+        if isinstance(m, (MultiHeadAttention, PositionalEncoding)):
+            m.decode_pos = m.decode_pos + delta
+
+
+#: the per-request decode state of one attention module, in the order in
+#: which the reference flattens its buffer tree (sorted keys)
+_PREFILL_STATE_KEYS = ("decode_pos", "k_cache", "v_cache")
+
+
+def _state_modules(model: Module) -> List[MultiHeadAttention]:
+    """The model's attention modules in the reference's leaf order (its
+    buffer tree flattens nested dicts by sorted key at every level)."""
+    named = [(tuple(name.split(".")), m) for name, m in model.named_modules()
+             if isinstance(m, MultiHeadAttention)]
+    return [m for _, m in sorted(named, key=lambda t: t[0])]
+
+
+def partition_prefill_state(model: Module) -> list:
+    """The per-request decode state of ``model``: ``decode_pos`` (an int in
+    b=1 mode, a (B,) tensor in continuous mode), ``k_cache`` and
+    ``v_cache`` of every attention module, as a flat list of the live
+    objects. Weights, a quantized model's int8 rows too, are not part of
+    it and are never copied per request."""
+    return [getattr(m, key) for m in _state_modules(model)
+            for key in _PREFILL_STATE_KEYS]
+
+
+def load_prefill_state(model: Module, state: list) -> None:
+    """Install a ``partition_prefill_state`` list into the modules."""
+    mhas = _state_modules(model)
+    n = len(_PREFILL_STATE_KEYS)
+    if len(state) != n * len(mhas):
+        raise ValueError(f"state has {len(state)} entries; the model holds "
+                         f"{n * len(mhas)}")
+    for i, m in enumerate(mhas):
+        m.decode_pos, k, v = state[n * i:n * i + n]
+        m._buffers["k_cache"], m._buffers["v_cache"] = k, v
+
+
+def serialize_prefill_state(lp: torch.Tensor, state: list) -> bytes:
+    """Pack one admission handoff, the (1, V) last-token log-probs and a
+    b=1 state partition, into an npz blob with the reference's keys
+    (``lp``, ``s0..sN`` in partition order; ``decode_pos`` as a 0-d int32).
+    bf16 tensors travel as f32, which holds them exactly; the receiver
+    casts to its own cache dtype."""
+    def host(x):
+        if not torch.is_tensor(x):
+            return np.asarray(x, np.int32)
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+
+    buf = io.BytesIO()
+    arrs = {"lp": host(lp)}
+    for i, x in enumerate(state):
+        arrs[f"s{i}"] = host(x)
+    np.savez(buf, **arrs)
+    return buf.getvalue()
+
+
+def deserialize_prefill_state(data: bytes):
+    """``(lp, state)`` from a ``serialize_prefill_state`` blob (the
+    reference's too), on the CPU: 0-d integer entries come back as ints,
+    the rest as tensors."""
+    z = np.load(io.BytesIO(data))
+    lp = torch.from_numpy(np.asarray(z["lp"], np.float32))
+    n = sum(1 for k in z.files if k.startswith("s"))
+    state = []
+    for i in range(n):
+        a = z[f"s{i}"]
+        state.append(int(a) if a.ndim == 0 and a.dtype.kind in "iu"
+                     else torch.from_numpy(np.array(a)))
+    return lp, state
+
+
+def clone_prefill_state(state: list) -> list:
+    """An owned copy of a state partition: tensors cloned, ints as they
+    are. The prefill functions write their state in place."""
+    return [x.clone() if torch.is_tensor(x) else x for x in state]
+
+
+def build_chunked_prefill_fns(model: Module):
+    """The chunked b=1 prompt prefill (reference
+    ``build_chunked_prefill_fns``), over the model's current b=1 decode
+    state, which becomes the zero template. Returns ``(chunk_fn, last_fn,
+    state0)``:
+
+    - ``chunk_fn(state, chunk, new_pos) -> state``: one (1, C) chunk through
+      the warm-cache masked branch of ``MultiHeadAttention._attend_decode``
+      (the caller sets ``_decode_prefilled``; it is right on a cold cache,
+      whose unwritten entries lie behind the position mask). k/v are
+      written at ``decode_pos..decode_pos+C-1``; ``decode_pos`` is then set
+      to ``new_pos``, the true token count, so the pads of a ragged final
+      chunk are written over by the next call;
+    - ``last_fn(state, tok) -> (lp, state)``: the prompt's last token as one
+      step; its (1, V) log-probs are the admission's sample;
+    - ``state0``: the template; pass the functions an owned copy
+      (``clone_prefill_state``), which they write in place."""
+    state0 = clone_prefill_state(partition_prefill_state(model))
+
+    def chunk_fn(state, chunk, new_pos):
+        load_prefill_state(model, state)
+        model(chunk)
+        _set_decode_pos(model, new_pos)
+        return partition_prefill_state(model)
+
+    def last_fn(state, tok):
+        load_prefill_state(model, state)
+        lp = model(tok)
+        return lp[:, -1], partition_prefill_state(model)
+
+    return chunk_fn, last_fn, state0
+
+
+def build_bucketed_prefill_fn(model: Module):
+    """The bucketed b=1 prompt prefill (reference
+    ``build_bucketed_prefill_fn``): ``fn(state, prompt, last_idx) -> (lp,
+    state)`` runs the cold causal prefill of a prompt right-padded to its
+    bucket (kernel K1 on the card) and reads the log-probs of the true last
+    token at ``last_idx``; the heads must be in ``_decode_all`` mode."""
+    def fn(state, prompt, last_idx):
+        load_prefill_state(model, state)
+        lp = model(prompt)
+        return lp[:, last_idx], partition_prefill_state(model)
+
+    return fn

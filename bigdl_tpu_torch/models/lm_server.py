@@ -37,13 +37,17 @@ class _Request:
     error: Optional[str] = None
 
 
-def _fail(reqs, message: str) -> None:
+def fail_requests(reqs, message: str) -> None:
+    """Fail stranded requests: set the error and release every blocked
+    ``submit()``. Shared by both servers (this batcher and
+    ``models/serving.py``)."""
     for req in reqs:
         req.error = message
         req.done.set()
 
 
-def _drain(q: "queue.Queue") -> list:
+def drain_queue(q: "queue.Queue") -> list:
+    """Empty a request queue without blocking; returns the drained items."""
     out = []
     while True:
         try:
@@ -124,7 +128,7 @@ class LMServer:
         self._worker.join(timeout=30)
         with self._held_lock:
             stranded, self._held = self._held, []
-        _fail(stranded + _drain(self._queue),
+        fail_requests(stranded + drain_queue(self._queue),
               "server closed before the request was dispatched")
 
     # ---------------------------------------------------------------- batcher
@@ -172,10 +176,10 @@ class LMServer:
             try:
                 self._decode_batch(batch)
             except Exception as e:  # surface to every waiter, keep serving
-                _fail(batch, f"{type(e).__name__}: {e}")
+                fail_requests(batch, f"{type(e).__name__}: {e}")
         with self._held_lock:
             stranded, self._held = self._held, []
-        _fail(stranded + _drain(self._queue),
+        fail_requests(stranded + drain_queue(self._queue),
               "server closed before the request was dispatched")
 
     def _decode_batch(self, batch: List[_Request]) -> None:
@@ -200,12 +204,16 @@ class LMServer:
             req.done.set()
 
 
-def make_http_server(server: LMServer, host: str, port: int):
-    """Stdlib ``ThreadingHTTPServer`` speaking JSON:
+def make_http_server(server, host: str, port: int):
+    """Stdlib ``ThreadingHTTPServer`` speaking JSON in front of an
+    ``LMServer`` or a ``ContinuousLMServer``:
 
     POST /generate  {"prompt": [ids...]}, optional "max_new_tokens"
                     -> {"ids": [...]}
-    GET  /health    -> {"ok": true, "batches_served": N, "queue_depth": N}
+    GET  /health    -> {"ok": true, "batches_served": N, "queue_depth": N};
+                    503 with "dead": reason or "draining": reason once a
+                    continuous server has died or is draining, so that an
+                    orchestrator stops routing to it
 
     Text prompts (the reference's ``tokenizer``) wait for the tokenizer
     port (ROADMAP A8)."""
@@ -228,9 +236,15 @@ def make_http_server(server: LMServer, host: str, port: int):
                 return self._reply(404, {
                     "error": "GET /health (/metrics waits for the telemetry "
                              "port)"})
-            self._reply(200, {"ok": True,
-                              "batches_served": server.batches_served,
-                              "queue_depth": server.queue_depth})
+            dead = getattr(server, "dead_reason", None)
+            draining = getattr(server, "drain_reason", None)
+            self._reply(503 if (dead or draining) else 200,
+                        {"ok": dead is None and draining is None,
+                         "batches_served": server.batches_served,
+                         "queue_depth": server.queue_depth,
+                         **({"dead": dead} if dead else {}),
+                         **({"draining": draining}
+                            if (draining and not dead) else {})})
 
         def do_POST(self):
             if self.path != "/generate":

@@ -2,12 +2,13 @@
 ``bigdl_tpu/nn/attention.py``).
 
 Ported: ``LayerNorm``, ``RMSNorm``, ``PositionalEncoding``, ``rope_rotate``
-(rotate-half pairing, no ``rope_scaling``), ``MultiHeadAttention`` (GQA,
-RoPE, causal, attention-probability dropout; incremental decode over a
-linear KV cache), and the ``TransformerEncoderLayer`` /
-``TransformerEncoder`` stack with residual dropout. Sliding windows, the
-rolling and continuous caches, context parallelism and MoE are later slices
-(ROADMAP A3-A6).
+(rotate-half pairing, shared (S,) or per-row (B, S) positions, no
+``rope_scaling``), ``MultiHeadAttention`` (GQA, RoPE, causal,
+attention-probability dropout; incremental decode over a linear KV cache,
+and the serving engine's continuous mode with per-row positions), and the
+``TransformerEncoderLayer`` / ``TransformerEncoder`` stack with residual
+dropout. Sliding windows, the rolling cache, context parallelism and MoE
+are later slices (ROADMAP A.1, A3-A6).
 
 The KV cache is module state (``enable_decode``) that the eager forward
 updates in place; there is no functional-apply layer. Unmasked attention on
@@ -104,15 +105,18 @@ class PositionalEncoding(Module):
 def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
                 theta: float = 10000.0) -> torch.Tensor:
     """Rotary position embedding of ``x`` (B, S, H, D) at absolute
-    ``positions`` (S,), pairing feature i with i + D/2 (HF Llama's
+    ``positions``, (S,) shared by the batch or (B, S) per row (the
+    continuous cache's slots), pairing feature i with i + D/2 (HF Llama's
     rotate-half), so the q.k score depends only on the distance."""
     d = x.shape[-1]
     half = d // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                           device=x.device) / half))
-    angles = positions.to(torch.float32)[:, None] * freqs      # (S, half)
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
+    angles = positions.to(torch.float32)[..., None] * freqs  # (B?, S, half)
+    if angles.dim() == 2:                                    # shared positions
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -162,26 +166,43 @@ class MultiHeadAttention(Module):
         self._decode_prefilled = False
 
     # ------------------------------------------------------------- decoding
+    #: per-row cache positions (``enable_decode(continuous=True)``)
+    _continuous = False
+
     def _cache_dtype(self) -> torch.dtype:
         return self.in_proj_weight.dtype
 
-    def enable_decode(self, batch_size: int,
-                      max_len: int) -> "MultiHeadAttention":
+    def enable_decode(self, batch_size: int, max_len: int,
+                      rolling: bool = False,
+                      continuous: bool = False) -> "MultiHeadAttention":
         """Incremental-decode mode with a (B, max_len, num_kv_heads, D) KV
-        cache, written in place at ``decode_pos`` by each forward."""
+        cache, written in place at ``decode_pos`` by each forward.
+
+        ``continuous=True`` is the serving engine's slot mode
+        (``models/serving.py``): ``decode_pos`` is a (B,) int64 tensor on the
+        module's device, so each row decodes at its own position; prefill
+        happens out of band (the engine copies a b=1 prefilled cache into a
+        row). ``rolling=True`` (the ring cache) is not ported yet."""
+        if rolling:
+            raise NotImplementedError("the rolling KV cache is not ported yet "
+                                      "(ROADMAP A.1)")
         dev = module_device(self)
         shape = (batch_size, max_len, self.num_kv_heads, self.head_dim)
         self.register_buffer("k_cache", torch.zeros(
             shape, dtype=self._cache_dtype(), device=dev), persistent=False)
         self.register_buffer("v_cache", torch.zeros(
             shape, dtype=self._cache_dtype(), device=dev), persistent=False)
-        self.decode_pos = 0
+        self.decode_pos = (torch.zeros(batch_size, dtype=torch.int64,
+                                       device=dev) if continuous else 0)
+        self._continuous = continuous
         self._decode_prefilled = False
         self._decode = True
         return self
 
     def disable_decode(self) -> "MultiHeadAttention":
         self._decode = False
+        self._continuous = False
+        self.decode_pos = 0
         for name in ("k_cache", "v_cache"):
             self._buffers.pop(name, None)
         return self
@@ -196,6 +217,8 @@ class MultiHeadAttention(Module):
         reads the cache at its num_kv_heads size with a grouped product.
         Only the written prefix of the cache is read: the masked tail would
         add exact zeros."""
+        if self._continuous:
+            return self._attend_decode_continuous(q, k, v)
         pos = self.decode_pos
         s = q.shape[1]
         self.k_cache[:, pos:pos + s] = k.to(self.k_cache.dtype)
@@ -223,6 +246,52 @@ class MultiHeadAttention(Module):
         logits = logits.masked_fill(~step_mask[0], _F32_MIN)
         w = torch.softmax(logits, dim=-1)
         ctx = torch.einsum("bkgl,blkd->bkgd", w.to(vals.dtype), vals)
+        return ctx.reshape(b, 1, h, d)
+
+    def _attend_decode_continuous(self, q, k, v):
+        """Decode with per-row cache positions (reference
+        ``_attend_decode_continuous``): row b writes its k/v from
+        ``decode_pos[b]`` and its query i attends keys
+        ``<= decode_pos[b] + i`` over the whole cache row. ``s == 1`` is the
+        token step; ``s > 1`` a per-row chunk (speculative verification).
+
+        Where the reference's scatter drops writes past the cache end, the
+        write index of such a row is clamped to the last entry, since
+        ``index_put_`` faults out of range. Only a free slot or a row that
+        has used its budget reaches past the end; the engine never reads
+        its outputs, and a live row never reads that entry (a request
+        fits ``prompt + max_new <= max_len``)."""
+        pos = self.decode_pos                                    # (B,)
+        bsz, s = q.shape[0], q.shape[1]
+        length = self.k_cache.shape[1]
+        rows = torch.arange(bsz, device=q.device)[:, None]
+        q_pos = pos[:, None] + torch.arange(s, device=q.device)  # (B, S)
+        write = q_pos.clamp(max=length - 1)
+        self.k_cache[rows, write] = k.to(self.k_cache.dtype)
+        self.v_cache[rows, write] = v.to(self.v_cache.dtype)
+        self.decode_pos = pos + s
+        k_pos = torch.arange(length, device=q.device)
+        if s > 1:
+            valid = k_pos[None, None, :] <= q_pos[:, :, None]    # (B, S, L)
+            return attention_core.dot_product_attention(
+                q, self._expand_kv(self.k_cache),
+                self._expand_kv(self.v_cache), mask=valid[:, None],
+                causal=False)
+        valid = k_pos[None, :] <= pos[:, None]                   # (B, L)
+        n_kv = self.num_kv_heads
+        if n_kv == self.num_heads:
+            return attention_core.dot_product_attention(
+                q, self.k_cache, self.v_cache,
+                mask=valid[:, None, None, :], causal=False)
+        b, _, h, d = q.shape
+        g = h // n_kv
+        q_vec = q.reshape(b, n_kv, g, d)
+        logits = torch.einsum("bkgd,blkd->bkgl", q_vec, self.k_cache)
+        logits = (logits * (1.0 / float(d) ** 0.5)).float()
+        logits = logits.masked_fill(~valid[:, None, None, :], _F32_MIN)
+        w = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bkgl,blkd->bkgd", w.to(self.v_cache.dtype),
+                           self.v_cache)
         return ctx.reshape(b, 1, h, d)
 
     # -------------------------------------------------------------- forward
@@ -268,7 +337,9 @@ class MultiHeadAttention(Module):
                    self._split_heads(pv))
         if self.rope:
             pos = torch.arange(q.shape[1], device=q.device)
-            if self._decode:
+            if self._decode and self._continuous:
+                pos = self.decode_pos[:, None] + pos[None, :]    # (B, S)
+            elif self._decode:
                 pos = pos + self.decode_pos
             q = rope_rotate(q, pos, self.rope_theta)
             k = rope_rotate(k, pos, self.rope_theta)

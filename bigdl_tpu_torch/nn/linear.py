@@ -67,15 +67,22 @@ class LookupTable(Module):
 
 
 class _VocabHead(Module):
-    """What the two LM heads share: the last position only while decoding.
+    """What the two LM heads share: the last position only while decoding,
+    unless ``_decode_all`` is set (the serving engine's bucketed prefill
+    reads the true last token inside a padded bucket, and speculative
+    verification reads every position of its chunk).
 
     In training mode a head returns the tuple ``(hidden, weight[, bias])``
     that ``FusedLMHeadCriterion`` takes (the reference's ``Table``), so the
     (B, S, vocab) logits are never formed; in eval mode it returns
     log-probabilities."""
 
+    _decode_all = False
+
     def _last(self, input):
-        return input[:, -1:] if self._decode else input
+        if self._decode and not self._decode_all:
+            return input[:, -1:]
+        return input
 
 
 class LMHead(_VocabHead):

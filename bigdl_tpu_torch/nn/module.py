@@ -22,6 +22,18 @@ class Module(torch.nn.Module):
 
     _decode = False
 
+    #: caches that models attach through ``__dict__`` and that must not go
+    #: with a model through ``copy.deepcopy`` or pickle (the reference's
+    #: ``Module._EPHEMERAL_CACHES``): the serving engine's prefix trie holds
+    #: KV snapshots and a thread lock
+    _EPHEMERAL_CACHES = ("_prefix_trie",)
+
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        for key in self._EPHEMERAL_CACHES:
+            d.pop(key, None)
+        return d
+
     def evaluate_mode(self) -> "Module":
         return self.eval()
 

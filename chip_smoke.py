@@ -40,6 +40,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``generate`` on the same prompts, and the launch counters, zeroed just
    before serving, must show that the prefill ran kernel K1 (its ``mma``
    variant only) and the int8 decode kernel K4;
+3d. continuous serving: the same three models (the f32 model, its bf16
+   and int8 twins) served through ``ContinuousLMServer`` (8 slots,
+   max_len 512, blocks of 8 steps, chunks of 128, greedy, 32 new tokens).
+   First K1 (B=1, S in 64..512, causal, bf16 ``mma`` and f32 ``fma``) and
+   K4 (M in 1, 8, 40, 64, 128, 256 at the five weight shapes) against
+   their plain versions at the path's shapes. Then per model, with the
+   counters zeroed just before each server: round 1, 16 requests from 16
+   threads (8 prompts of 384 tokens, 8 of 33-383); round 2, 12 requests (8
+   sharing 256 or 200 tokens of round-1 prompts, 4 round-1 prompts again,
+   whose answers must equal round 1's); the time to first token of a
+   384-token prompt cold and on a 256-token prefix hit; round 3 under the
+   profiler (busy share); a bucketed-mode server over 8 round-1 prompts
+   (K1 launched num_layers times per admission, ``mma`` for bf16 and
+   int8, ``fma`` for f32); and, for the bf16 and int8 targets, a
+   speculative server (a second ``cast_model`` or ``quantize_model`` of the
+   f32 model as draft, spec_len 4) whose acceptance must reach 0.9. The
+   trie's hits and the int8 twin's K4 and dequantize counts must equal
+   what the path's structure gives (85 matmuls per forward of at most 256
+   rows; a 512-row bucket dequantizes all 85), the other twins launch no
+   K4, and every served token's log-prob must lie within 1e-3 (f32) or
+   0.1 (bf16, int8) of its position's largest under a teacher-forced plain
+   forward of the same model;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
    grammar, through K1/K2/K3 (their ``fma`` variants, no ``mma`` launch),
@@ -78,7 +100,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``scaled_dot_product_attention`` less its forward), K4 (one int8
    decode token of the 134m config, its 85 weights at their shapes made
    from a seed, and each distinct shape alone, with an empty kernel
-   launched as often for the least time of a launch) and K5 and K6 (at
+   launched as often for the least time of a launch; ``continuous``: the
+   85 at phase 3d's M = 8, 40 and 128) and K5 and K6 (at
    ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
    library time is the cuBLAS product or the cuDNN conv plus one
    ``torch.var_mean`` of its output; K5 also at each of the training
@@ -219,8 +242,9 @@ def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     for second in ("stage4", "train"):
         if second in entry:
             add_measured_bound(entry[second], hbm_bytes_per_s)
-    for shape in entry.get("shapes", {}).values():
-        add_measured_bound(shape, hbm_bytes_per_s)
+    for key in ("shapes", "continuous"):
+        for shape in entry.get(key, {}).values():
+            add_measured_bound(shape, hbm_bytes_per_s)
     return entry
 
 
@@ -945,12 +969,9 @@ def check_hbm_roof() -> dict:
 
 
 # ------------------------------------------------------------------ 3. slice
-def serve(model, prompts):
-    """All prompts from threads through one LMServer; returns the answers,
-    the batches served and the wall seconds."""
-    from bigdl_tpu_torch.models.lm_server import LMServer
-    server = LMServer(model, max_batch=REQUESTS_PER_LEN, batch_timeout_ms=2000,
-                      max_new_tokens=NEW_TOKENS, greedy=True, device="cuda")
+def submit_all(server, prompts, max_new=None):
+    """All prompts from one client thread each, started together; returns
+    the answers and the wall seconds."""
     results = [None] * len(prompts)
     errors = []
     barrier = threading.Barrier(len(prompts))
@@ -958,24 +979,34 @@ def serve(model, prompts):
     def client(i):
         try:
             barrier.wait(timeout=60)
-            results[i] = server.submit(prompts[i], timeout=600)
+            results[i] = server.submit(prompts[i], max_new, timeout=600)
         except Exception as e:  # collected and raised below
             errors.append(e)
 
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(prompts))]
     t0 = time.perf_counter()
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        seconds = time.perf_counter() - t0
-    finally:
-        server.close()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    seconds = time.perf_counter() - t0
     check(not any(t.is_alive() for t in threads), "a client never returned")
     if errors:
         raise errors[0]
+    return results, seconds
+
+
+def serve(model, prompts):
+    """All prompts from threads through one LMServer; returns the answers,
+    the batches served and the wall seconds."""
+    from bigdl_tpu_torch.models.lm_server import LMServer
+    server = LMServer(model, max_batch=REQUESTS_PER_LEN, batch_timeout_ms=2000,
+                      max_new_tokens=NEW_TOKENS, greedy=True, device="cuda")
+    try:
+        results, seconds = submit_all(server, prompts)
+    finally:
+        server.close()
     return results, server.batches_served, seconds
 
 
@@ -1091,9 +1122,371 @@ def run_slice():
             log({"twin": name, "top1_agreement_vs_f32": agree})
             check(agree >= 0.9, f"{name}: top-1 agreement {agree}")
 
+    timings = {}
     for name, model in twins.items():
         for s in PROMPT_LENS:
-            log({"twin": name, **time_generate(model, groups[s])})
+            timings[name, s] = time_generate(model, groups[s])
+            log({"twin": name, **timings[name, s]})
+    return launches, {"f32": base, **twins}, timings
+
+
+# ------------------------------------------------- 3d. continuous serving
+CONT = dict(slots=8, max_len=512, decode_block=8, greedy=True,
+            max_new_tokens=NEW_TOKENS, prefill_chunk=128)
+CONT_DEVICE = "cuda"        # the device phase 3d serves on
+SPEC_LEN = 4
+LONG_PROMPT, SHARED_PREFIX = 384, 256
+CONT_PREFIX_MB = 2048       # room for every snapshot of the phase
+GAP_TOL = {"f32": 1e-3, "bf16": 0.1, "int8": 0.1}
+SPEC_ACCEPT_MIN = 0.9
+K1_BUCKETS = (64, 128, 256, 512)
+# K4's rows on the path: the last prompt token (and a chunk's head), a step
+# at 8 slots, a verification at 8 x (SPEC_LEN + 1), a chunk; and the
+# buckets of at most 256 rows
+K4_ROWS = (1, 8, 40, 128, 64, 256)
+
+
+def check_continuous_kernels() -> dict:
+    """K1 and K4 at phase 3d's shapes against their plain versions, with
+    phase 2's tolerances: K1 at B=1, S in K1_BUCKETS (the bucketed
+    prefill's buckets), N=12, D=64, causal, bf16 (the ``mma`` variant) and
+    f32 (``fma``); K4 at M in K4_ROWS for the five weight shapes of a
+    forward, two runs with the same bits. Returns each kernel's largest
+    absolute error."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
+                                                 int8_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    worst = {"flash_fwd": 0.0, "int8_matmul": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for s in K1_BUCKETS:
+            q, k, v = _qkv(gen, 1, s, s, CONFIG["num_heads"], 64, dt)
+            variant, (o, lse) = launched_variant(
+                [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+                lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
+            po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+            err_o, ok_o = flash_o_close(o, po)
+            err_l = (lse - plse).abs().max().item()
+            check(ok_o and err_l <= FLASH_ATOL
+                  and variant == ("mma" if dt == torch.bfloat16 else "fma"),
+                  f"flash {dt} B=1 S={s}: |dO|={err_o} |dLSE|={err_l}, "
+                  f"variant {variant}")
+            worst["flash_fwd"] = max(worst["flash_fwd"], err_o)
+    for m in K4_ROWS:
+        for o, kd in sorted(set(int8_decode_shapes())):
+            w = torch.randint(-127, 128, (o, kd), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            sc = torch.rand((o,), generator=gen, device="cuda") * 1e-2 + 1e-3
+            x = torch.randn((m, kd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            y, again = (int8_matmul_kernel(x, w, sc) for _ in range(2))
+            ref = int8_matmul_plain(x, w, sc)
+            err = (y - ref).abs().max().item()
+            tol = INT8_RTOL * ref.abs().max().item()
+            check(err <= tol and torch.equal(y, again),
+                  f"int8 M={m} O={o} K={kd}: err {err} > {tol}, or two runs "
+                  "differ")
+            worst["int8_matmul"] = max(worst["int8_matmul"], err)
+    log({"check": "continuous_kernels", "k1_buckets": K1_BUCKETS,
+         "k4_rows": K4_ROWS, "max_abs_err": worst})
+    return worst
+
+
+class TrieModel:
+    """What the prefix trie does, for the structural launch counts: the
+    chunk-aligned prefixes stored so far, and each admission's hit depth
+    and chunk forwards (``_PrefillPipeline._prefill_chunked``)."""
+
+    def __init__(self):
+        self.stored = set()
+
+    def admit(self, ids) -> tuple:
+        c, n = CONT["prefill_chunk"], len(ids) - 1
+        bounds = range(c, n + 1, c)
+        hit = max((b for b in bounds if tuple(ids[:b]) in self.stored),
+                  default=0)
+        self.stored.update(tuple(ids[:b]) for b in bounds)
+        return hit, -(-(n - hit) // c)
+
+    def forwards(self, prompts) -> tuple:
+        """(b=1 forwards of the admissions: chunks and last-token steps,
+        admissions that hit)."""
+        got = [self.admit(p) for p in prompts]
+        return sum(chunks + 1 for _, chunks in got), sum(h > 0 for h, _ in got)
+
+
+def continuous_server(model, **kw):
+    from bigdl_tpu_torch.models.serving import ContinuousLMServer
+    return ContinuousLMServer(model, prefix_cache_mb=CONT_PREFIX_MB,
+                              device=CONT_DEVICE, **CONT, **kw)
+
+
+def timed_rounds(server) -> list:
+    """Wraps the server's decode round (``_step``, or ``_spec`` with a draft)
+    to record the wall seconds of each; a round ends with its tokens' one
+    copy to the host."""
+    name = "_spec" if server.draft is not None else "_step"
+    inner, times = getattr(server, name), []
+
+    def timed():
+        t0 = time.perf_counter()
+        out = inner()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(server, name, timed)
+    return times
+
+
+def round_numbers(prompts, seconds, blocks) -> dict:
+    """A round's wall time, its decode rounds' mean wall (a block of
+    ``decode_block`` token steps over all 8 slots, or a speculative round),
+    and its aggregate generated tokens per second."""
+    out = {"requests": len(prompts), "wall_s": seconds,
+           "decode_rounds": len(blocks),
+           "tokens_per_s": len(prompts) * NEW_TOKENS / seconds}
+    if blocks:
+        out["ms_per_round"] = 1e3 * sum(blocks) / len(blocks)
+        out["ms_per_token_step"] = out["ms_per_round"] / CONT["decode_block"]
+    return out
+
+
+def profiled_once(fn):
+    """(fn's result, device busy share of its run): kernel time over wall
+    time, under ``torch.profiler`` once (no repeat: ``fn`` admits requests);
+    None when the profiler recorded nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    return out, (busy / wall if busy > 0 else None)
+
+
+def greedy_gap(model, pairs) -> float:
+    """The largest gap, over every served token of every (prompt, answer),
+    between the token's log-prob and its position's largest one, with
+    ``prompt + answer`` teacher-forced through the model's plain forward."""
+    worst = 0.0
+    with torch.inference_mode():
+        for prompt, answer in pairs:
+            ids = torch.as_tensor([prompt + answer], device=CONT_DEVICE)
+            lp = model(ids)[0, len(prompt) - 1:-1].float()
+            tok = torch.as_tensor(answer, device=CONT_DEVICE)[:, None] - 1
+            gap = lp.max(dim=-1).values - lp.gather(1, tok)[:, 0]
+            worst = max(worst, gap.max().item())
+    return worst
+
+
+def equal_to_generate(model, prompts, answers) -> int:
+    """How many answers equal ``generate`` of their prompt (prompts of one
+    length go in one batch)."""
+    from bigdl_tpu_torch.models.generation import generate
+    want = {}
+    for n in sorted({len(p) for p in prompts}):
+        group = [p for p in prompts if len(p) == n]
+        out = generate(model, group, NEW_TOKENS, greedy=True,
+                       device=CONT_DEVICE)
+        for p, row in zip(group, out[:, n:].tolist()):
+            want[tuple(p)] = row
+    return sum(want[tuple(p)] == a for p, a in zip(prompts, answers))
+
+
+def serve_round(server, prompts, blocks) -> tuple:
+    """One round through ``submit_all``: the answers and its numbers."""
+    n0 = len(blocks)
+    answers, seconds = submit_all(server, prompts, NEW_TOKENS)
+    return answers, round_numbers(prompts, seconds, blocks[n0:])
+
+
+def serve_chunked(model, p: dict) -> dict:
+    """Rounds 1 and 2, the time-to-first-token probes and round 3 (under
+    the profiler) through one chunked server with the prefix cache."""
+    server = continuous_server(model)
+    blocks = timed_rounds(server)
+    res = {}
+    try:
+        pc = server._pipeline.prefix
+        res["answers1"], res["round1"] = serve_round(server, p["round1"],
+                                                     blocks)
+        hits0 = pc.hits
+        res["answers2"], res["round2"] = serve_round(server, p["round2"],
+                                                     blocks)
+        res["round2"]["trie_hits"] = pc.hits - hits0
+        ttft = {"cold": [], "hit_256": []}
+        for cold, hit in p["probes"]:
+            for key, prompt in (("cold", cold), ("hit_256", hit)):
+                t0 = time.perf_counter()
+                server.submit(prompt, 1, timeout=600)
+                ttft[key].append(1e3 * (time.perf_counter() - t0))
+        res["ttft_ms_384"] = ttft
+        (res["answers3"], res["round3"]), busy = profiled_once(
+            lambda: serve_round(server, p["round3"], blocks))
+        res["round3"]["device_busy_share"] = busy
+        res["trie"] = {"hits": pc.hits, "misses": pc.misses,
+                       "evictions": pc.evictions, "entries": len(pc),
+                       "mib": pc.nbytes / 2 ** 20}
+        res["decode_blocks"] = server.decode_blocks
+    finally:
+        server.close()
+    return res
+
+
+def serve_once(model, prompts, **kw) -> dict:
+    """One round through a server of its own (``kw``: bucketed mode, or a
+    draft)."""
+    server = continuous_server(model, **kw)
+    blocks = timed_rounds(server)
+    try:
+        answers, res = serve_round(server, prompts, blocks)
+        res["answers"] = answers
+        res["decode_blocks"] = server.decode_blocks
+        if server.draft is not None:
+            # a round emits 1..SPEC_LEN + 1 tokens per row, not a block's
+            del res["ms_per_token_step"]
+            res["spec_acceptance"] = (server.spec_accepted_tokens
+                                      / server.spec_proposed_tokens)
+    finally:
+        server.close()
+    return res
+
+
+def run_continuous(models: dict, lm_timings: dict) -> dict:
+    """Phase 3d; returns the K1 and K4 launches of its serving runs."""
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    from bigdl_tpu_torch.ops import flash_attention, int8_matmul
+    from bigdl_tpu_torch.utils.util import pow2_bucket
+    t_phase = time.perf_counter()
+    errs = check_continuous_kernels()
+    rng = np.random.default_rng(9)
+    fresh = lambda n: rng.integers(1, VOCAB + 1, int(n)).tolist()
+    ragged = lambda k: [fresh(n) for n in rng.integers(33, LONG_PROMPT, k)]
+    p = {"round1": [fresh(LONG_PROMPT) for _ in range(8)] + ragged(8)}
+    r1 = p["round1"]
+    # four prompts sharing 256 tokens of round-1 prompts (hits at 256),
+    # four sharing 200 (hits at 128), and four round-1 prompts again
+    p["round2"] = ([q[:SHARED_PREFIX] + fresh(rng.integers(1, 128))
+                    for q in r1[:4]]
+                   + [q[:200] + fresh(rng.integers(1, 128)) for q in r1[4:8]]
+                   + [r1[i] for i in (0, 1, 8, 9)])
+    p["probes"] = [(q, q[:SHARED_PREFIX]
+                    + fresh(LONG_PROMPT - SHARED_PREFIX))
+                   for q in (fresh(LONG_PROMPT) for _ in range(3))]
+    p["round3"] = [fresh(LONG_PROMPT) for _ in range(4)] + ragged(4)
+    bucketed, spec = r1[4:12], ragged(8)
+
+    layers = CONFIG["num_layers"]
+    per_forward = 7 * layers + 1    # int8 matmuls of one forward
+    block = CONT["decode_block"]
+    counters = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_MMA,
+                int8_matmul.LAUNCHES, int8_matmul.DEQUANT_CALLS)
+    launches = {"flash_fwd": 0, "flash_fwd_mma": 0, "int8_matmul": 0}
+
+    def driven(fn):
+        """Runs one serving path with every count zeroed just before;
+        returns its result and its (K1, K1 mma, K4, dequantize) counts."""
+        for c in counters:
+            c.reset()
+        out = fn()
+        got = tuple(c.value for c in counters)
+        for key, n in zip(launches, got):
+            launches[key] += n
+        return out, got
+
+    def check_counts(what, got, k1, k1_mma, k4, deq):
+        check(got == (k1, k1_mma, k4, deq),
+              f"{what}: (K1, K1 mma, K4, dequantize) counted {got}, the "
+              f"path's structure gives {(k1, k1_mma, k4, deq)}")
+
+    for name, model in models.items():
+        int8, mma = name == "int8", name != "f32"
+        k4_of = lambda forwards: per_forward * forwards if int8 else 0
+        trie = TrieModel()
+        res, got = driven(lambda: serve_chunked(model, p))
+        # every b=1 forward of every admission, in admission order, and
+        # decode_block steps per round; all of M <= 256 rows
+        fwd, hits = 0, {}
+        for key in ("round1", "round2"):
+            n, hits[key] = trie.forwards(p[key])
+            fwd += n
+        fwd += trie.forwards([q for pair in p["probes"] for q in pair])[0]
+        fwd += trie.forwards(p["round3"])[0]
+        check_counts(f"{name} chunked", got, 0, 0,
+                     k4_of(fwd + res["decode_blocks"] * block), 0)
+        check(res["round2"]["trie_hits"] == hits["round2"] > 0
+              and res["trie"]["evictions"] == 0,
+              f"{name}: round 2 hit the trie {res['round2']['trie_hits']} "
+              f"times, {hits['round2']} expected; trie {res['trie']}")
+        again = dict(zip(map(tuple, p["round2"][8:]), res["answers2"][8:]))
+        check(all(again[tuple(r1[i])] == res["answers1"][i]
+                  for i in (0, 1, 8, 9)),
+              f"{name}: a resubmitted prompt's answer differs from round 1")
+
+        resb, got = driven(lambda: serve_once(model, bucketed,
+                                              prefill_mode="bucketed"))
+        sizes = [pow2_bucket(len(q), 16, CONT["max_len"]) for q in bucketed]
+        small = sum(b <= 256 for b in sizes)
+        # a bucket over 256 rows dequantizes every matmul, the head's too:
+        # in bucketed mode it reads all the bucket's positions
+        check_counts(f"{name} bucketed", got, layers * len(bucketed),
+                     layers * len(bucketed) if mma else 0,
+                     k4_of(small + resb["decode_blocks"] * block),
+                     per_forward * (len(sizes) - small) if int8 else 0)
+        pairs = list(zip(r1 + p["round2"] + p["round3"] + bucketed,
+                         res["answers1"] + res["answers2"] + res["answers3"]
+                         + resb["answers"]))
+
+        ress = None
+        if name != "f32":
+            twin = cast_model if name == "bf16" else quantize_model
+            draft = twin(models["f32"], torch.bfloat16, device=CONT_DEVICE)
+            ress, got = driven(lambda: serve_once(model, spec, draft=draft,
+                                                  spec_len=SPEC_LEN))
+            del draft
+            rounds = ress["decode_blocks"]
+            # the target: admissions (its trie holds rounds 1-3) and one
+            # verification per round; the draft: its own admissions and
+            # SPEC_LEN + 1 steps per round
+            fwd = (trie.forwards(spec)[0] + rounds
+                   + TrieModel().forwards(spec)[0] + rounds * (SPEC_LEN + 1))
+            check_counts(f"{name} speculative", got, 0, 0, k4_of(fwd), 0)
+            check(ress["spec_acceptance"] >= SPEC_ACCEPT_MIN,
+                  f"{name}: speculative acceptance "
+                  f"{ress['spec_acceptance']} < {SPEC_ACCEPT_MIN}")
+            pairs += list(zip(spec, ress["answers"]))
+        torch.cuda.empty_cache()
+
+        for prompt, answer in pairs:
+            check(len(answer) == NEW_TOKENS
+                  and all(1 <= t <= VOCAB for t in answer),
+                  f"{name}: malformed continuation")
+        gap = greedy_gap(model, pairs)
+        exact = equal_to_generate(model, r1, res["answers1"])
+        same_bucketed = sum(a == b for a, b in zip(resb["answers"],
+                                                   res["answers1"][4:12]))
+        row = {"twin": name, "answers_checked": len(pairs),
+               "largest_greedy_gap": gap, "gap_tol": GAP_TOL[name],
+               "round1_equal_generate": exact,
+               "bucketed_equal_chunked": same_bucketed,
+               **{k: res[k] for k in ("round1", "round2", "round3",
+                                      "ttft_ms_384", "trie")},
+               "bucketed": {k: v for k, v in resb.items() if k != "answers"},
+               "lm_server_phase3": {s: {k: lm_timings[name, s][k] for k in (
+                   "prefill_ms", "decode_ms_per_token", "tokens_per_s",
+                   "device_busy_share")}
+                   for s in PROMPT_LENS if (name, s) in lm_timings}}
+        if ress is not None:
+            row["speculative"] = {k: v for k, v in ress.items()
+                                  if k != "answers"}
+        log({"continuous": row})
+        check(gap <= GAP_TOL[name],
+              f"{name}: a served token's log-prob is {gap} below its "
+              f"position's largest (tolerance {GAP_TOL[name]})")
+    log({"continuous_phase_s": time.perf_counter() - t_phase,
+         "kernel_max_abs_err": errs, "launches": launches})
     return launches
 
 
@@ -1763,8 +2156,9 @@ def time_flash(launches: dict) -> dict:
                                       "operations")},
             "library_ms": served["library_ms"], "variant": "mma",
             "work": f"one prefill launch, {served['shape']}; library_ms: "
-                    "scaled_dot_product_attention; launches: serving and "
-                    f"training runs together; train: {train['shape']}",
+                    "scaled_dot_product_attention; launches: the serving "
+                    "runs (phases 3 and 3d) and training together; train: "
+                    f"{train['shape']}",
             "train": train}
 
 
@@ -1847,17 +2241,20 @@ def int8_decode_shapes():
     return layer * CONFIG["num_layers"] + [(VOCAB, e)]
 
 
-def time_int8(launches: int) -> dict:
-    """K4 over one int8 decode token at M=REQUESTS_PER_LEN: the 85 weights
-    at their shapes, random int8 and scales from a seed (so an earlier
-    tree's K4 is timed on the same inputs); the token, each distinct shape
-    (``shapes``, with its bound and library time) and, where the tree has
-    it, an empty kernel launched as often (``empty_launch_ms``: the least
-    time of a launch in the same graph)."""
-    from bigdl_tpu_torch.ops import _build
+def int8_bytes_ops(x, w, s):
+    """The bytes one K4 call must move (x bf16, w int8, the scale and y f32)
+    and its operations."""
+    return (x.numel() * 2 + w.numel() + s.numel() * 4
+            + x.shape[0] * w.shape[0] * 4, 2 * x.shape[0] * w.numel())
+
+
+def int8_chain(m: int):
+    """The 85 K4 calls of one int8 forward at M rows: weights, scales and x
+    from seed 4 (the same weights at every M, and in an earlier tree), each
+    checked against its plain version. Returns the calls, the dequantized
+    bf16 weights (the library's operand) and the largest absolute error."""
     from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
                                                  int8_matmul_plain)
-    m = REQUESTS_PER_LEN
     gen = torch.Generator(device="cuda").manual_seed(4)
     calls = []
     for o, k in int8_decode_shapes():
@@ -1871,9 +2268,61 @@ def time_int8(launches: int) -> dict:
     for x, w, s in calls:
         y, ref = int8_matmul_kernel(x, w, s), int8_matmul_plain(x, w, s)
         e, tol = (y - ref).abs().max().item(), INT8_RTOL * ref.abs().max().item()
-        check(e <= tol, f"int8 at the served shape M={x.shape[0]} "
-                        f"O={w.shape[0]} K={w.shape[1]}: err {e} > {tol}")
+        check(e <= tol, f"int8 at M={x.shape[0]} O={w.shape[0]} "
+                        f"K={w.shape[1]}: err {e} > {tol}")
         err = max(err, e)
+    return calls, deq, err
+
+
+def time_int8_rows(rows=(8, 40, 128)) -> dict:
+    """K4 over one forward's 85 int8 matmuls at phase 3d's row counts (a
+    step at 8 slots, a verification of 8 x (SPEC_LEN + 1) rows, a prefill
+    chunk): its time, its plain version's, the bound, and ``x @ w_bf16.T``
+    on the dequantized weights (cuBLAS) as the library time."""
+    from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
+                                                 int8_matmul_plain)
+    out = {}
+    for m in rows:
+        calls, deq, err = int8_chain(m)
+
+        def kernel():
+            for x, w, sc in calls:
+                int8_matmul_kernel(x, w, sc)
+
+        def plain():
+            for x, w, sc in calls:
+                int8_matmul_plain(x, w, sc)
+
+        def library():
+            for (x, _, _), wd in zip(calls, deq):
+                x @ wd.T
+
+        cost = [int8_bytes_ops(*c) for c in calls]
+        out[f"M={m}"] = {
+            "ms": graph_ms(kernel, f"int8_matmul M={m}", per_graph=5),
+            "plain_ms": graph_ms(plain, f"int8_matmul M={m} plain",
+                                 per_graph=3, replays=3),
+            "library_ms": graph_ms(library, f"int8_matmul M={m} library",
+                                   per_graph=5),
+            **bound(sum(b for b, _ in cost), sum(o for _, o in cost)),
+            "max_abs_err": err}
+        del calls, deq
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_int8(launches: int) -> dict:
+    """K4 over one int8 decode token at M=REQUESTS_PER_LEN: the 85 weights
+    at their shapes, random int8 and scales from a seed (so an earlier
+    tree's K4 is timed on the same inputs); the token, each distinct shape
+    (``shapes``, with its bound and library time) and, where the tree has
+    it, an empty kernel launched as often (``empty_launch_ms``: the least
+    time of a launch in the same graph)."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
+                                                 int8_matmul_plain)
+    m = REQUESTS_PER_LEN
+    calls, deq, err = int8_chain(m)
 
     def kernel():
         for x, w, s in calls:
@@ -1887,10 +2336,6 @@ def time_int8(launches: int) -> dict:
         for (x, _, _), wd in zip(calls, deq):
             x @ wd.T
 
-    def nbytes_ops(x, w, s):
-        return (x.numel() * 2 + w.numel() + s.numel() * 4
-                + x.shape[0] * w.shape[0] * 4, 2 * x.shape[0] * w.numel())
-
     ms = graph_ms(kernel, "int8_matmul")
     plain_ms = graph_ms(plain, "int8_matmul plain", per_graph=3, replays=3)
     library_ms = graph_ms(library, "int8_matmul library")
@@ -1902,8 +2347,8 @@ def time_int8(launches: int) -> dict:
             for _ in calls:
                 lib.bt_int8_empty_launch(torch.cuda.current_stream().cuda_stream)
         extra["empty_launch_ms"] = graph_ms(empty, "empty launches") / len(calls)
-    nbytes = sum(nbytes_ops(*c)[0] for c in calls)
-    ops = sum(nbytes_ops(*c)[1] for c in calls)
+    nbytes = sum(int8_bytes_ops(*c)[0] for c in calls)
+    ops = sum(int8_bytes_ops(*c)[1] for c in calls)
     shapes = {}
     for (x, w, s), wd in zip(calls, deq):
         key = f"{w.shape[0]}x{w.shape[1]}"
@@ -1915,7 +2360,7 @@ def time_int8(launches: int) -> dict:
         lib_one = graph_ms(lambda: x @ wd.T, f"int8_matmul {key} library",
                            per_graph=50)
         shapes[key] = {"count": 1, "ms": one, "library_ms": lib_one,
-                       **bound(*nbytes_ops(x, w, s))}
+                       **bound(*int8_bytes_ops(x, w, s))}
     return {"name": "int8_matmul", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "bigdl_tpu/ops/int8_matmul.py:92",
@@ -2065,7 +2510,8 @@ def main(argv=None) -> int:
     if args.time_kernels_of:
         import bigdl_tpu_torch
         none = collections.defaultdict(int)
-        rows = [time_flash(none), *time_flash_bwd(none), time_int8(0),
+        rows = [time_flash(none), *time_flash_bwd(none),
+                dict(time_int8(0), continuous=time_int8_rows()),
                 *time_conv_bn(none)]
         for row in rows:  # the counts and the variant describe a main path
             for key in ("launches", "launches_mma", "variant"):
@@ -2091,14 +2537,20 @@ def main(argv=None) -> int:
     check_conv_bn()
     check_conv_bn_autograd()
     hbm_errs = check_hbm_roof()
-    launches = run_slice()
+    launches, models, lm_timings = run_slice()
+    cont_launches = run_continuous(models, lm_timings)
+    del models
+    torch.cuda.empty_cache()
     train_launches = run_training()
     resnet_launches = run_resnet()
     roof, roof_launches = run_roofline()
-    kernels = [time_flash({k: launches[k] + train_launches[k]
+    kernels = [time_flash({k: launches[k] + cont_launches[k]
+                           + train_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd(train_launches),
-               time_int8(launches["int8_matmul"]),
+               dict(time_int8(launches["int8_matmul"]
+                              + cont_launches["int8_matmul"]),
+                    continuous=time_int8_rows()),
                *time_conv_bn(resnet_launches),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:

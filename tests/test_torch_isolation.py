@@ -18,6 +18,7 @@ import torch
 from bigdl_tpu_torch.models.generation import generate
 from bigdl_tpu_torch.models import resnet
 from bigdl_tpu_torch.models.lm_server import LMServer
+from bigdl_tpu_torch.models.serving import ContinuousLMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
 from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
 from bigdl_tpu_torch.models.transformer import build_lm
@@ -50,9 +51,9 @@ _BAD_IMPORT = re.compile(
     r"|from\s+bigdl_tpu\b(?!_torch))", re.MULTILINE)
 
 
-def _tiny(device="cpu"):
+def _tiny(device="cpu", **kw):
     return build_lm(50, embed_dim=64, num_heads=2, ffn_dim=64, num_layers=1,
-                    max_len=16, tie_embeddings=True, device=device)
+                    max_len=16, tie_embeddings=True, device=device, **kw)
 
 
 def test_importing_every_module_pulls_in_no_jax_or_reference():
@@ -121,7 +122,8 @@ def test_build_lm_raises_without_card():
                  tie_embeddings=True)
 
 
-@pytest.mark.parametrize("entry", ["generate", "LMServer", "quantize_model",
+@pytest.mark.parametrize("entry", ["generate", "LMServer",
+                                   "ContinuousLMServer", "quantize_model",
                                    "cast_model", "Optimizer", "resnet.build",
                                    "resnet.build_cifar", "roofline_hbm.main"])
 def test_entry_points_raise_without_card(entry):
@@ -130,6 +132,8 @@ def test_entry_points_raise_without_card(entry):
     calls = {
         "generate": lambda: generate(model, np.ones((1, 3)), 2, greedy=True),
         "LMServer": lambda: LMServer(model, greedy=True),
+        "ContinuousLMServer": lambda: ContinuousLMServer(
+            _tiny(rope=True).evaluate_mode(), greedy=True),
         "quantize_model": lambda: quantize_model(model),
         "cast_model": lambda: cast_model(model),
         "Optimizer": lambda: Optimizer(
@@ -149,6 +153,12 @@ def test_entry_points_run_when_cpu_is_asked_for():
     assert out.shape == (1, 5)
     assert quantize_model(model, device="cpu") is not model
     assert cast_model(model, device="cpu") is not model
+    server = ContinuousLMServer(_tiny(rope=True).evaluate_mode(), slots=1,
+                                max_len=8, greedy=True, device="cpu")
+    try:
+        assert len(server.submit([1, 2], 2, timeout=60)) == 2
+    finally:
+        server.close()
     net = resnet.build_cifar(10, 8, device="cpu").evaluate_mode()
     assert net(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
     assert next(resnet.build(10, 18, device="cpu").parameters()).device.type \
