@@ -13,7 +13,13 @@ plain PyTorch version.
 
 Served today: ``models.transformer.build_lm`` ->
 ``nn.quantized.quantize_model`` / ``cast_model`` ->
-``models.generation.generate`` -> ``models.lm_server.LMServer``.
+``models.generation.generate`` (beam search too) and
+``generate_speculative`` -> ``models.lm_server.LMServer`` or
+``models.serving.ContinuousLMServer``, alone or as a fleet behind
+``models.router.LMRouter``, with ``telemetry`` (``GET /metrics``) and the
+serving chaos injectors of ``resilience``; ``python -m
+bigdl_tpu_torch.apps.transformer train|generate|serve`` on the command
+line.
 
 Trained today: ``build_lm`` -> ``optim.Optimizer(model, dataset,
 nn.FusedLMHeadCriterion())`` with ``AdamW``, ``set_precision("bf16")`` and

@@ -1,14 +1,34 @@
-"""Data of the causal-LM app (counterpart of ``bigdl_tpu/apps/transformer.py``;
-only its synthetic corpus is ported, the command line waits for ROADMAP A8).
+"""Causal-LM train, generate and serve mains (counterpart of
+``bigdl_tpu/apps/transformer.py``)::
+
+    python -m bigdl_tpu_torch.apps.transformer train -b 8 --seqLen 256 -e 2
+    python -m bigdl_tpu_torch.apps.transformer generate --prompt 3,5,7 \\
+        --maxNewTokens 32 --numBeams 4 --bf16
+    python -m bigdl_tpu_torch.apps.transformer serve --continuous \\
+        --replicas 2 --int8 --port 8000
+
+Every subcommand takes ``--device`` (default ``cuda``; ``cpu`` on request).
+Without ``--model``, ``generate`` and ``serve`` first train a tiny LM on the
+synthetic grammar, as the reference does. The continuous engine serves
+rope models only, so ``serve --continuous`` trains that default model with
+the ``--llamaBlock`` recipe (RoPE, RMSNorm, SwiGLU and the unfused
+``TimeDistributed(Linear) + LogSoftMax`` tail); the reference's
+non-rope default would be refused by its own engine.
+
+Options whose machinery is not ported yet stop with a message naming the
+ROADMAP item: ``--contextParallel``, ``--tensorParallel``, ``--moeExperts``
+(A.4), ``--textFile`` and ``--tokenizer`` (A.6), ``--fromHF`` (A.2),
+``--model``, ``--state``, ``--checkpoint`` and ``--draft`` (A.5).
 """
 
 from __future__ import annotations
 
+import sys
 from typing import List
 
 import numpy as np
 
-from bigdl_tpu_torch.dataset.base import Sample
+from bigdl_tpu_torch.dataset.base import DataSet, Sample, SampleToBatch
 
 
 def synthetic_corpus(n: int, seq_len: int, vocab: int,
@@ -29,3 +49,334 @@ def synthetic_corpus(n: int, seq_len: int, vocab: int,
         samples.append(Sample(toks[:-1].astype(np.float32),
                               toks[1:].astype(np.float32)))
     return samples
+
+
+def _waits(flag: str, item: str):
+    raise SystemExit(f"{flag} is not ported yet: ROADMAP {item}")
+
+
+def train(argv):
+    """Train a causal LM on the synthetic grammar; returns the model."""
+    from bigdl_tpu_torch.apps.common import (build_optimizer, refuse_waiting,
+                                             train_parser)
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                              FusedLMHeadCriterion,
+                                              TimeDistributedCriterion)
+
+    parser = train_parser("bigdl_tpu_torch.apps.transformer train",
+                          default_batch=8, default_epochs=2, default_lr=3e-3)
+    parser.add_argument("--seqLen", type=int, default=128)
+    parser.add_argument("--vocab", type=int, default=64)
+    parser.add_argument("--embedDim", type=int, default=64)
+    parser.add_argument("--numHeads", type=int, default=4)
+    parser.add_argument("--numLayers", type=int, default=2)
+    parser.add_argument("--contextParallel", default=None,
+                        choices=[None, "ring", "ulysses"],
+                        help="shard the sequence axis over the mesh")
+    parser.add_argument("--moeExperts", type=int, default=0,
+                        help="replace the FFN with a top-2 routed MoE")
+    parser.add_argument("--tensorParallel", type=int, default=1,
+                        help="Megatron TP degree")
+    parser.add_argument("--ringLayout", default="contiguous",
+                        choices=["contiguous", "zigzag"])
+    parser.add_argument("--fusedHead", action="store_true",
+                        help="LMHead + FusedLMHeadCriterion tail: the "
+                        "(B,S,V) logits never materialise")
+    parser.add_argument("--llamaBlock", action="store_true",
+                        help="Llama-family block recipe: RoPE + RMSNorm + "
+                        "SwiGLU, no biases (untied log-prob tail)")
+    parser.add_argument("--textFile", default=None,
+                        help="train on real text (BPE-tokenized)")
+    parser.add_argument("--bpeVocab", type=int, default=512)
+    args = parser.parse_args(argv)
+    refuse_waiting(args)
+    if args.contextParallel:
+        _waits("--contextParallel", "A.4 (distributed plane: context.py)")
+    if args.tensorParallel > 1:
+        _waits("--tensorParallel", "A.4 (distributed plane: "
+               "tensor_parallel.py)")
+    if args.moeExperts:
+        _waits("--moeExperts", "A.4 (distributed plane: expert.py)")
+    if args.textFile:
+        _waits("--textFile", "A.6 (dataset/text.py and the tokenizers)")
+    samples = synthetic_corpus(max(args.synthetic_size, args.batchSize),
+                               args.seqLen, args.vocab)
+    ds = DataSet.array(samples).transform(
+        SampleToBatch(batch_size=args.batchSize))
+    llama = (dict(rope=True, norm="rms", activation="swiglu", bias=False)
+             if args.llamaBlock else {})
+    model = build_lm(args.vocab, args.embedDim, args.numHeads,
+                     ffn_dim=4 * args.embedDim, num_layers=args.numLayers,
+                     max_len=max(1024, args.seqLen),
+                     fused_head=args.fusedHead, device=args.device, seed=0,
+                     **llama)
+    criterion = (FusedLMHeadCriterion() if args.fusedHead
+                 else TimeDistributedCriterion(ClassNLLCriterion()))
+    return build_optimizer(model, ds, criterion, args).optimize()
+
+
+def _default_model(device: str, rope: bool):
+    print("no --model given: training a tiny LM on the synthetic grammar "
+          "first", file=sys.stderr)
+    argv = ["-b", "8", "--seqLen", "32", "--maxEpoch", "1",
+            "--device", device]
+    return train(argv + (["--llamaBlock"] if rope else []))
+
+
+def _twin(model, args):
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    if args.int8:
+        return quantize_model(model, device=args.device)
+    if args.bf16:
+        return cast_model(model, device=args.device)
+    return model.evaluate_mode()
+
+
+def _refuse_sources(args) -> None:
+    if args.fromHF:
+        _waits("--fromHF", "A.2 (interop/hf.py)")
+    if args.model:
+        _waits("--model", "A.5 (utils/file_io.py)")
+    if args.tokenizer:
+        _waits("--tokenizer", "A.6 (the tokenizers)")
+
+
+def generate_cmd(argv) -> None:
+    """Sample from a fresh synthetic-grammar LM."""
+    import argparse
+
+    import torch
+
+    from bigdl_tpu_torch.models.generation import generate
+
+    ap = argparse.ArgumentParser(
+        prog="bigdl_tpu_torch.apps.transformer generate")
+    ap.add_argument("--model", default=None, help="saved model path")
+    ap.add_argument("--fromHF", default=None, metavar="DIR",
+                    help="a HuggingFace checkpoint directory")
+    ap.add_argument("--prompt", default="1,2,3",
+                    help="comma-separated 1-based token ids")
+    ap.add_argument("--maxNewTokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--topK", type=int, default=0)
+    ap.add_argument("--topP", type=float, default=0.0)
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--numBeams", type=int, default=0)
+    ap.add_argument("--lengthPenalty", type=float, default=1.0)
+    ap.add_argument("--eosId", type=int, default=None)
+    ap.add_argument("--repetitionPenalty", type=float, default=1.0)
+    ap.add_argument("--minNewTokens", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8", action="store_true",
+                    help="decode with the int8 weight-only quantized twin")
+    ap.add_argument("--bf16", action="store_true",
+                    help="decode with the bf16 cast twin")
+    ap.add_argument("--tokenizer", default=None, help="BPE tokenizer path")
+    ap.add_argument("--device", default="cuda",
+                    help="where to run: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.int8 and args.bf16:
+        raise SystemExit("pick one of --int8 / --bf16")
+    _refuse_sources(args)
+    ids = [int(t) for t in args.prompt.split(",") if t.strip()]
+    if not ids:
+        raise SystemExit("empty prompt: pass at least one comma-separated "
+                         "1-based token id")
+    model = _twin(_default_model(args.device, rope=False), args)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    out = generate(model, [ids], args.maxNewTokens,
+                   temperature=args.temperature, top_k=args.topK,
+                   top_p=args.topP, greedy=args.greedy,
+                   num_beams=args.numBeams,
+                   length_penalty=args.lengthPenalty, eos_id=args.eosId,
+                   repetition_penalty=args.repetitionPenalty,
+                   min_new_tokens=args.minNewTokens, generator=gen,
+                   device=args.device)
+    row = out[0].tolist()               # one host transfer
+    print("prompt:      ", row[:len(ids)])
+    print("continuation:", row[len(ids):])
+
+
+def serve_cmd(argv) -> None:
+    """HTTP serving: ``LMServer``, or with ``--continuous`` the continuous
+    engine, alone or as a fleet behind ``LMRouter`` (``--replicas N``,
+    ``--disaggregate P:D``), with the ``BIGDL_CHAOS`` injectors, the
+    SIGTERM drain and ``GET /metrics``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="bigdl_tpu_torch.apps.transformer serve")
+    ap.add_argument("--model", default=None, help="saved model path")
+    ap.add_argument("--fromHF", default=None, metavar="DIR",
+                    help="a HuggingFace checkpoint directory")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--maxBatch", type=int, default=8,
+                    help="micro-batch cap (requests gathered per dispatch)")
+    ap.add_argument("--batchTimeoutMs", type=float, default=20.0,
+                    help="how long a dispatch waits for same-length company")
+    ap.add_argument("--maxNewTokens", type=int, default=64,
+                    help="decode budget per request")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--topK", type=int, default=0)
+    ap.add_argument("--topP", type=float, default=0.0)
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--eosId", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the int8 weight-only quantized twin")
+    ap.add_argument("--bf16", action="store_true",
+                    help="serve the bf16 cast twin")
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-scheduled continuous batching (rope models)")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="--continuous: concurrent generation slots")
+    ap.add_argument("--maxLen", type=int, default=256,
+                    help="--continuous: per-slot KV cache length")
+    ap.add_argument("--decodeBlock", type=int, default=8,
+                    help="--continuous: tokens decoded per round")
+    ap.add_argument("--prefillMode", default=None,
+                    choices=("chunked", "bucketed"),
+                    help="--continuous: prefill strategy (default chunked, "
+                    "or BIGDL_PREFILL_MODE)")
+    ap.add_argument("--prefillChunk", type=int, default=None,
+                    help="--continuous: chunked-prefill width (default 128, "
+                    "or BIGDL_PREFILL_CHUNK)")
+    ap.add_argument("--draft", default=None, metavar="PATH",
+                    help="--continuous: saved draft model path")
+    ap.add_argument("--specLen", type=int, default=None,
+                    help="--continuous --draft: draft tokens per round")
+    ap.add_argument("--prefixCache", default=None, choices=("on", "off"),
+                    help="--continuous: cross-request KV prefix cache")
+    ap.add_argument("--prefixCacheMB", type=float, default=None,
+                    help="--continuous: prefix-cache budget in MiB")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="--continuous: in-process replicas behind the "
+                    "fleet router")
+    ap.add_argument("--disaggregate", default=None, metavar="P:D",
+                    help="--continuous: prefill:decode replica split (e.g. "
+                    "1:2); overrides --replicas")
+    ap.add_argument("--tokenizer", default=None, help="BPE tokenizer path")
+    ap.add_argument("--device", default="cuda",
+                    help="where to serve: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.int8 and args.bf16:
+        raise SystemExit("pick one of --int8 / --bf16")
+    _refuse_sources(args)
+    if args.draft:
+        _waits("--draft", "A.5 (utils/file_io.py)")
+    if not args.continuous:
+        if args.specLen or args.prefixCache:
+            raise SystemExit("--draft/--specLen/--prefixCache require "
+                             "--continuous")
+        if args.replicas != 1 or args.disaggregate:
+            raise SystemExit("--replicas/--disaggregate require --continuous")
+
+    from bigdl_tpu_torch.models.lm_server import LMServer, make_http_server
+    from bigdl_tpu_torch.resilience.serving_drill import parse_split
+
+    split = parse_split(args.disaggregate) if args.continuous else None
+    model = _twin(_default_model(args.device, rope=args.continuous), args)
+    if args.continuous:
+        server = _continuous_fleet(model, args, split)
+    else:
+        server = LMServer(model, max_batch=args.maxBatch,
+                          batch_timeout_ms=args.batchTimeoutMs,
+                          max_new_tokens=args.maxNewTokens,
+                          temperature=args.temperature, top_k=args.topK,
+                          top_p=args.topP, greedy=args.greedy,
+                          eos_id=args.eosId, seed=args.seed,
+                          device=args.device)
+    httpd = make_http_server(server, args.host, args.port)
+
+    # graceful drain: SIGTERM flips the PreemptionHandler flag; the watcher
+    # drains the server or fleet (in-flight requests leave as handoff
+    # cursors, /health turns 503 draining) and stops the HTTP loop
+    import threading
+    import time
+
+    from bigdl_tpu_torch.resilience.preemption import PreemptionHandler
+    preempt = PreemptionHandler().install()
+
+    def watch_preemption():
+        while not preempt.should_snapshot():
+            time.sleep(0.1)
+        reason = preempt.reason or "preemption notice"
+        print(f"draining: {reason}", file=sys.stderr, flush=True)
+        drain = getattr(server, "drain", None)
+        if drain is not None:
+            drain(reason)
+        httpd.shutdown()
+
+    threading.Thread(target=watch_preemption, daemon=True,
+                     name="bigdl-serve-preempt").start()
+    print(f"serving on http://{args.host}:{httpd.server_address[1]} "
+          f"(POST /generate, GET /health, GET /metrics)", file=sys.stderr,
+          flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        preempt.uninstall()
+
+
+def _continuous_fleet(model, args, split):
+    """One ``ContinuousLMServer``, or N of them behind ``LMRouter``. Each
+    replica holds its own decode state, so each gets its own deep copy of
+    the model (bit-equal weights: the handoff contract)."""
+    import copy
+
+    from bigdl_tpu_torch.models.serving import ContinuousLMServer
+    from bigdl_tpu_torch.resilience.chaos import from_env as chaos_from_env
+
+    n_decode = split[1] if split else max(1, args.replicas)
+    n_prefill = split[0] if split else 0
+    chaos = chaos_from_env()
+
+    def mk_server(mdl, slots, chaos_inj):
+        return ContinuousLMServer(
+            mdl, slots=slots, max_len=args.maxLen,
+            decode_block=args.decodeBlock, max_new_tokens=args.maxNewTokens,
+            temperature=args.temperature, top_k=args.topK, top_p=args.topP,
+            greedy=args.greedy, eos_id=args.eosId, seed=args.seed,
+            prefill_mode=args.prefillMode, prefill_chunk=args.prefillChunk,
+            spec_len=args.specLen,
+            prefix_cache=(None if args.prefixCache is None
+                          else args.prefixCache == "on"),
+            prefix_cache_mb=args.prefixCacheMB, chaos=chaos_inj,
+            device=args.device)
+
+    if n_decode + n_prefill == 1:
+        return mk_server(model, args.slots, chaos)
+    from bigdl_tpu_torch.models.router import LMRouter
+    models = [model] + [copy.deepcopy(model)
+                        for _ in range(n_decode + n_prefill - 1)]
+    decode = [mk_server(models[i], args.slots, chaos if i == 0 else None)
+              for i in range(n_decode)]
+    prefill = [mk_server(models[n_decode + i], 1, None)
+               for i in range(n_prefill)]
+    print(f"fleet: {n_decode} decode"
+          + (f" + {n_prefill} prefill" if n_prefill else "")
+          + " replicas behind the router", file=sys.stderr, flush=True)
+    return LMRouter(decode, prefill_replicas=prefill, chaos=chaos)
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] not in ("train", "generate", "serve"):
+        raise SystemExit("usage: python -m bigdl_tpu_torch.apps.transformer "
+                         "{train|generate|serve} ...")
+    if argv[0] == "generate":
+        generate_cmd(argv[1:])
+    elif argv[0] == "serve":
+        serve_cmd(argv[1:])
+    else:
+        train(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

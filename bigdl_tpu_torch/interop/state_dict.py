@@ -18,7 +18,10 @@ reads row k-1 of ``embedding.weight`` on both sides.
     encoder.layers.{i}.linear1 / linear_gate / linear2 .{weight,bias}
     encoder.layers.{i}.norm1 / norm2 .{weight[,bias]} bias for LayerNorm only
     encoder.norm.{weight[,bias]}                     final norm
-    lm_head.{weight,bias}                            absent when tied
+    lm_head.{weight,bias}                            absent when tied; the
+                                                     fused LMHead and the
+                                                     unfused tail's Linear
+                                                     share these keys
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.attention import TransformerEncoder
-from bigdl_tpu_torch.nn.linear import LMHead, LookupTable, TiedLMHead
+from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
+from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 
 
 def _lm_parts(model: torch.nn.Module):
@@ -38,6 +42,12 @@ def _lm_parts(model: torch.nn.Module):
     encoders = [m for m in model.modules()
                 if isinstance(m, TransformerEncoder)]
     heads = [m for m in model.modules() if isinstance(m, (LMHead, TiedLMHead))]
+    if not heads:
+        # the unfused tail: TimeDistributed(Linear) + LogSoftMax, whose
+        # Linear carries the same lm_head.* keys
+        heads = [td.inner for td in model.modules()
+                 if isinstance(td, TimeDistributed)
+                 and isinstance(td.inner, Linear)]
     if not (len(lookups) == 1 and len(encoders) == 1 and len(heads) == 1):
         raise ValueError(
             "expected a build_lm-shaped model (one LookupTable, one "

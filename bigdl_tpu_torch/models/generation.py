@@ -7,12 +7,16 @@ forward over the prompt fills the KV caches (module state of every
 ``MultiHeadAttention``), then one single-token forward per new token.
 
 Ported: ``filter_top_k``, ``filter_top_p``, ``sample_token`` (greedy, and
-the fused top-k / Gumbel-max path), and ``generate`` with greedy,
-temperature, top-k and top-p sampling, ``eos_id`` / ``pad_id``,
-``repetition_penalty`` and ``min_new_tokens``. Beam search and the rolling
-cache (ROADMAP A3) and ``mesh`` decoding (ROADMAP A6) raise
-``NotImplementedError``; ``generate_speculative`` is a later slice
-(ROADMAP A.1).
+the fused top-k / Gumbel-max path), ``generate`` with greedy, temperature,
+top-k and top-p sampling, ``eos_id`` / ``pad_id``, ``repetition_penalty``,
+``min_new_tokens`` and beam search (``num_beams``, ``length_penalty``), and
+``generate_speculative`` (B=1, greedy or rejection-sampled). The rolling
+cache (ROADMAP A.1.4, after ``build_lm(window=)``) and ``mesh`` decoding
+(ROADMAP A.4) raise ``NotImplementedError``.
+
+Beam search keeps the reference's tie order: among equal scores the lower
+(beam, token) index wins, as in ``jax.lax.top_k`` (a stable descending
+sort here; ``torch.topk`` promises no order among ties).
 
 The serving engine's prefill machinery (``models/serving.py``) is here as
 plain functions over module state: the per-request state partition
@@ -31,6 +35,7 @@ than the reference's ``jax.random`` keys.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import threading
 import weakref
@@ -40,8 +45,9 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention, PositionalEncoding
-from bigdl_tpu_torch.nn.linear import LMHead, TiedLMHead
+from bigdl_tpu_torch.nn.linear import LMHead, Linear, TiedLMHead
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 from bigdl_tpu_torch.utils.device import DeviceLike, check_module_device
 
 # one lock per model: generate() toggles decode state on the model, so two
@@ -118,6 +124,18 @@ def _decode_modules(model: Module):
     mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
     pes = [m for m in model.modules() if isinstance(m, PositionalEncoding)]
     heads = [m for m in model.modules() if isinstance(m, (LMHead, TiedLMHead))]
+    # a TimeDistributed is last-position-sliced only when it is plausibly
+    # the vocab head (an inner Linear, exactly one instance): slicing one in
+    # the middle of a network would corrupt generations
+    tds = [m for m in model.modules() if isinstance(m, TimeDistributed)]
+    if tds:
+        if len(tds) > 1:
+            raise ValueError(
+                f"model has {len(tds)} TimeDistributed modules; generate() "
+                "can only last-position-slice a single LM-head tail "
+                "(TimeDistributed(Linear) as the vocab projection)")
+        if isinstance(tds[0].inner, Linear):
+            heads.append(tds[0])
     if not mhas:
         raise ValueError("generate() needs a model with MultiHeadAttention "
                          "layers (see models.transformer.build_lm)")
@@ -129,7 +147,8 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
              greedy: bool = False, eos_id: Optional[int] = None,
              pad_id: Optional[int] = None,
              repetition_penalty: float = 1.0, min_new_tokens: int = 0,
-             num_beams: int = 0, mesh=None, rolling_cache: bool = False,
+             num_beams: int = 0, length_penalty: float = 1.0, mesh=None,
+             rolling_cache: bool = False,
              generator: Optional[torch.Generator] = None,
              device: DeviceLike = "cuda") -> torch.Tensor:
     """Generate ``max_new_tokens`` continuations of ``prompt``.
@@ -138,15 +157,25 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
     prompt + continuation, (B, S + max_new_tokens), on ``device``, which
     must be the model's. A row that emits ``eos_id`` is frozen: its later
     positions hold ``pad_id`` (default ``eos_id``). Sampling draws from
-    ``generator`` (default: a generator seeded with 0 on ``device``)."""
-    if num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet (ROADMAP A3)")
+    ``generator`` (default: a generator seeded with 0 on ``device``).
+
+    ``num_beams > 1`` is deterministic beam search (``_beam_search``): the
+    best beam per row under the GNMT length penalty
+    ``score / len ** length_penalty``; it does not compose with the
+    stochastic filters, ``repetition_penalty`` or ``min_new_tokens``."""
     if rolling_cache:
         raise NotImplementedError("the rolling KV cache is not ported yet "
-                                  "(ROADMAP A3)")
+                                  "(ROADMAP A.1.4, after build_lm(window=), "
+                                  "A.2)")
     if mesh is not None:
         raise NotImplementedError("mesh decoding is not ported yet "
-                                  "(ROADMAP A6)")
+                                  "(ROADMAP A.4)")
+    if num_beams > 1 and (top_k or top_p):
+        raise ValueError("beam search is deterministic; top_k/top_p do not "
+                         "compose with num_beams")
+    if num_beams > 1 and (repetition_penalty != 1.0 or min_new_tokens):
+        raise ValueError("repetition_penalty/min_new_tokens apply to the "
+                         "sampling path, not beam search")
     if repetition_penalty <= 0:
         raise ValueError("repetition_penalty must be > 0")
     if any(m._continuous for m in _decode_modules(model)[0]):
@@ -172,7 +201,7 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
                 f"max_new_tokens {total}; rebuild with a larger max_len")
     if pad_id is None:
         pad_id = eos_id if eos_id is not None else 1
-    if generator is None and not greedy:
+    if generator is None and not greedy and num_beams <= 1:
         generator = torch.Generator(device=dev).manual_seed(0)
 
     with _model_lock(model), torch.inference_mode():
@@ -183,11 +212,16 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
                 m.enable_decode(b, total)
             for m in pes + heads:
                 m.enable_decode()
-            toks = _decode(model, prompt, max_new_tokens, generator,
-                           dict(temperature=temperature, top_k=top_k,
-                                top_p=top_p, greedy=greedy),
-                           eos_id, pad_id, float(repetition_penalty),
-                           int(min_new_tokens))
+            if num_beams > 1:
+                toks = _beam_search(model, mhas, prompt, max_new_tokens,
+                                    int(num_beams), float(length_penalty),
+                                    eos_id, pad_id)
+            else:
+                toks = _decode(model, prompt, max_new_tokens, generator,
+                               dict(temperature=temperature, top_k=top_k,
+                                    top_p=top_p, greedy=greedy),
+                               eos_id, pad_id, float(repetition_penalty),
+                               int(min_new_tokens))
         finally:
             for m in mhas + pes + heads:
                 m.disable_decode()
@@ -233,6 +267,265 @@ def _decode(model, prompt, max_new_tokens, generator, sampling, eos_id,
         tok = nxt
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+def _top_n(x: torch.Tensor, n: int):
+    """``jax.lax.top_k`` over the last axis: the n largest values, sorted
+    descending, the lower index first among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :n], idx[..., :n]
+
+
+def _reorder_caches(mhas, index: torch.Tensor) -> None:
+    """Every KV cache row i becomes row ``index[i]``: a gather into fresh
+    tensors (never an in-place copy of a cache from itself). Only the
+    buffers are swapped, so ``decode_pos`` and ``_decode_prefilled``
+    stay."""
+    for m in mhas:
+        for name in ("k_cache", "v_cache"):
+            m._buffers[name] = torch.index_select(m._buffers[name], 0, index)
+
+
+def _beam_search(model, mhas, prompt, max_new_tokens: int, num_beams: int,
+                 length_penalty: float, eos_id, pad_id: int) -> torch.Tensor:
+    """Batched beam search over the KV caches (reference
+    ``_build_beam_fn``); returns the best beam's (B, max_new) ids.
+
+    One prefill at batch B, then every cache is tiled to B x num_beams
+    (batch-major: the beams of item i are contiguous). Each step scores all
+    (beam, token) continuations, keeps the top ``num_beams`` per item and
+    reorders every cache by each survivor's parent beam. A finished beam
+    (it emitted ``eos_id``) is frozen: its only continuation is ``pad_id``
+    at unchanged score. Filler beams (width above the vocabulary) start at
+    -inf, frozen."""
+    n = num_beams
+    b = prompt.shape[0]
+    dev = prompt.device
+    logp0 = model(prompt)[:, -1].float()                   # (B, V)
+    v = logp0.shape[-1]
+    if eos_id is not None and not 1 <= pad_id <= v:
+        raise ValueError(
+            f"pad_id {pad_id} outside the vocab 1..{v}: frozen beams "
+            "continue with pad_id, so it must be a real token id")
+    k0 = min(n, v)
+    scores, idx = _top_n(logp0, k0)                        # (B, k0)
+    if k0 < n:
+        scores = torch.cat([scores, torch.full((b, n - k0), float("-inf"),
+                                               device=dev)], dim=1)
+        idx = torch.cat([idx, torch.full((b, n - k0), pad_id - 1,
+                                         dtype=idx.dtype, device=dev)], dim=1)
+    tok = idx + 1
+    done = (tok == eos_id) if eos_id is not None else torch.zeros_like(
+        tok, dtype=torch.bool)
+    if k0 < n:
+        done = done | (torch.arange(n, device=dev)[None, :] >= k0)
+    lengths = torch.ones((b, n), device=dev)
+    _reorder_caches(mhas, torch.arange(b, device=dev).repeat_interleave(n))
+    seqs = torch.zeros((b, n, max_new_tokens), dtype=torch.int64, device=dev)
+    seqs[:, :, 0] = tok
+    frozen = torch.full((v,), float("-inf"), device=dev)
+    if eos_id is not None:
+        frozen[pad_id - 1] = 0.0
+    base = (torch.arange(b, device=dev) * n)[:, None]
+    for t in range(1, max_new_tokens):
+        out = model(tok.reshape(b * n, 1).to(prompt.dtype))
+        logp = out[:, -1].float().reshape(b, n, v)
+        if eos_id is not None:
+            logp = torch.where(done[..., None], frozen, logp)
+        total = scores[..., None] + logp                   # (B, n, V)
+        scores, flat = _top_n(total.reshape(b, n * v), n)
+        parent = flat // v                                 # (B, n)
+        tok = flat % v + 1
+        done = done.gather(1, parent)
+        lengths = lengths.gather(1, parent) + (~done).float()
+        seqs = seqs.gather(1, parent[..., None].expand(-1, -1,
+                                                       max_new_tokens))
+        seqs[:, :, t] = torch.where(done, torch.full_like(tok, pad_id), tok)
+        if eos_id is not None:
+            done = done | (tok == eos_id)
+        _reorder_caches(mhas, (base + parent).reshape(-1))
+    norm = scores / torch.pow(lengths.clamp(min=1.0), length_penalty)
+    best = torch.argmax(norm, dim=1)                       # (B,)
+    return seqs[torch.arange(b, device=dev), best]
+
+
+def _retemp(lp: torch.Tensor, temperature: float) -> torch.Tensor:
+    """Temperature-rescaled log-probs: dividing log-probs by T differs from
+    logits / T by a constant, which the renormalisation removes."""
+    if temperature == 1.0:
+        return lp
+    return torch.log_softmax(lp / temperature, dim=-1)
+
+
+def _draw(lp: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One categorical draw per row of (R, V) log-probs: (R,) 1-based ids."""
+    return torch.multinomial(torch.exp(lp.float()), 1,
+                             generator=generator)[:, 0] + 1
+
+
+def generate_speculative(target: Module, draft: Module, prompt,
+                         max_new_tokens: int, *, spec_len: int = 4,
+                         eos_id: Optional[int] = None,
+                         pad_id: Optional[int] = None,
+                         generator: Optional[torch.Generator] = None,
+                         temperature: float = 1.0,
+                         device: DeviceLike = "cuda") -> torch.Tensor:
+    """Speculative decoding (reference ``generate_speculative``): the DRAFT
+    proposes ``spec_len`` tokens a round, the TARGET verifies them in one
+    warm-cache chunk of ``spec_len + 1``, and the accepted prefix is
+    emitted plus one target-sourced token.
+
+    - ``generator=None``: GREEDY. The longest run of proposals matching the
+      target's argmax is accepted, plus the target's own next token (the
+      bonus): the output is the target's greedy generation.
+    - a ``torch.Generator``: SAMPLED (rejection-sampling speculative
+      decoding). Proposals are drawn from the draft distribution q;
+      proposal i is accepted with probability ``min(1, p_i(x)/q_i(x))``;
+      the first rejection resamples from the residual ``max(p - q, 0)``
+      renormalised (p itself when the residual sums to zero), and full
+      acceptance draws the bonus from ``p_{k+1}``. The emitted tokens are
+      distributed as sampling from the target alone. ``temperature``
+      rescales both distributions.
+
+    Each round the draft runs ``spec_len + 1`` single-token steps (the last
+    one writes the last proposal into its cache), the host reads the
+    accepted length once, and both caches rewind by a ``decode_pos`` reset.
+    The caches hold ``prompt + max_new + spec_len + 2`` positions. B=1
+    only; ``draft`` must be a separate module instance (a module holds one
+    decode state); both models' locks are taken in ``id`` order.
+
+    Returns (1, S + max_new_tokens) ids on ``device``; positions after an
+    ``eos_id`` hold ``pad_id`` (default ``eos_id``)."""
+    dev = check_module_device(target, device)
+    check_module_device(draft, device)
+    if draft is target:
+        raise ValueError("draft must be a separate module instance (one "
+                         "module cannot hold two decode states at once)")
+    prompt = torch.as_tensor(prompt, device=dev)
+    if prompt.dim() == 1:
+        prompt = prompt[None]
+    b, s0 = prompt.shape
+    if b != 1:
+        raise ValueError("speculative decoding is B=1 (per-row acceptance "
+                         "lengths need per-row cache positions)")
+    if spec_len < 1:
+        raise ValueError("spec_len must be >= 1")
+    if temperature <= 0:
+        raise ValueError("temperature must be > 0")
+    sampled = generator is not None
+    k = int(spec_len)
+    cap = s0 + max_new_tokens + k + 2   # slack for the over-appended chunk
+    if pad_id is None:
+        pad_id = eos_id if eos_id is not None else 1
+    mods = {id(target): _decode_modules(target),
+            id(draft): _decode_modules(draft)}
+    for mhas, pes, _ in mods.values():
+        if any(m._continuous for m in mhas):
+            raise ValueError("a model is being served by a "
+                             "ContinuousLMServer (its caches hold the "
+                             "slots); close the server or use another "
+                             "instance")
+        for pe in pes:
+            if pe.pos_table().shape[0] < cap:
+                raise ValueError(
+                    f"model max_len {pe.pos_table().shape[0]} < prompt + "
+                    f"max_new + spec_len slack {cap}; rebuild with a "
+                    "larger max_len")
+    models = sorted((target, draft), key=id)
+    with contextlib.ExitStack() as stack:
+        for m in models:
+            stack.enter_context(_model_lock(m))
+        stack.enter_context(torch.inference_mode())
+        modes = [m.training for m in models]
+        try:
+            for model in models:
+                mhas, pes, heads = mods[id(model)]
+                model.evaluate_mode()
+                for m in mhas:
+                    m.enable_decode(1, cap)
+                for m in pes + heads:
+                    m.enable_decode()
+            out = _speculate(target, draft, mods[id(target)][2], prompt,
+                             max_new_tokens, k, eos_id, sampled, generator,
+                             float(temperature))
+        finally:
+            for model, mode in zip(models, modes):
+                mhas, pes, heads = mods[id(model)]
+                for m in heads:
+                    m._decode_all = False
+                for m in mhas + pes + heads:
+                    m.disable_decode()
+                model.train(mode)
+    toks = (out + [pad_id] * max_new_tokens)[:max_new_tokens]
+    cont = torch.as_tensor([toks], dtype=prompt.dtype, device=dev)
+    return torch.cat([prompt, cont], dim=1)
+
+
+def _speculate(target, draft, t_heads, prompt, max_new_tokens, k, eos_id,
+               sampled, generator, temperature) -> List[int]:
+    """The rounds of ``generate_speculative`` over prepared decode states;
+    returns the emitted ids (eos kept, at least max_new_tokens unless an
+    eos ended the run)."""
+    s0 = prompt.shape[1]
+    lp = _retemp(target(prompt)[:, -1].float(), temperature)
+    cur = (_draw(lp, generator) if sampled
+           else torch.argmax(lp, dim=-1) + 1)                # (1,)
+    draft(prompt)
+    for h in t_heads:
+        h._decode_all = True      # verification reads every chunk position
+    first = int(cur[0])
+    out = [first]
+    if eos_id is not None and first == eos_id:
+        return out
+    pos = s0
+    while len(out) < max_new_tokens:
+        tok, props, qs = cur, [], []
+        for _ in range(k + 1):
+            q = _retemp(draft(tok[:, None].to(prompt.dtype))[:, -1].float(),
+                        temperature)
+            tok = (_draw(q, generator) if sampled
+                   else torch.argmax(q, dim=-1) + 1)
+            props.append(tok)
+            qs.append(q[0])
+        d_props = torch.cat(props[:k])                       # (k,)
+        chunk = torch.cat([cur, d_props])[None].to(prompt.dtype)
+        t_lp = _retemp(target(chunk)[0].float(), temperature)  # (k+1, V)
+        if sampled:
+            q_all = torch.stack(qs)                          # (k+1, V)
+            rows = torch.arange(k, device=d_props.device)
+            p_tok = t_lp[rows, d_props - 1]
+            q_tok = q_all[rows, d_props - 1]
+            u = torch.rand(k, generator=generator, device=d_props.device)
+            accept = torch.log(u) < (p_tok - q_tok)
+            n_acc = accept.to(torch.int64).cumprod(0).sum()
+            t_row = torch.exp(t_lp[n_acc])
+            q_row = torch.exp(q_all[n_acc.clamp(max=k - 1)]) * (n_acc < k)
+            res = torch.clamp(t_row - q_row, min=0.0)
+            tot = res.sum()
+            # p == q after rounding leaves an empty residual: the
+            # conditional is then p itself
+            probs = torch.where(tot > 0, res / tot.clamp(min=1e-38), t_row)
+            bonus = torch.multinomial(probs, 1, generator=generator) + 1
+        else:
+            g = torch.argmax(t_lp, dim=-1) + 1               # (k+1,)
+            n_acc = (d_props == g[:k]).to(torch.int64).cumprod(0).sum()
+            bonus = g[n_acc][None]
+        # the one host read of a round: the accepted length, the proposals
+        # and the bonus
+        host = torch.cat([n_acc[None], d_props, bonus]).tolist()
+        n = host[0]
+        emit = host[1:1 + n] + [host[-1]]
+        if eos_id is not None and eos_id in emit:
+            out += emit[:emit.index(eos_id) + 1]
+            return out
+        out += emit
+        # both caches rewind to the accepted boundary: the rejected writes
+        # lie past decode_pos and are written over by later rounds
+        pos += n + 1
+        _set_decode_pos(target, pos)
+        _set_decode_pos(draft, pos)
+        cur = bonus.reshape(1)
+    return out
 
 
 # ---------------------------------------------------------------------------

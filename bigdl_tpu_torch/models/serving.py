@@ -32,7 +32,19 @@ never read. On top of the engine:
   forward. Per-row first-mismatch acceptance emits 1..spec_len+1 tokens,
   and both caches roll back per row (``_shift_decode_pos``);
 - ``drain()`` with ``HandoffCursor``s, and prefill/decode handoff
-  (``prefill_handoff`` into ``submit(state=...)``).
+  (``prefill_handoff`` into ``submit(state=...)``), which ``LMRouter``
+  (``models/router.py``) drives across a fleet;
+- telemetry (``registry=``, default the process-global one): the
+  reference's ``bigdl_serving_*``, prefix-cache, speculative and
+  device-memory instruments at the reference's sites, and its spans and
+  per-request async trace events (``telemetry/tracing.py``). The
+  ``serving.prefill`` and ``serving.insert`` spans measure the host's
+  enqueue of asynchronous CUDA work; ``serving.decode_block`` closes after
+  the block's one copy to the host, so it includes the device time;
+- the serving chaos injectors (``chaos=``, ``resilience/chaos.py``): each
+  one with an ``on_decode_block(server)`` hook is called at the start of
+  every decode round inside the worker's ``try``, so a raising injector
+  takes the real die path.
 
 The reference threads its caches through jitted programs as values; here
 they are module state, so every forward, state swap and slot insert holds
@@ -41,16 +53,18 @@ a router thread's ``prefill_handoff`` never interleave. The worker thread
 enters ``torch.inference_mode`` and the model's CUDA device itself.
 
 Restrictions: rope models only (an additive positional encoding tracks one
-shared position), no beam search. Telemetry (``registry=``) and the chaos
-injectors (``chaos=``) wait for later slices.
+shared position), no beam search. ``bigdl_serving_recompiles_total`` stays
+0: eager PyTorch builds no program per signature.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -65,6 +79,8 @@ from bigdl_tpu_torch.models.generation import (
 from bigdl_tpu_torch.models.lm_server import drain_queue, fail_requests
 from bigdl_tpu_torch.models.prefix_cache import (DEFAULT_PREFIX_CACHE_MB,
                                                  prefix_cache_for)
+from bigdl_tpu_torch.telemetry import get_registry, instruments, span, tracing
+from bigdl_tpu_torch.telemetry.profiling import sample_device_memory
 from bigdl_tpu_torch.utils.device import (DeviceLike, check_module_device,
                                           module_device)
 from bigdl_tpu_torch.utils.util import pow2_bucket
@@ -72,6 +88,11 @@ from bigdl_tpu_torch.utils.util import pow2_bucket
 # Smallest prefill bucket (prefill_mode="bucketed"): shorter prompts share
 # it. The top bucket saturates at max_len.
 _PREFILL_BUCKET_LO = 16
+
+# One id per submitted request, process-wide: the Chrome-trace async
+# lifecycle key (serving.request) and the rid arg on every phase span.
+# itertools.count is atomic under the GIL; submit() runs on client threads.
+_REQUEST_IDS = itertools.count(1)
 
 
 @dataclass
@@ -114,6 +135,8 @@ class _Request:
     state_blob: Optional[bytes] = None  # shipped prefill partition
     handoff: Optional[HandoffCursor] = None
     fail_kind: Optional[str] = None     # "draining" | "dead" | None
+    rid: int = 0                        # trace-lifecycle id
+    t_submit: float = 0.0               # perf_counter at submit
 
 
 class _Slot:
@@ -291,13 +314,6 @@ class ContinuousLMServer:
                  prefix_cache: Optional[bool] = None,
                  prefix_cache_mb: Optional[float] = None,
                  chaos=None, device: DeviceLike = "cuda"):
-        if registry is not None:
-            raise NotImplementedError("serving telemetry (registry=) is not "
-                                      "ported yet (ROADMAP A.5)")
-        if chaos is not None:
-            raise NotImplementedError("the serving chaos injectors (chaos=) "
-                                      "are not ported yet (ROADMAP A.1, with "
-                                      "the router)")
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.device = check_module_device(model, device)
@@ -343,6 +359,11 @@ class ContinuousLMServer:
         prefix_bytes = (int(mb * (1 << 20))
                         if (prefix_cache and mode == "chunked") else 0)
         self.prefix_cache_enabled = prefix_bytes > 0
+        # telemetry: TTFT, per-token latency, queue depth, slot occupancy,
+        # served by make_http_server as GET /metrics
+        self.registry = registry if registry is not None else get_registry()
+        self._tm = instruments(self.registry)
+        self._tm.serving_slots_total.set(slots)
         self.model = model
         self.slots = slots
         self.max_len = max_len
@@ -376,12 +397,20 @@ class ContinuousLMServer:
             draft, mode=mode, chunk=chunk, slots=slots, max_len=max_len,
             big_len=big_len, prefix_bytes=prefix_bytes)
             if draft is not None else None)
+        self._prefix_evictions_seen = 0
 
+        # serving-plane chaos injectors: each one with an on_decode_block
+        # hook is called at every round's start inside the decode try
+        self._chaos = [inj for inj in (chaos or [])
+                       if hasattr(inj, "on_decode_block")]
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
         self._dead: Optional[str] = None     # set once; never cleared
         self._draining: Optional[str] = None  # set once; distinct from dead
         self._lifecycle_lock = threading.Lock()
+        # the evictions mirror is updated by the worker (admission) and by
+        # router threads (prefill_handoff)
+        self._prefix_sync_lock = threading.Lock()
         # the slot table is touched by the worker and by close()/drain()
         self._state_lock = threading.Lock()
         self._free = list(range(slots))
@@ -432,6 +461,12 @@ class ContinuousLMServer:
         req = _Request(ids, max_new)
         req.emitted0 = emitted0
         req.state_blob = state
+        req.rid = next(_REQUEST_IDS)
+        req.t_submit = time.perf_counter()
+        # one async lane per rid: submit opens it, admission marks it,
+        # completion or failure closes it
+        tracing.async_begin("serving.request", req.rid,
+                            prompt_len=len(ids), max_new=max_new)
         self._queue.put(req)
         if not req.done.is_set() and (self._dead is not None
                                       or self._draining is not None):
@@ -444,6 +479,7 @@ class ContinuousLMServer:
                 self._fail_handoff(req, emitted0,
                                    f"server is draining: {self._draining}",
                                    "draining")
+        self._tm.serving_queue_depth.set(self._queue.qsize())
         if not req.done.wait(timeout):
             raise TimeoutError("decode did not complete in time")
         if req.error is not None:
@@ -494,6 +530,7 @@ class ContinuousLMServer:
             if self._dead is not None or self._draining is not None:
                 return
             self._draining = reason
+        self._tm.serving_drains_total.inc()
         self._stop.set()
         self._worker.join(timeout=10)
         self._sweep_stranded()
@@ -524,7 +561,10 @@ class ContinuousLMServer:
             raise ValueError("prefill handoff is incompatible with "
                              "speculative serving (the draft partition "
                              "does not travel)")
-        lp, small, _ = self._pipeline.run(ids)
+        with span("serving.prefill", plen=len(ids), rid=0,
+                  mode=self.prefill_mode):
+            lp, small, hit = self._pipeline.run(ids)
+        self._sync_prefix_metrics(hit)
         return serialize_prefill_state(lp, small)
 
     # --------------------------------------------------------------- engine
@@ -532,6 +572,23 @@ class ContinuousLMServer:
     def _pipelines(self):
         return ([self._pipeline] if self._d_pipeline is None
                 else [self._pipeline, self._d_pipeline])
+
+    def _sync_prefix_metrics(self, hit: int) -> None:
+        """Mirror the trie's plain counters into the registry: hits and
+        misses count admissions (the target trie's verdict); evictions and
+        held bytes sum over both pipelines' tries in speculative mode."""
+        caches = [p.prefix for p in self._pipelines if p.prefix is not None]
+        if not caches:
+            return
+        (self._tm.prefix_cache_hits if hit
+         else self._tm.prefix_cache_misses).inc()
+        with self._prefix_sync_lock:
+            ev = sum(pc.evictions for pc in caches)
+            if ev > self._prefix_evictions_seen:
+                self._tm.prefix_cache_evictions.inc(
+                    ev - self._prefix_evictions_seen)
+                self._prefix_evictions_seen = ev
+        self._tm.prefix_cache_bytes.set(sum(pc.nbytes for pc in caches))
 
     @contextlib.contextmanager
     def _models_locked(self):
@@ -568,22 +625,32 @@ class ContinuousLMServer:
         # the context the caches must hold: the prompt plus any resumed
         # cursor prefix
         plen = len(req.ids) + len(req.emitted0)
+        t_admit = time.perf_counter()
+        # queue-wait attribution: the retrodicted submit->admission span
+        tracing.complete_event("serving.queue_wait", req.t_submit, t_admit,
+                               rid=req.rid)
         try:
-            d_small = None
-            if req.state_blob is not None:
-                lp, small = self._restore_handoff(req.state_blob)
-            else:
-                lp, small, _ = self._pipeline.run(req.ids + req.emitted0)
-                if self._d_pipeline is not None:
-                    _, d_small, _ = self._d_pipeline.run(
+            d_small, hit = None, 0
+            with span("serving.prefill", plen=plen, rid=req.rid,
+                      mode=self.prefill_mode):
+                if req.state_blob is not None:
+                    lp, small = self._restore_handoff(req.state_blob)
+                else:
+                    lp, small, hit = self._pipeline.run(
                         req.ids + req.emitted0)
-            self._n_admitted += 1
-            tok = int(sample_token(lp, self._admit_gen, **self.sampling)[0])
+                    if self._d_pipeline is not None:
+                        _, d_small, _ = self._d_pipeline.run(
+                            req.ids + req.emitted0)
+                    self._sync_prefix_metrics(hit)
+                self._n_admitted += 1
+                tok = int(sample_token(lp, self._admit_gen,
+                                       **self.sampling)[0])
             # peek, insert, then pop: an insert failure must not leak the
             # slot
             with self._state_lock:
                 slot = self._free[-1]
-            with self._models_locked():
+            with span("serving.insert", slot=slot, rid=req.rid), \
+                    self._models_locked():
                 _insert_state(partition_prefill_state(self.model), small,
                               slot, plen)
                 if d_small is not None:
@@ -594,6 +661,19 @@ class ContinuousLMServer:
                 self._last_tok[slot] = tok
             with self._state_lock:
                 self._free.pop()
+            tracing.async_instant("serving.request", req.rid,
+                                  phase="admitted", slot=slot)
+            # admission grows the live KV footprint: one of the two
+            # watermark sampling points (the other is the round boundary)
+            sample_device_memory(self.registry, self.device)
+            # the first token is sampled: time to first token
+            ttft = time.perf_counter() - req.t_submit
+            self._tm.serving_ttft_seconds.observe(ttft)
+            if self.prefix_cache_enabled:
+                (self._tm.serving_ttft_hit_seconds if hit
+                 else self._tm.serving_ttft_miss_seconds).observe(ttft)
+            self._tm.serving_admissions_total.inc()
+            self._tm.serving_tokens_total.inc()
             sl = _Slot(req)
             sl.emitted = list(req.emitted0) + [tok]
             sl.new_count = len(req.emitted0) + 1
@@ -601,10 +681,13 @@ class ContinuousLMServer:
                 return True
             with self._state_lock:
                 self._active[slot] = sl
+            self._tm.serving_slots_occupied.set(len(self._active))
             return True
         except Exception as e:  # noqa: BLE001 -- fail the one request
             req.error = f"{type(e).__name__}: {e}"
             req.done.set()
+            tracing.async_end("serving.request", req.rid, error=req.error)
+            self._tm.serving_request_errors_total.inc()
             return False
 
     def _finish_if_done(self, slot: int, sl: _Slot) -> bool:
@@ -613,10 +696,16 @@ class ContinuousLMServer:
         if hit_eos or sl.new_count >= sl.req.max_new:
             sl.req.result = sl.emitted[:sl.req.max_new]
             sl.req.done.set()
+            tracing.async_end("serving.request", sl.req.rid,
+                              tokens=len(sl.req.result))
             self._n_served += 1
+            self._tm.serving_requests_completed_total.inc()
+            self._tm.serving_request_latency_seconds.observe(
+                time.perf_counter() - sl.req.t_submit)
             with self._state_lock:
                 self._active.pop(slot, None)
                 self._free.append(slot)
+            self._tm.serving_slots_occupied.set(len(self._active))
             return True
         return False
 
@@ -633,6 +722,7 @@ class ContinuousLMServer:
         req.fail_kind = kind
         req.error = message
         req.done.set()
+        tracing.async_end("serving.request", req.rid, error=message)
 
     def _sweep_stranded(self) -> None:
         """Snapshot and clear every in-flight slot and queued request, then
@@ -653,9 +743,13 @@ class ContinuousLMServer:
                 self._fail_handoff(req, req.emitted0, msg, "draining")
         else:
             fail_requests([sl.req for _s, sl in stranded],
-                          "server closed mid-generation")
+                          "server closed mid-generation",
+                          category="serving.request")
             fail_requests(queued,
-                          "server closed before the request was dispatched")
+                          "server closed before the request was dispatched",
+                          category="serving.request")
+        self._tm.serving_slots_occupied.set(0)
+        self._tm.serving_queue_depth.set(0)
 
     def _die(self, reason: str) -> None:
         """Dead-server state: fail every in-flight and queued request now,
@@ -667,12 +761,17 @@ class ContinuousLMServer:
             stranded = list(self._active.items())
             self._active.clear()
             self._free.extend(slot for slot, _ in stranded)
+        self._tm.serving_request_errors_total.inc(len(stranded))
         for _s, sl in stranded:
             self._fail_handoff(sl.req, sl.emitted,
                                f"server died: {reason}", "dead")
-        for req in drain_queue(self._queue):
+        self._tm.serving_slots_occupied.set(0)
+        queued = drain_queue(self._queue)
+        for req in queued:
             self._fail_handoff(req, req.emitted0,
                                f"server is dead: {reason}", "dead")
+        self._tm.serving_request_errors_total.inc(len(queued))
+        self._tm.serving_queue_depth.set(0)
 
     def _run(self):
         try:
@@ -752,6 +851,9 @@ class ContinuousLMServer:
                 except queue.Empty:
                     break
                 self._admit(req)
+            # refreshed after the admissions of every pass: a gauge written
+            # only on submit would show a phantom backlog
+            self._tm.serving_queue_depth.set(self._queue.qsize())
             if not self._active:
                 try:
                     req = self._queue.get(timeout=0.05)
@@ -763,20 +865,43 @@ class ContinuousLMServer:
             self._steps += 1
             counts = None
             try:
-                if self.draft is not None:
-                    toks, counts = self._spec()
-                else:
-                    toks = self._step()
+                for inj in self._chaos:
+                    # a raising hook (the kill-replica drill) lands in the
+                    # except below and takes the real die path; a sleeping
+                    # one (delay-decode) stretches exactly one round
+                    inj.on_decode_block(self)
+                t_block = time.perf_counter()
+                with span("serving.decode_block",
+                          live=len(self._active)) as sp:
+                    if tracing.is_enabled():
+                        sp.annotate(rids=[sl.req.rid
+                                          for sl in self._active.values()])
+                    if self.draft is not None:
+                        toks, counts = self._spec()
+                    else:
+                        toks = self._step()
             except Exception as e:  # noqa: BLE001 -- fail fast AND dead
                 self._die(f"decode step failed: {type(e).__name__}: {e}")
                 return
+            live = list(self._active)
+            # per-token latency: the round's wall (it ends with the tokens'
+            # copy to the host) over the tokens a row got from it
+            per_round = (self.decode_block if counts is None
+                         else float(np.mean(counts[live])))
+            self._tm.serving_token_latency_seconds.observe(
+                (time.perf_counter() - t_block) / per_round)
+            self._tm.serving_decode_blocks_total.inc()
             if counts is not None:
-                live = list(self._active)
                 self.spec_proposed_tokens += self.spec_len * len(live)
                 # the +1 of each row is the target's own token
                 emitted = int(counts[live].sum())
                 self.spec_accepted_tokens += emitted - len(live)
+                self._tm.spec_proposed_tokens_total.inc(
+                    self.spec_len * len(live))
+                self._tm.spec_accepted_tokens_total.inc(emitted - len(live))
+            sample_device_memory(self.registry, self.device)
             eos = self.eos_id
+            live_tokens = 0
             for slot, sl in list(self._active.items()):
                 row = (toks[slot] if counts is None
                        else toks[slot][:counts[slot]])
@@ -784,7 +909,10 @@ class ContinuousLMServer:
                     t = int(t)
                     sl.emitted.append(t)
                     sl.new_count += 1
+                    live_tokens += 1
                     if ((eos is not None and t == eos)
                             or sl.new_count >= sl.req.max_new):
                         break
                 self._finish_if_done(slot, sl)
+            if live_tokens:
+                self._tm.serving_tokens_total.inc(live_tokens)

@@ -7,9 +7,11 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.activation import LogSoftMax
 from bigdl_tpu_torch.nn.attention import PositionalEncoding, TransformerEncoder
 from bigdl_tpu_torch.nn.containers import Sequential
-from bigdl_tpu_torch.nn.linear import LMHead, LookupTable, TiedLMHead
+from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
+from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -43,11 +45,13 @@ def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
     activation="swiglu", norm="rms", bias=False, tie_embeddings=True`` with
     ``num_kv_heads`` is the Llama block recipe. ``dropout`` goes into the
     positional encoding (under RoPE a ``Dropout`` on the embedding stream)
-    and into every block. The head is ``TiedLMHead``
-    when ``tie_embeddings``, else ``LMHead`` (``fused_head=True``); the
-    reference's unfused ``TimeDistributed(Linear) + LogSoftMax`` tail and
-    every other reference argument at a non-default value raise
-    ``NotImplementedError`` naming the ROADMAP item that will port them.
+    and into every block. The tail is ``TiedLMHead`` when
+    ``tie_embeddings``, ``LMHead`` when ``fused_head``, and otherwise the
+    reference's default ``TimeDistributed(Linear) + LogSoftMax``, which
+    trains with ``TimeDistributedCriterion(ClassNLLCriterion())`` on the
+    (B, S, vocab) log-probs. Every other reference argument at a
+    non-default value raises ``NotImplementedError`` naming the ROADMAP
+    item that will port it.
 
     Parameters are drawn on the CPU from ``seed`` (PyTorch's global
     generator is left as it was) and then moved to ``device``."""
@@ -61,10 +65,6 @@ def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
     if pos != "sinusoidal":
         raise NotImplementedError(f"build_lm(pos={pos!r}) is not ported yet: "
                                   "ROADMAP A4 (model options)")
-    if not (fused_head or tie_embeddings):
-        raise NotImplementedError(
-            "the TimeDistributed(Linear) + LogSoftMax tail is not ported yet "
-            "(ROADMAP A4); pass fused_head=True or tie_embeddings=True")
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         if seed is not None:
@@ -84,8 +84,12 @@ def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
                                  dropout=dropout))
         if tie_embeddings:
             m.add(TiedLMHead(embed))
-        else:
+        elif fused_head:
             m.add(LMHead(embed_dim, vocab_size, with_bias=bias))
+        else:
+            m.add(TimeDistributed(Linear(embed_dim, vocab_size,
+                                         with_bias=bias)))
+            m.add(LogSoftMax())
     # plain attribute: rope models have no positional table to read it from
     m.lm_max_len = max_len
     return m.to(dev)

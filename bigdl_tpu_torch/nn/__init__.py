@@ -22,6 +22,7 @@ from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               SpatialBatchNormalization,
                                               blend_running_stats)
 from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
+from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.nn.shape import Padding, Reshape
 
@@ -34,5 +35,5 @@ __all__ = ["BatchNormalization", "blend_running_stats", "CAddTable",
            "rope_rotate", "Sequential", "SpaceToDepthConv7",
            "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling", "stem_conv7",
-           "TiedLMHead", "TimeDistributedCriterion", "TransformerEncoder",
+           "TiedLMHead", "TimeDistributed", "TimeDistributedCriterion", "TransformerEncoder",
            "TransformerEncoderLayer", "use_fused_1x1", "use_fused_3x3"]

@@ -62,6 +62,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    K4, and every served token's log-prob must lie within 1e-3 (f32) or
    0.1 (bf16, int8) of its position's largest under a teacher-forced plain
    forward of the same model;
+3e. the serving plane, on phase 3's twins (its prefix tries dropped): K1
+   at B=2 S=128 (bf16 ``mma``, f32 ``fma``) and K4 at M = 5 and 8 over the
+   five weight shapes against their plain versions first; per twin
+   ``generate(num_beams=4)`` on 2 prompts of 128 tokens, 32 new (K1 12
+   launches, the int8 twin's K4 85 x 32; ``num_beams=1`` equal to greedy;
+   the best beam's teacher-forced score at least the greedy sequence's
+   less 1e-3 / 0.1), and ``generate_speculative`` (a 384-token prompt, 64
+   new, spec_len 4) with the target's own twin as draft and with a 2-layer
+   untied draft from seed 8 (acceptance about 0: a rewind every round),
+   greedy tokens equal to ``generate`` or within the gap bound with the
+   position logged, launch counts from the rounds the run reports, and the
+   sampled mode once; then two fleets behind ``LMRouter`` (8 slots,
+   max_len 512, blocks of 8, chunks of 128, 12 client threads, prompts of
+   33-384 tokens, 32 new): the int8 twin over 2 decode replicas with
+   ``KillReplicaAfterRequests(4)`` on replica 0 (nothing lost, states
+   ``dead``/``ok``, at least one requeue) and the bf16 twin disaggregated
+   1:2 with a bucketed prefill replica and ``DropHandoff(2)`` (at least
+   one retry, K1 12 launches a shipped partition); every answer equal to
+   ``generate`` or within the gap bound, and each drill's ``/metrics``
+   text (requests, one TTFT per admission, device memory); last the CLI
+   as subprocesses: ``serve --continuous --replicas 2 --int8 --port 0``
+   (4 POSTs, ``/health``, ``/metrics``, SIGTERM -> exit 0 within 30 s) and
+   ``generate --numBeams 4 --bf16``;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
    grammar, through K1/K2/K3 (their ``fma`` variants, no ``mma`` launch),
@@ -101,7 +124,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    decode token of the 134m config, its 85 weights at their shapes made
    from a seed, and each distinct shape alone, with an empty kernel
    launched as often for the least time of a launch; ``continuous``: the
-   85 at phase 3d's M = 8, 40 and 128) and K5 and K6 (at
+   85 at phase 3d's M = 8, 40 and 128; ``serving_plane``: at phase 3e's
+   verification, M = 5; K1's ``beam_prefill``: B=2 S=128) and K5 and K6 (at
    ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
    library time is the cuBLAS product or the cuDNN conv plus one
    ``torch.var_mean`` of its output; K5 also at each of the training
@@ -239,10 +263,10 @@ def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     ``stage4`` and ``train``, and K4's ``shapes``, too)."""
     entry["bound_measured_ms"] = max(entry["bytes"] / hbm_bytes_per_s,
                                      entry["operations"] / BF16_OPS_PER_S) * 1e3
-    for second in ("stage4", "train"):
+    for second in ("stage4", "train", "beam_prefill"):
         if second in entry:
             add_measured_bound(entry[second], hbm_bytes_per_s)
-    for key in ("shapes", "continuous"):
+    for key in ("shapes", "continuous", "serving_plane"):
         for shape in entry.get(key, {}).values():
             add_measured_bound(shape, hbm_bytes_per_s)
     return entry
@@ -1490,6 +1514,572 @@ def run_continuous(models: dict, lm_timings: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------ 3e. serving plane
+BEAM_WIDTH, BEAM_PROMPT, BEAM_BATCH = 4, 128, 2
+SPEC_PROMPT, SPEC_NEW = 384, 64
+DRAFT_LAYERS, DRAFT_SEED = 2, 8
+FLEET_REQUESTS, FLEET_KILL_AFTER = 12, 4
+CLI_TIMEOUT_S = 240
+# K4's new rows on the path: a verification chunk (B=1, SPEC_LEN + 1) and
+# a beam step (BEAM_BATCH x BEAM_WIDTH)
+PLANE_K4_ROWS = (SPEC_LEN + 1, BEAM_BATCH * BEAM_WIDTH)
+
+
+def check_plane_kernels() -> dict:
+    """K1 and K4 at phase 3e's new shapes against their plain versions, with
+    phase 2's tolerances: K1 at the beam prefill's B=BEAM_BATCH,
+    S=BEAM_PROMPT (N=12, D=64, causal; bf16 ``mma`` and f32 ``fma``); K4
+    at M in PLANE_K4_ROWS over the five weight shapes of a forward, two runs
+    with the same bits. Returns each kernel's largest absolute error."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
+                                                 int8_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    worst = {"flash_fwd": 0.0, "int8_matmul": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(gen, BEAM_BATCH, BEAM_PROMPT, BEAM_PROMPT,
+                       CONFIG["num_heads"], 64, dt)
+        variant, (o, lse) = launched_variant(
+            [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+            lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
+        po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+        err_o, ok_o = flash_o_close(o, po)
+        err_l = (lse - plse).abs().max().item()
+        check(ok_o and err_l <= FLASH_ATOL
+              and variant == ("mma" if dt == torch.bfloat16 else "fma"),
+              f"flash {dt} B={BEAM_BATCH} S={BEAM_PROMPT}: |dO|={err_o} "
+              f"|dLSE|={err_l}, variant {variant}")
+        worst["flash_fwd"] = max(worst["flash_fwd"], err_o)
+    for m in PLANE_K4_ROWS:
+        for o, kd in sorted(set(int8_decode_shapes())):
+            w = torch.randint(-127, 128, (o, kd), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            sc = torch.rand((o,), generator=gen, device="cuda") * 1e-2 + 1e-3
+            x = torch.randn((m, kd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            y, again = (int8_matmul_kernel(x, w, sc) for _ in range(2))
+            ref = int8_matmul_plain(x, w, sc)
+            err = (y - ref).abs().max().item()
+            tol = INT8_RTOL * ref.abs().max().item()
+            check(err <= tol and torch.equal(y, again),
+                  f"int8 M={m} O={o} K={kd}: err {err} > {tol}, or two runs "
+                  "differ")
+            worst["int8_matmul"] = max(worst["int8_matmul"], err)
+    log({"check": "serving_plane_kernels", "k1_shape": [BEAM_BATCH,
+                                                        BEAM_PROMPT],
+         "k4_rows": PLANE_K4_ROWS, "max_abs_err": worst})
+    return worst
+
+
+def synced_s(fn):
+    """(fn's result, host seconds of work that ends in a synchronize)."""
+    if CONT_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if CONT_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sequence_logprob(model, seqs, s0: int) -> list:
+    """Each row's summed log-prob of its tokens after ``s0`` under a
+    teacher-forced plain forward of ``model``."""
+    with torch.inference_mode():
+        ids = torch.as_tensor(seqs, device=CONT_DEVICE)
+        lp = model(ids)[:, s0 - 1:-1].float()
+        tok = ids[:, s0:, None] - 1
+        return lp.gather(2, tok)[..., 0].sum(dim=1).tolist()
+
+
+def run_beams(name, model, driven, per_forward) -> dict:
+    """Beam search of one twin: ``generate(num_beams=BEAM_WIDTH)`` on
+    BEAM_BATCH prompts of BEAM_PROMPT tokens, NEW_TOKENS new. Checks: one
+    K1 prefill (num_layers launches, the ``mma`` variant); for the int8
+    twin, K4 per_forward times in each of the NEW_TOKENS forwards (the
+    prefill's 256 rows and every step's BEAM_BATCH x BEAM_WIDTH);
+    ``num_beams=1`` equals greedy ``generate`` exactly; the best beam's
+    score under a teacher-forced forward at least the greedy sequence's,
+    less GAP_TOL."""
+    from bigdl_tpu_torch.models.generation import generate
+    rng = np.random.default_rng(21)
+    prompts = rng.integers(1, VOCAB + 1, (BEAM_BATCH, BEAM_PROMPT)).tolist()
+    layers = CONFIG["num_layers"]
+    beam = lambda n: generate(model, prompts, n, num_beams=BEAM_WIDTH,
+                              device=CONT_DEVICE)
+    (out, seconds), got = driven(lambda: synced_s(lambda: beam(NEW_TOKENS)))
+    k4 = per_forward * NEW_TOKENS if name == "int8" else 0
+    check(got == (layers, layers, k4, 0),
+          f"{name} beams: (K1, K1 mma, K4, dequantize) counted {got}, the "
+          f"path's structure gives {(layers, layers, k4, 0)}")
+    _, prefill_s = synced_s(lambda: beam(1))
+    greedy = generate(model, prompts, NEW_TOKENS, greedy=True,
+                      device=CONT_DEVICE)
+    width1 = generate(model, prompts, NEW_TOKENS, num_beams=1,
+                      device=CONT_DEVICE)
+    check(torch.equal(width1, greedy), f"{name}: num_beams=1 != greedy")
+    s_beam = sequence_logprob(model, out.tolist(), BEAM_PROMPT)
+    s_greedy = sequence_logprob(model, greedy.tolist(), BEAM_PROMPT)
+    row = {"beam_width": BEAM_WIDTH, "batch": BEAM_BATCH,
+           "prompt_len": BEAM_PROMPT, "new_tokens": NEW_TOKENS,
+           "wall_s": seconds, "prefill_s": prefill_s,
+           "ms_per_beam_step": 1e3 * (seconds - prefill_s) / (NEW_TOKENS - 1),
+           "launches": dict(zip(("k1", "k1_mma", "k4", "dequant"), got)),
+           "score_beam": s_beam, "score_greedy": s_greedy,
+           "beam_equals_greedy": torch.equal(out, greedy)}
+    for sb, sg in zip(s_beam, s_greedy):
+        # no eos: every length is NEW_TOKENS, so the length penalty divides
+        # both scores alike
+        check(sb >= sg - GAP_TOL[name],
+              f"{name}: best beam's score {sb} < greedy's {sg} less "
+              f"{GAP_TOL[name]}")
+    return row
+
+
+def spec_rounds(target, fn):
+    """(fn's result, the target's rewinds as decode positions): each
+    speculative round ends with one ``_set_decode_pos`` of the target."""
+    from bigdl_tpu_torch.models import generation
+    inner, seen = generation._set_decode_pos, []
+
+    def spy(model, value):
+        if model is target:
+            seen.append(int(value))
+        inner(model, value)
+
+    generation._set_decode_pos = spy
+    try:
+        return fn(), seen
+    finally:
+        generation._set_decode_pos = inner
+
+
+def run_speculative(name, target, drafts, driven, per_forward) -> dict:
+    """``generate_speculative`` of one target with each draft: a
+    SPEC_PROMPT-token prompt, SPEC_NEW new tokens, SPEC_LEN. Greedy output
+    must equal greedy ``generate`` of the target; where a token differs
+    (the verification chunk and a single-token step round apart in the last
+    bits), its teacher-forced gap must stay within GAP_TOL and its position
+    is logged. Launch counts follow from the rounds the run reports. The
+    sampled mode runs once, with the last draft (the one that disagrees:
+    rejections and residual draws)."""
+    from bigdl_tpu_torch.models.generation import (generate,
+                                                   generate_speculative)
+    rng = np.random.default_rng(23)
+    prompt = rng.integers(1, VOCAB + 1, SPEC_PROMPT).tolist()
+    want = generate(target, [prompt], SPEC_NEW, greedy=True,
+                    device=CONT_DEVICE)[0, SPEC_PROMPT:].tolist()
+    layers = CONFIG["num_layers"]
+    out = {}
+    for dname, draft in drafts.items():
+        d_layers = sum(1 for m in draft.modules()
+                       if type(m).__name__.endswith("MultiHeadAttention"))
+        d_forward = 7 * d_layers + 1
+        run = lambda n, **kw: generate_speculative(
+            target, draft, [prompt], n, spec_len=SPEC_LEN,
+            device=CONT_DEVICE, **kw)
+        ((res, seconds), pos), got = driven(
+            lambda: spec_rounds(target, lambda: synced_s(
+                lambda: run(SPEC_NEW))))
+        rounds = len(pos)
+        emitted = pos[-1] - SPEC_PROMPT
+        # target: the prompt's prefill (rows > 256 dequantize, the head
+        # reads one position) and one SPEC_LEN + 1 verification per round;
+        # draft: the same prefill and SPEC_LEN + 1 single-token steps
+        k4 = ((1 + per_forward * rounds)
+              + (1 + d_forward * (SPEC_LEN + 1) * rounds)
+              if name == "int8" else 0)
+        deq = (per_forward - 1) + (d_forward - 1) if name == "int8" else 0
+        check(got == (layers + d_layers, layers + d_layers, k4, deq),
+              f"{name}/{dname} speculative: (K1, K1 mma, K4, dequantize) "
+              f"counted {got}, the rounds give "
+              f"{(layers + d_layers, layers + d_layers, k4, deq)}")
+        answer = res[0, SPEC_PROMPT:].tolist()
+        diff = [i for i, (a, b) in enumerate(zip(answer, want)) if a != b]
+        gap = greedy_gap(target, [(prompt, answer)])
+        check(len(answer) == SPEC_NEW and (not diff or gap <= GAP_TOL[name]),
+              f"{name}/{dname}: speculative output differs from generate at "
+              f"{diff} with a teacher-forced gap {gap} > {GAP_TOL[name]}")
+        _, prefill_s = synced_s(lambda: run(1))
+        out[dname] = {
+            "draft_layers": d_layers, "rounds": rounds,
+            "tokens_per_round": emitted / rounds,
+            "acceptance": (emitted - rounds) / (SPEC_LEN * rounds),
+            "wall_s": seconds, "prefill_s": prefill_s,
+            "ms_per_round": 1e3 * (seconds - prefill_s) / rounds,
+            "equal_to_generate": not diff, "first_differing": diff[:1],
+            "greedy_gap": gap,
+            "launches": dict(zip(("k1", "k1_mma", "k4", "dequant"), got))}
+    dname, draft = list(drafts.items())[-1]
+    gen = torch.Generator(device=CONT_DEVICE).manual_seed(3)
+    (res, pos), got = driven(lambda: spec_rounds(target, lambda: (
+        generate_speculative(target, draft, [prompt], SPEC_NEW,
+                             spec_len=SPEC_LEN, generator=gen,
+                             device=CONT_DEVICE))))
+    emitted = pos[-1] - SPEC_PROMPT
+    toks = res[0, SPEC_PROMPT:]
+    check(toks.shape[0] == SPEC_NEW and bool(((toks >= 1)
+                                              & (toks <= VOCAB)).all()),
+          f"{name}: sampled speculative output malformed")
+    out["sampled_" + dname] = {"rounds": len(pos),
+                               "acceptance": (emitted - len(pos))
+                               / (SPEC_LEN * len(pos))}
+    return out
+
+
+def drive_router(router, prompts):
+    """Every prompt from a client thread of its own through the router;
+    returns the answers (None for a lost request), the errors and the wall
+    seconds."""
+    results, errors = [None] * len(prompts), {}
+    barrier = threading.Barrier(len(prompts))
+
+    def client(i):
+        try:
+            barrier.wait(timeout=60)
+            results[i] = router.submit(prompts[i], NEW_TOKENS, timeout=600)
+        except Exception as e:  # a lost request: counted and checked below
+            errors[i] = f"{type(e).__name__}: {e}"
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    seconds = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a fleet client never "
+          "returned")
+    return results, errors, seconds
+
+
+def metric_value(text: str, name: str) -> float:
+    """One unlabeled sample of a Prometheus text exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise RuntimeError(f"check failed: {name} missing from /metrics")
+
+
+def held_to_generate(name, model, prompts, answers) -> dict:
+    """Each answer against a direct greedy ``generate`` of its prompt:
+    equal, or (a requeue's chunked re-prefill or a bucketed prefill rounds
+    apart from the step decode) within GAP_TOL under a teacher-forced
+    forward, with its first differing position logged."""
+    from bigdl_tpu_torch.models.generation import generate
+    differing = []
+    for i, (p, a) in enumerate(zip(prompts, answers)):
+        want = generate(model, [p], NEW_TOKENS, greedy=True,
+                        device=CONT_DEVICE)[0, len(p):].tolist()
+        check(len(a) == NEW_TOKENS and all(1 <= t <= VOCAB for t in a),
+              f"{name} fleet: malformed answer {i}")
+        if a != want:
+            differing.append({"request": i, "position": next(
+                j for j, (x, y) in enumerate(zip(a, want)) if x != y)})
+    gap = greedy_gap(model, list(zip(prompts, answers)))
+    check(not differing or gap <= GAP_TOL[name],
+          f"{name} fleet: answers differ from generate at {differing} with "
+          f"a teacher-forced gap {gap} > {GAP_TOL[name]}")
+    return {"equal_to_generate": len(prompts) - len(differing),
+            "differing": differing, "greedy_gap": gap}
+
+
+def fleet_numbers(reg, seconds, n) -> dict:
+    """The drill's /metrics text and what it says: every request counted
+    once by the router, one TTFT observation per admission, device memory
+    sampled."""
+    from bigdl_tpu_torch.telemetry import instruments, render_prometheus
+    text = render_prometheus(reg)
+    tm = instruments(reg)
+    admissions = metric_value(text, "bigdl_serving_admissions_total")
+    check(metric_value(text, "bigdl_router_requests_total") == n,
+          "bigdl_router_requests_total != the requests")
+    check(metric_value(text, "bigdl_serving_ttft_seconds_count")
+          == admissions > 0, "the TTFT histogram's count != admissions")
+    if CONT_DEVICE == "cuda":
+        check(metric_value(text, "bigdl_device_memory_bytes") > 0,
+              "bigdl_device_memory_bytes not sampled")
+    handoff = tm.handoff_seconds.labels().snapshot()
+    return {"tokens_per_s": n * NEW_TOKENS / seconds, "wall_s": seconds,
+            "admissions": admissions,
+            "ttft_s": tm.serving_ttft_seconds.summary(),
+            "token_latency_s": tm.serving_token_latency_seconds.summary(),
+            "handoff_s": {"count": handoff["count"], "sum": handoff["sum"],
+                          "mean": (handoff["sum"] / handoff["count"]
+                                   if handoff["count"] else None)},
+            "requeues": tm.router_requeues_total.value,
+            "retries": tm.router_retries_total.value,
+            "device_memory_mib": metric_value(
+                text, "bigdl_device_memory_bytes") / 2 ** 20,
+            "metrics_lines": len(text.splitlines())}
+
+
+def bit_equal_copies(models) -> bool:
+    """Whether every model's tensors equal the first's, bit for bit."""
+    ref = [t for t in models[0].state_dict().values()]
+    return all(all(torch.equal(a, b) for a, b in zip(
+        ref, m.state_dict().values())) for m in models[1:])
+
+
+def run_fleet(models, driven) -> dict:
+    """The fleet drills: the int8 twin behind ``LMRouter`` over two decode
+    replicas with replica 0 killed after FLEET_KILL_AFTER admissions, then
+    the bf16 twin disaggregated 1:2 (a bucketed prefill replica, so K1
+    runs) with the second shipped handoff dropped. Each replica serves its
+    own deep copy of the twin (bit-equal weights)."""
+    import copy
+
+    from bigdl_tpu_torch.models.router import LMRouter
+    from bigdl_tpu_torch.models.serving import ContinuousLMServer
+    from bigdl_tpu_torch.resilience.chaos import (DropHandoff,
+                                                  KillReplicaAfterRequests)
+    from bigdl_tpu_torch.telemetry import MetricsRegistry
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(1, VOCAB + 1, int(n)).tolist()
+               for n in rng.integers(33, LONG_PROMPT + 1, FLEET_REQUESTS)]
+    server = lambda m, reg, **kw: ContinuousLMServer(
+        m, registry=reg, device=CONT_DEVICE, **CONT, **kw)
+    layers = CONFIG["num_layers"]
+    out = {}
+
+    reg = MetricsRegistry()
+    copies = [copy.deepcopy(models["int8"]) for _ in range(2)]
+    check(bit_equal_copies([models["int8"]] + copies),
+          "int8 replicas' weights differ")
+    kill = KillReplicaAfterRequests(FLEET_KILL_AFTER)
+    decode = [server(copies[0], reg, chaos=[kill]), server(copies[1], reg)]
+    router = LMRouter(decode, registry=reg)
+    try:
+        (answers, errors, seconds), got = driven(
+            lambda: drive_router(router, prompts))
+        states = [r["state"] for r in router.health_extra["replicas"]]
+        # the killed replica's last round was counted and never ran
+        blocks = sum(s.decode_blocks for s in decode) - int(kill.fired)
+    finally:
+        router.close()
+    check(not errors, f"int8 fleet lost requests: {errors}")
+    nums = fleet_numbers(reg, seconds, len(prompts))
+    check(kill.fired and nums["requeues"] >= 1 and states == ["dead", "ok"],
+          f"int8 fleet: kill fired {kill.fired}, requeues "
+          f"{nums['requeues']}, states {states}")
+    # chunked prefill never runs K1; every step of a decode block runs all
+    # 85 matmuls at the slots' rows, so they bound K4 from below
+    check(got[0] == 0 and got[2] >= per_forward(layers) * CONT[
+        "decode_block"] * blocks > 0,
+          f"int8 fleet: (K1, K1 mma, K4, dequantize) counted {got} over "
+          f"{blocks} decode blocks")
+    out["int8_kill"] = {**nums, "replica_states": states,
+                        "decode_blocks": blocks,
+                        "launches": dict(zip(("k1", "k1_mma", "k4",
+                                              "dequant"), got)),
+                        **held_to_generate("int8", models["int8"], prompts,
+                                           answers)}
+    del copies, decode, router
+    torch.cuda.empty_cache() if CONT_DEVICE == "cuda" else None
+
+    reg = MetricsRegistry()
+    copies = [copy.deepcopy(models["bf16"]) for _ in range(3)]
+    check(bit_equal_copies([models["bf16"]] + copies),
+          "bf16 replicas' weights differ")
+    decode = [server(copies[0], reg), server(copies[1], reg)]
+    prefill = [server(copies[2], reg, prefill_mode="bucketed")]
+    drop = DropHandoff(2)
+    router = LMRouter(decode, prefill_replicas=prefill, registry=reg,
+                      chaos=[drop])
+    try:
+        (answers, errors, seconds), got = driven(
+            lambda: drive_router(router, prompts))
+        # one partition alone (the drill's clients queue on the prefill
+        # replica's lock): a bucketed prefill of LONG_PROMPT tokens and its
+        # npz, timed three times
+        solo, blob = [], b""
+        for _ in range(3):
+            t0 = time.perf_counter()
+            blob = prefill[0].prefill_handoff(prompts[0][:1] * LONG_PROMPT)
+            solo.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        router.close()
+    check(not errors, f"bf16 fleet lost requests: {errors}")
+    nums = fleet_numbers(reg, seconds, len(prompts))
+    ships = nums["handoff_s"]["count"]
+    check(drop.fired and nums["retries"] >= 1 and ships >= len(prompts),
+          f"bf16 fleet: drop fired {drop.fired}, retries {nums['retries']}, "
+          f"handoffs {ships}")
+    # each shipped partition is one bucketed prefill: num_layers K1 launches,
+    # all mma (bf16)
+    check(got[:2] == (layers * ships, layers * ships),
+          f"bf16 fleet: K1 counted {got[:2]}, {ships} bucketed prefills "
+          f"give {layers * ships}")
+    out["bf16_disaggregated"] = {
+        **nums, "launches": dict(zip(("k1", "k1_mma", "k4", "dequant"),
+                                     got)),
+        "solo_handoff_ms": solo, "handoff_blob_mib": len(blob) / 2 ** 20,
+        **held_to_generate("bf16", models["bf16"], prompts, answers)}
+    del copies, decode, prefill, router
+    return out
+
+
+def per_forward(layers: int) -> int:
+    """int8 matmuls in one forward of the config: q, k, v, out, up, gate
+    and down per layer, and the head."""
+    return 7 * layers + 1
+
+
+def run_cli() -> dict:
+    """The command line on the card, as subprocesses: ``serve --continuous
+    --replicas 2 --int8 --port 0`` (its default model: the tiny
+    synthetic-grammar LM, trained in the subprocess) answers 4 concurrent
+    POSTs of its full budget, reports two ``ok`` replicas on ``/health`` and
+    the router and serving families on ``/metrics``, and drains on SIGTERM
+    with exit code 0 within 30 s; ``generate --numBeams 4 --bf16`` prints
+    its two lines."""
+    import re
+    import signal
+    import urllib.request
+
+    cli = [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer"]
+    device = ["--device", CONT_DEVICE]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli + ["serve", "--continuous", "--replicas", "2",
+                                   "--int8", "--port", "0"] + device,
+                            cwd=root, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True)
+    res = {}
+    try:
+        port, seen = None, []
+        while port is None and time.perf_counter() - t0 < CLI_TIMEOUT_S:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            seen.append(line.strip())
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        check(port is not None, f"serve never reported its port: {seen}")
+        res["serve_startup_s"] = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(31)
+        prompts = [rng.integers(1, 65, int(n)).tolist()
+                   for n in (3, 17, 40, 100)]
+        answers = [None] * len(prompts)
+
+        def post(i):
+            req = urllib.request.Request(
+                base + "/generate",
+                data=json.dumps({"prompt": prompts[i]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers[i] = json.loads(r.read())["ids"]
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(prompts))]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        res["four_posts_s"] = time.perf_counter() - t1
+        check(all(a is not None and len(a) == 64
+                  and all(1 <= x <= 64 for x in a) for a in answers),
+              f"serve answers: {[None if a is None else len(a) for a in answers]}")
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+            check(r.status == 200 and health["ok"]
+                  and [x["state"] for x in health["replicas"]] == ["ok", "ok"],
+                  f"serve /health: {health}")
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        check(metric_value(text, "bigdl_router_requests_total") == 4
+              and metric_value(text, "bigdl_serving_admissions_total") == 4
+              and metric_value(text, "bigdl_serving_requests_completed_total")
+              == 4, "serve /metrics lacks the router's or the servers' counts")
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        res["drain_exit_s"] = time.perf_counter() - t2
+        check(rc == 0, f"serve exited {rc} after SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t3 = time.perf_counter()
+    gen = subprocess.run(cli + ["generate", "--numBeams", "4", "--bf16",
+                                "--maxNewTokens", "16"] + device,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    res["generate_s"] = time.perf_counter() - t3
+    lines = gen.stdout.strip().splitlines()
+    check(gen.returncode == 0 and len(lines) == 2
+          and lines[0].startswith("prompt:")
+          and len(json.loads(lines[1].split(":", 1)[1])) == 16,
+          f"generate --numBeams 4 --bf16: rc {gen.returncode}, stdout "
+          f"{gen.stdout[-500:]!r}, stderr {gen.stderr[-1500:]!r}")
+    return res
+
+
+def run_serving_plane(models: dict) -> dict:
+    """Phase 3e; returns the K1 and K4 launches of its runs (the kernel
+    checks' own launches excluded)."""
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.ops import flash_attention, int8_matmul
+    t_phase = time.perf_counter()
+    for m in models.values():   # phase 3d's prefix snapshots
+        m.__dict__.pop("_prefix_trie", None)
+    if CONT_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    errs = check_plane_kernels()
+    counters = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_MMA,
+                int8_matmul.LAUNCHES, int8_matmul.DEQUANT_CALLS)
+    launches = {"flash_fwd": 0, "flash_fwd_mma": 0, "int8_matmul": 0}
+
+    def driven(fn):
+        """Runs one path with every count zeroed just before; returns its
+        result and its (K1, K1 mma, K4, dequantize) counts."""
+        for c in counters:
+            c.reset()
+        out = fn()
+        got = tuple(c.value for c in counters)
+        for key, n in zip(launches, got):
+            launches[key] += n
+        return out, got
+
+    pf = per_forward(CONFIG["num_layers"])
+    row = {"beams": {}, "speculative": {}}
+    for name in ("bf16", "int8"):
+        t = time.perf_counter()
+        row["beams"][name] = run_beams(name, models[name], driven, pf)
+        row["beams"][name]["phase_s"] = time.perf_counter() - t
+    # a random tied model echoes its last token, so a tied draft of any
+    # seed proposes what the target says; an untied head disagrees, and the
+    # target rewinds nearly every round
+    small = build_lm(VOCAB, **dict(CONFIG, num_layers=DRAFT_LAYERS,
+                                   tie_embeddings=False, fused_head=True),
+                     device=CONT_DEVICE, seed=DRAFT_SEED).evaluate_mode()
+    for name, twin in (("bf16", cast_model), ("int8", quantize_model)):
+        t = time.perf_counter()
+        drafts = {"own_twin": twin(models["f32"], torch.bfloat16,
+                                   device=CONT_DEVICE),
+                  f"{DRAFT_LAYERS}_layers_untied_seed_{DRAFT_SEED}": twin(
+                      small, torch.bfloat16, device=CONT_DEVICE)}
+        row["speculative"][name] = run_speculative(name, models[name],
+                                                   drafts, driven, pf)
+        row["speculative"][name]["phase_s"] = time.perf_counter() - t
+        del drafts
+    del small
+    t = time.perf_counter()
+    row["fleet"] = run_fleet(models, driven)
+    row["fleet"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    row["cli"] = run_cli()
+    row["cli"]["phase_s"] = time.perf_counter() - t
+    log({"serving_plane": row})
+    log({"serving_plane_phase_s": time.perf_counter() - t_phase,
+         "kernel_max_abs_err": errs, "launches": launches})
+    return launches
+
+
 # -------------------------------------------------------------- 3b. training
 GRAD_RTOL = 1e-3
 
@@ -2145,6 +2735,7 @@ def time_flash(launches: dict) -> dict:
     and the training shape (B=8, S=512) beside them as ``train``."""
     served = _time_flash_shape(REQUESTS_PER_LEN, PROMPT_LENS[0], 3)
     train = _time_flash_shape(TRAIN_BATCH, TRAIN_SEQ, 13)
+    beam = _time_flash_shape(BEAM_BATCH, BEAM_PROMPT, 17)
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
@@ -2157,9 +2748,10 @@ def time_flash(launches: dict) -> dict:
             "library_ms": served["library_ms"], "variant": "mma",
             "work": f"one prefill launch, {served['shape']}; library_ms: "
                     "scaled_dot_product_attention; launches: the serving "
-                    "runs (phases 3 and 3d) and training together; train: "
-                    f"{train['shape']}",
-            "train": train}
+                    "runs (phases 3, 3d and 3e) and training together; "
+                    f"train: {train['shape']}; beam_prefill: phase 3e's "
+                    f"{beam['shape']}",
+            "train": train, "beam_prefill": beam}
 
 
 def time_flash_bwd(launches: dict) -> list:
@@ -2539,18 +3131,21 @@ def main(argv=None) -> int:
     hbm_errs = check_hbm_roof()
     launches, models, lm_timings = run_slice()
     cont_launches = run_continuous(models, lm_timings)
+    plane_launches = run_serving_plane(models)
     del models
     torch.cuda.empty_cache()
     train_launches = run_training()
     resnet_launches = run_resnet()
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
-                           + train_launches[k]
+                           + plane_launches[k] + train_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd(train_launches),
                dict(time_int8(launches["int8_matmul"]
-                              + cont_launches["int8_matmul"]),
-                    continuous=time_int8_rows()),
+                              + cont_launches["int8_matmul"]
+                              + plane_launches["int8_matmul"]),
+                    continuous=time_int8_rows(),
+                    serving_plane=time_int8_rows(PLANE_K4_ROWS[:1])),
                *time_conv_bn(resnet_launches),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:

@@ -1,0 +1,148 @@
+"""The port's causal-LM command line (``python -m
+bigdl_tpu_torch.apps.transformer``) on the CPU.
+
+``generate`` and ``serve`` run as subprocesses with ``--device cpu``, each
+training its default tiny LM on the synthetic grammar first, as the
+reference's does. ``serve --continuous --replicas 2 --int8`` answers POSTs
+through the fleet router, reports both replicas on ``/health`` and the
+router and serving families on ``/metrics``, and drains on SIGTERM with
+exit code 0. The options that wait for later ROADMAP items stop with a
+message naming the item.
+"""
+
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from bigdl_tpu_torch.apps import transformer as app
+from bigdl_tpu_torch.apps.transformer import main
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+ENV = dict(os.environ, OMP_NUM_THREADS="1")
+
+
+def _cli(*args):
+    return [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer", *args]
+
+
+def test_generate_beams_prints_its_two_lines():
+    out = subprocess.run(_cli("generate", "--device", "cpu", "--numBeams",
+                              "4", "--bf16", "--maxNewTokens", "6",
+                              "--prompt", "3,5,7"),
+                         cwd=ROOT, env=ENV, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 2
+    assert lines[0].startswith("prompt:") and "[3, 5, 7]" in lines[0]
+    cont = json.loads(lines[1].split(":", 1)[1])
+    assert len(cont) == 6 and all(1 <= t <= 64 for t in cont)
+
+
+def _read_port(proc, deadline):
+    """The port from serve's 'serving on http://host:PORT' stderr line."""
+    seen = []
+    while time.time() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        seen.append(line)
+        m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+        if m:
+            return int(m.group(1))
+    raise AssertionError("serve never reported its port: " + "".join(seen))
+
+
+def test_serve_fleet_answers_reports_and_drains_on_sigterm():
+    proc = subprocess.Popen(
+        _cli("serve", "--continuous", "--replicas", "2", "--int8",
+             "--port", "0", "--device", "cpu", "--greedy",
+             "--maxNewTokens", "8", "--maxLen", "64", "--slots", "2"),
+        cwd=ROOT, env=ENV, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
+        text=True)
+    try:
+        base = f"http://127.0.0.1:{_read_port(proc, time.time() + 180)}"
+        results = [None] * 4
+
+        def post(i):
+            req = urllib.request.Request(
+                base + "/generate",
+                data=json.dumps({"prompt": [i + 1, 2, 3]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results[i] = json.loads(r.read())["ids"]
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert all(r is not None and len(r) == 8 for r in results), results
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["ok"]
+        assert [x["state"] for x in health["replicas"]] == ["ok", "ok"]
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            body = r.read().decode()
+        lines = body.splitlines()
+        assert "bigdl_router_requests_total 4" in lines
+        assert "bigdl_serving_admissions_total 4" in lines
+        assert "bigdl_serving_recompiles_total 0" in lines
+        t0 = time.time()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        assert time.time() - t0 < 30
+        assert "draining: signal SIGTERM" in proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["train", "--contextParallel", "ring"], "ROADMAP A.4"),
+    (["train", "--tensorParallel", "2"], "ROADMAP A.4"),
+    (["train", "--moeExperts", "4"], "ROADMAP A.4"),
+    (["train", "--textFile", "x.txt"], "ROADMAP A.6"),
+    (["train", "--checkpoint", "ckpt", "-e", "0"], "ROADMAP A.5"),
+    (["train", "--model", "m", "--state", "s", "-e", "0"], "ROADMAP A.5"),
+    (["train", "--summary", "logs", "-e", "0"], "ROADMAP A.6"),
+    (["generate", "--model", "m"], "ROADMAP A.5"),
+    (["generate", "--fromHF", "d"], "ROADMAP A.2"),
+    (["generate", "--tokenizer", "t"], "ROADMAP A.6"),
+    (["generate", "--int8", "--bf16"], "one of"),
+    (["generate", "--prompt", ","], "empty prompt"),
+    (["serve", "--model", "m"], "ROADMAP A.5"),
+    (["serve", "--fromHF", "d"], "ROADMAP A.2"),
+    (["serve", "--tokenizer", "t"], "ROADMAP A.6"),
+    (["serve", "--continuous", "--draft", "d"], "ROADMAP A.5"),
+    (["serve", "--replicas", "2"], "require --continuous"),
+    (["serve", "--continuous", "--disaggregate", "2"], "P:D"),
+    (["bogus"], "usage")])
+def test_waiting_and_bad_options_stop_with_a_message(argv, match,
+                                                     monkeypatch):
+    # refused before any model is built or trained
+    monkeypatch.setattr(app, "_default_model", lambda *a, **k: (
+        pytest.fail("a model was built")))
+    with pytest.raises((SystemExit, ValueError), match=match):
+        main(argv + (["--device", "cpu"] if argv[0] != "bogus" else []))
+
+
+def test_device_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["train", "-e", "1", "--synthetic-size", "8", "--seqLen", "4"])

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu_torch.models.generation import generate
+from bigdl_tpu_torch.apps import transformer as transformer_app
+from bigdl_tpu_torch.models.generation import generate, generate_speculative
+from bigdl_tpu_torch.resilience.serving_drill import run_kill_drill
 from bigdl_tpu_torch.models import resnet
 from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.models.serving import ContinuousLMServer
@@ -63,6 +65,20 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 25 and bad == "[]"
+
+
+def test_new_subpackages_are_part_of_the_port():
+    """The serving plane's subpackages ship inside the package and stand
+    alone like the rest (the import check above walks them)."""
+    for sub in ("telemetry", "resilience", "apps"):
+        assert (PKG / sub / "__init__.py").is_file(), sub
+    for mod in ("models/router.py", "nn/recurrent.py", "apps/common.py",
+                "resilience/serving_drill.py", "resilience/__main__.py",
+                "telemetry/registry.py", "telemetry/exposition.py",
+                "telemetry/tracing.py", "telemetry/catalogue.py",
+                "telemetry/profiling.py"):
+        text = (PKG / mod).read_text()
+        assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
 
 def test_sources_import_no_jax_or_reference():
@@ -125,7 +141,9 @@ def test_build_lm_raises_without_card():
 @pytest.mark.parametrize("entry", ["generate", "LMServer",
                                    "ContinuousLMServer", "quantize_model",
                                    "cast_model", "Optimizer", "resnet.build",
-                                   "resnet.build_cifar", "roofline_hbm.main"])
+                                   "resnet.build_cifar", "roofline_hbm.main",
+                                   "generate_speculative", "run_kill_drill",
+                                   "transformer.main"])
 def test_entry_points_raise_without_card(entry):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -142,6 +160,12 @@ def test_entry_points_raise_without_card(entry):
         "resnet.build": lambda: resnet.build(10, 18),
         "resnet.build_cifar": lambda: resnet.build_cifar(10, 8),
         "roofline_hbm.main": lambda: roofline_hbm.main(["--gib", "1"]),
+        "generate_speculative": lambda: generate_speculative(
+            model, _tiny().evaluate_mode(), np.ones((1, 3)), 2),
+        "run_kill_drill": lambda: run_kill_drill(requests=2),
+        # the CLI's --device default: every subcommand goes to the card
+        "transformer.main": lambda: transformer_app.main(
+            ["generate", "--maxNewTokens", "2"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -212,8 +212,13 @@ def test_http_server_generate_and_health():
         with urllib.request.urlopen(base + "/health", timeout=60) as resp:
             health = json.loads(resp.read())
         assert health["ok"] and health["batches_served"] == 1
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+            assert resp.headers["Content-Type"].startswith("text/plain")
+            text = resp.read().decode()
+        # the server wrote the process-global registry: one batch at least
+        assert "bigdl_lmserver_batches_total" in text
         with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(base + "/metrics", timeout=60)
+            urllib.request.urlopen(base + "/nothing", timeout=60)
         assert err.value.code == 404
     finally:
         http.shutdown()
@@ -290,14 +295,15 @@ def test_prefill_takes_plain_core_on_cpu():
 
 @pytest.mark.parametrize("bad", [dict(norm_eps=1e-5), dict(window=4),
                                  dict(pos="learned"), dict(qkv_bias=True),
-                                 dict(tie_embeddings=False, fused_head=False)])
+                                 dict(head_bias=True)])
 def test_build_lm_rejects_unported_options(bad):
     kw = dict(LLAMA, **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lm(V, **kw, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(num_beams=2), dict(rolling_cache=True),
+@pytest.mark.parametrize("kw", [dict(num_beams=2, rolling_cache=True),
+                                dict(rolling_cache=True),
                                 dict(mesh=object())])
 def test_generate_rejects_unported_options(kw):
     _, tm = _pair("llama")

@@ -180,8 +180,8 @@ def test_budget_validation():
     (dict(draft="self", greedy=True), ValueError, "separate"),
     (dict(draft="other"), ValueError, "greedy-only"),
     (dict(draft="other", greedy=True, spec_len=0), ValueError, "spec_len"),
-    (dict(registry=object()), NotImplementedError, "ROADMAP A.5"),
-    (dict(chaos=[]), NotImplementedError, "ROADMAP A.1"),
+    (dict(registry=object()), AttributeError, "from_spec"),
+    (dict(chaos=5), TypeError, "not iterable"),
 ])
 def test_rejects_bad_configuration(kw, error, match):
     model = _model()
