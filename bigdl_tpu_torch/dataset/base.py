@@ -170,6 +170,6 @@ class DataSet:
         """An in-memory dataset whose shuffles draw from ``seed``."""
         if distributed:
             raise NotImplementedError(
-                "distributed datasets are not ported yet: ROADMAP A6 "
+                "distributed datasets are not ported yet: ROADMAP A.4 "
                 "(distributed plane)")
         return LocalDataSet(data, seed)

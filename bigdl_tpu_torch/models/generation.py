@@ -545,10 +545,16 @@ def _set_decode_pos(model: Module, value: int) -> None:
 def _shift_decode_pos(model: Module, delta: torch.Tensor) -> None:
     """Add ``delta`` to every ``decode_pos``: with a (B,) tensor of
     non-positive offsets on a continuous cache, the per-row rollback of a
-    speculative round (each slot to its own accepted boundary)."""
+    speculative round (each slot to its own accepted boundary). The
+    position tensor of a continuous ``enable_decode`` is updated in place,
+    so that a CUDA graph of the round replays the rollback into the tensor
+    the engine reads."""
     for m in model.modules():
         if isinstance(m, (MultiHeadAttention, PositionalEncoding)):
-            m.decode_pos = m.decode_pos + delta
+            if m.decode_pos is getattr(m, "_own_pos", None):
+                m.decode_pos.add_(delta)
+            else:
+                m.decode_pos = m.decode_pos + delta
 
 
 #: the per-request decode state of one attention module, in the order in

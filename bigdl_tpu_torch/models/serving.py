@@ -52,9 +52,21 @@ they are module state, so every forward, state swap and slot insert holds
 a router thread's ``prefill_handoff`` never interleave. The worker thread
 enters ``torch.inference_mode`` and the model's CUDA device itself.
 
+On a card each decode round is one replay of a CUDA graph (the counterpart
+of the reference's ``serving.step`` and ``serving.spec_step`` programs):
+the round's eager body (``_step_body``, ``_spec_body``), which is what the
+CPU runs, is captured at its first use on the worker thread under the
+models' locks (``utils/cuda_graph.py``; that first round is the eager
+warm-up), one graph per server and mode. The body reads and writes only
+tensors at fixed addresses: the caches and ``decode_pos`` of every
+attention module (updated in place; a prefill swaps the b=1 state in and
+puts the same tensors back) and ``_last_tok``; their ``data_ptr``s are
+checked before every replay. A new ``enable_decode`` (new buffers) forces a
+new capture. Each capture counts in ``bigdl_serving_recompiles_total``.
+The worker's exit (close, drain, death) releases the graphs.
+
 Restrictions: rope models only (an additive positional encoding tracks one
-shared position), no beam search. ``bigdl_serving_recompiles_total`` stays
-0: eager PyTorch builds no program per signature.
+shared position), no beam search.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ from bigdl_tpu_torch.models.prefix_cache import (DEFAULT_PREFIX_CACHE_MB,
                                                  prefix_cache_for)
 from bigdl_tpu_torch.telemetry import get_registry, instruments, span, tracing
 from bigdl_tpu_torch.telemetry.profiling import sample_device_memory
+from bigdl_tpu_torch.utils.cuda_graph import GraphedProgram
 from bigdl_tpu_torch.utils.device import (DeviceLike, check_module_device,
                                           module_device)
 from bigdl_tpu_torch.utils.util import pow2_bucket
@@ -415,8 +428,13 @@ class ContinuousLMServer:
         self._state_lock = threading.Lock()
         self._free = list(range(slots))
         self._active: dict = {}          # slot -> _Slot
+        # the tokens each row carries into the next round: a static buffer,
+        # written in place by admissions and by every round
         self._last_tok = torch.ones(slots, dtype=torch.int64,
                                     device=self.device)
+        #: on a card, site -> (GraphedProgram, the position tensors of the
+        #: enable_decode it was captured under)
+        self._graphs: dict = {}
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="lm-server-continuous")
         self._worker.start()
@@ -784,63 +802,110 @@ class ContinuousLMServer:
             self._sweep_stranded()
         except Exception as e:  # noqa: BLE001 -- the worker-thread boundary
             self._die(f"{type(e).__name__}: {e}")
+        finally:
+            self._release_graphs()
+
+    # ---------------------------------------------------------- decode rounds
+    def _graph_inputs(self) -> list:
+        """The tensors a round's graph reads and writes in place."""
+        state = [t for p in self._pipelines
+                 for t in partition_prefill_state(p.model)]
+        return [self._last_tok, *state]
+
+    def _round(self, site: str, body):
+        """A round's body: run eagerly on the CPU; on a card, replayed from
+        its CUDA graph, which is captured at first use and again after a
+        new ``enable_decode``. The caller holds the models' locks."""
+        if self.device.type != "cuda":
+            return body()
+        positions = [m._own_pos for p in self._pipelines for m in p.mhas]
+        prog, captured_under = self._graphs.get(site, (None, None))
+        if prog is not None and not all(
+                a is b for a, b in zip(captured_under, positions)):
+            prog.close()
+            prog = None
+        if prog is None:
+            gens = [] if self.sampling["greedy"] else [self._step_gen]
+            prog = GraphedProgram(body, self.device, generators=lambda: gens,
+                                  inputs=self._graph_inputs)
+            self._graphs[site] = (prog, positions)
+            self._tm.serving_recompiles_total.inc()
+        return prog()
+
+    def _release_graphs(self) -> None:
+        graphs, self._graphs = self._graphs, {}
+        for prog, _ in graphs.values():
+            prog.close()
+
+    def _step_body(self) -> torch.Tensor:
+        """``decode_block`` single-token steps over every slot; the last
+        tokens land in ``_last_tok``. Returns the (slots, block) tokens."""
+        tok = self._last_tok
+        toks = []
+        for _ in range(self.decode_block):
+            lp = self.model(tok[:, None])
+            tok = sample_token(lp[:, -1], self._step_gen, **self.sampling)
+            toks.append(tok)
+        self._last_tok.copy_(tok)
+        return torch.stack(toks, dim=1)
 
     def _step(self) -> np.ndarray:
-        """One block of ``decode_block`` single-token steps over every slot;
-        the (slots, block) tokens reach the host in one copy."""
+        """One block of ``decode_block`` single-token steps over every slot
+        (the reference's ``serving.step``); the (slots, block) tokens reach
+        the host in one copy."""
         with self._models_locked():
-            tok = self._last_tok
-            toks = []
-            for _ in range(self.decode_block):
-                lp = self.model(tok[:, None])
-                tok = sample_token(lp[:, -1], self._step_gen, **self.sampling)
-                toks.append(tok)
-            self._last_tok = tok
-            return torch.stack(toks, dim=1).cpu().numpy()
+            return self._round("serving.step", self._step_body).cpu().numpy()
 
     def _spec(self):
-        """One speculative round over every slot: ``spec_len + 1`` draft
-        steps (the last one's output is dropped, its input write commits
-        the last proposal's k/v), one verification forward of the target
-        over the carried token and the proposals, per-row first-mismatch
-        acceptance, and the per-row rollback of both caches. Acceptance is
-        computed on the device; the host reads one array per round.
+        """One speculative round over every slot (the reference's
+        ``serving.spec_step``); the host reads one array per round.
         Returns ((slots, spec_len + 1) tokens, (slots,) counts)."""
         k = self.spec_len
         with self._models_locked():
-            toks = self._last_tok
-            tok, props = toks, []
-            for _ in range(k + 1):
-                lp = self.draft(tok[:, None])
-                tok = torch.argmax(lp[:, -1], dim=-1) + 1
-                props.append(tok)
-            d_props = torch.stack(props[:k], dim=1)            # (slots, k)
-            chunk = torch.cat([toks[:, None], d_props], dim=1)
-            for h in self._heads:
-                h._decode_all = True
-            try:
-                lp = self.model(chunk)
-            finally:
-                for h in self._heads:
-                    h._decode_all = False
-            g = torch.argmax(lp, dim=-1) + 1                    # (slots, k+1)
-            match = d_props == g[:, :k]
-            # accepted proposals: the run of matches before the first miss
-            n_acc = match.to(torch.int64).cumprod(dim=1).sum(dim=1)
-            bonus = g.gather(1, n_acc[:, None])[:, 0]
-            ar = torch.arange(k + 1, device=g.device)[None, :]
-            props_pad = torch.cat([d_props, torch.zeros_like(d_props[:, :1])],
-                                  dim=1)
-            emit = torch.where(ar < n_acc[:, None], props_pad, bonus[:, None])
-            n_emit = n_acc + 1
-            # both models advanced by k + 1; each row rolls back to its own
-            # accepted boundary
-            delta = n_emit - (k + 1)
-            _shift_decode_pos(self.model, delta)
-            _shift_decode_pos(self.draft, delta)
-            self._last_tok = bonus
-            host = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
+            host = self._round("serving.spec_step",
+                               self._spec_body).cpu().numpy()
         return host[:, :k + 1], host[:, k + 1]
+
+    def _spec_body(self) -> torch.Tensor:
+        """``spec_len + 1`` draft steps (the last one's output is dropped,
+        its input write commits the last proposal's k/v), one verification
+        forward of the target over the carried token and the proposals,
+        per-row first-mismatch acceptance, the per-row rollback of both
+        caches, and the bonus tokens into ``_last_tok``, all on the device.
+        Returns the (slots, spec_len + 2) emitted tokens and counts."""
+        k = self.spec_len
+        toks = self._last_tok
+        tok, props = toks, []
+        for _ in range(k + 1):
+            lp = self.draft(tok[:, None])
+            tok = torch.argmax(lp[:, -1], dim=-1) + 1
+            props.append(tok)
+        d_props = torch.stack(props[:k], dim=1)            # (slots, k)
+        chunk = torch.cat([toks[:, None], d_props], dim=1)
+        for h in self._heads:
+            h._decode_all = True
+        try:
+            lp = self.model(chunk)
+        finally:
+            for h in self._heads:
+                h._decode_all = False
+        g = torch.argmax(lp, dim=-1) + 1                    # (slots, k+1)
+        match = d_props == g[:, :k]
+        # accepted proposals: the run of matches before the first miss
+        n_acc = match.to(torch.int64).cumprod(dim=1).sum(dim=1)
+        bonus = g.gather(1, n_acc[:, None])[:, 0]
+        ar = torch.arange(k + 1, device=g.device)[None, :]
+        props_pad = torch.cat([d_props, torch.zeros_like(d_props[:, :1])],
+                              dim=1)
+        emit = torch.where(ar < n_acc[:, None], props_pad, bonus[:, None])
+        n_emit = n_acc + 1
+        # both models advanced by k + 1; each row rolls back to its own
+        # accepted boundary
+        delta = n_emit - (k + 1)
+        _shift_decode_pos(self.model, delta)
+        _shift_decode_pos(self.draft, delta)
+        self._last_tok.copy_(bonus)
+        return torch.cat([emit, n_emit[:, None]], dim=1)
 
     def _serve_loop(self):
         while not self._stop.is_set():

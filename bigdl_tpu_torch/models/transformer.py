@@ -17,16 +17,16 @@ from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # argument -> (its default, the ROADMAP item that will port other values)
 _NOT_PORTED = {
-    "seq_axis": (None, "A6 (distributed plane)"),
-    "seq_mode": ("ring", "A6 (distributed plane)"),
-    "seq_layout": ("contiguous", "A6 (distributed plane)"),
-    "moe_experts": (0, "A6 (distributed plane: expert parallelism)"),
-    "moe_k": (2, "A6 (distributed plane: expert parallelism)"),
-    "head_bias": (None, "A4 (model options)"),
-    "norm_eps": (None, "A4 (model options)"),
-    "window": (None, "A4 (model options)"),
-    "rope_scaling": (None, "A4 (model options)"),
-    "qkv_bias": (False, "A4 (model options)"),
+    "seq_axis": (None, "A.4 (distributed plane)"),
+    "seq_mode": ("ring", "A.4 (distributed plane)"),
+    "seq_layout": ("contiguous", "A.4 (distributed plane)"),
+    "moe_experts": (0, "A.4 (distributed plane: expert parallelism)"),
+    "moe_k": (2, "A.4 (distributed plane: expert parallelism)"),
+    "head_bias": (None, "A.2 (model options)"),
+    "norm_eps": (None, "A.2 (model options)"),
+    "window": (None, "A.2 (model options)"),
+    "rope_scaling": (None, "A.2 (model options)"),
+    "qkv_bias": (False, "A.2 (model options)"),
 }
 
 
@@ -64,7 +64,7 @@ def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
                 f"build_lm({name}={value!r}) is not ported yet: ROADMAP {item}")
     if pos != "sinusoidal":
         raise NotImplementedError(f"build_lm(pos={pos!r}) is not ported yet: "
-                                  "ROADMAP A4 (model options)")
+                                  "ROADMAP A.2 (model options)")
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         if seed is not None:

@@ -168,6 +168,11 @@ class MultiHeadAttention(Module):
     # ------------------------------------------------------------- decoding
     #: per-row cache positions (``enable_decode(continuous=True)``)
     _continuous = False
+    #: the (B,) position tensor that continuous ``enable_decode`` made: the
+    #: forward and the engine's rollback update it in place (the tensor a
+    #: CUDA graph of the engine's round reads); one installed by a caller
+    #: is replaced instead
+    _own_pos = None
 
     def _cache_dtype(self) -> torch.dtype:
         return self.in_proj_weight.dtype
@@ -185,7 +190,7 @@ class MultiHeadAttention(Module):
         row). ``rolling=True`` (the ring cache) is not ported yet."""
         if rolling:
             raise NotImplementedError("the rolling KV cache is not ported yet "
-                                      "(ROADMAP A.1)")
+                                      "(ROADMAP A.1.4)")
         dev = module_device(self)
         shape = (batch_size, max_len, self.num_kv_heads, self.head_dim)
         self.register_buffer("k_cache", torch.zeros(
@@ -194,6 +199,7 @@ class MultiHeadAttention(Module):
             shape, dtype=self._cache_dtype(), device=dev), persistent=False)
         self.decode_pos = (torch.zeros(batch_size, dtype=torch.int64,
                                        device=dev) if continuous else 0)
+        self._own_pos = self.decode_pos if continuous else None
         self._continuous = continuous
         self._decode_prefilled = False
         self._decode = True
@@ -203,6 +209,7 @@ class MultiHeadAttention(Module):
         self._decode = False
         self._continuous = False
         self.decode_pos = 0
+        self._own_pos = None
         for name in ("k_cache", "v_cache"):
             self._buffers.pop(name, None)
         return self
@@ -269,7 +276,11 @@ class MultiHeadAttention(Module):
         write = q_pos.clamp(max=length - 1)
         self.k_cache[rows, write] = k.to(self.k_cache.dtype)
         self.v_cache[rows, write] = v.to(self.v_cache.dtype)
-        self.decode_pos = pos + s
+        if pos is self._own_pos:
+            # in place: a CUDA graph of the engine's round replays this write
+            pos.add_(s)
+        else:   # a tensor the caller installed is replaced, never written
+            self.decode_pos = pos + s
         k_pos = torch.arange(length, device=q.device)
         if s > 1:
             valid = k_pos[None, None, :] <= q_pos[:, :, None]    # (B, S, L)
@@ -277,7 +288,7 @@ class MultiHeadAttention(Module):
                 q, self._expand_kv(self.k_cache),
                 self._expand_kv(self.v_cache), mask=valid[:, None],
                 causal=False)
-        valid = k_pos[None, :] <= pos[:, None]                   # (B, L)
+        valid = k_pos[None, :] <= q_pos                          # (B, L)
         n_kv = self.num_kv_heads
         if n_kv == self.num_heads:
             return attention_core.dot_product_attention(

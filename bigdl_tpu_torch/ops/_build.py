@@ -13,6 +13,7 @@ wrapper call on a CUDA tensor builds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -65,16 +66,38 @@ _LOCK = threading.Lock()
 BUILD_LOGS: Dict[str, str] = {}
 
 
+#: capture stream -> the launches recorded on it (``recording_launches``)
+_CAPTURING: Dict[int, Dict["LaunchCounter", int]] = {}
+_CAPTURING_LOCK = threading.Lock()
+
+
+def _current_stream_key() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
 class LaunchCounter:
-    """Thread-safe count of kernel launches (or of calls down a path)."""
+    """Thread-safe count of kernel launches (or of calls down a path).
+
+    A launch made while the current stream is one that
+    ``recording_launches`` watches (a CUDA graph capture, which launches
+    nothing) is recorded there instead, from whichever thread makes it (the
+    autograd engine runs a captured backward on threads of its own); the
+    graph adds the recorded amounts on each replay."""
 
     def __init__(self):
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        if _CAPTURING:
+            with _CAPTURING_LOCK:
+                record = _CAPTURING.get(_current_stream_key())
+                if record is not None:
+                    record[self] = record.get(self, 0) + n
+                    return
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:
@@ -83,6 +106,23 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+@contextlib.contextmanager
+def recording_launches(stream_key: int):
+    """Divert every ``LaunchCounter.add`` made while the stream with handle
+    ``stream_key`` is current into the yielded ``{counter: amount}`` dict
+    for the duration (launches on other streams count as usual)."""
+    with _CAPTURING_LOCK:
+        if stream_key in _CAPTURING:
+            raise RuntimeError("launches on this stream are already being "
+                               "recorded")
+        _CAPTURING[stream_key] = record = {}
+    try:
+        yield record
+    finally:
+        with _CAPTURING_LOCK:
+            del _CAPTURING[stream_key]
 
 
 def _nvcc() -> str:

@@ -13,13 +13,25 @@ UPDATES THE PARAMETERS AND THE MOMENT TENSORS IN PLACE, under
 dict holding ``evalCounter`` and ``epoch`` (Python ints) beside its
 tensors. Schedules are functions of those counters and return Python
 floats.
+
+A captured training window (``Optimizer.set_steps_per_dispatch`` on a card)
+cannot read Python floats that change per iteration: a CUDA graph would
+replay the values of its capture. So each method also gives
+``step_scalars(state)``, the iteration's schedule values as float32
+numbers, which the host writes into a device tensor before each replay;
+``update(..., scalars=row)`` reads them from that tensor. Without
+``scalars`` the update keeps its Python-float arithmetic. On a card the two
+agree to the bit: CUDA multiplies a tensor by a host scalar in float32 and
+divides by one as a product with its reciprocal, which ``step_scalars``
+supplies where the update divides.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
@@ -107,6 +119,13 @@ class Warmup(LearningRateSchedule):
 
 
 # ------------------------------------------------------------------- methods
+def _f32_reciprocal(x: float) -> float:
+    """1/x as CUDA multiplies by it when a float32 tensor is divided by the
+    host scalar x: divided in double, rounded to float32 (``chip_smoke.py``
+    phase 3f holds the two updates bit for bit on the card)."""
+    return float(np.float32(1.0 / x))
+
+
 def _zeros(params: Tensors, dtype: Optional[torch.dtype] = None) -> Tensors:
     return {k: torch.zeros_like(p, dtype=dtype) for k, p in params.items()}
 
@@ -121,9 +140,20 @@ class OptimMethod:
     def init_state(self, params: Tensors) -> Dict:
         return {"evalCounter": 0, "epoch": 1}
 
-    def update(self, grads: Tensors, state: Dict,
-               params: Tensors) -> Tuple[Tensors, Dict]:
+    def update(self, grads: Tensors, state: Dict, params: Tensors,
+               scalars: Optional[torch.Tensor] = None
+               ) -> Tuple[Tensors, Dict]:
+        """One step in place; ``scalars``: this iteration's
+        ``step_scalars`` as a device tensor, read in place of the Python
+        floats."""
         raise NotImplementedError
+
+    def step_scalars(self, state: Dict) -> List[float]:
+        """The coming iteration's schedule values (float32 numbers), in the
+        order ``update(scalars=...)`` reads them."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no step_scalars: it cannot run "
+            "inside a captured training window")
 
     def _decayed(self, grads: Tensors, params: Tensors) -> Tensors:
         """Coupled L2 decay: ``g + weightdecay * p`` (new tensors)."""
@@ -161,9 +191,12 @@ class SGD(OptimMethod):
     def current_rate(self, state) -> float:
         return self.schedule.rate(self.learningrate, state)
 
+    def step_scalars(self, state):
+        return [self.current_rate(state)]
+
     @torch.no_grad()
-    def update(self, grads, state, params):
-        lr = self.current_rate(state)
+    def update(self, grads, state, params, scalars=None):
+        lr = self.current_rate(state) if scalars is None else scalars[0]
         grads = self._decayed(grads, params)
         mu, damp = self.momentum, self.dampening
         for k, p in params.items():
@@ -192,11 +225,14 @@ class Adagrad(OptimMethod):
         s["accum"] = _zeros(params)
         return s
 
+    def step_scalars(self, state):
+        return [self.learningrate / (1.0 + state["evalCounter"]
+                                     * self.learningrate_decay)]
+
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, scalars=None):
         grads = self._decayed(grads, params)
-        lr = self.learningrate / (1.0 + state["evalCounter"]
-                                  * self.learningrate_decay)
+        lr = (self.step_scalars(state) if scalars is None else scalars)[0]
         for k, p in params.items():
             g, a = grads[k], state["accum"][k]
             a.add_(g * g)
@@ -231,19 +267,32 @@ class Adam(OptimMethod):
         return self.learningrate / (1.0 + state["evalCounter"]
                                     * self.learningrate_decay)
 
+    def step_scalars(self, state):
+        """(lr, 1 / bc1, 1 / bc2) of the coming iteration."""
+        t = state["evalCounter"] + 1
+        return [self._scheduled_lr(state),
+                _f32_reciprocal(1 - self.beta1 ** t),
+                _f32_reciprocal(1 - self.beta2 ** t)]
+
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, scalars=None):
         grads = self._decayed(grads, params)
         t = state["evalCounter"] + 1
-        lr = self._scheduled_lr(state)
         b1, b2 = self.beta1, self.beta2
-        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        if scalars is None:
+            lr = self._scheduled_lr(state)
+            bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        else:
+            lr, inv_bc1, inv_bc2 = scalars[0], scalars[1], scalars[2]
         for k, p in params.items():
             g, m, v = grads[k], state["m"][k], state["v"][k]
             m.copy_(b1 * m.float() + (1 - b1) * g)   # rounds on store
             v.copy_(b2 * v.float() + (1 - b2) * g * g)
-            p.sub_(lr * (m.float() / bc1)
-                   / (torch.sqrt(v.float() / bc2) + self.epsilon))
+            if scalars is None:
+                m_hat, v_hat = m.float() / bc1, v.float() / bc2
+            else:
+                m_hat, v_hat = m.float() * inv_bc1, v.float() * inv_bc2
+            p.sub_(lr * m_hat / (torch.sqrt(v_hat) + self.epsilon))
         state["evalCounter"] = t
         return params, state
 
@@ -261,10 +310,16 @@ class AdamW(Adam):
                          epsilon, weightdecay=0.0, state_dtype=state_dtype)
         self.decoupled_decay = weightdecay
 
+    def step_scalars(self, state):
+        """Adam's three, then the decay's ``1 - lr * decay``."""
+        return super().step_scalars(state) + [
+            1.0 - self._scheduled_lr(state) * self.decoupled_decay]
+
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, scalars=None):
         if self.decoupled_decay:
-            shrink = 1.0 - self._scheduled_lr(state) * self.decoupled_decay
+            shrink = (1.0 - self._scheduled_lr(state) * self.decoupled_decay
+                      if scalars is None else scalars[3])
             for p in params.values():
                 p.mul_(shrink)
-        return super().update(grads, state, params)
+        return super().update(grads, state, params, scalars)

@@ -8,9 +8,11 @@ including those that speak of XLA programs. What the port fills:
 
 - the serving families (``ContinuousLMServer``, ``LMServer``, ``LMRouter``,
   the prefix cache, speculative serving) and the device-memory gauges;
-- ``bigdl_serving_recompiles_total`` is registered and stays 0: eager
-  PyTorch builds no program per signature, and the compile flight
-  recorder (``tracked_jit``) has no port yet (ROADMAP A.5);
+- ``bigdl_serving_recompiles_total`` counts the continuous engine's CUDA
+  graph captures on a card (one per server and round kind: the
+  reference's ``serving.step`` and ``serving.spec_step``); it stays 0 on
+  the CPU, which runs the eager body, and the compile flight recorder
+  (``tracked_jit``) has no port yet (ROADMAP A.5);
 - the training, ingest, eval, resilience and compile families are
   registered but written by nothing until their modules are ported
   (ROADMAP A.5).

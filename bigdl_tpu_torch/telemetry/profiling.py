@@ -2,9 +2,10 @@
 only ``sample_device_memory`` is ported).
 
 The reference's compile flight recorder (``tracked_jit``, one event per XLA
-program build) has no eager counterpart yet: it becomes CUDA events and
-``torch.profiler`` with ROADMAP A.5, and until then
-``bigdl_serving_recompiles_total`` stays 0 in the port.
+program build) has no port yet (ROADMAP A.5). The port's programs are the
+continuous engine's CUDA graphs (``utils/cuda_graph.py``): each capture
+counts in ``bigdl_serving_recompiles_total`` at the reference's sites
+``serving.step`` and ``serving.spec_step``.
 """
 
 from __future__ import annotations

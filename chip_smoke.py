@@ -85,6 +85,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    as subprocesses: ``serve --continuous --replicas 2 --int8 --port 0``
    (4 POSTs, ``/health``, ``/metrics``, SIGTERM -> exit 0 within 30 s) and
    ``generate --numBeams 4 --bf16``;
+3f. CUDA graphs (one dispatch per decode round and per window of k
+   training steps; the serving half after phase 3e, the training half after
+   phase 3b). On the card every ``ContinuousLMServer`` round is a replay of
+   a CUDA graph captured at the server's first round, so phases 3d and 3e
+   already serve through graphs and all their checks hold there. Per model
+   (f32, bf16, int8): phase 3d's rounds 1 and 2 again through one server
+   with its own registry (answers equal to phase 3d's, round 2's trie hits
+   and the K4 and dequantize counts from the structure, and one capture,
+   counted by ``bigdl_serving_recompiles_total``, in round 1 and none in
+   round 2); then 8 prompts admitted directly and, from one saved state, a
+   decode block run eagerly (``_step_body``) and one replayed: equal tokens,
+   bit-equal caches, ``decode_pos`` and carried tokens, K4 85 x 8 both ways
+   for the int8 twin, and the ms a round each way over 10 rounds. For the
+   bf16 and int8 targets the same for a speculative round with phase 3d's
+   draft (emitted tokens and counts, both models' rolled-back positions,
+   K4 85 x 6), and for the bf16 twin a sampled block (top-k 40) from one
+   saved state of the server's step generator too. Training: the update
+   from device scalars against the Python-float update, bit for bit
+   (AdamW, SGD); then phase 3b's 20
+   iterations from seed 7 with ``set_steps_per_dispatch(4)`` (a warm-up
+   window, its capture, 4 replays): losses and parameters equal to phase
+   3b's k = 1 run to the bit, K1, K2 and K3 each 12 x 20 launches, all
+   ``mma``, through the replay accounting; ms an iteration, peak memory
+   and the busy share of two replayed windows beside k = 1's. A ``graphs``
+   line gathers the captures, replays and both halves' readings;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
    grammar, through K1/K2/K3 (their ``fma`` variants, no ``mma`` launch),
@@ -141,6 +166,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
+A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
+3f (the rounds served and the k = 4 training) and 3b.
 
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
@@ -1378,8 +1405,9 @@ def serve_once(model, prompts, **kw) -> dict:
     return res
 
 
-def run_continuous(models: dict, lm_timings: dict) -> dict:
-    """Phase 3d; returns the K1 and K4 launches of its serving runs."""
+def run_continuous(models: dict, lm_timings: dict) -> tuple:
+    """Phase 3d; returns the K1 and K4 launches of its serving runs, and
+    its prompts and each model's round-1 and round-2 answers (phase 3f)."""
     from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
     from bigdl_tpu_torch.ops import flash_attention, int8_matmul
     from bigdl_tpu_torch.utils.util import pow2_bucket
@@ -1408,6 +1436,7 @@ def run_continuous(models: dict, lm_timings: dict) -> dict:
     counters = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_MMA,
                 int8_matmul.LAUNCHES, int8_matmul.DEQUANT_CALLS)
     launches = {"flash_fwd": 0, "flash_fwd_mma": 0, "int8_matmul": 0}
+    answers = {}
 
     def driven(fn):
         """Runs one serving path with every count zeroed just before;
@@ -1506,12 +1535,15 @@ def run_continuous(models: dict, lm_timings: dict) -> dict:
             row["speculative"] = {k: v for k, v in ress.items()
                                   if k != "answers"}
         log({"continuous": row})
+        answers[name] = {"round1": res["answers1"],
+                         "round2": res["answers2"],
+                         "busy_round3": res["round3"]["device_busy_share"]}
         check(gap <= GAP_TOL[name],
               f"{name}: a served token's log-prob is {gap} below its "
               f"position's largest (tolerance {GAP_TOL[name]})")
     log({"continuous_phase_s": time.perf_counter() - t_phase,
          "kernel_max_abs_err": errs, "launches": launches})
-    return launches
+    return launches, {"prompts": p, "spec": spec, "answers": answers}
 
 
 # ------------------------------------------------------ 3e. serving plane
@@ -2080,6 +2112,195 @@ def run_serving_plane(models: dict) -> dict:
     return launches
 
 
+# ------------------------------------------- 3f. CUDA graphs: serving half
+GRAPH_ROUND_REPS = 10     # rounds timed each way, from one restored state
+GRAPH_CENSUS = {"captures": 0, "replays": 0}
+
+
+def graph_census() -> None:
+    """Counts every CUDA graph capture and replay of the package's
+    ``GraphedProgram`` in this process (the ``graphs`` line)."""
+    from bigdl_tpu_torch.utils.cuda_graph import GraphedProgram
+    capture, replay = GraphedProgram._warm_up_and_capture, GraphedProgram.replay
+
+    def counted_capture(self):
+        GRAPH_CENSUS["captures"] += 1
+        return capture(self)
+
+    def counted_replay(self):
+        GRAPH_CENSUS["replays"] += 1
+        return replay(self)
+
+    GraphedProgram._warm_up_and_capture = counted_capture
+    GraphedProgram.replay = counted_replay
+
+
+def idle(server):
+    """The server with its worker stopped (which releases its graphs), so
+    that this thread can drive its rounds."""
+    server._stop.set()
+    server._worker.join(timeout=60)
+    check(not server._worker.is_alive(), "the server's worker did not stop")
+    return server
+
+
+def admit_directly(server, prompts) -> None:
+    from bigdl_tpu_torch.models.serving import _Request
+    with torch.inference_mode():
+        for p in prompts:
+            check(server._admit(_Request(p, NEW_TOKENS)),
+                  "a direct admission failed")
+    check(len(server._active) == len(prompts), "not every prompt got a slot")
+
+
+def eager_against_replay(server, site: str, body, counters) -> dict:
+    """One round of ``body`` run eagerly and one replayed from its graph,
+    each from the same saved state, the step generator's included (the
+    graph captured first, from that state, through ``_round``): the round's
+    outputs, every tensor the graph writes (caches, ``decode_pos``,
+    ``_last_tok``) and the launch counts must be equal. Then
+    GRAPH_ROUND_REPS rounds each way, each series from the saved state, for
+    the ms a round (host clock around rounds that end in their one copy to
+    the host, as the engine's do)."""
+    with torch.inference_mode():
+        saved = [t.clone() for t in server._graph_inputs()]
+        gen_state = server._step_gen.get_state()
+
+        def restore():
+            for t, s in zip(server._graph_inputs(), saved):
+                t.copy_(s)
+            server._step_gen.set_state(gen_state)
+            torch.cuda.synchronize()
+
+        run = {"eager": body, "replay": lambda: server._round(site, body)}
+        run["replay"]()                   # the warm-up and the capture
+        got = {}
+        for how in ("eager", "replay"):
+            restore()
+            for c in counters:
+                c.reset()
+            out = run[how]().cpu()
+            got[how] = (out, [t.clone() for t in server._graph_inputs()],
+                        tuple(c.value for c in counters))
+        same_state = all(torch.equal(a, b) for a, b in zip(got["eager"][1],
+                                                           got["replay"][1]))
+        check(torch.equal(got["eager"][0], got["replay"][0]) and same_state,
+              f"{site}: the replayed round's outputs or state differ from "
+              "the eager round's")
+        check(got["eager"][2] == got["replay"][2],
+              f"{site}: launch counts eager {got['eager'][2]} against "
+              f"replayed {got['replay'][2]}")
+        ms = {}
+        for how in ("eager", "replay"):
+            restore()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_ROUND_REPS):
+                run[how]().cpu()
+            ms[how] = 1e3 * (time.perf_counter() - t0) / GRAPH_ROUND_REPS
+        restore()
+    return {"counts": got["replay"][2], "ms_per_round_eager": ms["eager"],
+            "ms_per_round_replay": ms["replay"],
+            "speedup": ms["eager"] / ms["replay"]}
+
+
+def run_graph_serving(models: dict, cont: dict) -> dict:
+    """Phase 3f's serving half (after phase 3e, whose fleets replay graphs
+    in every replica): per model, phase 3d's rounds 1 and 2 through one
+    graphed server with its own registry (answers equal to phase 3d's,
+    round 2's trie hits, K4 and dequantize counts from the structure, one
+    capture in round 1 and none in round 2); then 8 of its prompts
+    admitted directly and one decode block eager against one replayed; for
+    the bf16 and int8 targets the same for a speculative round with phase
+    3d's draft. Returns the K4 launches of the served rounds, and the row
+    of the ``graphs`` line."""
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    from bigdl_tpu_torch.ops import flash_attention, int8_matmul
+    from bigdl_tpu_torch.telemetry import MetricsRegistry, instruments
+    t_phase = time.perf_counter()
+    p, answers = cont["prompts"], cont["answers"]
+    counters = (flash_attention.LAUNCHES, int8_matmul.LAUNCHES,
+                int8_matmul.DEQUANT_CALLS)
+    pf, block = per_forward(CONFIG["num_layers"]), CONT["decode_block"]
+    row, k4_launches = {}, 0
+    for name, model in models.items():
+        int8 = name == "int8"
+        k4_of = lambda forwards: pf * forwards if int8 else 0
+        model.__dict__.pop("_prefix_trie", None)   # a cold trie, as in 3d
+        reg = MetricsRegistry()
+        recompiles = instruments(reg).serving_recompiles_total
+        server = continuous_server(model, registry=reg)
+        try:
+            for c in counters:
+                c.reset()
+            got, captures = {}, []
+            for key in ("round1", "round2"):
+                got[key], _ = submit_all(server, p[key], NEW_TOKENS)
+                captures.append(recompiles.value)
+            counts = tuple(c.value for c in counters)
+            k4_launches += counts[1]
+            trie = TrieModel()
+            (fwd1, hits1), (fwd2, hits2) = (trie.forwards(p[key])
+                                            for key in ("round1", "round2"))
+            want = (0, k4_of(fwd1 + fwd2 + server.decode_blocks * block), 0)
+            hits = server._pipeline.prefix.hits
+            check(got["round1"] == answers[name]["round1"]
+                  and got["round2"] == answers[name]["round2"],
+                  f"{name}: a graphed round's answer differs from phase 3d's")
+            check(counts == want, f"{name}: (K1, K4, dequantize) counted "
+                  f"{counts} over rounds 1-2, the structure gives {want}")
+            check(hits == hits1 + hits2 and hits2 > 0 and captures == [1, 1],
+                  f"{name}: trie hits {hits} (want {hits1 + hits2}), "
+                  f"captures after rounds 1 and 2 {captures} (want [1, 1])")
+            served = {"decode_blocks": server.decode_blocks,
+                      "captures_after_rounds_1_2": captures}
+            idle(server)
+            admit_directly(server, p["round1"][:CONT["slots"]])
+            res = eager_against_replay(server, "serving.step",
+                                       server._step_body, counters)
+            check(res["counts"] == (0, k4_of(block), 0),
+                  f"{name}: a decode block counted {res['counts']}")
+            row[name] = {"served_rounds_1_2": served, "block": res,
+                         "busy_round3_phase3d": answers[name]["busy_round3"]}
+        finally:
+            server.close()
+        if name == "f32":
+            continue
+        twin = cast_model if name == "bf16" else quantize_model
+        draft = twin(models["f32"], torch.bfloat16, device=CONT_DEVICE)
+        server = continuous_server(model, draft=draft, spec_len=SPEC_LEN)
+        try:
+            idle(server)
+            admit_directly(server, cont["spec"][:CONT["slots"]])
+            res = eager_against_replay(server, "serving.spec_step",
+                                       server._spec_body, counters)
+            # the draft's SPEC_LEN + 1 steps at M = 8 and the target's
+            # verification at M = 8 x (SPEC_LEN + 1) = 40
+            check(res["counts"] == (0, k4_of(SPEC_LEN + 2), 0),
+                  f"{name}: a speculative round counted {res['counts']}")
+            row[name]["speculative_round"] = res
+        finally:
+            server.close()
+            del draft
+        if name == "bf16":
+            # a sampled block draws from the server's step generator, which
+            # the graph registers: the replay draws what the eager block does
+            from bigdl_tpu_torch.models.serving import ContinuousLMServer
+            server = ContinuousLMServer(
+                model, prefix_cache_mb=CONT_PREFIX_MB, device=CONT_DEVICE,
+                **{**CONT, "greedy": False, "top_k": 40}, seed=5)
+            try:
+                idle(server)
+                admit_directly(server, p["round1"][:CONT["slots"]])
+                row[name]["sampled_block"] = eager_against_replay(
+                    server, "serving.step", server._step_body, counters)
+            finally:
+                server.close()
+        torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    log({"graphs_serving": row})
+    return {"int8_matmul": k4_launches}, row
+
+
 # -------------------------------------------------------------- 3b. training
 GRAD_RTOL = 1e-3
 
@@ -2132,7 +2353,7 @@ def grad_check(model) -> None:
          "max_rel_l2": worst, "worst_param": worst_name})
 
 
-def _train(model, ds, steps: int):
+def _train(model, ds, steps: int, steps_per_dispatch: int = 1):
     from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
     from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
     opt = (Optimizer(model, ds, FusedLMHeadCriterion(), device="cuda")
@@ -2140,7 +2361,8 @@ def _train(model, ds, steps: int):
            .set_optim_method(AdamW(learningrate=TRAIN_LR,
                                    weightdecay=TRAIN_DECAY))
            .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
-           .set_end_when(Trigger.max_iteration(steps)))
+           .set_end_when(Trigger.max_iteration(steps))
+           .set_steps_per_dispatch(steps_per_dispatch))
     opt.optimize()
     torch.cuda.synchronize()
     return opt.history
@@ -2166,9 +2388,10 @@ def lm_head_ce_peak_mib() -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
-def run_training() -> dict:
+def run_training() -> tuple:
     """Phase 3b; returns the K1, K2, K3 launches of the 20-step run (all,
-    and of the "mma" variants)."""
+    and of the "mma" variants), and that run's losses, final parameters,
+    median step and busy share for phase 3f."""
     from bigdl_tpu_torch.apps.transformer import synthetic_corpus
     from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
     from bigdl_tpu_torch.models.transformer import build_lm
@@ -2212,6 +2435,10 @@ def run_training() -> dict:
     check(k1 == k1_mma == k2 == k2_mma == k3 == k3_mma == want,
           f"training launched K1/K2/K3 {k1}/{k2}/{k3} times ({k1_mma}/"
           f"{k2_mma}/{k3_mma} of them mma), want {want}, all mma")
+    k1_run = {"losses": losses, "step_ms": step_s * 1e3,
+              "peak_allocated_mib": peak_mib,
+              "params": {n: p.detach().clone()
+                         for n, p in model.named_parameters()}}
 
     # device busy share: kernel time over the wall time of 4 more steps;
     # None ("not measured") when the profiler recorded nothing
@@ -2224,11 +2451,154 @@ def run_training() -> dict:
     log({"train_device_busy_share": busy, "profiled_steps": 4,
          "profiled_wall_s": wall, "top_kernels_us_per_step": top,
          "lm_head_ce_peak_mib": lm_head_ce_peak_mib()})
+    k1_run["busy"] = busy
     del model
     torch.cuda.empty_cache()
     return {"flash_fwd": k1, "flash_fwd_mma": k1_mma, "flash_bwd_dq": k2,
             "flash_bwd_dq_mma": k2_mma, "flash_bwd_dkv": k3,
-            "flash_bwd_dkv_mma": k3_mma}
+            "flash_bwd_dkv_mma": k3_mma}, k1_run
+
+
+# ------------------------------------------ 3f. CUDA graphs: training half
+GRAPH_TRAIN_K = 4
+# k = 4 against k = 1: the same losses and parameters to the bit. A
+# window's graph runs the kernels of k = 1's eager steps on the same
+# inputs in the same order, and the update reads from a device tensor the
+# very float32 values that CUDA derives from k = 1's Python floats
+# (``optim/methods.py``), which check_update_paths holds bit for bit first
+GRAPH_TRAIN_LOSS_TOL = 0.0
+
+
+def check_update_paths() -> None:
+    """AdamW and SGD, 5 updates of a (1000, 257) parameter: the Python-float
+    arithmetic against ``update(scalars=...)`` with ``step_scalars`` on the
+    card, bit for bit."""
+    from bigdl_tpu_torch.optim import SGD, AdamW
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for method in (AdamW(learningrate=TRAIN_LR, weightdecay=TRAIN_DECAY),
+                   SGD(learningrate=0.1, momentum=0.9, weightdecay=1e-4)):
+        w = torch.randn((1000, 257), generator=gen, device="cuda")
+        pa, pb = {"w": w.clone()}, {"w": w.clone()}
+        sa, sb = method.init_state(pa), method.init_state(pb)
+        for _ in range(5):
+            g = torch.randn((1000, 257), generator=gen, device="cuda")
+            row = torch.tensor(method.step_scalars(sb), dtype=torch.float32,
+                               device="cuda")
+            method.update({"w": g.clone()}, sa, pa)
+            method.update({"w": g.clone()}, sb, pb, row)
+        check(torch.equal(pa["w"], pb["w"]),
+              f"{type(method).__name__}: the update from device scalars "
+              "differs from the Python-float update")
+
+
+def busy_after_first_capture(fn) -> tuple:
+    """(device busy share, wall seconds) of ``fn``'s run from the end of
+    its first CUDA graph capture on (the first window's warm-up and capture
+    excluded): profiler kernel time over wall time; (None, wall) when the
+    profiler recorded nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.utils.cuda_graph import GraphedProgram
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    mark = {}
+    capture = GraphedProgram._warm_up_and_capture
+
+    def capture_then_profile(self):
+        out = capture(self)
+        if not mark:
+            torch.cuda.synchronize()
+            prof.start()
+            mark["t0"] = time.perf_counter()
+        return out
+
+    GraphedProgram._warm_up_and_capture = capture_then_profile
+    try:
+        fn()
+        torch.cuda.synchronize()
+        check(bool(mark), "the profiled run captured no graph")
+        wall = time.perf_counter() - mark["t0"]
+        prof.stop()
+    finally:
+        GraphedProgram._warm_up_and_capture = capture
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    return (busy / wall if busy > 0 else None), wall
+
+
+def run_graph_training(k1_run: dict) -> tuple:
+    """Phase 3f's training half: phase 3b's recipe from seed 7 again with
+    ``set_steps_per_dispatch(4)`` (5 windows of 4: the first the eager
+    warm-up, then its capture, then 4 replays), against phase 3b's k = 1
+    run: losses and final parameters to GRAPH_TRAIN_LOSS_TOL, K1, K2 and K3
+    each 12 x 20 launches (all ``mma``) through the replay accounting, ms
+    per iteration, peak memory, and the busy share of 3 more windows
+    after their capture. Returns the K1-K3 launches and the row of the
+    ``graphs`` line."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    check_update_paths()
+    model = build_lm(VOCAB, **CONFIG, device="cuda", seed=7)
+    samples = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS, TRAIN_SEQ, VOCAB,
+                               seed=17)
+    ds = DataSet.array(samples, seed=0) >> SampleToBatch(TRAIN_BATCH)
+    counters = (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ,
+                fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    census0 = dict(GRAPH_CENSUS)
+    t1 = time.perf_counter()
+    history = _train(model, ds, TRAIN_STEPS, GRAPH_TRAIN_K)
+    train_s = time.perf_counter() - t1
+    got = tuple(c.value for c in counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [h["loss"] for h in history]
+    want = CONFIG["num_layers"] * TRAIN_STEPS
+    loss_diff = max(abs(a - b) for a, b in zip(losses, k1_run["losses"]))
+    rel_l2 = max(((q - k1_run["params"][n]).float().norm()
+                  / k1_run["params"][n].float().norm().clamp_min(1e-30)).item()
+                 for n, q in model.named_parameters())
+    # each iteration of a window is logged at the window's time over k;
+    # the first window (warm-up and capture) is left out
+    step_ms = 1e3 * float(np.median([h["seconds"]
+                                     for h in history[GRAPH_TRAIN_K:]]))
+    row = {"k": GRAPH_TRAIN_K, "iterations": len(losses),
+           "captures": GRAPH_CENSUS["captures"] - census0["captures"],
+           "replays": GRAPH_CENSUS["replays"] - census0["replays"],
+           "train_s": train_s, "losses": losses,
+           "largest_loss_difference_to_k1": loss_diff,
+           "loss_tol": GRAPH_TRAIN_LOSS_TOL,
+           "largest_param_rel_l2_to_k1": rel_l2,
+           "ms_per_iteration_k1": k1_run["step_ms"],
+           f"ms_per_iteration_k{GRAPH_TRAIN_K}": step_ms,
+           "peak_allocated_mib_k1": k1_run["peak_allocated_mib"],
+           f"peak_allocated_mib_k{GRAPH_TRAIN_K}": peak_mib,
+           "k1_k1mma_k2_k2mma_k3_k3mma": got}
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+          and loss_diff <= GRAPH_TRAIN_LOSS_TOL,
+          f"k = {GRAPH_TRAIN_K} losses {losses} differ from k = 1's "
+          f"{k1_run['losses']} by up to {loss_diff}")
+    check(got == (want,) * 6, f"k = {GRAPH_TRAIN_K} training launched "
+          f"(K1, K1 mma, K2, K2 mma, K3, K3 mma) {got}, want {want} each")
+    check(row["captures"] == 1 and row["replays"] == TRAIN_STEPS
+          // GRAPH_TRAIN_K - 1, f"training graphs: {row['captures']} "
+          f"captures, {row['replays']} replays")
+    extra = DataSet.array(samples[:3 * GRAPH_TRAIN_K * TRAIN_BATCH],
+                          seed=1) >> SampleToBatch(TRAIN_BATCH)
+    busy, wall = busy_after_first_capture(
+        lambda: _train(model, extra, 3 * GRAPH_TRAIN_K, GRAPH_TRAIN_K))
+    row.update({"busy_share_k1": k1_run["busy"],
+                f"busy_share_k{GRAPH_TRAIN_K}": busy,
+                "busy_profiled_windows": 2, "busy_profiled_wall_s": wall,
+                "phase_s": time.perf_counter() - t_phase})
+    log({"graphs_training": row})
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_fwd": got[0], "flash_fwd_mma": got[1],
+            "flash_bwd_dq": got[2], "flash_bwd_dq_mma": got[3],
+            "flash_bwd_dkv": got[4], "flash_bwd_dkv_mma": got[5]}, row
 
 
 # -------------------------------------------------------------- 3c. ResNet-50
@@ -3099,6 +3469,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = environment()
+    graph_census()
     if args.time_kernels_of:
         import bigdl_tpu_torch
         none = collections.defaultdict(int)
@@ -3130,11 +3501,19 @@ def main(argv=None) -> int:
     check_conv_bn_autograd()
     hbm_errs = check_hbm_roof()
     launches, models, lm_timings = run_slice()
-    cont_launches = run_continuous(models, lm_timings)
+    cont_launches, cont = run_continuous(models, lm_timings)
     plane_launches = run_serving_plane(models)
+    graph_serve_launches, graph_serve_row = run_graph_serving(models, cont)
     del models
     torch.cuda.empty_cache()
-    train_launches = run_training()
+    train_launches, k1_run = run_training()
+    graph_train_launches, graph_train_row = run_graph_training(k1_run)
+    del k1_run
+    log({"graphs": {**GRAPH_CENSUS, "serving": graph_serve_row,
+                    "training": {k: v for k, v in graph_train_row.items()
+                                 if k != "losses"}}})
+    train_launches = {k: n + graph_train_launches[k]
+                      for k, n in train_launches.items()}
     resnet_launches = run_resnet()
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
@@ -3143,7 +3522,8 @@ def main(argv=None) -> int:
                *time_flash_bwd(train_launches),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]
-                              + plane_launches["int8_matmul"]),
+                              + plane_launches["int8_matmul"]
+                              + graph_serve_launches["int8_matmul"]),
                     continuous=time_int8_rows(),
                     serving_plane=time_int8_rows(PLANE_K4_ROWS[:1])),
                *time_conv_bn(resnet_launches),

@@ -27,6 +27,7 @@ from bigdl_tpu_torch.models.transformer import build_lm
 from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
 from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
 from bigdl_tpu_torch.optim.optimizer import Optimizer
+from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.scripts import roofline_hbm
 from bigdl_tpu_torch.utils.device import resolve_device
 
@@ -76,7 +77,7 @@ def test_new_subpackages_are_part_of_the_port():
                 "resilience/serving_drill.py", "resilience/__main__.py",
                 "telemetry/registry.py", "telemetry/exposition.py",
                 "telemetry/tracing.py", "telemetry/catalogue.py",
-                "telemetry/profiling.py"):
+                "telemetry/profiling.py", "utils/cuda_graph.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -143,7 +144,8 @@ def test_build_lm_raises_without_card():
                                    "cast_model", "Optimizer", "resnet.build",
                                    "resnet.build_cifar", "roofline_hbm.main",
                                    "generate_speculative", "run_kill_drill",
-                                   "transformer.main"])
+                                   "transformer.main",
+                                   "Optimizer.set_steps_per_dispatch"])
 def test_entry_points_raise_without_card(entry):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -166,6 +168,10 @@ def test_entry_points_raise_without_card(entry):
         # the CLI's --device default: every subcommand goes to the card
         "transformer.main": lambda: transformer_app.main(
             ["generate", "--maxNewTokens", "2"]),
+        # k > 1 windows: CUDA graphs of k steps on the card
+        "Optimizer.set_steps_per_dispatch": lambda: Optimizer(
+            model, DataSet.array(synthetic_corpus(2, 4, 50)) >> SampleToBatch(2),
+            FusedLMHeadCriterion()).set_steps_per_dispatch(4).optimize(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -183,6 +189,11 @@ def test_entry_points_run_when_cpu_is_asked_for():
         assert len(server.submit([1, 2], 2, timeout=60)) == 2
     finally:
         server.close()
+    opt = Optimizer(_tiny(), DataSet.array(synthetic_corpus(4, 4, 50))
+                    >> SampleToBatch(2), FusedLMHeadCriterion(), device="cpu")
+    opt.set_steps_per_dispatch(2).set_end_when(Trigger.max_iteration(4))
+    opt.optimize()
+    assert [h["neval"] for h in opt.history] == [1, 2, 3, 4]
     net = resnet.build_cifar(10, 8, device="cpu").evaluate_mode()
     assert net(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
     assert next(resnet.build(10, 18, device="cpu").parameters()).device.type \
