@@ -15,10 +15,18 @@ the ``--llamaBlock`` recipe (RoPE, RMSNorm, SwiGLU and the unfused
 ``TimeDistributed(Linear) + LogSoftMax`` tail); the reference's
 non-rope default would be refused by its own engine.
 
+``generate --fromHF DIR`` and ``serve --fromHF DIR`` load an HF checkpoint
+directory (``interop/hf.py``) and its byte-level BPE tokenizer
+(``interop/hf_tokenizer.py``): ``--prompt`` is then text, and a served
+POST may carry ``{"text": ...}``. Without a tokenizer in DIR the prompt is
+raw HF ids (0-based), and ``generate``'s ``--eosId`` is an HF id in both
+cases, as in the reference.
+
 Options whose machinery is not ported yet stop with a message naming the
 ROADMAP item: ``--contextParallel``, ``--tensorParallel``, ``--moeExperts``
-(A.4), ``--textFile`` and ``--tokenizer`` (A.6), ``--fromHF`` (A.2),
-``--model``, ``--state``, ``--checkpoint`` and ``--draft`` (A.5).
+(A.4), ``--textFile``, ``--tokenizer`` and a SentencePiece checkpoint
+tokenizer (A.6), ``--model``, ``--state``, ``--checkpoint`` and ``--draft``
+(A.5).
 """
 
 from __future__ import annotations
@@ -134,16 +142,42 @@ def _twin(model, args):
 
 
 def _refuse_sources(args) -> None:
-    if args.fromHF:
-        _waits("--fromHF", "A.2 (interop/hf.py)")
+    if args.fromHF and args.model:
+        raise SystemExit("pass --model or --fromHF, not both")
+    if args.fromHF and args.tokenizer:
+        raise SystemExit("--fromHF does not compose with --tokenizer (a "
+                         "framework BPE vocab against an HF checkpoint's "
+                         "vocab would decode garbage); the checkpoint "
+                         "dir's own tokenizer loads automatically")
     if args.model:
         _waits("--model", "A.5 (utils/file_io.py)")
     if args.tokenizer:
         _waits("--tokenizer", "A.6 (the tokenizers)")
 
 
+def _from_hf(path: str, device: str):
+    """``(model, tokenizer or None)`` of an HF checkpoint directory. A
+    SentencePiece tokenizer stops the program (ROADMAP A.6); an unreadable
+    one leaves raw ids, as in the reference."""
+    from bigdl_tpu_torch.interop.hf import load_hf_checkpoint
+    from bigdl_tpu_torch.interop.hf_tokenizer import load_checkpoint_tokenizer
+    tok = None
+    try:
+        tok = load_checkpoint_tokenizer(path)
+        print(f"loaded {tok!r} from the checkpoint dir", file=sys.stderr)
+    except FileNotFoundError:
+        pass
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    except ValueError as e:  # present but unreadable
+        print(f"checkpoint tokenizer not readable ({e}); falling back to "
+              "raw HF ids", file=sys.stderr)
+    return load_hf_checkpoint(path, device=device), tok
+
+
 def generate_cmd(argv) -> None:
-    """Sample from a fresh synthetic-grammar LM."""
+    """Sample from an HF checkpoint (``--fromHF``) or from a fresh
+    synthetic-grammar LM."""
     import argparse
 
     import torch
@@ -154,7 +188,9 @@ def generate_cmd(argv) -> None:
         prog="bigdl_tpu_torch.apps.transformer generate")
     ap.add_argument("--model", default=None, help="saved model path")
     ap.add_argument("--fromHF", default=None, metavar="DIR",
-                    help="a HuggingFace checkpoint directory")
+                    help="a HuggingFace checkpoint directory (config.json + "
+                    "safetensors); with its tokenizer --prompt is text, "
+                    "else raw HF ids")
     ap.add_argument("--prompt", default="1,2,3",
                     help="comma-separated 1-based token ids")
     ap.add_argument("--maxNewTokens", type=int, default=32)
@@ -164,7 +200,8 @@ def generate_cmd(argv) -> None:
     ap.add_argument("--greedy", action="store_true")
     ap.add_argument("--numBeams", type=int, default=0)
     ap.add_argument("--lengthPenalty", type=float, default=1.0)
-    ap.add_argument("--eosId", type=int, default=None)
+    ap.add_argument("--eosId", type=int, default=None,
+                    help="end-of-sequence id (an HF id under --fromHF)")
     ap.add_argument("--repetitionPenalty", type=float, default=1.0)
     ap.add_argument("--minNewTokens", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -179,11 +216,25 @@ def generate_cmd(argv) -> None:
     if args.int8 and args.bf16:
         raise SystemExit("pick one of --int8 / --bf16")
     _refuse_sources(args)
-    ids = [int(t) for t in args.prompt.split(",") if t.strip()]
+    tok, hf_shift = None, 0
+    if args.fromHF:
+        model, tok = _from_hf(args.fromHF, args.device)
+        if args.eosId is not None:
+            args.eosId += 1  # the CLI's eos under --fromHF is an HF id
+        if tok is None:
+            hf_shift = 1  # HF ids are 0-based, the framework's 1-based
+    if tok is not None:
+        ids = tok.encode(args.prompt)
+        if args.eosId is None:
+            args.eosId = tok.eos_id
+    else:
+        ids = [int(t) + hf_shift for t in args.prompt.split(",") if t.strip()]
     if not ids:
-        raise SystemExit("empty prompt: pass at least one comma-separated "
-                         "1-based token id")
-    model = _twin(_default_model(args.device, rope=False), args)
+        raise SystemExit("empty prompt: pass at least one token (text with "
+                         "a checkpoint tokenizer, else comma-separated ids)")
+    if not args.fromHF:
+        model = _default_model(args.device, rope=False)
+    model = _twin(model, args)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     out = generate(model, [ids], args.maxNewTokens,
                    temperature=args.temperature, top_k=args.topK,
@@ -193,9 +244,14 @@ def generate_cmd(argv) -> None:
                    repetition_penalty=args.repetitionPenalty,
                    min_new_tokens=args.minNewTokens, generator=gen,
                    device=args.device)
-    row = out[0].tolist()               # one host transfer
-    print("prompt:      ", row[:len(ids)])
-    print("continuation:", row[len(ids):])
+    row = [t - hf_shift for t in out[0].tolist()]  # one host transfer
+    n0 = len(ids)
+    if tok is not None:
+        print("prompt:      ", repr(tok.decode(row[:n0])))
+        print("continuation:", repr(tok.decode(row[n0:])))
+    else:
+        print("prompt:      ", row[:n0])
+        print("continuation:", row[n0:])
 
 
 def serve_cmd(argv) -> None:
@@ -208,7 +264,8 @@ def serve_cmd(argv) -> None:
     ap = argparse.ArgumentParser(prog="bigdl_tpu_torch.apps.transformer serve")
     ap.add_argument("--model", default=None, help="saved model path")
     ap.add_argument("--fromHF", default=None, metavar="DIR",
-                    help="a HuggingFace checkpoint directory")
+                    help="a HuggingFace checkpoint directory; with its "
+                    "tokenizer a POST may carry {\"text\": ...}")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--maxBatch", type=int, default=8,
@@ -276,7 +333,14 @@ def serve_cmd(argv) -> None:
     from bigdl_tpu_torch.resilience.serving_drill import parse_split
 
     split = parse_split(args.disaggregate) if args.continuous else None
-    model = _twin(_default_model(args.device, rope=args.continuous), args)
+    tok = None
+    if args.fromHF:
+        model, tok = _from_hf(args.fromHF, args.device)
+    else:
+        model = _default_model(args.device, rope=args.continuous)
+    model = _twin(model, args)
+    if tok is not None and args.eosId is None:
+        args.eosId = tok.eos_id
     if args.continuous:
         server = _continuous_fleet(model, args, split)
     else:
@@ -287,7 +351,7 @@ def serve_cmd(argv) -> None:
                           top_p=args.topP, greedy=args.greedy,
                           eos_id=args.eosId, seed=args.seed,
                           device=args.device)
-    httpd = make_http_server(server, args.host, args.port)
+    httpd = make_http_server(server, args.host, args.port, tokenizer=tok)
 
     # graceful drain: SIGTERM flips the PreemptionHandler flag; the watcher
     # drains the server or fleet (in-flight requests leave as handoff

@@ -11,13 +11,16 @@ mapping with shape checks and no transposes. Token ids stay 1-based: id k
 reads row k-1 of ``embedding.weight`` on both sides.
 
     embedding.weight                                 (V, E)
+    pos_embedding.weight                             (max_len, E), learned
+                                                     positions only
     encoder.layers.{i}.self_attn.in_proj_weight      (E + 2*E_kv, E)
-    encoder.layers.{i}.self_attn.in_proj_bias        when bias
+    encoder.layers.{i}.self_attn.in_proj_bias        when bias or qkv_bias
     encoder.layers.{i}.self_attn.out_proj.weight     (E, E)
     encoder.layers.{i}.self_attn.out_proj.bias       when bias
     encoder.layers.{i}.linear1 / linear_gate / linear2 .{weight,bias}
     encoder.layers.{i}.norm1 / norm2 .{weight[,bias]} bias for LayerNorm only
-    encoder.norm.{weight[,bias]}                     final norm
+    encoder.norm.{weight[,bias]}                     final norm (absent in
+                                                     a post-norm stack)
     lm_head.{weight,bias}                            absent when tied; the
                                                      fused LMHead and the
                                                      unfused tail's Linear
@@ -31,7 +34,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.nn.attention import TransformerEncoder
+from bigdl_tpu_torch.nn.attention import (LearnedPositionalEncoding,
+                                          TransformerEncoder)
 from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 
@@ -60,12 +64,17 @@ def _named_params(model) -> List[Tuple[str, torch.nn.Module, str]]:
     """[(torch_name, module, parameter name)] in a fixed order."""
     emb, enc, head = _lm_parts(model)
     out = [("embedding.weight", emb, "weight")]
+    # GPT-2's learned table; the sinusoidal encoding is a constant
+    wpes = [m for m in model.modules()
+            if isinstance(m, LearnedPositionalEncoding)]
+    if wpes:
+        out.append(("pos_embedding.weight", wpes[0], "weight"))
     for i in range(enc.num_layers):
         layer = enc._modules[f"layer{i}"]
         p = f"encoder.layers.{i}"
         attn = layer.self_attn
         out.append((f"{p}.self_attn.in_proj_weight", attn, "in_proj_weight"))
-        if attn.with_bias:
+        if attn.with_bias or attn.qkv_bias:
             out.append((f"{p}.self_attn.in_proj_bias", attn, "in_proj_bias"))
         out.append((f"{p}.self_attn.out_proj.weight", attn, "out_proj_weight"))
         if attn.with_bias:
@@ -82,9 +91,10 @@ def _named_params(model) -> List[Tuple[str, torch.nn.Module, str]]:
             out.append((f"{p}.{norm_name}.weight", norm, "weight"))
             if "bias" in norm._parameters:
                 out.append((f"{p}.{norm_name}.bias", norm, "bias"))
-    out.append(("encoder.norm.weight", enc.final_norm, "weight"))
-    if "bias" in enc.final_norm._parameters:
-        out.append(("encoder.norm.bias", enc.final_norm, "bias"))
+    if enc.final_norm is not None:
+        out.append(("encoder.norm.weight", enc.final_norm, "weight"))
+        if "bias" in enc.final_norm._parameters:
+            out.append(("encoder.norm.bias", enc.final_norm, "bias"))
     if isinstance(head, TiedLMHead):
         return out  # the head is embedding.weight
     out.append(("lm_head.weight", head, "weight"))
@@ -99,23 +109,27 @@ def export_lm_state_dict(model) -> Dict[str, np.ndarray]:
             for name, mod, pname in _named_params(model)}
 
 
-def import_lm_state_dict(model, state_dict: Dict[str, Any]):
+def import_lm_state_dict(model, state_dict: Dict[str, Any],
+                         strict: bool = True):
     """Load torch-convention weights into a build_lm model in place.
 
-    Takes numpy arrays or anything ``np.asarray`` handles; missing and
-    unexpected keys are rejected (the reference's ``strict=True``). Every
-    shape is checked before anything is written, so a rejected dict leaves
-    the model as it was. Values are copied into the existing parameters, on
-    their device and in their dtype."""
+    Takes numpy arrays or anything ``np.asarray`` handles. A missing key is
+    always rejected; ``strict=True`` (torch's semantics) rejects unexpected
+    keys too, ``strict=False`` ignores them (the ``lm_head.weight`` that a
+    tied checkpoint may carry). Every shape is checked before anything is
+    written, so a rejected dict leaves the model as it was. Values are
+    copied into the existing parameters, on their device and in their
+    dtype."""
     entries = _named_params(model)
     missing = [n for n, _, _ in entries if n not in state_dict]
     if missing:
         raise KeyError(f"state_dict is missing {missing[:4]}"
                        f"{'...' if len(missing) > 4 else ''}")
     extra = sorted(set(state_dict) - {n for n, _, _ in entries})
-    if extra:
+    if strict and extra:
         raise KeyError(f"unexpected keys {extra[:4]}"
-                       f"{'...' if len(extra) > 4 else ''}")
+                       f"{'...' if len(extra) > 4 else ''} "
+                       "(strict=False to ignore)")
     staged = []
     for name, mod, pname in entries:
         val = np.array(state_dict[name], np.float32)  # an owned copy

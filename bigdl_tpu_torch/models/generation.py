@@ -10,9 +10,9 @@ Ported: ``filter_top_k``, ``filter_top_p``, ``sample_token`` (greedy, and
 the fused top-k / Gumbel-max path), ``generate`` with greedy, temperature,
 top-k and top-p sampling, ``eos_id`` / ``pad_id``, ``repetition_penalty``,
 ``min_new_tokens`` and beam search (``num_beams``, ``length_penalty``), and
-``generate_speculative`` (B=1, greedy or rejection-sampled). The rolling
-cache (ROADMAP A.1.4, after ``build_lm(window=)``) and ``mesh`` decoding
-(ROADMAP A.4) raise ``NotImplementedError``.
+``generate_speculative`` (B=1, greedy or rejection-sampled), and the
+rolling ring cache of sliding-window models (``rolling_cache=True``).
+``mesh`` decoding (ROADMAP A.4) raises ``NotImplementedError``.
 
 Beam search keeps the reference's tie order: among equal scores the lower
 (beam, token) index wins, as in ``jax.lax.top_k`` (a stable descending
@@ -44,7 +44,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.nn.attention import MultiHeadAttention, PositionalEncoding
+from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
+                                          _AddedPositionBase)
 from bigdl_tpu_torch.nn.linear import LMHead, Linear, TiedLMHead
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
@@ -122,7 +123,7 @@ def sample_token(logprobs: torch.Tensor, generator: Optional[torch.Generator],
 
 def _decode_modules(model: Module):
     mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
-    pes = [m for m in model.modules() if isinstance(m, PositionalEncoding)]
+    pes = [m for m in model.modules() if isinstance(m, _AddedPositionBase)]
     heads = [m for m in model.modules() if isinstance(m, (LMHead, TiedLMHead))]
     # a TimeDistributed is last-position-sliced only when it is plausibly
     # the vocab head (an inner Linear, exactly one instance): slicing one in
@@ -162,11 +163,11 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
     ``num_beams > 1`` is deterministic beam search (``_beam_search``): the
     best beam per row under the GNMT length penalty
     ``score / len ** length_penalty``; it does not compose with the
-    stochastic filters, ``repetition_penalty`` or ``min_new_tokens``."""
-    if rolling_cache:
-        raise NotImplementedError("the rolling KV cache is not ported yet "
-                                  "(ROADMAP A.1.4, after build_lm(window=), "
-                                  "A.2)")
+    stochastic filters, ``repetition_penalty`` or ``min_new_tokens``.
+
+    ``rolling_cache=True`` (every attention layer must have a ``window``)
+    decodes over ring caches of ``window`` slots instead of ``S +
+    max_new_tokens``; the tokens are the linear cache's."""
     if mesh is not None:
         raise NotImplementedError("mesh decoding is not ported yet "
                                   "(ROADMAP A.4)")
@@ -201,6 +202,10 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
                 f"max_new_tokens {total}; rebuild with a larger max_len")
     if pad_id is None:
         pad_id = eos_id if eos_id is not None else 1
+    if rolling_cache and any(not m.window for m in mhas):
+        raise ValueError("rolling_cache requires every attention layer to "
+                         "have a sliding window (window=N): an "
+                         "unbounded-context layer needs every past key")
     if generator is None and not greedy and num_beams <= 1:
         generator = torch.Generator(device=dev).manual_seed(0)
 
@@ -209,7 +214,7 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
         try:
             model.evaluate_mode()
             for m in mhas:
-                m.enable_decode(b, total)
+                m.enable_decode(b, total, rolling=rolling_cache)
             for m in pes + heads:
                 m.enable_decode()
             if num_beams > 1:
@@ -537,7 +542,7 @@ def _set_decode_pos(model: Module, value: int) -> None:
     encodings) to ``value``: the chunked prefill's rewind past the pads of
     a ragged final chunk."""
     for m in model.modules():
-        if isinstance(m, (MultiHeadAttention, PositionalEncoding)):
+        if isinstance(m, (MultiHeadAttention, _AddedPositionBase)):
             m.decode_pos = (torch.full_like(m.decode_pos, value)
                             if torch.is_tensor(m.decode_pos) else value)
 
@@ -550,7 +555,7 @@ def _shift_decode_pos(model: Module, delta: torch.Tensor) -> None:
     so that a CUDA graph of the round replays the rollback into the tensor
     the engine reads."""
     for m in model.modules():
-        if isinstance(m, (MultiHeadAttention, PositionalEncoding)):
+        if isinstance(m, (MultiHeadAttention, _AddedPositionBase)):
             if m.decode_pos is getattr(m, "_own_pos", None):
                 m.decode_pos.add_(delta)
             else:

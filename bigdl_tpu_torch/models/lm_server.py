@@ -252,8 +252,9 @@ def make_http_server(server, host: str, port: int, tokenizer=None):
     """Stdlib ``ThreadingHTTPServer`` speaking JSON in front of an
     ``LMServer``, a ``ContinuousLMServer`` or an ``LMRouter`` fleet:
 
-    POST /generate  {"prompt": [ids...]}, optional "max_new_tokens"
-                    -> {"ids": [...]}
+    POST /generate  {"prompt": [ids...]} or, with a ``tokenizer``,
+                    {"text": "..."}; optional "max_new_tokens"
+                    -> {"ids": [...]}, and "text" with a tokenizer
     GET  /health    -> {"ok": true, "batches_served": N, "queue_depth": N};
                     503 with "dead": reason or "draining": reason once a
                     continuous server has died or is draining, so that an
@@ -261,16 +262,12 @@ def make_http_server(server, host: str, port: int, tokenizer=None):
                     per-replica detail through ``health_extra``.
     GET  /metrics   -> Prometheus text of the server's ``registry``
 
-    Text prompts (``tokenizer=``) wait for the tokenizer port (ROADMAP
-    A.6) and raise."""
+    ``tokenizer`` is anything with ``encode(text) -> ids`` and
+    ``decode(ids) -> text`` in 1-based ids (``interop.hf_tokenizer``)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from bigdl_tpu_torch.telemetry import (PROMETHEUS_CONTENT_TYPE,
                                            render_prometheus)
-
-    if tokenizer is not None:
-        raise NotImplementedError("text prompts (tokenizer=) wait for the "
-                                  "tokenizer port: ROADMAP A.6")
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet; the caller logs
@@ -311,14 +308,24 @@ def make_http_server(server, host: str, port: int, tokenizer=None):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n) or b"{}")
-                if "prompt" not in body:
-                    return self._reply(400, {"error": "missing 'prompt' (ids)"})
-                ids = [int(t) for t in body["prompt"]]
+                if "prompt" in body:
+                    ids = [int(t) for t in body["prompt"]]
+                elif "text" in body:
+                    if tokenizer is None:
+                        return self._reply(400, {
+                            "error": "text prompts need --tokenizer"})
+                    ids = list(tokenizer.encode(str(body["text"])))
+                else:
+                    return self._reply(400, {
+                        "error": "missing 'prompt' (ids) or 'text'"})
                 cont = server.submit(ids, body.get("max_new_tokens"))
             except (ValueError, KeyError, TypeError) as e:
                 return self._reply(400, {"error": str(e)})
             except Exception as e:  # boundary: report, keep serving
                 return self._reply(500, {"error": str(e)})
-            self._reply(200, {"ids": cont})
+            payload = {"ids": cont}
+            if tokenizer is not None:
+                payload["text"] = tokenizer.decode(cont)
+            self._reply(200, payload)
 
     return ThreadingHTTPServer((host, port), Handler)

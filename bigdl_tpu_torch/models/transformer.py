@@ -8,7 +8,9 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax
-from bigdl_tpu_torch.nn.attention import PositionalEncoding, TransformerEncoder
+from bigdl_tpu_torch.nn.attention import (LearnedPositionalEncoding,
+                                          PositionalEncoding,
+                                          TransformerEncoder)
 from bigdl_tpu_torch.nn.containers import Sequential
 from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
@@ -22,74 +24,93 @@ _NOT_PORTED = {
     "seq_layout": ("contiguous", "A.4 (distributed plane)"),
     "moe_experts": (0, "A.4 (distributed plane: expert parallelism)"),
     "moe_k": (2, "A.4 (distributed plane: expert parallelism)"),
-    "head_bias": (None, "A.2 (model options)"),
-    "norm_eps": (None, "A.2 (model options)"),
-    "window": (None, "A.2 (model options)"),
-    "rope_scaling": (None, "A.2 (model options)"),
-    "qkv_bias": (False, "A.2 (model options)"),
 }
 
 
-def build_lm(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
-             ffn_dim: int = 256, num_layers: int = 2, max_len: int = 1024,
-             dropout: float = 0.0, fused_head: bool = False,
-             tie_embeddings: bool = False, rope: bool = False,
-             activation: str = "gelu",
-             norm: str = "layer", num_kv_heads: Optional[int] = None,
-             rope_theta: float = 10000.0, pos: str = "sinusoidal",
-             bias: bool = True, *, device: DeviceLike = "cuda",
-             seed: Optional[int] = None, **not_ported) -> Sequential:
+def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
+             **options) -> Sequential:
     """Causal LM: 1-based token ids (B, T) -> log-probs (B, T, vocab).
 
-    The arguments mirror the reference's ``build_lm``. ``rope=True,
-    activation="swiglu", norm="rms", bias=False, tie_embeddings=True`` with
-    ``num_kv_heads`` is the Llama block recipe. ``dropout`` goes into the
+    The model options are ``lm_modules``' arguments, which mirror the
+    reference's ``build_lm``. ``rope=True, activation="swiglu",
+    norm="rms", bias=False, tie_embeddings=True`` with ``num_kv_heads`` is
+    the Llama block recipe. ``dropout`` goes into the
     positional encoding (under RoPE a ``Dropout`` on the embedding stream)
     and into every block. The tail is ``TiedLMHead`` when
     ``tie_embeddings``, ``LMHead`` when ``fused_head``, and otherwise the
     reference's default ``TimeDistributed(Linear) + LogSoftMax``, which
     trains with ``TimeDistributedCriterion(ClassNLLCriterion())`` on the
-    (B, S, vocab) log-probs. Every other reference argument at a
-    non-default value raises ``NotImplementedError`` naming the ROADMAP
-    item that will port it.
+    (B, S, vocab) log-probs.
+
+    The checkpoint options (``interop/hf.py`` builds with them):
+    ``pos="learned"`` is GPT-2's trained ``wpe`` table in place of the
+    sinusoidal encoding (ignored under ``rope``); ``head_bias`` overrides
+    ``bias`` for an untied head; ``norm_eps`` sets every norm's epsilon;
+    ``window`` is sliding-window attention (query i sees keys
+    (i - window, i]); ``rope_scaling`` an HF ``rope_scaling`` dict
+    (``llama3``, ``linear``, ``yarn``); ``qkv_bias`` biases the q/k/v
+    projections only (Qwen2). The context-parallel and MoE arguments
+    (``seq_axis``, ``seq_mode``, ``seq_layout``, ``moe_experts``,
+    ``moe_k``) raise ``NotImplementedError`` at any non-default value,
+    naming the ROADMAP item that will port them.
 
     Parameters are drawn on the CPU from ``seed`` (PyTorch's global
     generator is left as it was) and then moved to ``device``."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"build_lm() got an unexpected argument {name!r}")
+    for name in _NOT_PORTED.keys() & options.keys():
         default, item = _NOT_PORTED[name]
+        value = options.pop(name)
         if value != default:
             raise NotImplementedError(
                 f"build_lm({name}={value!r}) is not ported yet: ROADMAP {item}")
-    if pos != "sinusoidal":
-        raise NotImplementedError(f"build_lm(pos={pos!r}) is not ported yet: "
-                                  "ROADMAP A.2 (model options)")
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         if seed is not None:
             torch.manual_seed(seed)
-        embed = LookupTable(vocab_size, embed_dim)
-        m = Sequential().add(embed)
-        if not rope:
+        m = lm_modules(*args, **options)
+    return m.to(dev)
+
+
+def lm_modules(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
+               ffn_dim: int = 256, num_layers: int = 2, max_len: int = 1024,
+               dropout: float = 0.0, fused_head: bool = False,
+               tie_embeddings: bool = False, rope: bool = False,
+               activation: str = "gelu", norm: str = "layer",
+               num_kv_heads: Optional[int] = None,
+               rope_theta: float = 10000.0, pos: str = "sinusoidal",
+               bias: bool = True, head_bias: Optional[bool] = None,
+               norm_eps: Optional[float] = None, window: Optional[int] = None,
+               rope_scaling: Optional[dict] = None,
+               qkv_bias: bool = False) -> Sequential:
+    """``build_lm``'s module tree, and the one list of its model options,
+    on the current default device, its parameters drawn from PyTorch's
+    default generator (the loaders of ``interop/hf.py`` build it on the
+    ``meta`` device, draw nothing, and give it the checkpoint's values)."""
+    embed = LookupTable(vocab_size, embed_dim)
+    m = Sequential().add(embed)
+    if not rope:
+        if pos == "learned":
+            m.add(LearnedPositionalEncoding(embed_dim, max_len, dropout))
+        elif pos == "sinusoidal":
             m.add(PositionalEncoding(embed_dim, max_len, dropout))
-        elif dropout:
-            # the embedding-stream dropout the positional encoding applies
-            m.add(Dropout(dropout))
-        m.add(TransformerEncoder(num_layers, embed_dim, num_heads, ffn_dim,
-                                 activation=activation, causal=True,
-                                 rope=rope, norm=norm,
-                                 num_kv_heads=num_kv_heads,
-                                 rope_theta=rope_theta, bias=bias,
-                                 dropout=dropout))
-        if tie_embeddings:
-            m.add(TiedLMHead(embed))
-        elif fused_head:
-            m.add(LMHead(embed_dim, vocab_size, with_bias=bias))
         else:
-            m.add(TimeDistributed(Linear(embed_dim, vocab_size,
-                                         with_bias=bias)))
-            m.add(LogSoftMax())
+            raise ValueError(f"unknown pos {pos!r}: 'sinusoidal' or 'learned'")
+    elif dropout:
+        # the embedding-stream dropout the positional encoding applies
+        m.add(Dropout(dropout))
+    m.add(TransformerEncoder(num_layers, embed_dim, num_heads, ffn_dim,
+                             activation=activation, causal=True, rope=rope,
+                             norm=norm, num_kv_heads=num_kv_heads,
+                             rope_theta=rope_theta, bias=bias, dropout=dropout,
+                             norm_eps=norm_eps, window=window,
+                             rope_scaling=rope_scaling, qkv_bias=qkv_bias))
+    hb = bias if head_bias is None else head_bias
+    if tie_embeddings:
+        m.add(TiedLMHead(embed))
+    elif fused_head:
+        m.add(LMHead(embed_dim, vocab_size, with_bias=hb))
+    else:
+        m.add(TimeDistributed(Linear(embed_dim, vocab_size, with_bias=hb)))
+        m.add(LogSoftMax())
     # plain attribute: rope models have no positional table to read it from
     m.lm_max_len = max_len
-    return m.to(dev)
+    return m

@@ -1,11 +1,14 @@
 """Module zoo of the port (counterpart of ``bigdl_tpu/nn``): the layers and
 criteria the transformer LM slices and the ResNet slice need."""
 
-from bigdl_tpu_torch.nn.attention import (LayerNorm, MultiHeadAttention,
+from bigdl_tpu_torch.nn.attention import (LayerNorm,
+                                          LearnedPositionalEncoding,
+                                          MultiHeadAttention,
                                           PositionalEncoding, RMSNorm,
                                           TransformerEncoder,
                                           TransformerEncoderLayer,
-                                          rope_rotate)
+                                          llama3_scale_freqs, rope_rotate,
+                                          scale_rope_freqs)
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU
 from bigdl_tpu_torch.nn.containers import (CAddTable, ConcatTable, Container,
                                            Identity, Sequential)
@@ -29,10 +32,11 @@ from bigdl_tpu_torch.nn.shape import Padding, Reshape
 __all__ = ["BatchNormalization", "blend_running_stats", "CAddTable",
            "ClassNLLCriterion", "ConcatTable", "Container", "Criterion",
            "Dropout", "FusedConv1x1BN", "FusedConv3x3BN",
-           "FusedLMHeadCriterion", "Identity", "LayerNorm", "Linear", "LMHead",
+           "FusedLMHeadCriterion", "Identity", "LayerNorm",
+           "LearnedPositionalEncoding", "Linear", "llama3_scale_freqs", "LMHead",
            "LogSoftMax", "LookupTable", "Module", "MultiHeadAttention",
            "Padding", "PositionalEncoding", "ReLU", "Reshape", "RMSNorm",
-           "rope_rotate", "Sequential", "SpaceToDepthConv7",
+           "rope_rotate", "scale_rope_freqs", "Sequential", "SpaceToDepthConv7",
            "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling", "stem_conv7",
            "TiedLMHead", "TimeDistributed", "TimeDistributedCriterion", "TransformerEncoder",

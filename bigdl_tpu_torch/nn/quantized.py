@@ -62,8 +62,8 @@ class _QuantizedMixin:
             self.register_buffer(name + "_scale", scale)
         _freeze(self)
 
-    def _bias(self, name: str = "bias"):
-        return self._buffers[name] if self.with_bias else None
+    def _bias(self):
+        return self._buffers["bias"] if self.with_bias else None
 
     def _check_eval(self):
         if self.training:
@@ -109,9 +109,8 @@ class QuantizedMultiHeadAttention(_QuantizedMixin, MultiHeadAttention):
         e, ekv = self.embed_dim, self._e_kv
         wq, sq = self.in_proj_weight_q, self.in_proj_weight_scale
         cd = self.compute_dtype
-        bias = self._bias("in_proj_bias")
-        bq, bk, bv = ((bias[:e], bias[e:e + ekv], bias[e + ekv:])
-                      if bias is not None else (None, None, None))
+        # under qkv_bias (Qwen2) the q/k/v rows carry a bias without with_bias
+        bq, bk, bv = self._in_bias()
         return (int8_matmul(x, wq[:e], sq[:e], bq, cd),
                 int8_matmul(x, wq[e:e + ekv], sq[e:e + ekv], bk, cd),
                 int8_matmul(x, wq[e + ekv:], sq[e + ekv:], bv, cd))

@@ -34,7 +34,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[1]
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
-    logits = torch.einsum("bqnd,bknd->bnqk", q, k) * scale
+    # mixed dtypes (an int8 twin's biased f32 q against its bf16 cache)
+    # promote, as the reference's einsums do
+    qk = torch.promote_types(q.dtype, k.dtype)
+    logits = torch.einsum("bqnd,bknd->bnqk", q.to(qk), k.to(qk)) * scale
     logits = logits.float()
     if mask is not None:
         logits = logits + torch.where(
@@ -52,4 +55,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kept = torch.rand(weights.shape, generator=generator,
                           device=weights.device) < 1.0 - dropout_p
         weights = torch.where(kept, weights, 0.0) / (1.0 - dropout_p)
-    return torch.einsum("bnqk,bknd->bqnd", weights.to(q.dtype), v)
+    wv = torch.promote_types(q.dtype, v.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", weights.to(q.dtype).to(wv),
+                        v.to(wv))

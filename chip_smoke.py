@@ -30,7 +30,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    K7b at every lag and deal (``check_hbm_roof``); K7c's ranges side by
    side by their %globaltimer stamps; when K7b's blocks end under each
    deal (stamps); and the operation that ``Tensor.copy_`` (the probe's
-   library copy) runs;
+   library copy) runs; and for phase 3g's models K4 at M in (1, 4, 8, 33,
+   65, 128, 160, 256) over every new weight shape (50257x768, the
+   Qwen2-0.5B and Llama-3.2-1B projections and heads, the stacked Qwen2
+   q/k/v rows and bias slices)
+   and K1 at B=4 S=384 D=64 bf16 causal with N = 14 and 32
+   (``check_published_kernels``);
 3. slice: the 134M Llama-recipe LM (``scripts/int8_decode_bench.py``'s
    ``134m`` config: V=32000, E=768, 12 heads, 4 kv heads, FFN 3072, 12
    layers, RoPE, SwiGLU, RMSNorm, tied embeddings) built from a seed at full
@@ -110,6 +115,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``mma``, through the replay accounting; ms an iteration, peak memory
    and the busy share of two replayed windows beside k = 1's. A ``graphs``
    line gathers the captures, replays and both halves' readings;
+3g. published checkpoints (after phase 3f's serving half, each model
+   freed before the next): (a) the vendored ``tests/resources/
+   hf_tiny_gpt2/`` loaded on the card at f32, its log-probs within 5e-5 of
+   ``transformers``' golden ones, and ``generate --fromHF`` with a text
+   prompt as a subprocess, its text equal to a direct ``generate``; (b)
+   GPT-2 small (``openai-community/gpt2``'s config, 124,439,808
+   parameters) from seed 21 through ``save_hf_checkpoint`` and
+   ``load_hf_checkpoint`` (every parameter bit-equal), its bf16 and int8
+   twins serving phase 3's traffic through ``LMServer``, every answer
+   equal to ``generate``, K1 12 launches a prefill (``mma`` for bf16; the
+   int8 twin's f32 biases make its q/k/v f32, so ``fma``), K4 73 a decode
+   forward; (c) Llama-3.2-1B (``llama3`` rope scaling, GQA 32/8,
+   1,235,814,400 parameters) from seed 22 through
+   ``export_llama_state_dict`` and ``load_llama``, both twins ``generate``
+   on 4 x 384 tokens (K1 16 ``mma``, K4 113 a forward), ms a decode token;
+   (d) Qwen2-0.5B (q/k/v biases, 494,032,768 parameters) from HF-named
+   arrays made from seed 23, both twins through one ``ContinuousLMServer``
+   round of 16 requests (K4 169 a forward, no dequantize, no K1), every
+   answer held to ``generate``; (e) the 134m recipe with ``window=128``:
+   ``generate`` with the rolling and the linear cache give equal tokens,
+   one continuous round held to ``generate``, and K1 never launched.
+   Every served token within GAP_TOL of a teacher-forced forward;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
    grammar, through K1/K2/K3 (their ``fma`` variants, no ``mma`` launch),
@@ -150,7 +177,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    from a seed, and each distinct shape alone, with an empty kernel
    launched as often for the least time of a launch; ``continuous``: the
    85 at phase 3d's M = 8, 40 and 128; ``serving_plane``: at phase 3e's
-   verification, M = 5; K1's ``beam_prefill``: B=2 S=128) and K5 and K6 (at
+   verification, M = 5; ``published``: one int8 decode token of each phase
+   3g model at M = 4, and its vocab head alone; K1's ``beam_prefill``: B=2
+   S=128; ``llama32_1b_prefill``: B=4 S=384 N=32) and K5 and K6 (at
    ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
    library time is the cuBLAS product or the cuDNN conv plus one
    ``torch.var_mean`` of its output; K5 also at each of the training
@@ -167,7 +196,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
-3f (the rounds served and the k = 4 training) and 3b.
+3f (the rounds served and the k = 4 training), 3g and 3b.
 
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
@@ -290,10 +319,10 @@ def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     ``stage4`` and ``train``, and K4's ``shapes``, too)."""
     entry["bound_measured_ms"] = max(entry["bytes"] / hbm_bytes_per_s,
                                      entry["operations"] / BF16_OPS_PER_S) * 1e3
-    for second in ("stage4", "train", "beam_prefill"):
+    for second in ("stage4", "train", "beam_prefill", "llama32_1b_prefill"):
         if second in entry:
             add_measured_bound(entry[second], hbm_bytes_per_s)
-    for key in ("shapes", "continuous", "serving_plane"):
+    for key in ("shapes", "continuous", "serving_plane", "published"):
         for shape in entry.get(key, {}).values():
             add_measured_bound(shape, hbm_bytes_per_s)
     return entry
@@ -1794,7 +1823,8 @@ def metric_value(text: str, name: str) -> float:
     raise RuntimeError(f"check failed: {name} missing from /metrics")
 
 
-def held_to_generate(name, model, prompts, answers) -> dict:
+def held_to_generate(name, model, prompts, answers, vocab=VOCAB,
+                     tol=None) -> dict:
     """Each answer against a direct greedy ``generate`` of its prompt:
     equal, or (a requeue's chunked re-prefill or a bucketed prefill rounds
     apart from the step decode) within GAP_TOL under a teacher-forced
@@ -1804,15 +1834,16 @@ def held_to_generate(name, model, prompts, answers) -> dict:
     for i, (p, a) in enumerate(zip(prompts, answers)):
         want = generate(model, [p], NEW_TOKENS, greedy=True,
                         device=CONT_DEVICE)[0, len(p):].tolist()
-        check(len(a) == NEW_TOKENS and all(1 <= t <= VOCAB for t in a),
-              f"{name} fleet: malformed answer {i}")
+        check(len(a) == NEW_TOKENS and all(1 <= t <= vocab for t in a),
+              f"{name}: malformed answer {i}")
         if a != want:
             differing.append({"request": i, "position": next(
                 j for j, (x, y) in enumerate(zip(a, want)) if x != y)})
     gap = greedy_gap(model, list(zip(prompts, answers)))
-    check(not differing or gap <= GAP_TOL[name],
-          f"{name} fleet: answers differ from generate at {differing} with "
-          f"a teacher-forced gap {gap} > {GAP_TOL[name]}")
+    tol = GAP_TOL[name] if tol is None else tol
+    check(not differing or gap <= tol,
+          f"{name}: answers differ from generate at {differing} with "
+          f"a teacher-forced gap {gap} > {tol}")
     return {"equal_to_generate": len(prompts) - len(differing),
             "differing": differing, "greedy_gap": gap}
 
@@ -2299,6 +2330,504 @@ def run_graph_serving(models: dict, cont: dict) -> dict:
     row["phase_s"] = time.perf_counter() - t_phase
     log({"graphs_serving": row})
     return {"int8_matmul": k4_launches}, row
+
+
+# ------------------------------------------ 3g. published checkpoints
+HF_FIXTURE = os.path.join("tests", "resources", "hf_tiny_gpt2")
+HF_FIXTURE_BOUND = 5e-5     # tests/test_hf_interop.py's bound on its goldens
+FIXTURE_PROMPT, FIXTURE_NEW = "Hello world, this is a test", 8
+#: openai-community/gpt2's config.json: the fields the computation reads
+GPT2_SMALL = {"model_type": "gpt2", "vocab_size": 50257, "n_positions": 1024,
+              "n_ctx": 1024, "n_embd": 768, "n_layer": 12, "n_head": 12,
+              "n_inner": None, "activation_function": "gelu_new",
+              "layer_norm_epsilon": 1e-05, "scale_attn_weights": True,
+              "scale_attn_by_inverse_layer_idx": False,
+              "tie_word_embeddings": True}
+#: meta-llama/Llama-3.2-1B's config.json
+LLAMA32_1B = {"model_type": "llama", "vocab_size": 128256,
+              "hidden_size": 2048, "intermediate_size": 8192,
+              "num_hidden_layers": 16, "num_attention_heads": 32,
+              "num_key_value_heads": 8, "max_position_embeddings": 131072,
+              "rope_theta": 500000.0,
+              "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                               "low_freq_factor": 1.0,
+                               "high_freq_factor": 4.0,
+                               "original_max_position_embeddings": 8192},
+              "rms_norm_eps": 1e-05, "hidden_act": "silu",
+              "attention_bias": False, "mlp_bias": False,
+              "tie_word_embeddings": True}
+#: Qwen/Qwen2-0.5B's config.json
+QWEN2_05B = {"model_type": "qwen2", "vocab_size": 151936, "hidden_size": 896,
+             "intermediate_size": 4864, "num_hidden_layers": 24,
+             "num_attention_heads": 14, "num_key_value_heads": 2,
+             "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+             "rms_norm_eps": 1e-06, "hidden_act": "silu",
+             "use_sliding_window": False, "sliding_window": 131072,
+             "max_window_layers": 24, "tie_word_embeddings": True}
+#: each model's parameters, from its model card
+PUBLISHED_PARAMS = {"gpt2": 124_439_808, "llama32_1b": 1_235_814_400,
+                    "qwen2_05b": 494_032_768}
+PUBLISHED_SEEDS = {"gpt2": 21, "llama32_1b": 22, "qwen2_05b": 23}
+LLAMA_PROMPTS = 4
+QWEN_REQUESTS = 16
+WINDOW, WINDOW_NEW = 128, 64    # (e): the 134m recipe, a window that binds
+
+
+def published_decode_shapes(name: str) -> list:
+    """(O, K) of the K4 launches of one int8 decode token of a phase 3g
+    model, in the order it runs them: per layer q, k, v, out and the FFN's
+    two (GPT-2) or three (SwiGLU) matmuls, then the tied head."""
+    if name == "gpt2":
+        e, f = GPT2_SMALL["n_embd"], 4 * GPT2_SMALL["n_embd"]
+        layer = [(e, e)] * 4 + [(f, e), (e, f)]
+        return layer * GPT2_SMALL["n_layer"] + [(GPT2_SMALL["vocab_size"], e)]
+    cfg = LLAMA32_1B if name == "llama32_1b" else QWEN2_05B
+    e, f = cfg["hidden_size"], cfg["intermediate_size"]
+    e_kv = e // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+    layer = [(e, e), (e_kv, e), (e_kv, e), (e, e), (f, e), (f, e), (e, f)]
+    return layer * cfg["num_hidden_layers"] + [(cfg["vocab_size"], e)]
+
+
+# K4's rows in phase 3g: a decode token at 1, 4 (``LMServer``, ``generate``)
+# and 8 slots; a continuous prefill chunk (128); the b=1 ``generate``
+# prefills and teacher-forced forwards of ragged prompts (33, 65, 160); and
+# the top of K4's rule (256)
+PUBLISHED_K4_ROWS = (1, REQUESTS_PER_LEN, 8, 33, 65, 128, 160, 256)
+
+
+def check_published_kernels() -> dict:
+    """Phase 2's cases for phase 3g's shapes: K4 through the public
+    ``int8_matmul`` (compute dtype f32; bf16 x, with and without a bias,
+    two runs with the same bits) at M in PUBLISHED_K4_ROWS over every
+    distinct weight shape of the three models and over the q/k/v rows and
+    bias slices of a stacked Qwen2 projection; K1 at B=4 S=384 D=64, bf16,
+    causal, with N = 14 (Qwen2-0.5B) and 32 (Llama-3.2-1B), the ``mma``
+    variant. Tolerances as phase 2's."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    shapes = sorted({s for name in PUBLISHED_PARAMS
+                     for s in published_decode_shapes(name)} - {
+        (768, 768), (3072, 768), (768, 3072)})   # phase 2's already
+    worst = {"int8_matmul": 0.0, "flash_fwd": 0.0}
+
+    def one(m, w, s, bias, what):
+        x = torch.randn((m, w.shape[1]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for b in (None, bias):
+            y = int8_matmul(x, w, s, b, torch.float32)
+            again = int8_matmul(x, w, s, b, torch.float32)
+            ref = int8_matmul_plain(x, w, s.reshape(-1))
+            if b is not None:
+                ref = ref + b
+            err = (y - ref).abs().max().item()
+            tol = INT8_RTOL * ref.abs().max().item()
+            check(err <= tol and torch.equal(y, again),
+                  f"int8 {what} M={m} bias={b is not None}: err {err} > "
+                  f"{tol}, or two runs differ")
+            worst["int8_matmul"] = max(worst["int8_matmul"], err)
+
+    cases = 0
+    for o, kd in shapes:
+        w = torch.randint(-127, 128, (o, kd), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((o, 1), generator=gen, device="cuda") * 1e-2 + 1e-3
+        bias = torch.randn((o,), generator=gen, device="cuda")
+        for m in PUBLISHED_K4_ROWS:
+            one(m, w, s, bias, f"O={o} K={kd}")
+            cases += 2
+    # Qwen2's stacked q;k;v rows and its bias, sliced as the model slices
+    e, e_kv = QWEN2_05B["hidden_size"], 128
+    w = torch.randint(-127, 128, (e + 2 * e_kv, e), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    s = torch.rand((e + 2 * e_kv, 1), generator=gen, device="cuda") * 1e-2
+    bias = torch.randn((e + 2 * e_kv,), generator=gen, device="cuda")
+    for lo, hi in ((0, e), (e, e + e_kv), (e + e_kv, e + 2 * e_kv)):
+        for m in PUBLISHED_K4_ROWS:
+            one(m, w[lo:hi], s[lo:hi], bias[lo:hi], f"qwen2 rows {lo}:{hi}")
+            cases += 2
+    variants = {}
+    for n in (QWEN2_05B["num_attention_heads"],
+              LLAMA32_1B["num_attention_heads"]):
+        q, k, v = _qkv(gen, REQUESTS_PER_LEN, PROMPT_LENS[0], PROMPT_LENS[0],
+                       n, 64, torch.bfloat16)
+        variant, (o, lse) = launched_variant(
+            [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+            lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
+        po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+        err_o, ok_o = flash_o_close(o, po)
+        err_l = (lse - plse).abs().max().item()
+        check(ok_o and err_l <= FLASH_ATOL and variant == "mma",
+              f"flash bf16 B=4 S=384 N={n}: |dO|={err_o} |dLSE|={err_l}, "
+              f"variant {variant}")
+        variants[f"N={n}"] = variant
+        worst["flash_fwd"] = max(worst["flash_fwd"], err_o)
+    log({"check": "published_kernels", "k4_shapes": len(shapes),
+         "k4_rows": PUBLISHED_K4_ROWS, "k4_cases": cases, "k1": variants, "max_abs_err": worst})
+    return worst
+
+
+def counted(launches: dict, fn):
+    """Runs ``fn`` with every count zeroed just before; returns its result
+    and its (K1, K1 mma, K4, dequantize) counts, added to ``launches``."""
+    from bigdl_tpu_torch.ops import flash_attention, int8_matmul
+    counters = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_MMA,
+                int8_matmul.LAUNCHES, int8_matmul.DEQUANT_CALLS)
+    for c in counters:
+        c.reset()
+    out = fn()
+    got = tuple(c.value for c in counters)
+    for key, n in zip(("flash_fwd", "flash_fwd_mma", "int8_matmul"), got):
+        launches[key] += n
+    return out, got
+
+
+def sync() -> None:
+    if CONT_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def n_params(model) -> int:
+    return sum(t.numel() for t in model.parameters())
+
+
+def published_fixture() -> dict:
+    """(a) The vendored GPT-2 (``tests/resources/hf_tiny_gpt2/``) loaded on
+    the card at f32: its log-probs of the golden ids within
+    HF_FIXTURE_BOUND of ``transformers``' golden ones; then ``generate
+    --fromHF`` as a subprocess on the card, whose text must equal a direct
+    ``generate`` on the tokenizer's ids."""
+    from bigdl_tpu_torch.interop.hf import load_hf_checkpoint, to_framework_ids
+    from bigdl_tpu_torch.interop.hf_tokenizer import load_checkpoint_tokenizer
+    from bigdl_tpu_torch.models.generation import generate
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, HF_FIXTURE)
+    model = load_hf_checkpoint(path, device=CONT_DEVICE)
+    check(next(model.parameters()).device.type == CONT_DEVICE,
+          "the fixture loaded off the card")
+    ids = np.load(os.path.join(path, "golden_input_ids.npy"))
+    gold = np.load(os.path.join(path, "golden_logprobs.npy"))
+    with torch.inference_mode():
+        lp = model(torch.as_tensor(to_framework_ids(ids), device=CONT_DEVICE))
+    err = float(np.abs(lp.float().cpu().numpy() - gold).max())
+    check(lp.shape == gold.shape and err <= HF_FIXTURE_BOUND,
+          f"fixture log-probs {err} from transformers' golden ones")
+    tok = load_checkpoint_tokenizer(path)
+    prompt = tok.encode(FIXTURE_PROMPT)
+    direct = generate(model, [prompt], FIXTURE_NEW, greedy=True,
+                      eos_id=tok.eos_id, device=CONT_DEVICE)[0].tolist()
+    want = repr(tok.decode(direct[len(prompt):]))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer", "generate",
+         "--fromHF", path, "--prompt", FIXTURE_PROMPT, "--maxNewTokens",
+         str(FIXTURE_NEW), "--greedy", "--device", CONT_DEVICE], cwd=root, capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    lines = out.stdout.strip().splitlines()
+    got = lines[-1].split(":", 1)[1].strip() if lines else None
+    check(out.returncode == 0 and got == want,
+          f"generate --fromHF printed {out.stdout[-300:]!r} (rc "
+          f"{out.returncode}, stderr {out.stderr[-800:]!r}); direct "
+          f"generate gives {want}")
+    return {"max_abs_err_vs_golden": err, "bound": HF_FIXTURE_BOUND,
+            "cli_continuation": want, "cli_s": time.perf_counter() - t0}
+
+
+def published_gpt2(launches: dict) -> dict:
+    """(b) GPT-2 small at full width from a seed, through the directory:
+    ``save_hf_checkpoint`` (f32) and ``load_hf_checkpoint`` on the card,
+    every parameter bit-equal; then its bf16 and int8 twins serve phase 3's
+    traffic through ``LMServer``, every answer equal to ``generate`` and
+    within GAP_TOL of a teacher-forced forward; K1 12 launches a prefill
+    (``mma`` for bf16; the int8 twin's biases are f32, so its q/k/v are
+    too and K1 takes ``fma``), K4 73 a decode forward."""
+    import tempfile
+
+    from bigdl_tpu_torch.interop.hf import (gpt2_lm_kwargs,
+                                            load_hf_checkpoint,
+                                            save_hf_checkpoint)
+    from bigdl_tpu_torch.interop.state_dict import _named_params
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    kwargs = gpt2_lm_kwargs(GPT2_SMALL)
+    vocab, layers = kwargs["vocab_size"], kwargs["num_layers"]
+    res = {"config": "openai-community/gpt2"}
+    t0 = time.perf_counter()
+    base = build_lm(**kwargs, device=CONT_DEVICE,
+                    seed=PUBLISHED_SEEDS["gpt2"]).evaluate_mode()
+    res["params"] = n_params(base)
+    check(res["params"] == PUBLISHED_PARAMS["gpt2"],
+          f"gpt2 has {res['params']} parameters")
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        save_hf_checkpoint(base, d)
+        res["save_s"] = time.perf_counter() - t1
+        res["checkpoint_mb"] = sum(os.path.getsize(os.path.join(d, f))
+                                   for f in os.listdir(d)) / 1e6
+        t1 = time.perf_counter()
+        loaded = load_hf_checkpoint(d, device=CONT_DEVICE)
+        sync()
+        res["load_s"] = time.perf_counter() - t1
+    pairs = zip(_named_params(base), _named_params(loaded))
+    check(all(torch.equal(a[1]._parameters[a[2]], b[1]._parameters[b[2]])
+              for a, b in pairs), "gpt2: a reloaded parameter differs")
+    del loaded
+    twins = {"bf16": cast_model(base, torch.bfloat16, device=CONT_DEVICE),
+             "int8": quantize_model(base, torch.bfloat16, device=CONT_DEVICE)}
+    del base
+    res["build_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    groups = {s: [rng.integers(1, vocab + 1, s).tolist()
+                  for _ in range(REQUESTS_PER_LEN)] for s in PROMPT_LENS}
+    prompts = [p for s in PROMPT_LENS for p in groups[s]]
+    per_fwd = 6 * layers + 1      # q, k, v, out, fc, proj; the head
+    for name, model in twins.items():
+        (results, batches, seconds), got = counted(
+            launches, lambda: serve(model, prompts))
+        k1, k1_mma, k4, deq = got
+        check(batches == len(PROMPT_LENS), f"gpt2 {name}: {batches} batches")
+        want = (layers * batches, layers * batches if name == "bf16" else 0,
+                (1 + per_fwd * (NEW_TOKENS - 1)) * batches
+                if name == "int8" else 0,
+                (per_fwd - 1) * batches if name == "int8" else 0)
+        check(got == want, f"gpt2 {name}: (K1, K1 mma, K4, dequantize) "
+                           f"counted {got}, the structure gives {want}")
+        for s in PROMPT_LENS:
+            direct = generate(model, groups[s], NEW_TOKENS, greedy=True,
+                              device=CONT_DEVICE)[:, s:].cpu().tolist()
+            for p, w in zip(groups[s], direct):
+                got_a = results[prompts.index(p)]
+                check(got_a == w and all(1 <= t <= vocab for t in got_a),
+                      f"gpt2 {name}: LMServer answer != generate ({s})")
+        gap = greedy_gap(model, list(zip(prompts, results)))
+        check(gap <= GAP_TOL[name], f"gpt2 {name}: greedy gap {gap}")
+        res[name] = {"serve_s": seconds, "tokens_per_s":
+                     len(prompts) * NEW_TOKENS / seconds, "k1": k1,
+                     "k1_mma": k1_mma, "k4": k4, "dequant": deq,
+                     "greedy_gap": gap, "answers_equal_generate": True}
+    del twins
+    torch.cuda.empty_cache()
+    return res
+
+
+def timed_generate(model, batch, n: int) -> float:
+    """Wall seconds of one greedy ``generate`` (ends in a synchronize)."""
+    from bigdl_tpu_torch.models.generation import generate
+    sync()
+    t0 = time.perf_counter()
+    generate(model, batch, n, greedy=True, device=CONT_DEVICE)
+    sync()
+    return time.perf_counter() - t0
+
+
+def published_llama(launches: dict) -> dict:
+    """(c) Llama-3.2-1B at full width, ``llama3`` rope scaling: HF-named
+    weights from a seeded ``build_lm`` (``export_llama_state_dict``) into
+    ``load_llama`` on the card; the bf16 and int8 twins each ``generate``
+    on 4 prompts of 384 tokens, 32 new, greedy, within GAP_TOL of a
+    teacher-forced forward; K1 16 launches (``mma``), K4 113 a decode
+    forward; ms per decode token."""
+    from bigdl_tpu_torch.interop.hf import (export_llama_state_dict,
+                                            llama_lm_kwargs, load_llama)
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    kwargs = llama_lm_kwargs(LLAMA32_1B)
+    vocab, layers = kwargs["vocab_size"], kwargs["num_layers"]
+    res = {"config": "meta-llama/Llama-3.2-1B"}
+    t0 = time.perf_counter()
+    seeded = build_lm(**kwargs, device=CONT_DEVICE,
+                      seed=PUBLISHED_SEEDS["llama32_1b"])
+    sd = export_llama_state_dict(seeded)
+    del seeded
+    res["seed_and_export_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    model = load_llama(LLAMA32_1B, sd, device=CONT_DEVICE)
+    del sd
+    sync()
+    res["load_s"] = time.perf_counter() - t1
+    res["params"] = n_params(model)
+    check(res["params"] == PUBLISHED_PARAMS["llama32_1b"],
+          f"llama32_1b has {res['params']} parameters")
+    mha = model[1]._modules["layer0"].self_attn
+    check(mha.rope_scaling == LLAMA32_1B["rope_scaling"]
+          and mha.num_kv_heads == LLAMA32_1B["num_key_value_heads"],
+          "llama32_1b: rope scaling or GQA lost")
+    twins = {"bf16": cast_model(model, torch.bfloat16, device=CONT_DEVICE),
+             "int8": quantize_model(model, torch.bfloat16, device=CONT_DEVICE)}
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(1, vocab + 1, PROMPT_LENS[0]).tolist()
+               for _ in range(LLAMA_PROMPTS)]
+    batch = torch.as_tensor(prompts, device=CONT_DEVICE)
+    per_fwd = 7 * layers + 1
+    for name, twin in twins.items():
+        out, got = counted(launches, lambda: generate(
+            twin, batch, NEW_TOKENS, greedy=True, device=CONT_DEVICE))
+        int8 = name == "int8"
+        want = (layers, layers, 1 + per_fwd * (NEW_TOKENS - 1) if int8 else 0,
+                per_fwd - 1 if int8 else 0)
+        check(got == want, f"llama32_1b {name}: (K1, K1 mma, K4, "
+                           f"dequantize) counted {got}, the structure "
+                           f"gives {want}")
+        answers = out[:, PROMPT_LENS[0]:].cpu().tolist()
+        check(all(len(a) == NEW_TOKENS and all(1 <= t <= vocab for t in a)
+                  for a in answers), f"llama32_1b {name}: malformed answer")
+        gap = greedy_gap(twin, list(zip(prompts, answers)))
+        check(gap <= GAP_TOL[name], f"llama32_1b {name}: greedy gap {gap}")
+        t_one = min(timed_generate(twin, batch, 1) for _ in range(2))
+        t_all = min(timed_generate(twin, batch, NEW_TOKENS) for _ in range(2))
+        res[name] = {"k1": got[0], "k1_mma": got[1], "k4": got[2],
+                     "dequant": got[3], "greedy_gap": gap,
+                     "prefill_ms": t_one * 1e3,
+                     "decode_ms_per_token": (t_all - t_one)
+                     / (NEW_TOKENS - 1) * 1e3,
+                     "tokens_per_s": LLAMA_PROMPTS * NEW_TOKENS / t_all}
+    res["phase_s"] = time.perf_counter() - t0
+    del twins
+    torch.cuda.empty_cache()
+    return res
+
+
+def published_qwen2(launches: dict) -> dict:
+    """(d) Qwen2-0.5B at full width, q/k/v biases: HF-named arrays made
+    here (a seeded Llama-shaped ``build_lm``'s ``export_llama_state_dict``
+    and the q/k/v biases from a seed; the reference exports no Qwen2) into
+    ``load_qwen2`` on the card; the bf16 and int8 twins each serve one
+    ``ContinuousLMServer`` round (16 requests of 33-384 tokens, 32 new),
+    every answer held to ``generate``; no K1 (chunked prefill), K4 169 a
+    forward (M = 1 to 128 rows, K = 896 and 4864, the bias slices) and no
+    dequantize."""
+    from bigdl_tpu_torch.interop.hf import (export_llama_state_dict,
+                                            load_qwen2, qwen2_lm_kwargs)
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+    kwargs = qwen2_lm_kwargs(QWEN2_05B)
+    vocab, layers = kwargs["vocab_size"], kwargs["num_layers"]
+    res = {"config": "Qwen/Qwen2-0.5B"}
+    t0 = time.perf_counter()
+    seeded = build_lm(**dict(kwargs, qkv_bias=False), device=CONT_DEVICE,
+                      seed=PUBLISHED_SEEDS["qwen2_05b"])
+    sd = export_llama_state_dict(seeded)
+    del seeded
+    rng = np.random.default_rng(PUBLISHED_SEEDS["qwen2_05b"])
+    e = kwargs["embed_dim"]
+    e_kv = e // kwargs["num_heads"] * kwargs["num_kv_heads"]
+    for i in range(layers):
+        for x, n in (("q", e), ("k", e_kv), ("v", e_kv)):
+            sd[f"model.layers.{i}.self_attn.{x}_proj.bias"] = (
+                0.1 * rng.standard_normal(n)).astype(np.float32)
+    model = load_qwen2(QWEN2_05B, sd, device=CONT_DEVICE)
+    res["build_and_load_s"] = time.perf_counter() - t0
+    res["params"] = n_params(model)
+    check(res["params"] == PUBLISHED_PARAMS["qwen2_05b"],
+          f"qwen2_05b has {res['params']} parameters")
+    want_b = np.concatenate([sd[f"model.layers.0.self_attn.{x}_proj.bias"]
+                             for x in "qkv"])
+    got_b = model[1]._modules["layer0"].self_attn.in_proj_bias
+    check(np.array_equal(got_b.detach().cpu().numpy(), want_b),
+          "qwen2_05b: the q/k/v biases did not load")
+    del sd
+    twins = {"bf16": cast_model(model, torch.bfloat16, device=CONT_DEVICE),
+             "int8": quantize_model(model, torch.bfloat16, device=CONT_DEVICE)}
+    del model
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(1, vocab + 1, int(n)).tolist()
+               for n in rng.integers(33, LONG_PROMPT + 1, QWEN_REQUESTS)]
+    per_fwd = 7 * layers + 1
+    block = CONT["decode_block"]
+    for name, twin in twins.items():
+        out, got = counted(launches, lambda: serve_once(twin, prompts))
+        fwd = TrieModel().forwards(prompts)[0] + out["decode_blocks"] * block
+        want = (0, 0, per_fwd * fwd if name == "int8" else 0, 0)
+        check(got == want, f"qwen2_05b {name}: (K1, K1 mma, K4, dequantize)"
+                           f" counted {got}, the structure gives {want}")
+        held = held_to_generate(f"qwen2_05b {name}", twin, prompts,
+                                out["answers"], vocab, GAP_TOL[name])
+        res[name] = {**{k: v for k, v in out.items() if k != "answers"},
+                     "k4": got[2], **held}
+        twin.__dict__.pop("_prefix_trie", None)
+    res["phase_s"] = time.perf_counter() - t0
+    del twins
+    torch.cuda.empty_cache()
+    return res
+
+
+def published_window(launches: dict) -> dict:
+    """(e) The window band and the rolling cache, on the 134m recipe with
+    ``window=128`` (bf16 twin, seed 7): ``generate`` on 2 prompts of 384
+    tokens, 64 new, greedy, with the rolling ring cache and the linear
+    one: equal tokens, both within GAP_TOL of a teacher-forced windowed
+    forward; one ``ContinuousLMServer`` round held to ``generate``. K1
+    must not launch (the band takes the plain core)."""
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+    from bigdl_tpu_torch.nn.quantized import cast_model
+    t0 = time.perf_counter()
+    base = build_lm(VOCAB, **dict(CONFIG, window=WINDOW), device=CONT_DEVICE,
+                    seed=7)
+    model = cast_model(base, torch.bfloat16, device=CONT_DEVICE)
+    del base
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(1, VOCAB + 1, LONG_PROMPT).tolist()
+               for _ in range(2)]
+    batch = torch.as_tensor(prompts, device=CONT_DEVICE)
+    res = {"window": WINDOW}
+    outs = {}
+    for rolling in (False, True):
+        key = "rolling" if rolling else "linear"
+        sync()
+        t1 = time.perf_counter()
+        out, got = counted(launches, lambda: generate(
+            model, batch, WINDOW_NEW, greedy=True, rolling_cache=rolling,
+            device=CONT_DEVICE))
+        sync()
+        outs[key] = out
+        answers = out[:, LONG_PROMPT:].cpu().tolist()
+        gap = greedy_gap(model, list(zip(prompts, answers)))
+        check(got[0] == 0 and got[2] == 0,
+              f"window {key}: K1 or K4 launched {got}")
+        check(gap <= GAP_TOL["bf16"], f"window {key}: greedy gap {gap}")
+        res[key] = {"generate_s": time.perf_counter() - t1,
+                    "greedy_gap": gap}
+    check(torch.equal(outs["linear"], outs["rolling"]),
+          "window: the rolling cache's tokens differ from the linear one's")
+    mha = [m for m in model.modules() if isinstance(m, MultiHeadAttention)][0]
+    mha.enable_decode(2, LONG_PROMPT + WINDOW_NEW, rolling=True)
+    res["ring_slots"] = mha.k_cache.shape[1]
+    mha.disable_decode()
+    cont = [rng.integers(1, VOCAB + 1, int(n)).tolist()
+            for n in rng.integers(33, LONG_PROMPT + 1, 8)]
+    out, got = counted(launches, lambda: serve_once(model, cont))
+    check(got[0] == 0, f"window continuous: K1 launched {got[0]} times")
+    res["continuous"] = {**{k: v for k, v in out.items() if k != "answers"},
+                         **held_to_generate("bf16 windowed", model, cont,
+                                            out["answers"],
+                                            tol=GAP_TOL["bf16"])}
+    res["phase_s"] = time.perf_counter() - t0
+    model.__dict__.pop("_prefix_trie", None)
+    return res
+
+
+def run_published() -> dict:
+    """Phase 3g; returns the K1 and K4 launches of its runs (the kernel
+    checks' own excluded)."""
+    t0 = time.perf_counter()
+    launches = {"flash_fwd": 0, "flash_fwd_mma": 0, "int8_matmul": 0}
+    row = {"fixture": published_fixture()}
+    log({"published": {"fixture": row["fixture"]}})
+    for key, fn in (("gpt2", published_gpt2), ("llama32_1b", published_llama),
+                    ("qwen2_05b", published_qwen2),
+                    ("window", published_window)):
+        row[key] = fn(launches)
+        log({"published": {key: row[key]}})
+        torch.cuda.empty_cache()
+    log({"published_phase_s": time.perf_counter() - t0,
+         "launches": launches})
+    return launches
 
 
 # -------------------------------------------------------------- 3b. training
@@ -3069,13 +3598,14 @@ def time_probe_families() -> dict:
 
 
 # ----------------------------------------------------------------- 4. timing
-def _time_flash_shape(b: int, s: int, seed: int) -> dict:
-    """K1 at one causal bf16 shape (N=12, D=64): checked once more against
-    its plain version, then its device time, its plain version's and
-    ``scaled_dot_product_attention``'s, and its bound."""
+def _time_flash_shape(b: int, s: int, seed: int, n: int = 0) -> dict:
+    """K1 at one causal bf16 shape (N heads, the 134m's 12 by default,
+    D=64): checked once more against its plain version, then its device
+    time, its plain version's and ``scaled_dot_product_attention``'s, and
+    its bound."""
     from bigdl_tpu_torch.ops.flash_attention import (flash_attention_plain,
                                                      flash_attention_with_lse)
-    n, d = CONFIG["num_heads"], 64
+    n, d = n or CONFIG["num_heads"], 64
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
     o, lse = flash_attention_with_lse(q, k, v, causal=True)
@@ -3106,6 +3636,8 @@ def time_flash(launches: dict) -> dict:
     served = _time_flash_shape(REQUESTS_PER_LEN, PROMPT_LENS[0], 3)
     train = _time_flash_shape(TRAIN_BATCH, TRAIN_SEQ, 13)
     beam = _time_flash_shape(BEAM_BATCH, BEAM_PROMPT, 17)
+    llama = _time_flash_shape(LLAMA_PROMPTS, PROMPT_LENS[0], 19,
+                              LLAMA32_1B["num_attention_heads"])
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
@@ -3120,8 +3652,10 @@ def time_flash(launches: dict) -> dict:
                     "scaled_dot_product_attention; launches: the serving "
                     "runs (phases 3, 3d and 3e) and training together; "
                     f"train: {train['shape']}; beam_prefill: phase 3e's "
-                    f"{beam['shape']}",
-            "train": train, "beam_prefill": beam}
+                    f"{beam['shape']}; llama32_1b_prefill: phase 3g's "
+                    f"{llama['shape']}",
+            "train": train, "beam_prefill": beam,
+            "llama32_1b_prefill": llama}
 
 
 def time_flash_bwd(launches: dict) -> list:
@@ -3210,16 +3744,17 @@ def int8_bytes_ops(x, w, s):
             + x.shape[0] * w.shape[0] * 4, 2 * x.shape[0] * w.numel())
 
 
-def int8_chain(m: int):
-    """The 85 K4 calls of one int8 forward at M rows: weights, scales and x
-    from seed 4 (the same weights at every M, and in an earlier tree), each
-    checked against its plain version. Returns the calls, the dequantized
-    bf16 weights (the library's operand) and the largest absolute error."""
+def int8_chain(m: int, shapes=None, seed: int = 4):
+    """The K4 calls of one int8 forward at M rows (``shapes``, default the
+    134m config's 85): weights, scales and x from ``seed`` (the same weights
+    at every M, and in an earlier tree), each checked against its plain
+    version. Returns the calls, the dequantized bf16 weights (the library's
+    operand) and the largest absolute error."""
     from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
                                                  int8_matmul_plain)
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     calls = []
-    for o, k in int8_decode_shapes():
+    for o, k in shapes or int8_decode_shapes():
         w = torch.randint(-128, 128, (o, k), generator=gen, device="cuda",
                           dtype=torch.int8)
         sc = torch.rand((o,), generator=gen, device="cuda") * 1e-2 + 1e-3
@@ -3269,6 +3804,56 @@ def time_int8_rows(rows=(8, 40, 128)) -> dict:
             **bound(sum(b for b, _ in cost), sum(o for _, o in cost)),
             "max_abs_err": err}
         del calls, deq
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_int8_published() -> dict:
+    """K4 over one int8 decode token of each phase 3g model at M=4 (its
+    weights at their shapes, random int8 and scales from a seed): the
+    token's time, its plain version's, ``x @ w_bf16.T`` on the dequantized
+    weights as the library time, and the bound; ``head``: the tied vocab
+    head alone, K4's largest O."""
+    from bigdl_tpu_torch.ops.int8_matmul import (int8_matmul_kernel,
+                                                 int8_matmul_plain)
+    out = {}
+    for name in PUBLISHED_PARAMS:
+        shapes = published_decode_shapes(name)
+        calls, deq, err = int8_chain(REQUESTS_PER_LEN, shapes,
+                                     PUBLISHED_SEEDS[name])
+
+        def kernel():
+            for x, w, sc in calls:
+                int8_matmul_kernel(x, w, sc)
+
+        def plain():
+            for x, w, sc in calls:
+                int8_matmul_plain(x, w, sc)
+
+        def library():
+            for (x, _, _), wd in zip(calls, deq):
+                x @ wd.T
+
+        cost = [int8_bytes_ops(*c) for c in calls]
+        (x, w, sc), wd = calls[-1], deq[-1]
+        out[name] = {
+            "launches_per_token": len(calls),
+            "weight_bytes": sum(w.numel() for _, w, _ in calls),
+            "ms": graph_ms(kernel, f"int8_matmul {name}", per_graph=3),
+            "plain_ms": graph_ms(plain, f"int8_matmul {name} plain",
+                                 per_graph=1, replays=3),
+            "library_ms": graph_ms(library, f"int8_matmul {name} library",
+                                   per_graph=3),
+            **bound(sum(b for b, _ in cost), sum(o for _, o in cost)),
+            "max_abs_err": err,
+            "head": {"shape": f"{w.shape[0]}x{w.shape[1]}",
+                     "ms": graph_ms(lambda: int8_matmul_kernel(x, w, sc),
+                                    f"int8_matmul {name} head"),
+                     "library_ms": graph_ms(lambda: x @ wd.T,
+                                            f"int8_matmul {name} head "
+                                            "library"),
+                     **bound(*int8_bytes_ops(x, w, sc))}}
+        del calls, deq, x, w, sc, wd
         torch.cuda.empty_cache()
     return out
 
@@ -3497,6 +4082,7 @@ def main(argv=None) -> int:
     check_flash()
     check_flash_bwd()
     check_int8()
+    check_published_kernels()
     check_conv_bn()
     check_conv_bn_autograd()
     hbm_errs = check_hbm_roof()
@@ -3506,6 +4092,7 @@ def main(argv=None) -> int:
     graph_serve_launches, graph_serve_row = run_graph_serving(models, cont)
     del models
     torch.cuda.empty_cache()
+    published_launches = run_published()
     train_launches, k1_run = run_training()
     graph_train_launches, graph_train_row = run_graph_training(k1_run)
     del k1_run
@@ -3518,14 +4105,17 @@ def main(argv=None) -> int:
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
+                           + published_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd(train_launches),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]
                               + plane_launches["int8_matmul"]
-                              + graph_serve_launches["int8_matmul"]),
+                              + graph_serve_launches["int8_matmul"]
+                              + published_launches["int8_matmul"]),
                     continuous=time_int8_rows(),
-                    serving_plane=time_int8_rows(PLANE_K4_ROWS[:1])),
+                    serving_plane=time_int8_rows(PLANE_K4_ROWS[:1]),
+                    published=time_int8_published()),
                *time_conv_bn(resnet_launches),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:

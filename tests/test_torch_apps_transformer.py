@@ -112,6 +112,74 @@ def test_serve_fleet_answers_reports_and_drains_on_sigterm():
             proc.wait()
 
 
+RES = ROOT / "tests" / "resources" / "hf_tiny_gpt2"
+JAX_ENV = dict(ENV, JAX_PLATFORMS="cpu")
+
+
+def _both_clis(args):
+    """stdout of the port's and the reference's ``generate`` on ``args``,
+    run side by side."""
+    procs = [subprocess.Popen([sys.executable, "-m", mod, "generate", *args,
+                               *extra], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for mod, env, extra in (
+                 ("bigdl_tpu_torch.apps.transformer", ENV,
+                  ["--device", "cpu"]),
+                 ("bigdl_tpu.apps.transformer", JAX_ENV, []))]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    return [o.strip().splitlines()[-2:] for o, _ in outs]
+
+
+def test_generate_from_hf_matches_the_reference_cli(tmp_path):
+    # with the checkpoint's tokenizer --prompt is text
+    ours, ref = _both_clis(["--fromHF", str(RES), "--prompt",
+                            "Hello world, it is", "--maxNewTokens", "6",
+                            "--greedy"])
+    assert ours == ref and ours[0].startswith("prompt:")
+    assert "'Hello world, it is'" in ours[0]
+    # without one the prompt and the output are raw HF ids
+    for name in ("config.json", "model.safetensors"):
+        (tmp_path / name).write_bytes((RES / name).read_bytes())
+    ours, ref = _both_clis(["--fromHF", str(tmp_path), "--prompt", "0,5,7",
+                            "--maxNewTokens", "5", "--greedy"])
+    assert ours == ref and "[0, 5, 7]" in ours[0]
+
+
+def test_serve_from_hf_answers_text_as_the_reference_cli():
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", mod, "serve", "--fromHF", str(RES), "--port",
+         "0", "--greedy", "--maxNewTokens", "6", *extra],
+        cwd=ROOT, env=env, stderr=subprocess.PIPE,
+        stdout=subprocess.DEVNULL, text=True)
+        for mod, env, extra in (
+            ("bigdl_tpu_torch.apps.transformer", ENV, ["--device", "cpu"]),
+            ("bigdl_tpu.apps.transformer", JAX_ENV, []))]
+    try:
+        answers = []
+        for proc in procs:
+            base = f"http://127.0.0.1:{_read_port(proc, time.time() + 180)}"
+            req = urllib.request.Request(
+                base + "/generate",
+                data=json.dumps({"text": "Hello world"}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers.append(json.loads(r.read()))
+        assert answers[0] == answers[1]
+        assert isinstance(answers[0]["text"], str)
+        assert len(answers[0]["ids"]) == 6
+    finally:
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        for proc in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
 @pytest.mark.parametrize("argv, match", [
     (["train", "--contextParallel", "ring"], "ROADMAP A.4"),
     (["train", "--tensorParallel", "2"], "ROADMAP A.4"),
@@ -121,12 +189,12 @@ def test_serve_fleet_answers_reports_and_drains_on_sigterm():
     (["train", "--model", "m", "--state", "s", "-e", "0"], "ROADMAP A.5"),
     (["train", "--summary", "logs", "-e", "0"], "ROADMAP A.6"),
     (["generate", "--model", "m"], "ROADMAP A.5"),
-    (["generate", "--fromHF", "d"], "ROADMAP A.2"),
+    (["generate", "--fromHF", "d", "--model", "m"], "not both"),
     (["generate", "--tokenizer", "t"], "ROADMAP A.6"),
     (["generate", "--int8", "--bf16"], "one of"),
     (["generate", "--prompt", ","], "empty prompt"),
     (["serve", "--model", "m"], "ROADMAP A.5"),
-    (["serve", "--fromHF", "d"], "ROADMAP A.2"),
+    (["serve", "--fromHF", "d", "--tokenizer", "t"], "does not compose"),
     (["serve", "--tokenizer", "t"], "ROADMAP A.6"),
     (["serve", "--continuous", "--draft", "d"], "ROADMAP A.5"),
     (["serve", "--replicas", "2"], "require --continuous"),

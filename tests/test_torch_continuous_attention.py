@@ -154,8 +154,12 @@ def test_rope_per_row_equals_shared_rows():
 
 
 def test_rolling_cache_is_refused():
-    _, tm = _pair("mha")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
+    # the rolling cache is ported; without a window it is the reference's
+    # ValueError, from both packages
+    jm, tm = _pair("mha")
+    with pytest.raises(ValueError, match="sliding-window"):
+        jm.enable_decode(1, 8, rolling=True)
+    with pytest.raises(ValueError, match="sliding-window"):
         tm.enable_decode(1, 8, rolling=True)
 
 

@@ -5,6 +5,7 @@ module of ``bigdl_tpu``, and every entry point runs on the card unless the
 caller asks for the CPU.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -23,6 +24,7 @@ from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.models.serving import ContinuousLMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
 from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+from bigdl_tpu_torch.interop.hf import load_gpt2, load_hf_checkpoint
 from bigdl_tpu_torch.models.transformer import build_lm
 from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
 from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
@@ -35,6 +37,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "bigdl_tpu_torch"
+HF_FIXTURE = ROOT / "tests" / "resources" / "hf_tiny_gpt2"
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -43,15 +46,19 @@ names = [m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                                "bigdl_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "bigdl_tpu"
-             or m.startswith("bigdl_tpu."))
+# the reference's own dependencies that the card machine lacks: the port
+# reads and writes checkpoints and tokenizers with its own code
+absent = ("jax", "bigdl_tpu", "safetensors", "ml_dtypes", "transformers",
+          "regex")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
 print(len(names), bad)
 """
 
 _BAD_IMPORT = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+bigdl_tpu\b(?!_torch)"
-    r"|from\s+bigdl_tpu\b(?!_torch))", re.MULTILINE)
+    r"|from\s+bigdl_tpu\b(?!_torch)"
+    r"|(import|from)\s+(safetensors|ml_dtypes|transformers|regex)\b)",
+    re.MULTILINE)
 
 
 def _tiny(device="cpu", **kw):
@@ -77,7 +84,8 @@ def test_new_subpackages_are_part_of_the_port():
                 "resilience/serving_drill.py", "resilience/__main__.py",
                 "telemetry/registry.py", "telemetry/exposition.py",
                 "telemetry/tracing.py", "telemetry/catalogue.py",
-                "telemetry/profiling.py", "utils/cuda_graph.py"):
+                "telemetry/profiling.py", "utils/cuda_graph.py",
+                "interop/hf.py", "interop/hf_tokenizer.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -92,7 +100,10 @@ def test_sources_import_no_jax_or_reference():
 
 def test_scan_pattern_catches_reference_imports():
     for line in ("import jax", "from jax import numpy", "import bigdl_tpu",
-                 "from bigdl_tpu.nn import Linear", "  import jax.numpy as jnp"):
+                 "from bigdl_tpu.nn import Linear", "  import jax.numpy as jnp",
+                 "from safetensors.numpy import load_file",
+                 "import ml_dtypes", "from transformers import AutoModel",
+                 "import regex"):
         assert _BAD_IMPORT.search(line), line
     for line in ("import bigdl_tpu_torch", "from bigdl_tpu_torch.nn import x"):
         assert not _BAD_IMPORT.search(line), line
@@ -145,7 +156,8 @@ def test_build_lm_raises_without_card():
                                    "resnet.build_cifar", "roofline_hbm.main",
                                    "generate_speculative", "run_kill_drill",
                                    "transformer.main",
-                                   "Optimizer.set_steps_per_dispatch"])
+                                   "Optimizer.set_steps_per_dispatch",
+                                   "load_hf_checkpoint", "load_gpt2"])
 def test_entry_points_raise_without_card(entry):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -172,6 +184,10 @@ def test_entry_points_raise_without_card(entry):
         "Optimizer.set_steps_per_dispatch": lambda: Optimizer(
             model, DataSet.array(synthetic_corpus(2, 4, 50)) >> SampleToBatch(2),
             FusedLMHeadCriterion()).set_steps_per_dispatch(4).optimize(),
+        # a loaded checkpoint lands on the card
+        "load_hf_checkpoint": lambda: load_hf_checkpoint(str(HF_FIXTURE)),
+        "load_gpt2": lambda: load_gpt2(
+            json.loads((HF_FIXTURE / "config.json").read_text()), {}),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -189,6 +205,8 @@ def test_entry_points_run_when_cpu_is_asked_for():
         assert len(server.submit([1, 2], 2, timeout=60)) == 2
     finally:
         server.close()
+    loaded = load_hf_checkpoint(str(HF_FIXTURE), device="cpu")
+    assert next(loaded.parameters()).device.type == "cpu"
     opt = Optimizer(_tiny(), DataSet.array(synthetic_corpus(4, 4, 50))
                     >> SampleToBatch(2), FusedLMHeadCriterion(), device="cpu")
     opt.set_steps_per_dispatch(2).set_end_when(Trigger.max_iteration(4))

@@ -293,19 +293,26 @@ def test_prefill_takes_plain_core_on_cpu():
     assert flash_attention.LAUNCHES.value == before
 
 
-@pytest.mark.parametrize("bad", [dict(norm_eps=1e-5), dict(window=4),
-                                 dict(pos="learned"), dict(qkv_bias=True),
-                                 dict(head_bias=True)])
+@pytest.mark.parametrize("bad", [dict(seq_axis="seq"),
+                                 dict(seq_mode="ulysses"),
+                                 dict(seq_layout="zigzag"),
+                                 dict(moe_experts=4), dict(moe_k=1)])
 def test_build_lm_rejects_unported_options(bad):
     kw = dict(LLAMA, **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lm(V, **kw, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(num_beams=2, rolling_cache=True),
-                                dict(rolling_cache=True),
-                                dict(mesh=object())])
-def test_generate_rejects_unported_options(kw):
+@pytest.mark.parametrize("kw, exc, match", [
+    # the rolling cache is ported: a model without a window is refused
+    # with the reference's ValueError
+    (dict(num_beams=2, rolling_cache=True), ValueError, "sliding window"),
+    (dict(rolling_cache=True), ValueError, "sliding window"),
+    (dict(mesh=object()), NotImplementedError, "ROADMAP")])
+def test_generate_rejects_unported_options(kw, exc, match):
     _, tm = _pair("llama")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         generate(tm, _ids(1, 2), 2, device="cpu", **kw)
+    if exc is ValueError:
+        with pytest.raises(ValueError, match="sliding window"):
+            jax_generate(_pair("llama")[0], jnp.asarray(_ids(1, 2)), 2, **kw)

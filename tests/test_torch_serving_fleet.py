@@ -13,6 +13,7 @@ the reference servers' counts for the same requests
 
 import json
 import threading
+import urllib.error
 import urllib.request
 
 import jax.numpy as jnp
@@ -266,28 +267,54 @@ def test_http_rim_passes_router_health_extra_and_refuses_a_tokenizer():
     router = LMRouter([ContinuousLMServer(_mk_model(), slots=1, max_len=32,
                                           greedy=True, registry=reg,
                                           device="cpu")], registry=reg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        make_http_server(router, "127.0.0.1", 0, tokenizer=object())
-    httpd = make_http_server(router, "127.0.0.1", 0)
-    worker = threading.Thread(target=httpd.serve_forever, daemon=True)
-    worker.start()
+    plain = make_http_server(router, "127.0.0.1", 0)
+    httpd = make_http_server(router, "127.0.0.1", 0, tokenizer=_DigitTokenizer())
+    workers = [threading.Thread(target=h.serve_forever, daemon=True)
+               for h in (plain, httpd)]
+    for w in workers:
+        w.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
+
+    def post(url, body):
         req = urllib.request.Request(
-            base + "/generate",
-            data=json.dumps({"prompt": [3, 7], "max_new_tokens": 4}).encode(),
+            url + "/generate", data=json.dumps(body).encode(),
             headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=60) as r:
-            assert json.loads(r.read())["ids"] == _reference([[3, 7]], 4)[0]
+            return json.loads(r.read())
+
+    try:
+        # a text prompt needs a tokenizer: the rim without one refuses it
+        with pytest.raises(urllib.error.HTTPError) as err:
+            post(f"http://127.0.0.1:{plain.server_address[1]}",
+                 {"text": "37"})
+        assert err.value.code == 400
+        want = _reference([[3, 7]], 4)[0]
+        assert post(base, {"prompt": [3, 7], "max_new_tokens": 4}) == {
+            "ids": want, "text": "".join(str(t) for t in want)}
+        assert post(base, {"text": "37", "max_new_tokens": 4})["ids"] == want
         with urllib.request.urlopen(base + "/health", timeout=10) as r:
             health = json.loads(r.read())
         assert health["ok"] and [x["state"] for x in health["replicas"]] == [
             "ok"]
         with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
             body = r.read().decode()
-        assert "bigdl_router_requests_total 1" in body.splitlines()
+        # the id POST and the text POST; the refused one never reached it
+        assert "bigdl_router_requests_total 2" in body.splitlines()
     finally:
-        httpd.shutdown()
-        httpd.server_close()
+        for h in (plain, httpd):
+            h.shutdown()
+            h.server_close()
         router.close()
-        worker.join(timeout=10)
+        for w in workers:
+            w.join(timeout=10)
+
+
+class _DigitTokenizer:
+    """Text of decimal digits <-> ids, one id per digit (the tokenizer
+    protocol of ``make_http_server``)."""
+
+    def encode(self, text):
+        return [int(c) for c in text]
+
+    def decode(self, ids):
+        return "".join(str(i) for i in ids)
