@@ -26,7 +26,10 @@ nn.FusedLMHeadCriterion())`` with ``AdamW``, ``set_precision("bf16")`` and
 gradient clipping -> ``optimize()``; and ``models.resnet.build`` (ResNet-50,
 NHWC, with the fused conv+BN kernels behind ``BIGDL_TPU_FUSED_1X1`` /
 ``BIGDL_TPU_FUSED_3X3``) -> ``Optimizer(model, dataset,
-nn.ClassNLLCriterion())`` with ``SGD`` -> ``optimize()``.
+nn.ClassNLLCriterion())`` with ``SGD`` -> ``optimize()``; either with
+``set_checkpoint``, ``set_validation`` (``optim.validation``,
+``optim.evaluator``), ``set_preemption_handler`` and ``auto_resume`` over
+``utils.file_io`` and ``resilience.coordinator``.
 """
 
 __version__ = "0.1.0"

@@ -1,27 +1,27 @@
 """Shared CLI plumbing of the app mains (counterpart of
-``bigdl_tpu/apps/common.py``: ``train_parser`` and ``build_optimizer``).
+``bigdl_tpu/apps/common.py``: ``train_parser``, ``build_optimizer`` and
+``run_test``).
 
-The options are the reference's. Those whose machinery is not ported yet
-stop the program with a message naming the ROADMAP item that will port
-them: snapshots (``--model``, ``--state``, ``--checkpoint``,
-``--autoResume``, ``--preemptSnapshot``: A.5) and TensorBoard summaries
-(``--summary``: A.6). ``--device`` (default ``cuda``) is the port's device
-rule: the card unless the CPU is asked for.
+The options are the reference's: ``--model``/``--state`` resume from a
+snapshot pair, ``--checkpoint`` writes one every epoch
+(``--overWriteCheckpoint`` keeps only the last), ``--autoResume``
+continues from the newest complete one, ``--preemptSnapshot`` snapshots on
+a SIGTERM and exits. TensorBoard summaries (``--summary``) stop the
+program with a message naming the ROADMAP item that will port them (A.6).
+``--device`` (default ``cuda``) is the port's device rule: the card unless
+the CPU is asked for.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 
-from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, Top1Accuracy,
+                                   Top5Accuracy, Trigger)
 
 #: option attribute -> the ROADMAP item that will port it
 WAITING = {
-    "model": "A.5 (checkpoint and resume)",
-    "state": "A.5 (checkpoint and resume)",
-    "checkpoint": "A.5 (checkpoint and resume)",
-    "autoResume": "A.5 (checkpoint and resume)",
-    "preemptSnapshot": "A.5 (resilience: preemption snapshots)",
     "summary": "A.6 (visualization: TrainSummary / ValidationSummary)",
 }
 
@@ -72,11 +72,12 @@ def refuse_waiting(args) -> None:
             raise SystemExit(f"--{name} is not ported yet: ROADMAP {item}")
 
 
-def build_optimizer(model, train_set, criterion, args,
-                    optim_method=None) -> Optimizer:
+def build_optimizer(model, train_set, criterion, args, validation_set=None,
+                    methods=None, optim_method=None) -> Optimizer:
     """The per-model ``Train.scala`` body (reference ``build_optimizer``):
-    optimizer, SGD from the parsed rates, the epoch end trigger and the
-    gradient clippers, on ``args.device``."""
+    optimizer, SGD from the parsed rates, the epoch end trigger, the
+    gradient clippers, resume, checkpoints, preemption and, with a
+    validation set, per-epoch validation, on ``args.device``."""
     refuse_waiting(args)
     opt = Optimizer(model, train_set, criterion, device=args.device)
     opt.set_optim_method(optim_method or SGD(
@@ -89,4 +90,36 @@ def build_optimizer(model, train_set, criterion, args,
         opt.set_gradient_clipping_by_l2_norm(args.gradientClipL2Norm)
     if getattr(args, "gradientClipConstant", None):
         opt.set_constant_gradient_clipping(*args.gradientClipConstant)
+    if args.model and args.state:
+        opt.resume(args.model, args.state)
+    if args.checkpoint:
+        opt.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+        if args.overWriteCheckpoint:
+            opt.overwrite_checkpoint()
+    if getattr(args, "autoResume", False):
+        opt.auto_resume()
+    if getattr(args, "preemptSnapshot", False):
+        opt.set_preemption_handler()
+    if validation_set is not None:
+        opt.set_validation(Trigger.every_epoch(), validation_set,
+                           methods or [Top1Accuracy(), Top5Accuracy(),
+                                       Loss()])
     return opt
+
+
+def run_test(model_path: str, test_set, methods, device="cuda") -> list:
+    """The per-model ``Test.scala`` body: a saved module, evaluated;
+    prints and returns ``[(result, method)]``."""
+    from bigdl_tpu_torch.optim import Evaluator
+    from bigdl_tpu_torch.utils import file_io
+    model = file_io.load(model_path, device=device)
+    if isinstance(model, dict) and "params" in model:
+        raise SystemExit(
+            "got a checkpoint dict; pass it through the owning model: "
+            "use train --model/--state to resume, or save the module itself")
+    results = Evaluator(model, device=device).test(test_set, methods)
+    for result, method in results:
+        logging.getLogger("bigdl_tpu_torch.optim").info(
+            "%s is %s", method.name, result)
+        print(f"{method.name}: {result}")
+    return results

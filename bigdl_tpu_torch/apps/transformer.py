@@ -8,6 +8,11 @@
         --replicas 2 --int8 --port 8000
 
 Every subcommand takes ``--device`` (default ``cuda``; ``cpu`` on request).
+``train --checkpoint DIR`` writes a snapshot pair every epoch and the
+trained module as ``DIR/model_final``; ``train --model M --state S``
+resumes from a pair (``--autoResume``: the newest complete one under
+``--checkpoint``). ``generate --model`` and ``serve --model`` load a saved
+module onto ``--device``, ``serve --continuous --draft`` a saved draft.
 Without ``--model``, ``generate`` and ``serve`` first train a tiny LM on the
 synthetic grammar, as the reference does. The continuous engine serves
 rope models only, so ``serve --continuous`` trains that default model with
@@ -24,9 +29,8 @@ cases, as in the reference.
 
 Options whose machinery is not ported yet stop with a message naming the
 ROADMAP item: ``--contextParallel``, ``--tensorParallel``, ``--moeExperts``
-(A.4), ``--textFile``, ``--tokenizer`` and a SentencePiece checkpoint
-tokenizer (A.6), ``--model``, ``--state``, ``--checkpoint`` and ``--draft``
-(A.5).
+(A.4), ``--textFile``, ``--tokenizer``, ``--summary`` and a SentencePiece
+checkpoint tokenizer (A.6).
 """
 
 from __future__ import annotations
@@ -121,7 +125,11 @@ def train(argv):
                      **llama)
     criterion = (FusedLMHeadCriterion() if args.fusedHead
                  else TimeDistributedCriterion(ClassNLLCriterion()))
-    return build_optimizer(model, ds, criterion, args).optimize()
+    trained = build_optimizer(model, ds, criterion, args).optimize()
+    if args.checkpoint:
+        from bigdl_tpu_torch.utils import file_io
+        file_io.save(trained, file_io.join(args.checkpoint, "model_final"))
+    return trained
 
 
 def _default_model(device: str, rope: bool):
@@ -149,10 +157,21 @@ def _refuse_sources(args) -> None:
                          "framework BPE vocab against an HF checkpoint's "
                          "vocab would decode garbage); the checkpoint "
                          "dir's own tokenizer loads automatically")
-    if args.model:
-        _waits("--model", "A.5 (utils/file_io.py)")
     if args.tokenizer:
         _waits("--tokenizer", "A.6 (the tokenizers)")
+
+
+def _load_saved(path: str, device: str):
+    """A module saved with ``file_io.save`` (``train --checkpoint``'s
+    ``model_final``), on ``device``."""
+    import torch
+
+    from bigdl_tpu_torch.utils import file_io
+    model = file_io.load(path, device=device)
+    if not isinstance(model, torch.nn.Module):
+        raise SystemExit(f"{path} holds no saved module (a training "
+                         "snapshot resumes through train --model/--state)")
+    return model
 
 
 def _from_hf(path: str, device: str):
@@ -232,7 +251,9 @@ def generate_cmd(argv) -> None:
     if not ids:
         raise SystemExit("empty prompt: pass at least one token (text with "
                          "a checkpoint tokenizer, else comma-separated ids)")
-    if not args.fromHF:
+    if args.model:
+        model = _load_saved(args.model, args.device)
+    elif not args.fromHF:
         model = _default_model(args.device, rope=False)
     model = _twin(model, args)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
@@ -320,10 +341,8 @@ def serve_cmd(argv) -> None:
     if args.int8 and args.bf16:
         raise SystemExit("pick one of --int8 / --bf16")
     _refuse_sources(args)
-    if args.draft:
-        _waits("--draft", "A.5 (utils/file_io.py)")
     if not args.continuous:
-        if args.specLen or args.prefixCache:
+        if args.draft or args.specLen or args.prefixCache:
             raise SystemExit("--draft/--specLen/--prefixCache require "
                              "--continuous")
         if args.replicas != 1 or args.disaggregate:
@@ -333,9 +352,15 @@ def serve_cmd(argv) -> None:
     from bigdl_tpu_torch.resilience.serving_drill import parse_split
 
     split = parse_split(args.disaggregate) if args.continuous else None
+    if args.draft and (sum(split) if split else args.replicas) > 1:
+        raise SystemExit("--draft does not compose with a multi-replica "
+                         "fleet (state handoff is incompatible with "
+                         "speculative serving)")
     tok = None
     if args.fromHF:
         model, tok = _from_hf(args.fromHF, args.device)
+    elif args.model:
+        model = _load_saved(args.model, args.device)
     else:
         model = _default_model(args.device, rope=args.continuous)
     model = _twin(model, args)
@@ -400,6 +425,7 @@ def _continuous_fleet(model, args, split):
     n_decode = split[1] if split else max(1, args.replicas)
     n_prefill = split[0] if split else 0
     chaos = chaos_from_env()
+    draft = _load_saved(args.draft, args.device) if args.draft else None
 
     def mk_server(mdl, slots, chaos_inj):
         return ContinuousLMServer(
@@ -408,7 +434,7 @@ def _continuous_fleet(model, args, split):
             temperature=args.temperature, top_k=args.topK, top_p=args.topP,
             greedy=args.greedy, eos_id=args.eosId, seed=args.seed,
             prefill_mode=args.prefillMode, prefill_chunk=args.prefillChunk,
-            spec_len=args.specLen,
+            draft=draft, spec_len=args.specLen,
             prefix_cache=(None if args.prefixCache is None
                           else args.prefixCache == "on"),
             prefix_cache_mb=args.prefixCacheMB, chaos=chaos_inj,

@@ -4,22 +4,23 @@
   ``KillReplicaAfterRequests``, ``DelayDecodeStep`` and ``DropHandoff``
   (polled by ``ContinuousLMServer(chaos=...)`` and ``LMRouter(chaos=...)``),
   the training plane's ``KillAtStep`` and ``DelayAtStep``, and the
-  ``BIGDL_CHAOS`` spec grammar;
+  ``BIGDL_CHAOS`` spec grammar, and ``corrupt_snapshot``;
 - ``preemption``: ``PreemptionHandler``, the SIGTERM flag behind ``serve``'s
-  drain;
+  drain and ``Optimizer.set_preemption_handler``, and
+  ``TrainingPreempted``, which the training loop raises after its final
+  snapshot;
+- ``coordinator``: snapshot discovery and validation, the RESUME marker;
 - ``serving_drill``: the kill-one-replica fleet drill.
-
-The coordinator, snapshots and ``corrupt_snapshot`` wait for the checkpoint
-port (ROADMAP A.5).
 """
 
-from bigdl_tpu_torch.resilience import chaos
+from bigdl_tpu_torch.resilience import chaos, coordinator
 from bigdl_tpu_torch.resilience.chaos import (DelayAtStep, DelayDecodeStep,
                                               DropHandoff, KillAtStep,
-                                              KillReplicaAfterRequests)
+                                              KillReplicaAfterRequests,
+                                              corrupt_snapshot)
 from bigdl_tpu_torch.resilience.preemption import (PreemptionHandler,
                                                    TrainingPreempted)
 
 __all__ = ["PreemptionHandler", "TrainingPreempted", "KillAtStep",
            "DelayAtStep", "KillReplicaAfterRequests", "DelayDecodeStep",
-           "DropHandoff", "chaos"]
+           "DropHandoff", "chaos", "coordinator", "corrupt_snapshot"]

@@ -3,6 +3,13 @@
 
 Subcommands:
 
+- ``validate <checkpoint_dir>``: list every snapshot pair with its
+  complete/PARTIAL verdict and marker summary; exit 0 iff a resume point
+  exists (torch-free: no device is touched);
+- ``latest <checkpoint_dir>``: print the newest complete (model, state)
+  pair, one path per line;
+- ``chaos corrupt <snapshot> [--mode flip|truncate|delete] [--seed S]``:
+  deterministically damage a plain snapshot file;
 - ``chaos selftest``: exercise the injectors deterministically (no
   device);
 - ``chaos drill [--replicas N] [--disaggregate P:D] [--requests R]
@@ -10,10 +17,6 @@ Subcommands:
   in-process fleet behind ``LMRouter``, one decode replica killed
   mid-stream via ``kill-replica@K``; prints a JSON report, exit 0 iff no
   request was lost and every answer holds against ``generate``.
-
-``validate``, ``latest`` and ``chaos corrupt`` read and damage checkpoint
-snapshots; they wait for the checkpoint port (ROADMAP A.5) and exit with
-a message naming it.
 """
 
 from __future__ import annotations
@@ -22,11 +25,57 @@ import argparse
 import sys
 
 from bigdl_tpu_torch.resilience import chaos as chaos_mod
+from bigdl_tpu_torch.resilience import coordinator
 
 
-def _cmd_waits(args) -> int:
-    raise SystemExit(f"{args.what} reads checkpoint snapshots, which are not "
-                     "ported yet: ROADMAP A.5 (checkpoint and resume)")
+def _cmd_validate(args) -> int:
+    import os
+    pairs = coordinator.snapshot_pairs(args.checkpoint_dir)
+    if not pairs:
+        print(f"no snapshot pairs under {args.checkpoint_dir}")
+        return 1
+    any_ok = False
+    for neval, _, model_name, state_name in reversed(pairs):
+        model = os.path.join(args.checkpoint_dir, model_name)
+        state = os.path.join(args.checkpoint_dir, state_name)
+        if coordinator.is_sharded(model):
+            print(f"SHARDED   {model_name} / {state_name} (neval {neval}): "
+                  f"{coordinator.SHARDED_WAITS}")
+            continue
+        ok = coordinator.validate_pair(model, state)
+        any_ok = any_ok or ok
+        marker = coordinator.read_marker(state) if ok else None
+        tag = "complete" if ok else "PARTIAL "
+        extra = ""
+        if marker:
+            mesh = marker.get("mesh") or {}
+            extra = (f"  marker: step {marker.get('step')} epoch "
+                     f"{marker.get('epoch')} procs "
+                     f"{mesh.get('process_count')}")
+        print(f"{tag}  {model_name} / {state_name}"
+              f" (neval {neval}){extra}")
+    return 0 if any_ok else 1
+
+
+def _cmd_latest(args) -> int:
+    try:
+        point = coordinator.latest_resume_point(args.checkpoint_dir)
+    except NotImplementedError as e:
+        print(e, file=sys.stderr)
+        return 1
+    if point is None:
+        print("no complete snapshot", file=sys.stderr)
+        return 1
+    print(point.model_path)
+    print(point.state_path)
+    return 0
+
+
+def _cmd_chaos_corrupt(args) -> int:
+    info = chaos_mod.corrupt_snapshot(args.snapshot, mode=args.mode,
+                                      seed=args.seed)
+    print(f"corrupted {info['file']} ({info['mode']})")
+    return 0
 
 
 def _cmd_chaos_selftest(args) -> int:
@@ -100,16 +149,22 @@ def main(argv=None) -> int:
         prog="python -m bigdl_tpu_torch.resilience",
         description="fault-injection tooling")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("validate", "latest"):
-        p = sub.add_parser(name, help="waits for ROADMAP A.5")
-        p.add_argument("checkpoint_dir")
-        p.set_defaults(fn=_cmd_waits, what=name)
+    p = sub.add_parser("validate", help="check every snapshot pair")
+    p.add_argument("checkpoint_dir")
+    p.set_defaults(fn=_cmd_validate)
+    p = sub.add_parser("latest", help="newest complete snapshot pair")
+    p.add_argument("checkpoint_dir")
+    p.set_defaults(fn=_cmd_latest)
 
     p = sub.add_parser("chaos", help="fault injection")
     csub = p.add_subparsers(dest="chaos_cmd", required=True)
-    c = csub.add_parser("corrupt", help="waits for ROADMAP A.5")
-    c.add_argument("snapshot_dir")
-    c.set_defaults(fn=_cmd_waits, what="chaos corrupt")
+    c = csub.add_parser("corrupt", help="damage a snapshot file "
+                        "deterministically")
+    c.add_argument("snapshot", help="a model.N or state.N file")
+    c.add_argument("--mode", default="flip",
+                   choices=["flip", "truncate", "delete"])
+    c.add_argument("--seed", type=int, default=0)
+    c.set_defaults(fn=_cmd_chaos_corrupt)
     c = csub.add_parser("selftest", help="deterministic injector check")
     c.set_defaults(fn=_cmd_chaos_selftest)
     c = csub.add_parser("drill",

@@ -1,15 +1,19 @@
 """Deterministic fault injection for resilience drills (counterpart of
-``bigdl_tpu/resilience/chaos.py``; ``corrupt_snapshot`` waits for the
-checkpoint port, ROADMAP A.5).
+``bigdl_tpu/resilience/chaos.py``; ``corrupt_snapshot`` damages plain
+snapshot files, a sharded snapshot waits for ROADMAP A.5
+(sharded_checkpoint)).
 
 These injectors make a failure REPRODUCIBLE — kill exactly at step N,
 stall exactly at step N — so a recovery test failing once fails every
 time:
 
-- ``KillAtStep`` / ``DelayAtStep``: step-boundary injectors (plain
-  Python; the port's ``Optimizer`` polls them once ROADMAP A.5 hooks them
-  in), e.g. ``BIGDL_CHAOS="kill@5"`` or ``"delay@3:0.25,kill@7:SIGINT"``;
-  a kill delivers a REAL signal to this process.
+- ``KillAtStep`` / ``DelayAtStep``: step-boundary injectors, polled by
+  ``Optimizer`` after every iteration (``set_chaos``), e.g.
+  ``BIGDL_CHAOS="kill@5"`` or ``"delay@3:0.25,kill@7:SIGINT"``; a kill
+  delivers a REAL signal to this process;
+- ``corrupt_snapshot``: deterministic damage to a snapshot file, which
+  the resume coordinator must then reject (``python -m
+  bigdl_tpu_torch.resilience chaos corrupt``).
 - SERVING-PLANE injectors (the fleet drill, ``python -m
   bigdl_tpu_torch.resilience chaos drill``): ``KillReplicaAfterRequests``
   (``kill-replica@N`` — the attached continuous server dies at the first
@@ -33,7 +37,7 @@ from typing import List, Optional
 
 __all__ = ["KillAtStep", "DelayAtStep", "KillReplicaAfterRequests",
            "DelayDecodeStep", "DropHandoff", "ChaosReplicaKill",
-           "parse_spec", "from_env"]
+           "corrupt_snapshot", "parse_spec", "from_env"]
 
 
 class ChaosReplicaKill(RuntimeError):
@@ -56,8 +60,13 @@ class KillAtStep:
         self.fired = False
         self._kill = _kill
 
+    def fires_at(self, neval: int) -> bool:
+        """Would ``on_step(neval)`` fire? (The windowed training loop ends
+        a window there, so the kill lands after exactly that step.)"""
+        return not self.fired and neval >= self.step
+
     def on_step(self, neval: int) -> None:
-        if not self.fired and neval >= self.step:
+        if self.fires_at(neval):
             self.fired = True
             self._kill(os.getpid(), self.sig)
 
@@ -77,8 +86,11 @@ class DelayAtStep:
         self.fired = False
         self._sleep = _sleep
 
+    def fires_at(self, neval: int) -> bool:
+        return not self.fired and neval >= self.step
+
     def on_step(self, neval: int) -> None:
-        if not self.fired and neval >= self.step:
+        if self.fires_at(neval):
             self.fired = True
             self._sleep(self.seconds)
 
@@ -154,6 +166,46 @@ class DropHandoff:
 
     def __repr__(self):
         return f"DropHandoff(n={self.n})"
+
+
+def corrupt_snapshot(path: str, mode: str = "flip", seed: int = 0,
+                     nbytes: int = 64) -> dict:
+    """Deterministically damage a plain snapshot file (``model.N`` or
+    ``state.N``; the reference's ``corrupt_snapshot`` picks a shard file of
+    a sharded snapshot, which the port cannot write yet).
+
+    ``mode='flip'``: XOR ``nbytes`` bytes at positions drawn from
+    ``default_rng(seed)`` (same seed, same bytes, every time);
+    ``'truncate'``: drop the file's second half; ``'delete'``: remove it.
+    Returns a description dict (file, mode, positions) for logging."""
+    import numpy as np  # heavier import kept out of module load
+
+    if os.path.isdir(path):
+        from bigdl_tpu_torch.resilience.coordinator import SHARDED_WAITS
+        raise NotImplementedError(f"{path}: {SHARDED_WAITS}")
+    info = {"file": path, "mode": mode}
+    if mode == "delete":
+        os.unlink(path)
+        return info
+    size = os.path.getsize(path)
+    if mode == "truncate":
+        with open(path, "r+b") as f:
+            f.truncate(size // 2)
+        info["truncated_to"] = size // 2
+        return info
+    if mode != "flip":
+        raise ValueError(f"unknown mode {mode!r}; use flip|truncate|delete")
+    rng = np.random.default_rng(seed)
+    positions = sorted(int(p) for p in
+                       rng.integers(0, max(1, size), size=min(nbytes, size)))
+    with open(path, "r+b") as f:
+        for pos in positions:
+            f.seek(pos)
+            b = f.read(1)
+            f.seek(pos)
+            f.write(bytes([b[0] ^ 0xFF]))
+    info["positions"] = positions
+    return info
 
 
 def parse_spec(spec: str):

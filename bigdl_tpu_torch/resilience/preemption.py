@@ -4,9 +4,10 @@
 A platform preempts with a SIGTERM and a grace window. ``PreemptionHandler``
 turns the signal into a COOPERATIVE flag that a loop polls: the
 ``serve`` command of ``apps/transformer.py`` drains its server or fleet on
-it (in-flight requests leave as handoff cursors) and exits. The training
-loop's end-of-step snapshot and ``TrainingPreempted`` wait for the
-checkpoint port (ROADMAP A.5): nothing in the port raises it yet.
+it (in-flight requests leave as handoff cursors) and exits;
+``Optimizer.set_preemption_handler`` polls it at every step boundary, and
+the training loop then writes one final snapshot and raises
+``TrainingPreempted``.
 
 Signal-handler discipline: the handler body only flips plain attributes
 and a ``threading.Event`` — no locks shared with the metrics registry

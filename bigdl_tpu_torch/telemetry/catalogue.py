@@ -13,9 +13,12 @@ including those that speak of XLA programs. What the port fills:
   reference's ``serving.step`` and ``serving.spec_step``); it stays 0 on
   the CPU, which runs the eager body, and the compile flight recorder
   (``tracked_jit``) has no port yet (ROADMAP A.5);
-- the training, ingest, eval, resilience and compile families are
-  registered but written by nothing until their modules are ported
-  (ROADMAP A.5).
+- the eval families (``optim/evaluator.py``), the resilience families
+  (``optim/optimizer.py``: preemptions, the preemption snapshot's
+  seconds, resumes), ``bigdl_train_validation_seconds`` and
+  ``bigdl_legacy_metric`` (``optim/metrics.py``);
+- the other training, the ingest and the compile families are registered
+  but written by nothing until their modules are ported (ROADMAP A.5).
 
 Bucket choices: serving latencies use the sub-ms-to-seconds default;
 training step phases reuse it; batch sizes use power-of-two buckets

@@ -147,6 +147,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    losses must be finite, the mean of the last five below the first, and
    K1, K2 and K3 each launched exactly 12 x 20 times, every launch ``mma``
    (counters zeroed just before the run);
+3h. checkpoints and resume (after phase 3b, whose 20-iteration run is its
+   yardstick; every snapshot under one temporary directory, the free disk
+   space logged first): (a) phase 3b's run with ``set_checkpoint`` every
+   8 iterations and ``set_validation`` every 10 (4 held-out batches,
+   ``Loss`` and ``Perplexity``): losses and parameters bit-equal to phase
+   3b's, pairs ``model.8``/``state.8`` and ``model.16``/``state.16`` that
+   validate, Perplexity = exp(Loss); (b) the same run preempted by
+   ``KillAtStep(12)`` (a real SIGTERM; marker step 13), resumed by
+   ``auto_resume()`` in a fresh process (``--resume-helper``) from a
+   model of another seed: iterations 13-20 and the final parameters
+   bit-equal to (a), K1-K3 12 x 8 launches each, all ``mma`` (and K1's
+   f32 validation forward, ``fma``); again with
+   ``set_steps_per_dispatch(4)``, windows stopping at the checkpoints, the
+   validation and the kill; (c) ``python -m bigdl_tpu_torch.resilience
+   chaos corrupt`` on the newest snapshot: ``validate`` reports it
+   PARTIAL, ``latest`` names the one before, and a resume from there is
+   bit-equal to (a); (d) phase 3c's fused ResNet-50 recipe, 6 iterations
+   with a snapshot after 3, against 3 resumed iterations: parameters, BN
+   statistics and the momentum bit-equal, K5 36 x 3 and K6 13 x 3; (e)
+   ``transformer train --checkpoint`` at a small size, ``generate
+   --model`` and ``serve --continuous --model --draft`` (a saved 2-layer
+   draft) as subprocesses, each answer equal to ``generate``; the 134m's
+   int8 twin saved and loaded: K4 85 launches a forward and the same
+   tokens. A ``checkpoints`` line gives snapshot MB, save and load
+   seconds, seconds to the first resumed step and the validation's
+   records/s;
 3c. ResNet-50 (bench.py's resnet50 workload, ``resnet.build(1000, 50)``,
    full width and depth) with both fusion gates set: every gradient and
    updated running statistic of one f32 batch (B=8, 224x224) on the card,
@@ -196,11 +222,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
-3f (the rounds served and the k = 4 training), 3g and 3b.
+3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
+processes included) and 3c.
 
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
 seed's readings and no result line.
+
+``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
+phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
+and prints one ``resume_helper`` line.
 
 ``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
 from DIR (for example an earlier commit unpacked by ``git archive``),
@@ -214,6 +245,7 @@ import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -3130,6 +3162,639 @@ def run_graph_training(k1_run: dict) -> tuple:
             "flash_bwd_dkv": got[4], "flash_bwd_dkv_mma": got[5]}, row
 
 
+# ------------------------------------------- 3h. checkpoints and resume
+CKPT_DEVICE = "cuda"        # where phase 3h trains (the CPU for a dry run)
+CKPT_EVERY, VAL_EVERY, KILL_AT, VAL_BATCHES = 8, 10, 12, 4
+CKPT_K = 4                  # part (b) again with windows of up to 4
+RESUME_SEED = 99            # a resumed run's model starts from other weights
+RESNET_CKPT_STEPS, RESNET_CKPT_AT = 6, 4   # the snapshot after 3 iterations
+CKPT_MIN_FREE_GB = 6        # part (b) holds 3 pairs of 1.54 GB at once
+# Perplexity against exp(Loss's mean): one f32 NLL summed in two orders
+PPL_RTOL = 1e-5
+CKPT_CLI = ["--vocab", "512", "--embedDim", "256", "--numHeads", "4",
+            "--numLayers", "2", "--seqLen", "128", "-b", "8",
+            "--synthetic-size", "64", "-e", "1", "--llamaBlock"]
+CKPT_CLI_VOCAB, CKPT_CLI_EMBED = 512, 256
+
+
+def flash_counters() -> dict:
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    return {"flash_fwd": fa.LAUNCHES, "flash_fwd_mma": fa.LAUNCHES_MMA,
+            "flash_bwd_dq": fa.LAUNCHES_DQ,
+            "flash_bwd_dq_mma": fa.LAUNCHES_DQ_MMA,
+            "flash_bwd_dkv": fa.LAUNCHES_DKV,
+            "flash_bwd_dkv_mma": fa.LAUNCHES_DKV_MMA}
+
+
+def ckpt_sync() -> None:
+    if CKPT_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+class SaveLoadTimes:
+    """Wall seconds of each ``LocalOptimizer._save_checkpoint`` (the copy to
+    the host, the pickling, the writes and the marker) and
+    ``_resume_state`` (the reads and the copies into the live tensors)
+    while installed; the card's queue is drained before and after each."""
+
+    def __enter__(self):
+        from bigdl_tpu_torch.optim.optimizer import LocalOptimizer
+        self.save, self.load = [], []
+        self._orig = (LocalOptimizer._save_checkpoint,
+                      LocalOptimizer._resume_state)
+
+        def timed(fn, into):
+            def run(*args, **kwargs):
+                ckpt_sync()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    ckpt_sync()
+                    into.append(time.perf_counter() - t0)
+            return run
+
+        LocalOptimizer._save_checkpoint = timed(self._orig[0], self.save)
+        LocalOptimizer._resume_state = timed(self._orig[1], self.load)
+        return self
+
+    def __exit__(self, *exc):
+        from bigdl_tpu_torch.optim.optimizer import LocalOptimizer
+        LocalOptimizer._save_checkpoint, LocalOptimizer._resume_state = \
+            self._orig
+
+
+def first_update_seconds(opt, t0: float, into: dict) -> None:
+    """Record in ``into["first_step_s"]`` the seconds from ``t0`` to the end
+    of the optimizer's first update (the card drained once, then)."""
+    method = opt.optim_method
+    update = method.update
+
+    def first(*args, **kwargs):
+        out = update(*args, **kwargs)
+        if "first_step_s" not in into:
+            ckpt_sync()
+            into["first_step_s"] = time.perf_counter() - t0
+        return out
+
+    method.update = first
+
+
+def dispatch_windows(fn) -> tuple:
+    """(fn's result or its exception, the window lengths of its
+    ``train.dispatch`` spans)."""
+    from bigdl_tpu_torch.telemetry import tracing
+    tracing.clear()
+    tracing.enable()
+    try:
+        try:
+            out = fn()
+        except Exception as e:  # handed back to the caller, which checks it
+            out = e
+        return out, [e["args"]["k"] for e in tracing.events()
+                     if e["name"] == "train.dispatch"]
+    finally:
+        tracing.disable()
+        tracing.clear()
+
+
+_CKPT_DATA = {}
+
+
+def ckpt_lm_optimizer(model, ckpt_dir: str, k: int = 1):
+    """Phase 3b's recipe (B=8, S=512, bf16 over f32 masters, AdamW, L2 clip
+    1.0, 20 iterations of seed 17's corpus in seed 0's order) with a
+    checkpoint every CKPT_EVERY iterations and a validation every VAL_EVERY
+    over VAL_BATCHES held-out batches of the grammar (seed 23): Loss (the
+    mean token NLL) and Perplexity."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                              FusedLMHeadCriterion,
+                                              TimeDistributedCriterion)
+    from bigdl_tpu_torch.optim import (AdamW, Loss, Optimizer, Perplexity,
+                                       Trigger)
+    if not _CKPT_DATA:
+        _CKPT_DATA["train"] = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS,
+                                               TRAIN_SEQ, VOCAB, seed=17)
+        _CKPT_DATA["val"] = synthetic_corpus(VAL_BATCHES * TRAIN_BATCH,
+                                             TRAIN_SEQ, VOCAB, seed=23)
+    ds = DataSet.array(_CKPT_DATA["train"], seed=0) \
+        >> SampleToBatch(TRAIN_BATCH)
+    val = DataSet.array(_CKPT_DATA["val"]) >> SampleToBatch(TRAIN_BATCH)
+    return (Optimizer(model, ds, FusedLMHeadCriterion(), device=CKPT_DEVICE)
+            .set_precision("bf16")
+            .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                    weightdecay=TRAIN_DECAY))
+            .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+            .set_end_when(Trigger.max_iteration(TRAIN_STEPS))
+            .set_steps_per_dispatch(k)
+            .set_checkpoint(ckpt_dir, Trigger.several_iteration(CKPT_EVERY))
+            .set_validation(Trigger.several_iteration(VAL_EVERY), val, [
+                Loss(TimeDistributedCriterion(ClassNLLCriterion())),
+                Perplexity()]))
+
+
+def param_crcs(model) -> dict:
+    import zlib
+    return {n: zlib.crc32(p.detach().cpu().numpy().tobytes())
+            for n, p in model.named_parameters()}
+
+
+def validation_rows(history) -> list:
+    return [{"neval": v["neval"], "records": v["records"],
+             "seconds": v["seconds"],
+             **{name: list(r.result()) for name, r in v["results"].items()}}
+            for v in history]
+
+
+def resume_helper(ckpt_dir: str, k: int) -> int:
+    """``--resume-helper DIR --steps-per-dispatch K``: a fresh process builds
+    the model from RESUME_SEED, ``auto_resume()``s from DIR with the phase's
+    optimizer and trains to the end; prints one ``resume_helper`` line."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    model = build_lm(VOCAB, **CONFIG, device=CKPT_DEVICE, seed=RESUME_SEED)
+    opt = ckpt_lm_optimizer(model, ckpt_dir, k).auto_resume()
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    timing = {}
+    with SaveLoadTimes() as times:
+        t0 = time.perf_counter()
+        first_update_seconds(opt, t0, timing)
+        out, windows = dispatch_windows(opt.optimize)
+        ckpt_sync()
+        seconds = time.perf_counter() - t0
+    if isinstance(out, Exception):
+        raise out
+    log({"resume_helper": {
+        "k": k, "nevals": [h["neval"] for h in opt.history],
+        "losses": [h["loss"] for h in opt.history], "windows": windows,
+        "crcs": param_crcs(model), "optimize_s": seconds,
+        "load_s": times.load, "save_s": times.save,
+        "first_step_s": timing.get("first_step_s"),
+        "launches": {n: c.value for n, c in counters.items()},
+        "validation": validation_rows(opt.validation_history)}})
+    return 0
+
+
+def run_resume_helper(ckpt_dir: str, k: int) -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
+                          "--resume-helper", ckpt_dir,
+                          "--steps-per-dispatch", str(k)],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    rows = [json.loads(line)["resume_helper"] for line in
+            out.stdout.splitlines() if line.startswith('{"resume_helper"')]
+    check(out.returncode == 0 and len(rows) == 1,
+          f"the resumed process (k = {k}): rc {out.returncode}, stdout "
+          f"{out.stdout[-800:]!r}, stderr {out.stderr[-2000:]!r}")
+    rows[0]["process_s"] = time.perf_counter() - t0
+    return rows[0]
+
+
+def check_validation(rows: list, want_nevals: list, what: str) -> None:
+    check([r["neval"] for r in rows] == want_nevals,
+          f"{what}: validations at {[r['neval'] for r in rows]}, want "
+          f"{want_nevals}")
+    for r in rows:
+        loss, ppl = r["Loss"][0], r["Perplexity"][0]
+        check(np.isfinite(loss) and np.isfinite(ppl)
+              and r["records"] == VAL_BATCHES * TRAIN_BATCH
+              and r["Perplexity"][1] == VAL_BATCHES * TRAIN_BATCH * TRAIN_SEQ
+              and abs(ppl - np.exp(loss)) <= PPL_RTOL * np.exp(loss),
+              f"{what}: validation {r}")
+
+
+def check_resumed_half(got: dict, a: dict, what: str) -> None:
+    """A resumed run's iterations KILL_AT+1..20: losses and final
+    parameters bit-equal to part (a), K1-K3 12 x 8 times each, all mma,
+    plus K1's f32 validation forward (fma) at 20."""
+    check(got["nevals"] == list(range(KILL_AT + 1, TRAIN_STEPS + 1)),
+          f"{what}: resumed iterations {got['nevals']}")
+    check(got["losses"] == a["losses"][KILL_AT:],
+          f"{what}: losses {got['losses']} differ from the uninterrupted "
+          f"run's {a['losses'][KILL_AT:]}")
+    bad = [n for n, c in a["crcs"].items() if got["crcs"].get(n) != c]
+    check(not bad, f"{what}: {len(bad)} parameters differ from the "
+          f"uninterrupted run's, e.g. {bad[:3]}")
+    n = CONFIG["num_layers"] * (TRAIN_STEPS - KILL_AT)
+    val = CONFIG["num_layers"] * VAL_BATCHES
+    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_bwd_dq": n,
+            "flash_bwd_dq_mma": n, "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n}
+    check(CKPT_DEVICE == "cpu" or got["launches"] == want,
+          f"{what}: launches {got['launches']}, want {want}")
+    check_validation(got["validation"], [20], what)
+
+
+def ckpt_uninterrupted(k1_run: dict, root: str) -> dict:
+    """Part (a): phase 3b's run with the checkpoint and validation hooks,
+    bit-equal to phase 3b's."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.resilience import coordinator
+    d = os.path.join(root, "a")
+    model = build_lm(VOCAB, **CONFIG, device=CKPT_DEVICE, seed=7)
+    opt = ckpt_lm_optimizer(model, d)
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    with SaveLoadTimes() as times:
+        t0 = time.perf_counter()
+        opt.optimize()
+        ckpt_sync()
+        seconds = time.perf_counter() - t0
+    launches = {n: c.value for n, c in counters.items()}
+    losses = [h["loss"] for h in opt.history]
+    check(losses == k1_run["losses"], f"(a): hooks changed the losses: "
+          f"{losses} against phase 3b's {k1_run['losses']}")
+    check(all(torch.equal(p, k1_run["params"][n].to(p.device))
+              for n, p in model.named_parameters()),
+          "(a): hooks changed the final parameters")
+    pairs = [(p[2], p[3]) for p in coordinator.snapshot_pairs(d)]
+    check(pairs == [("model.8", "state.8"), ("model.16", "state.16")],
+          f"(a): snapshot pairs {pairs}")
+    check(all(coordinator.validate_pair(os.path.join(d, m),
+                                        os.path.join(d, s))
+              for m, s in pairs), "(a): a snapshot pair does not validate")
+    rows = validation_rows(opt.validation_history)
+    check_validation(rows, [VAL_EVERY, 2 * VAL_EVERY], "(a)")
+    n = CONFIG["num_layers"] * TRAIN_STEPS
+    val = CONFIG["num_layers"] * VAL_BATCHES * 2
+    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_bwd_dq": n,
+            "flash_bwd_dq_mma": n, "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n}
+    check(CKPT_DEVICE == "cpu" or launches == want,
+          f"(a): launches {launches}, want {want}")
+    val_s = sum(r["seconds"] for r in rows)
+    out = {"losses": losses, "crcs": param_crcs(model), "launches": launches,
+           "optimize_s": seconds, "save_s": times.save,
+           "model_mb": os.path.getsize(os.path.join(d, "model.8")) / 1e6,
+           "state_mb": os.path.getsize(os.path.join(d, "state.8")) / 1e6,
+           "validation": rows,
+           "validation_records_per_s": sum(r["records"] for r in rows) / val_s,
+           "validation_ms_per_batch": 1e3 * val_s / (len(rows) * VAL_BATCHES),
+           "model": model}
+    shutil.rmtree(d)
+    return out
+
+
+def ckpt_preempted(root: str, a: dict, k: int) -> dict:
+    """Part (b): the run of (a) with ``set_preemption_handler()`` and
+    ``KillAtStep(KILL_AT)`` (a real SIGTERM), then a fresh process that
+    ``auto_resume()``s to the end."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.resilience import (KillAtStep, TrainingPreempted,
+                                            coordinator)
+    d = os.path.join(root, f"b{k}")
+    model = build_lm(VOCAB, **CONFIG, device=CKPT_DEVICE, seed=7)
+    opt = ckpt_lm_optimizer(model, d, k)
+    opt.set_preemption_handler().set_chaos([KillAtStep(KILL_AT)])
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    with SaveLoadTimes() as times:
+        out, windows = dispatch_windows(opt.optimize)
+    check(isinstance(out, TrainingPreempted)
+          and out.snapshot == os.path.join(d, f"model.{KILL_AT + 1}"),
+          f"(b, k = {k}): the run ended with {out!r}, not preempted")
+    launches = {n: c.value for n, c in counters.items()}
+    n = CONFIG["num_layers"] * KILL_AT
+    val = CONFIG["num_layers"] * VAL_BATCHES
+    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_bwd_dq": n,
+            "flash_bwd_dq_mma": n, "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n}
+    check(CKPT_DEVICE == "cpu" or launches == want,
+          f"(b, k = {k}): launches {launches}, want {want}")
+    losses = [h["loss"] for h in opt.history]
+    check(losses == a["losses"][:KILL_AT],
+          f"(b, k = {k}): the preempted run's losses {losses}")
+    point = coordinator.latest_resume_point(d)
+    check(point.marker["step"] == KILL_AT + 1 and point.marker["cursor"]
+          == {"epoch": 1, "epoch_batches": KILL_AT,
+              "epoch_records": KILL_AT * TRAIN_BATCH},
+          f"(b, k = {k}): marker {point.marker}")
+    # k = 4: [1-4]; the checkpoint at 8 ends [5-7]; the validation at 10
+    # ends [8, 9]; the kill after 12 ends [10-12]
+    want_windows = [1] * KILL_AT if k == 1 else [4, 3, 2, 3]
+    check(windows == want_windows,
+          f"(b, k = {k}): windows {windows}, want {want_windows}")
+    del model, opt
+    if CKPT_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    helper = run_resume_helper(d, k)
+    check_resumed_half(helper, a, f"(b, k = {k})")
+    # the resumed k = 4 windows: the checkpoint at 16 ends [13-15], the
+    # validation at 20 ends [16-19]
+    want_windows = [1] * (TRAIN_STEPS - KILL_AT) if k == 1 else [3, 4, 1]
+    check(helper["windows"] == want_windows,
+          f"(b, k = {k}): resumed windows {helper['windows']}")
+    return {"windows": windows, "resumed_windows": helper["windows"],
+            "preempt_save_s": times.save[-1], "launches": launches,
+            "resumed": {key: helper[key] for key in (
+                "process_s", "optimize_s", "load_s", "save_s",
+                "first_step_s", "launches")}}
+
+
+def resilience_cli(*args) -> subprocess.CompletedProcess:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, "-m", "bigdl_tpu_torch.resilience",
+                           *map(str, args)], cwd=root, capture_output=True,
+                          text=True, timeout=120)
+
+
+def ckpt_corrupted(root: str, a: dict) -> dict:
+    """Part (c): the newest snapshot of (b)'s k = 1 directory damaged with
+    ``chaos corrupt``; ``validate`` calls it PARTIAL, ``latest`` names the
+    one before it, and a resume from there is bit-equal to (a)."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    d = os.path.join(root, "b1")
+    newest = os.path.join(d, f"model.{2 * CKPT_EVERY}")
+    r = resilience_cli("chaos", "corrupt", newest, "--seed", "5")
+    check(r.returncode == 0, f"(c): chaos corrupt: {r.stderr[-1000:]}")
+    r = resilience_cli("validate", d)
+    lines = r.stdout.splitlines()
+    check(r.returncode == 0 and lines and lines[0].startswith("PARTIAL")
+          and f"model.{2 * CKPT_EVERY} " in lines[0]
+          and all(line.startswith("complete") for line in lines[1:]),
+          f"(c): validate: {r.stdout!r} {r.stderr[-1000:]!r}")
+    r = resilience_cli("latest", d)
+    check(r.returncode == 0 and r.stdout.split()[0]
+          == os.path.join(d, f"model.{KILL_AT + 1}"),
+          f"(c): latest: {r.stdout!r} {r.stderr[-1000:]!r}")
+    model = build_lm(VOCAB, **CONFIG, device=CKPT_DEVICE, seed=RESUME_SEED)
+    opt = ckpt_lm_optimizer(model, d).auto_resume()
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    timing = {}
+    with SaveLoadTimes() as times:
+        t0 = time.perf_counter()
+        first_update_seconds(opt, t0, timing)
+        opt.optimize()
+        ckpt_sync()
+        seconds = time.perf_counter() - t0
+    got = {"nevals": [h["neval"] for h in opt.history],
+           "losses": [h["loss"] for h in opt.history],
+           "crcs": param_crcs(model),
+           "launches": {n: c.value for n, c in counters.items()},
+           "validation": validation_rows(opt.validation_history)}
+    check_resumed_half(got, a, "(c)")
+    del model, opt
+    shutil.rmtree(d)
+    return {"validate": lines, "optimize_s": seconds, "load_s": times.load,
+            "first_step_s": timing["first_step_s"],
+            "launches": got["launches"]}
+
+
+def ckpt_resnet(root: str) -> dict:
+    """Part (d): phase 3c's fused ResNet-50 recipe (B=256, bf16 over f32
+    masters, SGD 0.1 with momentum 0.9), 6 iterations with snapshots after
+    3 and 6, against 3 iterations resumed from the first snapshot in a
+    model built from another seed: parameters, BN statistics and the
+    final snapshot's optim state (the momentum buffers) bit-equal, K5 and
+    K6 36 x 3 and 13 x 3 times in the resumed half. cuDNN is held to its
+    deterministic algorithms for the phase (the stem conv is cuDNN's)."""
+    from bigdl_tpu_torch.dataset.base import DataSet
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.resilience import coordinator
+    batch = imagenet_batch(RESNET_BATCH, 5)
+
+    def resnet_opt(model, d):
+        return (Optimizer(model, DataSet.array([batch] * RESNET_CKPT_STEPS,
+                                               seed=0),
+                          ClassNLLCriterion(), device=CKPT_DEVICE)
+                .set_precision("bf16")
+                .set_optim_method(SGD(learningrate=RESNET_LR,
+                                      momentum=RESNET_MOMENTUM))
+                .set_end_when(Trigger.max_iteration(RESNET_CKPT_STEPS))
+                .set_checkpoint(d, Trigger.or_(
+                    Trigger.several_iteration(RESNET_CKPT_AT),
+                    Trigger.max_iteration(RESNET_CKPT_STEPS))))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full_dir, half_dir = (os.path.join(root, "r_full"),
+                              os.path.join(root, "r_half"))
+        full = build_resnet50(True, CKPT_DEVICE, seed=7)
+        with SaveLoadTimes() as times:
+            resnet_opt(full, full_dir).optimize()
+            half = build_resnet50(True, CKPT_DEVICE, seed=8)
+            opt = resnet_opt(half, half_dir).resume(
+                os.path.join(full_dir, f"model.{RESNET_CKPT_AT}"),
+                os.path.join(full_dir, f"state.{RESNET_CKPT_AT}"))
+            counters = conv_bn_counters()
+            for c in counters:
+                c.reset()
+            opt.optimize()
+            ckpt_sync()
+        k5, k5_mma, k6, k6_mma = (c.value for c in counters)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    steps = RESNET_CKPT_STEPS - RESNET_CKPT_AT + 1
+    check([h["neval"] for h in opt.history]
+          == list(range(RESNET_CKPT_AT, RESNET_CKPT_STEPS + 1)),
+          f"(d): resumed iterations {[h['neval'] for h in opt.history]}")
+    mismatched = [n for (n, a), (_, b) in zip(
+        list(full.named_parameters()) + list(full.named_buffers()),
+        list(half.named_parameters()) + list(half.named_buffers()))
+        if not torch.equal(a, b)]
+    check(not mismatched, f"(d): {len(mismatched)} parameters or buffers "
+          f"differ after the resume, e.g. {mismatched[:3]}")
+    final = f"state.{RESNET_CKPT_STEPS + 1}"
+    check(coordinator._digest(os.path.join(full_dir, final))
+          == coordinator._digest(os.path.join(half_dir, final)),
+          "(d): the optim state (momentum) after the resume differs")
+    want = (K5_PER_STEP * steps,) * 2 + (K6_PER_STEP * steps,) * 2
+    check(CKPT_DEVICE == "cpu" or (k5, k5_mma, k6, k6_mma) == want,
+          f"(d): resumed K5/K6 launches {(k5, k5_mma, k6, k6_mma)}, want "
+          f"{want}")
+    out = {"model_mb": os.path.getsize(os.path.join(
+               full_dir, f"model.{RESNET_CKPT_AT}")) / 1e6,
+           "state_mb": os.path.getsize(os.path.join(
+               full_dir, f"state.{RESNET_CKPT_AT}")) / 1e6,
+           "save_s": times.save, "load_s": times.load,
+           "launches": {"matmul_bn": k5, "matmul_bn_mma": k5_mma,
+                        "conv3x3_bn": k6, "conv3x3_bn_mma": k6_mma}}
+    del full, half, opt
+    shutil.rmtree(full_dir)
+    shutil.rmtree(half_dir)
+    return out
+
+
+def read_served_port(proc, deadline: float) -> int:
+    import re
+    seen = []
+    while time.perf_counter() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        seen.append(line.strip())
+        m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+        if m:
+            return int(m.group(1))
+    check(False, f"serve never reported its port: {seen[-20:]}")
+
+
+def ckpt_cli(root: str, model) -> dict:
+    """Part (e): ``train --checkpoint DIR`` at a small size on the card,
+    ``generate --model DIR/model_final`` and ``serve --continuous --model
+    ... --draft`` (a saved 2-layer draft) as subprocesses, each answer
+    equal to ``generate`` on the loaded module; the 134m's int8 twin saved
+    and loaded on the card: the same K4 launches a forward and the same
+    tokens."""
+    import signal
+    import urllib.request
+
+    from bigdl_tpu_torch.apps import transformer as app
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.quantized import quantize_model
+    from bigdl_tpu_torch.ops import int8_matmul
+    from bigdl_tpu_torch.utils import file_io
+    d = os.path.join(root, "cli")
+    counters = {**flash_counters(), "int8_matmul": int8_matmul.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    cli = [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer"]
+    device = ["--device", CKPT_DEVICE]
+    src = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    t0 = time.perf_counter()
+    app.main(["train", "--checkpoint", d, *CKPT_CLI, *device])
+    res["train_s"] = time.perf_counter() - t0
+    target = os.path.join(d, "model_final")
+    check(os.path.exists(target) and os.path.exists(os.path.join(d, "state.9")),
+          f"(e): train --checkpoint wrote {sorted(os.listdir(d))}")
+    loaded = file_io.load(target, device=CKPT_DEVICE).evaluate_mode()
+    prompt = [5, 17, 3, 250, 9]
+    want = generate(loaded, [prompt], 16, greedy=True,
+                    device=CKPT_DEVICE)[0, len(prompt):].tolist()
+    t1 = time.perf_counter()
+    gen = subprocess.run(cli + ["generate", "--model", target, "--greedy",
+                                "--prompt", ",".join(map(str, prompt)),
+                                "--maxNewTokens", "16"] + device,
+                         cwd=src, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    res["generate_s"] = time.perf_counter() - t1
+    lines = gen.stdout.strip().splitlines()
+    check(gen.returncode == 0 and len(lines) == 2
+          and json.loads(lines[1].split(":", 1)[1]) == want,
+          f"(e): generate --model printed {gen.stdout[-400:]!r} (want "
+          f"{want}), stderr {gen.stderr[-1500:]!r}")
+    draft_path = os.path.join(d, "draft_final")
+    file_io.save(build_lm(CKPT_CLI_VOCAB, CKPT_CLI_EMBED, 4,
+                          ffn_dim=4 * CKPT_CLI_EMBED, num_layers=2,
+                          max_len=1024, rope=True, norm="rms",
+                          activation="swiglu", bias=False,
+                          device=CKPT_DEVICE, seed=31), draft_path)
+    t2 = time.perf_counter()
+    proc = subprocess.Popen(cli + ["serve", "--continuous", "--model", target,
+                                   "--draft", draft_path, "--specLen", "4",
+                                   "--greedy", "--maxNewTokens", "16",
+                                   "--port", "0"] + device,
+                            cwd=src, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True)
+    try:
+        port = read_served_port(proc, time.perf_counter() + CLI_TIMEOUT_S)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"prompt": prompt}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served = json.loads(r.read())["ids"]
+        check(served == want, f"(e): serve --draft answered {served}, "
+              f"generate {want}")
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=30) == 0, "(e): serve did not exit 0")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res["serve_draft_s"] = time.perf_counter() - t2
+
+    # the 134m's int8 twin through file_io on the card
+    twin = quantize_model(model, torch.bfloat16, device=CKPT_DEVICE)
+    t3 = time.perf_counter()
+    file_io.save(twin, os.path.join(d, "int8_twin"))
+    res["int8_save_s"] = time.perf_counter() - t3
+    t4 = time.perf_counter()
+    back = file_io.load(os.path.join(d, "int8_twin"), device=CKPT_DEVICE)
+    ckpt_sync()
+    res["int8_load_s"] = time.perf_counter() - t4
+    res["int8_mb"] = os.path.getsize(os.path.join(d, "int8_twin")) / 1e6
+    ids = torch.as_tensor(np.random.default_rng(37).integers(
+        1, VOCAB + 1, (4, 64)), device=CKPT_DEVICE)
+    per = []
+    for m in (twin, back):
+        before = int8_matmul.LAUNCHES.value
+        with torch.no_grad():
+            m(ids)
+        per.append(int8_matmul.LAUNCHES.value - before)
+    toks = [generate(m, ids[:, :16], 8, greedy=True, device=CKPT_DEVICE)
+            for m in (twin, back)]
+    check(CKPT_DEVICE == "cpu"
+          or per == [per_forward(CONFIG["num_layers"])] * 2,
+          f"(e): K4 launches a forward {per}")
+    check(torch.equal(toks[0], toks[1]),
+          "(e): the loaded int8 twin's tokens differ")
+    res["k4_per_forward"] = per
+    res["launches"] = {n: c.value for n, c in counters.items()}
+    del twin, back
+    shutil.rmtree(d)
+    return res
+
+
+def run_checkpoints(k1_run: dict) -> dict:
+    """Phase 3h (after phase 3b, whose 20-iteration run it holds (a) and
+    every resume to): (a) hooks, (b) preempt and resume in a fresh
+    process at k = 1 and k = CKPT_K, (c) a corrupted snapshot skipped, (d)
+    ResNet-50 resumed, (e) the ``--model``/``--draft`` command line. Every
+    snapshot goes under one temporary directory, removed at the end.
+    Returns the launches of K1-K6 for the ``kernels`` line."""
+    import tempfile
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bigdl_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        log({"checkpoints_free_disk_gb": free_gb, "dir": root})
+        check(free_gb >= CKPT_MIN_FREE_GB, f"phase 3h needs "
+              f"{CKPT_MIN_FREE_GB} GB free under {root}, has {free_gb}")
+        a = ckpt_uninterrupted(k1_run, root)
+        model = a.pop("model")
+        t = time.perf_counter()
+        b1 = ckpt_preempted(root, a, 1)
+        c = ckpt_corrupted(root, a)
+        b4 = ckpt_preempted(root, a, CKPT_K)
+        shutil.rmtree(os.path.join(root, f"b{CKPT_K}"))
+        lm_s = time.perf_counter() - t
+        d = ckpt_resnet(root)
+        e = ckpt_cli(root, model)
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if CKPT_DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    log({"checkpoints": {
+        "lm_134m": {"model_mb": a["model_mb"], "state_mb": a["state_mb"],
+                    "save_s": a["save_s"], "optimize_with_hooks_s":
+                    a["optimize_s"], "validation": a["validation"],
+                    "validation_records_per_s":
+                    a["validation_records_per_s"],
+                    "validation_ms_per_batch": a["validation_ms_per_batch"],
+                    "preempt_resume_corrupt_s": lm_s},
+        "preempted_k1": b1, f"preempted_k{CKPT_K}": b4, "corrupted": c,
+        "resnet50": d, "cli": e, "phase_s": time.perf_counter() - t_phase}})
+    launches = {key: a["launches"][key] + c["launches"][key]
+                + b1["launches"][key] + b1["resumed"]["launches"][key]
+                + b4["launches"][key] + b4["resumed"]["launches"][key]
+                + e["launches"][key] for key in a["launches"]}
+    launches.update(d["launches"])
+    launches["int8_matmul"] = e["launches"]["int8_matmul"]
+    return launches
+
+
 # -------------------------------------------------------------- 3c. ResNet-50
 RESNET_BATCH, RESNET_STEPS, AB_STEPS = 256, 20, 5
 RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
@@ -4043,6 +4708,13 @@ def main(argv=None) -> int:
              "commit), build its kernels, time K1-K6 as phase 4 does and "
              "K7b, K7c and copy_ with DIR's probe, and print the rows (no "
              "result line)")
+    parser.add_argument(
+        "--resume-helper", metavar="DIR",
+        help="phase 3h's fresh process: auto_resume the 134m run from the "
+             "snapshots in DIR, train to its end and print one "
+             "resume_helper line (no result line)")
+    parser.add_argument("--steps-per-dispatch", type=int, default=1,
+                        help="with --resume-helper: the windows' k")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4052,6 +4724,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.abspath(args.time_kernels_of))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.resume_helper:
+        return resume_helper(args.resume_helper, args.steps_per_dispatch)
     t0 = time.perf_counter()
     card = environment()
     graph_census()
@@ -4094,14 +4768,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     published_launches = run_published()
     train_launches, k1_run = run_training()
+    ckpt_launches = run_checkpoints(k1_run)
     graph_train_launches, graph_train_row = run_graph_training(k1_run)
     del k1_run
     log({"graphs": {**GRAPH_CENSUS, "serving": graph_serve_row,
                     "training": {k: v for k, v in graph_train_row.items()
                                  if k != "losses"}}})
-    train_launches = {k: n + graph_train_launches[k]
+    train_launches = {k: n + graph_train_launches[k] + ckpt_launches[k]
                       for k, n in train_launches.items()}
     resnet_launches = run_resnet()
+    resnet_launches = {k: n + ckpt_launches[k]
+                       for k, n in resnet_launches.items()}
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
@@ -4112,7 +4789,8 @@ def main(argv=None) -> int:
                               + cont_launches["int8_matmul"]
                               + plane_launches["int8_matmul"]
                               + graph_serve_launches["int8_matmul"]
-                              + published_launches["int8_matmul"]),
+                              + published_launches["int8_matmul"]
+                              + ckpt_launches["int8_matmul"]),
                     continuous=time_int8_rows(),
                     serving_plane=time_int8_rows(PLANE_K4_ROWS[:1]),
                     published=time_int8_published()),

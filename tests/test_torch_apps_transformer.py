@@ -6,8 +6,11 @@ training its default tiny LM on the synthetic grammar first, as the
 reference's does. ``serve --continuous --replicas 2 --int8`` answers POSTs
 through the fleet router, reports both replicas on ``/health`` and the
 router and serving families on ``/metrics``, and drains on SIGTERM with
-exit code 0. The options that wait for later ROADMAP items stop with a
-message naming the item.
+exit code 0. ``train --checkpoint`` writes its snapshots and
+``model_final``, ``train --model/--state`` resumes, ``generate --model``
+answers as ``generate`` on the loaded module, and ``serve --continuous
+--model --draft`` serves a saved target with a saved draft. The options
+that wait for later ROADMAP items stop with a message naming the item.
 """
 
 import json
@@ -185,18 +188,16 @@ def test_serve_from_hf_answers_text_as_the_reference_cli():
     (["train", "--tensorParallel", "2"], "ROADMAP A.4"),
     (["train", "--moeExperts", "4"], "ROADMAP A.4"),
     (["train", "--textFile", "x.txt"], "ROADMAP A.6"),
-    (["train", "--checkpoint", "ckpt", "-e", "0"], "ROADMAP A.5"),
-    (["train", "--model", "m", "--state", "s", "-e", "0"], "ROADMAP A.5"),
     (["train", "--summary", "logs", "-e", "0"], "ROADMAP A.6"),
-    (["generate", "--model", "m"], "ROADMAP A.5"),
     (["generate", "--fromHF", "d", "--model", "m"], "not both"),
     (["generate", "--tokenizer", "t"], "ROADMAP A.6"),
     (["generate", "--int8", "--bf16"], "one of"),
     (["generate", "--prompt", ","], "empty prompt"),
-    (["serve", "--model", "m"], "ROADMAP A.5"),
     (["serve", "--fromHF", "d", "--tokenizer", "t"], "does not compose"),
     (["serve", "--tokenizer", "t"], "ROADMAP A.6"),
-    (["serve", "--continuous", "--draft", "d"], "ROADMAP A.5"),
+    (["serve", "--continuous", "--draft", "d", "--replicas", "2"],
+     "does not compose"),
+    (["serve", "--draft", "d"], "require --continuous"),
     (["serve", "--replicas", "2"], "require --continuous"),
     (["serve", "--continuous", "--disaggregate", "2"], "P:D"),
     (["bogus"], "usage")])
@@ -214,3 +215,79 @@ def test_device_defaults_to_the_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["train", "-e", "1", "--synthetic-size", "8", "--seqLen", "4"])
+
+
+def _tiny_train(ckpt, *extra):
+    return app.train(["--device", "cpu", "-b", "4", "--seqLen", "16",
+                      "--synthetic-size", "16", "--vocab", "48",
+                      "--embedDim", "32", "--numHeads", "2", "--llamaBlock",
+                      "--checkpoint", str(ckpt), *extra])
+
+
+def test_train_checkpoints_and_resumes(tmp_path):
+    from bigdl_tpu_torch.resilience import coordinator
+    from bigdl_tpu_torch.utils import file_io
+    trained = _tiny_train(tmp_path, "-e", "2")
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert {"model.5", "state.5", "model.9", "state.9",
+            "model_final"} <= set(names)
+    final = file_io.load(str(tmp_path / "model_final"), device="cpu")
+    for a, b in zip(final.parameters(), trained.parameters()):
+        assert torch.equal(a, b)
+    # a third epoch from the second's snapshot: one more pair
+    _tiny_train(tmp_path, "-e", "3", "--model", str(tmp_path / "model.9"),
+                "--state", str(tmp_path / "state.9"))
+    assert coordinator.latest_resume_point(str(tmp_path)).neval == 13
+    # --autoResume finds it: a fourth epoch
+    _tiny_train(tmp_path, "-e", "4", "--autoResume")
+    assert coordinator.latest_resume_point(str(tmp_path)).neval == 17
+
+
+def test_generate_model_equals_generate_on_the_loaded_module(tmp_path,
+                                                             capsys):
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.utils import file_io
+    _tiny_train(tmp_path, "-e", "1")
+    path = str(tmp_path / "model_final")
+    capsys.readouterr()
+    main(["generate", "--device", "cpu", "--model", path, "--greedy",
+          "--prompt", "3,5,7", "--maxNewTokens", "6"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    want = generate(file_io.load(path, device="cpu").evaluate_mode(),
+                    [[3, 5, 7]], 6, greedy=True, device="cpu")
+    assert lines == ["prompt:       [3, 5, 7]",
+                     f"continuation: {want[0, 3:].tolist()}"]
+    with pytest.raises(SystemExit, match="no saved module"):
+        main(["generate", "--device", "cpu", "--model",
+              str(tmp_path / "model.5")])
+
+
+def test_serve_continuous_with_saved_model_and_draft(tmp_path):
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.utils import file_io
+    _tiny_train(tmp_path / "target", "-e", "1", "--numLayers", "2")
+    _tiny_train(tmp_path / "draft", "-e", "1", "--numLayers", "1")
+    target = str(tmp_path / "target" / "model_final")
+    proc = subprocess.Popen(
+        _cli("serve", "--continuous", "--model", target, "--draft",
+             str(tmp_path / "draft" / "model_final"), "--specLen", "3",
+             "--port", "0", "--device", "cpu", "--greedy",
+             "--maxNewTokens", "8", "--maxLen", "64", "--slots", "2"),
+        cwd=ROOT, env=ENV, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
+        text=True)
+    try:
+        base = f"http://127.0.0.1:{_read_port(proc, time.time() + 180)}"
+        req = urllib.request.Request(
+            base + "/generate", data=json.dumps({"prompt": [4, 9, 2]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            ids = json.loads(r.read())["ids"]
+        want = generate(file_io.load(target, device="cpu").evaluate_mode(),
+                        [[4, 9, 2]], 8, greedy=True, device="cpu")
+        assert ids == want[0, 3:].tolist()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

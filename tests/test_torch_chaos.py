@@ -4,14 +4,17 @@ against the reference's, on the CPU: the ``BIGDL_CHAOS`` spec grammar
 
 import signal
 
+import numpy as np
 import pytest
 import torch
 
 from bigdl_tpu.resilience import chaos as jchaos
 from bigdl_tpu_torch.resilience import chaos as pchaos
+from bigdl_tpu_torch.resilience import coordinator
 from bigdl_tpu_torch.resilience.__main__ import main as resilience_main
 from bigdl_tpu_torch.resilience.preemption import (PreemptionHandler,
                                                    _parse_signals)
+from bigdl_tpu_torch.utils import file_io
 
 torch.set_num_threads(1)
 
@@ -123,10 +126,31 @@ def test_preemption_handler_trigger_and_signal_parsing(monkeypatch):
     assert h.drain_notices() == 1 and h.drain_notices() == 0
 
 
-def test_selftest_cli_and_waiting_commands(capsys):
+def test_selftest_cli_and_waiting_commands(capsys, tmp_path):
     assert resilience_main(["chaos", "selftest"]) == 0
     assert "spec parsing ok" in capsys.readouterr().out
-    for argv in (["validate", "x"], ["latest", "x"],
-                 ["chaos", "corrupt", "x"]):
-        with pytest.raises(SystemExit, match="ROADMAP A.5"):
-            resilience_main(argv)
+    # validate, latest and corrupt on a snapshot pair written here
+    for tag in (3, 6):
+        file_io.save({"params": {"w": np.full(4, tag, np.float32)},
+                      "buffers": {}}, str(tmp_path / f"model.{tag}"))
+        files = {"model": coordinator._digest(str(tmp_path / f"model.{tag}"))}
+        file_io.save({"optim": {"evalCounter": tag}, "driver": {}},
+                     str(tmp_path / f"state.{tag}"))
+        files["state"] = coordinator._digest(str(tmp_path / f"state.{tag}"))
+        coordinator.write_marker(
+            str(tmp_path / f"state.{tag}"), step=tag, epoch=1, rng=None,
+            epoch_batches=tag - 1, epoch_records=0,
+            mesh=coordinator.current_mesh_descriptor(), files=files)
+    capsys.readouterr()
+    assert resilience_main(["validate", str(tmp_path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [line.split()[0] for line in out] == ["complete", "complete"]
+    assert resilience_main(["chaos", "corrupt", str(tmp_path / "model.6"),
+                            "--seed", "3"]) == 0
+    assert "(flip)" in capsys.readouterr().out
+    assert resilience_main(["validate", str(tmp_path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("PARTIAL") and "model.6" in out[0]
+    assert resilience_main(["latest", str(tmp_path)]) == 0
+    assert capsys.readouterr().out.split() == [str(tmp_path / "model.3"),
+                                                str(tmp_path / "state.3")]

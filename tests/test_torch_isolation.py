@@ -28,9 +28,11 @@ from bigdl_tpu_torch.interop.hf import load_gpt2, load_hf_checkpoint
 from bigdl_tpu_torch.models.transformer import build_lm
 from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
 from bigdl_tpu_torch.nn.quantized import cast_model, quantize_model
+from bigdl_tpu_torch.optim.evaluator import Evaluator
 from bigdl_tpu_torch.optim.optimizer import Optimizer
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.scripts import roofline_hbm
+from bigdl_tpu_torch.utils import file_io
 from bigdl_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
@@ -85,7 +87,10 @@ def test_new_subpackages_are_part_of_the_port():
                 "telemetry/registry.py", "telemetry/exposition.py",
                 "telemetry/tracing.py", "telemetry/catalogue.py",
                 "telemetry/profiling.py", "utils/cuda_graph.py",
-                "interop/hf.py", "interop/hf_tokenizer.py"):
+                "interop/hf.py", "interop/hf_tokenizer.py",
+                "utils/file_io.py", "resilience/coordinator.py",
+                "optim/validation.py", "optim/metrics.py",
+                "optim/evaluator.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -157,10 +162,15 @@ def test_build_lm_raises_without_card():
                                    "generate_speculative", "run_kill_drill",
                                    "transformer.main",
                                    "Optimizer.set_steps_per_dispatch",
-                                   "load_hf_checkpoint", "load_gpt2"])
-def test_entry_points_raise_without_card(entry):
+                                   "load_hf_checkpoint", "load_gpt2",
+                                   "Evaluator", "file_io.load",
+                                   "transformer.main generate --model",
+                                   "transformer.main serve --draft"])
+def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
+    saved = str(tmp_path / "model_final")
+    file_io.save(model, saved)
     calls = {
         "generate": lambda: generate(model, np.ones((1, 3)), 2, greedy=True),
         "LMServer": lambda: LMServer(model, greedy=True),
@@ -188,12 +198,19 @@ def test_entry_points_raise_without_card(entry):
         "load_hf_checkpoint": lambda: load_hf_checkpoint(str(HF_FIXTURE)),
         "load_gpt2": lambda: load_gpt2(
             json.loads((HF_FIXTURE / "config.json").read_text()), {}),
+        # a saved module, evaluated or loaded, lands on the card
+        "Evaluator": lambda: Evaluator(model),
+        "file_io.load": lambda: file_io.load(saved),
+        "transformer.main generate --model": lambda: transformer_app.main(
+            ["generate", "--model", saved, "--maxNewTokens", "2"]),
+        "transformer.main serve --draft": lambda: transformer_app.main(
+            ["serve", "--continuous", "--model", saved, "--draft", saved]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
 
-def test_entry_points_run_when_cpu_is_asked_for():
+def test_entry_points_run_when_cpu_is_asked_for(tmp_path):
     model = _tiny().evaluate_mode()
     out = generate(model, np.ones((1, 3)), 2, greedy=True, device="cpu")
     assert out.shape == (1, 5)
@@ -214,6 +231,10 @@ def test_entry_points_run_when_cpu_is_asked_for():
     assert [h["neval"] for h in opt.history] == [1, 2, 3, 4]
     net = resnet.build_cifar(10, 8, device="cpu").evaluate_mode()
     assert net(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
+    assert Evaluator(net, device="cpu").device.type == "cpu"
+    file_io.save(net, str(tmp_path / "net"))
+    loaded = file_io.load(str(tmp_path / "net"), device="cpu")
+    assert next(loaded.parameters()).device.type == "cpu"
     assert next(resnet.build(10, 18, device="cpu").parameters()).device.type \
         == "cpu"
 

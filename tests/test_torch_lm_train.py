@@ -224,9 +224,8 @@ def test_tied_gradient_sums_both_uses():
 
 
 @pytest.mark.parametrize("setter", [
-    "set_validation", "set_checkpoint", "resume", "auto_resume",
-    "set_remat", "set_preemption_handler", "set_chaos", "set_profiling",
-    "set_train_summary", "set_validation_summary"])
+    "set_remat", "set_profiling", "set_train_summary",
+    "set_validation_summary"])
 def test_unported_setters_raise(setter):
     model = build_lm(V, **LLAMA, device="cpu", seed=0)
     ds = DataSet.array(synthetic_corpus(B, S, V)) >> SampleToBatch(B)
