@@ -1,6 +1,6 @@
 """Shared CLI plumbing of the app mains (counterpart of
-``bigdl_tpu/apps/common.py``: ``train_parser``, ``build_optimizer`` and
-``run_test``).
+``bigdl_tpu/apps/common.py``: ``train_parser``, ``test_parser``,
+``build_optimizer`` and ``run_test``).
 
 The options are the reference's: ``--model``/``--state`` resume from a
 snapshot pair, ``--checkpoint`` writes one every epoch
@@ -61,6 +61,18 @@ def train_parser(prog: str, default_batch: int = 128,
                    help="snapshot on a preemption notice, then exit")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    return p
+
+
+def test_parser(prog: str, default_batch: int = 128) -> argparse.ArgumentParser:
+    """The reference's test option set, plus ``--device``."""
+    p = argparse.ArgumentParser(prog=prog)
+    p.add_argument("-f", "--folder", default=None)
+    p.add_argument("--model", required=True, help="trained model snapshot")
+    p.add_argument("-b", "--batchSize", type=int, default=default_batch)
+    p.add_argument("--synthetic-size", type=int, default=2048)
+    p.add_argument("--device", default="cuda",
+                   help="where to evaluate: cuda (default) or cpu")
     return p
 
 

@@ -1,6 +1,7 @@
 """Core data-pipeline types (counterpart of ``bigdl_tpu/dataset/base.py``:
-``Sample``, ``MiniBatch``, ``Transformer`` with ``>>``, ``SampleToBatch``,
-``LocalDataSet``, ``TransformedDataSet`` and ``DataSet.array`` are ported).
+``Sample``, ``MiniBatch``, ``ByteRecord``, ``Transformer`` with ``>>``,
+``SampleToBatch``, ``Prefetch``, ``LocalDataSet``, ``TransformedDataSet``
+and ``DataSet.array`` are ported).
 
 Stages are iterator-to-iterator transformers over host numpy, composed with
 ``>>`` (Scala's ``->``); ``Optimizer`` moves each ``MiniBatch`` to the
@@ -43,6 +44,16 @@ class MiniBatch:
     def __iter__(self):
         yield self.data
         yield self.labels
+
+
+class ByteRecord:
+    """Raw bytes and a label (reference ``ByteRecord``)."""
+
+    __slots__ = ("data", "label")
+
+    def __init__(self, data: bytes, label: float):
+        self.data = data
+        self.label = label
 
 
 class Transformer:
@@ -91,6 +102,66 @@ class SampleToBatch(Transformer):
         if labs.ndim == 2 and labs.shape[1] == 1:
             labs = labs[:, 0]
         return MiniBatch(feats, labs)
+
+
+class Prefetch(Transformer):
+    """Stage up to ``depth`` upstream items in a background thread, so the
+    host's decode, augmentation and collation overlap the card's step
+    (reference ``Prefetch``); placed last, after batching:
+    ``... >> BGRImgToBatch(256) >> Prefetch(2)``. Items keep their order;
+    an upstream exception is raised in the consumer.
+
+    In the reference it must not sit below a device-cached dataset (the
+    cache would freeze what it prefetched); the port has no device cache
+    yet."""
+
+    def __init__(self, depth: int = 2):
+        if depth < 1:
+            raise ValueError("Prefetch depth must be >= 1")
+        self.depth = depth
+
+    def __call__(self, prev: Iterator) -> Iterator:
+        import queue
+        import threading
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        end, err = object(), object()
+
+        def put_or_stop(item) -> bool:
+            # every put gives up once the consumer has gone, or the thread
+            # could wait forever on a full queue
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for item in prev:
+                    if not put_or_stop(item):
+                        return
+                put_or_stop(end)
+            except BaseException as e:   # handed to the consumer
+                put_or_stop((err, e))
+
+        t = threading.Thread(target=produce, daemon=True,
+                             name="bigdl-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, tuple) and len(item) == 2 \
+                        and item[0] is err:
+                    raise item[1]
+                yield item
+        finally:
+            stop.set()   # finished or abandoned: release the producer
 
 
 class AbstractDataSet:

@@ -1,5 +1,5 @@
-"""Activations (counterpart of ``bigdl_tpu/nn/activation.py``: ``ReLU`` and
-``LogSoftMax`` are ported)."""
+"""Activations (counterpart of ``bigdl_tpu/nn/activation.py``: ``ReLU``,
+``Tanh`` and ``LogSoftMax`` are ported)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,13 @@ class ReLU(Module):
 
     def forward(self, input):
         return torch.relu(input)
+
+
+class Tanh(Module):
+    """reference ``Tanh``."""
+
+    def forward(self, input):
+        return torch.tanh(input)
 
 
 class LogSoftMax(Module):

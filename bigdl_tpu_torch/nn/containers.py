@@ -1,6 +1,6 @@
 """Containers and table ops (counterpart of ``bigdl_tpu/nn/containers.py``:
-``Sequential``, ``ConcatTable``, ``CAddTable`` and ``Identity`` are
-ported).
+``Sequential``, ``Concat``, ``ConcatTable``, ``CAddTable`` and
+``Identity`` are ported).
 
 A reference ``Table`` is a Python list here. Children are registered as
 ``"0"``, ``"1"``, ... in both packages, so parameter names match the
@@ -8,6 +8,8 @@ reference's trees.
 """
 
 from __future__ import annotations
+
+import torch
 
 from bigdl_tpu_torch.nn.module import Module
 
@@ -34,6 +36,33 @@ class Sequential(Container):
         for m in self._modules.values():
             out = m(out)
         return out
+
+
+class Concat(Container):
+    """Every child on the same input; the outputs concatenated on
+    ``dimension`` (reference ``Concat``).
+
+    ``dimension`` is the reference's: 1-based over the non-batch dims of
+    its NCHW world (1 is the channels). On the port's channels-last
+    activations it maps as the reference maps it: a 4-D (N, H, W, C)
+    output's dims 1, 2, 3 are axes 3, 1, 2; a 3-D (H, W, C) output's are
+    axes 2, 0, 1; any other output's dim d is axis d."""
+
+    def __init__(self, dimension: int):
+        super().__init__()
+        self.dimension = dimension
+
+    def _axis(self, out: torch.Tensor) -> int:
+        d = self.dimension
+        if out.dim() == 4:
+            return {1: 3, 2: 1, 3: 2}[d]
+        if out.dim() == 3:
+            return {1: 2, 2: 0, 3: 1}[d]
+        return d
+
+    def forward(self, input):
+        outs = [m(input) for m in self._modules.values()]
+        return torch.cat(outs, dim=self._axis(outs[0]))
 
 
 class ConcatTable(Container):

@@ -132,15 +132,18 @@ class SpaceToDepthConv7(Module):
 
 
 def stem_conv7(n_in: int, n_out: int, with_bias: bool = True,
-               init_method: str = "default", *,
+               init_method: str = "default", name: str = "", *,
                generator: Optional[torch.Generator] = None) -> Module:
     """The 7x7 / s2 / p3 ImageNet stem: ``SpaceToDepthConv7`` unless the
     environment sets ``BIGDL_TPU_NO_S2D`` (any non-empty value), which
     restores the plain ``SpatialConvolution``. Both hold one "weight"
-    (7, 7, C, O) [+ "bias"], so their weights interchange."""
+    (7, 7, C, O) [+ "bias"], so their weights interchange. A non-empty
+    ``name`` is set on the module."""
     if os.environ.get("BIGDL_TPU_NO_S2D"):
-        return SpatialConvolution(n_in, n_out, 7, 7, 2, 2, 3, 3,
-                                  with_bias=with_bias,
-                                  init_method=init_method, generator=generator)
-    return SpaceToDepthConv7(n_in, n_out, with_bias=with_bias,
-                             init_method=init_method, generator=generator)
+        mod = SpatialConvolution(n_in, n_out, 7, 7, 2, 2, 3, 3,
+                                 with_bias=with_bias,
+                                 init_method=init_method, generator=generator)
+    else:
+        mod = SpaceToDepthConv7(n_in, n_out, with_bias=with_bias,
+                                init_method=init_method, generator=generator)
+    return mod.set_name(name) if name else mod

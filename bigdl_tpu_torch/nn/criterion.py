@@ -1,6 +1,7 @@
 """Loss criteria of the training slice (counterpart of
 ``bigdl_tpu/nn/criterion.py``: ``Criterion``, ``ClassNLLCriterion``,
-``TimeDistributedCriterion`` and ``FusedLMHeadCriterion`` are ported).
+``CrossEntropyCriterion``, ``TimeDistributedCriterion`` and
+``FusedLMHeadCriterion`` are ported).
 
 A criterion's ``forward(input, target)`` returns a scalar loss tensor;
 autograd gives the gradient (the reference's ``jax.grad`` of the same
@@ -60,6 +61,19 @@ class ClassNLLCriterion(Criterion):
             loss = -(w * picked).sum()
             return loss / w.sum() if self.size_average else loss
         return -_reduce(picked, self.size_average)
+
+
+class CrossEntropyCriterion(Criterion):
+    """``log_softmax`` over the last axis, then ``ClassNLLCriterion``
+    (reference ``CrossEntropyCriterion``)."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        super().__init__()
+        self.nll = ClassNLLCriterion(weights, size_average)
+
+    def update_output(self, input, target):
+        return self.nll.update_output(torch.log_softmax(input, dim=-1),
+                                      target)
 
 
 class TimeDistributedCriterion(Criterion):

@@ -4,7 +4,9 @@ Counterpart of ``bigdl_tpu/nn/module.py``. The JAX package splits module
 objects from a pure ``functional_apply`` so that XLA can trace them; PyTorch
 runs eagerly, so the port keeps only the object half: subclasses implement
 ``forward``, hold weights as parameters and decode state (KV caches,
-positions) as module state, and keep the reference's ``evaluate_mode()``.
+positions) as module state, and keep the reference's ``evaluate_mode()``
+and ``name`` (the class name unless ``set_name`` gives another; ``Graph``
+names its children by it).
 """
 
 from __future__ import annotations
@@ -33,6 +35,23 @@ class Module(torch.nn.Module):
         for key in self._EPHEMERAL_CACHES:
             d.pop(key, None)
         return d
+
+    @property
+    def name(self) -> str:
+        """The module's name: the class name unless ``set_name`` gave
+        another (reference ``Module.name``)."""
+        return self.__dict__.get("_name") or type(self).__name__
+
+    @name.setter
+    def name(self, value: str) -> None:
+        self.__dict__["_name"] = value
+
+    def set_name(self, name: str) -> "Module":
+        self.name = name
+        return self
+
+    def get_name(self) -> str:
+        return self.name
 
     def evaluate_mode(self) -> "Module":
         return self.eval()

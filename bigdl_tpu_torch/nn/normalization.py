@@ -1,6 +1,6 @@
 """Batch normalization (counterpart of ``bigdl_tpu/nn/normalization.py``:
-``blend_running_stats``, ``BatchNormalization`` and
-``SpatialBatchNormalization`` are ported).
+``blend_running_stats``, ``BatchNormalization``,
+``SpatialBatchNormalization`` and ``SpatialCrossMapLRN`` are ported).
 
 Layout is channels-last: the channel is the last dim. Running statistics
 are f32 buffers. The reference threads them functionally through its
@@ -74,3 +74,33 @@ class BatchNormalization(Module):
 class SpatialBatchNormalization(BatchNormalization):
     """Batch norm over (N, H, W, C): the same math, channel = last dim
     (reference ``SpatialBatchNormalization``)."""
+
+
+class SpatialCrossMapLRN(Module):
+    """AlexNet-style local response normalization across channels
+    (reference ``SpatialCrossMapLRN``): ``x * (k + alpha / size * S)^-beta``
+    where S is the sum of squares over a window of ``size`` channels,
+    zero-padded by ``size // 2`` before and ``size - size // 2 - 1`` after.
+    Channel is the last dim. Everything is computed in the input's dtype,
+    the window's squares added one channel offset after another, as the
+    reference's ``reduce_window`` adds them. Not a TPU kernel: plain
+    PyTorch on either device."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0):
+        super().__init__()
+        self.size = size
+        self.alpha, self.beta, self.k = alpha, beta, k
+
+    def forward(self, input):
+        sq = input * input
+        pre = self.size // 2
+        post = self.size - pre - 1
+        padded = torch.nn.functional.pad(sq, (pre, post))
+        c = input.shape[-1]
+        window = padded[..., 0:c]
+        for j in range(1, self.size):
+            window = window + padded[..., j:j + c]
+        scale = torch.pow(self.k + window * (self.alpha / self.size),
+                          -self.beta)
+        return input * scale

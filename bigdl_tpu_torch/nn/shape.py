@@ -1,5 +1,5 @@
-"""Shape layers (counterpart of ``bigdl_tpu/nn/shape.py``: ``Reshape`` and
-``Padding`` are ported)."""
+"""Shape layers (counterpart of ``bigdl_tpu/nn/shape.py``: ``Reshape``,
+``Transpose`` and ``Padding`` are ported)."""
 
 from __future__ import annotations
 
@@ -28,6 +28,21 @@ class Reshape(Module):
                                         and input.numel() == self._n):
             return input.reshape(self.size)
         return input.reshape((input.shape[0],) + self.size)
+
+
+class Transpose(Module):
+    """A sequence of pairwise dim swaps, 1-based over the whole tensor, the
+    batch dim included (reference ``Transpose``)."""
+
+    def __init__(self, permutations: Sequence[Sequence[int]]):
+        super().__init__()
+        self.permutations = [tuple(p) for p in permutations]
+
+    def forward(self, input):
+        out = input
+        for d1, d2 in self.permutations:
+            out = out.transpose(d1 - 1, d2 - 1)
+        return out
 
 
 class Padding(Module):

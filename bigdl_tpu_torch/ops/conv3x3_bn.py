@@ -61,9 +61,10 @@ def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_with_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
-    """K6's function in plain PyTorch: the conv in f32, the sums from the
-    f32 result, y cast to x's dtype."""
-    y32 = _conv3x3(x.float(), w.float())
+    """K6's function in plain PyTorch: the conv in f32 (f64 for f64
+    input), the sums from that result, y cast to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y32 = _conv3x3(x.to(acc), w.to(acc))
     return y32.to(x.dtype), y32.sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2))
 
 

@@ -49,9 +49,10 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def matmul_with_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
-    """K5's function in plain PyTorch: the product in f32, the sums from
-    the f32 product, y cast to x's dtype."""
-    y32 = x.float() @ w.float()
+    """K5's function in plain PyTorch: the product in f32 (f64 for f64
+    input), the sums from that product, y cast to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y32 = x.to(acc) @ w.to(acc)
     return y32.to(x.dtype), y32.sum(0), (y32 * y32).sum(0)
 
 

@@ -1,7 +1,8 @@
 """Optimization methods and learning-rate schedules (counterpart of
 ``bigdl_tpu/optim/methods.py``: ``SGD``, ``Adagrad``, ``Adam``, ``AdamW`` and
 the schedules ``Default``, ``Poly``, ``Step``, ``MultiStep``,
-``CosineDecay``, ``Warmup`` are ported).
+``CosineDecay``, ``Warmup``, and ``EpochSchedule`` with its ``Regime``
+rows, are ported).
 
 The reference's update rules, written out here rather than taken from
 ``torch.optim``, whose decay and schedule rules differ (``AdamW`` below
@@ -41,6 +42,11 @@ Tensors = Dict[str, torch.Tensor]
 class LearningRateSchedule:
     def rate(self, base_lr: float, state: Dict) -> float:
         raise NotImplementedError
+
+    def weight_decay(self, base_wd: float, state: Dict) -> float:
+        """The coupled decay for the state: the method's own, unless the
+        schedule sets it (``EpochSchedule``)."""
+        return base_wd
 
 
 class Default(LearningRateSchedule):
@@ -83,6 +89,40 @@ class MultiStep(LearningRateSchedule):
     def rate(self, base_lr, state):
         passed = sum(state["evalCounter"] >= s for s in self.step_sizes)
         return base_lr * self.gamma ** passed
+
+
+class Regime:
+    """One row of an epoch-range schedule (reference ``Regime``): epochs
+    ``start_epoch`` to ``end_epoch`` (inclusive) take the hyper-parameters
+    of ``config``, a ``utils.table.T`` with ``learningRate`` and/or
+    ``weightDecay``."""
+
+    def __init__(self, start_epoch: int, end_epoch: int, config):
+        self.start_epoch, self.end_epoch = start_epoch, end_epoch
+        self.config = config
+
+
+class EpochSchedule(LearningRateSchedule):
+    """Per-epoch hyper-parameters from ``Regime`` rows (reference
+    ``EpochSchedule``): the last row whose range holds the state's epoch
+    gives the rate and the weight decay; an epoch in no row keeps the base
+    values."""
+
+    def __init__(self, regimes):
+        self.regimes = list(regimes)
+
+    def _pick(self, key: str, base: float, state) -> float:
+        value = base
+        for r in self.regimes:
+            if r.start_epoch <= state["epoch"] <= r.end_epoch:
+                value = r.config.get(key, base)
+        return value
+
+    def rate(self, base_lr, state):
+        return self._pick("learningRate", base_lr, state)
+
+    def weight_decay(self, base_wd, state):
+        return self._pick("weightDecay", base_wd, state)
 
 
 class CosineDecay(LearningRateSchedule):
@@ -191,13 +231,20 @@ class SGD(OptimMethod):
     def current_rate(self, state) -> float:
         return self.schedule.rate(self.learningrate, state)
 
+    def current_weight_decay(self, state) -> float:
+        return self.schedule.weight_decay(self.weightdecay, state)
+
     def step_scalars(self, state):
-        return [self.current_rate(state)]
+        """(lr, weight decay)."""
+        return [self.current_rate(state), self.current_weight_decay(state)]
 
     @torch.no_grad()
     def update(self, grads, state, params, scalars=None):
-        lr = self.current_rate(state) if scalars is None else scalars[0]
-        grads = self._decayed(grads, params)
+        lr, wd = self.step_scalars(state) if scalars is None else scalars
+        # as the reference: a schedule of decays applies one even where it
+        # is 0, so a captured window keeps one program for every epoch
+        if self.weightdecay or isinstance(self.schedule, EpochSchedule):
+            grads = {k: g + wd * params[k] for k, g in grads.items()}
         mu, damp = self.momentum, self.dampening
         for k, p in params.items():
             g = grads[k]

@@ -643,7 +643,11 @@ class LocalOptimizer(Optimizer):
                 model, policy.cast_params_for_compute(params), (data,))
             loss = self.criterion.forward(out, labels).float()
             loss.backward()
-            grads = clip({n: p.grad for n, p in params.items()})
+            # a parameter the loss does not reach (a fused conv's pre-BN
+            # bias) has the reference's zero gradient
+            grads = clip({n: p.grad if p.grad is not None
+                          else torch.zeros_like(p)
+                          for n, p in params.items()})
             if scalars is None:
                 self.optim_method.update(grads, opt_state, params)
             else:

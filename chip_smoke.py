@@ -186,6 +186,30 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    equal to the unfused model's; then the A/B with the gates unset
    (cuDNN convs and ``batch_norm_train``): step time, images/s, device
    busy share, peak memory and the top kernels of both paths;
+3i. the classic conv zoo (after phase 3c): K6 and K5 against their plain
+   versions at every fused shape of the runs below (VGG-16's 13 convs at
+   B=128 in f32, as run (a) feeds them, and in bf16; VGG-CIFAR's at B=128
+   in f32 and bf16, down to 2x2 images; Inception
+   v2's 27 stride-1 3x3 and 37 1x1 pairs at B=256), their training
+   ``Function``s against autograd at Cin = 3, 2x2 images and 224 wide, the
+   LRN on the card against the CPU, and VGG-CIFAR's gradients (B=4, gates
+   off and the 3x3 gate on) against an f64 CPU copy (the fused model's
+   median distance within twice the unfused card model's); then bench.py's
+   recipe (constant N(0, 1) images from seed 0, SGD 0.1 momentum 0.9, bf16
+   over f32 masters) for 20 steps of (a) VGG-16 at B=128 with the 3x3 gate
+   (K6 13 a step, all ``fma``: the first fused module sees the f32 images
+   and each keeps its input's dtype, as in the reference), (b) the same
+   unfused (bf16 cuDNN convs), (c) Inception v1 at
+   B=256, (d) Inception v2 at B=256 with both gates (K5 37, K6 27 a step)
+   and (e) LeNet at B=256 for 100 steps as a ``Sequential`` and as a
+   ``Graph`` from one seed, whose losses are equal bit for bit; a run that
+   does not fit takes the next rung of bench.py's ladder. Each run logs
+   its step time, images/s, busy share and peak memory. Then the apps:
+   ``lenet train`` on the vendored MNIST with validation and ``python -m
+   bigdl_tpu_torch.apps.lenet test --model`` (the Top-1 of the trained
+   model), ``vgg train`` with the 3x3 gate on synthetic CIFAR at B=128
+   (K6 13 x 4), ``resnet train --depth 20`` on CIFAR binary files the
+   phase writes and ``inception train --synthetic-size 64``;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -209,7 +233,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ResNet-50's stage-1 and stage-4 shapes at B=256, bf16, where the
    library time is the cuBLAS product or the cuDNN conv plus one
    ``torch.var_mean`` of its output; K5 also at each of the training
-   step's 15 distinct 1x1 shapes, summed over its 36 launches); the bound
+   step's 15 distinct 1x1 shapes, summed over its 36 launches; and, from
+   phase 3i, K6 at VGG-16's 224x224 64->64 and 14x14 512->512 at B=128 and
+   K5 at Inception v2's largest 1x1 at B=256); the bound
    (``bound_ms``) is the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
    bf16 dense), and ``bound_measured_ms`` prices the same bytes at the
@@ -223,11 +249,14 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included) and 3c.
+processes included) and 3c; phase 3i's rows count phase 3i's runs.
 
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
 seed's readings and no result line.
+
+``python3 chip_smoke.py --zoo-only`` builds the kernels and runs only
+phase 3i and its kernel rows, printing them and no result line.
 
 ``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
 phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
@@ -256,6 +285,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 BF16_OPS_PER_S = 989e12     # H100 SXM tensor cores, bf16 dense
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 CONFIG = dict(embed_dim=768, num_heads=12, num_kv_heads=4, ffn_dim=3072,
               num_layers=12, max_len=512, rope=True, activation="swiglu",
               norm="rms", bias=False, tie_embeddings=True)
@@ -334,24 +364,32 @@ def graph_ms(fn, what: str, per_graph: int = 20, replays: int = 5) -> float:
     return ms
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
+          ) -> dict:
     """The least time of a unit of work on the card by the data sheet
     (``bound_ms``, and which term sets it), with the bytes and operations
     it counts, so that ``add_measured_bound`` can price the bytes at the
-    measured HBM roof."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": ops}
+    measured HBM roof. ``ops_per_s``: the peak for the operations' type
+    (bf16 tensor cores unless given; an f32 row gives F32_OPS_PER_S and
+    carries it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    out = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": ops}
+    if ops_per_s != BF16_OPS_PER_S:
+        out["ops_per_s"] = ops_per_s
+    return out
 
 
 def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
     """``bound_measured_ms``: the bytes term over the HBM roof measured in
     phase 4a, the operations term unchanged (the second readings,
     ``stage4`` and ``train``, and K4's ``shapes``, too)."""
-    entry["bound_measured_ms"] = max(entry["bytes"] / hbm_bytes_per_s,
-                                     entry["operations"] / BF16_OPS_PER_S) * 1e3
-    for second in ("stage4", "train", "beam_prefill", "llama32_1b_prefill"):
+    entry["bound_measured_ms"] = max(
+        entry["bytes"] / hbm_bytes_per_s,
+        entry["operations"] / entry.get("ops_per_s", BF16_OPS_PER_S)) * 1e3
+    for second in ("stage4", "train", "beam_prefill", "llama32_1b_prefill",
+                   "bf16"):
         if second in entry:
             add_measured_bound(entry[second], hbm_bytes_per_s)
     for key in ("shapes", "continuous", "serving_plane", "published"):
@@ -762,6 +800,37 @@ def stats_close(got, ref, y_ref: torch.Tensor):
     return worst, ok
 
 
+def _stats_case(name, fn, plain, x, w, module, worst):
+    """One K5 or K6 case (``name`` starts with "K5" or "K6"): two runs of
+    ``fn`` against ``plain``, y as in ``y_close``, the statistics as in
+    ``stats_close`` and bit-identical on the second run, and the variant
+    taken (``module.kernel_variant``) the rule's: bf16 with both channel
+    counts, w's last two dimensions, multiples of 8 is ``mma``, checked by
+    the mma launches counted. Updates ``worst`` ("f32", "K5", "K6",
+    "stats"); returns the variant."""
+    variant = module.kernel_variant(x, w)
+    want = ("mma" if x.dtype == torch.bfloat16 and w.shape[-2] % 8 == 0
+            and w.shape[-1] % 8 == 0 else "fma")
+    mma_before = module.LAUNCHES_MMA.value
+    got, again = fn(x, w), fn(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    err, ex, ok = y_close(got[0], ref[0])
+    st, st_ok = stats_close(got[1:], ref[1:], ref[0])
+    same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    check(ok and st_ok and same and got[0].shape == ref[0].shape
+          and got[0].dtype == x.dtype,
+          f"{name} {x.dtype}: |y err| {err} (excess {ex}), stats {st}, "
+          f"deterministic {same}")
+    check(variant == want, f"{name} {x.dtype} took the {variant} variant")
+    check(module.LAUNCHES_MMA.value - mma_before == 2 * (variant == "mma"),
+          f"{name} {x.dtype}: mma launches")
+    key = "f32" if x.dtype == torch.float32 else name.split()[0]
+    worst[key] = max(worst.get(key, 0.0), ex)
+    worst["stats"] = max(worst.get("stats", 0.0), st)
+    return variant
+
+
 def check_conv_bn():
     """K5 and K6 against ``matmul_with_stats_plain`` and
     ``conv3x3_with_stats_plain`` through the public wrappers, at every
@@ -792,34 +861,12 @@ def check_conv_bn():
     train_ones, train_threes = resnet50_conv_shapes(RESNET_BATCH)
     runs = [(f32, mm_cases, conv_cases), (bf16, mm_cases, conv_cases),
             (bf16, train_ones, train_threes)]
-    worst = {f32: 0.0, "K5": 0.0, "K6": 0.0, "stats": 0.0}
+    worst = {"f32": 0.0, "K5": 0.0, "K6": 0.0, "stats": 0.0}
     variants = {"K5": {}, "K6": {}}
 
     def one(kernel, name, fn, plain, x, w, module):
-        """Two runs of ``fn`` against ``plain``; the variant taken (from
-        ``module.kernel_variant``, checked against the rule, bf16 with both
-        channel counts, w's last two dimensions, multiples of 8: ``mma``,
-        and against the mma launches counted)."""
-        variant = module.kernel_variant(x, w)
-        want = ("mma" if x.dtype == bf16 and w.shape[-2] % 8 == 0
-                and w.shape[-1] % 8 == 0 else "fma")
-        mma_before = module.LAUNCHES_MMA.value
-        got, again, ref = fn(x, w), fn(x, w), plain(x, w)
-        torch.cuda.synchronize()
-        err, ex, ok = y_close(got[0], ref[0])
-        st, st_ok = stats_close(got[1:], ref[1:], ref[0])
-        same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
-        check(ok and st_ok and same and got[0].shape == ref[0].shape
-              and got[0].dtype == x.dtype,
-              f"{name} {x.dtype}: |y err| {err} (excess {ex}), stats "
-              f"{st}, deterministic {same}")
-        check(variant == want, f"{name} {x.dtype} took the {variant} variant")
-        check(module.LAUNCHES_MMA.value - mma_before == 2 * (variant == "mma"),
-              f"{name} {x.dtype}: mma launches")
-        key = f32 if x.dtype == f32 else kernel
-        worst[key] = max(worst[key], ex)
-        worst["stats"] = max(worst["stats"], st)
-        variants[kernel][f"{name} {str(x.dtype)[6:]}"] = variant
+        variants[kernel][f"{name} {str(x.dtype)[6:]}"] = _stats_case(
+            name, fn, plain, x, w, module, worst)
 
     for dt, k5_cases, k6_cases in runs:
         for n, h, w, cin, cout, s in k5_cases:
@@ -843,7 +890,7 @@ def check_conv_bn():
          "k5_shapes_resnet50_b32": len(ones), "k6_shapes_resnet50_b32":
          len(threes), f"k5_k6_shapes_resnet50_b{RESNET_BATCH}_bf16":
          [len(train_ones), len(train_threes)],
-         "f32_max_err_over_max_ref": worst[f32],
+         "f32_max_err_over_max_ref": worst["f32"],
          "bf16_max_excess_over_one_step": max(worst["K5"], worst["K6"]),
          "k5_bf16_max_excess_over_one_step": worst["K5"],
          "k6_bf16_max_excess_over_one_step": worst["K6"],
@@ -857,7 +904,6 @@ def check_conv_bn_autograd():
     ``batch_norm_train``), in f32 at ResNet-50 stage-3 shapes (B=32, 14x14:
     1x1 1024 -> 256, 3x3 256 -> 256), with a random cotangent: out, dx,
     dw, dgamma and dbeta within CONV_GRAD_RTOL of max|ref| per tensor."""
-    from bigdl_tpu_torch.ops.batch_norm import batch_norm_train
     from bigdl_tpu_torch.ops.conv3x3_bn import _conv3x3, conv3x3_bn_train
     from bigdl_tpu_torch.ops.conv_bn import conv1x1_bn_train
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -867,6 +913,15 @@ def check_conv_bn_autograd():
                              rnd(32 * 14 * 14, 1024), rnd(1024, 256) / 32),
         "conv3x3_bn_train": (conv3x3_bn_train, _conv3x3,
                              rnd(32, 14, 14, 256), rnd(3, 3, 256, 256) / 48)}
+    _autograd_cases(cases, rnd, "conv_bn_autograd_f32")
+
+
+def _autograd_cases(cases, rnd, label):
+    """Each case {name: (fused Function, plain product, x, w)} in f32 with
+    a random gamma, beta and cotangent from ``rnd``: out, dx, dw, dgamma
+    and dbeta of the fused Function within CONV_GRAD_RTOL of max|ref|
+    against autograd through the product and ``batch_norm_train``."""
+    from bigdl_tpu_torch.ops.batch_norm import batch_norm_train
     worst = {}
     for name, (fused, product, x, w) in cases.items():
         cout = w.shape[-1]
@@ -892,7 +947,7 @@ def check_conv_bn_autograd():
                   f" {err} of max|ref|")
             errs.append(err)
         worst[name] = max(errs)
-    log({"check": "conv_bn_autograd_f32", **worst})
+    log({"check": label, **worst})
 
 
 HBM_PROBE_BYTES = 1 << 30   # the probe's --gib 1: bytes of each array
@@ -3813,14 +3868,21 @@ def build_resnet50(fused: bool, device: str, seed: int):
     """``resnet.build(1000, 50)``, bench.py's resnet50 workload, with both
     fusion gates set (``fused``) or unset; the environment is restored."""
     from bigdl_tpu_torch.models import resnet
+    return _with_gates(FUSION_GATES if fused else (), lambda: resnet.build(
+        1000, 50, device=device, seed=seed))
+
+
+def _with_gates(gates, build):
+    """``build()`` with exactly the fusion gates in ``gates`` set; the
+    environment is restored."""
     saved = {g: os.environ.get(g) for g in FUSION_GATES}
     try:
         for g in FUSION_GATES:
-            if fused:
+            if g in gates:
                 os.environ[g] = "1"
             else:
                 os.environ.pop(g, None)
-        return resnet.build(1000, 50, device=device, seed=seed)
+        return build()
     finally:
         for g, v in saved.items():
             if v is None:
@@ -3896,10 +3958,7 @@ def transfer_state(src, dst):
 
 def imagenet_batch(b: int, seed: int):
     """bench.py's constant data: N(0, 1) NHWC images and 1-based labels."""
-    from bigdl_tpu_torch.dataset.base import MiniBatch
-    rng = np.random.default_rng(seed)
-    return MiniBatch(rng.normal(0, 1, (b, 224, 224, 3)).astype(np.float32),
-                     rng.integers(1, 1001, (b,)).astype(np.float32))
+    return zoo_batch(b, 224, 3, 1000, seed)
 
 
 def conv_bn_counters():
@@ -4019,9 +4078,9 @@ def resnet_grad_check(seed: int = RESNET_GRAD_SEED) -> dict:
 
 
 def train_resnet(model, batch, steps: int):
-    """bench.py's recipe through ``Optimizer``: ``ClassNLLCriterion``,
-    SGD(0.1, momentum 0.9), bf16 compute over f32 masters; the dataset is
-    the one constant batch, ``steps`` times."""
+    """bench.py's recipe (bench.py:270-272) through ``Optimizer``:
+    ``ClassNLLCriterion``, SGD(0.1, momentum 0.9), bf16 compute over f32
+    masters; the dataset is the one constant batch, ``steps`` times."""
     from bigdl_tpu_torch.dataset.base import DataSet
     from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
@@ -4158,6 +4217,595 @@ def run_resnet() -> dict:
     del plain
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------- 3i. the conv zoo
+ZOO_STEPS, LENET_STEPS = 20, 100
+#: bench.py's ladders (``_LADDERS``, bench.py:521-531), largest first;
+#: Inception v2 is not in bench.py and takes v1's
+ZOO_LADDER = {"vgg16": (128, 32), "inception_v1": (256, 64),
+              "inception_v2": (256, 64), "lenet": (256,)}
+ZOO_GRAD_BATCH, ZOO_GRAD_SEED = 4, 11
+ZOO_LOSS_RTOL = 1e-4
+LRN_F32_RTOL = 1e-5
+CIFAR_APP_BATCH = 128
+INCEPTION_APP_RECORDS, INCEPTION_APP_BATCH = 64, 32
+MNIST_DIR = os.path.join("tests", "resources", "mnist")
+
+
+def vgg_conv_shapes(b: int, hw: int) -> list:
+    """(N, H, W, Cin, Cout) of every 3x3 conv of VGG-16, or of VGG-CIFAR
+    (the same plan of convs and pools) at ``hw`` = 32, at batch b."""
+    from bigdl_tpu_torch.models.vgg import _IMAGENET_CFG
+    shapes, n_in = [], 3
+    for v in _IMAGENET_CFG[16]:
+        if v == "M":
+            hw = (hw + 1) // 2
+        else:
+            shapes.append((b, hw, hw, n_in, v))
+            n_in = v
+    return shapes
+
+
+def inception_v2_fused_shapes(b: int) -> tuple:
+    """Every fused pair of Inception v2 with both gates set, at batch b, in
+    model order: 1x1 as (M, K, N) after the subsample, stride-1 3x3 as (N,
+    H, W, Cin, Cout), read by hooks from an eval forward of one 224x224
+    image on the CPU."""
+    from bigdl_tpu_torch.models import inception
+    from bigdl_tpu_torch.nn.fused import FusedConv1x1BN, FusedConv3x3BN
+    model = _with_gates(FUSION_GATES, lambda: inception.build_v2(
+        1000, device="cpu").eval())
+    ones, threes = [], []
+
+    def hook(m, args):
+        _, h, w, c = args[0].shape
+        if isinstance(m, FusedConv1x1BN):
+            s = m.stride
+            ones.append((b * ((h + s - 1) // s) * ((w + s - 1) // s), c,
+                         m.n_output_plane))
+        else:
+            threes.append((b, h, w, c, m.n_output_plane))
+    for m in model.modules():
+        if isinstance(m, (FusedConv1x1BN, FusedConv3x3BN)):
+            m.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(1, 224, 224, 3))
+    return ones, threes
+
+
+def check_zoo_kernels() -> dict:
+    """K5 and K6 against their plain versions at every fused shape of phase
+    3i's runs, with phase 2's tolerances: K6 at each of VGG-16's 13 convs
+    at B=128 (224x224 down to 14x14) in f32, as run (a) feeds them (its
+    first fused module sees the f32 images, and a fused module's output
+    keeps its input's dtype, as in the reference: the ``fma`` variant),
+    and in bf16 (``mma``, but conv1_1's Cin = 3: ``fma``); at each of
+    VGG-CIFAR's at B=128 in f32 (``apps.vgg``) and bf16, down to 2x2
+    images, where a 128-row tile spans 32 images; and at each of Inception
+    v2's 27 stride-1 3x3 pairs at B=256 in bf16 (its stem casts to bf16);
+    K5 at each of its 37 fused 1x1 pairs at B=256 in bf16. Distinct shapes
+    once each. Returns the shape lists."""
+    from bigdl_tpu_torch.ops import conv3x3_bn, matmul_bn
+    from bigdl_tpu_torch.ops.conv3x3_bn import (conv3x3_with_stats,
+                                                conv3x3_with_stats_plain)
+    from bigdl_tpu_torch.ops.matmul_bn import (matmul_with_stats,
+                                               matmul_with_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    vgg16 = vgg_conv_shapes(ZOO_LADDER["vgg16"][0], 224)
+    cifar = vgg_conv_shapes(CIFAR_APP_BATCH, 32)
+    v2_ones, v2_threes = inception_v2_fused_shapes(
+        ZOO_LADDER["inception_v2"][0])
+    k6_cases = ([(s, dt) for s in dict.fromkeys(vgg16) for dt in (f32, bf16)]
+                + [(s, dt) for s in dict.fromkeys(cifar) for dt in (bf16, f32)]
+                + [(s, bf16) for s in dict.fromkeys(v2_threes)])
+    worst, variants = {}, collections.Counter()
+    t0 = time.perf_counter()
+    for (n, h, w, cin, cout), dt in k6_cases:
+        x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
+        wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+              / (9 * cin) ** 0.5).to(dt)
+        variants["K6 " + _stats_case(
+            f"K6 N={n} {h}x{w} {cin}->{cout}", conv3x3_with_stats,
+            conv3x3_with_stats_plain, x, wt, conv3x3_bn, worst)] += 1
+        del x, wt
+        torch.cuda.empty_cache()
+    for m, k, nn_ in dict.fromkeys(v2_ones):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+        wt = (torch.randn((k, nn_), generator=gen, device="cuda")
+              / k ** 0.5).to(bf16)
+        variants["K5 " + _stats_case(
+            f"K5 M={m} K={k} N={nn_}", matmul_with_stats,
+            matmul_with_stats_plain, x, wt, matmul_bn, worst)] += 1
+    check(worst.get("K5", 0.0) <= CONV_BF16_ATOL / 2,
+          f"K5 bf16 excess over one step {worst.get('K5')}")
+    log({"check": "zoo_conv_bn_kernels", "k6_cases": len(k6_cases),
+         "k5_cases": len(dict.fromkeys(v2_ones)),
+         "vgg16_convs": len(vgg16), "inception_v2_fused_1x1_3x3":
+         [len(v2_ones), len(v2_threes)], "variants": dict(variants),
+         "f32_max_err_over_max_ref": worst.get("f32", 0.0),
+         "k5_bf16_max_excess_over_one_step": worst.get("K5", 0.0),
+         "k6_bf16_max_excess_over_one_step": worst.get("K6", 0.0),
+         "stats_max_err_over_scale": worst.get("stats", 0.0),
+         "seconds": time.perf_counter() - t0})
+    return {"vgg16": vgg16, "cifar": cifar, "v2_ones": v2_ones,
+            "v2_threes": v2_threes}
+
+
+def check_zoo_autograd():
+    """``conv3x3_bn_train`` (K6) against autograd through the plain
+    composition, as phase 2's ``check_conv_bn_autograd`` in f32, at one
+    small shape of each geometry phase 3i adds: Cin = 3 (VGG's conv1_1),
+    2x2 images (VGG-CIFAR's last stage) and 224 wide (VGG-16's first
+    block); and ``conv1x1_bn_train`` (K5) at an Inception v2 shape."""
+    from bigdl_tpu_torch.ops.conv3x3_bn import _conv3x3, conv3x3_bn_train
+    from bigdl_tpu_torch.ops.conv_bn import conv1x1_bn_train
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    cases = {
+        "cin3_4x32x32_3to64": (conv3x3_bn_train, _conv3x3, rnd(4, 32, 32, 3),
+                               rnd(3, 3, 3, 64) / 5),
+        "2x2_32x2x2_64to64": (conv3x3_bn_train, _conv3x3, rnd(32, 2, 2, 64),
+                              rnd(3, 3, 64, 64) / 24),
+        "224_1x224x224_16to16": (conv3x3_bn_train, _conv3x3,
+                                 rnd(1, 224, 224, 16), rnd(3, 3, 16, 16) / 12),
+        "1x1_8x28x28_192to64": (conv1x1_bn_train, lambda x, w: x @ w,
+                                rnd(8 * 28 * 28, 192), rnd(192, 64) / 14)}
+    _autograd_cases(cases, rnd, "zoo_conv_bn_autograd_f32")
+
+
+def check_lrn():
+    """``SpatialCrossMapLRN`` (Inception v1's and AlexNet's, size 5) on the
+    card against the CPU on the same input (a stage-2 activation, 8 x 56 x
+    56 x 192): f32 within LRN_F32_RTOL of max|ref| (the two devices' pow
+    differ in the last bits), bf16 within two bf16 steps of each element
+    (2^-6 |ref|, the bound the CPU tests hold the port to against the
+    reference)."""
+    from bigdl_tpu_torch.nn.normalization import SpatialCrossMapLRN
+    lrn = SpatialCrossMapLRN(5, 0.0001, 0.75)
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn((8, 56, 56, 192), generator=gen) * 20
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        got = lrn(xd.to("cuda")).float().cpu()
+        ref = lrn(xd).float()
+        if dt == torch.float32:
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            check(err <= LRN_F32_RTOL, f"LRN f32 on the card: {err}")
+        else:
+            err = ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+            check(bool(((got - ref).abs() <= 2 ** -6 * ref.abs()).all()),
+                  f"LRN bf16 on the card: {err} of |ref|")
+        out[str(dt)[6:]] = err
+    log({"check": "lrn_card_vs_cpu", **out})
+
+
+def vgg_cifar_grad_check(seed: int = ZOO_GRAD_SEED) -> dict:
+    """VGG-CIFAR, one f32 batch of ZOO_GRAD_BATCH images, dropout 0, three
+    models with the same weights: unfused on the card (cuDNN convs,
+    ``batch_norm_train``), fused on the card with the 3x3 gate (K6, the
+    ``fma`` variant in f32), and unfused on the CPU in f64, the reference
+    each is measured against (phase 3c's plan). The f32 losses agree with
+    the f64 one within ZOO_LOSS_RTOL. By phase 3c's rule, every gradient
+    and running statistic of the fused model lies within twice the
+    unfused card model's distance from f64 (or GRAD_RTOL), tensor by
+    tensor, and is finite. A fused conv's pre-BN bias has no gradient
+    (the f64 one is 0)."""
+    from bigdl_tpu_torch.models import vgg
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.regularization import Dropout
+    from bigdl_tpu_torch.ops import conv3x3_bn
+    plain_card, truth = _with_gates((), lambda: (
+        vgg.build(10, device="cuda", seed=seed),
+        vgg.build(10, device="cpu", seed=seed + 1)))
+    fused = _with_gates(FUSION_GATES[1:], lambda: vgg.build(
+        10, device="cuda", seed=seed + 2))
+    for m in (truth, fused):
+        transfer_state(plain_card, m)
+    truth.double()
+    for model in (plain_card, fused, truth):
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.set_p(0.0)
+    rng = np.random.default_rng(seed + 3)
+    x = rng.normal(0, 1, (ZOO_GRAD_BATCH, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(1, 11, (ZOO_GRAD_BATCH,)).astype(np.float32)
+    losses, states = [], []
+    for m in (fused, plain_card, truth):
+        p = next(m.parameters())
+        m.train()
+        conv3x3_bn.LAUNCHES.reset()
+        loss = ClassNLLCriterion()(
+            m(torch.as_tensor(x, device=p.device).to(p.dtype)),
+            torch.as_tensor(y, device=p.device))
+        loss.backward()
+        losses.append(loss.item())
+        states.append(_unit_state(m))
+        check(conv3x3_bn.LAUNCHES.value == (13 if m is fused else 0),
+              f"VGG-CIFAR gradient run launched K6 "
+              f"{conv3x3_bn.LAUNCHES.value} times")
+    for got in losses[:2]:
+        check(abs(got - losses[2]) <= ZOO_LOSS_RTOL * abs(losses[2]),
+              f"VGG-CIFAR losses {losses} (fused card, unfused card, f64)")
+    fused_s, lib_s, ref_s = states
+    scale = 1e-3 * max(t.double().norm().item() for n, t in ref_s.items()
+                       if "running_" not in n)
+    d_f, d_u, over = [], [], []
+    for name, want in ref_s.items():
+        got = fused_s[name]
+        if got is None:   # a fused conv's pre-BN bias: exact gradient 0
+            check(want.abs().max().item() <= 1e-6 * scale,
+                  f"{name}: the f64 gradient of a pre-BN bias is not 0")
+            continue
+        check(torch.isfinite(got).all().item(),
+              f"{name} of the fused card model is not finite")
+        den = max(want.double().norm().item(), scale)
+        a = (got.detach().cpu().double() - want.detach().double()).norm() \
+            .item() / den
+        b = (lib_s[name].detach().cpu().double() - want.detach().double()) \
+            .norm().item() / den
+        d_f.append(a)
+        d_u.append(b)
+        if a > max(GRAD_RTOL, GRAD_TRUTH_FACTOR * b):
+            over.append((name, a, b))
+    med_f, med_u = float(np.median(d_f)), float(np.median(d_u))
+    readings = {"check": f"grad_vgg_cifar_f32_B{ZOO_GRAD_BATCH}_vs_f64",
+                "seed": seed, "tensors": len(d_f),
+                "losses_fused_card_unfused_card_f64": losses,
+                "fused_card_rel_l2_median": med_f,
+                "unfused_card_rel_l2_median": med_u,
+                "fused_card_rel_l2_max": max(d_f),
+                "unfused_card_rel_l2_max": max(d_u),
+                "tensors_over_2x_unfused": len(over),
+                "over_2x_first": over[:3]}
+    log(readings)
+    check(not over, f"{len(over)} tensors of the fused VGG-CIFAR card model "
+          f"are further than {GRAD_TRUTH_FACTOR}x the unfused card model "
+          f"from f64, e.g. (name, fused, unfused): {over[:3]}")
+    return readings
+
+
+def zoo_batch(b: int, hw: int, c: int, classes: int, seed: int = 0):
+    """bench.py's constant data (``_build_workload``): N(0, 1) NHWC images
+    and uniform 1-based labels, from ``seed``."""
+    from bigdl_tpu_torch.dataset.base import MiniBatch
+    rng = np.random.default_rng(seed)
+    return MiniBatch(rng.normal(0, 1, (b, hw, hw, c)).astype(np.float32),
+                     rng.integers(1, classes + 1, (b,)).astype(np.float32))
+
+
+def zoo_f32_loss(model, batch) -> float:
+    """The loss of ``batch`` under ``model``'s f32 master weights, computed
+    in f32 in training mode (batch statistics) with every dropout off; the
+    running statistics are put back. bf16 resolves a loss near ln(1000)
+    only to 2^-5, so a run's bf16 losses cannot show a small fall: this
+    reading can."""
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.regularization import Dropout
+    drops = [(m, m.p) for m in model.modules() if isinstance(m, Dropout)]
+    buffers = [(b, b.clone()) for b in model.buffers()]
+    for m, _ in drops:
+        m.set_p(0.0)
+    try:
+        with torch.no_grad():
+            out = model(torch.as_tensor(batch.data, device="cuda"))
+            return ClassNLLCriterion()(
+                out.float(), torch.as_tensor(batch.labels, device="cuda")
+            ).item()
+    finally:
+        for m, p in drops:
+            m.set_p(p)
+        for b, kept in buffers:
+            b.copy_(kept)
+
+
+def zoo_run(name: str, build, gates, data, per_step: dict,
+            steps: int = ZOO_STEPS) -> tuple:
+    """One training run of phase 3i: the model built with ``gates`` at the
+    first rung of ZOO_LADDER[name] that fits (an out-of-memory rung is
+    logged with the peak it reached, then the next is taken), ``steps``
+    steps of ``train_resnet`` (bench.py's recipe); finite losses, K5/K6
+    launches equal to ``per_step`` x steps (every one ``mma`` unless
+    ``per_step`` says otherwise), f32 master weights that moved, and an
+    f32 loss of the batch (``zoo_f32_loss``) lower after the steps than
+    before them; then a profiled window of two more steps for the busy
+    share. Returns (the row, the launches, the model, the batch, the
+    losses)."""
+    from bigdl_tpu_torch.nn.fused import FusedConv1x1BN, FusedConv3x3BN
+    k5, k5_mma, k6, k6_mma = conv_bn_counters()
+    for b in ZOO_LADDER[name.split(":")[0]]:
+        model = batch = None
+        try:
+            model = _with_gates(gates, lambda: build(b))
+            batch = data(b)
+            # kept on the host, out of the run's peak
+            start = {n: p.detach().to("cpu", copy=True)
+                     for n, p in model.named_parameters()}
+            f32_before = zoo_f32_loss(model, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before_mib = torch.cuda.memory_allocated() / 2 ** 20
+            for c in (k5, k5_mma, k6, k6_mma):
+                c.reset()
+            history = train_resnet(model, batch, steps)
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        # out of the handler, its traceback no longer holds the step's
+        # tensors
+        log({"zoo_out_of_memory": name, "batch": b, "peak_mib":
+             torch.cuda.max_memory_allocated() / 2 ** 20})
+        model = batch = start = None
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise RuntimeError(f"{name}: no rung of {ZOO_LADDER} fits")
+    launches = {"matmul_bn": k5.value, "matmul_bn_mma": k5_mma.value,
+                "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value}
+    losses = [h["loss"] for h in history]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"{name}: losses {losses}")
+    want = {"matmul_bn": per_step.get("K5", 0) * steps,
+            "matmul_bn_mma": per_step.get("K5", 0) * steps,
+            "conv3x3_bn": per_step.get("K6", 0) * steps,
+            "conv3x3_bn_mma": per_step.get("K6_mma", per_step.get("K6", 0))
+            * steps}
+    check(launches == want, f"{name}: launched {launches}, want {want}")
+    # a fused conv's pre-BN bias is off the training path: its gradient is
+    # 0 and, without weight decay, it stays where it was
+    idle = {id(m.bias) for m in model.modules()
+            if isinstance(m, (FusedConv1x1BN, FusedConv3x3BN)) and m.with_bias}
+    moved = {n: (p.detach().cpu() - start[n]).norm().item()
+             for n, p in model.named_parameters() if id(p) not in idle}
+    del start
+    f32_after = zoo_f32_loss(model, batch)
+    warm = min(5, steps // 4)
+    step_s = float(np.median([h["seconds"] for h in history[warm:-1]]))
+    row = {"batch": b, "gates": list(gates), "steps": steps,
+           "step_ms_median": step_s * 1e3, "images_per_s": b / step_s,
+           "first_loss": losses[0], "last5_mean_loss":
+           float(np.mean(losses[-5:])), "f32_loss_before_after":
+           [f32_before, f32_after], "params_moved":
+           [sum(d > 0 for d in moved.values()), len(moved)],
+           "params_change_l2": float(np.sqrt(sum(d * d for d in
+                                                 moved.values()))),
+           "launches": launches}
+    check(row["params_change_l2"] > 0 and np.isfinite(f32_after)
+          and f32_after < f32_before,
+          f"{name}: the f32 masters moved by {row['params_change_l2']} "
+          f"({row['params_moved']} tensors) and the f32 loss went "
+          f"{f32_before} -> {f32_after}")
+    # the peak counts all that is allocated: the model and batch (made
+    # before the reset) and what earlier phases still hold, logged apart
+    # as allocated_before_mib
+    row["peak_allocated_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    row["allocated_before_mib"] = before_mib
+    rows, wall = profiled(lambda: train_resnet(model, batch, 2), name)
+    row["device_busy_share"] = (None if rows is None else
+                                sum(t for _, t in rows) / 1e6 / wall)
+    log({"zoo_run": name, **row, "losses": losses})
+    return row, launches, model, batch, losses
+
+
+def run_zoo_apps() -> dict:
+    """The four apps on the card, as their CLI runs them: ``lenet train``
+    on the vendored MNIST with per-epoch validation, then ``python -m
+    bigdl_tpu_torch.apps.lenet test --model`` as a subprocess, whose Top-1
+    must equal the trained model's; ``vgg train`` with the 3x3 gate on
+    synthetic CIFAR at B=128 (K6 13 a step, f32: ``fma``); ``resnet train
+    --depth 20`` on CIFAR binary files the phase writes; ``inception
+    train --synthetic-size``. Returns the K5/K6 launches."""
+    import tempfile
+
+    from bigdl_tpu_torch.apps import inception as inception_app
+    from bigdl_tpu_torch.apps import lenet as lenet_app
+    from bigdl_tpu_torch.apps import resnet as resnet_app
+    from bigdl_tpu_torch.apps import vgg as vgg_app
+    from bigdl_tpu_torch.optim import Evaluator, Top1Accuracy
+    root = tempfile.mkdtemp(prefix="bigdl_zoo_")
+    res = {}
+    k5, k5_mma, k6, k6_mma = conv_bn_counters()
+    for c in (k5, k5_mma, k6, k6_mma):
+        c.reset()
+    try:
+        t0 = time.perf_counter()
+        ck = os.path.join(root, "lenet")
+        trained = lenet_app.train(["--folder", MNIST_DIR, "-b", "8", "-e", "2",
+                                   "--checkpoint", ck])
+        (top1, _), = Evaluator(trained).test(
+            lenet_app._dataset(MNIST_DIR, 8, False, 0), [Top1Accuracy()])
+        out = subprocess.run(
+            [sys.executable, "-m", "bigdl_tpu_torch.apps.lenet", "test",
+             "--model", os.path.join(ck, "model_final"), "--folder",
+             MNIST_DIR, "-b", "8"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        check(out.returncode == 0, f"lenet test: {out.stderr[-2000:]}")
+        line = [ln for ln in out.stdout.splitlines()
+                if ln.startswith("Top1Accuracy:")]
+        check(line == [f"Top1Accuracy: {top1}"],
+              f"lenet test printed {line}, the trained model gives {top1}")
+        res["lenet"] = {"top1": top1.result(), "records": top1.count,
+                        "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        k6.reset()
+        m = _with_gates(("BIGDL_TPU_FUSED_3X3",), lambda: vgg_app.train(
+            ["--synthetic-size", str(2 * CIFAR_APP_BATCH), "-b",
+             str(CIFAR_APP_BATCH), "-e", "2"]))
+        res["vgg"] = {"k6_launches": k6.value, "s": time.perf_counter() - t0}
+        check(k6.value == 13 * 4, f"apps.vgg launched K6 {k6.value} times, "
+              "want 13 x 4 iterations")
+        del m
+        t0 = time.perf_counter()
+        data = os.path.join(root, "cifar")
+        os.makedirs(data)
+        rng = np.random.default_rng(16)
+        for f in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
+                "test_batch.bin"]:
+            with open(os.path.join(data, f), "wb") as fh:
+                for _ in range(CIFAR_APP_BATCH):
+                    fh.write(bytes([int(rng.integers(0, 10))]))
+                    fh.write(rng.integers(0, 256, 3072, np.uint8).tobytes())
+        m = _with_gates((), lambda: resnet_app.train(
+            ["--folder", data, "--depth", "20", "-b", str(CIFAR_APP_BATCH),
+             "-e", "1"]))
+        res["resnet"] = {"s": time.perf_counter() - t0}
+        del m
+        t0 = time.perf_counter()
+        m = _with_gates((), lambda: inception_app.train(
+            ["--synthetic-size", str(INCEPTION_APP_RECORDS), "-b",
+             str(INCEPTION_APP_BATCH), "-e", "1"]))
+        res["inception"] = {"s": time.perf_counter() - t0}
+        del m
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log({"zoo_apps": res})
+    return {"matmul_bn": k5.value, "matmul_bn_mma": k5_mma.value,
+            "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value}
+
+
+def run_zoo() -> tuple:
+    """Phase 3i: the kernel checks at the new shapes, the card's LRN, the
+    VGG-CIFAR gradient check, then runs a-e (bench.py's recipe, 20 steps;
+    LeNet 100) and the apps. Returns (the K5/K6 launches of the runs and
+    the apps, the shapes checked)."""
+    from bigdl_tpu_torch.models import inception, lenet, vgg
+    t0 = time.perf_counter()
+    shapes = check_zoo_kernels()
+    check_zoo_autograd()
+    check_lrn()
+    vgg_cifar_grad_check()
+    log({"zoo_checks_s": time.perf_counter() - t0})
+    img = lambda b: zoo_batch(b, 224, 3, 1000)
+    runs = [
+        ("vgg16", lambda b: vgg.build_imagenet(1000, 16, device="cuda",
+                                               seed=21),
+         FUSION_GATES[1:], img, {"K6": 13, "K6_mma": 0}),
+        ("vgg16:unfused", lambda b: vgg.build_imagenet(
+            1000, 16, device="cuda", seed=21), (), img, {}),
+        ("inception_v1", lambda b: inception.build(1000, device="cuda",
+                                                   seed=22),
+         (), img, {}),
+        ("inception_v2", lambda b: inception.build_v2(1000, device="cuda",
+                                                      seed=23),
+         FUSION_GATES, img, {"K5": 37, "K6": 27})]
+    rows, total = {}, collections.Counter()
+    for name, build, gates, data, per_step in runs:
+        row, launches, model, batch, _ = zoo_run(name, build, gates, data,
+                                                 per_step)
+        rows[name] = row
+        total.update(launches)
+        del model, batch
+        torch.cuda.empty_cache()
+    # (e) LeNet as a Sequential and as a Graph from one seed: one net, so
+    # the two runs' losses are equal bit for bit (deterministic cuDNN)
+    lenet_data = lambda b: zoo_batch(b, 28, 1, 10)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        seq_row, _, seq, _, seq_losses = zoo_run(
+            "lenet", lambda b: lenet.build(10, device="cuda", seed=24),
+            (), lenet_data, {}, LENET_STEPS)
+        graph_row, _, graph, _, graph_losses = zoo_run(
+            "lenet:graph", lambda b: lenet.graph(10, device="cuda",
+                                                 seed=24),
+            (), lenet_data, {}, LENET_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(seq_losses == graph_losses,
+          f"LeNet's Graph losses differ from its Sequential's: "
+          f"{[(a, b) for a, b in zip(seq_losses, graph_losses) if a != b][:3]}")
+    check(seq_losses[-1] < seq_losses[0],
+          f"LeNet's loss did not fall: {seq_losses[0]} -> {seq_losses[-1]}")
+    rows["lenet"], rows["lenet:graph"] = seq_row, graph_row
+    log({"check": "lenet_graph_equals_sequential", "steps": LENET_STEPS,
+         "bit_equal": True, "graph_children": list(graph._modules)[:3]})
+    total.update(run_zoo_apps())
+    log({"zoo": {k: {f: v for f, v in r.items() if f != "launches"}
+                 for k, r in rows.items()},
+         "zoo_s": time.perf_counter() - t0})
+    return dict(total), shapes
+
+
+def time_zoo_kernels(launches: dict, shapes: dict) -> list:
+    """The ``kernels`` line's phase 3i rows: K6 at VGG-16's 224x224 64->64
+    (conv1_2) and 14x14 512->512 (block 5) at B=128 in f32, the dtype run
+    (a) gives it (the ``fma`` variant; the operations priced at the f32
+    peak), each with a ``bf16`` reading beside it (the ``mma`` variant at
+    the same shape); K5 at Inception v2's largest fused 1x1 (by M*K*N) at
+    B=256 in bf16; each as phase 4's ``_time_stats_kernel`` times K5 and
+    K6 (``graph_ms``; the bound counts x, w and y in the row's dtype and
+    the two f32 sums; the library's product and ``torch.var_mean``).
+    ``launches``: the kernel's launches in phase 3i's runs and apps (all
+    shapes); the ``work`` text says how many of a run's convs have this
+    shape, by the structure."""
+    from bigdl_tpu_torch.ops.conv3x3_bn import (_conv3x3,
+                                                conv3x3_with_stats_kernel,
+                                                conv3x3_with_stats_plain)
+    from bigdl_tpu_torch.ops.matmul_bn import (matmul_with_stats_kernel,
+                                               matmul_with_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    entries = []
+    vgg16 = shapes["vgg16"]
+    for shape in (vgg16[1], vgg16[-1]):
+        b, h, _, c, co = shape
+        name = f"conv3x3_bn vgg16 {h}x{h} {c}->{co}"
+        readings = {}
+        for dt, size, peak in ((f32, 4, F32_OPS_PER_S),
+                               (bf16, 2, BF16_OPS_PER_S)):
+            x = rnd(b, h, h, c).to(dt)
+            w = (rnd(3, 3, c, co) / (3 * c ** 0.5)).to(dt)
+            readings[dt] = _time_stats_kernel(
+                f"{name} {dt}", conv3x3_with_stats_kernel,
+                conv3x3_with_stats_plain, _conv3x3, x, w,
+                size * (b * h * h * c + 9 * c * co + b * h * h * co) + 8 * co,
+                2 * b * h * h * 9 * c * co, time_plain=dt == f32,
+                ops_per_s=peak)
+            del x, w
+            torch.cuda.empty_cache()
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/conv3x3_bn.cu",
+            "replaces": "bigdl_tpu/ops/conv3x3_bn.py:68",
+            "launches": launches["conv3x3_bn"],
+            "variant": "fma", **readings[f32],
+            "bf16": {"variant": "mma", **readings[bf16]},
+            "work": f"one launch, N={b} {h}x{h} {c}->{co} f32 as run (a) "
+                    "feeds it (bf16: the mma variant at this shape); "
+                    "convs of this shape a step, by the structure: "
+                    f"{vgg16.count(shape)} of VGG-16's 13; "
+                    "library_ms: F.conv2d (cuDNN, no TF32) + torch.var_mean "
+                    "of y; launches: phase 3i's runs and apps"})
+    ones = shapes["v2_ones"]
+    m, k, n = max(ones, key=lambda s: s[0] * s[1] * s[2])
+    x, w = rnd(m, k).to(bf16), (rnd(k, n) / k ** 0.5).to(bf16)
+    row = _time_stats_kernel(
+        f"matmul_bn inception_v2 M={m} K={k} N={n}", matmul_with_stats_kernel,
+        matmul_with_stats_plain, lambda x, w: x @ w, x, w,
+        2 * (m * k + k * n + m * n) + 8 * n, 2 * m * k * n)
+    del x, w
+    torch.cuda.empty_cache()
+    entries.append({
+        "name": f"matmul_bn inception_v2 M={m} K={k} N={n}", "route": "cuda",
+        "source": "bigdl_tpu_torch/csrc/matmul_bn.cu",
+        "replaces": "bigdl_tpu/ops/matmul_bn.py:67",
+        "launches": launches["matmul_bn"],
+        "variant": "mma", **row,
+        "work": f"one launch, M={m} K={k} N={n} bf16 (Inception v2's largest "
+                "fused 1x1 at B=256; of this shape a step, by the "
+                f"structure: {ones.count((m, k, n))} of its 37); "
+                "library_ms: x @ w (cuBLAS) + "
+                "torch.var_mean of y; launches: phase 3i's runs and apps"})
+    log({"zoo_kernel_timing": [{k: e[k] for k in ("name", "ms", "plain_ms",
+                                                   "bound_ms", "library_ms")}
+                               for e in entries]})
+    return entries
 
 
 # ------------------------------------------------------------ 4a. HBM roof
@@ -4585,7 +5233,7 @@ def time_int8(launches: int) -> dict:
 
 
 def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops,
-                       time_plain=True):
+                       time_plain=True, ops_per_s=BF16_OPS_PER_S):
     """One fused-statistics kernel at one shape: checked once more against
     its plain version, then its device time, its plain version's (unless
     ``time_plain`` is false), and the library's product and one fused
@@ -4607,7 +5255,7 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops,
     product_ms = graph_ms(lambda: library(x, w), f"{name} library")
     reduce_ms = graph_ms(lambda: torch.var_mean(y2d, dim=0, correction=0),
                          f"{name} library reduction")
-    return {**out, **bound(nbytes, ops),
+    return {**out, **bound(nbytes, ops, ops_per_s),
             "library_ms": product_ms + reduce_ms,
             "library_product_ms": product_ms,
             "library_reduction_ms": reduce_ms, "max_abs_err": err}
@@ -4715,6 +5363,10 @@ def main(argv=None) -> int:
              "resume_helper line (no result line)")
     parser.add_argument("--steps-per-dispatch", type=int, default=1,
                         help="with --resume-helper: the windows' k")
+    parser.add_argument(
+        "--zoo-only", action="store_true",
+        help="run only the kernels' build, phase 3i (the conv zoo) and its "
+             "kernel rows, and print them (no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4741,6 +5393,11 @@ def main(argv=None) -> int:
         log({"timed_package": os.path.dirname(bigdl_tpu_torch.__file__),
              "card": card, "total_s": time.perf_counter() - t0,
              "kernels_timed": rows, "k7_timed": time_probe_families()})
+        return 0
+    if args.zoo_only:
+        zoo_launches, zoo_shapes = run_zoo()
+        log({"zoo_kernels": time_zoo_kernels(zoo_launches, zoo_shapes),
+             "total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.resnet_grad_seeds:
         failed = []
@@ -4779,6 +5436,7 @@ def main(argv=None) -> int:
     resnet_launches = run_resnet()
     resnet_launches = {k: n + ckpt_launches[k]
                        for k, n in resnet_launches.items()}
+    zoo_launches, zoo_shapes = run_zoo()
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
@@ -4795,6 +5453,7 @@ def main(argv=None) -> int:
                     serving_plane=time_int8_rows(PLANE_K4_ROWS[:1]),
                     published=time_int8_published()),
                *time_conv_bn(resnet_launches),
+               *time_zoo_kernels(zoo_launches, zoo_shapes),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:
         add_measured_bound(entry, roof["roof_gbps"] * 1e9)

@@ -19,7 +19,11 @@ import torch
 from bigdl_tpu_torch.apps import transformer as transformer_app
 from bigdl_tpu_torch.models.generation import generate, generate_speculative
 from bigdl_tpu_torch.resilience.serving_drill import run_kill_drill
-from bigdl_tpu_torch.models import resnet
+from bigdl_tpu_torch.apps import inception as inception_app
+from bigdl_tpu_torch.apps import lenet as lenet_app
+from bigdl_tpu_torch.apps import resnet as resnet_app
+from bigdl_tpu_torch.apps import vgg as vgg_app
+from bigdl_tpu_torch.models import alexnet, inception, lenet, resnet, vgg
 from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.models.serving import ContinuousLMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
@@ -90,7 +94,12 @@ def test_new_subpackages_are_part_of_the_port():
                 "interop/hf.py", "interop/hf_tokenizer.py",
                 "utils/file_io.py", "resilience/coordinator.py",
                 "optim/validation.py", "optim/metrics.py",
-                "optim/evaluator.py"):
+                "optim/evaluator.py", "models/lenet.py", "models/vgg.py",
+                "models/inception.py", "models/alexnet.py", "nn/graph.py",
+                "dataset/image.py", "dataset/mnist.py", "dataset/cifar.py",
+                "utils/rng.py", "utils/table.py", "optim/validator.py",
+                "apps/lenet.py", "apps/vgg.py", "apps/inception.py",
+                "apps/resnet.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -165,7 +174,13 @@ def test_build_lm_raises_without_card():
                                    "load_hf_checkpoint", "load_gpt2",
                                    "Evaluator", "file_io.load",
                                    "transformer.main generate --model",
-                                   "transformer.main serve --draft"])
+                                   "transformer.main serve --draft",
+                                   "lenet.build", "lenet.graph", "vgg.build",
+                                   "vgg.build_imagenet", "inception.build",
+                                   "inception.build_v2", "alexnet.build",
+                                   "lenet.main train", "lenet.main test",
+                                   "vgg.main train", "resnet.main train",
+                                   "inception.main train"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -205,6 +220,23 @@ def test_entry_points_raise_without_card(entry, tmp_path):
             ["generate", "--model", saved, "--maxNewTokens", "2"]),
         "transformer.main serve --draft": lambda: transformer_app.main(
             ["serve", "--continuous", "--model", saved, "--draft", saved]),
+        # the conv zoo's builders and apps
+        "lenet.build": lambda: lenet.build(10),
+        "lenet.graph": lambda: lenet.graph(10),
+        "vgg.build": lambda: vgg.build(10),
+        "vgg.build_imagenet": lambda: vgg.build_imagenet(1000, 16),
+        "inception.build": lambda: inception.build(1000),
+        "inception.build_v2": lambda: inception.build_v2(1000),
+        "alexnet.build": lambda: alexnet.build(1000),
+        "lenet.main train": lambda: lenet_app.main(
+            ["train", "--synthetic-size", "8", "-b", "4"]),
+        "lenet.main test": lambda: lenet_app.main(["test", "--model", saved]),
+        "vgg.main train": lambda: vgg_app.main(
+            ["train", "--synthetic-size", "8", "-b", "4"]),
+        "resnet.main train": lambda: resnet_app.main(
+            ["train", "--synthetic-size", "8", "-b", "4", "--depth", "8"]),
+        "inception.main train": lambda: inception_app.main(
+            ["train", "--synthetic-size", "2", "-b", "2"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
