@@ -57,7 +57,11 @@ class ByteRecord:
 
 
 class Transformer:
-    """Iterator-to-iterator stage (reference ``Transformer``)."""
+    """Iterator-to-iterator stage (reference ``Transformer``).
+    ``stochastic``: the stage draws random numbers (a random crop, flip or
+    jitter), so ``DeviceCachedDataSet`` refuses to cache below it."""
+
+    stochastic = False
 
     def __call__(self, prev: Iterator) -> Iterator:
         raise NotImplementedError
@@ -111,9 +115,8 @@ class Prefetch(Transformer):
     ``... >> BGRImgToBatch(256) >> Prefetch(2)``. Items keep their order;
     an upstream exception is raised in the consumer.
 
-    In the reference it must not sit below a device-cached dataset (the
-    cache would freeze what it prefetched); the port has no device cache
-    yet."""
+    It must not sit below a ``DeviceCachedDataSet``, which materialises
+    its input once."""
 
     def __init__(self, depth: int = 2):
         if depth < 1:

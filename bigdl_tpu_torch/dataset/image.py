@@ -117,6 +117,7 @@ class BGRImgCropper(Transformer):
 
     def __init__(self, crop_width: int, crop_height: int, random: bool = True):
         self.cw, self.ch, self.random = crop_width, crop_height, random
+        self.stochastic = random
 
     def __call__(self, prev: Iterator[LabeledImage]) -> Iterator[LabeledImage]:
         rng = RandomGenerator.RNG()
@@ -160,6 +161,8 @@ class HFlip(Transformer):
     """Horizontal flip with probability ``threshold`` (reference
     ``HFlip``): one uniform draw per image."""
 
+    stochastic = True
+
     def __init__(self, threshold: float = 0.5):
         self.threshold = threshold
 
@@ -175,6 +178,8 @@ class HFlip(Transformer):
 class ColorJitter(Transformer):
     """Brightness, contrast and saturation jitter in a random order
     (reference ``ColorJitter``)."""
+
+    stochastic = True
 
     def __init__(self, brightness: float = 0.4, contrast: float = 0.4,
                  saturation: float = 0.4):
@@ -206,6 +211,8 @@ class ColorJitter(Transformer):
 
 class Lighting(Transformer):
     """AlexNet's PCA lighting noise (reference ``Lighting``)."""
+
+    stochastic = True
 
     EIGVAL = np.asarray([0.2175, 0.0188, 0.0045], np.float32)
     EIGVEC = np.asarray([[-0.5675, 0.7192, 0.4009],

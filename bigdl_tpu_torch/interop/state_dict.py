@@ -164,7 +164,9 @@ def export_tree_state(model: torch.nn.Module
     """``(params, buffers)`` of a model as ``{dotted name: f32 numpy
     array}`` dicts. The names and layouts are the reference's
     ``parameter_tree()`` and ``buffer_tree()`` flattened with dots
-    (children ``"0"``, ``"1"``, ..., conv weights HWIO)."""
+    (children ``"0"``, ``"1"``, ..., conv weights HWIO; ``CAdd.bias``,
+    ``Mul``/``CMul.weight``, a recurrent cell's ``w_ih``/``w_hh``/bias
+    under ``<Recurrent>.cell``, ``BiRecurrent``'s under ``fwd``/``bwd``)."""
     def numpy(t):
         return t.detach().float().cpu().numpy()
     return ({n: numpy(p) for n, p in model.named_parameters()},

@@ -1,6 +1,6 @@
 """Module zoo of the port (counterpart of ``bigdl_tpu/nn``): the layers and
-criteria the transformer LM slices, the ResNet slice and the classic conv
-zoo (LeNet, VGG, Inception, AlexNet) need."""
+criteria the transformer LM slices, the ResNet slice, the classic conv
+zoo (LeNet, VGG, Inception, AlexNet), ViT and the recurrent models need."""
 
 from bigdl_tpu_torch.nn.attention import (LayerNorm,
                                           LearnedPositionalEncoding,
@@ -22,18 +22,28 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion, Criterion,
 from bigdl_tpu_torch.nn.fused import (FusedConv1x1BN, FusedConv3x3BN,
                                       use_fused_1x1, use_fused_3x3)
 from bigdl_tpu_torch.nn.graph import Graph, Input, Node
-from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
+from bigdl_tpu_torch.nn.linear import (CAdd, CMul, LMHead, Linear,
+                                       LookupTable, Mul, TiedLMHead)
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               SpatialBatchNormalization,
                                               SpatialCrossMapLRN,
                                               blend_running_stats)
 from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
-from bigdl_tpu_torch.nn.recurrent import TimeDistributed
+from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
+                                          LSTMPeephole, Recurrent,
+                                          RecurrentDecoder, RnnCell,
+                                          TimeDistributed)
+from bigdl_tpu_torch.nn.reduce import (CosineDistance, Max, Mean, Min,
+                                       PairwiseDistance, Sum)
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.nn.shape import Padding, Reshape, Transpose
 
-__all__ = ["BatchNormalization", "blend_running_stats", "CAddTable",
+__all__ = ["BatchNormalization", "BiRecurrent", "blend_running_stats",
+           "CAdd", "CAddTable", "Cell", "CMul", "CosineDistance", "GRU",
+           "LSTM", "LSTMPeephole", "Max", "Mean", "Min", "Mul",
+           "PairwiseDistance", "Recurrent", "RecurrentDecoder", "RnnCell",
+           "Sum",
            "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
            "Criterion", "CrossEntropyCriterion",
            "Dropout", "FusedConv1x1BN", "FusedConv3x3BN",

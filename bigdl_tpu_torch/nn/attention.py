@@ -10,7 +10,8 @@ RoPE, causal, a sliding window, q/k/v-only biases, attention-probability
 dropout; incremental decode over a linear KV cache, a rolling ring cache of
 ``window`` slots, and the serving engine's continuous mode with per-row
 positions), and the pre- or post-norm ``TransformerEncoderLayer`` /
-``TransformerEncoder`` stack with residual dropout. Context parallelism and
+``TransformerEncoder`` stack with residual dropout and per-block
+recomputation (``remat_blocks``). Context parallelism and
 MoE are later slices (ROADMAP A.4).
 
 The KV cache is module state (``enable_decode``) that the eager forward
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.regularization import Dropout
-from bigdl_tpu_torch.ops import attention_core, flash_attention
+from bigdl_tpu_torch.ops import attention_core, flash_attention, remat
 from bigdl_tpu_torch.ops.precision import match_compute
 from bigdl_tpu_torch.utils.device import module_device
 
@@ -658,6 +659,12 @@ class TransformerEncoder(Module):
     ``layer1``, ...) and, for pre-norm stacks, the final norm (a post-norm
     block ends normalised, so ``final_norm`` is None there)."""
 
+    #: ``Optimizer.set_remat("block")`` sets this: in training mode each
+    #: block runs under ``ops.remat.checkpoint``, so the backward keeps only
+    #: the blocks' boundary activations (B*S*E a layer) and recomputes the
+    #: rest, kernel K1 included, block by block
+    remat_blocks = False
+
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  ffn_dim: int, activation: str = "gelu",
                  causal: bool = False, rope: bool = False,
@@ -681,6 +688,8 @@ class TransformerEncoder(Module):
 
     def forward(self, input):
         x = input
+        ckpt = self.remat_blocks and self.training
         for i in range(self.num_layers):
-            x = self._modules[f"layer{i}"](x)
+            layer = self._modules[f"layer{i}"]
+            x = remat.checkpoint_module(layer, x) if ckpt else layer(x)
         return x if self.final_norm is None else self.final_norm(x)

@@ -1,5 +1,6 @@
-"""Linear layers of the LM slice (counterpart of ``bigdl_tpu/nn/linear.py``:
-``Linear``, ``LookupTable``, ``LMHead`` and ``TiedLMHead`` are ported).
+"""Linear layers (counterpart of ``bigdl_tpu/nn/linear.py``: ``Linear``,
+``LookupTable``, ``LMHead``, ``TiedLMHead``, ``CAdd``, ``Mul`` and ``CMul``
+are ported).
 
 Weight layouts keep the reference's (and Torch's) conventions: (out, in)
 for ``Linear`` and the heads, (vocab, dim) for the embedding table.
@@ -11,8 +12,9 @@ none); weights that must match another model are carried across with
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn import initialization as init
@@ -47,6 +49,46 @@ class Linear(Module):
         if self.with_bias:
             y = y + self.bias
         return y
+
+
+class CAdd(Module):
+    """Learnable bias of any shape that broadcasts against the input
+    (reference ``CAdd``), zeros at first: ViT's learned positions are one
+    ``CAdd((n_patches, embed_dim))`` over (B, n_patches, embed_dim)."""
+
+    def __init__(self, size: Sequence[int]):
+        super().__init__()
+        self.size = tuple(int(s) for s in size)
+        self.bias = torch.nn.Parameter(init.zeros(self.size))
+
+    def forward(self, input):
+        return input + self.bias
+
+
+class Mul(Module):
+    """One learnable scalar gain (reference ``Mul``), drawn as the
+    reference's ``default_init((1,), 1)``."""
+
+    def __init__(self, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = _uniform((1,), 1, generator)
+
+    def forward(self, input):
+        return input * self.weight[0]
+
+
+class CMul(Module):
+    """Learnable componentwise gain of any broadcastable shape (reference
+    ``CMul``), drawn with fan-in the number of its elements."""
+
+    def __init__(self, size: Sequence[int], *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.size = tuple(int(s) for s in size)
+        self.weight = _uniform(self.size, int(np.prod(self.size)), generator)
+
+    def forward(self, input):
+        return input * self.weight
 
 
 class LookupTable(Module):

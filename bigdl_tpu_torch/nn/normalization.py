@@ -16,6 +16,7 @@ import torch
 
 from bigdl_tpu_torch.nn import initialization as init
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.ops import remat
 from bigdl_tpu_torch.ops.batch_norm import batch_norm_train
 
 
@@ -26,6 +27,8 @@ def blend_running_stats(module: Module, mean: torch.Tensor, var: torch.Tensor,
     fused conv+BN modules: the unbiased ``n / (n - 1)`` correction of the
     batch variance, then the ``momentum`` blend into ``running_mean`` and
     ``running_var``, in place."""
+    if remat.recomputing():
+        return  # a recomputed forward (set_remat) moves nothing twice
     unbiased = var * (n / max(1, n - 1))
     rm, rv = module.running_mean, module.running_var
     rm.copy_((1 - momentum) * rm + momentum * mean)

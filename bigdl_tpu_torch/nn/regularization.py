@@ -6,6 +6,8 @@ holds its own ``torch.Generator``, made on the input's device at first use;
 ``manual_seed`` fixes its stream (``Optimizer`` seeds every dropout of the
 model it trains), else it is seeded from the system. The two frameworks draw
 different bits from the same seed, so tests compare statistics, not masks.
+Masks come from ``ops.remat.keep_mask``, so that a recomputed forward
+(``Optimizer.set_remat``) drops what its forward dropped.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.ops import remat
 
 
 def drop(x: torch.Tensor, p: float, generator: torch.Generator,
@@ -22,7 +25,7 @@ def drop(x: torch.Tensor, p: float, generator: torch.Generator,
     """Zero each element of ``x`` with probability ``p``; with ``scale`` the
     kept ones are divided by ``1 - p`` (inverted dropout)."""
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = remat.keep_mask(x.shape, keep, generator, x.device)
     out = torch.where(mask, x, 0.0)
     return out / keep if scale else out
 

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.ops import remat
+
 _F32_MIN = float(torch.finfo(torch.float32).min)
 
 
@@ -52,8 +54,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dropout_p > 0.0:
         if generator is None:
             raise ValueError("dropout_p > 0 needs a generator")
-        kept = torch.rand(weights.shape, generator=generator,
-                          device=weights.device) < 1.0 - dropout_p
+        kept = remat.keep_mask(weights.shape, 1.0 - dropout_p, generator,
+                               weights.device)
         weights = torch.where(kept, weights, 0.0) / (1.0 - dropout_p)
     wv = torch.promote_types(q.dtype, v.dtype)
     return torch.einsum("bnqk,bknd->bqnd", weights.to(q.dtype).to(wv),

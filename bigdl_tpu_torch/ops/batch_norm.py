@@ -14,7 +14,24 @@ conv+BN ops (``ops/conv_bn.py``, ``ops/conv3x3_bn.py``).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from bigdl_tpu_torch.ops import remat
+
+
+def _batch_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    xa = x.to(torch.promote_types(x.dtype, torch.float32))
+    axes = tuple(range(x.dim() - 1))
+    # sum(x) and sum(x*x) are independent: one pass over x
+    return xa.sum(axes), (xa * xa).sum(axes)
+
+
+#: sum and sum of squares over every axis but the last, in f32 (f64 for
+#: f64 input); tagged "bn_stats" for ``set_remat("conv")``
+batch_sums = remat.tagged_op("bigdl_tpu_torch::batch_sums", "bn_stats",
+                             _batch_sums)
 
 
 def bn_from_stats(y: torch.Tensor, s: torch.Tensor, sq: torch.Tensor,
@@ -54,10 +71,7 @@ class BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        xa = x.to(torch.promote_types(x.dtype, torch.float32))
-        axes = tuple(range(x.dim() - 1))
-        # sum(x) and sum(x*x) are independent: one pass over x
-        s, sq = xa.sum(axes), (xa * xa).sum(axes)
+        s, sq = batch_sums(x)
         out, mean, var, inv = bn_from_stats(x, s, sq, gamma, beta, eps,
                                             x.dtype)
         ctx.save_for_backward(x, gamma, mean, inv)

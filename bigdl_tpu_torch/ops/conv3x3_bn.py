@@ -30,7 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops import _build, remat
 from bigdl_tpu_torch.ops.batch_norm import bn_from_stats, bn_input_grad
 
 #: launches of kernel K6, either variant (counted where the kernel is
@@ -125,13 +125,26 @@ def conv3x3_with_stats(x: torch.Tensor, w: torch.Tensor) -> Stats:
     return y.to(x.dtype), s, sq
 
 
+def _conv3x3_with_stats_op(x: torch.Tensor, w: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    y, s, sq = conv3x3_with_stats(x, w)
+    return y, s.clone(), sq.clone()  # the kernel's sums share one buffer
+
+
+#: ``conv3x3_with_stats`` (K6 on the card) as an op tagged "conv_out", so
+#: that ``set_remat("conv")`` keeps its outputs instead of relaunching it
+conv3x3_with_stats_op = remat.tagged_op(
+    "bigdl_tpu_torch::conv3x3_with_stats", "conv_out", _conv3x3_with_stats_op)
+
+
 class Conv3x3BNTrain(torch.autograd.Function):
     """conv3x3 (SAME) + train-mode BN over (N, H, W); forward through
     ``conv3x3_with_stats`` (K6 on the card)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, eps):
-        y, s, sq = conv3x3_with_stats(x, w)
+        y, s, sq = conv3x3_with_stats_op(x, w)
         out, mean, var, inv = bn_from_stats(y, s, sq, gamma, beta, eps,
                                             x.dtype)
         ctx.save_for_backward(x, w, gamma, y, mean, inv)

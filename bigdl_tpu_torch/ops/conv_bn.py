@@ -16,15 +16,30 @@ from __future__ import annotations
 
 import torch
 
+from typing import Tuple
+
+from bigdl_tpu_torch.ops import remat
 from bigdl_tpu_torch.ops.batch_norm import bn_from_stats, bn_input_grad
 from bigdl_tpu_torch.ops.matmul_bn import matmul_with_stats
+
+
+def _matmul_with_stats_op(x2d: torch.Tensor, w: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    y, s, sq = matmul_with_stats(x2d, w)
+    return y, s.clone(), sq.clone()  # the kernel's sums share one buffer
+
+
+#: ``matmul_with_stats`` (K5 on the card) as an op tagged "conv_out", so
+#: that ``set_remat("conv")`` keeps its outputs instead of relaunching it
+matmul_with_stats_op = remat.tagged_op(
+    "bigdl_tpu_torch::matmul_with_stats", "conv_out", _matmul_with_stats_op)
 
 
 class Conv1x1BNTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, w, gamma, beta, eps):
-        y, s, sq = matmul_with_stats(x2d, w)
+        y, s, sq = matmul_with_stats_op(x2d, w)
         out, mean, var, inv = bn_from_stats(y, s, sq, gamma, beta, eps,
                                             x2d.dtype)
         ctx.save_for_backward(x2d, w, gamma, y, mean, inv)

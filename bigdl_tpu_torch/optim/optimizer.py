@@ -14,8 +14,13 @@ logs one line in the reference's format.
 The loss reaches the host ONE DISPATCH LATE, as in the reference's
 pipelined ``flush``: a window's losses are fetched after the next window
 has been queued on the device, so the host's launch work overlaps the
-device's compute. An end trigger that reads the loss (``Trigger.min_loss``)
-makes the loop fetch each loss before it checks the trigger.
+device's compute. On a card each window's losses are copied to pinned host
+memory right behind it and fetched by that copy's event, so the fetch waits
+for that window alone; a window's time is the interval between its
+completion and the previous one's, both device events (from its own start
+when nothing was in flight at its dispatch). An end trigger that reads the
+loss (``Trigger.min_loss``) makes the loop fetch each loss before it checks
+the trigger.
 
 ``set_steps_per_dispatch(k)`` groups up to k iterations into one window
 (the reference's ``train.multi_step``, a ``lax.scan`` over k stacked
@@ -26,6 +31,31 @@ one host read. On the CPU the window's iterations run eagerly one by one,
 so k changes no number there. Windows of 1, and ``k = 1``, run the eager
 step. The ``train.dispatch`` and ``train.sync`` spans mark the reference's
 sites.
+
+A window whose batches are all ``CachedSliceBatch``es of one
+``DeviceCachedDataSet`` gathers them inside its graph: its only input is
+the (k, B) index tensor, a copy on the device (the reference's
+``multi_step_cached``); a k = 1 step gathers its batch on the device too. A
+mixed window takes the pinned copy of its stacked batches, as the
+reference's ``all(...)`` test sends it to ``multi_step``.
+
+``set_remat`` recomputes activations in the backward (``ops/remat.py``):
+``True``/``"full"`` the whole forward, ``"conv"`` all but the tagged conv
+outputs and batch-norm sums (both a ``Sequential`` child by child,
+``remat.Recompute``), ``"block"`` each ``TransformerEncoder`` block on its
+own (``remat_blocks``). A recomputed forward draws the dropout
+masks its forward drew, so the gradients are those without remat.
+
+``set_train_summary(summary)`` writes ``Loss``, ``Throughput`` and
+``LearningRate`` (of optim methods with ``current_rate``) through
+``summary.add_scalar(tag, value, neval)`` for every iteration, when its
+loss reaches the host; a window's time is spread over its iterations. A
+summary with ``get_summary_trigger("Parameters")`` gets
+``add_histogram("Parameters/<name>", values, neval)`` of every parameter
+at each iteration the trigger fires at, and that trigger bounds windows as
+the others do. ``set_validation_summary(summary)`` gets each validation
+method's value (``add_scalar(name, value, neval - 1)``). Any object with
+these methods is a sink (no ``visualization/`` writer is ported).
 
 Hooks run at every window's end, as in the reference: validation
 (``set_validation``), then the checkpoint (``set_checkpoint``: ``model[.N]``
@@ -54,7 +84,9 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.base import AbstractDataSet
+from bigdl_tpu_torch.dataset.device_cache import CachedSliceBatch
 from bigdl_tpu_torch.interop.state_dict import import_tree_state
+from bigdl_tpu_torch.nn.attention import TransformerEncoder
 from bigdl_tpu_torch.nn.criterion import Criterion
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.optim.evaluator import evaluate_batches, evaluating
@@ -62,6 +94,7 @@ from bigdl_tpu_torch.optim.methods import SGD, OptimMethod
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.ops import remat
 from bigdl_tpu_torch.ops.precision import DtypePolicy
 from bigdl_tpu_torch.resilience import chaos as chaos_mod
 from bigdl_tpu_torch.resilience import coordinator
@@ -137,6 +170,9 @@ class Optimizer:
         self.precision = DtypePolicy.fp32()
         self._grad_clip: Dict = {}
         self._steps_per_dispatch = 1
+        self._remat = False
+        self.train_summary = None
+        self.validation_summary = None
         self.validation_trigger: Optional[Trigger] = None
         self.validation_dataset: Optional[AbstractDataSet] = None
         self.validation_methods: Optional[List[ValidationMethod]] = None
@@ -277,18 +313,49 @@ class Optimizer:
         self._chaos = list(injectors)
         return self
 
-    # ------------------------------------------------------------ not ported
-    def set_remat(self, *args, **kwargs):
-        _not_ported("set_remat", "A.3 (performance items)")
+    def set_remat(self, enabled=True) -> "Optimizer":
+        """Recompute activations in the backward (reference ``set_remat``):
+        ``True`` or ``"full"``, the whole forward; ``"conv"``, all but the
+        conv outputs and batch-norm statistics (K5 and K6 then launch once
+        a step); ``"block"``, every ``TransformerEncoder`` block on its own
+        (``remat_blocks``), the memory recipe of a large LM; ``False``,
+        none."""
+        encs = [m for m in self.model.modules()
+                if isinstance(m, TransformerEncoder)]
+        for enc in encs:  # reset; "block" re-enables below
+            enc.remat_blocks = False
+        if isinstance(enabled, str):
+            if enabled not in remat.POLICIES:
+                raise ValueError(f"unknown remat policy {enabled!r}; "
+                                 "expected True/False, 'full', 'conv' or "
+                                 "'block'")
+            if enabled == "block":
+                if not encs:
+                    raise ValueError("remat='block' needs a model with "
+                                     "TransformerEncoder blocks")
+                for enc in encs:
+                    enc.remat_blocks = True
+                self._remat = False  # per-block checkpoints, no outer one
+            else:
+                self._remat = True if enabled == "full" else enabled
+        else:
+            self._remat = bool(enabled)
+        return self
 
+    def set_train_summary(self, summary) -> "Optimizer":
+        """Per-iteration scalars (and parameter histograms) to ``summary``;
+        see the module docstring."""
+        self.train_summary = summary
+        return self
+
+    def set_validation_summary(self, summary) -> "Optimizer":
+        """Each validation's results to ``summary.add_scalar``."""
+        self.validation_summary = summary
+        return self
+
+    # ------------------------------------------------------------ not ported
     def set_profiling(self, *args, **kwargs):
         _not_ported("set_profiling", "A.5 (telemetry)")
-
-    def set_train_summary(self, *args, **kwargs):
-        _not_ported("set_train_summary", "A.5 (telemetry)")
-
-    def set_validation_summary(self, *args, **kwargs):
-        _not_ported("set_validation_summary", "A.5 (telemetry)")
 
     def optimize(self) -> torch.nn.Module:
         raise NotImplementedError
@@ -307,45 +374,70 @@ def _tensors(obj) -> List[torch.Tensor]:
 
 class _WindowGraph:
     """A window of k iterations as one CUDA graph (the counterpart of the
-    reference's ``train.multi_step``): ``step`` k times over static (k, B,
-    ...) data and label buffers and a (k, n) buffer of the optim method's
-    ``step_scalars``, then every gradient released; its output is the (k,)
-    losses. Each call fills the buffers with one pinned, non-blocking copy
-    apiece and runs the program (the first call is its eager warm-up, then
-    the capture; see ``utils/cuda_graph.py``); it returns a copy of the
-    losses."""
+    reference's ``train.multi_step``): ``step`` k times, iteration j on
+    ``batch(buffers, j)``, over static ``buffers`` shaped as ``like`` and a
+    (k, n) buffer of the optim method's ``step_scalars``, then every
+    gradient released; its output is the (k,) losses. A host window's
+    buffers are its stacked (k, B, ...) data and labels; a cached window's
+    one (k, B) index tensor, whose batches ``batch`` gathers from the cache
+    (``reads``, tensors the graph reads at fixed addresses). Each call
+    fills the buffers, host tensors by a pinned non-blocking copy and
+    device ones by a device copy, and runs the program (the first call is
+    its eager warm-up, then the capture; see ``utils/cuda_graph.py``); it
+    returns a copy of the losses."""
 
     def __init__(self, step: Callable, release: Callable, k: int,
-                 data: torch.Tensor, labels: torch.Tensor, n_scalars: int,
-                 device: torch.device, generators: Callable, state):
-        self.data = torch.empty(data.shape, dtype=data.dtype, device=device)
-        self.labels = torch.empty(labels.shape, dtype=labels.dtype,
-                                  device=device)
+                 like: Sequence[torch.Tensor], batch: Callable,
+                 n_scalars: int, device: torch.device, generators: Callable,
+                 state, reads: Sequence[torch.Tensor] = ()):
+        self.buffers = [torch.empty(t.shape, dtype=t.dtype, device=device)
+                        for t in like]
         self.scalars = torch.empty((k, n_scalars), dtype=torch.float32,
                                    device=device)
 
         def body():
-            losses = [step(self.data[j], self.labels[j], self.scalars[j])
+            losses = [step(*batch(self.buffers, j), self.scalars[j])
                       for j in range(k)]
             release()
             return torch.stack(losses)
 
         self.program = GraphedProgram(
             body, device, generators=generators,
-            inputs=lambda: [self.data, self.labels, self.scalars,
+            inputs=lambda: [*self.buffers, self.scalars, *reads,
                             *_tensors(state)])
 
-    def __call__(self, data: torch.Tensor, labels: torch.Tensor,
+    def __call__(self, inputs: Sequence[torch.Tensor],
                  scalars: torch.Tensor) -> torch.Tensor:
-        for buf, host in ((self.data, data), (self.labels, labels),
-                          (self.scalars, scalars)):
-            buf.copy_(host.pin_memory(), non_blocking=True)
+        for buf, t in zip((*self.buffers, self.scalars), (*inputs, scalars)):
+            buf.copy_(t.pin_memory() if t.device.type == "cpu" else t,
+                      non_blocking=True)
         # a copy: the losses are read one window late, after the next
         # replay has overwritten the graph's static output
         return self.program().clone()
 
     def close(self) -> None:
         self.program.close()
+
+
+class _Fetched:
+    """A window's (k,) losses on a card, copied to pinned host memory right
+    behind it, and timing events at its start and its end: ``flush`` waits
+    on ``done`` for this window alone (reading the device tensor would
+    queue behind, and wait for, the window dispatched after it) and times
+    it on the device's clock."""
+
+    @staticmethod
+    def event() -> torch.cuda.Event:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __init__(self, start: torch.cuda.Event, losses: torch.Tensor):
+        self.start = start
+        self.host = torch.empty(losses.shape, dtype=losses.dtype,
+                                pin_memory=True)
+        self.host.copy_(losses, non_blocking=True)
+        self.done = self.event()
 
 
 def _load_into(dst: Dict, src: Dict, where: str = "optim") -> None:
@@ -377,9 +469,9 @@ class LocalOptimizer(Optimizer):
         from pinned memory without blocking: a pageable copy would wait for
         the whole stream and undo the one-step-late loss fetch."""
         t = torch.as_tensor(array)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and t.device.type == "cpu":
             return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return t.to(self.device)
 
     def _dropouts(self) -> List[Dropout]:
         return [m for m in self.model.modules() if isinstance(m, Dropout)]
@@ -565,6 +657,15 @@ class LocalOptimizer(Optimizer):
                 flush()  # the snapshot's trainingLoss is then exact
             self._save_checkpoint(opt_state, driver_state)
 
+    def _summarize_parameters(self, neval: int) -> None:
+        """``add_histogram`` of every parameter (reference
+        ``_summarize_parameters``), tagged ``Parameters/<name>`` with the
+        module path's dots as slashes."""
+        for name, p in self.model.named_parameters():
+            self.train_summary.add_histogram(
+                "Parameters/" + name.replace(".", "/"),
+                p.detach().float().cpu().numpy(), neval)
+
     def _validate(self, driver_state: Dict) -> None:
         if self.validation_dataset is None:
             return
@@ -583,9 +684,13 @@ class LocalOptimizer(Optimizer):
             if r is None:
                 continue
             logger.info("%s is %s", m.name, r)
+            value = r.result()[0]
             if i == 0:
                 # 'score' (Trigger.max_score) tracks the FIRST method
-                driver_state["score"] = r.result()[0]
+                driver_state["score"] = value
+            if self.validation_summary is not None:
+                self.validation_summary.add_scalar(
+                    m.name, value, int(driver_state["neval"]) - 1)
         self.validation_history.append({
             "neval": int(driver_state["neval"]), "records": count,
             "seconds": elapsed,
@@ -616,6 +721,10 @@ class LocalOptimizer(Optimizer):
         self._loop_cursor = None
         triggers = [t for t in (self.end_when, self.validation_trigger,
                                 self.checkpoint_trigger) if t is not None]
+        summary = self.train_summary
+        # the reference's parameter-histogram trigger
+        ptrig = (summary.get_summary_trigger("Parameters")
+                 if hasattr(summary, "get_summary_trigger") else None)
         uses_loss = any(getattr(t, "uses_loss", False) for t in triggers)
         k_max = self._steps_per_dispatch
         # windows are bounded by PROBING every trigger at simulated nevals;
@@ -623,7 +732,7 @@ class LocalOptimizer(Optimizer):
         # one that may latch state would be corrupted by probes
         can_window = (k_max > 1 and not uses_loss
                       and all(getattr(t, "probe_safe", False)
-                              for t in triggers))
+                              for t in triggers + [ptrig] if t is not None))
         chaos_injectors = getattr(self, "_chaos_live", list(self._chaos))
         handler = self._preemption
         graphs: Dict[tuple, _WindowGraph] = {}   # one per window shape
@@ -637,10 +746,19 @@ class LocalOptimizer(Optimizer):
             for p in params.values():
                 p.grad = None
 
+        recompute = (remat.Recompute(
+            model, "conv" if self._remat == "conv" else None)
+            if self._remat else None)
+
         def step(data, labels, scalars=None) -> torch.Tensor:
             release()
-            out = torch.func.functional_call(
-                model, policy.cast_params_for_compute(params), (data,))
+            p_c = policy.cast_params_for_compute(params)
+            if recompute is None:
+                out = torch.func.functional_call(model, p_c, (data,))
+            else:
+                out = torch.func.functional_call(
+                    recompute, {f"model.{n}": t for n, t in p_c.items()},
+                    (data,))
             loss = self.criterion.forward(out, labels).float()
             loss.backward()
             # a parameter the loss does not reach (a fused conv's pre-BN
@@ -659,49 +777,84 @@ class LocalOptimizer(Optimizer):
                     if isinstance(m, Dropout) and m._generator is not None]
 
         def dispatch(window):
-            """Run a window; returns its losses (device tensors). On a card
-            a window of more than one iteration replays its graph."""
-            if len(window) == 1 or dev.type != "cuda":
+            """Run a window; returns its losses: a list of tensors on the
+            CPU, a ``_Fetched`` on a card. On a card a window of more than
+            one iteration replays its graph."""
+            if dev.type != "cuda":
                 return [step(*(self._to_device(a)
                                for a in (b.data, b.labels))) for b in window]
-            data = torch.stack([torch.as_tensor(b.data) for b in window])
-            labels = torch.stack([torch.as_tensor(b.labels) for b in window])
+            start = _Fetched.event()
+            if len(window) == 1:
+                # a cached batch's data and labels are device gathers
+                return _Fetched(start, step(*(self._to_device(a) for a in (
+                    window[0].data, window[0].labels))).reshape(1))
             count0 = opt_state["evalCounter"]
             rows = [self.optim_method.step_scalars(
                 {**opt_state, "evalCounter": count0 + j})
                 for j in range(len(window))]
-            key = (len(window), data.shape, data.dtype, labels.shape,
-                   labels.dtype)
+            if (all(isinstance(b, CachedSliceBatch) for b in window)
+                    and len({id(b.source) for b in window}) == 1):
+                # the gathers run inside the graph: only the indices move
+                src = window[0].source
+                inputs = [torch.stack([b.idx for b in window])]
+                key = ("cached", id(src), len(window), inputs[0].shape)
+                batch = lambda bufs, j, s=src: (
+                    s._x.index_select(0, bufs[0][j]),
+                    s._y.index_select(0, bufs[0][j]))
+                reads = (src._x, src._y)
+            else:
+                inputs = [torch.stack([torch.as_tensor(a).cpu() for a in arrs])
+                          for arrs in zip(*((b.data, b.labels)
+                                            for b in window))]
+                key = (len(window), *((t.shape, t.dtype) for t in inputs))
+                batch = lambda bufs, j: (bufs[0][j], bufs[1][j])
+                reads = ()
             if key not in graphs:
                 graphs[key] = _WindowGraph(
-                    step, release, len(window), data, labels, len(rows[0]),
-                    dev, dropout_generators, (params, opt_state))
-            losses = graphs[key](data, labels,
+                    step, release, len(window), inputs, batch, len(rows[0]),
+                    dev, dropout_generators, (params, opt_state), reads)
+            losses = graphs[key](inputs,
                                  torch.tensor(rows, dtype=torch.float32))
             # the host's counter: the warm-up and the capture each ran the
             # update's Python k times, a replay runs none of it
             opt_state["evalCounter"] = count0 + len(window)
-            return losses
+            return _Fetched(start, losses)
 
         def flush():
             nonlocal pending, last_done
             if pending is None:
                 return
             p, pending = pending, None
+            fetched = p["losses"]
             with span("train.sync", k=len(p["iters"])):   # waits for the device
-                losses = p["losses"]
-                losses = (losses.tolist() if torch.is_tensor(losses)
-                          else [float(x) for x in losses])
+                if isinstance(fetched, _Fetched):
+                    fetched.done.synchronize()
+                    losses = fetched.host.tolist()
+                else:
+                    losses = [float(x) for x in fetched]
             done = time.time()
             # the interval between two completions is the window's time in
-            # a steady state; the first window counts from its own start
-            window_time = done - (last_done if last_done is not None
-                                  and last_done > p["t0"] else p["t0"])
+            # a steady state; the first window counts from its own start.
+            # On a card both ends are device events: the host may look
+            # later than the device finished
+            if isinstance(fetched, _Fetched):
+                base = p["after"] or fetched.start
+                window_time = base.elapsed_time(fetched.done) / 1e3
+            else:
+                window_time = done - (last_done if last_done is not None
+                                      and last_done > p["t0"] else p["t0"])
             last_done = done
             seconds = window_time / len(p["iters"])
             for meta, loss in zip(p["iters"], losses):
                 throughput = meta["records"] / max(seconds, 1e-9)
                 driver_state["trainingLoss"] = loss
+                if summary is not None:
+                    summary.add_scalar("Loss", loss, meta["neval"])
+                    summary.add_scalar("Throughput", throughput,
+                                       meta["neval"])
+                    if meta["lr"] is not None:
+                        summary.add_scalar("LearningRate", meta["lr"],
+                                           meta["neval"])
                 logger.info(
                     "[Epoch %d %d/%d][Iteration %d][Wall %.3fs] Trained %d "
                     "records in %.4fs. Throughput is %.1f records/second. "
@@ -720,8 +873,11 @@ class LocalOptimizer(Optimizer):
         def extension_ok(neval0: int, j: int) -> bool:
             """May the window grow to hold iteration neval0 + j? Iteration
             neval0 + j - 1 then loses its hook slot, so no trigger may fire
-            at neval0 + j and no injector at neval0 + j - 1."""
+            at neval0 + j, and neither the parameter summary nor an
+            injector at neval0 + j - 1."""
             if any(probe(t, neval0 + j) for t in triggers):
+                return False
+            if ptrig is not None and probe(ptrig, neval0 + j - 1):
                 return False
             return not any(getattr(inj, "fires_at", lambda n: False)(
                 neval0 + j - 1) for inj in chaos_injectors)
@@ -757,17 +913,33 @@ class LocalOptimizer(Optimizer):
                             break
                         window.append(nxt)
                     t0 = time.time()
+                    # the window in flight, whose completion starts this one's
+                    # time (None: this one starts from its own dispatch)
+                    after = (pending["losses"].done if pending is not None
+                             and isinstance(pending["losses"], _Fetched)
+                             else None)
                     with span("train.dispatch", k=len(window)):
                         losses = dispatch(window)
                     flush()   # the previous window's losses
+                    # one rate a window, read after its updates, as the
+                    # reference snapshots it
+                    lr = (float(self.optim_method.current_rate(opt_state))
+                          if summary is not None and hasattr(
+                              self.optim_method, "current_rate") else None)
                     iters = []
                     for j, b in enumerate(window):
                         epoch_records += b.size()
                         iters.append({"neval": neval0 + j, "epoch": epoch,
                                       "records": b.size(),
-                                      "epoch_records": epoch_records})
-                    pending = {"losses": losses, "iters": iters, "t0": t0}
+                                      "epoch_records": epoch_records,
+                                      "lr": lr})
+                    pending = {"losses": losses, "iters": iters, "t0": t0,
+                               "after": after}
                     last_neval = neval0 + len(window) - 1
+                    # the window's last iteration has the hook slot
+                    driver_state["neval"] = last_neval
+                    if ptrig is not None and ptrig(driver_state):
+                        self._summarize_parameters(last_neval)
                     driver_state["neval"] = last_neval + 1
                     epoch_batches += len(window)
                     # the data cursor a snapshot at this boundary records

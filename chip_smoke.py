@@ -210,6 +210,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    model), ``vgg train`` with the 3x3 gate on synthetic CIFAR at B=128
    (K6 13 x 4), ``resnet train --depth 20`` on CIFAR binary files the
    phase writes and ``inception train --synthetic-size 64``;
+3j. the perf harness (after phase 3i; ``apps/perf.py``, each run in this
+   process through ``perf.run``, cuDNN deterministic): (a) K1, K2 and K3
+   (``mma``) against their plain versions at ViT-S/16's shape (B=256
+   S=196 N=6 D=64, non-causal) and transformer_1b's (B=8 S=2048 N=16
+   D=128, causal); (b) ViT-S/16's f32 gradients on the card (B=4) against
+   an f64 CPU copy, each tensor within 2x the plain-core card model's
+   distance (phase 3c's rule); (c) ``perf --model vit_s16`` at B=256,
+   bf16, 21 iterations after 3 warm-ups, k = 1 and k = 4 through the
+   device cache (losses bit-equal over the same 1024 records) and k = 1
+   from the host, K1-K3 12 each a step; (d) ``perf --model lstm`` (vocab
+   20000, T=500, 128 wide) at B=32, k = 1 and k = 4, bit-equal; (e)
+   ``perf --model transformer_1b`` (1,009,727,488 parameters) at B=8,
+   S=2048, AdamW with bf16 moments, ``--remat block``, 10 iterations
+   after 3, ``--memStats``: K1 40 a step (each block recomputed), K2 and
+   K3 20; then a 2-layer cut at full width, whose block-remat gradients
+   must equal the plain ones bit for bit; (f) ``perf --model resnet50`` at
+   B=256 with both gates, with and without ``--remat conv``: equal
+   losses, K5 36 and K6 13 a step both ways, and a lower peak with the
+   policy. Each run logs records/s, ms an iteration, peak memory and
+   (k = 1) the busy share of two more profiled iterations;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -249,14 +269,17 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included) and 3c; phase 3i's rows count phase 3i's runs.
+processes included) and 3c; phase 3i's rows count phase 3i's runs, and
+phase 3j's (K1-K3 at ViT-S/16's and transformer_1b's shapes) its runs
+(c) and (e).
 
 ``python3 chip_smoke.py --resnet-grad-seeds 11 21 31`` builds the kernels
 and runs only phase 3c's gradient check, once per seed, printing each
 seed's readings and no result line.
 
 ``python3 chip_smoke.py --zoo-only`` builds the kernels and runs only
-phase 3i and its kernel rows, printing them and no result line.
+phase 3i and its kernel rows, printing them and no result line;
+``--perf-only`` does the same for phase 3j.
 
 ``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
 phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
@@ -4808,6 +4831,481 @@ def time_zoo_kernels(launches: dict, shapes: dict) -> list:
     return entries
 
 
+# ------------------------------------------------------------- 3j. perf
+#: 21 iterations after 3 warm-ups: 24 in all, whole windows of PERF_K, so
+#: that no window of another length (a new graph, captured on its first
+#: run) falls in a k = 4 run's steady iterations
+PERF_ITERS, PERF_WARMUP = 21, 3
+VIT_BATCH, LSTM_BATCH = 256, 32
+LM1B_BATCH, LM1B_ITERS = 8, 10
+RESNET_PERF_BATCH, RESNET_PERF_ITERS = 256, 10
+PERF_K = 4
+VIT_GRAD_BATCH = 4
+VIT_LAYERS, LM1B_LAYERS = 12, 20
+#: (name, B, S, N, D, causal) of K1-K3 on phase 3j's path: ViT-S/16's 196
+#: tokens of 6 heads, transformer_1b's 2048 of 16 (its 8 kv heads expanded)
+PERF_FLASH_SHAPES = (("vit_s16", VIT_BATCH, 196, 6, 64, False),
+                     ("transformer_1b", LM1B_BATCH, 2048, 16, 128, True))
+
+
+def check_perf_kernels() -> dict:
+    """Phase 3j (a): K1, K2 and K3 against their plain versions at
+    ViT-S/16's and transformer_1b's shapes in bf16 (the ``mma`` variant,
+    checked by the counters): O and LSE as ``check_flash`` holds them;
+    dQ, dK and dV as ``check_flash_bwd`` (through the ``FlashAttention``
+    Function, with an LSE cotangent, against ``flash_attention_bwd_plain``
+    fed the same o, lse and cotangents). Returns each shape's errors."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    errs = {}
+    for name, b, s, n, d, causal in PERF_FLASH_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
+        variant, (o, lse) = launched_variant(
+            [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+            lambda: fa.flash_attention_with_lse(q, k, v, causal=causal))
+        check(variant == "mma", f"K1 at {name}'s shape took {variant}")
+        po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+        err_o, ok_o = flash_o_close(o, po)
+        err_l = (lse - plse).abs().max().item()
+        check(ok_o and err_l <= FLASH_ATOL,
+              f"K1 at {name}'s shape: |dO| {err_o} |dLSE| {err_l}")
+        del po, plse
+        g_o = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        g_lse = torch.randn((b, n, s), generator=gen, device="cuda")
+        variant, (o, lse, *grads) = launched_variant(
+            [(fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA),
+             (fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)],
+            lambda: fa.kernel_variant(q),
+            lambda: _function_grads(q, k, v, g_o, g_lse, causal))
+        check(variant == "mma", f"K2/K3 at {name}'s shape took {variant}")
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
+                                             causal, 1.0 / d ** 0.5)
+        torch.cuda.synchronize()
+        row = {"o": err_o, "lse": err_l}
+        for gname, got, ref in zip(("dq", "dk", "dv"), grads, plain):
+            err, excess, ok = bwd_close(got, ref)
+            check(ok, f"K2/K3 {gname} at {name}'s shape: |err| {err}, "
+                  f"excess over one bf16 step {excess}")
+            row[gname] = err
+            row[f"{gname}_excess_over_one_step"] = excess
+        errs[name] = row
+        del q, k, v, o, lse, grads, plain, g_o, g_lse
+        torch.cuda.empty_cache()
+    log({"check": "perf_flash_shapes", "variant": "mma", "errors": errs})
+    return errs
+
+
+def vit_grad_check(seed: int = 41) -> dict:
+    """Phase 3j (b): ViT-S/16, one f32 batch of VIT_GRAD_BATCH images,
+    through the card model (K1-K3 in their f32 ``fma`` variants, 12
+    launches each), the same model on the card with its attention on the
+    plain core (no kernel launched), and an f64 CPU copy, the reference;
+    all carry the same weights. Every card gradient is finite and within
+    GRAD_RTOL or GRAD_TRUTH_FACTOR times the plain card model's distance
+    from the f64 one, per tensor (phase 3c's rule)."""
+    from bigdl_tpu_torch.interop.state_dict import (export_tree_state,
+                                                    import_tree_state)
+    from bigdl_tpu_torch.models import vit
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    card = vit.build(1000, device="cuda", seed=seed)
+    truth = vit.build(1000, device="cpu", seed=seed + 1)
+    import_tree_state(truth, *export_tree_state(card))
+    truth.double()
+    rng = np.random.default_rng(seed + 2)
+    x = rng.standard_normal((VIT_GRAD_BATCH, 224, 224, 3)).astype(np.float32)
+    y = rng.integers(1, 1001, (VIT_GRAD_BATCH,)).astype(np.float32)
+    counters = flash_counters()
+
+    def grads(model, dev, flash: bool):
+        model.zero_grad(set_to_none=True)
+        model.train()
+        p = next(model.parameters())
+        for c in counters.values():
+            c.reset()
+        use = fa.use_flash
+        if not flash:
+            fa.use_flash = lambda q, mask: False
+        try:
+            loss = ClassNLLCriterion()(
+                model(torch.as_tensor(x, device=dev).to(p.dtype)),
+                torch.as_tensor(y, device=dev))
+            loss.backward()
+        finally:
+            fa.use_flash = use
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched = {k: c.value for k, c in counters.items()}
+        return (loss.item(), {n: q.grad for n, q in model.named_parameters()},
+                launched)
+
+    loss_k, g_k, launched = grads(card, "cuda", True)
+    want = {"flash_fwd": VIT_LAYERS, "flash_fwd_mma": 0,
+            "flash_bwd_dq": VIT_LAYERS, "flash_bwd_dq_mma": 0,
+            "flash_bwd_dkv": VIT_LAYERS, "flash_bwd_dkv_mma": 0}
+    check(launched == want, f"ViT's f32 gradient launched {launched}, "
+          f"want {want}")
+    g_k = {n: g.clone() for n, g in g_k.items()}
+    loss_p, g_p, launched = grads(card, "cuda", False)
+    check(not any(launched.values()), f"the plain core launched {launched}")
+    loss_t, g_t, _ = grads(truth, "cpu", True)
+    for got in (loss_k, loss_p):
+        check(abs(got - loss_t) <= RESNET_LOSS_RTOL * abs(loss_t),
+              f"ViT losses {loss_k} (kernels) {loss_p} (plain) {loss_t} (f64)")
+    over, worst, dists = [], {"ratio": 0.0, "name": ""}, []
+    for name, want_g in g_t.items():
+        got = g_k[name]
+        check(got is not None and torch.isfinite(got).all().item(),
+              f"ViT {name} on the card is missing or not finite")
+        d_k, d_p = _rel_l2(got, want_g), _rel_l2(g_p[name], want_g)
+        dists.append((d_k, d_p))
+        if d_k > max(GRAD_RTOL, GRAD_TRUTH_FACTOR * d_p):
+            over.append((name, d_k, d_p))
+        ratio = d_k / max(d_p, GRAD_RTOL)
+        if ratio > worst["ratio"]:
+            worst.update(ratio=ratio, name=name)
+    readings = {"check": f"grad_vit_s16_f32_B{VIT_GRAD_BATCH}_vs_f64",
+                "tensors": len(g_t),
+                "losses_kernels_plain_f64": [loss_k, loss_p, loss_t],
+                "kernels_rel_l2_median": float(np.median(
+                    [d for d, _ in dists])),
+                "kernels_rel_l2_max": max(d for d, _ in dists),
+                "plain_core_rel_l2_median": float(np.median(
+                    [d for _, d in dists])),
+                "max_ratio_kernels_over_plain": worst["ratio"],
+                "worst_ratio_tensor": worst["name"]}
+    log(readings)
+    check(not over, f"{len(over)} ViT gradients on the card are further than "
+          f"{GRAD_TRUTH_FACTOR}x the plain core's from f64: {over[:3]}")
+    del card, truth
+    torch.cuda.empty_cache()
+    return readings
+
+
+def perf_run(args: list, counters: dict, gates=()) -> tuple:
+    """``python -m bigdl_tpu_torch.apps.perf ARGS`` in this process
+    (``perf.run``) with the launch ``counters`` zeroed just before it and
+    read just after and the peak memory reset before it; the fusion gates
+    in ``gates`` set while the model is built. Returns (its JSON line with
+    the launches, the mean step ms after the warm-up (consistent with
+    ``records_per_sec``: where the host sets the pace the one-late loss
+    fetch splits an epoch's last two iterations' time unevenly, so a median
+    misleads), the peak MiB and the cache's materialisation seconds; the
+    losses; the Optimizer)."""
+    import gc
+    from bigdl_tpu_torch.apps import perf
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    result, opt = _with_gates(gates, lambda: perf.run(args))
+    torch.cuda.synchronize()
+    launched = {k: c.value for k, c in counters.items()}
+    losses = [h["loss"] for h in opt.history]
+    k = int(args[args.index("-k") + 1]) if "-k" in args else 1
+    warm = max(PERF_WARMUP, 2 * k)
+    row = {**result, "args": " ".join(args), "launches": launched,
+           "iteration_ms": [round(h["seconds"] * 1e3, 2)
+                            for h in opt.history],
+           "step_ms": float(np.mean(
+               [h["seconds"] for h in opt.history[warm:]])) * 1e3,
+           "peak_allocated_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "cache_materialize_s": getattr(opt.dataset, "materialize_seconds",
+                                          None)}
+    check(all(np.isfinite(losses)), f"perf {row['args']}: losses {losses}")
+    return row, losses, opt
+
+
+def busy_share(opt, extra: int = 2):
+    """The device's busy share over ``extra`` more k = 1 iterations of a
+    finished perf run's ``Optimizer``, under the profiler."""
+    from bigdl_tpu_torch.optim import Trigger
+    done = len(opt.history)
+    opt.set_steps_per_dispatch(1).set_state({"neval": done + 1})
+    opt.set_end_when(Trigger.max_iteration(done + extra))
+    rows, wall = profiled(opt.optimize, "perf busy share")
+    return None if rows is None else sum(t for _, t in rows) / 1e6 / wall
+
+
+def _per_step(row, counters, n: int, per: dict) -> None:
+    want = {k: per.get(k, 0) * n for k in counters}
+    check(row["launches"] == want,
+          f"perf {row['args']}: launched {row['launches']}, want {want}")
+
+
+def lm_block_grad_check(seed: int = 43) -> dict:
+    """Phase 3j (e): every parameter gradient of one bf16 step of a 2-layer
+    cut of transformer_1b (full width, S=2048, B=2) with ``"block"``
+    recomputation equals the one without bit for bit (the recomputed
+    forward runs the same kernels on the same inputs); K1 launches 2 times
+    without it and 4 with it."""
+    from bigdl_tpu_torch.apps.perf import _TRANSFORMER_VOCAB
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.attention import TransformerEncoder
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.ops.precision import DtypePolicy
+    model = build_lm(_TRANSFORMER_VOCAB, 2048, 16, 5632, num_layers=2,
+                     max_len=2048, num_kv_heads=8, rope=True,
+                     activation="swiglu", norm="rms", tie_embeddings=True,
+                     device="cuda", seed=seed)
+    enc = next(m for m in model.modules()
+               if isinstance(m, TransformerEncoder))
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(1, _TRANSFORMER_VOCAB + 1, (2, 2048)),
+                          dtype=torch.float32, device="cuda")
+    params = dict(model.named_parameters())
+    counters = flash_counters()
+    out = {}
+    model.train()
+    for block in (False, True):
+        enc.remat_blocks = block
+        for c in counters.values():
+            c.reset()
+        for p in params.values():
+            p.grad = None
+        y = torch.func.functional_call(
+            model, DtypePolicy.bf16().cast_params_for_compute(params), (ids,))
+        FusedLMHeadCriterion()(y, ids).float().backward()
+        torch.cuda.synchronize()
+        out[block] = ({n: p.grad.clone() for n, p in params.items()},
+                      counters["flash_fwd"].value)
+    enc.remat_blocks = False
+    (plain, k1_plain), (remat, k1_remat) = out[False], out[True]
+    differ = [n for n in plain if not torch.equal(plain[n], remat[n])]
+    readings = {"check": "lm_block_remat_grads_bit_equal",
+                "tensors": len(plain), "differ": differ[:4],
+                "max_rel_l2": max(_rel_l2(remat[n], plain[n]) for n in plain),
+                "k1_launches_without_with": [k1_plain, k1_remat]}
+    log(readings)
+    check(not differ, f"block remat changed {len(differ)} gradients: "
+          f"{readings}")
+    check((k1_plain, k1_remat) == (2, 4),
+          f"K1 launched {k1_plain} / {k1_remat} times, want 2 / 4")
+    del model, out, plain, remat
+    torch.cuda.empty_cache()
+    return readings
+
+
+def run_perf() -> tuple:
+    """Phase 3j: (a) the kernel checks at the new shapes; (b) ViT-S/16's
+    card gradients; (c) ``perf --model vit_s16`` at B=256, bf16, 21
+    iterations after 3 warm-ups, k = 1 and k = 4 through the device cache
+    and k = 1 from the host (K1-K3 12 each a step; k = 4's losses
+    bit-equal to k = 1's over the same 1024 records); (d) ``perf --model
+    lstm`` at B=32, k = 1 and k = 4 (bit-equal); (e) ``perf --model transformer_1b`` at B=8, S=2048 with
+    AdamW, bf16 moments and ``--remat block`` (K1 20 x 2 a step, K2 and K3
+    20), its memory statistics, and the block-remat gradient check on a
+    2-layer cut; (f) ``perf --model resnet50`` at B=256 with both fusion
+    gates, with and without ``--remat conv``: equal losses, K5 36 and K6
+    13 a step both ways, a lower peak with the policy. cuDNN is held
+    deterministic for the runs. Returns (the flash launches of runs (c)
+    and (e), the runs' rows)."""
+    t0 = time.perf_counter()
+    check_perf_kernels()
+    vit_grad_check()
+    log({"perf_checks_s": time.perf_counter() - t0})
+    flash = flash_counters()
+    k5, k5_mma, k6, k6_mma = conv_bn_counters()
+    convs = {"matmul_bn": k5, "matmul_bn_mma": k5_mma, "conv3x3_bn": k6,
+             "conv3x3_bn_mma": k6_mma}
+    iters = PERF_ITERS + PERF_WARMUP
+    total, rows, runs = collections.Counter(), {}, {}
+
+    def record(name, row, losses, opt, busy=True):
+        if busy:
+            row["device_busy_share"] = busy_share(opt)
+        rows[name], runs[name] = row, losses
+        log({"perf_run": name, **row, "losses": losses})
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (c) ViT-S/16, the same 1024 records for every run
+        vit = ["--model", "vit_s16", "-b", str(VIT_BATCH), "-i",
+               str(PERF_ITERS), "--warmup", str(PERF_WARMUP), "--records",
+               str(VIT_BATCH * PERF_K)]
+        for name, extra in (("vit_s16:k1", []),
+                            ("vit_s16:k4", ["-k", str(PERF_K)]),
+                            ("vit_s16:host", ["--no-device-cache"])):
+            row, losses, opt = perf_run(vit + extra, flash)
+            _per_step(row, flash, iters, {k: VIT_LAYERS for k in flash})
+            total.update(row["launches"])
+            record(name, row, losses, opt, busy=name != "vit_s16:k4")
+            del opt
+        check(runs["vit_s16:k4"] == runs["vit_s16:k1"],
+              "ViT's k = 4 losses differ from k = 1's: "
+              f"{runs['vit_s16:k4'][:3]} vs {runs['vit_s16:k1'][:3]}")
+        # (d) the LSTM: T=500 steps of a 128-wide LSTM, no kernel of ours
+        lstm = ["--model", "lstm", "-b", str(LSTM_BATCH), "-i",
+                str(PERF_ITERS), "--warmup", str(PERF_WARMUP), "--records",
+                str(LSTM_BATCH * PERF_K)]
+        for name, extra in (("lstm:k1", []),
+                            ("lstm:k4", ["-k", str(PERF_K)])):
+            row, losses, opt = perf_run(lstm + extra, flash)
+            _per_step(row, flash, iters, {})
+            record(name, row, losses, opt, busy=name == "lstm:k1")
+            del opt
+        check(runs["lstm:k4"] == runs["lstm:k1"],
+              "the LSTM's k = 4 losses differ from k = 1's: "
+              f"{runs['lstm:k4'][:3]} vs {runs['lstm:k1'][:3]}")
+        # (e) transformer_1b, the reference's one-chip capacity recipe
+        from bigdl_tpu_torch.apps.perf import memory_stats
+        row, losses, opt = perf_run(
+            ["--model", "transformer_1b", "-b", str(LM1B_BATCH), "-i",
+             str(LM1B_ITERS), "--warmup", str(PERF_WARMUP), "--optim",
+             "adamw", "--optStateDtype", "bf16", "--remat", "block",
+             "--memStats"], flash)
+        n = LM1B_LAYERS
+        _per_step(row, flash, LM1B_ITERS + PERF_WARMUP,
+                  {"flash_fwd": 2 * n, "flash_fwd_mma": 2 * n,
+                   "flash_bwd_dq": n, "flash_bwd_dq_mma": n,
+                   "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n})
+        total.update(row["launches"])
+        row.update(memory_stats=memory_stats(torch.device("cuda")),
+                   tokens_per_sec=row["records_per_sec"] * 2048,
+                   n_params=n_params(opt.model))
+        record("transformer_1b", row, losses, opt)
+        del opt
+        lm_block_grad_check()
+        # (f) ResNet-50 with both gates, without and with "conv" remat
+        res = ["--model", "resnet50", "-b", str(RESNET_PERF_BATCH), "-i",
+               str(RESNET_PERF_ITERS), "--warmup", str(PERF_WARMUP)]
+        for name, extra in (("resnet50", []),
+                            ("resnet50:remat_conv", ["--remat", "conv"])):
+            row, losses, opt = perf_run(res + extra, convs, FUSION_GATES)
+            _per_step(row, convs, RESNET_PERF_ITERS + PERF_WARMUP,
+                      {"matmul_bn": K5_PER_STEP, "matmul_bn_mma": K5_PER_STEP,
+                       "conv3x3_bn": K6_PER_STEP,
+                       "conv3x3_bn_mma": K6_PER_STEP})
+            record(name, row, losses, opt)
+            del opt
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(runs["resnet50:remat_conv"] == runs["resnet50"],
+          "ResNet-50's losses under remat conv differ: "
+          f"{runs['resnet50:remat_conv'][:3]} vs {runs['resnet50'][:3]}")
+    peaks = [rows[k]["peak_allocated_mib"]
+             for k in ("resnet50", "resnet50:remat_conv")]
+    check(peaks[1] < peaks[0], f"remat conv did not lower ResNet-50's peak: "
+          f"{peaks} MiB (without, with)")
+    log({"perf": {k: {f: v for f, v in r.items() if f != "launches"}
+                  for k, r in rows.items()},
+         "perf_s": time.perf_counter() - t0})
+    return dict(total), rows
+
+
+def time_perf_kernels(launches: dict) -> list:
+    """The ``kernels`` line's phase 3j rows: K1, K2 and K3 at ViT-S/16's
+    shape (B=256 S=196 N=6 D=64, non-causal) and transformer_1b's (B=8
+    S=2048 N=16 D=128, causal), bf16 (``mma``), each checked once more
+    against its plain version, then timed by ``graph_ms`` beside its plain
+    version and ``scaled_dot_product_attention`` (forward; for K2 and K3
+    its backward: forward and backward less forward, one call for dQ, dK
+    and dV). ``launches``: phase 3j's runs (c) and (e) together."""
+    from bigdl_tpu_torch.ops.flash_attention import (
+        bwd_delta, flash_attention_plain, flash_attention_with_lse,
+        flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, b, s, n, d, causal in PERF_FLASH_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(37)
+        q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
+        g_o = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+        po, _ = flash_attention_plain(q, k, v, causal=causal)
+        err_o, ok = flash_o_close(o, po)
+        check(ok, f"K1 at {name}'s timed shape: {err_o}")
+        del po
+        args = (q, k, v, g_o, lse, bwd_delta(o, g_o, None), causal,
+                1.0 / d ** 0.5)
+        errs = {}
+        for gname, got, ref in (
+                ("dq", (flash_bwd_dq(*args),), (flash_bwd_dq_plain(*args),)),
+                ("dkv", flash_bwd_dkv(*args), flash_bwd_dkv_plain(*args))):
+            errs[gname] = 0.0
+            for g1, r1 in zip(got, ref):
+                e, _, ok = bwd_close(g1, r1)
+                check(ok, f"{gname} at {name}'s timed shape: {e}")
+                errs[gname] = max(errs[gname], e)
+        what = f"{name} B={b} S={s} N={n} D={d}"
+        ms = graph_ms(lambda: flash_attention_with_lse(q, k, v,
+                                                       causal=causal),
+                      f"flash_fwd {what}")
+        plain_ms = graph_ms(lambda: flash_attention_plain(q, k, v,
+                                                          causal=causal),
+                            f"flash_fwd plain {what}", per_graph=3,
+                            replays=3)
+        ms_dq = graph_ms(lambda: flash_bwd_dq(*args), f"flash_bwd_dq {what}")
+        ms_dkv = graph_ms(lambda: flash_bwd_dkv(*args),
+                          f"flash_bwd_dkv {what}")
+        plain_dq = graph_ms(lambda: flash_bwd_dq_plain(*args),
+                            f"flash_bwd_dq plain {what}", per_graph=3,
+                            replays=3)
+        plain_dkv = graph_ms(lambda: flash_bwd_dkv_plain(*args),
+                             f"flash_bwd_dkv plain {what}", per_graph=3,
+                             replays=3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        g_t = g_o.transpose(1, 2)
+        lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
+        fwd_ms = graph_ms(lib, f"sdpa {what}")
+        fwd_bwd_ms = graph_ms(
+            lambda: torch.autograd.grad(lib(), (qt, kt, vt), g_t),
+            f"sdpa forward and backward {what}")
+        pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
+        bsnd, bns = b * s * n * d, b * n * s
+        reads = 4 * bsnd * 2 + 2 * bns * 4        # q, k, v, dO; lse, delta
+        per_step = ({"vit_s16": f"{VIT_LAYERS} of each a step (12 layers)",
+                     "transformer_1b": f"K1 {2 * LM1B_LAYERS} a step (20 "
+                     "layers, each recomputed under --remat block), K2 and "
+                     f"K3 {LM1B_LAYERS}"})[name]
+        shape = (f"{'causal' if causal else 'non-causal'} bf16 B={b} S={s} "
+                 f"N={n} D={d}")
+        base = {"route": "cuda", "variant": "mma", "shape": shape,
+                "sdpa_forward_ms": fwd_ms,
+                "sdpa_forward_and_backward_ms": fwd_bwd_ms}
+        launches_note = (f"launches: phase 3j's vit_s16 and transformer_1b "
+                         f"runs together (by the structure, {per_step})")
+        rows += [
+            {"name": f"flash_fwd {name}", **base,
+             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
+             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
+             "launches": launches.get("flash_fwd", 0),
+             "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
+             **bound(4 * bsnd * 2 + bns * 4, 4 * d * pairs),
+             "library_ms": fwd_ms,
+             "work": f"one forward launch, {shape}; {launches_note}; "
+                     "library_ms: scaled_dot_product_attention"},
+            {"name": f"flash_bwd_dq {name}", **base,
+             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "bigdl_tpu/ops/flash_attention.py:146",
+             "launches": launches.get("flash_bwd_dq", 0),
+             "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_dq,
+             **bound(reads + bsnd * 2, 3 * 2 * d * pairs),
+             "library_ms": fwd_bwd_ms - fwd_ms,
+             "work": f"one backward launch, {shape}; {launches_note}; "
+                     "library_ms: the backward of "
+                     "scaled_dot_product_attention (forward and backward "
+                     "less forward; dQ, dK and dV in one call)"},
+            {"name": f"flash_bwd_dkv {name}", **base,
+             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "bigdl_tpu/ops/flash_attention.py:186",
+             "launches": launches.get("flash_bwd_dkv", 0),
+             "max_abs_err": errs["dkv"], "ms": ms_dkv,
+             "plain_ms": plain_dkv,
+             **bound(reads + 2 * bsnd * 2, 4 * 2 * d * pairs),
+             "library_ms": fwd_bwd_ms - fwd_ms,
+             "work": f"one backward launch, {shape}; {launches_note}; "
+                     "library_ms as the dQ row's"}]
+        del q, k, v, g_o, o, lse, args, qt, kt, vt
+        torch.cuda.empty_cache()
+    log({"perf_kernel_timing": [{k: r[k] for k in ("name", "ms", "plain_ms",
+                                                   "bound_ms", "library_ms")}
+                                for r in rows]})
+    return rows
+
+
 # ------------------------------------------------------------ 4a. HBM roof
 def run_roofline():
     """Phase 4a: the probe's ``main`` at 1 GiB with every family and one
@@ -5367,6 +5865,10 @@ def main(argv=None) -> int:
         "--zoo-only", action="store_true",
         help="run only the kernels' build, phase 3i (the conv zoo) and its "
              "kernel rows, and print them (no result line)")
+    parser.add_argument(
+        "--perf-only", action="store_true",
+        help="run only the kernels' build, phase 3j (the perf harness) and "
+             "its kernel rows, and print them (no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5397,6 +5899,11 @@ def main(argv=None) -> int:
     if args.zoo_only:
         zoo_launches, zoo_shapes = run_zoo()
         log({"zoo_kernels": time_zoo_kernels(zoo_launches, zoo_shapes),
+             "total_s": time.perf_counter() - t0, "card": card})
+        return 0
+    if args.perf_only:
+        perf_launches, _ = run_perf()
+        log({"perf_kernels": time_perf_kernels(perf_launches),
              "total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.resnet_grad_seeds:
@@ -5437,6 +5944,7 @@ def main(argv=None) -> int:
     resnet_launches = {k: n + ckpt_launches[k]
                        for k, n in resnet_launches.items()}
     zoo_launches, zoo_shapes = run_zoo()
+    perf_launches, _ = run_perf()
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
@@ -5454,6 +5962,7 @@ def main(argv=None) -> int:
                     published=time_int8_published()),
                *time_conv_bn(resnet_launches),
                *time_zoo_kernels(zoo_launches, zoo_shapes),
+               *time_perf_kernels(perf_launches),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:
         add_measured_bound(entry, roof["roof_gbps"] * 1e9)

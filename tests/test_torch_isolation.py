@@ -23,7 +23,10 @@ from bigdl_tpu_torch.apps import inception as inception_app
 from bigdl_tpu_torch.apps import lenet as lenet_app
 from bigdl_tpu_torch.apps import resnet as resnet_app
 from bigdl_tpu_torch.apps import vgg as vgg_app
-from bigdl_tpu_torch.models import alexnet, inception, lenet, resnet, vgg
+from bigdl_tpu_torch.apps import perf as perf_app
+from bigdl_tpu_torch.dataset.device_cache import DeviceCachedDataSet
+from bigdl_tpu_torch.models import (alexnet, inception, lenet, resnet, rnn,
+                                    vgg, vit)
 from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.models.serving import ContinuousLMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
@@ -99,7 +102,9 @@ def test_new_subpackages_are_part_of_the_port():
                 "dataset/image.py", "dataset/mnist.py", "dataset/cifar.py",
                 "utils/rng.py", "utils/table.py", "optim/validator.py",
                 "apps/lenet.py", "apps/vgg.py", "apps/inception.py",
-                "apps/resnet.py"):
+                "apps/resnet.py", "apps/perf.py", "models/vit.py",
+                "models/rnn.py", "nn/reduce.py", "ops/remat.py",
+                "dataset/device_cache.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -180,7 +185,9 @@ def test_build_lm_raises_without_card():
                                    "inception.build_v2", "alexnet.build",
                                    "lenet.main train", "lenet.main test",
                                    "vgg.main train", "resnet.main train",
-                                   "inception.main train"])
+                                   "inception.main train", "vit.build",
+                                   "rnn.build", "rnn.build_classifier",
+                                   "DeviceCachedDataSet", "perf.main"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -237,6 +244,14 @@ def test_entry_points_raise_without_card(entry, tmp_path):
             ["train", "--synthetic-size", "8", "-b", "4", "--depth", "8"]),
         "inception.main train": lambda: inception_app.main(
             ["train", "--synthetic-size", "2", "-b", "2"]),
+        # the throughput harness and what it drives
+        "vit.build": lambda: vit.build(10, image_size=32, patch_size=8),
+        "rnn.build": lambda: rnn.build(4, 4, 4),
+        "rnn.build_classifier": lambda: rnn.build_classifier(10, 4, 4, 2),
+        "DeviceCachedDataSet": lambda: DeviceCachedDataSet(
+            DataSet.array(synthetic_corpus(2, 4, 50)), 2),
+        "perf.main": lambda: perf_app.main(["--model", "lenet5", "-b", "2",
+                                            "-i", "1"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -223,9 +223,7 @@ def test_tied_gradient_sums_both_uses():
     torch.testing.assert_close(full[unused], head_only[unused])
 
 
-@pytest.mark.parametrize("setter", [
-    "set_remat", "set_profiling", "set_train_summary",
-    "set_validation_summary"])
+@pytest.mark.parametrize("setter", ["set_profiling"])
 def test_unported_setters_raise(setter):
     model = build_lm(V, **LLAMA, device="cpu", seed=0)
     ds = DataSet.array(synthetic_corpus(B, S, V)) >> SampleToBatch(B)
