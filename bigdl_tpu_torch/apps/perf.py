@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import List, Optional, Tuple
 
@@ -265,7 +266,9 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
     if args.memStats:
-        print(json.dumps({"memory_stats": memory_stats(dev)}), flush=True)
+        # stderr, as the reference writes it: stdout holds one result line
+        print(json.dumps({"memory_stats": memory_stats(dev)}),
+              file=sys.stderr, flush=True)
     # a k-step window spreads its time over its k entries: the first
     # (capture-bearing) window must be left out whole
     warmup_eff = max(args.warmup, 2 * args.stepsPerDispatch)

@@ -82,10 +82,21 @@ class ChainedTransformer(Transformer):
 
 class SampleToBatch(Transformer):
     """Stack Samples into MiniBatches of ``batch_size`` (reference
-    ``SampleToBatch``; the padding options are not ported). With
-    ``drop_remainder`` a short last batch is dropped, else emitted."""
+    ``SampleToBatch``, with its argument order). With ``drop_remainder``
+    a short last batch is dropped, else emitted. The padding options
+    (``feature_padding``, ``label_padding``, ``fixed_length``) are not
+    ported: any value but None raises ``NotImplementedError``."""
 
-    def __init__(self, batch_size: int, drop_remainder: bool = True):
+    def __init__(self, batch_size: int, feature_padding=None,
+                 label_padding=None, fixed_length=None,
+                 drop_remainder: bool = True):
+        for name, value in (("feature_padding", feature_padding),
+                            ("label_padding", label_padding),
+                            ("fixed_length", fixed_length)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"SampleToBatch({name}={value!r}) is not ported yet: "
+                    "ROADMAP A.6 (SampleToBatch padding)")
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
 

@@ -10,21 +10,17 @@ import torch
 from bigdl_tpu_torch.nn.activation import LogSoftMax
 from bigdl_tpu_torch.nn.attention import (LearnedPositionalEncoding,
                                           PositionalEncoding,
-                                          TransformerEncoder)
+                                          TransformerEncoder,
+                                          refuse_not_ported)
 from bigdl_tpu_torch.nn.containers import Sequential
 from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
-# argument -> (its default, the ROADMAP item that will port other values)
-_NOT_PORTED = {
-    "seq_axis": (None, "A.4 (distributed plane)"),
-    "seq_mode": ("ring", "A.4 (distributed plane)"),
-    "seq_layout": ("contiguous", "A.4 (distributed plane)"),
-    "moe_experts": (0, "A.4 (distributed plane: expert parallelism)"),
-    "moe_k": (2, "A.4 (distributed plane: expert parallelism)"),
-}
+# the reference's build_lm options that only their defaults may take
+# (nn.attention.NOT_PORTED names the ROADMAP items)
+_NOT_PORTED = ("seq_axis", "seq_mode", "seq_layout", "moe_experts", "moe_k")
 
 
 def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
@@ -56,12 +52,9 @@ def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
 
     Parameters are drawn on the CPU from ``seed`` (PyTorch's global
     generator is left as it was) and then moved to ``device``."""
-    for name in _NOT_PORTED.keys() & options.keys():
-        default, item = _NOT_PORTED[name]
-        value = options.pop(name)
-        if value != default:
-            raise NotImplementedError(
-                f"build_lm({name}={value!r}) is not ported yet: ROADMAP {item}")
+    refuse_not_ported("build_lm", **{name: options.pop(name)
+                                     for name in _NOT_PORTED
+                                     if name in options})
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         if seed is not None:

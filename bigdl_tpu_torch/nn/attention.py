@@ -41,23 +41,55 @@ from bigdl_tpu_torch.utils.device import module_device
 
 _F32_MIN = float(torch.finfo(torch.float32).min)
 
+#: argument -> (its default, the ROADMAP item that will port other values):
+#: the reference's blockwise-attention, context-parallel and MoE options
+NOT_PORTED = {
+    "block_size": (0, "A.4 (distributed plane)"),
+    "seq_axis": (None, "A.4 (distributed plane)"),
+    "seq_mode": ("ring", "A.4 (distributed plane)"),
+    "seq_layout": ("contiguous", "A.4 (distributed plane)"),
+    "moe_experts": (0, "A.4 (distributed plane: expert parallelism)"),
+    "moe_k": (2, "A.4 (distributed plane: expert parallelism)"),
+}
+
+
+def refuse_not_ported(owner: str, **values) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for any of
+    ``NOT_PORTED``'s arguments given another value than its default."""
+    for name, value in values.items():
+        default, item = NOT_PORTED[name]
+        if value != default:
+            raise NotImplementedError(
+                f"{owner}({name}={value!r}) is not ported yet: ROADMAP {item}")
+
 
 class LayerNorm(Module):
-    """Layer normalisation over the last axis with f32 statistics."""
+    """Layer normalisation over the last ``len(normalized_shape)`` axes
+    with f32 statistics (reference ``LayerNorm``); ``normalized_shape`` is
+    an int or a tuple; ``elementwise_affine`` adds the weight and bias."""
 
-    def __init__(self, normalized_shape: int, eps: float = 1e-5):
+    def __init__(self, normalized_shape, eps: float = 1e-5,
+                 elementwise_affine: bool = True):
         super().__init__()
-        self.normalized_shape = (normalized_shape,)
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(int(d) for d in normalized_shape)
         self.eps = eps
-        self.weight = torch.nn.Parameter(torch.ones(normalized_shape))
-        self.bias = torch.nn.Parameter(torch.zeros(normalized_shape))
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            self.weight = torch.nn.Parameter(torch.ones(self.normalized_shape))
+            self.bias = torch.nn.Parameter(torch.zeros(self.normalized_shape))
 
     def forward(self, input):
+        axes = tuple(range(input.dim() - len(self.normalized_shape),
+                           input.dim()))
         x = input.float()
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        mean = x.mean(dim=axes, keepdim=True)
+        var = (x - mean).square().mean(dim=axes, keepdim=True)
         y = ((x - mean) * torch.rsqrt(var + self.eps)).to(input.dtype)
-        return y * self.weight + self.bias
+        if self.elementwise_affine:
+            y = y * self.weight + self.bias
+        return y
 
 
 class RMSNorm(Module):
@@ -262,14 +294,19 @@ class MultiHeadAttention(Module):
     only (Qwen2): ``in_proj_bias`` exists when ``with_bias or qkv_bias``,
     the out-projection bias only with ``with_bias``."""
 
-    def __init__(self, embed_dim: int, num_heads: int,
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  with_bias: bool = True, causal: bool = False,
+                 block_size: int = 0, seq_axis: Optional[str] = None,
+                 seq_mode: str = "ring", seq_layout: str = "contiguous",
                  rope: bool = False, num_kv_heads: Optional[int] = None,
-                 rope_theta: float = 10000.0, dropout: float = 0.0,
+                 rope_theta: float = 10000.0,
                  window: Optional[int] = None,
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
+        refuse_not_ported("MultiHeadAttention", block_size=block_size,
+                          seq_axis=seq_axis, seq_mode=seq_mode,
+                          seq_layout=seq_layout)
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must divide num_heads")
         if window is not None:
@@ -599,16 +636,22 @@ class TransformerEncoderLayer(Module):
     branches in training mode."""
 
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int,
-                 activation: str = "gelu", causal: bool = False,
-                 rope: bool = False, norm: str = "layer",
-                 num_kv_heads: Optional[int] = None,
+                 dropout: float = 0.0, activation: str = "gelu",
+                 pre_norm: bool = True, causal: bool = False,
+                 block_size: int = 0, seq_axis: Optional[str] = None,
+                 seq_mode: str = "ring", seq_layout: str = "contiguous",
+                 moe_experts: int = 0, moe_k: int = 2, rope: bool = False,
+                 norm: str = "layer", num_kv_heads: Optional[int] = None,
                  rope_theta: float = 10000.0, bias: bool = True,
-                 dropout: float = 0.0, pre_norm: bool = True,
                  norm_eps: Optional[float] = None,
                  window: Optional[int] = None,
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
+        refuse_not_ported("TransformerEncoderLayer", block_size=block_size,
+                          seq_axis=seq_axis, seq_mode=seq_mode,
+                          seq_layout=seq_layout, moe_experts=moe_experts,
+                          moe_k=moe_k)
         if activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}: one of "
                              f"{sorted(_ACTIVATIONS)}")
@@ -666,16 +709,23 @@ class TransformerEncoder(Module):
     remat_blocks = False
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 ffn_dim: int, activation: str = "gelu",
-                 causal: bool = False, rope: bool = False,
-                 norm: str = "layer", num_kv_heads: Optional[int] = None,
+                 ffn_dim: int, dropout: float = 0.0,
+                 activation: str = "gelu", pre_norm: bool = True,
+                 causal: bool = False, block_size: int = 0,
+                 seq_axis: Optional[str] = None, seq_mode: str = "ring",
+                 seq_layout: str = "contiguous", moe_experts: int = 0,
+                 moe_k: int = 2, rope: bool = False, norm: str = "layer",
+                 num_kv_heads: Optional[int] = None,
                  rope_theta: float = 10000.0, bias: bool = True,
-                 dropout: float = 0.0, pre_norm: bool = True,
                  norm_eps: Optional[float] = None,
                  window: Optional[int] = None,
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
+        refuse_not_ported("TransformerEncoder", block_size=block_size,
+                          seq_axis=seq_axis, seq_mode=seq_mode,
+                          seq_layout=seq_layout, moe_experts=moe_experts,
+                          moe_k=moe_k)
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerEncoderLayer(

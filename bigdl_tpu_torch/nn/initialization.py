@@ -1,6 +1,7 @@
 """Weight initialization methods (counterpart of
 ``bigdl_tpu/nn/initialization.py``: ``default_init``, ``xavier``,
-``kaiming``, ``conv_weight``, ``zeros`` and ``ones``).
+``kaiming``, ``bilinear_filler``, ``conv_weight``, ``zeros`` and
+``ones``).
 
 The reference draws host-side numpy from its process RandomGenerator. Here
 each draw takes a ``torch.Generator`` that the model builder passes down
@@ -40,6 +41,20 @@ def kaiming(shape: Sequence[int], fan_in: int,
     """He normal, std sqrt(2 / fan_in) (the reference ResNet's MSRinit)."""
     std = math.sqrt(2.0 / max(1, fan_in))
     return torch.empty(tuple(shape)).normal_(0.0, std, generator=generator)
+
+
+def bilinear_filler(shape: Sequence[int]) -> torch.Tensor:
+    """Bilinear upsampling kernel for a deconvolution (reference
+    ``bilinear_filler``, Caffe's ``BilinearFiller``): ``shape`` is (kH, kW,
+    in, out), every (in, out) pair holding the same kH x kW kernel."""
+    kh, kw = shape[0], shape[1]
+    f_h, f_w = math.ceil(kh / 2.0), math.ceil(kw / 2.0)
+    c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+    c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+    ys = torch.arange(kh, dtype=torch.float64)[:, None]
+    xs = torch.arange(kw, dtype=torch.float64)[None, :]
+    k = (1 - (ys / f_h - c_h).abs()) * (1 - (xs / f_w - c_w).abs())
+    return k[:, :, None, None].expand(tuple(shape)).to(torch.float32).clone()
 
 
 def conv_weight(method: str, shape: Sequence[int], fan_in: int,

@@ -1,15 +1,16 @@
 """Int8 weight-only and bf16 inference twins (counterpart of
-``bigdl_tpu/nn/quantized.py``; the convolution twin waits for the conv
-slice).
+``bigdl_tpu/nn/quantized.py``).
 
 ``quantize_model`` deep-copies a model and swaps every ``Linear``,
-``LMHead``, ``TiedLMHead``, ``MultiHeadAttention`` and ``LookupTable`` for
-its quantized twin: symmetric per-output-channel int8 weights
-(``q = round(w / s)``, ``s = amax|w| / 127``) held as buffers beside their
-f32 scales. Decode-shaped projections run kernel K4 on the int8 rows
-(``ops/int8_matmul.py``). Every remaining parameter is frozen into a
-buffer, so the twin is inference-only. ``cast_model`` is the bf16 sibling:
-every float parameter becomes a buffer of the given dtype.
+``LMHead``, ``TiedLMHead``, ``SpatialConvolution``, ``MultiHeadAttention``
+and ``LookupTable`` for its quantized twin: symmetric per-output-channel
+int8 weights (``q = round(w / s)``, ``s = amax|w| / 127``) held as buffers
+beside their f32 scales. Decode-shaped projections run kernel K4 on the
+int8 rows (``ops/int8_matmul.py``); the convolution twin dequantizes its
+HWIO kernel in the compute dtype and convolves, as the reference does.
+Every remaining parameter is frozen into a buffer, so the twin is
+inference-only. ``cast_model`` is the bf16 sibling: every float parameter
+becomes a buffer of the given dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Dict
 import torch
 
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.linear import Linear, LMHead, LookupTable, TiedLMHead
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.int8_matmul import int8_matmul
@@ -39,7 +41,9 @@ def quantize_array(w: torch.Tensor, channel_axis: int):
 
 
 def _freeze(m: torch.nn.Module, dtype=None) -> None:
-    """Move a module's own parameters into buffers (optionally cast)."""
+    """Move a module's own parameters into buffers (optionally cast); their
+    regularizers go with them."""
+    m.__dict__.pop("_param_regularizers", None)
     for name in list(m._parameters):
         t = m._parameters.pop(name).detach()
         if dtype is not None and t.is_floating_point():
@@ -53,6 +57,18 @@ class _QuantizedMixin:
     compute_dtype = torch.bfloat16
     #: weight name -> its output-channel axis
     _quant_weights: Dict[str, int] = {}
+
+    @classmethod
+    def _validate(cls, m: Module) -> None:
+        """Runs before the swap, so a rejected module is left as it was."""
+
+    def _dequant(self, name: str) -> torch.Tensor:
+        cd = self.compute_dtype
+        return (self._buffers[name + "_q"].to(cd)
+                * self._buffers[name + "_scale"].to(cd))
+
+    def reset(self):
+        raise RuntimeError(f"{type(self).__name__} is inference-only")
 
     def _quantize_in_place(self, compute_dtype: torch.dtype) -> None:
         self.compute_dtype = compute_dtype
@@ -94,6 +110,17 @@ class QuantizedLMHead(_QuantizedMixin, LMHead):
         return torch.log_softmax(y, dim=-1)
 
 
+class QuantizedSpatialConvolution(_QuantizedMixin, SpatialConvolution):
+    """SpatialConvolution with an int8 HWIO kernel and a per-output-channel
+    f32 scale (reference ``QuantizedSpatialConvolution``; inference-only).
+    The kernel is dequantized in the compute dtype at every forward, the
+    input is cast to it, and the f32 bias is added after the conv."""
+
+    _quant_weights = {"weight": -1}  # HWIO: the output channel is last
+
+    weight = property(lambda self: self._dequant("weight"))
+
+
 class QuantizedMultiHeadAttention(_QuantizedMixin, MultiHeadAttention):
     """MultiHeadAttention with int8 q;k;v and out projections. The q, k and
     v projections run the int8 matmul on row slices of the stacked weight
@@ -129,11 +156,18 @@ class QuantizedLookupTable(_QuantizedMixin, LookupTable):
 
     _quant_weights = {"weight": 0}  # (vocab, dim): per-row scale
 
+    @classmethod
+    def _validate(cls, m):
+        if m.max_norm != float("inf"):
+            raise ValueError("max-norm LookupTable cannot be quantized "
+                             "(renormalisation needs the f32 table)")
+
     def forward(self, input):
         idx = self._ids(input)
         cd = self.compute_dtype
         rows = self.weight_q[idx].to(cd)
-        return rows * self.weight_scale[:, 0][idx][..., None].to(cd)
+        return self._pad(input,
+                         rows * self.weight_scale[:, 0][idx][..., None].to(cd))
 
 
 class QuantizedTiedLMHead(_QuantizedMixin, TiedLMHead):
@@ -154,6 +188,7 @@ class QuantizedTiedLMHead(_QuantizedMixin, TiedLMHead):
 _REGISTRY = {
     Linear: QuantizedLinear,
     LMHead: QuantizedLMHead,
+    SpatialConvolution: QuantizedSpatialConvolution,
     MultiHeadAttention: QuantizedMultiHeadAttention,
     LookupTable: QuantizedLookupTable,
     TiedLMHead: QuantizedTiedLMHead,
@@ -165,6 +200,7 @@ def quantize_module(m: Module, compute_dtype=torch.bfloat16) -> Module:
     qcls = _REGISTRY.get(type(m))
     if qcls is None:
         raise ValueError(f"no quantized twin for {type(m).__name__}")
+    qcls._validate(m)
     m.__class__ = qcls
     m._quantize_in_place(compute_dtype)
     return m

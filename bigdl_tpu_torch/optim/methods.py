@@ -1,8 +1,9 @@
 """Optimization methods and learning-rate schedules (counterpart of
-``bigdl_tpu/optim/methods.py``: ``SGD``, ``Adagrad``, ``Adam``, ``AdamW`` and
-the schedules ``Default``, ``Poly``, ``Step``, ``MultiStep``,
-``CosineDecay``, ``Warmup``, and ``EpochSchedule`` with its ``Regime``
-rows, are ported).
+``bigdl_tpu/optim/methods.py``; every class is ported: ``SGD``,
+``Adagrad``, ``Adam``, ``AdamW``, ``Adamax``, ``Adadelta``, ``RMSprop``,
+``LBFGS`` and the schedules ``Default``, ``Poly``, ``Step``,
+``MultiStep``, ``EpochStep``, ``EpochDecay``, ``CosineDecay``,
+``Warmup``, and ``EpochSchedule`` with its ``Regime`` rows).
 
 The reference's update rules, written out here rather than taken from
 ``torch.optim``, whose decay and schedule rules differ (``AdamW`` below
@@ -25,6 +26,11 @@ numbers, which the host writes into a device tensor before each replay;
 agree to the bit: CUDA multiplies a tensor by a host scalar in float32 and
 divides by one as a product with its reciprocal, which ``step_scalars``
 supplies where the update divides.
+
+``LBFGS`` is a full-batch method (``supports_minibatch = False``): it
+drives its own ``optimize(feval, x)`` loop on the host around the
+caller's loss-and-gradient function, as the reference does, and
+``Optimizer`` refuses it.
 """
 
 from __future__ import annotations
@@ -89,6 +95,29 @@ class MultiStep(LearningRateSchedule):
     def rate(self, base_lr, state):
         passed = sum(state["evalCounter"] >= s for s in self.step_sizes)
         return base_lr * self.gamma ** passed
+
+
+class EpochStep(LearningRateSchedule):
+    """lr * gamma^floor((epoch - 1) / step_size) (reference
+    ``SGD.EpochStep``)."""
+
+    def __init__(self, step_size: int, gamma: float):
+        self.step_size, self.gamma = step_size, gamma
+
+    def rate(self, base_lr, state):
+        return base_lr * self.gamma ** math.floor(
+            (state["epoch"] - 1) / self.step_size)
+
+
+class EpochDecay(LearningRateSchedule):
+    """lr * 0.1^decay_fn(epoch) (reference ``SGD.EpochDecay``);
+    ``decay_fn`` maps the 1-based epoch (an int) to a number."""
+
+    def __init__(self, decay_fn):
+        self.decay_fn = decay_fn
+
+    def rate(self, base_lr, state):
+        return base_lr * 0.1 ** self.decay_fn(state["epoch"])
 
 
 class Regime:
@@ -173,6 +202,10 @@ def _zeros(params: Tensors, dtype: Optional[torch.dtype] = None) -> Tensors:
 class OptimMethod:
     """Base optimizer (reference ``OptimMethod``)."""
 
+    #: False for a full-batch method (``LBFGS``) that drives its own
+    #: ``optimize(feval, x)`` loop and cannot step inside ``Optimizer``
+    supports_minibatch = True
+
     def __init__(self, learningrate: float = 1e-3, weightdecay: float = 0.0):
         self.learningrate = learningrate
         self.weightdecay = weightdecay
@@ -194,6 +227,23 @@ class OptimMethod:
         raise NotImplementedError(
             f"{type(self).__name__} has no step_scalars: it cannot run "
             "inside a captured training window")
+
+    def optimize(self, feval, x, state: Optional[Dict] = None):
+        """Torch-style step (reference ``optimize``): ``feval(x) -> (loss,
+        grad)`` for ``x`` a tensor or a ``{name: tensor}`` dict and
+        ``grad`` of the same form; one ``update`` of ``x`` IN PLACE, with
+        the state kept on the method between calls. Returns ``(x,
+        [loss])``."""
+        params = x if isinstance(x, dict) else {"x": x}
+        if state is None:
+            state = self.__dict__.get("_state")
+            if state is None:
+                state = self.init_state(params)
+        loss, grad = feval(x)
+        self.update(grad if isinstance(grad, dict) else {"x": grad}, state,
+                    params)
+        self._state = state
+        return x, [loss]
 
     def _decayed(self, grads: Tensors, params: Tensors) -> Tensors:
         """Coupled L2 decay: ``g + weightdecay * p`` (new tensors)."""
@@ -370,3 +420,251 @@ class AdamW(Adam):
             for p in params.values():
                 p.mul_(shrink)
         return super().update(grads, state, params, scalars)
+
+
+class Adamax(OptimMethod):
+    """Adam with the infinity norm (reference ``Adamax``): ``u = max(beta2
+    u, |g| + epsilon)``, ``p -= lr / (1 - beta1^t) * m / u``."""
+
+    def __init__(self, learningrate: float = 0.002, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-38,
+                 weightdecay: float = 0.0):
+        super().__init__(learningrate, weightdecay)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def init_state(self, params):
+        s = super().init_state(params)
+        s["m"] = _zeros(params)
+        s["u"] = _zeros(params)
+        return s
+
+    def step_scalars(self, state):
+        """(lr / (1 - beta1^t)) of the coming iteration."""
+        t = state["evalCounter"] + 1
+        return [self.learningrate / (1 - self.beta1 ** t)]
+
+    @torch.no_grad()
+    def update(self, grads, state, params, scalars=None):
+        grads = self._decayed(grads, params)
+        step = (self.step_scalars(state) if scalars is None else scalars)[0]
+        b1 = self.beta1
+        for k, p in params.items():
+            g, m, u = grads[k], state["m"][k], state["u"][k]
+            m.copy_(b1 * m + (1 - b1) * g)
+            u.copy_(torch.maximum(self.beta2 * u, g.abs() + self.epsilon))
+            p.sub_(step * m / u)
+        state["evalCounter"] += 1
+        return params, state
+
+
+class Adadelta(OptimMethod):
+    """reference ``Adadelta``: no learning rate; the step is
+    ``sqrt(delta_accum + eps) / sqrt(accum + eps) * g`` over running
+    averages of the squared gradients and steps. It has no per-iteration
+    values, so its ``step_scalars`` is empty."""
+
+    def __init__(self, decayrate: float = 0.9, epsilon: float = 1e-10):
+        super().__init__(learningrate=1.0)
+        self.rho, self.epsilon = decayrate, epsilon
+
+    def init_state(self, params):
+        s = super().init_state(params)
+        s["accum"] = _zeros(params)
+        s["delta_accum"] = _zeros(params)
+        return s
+
+    def step_scalars(self, state):
+        return []
+
+    @torch.no_grad()
+    def update(self, grads, state, params, scalars=None):
+        rho, eps = self.rho, self.epsilon
+        for k, p in params.items():
+            g, a, d = grads[k], state["accum"][k], state["delta_accum"][k]
+            a.copy_(rho * a + (1 - rho) * g * g)
+            delta = torch.sqrt(d + eps) / torch.sqrt(a + eps) * g
+            d.copy_(rho * d + (1 - rho) * delta * delta)
+            p.sub_(delta)
+        state["evalCounter"] += 1
+        return params, state
+
+
+class RMSprop(OptimMethod):
+    """reference ``RMSprop``: ``accum = rho accum + (1 - rho) g^2``,
+    ``p -= lr_t g / (sqrt(accum) + epsilon)`` with ``lr_t = lr / (1 +
+    neval * learningrate_decay)``."""
+
+    def __init__(self, learningrate: float = 1e-2,
+                 learningrate_decay: float = 0.0, decayrate: float = 0.99,
+                 epsilon: float = 1e-8):
+        super().__init__(learningrate)
+        self.learningrate_decay = learningrate_decay
+        self.rho, self.epsilon = decayrate, epsilon
+
+    def init_state(self, params):
+        s = super().init_state(params)
+        s["accum"] = _zeros(params)
+        return s
+
+    def step_scalars(self, state):
+        return [self.learningrate / (1.0 + state["evalCounter"]
+                                     * self.learningrate_decay)]
+
+    @torch.no_grad()
+    def update(self, grads, state, params, scalars=None):
+        lr = (self.step_scalars(state) if scalars is None else scalars)[0]
+        rho = self.rho
+        for k, p in params.items():
+            g, a = grads[k], state["accum"][k]
+            a.copy_(rho * a + (1 - rho) * g * g)
+            p.sub_(lr * g / (torch.sqrt(a) + self.epsilon))
+        state["evalCounter"] += 1
+        return params, state
+
+
+def _flat(x) -> torch.Tensor:
+    """A tensor or ``{name: tensor}`` dict as one 1-D tensor."""
+    if isinstance(x, dict):
+        return torch.cat([t.reshape(-1) for t in x.values()])
+    return x.reshape(-1)
+
+
+def _unflat(flat: torch.Tensor, like):
+    """``flat`` in the form of ``like`` (``_flat``'s inverse)."""
+    if isinstance(like, dict):
+        out, i = {}, 0
+        for k, t in like.items():
+            out[k] = flat[i:i + t.numel()].reshape(t.shape)
+            i += t.numel()
+        return out
+    return flat.reshape(like.shape)
+
+
+def _wolfe_line_search(feval, x, d, f0, g0, t0, c1: float = 1e-4,
+                       c2: float = 0.9, max_iter: int = 25,
+                       t_max: float = 1e8):
+    """Strong-Wolfe line search along ``d`` (reference
+    ``_wolfe_line_search``, Torch's ``lswolfe``): bracket by doubling,
+    then bisect until the sufficient decrease (c1) and the curvature (c2)
+    conditions hold. ``feval`` takes and returns flat tensors. Returns
+    ``(t, f_t, g_t, evals)``; when the budget runs out, the best point
+    evaluated (t = 0: no step)."""
+    gtd0 = float(torch.dot(g0, d))
+    lo_t, lo_f, lo_g = 0.0, f0, g0
+    hi_t = None
+    t = t0
+    evals = 0
+    for _ in range(max_iter):
+        f_t, g_t = feval(x + t * d)
+        f_t = float(f_t)
+        evals += 1
+        gtd = float(torch.dot(g_t, d))
+        if not math.isfinite(f_t):
+            hi_t = t  # overflow at this step: shrink, never extend
+        elif f_t > f0 + c1 * t * gtd0 or (evals > 1 and f_t >= lo_f):
+            hi_t = t  # overshot: the minimum lies in (lo_t, t)
+        elif abs(gtd) <= -c2 * gtd0:
+            return t, f_t, g_t, evals  # strong Wolfe satisfied
+        elif gtd >= 0:
+            hi_t = t  # the slope turned positive: bracketed
+        else:
+            lo_t, lo_f, lo_g = t, f_t, g_t
+            if hi_t is None:
+                t = min(2.0 * t, t_max)  # still descending: extend
+                continue
+        t = 0.5 * (lo_t + hi_t)
+        if hi_t - lo_t < 1e-12:
+            break
+    return lo_t, lo_f, lo_g, evals
+
+
+class LBFGS(OptimMethod):
+    """Limited-memory BFGS with an optional strong-Wolfe line search
+    (reference ``LBFGS``, Torch's ``lbfgs``): a full-batch method, run as
+    ``optimize(feval, x)`` on the host around the caller's loss and
+    gradient. ``x`` is a tensor or a ``{name: tensor}`` dict; the result
+    is a new ``x`` of the same form and the losses of the iterations."""
+
+    supports_minibatch = False
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tolfun: float = 1e-5, tolx: float = 1e-9,
+                 ncorrection: int = 100, learningrate: float = 1.0,
+                 linesearch: bool = False):
+        super().__init__(learningrate)
+        self.max_iter = max_iter
+        self.max_eval = max_eval if max_eval is not None else max_iter * 1.25
+        self.tolfun, self.tolx = tolfun, tolx
+        self.ncorrection = ncorrection
+        self.linesearch = linesearch
+
+    @torch.no_grad()
+    def optimize(self, feval, x, state=None):
+        like = x
+
+        def feval_flat(xf):
+            loss, g = feval(_unflat(xf, like))
+            return loss, _flat(g)
+
+        x_flat = _flat(x).clone()
+        loss, g_flat = feval_flat(x_flat)
+        losses = [float(loss)]
+        old_dirs: List[torch.Tensor] = []
+        old_steps: List[torch.Tensor] = []
+        h_diag = 1.0
+        prev_flat, prev_g = x_flat, g_flat
+        n_eval = 1
+        for it in range(self.max_iter):
+            if float(g_flat.abs().max()) <= self.tolfun:
+                break
+            if it == 0:
+                d = -g_flat
+            else:
+                y = g_flat - prev_g
+                s = x_flat - prev_flat
+                ys = torch.dot(y, s)
+                if float(ys) > 1e-10:
+                    if len(old_dirs) >= self.ncorrection:
+                        old_dirs.pop(0)
+                        old_steps.pop(0)
+                    old_dirs.append(y)
+                    old_steps.append(s)
+                    h_diag = ys / torch.dot(y, y)
+                # the two-loop recursion
+                k = len(old_dirs)
+                ro = [1.0 / torch.dot(old_dirs[i], old_steps[i])
+                      for i in range(k)]
+                q = -g_flat
+                al = [None] * k
+                for i in range(k - 1, -1, -1):
+                    al[i] = torch.dot(old_steps[i], q) * ro[i]
+                    q = q - al[i] * old_dirs[i]
+                d = q * h_diag
+                for i in range(k):
+                    be_i = torch.dot(old_dirs[i], d) * ro[i]
+                    d = d + (al[i] - be_i) * old_steps[i]
+            prev_flat, prev_g, prev_loss = x_flat, g_flat, loss
+            if float(torch.dot(g_flat, d)) > -self.tolx:
+                break
+            t = (min(1.0, 1.0 / float(g_flat.abs().sum())) if it == 0
+                 else self.learningrate)
+            if self.linesearch:
+                t, loss, g_flat, evals = _wolfe_line_search(
+                    feval_flat, x_flat, d, float(loss), g_flat, t)
+                x_flat = x_flat + t * d
+                n_eval += evals
+            else:
+                x_flat = x_flat + t * d
+                loss, g_flat = feval_flat(x_flat)
+                n_eval += 1
+            losses.append(float(loss))
+            if n_eval >= self.max_eval:
+                break
+            if abs(float(loss) - float(prev_loss)) < self.tolfun:
+                break
+            if float((t * d).abs().max()) <= self.tolx:
+                break
+        return _unflat(x_flat, like), losses
+
+    def update(self, grads, state, params, scalars=None):
+        raise NotImplementedError("LBFGS uses optimize(feval, x)")

@@ -39,6 +39,12 @@ the (k, B) index tensor, a copy on the device (the reference's
 mixed window takes the pinned copy of its stacked batches, as the
 reference's ``all(...)`` test sends it to ``multi_step``.
 
+A parameter's regularizer (``w_regularizer`` / ``b_regularizer``,
+``Module.register_parameter``) adds its loss of the f32 master to the
+loss the step differentiates, in a k = 1 step and in a captured window
+alike; the logged loss is the criterion's alone, as in the reference. A
+full-batch method (``LBFGS``) is refused by ``set_optim_method``.
+
 ``set_remat`` recomputes activations in the backward (``ops/remat.py``):
 ``True``/``"full"`` the whole forward, ``"conv"`` all but the tagged conv
 outputs and batch-norm sums (both a ``Sequential`` child by child,
@@ -88,6 +94,7 @@ from bigdl_tpu_torch.dataset.device_cache import CachedSliceBatch
 from bigdl_tpu_torch.interop.state_dict import import_tree_state
 from bigdl_tpu_torch.nn.attention import TransformerEncoder
 from bigdl_tpu_torch.nn.criterion import Criterion
+from bigdl_tpu_torch.nn.module import named_regularizers
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.optim.evaluator import evaluate_batches, evaluating
 from bigdl_tpu_torch.optim.methods import SGD, OptimMethod
@@ -194,6 +201,12 @@ class Optimizer:
 
     # ---------------------------------------------------------------- builder
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
+        if not getattr(method, "supports_minibatch", True):
+            # refused here, not at the first step (reference message)
+            raise ValueError(
+                f"{type(method).__name__} is a full-batch method and cannot "
+                "drive the minibatch training loop; call "
+                "method.optimize(feval, x) directly instead")
         self.optim_method = method
         return self
 
@@ -750,6 +763,11 @@ class LocalOptimizer(Optimizer):
             model, "conv" if self._remat == "conv" else None)
             if self._remat else None)
 
+        # the parameters' regularizers (w_regularizer / b_regularizer): their
+        # loss of the f32 masters joins the training loss, not the logged one
+        regs = [(params[n], r) for n, r in named_regularizers(model)
+                if n in params]
+
         def step(data, labels, scalars=None) -> torch.Tensor:
             release()
             p_c = policy.cast_params_for_compute(params)
@@ -760,7 +778,10 @@ class LocalOptimizer(Optimizer):
                     recompute, {f"model.{n}": t for n, t in p_c.items()},
                     (data,))
             loss = self.criterion.forward(out, labels).float()
-            loss.backward()
+            total = loss
+            for p, reg in regs:
+                total = total + reg.loss(p)
+            total.backward()
             # a parameter the loss does not reach (a fused conv's pre-BN
             # bias) has the reference's zero gradient
             grads = clip({n: p.grad if p.grad is not None

@@ -230,6 +230,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    losses, K5 36 and K6 13 a step both ways, and a lower peak with the
    policy. Each run logs records/s, ms an iteration, peak memory and
    (k = 1) the busy share of two more profiled iterations;
+3k. the layer zoo (after phase 3j; no kernel of ours is on its path): (a)
+   every layer, container and criterion that the layer-zoo slice ported
+   (``nn``'s activations, shapes, tables, linear, normalization, conv,
+   pooling and regularization layers, the 22 criteria, the f32 conv twin
+   of ``quantize_model``; ``Echo`` only prints) on the card, f32 with
+   TF32 off, against the same module (a deep copy) on the CPU: forward,
+   input and parameter gradients within 1e-6 of max|CPU| for elementwise
+   layers and criteria' gradients, 1e-5 for convolutions,
+   normalizations, products, reductions and the criteria's losses (a
+   tensor outside it, such as a weight gradient summed over 100,352
+   positions, is held instead to an f64 CPU run: the card's distance at
+   most twice the CPU f32's or 1e-4; each such tensor is logged, and the
+   same 3x3 conv in TF32 must land past 1e-4 from f64), at
+   B=32, 56x56, 64 channels (volumetric: N=8, 16^3, 32 channels; 128
+   RoIs over the spatial maps; class criteria over 32*56*56 rows of 64);
+   ``nms`` over 6000 boxes keeping 300, identical indices and count; (b)
+   ``apps/autoencoder.py`` on the vendored MNIST (batches of 8, shuffles
+   seeded), 20 iterations each of SGD, RMSprop, Adamax, Adadelta and SGD
+   under ``EpochStep``, ``L2Regularizer(1e-4)`` on the weights: every
+   step's loss within 1e-5 relative of a CPU run's, and Adamax and the
+   ``EpochStep`` SGD with ``set_steps_per_dispatch(4)`` (one window an
+   epoch) and ``(3)`` (a window of 3, then a short one of 1 at the
+   epoch's end, the rate changing after it) bit-equal to k = 1; (c)
+   ``enable_timing`` over two card iterations of the autoencoder: every
+   module's forward and backward seconds positive;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -279,7 +304,8 @@ seed's readings and no result line.
 
 ``python3 chip_smoke.py --zoo-only`` builds the kernels and runs only
 phase 3i and its kernel rows, printing them and no result line;
-``--perf-only`` does the same for phase 3j.
+``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
+phase 3k (it has no kernel rows).
 
 ``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
 phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
@@ -5841,6 +5867,572 @@ def time_conv_bn(launches: dict) -> list:
     return entries
 
 
+# -------------------------------------------------------- 3k. the layer zoo
+#: phase 3k's shapes: B x HW x HW x C for the spatial layers, N x D^3 x C
+#: for the volumetric ones, ROIS boxes and NMS_BOXES candidates with
+#: NMS_OUT kept
+LAYER_B, LAYER_HW, LAYER_C = 32, 56, 64
+VOL_N, VOL_D, VOL_C = 8, 16, 32
+ROIS, NMS_BOXES, NMS_OUT = 128, 6000, 300
+#: phase 3k (a)'s tolerances (of max|CPU|): the CPU tests' for elementwise
+#: layers and criteria, and for convolutions, normalizations and reductions
+LAYER_TOL, LAYER_REDUCE_TOL = 1e-6, 1e-5
+#: a tensor of a LAYER_REDUCE_TOL case outside it is held instead to an
+#: f64 CPU run: at most twice the CPU f32's distance, or LAYER_F64_FACTOR
+#: times the case's tolerance (1e-4). cuDNN's f32 weight gradient of a 3x3
+#: conv at B=32 56x56 64->64 (a sum over 100,352 positions) lands 4.6e-5
+#: of max from f64 where oneDNN's lands 4.3e-7 (NVIDIA H100, 700 W): a
+#: long f32 sum is off by up to about sqrt(n) x 2^-24 x a few. The same
+#: conv in TF32 must land past the floor (``tf32_control``). Elementwise
+#: cases (LAYER_TOL) get no f64 hold.
+LAYER_F64_FACTOR = 10.0
+#: phase 3k (b): iterations of the autoencoder app per optim method, its
+#: batch (32 vendored images: 4 iterations an epoch), the weights' L2, and
+#: the window lengths held bit-equal to k = 1 (a window ends at its
+#: epoch's end: 4 makes one window an epoch, 3 a full window then a short
+#: one of 1)
+AE_ITERS, AE_BATCH, AE_L2 = 20, 8, 1e-4
+AE_WINDOWS = (3, 4)
+AE_LOSS_RTOL = 1e-5
+MNIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "resources", "mnist")
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    if got.shape != ref.shape:
+        raise RuntimeError(f"shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if not ref.numel():
+        return 0.0
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _layer_pass(module, inputs, table: bool, cots):
+    """Forward and backward of ``module`` on ``inputs`` (each float one
+    made a leaf that requires grad) with cotangents ``cots`` (made from the
+    outputs' shapes when None): ({label: tensor} of the outputs, the input
+    gradients and the parameter gradients, the cotangents)."""
+    xs = [t.clone().requires_grad_() if t.is_floating_point() else t
+          for t in inputs]
+    out = module(xs) if table else module(*xs)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    if cots is None:
+        gen = torch.Generator().manual_seed(1)
+        cots = [torch.randn(o.shape, generator=gen) if o.is_floating_point()
+                else None for o in outs]
+    loss = sum((o * c.to(device=o.device, dtype=o.dtype)).sum()
+               for o, c in zip(outs, cots)
+               if c is not None and o.requires_grad)
+    if torch.is_tensor(loss):
+        loss.backward()
+    got = {f"out{i}": o.detach() for i, o in enumerate(outs)}
+    got.update({f"d_input{i}": x.grad for i, x in enumerate(xs)
+                if x.is_floating_point() and x.grad is not None})
+    got.update({f"d_{n}": (p.grad if p.grad is not None
+                           else torch.zeros_like(p))
+                for n, p in module.named_parameters()})
+    return got, cots
+
+
+def _held(name: str, got: dict, ref: dict, tol: float, f64) -> dict:
+    """Each of ``got`` (the card's) within ``tol`` of max|``ref``| (the
+    CPU's). Where ``tol`` is LAYER_REDUCE_TOL, a tensor that is not is held
+    instead to the f64 CPU run (``f64()``, made only then): the card's
+    distance from it at most twice the CPU f32's (phase 3c's rule) or
+    LAYER_F64_FACTOR x ``tol`` (a sum over 10^5 terms, such as a weight
+    gradient at B*H*W = 100,352 positions, lands further than 1e-5 from
+    exact in cuDNN's f32 order). Returns the worst direct error and the
+    tensors held to f64."""
+    errs = {k: _rel_err(got[k], ref[k]) for k in ref}
+    bad = [k for k, e in errs.items() if e > tol]
+    held = {}
+    if bad:
+        check(tol >= LAYER_REDUCE_TOL,
+              f"phase 3k {name}: " + ", ".join(
+                  f"{k} {errs[k]:.3g}" for k in bad)
+              + f" from the CPU (tol {tol:g})")
+        exact = f64()
+        for k in bad:
+            card = _rel_err(got[k], exact[k])
+            cpu = _rel_err(ref[k], exact[k])
+            check(card <= max(2.0 * cpu, LAYER_F64_FACTOR * tol),
+                  f"phase 3k {name} {k}: card {errs[k]:.3g} from the CPU "
+                  f"(tol {tol:g}); from f64 the card {card:.3g}, the CPU "
+                  f"{cpu:.3g}")
+            held[k] = {"card_vs_cpu": errs[k], "card_vs_f64": card,
+                       "cpu_vs_f64": cpu}
+    return {"max_rel_err": max(errs.values()) if errs else 0.0,
+            "held_to_f64": held}
+
+
+def layer_case(name: str, module, inputs, tol: float, table: bool = False,
+               train: bool = False) -> dict:
+    """Phase 3k (a): ``module`` on the card against the same module (a
+    deep copy of its weights) on the CPU: outputs, input gradients and
+    parameter gradients within ``tol`` of max|CPU| (or, for a tensor that
+    is not, ``_held``'s f64 rule)."""
+    import copy
+    dev = torch.device("cuda")
+    cpu = module.train(train)
+    card = copy.deepcopy(module).to(dev).train(train)
+    t0 = time.perf_counter()
+    ref, cots = _layer_pass(cpu, inputs, table, None)
+    got, _ = _layer_pass(card, [t.to(dev) for t in inputs], table, cots)
+    torch.cuda.synchronize()
+
+    def f64():
+        exact = copy.deepcopy(cpu).double()
+        return _layer_pass(exact, [t.double() if t.is_floating_point()
+                                   else t for t in inputs], table,
+                           [c.double() if c is not None else None
+                            for c in cots])[0]
+
+    row = _held(name, got, ref, tol, f64)
+    return {"case": name, **row, "tol": tol, "s": time.perf_counter() - t0}
+
+
+def criterion_case(name: str, crit, x, t,
+                   grad_tol: float = LAYER_TOL) -> dict:
+    """Phase 3k (a): a criterion's loss and input gradients on the card
+    against the CPU (``x`` a tensor or a list: a table). The loss sums
+    millions of terms, a reduction, so it is held to LAYER_REDUCE_TOL; the
+    gradients, elementwise, to ``grad_tol`` (each by ``_held``'s rule)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+
+    def run(xs, tgt):
+        leaves = [a.clone().requires_grad_() for a in xs]
+        loss = crit(leaves if isinstance(x, list) else leaves[0], tgt)
+        loss.backward()
+        return {"loss": loss.detach(),
+                **{f"d_input{i}": a.grad for i, a in enumerate(leaves)}}
+
+    def on(v, d, dtype=None):
+        if isinstance(v, list):
+            return [on(a, d, dtype) for a in v]
+        if not torch.is_tensor(v):
+            return v
+        return v.to(d, dtype) if dtype and v.is_floating_point() else v.to(d)
+
+    xs = x if isinstance(x, list) else [x]
+    ref = run(xs, t)
+    got = run(on(xs, dev), on(t, dev))
+    f64 = lambda: run(on(xs, "cpu", torch.float64),            # noqa: E731
+                      on(t, "cpu", torch.float64))
+    loss = _held(name, {"loss": got["loss"]}, {"loss": ref["loss"]},
+                 LAYER_REDUCE_TOL, f64)
+    grads = _held(name, {k: v for k, v in got.items() if k != "loss"},
+                  {k: v for k, v in ref.items() if k != "loss"}, grad_tol,
+                  f64)
+    return {"case": name, "max_rel_err": max(loss["max_rel_err"],
+                                             grads["max_rel_err"]),
+            "loss_rel_err": loss["max_rel_err"],
+            "held_to_f64": {**loss["held_to_f64"], **grads["held_to_f64"]},
+            "tol": grad_tol, "s": time.perf_counter() - t0}
+
+
+def layer_zoo_cases():
+    """Phase 3k (a)'s cases: (name, module factory, input factory, tol,
+    table) at the spatial, volumetric and RoI shapes; every new layer of
+    ``nn``'s activation, shape, container, linear, normalization, conv,
+    pooling and regularization files, and the f32 conv twin."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn.quantized import quantize_model
+    b, hw, c = LAYER_B, LAYER_HW, LAYER_C
+    spatial = (b, hw, hw, c)
+    rows = b * hw                               # the linear layers' rows
+    gen = torch.Generator().manual_seed(0)
+
+    def x(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen) * scale + shift
+
+    x.gen = gen
+
+    def ids(n, *shape):
+        return torch.randint(1, n + 1, shape, generator=gen).float()
+
+    E, R = LAYER_TOL, LAYER_REDUCE_TOL
+    act = [("ReLU", ()), ("ReLU6", ()), ("Threshold", (0.2, -0.5)),
+           ("PReLU", (0,)), ("PReLU", (c,)), ("RReLU", ()),
+           ("LeakyReLU", (0.1,)), ("ELU", (0.7,)), ("Sigmoid", ()),
+           ("LogSigmoid", ()), ("Tanh", ()), ("TanhShrink", ()),
+           ("HardTanh", (-0.5, 0.7)), ("HardShrink", (0.4,)),
+           ("SoftShrink", (0.4,)), ("SoftPlus", (1.5,)), ("SoftSign", ()),
+           ("SoftMax", ()), ("SoftMin", ()), ("LogSoftMax", ()),
+           ("Clamp", (-0.3, 0.6)), ("Power", (2, 1.5, -0.2)),
+           ("Square", ()), ("Abs", ()), ("Exp", ()),
+           ("AddConstant", (1.25,)), ("MulConstant", (-0.75,)),
+           ("GradientReversal", (0.3,))]
+    cases = [(f"{n}{a}", lambda n=n, a=a: getattr(nn, n)(*a),
+              lambda: [x(*spatial)], E, False) for n, a in act]
+    cases += [("Sqrt", lambda: nn.Sqrt(), lambda: [x(*spatial).abs() + 0.5],
+               E, False),
+              ("Log", lambda: nn.Log(), lambda: [x(*spatial).abs() + 0.5],
+               E, False),
+              ("Power(2.5)", lambda: nn.Power(2.5, 0.5, 2.0),
+               lambda: [x(*spatial, scale=0.5)], E, False),
+              ("L1Penalty", lambda: nn.L1Penalty(0.1, True),
+               lambda: [x(*spatial)], E, False)]
+    shapes = [("View", (hw * hw * c,)), ("InferReshape", ((0, -1), True)),
+              ("Squeeze", ()), ("Unsqueeze", (2,)), ("Replicate", (2, 2)),
+              ("SpatialZeroPadding", (1, 2, -1, 3)), ("Narrow", (2, 3, hw // 2)),
+              ("Select", (-1, 3)), ("Reverse", (2,)), ("Contiguous", ())]
+    cases += [(n, lambda n=n, a=a: getattr(nn, n)(*a),
+               lambda: [x(*spatial)], E, False) for n, a in shapes]
+    pair = lambda: [x(*spatial), x(*spatial)]          # noqa: E731
+    three = lambda: [x(*spatial) for _ in range(3)]    # noqa: E731
+    cases += [(n, lambda n=n: getattr(nn, n)(), three, E, True)
+              for n in ("CSubTable", "CMulTable", "CMaxTable", "CMinTable",
+                        "FlattenTable")]
+    cases += [
+        ("CDivTable", lambda: nn.CDivTable(),
+         lambda: [x(*spatial), x(*spatial).abs() + 1.0], E, True),
+        ("JoinTable", lambda: nn.JoinTable(3, 3), three, E, True),
+        ("SplitTable", lambda: nn.SplitTable(1, 3),
+         lambda: [x(b, 8, hw, c)], E, False),
+        ("SelectTable", lambda: nn.SelectTable(2), three, E, True),
+        ("NarrowTable", lambda: nn.NarrowTable(2, 2), three, E, True),
+        ("MixtureTable", lambda: nn.MixtureTable(),
+         lambda: [x(rows, 4), x(rows, 4, c)], R, True),
+        ("MaskedSelect", lambda: nn.MaskedSelect(),
+         lambda: [x(*spatial), (x(*spatial) > 0).float()], E, True),
+        ("Index", lambda: nn.Index(2),
+         lambda: [x(*spatial), ids(hw, 17)], E, True),
+        ("Bottle", lambda: nn.Bottle(nn.Linear(c, c)),
+         lambda: [x(*spatial)], R, False),
+        ("MapTable", lambda: nn.MapTable(nn.Linear(c, c)),
+         lambda: [x(rows, c), x(rows, c)], R, True),
+        ("ParallelTable", lambda: nn.ParallelTable().add(nn.Linear(c, c))
+         .add(nn.Tanh()), lambda: [x(rows, c), x(rows, c)], R, True),
+        ("Add", lambda: nn.Add(c), lambda: [x(*spatial)], E, False),
+        ("Scale", lambda: nn.Scale((c,)), lambda: [x(*spatial)], R, False),
+        ("Bilinear", lambda: nn.Bilinear(c, c, c),
+         lambda: [x(rows, c), x(rows, c)], R, True),
+        ("Cosine", lambda: nn.Cosine(c, c), lambda: [x(rows, c)], R, False),
+        ("Euclidean", lambda: nn.Euclidean(c, c), lambda: [x(rows, c)], R,
+         False),
+        ("MM", lambda: nn.MM(False, True),
+         lambda: [x(b, hw, c), x(b, hw, c)], R, True),
+        ("MV", lambda: nn.MV(), lambda: [x(b, hw, c), x(b, c)], R, True),
+        ("DotProduct", lambda: nn.DotProduct(),
+         lambda: [x(rows, c), x(rows, c)], R, True),
+        ("LookupTable", lambda: nn.LookupTable(10000, c, 7.0, 1.0),
+         lambda: [ids(10000, b, hw)], R, False),
+        ("InputNormalize", lambda: nn.InputNormalize([0.5] * c, [0.25] * c),
+         lambda: [x(*spatial)], E, False),
+        ("Normalize", lambda: nn.Normalize(2.0), lambda: [x(*spatial)], R,
+         False),
+        ("SpatialSubtractiveNormalization",
+         lambda: nn.SpatialSubtractiveNormalization(c),
+         lambda: [x(*spatial)], R, False),
+        ("SpatialDivisiveNormalization",
+         lambda: nn.SpatialDivisiveNormalization(c),
+         lambda: [x(*spatial)], R, False),
+        ("SpatialContrastiveNormalization",
+         lambda: nn.SpatialContrastiveNormalization(c),
+         lambda: [x(*spatial)], R, False),
+        ("SpatialShareConvolution",
+         lambda: nn.SpatialShareConvolution(c, c, 3, 3, 1, 1, 1, 1),
+         lambda: [x(*spatial)], R, False),
+        ("SpatialDilatedConvolution",
+         lambda: nn.SpatialDilatedConvolution(c, c, 3, 3, 1, 1, 2, 2, 2, 2),
+         lambda: [x(*spatial)], R, False),
+        ("SpatialFullConvolution",
+         lambda: nn.SpatialFullConvolution(c, c // 2, 3, 3, 2, 2, 1, 1, 1, 1,
+                                           2),
+         lambda: [x(*spatial)], R, False),
+        ("SpatialConvolutionMap",
+         lambda: nn.SpatialConvolutionMap(
+             nn.SpatialConvolutionMap.full(c, c), 3, 3, 1, 1, 1, 1),
+         lambda: [x(*spatial)], R, False),
+        ("VolumetricConvolution",
+         lambda: nn.VolumetricConvolution(VOL_C, VOL_C, 3, 3, 3, 1, 1, 1,
+                                          1, 1, 1),
+         lambda: [x(VOL_N, VOL_D, VOL_D, VOL_D, VOL_C)], R, False),
+        ("VolumetricMaxPooling", lambda: nn.VolumetricMaxPooling(2, 2, 2),
+         lambda: [x(VOL_N, VOL_D, VOL_D, VOL_D, VOL_C)], E, False),
+        ("RoiPooling", lambda: nn.RoiPooling(7, 7, 1.0),
+         lambda: [x(*spatial), roi_boxes(gen)], E, True),
+        ("QuantizedSpatialConvolution",
+         lambda: quantize_model(nn.Sequential().add(
+             nn.SpatialConvolution(c, c, 3, 3, 1, 1, 1, 1)), torch.float32,
+             device="cpu"), lambda: [x(*spatial)], R, False),
+    ]
+    return cases, x, ids
+
+
+def roi_boxes(gen) -> torch.Tensor:
+    """ROIS boxes ``[batch, x1, y1, x2, y2]`` over LAYER_B feature maps of
+    LAYER_HW, some reaching past the borders."""
+    hw = LAYER_HW
+    xy = torch.rand((ROIS, 2), generator=gen) * (hw + 8) - 4
+    wh = torch.rand((ROIS, 2), generator=gen) * hw
+    batch = torch.randint(0, LAYER_B, (ROIS, 1), generator=gen).float()
+    return torch.cat([batch, xy, xy + wh], 1)
+
+
+def criterion_cases(x, ids) -> list:
+    """Phase 3k (a)'s criteria: elementwise ones over the spatial shape,
+    class ones over B*HW*HW rows of C classes; (name, criterion, input,
+    target[, gradient tolerance]). Dice's gradient divides by sums over
+    each row's HW*HW*C elements, so it is held as a reduction."""
+    from bigdl_tpu_torch import nn
+    b, hw, c = LAYER_B, LAYER_HW, LAYER_C
+    flat = (b, hw * hw * c)
+    n = b * hw * hw
+    pm = lambda *s: torch.where(x(*s) >= 0, 1.0, -1.0)      # noqa: E731
+    prob = lambda *s: torch.sigmoid(x(*s))                    # noqa: E731
+    bits = lambda *s: (x(*s) > 0).float()                     # noqa: E731
+    logp = lambda: torch.log_softmax(x(n, c), -1)              # noqa: E731
+    labels = torch.stack([torch.randperm(c, generator=x.gen)[:4] + 1.0
+                          for _ in range(n)])
+    return [
+        ("ClassNLLCriterion", nn.ClassNLLCriterion(), logp(), ids(c, n)),
+        ("CrossEntropyCriterion", nn.CrossEntropyCriterion(), x(n, c),
+         ids(c, n)),
+        ("MSECriterion", nn.MSECriterion(), x(*flat), x(*flat)),
+        ("AbsCriterion", nn.AbsCriterion(), x(*flat), x(*flat)),
+        ("BCECriterion", nn.BCECriterion(), prob(*flat), bits(*flat)),
+        ("SmoothL1Criterion", nn.SmoothL1Criterion(), x(*flat, scale=2),
+         x(*flat)),
+        ("SmoothL1CriterionWithWeights",
+         nn.SmoothL1CriterionWithWeights(2.0, n), x(*flat),
+         [x(*flat), prob(*flat), prob(*flat)]),
+        ("MarginCriterion", nn.MarginCriterion(0.5), x(*flat), pm(*flat)),
+        ("MarginRankingCriterion", nn.MarginRankingCriterion(0.3),
+         [x(n), x(n)], pm(n)),
+        ("HingeEmbeddingCriterion", nn.HingeEmbeddingCriterion(1.5),
+         x(*flat), pm(*flat)),
+        ("L1HingeEmbeddingCriterion", nn.L1HingeEmbeddingCriterion(2.0),
+         [x(n, c), x(n, c)], torch.tensor(1.0)),
+        ("CosineEmbeddingCriterion", nn.CosineEmbeddingCriterion(0.1),
+         [x(n, c), x(n, c)], pm(n)),
+        ("DistKLDivCriterion", nn.DistKLDivCriterion(), logp(),
+         torch.softmax(x(n, c), -1)),
+        ("SoftMarginCriterion", nn.SoftMarginCriterion(), x(*flat),
+         pm(*flat)),
+        ("MultiLabelSoftMarginCriterion",
+         nn.MultiLabelSoftMarginCriterion(), x(n, c), bits(n, c)),
+        ("MultiMarginCriterion", nn.MultiMarginCriterion(2), x(n, c),
+         ids(c, n)),
+        ("MultiLabelMarginCriterion", nn.MultiLabelMarginCriterion(),
+         x(n, c), labels),
+        ("ClassSimplexCriterion", nn.ClassSimplexCriterion(c), x(n, c),
+         ids(c, n)),
+        ("DiceCoefficientCriterion", nn.DiceCoefficientCriterion(),
+         prob(*flat), bits(*flat), LAYER_REDUCE_TOL),
+        ("L1Cost", nn.L1Cost(), x(*flat), None),
+        ("SoftmaxWithCriterion", nn.SoftmaxWithCriterion(3, "VALID"),
+         x(b, c, hw, hw), ids(c, b, hw, hw)),
+        ("ParallelCriterion", nn.ParallelCriterion().add(nn.MSECriterion(),
+                                                         0.5)
+         .add(nn.AbsCriterion(), 2.0), [x(*flat), x(*flat)],
+         [x(*flat), x(*flat)]),
+        ("MultiCriterion", nn.MultiCriterion().add(nn.MSECriterion(), 0.3)
+         .add(nn.SmoothL1Criterion(), 1.7), x(*flat), x(*flat)),
+        ("CriterionTable", nn.CriterionTable(nn.MSECriterion()),
+         [x(*flat), x(*flat)], None),
+    ]
+
+
+def check_nms_on_card() -> dict:
+    """Phase 3k (a): ``nms`` over NMS_BOXES boxes keeping NMS_OUT, on the
+    card against the CPU: identical indices and count."""
+    from bigdl_tpu_torch.nn.detection import nms
+    gen = torch.Generator().manual_seed(3)
+    xy = torch.rand((NMS_BOXES, 2), generator=gen) * 600
+    boxes = torch.cat([xy, xy + 10 + torch.rand((NMS_BOXES, 2),
+                                                generator=gen) * 90], 1)
+    scores = torch.rand(NMS_BOXES, generator=gen)
+    t0 = time.perf_counter()
+    ref = nms(boxes, scores, 0.7, NMS_OUT)
+    dev = torch.device("cuda")
+    t1 = time.perf_counter()
+    got = nms(boxes.to(dev), scores.to(dev), 0.7, NMS_OUT)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    check(torch.equal(got[0].cpu(), ref[0]) and int(got[1]) == int(ref[1]),
+          "phase 3k nms: the card's indices or count differ from the CPU's")
+    row = {"case": "nms", "kept": int(ref[1]), "boxes": NMS_BOXES,
+           "card_s": card_s, "s": time.perf_counter() - t0}
+    log({"layer_zoo_nms": row})
+    return row
+
+
+def autoencoder_optimizer(device: str, method=None, l2: float = 0.0):
+    """Phase 3k (b)/(c): the autoencoder app's run composed from its parts
+    (``dataset`` with seeded shuffles, ``models/autoencoder.build``,
+    ``build_optimizer`` from the app's parsed defaults) on the vendored
+    MNIST in batches of AE_BATCH, ``method`` in place of the app's SGD and
+    ``L2Regularizer(l2)`` registered on both weights when ``l2``."""
+    from bigdl_tpu_torch.apps import autoencoder as app
+    from bigdl_tpu_torch.apps.common import build_optimizer
+    from bigdl_tpu_torch.models import autoencoder
+    from bigdl_tpu_torch.nn.criterion import MSECriterion
+    from bigdl_tpu_torch.nn.regularization import L2Regularizer
+    from bigdl_tpu_torch.optim import Loss
+    args = app.parser().parse_args(["-f", MNIST_DIR, "-b", str(AE_BATCH),
+                                    "--device", device])
+    model = autoencoder.build(32, device=device)
+    if l2:
+        for linear in (model[1], model[3]):
+            linear.register_parameter("weight", linear.weight,
+                                      L2Regularizer(l2))
+    ds = app.dataset(MNIST_DIR, AE_BATCH, seed=0)
+    return build_optimizer(model, ds, MSECriterion(), args,
+                           validation_set=ds, methods=[Loss(MSECriterion())],
+                           optim_method=method)
+
+
+def autoencoder_run(method, device: str, k: int = 1):
+    """Phase 3k (b): AE_ITERS iterations of the autoencoder under
+    ``method`` with ``L2Regularizer(AE_L2)`` on the weights, windows of
+    ``k`` on the card: (per-iteration losses, parameters)."""
+    from bigdl_tpu_torch.optim import Trigger
+    opt = autoencoder_optimizer(device, method, AE_L2)
+    opt.set_end_when(Trigger.max_iteration(AE_ITERS))
+    if k > 1:
+        opt.set_steps_per_dispatch(k)
+    model = opt.optimize()
+    return ([h["loss"] for h in opt.history],
+            {n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+
+
+def run_autoencoder() -> dict:
+    """Phase 3k (b): the autoencoder app with SGD (the app's), RMSprop,
+    Adamax and Adadelta, each step's loss on the card within AE_LOSS_RTOL
+    of the CPU's; then SGD under ``EpochStep`` and Adamax with windows of
+    each of AE_WINDOWS against k = 1 on the card, bit for bit, regularizer
+    included. A window ends at its epoch's end, so no window spans an
+    epoch boundary: k = 4 makes each window a whole epoch, and k = 3 a
+    window of 3 then a short one of 1, the rate changing after it."""
+    from bigdl_tpu_torch.optim import methods as m
+    makers = {
+        "sgd": lambda: m.SGD(learningrate=0.01, momentum=0.9),
+        "rmsprop": lambda: m.RMSprop(0.01, 0.0, 0.99, 1e-3),
+        "adamax": lambda: m.Adamax(0.01, 0.9, 0.999, 1e-3),
+        "adadelta": lambda: m.Adadelta(),
+        "sgd_epoch_step": lambda: m.SGD(
+            learningrate=0.5, momentum=0.9,
+            learningrate_schedule=m.EpochStep(1, 0.5)),
+    }
+    out = {}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        cpu_losses, _ = autoencoder_run(make(), "cpu")
+        card_losses, card_params = autoencoder_run(make(), "cuda")
+        worst = max(abs(g - r) / abs(r) for g, r in zip(card_losses,
+                                                         cpu_losses))
+        check(len(card_losses) == len(cpu_losses) == AE_ITERS
+              and worst <= AE_LOSS_RTOL,
+              f"phase 3k autoencoder {name}: card loss {worst:.3g} from the "
+              f"CPU's (> {AE_LOSS_RTOL:g})")
+        row = {"loss_rel_err": worst, "first_loss": card_losses[0],
+               "last_loss": card_losses[-1]}
+        if name in ("sgd_epoch_step", "adamax"):
+            for k in AE_WINDOWS:
+                k_losses, k_params = autoencoder_run(make(), "cuda", k)
+                same = k_losses == card_losses and all(
+                    torch.equal(k_params[n], p)
+                    for n, p in card_params.items())
+                check(same, f"phase 3k autoencoder {name}: k = {k} is not "
+                            "bit-equal to k = 1")
+                row[f"k{k}_bit_equal"] = same
+        row["s"] = time.perf_counter() - t0
+        out[name] = row
+        log({"layer_zoo_app": name, **row})
+    return out
+
+
+def autoencoder_timing() -> dict:
+    """Phase 3k (c): ``enable_timing`` over two card iterations of the
+    autoencoder; every module's forward and backward time is positive."""
+    from bigdl_tpu_torch.nn.module import enable_timing
+    from bigdl_tpu_torch.optim import Trigger
+    opt = autoencoder_optimizer("cuda")
+    opt.set_end_when(Trigger.max_iteration(2))
+    enable_timing()
+    try:
+        model = opt.optimize()
+    finally:
+        enable_timing(False)
+    times = [(m.name, f, b) for m, f, b in model.get_times()]
+    check(len(times) == 6 and all(f > 0 and b > 0 for _, f, b in times),
+          f"phase 3k timing: a module without positive times: {times}")
+    return {"modules": [{"module": n, "forward_s": f, "backward_s": b}
+                        for n, f, b in times]}
+
+
+def tf32_control(cases) -> dict:
+    """Phase 3k (a)'s control of the f64 floor: SpatialShareConvolution's
+    case with TF32 on in cuDNN and cuBLAS. Its card gradients' worst
+    distance from the f64 CPU run must lie past LAYER_F64_FACTOR x
+    LAYER_REDUCE_TOL, so that the floor tells a TF32 conv from cuDNN's f32
+    one."""
+    import copy
+    name, make, inputs, tol, table = next(c for c in cases
+                                          if c[0] == "SpatialShareConvolution")
+    t0 = time.perf_counter()
+    module, xs = make(), inputs()
+    cpu = copy.deepcopy(module).double()
+    exact, cots = _layer_pass(cpu, [t.double() for t in xs], table, None)
+    card = module.to("cuda")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, _ = _layer_pass(card, [t.to("cuda") for t in xs], table, cots)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    errs = {k: _rel_err(got[k], exact[k]) for k in exact}
+    floor = LAYER_F64_FACTOR * tol
+    worst = max(errs, key=errs.get)
+    check(errs[worst] > floor,
+          f"phase 3k TF32 control: {name} in TF32 lands {errs[worst]:.3g} "
+          f"from f64, inside the floor {floor:g}")
+    row = {"case": name, "tf32_vs_f64": errs, "floor": floor,
+           "s": time.perf_counter() - t0}
+    log({"layer_zoo_tf32_control": row})
+    return row
+
+
+def run_layer_zoo() -> dict:
+    """Phase 3k: (a) every new layer and criterion on the card against the
+    same module on the CPU, f32 with TF32 off (``main`` sets it), forward
+    and input and parameter gradients, at B=LAYER_B, HW=LAYER_HW,
+    C=LAYER_C (volumetric N=VOL_N, D=VOL_D, C=VOL_C; ROIS RoIs; ``nms``
+    over NMS_BOXES keeping NMS_OUT); (b) the autoencoder app; (c)
+    ``enable_timing`` on the card."""
+    t0 = time.perf_counter()
+    cases, x, ids = layer_zoo_cases()
+    rows = []
+    for name, make, inputs, tol, table in cases:
+        rows.append(layer_case(name, make(), inputs(), tol, table))
+    for name, crit, xin, tgt, *tol in criterion_cases(x, ids):
+        rows.append(criterion_case(name, crit, xin, tgt, *tol))
+    rows.append(check_nms_on_card())
+    control = tf32_control(cases)
+    direct = [r for r in rows if not r.get("held_to_f64")]
+    worst = max(direct, key=lambda r: r.get("max_rel_err", 0.0) / r.get(
+        "tol", 1.0))
+    layers_s = time.perf_counter() - t0
+    log({"layer_zoo_cases": len(rows), "layer_zoo_layers_s": layers_s,
+         "worst_direct": worst,
+         "held_to_f64": {r["case"]: r["held_to_f64"] for r in rows
+                         if r.get("held_to_f64")},
+         "slowest": sorted(rows, key=lambda r: -r["s"])[:5]})
+    app = run_autoencoder()
+    timing = autoencoder_timing()
+    log({"layer_zoo_timing": timing})
+    result = {"cases": len(rows), "layers_s": layers_s, "app": app,
+              "tf32_control": control, "timing": timing, "layer_zoo_s": time.perf_counter() - t0}
+    log({"layer_zoo": {k: v for k, v in result.items() if k != "timing"}})
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5869,6 +6461,11 @@ def main(argv=None) -> int:
         "--perf-only", action="store_true",
         help="run only the kernels' build, phase 3j (the perf harness) and "
              "its kernel rows, and print them (no result line)")
+    parser.add_argument(
+        "--layers-only", action="store_true",
+        help="run only the kernels' build and phase 3k (the layer zoo, the "
+             "autoencoder app and module timing on the card) and print its "
+             "lines (no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5905,6 +6502,10 @@ def main(argv=None) -> int:
         perf_launches, _ = run_perf()
         log({"perf_kernels": time_perf_kernels(perf_launches),
              "total_s": time.perf_counter() - t0, "card": card})
+        return 0
+    if args.layers_only:
+        run_layer_zoo()
+        log({"total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.resnet_grad_seeds:
         failed = []
@@ -5945,6 +6546,7 @@ def main(argv=None) -> int:
                        for k, n in resnet_launches.items()}
     zoo_launches, zoo_shapes = run_zoo()
     perf_launches, _ = run_perf()
+    run_layer_zoo()
     roof, roof_launches = run_roofline()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]

@@ -19,14 +19,15 @@ import torch
 from bigdl_tpu_torch.apps import transformer as transformer_app
 from bigdl_tpu_torch.models.generation import generate, generate_speculative
 from bigdl_tpu_torch.resilience.serving_drill import run_kill_drill
+from bigdl_tpu_torch.apps import autoencoder as autoencoder_app
 from bigdl_tpu_torch.apps import inception as inception_app
 from bigdl_tpu_torch.apps import lenet as lenet_app
 from bigdl_tpu_torch.apps import resnet as resnet_app
 from bigdl_tpu_torch.apps import vgg as vgg_app
 from bigdl_tpu_torch.apps import perf as perf_app
 from bigdl_tpu_torch.dataset.device_cache import DeviceCachedDataSet
-from bigdl_tpu_torch.models import (alexnet, inception, lenet, resnet, rnn,
-                                    vgg, vit)
+from bigdl_tpu_torch.models import (alexnet, autoencoder, inception, lenet,
+                                    resnet, rnn, vgg, vit)
 from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.models.serving import ContinuousLMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
@@ -104,7 +105,13 @@ def test_new_subpackages_are_part_of_the_port():
                 "apps/lenet.py", "apps/vgg.py", "apps/inception.py",
                 "apps/resnet.py", "apps/perf.py", "models/vit.py",
                 "models/rnn.py", "nn/reduce.py", "ops/remat.py",
-                "dataset/device_cache.py"):
+                "dataset/device_cache.py", "nn/activation.py",
+                "nn/containers.py", "nn/criterion.py", "nn/shape.py",
+                "nn/linear.py", "nn/conv.py", "nn/pooling.py",
+                "nn/normalization.py", "nn/regularization.py",
+                "nn/initialization.py", "nn/detection.py", "nn/module.py",
+                "nn/quantized.py", "optim/methods.py",
+                "models/autoencoder.py", "apps/autoencoder.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -187,7 +194,10 @@ def test_build_lm_raises_without_card():
                                    "vgg.main train", "resnet.main train",
                                    "inception.main train", "vit.build",
                                    "rnn.build", "rnn.build_classifier",
-                                   "DeviceCachedDataSet", "perf.main"])
+                                   "DeviceCachedDataSet", "perf.main",
+                                   "autoencoder.build",
+                                   "autoencoder.main train",
+                                   "autoencoder.optimizer"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -252,6 +262,12 @@ def test_entry_points_raise_without_card(entry, tmp_path):
             DataSet.array(synthetic_corpus(2, 4, 50)), 2),
         "perf.main": lambda: perf_app.main(["--model", "lenet5", "-b", "2",
                                             "-i", "1"]),
+        # the layer zoo's app
+        "autoencoder.build": lambda: autoencoder.build(),
+        "autoencoder.main train": lambda: autoencoder_app.main(
+            ["train", "--synthetic-size", "8", "-b", "4"]),
+        "autoencoder.optimizer": lambda: autoencoder_app.optimizer(
+            ["--synthetic-size", "8", "-b", "4"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -283,6 +299,11 @@ def test_entry_points_run_when_cpu_is_asked_for(tmp_path):
     loaded = file_io.load(str(tmp_path / "net"), device="cpu")
     assert next(loaded.parameters()).device.type == "cpu"
     assert next(resnet.build(10, 18, device="cpu").parameters()).device.type \
+        == "cpu"
+    ae = autoencoder_app.optimizer(["--synthetic-size", "8", "-b", "4",
+                                    "--device", "cpu"])
+    assert ae.device.type == "cpu"
+    assert next(autoencoder.build(device="cpu").parameters()).device.type \
         == "cpu"
 
 

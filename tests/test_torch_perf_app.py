@@ -6,7 +6,8 @@ LeNet-5, the LSTM classifier (T=500), ViT-S/16 at full width and a small
 batch, and the 4-layer transformer under ``--remat block --optim adamw
 --optStateDtype bf16``; ``--distributed`` and ``--moeExperts`` stop
 citing ROADMAP A.4; ``--memStats`` prints the reference's four keys on a
-card and nothing on the CPU. A summary sink receives ``Loss``,
+card and nothing on the CPU, on stderr, as the reference does, so that
+stdout holds the result line alone. A summary sink receives ``Loss``,
 ``Throughput`` and ``LearningRate`` for every iteration with k = 1 and
 k = 2, parameter histograms where its ``Parameters`` trigger fires (which
 bounds windows), and the validation summary each method's value.
@@ -71,6 +72,18 @@ def test_unported_modes_stop_naming_roadmap(flag, item):
 
 def test_mem_stats_are_empty_on_the_cpu():
     assert perf.memory_stats(torch.device("cpu")) == {}
+
+
+def test_mem_stats_line_goes_to_stderr(capsys):
+    result = perf.main(["--model", "lenet5", "-b", "4", "-i", "2",
+                        "--warmup", "1", "--precision", "fp32", "--memStats",
+                        "--device", "cpu"])
+    out, err = capsys.readouterr()
+    lines = [json.loads(x) for x in out.strip().splitlines()]
+    assert lines == [result]
+    mem = [json.loads(x) for x in err.strip().splitlines()
+           if x.startswith('{"memory_stats"')]
+    assert mem == [{"memory_stats": {}}]
 
 
 class Sink:
