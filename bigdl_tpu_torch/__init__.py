@@ -30,6 +30,24 @@ nn.ClassNLLCriterion())`` with ``SGD`` -> ``optimize()``; either with
 ``set_checkpoint``, ``set_validation`` (``optim.validation``,
 ``optim.evaluator``), ``set_preemption_handler`` and ``auto_resume`` over
 ``utils.file_io`` and ``resilience.coordinator``.
+
+Text: ``dataset.text``, ``dataset.bpe.BPETokenizer`` and
+``interop.sentencepiece``; TensorBoard summaries: ``visualization``; the
+Torch-style ``Tensor``; scikit-learn-style estimators: ``ml``.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["Tensor", "ml", "visualization", "__version__"]
+
+
+def __getattr__(name):
+    """``Tensor``, ``ml`` and ``visualization`` load on first use, so
+    that importing the package alone (``resilience validate``) does not
+    import torch."""
+    import importlib
+    if name == "Tensor":
+        return importlib.import_module("bigdl_tpu_torch.tensor").Tensor
+    if name in ("ml", "visualization"):
+        return importlib.import_module(f"bigdl_tpu_torch.{name}")
+    raise AttributeError(f"module 'bigdl_tpu_torch' has no attribute {name!r}")

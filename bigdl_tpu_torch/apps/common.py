@@ -6,8 +6,8 @@ The options are the reference's: ``--model``/``--state`` resume from a
 snapshot pair, ``--checkpoint`` writes one every epoch
 (``--overWriteCheckpoint`` keeps only the last), ``--autoResume``
 continues from the newest complete one, ``--preemptSnapshot`` snapshots on
-a SIGTERM and exits. TensorBoard summaries (``--summary``) stop the
-program with a message naming the ROADMAP item that will port them (A.6).
+a SIGTERM and exits, ``--summary DIR`` writes TensorBoard summaries
+(``TrainSummary`` / ``ValidationSummary`` under ``DIR/<appName>/``).
 ``--device`` (default ``cuda``) is the port's device rule: the card unless
 the CPU is asked for.
 """
@@ -19,11 +19,6 @@ import logging
 
 from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, Top1Accuracy,
                                    Top5Accuracy, Trigger)
-
-#: option attribute -> the ROADMAP item that will port it
-WAITING = {
-    "summary": "A.6 (visualization: TrainSummary / ValidationSummary)",
-}
 
 
 def train_parser(prog: str, default_batch: int = 128,
@@ -76,21 +71,14 @@ def test_parser(prog: str, default_batch: int = 128) -> argparse.ArgumentParser:
     return p
 
 
-def refuse_waiting(args) -> None:
-    """Stop with a message naming the ROADMAP item of the first option set
-    whose machinery the port does not have yet."""
-    for name, item in WAITING.items():
-        if getattr(args, name, None):
-            raise SystemExit(f"--{name} is not ported yet: ROADMAP {item}")
-
-
 def build_optimizer(model, train_set, criterion, args, validation_set=None,
                     methods=None, optim_method=None) -> Optimizer:
     """The per-model ``Train.scala`` body (reference ``build_optimizer``):
     optimizer, SGD from the parsed rates, the epoch end trigger, the
-    gradient clippers, resume, checkpoints, preemption and, with a
-    validation set, per-epoch validation, on ``args.device``."""
-    refuse_waiting(args)
+    gradient clippers, resume, checkpoints, preemption, summaries and,
+    with a validation set, per-epoch validation, on ``args.device``. The
+    summaries' event files are closed (every event flushed) when the
+    program exits."""
     opt = Optimizer(model, train_set, criterion, device=args.device)
     opt.set_optim_method(optim_method or SGD(
         learningrate=args.learningRate,
@@ -116,6 +104,17 @@ def build_optimizer(model, train_set, criterion, args, validation_set=None,
         opt.set_validation(Trigger.every_epoch(), validation_set,
                            methods or [Top1Accuracy(), Top5Accuracy(),
                                        Loss()])
+    if args.summary:
+        import atexit
+
+        from bigdl_tpu_torch.visualization import (TrainSummary,
+                                                   ValidationSummary)
+        train_summary = TrainSummary(args.summary, args.appName)
+        validation_summary = ValidationSummary(args.summary, args.appName)
+        opt.set_train_summary(train_summary)
+        opt.set_validation_summary(validation_summary)
+        atexit.register(train_summary.close)
+        atexit.register(validation_summary.close)
     return opt
 
 

@@ -14,10 +14,15 @@ resumes from a pair (``--autoResume``: the newest complete one under
 ``--checkpoint``). ``generate --model`` and ``serve --model`` load a saved
 module onto ``--device``, ``serve --continuous --draft`` a saved draft.
 Without ``--model``, ``generate`` and ``serve`` first train a tiny LM on the
-synthetic grammar, as the reference does. The continuous engine serves
-rope models only, so ``serve --continuous`` trains that default model with
-the ``--llamaBlock`` recipe (RoPE, RMSNorm, SwiGLU and the unfused
-``TimeDistributed(Linear) + LogSoftMax`` tail); the reference's
+synthetic grammar, as the reference does. ``train --textFile F
+--bpeVocab N`` trains on real text instead: a byte-level BPE of N symbols
+learned from F (``dataset/bpe.py``), saved beside the checkpoint as
+``tokenizer.bigdl``, with the LM's vocabulary the tokenizer's (its
+``eos_id``); ``generate --tokenizer`` and ``serve --tokenizer`` then take
+text (a served POST may carry ``{"text": ...}``). The continuous engine
+serves rope models only, so ``serve --continuous`` trains that default
+model with the ``--llamaBlock`` recipe (RoPE, RMSNorm, SwiGLU and the
+unfused ``TimeDistributed(Linear) + LogSoftMax`` tail); the reference's
 non-rope default would be refused by its own engine.
 
 ``generate --fromHF DIR`` and ``serve --fromHF DIR`` load an HF checkpoint
@@ -27,10 +32,10 @@ POST may carry ``{"text": ...}``. Without a tokenizer in DIR the prompt is
 raw HF ids (0-based), and ``generate``'s ``--eosId`` is an HF id in both
 cases, as in the reference.
 
-Options whose machinery is not ported yet stop with a message naming the
-ROADMAP item: ``--contextParallel``, ``--tensorParallel``, ``--moeExperts``
-(A.4), ``--textFile``, ``--tokenizer``, ``--summary`` and a SentencePiece
-checkpoint tokenizer (A.6).
+An HF directory with a SentencePiece ``tokenizer.model`` (the Llama
+family) speaks text through ``interop/sentencepiece.py``. Options whose
+machinery is not ported yet stop with a message naming the ROADMAP item:
+``--contextParallel``, ``--tensorParallel`` and ``--moeExperts`` (A.4).
 """
 
 from __future__ import annotations
@@ -63,14 +68,46 @@ def synthetic_corpus(n: int, seq_len: int, vocab: int,
     return samples
 
 
+def text_corpus(args):
+    """``(samples, vocab)`` of ``--textFile``: a BPE of ``--bpeVocab``
+    symbols learned from its non-blank lines, each line encoded and ended
+    by the tokenizer's eos, the stream cut into next-token samples of
+    ``--seqLen`` (the reference's ``_text_corpus``, the same samples). The
+    LM's vocabulary is the tokenizer's ``eos_id``; the tokenizer is saved
+    as ``tokenizer.bigdl`` under ``--checkpoint``."""
+    from bigdl_tpu_torch.dataset.bpe import BPETokenizer
+    if args.bpeVocab < 256:
+        raise SystemExit("--bpeVocab must be >= 256 (the byte alphabet)")
+    with open(args.textFile, encoding="utf-8") as f:
+        lines = [ln.rstrip("\n") for ln in f if ln.strip()]
+    tok = BPETokenizer.train(lines, vocab_size=args.bpeVocab)
+    stream = []
+    for ln in lines:
+        stream.extend(tok.encode(ln) + [tok.eos_id])
+    s = args.seqLen
+    samples = [Sample(np.asarray(stream[i:i + s], np.float32),
+                      np.asarray(stream[i + 1:i + 1 + s], np.float32))
+               for i in range(0, len(stream) - s, s)]
+    if not samples:
+        raise SystemExit(f"--textFile too small for --seqLen {s} "
+                         f"({len(stream)} tokens)")
+    if args.checkpoint:
+        from bigdl_tpu_torch.utils import file_io
+        tok.save(file_io.join(args.checkpoint, "tokenizer.bigdl"))
+    print(f"text corpus: {len(stream)} tokens, BPE vocab {tok.vocab_size} "
+          f"(+eos {tok.eos_id}), {len(samples)} samples", file=sys.stderr)
+    return samples, tok.eos_id
+
+
 def _waits(flag: str, item: str):
     raise SystemExit(f"{flag} is not ported yet: ROADMAP {item}")
 
 
-def train(argv):
-    """Train a causal LM on the synthetic grammar; returns the model."""
-    from bigdl_tpu_torch.apps.common import (build_optimizer, refuse_waiting,
-                                             train_parser)
+def optimizer(argv):
+    """The training run of ``argv`` (a causal LM on the synthetic grammar,
+    or on ``--textFile``) as an ``Optimizer``, not yet started, and the
+    parsed arguments."""
+    from bigdl_tpu_torch.apps.common import build_optimizer, train_parser
     from bigdl_tpu_torch.models.transformer import build_lm
     from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                               FusedLMHeadCriterion,
@@ -99,10 +136,13 @@ def train(argv):
                         help="Llama-family block recipe: RoPE + RMSNorm + "
                         "SwiGLU, no biases (untied log-prob tail)")
     parser.add_argument("--textFile", default=None,
-                        help="train on real text (BPE-tokenized)")
-    parser.add_argument("--bpeVocab", type=int, default=512)
+                        help="train on real text: a BPE of --bpeVocab "
+                        "symbols learned from this file, saved beside "
+                        "--checkpoint; --vocab is then the tokenizer's")
+    parser.add_argument("--bpeVocab", type=int, default=512,
+                        help="BPE vocabulary size (>= 256: the bytes and "
+                        "the merges)")
     args = parser.parse_args(argv)
-    refuse_waiting(args)
     if args.contextParallel:
         _waits("--contextParallel", "A.4 (distributed plane: context.py)")
     if args.tensorParallel > 1:
@@ -111,9 +151,10 @@ def train(argv):
     if args.moeExperts:
         _waits("--moeExperts", "A.4 (distributed plane: expert.py)")
     if args.textFile:
-        _waits("--textFile", "A.6 (dataset/text.py and the tokenizers)")
-    samples = synthetic_corpus(max(args.synthetic_size, args.batchSize),
-                               args.seqLen, args.vocab)
+        samples, args.vocab = text_corpus(args)
+    else:
+        samples = synthetic_corpus(max(args.synthetic_size, args.batchSize),
+                                   args.seqLen, args.vocab)
     ds = DataSet.array(samples).transform(
         SampleToBatch(batch_size=args.batchSize))
     llama = (dict(rope=True, norm="rms", activation="swiglu", bias=False)
@@ -125,7 +166,14 @@ def train(argv):
                      **llama)
     criterion = (FusedLMHeadCriterion() if args.fusedHead
                  else TimeDistributedCriterion(ClassNLLCriterion()))
-    trained = build_optimizer(model, ds, criterion, args).optimize()
+    return build_optimizer(model, ds, criterion, args), args
+
+
+def train(argv):
+    """Trains and returns the model; with ``--checkpoint`` saves
+    ``model_final``."""
+    opt, args = optimizer(argv)
+    trained = opt.optimize()
     if args.checkpoint:
         from bigdl_tpu_torch.utils import file_io
         file_io.save(trained, file_io.join(args.checkpoint, "model_final"))
@@ -157,8 +205,6 @@ def _refuse_sources(args) -> None:
                          "framework BPE vocab against an HF checkpoint's "
                          "vocab would decode garbage); the checkpoint "
                          "dir's own tokenizer loads automatically")
-    if args.tokenizer:
-        _waits("--tokenizer", "A.6 (the tokenizers)")
 
 
 def _load_saved(path: str, device: str):
@@ -174,10 +220,16 @@ def _load_saved(path: str, device: str):
     return model
 
 
+def _load_tokenizer(path: str):
+    """A ``BPETokenizer`` saved by ``train --textFile``."""
+    from bigdl_tpu_torch.dataset.bpe import BPETokenizer
+    return BPETokenizer.load(path)
+
+
 def _from_hf(path: str, device: str):
-    """``(model, tokenizer or None)`` of an HF checkpoint directory. A
-    SentencePiece tokenizer stops the program (ROADMAP A.6); an unreadable
-    one leaves raw ids, as in the reference."""
+    """``(model, tokenizer or None)`` of an HF checkpoint directory: its
+    byte-level BPE or SentencePiece tokenizer; an unreadable one leaves
+    raw ids, as in the reference."""
     from bigdl_tpu_torch.interop.hf import load_hf_checkpoint
     from bigdl_tpu_torch.interop.hf_tokenizer import load_checkpoint_tokenizer
     tok = None
@@ -186,8 +238,6 @@ def _from_hf(path: str, device: str):
         print(f"loaded {tok!r} from the checkpoint dir", file=sys.stderr)
     except FileNotFoundError:
         pass
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
     except ValueError as e:  # present but unreadable
         print(f"checkpoint tokenizer not readable ({e}); falling back to "
               "raw HF ids", file=sys.stderr)
@@ -228,7 +278,10 @@ def generate_cmd(argv) -> None:
                     help="decode with the int8 weight-only quantized twin")
     ap.add_argument("--bf16", action="store_true",
                     help="decode with the bf16 cast twin")
-    ap.add_argument("--tokenizer", default=None, help="BPE tokenizer path")
+    ap.add_argument("--tokenizer", default=None,
+                    help="BPE tokenizer path (from train --textFile): "
+                    "--prompt is then text and the continuation prints as "
+                    "text")
     ap.add_argument("--device", default="cuda",
                     help="where to run: cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -242,6 +295,8 @@ def generate_cmd(argv) -> None:
             args.eosId += 1  # the CLI's eos under --fromHF is an HF id
         if tok is None:
             hf_shift = 1  # HF ids are 0-based, the framework's 1-based
+    if args.tokenizer:
+        tok = _load_tokenizer(args.tokenizer)
     if tok is not None:
         ids = tok.encode(args.prompt)
         if args.eosId is None:
@@ -334,7 +389,9 @@ def serve_cmd(argv) -> None:
     ap.add_argument("--disaggregate", default=None, metavar="P:D",
                     help="--continuous: prefill:decode replica split (e.g. "
                     "1:2); overrides --replicas")
-    ap.add_argument("--tokenizer", default=None, help="BPE tokenizer path")
+    ap.add_argument("--tokenizer", default=None,
+                    help="BPE tokenizer path: a POST may then carry "
+                    "{\"text\": ...} and answers include the text")
     ap.add_argument("--device", default="cuda",
                     help="where to serve: cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -364,6 +421,8 @@ def serve_cmd(argv) -> None:
     else:
         model = _default_model(args.device, rope=args.continuous)
     model = _twin(model, args)
+    if args.tokenizer:
+        tok = _load_tokenizer(args.tokenizer)
     if tok is not None and args.eosId is None:
         args.eosId = tok.eos_id
     if args.continuous:

@@ -231,6 +231,8 @@ class Lighting(Transformer):
 
 
 class _ImgToBatch(Transformer):
+    aggregating = True
+
     def __init__(self, batch_size: int, drop_remainder: bool = True):
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder

@@ -17,8 +17,8 @@ The port does not depend on that package: ``pretokenize`` walks the same
 alternatives by hand over ``unicodedata`` categories (L*, N*) and the
 Unicode White_Space set.
 
-A SentencePiece checkpoint (``tokenizer.model``, the Llama family) waits
-for ROADMAP A.6 and raises ``NotImplementedError``.
+A SentencePiece checkpoint (``tokenizer.model``, the Llama family) is read
+by ``interop/sentencepiece.py``: ``load_checkpoint_tokenizer`` dispatches.
 """
 
 from __future__ import annotations
@@ -232,16 +232,16 @@ class HFTokenizer:
                 f"merges={len(self._ranks)})")
 
 
-def load_checkpoint_tokenizer(path: str) -> HFTokenizer:
-    """The ``--fromHF`` text reader: the GPT-2-style byte-level BPE of a
-    checkpoint directory. A SentencePiece ``tokenizer.model`` (the Llama
-    family, which the reference reads with ``interop/sentencepiece.py``)
-    raises ``NotImplementedError``; no tokenizer at all raises
-    ``FileNotFoundError``, an unreadable one ``ValueError``."""
-    if os.path.exists(os.path.join(path, "tokenizer.model")):
-        raise NotImplementedError(
-            "SentencePiece tokenizers (tokenizer.model) are not ported yet: "
-            "ROADMAP A.6 (sentencepiece)")
+def load_checkpoint_tokenizer(path: str):
+    """The ``--fromHF`` text reader of a checkpoint directory: a
+    SentencePiece ``tokenizer.model`` (the Llama family) through
+    ``interop.sentencepiece``, else the GPT-2-style byte-level BPE
+    (``tokenizer.json`` / ``vocab.json``) through :class:`HFTokenizer`.
+    No tokenizer at all raises ``FileNotFoundError``, an unreadable one
+    ``ValueError``."""
+    from bigdl_tpu_torch.interop.sentencepiece import SentencePieceTokenizer
+    if SentencePieceTokenizer.present_in(path):
+        return SentencePieceTokenizer.from_dir(path)
     if HFTokenizer.present_in(path):
         return HFTokenizer.from_dir(path)
     raise FileNotFoundError(f"no tokenizer.model / tokenizer.json / "

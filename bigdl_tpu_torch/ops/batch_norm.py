@@ -3,9 +3,14 @@
 
 ``batch_norm_train(x, gamma, beta, eps) -> (out, mean, var)`` normalises x
 over every axis but the last with the batch statistics. The reference's
-rules are kept: the statistics are f32 (f64 for f64 input, which the
-reference never sees), from one pass of sum and sum of squares; ``var = max(E[x^2] - E[x]^2, 0)``, biased; the output is in x's
-dtype; the backward is the closed form
+rules are kept but one: the statistics are f32 (f64 for f64 input, which
+the reference never sees), biased; the output is in x's dtype. The
+reference takes ``var = max(E[x^2] - E[x]^2, 0)`` from one pass of sum and
+sum of squares; here the op takes ``torch.var_mean`` (Welford's update),
+because in f32 the difference of the two means loses the variance of a
+channel whose values lie close together (ROADMAP C.6). The fused ops
+still form their statistics from their kernels' sums (``bn_from_stats``);
+the backward is the closed form
 ``dx = gamma * inv / n * (n * dy - sum(dy) - xhat * sum(dy * xhat))``;
 ``mean`` and ``var`` feed the running statistics and are not
 differentiated. The same forward-from-sums and backward serve the fused
@@ -21,17 +26,30 @@ import torch
 from bigdl_tpu_torch.ops import remat
 
 
-def _batch_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xa = x.to(torch.promote_types(x.dtype, torch.float32))
-    axes = tuple(range(x.dim() - 1))
-    # sum(x) and sum(x*x) are independent: one pass over x
-    return xa.sum(axes), (xa * xa).sum(axes)
+    var, mean = torch.var_mean(xa, dim=tuple(range(x.dim() - 1)),
+                               correction=0)
+    return mean, var
 
 
-#: sum and sum of squares over every axis but the last, in f32 (f64 for
-#: f64 input); tagged "bn_stats" for ``set_remat("conv")``
-batch_sums = remat.tagged_op("bigdl_tpu_torch::batch_sums", "bn_stats",
-                             _batch_sums)
+#: mean and biased variance over every axis but the last (Welford's
+#: update), in f32 (f64 for f64 input); tagged "bn_stats" for
+#: ``set_remat("conv")``
+batch_moments = remat.tagged_op("bigdl_tpu_torch::batch_moments",
+                                "bn_stats", _batch_moments)
+
+
+def bn_from_moments(y: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                    out_dtype: torch.dtype):
+    """Train-mode BN of y from its ``mean`` and ``var`` over all axes but
+    the last, computed in their dtype: ``(out, mean, var, inv)``."""
+    inv = torch.rsqrt(var + eps)
+    acc = mean.dtype
+    xhat = (y.to(acc) - mean) * inv
+    out = (xhat * gamma.to(acc) + beta.to(acc)).to(out_dtype)
+    return out, mean, var, inv
 
 
 def bn_from_stats(y: torch.Tensor, s: torch.Tensor, sq: torch.Tensor,
@@ -44,11 +62,7 @@ def bn_from_stats(y: torch.Tensor, s: torch.Tensor, sq: torch.Tensor,
     n = y.numel() // y.shape[-1]
     mean = s / n
     var = torch.clamp(sq / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    acc = s.dtype
-    xhat = (y.to(acc) - mean) * inv
-    out = (xhat * gamma.to(acc) + beta.to(acc)).to(out_dtype)
-    return out, mean, var, inv
+    return bn_from_moments(y, mean, var, gamma, beta, eps, out_dtype)
 
 
 def bn_input_grad(dout: torch.Tensor, y: torch.Tensor, mean: torch.Tensor,
@@ -71,9 +85,9 @@ class BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        s, sq = batch_sums(x)
-        out, mean, var, inv = bn_from_stats(x, s, sq, gamma, beta, eps,
-                                            x.dtype)
+        mean, var = batch_moments(x)
+        out, mean, var, inv = bn_from_moments(x, mean, var, gamma, beta,
+                                              eps, x.dtype)
         ctx.save_for_backward(x, gamma, mean, inv)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var

@@ -9,9 +9,9 @@ the forward for the activations it needs instead of keeping them.
 ``REMAT_SAVED_NAMES`` and recomputes the rest (PyTorch's selective
 checkpointing). The tags are this package's ops (``tagged_op``): kernel K5
 and K6's conv-with-statistics ops and the plain conv are ``"conv_out"``,
-batch norm's sums are ``"bn_stats"``; so under ``"conv"`` K5 and K6 launch
-once a step, as without recomputation, and only the elementwise tail (the
-normalise, the ReLU, the residual adds) runs twice.
+batch norm's statistics are ``"bn_stats"``; so under ``"conv"`` K5 and K6
+launch once a step, as without recomputation, and only the elementwise
+tail (the normalise, the ReLU, the residual adds) runs twice.
 
 Three things make a recomputed forward the forward it replaces, as
 ``jax.checkpoint``'s replay of the same keys does in the reference:

@@ -132,7 +132,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    on 4 x 384 tokens (K1 16 ``mma``, K4 113 a forward), ms a decode token;
    (d) Qwen2-0.5B (q/k/v biases, 494,032,768 parameters) from HF-named
    arrays made from seed 23, both twins through one ``ContinuousLMServer``
-   round of 16 requests (K4 169 a forward, no dequantize, no K1), every
+   round of 4 requests (K4 169 a forward, no dequantize, no K1), every
    answer held to ``generate``; (e) the 134m recipe with ``window=128``:
    ``generate`` with the rolling and the linear cache give equal tokens,
    one continuous round held to ``generate``, and K1 never launched.
@@ -196,7 +196,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    off and the 3x3 gate on) against an f64 CPU copy (the fused model's
    median distance within twice the unfused card model's); then bench.py's
    recipe (constant N(0, 1) images from seed 0, SGD 0.1 momentum 0.9, bf16
-   over f32 masters) for 20 steps of (a) VGG-16 at B=128 with the 3x3 gate
+   over f32 masters) for 12 steps of (a) VGG-16 at B=128 with the 3x3 gate
    (K6 13 a step, all ``fma``: the first fused module sees the f32 images
    and each keeps its input's dtype, as in the reference), (b) the same
    unfused (bf16 cuDNN convs), (c) Inception v1 at
@@ -217,7 +217,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    D=128, causal); (b) ViT-S/16's f32 gradients on the card (B=4) against
    an f64 CPU copy, each tensor within 2x the plain-core card model's
    distance (phase 3c's rule); (c) ``perf --model vit_s16`` at B=256,
-   bf16, 21 iterations after 3 warm-ups, k = 1 and k = 4 through the
+   bf16, 13 iterations after 3 warm-ups, k = 1 and k = 4 through the
    device cache (losses bit-equal over the same 1024 records) and k = 1
    from the host, K1-K3 12 each a step; (d) ``perf --model lstm`` (vocab
    20000, T=500, 128 wide) at B=32, k = 1 and k = 4, bit-equal; (e)
@@ -255,6 +255,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    epoch's end, the rate changing after it) bit-equal to k = 1; (c)
    ``enable_timing`` over two card iterations of the autoencoder: every
    module's forward and backward seconds positive;
+3l. text, tokenizers and summaries (after phase 3k; ``--text-only`` runs
+   it alone): (a) ``transformer train --textFile F --bpeVocab 1024`` at
+   the 134m recipe's width (768 wide, 12 heads, 12 layers, S=512, B=8,
+   ``--llamaBlock``, f32, SGD at rate 0.1), one epoch of F, about 1 MB of
+   lines drawn from a fixed word list (non-ASCII words too) with a seed:
+   the saved tokenizer reloads with the corpus's merges, every line
+   decodes to itself, the loss is finite and falls, K1, K2 and K3 launch
+   12 times each a step; a 2-layer cut's first-batch f32 loss within 1e-4
+   relative of the same cut on the CPU; the busy share of two more
+   iterations; (b) ``generate --tokenizer`` from that checkpoint, top-40
+   sampling from a seeded generator, prints what ``generate`` gives on
+   the encoded prompt with the same generator (K1 12 launches, the
+   prefill), and ``serve --tokenizer`` (a subprocess) answers a POST
+   ``{"text": ...}`` with the ids and text of ``generate`` drawing from
+   the server's first batch's seed; (c) the 134m recipe at
+   vocab 32000 as an HF Llama directory with a unigram, byte-fallback
+   ``tokenizer.model`` from ``write_model`` (3 specials, 256 byte pieces,
+   seeded pieces and scores): ``generate --fromHF DIR --prompt TEXT``
+   equals ``generate`` on the tokenizer's ids (K1 12 launches), 100
+   seeded strings with characters no piece covers round-trip through the
+   unigram and a BPE model, and the host's encode rate; (d) the
+   textclassifier at the reference's defaults (T=1000, E=100, B=128,
+   ``Adagrad``) for 2 epochs with Top-1 validation, the rnn app with its
+   padding pipeline, ``lenet train --summary`` (a subprocess) whose every
+   iteration's ``Loss`` and ``Throughput`` the port's ``FileReader``
+   reads back with their CRCs, ``DLClassifier``'s predictions equal to
+   the model's argmax, and ``Tensor`` ops on the card within 1e-5 of the
+   CPU's; a ``text_slice`` line logs the corpus, the BPE seconds, ms an
+   iteration, the busy share, launches a step, the encode rate and the
+   phase's seconds;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -353,6 +383,20 @@ def log(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+#: seconds of each phase of a whole run, by phase (the kernel checks
+#: together as "2"), logged with ``total_s``
+PHASE_S = collections.defaultdict(float)
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, its seconds added to PHASE_S[phase]."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[phase] += time.perf_counter() - t
 
 
 PROFILER_TRIES = 3
@@ -2131,8 +2175,8 @@ def run_cli() -> dict:
     synthetic-grammar LM, trained in the subprocess) answers 4 concurrent
     POSTs of its full budget, reports two ``ok`` replicas on ``/health`` and
     the router and serving families on ``/metrics``, and drains on SIGTERM
-    with exit code 0 within 30 s; ``generate --numBeams 4 --bf16`` prints
-    its two lines."""
+    with exit code 0 within 30 s; ``generate --numBeams 4 --bf16``, started
+    beside ``serve``, prints its two lines."""
     import re
     import signal
     import urllib.request
@@ -2145,6 +2189,10 @@ def run_cli() -> dict:
                                    "--int8", "--port", "0"] + device,
                             cwd=root, stderr=subprocess.PIPE,
                             stdout=subprocess.DEVNULL, text=True)
+    gen = subprocess.Popen(cli + ["generate", "--numBeams", "4", "--bf16",
+                                  "--maxNewTokens", "16"] + device,
+                           cwd=root, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
     res = {}
     try:
         port, seen = None, []
@@ -2198,22 +2246,19 @@ def run_cli() -> dict:
         rc = proc.wait(timeout=30)
         res["drain_exit_s"] = time.perf_counter() - t2
         check(rc == 0, f"serve exited {rc} after SIGTERM")
+        out, err = gen.communicate(timeout=CLI_TIMEOUT_S)
+        res["generate_s"] = time.perf_counter() - t0   # beside serve
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    t3 = time.perf_counter()
-    gen = subprocess.run(cli + ["generate", "--numBeams", "4", "--bf16",
-                                "--maxNewTokens", "16"] + device,
-                         cwd=root, capture_output=True, text=True,
-                         timeout=CLI_TIMEOUT_S)
-    res["generate_s"] = time.perf_counter() - t3
-    lines = gen.stdout.strip().splitlines()
+        for p in (proc, gen):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = out.strip().splitlines()
     check(gen.returncode == 0 and len(lines) == 2
           and lines[0].startswith("prompt:")
           and len(json.loads(lines[1].split(":", 1)[1])) == 16,
           f"generate --numBeams 4 --bf16: rc {gen.returncode}, stdout "
-          f"{gen.stdout[-500:]!r}, stderr {gen.stderr[-1500:]!r}")
+          f"{out[-500:]!r}, stderr {err[-1500:]!r}")
     return res
 
 
@@ -2505,7 +2550,7 @@ PUBLISHED_PARAMS = {"gpt2": 124_439_808, "llama32_1b": 1_235_814_400,
                     "qwen2_05b": 494_032_768}
 PUBLISHED_SEEDS = {"gpt2": 21, "llama32_1b": 22, "qwen2_05b": 23}
 LLAMA_PROMPTS = 4
-QWEN_REQUESTS = 16
+QWEN_REQUESTS = 4     # each answer is held to its own generate
 WINDOW, WINDOW_NEW = 128, 64    # (e): the 134m recipe, a window that binds
 
 
@@ -2630,40 +2675,48 @@ def n_params(model) -> int:
 def published_fixture() -> dict:
     """(a) The vendored GPT-2 (``tests/resources/hf_tiny_gpt2/``) loaded on
     the card at f32: its log-probs of the golden ids within
-    HF_FIXTURE_BOUND of ``transformers``' golden ones; then ``generate
-    --fromHF`` as a subprocess on the card, whose text must equal a direct
-    ``generate`` on the tokenizer's ids."""
+    HF_FIXTURE_BOUND of ``transformers``' golden ones; and ``generate
+    --fromHF`` as a subprocess on the card, started before those checks
+    and run beside them, whose text must equal a direct ``generate`` on
+    the tokenizer's ids."""
     from bigdl_tpu_torch.interop.hf import load_hf_checkpoint, to_framework_ids
     from bigdl_tpu_torch.interop.hf_tokenizer import load_checkpoint_tokenizer
     from bigdl_tpu_torch.models.generation import generate
     root = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(root, HF_FIXTURE)
-    model = load_hf_checkpoint(path, device=CONT_DEVICE)
-    check(next(model.parameters()).device.type == CONT_DEVICE,
-          "the fixture loaded off the card")
-    ids = np.load(os.path.join(path, "golden_input_ids.npy"))
-    gold = np.load(os.path.join(path, "golden_logprobs.npy"))
-    with torch.inference_mode():
-        lp = model(torch.as_tensor(to_framework_ids(ids), device=CONT_DEVICE))
-    err = float(np.abs(lp.float().cpu().numpy() - gold).max())
-    check(lp.shape == gold.shape and err <= HF_FIXTURE_BOUND,
-          f"fixture log-probs {err} from transformers' golden ones")
-    tok = load_checkpoint_tokenizer(path)
-    prompt = tok.encode(FIXTURE_PROMPT)
-    direct = generate(model, [prompt], FIXTURE_NEW, greedy=True,
-                      eos_id=tok.eos_id, device=CONT_DEVICE)[0].tolist()
-    want = repr(tok.decode(direct[len(prompt):]))
     t0 = time.perf_counter()
-    out = subprocess.run(
+    cli = subprocess.Popen(
         [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer", "generate",
          "--fromHF", path, "--prompt", FIXTURE_PROMPT, "--maxNewTokens",
-         str(FIXTURE_NEW), "--greedy", "--device", CONT_DEVICE], cwd=root, capture_output=True,
-        text=True, timeout=CLI_TIMEOUT_S)
-    lines = out.stdout.strip().splitlines()
+         str(FIXTURE_NEW), "--greedy", "--device", CONT_DEVICE], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        model = load_hf_checkpoint(path, device=CONT_DEVICE)
+        check(next(model.parameters()).device.type == CONT_DEVICE,
+              "the fixture loaded off the card")
+        ids = np.load(os.path.join(path, "golden_input_ids.npy"))
+        gold = np.load(os.path.join(path, "golden_logprobs.npy"))
+        with torch.inference_mode():
+            lp = model(torch.as_tensor(to_framework_ids(ids),
+                                       device=CONT_DEVICE))
+        err = float(np.abs(lp.float().cpu().numpy() - gold).max())
+        check(lp.shape == gold.shape and err <= HF_FIXTURE_BOUND,
+              f"fixture log-probs {err} from transformers' golden ones")
+        tok = load_checkpoint_tokenizer(path)
+        prompt = tok.encode(FIXTURE_PROMPT)
+        direct = generate(model, [prompt], FIXTURE_NEW, greedy=True,
+                          eos_id=tok.eos_id, device=CONT_DEVICE)[0].tolist()
+        want = repr(tok.decode(direct[len(prompt):]))
+        stdout, stderr = cli.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    lines = stdout.strip().splitlines()
     got = lines[-1].split(":", 1)[1].strip() if lines else None
-    check(out.returncode == 0 and got == want,
-          f"generate --fromHF printed {out.stdout[-300:]!r} (rc "
-          f"{out.returncode}, stderr {out.stderr[-800:]!r}); direct "
+    check(cli.returncode == 0 and got == want,
+          f"generate --fromHF printed {stdout[-300:]!r} (rc "
+          f"{cli.returncode}, stderr {stderr[-800:]!r}); direct "
           f"generate gives {want}")
     return {"max_abs_err_vs_golden": err, "bound": HF_FIXTURE_BOUND,
             "cli_continuation": want, "cli_s": time.perf_counter() - t0}
@@ -2832,7 +2885,7 @@ def published_qwen2(launches: dict) -> dict:
     here (a seeded Llama-shaped ``build_lm``'s ``export_llama_state_dict``
     and the q/k/v biases from a seed; the reference exports no Qwen2) into
     ``load_qwen2`` on the card; the bf16 and int8 twins each serve one
-    ``ContinuousLMServer`` round (16 requests of 33-384 tokens, 32 new),
+    ``ContinuousLMServer`` round (QWEN_REQUESTS of 33-384 tokens, 32 new),
     every answer held to ``generate``; no K1 (chunked prefill), K4 169 a
     forward (M = 1 to 128 rows, K = 896 and 4864, the bias slices) and no
     dequantize."""
@@ -3775,25 +3828,18 @@ def ckpt_cli(root: str, model) -> dict:
     prompt = [5, 17, 3, 250, 9]
     want = generate(loaded, [prompt], 16, greedy=True,
                     device=CKPT_DEVICE)[0, len(prompt):].tolist()
-    t1 = time.perf_counter()
-    gen = subprocess.run(cli + ["generate", "--model", target, "--greedy",
-                                "--prompt", ",".join(map(str, prompt)),
-                                "--maxNewTokens", "16"] + device,
-                         cwd=src, capture_output=True, text=True,
-                         timeout=CLI_TIMEOUT_S)
-    res["generate_s"] = time.perf_counter() - t1
-    lines = gen.stdout.strip().splitlines()
-    check(gen.returncode == 0 and len(lines) == 2
-          and json.loads(lines[1].split(":", 1)[1]) == want,
-          f"(e): generate --model printed {gen.stdout[-400:]!r} (want "
-          f"{want}), stderr {gen.stderr[-1500:]!r}")
     draft_path = os.path.join(d, "draft_final")
     file_io.save(build_lm(CKPT_CLI_VOCAB, CKPT_CLI_EMBED, 4,
                           ffn_dim=4 * CKPT_CLI_EMBED, num_layers=2,
                           max_len=1024, rope=True, norm="rms",
                           activation="swiglu", bias=False,
                           device=CKPT_DEVICE, seed=31), draft_path)
-    t2 = time.perf_counter()
+    t2 = time.perf_counter()   # the two processes run side by side
+    gen = subprocess.Popen(cli + ["generate", "--model", target, "--greedy",
+                                  "--prompt", ",".join(map(str, prompt)),
+                                  "--maxNewTokens", "16"] + device,
+                           cwd=src, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
     proc = subprocess.Popen(cli + ["serve", "--continuous", "--model", target,
                                    "--draft", draft_path, "--specLen", "4",
                                    "--greedy", "--maxNewTokens", "16",
@@ -3801,6 +3847,13 @@ def ckpt_cli(root: str, model) -> dict:
                             cwd=src, stderr=subprocess.PIPE,
                             stdout=subprocess.DEVNULL, text=True)
     try:
+        out, err = gen.communicate(timeout=CLI_TIMEOUT_S)
+        res["generate_s"] = time.perf_counter() - t2
+        lines = out.strip().splitlines()
+        check(gen.returncode == 0 and len(lines) == 2
+              and json.loads(lines[1].split(":", 1)[1]) == want,
+              f"(e): generate --model printed {out[-400:]!r} (want "
+              f"{want}), stderr {err[-1500:]!r}")
         port = read_served_port(proc, time.perf_counter() + CLI_TIMEOUT_S)
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/generate",
@@ -3813,9 +3866,10 @@ def ckpt_cli(root: str, model) -> dict:
         proc.send_signal(signal.SIGTERM)
         check(proc.wait(timeout=30) == 0, "(e): serve did not exit 0")
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (gen, proc):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     res["serve_draft_s"] = time.perf_counter() - t2
 
     # the 134m's int8 twin through file_io on the card
@@ -4269,7 +4323,7 @@ def run_resnet() -> dict:
 
 
 # ------------------------------------------------------- 3i. the conv zoo
-ZOO_STEPS, LENET_STEPS = 20, 100
+ZOO_STEPS, LENET_STEPS = 12, 100
 #: bench.py's ladders (``_LADDERS``, bench.py:521-531), largest first;
 #: Inception v2 is not in bench.py and takes v1's
 ZOO_LADDER = {"vgg16": (128, 32), "inception_v1": (256, 64),
@@ -4719,7 +4773,7 @@ def run_zoo_apps() -> dict:
 
 def run_zoo() -> tuple:
     """Phase 3i: the kernel checks at the new shapes, the card's LRN, the
-    VGG-CIFAR gradient check, then runs a-e (bench.py's recipe, 20 steps;
+    VGG-CIFAR gradient check, then runs a-e (bench.py's recipe, 12 steps;
     LeNet 100) and the apps. Returns (the K5/K6 launches of the runs and
     the apps, the shapes checked)."""
     from bigdl_tpu_torch.models import inception, lenet, vgg
@@ -4858,10 +4912,10 @@ def time_zoo_kernels(launches: dict, shapes: dict) -> list:
 
 
 # ------------------------------------------------------------- 3j. perf
-#: 21 iterations after 3 warm-ups: 24 in all, whole windows of PERF_K, so
+#: 13 iterations after 3 warm-ups: 16 in all, whole windows of PERF_K, so
 #: that no window of another length (a new graph, captured on its first
 #: run) falls in a k = 4 run's steady iterations
-PERF_ITERS, PERF_WARMUP = 21, 3
+PERF_ITERS, PERF_WARMUP = 13, 3
 VIT_BATCH, LSTM_BATCH = 256, 32
 LM1B_BATCH, LM1B_ITERS = 8, 10
 RESNET_PERF_BATCH, RESNET_PERF_ITERS = 256, 10
@@ -5115,7 +5169,7 @@ def lm_block_grad_check(seed: int = 43) -> dict:
 
 def run_perf() -> tuple:
     """Phase 3j: (a) the kernel checks at the new shapes; (b) ViT-S/16's
-    card gradients; (c) ``perf --model vit_s16`` at B=256, bf16, 21
+    card gradients; (c) ``perf --model vit_s16`` at B=256, bf16, 13
     iterations after 3 warm-ups, k = 1 and k = 4 through the device cache
     and k = 1 from the host (K1-K3 12 each a step; k = 4's losses
     bit-equal to k = 1's over the same 1024 records); (d) ``perf --model
@@ -6433,6 +6487,516 @@ def run_layer_zoo() -> dict:
     return result
 
 
+# ------------------------------------ 3l. text, tokenizers and summaries
+TEXT_SEED = 71
+TEXT_CORPUS_BYTES = 1 << 20
+TEXT_BPE_VOCAB = 1024
+TEXT_LR = 0.1              # SGD's rate (momentum 0.9): the loss falls in one
+                           # epoch (3e-3, the CLI's default, barely moves it)
+TEXT_WIDTH = ["--embedDim", "768", "--numHeads", "12", "--numLayers", "12",
+              "--seqLen", "512", "-b", "8", "--llamaBlock", "-r", str(TEXT_LR)]
+TEXT_LAYERS, TEXT_SEQ, TEXT_BATCH = 12, 512, 8
+TEXT_CUT_LAYERS = 2
+TEXT_LOSS_RTOL = 1e-4
+TEXT_NEW_TOKENS = 16
+#: (b) samples (top-k, seeded): the text LM, near its unigram after one
+#: epoch, puts most mass on eos, so greedy answers eos at once
+TEXT_TOP_K, TEXT_SAMPLE_SEED = 40, 5
+#: (a)'s busy share: iterations of the trained model after a warm-up
+TEXT_BUSY_WARM, TEXT_BUSY_ITERS = 2, 10
+#: (d)'s textclassifier: epochs of the synthetic corpus (3 iterations each)
+TC_EPOCHS = 4
+SP_STRINGS = 100
+SP_RATE_STRINGS = 2000
+TENSOR_RTOL = 1e-5
+#: the corpus's words: ASCII, Latin-1 and wider scripts, so that byte
+#: merges cross UTF-8 boundaries
+TEXT_WORDS = (
+    "the of and to in is was for on that with as by at from it an be this "
+    "which or are his her they not had have one all were we can their "
+    "there been has more if will would who so no out up into about than "
+    "them its only other new some time could these two may first then do "
+    "any like my now over such our man me even most made after also did "
+    "many before must through back years where much your way well down "
+    "should because each just those people how too little state good very "
+    "make world still own see men work long get here between both life "
+    "being under never day same another know while last might us great "
+    "old year off come since against go came right used take three "
+    "café naïve über straße façade résumé jalapeño smörgåsbord crème "
+    "déjà fjörður þorp łódź čeština ελληνικά μήλο русский язык "
+    "中文 日本語 한국어 עברית العربية हिन्दी 🙂 🚀").split()
+
+
+def write_text_corpus(path: str) -> list:
+    """About TEXT_CORPUS_BYTES of lines of 4-19 words drawn from
+    TEXT_WORDS with seed TEXT_SEED; returns the lines."""
+    rng = np.random.default_rng(TEXT_SEED)
+    lines, size = [], 0
+    while size < TEXT_CORPUS_BYTES:
+        line = " ".join(rng.choice(TEXT_WORDS, int(rng.integers(4, 20))))
+        lines.append(line)
+        size += len(line.encode("utf-8")) + 1
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return lines
+
+
+def printed_continuation(argv: list) -> tuple:
+    """Runs ``apps.transformer``'s ``main(argv)`` in this process and
+    returns the (prompt, continuation) it prints, as Python values."""
+    import ast
+    import contextlib
+    import io
+    from bigdl_tpu_torch.apps import transformer as app
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        app.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) == 2 and lines[0].startswith("prompt:")
+          and lines[1].startswith("continuation:"),
+          f"generate printed {lines}")
+    return tuple(ast.literal_eval(x.split(":", 1)[1].strip()) for x in lines)
+
+
+def text_generated(model, tok, prompt: str, seed=None) -> tuple:
+    """(prompt ids, continuation ids up to and with the first eos, the
+    continuation's text as the CLI prints it) of ``generate``: greedy, or
+    with ``seed`` top-TEXT_TOP_K sampling from a generator seeded so."""
+    from bigdl_tpu_torch.models.generation import generate
+    ids = tok.encode(prompt)
+    kw = (dict(greedy=True) if seed is None else dict(
+        top_k=TEXT_TOP_K, generator=torch.Generator(
+            device="cuda").manual_seed(seed)))
+    out = generate(model.evaluate_mode(), [ids], TEXT_NEW_TOKENS,
+                   eos_id=tok.eos_id, device="cuda", **kw)[0].tolist()
+    cont = out[len(ids):]
+    text = tok.decode(cont)
+    if tok.eos_id in cont:
+        cont = cont[:cont.index(tok.eos_id) + 1]
+    return ids, cont, text
+
+
+def text_train(root: str, launches: dict) -> dict:
+    """(a) ``transformer train --textFile --bpeVocab 1024`` at the 134m
+    recipe's width (f32, the CLI's SGD), one epoch of the corpus."""
+    import argparse
+    from bigdl_tpu_torch.apps import transformer as app
+    from bigdl_tpu_torch.dataset.bpe import BPETokenizer
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                              TimeDistributedCriterion)
+    from bigdl_tpu_torch.utils import file_io
+    res = {}
+    corpus = os.path.join(root, "corpus.txt")
+    lines = write_text_corpus(corpus)
+    t0 = time.perf_counter()
+    tok = BPETokenizer.train(lines, vocab_size=TEXT_BPE_VOCAB)
+    res["bpe_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encoded = [tok.encode(line) for line in lines]
+    res["bpe_encode_s"] = time.perf_counter() - t0
+    bad = [ln for ln, ids in zip(lines, encoded) if tok.decode(ids) != ln]
+    check(not bad, f"BPE round trip failed on {len(bad)} lines: {bad[:2]}")
+    res["corpus_bytes"] = os.path.getsize(corpus)
+    res["corpus_tokens"] = sum(len(ids) + 1 for ids in encoded)
+    ckpt = os.path.join(root, "text_ckpt")
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    opt, _ = app.optimizer([
+        "--textFile", corpus, "--bpeVocab", str(TEXT_BPE_VOCAB), *TEXT_WIDTH,
+        "-e", "1", "--checkpoint", ckpt, "--device", "cuda"])
+    file_io.save(opt.optimize(), file_io.join(ckpt, "model_final"))
+    res["train_s"] = time.perf_counter() - t0
+    got = {k: c.value for k, c in counters.items()}
+    for k, n in got.items():
+        launches[k] += n
+    losses = [h["loss"] for h in opt.history]
+    steps = len(losses)
+    res.update(iterations=steps, samples=steps * TEXT_BATCH,
+               losses=losses[:3] + losses[-3:],
+               ms_per_iteration=float(np.median(
+                   [h["seconds"] for h in opt.history[2:]] or [np.nan]))
+               * 1e3,
+               launches_per_step={k: n / max(steps, 1)
+                                  for k, n in got.items()})
+    saved = BPETokenizer.load(os.path.join(ckpt, "tokenizer.bigdl"))
+    check(saved.merges == tok.merges and saved.eos_id == tok.eos_id,
+          "the saved tokenizer's merges differ from the corpus's BPE")
+    check(steps >= 20 and all(np.isfinite(losses)),
+          f"text training: {steps} iterations, losses {losses[:5]}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"text loss did not fall: first {losses[0]}, last {losses[-5:]}")
+    want = TEXT_LAYERS * steps
+    check(got["flash_fwd"] == got["flash_bwd_dq"] == got["flash_bwd_dkv"]
+          == want, f"text training launched K1/K2/K3 {got}, want {want} "
+          "each (12 a step)")
+
+    # a 2-layer cut at full width: the first batch's f32 loss on the card
+    # against the same cut on the CPU
+    samples, vocab = app.text_corpus(argparse.Namespace(
+        textFile=corpus, bpeVocab=TEXT_BPE_VOCAB, seqLen=TEXT_SEQ,
+        checkpoint=None))
+    x = torch.from_numpy(np.stack([s.feature for s in samples[:TEXT_BATCH]]))
+    y = torch.from_numpy(np.stack([s.label for s in samples[:TEXT_BATCH]]))
+    cut = dict(ffn_dim=4 * 768, num_layers=TEXT_CUT_LAYERS, max_len=1024,
+               rope=True, norm="rms", activation="swiglu", bias=False,
+               seed=TEXT_SEED)
+    crit = TimeDistributedCriterion(ClassNLLCriterion())
+    with torch.no_grad():
+        on_cpu = build_lm(vocab, 768, 12, device="cpu", **cut)
+        cpu_loss = crit(on_cpu(x), y).item()
+        del on_cpu
+        card = build_lm(vocab, 768, 12, device="cuda", **cut)
+        card_loss = crit(card(x.to("cuda")), y.to("cuda")).item()
+    res["cut_loss_card_cpu"] = [card_loss, cpu_loss]
+    check(abs(card_loss - cpu_loss) <= TEXT_LOSS_RTOL * abs(cpu_loss),
+          f"2-layer cut: loss {card_loss} on the card, {cpu_loss} on the CPU")
+
+    # the busy share over TEXT_BUSY_ITERS iterations of the trained model,
+    # after TEXT_BUSY_WARM of another run on it
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    model = file_io.load(os.path.join(ckpt, "model_final"), device="cuda")
+    ds = DataSet.array(samples[:TEXT_BUSY_ITERS * TEXT_BATCH], seed=0) \
+        >> SampleToBatch(TEXT_BATCH)
+    runs = [Optimizer(model, ds, crit, device="cuda")
+            .set_optim_method(SGD(learningrate=TEXT_LR, momentum=0.9))
+            .set_end_when(Trigger.max_iteration(n))
+            for n in (TEXT_BUSY_WARM, TEXT_BUSY_ITERS)]
+    runs[0].optimize()
+    rows, wall = profiled(runs[1].optimize, "text training steps")
+    res["busy_share"] = (None if rows is None else
+                         sum(t for _, t in rows) / 1e6 / wall)
+    res["busy_iterations"] = TEXT_BUSY_ITERS
+    for k, c in counters.items():   # not the main path's launches
+        c.reset()
+    return res
+
+
+TEXT_PROMPT = "the café on the über straße was 🙂 and"
+TEXT_SAMPLING = ["--topK", str(TEXT_TOP_K), "--seed", str(TEXT_SAMPLE_SEED)]
+
+
+def text_cli(argv: list, **kw) -> subprocess.Popen:
+    """``python -m bigdl_tpu_torch.apps.<argv>`` started from the
+    repository's root (phase 3l runs its two CLI processes beside its own
+    work)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), **kw)
+
+
+def text_server(root: str) -> subprocess.Popen:
+    """``serve --tokenizer`` on (a)'s checkpoint, sampling as (b) does."""
+    ckpt = os.path.join(root, "text_ckpt")
+    return text_cli([
+        "bigdl_tpu_torch.apps.transformer", "serve", "--model",
+        os.path.join(ckpt, "model_final"), "--tokenizer",
+        os.path.join(ckpt, "tokenizer.bigdl"), "--port", "0",
+        "--maxNewTokens", str(TEXT_NEW_TOKENS), "--device", "cuda",
+        *TEXT_SAMPLING], stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
+        text=True)
+
+
+def text_serve(root: str, launches: dict, proc, t_start: float) -> dict:
+    """(b) ``generate --tokenizer`` and ``serve --tokenizer`` (``proc``,
+    started at ``t_start``) from (a)'s checkpoint, sampling top-TEXT_TOP_K
+    from seeded generators: text in, the same answer as ``generate`` on
+    the encoded ids with the same generator (the CLI's ``--seed``; the
+    server's first batch draws from ``SeedSequence([seed, 0])``); K1
+    launches num_layers times in the CLI's prefill."""
+    import signal
+    import urllib.request
+    from bigdl_tpu_torch.dataset.bpe import BPETokenizer
+    from bigdl_tpu_torch.utils import file_io
+    ckpt = os.path.join(root, "text_ckpt")
+    model_path = os.path.join(ckpt, "model_final")
+    tok_path = os.path.join(ckpt, "tokenizer.bigdl")
+    prompt = TEXT_PROMPT
+    res = {}
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    sampling = TEXT_SAMPLING
+    _, printed = printed_continuation(
+        ["generate", "--model", model_path, "--tokenizer", tok_path,
+         "--prompt", prompt, "--maxNewTokens", str(TEXT_NEW_TOKENS),
+         "--device", "cuda", *sampling])
+    res["generate_cli_s"] = time.perf_counter() - t0
+    k1 = counters["flash_fwd"].value
+    launches["flash_fwd"] += k1
+    launches["flash_fwd_mma"] += counters["flash_fwd_mma"].value
+    check(k1 == TEXT_LAYERS, f"generate --tokenizer launched K1 {k1} times, "
+          f"want {TEXT_LAYERS} (one prefill)")
+    tok = BPETokenizer.load(tok_path)
+    model = file_io.load(model_path, device="cuda")
+    ids, _, text = text_generated(model, tok, prompt, TEXT_SAMPLE_SEED)
+    served_seed = int(np.random.SeedSequence([TEXT_SAMPLE_SEED, 0])
+                      .generate_state(1)[0])
+    _, cont, _ = text_generated(model, tok, prompt, served_seed)
+    del model
+    for c in counters.values():
+        c.reset()
+    check(printed == text, f"generate --tokenizer printed {printed!r}, "
+          f"generate on the encoded ids gives {text!r}")
+    res.update(prompt_tokens=len(ids), continuation=text, served_ids=cont)
+    try:
+        port = read_served_port(proc, time.perf_counter() + CLI_TIMEOUT_S)
+        res["serve_startup_s"] = time.perf_counter() - t_start
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"text": prompt}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            answer = json.loads(r.read())
+        check(answer["ids"] == cont and answer["text"] == tok.decode(cont),
+              f"serve --tokenizer answered {answer}, generate gives {cont}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        check(rc == 0, f"serve --tokenizer exited {rc} after SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return res
+
+
+def sp_pieces(vocab: int, seed: int) -> list:
+    """A unigram vocabulary of ``vocab`` pieces: the 3 specials, the 256
+    ``<0xNN>`` byte pieces, then seeded distinct pieces over lower-case
+    Latin, a few accented letters and the word mark, with seeded scores."""
+    from bigdl_tpu_torch.interop.sentencepiece import (BYTE, CONTROL, NORMAL,
+                                                       UNKNOWN)
+    rng = np.random.default_rng(seed)
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
+              ("</s>", 0.0, CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    letters = list("abcdefghijklmnopqrstuvwxyz") + list("éüöñç") + ["▁"]
+    seen = set()
+    for ch in letters:
+        seen.add(ch)
+        pieces.append((ch, float(rng.uniform(-14, -10)), NORMAL))
+    while len(pieces) < vocab:
+        p = "".join(rng.choice(letters, int(rng.integers(2, 8))))
+        if p not in seen:
+            seen.add(p)
+            pieces.append((p, float(rng.uniform(-13, -2)), NORMAL))
+    return pieces
+
+
+def sp_strings(n: int, seed: int) -> list:
+    """Seeded strings over the pieces' letters, spaces and characters no
+    piece covers (byte fallback)."""
+    rng = np.random.default_rng(seed)
+    chars = list("abcdefghijklmnopqrstuvwxyz     ") + ["é", "ü", "ж", "Ω",
+                                                      "中", "🙂", "  "]
+    return ["".join(rng.choice(chars, int(rng.integers(1, 60))))
+            for _ in range(n)]
+
+
+def text_sentencepiece(root: str, launches: dict) -> dict:
+    """(c) The 134m recipe at vocab 32000 as an HF Llama directory with a
+    unigram ``tokenizer.model`` (byte fallback) written by ``write_model``:
+    ``generate --fromHF DIR --prompt TEXT`` on the card equals ``generate``
+    on the tokenizer's ids; unigram and BPE models round-trip
+    SP_STRINGS seeded strings exactly; the host's encode rate."""
+    from bigdl_tpu_torch.interop.hf import (load_hf_checkpoint,
+                                            save_hf_checkpoint)
+    from bigdl_tpu_torch.interop.sentencepiece import (SentencePieceTokenizer,
+                                                       write_model)
+    from bigdl_tpu_torch.models.transformer import build_lm
+    res = {}
+    d = os.path.join(root, "llama_sp")
+    base = build_lm(VOCAB, **CONFIG, device="cuda", seed=TEXT_SEED + 1)
+    save_hf_checkpoint(base, d)
+    del base
+    pieces = sp_pieces(VOCAB, TEXT_SEED + 2)
+    write_model(os.path.join(d, "tokenizer.model"), pieces,
+                model_type="unigram", byte_fallback=True)
+    tok = SentencePieceTokenizer.from_dir(d)
+    check(tok.vocab_size == VOCAB, f"tokenizer.model holds {tok.vocab_size}")
+    strings = sp_strings(SP_STRINGS, TEXT_SEED + 3)
+    for kind in ("unigram", "bpe"):
+        t = tok if kind == "unigram" else SentencePieceTokenizer.from_file(
+            write_model(os.path.join(root, "bpe.model"), pieces,
+                        model_type="bpe", byte_fallback=True))
+        bad = [s for s in strings if t.decode(t.encode(s)) != s]
+        check(not bad, f"sentencepiece {kind} round trip failed on "
+              f"{len(bad)} strings: {bad[:2]}")
+    many = sp_strings(SP_RATE_STRINGS, TEXT_SEED + 4)
+    t0 = time.perf_counter()
+    for s in many:
+        tok.encode(s)
+    res["sp_encode_strings_per_s"] = SP_RATE_STRINGS / (
+        time.perf_counter() - t0)
+    prompt = "the quick brown fox ж 🙂 jumps"
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    _, printed = printed_continuation(
+        ["generate", "--fromHF", d, "--prompt", prompt, "--greedy",
+         "--maxNewTokens", str(TEXT_NEW_TOKENS), "--device", "cuda"])
+    res["generate_fromhf_s"] = time.perf_counter() - t0
+    k1 = counters["flash_fwd"].value
+    launches["flash_fwd"] += k1
+    launches["flash_fwd_mma"] += counters["flash_fwd_mma"].value
+    check(k1 == CONFIG["num_layers"], f"generate --fromHF launched K1 {k1} "
+          f"times, want {CONFIG['num_layers']}")
+    model = load_hf_checkpoint(d, device="cuda")
+    ids, _, text = text_generated(model, tok, prompt)
+    del model
+    for c in counters.values():
+        c.reset()
+    check(printed == text, f"generate --fromHF printed {printed!r}, "
+          f"generate on the tokenizer's ids gives {text!r}")
+    res.update(sp_prompt_tokens=len(ids), sp_continuation=text)
+    return res
+
+
+def text_summary_run(root: str) -> tuple:
+    """``lenet train --summary`` for (d), as a process of its own:
+    (process, its log file)."""
+    log_file = open(os.path.join(root, "lenet.log"), "w")
+    return text_cli([
+        "bigdl_tpu_torch.apps.lenet", "train", "-b", "64", "-e", "1",
+        "--synthetic-size", "256", "--summary",
+        os.path.join(root, "summary"), "--appName", "lenet", "--device",
+        "cuda"], stdout=log_file, stderr=subprocess.STDOUT), log_file
+
+
+def text_summary(root: str, proc, log_file, t_start: float) -> dict:
+    """(d) ``lenet train --summary``'s event files: the port's
+    ``FileReader`` reads back every iteration's ``Loss`` and
+    ``Throughput``, each record's CRC32C checked."""
+    from bigdl_tpu_torch.visualization import FileReader
+    rc = proc.wait(timeout=CLI_TIMEOUT_S)
+    log_file.close()
+    res = {"lenet_summary_s": time.perf_counter() - t_start}
+    with open(log_file.name) as f:
+        tail = f.read()[-1500:]
+    check(rc == 0, f"lenet --summary: rc {rc}, {tail}")
+    folder = os.path.join(root, "summary", "lenet", "train")
+    for tag in ("Loss", "Throughput"):
+        rows = FileReader.read_scalar(folder, tag)   # every CRC checked
+        check([s for s, _, _ in rows] == [1, 2, 3, 4]
+              and all(np.isfinite(v) for _, v, _ in rows),
+              f"lenet --summary {tag}: {rows}")
+    return res
+
+
+def text_apps(root: str) -> dict:
+    """(d) The textclassifier at the reference's defaults, the rnn app,
+    ``DLClassifier`` and ``Tensor`` on the card."""
+    from bigdl_tpu_torch.apps import rnn as rnn_app
+    from bigdl_tpu_torch.apps import textclassifier as tc_app
+    from bigdl_tpu_torch.ml import DLClassifier
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.tensor import Tensor
+    res = {}
+    opt, _, prepared = tc_app.optimizer([
+        "--maxSequenceLength", "1000", "--embeddingDim", "100", "-b", "128",
+        "-e", str(TC_EPOCHS), "--device", "cuda"])
+    opt.optimize()
+    tc_losses = [h["loss"] for h in opt.history]
+    top1 = [v["results"]["Top1Accuracy"].result()[0]
+            for v in opt.validation_history]
+    res.update(textclassifier_iterations=len(tc_losses),
+               textclassifier_losses=tc_losses,
+               textclassifier_ms_per_iteration=float(np.median(
+                   [h["seconds"] for h in opt.history[1:]])) * 1e3,
+               textclassifier_top1=top1)
+    chance = 1.0 / prepared[2]
+    check(len(tc_losses) == 3 * TC_EPOCHS and np.isfinite(tc_losses).all()
+          and np.mean(tc_losses[-3:]) < tc_losses[0]
+          and len(top1) == TC_EPOCHS and top1[-1] > chance,
+          f"textclassifier: losses {tc_losses}, Top1 {top1} (chance "
+          f"{chance})")
+    opt = rnn_app.optimizer(["-e", "2", "--device", "cuda"])
+    opt.optimize()
+    rnn_losses = [h["loss"] for h in opt.history]
+    res["rnn_losses"] = rnn_losses[:2] + rnn_losses[-2:]
+    check(np.isfinite(rnn_losses).all() and np.mean(rnn_losses[-3:])
+          < rnn_losses[0], f"rnn app losses {rnn_losses}")
+
+
+    rng = np.random.default_rng(TEXT_SEED)
+    x = rng.normal(size=(300, 28, 28, 1)).astype(np.float32)
+    y = rng.integers(1, 11, 300).astype(np.float32)
+    model = lenet.build(10, device="cuda", seed=3)
+    fitted = DLClassifier(model, batch_size=100, max_epoch=1,
+                          device="cuda").fit(x, y)
+    with torch.no_grad():   # the model's own forward, in the same batches
+        direct = torch.cat([model.eval()(torch.from_numpy(
+            x[i:i + 100]).to("cuda")) for i in range(0, 300, 100)])
+    check(np.array_equal(fitted.predict(x),
+                         direct.argmax(-1).cpu().numpy() + 1),
+          "DLClassifier's predictions differ from the model's argmax")
+
+    a = rng.normal(size=(64, 48)).astype(np.float32)
+    b = rng.normal(size=(48, 32)).astype(np.float32)
+    k = rng.normal(size=(3, 5)).astype(np.float32)
+    worst = 0.0
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t = Tensor(a, device=dev)
+        t.narrow(2, 3, 4).mul(2.0)
+        t.select(1, 5).fill(1.5)
+        outs[dev] = [Tensor(64, 32, device=dev).mm(t, b), t.sum(2),
+                     t.sort(2, True)[0], t.topk(3, 1, False)[1],
+                     t.conv2(k, "F"), t]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        g, w = got.numpy().astype(np.float64), want.numpy().astype(np.float64)
+        err = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        worst = max(worst, err)
+    res["tensor_max_rel_err"] = worst
+    check(worst <= TENSOR_RTOL, f"Tensor on the card against the CPU: {worst}")
+    return res
+
+
+def run_text() -> dict:
+    """Phase 3l; returns its K1, K2 and K3 launches for the kernel rows."""
+    import tempfile
+    t0 = time.perf_counter()
+    launches = collections.defaultdict(int)
+    with tempfile.TemporaryDirectory() as root:
+        row = {"train": text_train(root, launches)}
+        # the two CLI processes start now and run beside (b) and (c)
+        t_cli = time.perf_counter()
+        server = text_server(root)
+        lenet, lenet_log = text_summary_run(root)
+        try:
+            row["serve"] = text_serve(root, launches, server, t_cli)
+            summary = text_summary(root, lenet, lenet_log, t_cli)
+            row["sentencepiece"] = text_sentencepiece(root, launches)
+            row["apps"] = dict(text_apps(root), **summary)
+        finally:
+            for proc in (server, lenet):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            lenet_log.close()
+    train = row["train"]
+    log({"text_slice": {
+        "corpus_tokens": train["corpus_tokens"],
+        "corpus_bytes": train["corpus_bytes"],
+        "bpe_train_s": train["bpe_train_s"], "samples": train["samples"],
+        "iterations": train["iterations"],
+        "ms_per_iteration": train["ms_per_iteration"],
+        "busy_share": train["busy_share"],
+        "launches_per_step": train["launches_per_step"],
+        "sp_encode_strings_per_s":
+            row["sentencepiece"]["sp_encode_strings_per_s"],
+        "textclassifier_ms_per_iteration":
+            row["apps"]["textclassifier_ms_per_iteration"],
+        "phase_s": time.perf_counter() - t0}})
+    log({"text_details": row})
+    return {k: launches[k] for k in flash_counters()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6461,6 +7025,11 @@ def main(argv=None) -> int:
         "--perf-only", action="store_true",
         help="run only the kernels' build, phase 3j (the perf harness) and "
              "its kernel rows, and print them (no result line)")
+    parser.add_argument(
+        "--text-only", action="store_true",
+        help="run only the kernels' build and phase 3l (text, tokenizers, "
+             "summaries and the text apps on the card) and print its lines "
+             "(no result line)")
     parser.add_argument(
         "--layers-only", action="store_true",
         help="run only the kernels' build and phase 3k (the layer zoo, the "
@@ -6507,6 +7076,11 @@ def main(argv=None) -> int:
         run_layer_zoo()
         log({"total_s": time.perf_counter() - t0, "card": card})
         return 0
+    if args.text_only:
+        text_launches = run_text()
+        log({"text_launches": text_launches,
+             "total_s": time.perf_counter() - t0, "card": card})
+        return 0
     if args.resnet_grad_seeds:
         failed = []
         for seed in args.resnet_grad_seeds:
@@ -6518,41 +7092,46 @@ def main(argv=None) -> int:
         log({"total_s": time.perf_counter() - t0, "card": card})
         check(not failed, f"the gradient check failed for seeds {failed}")
         return 0
-    check_flash()
-    check_flash_bwd()
-    check_int8()
-    check_published_kernels()
-    check_conv_bn()
-    check_conv_bn_autograd()
-    hbm_errs = check_hbm_roof()
-    launches, models, lm_timings = run_slice()
-    cont_launches, cont = run_continuous(models, lm_timings)
-    plane_launches = run_serving_plane(models)
-    graph_serve_launches, graph_serve_row = run_graph_serving(models, cont)
+    timed("2", check_flash)
+    timed("2", check_flash_bwd)
+    timed("2", check_int8)
+    timed("2", check_published_kernels)
+    timed("2", check_conv_bn)
+    timed("2", check_conv_bn_autograd)
+    hbm_errs = timed("2", check_hbm_roof)
+    launches, models, lm_timings = timed("3", run_slice)
+    cont_launches, cont = timed("3d", run_continuous, models, lm_timings)
+    plane_launches = timed("3e", run_serving_plane, models)
+    graph_serve_launches, graph_serve_row = timed(
+        "3f serving", run_graph_serving, models, cont)
     del models
     torch.cuda.empty_cache()
-    published_launches = run_published()
-    train_launches, k1_run = run_training()
-    ckpt_launches = run_checkpoints(k1_run)
-    graph_train_launches, graph_train_row = run_graph_training(k1_run)
+    published_launches = timed("3g", run_published)
+    train_launches, k1_run = timed("3b", run_training)
+    ckpt_launches = timed("3h", run_checkpoints, k1_run)
+    graph_train_launches, graph_train_row = timed(
+        "3f training", run_graph_training, k1_run)
     del k1_run
     log({"graphs": {**GRAPH_CENSUS, "serving": graph_serve_row,
                     "training": {k: v for k, v in graph_train_row.items()
                                  if k != "losses"}}})
     train_launches = {k: n + graph_train_launches[k] + ckpt_launches[k]
                       for k, n in train_launches.items()}
-    resnet_launches = run_resnet()
+    resnet_launches = timed("3c", run_resnet)
     resnet_launches = {k: n + ckpt_launches[k]
                        for k, n in resnet_launches.items()}
-    zoo_launches, zoo_shapes = run_zoo()
-    perf_launches, _ = run_perf()
-    run_layer_zoo()
-    roof, roof_launches = run_roofline()
+    zoo_launches, zoo_shapes = timed("3i", run_zoo)
+    perf_launches, _ = timed("3j", run_perf)
+    timed("3k", run_layer_zoo)
+    text_launches = timed("3l", run_text)
+    roof, roof_launches = timed("4a", run_roofline)
+    t_timing = time.perf_counter()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
-                           + published_launches[k]
+                           + published_launches[k] + text_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
-               *time_flash_bwd(train_launches),
+               *time_flash_bwd({k: n + text_launches[k]
+                                for k, n in train_launches.items()}),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]
                               + plane_launches["int8_matmul"]
@@ -6568,7 +7147,8 @@ def main(argv=None) -> int:
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:
         add_measured_bound(entry, roof["roof_gbps"] * 1e9)
-    log({"total_s": time.perf_counter() - t0})
+    PHASE_S["kernel timing"] = time.perf_counter() - t_timing
+    log({"total_s": time.perf_counter() - t0, "phase_s": PHASE_S})
     print(card, flush=True)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

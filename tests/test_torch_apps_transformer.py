@@ -187,14 +187,17 @@ def test_serve_from_hf_answers_text_as_the_reference_cli():
     (["train", "--contextParallel", "ring"], "ROADMAP A.4"),
     (["train", "--tensorParallel", "2"], "ROADMAP A.4"),
     (["train", "--moeExperts", "4"], "ROADMAP A.4"),
-    (["train", "--textFile", "x.txt"], "ROADMAP A.6"),
-    (["train", "--summary", "logs", "-e", "0"], "ROADMAP A.6"),
+    (["train", "--textFile", "x.txt", "--bpeVocab", "255"],
+     "must be >= 256"),
+    (["train", "--summary", "logs", "--textFile", "x.txt", "--bpeVocab",
+      "100"], "must be >= 256"),
     (["generate", "--fromHF", "d", "--model", "m"], "not both"),
-    (["generate", "--tokenizer", "t"], "ROADMAP A.6"),
+    (["generate", "--fromHF", "d", "--tokenizer", "t"], "does not compose"),
     (["generate", "--int8", "--bf16"], "one of"),
     (["generate", "--prompt", ","], "empty prompt"),
     (["serve", "--fromHF", "d", "--tokenizer", "t"], "does not compose"),
-    (["serve", "--tokenizer", "t"], "ROADMAP A.6"),
+    (["serve", "--tokenizer", "t", "--replicas", "2"],
+     "require --continuous"),
     (["serve", "--continuous", "--draft", "d", "--replicas", "2"],
      "does not compose"),
     (["serve", "--draft", "d"], "require --continuous"),

@@ -106,10 +106,24 @@ def test_byte_table_is_a_bijection():
 
 
 def test_sentencepiece_directory_waits_for_a6(tmp_path):
-    (tmp_path / "tokenizer.model").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6 "
-                       r"\(sentencepiece\)"):
-        load_checkpoint_tokenizer(str(tmp_path))
+    """A ``tokenizer.model`` directory (ROADMAP A.6, now ported) loads as
+    the port's SentencePiece tokenizer, with the reference's ids."""
+    from bigdl_tpu.interop.sentencepiece import \
+        SentencePieceTokenizer as JaxSentencePiece
+    from bigdl_tpu_torch.interop.sentencepiece import (NORMAL,
+                                                       SentencePieceTokenizer,
+                                                       write_model)
+    pieces = ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+              + [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+              + [(p, -float(i), NORMAL) for i, p in
+                 enumerate(["\u2581he", "llo", "\u2581", "h", "e", "l", "o"])])
+    write_model(str(tmp_path / "tokenizer.model"), pieces,
+                byte_fallback=True)
+    tok = load_checkpoint_tokenizer(str(tmp_path))
+    assert isinstance(tok, SentencePieceTokenizer)
+    want = JaxSentencePiece.from_dir(str(tmp_path))
+    assert tok.encode("hello wörld") == want.encode("hello wörld")
+    assert tok.decode(tok.encode("hello wörld")) == "hello wörld"
 
 
 def test_refusals_match_reference(tmp_path):

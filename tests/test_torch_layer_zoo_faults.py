@@ -8,7 +8,7 @@
   positionally in both packages and the parameter names and attributes
   compared. The reference's blockwise, context-parallel and MoE arguments
   are placeholders that refuse any value but their default, and
-  ``SampleToBatch``'s padding options refuse theirs citing ROADMAP A.6.
+  ``SampleToBatch``'s padding options (ROADMAP A.6, now ported) work.
 - C.4: ``quantize_model`` of LeNet-5 gives ``QuantizedSpatialConvolution``
   children in both packages, and the two int8 twins' log-probs agree
   within the int8 twin's known difference (ROADMAP C: 1e-2 absolute);
@@ -132,12 +132,19 @@ def test_sample_to_batch_positional():
     got = list(SampleToBatch(2, None, None, None, False)(iter(samples)))
     ref = list(JSampleToBatch(2, None, None, None, False)(iter(jsamples)))
     assert [b.size() for b in got] == [b.size() for b in ref] == [2, 2, 1]
-    for value, name in ((0.0, "feature_padding"), (-1.0, "label_padding")):
-        with pytest.raises(NotImplementedError,
-                           match=r"A\.6 \(SampleToBatch padding\)"):
-            SampleToBatch(2, **{name: value})
-    with pytest.raises(NotImplementedError, match="fixed_length"):
-        SampleToBatch(2, None, None, 10)
+    # the padding arguments (ROADMAP A.6, now ported), positionally
+    ragged = [(np.ones((n, 2), np.float32) * n, np.arange(n, dtype=np.float32))
+              for n in (1, 3, 2)]
+    got = list(SampleToBatch(3, 0.5, -1.0, 4)(
+        iter([Sample(f, l) for f, l in ragged])))
+    ref = list(JSampleToBatch(3, 0.5, -1.0, 4)(
+        iter([JSample(f, l) for f, l in ragged])))
+    assert got[0].data.shape == (3, 4, 2)
+    np.testing.assert_array_equal(got[0].data, ref[0].data)
+    np.testing.assert_array_equal(got[0].labels, ref[0].labels)
+    got = list(SampleToBatch(3, 0.0, None, None)(
+        iter([Sample(f, np.float32(1)) for f, _ in ragged])))
+    assert got[0].data.shape == (3, 3, 2)
 
 
 def test_spatial_convolution_twelfth_argument_is_the_weight_regularizer():

@@ -166,3 +166,21 @@ def test_volumetric_batch_normalization(train):
         nn.VolumetricBatchNormalization(3)
     jm.running_var = jnp.asarray(_x((3,), 4) ** 2 + 0.5)
     _parity(jm, tm, [_x((2, 3, 4, 5, 3), 2, 2.0, 1.0)], RTOL, train=train)
+
+
+@pytest.mark.parametrize("shape", [(2, 512), (8, 4, 4, 64)])
+def test_batch_norm_variance_of_close_values(shape):
+    """Train-mode batch norm keeps the variance of a channel whose values
+    lie close together (ROADMAP C.6): values 1000 + N(0, 0.1) in f32, the
+    batch variance within 1e-2 of the values' variance (0.01) of its f64
+    value in every channel. The one-pass ``E[x^2] - E[x]^2`` that the
+    reference takes misses by up to 0.24 here in f32 (its rounding step
+    at 1e6 is 0.0625)."""
+    from bigdl_tpu_torch.ops.batch_norm import batch_norm_train
+    x = (1000 + np.random.default_rng(0).normal(0, 0.1, shape)
+         ).astype(np.float32)
+    c = shape[-1]
+    _, _, var = batch_norm_train(torch.from_numpy(x), torch.ones(c),
+                                 torch.zeros(c), 1e-5)
+    want = x.astype(np.float64).reshape(-1, c).var(0)
+    assert np.abs(var.numpy() - want).max() <= 1e-2 * 0.1 ** 2
