@@ -19,6 +19,7 @@ import logging
 
 from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, Top1Accuracy,
                                    Top5Accuracy, Trigger)
+from bigdl_tpu_torch.utils.logger_filter import redirect_logs
 
 
 def train_parser(prog: str, default_batch: int = 128,
@@ -78,7 +79,8 @@ def build_optimizer(model, train_set, criterion, args, validation_set=None,
     gradient clippers, resume, checkpoints, preemption, summaries and,
     with a validation set, per-epoch validation, on ``args.device``. The
     summaries' event files are closed (every event flushed) when the
-    program exits."""
+    program exits. The logs are routed by ``redirect_logs``."""
+    redirect_logs()
     opt = Optimizer(model, train_set, criterion, device=args.device)
     opt.set_optim_method(optim_method or SGD(
         learningrate=args.learningRate,
@@ -121,6 +123,7 @@ def build_optimizer(model, train_set, criterion, args, validation_set=None,
 def run_test(model_path: str, test_set, methods, device="cuda") -> list:
     """The per-model ``Test.scala`` body: a saved module, evaluated;
     prints and returns ``[(result, method)]``."""
+    redirect_logs()
     from bigdl_tpu_torch.optim import Evaluator
     from bigdl_tpu_torch.utils import file_io
     model = file_io.load(model_path, device=device)

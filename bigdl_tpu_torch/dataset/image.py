@@ -1,9 +1,5 @@
-"""Image types and in-memory transformers (counterpart of
-``bigdl_tpu/dataset/image.py``: ``LabeledImage``, ``BytesToGreyImg``,
-``BytesToBGRImg``, ``GreyImgNormalizer``, ``BGRImgNormalizer``,
-``BGRImgCropper``, ``BGRImgRdmCropper``, ``HFlip``, ``ColorJitter``,
-``Lighting``, ``GreyImgToBatch``, ``BGRImgToBatch``, ``GreyImgToSample``,
-``BGRImgToSample`` and ``BGRImgPixelNormalizer`` are ported).
+"""Image types, transformers and decoders (counterpart of
+``bigdl_tpu/dataset/image.py``, all of it).
 
 Images are numpy (H, W, C) float32, channels-last, with a 1-based float
 label. Batches stay host numpy until ``Optimizer`` moves them to the card.
@@ -11,10 +7,14 @@ The random stages draw from ``utils.rng.RandomGenerator.RNG()`` in the
 reference's order, so one seed gives the reference's crops, flips and
 jitter bit for bit.
 
-The decoders (``EncodedBytesToBGRImg``, ``LocalImgReader``,
-``LocalImgReaderWithName``, ``NativeBGRBatchDecoder``,
-``MTLabeledBGRImgToBatch``) are not ported: constructing one raises
-``NotImplementedError`` citing ROADMAP A.3 (image decoders).
+The decoders read JPEG, PNG, BMP and the rest through Pillow, as the
+reference does (RGB, the short side scaled to ``scale_to``, then BGR
+float32): ``EncodedBytesToBGRImg`` (shard records), ``LocalImgReader`` and
+``LocalImgReaderWithName`` (files). ``NativeBGRBatchDecoder`` turns raw
+uint8 records into a batch in one call into the host library
+(``native.decode_normalize``); with ``device_normalize=True`` it emits the
+raw uint8 batch instead, for ``nn.InputNormalize`` to cast and normalise
+on the card.
 """
 
 from __future__ import annotations
@@ -26,8 +26,6 @@ import numpy as np
 from bigdl_tpu_torch.dataset.base import (ByteRecord, MiniBatch, Sample,
                                           Transformer)
 from bigdl_tpu_torch.utils.rng import RandomGenerator
-
-DECODERS_WAITING = "ROADMAP A.3 (image decoders)"
 
 
 class LabeledImage:
@@ -286,29 +284,183 @@ class BGRImgPixelNormalizer(Transformer):
             yield LabeledImage(img.data - self.means, img.label)
 
 
-class _Decoder(Transformer):
-    """A decoder of the reference that the port does not have yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__} is not ported "
-                                  f"yet: {DECODERS_WAITING}")
-
-
-class EncodedBytesToBGRImg(_Decoder):
-    """reference ``EncodedBytesToBGRImg`` (JPEG/PNG bytes through Pillow)."""
-
-
-class LocalImgReader(_Decoder):
-    """reference ``LocalImgReader`` (image files through Pillow)."""
-
-
-class LocalImgReaderWithName(_Decoder):
-    """reference ``LocalImgReaderWithName``."""
+def _decode_scaled_bgr(source, scale_to: int, who: str) -> np.ndarray:
+    """Decode with Pillow: RGB, the short side to ``scale_to`` (the long side
+    truncated, as the reference's ``int``), BGR float32."""
+    try:
+        from PIL import Image as PILImage
+    except ImportError as e:  # pragma: no cover
+        raise RuntimeError(f"{who} requires Pillow") from e
+    with PILImage.open(source) as im:
+        im = im.convert("RGB")
+        w, h = im.size
+        if min(w, h) != scale_to:
+            if w < h:
+                im = im.resize((scale_to, int(h * scale_to / w)))
+            else:
+                im = im.resize((int(w * scale_to / h), scale_to))
+        return np.asarray(im, np.float32)[:, :, ::-1]
 
 
-class NativeBGRBatchDecoder(_Decoder):
-    """reference ``NativeBGRBatchDecoder`` (the native batch decoder)."""
+class EncodedBytesToBGRImg(Transformer):
+    """Encoded image bytes (a shard's records) to a scaled BGR image
+    (reference ``EncodedBytesToBGRImg``)."""
+
+    def __init__(self, scale_to: int = 256):
+        self.scale_to = scale_to
+
+    def __call__(self, prev: Iterator[ByteRecord]) -> Iterator[LabeledImage]:
+        import io
+        for rec in prev:
+            arr = _decode_scaled_bgr(io.BytesIO(rec.data), self.scale_to,
+                                     type(self).__name__)
+            yield LabeledImage(arr, rec.label)
 
 
-class MTLabeledBGRImgToBatch(_Decoder):
-    """reference ``MTLabeledBGRImgToBatch`` (threaded decode and collate)."""
+class LocalImgReader(Transformer):
+    """(path, label) items to scaled BGR images read from disk (reference
+    ``LocalImgReader``)."""
+
+    def __init__(self, scale_to: int = 256):
+        self.scale_to = scale_to
+
+    def __call__(self, prev: Iterator[Tuple[str, float]]
+                 ) -> Iterator[LabeledImage]:
+        for path, label in prev:
+            yield LabeledImage(
+                _decode_scaled_bgr(path, self.scale_to, type(self).__name__),
+                label)
+
+
+class LocalImgReaderWithName(LocalImgReader):
+    """``LocalImgReader`` yielding (path, image), so predictions join back
+    to their files (reference ``LocalImgReaderWithName``)."""
+
+    def __call__(self, prev: Iterator[Tuple[str, float]]):
+        for path, label in prev:
+            yield path, LabeledImage(
+                _decode_scaled_bgr(path, self.scale_to, type(self).__name__),
+                label)
+
+
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".gif", ".webp",
+                    ".ppm", ".tif", ".tiff")
+
+
+class MTLabeledBGRImgToBatch(Transformer):
+    """Per-image ``transformer`` on ``workers`` threads, then batches of
+    ``batch_size`` (reference ``MTLabeledBGRImgToBatch``:
+    ``MTTransformer(transformer) >> BGRImgToBatch``); a batch whose images
+    are not ``height`` x ``width`` raises."""
+
+    aggregating = True
+
+    def __init__(self, width: int, height: int, batch_size: int,
+                 transformer: Transformer, workers: int = 4):
+        from bigdl_tpu_torch.dataset.base import MTTransformer
+        self.width, self.height = width, height
+        self._chain = (MTTransformer(transformer, workers=workers)
+                       >> BGRImgToBatch(batch_size))
+
+    def __call__(self, prev: Iterator[LabeledImage]) -> Iterator[MiniBatch]:
+        for batch in self._chain(prev):
+            h, w = batch.data.shape[1:3]
+            if (h, w) != (self.height, self.width):
+                raise ValueError(
+                    f"transformed images are {h}x{w}, expected "
+                    f"{self.height}x{self.width} (the declared batch "
+                    "geometry — add a cropper/resizer to the transformer)")
+            yield batch
+
+
+class NativeBGRBatchDecoder(Transformer):
+    """Raw uint8 records (``row`` x ``col`` x ``channels``, interleaved) to
+    a batch in one call into the host library, ``(x - mean) / std`` per
+    channel fused in, on ``workers`` threads (reference
+    ``NativeBGRBatchDecoder``; ``native.decode_normalize``). With
+    ``device_normalize=True`` the batch stays raw uint8 (a quarter of the
+    bytes to the card) and an ``nn.InputNormalize`` first in the model
+    casts and normalises it there. A short last batch is dropped unless
+    ``drop_remainder`` is false."""
+
+    aggregating = True
+
+    def __init__(self, row: int, col: int, batch_size: int,
+                 mean: Tuple[float, float, float],
+                 std: Tuple[float, float, float],
+                 workers: int = 4, channels: int = 3,
+                 drop_remainder: bool = True,
+                 device_normalize: bool = False):
+        self.row, self.col, self.channels = row, col, channels
+        self.batch_size = batch_size
+        self.workers = workers
+        self.drop_remainder = drop_remainder
+        self.device_normalize = device_normalize
+        n = 1 if channels == 1 else channels
+        self.mean = np.ascontiguousarray(
+            np.broadcast_to(np.asarray(mean, np.float32), (n,)))
+        self.rstd = np.ascontiguousarray(
+            1.0 / np.broadcast_to(np.asarray(std, np.float32), (n,)))
+
+    def _shape(self, n: int) -> tuple:
+        return ((n, self.row, self.col, self.channels) if self.channels > 1
+                else (n, self.row, self.col))
+
+    def _decode(self, raw: np.ndarray, labels) -> MiniBatch:
+        from bigdl_tpu_torch import native
+        n = raw.shape[0]
+        if self.device_normalize:
+            out = raw.reshape(self._shape(n)).copy()
+        else:
+            out = native.decode_normalize(raw, self.mean, self.rstd,
+                                          self.channels, self.workers)
+            out = out.reshape(self._shape(n))
+        return MiniBatch(out, np.asarray(labels, np.float32))
+
+    def __call__(self, prev: Iterator[ByteRecord]) -> Iterator[MiniBatch]:
+        rec_len = self.row * self.col * self.channels
+        raw = np.empty((self.batch_size, rec_len), np.uint8)
+        labels: list = []
+        for rec in prev:
+            data = np.frombuffer(rec.data, np.uint8)
+            if data.size != rec_len:
+                raise ValueError(f"record has {data.size} bytes, expected "
+                                 f"{rec_len} ({self.row}x{self.col}x"
+                                 f"{self.channels})")
+            raw[len(labels)] = data
+            labels.append(rec.label)
+            if len(labels) == self.batch_size:
+                yield self._decode(raw, labels)
+                labels = []
+        if labels and not self.drop_remainder:
+            yield self._decode(raw[:len(labels)], labels)
+
+
+class BGRImgToImageVector(Transformer):
+    """Images to flat f32 feature vectors (reference
+    ``BGRImgToImageVector``), for ``ml.DLClassifier``."""
+
+    def __call__(self, prev: Iterator[LabeledImage]) -> Iterator[Sample]:
+        for img in prev:
+            yield Sample(np.asarray(img.data, np.float32).ravel(), img.label)
+
+
+def image_folder_paths(folder: str, extensions=IMAGE_EXTENSIONS):
+    """(path, 1-based label) pairs of a labelled image tree: one directory
+    per class, labels by sorted class name, files sorted by name
+    (reference ``image_folder_paths``; BigDL's ``DataSet.ImageFolder``).
+    ``extensions=None`` keeps every regular file."""
+    import os
+    pairs = []
+    classes = sorted(d for d in os.listdir(folder)
+                     if os.path.isdir(os.path.join(folder, d)))
+    for label, cls in enumerate(classes, start=1):
+        cls_dir = os.path.join(folder, cls)
+        for name in sorted(os.listdir(cls_dir)):
+            p = os.path.join(cls_dir, name)
+            if not os.path.isfile(p):
+                continue
+            if extensions and not name.lower().endswith(extensions):
+                continue
+            pairs.append((p, float(label)))
+    return pairs

@@ -6,9 +6,8 @@ Record framing (TFRecord):
     uint64 length (LE) | uint32 masked_crc32c(length bytes) |
     data bytes         | uint32 masked_crc32c(data)
 
-masked_crc = rotr15(crc32c(x)) + 0xa282ead8 (mod 2^32). CRC32C is a
-byte-wise loop over a table built with numpy; the events it guards are
-small (a scalar event is about 40 bytes).
+masked_crc = rotr15(crc32c(x)) + 0xa282ead8 (mod 2^32). CRC32C is the host
+library's (``native.crc32c``; without a compiler its byte-wise table loop).
 """
 
 from __future__ import annotations
@@ -23,30 +22,10 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from bigdl_tpu_torch.native import crc32c
 from bigdl_tpu_torch.visualization import proto
 
 _MASK_DELTA = 0xA282EAD8
-_CRC_TABLE: Optional[List[int]] = None
-
-
-def _crc_table() -> List[int]:
-    """The reflected Castagnoli table (polynomial 0x82F63B78)."""
-    global _CRC_TABLE
-    if _CRC_TABLE is None:
-        c = np.arange(256, dtype=np.uint32)
-        for _ in range(8):
-            c = np.where(c & 1, (c >> 1) ^ np.uint32(0x82F63B78), c >> 1)
-        _CRC_TABLE = [int(v) for v in c]
-    return _CRC_TABLE
-
-
-def crc32c(data: bytes) -> int:
-    """CRC32C (Castagnoli), as the reference's."""
-    table = _crc_table()
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = (crc >> 8) ^ table[(crc ^ b) & 0xFF]
-    return crc ^ 0xFFFFFFFF
 
 
 def masked_crc32c(data: bytes) -> int:

@@ -285,6 +285,47 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    CPU's; a ``text_slice`` line logs the corpus, the BPE seconds, ms an
    iteration, the busy share, launches a step, the encode rate and the
    phase's seconds;
+3m. model files and image ingestion (after phase 3l; ``--files-only``
+   runs it alone): (a) the host library (``bigdl_tpu_torch/native``, g++
+   at first use; its build seconds and whether this run built it logged):
+   CRC32C over 64 MiB against the byte-wise table loop (a process of its
+   own beside the phase), the bf16 codec on 64 M floats bit for bit,
+   quickselect, and the batch decode of 256 x 224x224x3 uint8 records
+   within 1e-6 of numpy, each timed; (b) 320 training and 64 validation
+   JPEGs (10 classes, sides 256-512, from a seed) packed by ``seqfilegen
+   -p 4 -b 64`` (a process of its own beside (a)): every record equal to
+   its file's bytes and label, by the native scan and the Python framing
+   alike, and the decode rates of the per-record PIL path and the native
+   batch path; (c) ``inception train --folder SHARDS`` at full width
+   (Inception v1, 1000 classes, 224 crops, B=32, 10 iterations, then
+   validation): finite losses, Top-1 and Top-5 over the 64, ms an
+   iteration after 2, the busy share (profiler, 4 iterations) and the
+   epoch's data-wait share, and the same run on in-memory synthetic images
+   as a control; then ``--caffeModel`` (a seeded caffemodel with Inception v1's
+   57 layer names) and ``--torchModel`` (VGG-16 of 10 classes saved as
+   ``.t7``), each on the validation shards, each file also loaded by a
+   direct ``load_caffe`` / ``load_torch`` call (timed): every parameter
+   of that load and of the app's model equal to its blob or its saved
+   value; (d) ``modelvalidator`` with ``-t torch -m vgg16`` (that
+   ``.t7``), ``-t caffe -m alexnet --caffeDefPath`` (a seeded caffemodel
+   and a deploy prototxt, 10 classes) and ``-t bigdl -m resnet50`` (a
+   ``file_io`` snapshot, 10 classes), each on a copy of the validation
+   folder placed by the model's own ranking (of every 4 images, its
+   first, its third and twice its last class): Top-1 and Top-5 equal to
+   the model's argmax over the same batches on the card and strictly
+   between 0 and 64 (16 and 32 as placed), 4 images' log-probs within
+   FILES_LOGPROB_RTOL (over the largest) of a CPU copy's with TF32 off,
+   and read with TF32 on; ``imageclassifier`` on the snapshot (a process
+   of its own beside (c)-(d)): its rows equal the model's argmax; (e)
+   ``udfpredictor`` with phase 3l's classifier bundle (``--files-only``
+   trains one for one epoch) over 200 seeded texts: classes equal to the
+   model's argmax, ``make_udf`` alike, and ``--watch`` classifies a file
+   written after its first poll exactly once; every entry point of the
+   host library called; a ``model_files`` line logs the shards' MB,
+   ``seqfilegen``'s seconds, both decode rates, Inception's ms an
+   iteration, busy and data-wait shares, the caffemodel and ``.t7`` load
+   seconds, the validators' images/s, the texts/s, the library's call
+   counts and the phase's seconds;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -310,10 +351,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``torch.var_mean`` of its output; K5 also at each of the training
    step's 15 distinct 1x1 shapes, summed over its 36 launches; and, from
    phase 3i, K6 at VGG-16's 224x224 64->64 and 14x14 512->512 at B=128 and
-   K5 at Inception v2's largest 1x1 at B=256); the bound
-   (``bound_ms``) is the larger of the bytes the function must move over
-   3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data sheet,
-   bf16 dense), and ``bound_measured_ms`` prices the same bytes at the
+   K5 at Inception v2's largest 1x1 at B=256; from phase 3l, K1, K2 and K3
+   in f32, their ``fma`` variants, at the text LM's causal B=8 S=512 N=12
+   D=64, with the f32 ``scaled_dot_product_attention`` as the library);
+   the bound (``bound_ms``) is the larger of the bytes the function must
+   move over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data
+   sheet, bf16 dense; 67 TFLOP/s for the f32 rows), and ``bound_measured_ms`` prices the same bytes at the
    roof measured in phase 4a. Phase 1 logs each kernel's ``-Xptxas -v``
    report (registers, shared memory, spills) and whether this run built it.
    K7's rows come from phase 4a's run: the best
@@ -335,7 +378,7 @@ seed's readings and no result line.
 ``python3 chip_smoke.py --zoo-only`` builds the kernels and runs only
 phase 3i and its kernel rows, printing them and no result line;
 ``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
-phase 3k (it has no kernel rows).
+phase 3k and ``--files-only`` only phase 3m (neither has kernel rows).
 
 ``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
 phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
@@ -351,6 +394,7 @@ and this one's on one timer, within one machine.
 
 import argparse
 import collections
+import itertools
 import json
 import os
 import shutil
@@ -388,6 +432,9 @@ def check(cond: bool, what: str) -> None:
 #: seconds of each phase of a whole run, by phase (the kernel checks
 #: together as "2"), logged with ``total_s``
 PHASE_S = collections.defaultdict(float)
+#: the wall clock when the script started (phase 3m asks whether the host
+#: library was built since, by this process or by an earlier phase's)
+RUN_T0 = time.time()
 
 
 def timed(phase: str, fn, *args):
@@ -5275,112 +5322,144 @@ def run_perf() -> tuple:
     return dict(total), rows
 
 
-def time_perf_kernels(launches: dict) -> list:
-    """The ``kernels`` line's phase 3j rows: K1, K2 and K3 at ViT-S/16's
-    shape (B=256 S=196 N=6 D=64, non-causal) and transformer_1b's (B=8
-    S=2048 N=16 D=128, causal), bf16 (``mma``), each checked once more
-    against its plain version, then timed by ``graph_ms`` beside its plain
-    version and ``scaled_dot_product_attention`` (forward; for K2 and K3
-    its backward: forward and backward less forward, one call for dQ, dK
-    and dV). ``launches``: phase 3j's runs (c) and (e) together."""
+def flash_rows(name: str, b: int, s: int, n: int, d: int, causal: bool,
+               dtype, launches: dict, per_step: str, launched_by: str,
+               seed: int = 37) -> list:
+    """K1, K2 and K3 at one shape and dtype (bf16: their ``mma`` variants;
+    f32: ``fma``), each checked once more against its plain version, then
+    timed by ``graph_ms`` beside its plain version and
+    ``scaled_dot_product_attention`` (forward; for K2 and K3 its backward:
+    forward and backward less forward, one call for dQ, dK and dV); the
+    bound prices the operations at the dtype's peak. ``launches``: the
+    counts of the runs ``launched_by`` names; ``per_step``: how many a
+    step the structure gives."""
     from bigdl_tpu_torch.ops.flash_attention import (
         bwd_delta, flash_attention_plain, flash_attention_with_lse,
         flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = _qkv(gen, b, s, s, n, d, dtype)
+    g_o = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    po, _ = flash_attention_plain(q, k, v, causal=causal)
+    err_o, ok = flash_o_close(o, po)
+    check(ok, f"K1 at {name}'s timed shape: {err_o}")
+    del po
+    args = (q, k, v, g_o, lse, bwd_delta(o, g_o, None), causal,
+            1.0 / d ** 0.5)
+    errs = {}
+    for gname, got, ref in (
+            ("dq", (flash_bwd_dq(*args),), (flash_bwd_dq_plain(*args),)),
+            ("dkv", flash_bwd_dkv(*args), flash_bwd_dkv_plain(*args))):
+        errs[gname] = 0.0
+        for g1, r1 in zip(got, ref):
+            e, _, ok = bwd_close(g1, r1)
+            check(ok, f"{gname} at {name}'s timed shape: {e}")
+            errs[gname] = max(errs[gname], e)
+    what = f"{name} B={b} S={s} N={n} D={d}"
+    ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, causal=causal),
+                  f"flash_fwd {what}")
+    plain_ms = graph_ms(lambda: flash_attention_plain(q, k, v,
+                                                      causal=causal),
+                        f"flash_fwd plain {what}", per_graph=3, replays=3)
+    ms_dq = graph_ms(lambda: flash_bwd_dq(*args), f"flash_bwd_dq {what}")
+    ms_dkv = graph_ms(lambda: flash_bwd_dkv(*args), f"flash_bwd_dkv {what}")
+    plain_dq = graph_ms(lambda: flash_bwd_dq_plain(*args),
+                        f"flash_bwd_dq plain {what}", per_graph=3, replays=3)
+    plain_dkv = graph_ms(lambda: flash_bwd_dkv_plain(*args),
+                         f"flash_bwd_dkv plain {what}", per_graph=3,
+                         replays=3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    g_t = g_o.transpose(1, 2)
+    lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
+    fwd_ms = graph_ms(lib, f"sdpa {what}")
+    fwd_bwd_ms = graph_ms(
+        lambda: torch.autograd.grad(lib(), (qt, kt, vt), g_t),
+        f"sdpa forward and backward {what}")
+    esize = torch.finfo(dtype).bits // 8
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
+    bsnd, bns = b * s * n * d, b * n * s
+    reads = 4 * bsnd * esize + 2 * bns * 4        # q, k, v, dO; lse, delta
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = (f"{'causal' if causal else 'non-causal'} {dname} B={b} S={s} "
+             f"N={n} D={d}")
+    base = {"route": "cuda",
+            "variant": "mma" if dtype == torch.bfloat16 else "fma",
+            "shape": shape, "sdpa_forward_ms": fwd_ms,
+            "sdpa_forward_and_backward_ms": fwd_bwd_ms}
+    launches_note = (f"launches: {launched_by} (by the structure, "
+                     f"{per_step})")
+    rows = [
+        {"name": f"flash_fwd {name}", **base,
+         "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "bigdl_tpu/ops/flash_attention.py:104",
+         "launches": launches.get("flash_fwd", 0),
+         "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
+         **bound(4 * bsnd * esize + bns * 4, 4 * d * pairs, peak),
+         "library_ms": fwd_ms,
+         "work": f"one forward launch, {shape}; {launches_note}; "
+                 "library_ms: scaled_dot_product_attention"},
+        {"name": f"flash_bwd_dq {name}", **base,
+         "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "bigdl_tpu/ops/flash_attention.py:146",
+         "launches": launches.get("flash_bwd_dq", 0),
+         "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_dq,
+         **bound(reads + bsnd * esize, 3 * 2 * d * pairs, peak),
+         "library_ms": fwd_bwd_ms - fwd_ms,
+         "work": f"one backward launch, {shape}; {launches_note}; "
+                 "library_ms: the backward of "
+                 "scaled_dot_product_attention (forward and backward "
+                 "less forward; dQ, dK and dV in one call)"},
+        {"name": f"flash_bwd_dkv {name}", **base,
+         "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "bigdl_tpu/ops/flash_attention.py:186",
+         "launches": launches.get("flash_bwd_dkv", 0),
+         "max_abs_err": errs["dkv"], "ms": ms_dkv, "plain_ms": plain_dkv,
+         **bound(reads + 2 * bsnd * esize, 4 * 2 * d * pairs, peak),
+         "library_ms": fwd_bwd_ms - fwd_ms,
+         "work": f"one backward launch, {shape}; {launches_note}; "
+                 "library_ms as the dQ row's"}]
+    del q, k, v, g_o, o, lse, args, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_perf_kernels(launches: dict) -> list:
+    """The ``kernels`` line's phase 3j rows: K1, K2 and K3 at ViT-S/16's
+    shape (B=256 S=196 N=6 D=64, non-causal) and transformer_1b's (B=8
+    S=2048 N=16 D=128, causal), bf16 (``mma``), by ``flash_rows``.
+    ``launches``: phase 3j's runs (c) and (e) together."""
     rows = []
     for name, b, s, n, d, causal in PERF_FLASH_SHAPES:
-        gen = torch.Generator(device="cuda").manual_seed(37)
-        q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
-        g_o = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
-        po, _ = flash_attention_plain(q, k, v, causal=causal)
-        err_o, ok = flash_o_close(o, po)
-        check(ok, f"K1 at {name}'s timed shape: {err_o}")
-        del po
-        args = (q, k, v, g_o, lse, bwd_delta(o, g_o, None), causal,
-                1.0 / d ** 0.5)
-        errs = {}
-        for gname, got, ref in (
-                ("dq", (flash_bwd_dq(*args),), (flash_bwd_dq_plain(*args),)),
-                ("dkv", flash_bwd_dkv(*args), flash_bwd_dkv_plain(*args))):
-            errs[gname] = 0.0
-            for g1, r1 in zip(got, ref):
-                e, _, ok = bwd_close(g1, r1)
-                check(ok, f"{gname} at {name}'s timed shape: {e}")
-                errs[gname] = max(errs[gname], e)
-        what = f"{name} B={b} S={s} N={n} D={d}"
-        ms = graph_ms(lambda: flash_attention_with_lse(q, k, v,
-                                                       causal=causal),
-                      f"flash_fwd {what}")
-        plain_ms = graph_ms(lambda: flash_attention_plain(q, k, v,
-                                                          causal=causal),
-                            f"flash_fwd plain {what}", per_graph=3,
-                            replays=3)
-        ms_dq = graph_ms(lambda: flash_bwd_dq(*args), f"flash_bwd_dq {what}")
-        ms_dkv = graph_ms(lambda: flash_bwd_dkv(*args),
-                          f"flash_bwd_dkv {what}")
-        plain_dq = graph_ms(lambda: flash_bwd_dq_plain(*args),
-                            f"flash_bwd_dq plain {what}", per_graph=3,
-                            replays=3)
-        plain_dkv = graph_ms(lambda: flash_bwd_dkv_plain(*args),
-                             f"flash_bwd_dkv plain {what}", per_graph=3,
-                             replays=3)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        g_t = g_o.transpose(1, 2)
-        lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
-        fwd_ms = graph_ms(lib, f"sdpa {what}")
-        fwd_bwd_ms = graph_ms(
-            lambda: torch.autograd.grad(lib(), (qt, kt, vt), g_t),
-            f"sdpa forward and backward {what}")
-        pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
-        bsnd, bns = b * s * n * d, b * n * s
-        reads = 4 * bsnd * 2 + 2 * bns * 4        # q, k, v, dO; lse, delta
         per_step = ({"vit_s16": f"{VIT_LAYERS} of each a step (12 layers)",
                      "transformer_1b": f"K1 {2 * LM1B_LAYERS} a step (20 "
                      "layers, each recomputed under --remat block), K2 and "
                      f"K3 {LM1B_LAYERS}"})[name]
-        shape = (f"{'causal' if causal else 'non-causal'} bf16 B={b} S={s} "
-                 f"N={n} D={d}")
-        base = {"route": "cuda", "variant": "mma", "shape": shape,
-                "sdpa_forward_ms": fwd_ms,
-                "sdpa_forward_and_backward_ms": fwd_bwd_ms}
-        launches_note = (f"launches: phase 3j's vit_s16 and transformer_1b "
-                         f"runs together (by the structure, {per_step})")
-        rows += [
-            {"name": f"flash_fwd {name}", **base,
-             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
-             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
-             "launches": launches.get("flash_fwd", 0),
-             "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
-             **bound(4 * bsnd * 2 + bns * 4, 4 * d * pairs),
-             "library_ms": fwd_ms,
-             "work": f"one forward launch, {shape}; {launches_note}; "
-                     "library_ms: scaled_dot_product_attention"},
-            {"name": f"flash_bwd_dq {name}", **base,
-             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
-             "replaces": "bigdl_tpu/ops/flash_attention.py:146",
-             "launches": launches.get("flash_bwd_dq", 0),
-             "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_dq,
-             **bound(reads + bsnd * 2, 3 * 2 * d * pairs),
-             "library_ms": fwd_bwd_ms - fwd_ms,
-             "work": f"one backward launch, {shape}; {launches_note}; "
-                     "library_ms: the backward of "
-                     "scaled_dot_product_attention (forward and backward "
-                     "less forward; dQ, dK and dV in one call)"},
-            {"name": f"flash_bwd_dkv {name}", **base,
-             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
-             "replaces": "bigdl_tpu/ops/flash_attention.py:186",
-             "launches": launches.get("flash_bwd_dkv", 0),
-             "max_abs_err": errs["dkv"], "ms": ms_dkv,
-             "plain_ms": plain_dkv,
-             **bound(reads + 2 * bsnd * 2, 4 * 2 * d * pairs),
-             "library_ms": fwd_bwd_ms - fwd_ms,
-             "work": f"one backward launch, {shape}; {launches_note}; "
-                     "library_ms as the dQ row's"}]
-        del q, k, v, g_o, o, lse, args, qt, kt, vt
-        torch.cuda.empty_cache()
+        rows += flash_rows(name, b, s, n, d, causal, torch.bfloat16,
+                           launches, per_step,
+                           "phase 3j's vit_s16 and transformer_1b runs "
+                           "together")
     log({"perf_kernel_timing": [{k: r[k] for k in ("name", "ms", "plain_ms",
+                                                   "bound_ms", "library_ms")}
+                                for r in rows]})
+    return rows
+
+
+def time_text_kernels(launches: dict) -> list:
+    """The ``kernels`` line's phase 3l rows: K1, K2 and K3 in f32 (their
+    ``fma`` variants) at the text LM's training shape (causal, B=8 S=512
+    N=12 D=64), by ``flash_rows``. ``launches``: phase 3l's counts, all
+    ``fma`` (they are in the K1, K2 and K3 rows' counts too)."""
+    fma = {name: launches[name] - launches[f"{name}_mma"]
+           for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    rows = flash_rows("text_f32", TRAIN_BATCH, TRAIN_SEQ,
+                      CONFIG["num_heads"], 64, True, torch.float32, fma,
+                      "12 of each a training step (12 layers), K1 12 a "
+                      "prefill", "phase 3l's text LM training and its "
+                      "prefills", seed=41)
+    log({"text_kernel_timing": [{k: r[k] for k in ("name", "ms", "plain_ms",
                                                    "bound_ms", "library_ms")}
                                 for r in rows]})
     return rows
@@ -6681,8 +6760,8 @@ TEXT_SAMPLING = ["--topK", str(TEXT_TOP_K), "--seed", str(TEXT_SAMPLE_SEED)]
 
 def text_cli(argv: list, **kw) -> subprocess.Popen:
     """``python -m bigdl_tpu_torch.apps.<argv>`` started from the
-    repository's root (phase 3l runs its two CLI processes beside its own
-    work)."""
+    repository's root (phases 3l and 3m run their CLI processes beside
+    their own work)."""
     return subprocess.Popen(
         [sys.executable, "-m", *argv],
         cwd=os.path.dirname(os.path.abspath(__file__)), **kw)
@@ -6888,6 +6967,26 @@ def text_summary(root: str, proc, log_file, t_start: float) -> dict:
     return res
 
 
+#: phase 3l's textclassifier bundle (the model, vocabulary, embeddings and
+#: sequence length, as ``apps.textclassifier train --checkpoint`` saves
+#: it), which phase 3m's udfpredictor reads; {"dir", "path"}, removed by 3m
+TEXT_BUNDLE = {}
+
+
+def save_classifier_bundle(model, prepared, seq_len: int = 1000) -> str:
+    """Save ``model`` with ``textclassifier.prepare``'s vocabulary and
+    embeddings as a classifier bundle in a directory of its own."""
+    import tempfile
+
+    from bigdl_tpu_torch.utils import file_io
+    folder = tempfile.mkdtemp(prefix="bigdl_bundle_")
+    path = os.path.join(folder, "classifier_bundle")
+    file_io.save({"model": model, "word2index": prepared[4],
+                  "embeddings": prepared[3], "seq_len": seq_len}, path)
+    TEXT_BUNDLE.update(dir=folder, path=path)
+    return path
+
+
 def text_apps(root: str) -> dict:
     """(d) The textclassifier at the reference's defaults, the rnn app,
     ``DLClassifier`` and ``Tensor`` on the card."""
@@ -6901,6 +7000,7 @@ def text_apps(root: str) -> dict:
         "--maxSequenceLength", "1000", "--embeddingDim", "100", "-b", "128",
         "-e", str(TC_EPOCHS), "--device", "cuda"])
     opt.optimize()
+    save_classifier_bundle(opt.model, prepared)
     tc_losses = [h["loss"] for h in opt.history]
     top1 = [v["results"]["Top1Accuracy"].result()[0]
             for v in opt.validation_history]
@@ -6997,6 +7097,765 @@ def run_text() -> dict:
     return {k: launches[k] for k in flash_counters()}
 
 
+# ------------------------------------------------- 3m. model files, images
+FILES_SEED = 83
+FILES_CLASSES = 10
+FILES_TRAIN, FILES_VAL = 320, 64      # JPEGs; each side drawn from FILES_SIDES
+FILES_SIDES = (256, 512)
+FILES_BATCH = 32
+FILES_WARMUP = 2                      # iterations before the timed ones
+FILES_BUSY_ITERATIONS = 4             # iterations the profiler reads
+FILES_CRC_BYTES = 64 << 20
+FILES_CODEC_FLOATS = 64 << 20
+FILES_DECODE = (256, 224, 224, 3)     # the native batch decode's batch
+FILES_DECODE_ATOL = 1e-6
+FILES_PIL_RECORDS = 64                # records the per-record PIL rate reads
+FILES_TEXTS = 200
+#: card against CPU log-probs (f32, TF32 off), over the largest |log-prob|;
+#: on an NVIDIA H100 80GB HBM3 (700 W) the three validators' models read
+#: 1.2e-6 to 3.1e-6 with TF32 off and 4.6e-4 to 1.1e-3 with it on, so the
+#: limit lies between the two, and a reading with TF32 on must exceed it
+FILES_LOGPROB_RTOL = 3e-5
+#: of every 4 validation images (in path order), the rank in the model's
+#: own ordering of the class whose folder it is placed in for (d): one
+#: first, one third, two last, so Top-1 reads 16 and Top-5 32 of 64
+FILES_PLACED_RANKS = (0, 2, -1, -1)
+FILES_MEAN_BGR = (0.406 * 255, 0.456 * 255, 0.485 * 255)
+FILES_STD_BGR = (0.225 * 255, 0.224 * 255, 0.229 * 255)
+
+
+def files_tree(root: str) -> str:
+    """FILES_TRAIN + FILES_VAL seeded JPEGs under ``root/tree/{train,val}``
+    in FILES_CLASSES class directories, each a bilinear upscale of 8x8
+    random pixels to sides drawn from FILES_SIDES (quality 90), written on
+    8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+    rng = np.random.default_rng(FILES_SEED)
+    tree = os.path.join(root, "tree")
+    jobs = []
+    for split, n in (("train", FILES_TRAIN), ("val", FILES_VAL)):
+        for i in range(n):
+            w, h = (int(v) for v in rng.integers(FILES_SIDES[0],
+                                                 FILES_SIDES[1] + 1, 2))
+            low = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+            path = os.path.join(tree, split, f"class_{i % FILES_CLASSES:02d}",
+                                f"{i:04d}.jpg")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            jobs.append((path, low, w, h))
+
+    def write(job):
+        path, low, w, h = job
+        Image.fromarray(low).resize((w, h), Image.BILINEAR).save(
+            path, "JPEG", quality=90)
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, jobs))
+    return tree
+
+
+def files_native(root: str, crc_path: str, crc_data: bytes) -> dict:
+    """(a) The host library: built from the port's sources (or loaded, if
+    an earlier phase of this process built it), each entry point against
+    its numpy plain version on seeded inputs (CRC32C over 64 MiB, the bf16
+    codec on 64 M floats bit for bit, quickselect, the batch decode within
+    FILES_DECODE_ATOL), with their times."""
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.visualization import tensorboard
+    t = time.perf_counter()
+    check(native.is_loaded(), "the host library did not load")
+    res = {"library": dict(native.BUILD_INFO),
+           "first_use_s": time.perf_counter() - t}
+    rng = np.random.default_rng(FILES_SEED + 1)
+    t = time.perf_counter()
+    crc = native.crc32c(crc_data)
+    res["crc32c_gb_per_s"] = len(crc_data) / (time.perf_counter() - t) / 1e9
+    check(tensorboard.crc32c(crc_data) == crc, "visualization's CRC32C")
+    res["crc32c"] = crc
+
+    x = rng.standard_normal(FILES_CODEC_FLOATS, dtype=np.float32)
+    t = time.perf_counter()
+    v = native.fp32_to_bf16(x)
+    res["codec_compress_gb_per_s"] = x.nbytes / (time.perf_counter() - t) / 1e9
+    check(np.array_equal(v, native.fp32_to_bf16_plain(x)), "fp32_to_bf16")
+    w = native.bf16_to_fp32(v)
+    check(np.array_equal(w.view(np.uint32),
+                         native.bf16_to_fp32_plain(v).view(np.uint32)),
+          "bf16_to_fp32")
+    other = native.fp32_to_bf16(x[::-1].copy())
+    a, b = v.copy(), v.copy()
+    native.bf16_add(a, other)
+    native.bf16_add_plain(b, other)
+    check(np.array_equal(a, b), "bf16_add")
+    a, b = w.copy(), w.copy()
+    native.bf16_accumulate(a, other)
+    native.bf16_accumulate_plain(b, other)
+    check(np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+          "bf16_accumulate")
+    del x, v, w, other, a, b
+    vals = rng.standard_normal(1 << 20)
+    for k in (1, 1000, 1 << 20):
+        check(native.kth_largest(vals, k) == native.kth_largest_plain(vals, k),
+              f"kth_largest k={k}")
+
+    n, h, wd, c = FILES_DECODE
+    raw = rng.integers(0, 256, (n, h * wd * c), dtype=np.uint8)
+    mean = np.asarray(FILES_MEAN_BGR, np.float32)
+    rstd = (1.0 / np.asarray(FILES_STD_BGR, np.float32)).astype(np.float32)
+    t = time.perf_counter()
+    out = native.decode_normalize(raw, mean, rstd, c, 8)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plain = native.decode_normalize_plain(raw, mean, rstd, c)
+    plain_s = time.perf_counter() - t
+    err = float(np.abs(out - plain).max())
+    check(err <= FILES_DECODE_ATOL, f"decode_normalize: {err}")
+    res.update(decode_max_abs_err=err,
+               decode_native_images_per_s=n / native_s,
+               decode_numpy_images_per_s=n / plain_s)
+    res["raw"] = raw   # (b) decodes these records again, as a transformer
+    return res
+
+
+def files_records(tree: str, shards: str, raw: np.ndarray) -> dict:
+    """(b) Every record of ``seqfilegen``'s shards equals its file's bytes
+    and label, by the host library's scan and by the Python framing alike;
+    the decode rates of the per-record PIL path and the native batch
+    path."""
+    from bigdl_tpu_torch.dataset.base import ByteRecord
+    from bigdl_tpu_torch.dataset.image import (EncodedBytesToBGRImg,
+                                               NativeBGRBatchDecoder,
+                                               image_folder_paths)
+    from bigdl_tpu_torch.dataset.shards import (list_shards, read_shard,
+                                                read_shard_plain)
+    res = {"shard_files": 0, "shards_mb": 0.0}
+    for split in ("train", "val"):
+        paths = list_shards(os.path.join(shards, split))
+        res["shard_files"] += len(paths)
+        res["shards_mb"] += sum(os.path.getsize(p) for p in paths) / 2 ** 20
+        scanned = [(r.label, r.data) for p in paths for r in read_shard(p)]
+        framed = [(r.label, r.data) for p in paths
+                  for r in read_shard_plain(p)]
+        check(scanned == framed, f"{split}: the native scan and the Python "
+                                 "framing disagree")
+        files = []
+        for path, label in image_folder_paths(os.path.join(tree, split)):
+            with open(path, "rb") as f:
+                files.append((label, f.read()))
+        check(sorted(scanned) == sorted(files),
+              f"{split}: the shards' records are not the files")
+        res[f"{split}_records"] = len(scanned)
+    records = [ByteRecord(d, lbl) for lbl, d in scanned[:FILES_PIL_RECORDS]]
+    t = time.perf_counter()
+    imgs = list(EncodedBytesToBGRImg(256)(iter(records)))
+    res["decode_pil_images_per_s"] = len(imgs) / (time.perf_counter() - t)
+    n, h, w, c = FILES_DECODE
+    batch = [ByteRecord(row.tobytes(), 1.0) for row in raw]
+    t = time.perf_counter()
+    (out,) = NativeBGRBatchDecoder(h, w, n, FILES_MEAN_BGR, FILES_STD_BGR,
+                                   workers=8)(iter(batch))
+    res["decode_native_batch_images_per_s"] = n / (time.perf_counter() - t)
+    check(out.data.shape == (n, h, w, c), f"native batch {out.data.shape}")
+    return res
+
+
+class WaitTimed:
+    """A training dataset whose ``data(train=True)`` iterator is timed:
+    the seconds spent waiting in ``next`` (for the pipeline's batches)
+    over the epoch's wall time, and the card's busy share under
+    ``torch.profiler`` over FILES_BUSY_ITERATIONS iterations after
+    FILES_WARMUP (a synchronize at each end; the profiler's processing
+    stays outside the windows)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.stats = {"wait_s": 0.0, "wall_s": 0.0, "busy_s": 0.0,
+                      "busy_wall_s": 0.0}
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def data(self, train: bool):
+        if not train:
+            return self.base.data(train)
+        return self._timed(self.base.data(train))
+
+    def _timed(self, it):
+        from torch.profiler import ProfilerActivity, profile
+        prof, t_prof, outside = None, 0.0, 0.0
+        t0 = time.perf_counter()
+        try:
+            for i in itertools.count():
+                if i == FILES_WARMUP:
+                    t = time.perf_counter()
+                    torch.cuda.synchronize()
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.start()
+                    t_prof = time.perf_counter()
+                    outside += t_prof - t
+                elif prof is not None and i == FILES_WARMUP + \
+                        FILES_BUSY_ITERATIONS:
+                    t = time.perf_counter()
+                    torch.cuda.synchronize()
+                    self.stats["busy_wall_s"] = time.perf_counter() - t_prof
+                    prof.stop()
+                    self.stats["busy_s"] = sum(
+                        e.self_device_time_total for e in prof.key_averages()
+                        if e.self_device_time_total > 0) / 1e6
+                    prof = None
+                    outside += time.perf_counter() - t
+                t = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    self.stats["wait_s"] += time.perf_counter() - t
+                yield item
+        finally:
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.stop()
+            self.stats["wall_s"] = time.perf_counter() - t0 - outside
+
+
+def files_inception_opt(argv: list):
+    """``inception train ARGV --device cuda`` as the app builds it: its
+    ``Optimizer``, not yet started."""
+    from bigdl_tpu_torch.apps import inception as app
+    return app.optimizer([*argv, "--device", "cuda"])[0]
+
+
+def files_check_train(opt, what: str, iterations: int, val_count: int):
+    losses = [h["loss"] for h in opt.history]
+    check(len(losses) == iterations and np.isfinite(losses).all(),
+          f"{what}: losses {losses}")
+    (val,) = opt.validation_history
+    got = {k: (r.correct, r.count) for k, r in val["results"].items()}
+    check(set(got) == {"Top1Accuracy", "Top5Accuracy"}
+          and all(c == val_count for _, c in got.values()),
+          f"{what}: validation {got}")
+    return losses, got
+
+
+def files_check_blobs(model, blobs: dict) -> int:
+    """The number of ``model``'s modules named in ``blobs`` whose weight
+    (conv blobs OIHW, stored HWIO) and bias equal their blobs; raises at
+    the first that does not."""
+    n = 0
+    for m in model.modules():
+        b = blobs.get(m.get_name())
+        if b is None or not hasattr(m, "weight"):
+            continue
+        w = b[0] if b[0].ndim == 2 else np.transpose(b[0], (2, 3, 1, 0))
+        check(np.array_equal(m.weight.detach().cpu().numpy(), w)
+              and np.array_equal(m.bias.detach().cpu().numpy(), b[1]),
+              f"caffe layer {m.get_name()} is not its blob")
+        n += 1
+    return n
+
+
+def files_check_state(model, saved: dict, what: str) -> None:
+    state = model.state_dict()
+    check(state.keys() == saved.keys()
+          and all(torch.equal(state[k], saved[k]) for k in saved),
+          f"{what}: the .t7 reloaded with other values")
+
+
+def kaiming_blobs(model, rng) -> list:
+    """Caffe layers for every named conv and linear of a port model, blobs
+    drawn N(0, 2 / fan_in) (weights) and N(0, 0.01) (biases): conv
+    (O, I/g, kH, kW), linear (out, in)."""
+    from bigdl_tpu_torch import nn as tnn
+    layers = []
+    for m in model.modules():
+        if isinstance(m, (tnn.SpatialConvolution, tnn.SpaceToDepthConv7)):
+            fan_in = m.n_input_plane // m.n_group * m.kernel_h * m.kernel_w
+            w = rng.normal(0, (2 / fan_in) ** 0.5,
+                           (m.n_output_plane, m.n_input_plane // m.n_group,
+                            m.kernel_h, m.kernel_w)).astype(np.float32)
+            layers.append((m.get_name(), "Convolution", m, [
+                w, rng.normal(0, 0.01, m.n_output_plane).astype(np.float32)]))
+        elif isinstance(m, tnn.Linear):
+            w = rng.normal(0, (2 / m.input_size) ** 0.5,
+                           (m.output_size, m.input_size)).astype(np.float32)
+            layers.append((m.get_name(), "InnerProduct", m, [
+                w, rng.normal(0, 0.01, m.output_size).astype(np.float32)]))
+    return layers
+
+
+def write_caffemodel(path: str, layers: list) -> int:
+    """A binary NetParameter (``layer`` = 100: name 1, type 2, blobs 7;
+    BlobProto: shape 7 with packed dims, packed float data 5), written by
+    hand; returns its bytes."""
+    def varint(n):
+        out = bytearray()
+        while True:
+            b, n = n & 0x7F, n >> 7
+            out.append(b | (0x80 if n else 0))
+            if not n:
+                return bytes(out)
+
+    def field(num, payload):
+        return varint((num << 3) | 2) + varint(len(payload)) + payload
+    with open(path, "wb") as f:
+        for name, type_, _, blobs in layers:
+            body = field(1, name.encode()) + field(2, type_.encode())
+            for b in blobs:
+                dims = b"".join(varint(d) for d in b.shape)
+                body += field(7, field(7, field(1, dims))
+                              + field(5, np.ascontiguousarray(
+                                  b, "<f4").tobytes()))
+            f.write(field(100, body))
+    return os.path.getsize(path)
+
+
+def deploy_prototxt(path: str, name: str, layers: list) -> None:
+    """A deploy definition naming ``layers``' convs and linears."""
+    lines = [f'name: "{name}"', 'input: "data"',
+             "input_shape { dim: [1, 3, 227, 227] }"]
+    for lname, type_, m, _ in layers:
+        if type_ == "Convolution":
+            param = (f"convolution_param {{ num_output: {m.n_output_plane} "
+                     f"kernel_size: {m.kernel_h} stride: {m.stride_h} "
+                     f"pad: {m.pad_h} group: {m.n_group} }}")
+        else:
+            param = f"inner_product_param {{ num_output: {m.output_size} }}"
+        lines.append(f'layer {{ name: "{lname}" type: "{type_}" {param} }}')
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def files_inception(root: str, shards: str) -> dict:
+    """(c) ``inception train --folder`` at full width (Inception v1, 1000
+    classes, 224 crops, B=FILES_BATCH, one epoch of FILES_TRAIN images,
+    then validation): ms an iteration after FILES_WARMUP, the busy and
+    data-wait shares of the epoch; the same run on in-memory synthetic
+    images as the control; then ``--caffeModel`` (a seeded caffemodel
+    with Inception v1's layer names) and ``--torchModel`` (VGG-16 with
+    FILES_CLASSES classes saved as ``.t7``), each on a small folder (the
+    validation shards for both splits). Each file is also loaded by a
+    direct ``load_caffe`` / ``load_torch`` call, timed; every parameter
+    of that load and of the app's model equals its blob or its saved
+    value."""
+    import bigdl_tpu_torch.interop as interop
+    from bigdl_tpu_torch.models import inception, vgg
+    res = {}
+    t = time.perf_counter()
+    opt = files_inception_opt(["-f", shards, "-b", str(FILES_BATCH),
+                               "-e", "1"])
+    timed = opt.dataset = WaitTimed(opt.dataset)
+    opt.optimize()
+    res["folder_run_s"] = time.perf_counter() - t
+    iterations = FILES_TRAIN // FILES_BATCH
+    losses, top = files_check_train(opt, "inception --folder", iterations,
+                                    FILES_VAL)
+    seconds = [h["seconds"] for h in opt.history[FILES_WARMUP:]]
+    st = timed.stats
+    res.update(losses=losses, validation=top,
+               ms_per_iteration=float(np.median(seconds)) * 1e3,
+               busy_share=st["busy_s"] / max(st["busy_wall_s"], 1e-9),
+               data_wait_share=st["wait_s"] / st["wall_s"],
+               epoch_wall_s=st["wall_s"])
+    # the control: the same step on in-memory synthetic images (no decode
+    # threads, no prefetch)
+    t = time.perf_counter()
+    opt = files_inception_opt(["--synthetic-size", str(FILES_TRAIN), "-b",
+                               str(FILES_BATCH), "-e", "1"])
+    opt.optimize()
+    res["synthetic_run_s"] = time.perf_counter() - t
+    files_check_train(opt, "inception on synthetic images", iterations,
+                      FILES_TRAIN)
+    res["synthetic_ms_per_iteration"] = float(np.median(
+        [h["seconds"] for h in opt.history[FILES_WARMUP:]])) * 1e3
+
+    small = os.path.join(root, "small_shards")
+    os.makedirs(small)
+    for split in ("train", "val"):
+        os.symlink(os.path.join(shards, "val"), os.path.join(small, split))
+    small_argv = ["-f", small, "-b", str(FILES_BATCH), "-e", "1"]
+    small_iters = FILES_VAL // FILES_BATCH
+
+    rng = np.random.default_rng(FILES_SEED + 2)
+    layers = kaiming_blobs(inception.build(1000, device="cpu"), rng)
+    caffemodel = os.path.join(root, "inception.caffemodel")
+    res["caffemodel_mb"] = write_caffemodel(caffemodel, layers) / 2 ** 20
+    blobs = {name: b for name, _, _, b in layers}
+    model = inception.build(1000, device="cuda")
+    t = time.perf_counter()
+    model = interop.load_caffe(model, caffemodel, match_all=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    n = files_check_blobs(model, blobs)
+    del model
+    opt = files_inception_opt([*small_argv, "--caffeModel", caffemodel])
+    n_app = files_check_blobs(opt.model, blobs)
+    check(n == n_app == len(layers),
+          f"caffe: {n} (direct) and {n_app} (app) of {len(layers)} layers "
+          "loaded")
+    opt.optimize()
+    res["caffe"] = {"layers": n, "load_s": load_s,
+                    "losses": files_check_train(
+                        opt, "inception --caffeModel", small_iters,
+                        FILES_VAL)[0]}
+
+    vgg16 = vgg.build_imagenet(FILES_CLASSES, depth=16, device="cuda",
+                               seed=5)
+    saved = {k: v.detach().clone() for k, v in vgg16.state_dict().items()}
+    t7 = os.path.join(root, "vgg16.t7")
+    t = time.perf_counter()
+    interop.save_torch(vgg16, t7)
+    res["t7_save_s"] = time.perf_counter() - t
+    res["t7_mb"] = os.path.getsize(t7) / 2 ** 20
+    del vgg16
+    t = time.perf_counter()
+    model = interop.load_torch(t7, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    files_check_state(model, saved, "load_torch")
+    del model
+    opt = files_inception_opt([*small_argv, "--torchModel", t7])
+    files_check_state(opt.model, saved, "inception --torchModel")
+    del saved
+    opt.optimize()
+    res["torch"] = {"load_s": load_s, "losses": files_check_train(
+        opt, "inception --torchModel", small_iters, FILES_VAL)[0]}
+    del opt
+    torch.cuda.empty_cache()
+    res["t7"] = t7
+    return res
+
+
+def files_logprob_err(model, x: np.ndarray) -> dict:
+    """The card's log-probs of ``x`` against a CPU copy's (f32), over the
+    largest |log-prob|: with TF32 off, as the phase runs, and on (the
+    reading the limit must tell apart)."""
+    import copy
+    with torch.no_grad():
+        want = copy.deepcopy(model).cpu()(torch.from_numpy(x))
+        xc = torch.from_numpy(x).cuda()
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        res = {}
+        try:
+            for name, on in (("tf32_off", False), ("tf32_on", True)):
+                torch.backends.cudnn.allow_tf32 = on
+                torch.backends.cuda.matmul.allow_tf32 = on
+                got = model(xc).cpu()
+                res[name] = float((got - want).abs().max()
+                                  / want.abs().max())
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+    return res
+
+
+def files_validate(root: str, argv: list) -> dict:
+    """``modelvalidator ARGV --device cuda`` in this process (its
+    ``validator`` and ``evaluate``), on a copy of the validation folder
+    arranged by the model's own ranking of each image: of every 4 (in path
+    order), FILES_PLACED_RANKS name the class folder it is linked into, so
+    Top-1 and Top-5 lie strictly between 0 and 64 (16 and 32 as placed).
+    Both are held to the same model's argmax over the same batches on the
+    card; one batch of 4 images on the card against a CPU copy (f32)."""
+    import contextlib
+    import io
+
+    from bigdl_tpu_torch.apps import modelvalidator as mv
+    t = time.perf_counter()
+    args, model, ds = mv.validator([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    paths = [p for p, _ in mv.image_folder_paths(args.folder)]
+    ranks, first = [], None
+    model.eval()
+    with torch.no_grad():
+        for batch in ds.data(train=False):
+            o = model(torch.from_numpy(batch.data).cuda())
+            ranks.append(o.argsort(-1, descending=True).cpu() + 1)
+            if first is None:
+                first = batch.data[:4]
+    ranks = torch.cat(ranks).tolist()
+    check(len(ranks) == len(paths) == FILES_VAL
+          and len(ranks[0]) == FILES_CLASSES,
+          f"modelvalidator {argv}: {len(ranks)} rankings of "
+          f"{len(ranks[0])} classes for {len(paths)} images")
+    err = files_logprob_err(model, first)
+
+    arranged = os.path.join(root, f"val_{args.modelName}")
+    for c in range(FILES_CLASSES):
+        os.makedirs(os.path.join(arranged, f"class_{c:02d}"))
+    for i, (p, r) in enumerate(zip(paths, ranks)):
+        cls = r[FILES_PLACED_RANKS[i % len(FILES_PLACED_RANKS)]]
+        os.link(p, os.path.join(arranged, f"class_{cls - 1:02d}",
+                                os.path.basename(p)))
+    args.folder = arranged
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = mv.evaluate(args, model, mv.build_dataset(args))
+    seconds = time.perf_counter() - t
+    top1 = top5 = count = 0
+    with torch.no_grad():
+        for batch in mv.build_dataset(args).data(train=False):
+            o = model(torch.from_numpy(batch.data).cuda())
+            y = torch.from_numpy(batch.labels).cuda().long()
+            top1 += int((o.argmax(-1) + 1 == y).sum())
+            top5 += int((o.topk(5, -1).indices + 1 == y[:, None])
+                        .any(-1).sum())
+            count += len(y)
+    res = {"printed": out.getvalue().strip().splitlines(),
+           "top1": (results[0][0].correct, results[0][0].count),
+           "top5": (results[1][0].correct, results[1][0].count),
+           "load_s": load_s, "images_per_s": count / seconds,
+           "card_cpu_logprob_rel_err": err["tf32_off"],
+           "card_cpu_logprob_rel_err_tf32": err["tf32_on"]}
+    check(res["top1"] == (top1, count) and res["top5"] == (top5, count)
+          and count == FILES_VAL and 0 < top1 < count and 0 < top5 < count,
+          f"modelvalidator {argv}: {res['top1']}, {res['top5']} against "
+          f"argmax {top1}, {top5} of {count}")
+    check(err["tf32_off"] <= FILES_LOGPROB_RTOL < err["tf32_on"],
+          f"{argv}: card against CPU {err}, limit {FILES_LOGPROB_RTOL}")
+    res["classes"] = {p: r[0] for p, r in zip(paths, ranks)}
+    return res
+
+
+def files_validators(root: str, tree: str, t7: str) -> dict:
+    """(d) ``modelvalidator`` on the validation folder: ``-t torch -m
+    vgg16`` (the .t7 of (c)), ``-t caffe -m alexnet --caffeDefPath`` (a
+    seeded caffemodel with AlexNet's layer names and a deploy prototxt),
+    ``-t bigdl -m resnet50`` (a ``file_io`` snapshot); and
+    ``imageclassifier`` on the snapshot as a process of its own (started
+    first, running beside the rest): its rows equal the validator's
+    argmax."""
+    from bigdl_tpu_torch.models import alexnet, resnet
+    from bigdl_tpu_torch.utils import file_io
+    val = os.path.join(tree, "val")
+    res = {}
+    snap = os.path.join(root, "resnet50_snapshot")
+    file_io.save(_with_gates((), lambda: resnet.build(
+        FILES_CLASSES, 50, device="cuda", seed=9)), snap)
+    cls_log = open(os.path.join(root, "imageclassifier.log"), "w")
+    t_cls = time.perf_counter()
+    proc = text_cli(["bigdl_tpu_torch.apps.imageclassifier", "-f", val,
+                     "-m", "resnet50", "-t", "bigdl", "--modelPath", snap,
+                     "-b", str(FILES_BATCH), "--device", "cuda"],
+                    stdout=subprocess.PIPE, stderr=cls_log, text=True)
+    try:
+        res["vgg16_torch"] = files_validate(
+            root, ["-f", val, "-m", "vgg16", "-t", "torch", "--modelPath",
+                   t7, "-b", str(FILES_BATCH)])
+        rng = np.random.default_rng(FILES_SEED + 3)
+        layers = kaiming_blobs(alexnet.build(FILES_CLASSES, device="cpu"),
+                               rng)
+        model_path = os.path.join(root, "alexnet.caffemodel")
+        res["alexnet_caffemodel_mb"] = write_caffemodel(
+            model_path, layers) / 2 ** 20
+        deploy = os.path.join(root, "deploy.prototxt")
+        deploy_prototxt(deploy, "AlexNet", layers)
+        res["alexnet_caffe"] = files_validate(
+            root, ["-f", val, "-m", "alexnet", "-t", "caffe",
+                   "--caffeDefPath", deploy, "--modelPath", model_path,
+                   "--classNum", str(FILES_CLASSES), "-b", str(FILES_BATCH)])
+        res["resnet50_bigdl"] = files_validate(
+            root, ["-f", val, "-m", "resnet50", "-t", "bigdl", "--modelPath",
+                   snap, "-b", str(FILES_BATCH)])
+        out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+        res["imageclassifier_s"] = time.perf_counter() - t_cls
+        check(proc.returncode == 0, f"imageclassifier: rc {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        cls_log.close()
+    rows = dict(line.split("\t") for line in out.strip().splitlines())
+    want = res["resnet50_bigdl"]["classes"]
+    check(rows.keys() == want.keys()
+          and all(int(rows[p]) == want[p] for p in want),
+          "imageclassifier's rows differ from the validator's argmax")
+    res["imageclassifier_rows"] = len(rows)
+    for r in res.values():
+        if isinstance(r, dict):
+            r.pop("classes", None)
+    return res
+
+
+def files_texts(root: str, bundle: str) -> dict:
+    """(e) ``udfpredictor`` over FILES_TEXTS seeded text files with the
+    classifier bundle: its classes equal the model's argmax computed
+    directly, ``make_udf`` agrees, and ``--watch`` classifies a file
+    written after its first poll exactly once."""
+    import contextlib
+    import io
+
+    from bigdl_tpu_torch.apps import udfpredictor as udf
+    from bigdl_tpu_torch.apps.textclassifier import tokenize
+    from bigdl_tpu_torch.utils import file_io
+    loaded = file_io.load(bundle, device="cuda")
+    words = sorted(loaded["word2index"])
+    rng = np.random.default_rng(FILES_SEED + 4)
+    folder = os.path.join(root, "texts")
+    os.makedirs(folder)
+    texts = []
+    for i in range(FILES_TEXTS):
+        text = " ".join(rng.choice(words, size=int(rng.integers(50, 400))))
+        texts.append(text)
+        with open(os.path.join(folder, f"t{i:03d}.txt"), "w") as f:
+            f.write(text)
+    to_indexed, embed = udf._bundle_pipeline(loaded)
+    feats = np.stack([s.feature for s in embed(to_indexed(
+        (tokenize(t), 0.0) for t in texts))])
+    model = loaded["model"].eval()
+    with torch.no_grad():
+        direct = torch.cat([
+            model(torch.from_numpy(feats[i:i + 32]).cuda())
+            .argmax(-1) + 1 for i in range(0, len(feats), 32)]).tolist()
+    t = time.perf_counter()
+    predicted = udf.predict_texts(loaded, texts, 32, "cuda")
+    res = {"texts_per_s": len(texts) / (time.perf_counter() - t)}
+    check(predicted == direct, "predict_texts differs from the argmax")
+    fn = udf.make_udf(loaded, "cuda")
+    check([fn(t) for t in texts[:8]] == direct[:8], "make_udf")
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rows = udf.run(["--modelPath", bundle, "-f", folder, "-b", "32",
+                        "--device", "cuda"])
+    res["run_s"] = time.perf_counter() - t
+    check([c for _, c in rows] == direct
+          and len(out.getvalue().splitlines()) == FILES_TEXTS,
+          "udfpredictor run: classes differ from the argmax")
+
+    watch_dir = os.path.join(root, "watched")
+    os.makedirs(watch_dir)
+    for i in range(3):
+        with open(os.path.join(watch_dir, f"t{i}.txt"), "w") as f:
+            f.write(texts[i])
+    first_poll = threading.Event()
+    watched = {}
+
+    def watch():
+        with contextlib.redirect_stdout(io.StringIO()):
+            watched["rows"] = udf.run(
+                ["--modelPath", bundle, "-f", watch_dir, "--watch",
+                 "--pollSeconds", "0.2", "--device", "cuda"],
+                max_polls=4, on_poll=lambda rows: first_poll.set())
+    thread = threading.Thread(target=watch)
+    thread.start()
+    check(first_poll.wait(120), "udfpredictor --watch: no first poll")
+    with open(os.path.join(watch_dir, "late.txt"), "w") as f:
+        f.write(texts[3])
+    thread.join(120)
+    names = [os.path.basename(p) for p, _ in watched.get("rows", [])]
+    check(names == ["t0.txt", "t1.txt", "t2.txt", "late.txt"]
+          and watched["rows"][-1][1] == direct[3],
+          f"udfpredictor --watch: {watched.get('rows')}")
+    return res
+
+
+def files_bundle(root: str) -> str:
+    """Phase 3l's classifier bundle, or (alone, ``--files-only``) one
+    trained here at the textclassifier's defaults for one epoch."""
+    if TEXT_BUNDLE.get("path"):
+        return TEXT_BUNDLE["path"]
+    from bigdl_tpu_torch.apps import textclassifier as tc_app
+    opt, _, prepared = tc_app.optimizer([
+        "--maxSequenceLength", "1000", "--embeddingDim", "100", "-b", "128",
+        "-e", "1", "--device", "cuda"])
+    opt.optimize()
+    return save_classifier_bundle(opt.model, prepared)
+
+
+def run_files() -> dict:
+    """Phase 3m: model files and image ingestion; logs one
+    ``model_files`` line and a ``model_files_details`` line."""
+    import tempfile
+
+    from bigdl_tpu_torch import native
+    t0 = time.perf_counter()
+    native.reset_counts()
+    row = {}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            tree = files_tree(root)
+            crc_data = np.random.default_rng(FILES_SEED + 5).bytes(
+                FILES_CRC_BYTES)
+            crc_path = os.path.join(root, "crc.bin")
+            with open(crc_path, "wb") as f:
+                f.write(crc_data)
+            shards = os.path.join(root, "shards")
+            # two processes beside (a): the shard generator and the
+            # byte-wise CRC32C over the same 64 MiB
+            t_gen = time.perf_counter()
+            gen = text_cli(["bigdl_tpu_torch.apps.seqfilegen", "-f", tree,
+                            "-o", shards, "-p", "4", "-b", "64"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+            crc_proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys; from bigdl_tpu_torch."
+                 "native import crc32c_plain; print(crc32c_plain(open("
+                 "sys.argv[1], 'rb').read()))", crc_path],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            try:
+                row["native"] = files_native(root, crc_path, crc_data)
+                gen_out, _ = gen.communicate(timeout=CLI_TIMEOUT_S)
+                row["seqfilegen_s"] = time.perf_counter() - t_gen
+                check(gen.returncode == 0
+                      and f"packed {FILES_TRAIN + FILES_VAL} records"
+                      in gen_out, f"seqfilegen: {gen_out[-1500:]}")
+                raw = row["native"].pop("raw")
+                row["records"] = files_records(tree, shards, raw)
+                del raw
+                row["inception"] = files_inception(root, shards)
+                t7 = row["inception"].pop("t7")
+                row["validators"] = files_validators(root, tree, t7)
+                row["udf"] = files_texts(root, files_bundle(root))
+                crc_out, _ = crc_proc.communicate(timeout=CLI_TIMEOUT_S)
+                check(crc_proc.returncode == 0 and int(crc_out.strip())
+                      == row["native"]["crc32c"],
+                      f"the byte-wise CRC32C: {crc_out[-500:]}")
+            finally:
+                for proc in (gen, crc_proc):
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+    finally:
+        if TEXT_BUNDLE.get("dir"):
+            shutil.rmtree(TEXT_BUNDLE.pop("dir"), ignore_errors=True)
+            TEXT_BUNDLE.clear()
+    counts = native.counts()
+    check(all(n > 0 for n in counts.values()),
+          f"an entry point of the host library was not called: {counts}")
+    inc, val = row["inception"], row["validators"]
+    log({"model_files": {
+        "library_built_in_this_run":
+            os.path.getmtime(row["native"]["library"]["path"]) >= RUN_T0,
+        "library_built_by_this_process": row["native"]["library"]["built"],
+        "library_build_s": row["native"]["library"]["seconds"],
+        "shards_mb": row["records"]["shards_mb"],
+        "seqfilegen_s": row["seqfilegen_s"],
+        "decode_pil_images_per_s": row["records"]["decode_pil_images_per_s"],
+        "decode_native_batch_images_per_s":
+            row["records"]["decode_native_batch_images_per_s"],
+        "inception_ms_per_iteration": inc["ms_per_iteration"],
+        "inception_busy_share": inc["busy_share"],
+        "inception_data_wait_share": inc["data_wait_share"],
+        "inception_synthetic_ms_per_iteration":
+            inc["synthetic_ms_per_iteration"],
+        "caffemodel_load_s": inc["caffe"]["load_s"],
+        "t7_load_s": inc["torch"]["load_s"],
+        "validator_images_per_s": {k: v["images_per_s"]
+                                   for k, v in val.items()
+                                   if isinstance(v, dict)},
+        "udf_texts_per_s": row["udf"]["texts_per_s"],
+        "native_calls": counts,
+        "phase_s": time.perf_counter() - t0}})
+    log({"model_files_details": row})
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -7030,6 +7889,11 @@ def main(argv=None) -> int:
         help="run only the kernels' build and phase 3l (text, tokenizers, "
              "summaries and the text apps on the card) and print its lines "
              "(no result line)")
+    parser.add_argument(
+        "--files-only", action="store_true",
+        help="run only the kernels' build and phase 3m (model files, image "
+             "ingestion and their apps on the card) and print its lines (no "
+             "result line)")
     parser.add_argument(
         "--layers-only", action="store_true",
         help="run only the kernels' build and phase 3k (the layer zoo, the "
@@ -7074,6 +7938,10 @@ def main(argv=None) -> int:
         return 0
     if args.layers_only:
         run_layer_zoo()
+        log({"total_s": time.perf_counter() - t0, "card": card})
+        return 0
+    if args.files_only:
+        run_files()
         log({"total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.text_only:
@@ -7124,6 +7992,7 @@ def main(argv=None) -> int:
     perf_launches, _ = timed("3j", run_perf)
     timed("3k", run_layer_zoo)
     text_launches = timed("3l", run_text)
+    timed("3m", run_files)
     roof, roof_launches = timed("4a", run_roofline)
     t_timing = time.perf_counter()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
@@ -7144,6 +8013,7 @@ def main(argv=None) -> int:
                *time_conv_bn(resnet_launches),
                *time_zoo_kernels(zoo_launches, zoo_shapes),
                *time_perf_kernels(perf_launches),
+               *time_text_kernels(text_launches),
                *hbm_roof_rows(roof, roof_launches, hbm_errs)]
     for entry in kernels:
         add_measured_bound(entry, roof["roof_gbps"] * 1e9)

@@ -6,8 +6,9 @@ seed (the random stages draw in the reference's order); the MNIST reader
 on the vendored ``tests/resources/mnist/`` (plain and gzip) and the CIFAR
 reader on binary files the test writes return the reference's records;
 ``Prefetch`` keeps order, validates its depth, sits in a ``>>`` chain and
-hands an upstream error to the consumer. The decoders that are not ported
-refuse, citing their ROADMAP label.
+hands an upstream error to the consumer. Each decoder, once a stub that
+refused with its ROADMAP label, decodes a seeded PNG as the reference's
+does (``test_torch_image_decoders.py`` holds them at length).
 """
 
 import gzip
@@ -237,11 +238,43 @@ def test_prefetch_depth_errors_and_abandoned_consumer():
     it.close()   # the producer thread gives up on its full queue
 
 
+def _decoder_case(pkg_image, pkg_base, name, path, raw):
+    """``name`` of ``pkg_image`` built as the ROADMAP-labelled stub was
+    (first argument 256) and run on one seeded image; its arrays."""
+    if name == "EncodedBytesToBGRImg":
+        out = pkg_image.EncodedBytesToBGRImg(256)(
+            iter([pkg_base.ByteRecord(open(path, "rb").read(), 2.0)]))
+    elif name == "LocalImgReader":
+        out = pkg_image.LocalImgReader(256)(iter([(path, 2.0)]))
+    elif name == "LocalImgReaderWithName":
+        out = (img for _, img in
+               pkg_image.LocalImgReaderWithName(256)(iter([(path, 2.0)])))
+    elif name == "NativeBGRBatchDecoder":
+        out = pkg_image.NativeBGRBatchDecoder(
+            256, 1, 1, (104.0, 117.0, 123.0), (58.0, 57.0, 57.0))(
+            iter([pkg_base.ByteRecord(raw, 2.0)]))
+    else:
+        imgs = pkg_image.LocalImgReader(256)(iter([(path, 2.0)]))
+        out = pkg_image.MTLabeledBGRImgToBatch(
+            256, 256, 1, pkg_image.BGRImgCropper(256, 256, random=False),
+            workers=2)(imgs)
+    return [np.asarray(o.data) for o in out]
+
+
 @pytest.mark.parametrize("name", ["EncodedBytesToBGRImg", "LocalImgReader",
                                   "LocalImgReaderWithName",
                                   "NativeBGRBatchDecoder",
                                   "MTLabeledBGRImgToBatch"])
-def test_decoders_refuse_with_their_roadmap_label(name):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A\.3 \(image decoders\)"):
-        getattr(image, name)(256)
+def test_decoders_refuse_with_their_roadmap_label(name, tmp_path):
+    """Each decoder now works: it gives the reference's arrays."""
+    from PIL import Image
+    rng = np.random.default_rng(3)
+    path = str(tmp_path / "x.png")
+    Image.fromarray(rng.integers(0, 256, (300, 270, 3), dtype=np.uint8)
+                    ).save(path)
+    raw = rng.integers(0, 256, 256 * 3, dtype=np.uint8).tobytes()
+    got = _decoder_case(image, base, name, path, raw)
+    want = _decoder_case(jimage, jbase, name, path, raw)
+    assert len(got) == len(want) == 1
+    assert got[0].shape == want[0].shape
+    assert np.abs(got[0] - want[0]).max() <= 1e-6

@@ -19,7 +19,9 @@ import torch
 from bigdl_tpu_torch.apps import transformer as transformer_app
 from bigdl_tpu_torch.models.generation import generate, generate_speculative
 from bigdl_tpu_torch.resilience.serving_drill import run_kill_drill
+from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.apps import autoencoder as autoencoder_app
+from bigdl_tpu_torch.apps import imageclassifier, modelvalidator, udfpredictor
 from bigdl_tpu_torch.apps import inception as inception_app
 from bigdl_tpu_torch.apps import lenet as lenet_app
 from bigdl_tpu_torch.apps import resnet as resnet_app
@@ -32,6 +34,7 @@ from bigdl_tpu_torch.models.lm_server import LMServer
 from bigdl_tpu_torch.models.serving import ContinuousLMServer
 from bigdl_tpu_torch.apps.transformer import synthetic_corpus
 from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+from bigdl_tpu_torch.interop import load_torch, save_torch
 from bigdl_tpu_torch.interop.hf import load_gpt2, load_hf_checkpoint
 from bigdl_tpu_torch.models.transformer import build_lm
 from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
@@ -111,7 +114,12 @@ def test_new_subpackages_are_part_of_the_port():
                 "nn/normalization.py", "nn/regularization.py",
                 "nn/initialization.py", "nn/detection.py", "nn/module.py",
                 "nn/quantized.py", "optim/methods.py",
-                "models/autoencoder.py", "apps/autoencoder.py"):
+                "models/autoencoder.py", "apps/autoencoder.py",
+                "utils/logger_filter.py", "native/__init__.py",
+                "dataset/shards.py", "interop/prototxt.py",
+                "interop/caffe.py", "interop/torch_file.py",
+                "apps/seqfilegen.py", "apps/modelvalidator.py",
+                "apps/imageclassifier.py", "apps/udfpredictor.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -197,12 +205,22 @@ def test_build_lm_raises_without_card():
                                    "DeviceCachedDataSet", "perf.main",
                                    "autoencoder.build",
                                    "autoencoder.main train",
-                                   "autoencoder.optimizer"])
+                                   "autoencoder.optimizer", "load_torch",
+                                   "modelvalidator.main",
+                                   "imageclassifier.main",
+                                   "udfpredictor.run",
+                                   "inception.main train --folder"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
     saved = str(tmp_path / "model_final")
     file_io.save(model, saved)
+    t7 = str(tmp_path / "model.t7")
+    save_torch(nn.Sequential().add(nn.Linear(3, 2)), t7)
+    bundle = str(tmp_path / "classifier_bundle")
+    file_io.save({"model": model, "word2index": {"a": 0},
+                  "embeddings": np.zeros((2, 4), np.float32), "seq_len": 4},
+                 bundle)
     calls = {
         "generate": lambda: generate(model, np.ones((1, 3)), 2, greedy=True),
         "LMServer": lambda: LMServer(model, greedy=True),
@@ -268,6 +286,18 @@ def test_entry_points_raise_without_card(entry, tmp_path):
             ["train", "--synthetic-size", "8", "-b", "4"]),
         "autoencoder.optimizer": lambda: autoencoder_app.optimizer(
             ["--synthetic-size", "8", "-b", "4"]),
+        # model files and image ingestion
+        "load_torch": lambda: load_torch(t7),
+        "modelvalidator.main": lambda: modelvalidator.main(
+            ["-f", str(tmp_path), "-m", "alexnet", "-t", "bigdl",
+             "--modelPath", saved]),
+        "imageclassifier.main": lambda: imageclassifier.main(
+            ["-f", str(tmp_path), "-m", "alexnet", "-t", "torch",
+             "--modelPath", t7]),
+        "udfpredictor.run": lambda: udfpredictor.run(
+            ["--modelPath", bundle, "-f", str(tmp_path)]),
+        "inception.main train --folder": lambda: inception_app.main(
+            ["train", "--folder", str(tmp_path), "-b", "2"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

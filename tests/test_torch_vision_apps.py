@@ -15,7 +15,9 @@ gives the reference's trained model's Top-1. ``vgg``'s run is in
 ``Validator`` warns that it is deprecated, returns a ``LocalValidator``
 and gives the reference's results; ``calc_accuracy`` and
 ``calc_top5_accuracy`` count as the reference's. The inception app's
-options that need machinery the port lacks stop with their ROADMAP label.
+``--folder``, ``--caffeModel`` and ``--torchModel``, once stubs that
+stopped with their ROADMAP label, train
+(``test_torch_image_apps_inception.py`` holds them against the reference).
 """
 
 import logging
@@ -34,6 +36,7 @@ from bigdl_tpu.optim import Top1Accuracy as JaxTop1
 from bigdl_tpu.optim import Top5Accuracy as JaxTop5
 from bigdl_tpu.optim import validator as jvalidator
 from bigdl_tpu.utils.rng import RandomGenerator as JaxRNG
+from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.apps import inception as inception_app
 from bigdl_tpu_torch.apps import lenet as lenet_app
 from bigdl_tpu_torch.apps import resnet as resnet_app
@@ -215,13 +218,88 @@ def test_accuracy_helpers_count_as_the_reference():
         calc_accuracy(out, tgt[:5])
 
 
+def _inception_tiny():
+    return (nn.Sequential()
+            .add(nn.SpatialConvolution(3, 4, 7, 7, 4, 4).set_name("conv1"))
+            .add(nn.ReLU())
+            .add(nn.SpatialMaxPooling(5, 5, 5, 5))
+            .add(nn.Reshape((4 * 11 * 11,)))
+            .add(nn.Linear(4 * 11 * 11, 1000).set_name("loss3/classifier"))
+            .add(nn.LogSoftMax()))
+
+
+def _inception_option(flag, tmp_path):
+    """The arguments of ``flag`` on fixtures the test writes: a shard
+    folder of 8 seeded JPEGs (4 for validation), a caffemodel for the tiny
+    model's layers, or the tiny model as a ``.t7`` file."""
+    from PIL import Image
+    from bigdl_tpu_torch.apps import seqfilegen
+    from bigdl_tpu_torch.interop import save_torch
+    rng = np.random.default_rng(12)
+    if flag == "--folder":
+        for split, n in (("train", 8), ("val", 4)):
+            for cls in ("a", "b"):
+                d = tmp_path / "imgs" / split / cls
+                d.mkdir(parents=True)
+                for i in range(n // 2):
+                    Image.fromarray(rng.integers(0, 256, (30, 40, 3),
+                                                 dtype=np.uint8)).save(
+                        d / f"{i}.jpg")
+        seqfilegen.main(["-f", str(tmp_path / "imgs"), "-o",
+                         str(tmp_path / "shards")])
+        return [flag, str(tmp_path / "shards")]
+    if flag == "--caffeModel":
+        from test_torch_caffe import write_caffemodel
+        path = str(tmp_path / "m.caffemodel")
+        write_caffemodel(path, [
+            ("conv1", "Convolution", [rng.normal(size=(4, 3, 7, 7))]),
+            ("loss3/classifier", "InnerProduct",
+             [rng.normal(size=(1000, 484))])])
+        return [flag, path]
+    path = str(tmp_path / "m.t7")
+    save_torch(_inception_tiny(), path)
+    return [flag, path]
+
+
 @pytest.mark.parametrize("flag,label", [
     (["--folder", "/nowhere"], r"ROADMAP A\.5 \(shards\)"),
     (["--caffeModel", "m.caffemodel"], r"ROADMAP A\.6 \(caffe\)"),
     (["--torchModel", "m.t7"], r"ROADMAP A\.6 \(torch_file\)")])
-def test_inception_app_refuses_what_is_not_ported(flag, label):
-    with pytest.raises(SystemExit, match=label):
-        inception_app.main(["train", "--device", "cpu", *flag])
+def test_inception_app_refuses_what_is_not_ported(flag, label, tmp_path,
+                                                  monkeypatch):
+    """Each option that once stopped with ``label`` now trains: the loss
+    is finite, and a caffemodel's or ``.t7``'s weights are the model's."""
+    built = []
+
+    def tiny(*a, **k):
+        built.append(_inception_tiny())
+        return built[-1]
+    monkeypatch.setattr(inception_app.inception, "build", tiny)
+    argv = _inception_option(flag[0], tmp_path)
+    loads = {}
+    if flag[0] == "--caffeModel":
+        from bigdl_tpu_torch.interop import caffe
+        real = caffe.CaffeLoader.copy_parameters
+
+        def copy(self):
+            out = real(self)
+            loads["conv1"] = out[0].weight.detach().clone()
+            return out
+        monkeypatch.setattr(caffe.CaffeLoader, "copy_parameters", copy)
+    trained = inception_app.train(["--device", "cpu", "-b", "4", "-e", "1",
+                                   "--synthetic-size", "4", *argv])
+    assert isinstance(trained, nn.Sequential)
+    if flag[0] == "--caffeModel":
+        (layer,) = [l for l in caffe.parse_caffemodel(argv[1])
+                    if l.name == "conv1"]
+        assert np.array_equal(loads["conv1"].numpy(), np.transpose(
+            layer.blobs[0], (2, 3, 1, 0)))
+    if flag[0] == "--torchModel":
+        assert not built   # the whole model came from the file
+    else:
+        assert built and trained is built[0]
+    for p in trained.parameters():
+        assert torch.isfinite(p).all()
 
 
 def test_app_usage_messages():
