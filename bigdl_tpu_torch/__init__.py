@@ -34,18 +34,25 @@ nn.ClassNLLCriterion())`` with ``SGD`` -> ``optimize()``; either with
 Text: ``dataset.text``, ``dataset.bpe.BPETokenizer`` and
 ``interop.sentencepiece``; TensorBoard summaries: ``visualization``; the
 Torch-style ``Tensor``; scikit-learn-style estimators: ``ml``.
+
+Platform: the staged ingest engine (``dataset.ingest``), the compile
+flight recorder, MFU and the serving scoreboard (``telemetry``; ``python -m
+bigdl_tpu_torch.telemetry``), sharded snapshots
+(``utils.sharded_checkpoint``) and the process topology (``Engine``).
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["Tensor", "ml", "visualization", "__version__"]
+__all__ = ["Engine", "Tensor", "ml", "visualization", "__version__"]
 
 
 def __getattr__(name):
-    """``Tensor``, ``ml`` and ``visualization`` load on first use, so
-    that importing the package alone (``resilience validate``) does not
-    import torch."""
+    """``Engine``, ``Tensor``, ``ml`` and ``visualization`` load on first
+    use, so that importing the package alone (``resilience validate``)
+    does not import torch."""
     import importlib
+    if name == "Engine":
+        return importlib.import_module("bigdl_tpu_torch.utils.engine").Engine
     if name == "Tensor":
         return importlib.import_module("bigdl_tpu_torch.tensor").Tensor
     if name in ("ml", "visualization"):

@@ -28,6 +28,11 @@ states through jitted programs; here the functions swap a state into the
 modules, run the eager forward and read the state back, so the caller
 holds ``_model_lock(model)`` around them.
 
+The decode loop, beam search and the speculative loop are the tracked sites
+``generation.decode``, ``generation.beam`` and ``generation.speculative``
+(``telemetry.profiling``; one wrapper per model), the prefill functions
+``serving.prefill`` (or the ``site`` their builder is given).
+
 Token ids are 1-based, as everywhere in the reference. Random draws come
 from an explicit ``torch.Generator``: the same seed gives other samples
 than the reference's ``jax.random`` keys.
@@ -49,6 +54,7 @@ from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
 from bigdl_tpu_torch.nn.linear import LMHead, Linear, TiedLMHead
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
+from bigdl_tpu_torch.telemetry.profiling import tracked_jit
 from bigdl_tpu_torch.utils.device import DeviceLike, check_module_device
 
 # one lock per model: generate() toggles decode state on the model, so two
@@ -64,6 +70,24 @@ def _model_lock(model: Module) -> threading.RLock:
         if lock is None:
             lock = _LOCKS[model] = threading.RLock()
         return lock
+
+
+# model -> {site: tracked program}; a program reaches its model through a
+# weak reference, so the entry does not keep the model alive
+_TRACKED: "weakref.WeakKeyDictionary[Module, dict]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _tracked(model: Module, site: str, fn):
+    """``model``'s tracked wrapper of ``fn(model, *args)`` at ``site``."""
+    with _LOCKS_GUARD:
+        sites = _TRACKED.setdefault(model, {})
+        prog = sites.get(site)
+        if prog is None:
+            ref = weakref.ref(model)
+            prog = sites[site] = tracked_jit(
+                lambda *a: fn(ref(), *a), site=site)
+        return prog
 
 
 def filter_top_k(logprobs: torch.Tensor, k: int) -> torch.Tensor:
@@ -218,15 +242,16 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
             for m in pes + heads:
                 m.enable_decode()
             if num_beams > 1:
-                toks = _beam_search(model, mhas, prompt, max_new_tokens,
-                                    int(num_beams), float(length_penalty),
-                                    eos_id, pad_id)
+                toks = _tracked(model, "generation.beam", _beam_search)(
+                    mhas, prompt, max_new_tokens, int(num_beams),
+                    float(length_penalty), eos_id, pad_id)
             else:
-                toks = _decode(model, prompt, max_new_tokens, generator,
-                               dict(temperature=temperature, top_k=top_k,
-                                    top_p=top_p, greedy=greedy),
-                               eos_id, pad_id, float(repetition_penalty),
-                               int(min_new_tokens))
+                toks = _tracked(model, "generation.decode", _decode)(
+                    prompt, max_new_tokens, generator,
+                    dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                         greedy=greedy),
+                    eos_id, pad_id, float(repetition_penalty),
+                    int(min_new_tokens))
         finally:
             for m in mhas + pes + heads:
                 m.disable_decode()
@@ -450,9 +475,9 @@ def generate_speculative(target: Module, draft: Module, prompt,
                     m.enable_decode(1, cap)
                 for m in pes + heads:
                     m.enable_decode()
-            out = _speculate(target, draft, mods[id(target)][2], prompt,
-                             max_new_tokens, k, eos_id, sampled, generator,
-                             float(temperature))
+            out = _tracked(target, "generation.speculative", _speculate)(
+                draft, mods[id(target)][2], prompt, max_new_tokens, k,
+                eos_id, sampled, generator, float(temperature))
         finally:
             for model, mode in zip(models, modes):
                 mhas, pes, heads = mods[id(model)]
@@ -640,7 +665,8 @@ def clone_prefill_state(state: list) -> list:
     return [x.clone() if torch.is_tensor(x) else x for x in state]
 
 
-def build_chunked_prefill_fns(model: Module):
+def build_chunked_prefill_fns(model: Module, *,
+                              site: str = "serving.prefill", registry=None):
     """The chunked b=1 prompt prefill (reference
     ``build_chunked_prefill_fns``), over the model's current b=1 decode
     state, which becomes the zero template. Returns ``(chunk_fn, last_fn,
@@ -656,7 +682,10 @@ def build_chunked_prefill_fns(model: Module):
     - ``last_fn(state, tok) -> (lp, state)``: the prompt's last token as one
       step; its (1, V) log-probs are the admission's sample;
     - ``state0``: the template; pass the functions an owned copy
-      (``clone_prefill_state``), which they write in place."""
+      (``clone_prefill_state``), which they write in place.
+
+    Both are tracked at ``site`` in ``registry`` (default the global one):
+    one compile each, whatever the chunk's position."""
     state0 = clone_prefill_state(partition_prefill_state(model))
 
     def chunk_fn(state, chunk, new_pos):
@@ -670,18 +699,21 @@ def build_chunked_prefill_fns(model: Module):
         lp = model(tok)
         return lp[:, -1], partition_prefill_state(model)
 
-    return chunk_fn, last_fn, state0
+    return (tracked_jit(chunk_fn, site=site, registry=registry),
+            tracked_jit(last_fn, site=site, registry=registry), state0)
 
 
-def build_bucketed_prefill_fn(model: Module):
+def build_bucketed_prefill_fn(model: Module, *,
+                              site: str = "serving.prefill", registry=None):
     """The bucketed b=1 prompt prefill (reference
     ``build_bucketed_prefill_fn``): ``fn(state, prompt, last_idx) -> (lp,
     state)`` runs the cold causal prefill of a prompt right-padded to its
     bucket (kernel K1 on the card) and reads the log-probs of the true last
-    token at ``last_idx``; the heads must be in ``_decode_all`` mode."""
+    token at ``last_idx``; the heads must be in ``_decode_all`` mode.
+    Tracked at ``site``: one compile per bucket."""
     def fn(state, prompt, last_idx):
         load_prefill_state(model, state)
         lp = model(prompt)
         return lp[:, last_idx], partition_prefill_state(model)
 
-    return fn
+    return tracked_jit(fn, site=site, registry=registry)

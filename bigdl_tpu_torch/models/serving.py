@@ -63,6 +63,10 @@ attention module (updated in place; a prefill swaps the b=1 state in and
 puts the same tensors back) and ``_last_tok``; their ``data_ptr``s are
 checked before every replay. A new ``enable_decode`` (new buffers) forces a
 new capture. Each capture counts in ``bigdl_serving_recompiles_total``.
+The rounds, the slot insert and the prefill functions are also the tracked
+sites ``serving.step``, ``serving.spec_step``, ``serving.insert`` and
+``serving.prefill`` (``telemetry.profiling``, in the server's registry): a
+round's first call on a graph, its warm-up and capture, is its compile.
 The worker's exit (close, drain, death) releases the graphs.
 
 Restrictions: rope models only (an additive positional encoding tracks one
@@ -92,7 +96,8 @@ from bigdl_tpu_torch.models.lm_server import drain_queue, fail_requests
 from bigdl_tpu_torch.models.prefix_cache import (DEFAULT_PREFIX_CACHE_MB,
                                                  prefix_cache_for)
 from bigdl_tpu_torch.telemetry import get_registry, instruments, span, tracing
-from bigdl_tpu_torch.telemetry.profiling import sample_device_memory
+from bigdl_tpu_torch.telemetry.profiling import (sample_device_memory,
+                                                 tracked_jit)
 from bigdl_tpu_torch.utils.cuda_graph import GraphedProgram
 from bigdl_tpu_torch.utils.device import (DeviceLike, check_module_device,
                                           module_device)
@@ -183,7 +188,8 @@ class _PrefillPipeline:
     the b=1 state into the modules."""
 
     def __init__(self, model, *, mode: str, chunk: int, slots: int,
-                 max_len: int, big_len: int, prefix_bytes: int = 0):
+                 max_len: int, big_len: int, prefix_bytes: int = 0,
+                 registry=None):
         mhas, pes, heads = _decode_modules(model)
         if pes:
             raise ValueError(
@@ -206,10 +212,11 @@ class _PrefillPipeline:
                 m.enable_decode()
             if mode == "chunked":
                 self.chunk_fn, self.last_fn, self.state0 = \
-                    build_chunked_prefill_fns(model)
+                    build_chunked_prefill_fns(model, registry=registry)
                 self.bucket_fn = None
             else:
-                self.bucket_fn = build_bucketed_prefill_fn(model)
+                self.bucket_fn = build_bucketed_prefill_fn(
+                    model, registry=registry)
                 self.state0 = clone_prefill_state(
                     partition_prefill_state(model))
             for m in mhas:
@@ -404,12 +411,21 @@ class ContinuousLMServer:
         big_len = max_len + (self.spec_len + 1 if draft is not None else 0)
         self._pipeline = _PrefillPipeline(
             model, mode=mode, chunk=chunk, slots=slots, max_len=max_len,
-            big_len=big_len, prefix_bytes=prefix_bytes)
+            big_len=big_len, prefix_bytes=prefix_bytes,
+            registry=self.registry)
         self._heads = self._pipeline.heads
         self._d_pipeline = (_PrefillPipeline(
             draft, mode=mode, chunk=chunk, slots=slots, max_len=max_len,
-            big_len=big_len, prefix_bytes=prefix_bytes)
+            big_len=big_len, prefix_bytes=prefix_bytes,
+            registry=self.registry)
             if draft is not None else None)
+        # the tracked programs (telemetry.profiling): a round's site takes
+        # its body (CPU) or its graph (card), so each capture is a compile
+        self._insert_t = tracked_jit(_insert_state, site="serving.insert",
+                                     registry=self.registry)
+        self._rounds_t = {site: tracked_jit(lambda program: program(),
+                                            site=site, registry=self.registry)
+                          for site in ("serving.step", "serving.spec_step")}
         self._prefix_evictions_seen = 0
 
         # serving-plane chaos injectors: each one with an on_decode_block
@@ -555,9 +571,13 @@ class ContinuousLMServer:
 
     def close(self):
         """Stop the worker, take the model out of decode mode and fail
-        anything still pending. Idempotent."""
+        anything still pending. Idempotent. Graphs captured by rounds
+        driven from another thread after the worker ended are released
+        here (the worker's exit released its own)."""
         self._stop.set()
         self._worker.join(timeout=10)
+        if not self._worker.is_alive():
+            self._release_graphs()
         for p in self._pipelines:
             p.disable()
         self._sweep_stranded()
@@ -669,13 +689,13 @@ class ContinuousLMServer:
                 slot = self._free[-1]
             with span("serving.insert", slot=slot, rid=req.rid), \
                     self._models_locked():
-                _insert_state(partition_prefill_state(self.model), small,
-                              slot, plen)
+                self._insert_t(partition_prefill_state(self.model), small,
+                               slot, plen)
                 if d_small is not None:
                     # the draft's row lands on the same plen, so both
                     # models enter the round at one position
-                    _insert_state(partition_prefill_state(self.draft),
-                                  d_small, slot, plen)
+                    self._insert_t(partition_prefill_state(self.draft),
+                                   d_small, slot, plen)
                 self._last_tok[slot] = tok
             with self._state_lock:
                 self._free.pop()
@@ -817,7 +837,7 @@ class ContinuousLMServer:
         its CUDA graph, which is captured at first use and again after a
         new ``enable_decode``. The caller holds the models' locks."""
         if self.device.type != "cuda":
-            return body()
+            return self._rounds_t[site](body)
         positions = [m._own_pos for p in self._pipelines for m in p.mhas]
         prog, captured_under = self._graphs.get(site, (None, None))
         if prog is not None and not all(
@@ -830,7 +850,7 @@ class ContinuousLMServer:
                                   inputs=self._graph_inputs)
             self._graphs[site] = (prog, positions)
             self._tm.serving_recompiles_total.inc()
-        return prog()
+        return self._rounds_t[site](prog)
 
     def _release_graphs(self) -> None:
         graphs, self._graphs = self._graphs, {}

@@ -108,6 +108,14 @@ class LaunchCounter:
             self._n = 0
 
 
+#: operations (2 per multiply-add) of every K1-K6 launch, each launch adding
+#: its own count from its shapes where it counts the launch; as a
+#: ``LaunchCounter`` it is recorded during a CUDA graph capture and re-added
+#: by each replay. ``telemetry.profiling.tracked_jit`` reads it around a
+#: program's first call, where ``FlopCounterMode`` sees no ``ctypes`` launch.
+KERNEL_FLOPS = LaunchCounter()
+
+
 @contextlib.contextmanager
 def recording_launches(stream_key: int):
     """Divert every ``LaunchCounter.add`` made while the stream with handle

@@ -68,6 +68,12 @@ def conv3x3_with_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
     return y32.to(x.dtype), y32.sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2))
 
 
+def launch_flops(n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """Operations of one K6 launch, a 3x3 SAME conv of (N, H, W, Cin) to
+    Cout channels (the statistics left out, as in PERF.md's bounds)."""
+    return 2 * n * h * w * 9 * cin * cout
+
+
 def conv3x3_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     """Launch kernel K6 on CUDA tensors: x (N, H, W, Cin) and w
     (3, 3, Cin, Cout) of one dtype (f32 or bf16), both contiguous (and
@@ -104,6 +110,7 @@ def conv3x3_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
                                       stream)
     _build.check_status(lib, "conv3x3_bn", status)
     LAUNCHES.add()
+    _build.KERNEL_FLOPS.add(launch_flops(n, h, wd, cin, cout))
     if mma:
         LAUNCHES_MMA.add()
     return y, stats[0], stats[1]

@@ -41,6 +41,28 @@ LAUNCHES_DKV = _build.LaunchCounter()
 LAUNCHES_DKV_MMA = _build.LaunchCounter()
 
 
+#: operations a launch does per (query, key) pair and head-dim element:
+#: K1 two products (q.k, p.v), K2 three (dO.v, dS.k and the recomputed
+#: q.k), K3 four (q.k, dO.v, p.dO, dS.q), each a multiply-add of 2
+OPS_PER_PAIR_DIM = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+
+def attention_pairs(b: int, n: int, sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a launch computes: all of them, or under the
+    causal mask (query i sees keys 0..i) the lower triangle."""
+    if not causal:
+        return b * n * sq * sk
+    tri = min(sq, sk)
+    return b * n * (tri * (tri + 1) // 2 + max(0, sq - sk) * sk)
+
+
+def launch_flops(kernel: str, b: int, n: int, sq: int, sk: int, d: int,
+                 causal: bool) -> int:
+    """Operations of one K1 (``"flash_fwd"``), K2 (``"flash_bwd_dq"``) or
+    K3 (``"flash_bwd_dkv"``) launch: the counts of PERF.md's bounds."""
+    return OPS_PER_PAIR_DIM[kernel] * d * attention_pairs(b, n, sq, sk, causal)
+
+
 def kernel_variant(q: torch.Tensor) -> str:
     """The K1, K2 and K3 variant for q of a dtype and head_dim that
     ``check_args`` takes: ``"mma"`` (tensor cores) for bfloat16, ``"fma"``
@@ -113,6 +135,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
         status = lib.bt_flash_fwd(*args, DTYPES[q.dtype], stream)
     _build.check_status(lib, "flash_fwd", status)
     LAUNCHES.add()
+    _build.KERNEL_FLOPS.add(launch_flops("flash_fwd", b, n, sq, sk, d, causal))
     if mma:
         LAUNCHES_MMA.add()
     return o, lse
@@ -204,6 +227,8 @@ def _bwd_launch(kernel: str, outs, q, k, v, g_o, lse, delta, causal: bool,
     else:
         status = getattr(lib, f"bt_{kernel}")(*args, DTYPES[q.dtype], stream)
     _build.check_status(lib, kernel, status)
+    _build.KERNEL_FLOPS.add(launch_flops(kernel, b, n, sq, k.shape[1], d,
+                                         causal))
     return mma
 
 

@@ -45,6 +45,11 @@ def kernel_applicable(m: int, kdim: int, out_dim: int) -> bool:
     return 1 <= m <= M_MAX and kdim > 0 and kdim % K_QUANTUM == 0 and out_dim > 0
 
 
+def launch_flops(m: int, kdim: int, out_dim: int) -> int:
+    """Operations of one K4 launch, (M, K) x (O, K)."""
+    return 2 * m * kdim * out_dim
+
+
 def int8_matmul_plain(x2: torch.Tensor, w_q: torch.Tensor,
                       scale_row: torch.Tensor) -> torch.Tensor:
     """K4's function in plain PyTorch: f32 (M, O) from x (M, K), int8 w_q
@@ -93,6 +98,7 @@ def int8_matmul_kernel(x2: torch.Tensor, w_q: torch.Tensor,
         m, kdim, out_dim, torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check_status(lib, "int8_matmul", status)
     LAUNCHES.add()
+    _build.KERNEL_FLOPS.add(launch_flops(m, kdim, out_dim))
     return y
 
 
@@ -103,8 +109,12 @@ def _to_kernel_x(x2: torch.Tensor) -> torch.Tensor:
 
 
 def _note_lost_kernel(kdim: int, out_dim: int) -> None:
-    """Warn once per shape when a decode-shaped call misses the kernel
-    because K is off the 16-element quantum."""
+    """Count every decode-shaped call that misses the kernel because K is
+    off the 16-element quantum (``bigdl_int8_fallbacks_total``, as the
+    reference's ``_note_fallback`` does for each eager call) and warn once
+    per shape."""
+    from bigdl_tpu_torch.telemetry import get_registry, instruments
+    instruments(get_registry()).int8_fallbacks_total.inc()
     key = (kdim, out_dim)
     if key in _WARNED:
         return

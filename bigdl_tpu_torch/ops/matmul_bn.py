@@ -56,6 +56,12 @@ def matmul_with_stats_plain(x: torch.Tensor, w: torch.Tensor) -> Stats:
     return y32.to(x.dtype), y32.sum(0), (y32 * y32).sum(0)
 
 
+def launch_flops(m: int, kdim: int, n: int) -> int:
+    """Operations of one K5 launch, (M, K) x (K, N): the statistics' 3N
+    per row are left out, as in PERF.md's bounds."""
+    return 2 * m * kdim * n
+
+
 def matmul_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     """Launch kernel K5 on CUDA tensors: x (M, K) and w (K, N) of one dtype
     (f32 or bf16), both contiguous (and 16-byte aligned for the "mma"
@@ -90,6 +96,7 @@ def matmul_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
                                      stream)
     _build.check_status(lib, "matmul_bn", status)
     LAUNCHES.add()
+    _build.KERNEL_FLOPS.add(launch_flops(m, kdim, n))
     if mma:
         LAUNCHES_MMA.add()
     return y, stats[0], stats[1]

@@ -8,6 +8,12 @@ the model in eval mode under ``torch.no_grad()`` and restores its mode
 afterwards. Each batch's (value, count) pairs are added to an (M,) f32
 value and an (M,) int64 count accumulator ON THE DEVICE; the host reads
 them once per evaluation, not once per batch.
+
+The programs are tracked sites (``telemetry.profiling``): a full batch goes
+through ``eval.scorer`` (the forward and the device-side scoring; cached
+per forward and methods in the caller's ``cache``), ``Evaluator``'s forward
+is ``eval.forward`` and the training loop's validation forward
+``train.forward``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from bigdl_tpu_torch.dataset.base import (AbstractDataSet, LocalDataSet,
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
 from bigdl_tpu_torch.telemetry import get_registry, instruments, span
+from bigdl_tpu_torch.telemetry.profiling import tracked_jit
 from bigdl_tpu_torch.utils.device import DeviceLike, check_module_device
 
 
@@ -42,7 +49,7 @@ def _device_batch(array, device: torch.device) -> torch.Tensor:
 def evaluate_batches(fwd: Callable[[torch.Tensor], torch.Tensor],
                      batches: Iterable,
                      v_methods: Sequence[ValidationMethod],
-                     device: torch.device,
+                     device: torch.device, cache: Optional[dict] = None,
                      ) -> Tuple[List[Optional[ValidationResult]], int]:
     """Run ``fwd(data)`` over batches, merging each method's results.
     Returns (results, record count). The caller puts the model in eval
@@ -56,18 +63,40 @@ def evaluate_batches(fwd: Callable[[torch.Tensor], torch.Tensor],
 
     Telemetry: ``bigdl_eval_batches_total``, ``bigdl_eval_records_total``
     and a per-batch host wall-clock histogram; the call traces as one
-    ``eval.batches`` span."""
+    ``eval.batches`` span. ``cache`` (a dict the caller keeps) holds the
+    ``eval.scorer`` site between calls with the same ``fwd`` and
+    methods."""
     with span("eval.batches", methods=len(v_methods)):
-        return _evaluate_batches(fwd, batches, v_methods, device)
+        return _evaluate_batches(fwd, batches, v_methods, device, cache)
 
 
-def _evaluate_batches(fwd, batches, v_methods, device):
+def _evaluate_batches(fwd, batches, v_methods, device, cache):
     tm = instruments(get_registry())
     results: List[Optional[ValidationResult]] = [None] * len(v_methods)
     on_device = [type(m).batch_result is not ValidationMethod.batch_result
                  for m in v_methods]
     acc_v = torch.zeros(len(v_methods), dtype=torch.float32, device=device)
     acc_c = torch.zeros(len(v_methods), dtype=torch.int64, device=device)
+
+    def score(out, labels, acc_v, acc_c):
+        for i, m in enumerate(v_methods):
+            if on_device[i]:
+                v, c = m.batch_result(out, labels)
+                acc_v[i] += v.float()
+                acc_c[i] += c
+
+    def forward_and_score(data, labels, acc_v, acc_c):
+        out = fwd(data)
+        score(out, labels, acc_v, acc_c)
+        return out
+
+    key = (id(fwd), tuple(id(m) for m in v_methods))
+    scorer = cache.get(key) if cache is not None else None
+    if scorer is None:
+        scorer = tracked_jit(forward_and_score, site="eval.scorer")
+        if cache is not None:
+            cache.clear()   # one entry: another fwd or methods replace it
+            cache[key] = scorer
     count, n_batches, full_bs, sliceable = 0, 0, None, False
     for item in batches:
         t_batch = time.perf_counter()
@@ -82,15 +111,12 @@ def _evaluate_batches(fwd, batches, v_methods, device):
             pad = torch.zeros((full_bs - n, *data.shape[1:]),
                               dtype=data.dtype, device=device)
             out = fwd(torch.cat([data, pad]))[:n]
+            score(out, labels, acc_v, acc_c)
         else:   # a structured output is scored at the exact shape
-            out = fwd(data)
+            out = scorer(data, labels, acc_v, acc_c)
             sliceable = torch.is_tensor(out)
         for i, m in enumerate(v_methods):
-            if on_device[i]:
-                v, c = m.batch_result(out, labels)
-                acc_v[i] += v.float()
-                acc_c[i] += c
-            else:
+            if not on_device[i]:
                 r = m.apply(out, labels)
                 results[i] = r if results[i] is None else results[i] + r
         count += n
@@ -127,6 +153,8 @@ class Evaluator:
         self.device = check_module_device(model, device)
         self.model = model
         self.batch_size = batch_size
+        self._eval_cache: dict = {}   # the eval.scorer site, kept
+        self._fwd = tracked_jit(model, site="eval.forward")
 
     def _as_batches(self, dataset):
         if isinstance(dataset, AbstractDataSet):
@@ -138,9 +166,10 @@ class Evaluator:
 
     def test(self, dataset, v_methods: Sequence[ValidationMethod]
              ) -> List[Tuple[ValidationResult, ValidationMethod]]:
-        with evaluating(self.model) as model:
-            results, _ = evaluate_batches(model, self._as_batches(dataset),
-                                          v_methods, self.device)
+        with evaluating(self.model):
+            results, _ = evaluate_batches(self._fwd, self._as_batches(dataset),
+                                          v_methods, self.device,
+                                          cache=self._eval_cache)
         return [(r, m) for r, m in zip(results, v_methods)]
 
 

@@ -75,12 +75,38 @@ place, before any graph is captured; the marker's cursor, the dataset's
 replayed shuffles and the dropout generators' states make a mid-epoch
 restart bit-exact. ``optimize()`` retries a failed run from the newest
 complete snapshot (``BIGDL_FAILURE_RETRY_TIMES`` within
-``BIGDL_FAILURE_RETRY_INTERVAL`` seconds).
+``BIGDL_FAILURE_RETRY_INTERVAL`` seconds). ``set_checkpoint(...,
+sharded=True)`` writes ``model[.N]/`` (``{"params", "buffers"}``) and
+``state[.N]/`` (``{"optim"}`` and ``driver.json``) through
+``utils/sharded_checkpoint.py``; ``resume`` and ``auto_resume`` read either
+form. A dataset with a ``drain()`` (``dataset.ingest.PrefetchingDataSet``)
+is drained by the preemption path before its snapshot, and each epoch's
+iterator is closed at the epoch's end and on every exit.
+
+Telemetry: the programs are tracked sites of ``telemetry.profiling``
+(``train.step``, the k = 1 step; ``train.multi_step`` and
+``train.multi_step_cached``, a window's graph, whose first call, the eager
+warm-up and the capture, is its compile; ``train.forward``, validation),
+and the loop writes the reference's ``bigdl_train_*{mode="local"}``
+families: data wait, dispatch and sync seconds a window, step seconds,
+steps, records and records/s an iteration, compiles (the first window),
+and ``bigdl_train_mfu``, the window's program FLOPs over its device
+seconds and ``peak_flops()`` (from the second window on).
+``set_profiling(log_dir, start_iteration, n_iterations)`` runs
+``torch.profiler`` over exactly those iterations and writes a Chrome trace
+into ``log_dir``; meanwhile each iteration runs under a ``record_function``
+range ``iteration N`` and each module's forward under one named by the
+module, so the trace's kernels are attributed to layers (the reference's
+``jax.named_scope``). Under ``set_steps_per_dispatch(k > 1)`` a window is
+one graph replay: its range is ``iterations N-M`` and no module range is
+visible inside it. The hooks exist only while the profiler runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -107,9 +133,12 @@ from bigdl_tpu_torch.resilience import chaos as chaos_mod
 from bigdl_tpu_torch.resilience import coordinator
 from bigdl_tpu_torch.resilience.preemption import (PreemptionHandler,
                                                    TrainingPreempted)
-from bigdl_tpu_torch.telemetry import get_registry, instruments
+from bigdl_tpu_torch.telemetry import get_registry, instruments, profiling
+from bigdl_tpu_torch.telemetry.profiling import (sample_device_memory,
+                                                 tracked_jit)
 from bigdl_tpu_torch.telemetry.tracing import span
 from bigdl_tpu_torch.utils import file_io
+from bigdl_tpu_torch.utils import sharded_checkpoint as sckpt
 from bigdl_tpu_torch.utils.cuda_graph import GraphedProgram
 from bigdl_tpu_torch.utils.device import DeviceLike, check_module_device
 
@@ -141,11 +170,6 @@ def make_grad_clipper(clip: Dict) -> Callable[[Tensors], Tensors]:
         return grads
 
     return apply
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"Optimizer.{what} is not ported yet: ROADMAP "
-                              f"{item}")
 
 
 class Optimizer:
@@ -192,6 +216,11 @@ class Optimizer:
         self._auto_resume = False
         self._preemption: Optional[PreemptionHandler] = None
         self._chaos: List = []
+        self._ckpt_sharded = False
+        self._profile = None
+        self._live_data_iter = None
+        self._eval_cache: Dict = {}
+        self._fwd = None
         #: one entry per trained iteration: neval, epoch, loss, seconds
         #: (time between two iterations' completions), records
         self.history: List[Dict] = []
@@ -277,11 +306,10 @@ class Optimizer:
     def set_checkpoint(self, path: str, trigger: Trigger,
                        sharded: bool = False) -> "Optimizer":
         """Write ``model.N`` and ``state.N`` (N the driver's ``neval``)
-        under ``path`` whenever ``trigger`` fires."""
-        if sharded:
-            raise NotImplementedError(
-                f"Optimizer.set_checkpoint(sharded=True): "
-                f"{coordinator.SHARDED_WAITS}")
+        under ``path`` whenever ``trigger`` fires; ``sharded``: as
+        directories of ``utils/sharded_checkpoint.py`` (one shard file per
+        process) instead of single files."""
+        self._ckpt_sharded = bool(sharded)
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger
         return self
@@ -366,9 +394,44 @@ class Optimizer:
         self.validation_summary = summary
         return self
 
-    # ------------------------------------------------------------ not ported
-    def set_profiling(self, *args, **kwargs):
-        _not_ported("set_profiling", "A.5 (telemetry)")
+    def set_profiling(self, log_dir: str, start_iteration: int = 5,
+                      n_iterations: int = 5) -> "Optimizer":
+        """Trace iterations [start_iteration, start_iteration +
+        n_iterations) with ``torch.profiler`` into a Chrome trace under
+        ``log_dir`` (reference ``set_profiling``); see the module
+        docstring."""
+        self._profile = (log_dir, int(start_iteration), int(n_iterations))
+        return self
+
+    def _train_instruments(self):
+        """The ``mode="local"`` training metric children, resolved once."""
+        cached = getattr(self, "_tm_cache", None)
+        if cached is not None:
+            return cached
+        from types import SimpleNamespace
+        tm = instruments(get_registry())
+        mode = "local"
+        cached = SimpleNamespace(
+            step=tm.train_step_seconds.labels(mode=mode),
+            data_wait=tm.train_data_wait_seconds.labels(mode=mode),
+            dispatch=tm.train_dispatch_seconds.labels(mode=mode),
+            sync=tm.train_sync_seconds.labels(mode=mode),
+            steps=tm.train_steps_total.labels(mode=mode),
+            records=tm.train_records_total.labels(mode=mode),
+            rps=tm.train_records_per_second.labels(mode=mode),
+            compiles=tm.train_compiles_total.labels(mode=mode),
+            mfu=tm.train_mfu.labels(mode=mode),
+            validation=tm.train_validation_seconds.labels(mode=mode))
+        self._tm_cache = cached
+        return cached
+
+    def _close_data_iter(self) -> None:
+        """Close the epoch's iterator, if one is live: an ingest engine's
+        joins its stage threads."""
+        it, self._live_data_iter = self._live_data_iter, None
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
     def optimize(self) -> torch.nn.Module:
         raise NotImplementedError
@@ -463,15 +526,97 @@ def _load_into(dst: Dict, src: Dict, where: str = "optim") -> None:
     for k, d in dst.items():
         v = src[k]
         if torch.is_tensor(d):
-            v = torch.as_tensor(np.asarray(v))
+            if not torch.is_tensor(v):
+                v = torch.as_tensor(np.asarray(v))
             if tuple(v.shape) != tuple(d.shape):
                 raise ValueError(f"snapshot {where}.{k}: shape "
                                  f"{tuple(v.shape)} != {tuple(d.shape)}")
             d.copy_(v)
         elif isinstance(d, dict):
             _load_into(d, v, f"{where}.{k}")
-        else:
-            dst[k] = v
+        else:   # a host counter; a sharded snapshot holds it as a 0-d array
+            dst[k] = v.item() if isinstance(v, np.ndarray) else v
+
+
+class _WindowProfiler:
+    """``set_profiling``'s ``torch.profiler`` over the windows that hold
+    iterations [start, start + n): started at the first such window's
+    dispatch, stopped (after a device synchronize, so the last kernels are
+    in it) once the last is dispatched, and exported as a Chrome trace
+    into ``log_dir``. While it runs, each window is a ``record_function``
+    range and each module's forward another, named by the module; the
+    module hooks exist only then."""
+
+    def __init__(self, profile, model: torch.nn.Module, device: torch.device):
+        self.profile = profile
+        self.model = model
+        self.device = device
+        self.prof = None
+        self.done = profile is None
+        self._hooks: List = []
+        self.trace_path: Optional[str] = None
+
+    def begin(self, neval0: int, last_neval: int) -> None:
+        if self.done or self.prof is not None:
+            return
+        log_dir, start, _ = self.profile
+        if not neval0 <= start <= last_neval:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._first = neval0
+        self.prof = profile(activities=activities)
+        self.prof.start()
+        for m in self.model.modules():
+            self._add_range(m, getattr(m, "name", None) or type(m).__name__)
+
+    def _add_range(self, module: torch.nn.Module, name: str) -> None:
+        stack: List = []
+
+        def pre(_mod, _inp):
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            stack.append(rf)
+
+        def post(_mod, _inp, _out):
+            if stack:
+                stack.pop().__exit__(None, None, None)
+
+        self._hooks.append(module.register_forward_pre_hook(pre))
+        self._hooks.append(module.register_forward_hook(post))
+
+    def window(self, neval0: int, last_neval: int):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        name = (f"iteration {neval0}" if neval0 == last_neval
+                else f"iterations {neval0}-{last_neval}")
+        return torch.profiler.record_function(name)
+
+    def end(self, last_neval: int) -> None:
+        if self.prof is not None and \
+                last_neval >= self.profile[1] + self.profile[2] - 1:
+            self.close()
+
+    def close(self) -> None:
+        """Stop and export (also when training ends inside the window)."""
+        if self.prof is None:
+            return
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self.prof = self.prof, None
+        prof.stop()
+        self.done = True
+        log_dir = self.profile[0]
+        os.makedirs(log_dir, exist_ok=True)
+        self.trace_path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(self.trace_path)
+        logger.info("[Profiler] trace of iterations from %d written to %s",
+                    self._first, self.trace_path)
 
 
 class LocalOptimizer(Optimizer):
@@ -520,6 +665,11 @@ class LocalOptimizer(Optimizer):
         handler = self._preemption
         if handler is not None:
             handler.install()
+            drain = getattr(self.dataset, "drain", None)
+            if callable(drain):
+                # an ingest engine's threads stop and join before the
+                # final snapshot's IO
+                handler.add_drain_hook(drain)
         try:
             while True:
                 try:
@@ -545,6 +695,7 @@ class LocalOptimizer(Optimizer):
                         "from checkpoint %s", len(failures), retry_times, e,
                         latest.model_path)
         finally:
+            self._close_data_iter()
             if handler is not None:
                 handler.uninstall()
 
@@ -559,11 +710,11 @@ class LocalOptimizer(Optimizer):
         else:
             model_path, state_path = resume
             marker = coordinator.read_marker(state_path)
-        if coordinator.is_sharded(model_path):
-            raise NotImplementedError(
-                f"{model_path}: {coordinator.SHARDED_WAITS}")
-        snap = file_io.load(model_path, device="cpu")
-        st = file_io.load(state_path, device="cpu")
+        if sckpt.is_sharded_checkpoint(model_path):
+            snap, st = self._load_sharded(model_path, state_path, opt_state)
+        else:
+            snap = file_io.load(model_path, device="cpu")
+            st = file_io.load(state_path, device="cpu")
         if not (isinstance(snap, dict) and "params" in snap):
             raise ValueError(f"{model_path} is not a training snapshot "
                              "({'params', 'buffers'}); a saved module is "
@@ -579,6 +730,25 @@ class LocalOptimizer(Optimizer):
         logger.info("[Resume] from %s at epoch %s neval %s", model_path,
                     driver_state["epoch"], driver_state["neval"])
         return marker
+
+    def _load_sharded(self, model_path: str, state_path: str,
+                      opt_state: Dict):
+        """A sharded pair as host trees shaped like a plain snapshot's:
+        the targets are this run's own parameter, buffer and optim-state
+        structures."""
+        none_of = lambda tree: ({k: none_of(v) for k, v in tree.items()}
+                                if isinstance(tree, dict) else None)
+        snap = sckpt.load_sharded(model_path, {
+            "params": {n: None for n, _ in self.model.named_parameters()},
+            "buffers": {n: None for n, _ in self.model.named_buffers()}})
+        for part in snap.values():      # import_tree_state reads numpy
+            for n, v in part.items():
+                if torch.is_tensor(v):
+                    part[n] = v.float().numpy()
+        st = sckpt.load_sharded(state_path, {"optim": none_of(opt_state)})
+        with open(os.path.join(state_path, "driver.json")) as f:
+            st["driver"] = json.load(f)
+        return snap, st
 
     def _restore_rng(self, marker: Dict) -> None:
         """The dropout generators' states, from the marker's ``rng``."""
@@ -608,14 +778,24 @@ class LocalOptimizer(Optimizer):
             return
         tag = "" if self.is_overwrite else f".{int(driver_state['neval'])}"
         model = self.model
-        host = file_io.to_host({
-            "model": {"params": dict(model.named_parameters()),
-                      "buffers": dict(model.named_buffers())},
-            "state": {"optim": opt_state, "driver": dict(driver_state)}})
+        model_tree = {"params": dict(model.named_parameters()),
+                      "buffers": dict(model.named_buffers())}
         model_path = file_io.join(self.checkpoint_path, f"model{tag}")
         state_path = file_io.join(self.checkpoint_path, f"state{tag}")
-        files = {"model": file_io.save(host["model"], model_path),
-                 "state": file_io.save(host["state"], state_path)}
+        if self._ckpt_sharded:
+            sckpt.save_sharded(model_path, model_tree)
+            sckpt.save_sharded(state_path, {"optim": opt_state})
+            with open(os.path.join(state_path, "driver.json"), "w") as f:
+                json.dump({k: (v.item() if hasattr(v, "item") else v)
+                           for k, v in driver_state.items()}, f)
+            files = {"model": coordinator.sharded_digests(model_path),
+                     "state": coordinator.sharded_digests(state_path)}
+        else:
+            host = file_io.to_host({
+                "model": model_tree,
+                "state": {"optim": opt_state, "driver": dict(driver_state)}})
+            files = {"model": file_io.save(host["model"], model_path),
+                     "state": file_io.save(host["state"], state_path)}
         if "://" not in self.checkpoint_path and self._loop_cursor:
             cursor = self._loop_cursor
             coordinator.write_marker(
@@ -683,14 +863,15 @@ class LocalOptimizer(Optimizer):
         if self.validation_dataset is None:
             return
         t0 = time.time()
-        with span("train.validate"), evaluating(self.model) as model:
+        if self._fwd is None:
+            self._fwd = tracked_jit(self.model, site="train.forward")
+        with span("train.validate"), evaluating(self.model):
             results, count = evaluate_batches(
-                model, self.validation_dataset.data(train=False),
-                self.validation_methods, self.device)
+                self._fwd, self.validation_dataset.data(train=False),
+                self.validation_methods, self.device, cache=self._eval_cache)
         elapsed = time.time() - t0
         self.metrics.add("validation time", elapsed)
-        instruments(get_registry()).train_validation_seconds.labels(
-            mode="local").observe(elapsed)
+        self._train_instruments().validation.observe(elapsed)
         logger.info("[Validation] %d records in %.3fs. Throughput is %.1f "
                     "records/s", count, elapsed, count / max(elapsed, 1e-9))
         for i, (m, r) in enumerate(zip(self.validation_methods, results)):
@@ -754,6 +935,7 @@ class LocalOptimizer(Optimizer):
         wall_start = time.time()
         pending = None     # the dispatched window awaiting its losses
         last_done = None   # when the previous window's losses landed
+        tm = self._train_instruments()
 
         def release():
             for p in params.values():
@@ -797,18 +979,35 @@ class LocalOptimizer(Optimizer):
             return [m._generator for m in model.modules()
                     if isinstance(m, Dropout) and m._generator is not None]
 
+        # the tracked programs (telemetry.profiling): a compile is the first
+        # call of a signature; a window's graph is an argument of its site,
+        # so each new graph is one compile (its warm-up and capture)
+        step_t = tracked_jit(step, site="train.step", count_flops=True)
+        multi_t = tracked_jit(
+            (lambda g, inputs, scalars: g(inputs, scalars)) if dev.type ==
+            "cuda" else (lambda pairs: [step(d, l) for d, l in pairs]),
+            site="train.multi_step", count_flops=True)
+        multi_cached_t = tracked_jit(lambda g, inputs, scalars:
+                                     g(inputs, scalars),
+                                     site="train.multi_step_cached",
+                                     count_flops=True)
+
         def dispatch(window):
-            """Run a window; returns its losses: a list of tensors on the
-            CPU, a ``_Fetched`` on a card. On a card a window of more than
-            one iteration replays its graph."""
+            """Run a window; returns its losses (a list of tensors on the
+            CPU, a ``_Fetched`` on a card) and the tracked program that
+            ran it. On a card a window of more than one iteration replays
+            its graph."""
             if dev.type != "cuda":
-                return [step(*(self._to_device(a)
-                               for a in (b.data, b.labels))) for b in window]
+                pairs = [tuple(self._to_device(a) for a in (b.data, b.labels))
+                         for b in window]
+                if len(pairs) == 1:
+                    return [step_t(*pairs[0])], step_t
+                return multi_t(pairs), multi_t
             start = _Fetched.event()
             if len(window) == 1:
                 # a cached batch's data and labels are device gathers
-                return _Fetched(start, step(*(self._to_device(a) for a in (
-                    window[0].data, window[0].labels))).reshape(1))
+                return _Fetched(start, step_t(*(self._to_device(a) for a in (
+                    window[0].data, window[0].labels))).reshape(1)), step_t
             count0 = opt_state["evalCounter"]
             rows = [self.optim_method.step_scalars(
                 {**opt_state, "evalCounter": count0 + j})
@@ -823,6 +1022,7 @@ class LocalOptimizer(Optimizer):
                     s._x.index_select(0, bufs[0][j]),
                     s._y.index_select(0, bufs[0][j]))
                 reads = (src._x, src._y)
+                program = multi_cached_t
             else:
                 inputs = [torch.stack([torch.as_tensor(a).cpu() for a in arrs])
                           for arrs in zip(*((b.data, b.labels)
@@ -830,16 +1030,17 @@ class LocalOptimizer(Optimizer):
                 key = (len(window), *((t.shape, t.dtype) for t in inputs))
                 batch = lambda bufs, j: (bufs[0][j], bufs[1][j])
                 reads = ()
+                program = multi_t
             if key not in graphs:
                 graphs[key] = _WindowGraph(
                     step, release, len(window), inputs, batch, len(rows[0]),
                     dev, dropout_generators, (params, opt_state), reads)
-            losses = graphs[key](inputs,
-                                 torch.tensor(rows, dtype=torch.float32))
+            losses = program(graphs[key], inputs,
+                             torch.tensor(rows, dtype=torch.float32))
             # the host's counter: the warm-up and the capture each ran the
             # update's Python k times, a replay runs none of it
             opt_state["evalCounter"] = count0 + len(window)
-            return _Fetched(start, losses)
+            return _Fetched(start, losses), program
 
         def flush():
             nonlocal pending, last_done
@@ -847,12 +1048,14 @@ class LocalOptimizer(Optimizer):
                 return
             p, pending = pending, None
             fetched = p["losses"]
+            t_sync = time.time()
             with span("train.sync", k=len(p["iters"])):   # waits for the device
                 if isinstance(fetched, _Fetched):
                     fetched.done.synchronize()
                     losses = fetched.host.tolist()
                 else:
                     losses = [float(x) for x in fetched]
+            tm.sync.observe(time.time() - t_sync)
             done = time.time()
             # the interval between two completions is the window's time in
             # a steady state; the first window counts from its own start.
@@ -866,8 +1069,23 @@ class LocalOptimizer(Optimizer):
                                       and last_done > p["t0"] else p["t0"])
             last_done = done
             seconds = window_time / len(p["iters"])
+            if p["iters"][0]["neval"] == 1:
+                # the first window pays the sites' first calls (warm-up,
+                # capture, FlopCounterMode): its time is no step's MFU
+                self.metrics.add("compile and first-step time", window_time)
+                tm.compiles.inc()
+            else:
+                m = profiling.mfu(p["fn"].last_flops, window_time)
+                if m is not None:
+                    tm.mfu.set(m)
+            sample_device_memory(None, dev)
             for meta, loss in zip(p["iters"], losses):
                 throughput = meta["records"] / max(seconds, 1e-9)
+                tm.step.observe(seconds)
+                tm.steps.inc()
+                tm.records.inc(meta["records"])
+                tm.rps.set(throughput)
+                self.metrics.add("computing time average", seconds)
                 driver_state["trainingLoss"] = loss
                 if summary is not None:
                     summary.add_scalar("Loss", loss, meta["neval"])
@@ -903,6 +1121,7 @@ class LocalOptimizer(Optimizer):
             return not any(getattr(inj, "fires_at", lambda n: False)(
                 neval0 + j - 1) for inj in chaos_injectors)
 
+        profiler = _WindowProfiler(self._profile, model, dev)
         try:
             stop = False
             while not stop and not self.end_when(driver_state):
@@ -911,7 +1130,10 @@ class LocalOptimizer(Optimizer):
                 opt_state["epoch"] = epoch
                 epoch_start = time.time()
                 epoch_records = epoch_batches = 0
+                data_wait = 0.0
+                t_data = time.time()
                 batches = iter(self.dataset.data(train=True))
+                self._live_data_iter = batches
                 if (resume_cursor is not None
                         and int(resume_cursor.get("epoch", -1)) == epoch):
                     # past the batches the snapshot's epoch trained on
@@ -933,14 +1155,21 @@ class LocalOptimizer(Optimizer):
                         if nxt is None:
                             break
                         window.append(nxt)
+                    dw = time.time() - t_data
+                    data_wait += dw
+                    tm.data_wait.observe(dw)
+                    last_neval = neval0 + len(window) - 1
+                    profiler.begin(neval0, last_neval)
                     t0 = time.time()
                     # the window in flight, whose completion starts this one's
                     # time (None: this one starts from its own dispatch)
                     after = (pending["losses"].done if pending is not None
                              and isinstance(pending["losses"], _Fetched)
                              else None)
-                    with span("train.dispatch", k=len(window)):
-                        losses = dispatch(window)
+                    with span("train.dispatch", k=len(window)), \
+                            profiler.window(neval0, last_neval):
+                        losses, program = dispatch(window)
+                    tm.dispatch.observe(time.time() - t0)
                     flush()   # the previous window's losses
                     # one rate a window, read after its updates, as the
                     # reference snapshots it
@@ -955,8 +1184,8 @@ class LocalOptimizer(Optimizer):
                                       "epoch_records": epoch_records,
                                       "lr": lr})
                     pending = {"losses": losses, "iters": iters, "t0": t0,
-                               "after": after}
-                    last_neval = neval0 + len(window) - 1
+                               "after": after, "fn": program}
+                    profiler.end(last_neval)
                     # the window's last iteration has the hook slot
                     driver_state["neval"] = last_neval
                     if ptrig is not None and ptrig(driver_state):
@@ -983,13 +1212,17 @@ class LocalOptimizer(Optimizer):
                     if self.end_when(driver_state):
                         stop = True
                         break
+                    t_data = time.time()
                 flush()
+                self._close_data_iter()
+                self.metrics.add("data wait time", data_wait)
                 logger.info("[Epoch %d] Epoch finished. Wall clock time is "
                             "%.1f ms (%d records)", epoch,
                             (time.time() - epoch_start) * 1e3, epoch_records)
                 driver_state["epoch"] = epoch + 1
                 self._hooks(opt_state, driver_state)
         finally:
+            profiler.close()
             for g in graphs.values():
                 g.close()
             release()

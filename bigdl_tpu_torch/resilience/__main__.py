@@ -4,12 +4,14 @@
 Subcommands:
 
 - ``validate <checkpoint_dir>``: list every snapshot pair with its
-  complete/PARTIAL verdict and marker summary; exit 0 iff a resume point
-  exists (torch-free: no device is touched);
+  complete/PARTIAL verdict (plain files or sharded directories) and
+  marker summary; exit 0 iff a resume point exists (no device is
+  touched);
 - ``latest <checkpoint_dir>``: print the newest complete (model, state)
   pair, one path per line;
-- ``chaos corrupt <snapshot> [--mode flip|truncate|delete] [--seed S]``:
-  deterministically damage a plain snapshot file;
+- ``chaos corrupt <snapshot> [--shard N] [--mode flip|truncate|delete]
+  [--seed S]``: deterministically damage a plain snapshot file, or one
+  shard file of a sharded snapshot directory;
 - ``chaos selftest``: exercise the injectors deterministically (no
   device);
 - ``chaos drill [--replicas N] [--disaggregate P:D] [--requests R]
@@ -38,10 +40,6 @@ def _cmd_validate(args) -> int:
     for neval, _, model_name, state_name in reversed(pairs):
         model = os.path.join(args.checkpoint_dir, model_name)
         state = os.path.join(args.checkpoint_dir, state_name)
-        if coordinator.is_sharded(model):
-            print(f"SHARDED   {model_name} / {state_name} (neval {neval}): "
-                  f"{coordinator.SHARDED_WAITS}")
-            continue
         ok = coordinator.validate_pair(model, state)
         any_ok = any_ok or ok
         marker = coordinator.read_marker(state) if ok else None
@@ -52,17 +50,14 @@ def _cmd_validate(args) -> int:
             extra = (f"  marker: step {marker.get('step')} epoch "
                      f"{marker.get('epoch')} procs "
                      f"{mesh.get('process_count')}")
+        kind = " sharded" if os.path.isdir(model) else ""
         print(f"{tag}  {model_name} / {state_name}"
-              f" (neval {neval}){extra}")
+              f" (neval {neval}{kind}){extra}")
     return 0 if any_ok else 1
 
 
 def _cmd_latest(args) -> int:
-    try:
-        point = coordinator.latest_resume_point(args.checkpoint_dir)
-    except NotImplementedError as e:
-        print(e, file=sys.stderr)
-        return 1
+    point = coordinator.latest_resume_point(args.checkpoint_dir)
     if point is None:
         print("no complete snapshot", file=sys.stderr)
         return 1
@@ -73,7 +68,7 @@ def _cmd_latest(args) -> int:
 
 def _cmd_chaos_corrupt(args) -> int:
     info = chaos_mod.corrupt_snapshot(args.snapshot, mode=args.mode,
-                                      seed=args.seed)
+                                      seed=args.seed, shard=args.shard)
     print(f"corrupted {info['file']} ({info['mode']})")
     return 0
 
@@ -160,7 +155,10 @@ def main(argv=None) -> int:
     csub = p.add_subparsers(dest="chaos_cmd", required=True)
     c = csub.add_parser("corrupt", help="damage a snapshot file "
                         "deterministically")
-    c.add_argument("snapshot", help="a model.N or state.N file")
+    c.add_argument("snapshot", help="a model.N or state.N file, or a "
+                   "sharded snapshot directory")
+    c.add_argument("--shard", type=int, default=0,
+                   help="which shard file of a sharded snapshot")
     c.add_argument("--mode", default="flip",
                    choices=["flip", "truncate", "delete"])
     c.add_argument("--seed", type=int, default=0)

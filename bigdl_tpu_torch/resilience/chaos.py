@@ -1,7 +1,6 @@
 """Deterministic fault injection for resilience drills (counterpart of
-``bigdl_tpu/resilience/chaos.py``; ``corrupt_snapshot`` damages plain
-snapshot files, a sharded snapshot waits for ROADMAP A.5
-(sharded_checkpoint)).
+``bigdl_tpu/resilience/chaos.py``; ``corrupt_snapshot`` damages a plain
+snapshot file or a shard file of a sharded snapshot).
 
 These injectors make a failure REPRODUCIBLE — kill exactly at step N,
 stall exactly at step N — so a recovery test failing once fails every
@@ -169,10 +168,10 @@ class DropHandoff:
 
 
 def corrupt_snapshot(path: str, mode: str = "flip", seed: int = 0,
-                     nbytes: int = 64) -> dict:
+                     nbytes: int = 64, shard: int = 0) -> dict:
     """Deterministically damage a plain snapshot file (``model.N`` or
-    ``state.N``; the reference's ``corrupt_snapshot`` picks a shard file of
-    a sharded snapshot, which the port cannot write yet).
+    ``state.N``), or shard file ``shard`` of a sharded snapshot directory
+    (the reference's ``corrupt_snapshot``).
 
     ``mode='flip'``: XOR ``nbytes`` bytes at positions drawn from
     ``default_rng(seed)`` (same seed, same bytes, every time);
@@ -181,8 +180,15 @@ def corrupt_snapshot(path: str, mode: str = "flip", seed: int = 0,
     import numpy as np  # heavier import kept out of module load
 
     if os.path.isdir(path):
-        from bigdl_tpu_torch.resilience.coordinator import SHARDED_WAITS
-        raise NotImplementedError(f"{path}: {SHARDED_WAITS}")
+        from bigdl_tpu_torch.utils.sharded_checkpoint import read_manifest
+        _, shards = read_manifest(path)
+        if shards is None:
+            shards = sorted(f for f in os.listdir(path)
+                            if f.startswith("shard-") and f.endswith(".npz"))
+        if not 0 <= shard < len(shards):
+            raise ValueError(f"shard {shard} out of range; snapshot has "
+                             f"{len(shards)} shard files")
+        path = os.path.join(path, shards[shard])
     info = {"file": path, "mode": mode}
     if mode == "delete":
         os.unlink(path)

@@ -15,8 +15,13 @@ newest COMPLETE snapshot, reject partial writes, and restart from it.
   atomically) records ``step``, ``epoch``, the data ``cursor`` and
   ``format``, as the reference's does, and the port's own ``rng`` entry:
   what makes a mid-epoch restart bit-exact (``optim/optimizer.py``).
-- A sharded snapshot (a directory) is reported and refused: it waits for
-  ``utils/sharded_checkpoint.py``, ROADMAP A.5 (sharded_checkpoint).
+- A sharded pair (two directories, ``utils/sharded_checkpoint.py``) is
+  complete when each has its ``manifest.json`` and every shard file the
+  manifest names, and the state directory its ``driver.json``, as in the
+  reference; where the marker (inside the state directory) records each
+  shard file's size and CRC-32 (the port's do), when every file still has
+  them. The coordinator's multi-host part (elastic resume, the agreed
+  preemption step) waits for ROADMAP A.4 (distributed plane).
 
 Filesystem-only and torch-free at import: ``python -m
 bigdl_tpu_torch.resilience validate`` runs on a bare host.
@@ -31,8 +36,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 MARKER_NAME = "resume.json"
 MARKER_FORMAT = 1
-SHARDED_WAITS = ("sharded snapshots are not ported yet: ROADMAP A.5 "
-                 "(sharded_checkpoint)")
 
 
 # --------------------------------------------------------------- the marker
@@ -54,7 +57,8 @@ def write_marker(state_path: str, *, step: int, epoch: int,
     epoch-boundary save it is the FINISHED epoch while ``epoch`` already
     names the next one, and the resuming loop only skips batches when they
     match. ``rng`` is the port's generator record; ``files`` maps
-    ``"model"`` and ``"state"`` to their ``{"bytes", "crc32"}``."""
+    ``"model"`` and ``"state"`` to their ``{"bytes", "crc32"}`` (for a
+    sharded pair, to ``{shard file: {"bytes", "crc32"}}``)."""
     marker = {
         "format": MARKER_FORMAT,
         "step": int(step),
@@ -104,9 +108,35 @@ def _digest(path: str) -> Dict[str, int]:
     return {"bytes": n, "crc32": crc}
 
 
+def sharded_digests(path: str) -> Dict[str, Dict[str, int]]:
+    """``{shard file: {"bytes", "crc32"}}`` of a sharded snapshot
+    directory, for its RESUME marker's ``files``."""
+    from bigdl_tpu_torch.utils.sharded_checkpoint import read_manifest
+    _, shards = read_manifest(path)
+    return {s: _digest(os.path.join(path, s)) for s in shards}
+
+
+def sharded_snapshot_complete(path: str) -> bool:
+    """Manifest present and every shard file it names present (format 2).
+    Format-1 manifests (no shard list) are complete when at least one
+    shard file exists, the strongest check that format allows."""
+    manifest_path = os.path.join(path, "manifest.json")
+    try:
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        return False
+    shards = (manifest.get("shards")
+              if isinstance(manifest, dict) and "leaves" in manifest
+              else None)
+    if shards is None:
+        return any(f.startswith("shard-") and f.endswith(".npz")
+                   for f in os.listdir(path))
+    return all(os.path.exists(os.path.join(path, s)) for s in shards)
+
+
 def validate_pair(model_path: str, state_path: str) -> bool:
-    """Is (model, state) a complete, restartable plain snapshot? A sharded
-    one (a directory) is not: the port cannot read it yet."""
+    """Is (model, state) a complete, restartable snapshot pair?"""
     if "://" in model_path:
         # scheme'd snapshots: existence is the strongest check the handler
         # contract offers
@@ -115,7 +145,21 @@ def validate_pair(model_path: str, state_path: str) -> bool:
             return file_io.exists(model_path) and file_io.exists(state_path)
         except NotImplementedError:
             return True  # no exists hook: trust the names
-    if os.path.isdir(model_path) or os.path.isdir(state_path):
+    if os.path.isdir(model_path):
+        if not (sharded_snapshot_complete(model_path)
+                and os.path.isdir(state_path)
+                and sharded_snapshot_complete(state_path)
+                and os.path.exists(os.path.join(state_path, "driver.json"))):
+            return False
+        files = (read_marker(state_path) or {}).get("files")
+        if not files:
+            return True
+        try:
+            return (sharded_digests(model_path) == files.get("model")
+                    and sharded_digests(state_path) == files.get("state"))
+        except (OSError, ValueError):
+            return False
+    if os.path.isdir(state_path):
         return False
     try:
         if not (os.path.getsize(model_path) > 0
@@ -192,30 +236,21 @@ def snapshot_pairs(checkpoint_path: str) -> List[Tuple[int, float, str, str]]:
     return pairs
 
 
-def is_sharded(path: str) -> bool:
-    """A sharded snapshot is a directory (the reference's
-    ``utils/sharded_checkpoint.py`` layout)."""
-    return "://" not in path and os.path.isdir(path)
-
-
 def latest_resume_point(checkpoint_path: Optional[str]
                         ) -> Optional[ResumePoint]:
-    """The newest COMPLETE plain snapshot pair, or None. Partial pairs (a
-    save killed mid-write, a corrupted file) are skipped in favour of the
-    previous complete one. A newer sharded pair raises: silently resuming
-    from an older plain one would lose work."""
+    """The newest COMPLETE snapshot pair, plain or sharded, or None.
+    Partial pairs (a save killed mid-write, a corrupted file) are skipped
+    in favour of the previous complete one."""
     if not checkpoint_path:
         return None
     for neval, _, model_name, state_name in reversed(
             snapshot_pairs(checkpoint_path)):
         model_path = _join(checkpoint_path, model_name)
         state_path = _join(checkpoint_path, state_name)
-        if is_sharded(model_path):
-            raise NotImplementedError(f"{model_path}: {SHARDED_WAITS}")
         if not validate_pair(model_path, state_path):
             continue
         return ResumePoint(model_path=model_path, state_path=state_path,
-                           neval=neval, sharded=False,
+                           neval=neval, sharded=os.path.isdir(model_path),
                            marker=read_marker(state_path))
     return None
 
@@ -241,12 +276,28 @@ def is_elastic(marker: Optional[Dict[str, Any]]) -> Optional[bool]:
 
 
 # ------------------------------------------------- host-side snapshot loads
+def manifest_leaf_keys(path: str) -> List[str]:
+    """Leaf key paths stored in a sharded snapshot (format 1 or 2)."""
+    from bigdl_tpu_torch.utils.sharded_checkpoint import read_manifest
+    leaves, _ = read_manifest(path)
+    return list(leaves)
+
+
 def load_snapshot_host(model_path: str, state_path: str):
-    """(params, opt_state, driver) of a plain snapshot pair as host values,
-    for loops that do not go through ``Optimizer.resume``. A saved module
-    (``model_final``) gives its parameters as host numpy."""
-    if is_sharded(model_path):
-        raise NotImplementedError(f"{model_path}: {SHARDED_WAITS}")
+    """(params, opt_state, driver) of a plain or sharded snapshot pair as
+    host values, for loops that do not go through ``Optimizer.resume``. A
+    saved module (``model_final``) gives its parameters as host numpy; a
+    sharded pair's trees come from its manifests (a bf16 leaf as a CPU
+    bf16 tensor)."""
+    from bigdl_tpu_torch.utils import sharded_checkpoint as sckpt
+    if sckpt.is_sharded_checkpoint(model_path):
+        snap = sckpt.load_sharded(model_path, sckpt.manifest_targets(
+            model_path))
+        st = sckpt.load_sharded(state_path, sckpt.manifest_targets(
+            state_path))
+        with open(os.path.join(state_path, "driver.json")) as f:
+            driver = json.load(f)
+        return snap["params"], st["optim"], driver
     from bigdl_tpu_torch.utils import file_io
     snap = file_io.load(model_path, device="cpu")
     if not isinstance(snap, dict):      # a saved Module

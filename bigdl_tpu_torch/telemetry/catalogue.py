@@ -11,14 +11,17 @@ including those that speak of XLA programs. What the port fills:
 - ``bigdl_serving_recompiles_total`` counts the continuous engine's CUDA
   graph captures on a card (one per server and round kind: the
   reference's ``serving.step`` and ``serving.spec_step``); it stays 0 on
-  the CPU, which runs the eager body, and the compile flight recorder
-  (``tracked_jit``) has no port yet (ROADMAP A.5);
+  the CPU, which runs the eager body;
+- the compile families (``telemetry/profiling.py``'s ``tracked_jit`` at
+  the reference's sites: ``train.*``, ``eval.*``, ``generation.*``,
+  ``serving.*``), the training families (``optim/optimizer.py``,
+  ``mode="local"``, with ``bigdl_train_mfu``) and the ingest families
+  (``dataset/ingest/``);
 - the eval families (``optim/evaluator.py``), the resilience families
   (``optim/optimizer.py``: preemptions, the preemption snapshot's
-  seconds, resumes), ``bigdl_train_validation_seconds`` and
-  ``bigdl_legacy_metric`` (``optim/metrics.py``);
-- the other training, the ingest and the compile families are registered
-  but written by nothing until their modules are ported (ROADMAP A.5).
+  seconds, resumes), ``bigdl_train_validation_seconds``,
+  ``bigdl_legacy_metric`` (``optim/metrics.py``) and
+  ``bigdl_int8_fallbacks_total`` (``ops/int8_matmul.py``).
 
 Bucket choices: serving latencies use the sub-ms-to-seconds default;
 training step phases reuse it; batch sizes use power-of-two buckets

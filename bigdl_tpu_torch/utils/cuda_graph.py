@@ -27,7 +27,15 @@ and reads and writes tensors that the caller keeps at fixed addresses:
   stream, by any thread (a captured backward runs on the autograd engine's
   threads), are recorded, not counted (a capture launches nothing), and
   each replay adds them, so the counters keep equalling the kernels that
-  ran.
+  ran (``_build.KERNEL_FLOPS`` likewise);
+- ``telemetry.profiling.tracked_jit`` counts a site's first call as its
+  compile: here the warm-up and the capture, whose aten FLOPs, a repeat of
+  the warm-up's, are left out (``profiling.uncounted``);
+- the cyclic garbage collector is off while any capture runs: it runs
+  finalizers in whichever thread happens to allocate, and a finalizer that
+  destroys another, un-reset CUDA graph (one held by garbage in a reference
+  cycle) inside the capturing thread invalidates the capture. Garbage that
+  plain reference counting frees is unaffected.
 
 A failed capture or replay raises; nothing falls back to the eager body.
 ``close()`` releases the graph and its pool. A CPU device raises: the CPU
@@ -36,13 +44,41 @@ path calls the body itself.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.telemetry.profiling import uncounted
 
 __all__ = ["GraphedProgram"]
+
+_gc_lock = threading.Lock()
+_gc_captures = 0          # captures in progress, in every thread
+_gc_was_enabled = False   # the collector's state before the first of them
+
+
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    """The cyclic garbage collector off while the block runs, and back on
+    when the last such block in any thread ends, if it was on before the
+    first."""
+    global _gc_captures, _gc_was_enabled
+    with _gc_lock:
+        if _gc_captures == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_captures += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_captures -= 1
+            if _gc_captures == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 class GraphedProgram:
@@ -84,7 +120,7 @@ class GraphedProgram:
         for gen in self.generators():
             graph.register_generator_state(gen)
         with _build.recording_launches(side.cuda_stream) as launches, \
-                torch.cuda.stream(side):
+                torch.cuda.stream(side), uncounted(), _no_cyclic_gc():
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = self.body()

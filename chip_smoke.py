@@ -73,7 +73,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``generate(num_beams=4)`` on 2 prompts of 128 tokens, 32 new (K1 12
    launches, the int8 twin's K4 85 x 32; ``num_beams=1`` equal to greedy;
    the best beam's teacher-forced score at least the greedy sequence's
-   less 1e-3 / 0.1), and ``generate_speculative`` (a 384-token prompt, 64
+   less 1e-3 / 0.1), and ``generate_speculative`` (a 384-token prompt, 32
    new, spec_len 4) with the target's own twin as draft and with a 2-layer
    untied draft from seed 8 (acceptance about 0: a rewind every round),
    greedy tokens equal to ``generate`` or within the gap bound with the
@@ -217,12 +217,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    D=128, causal); (b) ViT-S/16's f32 gradients on the card (B=4) against
    an f64 CPU copy, each tensor within 2x the plain-core card model's
    distance (phase 3c's rule); (c) ``perf --model vit_s16`` at B=256,
-   bf16, 13 iterations after 3 warm-ups, k = 1 and k = 4 through the
+   bf16, 9 iterations after 3 warm-ups, k = 1 and k = 4 through the
    device cache (losses bit-equal over the same 1024 records) and k = 1
    from the host, K1-K3 12 each a step; (d) ``perf --model lstm`` (vocab
    20000, T=500, 128 wide) at B=32, k = 1 and k = 4, bit-equal; (e)
    ``perf --model transformer_1b`` (1,009,727,488 parameters) at B=8,
-   S=2048, AdamW with bf16 moments, ``--remat block``, 10 iterations
+   S=2048, AdamW with bf16 moments, ``--remat block``, 6 iterations
    after 3, ``--memStats``: K1 40 a step (each block recomputed), K2 and
    K3 20; then a 2-layer cut at full width, whose block-remat gradients
    must equal the plain ones bit for bit; (f) ``perf --model resnet50`` at
@@ -326,6 +326,38 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    iteration, busy and data-wait shares, the caffemodel and ``.t7`` load
    seconds, the validators' images/s, the texts/s, the library's call
    counts and the phase's seconds;
+3n. the platform planes (after phase 3m; ``--platform-only`` runs it
+   alone): (a) ``ingest_bench generate`` writes 4096 seeded raw-BGR
+   224x224x3 records (512 a shard, 616 MB), ``read``, ``decode -w 4`` and
+   ``pipeline --engine both --workers 2 --prefetch-depth 2`` run through
+   ``ingest_bench.main`` in this process (short budgets; the pipelined
+   run's Chrome trace validated by ``python -m bigdl_tpu_torch.telemetry
+   trace``), then ``train``'s
+   ``Optimizer`` (``ingest_bench.optimizer``: ResNet-50 B=256, bf16, SGD
+   0.01, ``--deviceNormalize``, both fusion gates) fed by the staged
+   engine for 14 iterations: its first 4 batches on the card bit-equal to
+   the serial path's host batches (each copied back after its step was
+   dispatched), K5 36 and K6 13 launches a step, one
+   ``bigdl_compiles_total{site="train.step"}``, ms an iteration after 2,
+   busy and data-wait shares, ``bigdl_ingest_stall_seconds_total`` by
+   stage, and the same step on one in-memory batch as the control; (b) 8
+   more iterations under ``set_profiling(dir, 5, 3)``: the Chrome trace
+   holds exactly the ranges ``iteration 5``-``7`` and K5's and K6's
+   kernels, ``bigdl_train_mfu`` is set, and the step's counted FLOPs lie
+   within PLAT_MFU_FLOPS_RTOL of 3x ResNet-50's forward; (c) phase 3b's
+   134m recipe with bf16 AdamW moments, 12 iterations, a sharded snapshot
+   tagged 8, resumed by ``auto_resume`` in a fresh optimizer over other
+   weights: iterations 8-12 and the final parameters bit-equal to the
+   uninterrupted run, K1-K3 counted; ``resilience validate`` and
+   ``latest`` accept the pair and refuse it after ``chaos corrupt``;
+   (d) ``python -m bigdl_tpu_torch.telemetry scoreboard`` at the 134m
+   width (f32; prompts 16-384, chunks of 128, 32 new tokens, 16 requests
+   a row): slots 8 and 16, the shared-prefix workload at 8, the int8 twin
+   as draft at 8 (K1 launched in every row, K4 in the last), each row's
+   compiles against the structure; ``scoreboard diff`` of an artifact
+   against itself (exit 0) and against a copy with tok/s cut by 30% (exit
+   1); ``scoreboard scrape`` of a live server's ``/metrics``: one row. A
+   ``platform_planes`` line logs them and the phase's seconds;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -367,7 +399,7 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included) and 3c; phase 3i's rows count phase 3i's runs, and
+processes included), 3c and 3n; phase 3i's rows count phase 3i's runs, and
 phase 3j's (K1-K3 at ViT-S/16's and transformer_1b's shapes) its runs
 (c) and (e).
 
@@ -378,7 +410,8 @@ seed's readings and no result line.
 ``python3 chip_smoke.py --zoo-only`` builds the kernels and runs only
 phase 3i and its kernel rows, printing them and no result line;
 ``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
-phase 3k and ``--files-only`` only phase 3m (neither has kernel rows).
+phase 3k, ``--files-only`` only phase 3m and ``--platform-only`` only
+phase 3n (none of them prints kernel rows).
 
 ``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
 phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
@@ -1804,7 +1837,7 @@ def run_continuous(models: dict, lm_timings: dict) -> tuple:
 
 # ------------------------------------------------------ 3e. serving plane
 BEAM_WIDTH, BEAM_PROMPT, BEAM_BATCH = 4, 128, 2
-SPEC_PROMPT, SPEC_NEW = 384, 64
+SPEC_PROMPT, SPEC_NEW = 384, 32
 DRAFT_LAYERS, DRAFT_SEED = 2, 8
 FLEET_REQUESTS, FLEET_KILL_AFTER = 12, 4
 CLI_TIMEOUT_S = 240
@@ -2460,6 +2493,72 @@ def eager_against_replay(server, site: str, body, counters) -> dict:
     return {"counts": got["replay"][2], "ms_per_round_eager": ms["eager"],
             "ms_per_round_replay": ms["replay"],
             "speedup": ms["eager"] / ms["replay"]}
+
+
+def check_capture_gc() -> dict:
+    """A CUDA graph held only by a reference cycle and never reset is
+    destroyed by the cyclic garbage collector in whichever thread happens
+    to allocate; inside a capture, that destroy invalidates the capture (a
+    run of this script lost a 3f server so). ``GraphedProgram`` keeps the
+    collector off while it captures. Here one such graph is left as
+    garbage, the collector's threshold is set to 1 (a collection at nearly
+    every allocation) and a program whose body allocates is captured and
+    replayed: no collection may start on a capturing stream, the replay
+    must be right, and the garbage graph must be freed afterwards."""
+    import gc
+    import weakref
+    from bigdl_tpu_torch.utils.cuda_graph import GraphedProgram
+    x = torch.zeros(1024, device="cuda")
+    leak = GraphedProgram(lambda: x.add_(1), "cuda")
+    leak()
+    leak()                        # captured and replayed, never closed
+
+    class Cycle:
+        pass
+    cyc = Cycle()
+    cyc.prog, cyc.self = leak, cyc
+    gone = weakref.ref(leak)
+    del cyc, leak
+    in_capture, collections = [], [0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            collections[0] += 1
+            if torch.cuda.is_current_stream_capturing():
+                in_capture.append(info["generation"])
+
+    y = torch.zeros(1024, device="cuda")
+
+    def body():
+        junk = [[i] for i in range(1000)]
+        return y.add_(len(junk))
+
+    threshold, enabled = gc.get_threshold(), gc.isenabled()
+    gc.callbacks.append(on_gc)
+    gc.set_threshold(1)
+    gc.enable()
+    try:
+        prog = GraphedProgram(body, "cuda")
+        prog()                    # the warm-up (+1000) and the capture
+        prog()                    # one replay (+1000)
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.set_threshold(*threshold)
+        if not enabled:
+            gc.disable()
+    gc.collect()
+    value = float(y[0])
+    prog.close()
+    out = {"collections": collections[0], "in_capture": len(in_capture),
+           "value": value, "garbage_graph_freed": gone() is None}
+    log({"capture_gc": out})
+    check(collections[0] > 0, "no collection ran around the capture")
+    check(not in_capture, f"{len(in_capture)} collections started inside "
+          "a capture")
+    check(value == 2000.0, f"the replayed program gave {value}, want 2000")
+    check(gone() is None, "the garbage graph was not freed")
+    return out
 
 
 def run_graph_serving(models: dict, cont: dict) -> dict:
@@ -3991,6 +4090,8 @@ def run_checkpoints(k1_run: dict) -> dict:
                     "preempt_resume_corrupt_s": lm_s},
         "preempted_k1": b1, f"preempted_k{CKPT_K}": b4, "corrupted": c,
         "resnet50": d, "cli": e, "phase_s": time.perf_counter() - t_phase}})
+    PLAIN_SNAPSHOT.update(model_mb=a["model_mb"], state_mb=a["state_mb"],
+                          save_s=a["save_s"], load_s=c["load_s"])
     launches = {key: a["launches"][key] + c["launches"][key]
                 + b1["launches"][key] + b1["resumed"]["launches"][key]
                 + b4["launches"][key] + b4["resumed"]["launches"][key]
@@ -4959,13 +5060,13 @@ def time_zoo_kernels(launches: dict, shapes: dict) -> list:
 
 
 # ------------------------------------------------------------- 3j. perf
-#: 13 iterations after 3 warm-ups: 16 in all, whole windows of PERF_K, so
+#: 9 iterations after 3 warm-ups: 12 in all, whole windows of PERF_K, so
 #: that no window of another length (a new graph, captured on its first
 #: run) falls in a k = 4 run's steady iterations
-PERF_ITERS, PERF_WARMUP = 13, 3
+PERF_ITERS, PERF_WARMUP = 9, 3
 VIT_BATCH, LSTM_BATCH = 256, 32
-LM1B_BATCH, LM1B_ITERS = 8, 10
-RESNET_PERF_BATCH, RESNET_PERF_ITERS = 256, 10
+LM1B_BATCH, LM1B_ITERS = 8, 6
+RESNET_PERF_BATCH, RESNET_PERF_ITERS = 256, 6
 PERF_K = 4
 VIT_GRAD_BATCH = 4
 VIT_LAYERS, LM1B_LAYERS = 12, 20
@@ -7317,6 +7418,9 @@ class WaitTimed:
             if prof is not None:
                 prof.stop()
             self.stats["wall_s"] = time.perf_counter() - t0 - outside
+            close = getattr(it, "close", None)   # an engine's threads
+            if close is not None:
+                close()
 
 
 def files_inception_opt(argv: list):
@@ -7856,6 +7960,576 @@ def run_files() -> dict:
     return row
 
 
+
+# ------------------------------------------------------- 3n. platform planes
+PLAT_SEED = 61
+PLAT_RECORDS, PLAT_PER_SHARD, PLAT_BATCH = 4096, 512, 256
+PLAT_ITERS, PLAT_WARMUP = 14, 2       # 12 timed iterations after 2
+PLAT_FIRST = 4                        # batches held against the serial path
+PLAT_PROFILE = (5, 3)                 # set_profiling's first iteration, count
+PLAT_PROFILE_ITERS = 8
+PLAT_BUDGET_S = 2.0                   # each ingest_bench measuring mode
+PLAT_CKPT_STEPS, PLAT_CKPT_AT = 12, 8
+PLAT_SB_REQUESTS = 16                 # requests a scoreboard row
+PLAT_SB_MODEL = ["--vocab", str(VOCAB), "--embed", "768", "--heads", "12",
+                 "--ffn", "3072", "--layers", "12", "--prefill-chunk", "128",
+                 "--max-new", "32", "--lmin", "16", "--lmax", "384"]
+PLAT_MFU_FLOPS_RTOL = 0.15            # counted step FLOPs against 3x forward
+#: phase 3h's plain 134m snapshot (MB, save and load seconds), for 3n's line
+PLAIN_SNAPSHOT = {}
+
+
+#: seconds of each CLI call of phase 3n, by its first arguments
+PLAT_CLI_S = {}
+
+
+def plat_cli(module: str, *args, timeout: float = CLI_TIMEOUT_S) -> str:
+    """``python -m MODULE ARGS`` from the repository's root; raises on a
+    non-zero exit; returns its standard output."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=timeout)
+    PLAT_CLI_S[f"{module.split('.')[-1]} {args[0]}"] = time.perf_counter() - t
+    check(r.returncode == 0, f"{module} {' '.join(map(str, args))}: "
+          f"exit {r.returncode}: {r.stdout[-800:]} {r.stderr[-1500:]}")
+    return r.stdout
+
+
+def plat_bench(*args) -> dict:
+    """``ingest_bench.main(ARGS)`` in this process (its CLI without a
+    process's start-up); its JSON line."""
+    import contextlib
+    import io
+
+    from bigdl_tpu_torch.apps import ingest_bench
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ingest_bench.main([str(a) for a in args])
+    PLAT_CLI_S[f"ingest_bench {args[0]}"] = time.perf_counter() - t
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+class FirstBatches:
+    """A training dataset that keeps host copies of the first ``n`` batches
+    its ``data(train=True)`` hands out, each copied when the next one is
+    asked for (the step that read it dispatched by then), so a batch the
+    feed's copy or the allocator damaged while the step used it shows."""
+
+    def __init__(self, base, n: int):
+        self.base, self.n, self.host = base, n, []
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def data(self, train: bool):
+        if not train:
+            return self.base.data(train)
+        return self._kept(self.base.data(train))
+
+    def _kept(self, it):
+        held = None
+        try:
+            for batch in it:
+                if held is not None:
+                    self.host.append(held)
+                    held = None
+                if len(self.host) < self.n:
+                    held = (batch.data, batch.labels)
+                yield batch
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def host_arrays(self) -> list:
+        return [tuple(t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+                      for t in pair) for pair in self.host]
+
+
+def plat_registry():
+    from bigdl_tpu_torch.telemetry import (MetricsRegistry, get_registry,
+                                           set_registry)
+    reg, prev = MetricsRegistry(), get_registry()
+    set_registry(reg)
+    return reg, lambda: set_registry(prev)
+
+
+def plat_optimizer(shards: str, iterations: int):
+    """``ingest_bench train``'s run, fed by the staged engine (both fusion
+    gates, ``--deviceNormalize``, bf16, SGD 0.01), before it starts."""
+    from bigdl_tpu_torch.apps import ingest_bench
+    return _with_gates(FUSION_GATES, lambda: ingest_bench.optimizer([
+        "-s", shards, "-b", str(PLAT_BATCH), "-w", "4", "--engine",
+        "pipelined", "--workers", "2", "--prefetch-depth", "2",
+        "--deviceNormalize", "-i", str(iterations), "--warmup",
+        str(PLAT_WARMUP), "--device", "cuda"]))
+
+
+def resnet50_train_flops(b: int) -> float:
+    """Three times ResNet-50's forward operations at batch b (2 per
+    multiply-add of every conv and the classifier): the usual count of one
+    training step, forward, data gradient and weight gradient."""
+    ones, threes = resnet50_convs(b)
+    fwd = 2 * b * 112 * 112 * 7 * 7 * 3 * 64                  # the stem
+    fwd += sum(2 * n * ((h + s - 1) // s) * ((w + s - 1) // s) * ci * co
+               for n, h, w, ci, co, s in ones)
+    fwd += sum(2 * n * h * w * 9 * ci * co for n, h, w, ci, co in threes)
+    hw = 56
+    for stage, width in enumerate(RESNET_WIDTHS[1:]):         # stride-2 3x3s
+        hw //= 2
+        fwd += 2 * b * hw * hw * 9 * width * width
+    fwd += 2 * b * 2048 * 1000
+    return 3.0 * fwd
+
+
+def plat_ingest(root: str) -> tuple:
+    """(a), first half: the corpus and ``ingest_bench``'s measuring modes
+    through its ``main``; the pipelined run's Chrome trace is validated by
+    ``python -m bigdl_tpu_torch.telemetry trace``."""
+    shards = os.path.join(root, "shards")
+    res = {"generate": plat_bench("generate", "-o", shards, "-n",
+                                  PLAT_RECORDS, "--perShard", PLAT_PER_SHARD)}
+    res["shards_mb"] = sum(os.path.getsize(os.path.join(shards, f))
+                           for f in os.listdir(shards)) / 1e6
+    res["read"] = plat_bench("read", "-s", shards, "--budget",
+                             PLAT_BUDGET_S)
+    res["decode"] = plat_bench("decode", "-s", shards, "-w", 4,
+                               "--budget", PLAT_BUDGET_S)
+    art, trace = (os.path.join(root, f) for f in ("ingest.json",
+                                                  "ingest_trace.json"))
+    plat_bench("pipeline", "-s", shards, "--engine", "both",
+               "--workers", 2, "--prefetch-depth", 2, "--budget",
+               PLAT_BUDGET_S, "--jsonOut", art, "--traceOut", trace)
+    with open(art) as f:
+        pipe = json.load(f)
+    res["pipeline"] = {k: pipe.get(k) for k in ("serial", "pipelined",
+                                                "speedup")}
+    out = plat_cli("bigdl_tpu_torch.telemetry", "trace", trace)
+    check("valid Chrome trace" in out and "ingest.read_shard" in out
+          and "ingest.decode" in out and "ingest.device_put" in out,
+          f"the pipeline's trace: {out[-800:]}")
+    check(all(res[m]["records_per_sec"] > 0 for m in ("read", "decode"))
+          and pipe["pipelined"]["records_per_sec"] > 0
+          and pipe["serial"]["records_per_sec"] > 0,
+          f"ingest_bench rates: {res}")
+    return shards, res
+
+
+def plat_train(shards: str) -> dict:
+    """(a), second half: ``train`` fed by the pipelined engine (ResNet-50
+    B=256, both gates, PLAT_ITERS iterations), its first PLAT_FIRST batches
+    held bit for bit against the serial path's, launch and compile counts,
+    busy and data-wait shares, stalls by stage; then the same step on one
+    in-memory batch; (b) a run under ``set_profiling``."""
+    from bigdl_tpu_torch.dataset.base import DataSet, MiniBatch
+    from bigdl_tpu_torch.dataset.image import NativeBGRBatchDecoder
+    from bigdl_tpu_torch.dataset.ingest import PrefetchingDataSet
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.telemetry import instruments
+    from bigdl_tpu_torch.telemetry.profiling import peak_flops
+    from bigdl_tpu_torch.utils.rng import RandomGenerator
+    counters = conv_bn_counters()
+    res = {}
+    reg, restore = plat_registry()
+    try:
+        RandomGenerator.RNG().set_seed(PLAT_SEED)
+        opt, args = plat_optimizer(shards, PLAT_ITERS)
+        first = FirstBatches(opt.dataset, PLAT_FIRST)
+        waits = opt.dataset = WaitTimed(first)
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t
+        got = [c.value for c in counters]
+        tm = instruments(reg)
+        stalls = {lv[0]: c.value
+                  for lv, c in tm.ingest_stall_seconds_total.children()}
+        step_compiles = tm.compiles_total.labels(site="train.step").value
+        mfu_a = tm.train_mfu.labels(mode="local").value
+        flops_a = tm.program_flops.labels(site="train.step").value
+    finally:
+        restore()
+    # the gauge holds the last window's: its program FLOPs over its time
+    want = flops_a / opt.history[-1]["seconds"] / peak_flops()
+    check(abs(mfu_a - want) <= 1e-9 * want,
+          f"(a) bigdl_train_mfu {mfu_a} against the last iteration's {want}")
+    n = PLAT_ITERS
+    want = [K5_PER_STEP * n] * 2 + [K6_PER_STEP * n] * 2
+    check(got == want, f"(a) launches K5, K5 mma, K6, K6 mma {got}, want "
+          f"{want}")
+    total = list(got)
+    check(step_compiles == 1, f"(a) train.step compiled {step_compiles} "
+          "times")
+    losses = [h["loss"] for h in opt.history]
+    check(len(losses) == n and np.isfinite(losses).all(),
+          f"(a) losses {losses}")
+    RandomGenerator.RNG().set_seed(PLAT_SEED)
+    serial = PrefetchingDataSet.from_folder(
+        shards, transformer=NativeBGRBatchDecoder(
+            224, 224, PLAT_BATCH, mean=(127.5,) * 3, std=(73.0,) * 3,
+            workers=4, device_normalize=True), serial=True)
+    serial.shuffle()
+    it = iter(serial.data(train=True))
+    host = [next(it) for _ in range(PLAT_FIRST)]
+    fed = first.host_arrays()
+    check(len(fed) == PLAT_FIRST and all(
+        np.array_equal(d, h.data) and np.array_equal(y, h.labels)
+        for (d, y), h in zip(fed, host)),
+        "(a) the engine's first batches on the card differ from the serial "
+        "path's")
+    seconds = [h["seconds"] for h in opt.history[PLAT_WARMUP:]]
+    st = waits.stats
+    res.update(
+        losses=losses, first_batches_bit_equal=PLAT_FIRST,
+        launches_per_step={"K5": got[0] / n, "K6": got[2] / n},
+        train_step_compiles=step_compiles,
+        ms_per_iteration=float(np.median(seconds)) * 1e3,
+        records_per_s=PLAT_BATCH / float(np.median(seconds)),
+        busy_share=st["busy_s"] / max(st["busy_wall_s"], 1e-9),
+        data_wait_share=st["wait_s"] / st["wall_s"],
+        stall_s=stalls, mfu=mfu_a, step_flops=flops_a)
+    # the control: the same step on one in-memory batch (no engine threads)
+    batch = MiniBatch(host[0].data, host[0].labels)
+    control = (Optimizer(opt.model, DataSet.array([batch] * n, seed=0),
+                         ClassNLLCriterion(), device="cuda")
+               .set_precision("bf16").set_optim_method(SGD(learningrate=0.01))
+               .set_end_when(Trigger.max_iteration(n)))
+    for c in counters:
+        c.reset()
+    control.optimize()
+    torch.cuda.synchronize()
+    got = [c.value for c in counters]
+    check(got == want, f"the control's launches {got}, want {want}")
+    total = [a + b for a, b in zip(total, got)]
+    res["in_memory_ms_per_iteration"] = float(np.median(
+        [h["seconds"] for h in control.history[PLAT_WARMUP:]])) * 1e3
+    del control, opt, first, waits
+    torch.cuda.empty_cache()
+
+    # (b) set_profiling over iterations 5-7 of a short engine-fed run
+    pdir = os.path.join(os.path.dirname(shards), "profile")
+    reg, restore = plat_registry()
+    try:
+        opt, _ = plat_optimizer(shards, PLAT_PROFILE_ITERS)
+        opt.set_profiling(pdir, *PLAT_PROFILE)
+        for c in counters:
+            c.reset()
+        opt.optimize()
+        torch.cuda.synchronize()
+        got = [c.value for c in counters]
+        tm = instruments(reg)
+        mfu = tm.train_mfu.labels(mode="local").value
+        flops = tm.program_flops.labels(site="train.step").value
+    finally:
+        restore()
+    with open(os.path.join(pdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted({e["name"] for e in events
+                     if str(e.get("name", "")).startswith("iteration")})
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    want_ranges = sorted(f"iteration {i}" for i in range(
+        PLAT_PROFILE[0], PLAT_PROFILE[0] + PLAT_PROFILE[1]))
+    check(ranges == want_ranges, f"(b) the trace's iterations {ranges}, "
+          f"want {want_ranges}")
+    check(any("matmul_stats" in k for k in kernels)
+          and any("conv3x3_stats" in k for k in kernels),
+          "(b) K5's or K6's kernels are not in the trace")
+    want = [K5_PER_STEP * PLAT_PROFILE_ITERS] * 2 + \
+        [K6_PER_STEP * PLAT_PROFILE_ITERS] * 2
+    check(got == want, f"(b) launches {got}, want {want}")
+    total = [a + b for a, b in zip(total, got)]
+    res["conv_launches"] = dict(zip(("matmul_bn", "matmul_bn_mma",
+                                     "conv3x3_bn", "conv3x3_bn_mma"), total))
+    formula = resnet50_train_flops(PLAT_BATCH)
+    check(mfu > 0 and flops > 0, f"(b) bigdl_train_mfu {mfu}, flops {flops}")
+    check(abs(flops / formula - 1) <= PLAT_MFU_FLOPS_RTOL,
+          f"(b) the step's counted FLOPs {flops} against 3x forward "
+          f"{formula}")
+    modules = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    res["profile"] = {
+        "iterations": ranges, "trace_mb":
+            os.path.getsize(os.path.join(pdir, "trace.json")) / 1e6,
+        "module_ranges": len(modules - set(ranges)),
+        # the last window's: its interval holds the profiler's export
+        "mfu_last_window": mfu, "step_flops": flops,
+        "step_flops_formula": formula,
+        "formula": "3 x forward; forward = 2 x the multiply-adds of the "
+                   "stem, every 1x1 and 3x3 conv and the classifier at B=256",
+        "peak_flops": peak_flops()}
+    shutil.rmtree(pdir, ignore_errors=True)
+    del opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def plat_lm_optimizer(model, d: str):
+    """Phase 3b's recipe (B=8, S=512, bf16, AdamW, L2 clip 1.0) with the
+    moments in bf16, PLAT_CKPT_STEPS iterations, a sharded snapshot every
+    PLAT_CKPT_AT."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
+    if "train" not in _CKPT_DATA:
+        _CKPT_DATA["train"] = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS,
+                                               TRAIN_SEQ, VOCAB, seed=17)
+    ds = DataSet.array(_CKPT_DATA["train"], seed=0) \
+        >> SampleToBatch(TRAIN_BATCH)
+    return (Optimizer(model, ds, FusedLMHeadCriterion(), device="cuda")
+            .set_precision("bf16")
+            .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                    weightdecay=TRAIN_DECAY,
+                                    state_dtype="bfloat16"))
+            .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+            .set_end_when(Trigger.max_iteration(PLAT_CKPT_STEPS))
+            .set_checkpoint(d, Trigger.several_iteration(PLAT_CKPT_AT),
+                            sharded=True))
+
+
+def plat_sharded(root: str) -> tuple:
+    """(c) The 134m run snapshotted sharded at PLAT_CKPT_AT of
+    PLAT_CKPT_STEPS, resumed in a fresh optimizer over other initial
+    weights: the resumed iterations bit-equal to the uninterrupted run;
+    ``resilience validate`` and ``latest`` accept the pair and refuse it
+    after ``chaos corrupt``."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.utils.sharded_checkpoint import read_manifest
+    d = os.path.join(root, "sharded")
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    model = build_lm(VOCAB, **CONFIG, device="cuda", seed=7)
+    opt = plat_lm_optimizer(model, d)
+    with SaveLoadTimes() as times:
+        opt.optimize()
+        torch.cuda.synchronize()
+    full = [h["loss"] for h in opt.history]
+    crcs = param_crcs(model)
+    save_s = list(times.save)
+    del model, opt
+    model8, state8 = (os.path.join(d, f"{k}.{PLAT_CKPT_AT}")
+                      for k in ("model", "state"))
+    mb = sum(os.path.getsize(os.path.join(p, f)) for p in (model8, state8)
+             for f in os.listdir(p)) / 1e6
+    bf16_leaves = sum(v["dtype"] == "bfloat16"
+                      for v in read_manifest(state8)[0].values())
+    check(bf16_leaves > 0, "(c) the snapshot holds no bf16 moment")
+    model = build_lm(VOCAB, **CONFIG, device="cuda", seed=RESUME_SEED)
+    opt = plat_lm_optimizer(model, d).auto_resume()
+    with SaveLoadTimes() as times:
+        opt.optimize()
+        torch.cuda.synchronize()
+    load_s = list(times.load)
+    nevals = [h["neval"] for h in opt.history]
+    resumed = [h["loss"] for h in opt.history]
+    # the snapshot tagged N holds the state after iteration N - 1 (the
+    # trigger sees the next iteration's neval), so the resumed run trains
+    # iterations N..PLAT_CKPT_STEPS
+    check(nevals == list(range(PLAT_CKPT_AT, PLAT_CKPT_STEPS + 1))
+          and resumed == full[PLAT_CKPT_AT - 1:],
+          f"(c) resumed iterations {nevals} losses {resumed}, the "
+          f"uninterrupted run's {full[PLAT_CKPT_AT - 1:]}")
+    check(param_crcs(model) == crcs, "(c) the resumed run's final "
+          "parameters differ from the uninterrupted run's")
+    del model, opt
+    launches = {k: c.value for k, c in counters.items()}
+    n = CONFIG["num_layers"] * (len(full) + len(resumed))
+    check(all(v == n for v in launches.values()),
+          f"(c) K1-K3 launches {launches}, want {n} each")
+    # the CLI: validate and latest accept the pair, refuse it once damaged
+    lines = resilience_cli("validate", d).stdout.splitlines()
+    check(len(lines) == 1 and lines[0].startswith("complete")
+          and f"model.{PLAT_CKPT_AT} / state.{PLAT_CKPT_AT}" in lines[0]
+          and "sharded" in lines[0], f"(c) validate: {lines}")
+    latest = resilience_cli("latest", d)
+    check(latest.returncode == 0 and latest.stdout.split() == [model8, state8],
+          f"(c) latest: {latest.stdout!r} {latest.stderr[-500:]}")
+    r = resilience_cli("chaos", "corrupt", model8, "--seed", "5")
+    check(r.returncode == 0, f"(c) chaos corrupt: {r.stderr[-800:]}")
+    r = resilience_cli("validate", d)
+    after = r.stdout.splitlines()
+    check(r.returncode == 1 and after and after[0].startswith("PARTIAL")
+          and resilience_cli("latest", d).returncode == 1,
+          f"(c) validate and latest after the corruption: {after}")
+    shutil.rmtree(d)
+    return {"snapshot_mb": mb, "bf16_leaves": bf16_leaves, "save_s": save_s,
+            "load_s": load_s, "resumed_bit_equal": len(resumed),
+            "validate": lines, "latest": latest.stdout.split(),
+            "validate_after_corrupt": after,
+            "plain_3h": dict(PLAIN_SNAPSHOT) or None}, launches
+
+
+def plat_scoreboard(root: str) -> tuple:
+    """(d) ``python -m bigdl_tpu_torch.telemetry scoreboard`` at the 134m
+    width (no GQA or SwiGLU in its builder, f32): slots 8 and 16 on the
+    Zipf workload, the shared-prefix workload at 8, the int8 twin as
+    draft at 8; each row's compile counts against the structure; ``diff``
+    against the artifact itself (exit 0) and against a copy with tok/s cut
+    by 30% (exit 1); ``scrape`` of a live server's ``/metrics``."""
+    import threading
+
+    from bigdl_tpu_torch.models.lm_server import make_http_server
+    from bigdl_tpu_torch.models.serving import ContinuousLMServer
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.telemetry import MetricsRegistry
+    from bigdl_tpu_torch.telemetry import __main__ as telemetry_cli
+    from bigdl_tpu_torch.telemetry import scoreboard
+    from bigdl_tpu_torch.models.serving import _PREFILL_BUCKET_LO
+    from bigdl_tpu_torch.utils.util import pow2_bucket
+    base = ["scoreboard", *PLAT_SB_MODEL, "--requests",
+            str(PLAT_SB_REQUESTS), "--clients", "8", "--device", "cuda"]
+    # the Zipf rows prefill bucketed: a cold causal prefill of each prompt
+    # padded to its power-of-two bucket, which is K1's; the chunked prefill
+    # (the prefix cache's mode) runs the masked warm-cache attention
+    runs = {"zipf": ["--slots", "8,16", "--prefill-mode", "bucketed"],
+            "shared_prefix": ["--workload", "shared-prefix", "--templates",
+                              "4", "--template-len", "256", "--slots", "8"],
+            "int8_draft": ["--draft", "int8", "--slots", "8"]}
+    # the structure of a row's compiles: per model served (the target, and
+    # the draft) the chunked prefill's two programs, or one a bucket the
+    # prompts reach, and its slot insert; then the server's one round
+    # program (serving.step or serving.spec_step)
+    zipf = scoreboard.ScoreboardConfig(requests=PLAT_SB_REQUESTS, lmin=16,
+                                       lmax=384, max_new=32)
+    buckets = {pow2_bucket(len(p), min(_PREFILL_BUCKET_LO, zipf.max_len),
+                           zipf.max_len)
+               for p in scoreboard.make_prompts(zipf)}
+    want_compiles = {"zipf": len(buckets) + 2, "shared_prefix": 4,
+                     "int8_draft": 7}
+    launches = collections.defaultdict(int)
+    res, paths = {}, {}
+    for name, extra in runs.items():
+        paths[name] = os.path.join(root, f"scoreboard_{name}.json")
+        rc, (k1, k1_mma, k4, _) = counted(launches, lambda: telemetry_cli.main(
+            [*base, *extra, "--out", paths[name]]))
+        check(rc == 0, f"(d) scoreboard {name} exited {rc}")
+        art = scoreboard.load_artifact(paths[name])
+        want = want_compiles[name]
+        for row in art["rows"]:
+            check(row["failed"] == 0 and row["requests"] == PLAT_SB_REQUESTS
+                  and row["compiles"] == want and row["tok_s"] > 0,
+                  f"(d) {name} row {row}, want {want} compiles")
+        check((k1 > 0) == (name == "zipf")
+              and (k4 > 0) == (name == "int8_draft"),
+              f"(d) {name}: K1 {k1}, K4 {k4} launches")
+        res[name] = {"rows": art["rows"], "k1": k1, "k1_mma": k1_mma,
+                     "k4": k4, "compiles_structure": want}
+        log({"scoreboard_markdown": name,
+             "table": scoreboard.render_markdown(art)})
+    cli = "bigdl_tpu_torch.telemetry"
+    zipf = paths["zipf"]
+    plat_cli(cli, "scoreboard", "diff", zipf, zipf)
+    with open(zipf) as f:
+        slower = json.load(f)
+    for row in slower["rows"]:
+        row["tok_s"] *= 0.7
+    slow_path = os.path.join(root, "scoreboard_slower.json")
+    with open(slow_path, "w") as f:
+        json.dump(slower, f)
+    r = subprocess.run([sys.executable, "-m", cli, "scoreboard", "diff",
+                        zipf, slow_path],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 1 and "tok/s" in r.stderr,
+          f"(d) diff against a 30% slower copy: exit {r.returncode} "
+          f"{r.stderr[-500:]}")
+    res["diff_exit_codes"] = [0, r.returncode]
+    # scrape: a live server's /metrics into a one-row artifact
+    model = build_lm(512, embed_dim=768, num_heads=12, ffn_dim=3072,
+                     num_layers=2, max_len=128, rope=True, norm="rms",
+                     device="cuda", seed=3)
+    server = ContinuousLMServer(model, slots=2, max_len=128, greedy=True,
+                                max_new_tokens=4, registry=MetricsRegistry(),
+                                device="cuda")
+    http = make_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=http.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for i in range(3):
+            server.submit([1 + i, 2, 3, 4], 4, timeout=120)
+        scraped = os.path.join(root, "scraped.json")
+        plat_cli(cli, "scoreboard", "scrape",
+                 f"http://127.0.0.1:{http.server_address[1]}", "--out",
+                 scraped)
+        with open(scraped) as f:
+            art = json.load(f)
+    finally:
+        http.shutdown()
+        http.server_close()
+        thread.join(timeout=30)
+        server.close()
+    (row,) = art["rows"]
+    check(row["requests"] == 3 and row["slots"] == 2 and row["tokens"] > 0,
+          f"(d) the scraped row {row}")
+    res["scrape"] = {k: row[k] for k in ("slots", "requests", "tokens",
+                                         "compiles", "ttft_p50_s")}
+    del model
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def run_platform() -> dict:
+    """Phase 3n: the platform planes (ingest, tracked programs and
+    profiling, sharded snapshots, the scoreboard); logs one
+    ``platform_planes`` line and returns the launches of K1-K6 for the
+    ``kernels`` line."""
+    import tempfile
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bigdl_platform_")
+    stamps = {}
+    try:
+        shards, ingest = plat_ingest(root)
+        stamps["a_cli"] = time.perf_counter() - t0
+        log({"platform_ingest_cli": ingest, "at_s": stamps["a_cli"]})
+        train = plat_train(shards)
+        stamps["a_b_train"] = time.perf_counter() - t0
+        log({"platform_train": {k: v for k, v in train.items()
+                                if k != "losses"},
+             "at_s": stamps["a_b_train"]})
+        shutil.rmtree(shards)
+        sharded, flash = plat_sharded(root)
+        stamps["c"] = time.perf_counter() - t0
+        log({"platform_sharded": sharded, "at_s": stamps["c"]})
+        sb, sb_launches = plat_scoreboard(root)
+        stamps["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    prof = train.pop("profile")
+    conv = train.pop("conv_launches")
+    log({"platform_planes": {
+        "ingest": {**ingest, "train": {
+            k: train[k] for k in ("ms_per_iteration", "records_per_s",
+                                  "in_memory_ms_per_iteration", "busy_share",
+                                  "data_wait_share", "stall_s", "mfu",
+                                  "step_flops",
+                                  "launches_per_step", "train_step_compiles",
+                                  "first_batches_bit_equal")}},
+        "profiling": prof,
+        "sharded": sharded,
+        "scoreboard": {name: (v if not isinstance(v, dict) or "rows" not in v
+                              else {"rows": [{k: r[k] for k in (
+                                  "slots", "tok_s", "ttft_p50_s",
+                                  "ttft_p95_s", "token_latency_s",
+                                  "prefix_hit_rate", "spec_accept_rate",
+                                  "compiles", "compile_seconds",
+                                  "peak_memory_bytes")} for r in v["rows"]],
+                                  "k1": v["k1"], "k4": v["k4"]})
+                       for name, v in sb.items()},
+        "stamps_s": stamps, "cli_s": PLAT_CLI_S,
+        "phase_s": time.perf_counter() - t0}})
+    log({"platform_planes_details": {"train_losses": train["losses"]}})
+    launches = {**flash, **conv}
+    launches["flash_fwd"] += sb_launches["flash_fwd"]
+    launches["flash_fwd_mma"] += sb_launches["flash_fwd_mma"]
+    launches["int8_matmul"] = sb_launches["int8_matmul"]
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -7894,6 +8568,12 @@ def main(argv=None) -> int:
         help="run only the kernels' build and phase 3m (model files, image "
              "ingestion and their apps on the card) and print its lines (no "
              "result line)")
+    parser.add_argument(
+        "--platform-only", action="store_true",
+        help="run only the kernels' build and phase 3n (the platform "
+             "planes: the ingest engine feeding ResNet-50, profiling and "
+             "MFU, sharded snapshots, the scoreboard) and print its lines "
+             "(no result line)")
     parser.add_argument(
         "--layers-only", action="store_true",
         help="run only the kernels' build and phase 3k (the layer zoo, the "
@@ -7944,6 +8624,11 @@ def main(argv=None) -> int:
         run_files()
         log({"total_s": time.perf_counter() - t0, "card": card})
         return 0
+    if args.platform_only:
+        platform_launches = run_platform()
+        log({"platform_launches": platform_launches,
+             "total_s": time.perf_counter() - t0, "card": card})
+        return 0
     if args.text_only:
         text_launches = run_text()
         log({"text_launches": text_launches,
@@ -7970,6 +8655,7 @@ def main(argv=None) -> int:
     launches, models, lm_timings = timed("3", run_slice)
     cont_launches, cont = timed("3d", run_continuous, models, lm_timings)
     plane_launches = timed("3e", run_serving_plane, models)
+    timed("3f serving", check_capture_gc)
     graph_serve_launches, graph_serve_row = timed(
         "3f serving", run_graph_serving, models, cont)
     del models
@@ -7993,20 +8679,25 @@ def main(argv=None) -> int:
     timed("3k", run_layer_zoo)
     text_launches = timed("3l", run_text)
     timed("3m", run_files)
+    plat_launches = timed("3n", run_platform)
+    resnet_launches = {k: n + plat_launches[k]
+                       for k, n in resnet_launches.items()}
     roof, roof_launches = timed("4a", run_roofline)
     t_timing = time.perf_counter()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
                            + published_launches[k] + text_launches[k]
+                           + plat_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
-               *time_flash_bwd({k: n + text_launches[k]
+               *time_flash_bwd({k: n + text_launches[k] + plat_launches[k]
                                 for k, n in train_launches.items()}),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]
                               + plane_launches["int8_matmul"]
                               + graph_serve_launches["int8_matmul"]
                               + published_launches["int8_matmul"]
-                              + ckpt_launches["int8_matmul"]),
+                              + ckpt_launches["int8_matmul"]
+                              + plat_launches["int8_matmul"]),
                     continuous=time_int8_rows(),
                     serving_plane=time_int8_rows(PLANE_K4_ROWS[:1]),
                     published=time_int8_published()),

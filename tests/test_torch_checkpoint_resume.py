@@ -300,15 +300,29 @@ def test_plain_pair_requires_nonempty_files(tmp_path):
 
 
 def test_sharded_snapshots_wait(tmp_path):
+    """Sharded snapshots work now (the name is kept from when they waited
+    for their port): empty directories are skipped as incomplete, and a
+    real sharded pair resumes bit-equal; a damaged one is refused."""
     (tmp_path / "model.4").mkdir()
     (tmp_path / "state.4").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        coordinator.latest_resume_point(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="sharded_checkpoint"):
-        _optimizer(_FixedDataSet(_fixed_batches())).set_checkpoint(
-            str(tmp_path), Trigger.every_epoch(), sharded=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        corrupt_snapshot(str(tmp_path / "model.4"))
+    assert coordinator.latest_resume_point(str(tmp_path)) is None
+    ref = _flat(_optimizer(_FixedDataSet(_fixed_batches())).optimize())
+    opt = _optimizer(_FixedDataSet(_fixed_batches()))
+    opt.set_checkpoint(str(tmp_path), Trigger.several_iteration(6),
+                       sharded=True)
+    opt.optimize()
+    point = coordinator.latest_resume_point(str(tmp_path))
+    assert point.neval == 12 and point.sharded
+    opt2 = _optimizer(_FixedDataSet(_fixed_batches()),
+                      model=_mk_model(seed=99))
+    opt2.set_checkpoint(str(tmp_path), Trigger.several_iteration(6),
+                        sharded=True)
+    opt2.resume(str(tmp_path / "model.6"), str(tmp_path / "state.6"))
+    opt2.optimize()
+    assert [h["neval"] for h in opt2.history] == list(range(6, 13))
+    assert torch.equal(_flat(opt2.model), ref)
+    corrupt_snapshot(str(tmp_path / "model.12"), mode="delete")
+    assert coordinator.latest_resume_point(str(tmp_path)).neval == 6
     assert coordinator.is_elastic({"mesh": {"process_count": 2}}) is True
     assert coordinator.is_elastic({"mesh": {"process_count": 1}}) is False
     assert coordinator.is_elastic(None) is None

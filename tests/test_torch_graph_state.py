@@ -192,3 +192,56 @@ def test_replay_adds_the_recorded_launches_and_checks_addresses():
     assert c.value == 170
     prog.close()
     assert prog._graph is None
+
+
+def test_close_releases_graphs_captured_after_the_worker_ended():
+    """Rounds driven from another thread once the worker has stopped leave
+    their graphs in the server; ``close`` releases them, so none waits for
+    the garbage collector (which may run inside a later capture)."""
+    server = _idle(ContinuousLMServer(_port_model(), device="cpu", **SERVER))
+    closed = []
+
+    class _StandInProgram:
+        def close(self):
+            closed.append(self)
+
+    prog = _StandInProgram()
+    server._graphs["serving.step"] = (prog, [])
+    server.close()
+    assert closed == [prog] and server._graphs == {}
+    server.close()                                # idempotent
+    assert closed == [prog]
+
+
+def test_cyclic_gc_is_off_while_any_capture_runs():
+    """``GraphedProgram``'s capture guard: the collector is off from the
+    first capture's start to the last one's end, across threads, and then
+    back in the state it was in before."""
+    import gc
+
+    from bigdl_tpu_torch.utils import cuda_graph
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        inside, release = threading.Event(), threading.Event()
+
+        def other_capture():
+            with cuda_graph._no_cyclic_gc():
+                inside.set()
+                assert release.wait(timeout=30)
+
+        with cuda_graph._no_cyclic_gc():
+            assert not gc.isenabled()
+            t = threading.Thread(target=other_capture)
+            t.start()
+            assert inside.wait(timeout=30)
+        assert not gc.isenabled()          # the other capture still runs
+        release.set()
+        t.join(timeout=30)
+        assert not t.is_alive() and gc.isenabled()
+        gc.disable()
+        with cuda_graph._no_cyclic_gc():
+            assert not gc.isenabled()
+        assert not gc.isenabled()          # left off, as it was
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -27,6 +27,12 @@ from bigdl_tpu_torch.apps import lenet as lenet_app
 from bigdl_tpu_torch.apps import resnet as resnet_app
 from bigdl_tpu_torch.apps import vgg as vgg_app
 from bigdl_tpu_torch.apps import perf as perf_app
+from bigdl_tpu_torch.apps import ingest_bench
+from bigdl_tpu_torch.dataset.image import NativeBGRBatchDecoder
+from bigdl_tpu_torch.dataset.ingest import PrefetchingDataSet
+from bigdl_tpu_torch.telemetry import __main__ as telemetry_cli
+from bigdl_tpu_torch.telemetry import scoreboard
+from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.dataset.device_cache import DeviceCachedDataSet
 from bigdl_tpu_torch.models import (alexnet, autoencoder, inception, lenet,
                                     resnet, rnn, vgg, vit)
@@ -119,7 +125,12 @@ def test_new_subpackages_are_part_of_the_port():
                 "dataset/shards.py", "interop/prototxt.py",
                 "interop/caffe.py", "interop/torch_file.py",
                 "apps/seqfilegen.py", "apps/modelvalidator.py",
-                "apps/imageclassifier.py", "apps/udfpredictor.py"):
+                "apps/imageclassifier.py", "apps/udfpredictor.py",
+                "utils/digraph.py", "utils/engine.py",
+                "utils/sharded_checkpoint.py", "dataset/ingest/__init__.py",
+                "dataset/ingest/reorder.py", "dataset/ingest/engine.py",
+                "dataset/ingest/dataset.py", "apps/ingest_bench.py",
+                "telemetry/scoreboard.py", "telemetry/__main__.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -209,7 +220,12 @@ def test_build_lm_raises_without_card():
                                    "modelvalidator.main",
                                    "imageclassifier.main",
                                    "udfpredictor.run",
-                                   "inception.main train --folder"])
+                                   "inception.main train --folder",
+                                   "Engine.init", "PrefetchingDataSet",
+                                   "ingest_bench.main train",
+                                   "ingest_bench.main pipeline",
+                                   "scoreboard.run",
+                                   "telemetry.main scoreboard"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -298,6 +314,20 @@ def test_entry_points_raise_without_card(entry, tmp_path):
             ["--modelPath", bundle, "-f", str(tmp_path)]),
         "inception.main train --folder": lambda: inception_app.main(
             ["train", "--folder", str(tmp_path), "-b", "2"]),
+        # the platform planes: topology, the ingest engine's device feed,
+        # its benchmark and the serving scoreboard
+        "Engine.init": lambda: Engine.init(),
+        "PrefetchingDataSet": lambda: next(iter(PrefetchingDataSet(
+            [], NativeBGRBatchDecoder(4, 4, 2, (0.0,) * 3, (1.0,) * 3)
+        ).data(train=True))),
+        "ingest_bench.main train": lambda: ingest_bench.main(
+            ["train", "-s", str(tmp_path), "-b", "2"]),
+        "ingest_bench.main pipeline": lambda: ingest_bench.main(
+            ["pipeline", "-s", str(tmp_path), "-b", "2"]),
+        "scoreboard.run": lambda: scoreboard.run(scoreboard.ScoreboardConfig(
+            slots=[1], requests=1)),
+        "telemetry.main scoreboard": lambda: telemetry_cli.main(
+            ["scoreboard", "--slots", "1", "--requests", "1"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -224,12 +224,16 @@ def test_tied_gradient_sums_both_uses():
 
 
 @pytest.mark.parametrize("setter", ["set_profiling"])
-def test_unported_setters_raise(setter):
+def test_unported_setters_raise(setter, tmp_path):
+    """The setters that waited for their port (the name is kept from
+    then) work now: ``set_profiling`` returns the optimizer, and the run
+    writes a trace of its window."""
     model = build_lm(V, **LLAMA, device="cpu", seed=0)
     ds = DataSet.array(synthetic_corpus(B, S, V)) >> SampleToBatch(B)
     opt = Optimizer(model, ds, FusedLMHeadCriterion(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(opt, setter)()
+    assert getattr(opt, setter)(str(tmp_path), 2, 1) is opt
+    opt.set_end_when(Trigger.max_iteration(2)).optimize()
+    assert (tmp_path / "trace.json").is_file()
 
 
 def test_distributed_dataset_raises():
