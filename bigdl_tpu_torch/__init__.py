@@ -39,6 +39,11 @@ Platform: the staged ingest engine (``dataset.ingest``), the compile
 flight recorder, MFU and the serving scoreboard (``telemetry``; ``python -m
 bigdl_tpu_torch.telemetry``), sharded snapshots
 (``utils.sharded_checkpoint``) and the process topology (``Engine``).
+
+Data-parallel: ``parallel`` (``DistriOptimizer`` over a
+``torch.distributed`` group in ``allreduce``, ZeRO-1 ``sharded`` or ZeRO-3
+``fsdp`` mode, with synchronized batch norm), which ``Optimizer`` takes
+for a distributed dataset.
 """
 
 __version__ = "0.1.0"

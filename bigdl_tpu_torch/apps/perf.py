@@ -33,14 +33,24 @@ the reference's ``batch * max(2, k)``; runs at several k over the same
 batches give it one value), and ``--memStats`` reading ``torch.cuda``'s
 allocator under the reference's four keys. The weights are drawn from
 seed 0 and the shuffle stream restarts from seed 0, so that two runs in
-one process see the same weights and batches. ``--distributed`` and
-``--moeExperts`` stop, naming ROADMAP A.4.
+one process see the same weights and batches. ``--moeExperts`` stops,
+naming ROADMAP A.4.
+
+``--distributed`` trains data-parallel (``DistriOptimizer``, allreduce)
+over the process group that the reference's environment names
+(``BIGDL_COORDINATOR_ADDRESS``, ``BIGDL_NUM_PROCESSES``,
+``BIGDL_PROCESS_ID``; without it, this process alone): ``-b`` is the
+global batch and must divide by the world size, each rank keeps its slice
+of the records, ``--backend`` picks the group's backend (``gloo`` for
+ranks sharing one card), and the line's rates count every rank's records.
+Each rank prints its line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -120,7 +130,10 @@ def parser() -> argparse.ArgumentParser:
                     default="random")
     ap.add_argument("--precision", choices=("fp32", "bf16"), default="bf16")
     ap.add_argument("--distributed", action="store_true",
-                    help="data parallel over every card (ROADMAP A.4)")
+                    help="data parallel over the BIGDL_* process group")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="--distributed: the group's backend (default nccl "
+                    "on cards, gloo on the CPU)")
     ap.add_argument("--stepsPerDispatch", "-k", type=int, default=1,
                     help="k iterations a dispatch (set_steps_per_dispatch)")
     ap.add_argument("--optim", choices=("sgd", "adamw"), default="sgd",
@@ -187,9 +200,6 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
     """Parse ``argv``, train, and return (the JSON line's dict, the
     ``Optimizer``, whose ``history`` holds the losses)."""
     args = parser().parse_args(argv)
-    if args.distributed:
-        raise SystemExit("perf --distributed is not ported yet: ROADMAP A.4 "
-                         "(distributed plane)")
     if args.moeExperts:
         raise SystemExit("perf --moeExperts is not ported yet: ROADMAP A.4 "
                          "(expert)")
@@ -199,8 +209,22 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
     from bigdl_tpu_torch.ops.precision import DtypePolicy
     from bigdl_tpu_torch.optim import SGD, AdamW, Optimizer, Trigger
     from bigdl_tpu_torch.utils.device import resolve_device
+    from bigdl_tpu_torch.utils.engine import Engine
     from bigdl_tpu_torch.utils.rng import RandomGenerator
 
+    world = 1
+    if args.distributed:
+        if Engine.process_group_up() or not os.environ.get(
+                "BIGDL_COORDINATOR_ADDRESS"):
+            world = Engine.process_count()
+        else:
+            Engine.init_distributed(
+                device=None if args.device == "cuda" else args.device,
+                backend=args.backend)
+            world = Engine.process_count()
+        if args.batchSize % world:
+            raise SystemExit(f"perf --distributed: batch {args.batchSize} "
+                             f"does not divide by {world} processes")
     dev = resolve_device(args.device)
     model, shape, n_class, int_vocab, seq_labels = _build_model(
         args.model, dev, fused_head=not args.no_fused_head)
@@ -226,12 +250,15 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
                    for f in feats]
     del feats
     RandomGenerator.RNG().set_seed(0)
+    # --distributed: each rank keeps its slice; the cache's batch is global
     if args.no_device_cache:
-        ds = DataSet.array(samples, seed=0).transform(
-            SampleToBatch(batch_size=args.batchSize))
+        ds = DataSet.array(samples, distributed=args.distributed,
+                           seed=0).transform(
+            SampleToBatch(batch_size=args.batchSize // world))
     else:
         ds = DeviceCachedDataSet(
-            DataSet.array(samples), batch_size=args.batchSize,
+            DataSet.array(samples, distributed=args.distributed),
+            batch_size=args.batchSize,
             cast_dtype=("bfloat16" if args.precision == "bf16"
                         and not int_vocab else None), device=dev)
 
@@ -240,6 +267,7 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
                      if args.no_fused_head else nn.FusedLMHeadCriterion())
     else:
         criterion = nn.ClassNLLCriterion()
+    # a distributed dataset makes this a DistriOptimizer (allreduce)
     opt = Optimizer(model, ds, criterion, device=dev)
     if args.optim == "adamw":
         opt.set_optim_method(AdamW(

@@ -2,7 +2,8 @@
 
 from bigdl_tpu_torch.dataset.base import (AbstractDataSet, BucketBatch,
                                           ByteRecord, ChainedTransformer,
-                                          DataSet, LocalDataSet, MiniBatch,
+                                          DataSet, DistributedDataSet,
+                                          LocalDataSet, MiniBatch,
                                           MTTransformer, Prefetch, Sample,
                                           SampleToBatch, Transformer)
 from bigdl_tpu_torch.dataset.base import Identity as IdentityTransformer
@@ -15,6 +16,7 @@ from bigdl_tpu_torch.dataset.ingest import (IngestConfig, IngestEngine,
 
 __all__ = ["AbstractDataSet", "BPETokenizer", "BucketBatch", "ByteRecord",
            "CachedSliceBatch", "ChainedTransformer", "DataSet",
+           "DistributedDataSet",
            "DeviceCachedDataSet", "IdentityTransformer", "IngestConfig",
            "IngestEngine", "LocalDataSet", "PrefetchingDataSet",
            "MTTransformer", "MiniBatch", "Prefetch", "Sample",

@@ -1,8 +1,8 @@
 """Core data-pipeline types (counterpart of ``bigdl_tpu/dataset/base.py``:
 ``Sample``, ``MiniBatch``, ``ByteRecord``, ``Transformer`` with ``>>``,
 ``Identity``, ``SampleToBatch`` with its padding, ``BucketBatch``,
-``Prefetch``, ``MTTransformer``, ``LocalDataSet``, ``TransformedDataSet``
-and ``DataSet.array`` are ported).
+``Prefetch``, ``MTTransformer``, ``LocalDataSet``, ``TransformedDataSet``,
+``DistributedDataSet`` and ``DataSet.array`` are ported).
 
 Stages are iterator-to-iterator transformers over host numpy, composed with
 ``>>`` (Scala's ``->``); ``Optimizer`` moves each ``MiniBatch`` to the
@@ -387,15 +387,39 @@ class TransformedDataSet(AbstractDataSet):
         return TransformedDataSet(self.base, self.transformer >> transformer)
 
 
+class DistributedDataSet(LocalDataSet):
+    """A dataset for data-parallel training (reference
+    ``DistributedDataSet``): each process of the group keeps its
+    round-robin slice ``data[p::n]`` of the records (the reference's
+    multi-host path, ``CachedDistriDataSet``'s pinned partitions), so a
+    batching stage's size is PER PROCESS. ``shard_by_process=False``
+    keeps ``data`` whole: it is already this process's."""
+
+    def __init__(self, data: Sequence, shard_by_process: bool = True,
+                 seed: Optional[int] = None):
+        if shard_by_process:
+            from bigdl_tpu_torch.utils.engine import Engine
+            p, n = Engine.process_index(), Engine.process_count()
+            if n > 1:
+                data = list(data)[p::n]
+        super().__init__(data, seed)
+
+    def is_distributed(self) -> bool:
+        return True
+
+    def to_distributed(self) -> "DistributedDataSet":
+        return self
+
+
 class DataSet:
     """Factory namespace (reference ``DataSet``)."""
 
     @staticmethod
     def array(data: Sequence, distributed: bool = False,
               seed: Optional[int] = None) -> LocalDataSet:
-        """An in-memory dataset whose shuffles draw from ``seed``."""
+        """An in-memory dataset whose shuffles draw from ``seed``;
+        ``distributed``: this process's slice (``DistributedDataSet``),
+        which ``Optimizer`` trains data-parallel."""
         if distributed:
-            raise NotImplementedError(
-                "distributed datasets are not ported yet: ROADMAP A.4 "
-                "(distributed plane)")
+            return DistributedDataSet(data, seed=seed)
         return LocalDataSet(data, seed)

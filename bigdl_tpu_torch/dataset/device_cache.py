@@ -1,6 +1,6 @@
 """Device-resident dataset cache (counterpart of
 ``bigdl_tpu/dataset/device_cache.py``: ``DeviceCachedDataSet`` and
-``CachedSliceBatch``; the sharded cache waits for ROADMAP A.4).
+``CachedSliceBatch``).
 
 The wrapped dataset's samples are read once and stacked into one (N, ...)
 feature tensor and one label tensor on the device. Each training epoch
@@ -12,6 +12,14 @@ packages) and uploads it as one (N,) int64 tensor; a batch is then a
 window of k steps over one cache as a CUDA graph whose only input is the
 (k, B) index tensor (``optim/optimizer.py``). Evaluation reads the cache
 in order, in whole batches.
+
+On a data-parallel mesh (``set_mesh``, which ``DistriOptimizer`` calls)
+each process caches its own records (the wrapped dataset is distributed,
+so it yields this process's slice), ``batch_size`` is the GLOBAL batch and
+each process serves ``batch_size / size`` rows a step; each epoch draws
+one permutation per rank from the stream, as the reference's single
+process draws one per shard, and this rank gathers by its own: the
+reference's ``"cached"`` mode, permuting within each rank's records.
 
 Limits, as in the reference: the dataset must be finite and fit the
 device beside the model, and no stage below the cache may draw random
@@ -95,13 +103,30 @@ class DeviceCachedDataSet(AbstractDataSet):
         self._x: Optional[torch.Tensor] = None
         self._y: Optional[torch.Tensor] = None
         self._perm: Optional[np.ndarray] = None
+        self._mesh = None
         #: seconds the one materialisation took (None before it)
         self.materialize_seconds: Optional[float] = None
 
     def set_mesh(self, mesh, data_axis: str = "data") -> None:
-        raise NotImplementedError(
-            "DeviceCachedDataSet.set_mesh (the cache sharded over a mesh) is "
-            "not ported yet: ROADMAP A.4 (distributed plane)")
+        """Serve this rank's share of each global batch over ``mesh`` (a
+        ``parallel.mesh.Mesh``); see the module docstring. A mesh of one
+        keeps the local cache."""
+        if self._x is not None and self._mesh is not mesh:
+            raise RuntimeError("DeviceCachedDataSet already materialized; "
+                               "set_mesh must precede the first epoch")
+        if data_axis != "data":
+            raise ValueError(f"the port's mesh has the 'data' axis only, "
+                             f"not {data_axis!r}")
+        if mesh.size <= 1:
+            return
+        if self.batch_size % mesh.size:
+            raise ValueError(f"batch_size {self.batch_size} must divide by "
+                             f"the mesh's {mesh.size} ranks")
+        self._mesh = mesh
+
+    def _local_batch(self) -> int:
+        """Rows this process serves a step."""
+        return self.batch_size // (self._mesh.size if self._mesh else 1)
 
     # ------------------------------------------------------------ the cache
     def _refuse_stochastic_stages(self) -> None:
@@ -131,10 +156,10 @@ class DeviceCachedDataSet(AbstractDataSet):
             if not feats:
                 raise ValueError("DeviceCachedDataSet: wrapped dataset is "
                                  "empty")
-            if len(feats) < self.batch_size:
+            if len(feats) < self._local_batch():
                 raise ValueError(
                     f"DeviceCachedDataSet: {len(feats)} samples cannot fill "
-                    f"one batch of {self.batch_size}")
+                    f"one batch of {self._local_batch()}")
             x = torch.from_numpy(np.stack(feats))
             y = np.stack([np.asarray(label) for label in labels])
             if y.ndim == 2 and y.shape[1] == 1:
@@ -150,7 +175,7 @@ class DeviceCachedDataSet(AbstractDataSet):
     def data(self, train: bool) -> Iterator:
         self._materialize()
         n = int(self._x.shape[0])
-        bs = self.batch_size
+        bs = self._local_batch()
         if not train:
             for b in range(n // bs):
                 yield MiniBatch(self._x[b * bs:(b + 1) * bs],
@@ -172,12 +197,17 @@ class DeviceCachedDataSet(AbstractDataSet):
         # materialise first: the wrapped chain may change the record count
         self._materialize()
         n = int(self._x.shape[0])
+        rng = RandomGenerator.RNG()
+        if self._mesh is not None:
+            # one permutation a rank, drawn in rank order; this rank's
+            perms = [rng.randperm(n) for _ in range(self._mesh.size)]
+            self._perm = np.asarray(perms[self._mesh.rank] - 1, np.int64)
+            return
         # randperm is 1-based (Torch semantics)
-        self._perm = np.asarray(RandomGenerator.RNG().randperm(n) - 1,
-                                np.int64)
+        self._perm = np.asarray(rng.randperm(n) - 1, np.int64)
 
     def is_distributed(self) -> bool:
-        return self.base.is_distributed()
+        return self._mesh is not None or self.base.is_distributed()
 
     def transform(self, transformer):
         raise TypeError(

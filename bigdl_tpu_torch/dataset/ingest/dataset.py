@@ -22,10 +22,11 @@ Ordering contract (what makes resume and replay bit-exact):
   which a worker pool cannot reproduce — thread-local RNGs would make
   the draw order schedule-dependent.)
 
-A shard folder stays local, as ``ShardFolder.stream``'s does in the port:
-one process, one card (``is_distributed`` is false; the distributed plane
-waits for ROADMAP A.4). ``from_folder`` takes this process's round-robin
-slice, all of the folder without a process group.
+``from_folder`` takes this process's round-robin slice of the shard files
+(all of the folder without a process group), so ``is_distributed`` is
+true, as for ``ShardFolder.stream``: ``Optimizer`` trains it through
+``DistriOptimizer`` over a process group of more than one, and through
+``LocalOptimizer`` in a single process.
 """
 
 from __future__ import annotations
@@ -163,8 +164,9 @@ class PrefetchingDataSet(AbstractDataSet):
         self._shuffled = True
 
     def is_distributed(self) -> bool:
-        # one process on one card, as the port's StreamingShardDataSet
-        return False
+        # the paths are this process's (from_folder), as the port's
+        # StreamingShardDataSet's
+        return True
 
     # ---------------------------------------------------------------- drain
     def drain(self) -> None:

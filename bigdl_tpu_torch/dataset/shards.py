@@ -21,7 +21,7 @@ from typing import Iterator, List, Optional, Sequence
 
 from bigdl_tpu_torch import native
 from bigdl_tpu_torch.dataset.base import (AbstractDataSet, ByteRecord,
-                                          LocalDataSet, Transformer)
+                                          DistributedDataSet, Transformer)
 from bigdl_tpu_torch.visualization.tensorboard import FileReader, RecordWriter
 
 _SUFFIX = ".bigdl-shard"
@@ -177,13 +177,15 @@ class ShardFolder:
 
     @staticmethod
     def files(folder: str, host_index: Optional[int] = None,
-              host_count: Optional[int] = None) -> LocalDataSet:
+              host_count: Optional[int] = None) -> DistributedDataSet:
         """Every record of this host's shards, in memory (for small
-        folders; ``stream`` holds one shard at a time)."""
+        folders; ``stream`` holds one shard at a time), as a
+        ``DistributedDataSet`` that keeps them all: they are this
+        process's already."""
         records: List[ByteRecord] = []
         for path in ShardFolder.paths(folder, host_index, host_count):
             records.extend(read_shard(path))
-        return LocalDataSet(records)
+        return DistributedDataSet(records, shard_by_process=False)
 
     @staticmethod
     def stream(folder: str, host_index: Optional[int] = None,
@@ -200,10 +202,11 @@ class StreamingShardDataSet(AbstractDataSet):
     draw from ``RandomGenerator.RNG()`` as the reference's do. Evaluation
     reads in disk order.
 
-    The paths are this host's already, and the port trains one process
-    on one card, so ``is_distributed`` is false: the reference's true
-    routes its training to the distributed optimizer, which waits for
-    ROADMAP A.4."""
+    The paths are this process's already (``ShardFolder.paths`` deals the
+    shard files by rank), so ``is_distributed`` is true, as the
+    reference's: ``Optimizer`` trains it through ``DistriOptimizer``
+    over a process group of more than one, and through ``LocalOptimizer``
+    in a single process."""
 
     def __init__(self, paths: Sequence[str]):
         self._paths = list(paths)
@@ -229,6 +232,9 @@ class StreamingShardDataSet(AbstractDataSet):
         from bigdl_tpu_torch.utils.rng import RandomGenerator
         RandomGenerator.RNG().shuffle(self._order)
         self._shuffled = True
+
+    def is_distributed(self) -> bool:
+        return True   # the paths are this process's
 
 
 class BGRImgToLocalSeqFile(Transformer):

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn import initialization as init
 from bigdl_tpu_torch.nn.module import Module, TensorModule
 from bigdl_tpu_torch.ops import remat
-from bigdl_tpu_torch.ops.batch_norm import batch_norm_train
+from bigdl_tpu_torch.ops.batch_norm import batch_norm_train, sync_mesh
 
 
 @torch.no_grad()
@@ -36,6 +36,9 @@ def blend_running_stats(module: Module, mean: torch.Tensor, var: torch.Tensor,
     ``running_var``, in place."""
     if remat.recomputing():
         return  # a recomputed forward (set_remat) moves nothing twice
+    mesh = sync_mesh()
+    if mesh is not None:   # the global batch's statistics and count
+        n = n * mesh.size
     unbiased = var * (n / max(1, n - 1))
     rm, rv = module.running_mean, module.running_var
     rm.copy_((1 - momentum) * rm + momentum * mean)
@@ -46,7 +49,8 @@ class BatchNormalization(TensorModule):
     """Batch norm over (N, C) inputs (reference ``BatchNormalization``):
     train mode normalises with the batch statistics
     (``ops.batch_norm.batch_norm_train``) and blends them into the running
-    ones; eval mode uses the running ones."""
+    ones; eval mode uses the running ones. Inside ``synchronized(mesh)``
+    the statistics and the count are the global batch's."""
 
     def __init__(self, n_output: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True):

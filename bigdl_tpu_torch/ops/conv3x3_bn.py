@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.ops import _build, remat
-from bigdl_tpu_torch.ops.batch_norm import bn_from_stats, bn_input_grad
+from bigdl_tpu_torch.ops.batch_norm import (bn_from_stats, bn_input_grad,
+                                            sync_mesh)
 
 #: launches of kernel K6, either variant (counted where the kernel is
 #: launched, nowhere else), and of its "mma" variant alone
@@ -152,8 +153,9 @@ class Conv3x3BNTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, gamma, beta, eps):
         y, s, sq = conv3x3_with_stats_op(x, w)
+        ctx.mesh = mesh = sync_mesh()
         out, mean, var, inv = bn_from_stats(y, s, sq, gamma, beta, eps,
-                                            x.dtype)
+                                            x.dtype, mesh)
         ctx.save_for_backward(x, w, gamma, y, mean, inv)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
@@ -161,7 +163,8 @@ class Conv3x3BNTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         x, w, gamma, y, mean, inv = ctx.saved_tensors
-        dyconv, dgamma, dbeta = bn_input_grad(dout, y, mean, inv, gamma)
+        dyconv, dgamma, dbeta = bn_input_grad(dout, y, mean, inv, gamma,
+                                              ctx.mesh)
         dyconv = dyconv.to(x.dtype)
         dt = torch.promote_types(x.dtype, w.dtype)
         xc, wc = x.to(dt), w.to(dt)

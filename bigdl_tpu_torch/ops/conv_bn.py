@@ -19,7 +19,8 @@ import torch
 from typing import Tuple
 
 from bigdl_tpu_torch.ops import remat
-from bigdl_tpu_torch.ops.batch_norm import bn_from_stats, bn_input_grad
+from bigdl_tpu_torch.ops.batch_norm import (bn_from_stats, bn_input_grad,
+                                            sync_mesh)
 from bigdl_tpu_torch.ops.matmul_bn import matmul_with_stats
 
 
@@ -40,8 +41,9 @@ class Conv1x1BNTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, w, gamma, beta, eps):
         y, s, sq = matmul_with_stats_op(x2d, w)
+        ctx.mesh = mesh = sync_mesh()
         out, mean, var, inv = bn_from_stats(y, s, sq, gamma, beta, eps,
-                                            x2d.dtype)
+                                            x2d.dtype, mesh)
         ctx.save_for_backward(x2d, w, gamma, y, mean, inv)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
@@ -49,7 +51,8 @@ class Conv1x1BNTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         x2d, w, gamma, y, mean, inv = ctx.saved_tensors
-        dyconv, dgamma, dbeta = bn_input_grad(dout, y, mean, inv, gamma)
+        dyconv, dgamma, dbeta = bn_input_grad(dout, y, mean, inv, gamma,
+                                              ctx.mesh)
         dt = torch.promote_types(x2d.dtype, w.dtype)
         dyconv = dyconv.to(x2d.dtype).to(dt)
         dx = dyconv @ w.to(dt).T

@@ -172,19 +172,47 @@ def make_grad_clipper(clip: Dict) -> Callable[[Tensors], Tensors]:
     return apply
 
 
+def _data_parallel(dataset, kwargs) -> bool:
+    """Whether the facade trains ``dataset`` through ``DistriOptimizer``
+    (the reference's factory, optim/optimizer.py, takes every distributed
+    dataset there: its mesh is the devices of one process)."""
+    if dataset is None or not dataset.is_distributed():
+        return False
+    if any(k in kwargs for k in ("topology", "sync_mode",
+                                 "compress_gradients")):
+        return True
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet
+    root = dataset
+    while not isinstance(root, DistributedDataSet) and hasattr(root, "base"):
+        root = root.base
+    if isinstance(root, DistributedDataSet):
+        return True
+    from bigdl_tpu_torch.utils.engine import Engine
+    return Engine.process_count() > 1
+
+
 class Optimizer:
     """Facade (reference ``Optimizer``): ``Optimizer(model, dataset,
-    criterion, device=...)`` yields a ``LocalOptimizer``.
+    criterion, device=...)`` yields a ``LocalOptimizer``, or a
+    ``parallel.DistriOptimizer`` (which also takes ``topology``,
+    ``sync_mode`` and ``compress_gradients``) for a distributed dataset
+    that trains data-parallel: a process group of more than one is up, the
+    caller passes one of those three, or the dataset was asked for as
+    distributed (``DataSet.array(..., distributed=True)``). A dataset that
+    deals its shards by rank (``StreamingShardDataSet``,
+    ``PrefetchingDataSet``) in a single process keeps ``LocalOptimizer``
+    and its k-step windows.
 
     ``device`` defaults to ``"cuda"`` and must be where the model lives; the
     batches are moved there. ``seed`` seeds every ``Dropout`` of the model
     (module i of ``model.modules()`` gets ``seed + i``)."""
 
     def __new__(cls, model=None, dataset=None, criterion=None, **kwargs):
-        if dataset is not None and dataset.is_distributed():
-            raise NotImplementedError("distributed training is not ported "
-                                      "yet: ROADMAP A.4 (distributed plane)")
         if cls is Optimizer:
+            if _data_parallel(dataset, kwargs):
+                from bigdl_tpu_torch.parallel.distri_optimizer import \
+                    DistriOptimizer
+                return super().__new__(DistriOptimizer)
             return super().__new__(LocalOptimizer)
         return super().__new__(cls)
 
@@ -410,7 +438,7 @@ class Optimizer:
             return cached
         from types import SimpleNamespace
         tm = instruments(get_registry())
-        mode = "local"
+        mode = self._telemetry_mode()
         cached = SimpleNamespace(
             step=tm.train_step_seconds.labels(mode=mode),
             data_wait=tm.train_data_wait_seconds.labels(mode=mode),
@@ -424,6 +452,10 @@ class Optimizer:
             validation=tm.train_validation_seconds.labels(mode=mode))
         self._tm_cache = cached
         return cached
+
+    def _telemetry_mode(self) -> str:
+        """The ``mode`` label of the training families."""
+        return "local"
 
     def _close_data_iter(self) -> None:
         """Close the epoch's iterator, if one is live: an ingest engine's
@@ -620,7 +652,12 @@ class _WindowProfiler:
 
 
 class LocalOptimizer(Optimizer):
-    """Single-card training loop (reference ``LocalOptimizer``)."""
+    """Single-card training loop (reference ``LocalOptimizer``). The
+    methods between ``_init_opt_state`` and ``_should_preempt`` are where
+    ``parallel.DistriOptimizer`` puts its collectives."""
+
+    #: False: every window is one iteration (``set_steps_per_dispatch``)
+    supports_multi_dispatch = True
 
     def _to_device(self, array) -> torch.Tensor:
         """A batch array on the training device. To a card it is copied
@@ -721,7 +758,7 @@ class LocalOptimizer(Optimizer):
                              "loaded with file_io.load")
         import_tree_state(self.model, snap["params"], snap.get("buffers", {}))
         with torch.no_grad():
-            _load_into(opt_state, st["optim"])
+            self._load_opt_state(opt_state, st["optim"])
         driver_state.update(st["driver"])
         elastic = coordinator.is_elastic(marker)
         instruments(get_registry()).resilience_resumes_total.labels(
@@ -777,23 +814,26 @@ class LocalOptimizer(Optimizer):
         if self.checkpoint_path is None:
             return
         tag = "" if self.is_overwrite else f".{int(driver_state['neval'])}"
-        model = self.model
-        model_tree = {"params": dict(model.named_parameters()),
-                      "buffers": dict(model.named_buffers())}
         model_path = file_io.join(self.checkpoint_path, f"model{tag}")
         state_path = file_io.join(self.checkpoint_path, f"state{tag}")
+        model_tree, optim_tree = self._checkpoint_trees(opt_state)
         if self._ckpt_sharded:
             sckpt.save_sharded(model_path, model_tree)
-            sckpt.save_sharded(state_path, {"optim": opt_state})
+            sckpt.save_sharded(state_path, {"optim": optim_tree})
+            self._barrier()   # every rank's shard files are in place
+            if not self._writes_checkpoint():
+                return
             with open(os.path.join(state_path, "driver.json"), "w") as f:
                 json.dump({k: (v.item() if hasattr(v, "item") else v)
                            for k, v in driver_state.items()}, f)
             files = {"model": coordinator.sharded_digests(model_path),
                      "state": coordinator.sharded_digests(state_path)}
         else:
+            if not self._writes_checkpoint():
+                return
             host = file_io.to_host({
                 "model": model_tree,
-                "state": {"optim": opt_state, "driver": dict(driver_state)}})
+                "state": {"optim": optim_tree, "driver": dict(driver_state)}})
             files = {"model": file_io.save(host["model"], model_path),
                      "state": file_io.save(host["state"], state_path)}
         if "://" not in self.checkpoint_path and self._loop_cursor:
@@ -803,10 +843,70 @@ class LocalOptimizer(Optimizer):
                 epoch=int(driver_state["epoch"]), rng=self._rng_record(),
                 epoch_batches=cursor["epoch_batches"],
                 epoch_records=cursor["epoch_records"],
-                mesh=coordinator.current_mesh_descriptor(),
+                mesh=self._mesh_descriptor(),
                 cursor_epoch=cursor["epoch"], files=files)
         logger.info("[Checkpoint] saved model%s to %s", tag,
                     self.checkpoint_path)
+
+    # --------------------------------------------- the distributed seams
+    def _init_opt_state(self, params: Tensors) -> Dict:
+        return self.optim_method.init_state(params)
+
+    def _load_opt_state(self, opt_state: Dict, loaded: Dict) -> None:
+        """A snapshot's optim state into this run's, in place."""
+        _load_into(opt_state, loaded)
+
+    def _step_context(self):
+        """Entered around each step's forward and backward."""
+        return contextlib.nullcontext()
+
+    def _apply_grads(self, grads: Tensors, opt_state: Dict, params: Tensors,
+                     clip: Callable, scalars=None) -> None:
+        """Clip and update in place."""
+        grads = clip(grads)
+        if scalars is None:
+            self.optim_method.update(grads, opt_state, params)
+        else:
+            self.optim_method.update(grads, opt_state, params, scalars)
+
+    def _step_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss a step reports."""
+        return loss
+
+    def _checkpoint_trees(self, opt_state: Dict):
+        """(model tree, optim tree) a snapshot writes."""
+        model = self.model
+        return ({"params": dict(model.named_parameters()),
+                 "buffers": dict(model.named_buffers())}, opt_state)
+
+    def _writes_checkpoint(self) -> bool:
+        """Does this process write the snapshot files and marker?"""
+        return True
+
+    def _barrier(self) -> None:
+        pass
+
+    def _mesh_descriptor(self) -> Dict[str, Any]:
+        return coordinator.current_mesh_descriptor()
+
+    def _evaluate_validation(self):
+        """(results, record count) of the validation set."""
+        if self._fwd is None:
+            self._fwd = tracked_jit(self.model, site="train.forward")
+        with evaluating(self.model):
+            return evaluate_batches(
+                self._fwd, self.validation_dataset.data(train=False),
+                self.validation_methods, self.device, cache=self._eval_cache)
+
+    def _should_preempt(self, handler: PreemptionHandler, neval: int) -> bool:
+        return handler.should_snapshot()
+
+    def _batch_records(self, batch) -> int:
+        """The records an iteration on ``batch`` trains."""
+        return batch.size()
+
+    def _end_training(self) -> None:
+        """Run once when the loop ends, however it ends."""
 
     def _preempt_snapshot(self, opt_state: Dict, driver_state: Dict) -> None:
         """End-of-step preemption: one final snapshot and RESUME marker,
@@ -863,12 +963,8 @@ class LocalOptimizer(Optimizer):
         if self.validation_dataset is None:
             return
         t0 = time.time()
-        if self._fwd is None:
-            self._fwd = tracked_jit(self.model, site="train.forward")
-        with span("train.validate"), evaluating(self.model):
-            results, count = evaluate_batches(
-                self._fwd, self.validation_dataset.data(train=False),
-                self.validation_methods, self.device, cache=self._eval_cache)
+        with span("train.validate"):
+            results, count = self._evaluate_validation()
         elapsed = time.time() - t0
         self.metrics.add("validation time", elapsed)
         self._train_instruments().validation.observe(elapsed)
@@ -895,7 +991,7 @@ class LocalOptimizer(Optimizer):
     def _run_training(self, resume) -> torch.nn.Module:
         model, dev, policy = self.model, self.device, self.precision
         params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        opt_state = self.optim_method.init_state(params)
+        opt_state = self._init_opt_state(params)
         clip = make_grad_clipper(self._grad_clip)
         driver_state: Dict[str, Any] = {"epoch": 1, "neval": 1}
         driver_state.update(self.state)
@@ -925,6 +1021,7 @@ class LocalOptimizer(Optimizer):
         # a trigger that reads the loss needs each loss on the host, and
         # one that may latch state would be corrupted by probes
         can_window = (k_max > 1 and not uses_loss
+                      and self.supports_multi_dispatch
                       and all(getattr(t, "probe_safe", False)
                               for t in triggers + [ptrig] if t is not None))
         chaos_injectors = getattr(self, "_chaos_live", list(self._chaos))
@@ -952,28 +1049,25 @@ class LocalOptimizer(Optimizer):
 
         def step(data, labels, scalars=None) -> torch.Tensor:
             release()
-            p_c = policy.cast_params_for_compute(params)
-            if recompute is None:
-                out = torch.func.functional_call(model, p_c, (data,))
-            else:
-                out = torch.func.functional_call(
-                    recompute, {f"model.{n}": t for n, t in p_c.items()},
-                    (data,))
-            loss = self.criterion.forward(out, labels).float()
-            total = loss
-            for p, reg in regs:
-                total = total + reg.loss(p)
-            total.backward()
+            with self._step_context():
+                p_c = policy.cast_params_for_compute(params)
+                if recompute is None:
+                    out = torch.func.functional_call(model, p_c, (data,))
+                else:
+                    out = torch.func.functional_call(
+                        recompute, {f"model.{n}": t for n, t in p_c.items()},
+                        (data,))
+                loss = self.criterion.forward(out, labels).float()
+                total = loss
+                for p, reg in regs:
+                    total = total + reg.loss(p)
+                total.backward()
             # a parameter the loss does not reach (a fused conv's pre-BN
             # bias) has the reference's zero gradient
-            grads = clip({n: p.grad if p.grad is not None
-                          else torch.zeros_like(p)
-                          for n, p in params.items()})
-            if scalars is None:
-                self.optim_method.update(grads, opt_state, params)
-            else:
-                self.optim_method.update(grads, opt_state, params, scalars)
-            return loss.detach()
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in params.items()}
+            self._apply_grads(grads, opt_state, params, clip, scalars)
+            return self._step_loss(loss.detach())
 
         def dropout_generators():
             return [m._generator for m in model.modules()
@@ -1178,9 +1272,10 @@ class LocalOptimizer(Optimizer):
                               self.optim_method, "current_rate") else None)
                     iters = []
                     for j, b in enumerate(window):
-                        epoch_records += b.size()
+                        records = self._batch_records(b)
+                        epoch_records += records
                         iters.append({"neval": neval0 + j, "epoch": epoch,
-                                      "records": b.size(),
+                                      "records": records,
                                       "epoch_records": epoch_records,
                                       "lr": lr})
                     pending = {"losses": losses, "iters": iters, "t0": t0,
@@ -1206,7 +1301,7 @@ class LocalOptimizer(Optimizer):
                         if fresh:
                             instruments(get_registry()) \
                                 .resilience_preemptions_total.inc(fresh)
-                        if handler.should_snapshot():
+                        if self._should_preempt(handler, last_neval):
                             flush()
                             self._preempt_snapshot(opt_state, driver_state)
                     if self.end_when(driver_state):
@@ -1226,5 +1321,6 @@ class LocalOptimizer(Optimizer):
             for g in graphs.values():
                 g.close()
             release()
+            self._end_training()
             model.train(was_training)
         return model

@@ -20,8 +20,11 @@ newest COMPLETE snapshot, reject partial writes, and restart from it.
   manifest names, and the state directory its ``driver.json``, as in the
   reference; where the marker (inside the state directory) records each
   shard file's size and CRC-32 (the port's do), when every file still has
-  them. The coordinator's multi-host part (elastic resume, the agreed
-  preemption step) waits for ROADMAP A.4 (distributed plane).
+  them.
+- ``current_mesh_descriptor`` and ``is_elastic``: the marker's ``mesh``
+  record of the saving run against this one's process and device counts
+  (a snapshot of world 2 resumed by world 1 is elastic). The agreed
+  preemption step of a process group is ``DistriOptimizer``'s.
 
 Filesystem-only and torch-free at import: ``python -m
 bigdl_tpu_torch.resilience validate`` runs on a bare host.
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -257,16 +261,21 @@ def latest_resume_point(checkpoint_path: Optional[str]
 
 # ------------------------------------------------------------------ elastic
 def current_mesh_descriptor() -> Dict[str, Any]:
-    """This run's topology in marker ``mesh`` form: the port trains in one
-    process on one device."""
-    return {"process_count": 1, "device_count": 1, "mesh_shape": None,
+    """This run's topology in marker ``mesh`` form: the process group's
+    size (one device a process; one process without a group). A
+    ``DistriOptimizer`` adds its mesh shape and sync mode."""
+    n = 1
+    if "torch" in sys.modules:   # no group can be up without torch
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            n = dist.get_world_size()
+    return {"process_count": n, "device_count": n, "mesh_shape": None,
             "sync_mode": "local"}
 
 
 def is_elastic(marker: Optional[Dict[str, Any]]) -> Optional[bool]:
     """Did the topology change between save and resume? None when the
-    marker is absent or carries no mesh record (unknowable). The port runs
-    one process, so a snapshot of its own is never elastic."""
+    marker is absent or carries no mesh record (unknowable)."""
     mesh = (marker or {}).get("mesh") or {}
     if "process_count" not in mesh:
         return None

@@ -11,11 +11,19 @@ pipeline, and launch-environment checks.
 - ``init()`` with no ``devices`` takes every visible CUDA device and
   raises when there is none: the CPU is used only when the caller passes
   it (``devices=["cpu"]``), as every entry point of the port does.
-- ``default_mesh`` raises: the device mesh and the multi-process plane
-  wait for ROADMAP A.4 (distributed plane). The reference's
-  ``_maybe_init_distributed`` (``jax.distributed.initialize`` from the
-  environment) has no counterpart: a ``torch.distributed`` process group
-  is started by its caller, with its address, world size and rank.
+- ``init_distributed`` starts the ``torch.distributed`` process group
+  with its address, world size and rank, each given or read from the
+  reference's environment (``BIGDL_COORDINATOR_ADDRESS`` host:port,
+  ``BIGDL_NUM_PROCESSES``, ``BIGDL_PROCESS_ID``), the counterpart of the
+  reference's ``_maybe_init_distributed``; ``process_index`` and
+  ``process_count`` start it from that environment when it is set. The
+  device and the backend are explicit: rank r takes ``cuda:(r %
+  device_count)`` unless a device is given; ranks on distinct cards take
+  ``nccl``; more ranks than cards raise unless ``backend="gloo"`` is given
+  (NCCL refuses two ranks on one card), and ``device="cpu"`` runs
+  ``gloo``. Nothing switches backend or device silently.
+- ``default_mesh`` is the data-parallel ``parallel.mesh.Mesh`` over every
+  process of the group.
 
 Torch is imported inside the functions, so ``bigdl_tpu_torch.utils`` stays
 cheap to import.
@@ -43,9 +51,14 @@ class _EngineState:
         self._devices: Optional[list] = None
         self._io_pool: Optional[ThreadPoolExecutor] = None
         self._lock = threading.Lock()
+        self.backend: Optional[str] = None
+        self.dist_device = None
+        self.dist_checked = False
 
 
 _state = _EngineState()
+#: how long a collective (and the group's start) waits for every rank
+_GROUP_TIMEOUT_S = 300
 
 
 def _cuda_devices() -> list:
@@ -118,9 +131,132 @@ class Engine:
         return problems
 
     @staticmethod
+    def init_distributed(address: Optional[str] = None,
+                         world_size: Optional[int] = None,
+                         rank: Optional[int] = None, device=None,
+                         backend: Optional[str] = None) -> None:
+        """Start the default process group (see the module docstring):
+        ``address`` is ``host:port`` of rank 0's store (default
+        ``BIGDL_COORDINATOR_ADDRESS``), ``world_size`` and ``rank`` default
+        to ``BIGDL_NUM_PROCESSES`` and ``BIGDL_PROCESS_ID``. A failed
+        connect raises: N processes must never train apart."""
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+        if dist.is_initialized():
+            raise RuntimeError("a torch.distributed process group is "
+                               "already up")
+        env = os.environ
+        address = address or env.get("BIGDL_COORDINATOR_ADDRESS")
+        world_size = int(world_size if world_size is not None
+                         else env.get("BIGDL_NUM_PROCESSES", "1"))
+        rank = int(rank if rank is not None
+                   else env.get("BIGDL_PROCESS_ID", "0"))
+        if not address:
+            raise ValueError("init_distributed needs an address (host:port) "
+                             "or BIGDL_COORDINATOR_ADDRESS")
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside a world of {world_size}")
+        if device is None:
+            n_cards = torch.cuda.device_count()
+            if n_cards == 0:
+                raise RuntimeError(
+                    "init_distributed places rank r on cuda:(r % cards) and "
+                    "no card is visible; pass device='cpu' (with "
+                    "backend='gloo') to run on the CPU")
+            dev = torch.device("cuda", rank % n_cards)
+        else:
+            dev = torch.device(device)
+        if backend is None:
+            backend = "gloo" if dev.type == "cpu" else "nccl"
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
+        if dev.type == "cpu" and backend != "gloo":
+            raise ValueError("device='cpu' runs backend='gloo' only")
+        if backend == "nccl" and world_size > torch.cuda.device_count():
+            raise ValueError(
+                f"{world_size} ranks over {torch.cuda.device_count()} "
+                "card(s): NCCL refuses two ranks on one card; pass "
+                "backend='gloo' to share a card")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        kwargs = {}
+        if backend == "nccl":
+            kwargs["device_id"] = dev
+        dist.init_process_group(
+            backend, init_method=f"tcp://{address}", world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=_GROUP_TIMEOUT_S),
+            **kwargs)
+        with _state._lock:
+            _state.backend = backend
+            _state.dist_device = dev
+            _state.dist_checked = True
+        if rank != 0:
+            # driver-style logging: per-iteration INFO on rank 0 only
+            logging.getLogger("bigdl_tpu_torch.optim").setLevel(
+                logging.WARNING)
+
+    @staticmethod
+    def maybe_init_distributed() -> None:
+        """Start the group from ``BIGDL_COORDINATOR_ADDRESS`` and its
+        companions once, when they are set and no group is up."""
+        if _state.dist_checked:
+            return
+        _state.dist_checked = True
+        if os.environ.get("BIGDL_COORDINATOR_ADDRESS"):
+            import torch.distributed as dist
+            if not dist.is_initialized():
+                Engine.init_distributed()
+
+    @staticmethod
+    def shutdown_distributed() -> None:
+        """Destroy the default group (every rank calls it)."""
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with _state._lock:
+            _state.backend = None
+            _state.dist_device = None
+            _state.dist_checked = False
+
+    @staticmethod
+    def process_group_up() -> bool:
+        import torch.distributed as dist
+        return dist.is_available() and dist.is_initialized()
+
+    @staticmethod
+    def backend() -> Optional[str]:
+        """The group's backend (``"nccl"``, ``"gloo"``), None without one."""
+        if not Engine.process_group_up():
+            return None
+        if _state.backend is None:
+            import torch.distributed as dist
+            _state.backend = str(dist.get_backend())
+        return _state.backend
+
+    @staticmethod
+    def distributed_device():
+        """This rank's device: the one ``init_distributed`` placed it on
+        (a group started elsewhere: ``cuda:(rank % cards)``, or the CPU
+        under gloo without a card)."""
+        import torch
+        if _state.dist_device is None:
+            if torch.cuda.is_available():
+                _state.dist_device = torch.device(
+                    "cuda", Engine.process_index() % torch.cuda.device_count())
+            elif Engine.backend() == "gloo":
+                _state.dist_device = torch.device("cpu")
+            else:
+                raise RuntimeError("no device for this rank: start the group "
+                                   "with Engine.init_distributed(device=...)")
+        return _state.dist_device
+
+    @staticmethod
     def process_index() -> int:
         """This process's rank (0 is the driver for logging and checkpoint
         IO): ``torch.distributed``'s when a group is up, else 0."""
+        Engine.maybe_init_distributed()
         import torch.distributed as dist
         if dist.is_available() and dist.is_initialized():
             return dist.get_rank()
@@ -128,6 +264,7 @@ class Engine:
 
     @staticmethod
     def process_count() -> int:
+        Engine.maybe_init_distributed()
         import torch.distributed as dist
         if dist.is_available() and dist.is_initialized():
             return dist.get_world_size()
@@ -163,10 +300,17 @@ class Engine:
 
     @staticmethod
     def default_mesh(axis_name: str = "data"):
-        """The data-parallel device mesh: not ported yet."""
-        raise NotImplementedError(
-            "Engine.default_mesh is not ported yet: ROADMAP A.4 "
-            "(distributed plane)")
+        """The 1-D data-parallel ``Mesh`` over every process of the group
+        (without a group: this process alone, on its first device);
+        ``axis_name`` must be ``"data"``, the port's only axis."""
+        from bigdl_tpu_torch.parallel.mesh import DATA_AXIS, MeshTopology
+        if axis_name != DATA_AXIS:
+            raise ValueError(f"the port's mesh has the {DATA_AXIS!r} axis "
+                             f"only, not {axis_name!r}")
+        topo = MeshTopology(data=Engine.process_count())
+        if Engine.process_group_up():
+            return topo.build()
+        return topo.build(device=Engine.devices()[0])
 
     @staticmethod
     def io_pool() -> ThreadPoolExecutor:

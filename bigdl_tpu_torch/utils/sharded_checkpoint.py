@@ -1,10 +1,14 @@
 """Sharded checkpoints: per-process shard files and a manifest (counterpart
 of ``bigdl_tpu/utils/sharded_checkpoint.py``, in its format 2).
 
-- ``save_sharded(path, tree)`` writes this process's ``shard-{pidx:05d}.npz``
-  (``pidx`` from ``Engine.process_index()``) and, from process 0,
-  ``manifest.json``: ``{"format": 2, "shards": [...], "leaves": {key:
-  {"shape", "dtype"}}}``. Leaf keys are the reference's
+- ``save_sharded(path, tree)``, called by every process of the group,
+  writes this process's ``shard-{pidx:05d}.npz`` (``pidx`` from
+  ``Engine.process_index()``) and, from process 0, ``manifest.json``:
+  ``{"format": 2, "shards": [...], "leaves": {key: {"shape", "dtype"}}}``,
+  naming every process's shard file. A ``Slab`` leaf (this process's
+  block of a sharded array, with the array's global shape and the block's
+  offsets) is written by its process; any other leaf is replicated and
+  written by process 0 alone, once. Leaf keys are the reference's
   ``jax.tree_util.keystr`` form over nested dicts, lists and tuples
   (``['params']['w']``, ``['optim'][0]``); npz members are named
   ``<leafkey>||<offsets>||<shape>``. Each file is written to a temporary
@@ -16,6 +20,9 @@ of ``bigdl_tpu/utils/sharded_checkpoint.py``, in its format 2).
   (``torch.device`` or its name) as a tensor there. A leaf stored as
   several slabs is assembled by their offsets; missing coverage raises.
   Format-1 manifests (a bare leaves dict, shard files found by name) load.
+  Every process reads every slab, so a snapshot saved by N processes
+  restores into any other number (resharding restore: each process then
+  takes its own blocks of the full leaves).
 
 bfloat16 leaves are written as the reference writes them, the raw 2-byte
 patterns (numpy dtype ``V2``) with ``"bfloat16"`` in the manifest, and read
@@ -23,9 +30,7 @@ back by their bits into ``torch.bfloat16`` (a ``None`` target gives a CPU
 bf16 tensor: numpy has no bfloat16 without ``ml_dtypes``). The reference's
 own loader cannot read such a leaf back (ROADMAP C, known differences).
 
-One process writes and reads: a snapshot written by more than one process,
-and a save from a process group of more than one, wait for ROADMAP A.4
-(distributed plane). Torch is imported inside the functions.
+Torch is imported inside the functions.
 """
 
 from __future__ import annotations
@@ -37,12 +42,22 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 __all__ = ["save_sharded", "load_sharded", "is_sharded_checkpoint",
-           "read_manifest", "shard_filename", "manifest_targets"]
+           "read_manifest", "shard_filename", "manifest_targets", "Slab"]
 
 _SEP = "||"
 _BF16 = "bfloat16"
-_MULTI_PROCESS = ("sharded checkpoints across processes are not ported "
-                  "yet: ROADMAP A.4 (distributed plane)")
+
+
+class Slab:
+    """This process's block ``data`` of a sharded array of
+    ``global_shape``, at ``offsets``."""
+
+    __slots__ = ("data", "global_shape", "offsets")
+
+    def __init__(self, data, global_shape, offsets):
+        self.data = data
+        self.global_shape = tuple(int(v) for v in global_shape)
+        self.offsets = tuple(int(v) for v in offsets)
 
 
 def _keystr(path: Tuple) -> str:
@@ -134,28 +149,37 @@ def _host_leaves(leaves: List) -> List[Tuple[np.ndarray, str]]:
 
 def save_sharded(path: str, tree: Any) -> None:
     """Write this process's shard of ``tree`` (nested dicts, lists and
-    tuples of tensors, numpy arrays and scalars) under the directory
-    ``path``, and its manifest."""
+    tuples of tensors, numpy arrays, scalars and ``Slab``s) under the
+    directory ``path``; process 0 also writes the manifest. Every process
+    of the group calls it with a tree of the same structure."""
     from bigdl_tpu_torch.utils.engine import Engine
-    if Engine.process_count() != 1:
-        raise NotImplementedError(f"save_sharded: {_MULTI_PROCESS}")
     os.makedirs(path, exist_ok=True)
-    pidx = Engine.process_index()
-    shard_names = [shard_filename(pidx)]
-    # stale shards of an earlier, wider save into this directory: no live
-    # writer uses their names
-    for fname in os.listdir(path):
-        if (fname.startswith("shard-") and fname.endswith(".npz")
-                and fname not in shard_names):
-            os.unlink(os.path.join(path, fname))
+    pidx, nproc = Engine.process_index(), Engine.process_count()
+    shard_names = [shard_filename(i) for i in range(nproc)]
+    if pidx == 0:
+        # stale shards of an earlier, wider save into this directory: no
+        # live writer uses their names
+        for fname in os.listdir(path):
+            if (fname.startswith("shard-") and fname.endswith(".npz")
+                    and fname not in shard_names):
+                os.unlink(os.path.join(path, fname))
     flat = _flatten(tree)
+    mine = [(kp, leaf) for kp, leaf in flat
+            if isinstance(leaf, Slab) or pidx == 0]
     blobs, leaves = {}, {}
-    for (keypath, _), (arr, dtype) in zip(flat, _host_leaves(
-            [leaf for _, leaf in flat])):
+    for (keypath, leaf), (arr, dtype) in zip(mine, _host_leaves(
+            [leaf.data if isinstance(leaf, Slab) else leaf
+             for _, leaf in mine])):
         key = _keystr(keypath)
-        leaves[key] = {"shape": list(arr.shape), "dtype": dtype}
-        blobs[_slab_name(key, (0,) * arr.ndim, arr.shape)] = arr
-    _atomic_write_npz(os.path.join(path, shard_names[0]), blobs)
+        if isinstance(leaf, Slab):
+            shape, offsets = leaf.global_shape, leaf.offsets
+        else:
+            shape, offsets = arr.shape, (0,) * arr.ndim
+        leaves[key] = {"shape": list(shape), "dtype": dtype}
+        blobs[_slab_name(key, offsets, arr.shape)] = arr
+    _atomic_write_npz(os.path.join(path, shard_names[pidx]), blobs)
+    if pidx != 0:
+        return
     manifest = {"format": 2, "shards": shard_names, "leaves": leaves}
     tmp = os.path.join(path, f".manifest.tmp-{os.getpid()}")
     with open(tmp, "w") as f:
@@ -226,10 +250,6 @@ def _slab_index(path: str, shard_names: Optional[List[str]]) -> Dict:
         shard_names = sorted(
             f for f in os.listdir(path)
             if f.startswith("shard-") and f.endswith(".npz"))
-    if len(shard_names) > 1:
-        raise NotImplementedError(
-            f"{path} was written by {len(shard_names)} processes: "
-            f"{_MULTI_PROCESS}")
     index: Dict[str, list] = {}
     for fname in shard_names:
         full = os.path.join(path, fname)

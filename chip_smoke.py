@@ -358,6 +358,38 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    against itself (exit 0) and against a copy with tok/s cut by 30% (exit
    1); ``scoreboard scrape`` of a live server's ``/metrics``: one row. A
    ``platform_planes`` line logs them and the phase's seconds;
+3o. the data-parallel plane (after phase 3n; ``--distributed-only`` runs
+   it alone): its ranks are fresh processes of this script with the
+   reference's ``BIGDL_*`` environment, awaited with a timeout. (b) world
+   2 over the one card (gloo): the 134m recipe of phase 3b (bf16, AdamW,
+   L2 clip 1.0) at global B=8 (4 a rank) for 6 iterations in each of
+   ``DistriOptimizer``'s modes (allreduce, sharded ZeRO-1, fsdp), every
+   collective a step held to the mode's structure, the two ranks' weights
+   bit-equal, each rank's parameter and optim-state MiB at rest, ms an
+   iteration and the collectives' share; the fsdp run writes a sharded
+   snapshot after iteration 3; then (c) ResNet-50 at global B=256 (128 a
+   rank, bf16, both fusion gates, allreduce: synchronized batch norm), 4
+   iterations, K5 36 and K6 13 a step on each rank, the two ranks'
+   weights and running statistics bit-equal, and its collectives a step
+   held to the structure (an all-reduce of each fused op's sums and an
+   all-gather of each plain BN's moments forward, an all-reduce of each
+   BN's two sums backward, the buckets, the loss). (a) world 1 on NCCL:
+   the same recipe through ``LocalOptimizer`` and each mode (allreduce
+   bit-equal to ``LocalOptimizer``, sharded and fsdp within the stated
+   tolerance), K1-K3 12 a step; (c)'s world-1 yardstick at B=256; (e) the
+   world-2 snapshot resumed by world 1 (elastic, counted): the state just
+   restored equal, leaf by leaf and bit for bit, to the full state world
+   2 held when it saved (parameters, buffers, AdamW's moments), and the
+   run's last iteration resumed again from world 1's own snapshot
+   bit-equal to the uninterrupted one. (b), (c) and (e) are held to
+   world 1 within the stated tolerances (the relative L2 distance of the
+   parameter updates, or of the running statistics, over a sample, and
+   of the losses). (d) ``python -m bigdl_tpu_torch.apps.perf --model
+   resnet50 --distributed --backend gloo`` at world 2, 3 iterations. A
+   ``distributed`` line logs them. ``--distributed-controls`` adds the
+   runs that set the tolerances ((b) in f32 at both worlds, (b) with rank
+   1's gradients dropped, (c) with per-replica statistics) and holds each
+   control to fail the check it sets;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -399,7 +431,8 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included), 3c and 3n; phase 3i's rows count phase 3i's runs, and
+processes included), 3c, 3n and 3o (every rank's); phase 3i's rows count
+phase 3i's runs, and
 phase 3j's (K1-K3 at ViT-S/16's and transformer_1b's shapes) its runs
 (c) and (e).
 
@@ -410,8 +443,11 @@ seed's readings and no result line.
 ``python3 chip_smoke.py --zoo-only`` builds the kernels and runs only
 phase 3i and its kernel rows, printing them and no result line;
 ``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
-phase 3k, ``--files-only`` only phase 3m and ``--platform-only`` only
-phase 3n (none of them prints kernel rows).
+phase 3k, ``--files-only`` only phase 3m, ``--platform-only`` only
+phase 3n and ``--distributed-only`` only phase 3o (none of them prints
+kernel rows). Phase 3o's ranks are fresh processes of ``python3
+chip_smoke.py --distributed-rank JOBS --dist-out DIR --dist-backend B``
+with the ``BIGDL_*`` environment.
 
 ``python3 chip_smoke.py --resume-helper DIR [--steps-per-dispatch K]`` is
 phase 3h's fresh process: it resumes the 134m run from DIR's snapshots
@@ -8530,6 +8566,849 @@ def run_platform() -> dict:
     return launches
 
 
+# ------------------------------------------- 3o. the data-parallel plane
+DIST_ITERS = 6            # (a), (b): iterations of the 134m recipe a mode
+DIST_SAVE_AT = 3          # (e): the sharded snapshot after this iteration
+DIST_RESNET_ITERS = 4     # (c)
+DIST_PERF_ITERS = 3       # (d)
+DIST_PERF_MODEL = "resnet50"
+DIST_TIMEOUT_S = 300      # one spawn's ranks, start to exit
+DIST_STRIDE = 61          # the parameter sample: every 61st element
+#: the checkout's root: the ranks' working directory
+DIST_ROOT = os.path.dirname(os.path.abspath(__file__))
+# the tolerances, set from sound readings and, where a control exists
+# (``--distributed-controls``), between those and the control's (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6): the relative L2 distance of two
+# runs' parameter updates over the sample, ||(p_a - p_0) - (p_b - p_0)||
+# / ||p_b - p_0||, or of their running statistics after the first
+# iteration's forward, and the largest relative distance of their losses.
+# (a) world 1's sharded and fsdp against allreduce (the clipping norm
+# sums in another order): 0.0149 and 5.6e-4. (b) the 134m's AdamW at
+# world 2 against world 1: 0.140-0.157 and 0.049-0.050 in bf16, 0.0016
+# and 6.9e-4 in f32 (each rank's products round half the rows in bf16,
+# and AdamW's near-sign first steps turn that into whole steps of some
+# weights); with rank 1's gradients dropped 1.12 and 0.073: the update
+# distance tells them apart, the loss bound is a sanity bound. (c)
+# ResNet-50 at world 2: the running statistics 0.0031 from world 1's
+# synchronized, 0.0129 per replica; the bf16 losses 0.0046 apart (one
+# bf16 step), 0.038 with rank 1's gradients dropped. Its parameter
+# updates are logged, not held: at init batch norm's backward cancels so
+# far that an f32 gradient sits about 2% from f64 (phase 3c): world 2's
+# updates read 1.10 from world 1's after the first step and 1.22 after
+# 4 in bf16 (0.026 and 0.67 in f32), and the controls' 1.13-1.27. (e) world
+# 1 resumed from world 2's snapshot against world 2's own continuation:
+# 0.0018.
+DIST_W1_UPDATE_TOL, DIST_W1_LOSS_TOL = 0.05, 2e-3
+DIST_W2_UPDATE_TOL, DIST_W2_LOSS_TOL = 0.3, 0.1
+DIST_RESNET_LOSS_TOL = 1e-2
+DIST_RESNET_BUFFER_TOL = 6e-3
+DIST_RESUME_UPDATE_TOL = 0.01
+
+
+def dist_free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_spawn(world: int, backend: str, jobs, out: str,
+               argv=None) -> float:
+    """``world`` fresh ranks of ``chip_smoke.py --distributed-rank JOBS``
+    (or of ``argv``) with the reference's environment, awaited with a
+    timeout; a rank that fails fails the phase (its log's tail in the
+    error). Returns the spawn's seconds."""
+    port = dist_free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = {**os.environ, "BIGDL_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "BIGDL_NUM_PROCESSES": str(world), "BIGDL_PROCESS_ID": str(r)}
+        cmd = argv or [sys.executable, os.path.abspath(__file__),
+                       "--distributed-rank", ",".join(jobs), "--dist-out",
+                       out, "--dist-backend", backend]
+        path = os.path.join(out, f"{'_'.join(jobs) if argv is None else 'perf'}"
+                                 f".w{world}.rank{r}.log")
+        logs.append(path)
+        with open(path, "wb") as f:
+            procs.append(subprocess.Popen(cmd, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT,
+                                          cwd=DIST_ROOT))
+    deadline = time.time() + DIST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(path, "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            raise RuntimeError(f"check failed: 3o rank {r} of {world} "
+                               f"({jobs}) exited {p.returncode}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def dist_lm_batches(world: int, rank: int):
+    """The 134m recipe's batches (global B=8, S=512, from seed 17): this
+    rank's rows of each."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import MiniBatch, SampleToBatch
+    samples = synthetic_corpus(TRAIN_BATCH * DIST_ITERS, TRAIN_SEQ, VOCAB,
+                               seed=17)
+    per = TRAIN_BATCH // world
+    out = []
+    for b in SampleToBatch(TRAIN_BATCH)(iter(samples)):
+        lo = rank * per
+        out.append(MiniBatch(b.data[lo:lo + per], b.labels[lo:lo + per]))
+    return out
+
+
+def dist_sample(model) -> np.ndarray:
+    """Every DIST_STRIDE-th element of the parameters, in order, as f32
+    numpy (the running statistics are ``dist_buffers``': ResNet-50's
+    move far more than its weights in 4 iterations and would drown a
+    gradient fault)."""
+    with torch.no_grad():
+        flat = torch.cat([t.detach().float().reshape(-1)
+                          for t in model.parameters()])
+        return flat[::DIST_STRIDE].cpu().numpy()
+
+
+def dist_digest(model, buffers: bool = False) -> str:
+    """sha256 of the parameters' (or the buffers') bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in (model.buffers() if buffers else model.parameters()):
+        h.update(p.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def dist_buffers(model) -> np.ndarray:
+    """Every float buffer (the running statistics), in order, as f32
+    numpy."""
+    with torch.no_grad():
+        return torch.cat([b.detach().float().reshape(-1)
+                          for b in model.buffers()
+                          if b.is_floating_point()]).cpu().numpy()
+
+
+def dist_counters() -> dict:
+    """K1-K3 and K5/K6 counters of this process, by ``kernels`` key."""
+    k5, k5m, k6, k6m = conv_bn_counters()
+    return {**flash_counters(), "matmul_bn": k5, "matmul_bn_mma": k5m,
+            "conv3x3_bn": k6, "conv3x3_bn_mma": k6m}
+
+
+def dist_run(opt, iters: int = None) -> dict:
+    """``opt.optimize()`` with every counter zeroed just before it; its
+    losses, launches, collectives a step (over ``iters``, by default the
+    iterations it ran) and timings."""
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    from bigdl_tpu_torch.utils.engine import Engine
+    counters = dist_counters()
+    for c in counters.values():
+        c.reset()
+    pmesh.COLLECTIVES.reset()
+    # gloo's collectives block the host anyway, so timing each one alone
+    # costs nothing there; NCCL's would lose their overlap with the device
+    pmesh.COLLECTIVES.sync_timing = Engine.backend() == "gloo"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pmesh.COLLECTIVES.sync_timing = False
+    snap = pmesh.COLLECTIVES.snapshot()
+    iters = iters or len(opt.history)
+    res = {"losses": [h["loss"] for h in opt.history],
+           "launches": {k: c.value for k, c in counters.items()},
+           "collectives_per_step": {op: n / iters
+                                    for op, n in snap["calls"].items()},
+           "collective_mib_per_step": {op: b / iters / 2 ** 20
+                                       for op, b in snap["bytes"].items()},
+           "collective_s": sum(snap["seconds"].values()), "wall_s": wall,
+           "ms_per_iteration": float(np.median(
+               [h["seconds"] for h in opt.history[2:]])) * 1e3}
+    res["collective_share"] = res["collective_s"] / wall
+    if hasattr(opt, "resident_mib"):
+        res["resident_mib"] = opt.resident_mib()
+    return res
+
+
+#: each pristine model a rank process built, copied for every run
+DIST_MODELS = {}
+
+
+def dist_model(kind: str):
+    """A fresh copy of the 134m recipe's model (seed 7) or ResNet-50 with
+    both gates (seed 3), built once a process."""
+    import copy
+    if kind not in DIST_MODELS:
+        if kind == "lm":
+            from bigdl_tpu_torch.models.transformer import build_lm
+            DIST_MODELS[kind] = build_lm(VOCAB, **CONFIG, device="cuda",
+                                         seed=7)
+        else:
+            DIST_MODELS[kind] = build_resnet50(True, "cuda", seed=3)
+    return copy.deepcopy(DIST_MODELS[kind])
+
+
+def dist_full_state(opt, opt_state) -> dict:
+    """The parameters, buffers and optim state in full shapes, on the host,
+    keyed by path (collective: every rank calls it; its gathers are left
+    out of ``COLLECTIVES``, which the run's structure check reads)."""
+    from bigdl_tpu_torch.parallel.mesh import COLLECTIVES
+    host = lambda t: t.detach().cpu().clone() if torch.is_tensor(t) else t
+    counts = COLLECTIVES.snapshot()
+    with opt._full_weights():
+        params = {n: host(p) for n, p in opt.model.named_parameters()}
+    flat = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        else:
+            flat[path] = host(node)
+    walk(opt._full_state(opt_state), "optim")
+    for k, v in counts.items():
+        setattr(COLLECTIVES, k, collections.Counter(v))
+    return {**{f"params/{n}": t for n, t in params.items()},
+            **{f"buffers/{n}": host(t) for n, t in opt.model.named_buffers()},
+            **flat}
+
+
+def dist_dump_at(opt, method: str, rank: int, path: str) -> None:
+    """Wrap ``opt``'s ``_checkpoint_trees`` (the snapshot) or
+    ``_resume_state`` (the restore) so that, after it, rank 0 writes
+    ``dist_full_state`` to ``path``."""
+    inner = getattr(opt, method)
+
+    def dumped(*args):
+        res = inner(*args)
+        state = dist_full_state(opt, args[-2 if method == "_resume_state"
+                                          else 0])
+        if rank == 0:
+            torch.save(state, path)
+        return res
+    setattr(opt, method, dumped)
+
+
+def dist_drop_rank(opt, rank: int, dropped: int) -> None:
+    """A planted fault for a control: rank ``dropped`` all-reduces zeros
+    in place of its gradients (the global gradient is the other ranks'
+    rows alone)."""
+    if rank == dropped:
+        inner = opt._all_reduce_mean
+        opt._all_reduce_mean = lambda ts: inner([torch.zeros_like(t)
+                                                 for t in ts])
+
+
+def dist_lm_run(mode: str, world: int, rank: int, out: str,
+                save_at: int = None, resume_dir: str = None,
+                tag: str = None, digest: bool = True,
+                precision: str = "bf16", drop_rank: int = None,
+                dump: str = None) -> dict:
+    """The 134m recipe (bf16 unless ``precision="fp32"``, AdamW, L2 clip
+    1.0) to iteration DIST_ITERS: ``"local"`` through ``LocalOptimizer`` on
+    the whole batches, else ``DistriOptimizer`` in that sync mode on this
+    rank's rows. ``resume_dir``: ``auto_resume`` from the newest snapshot
+    there; ``save_at``: a sharded snapshot there (or in
+    ``out/fsdp_snapshot``) after that iteration; ``dump``: the full state
+    as saved (with ``save_at``) or as restored (with ``resume_dir``) to
+    that file; ``drop_rank``: that rank's gradients dropped (a control)."""
+    from bigdl_tpu_torch.dataset.base import DataSet, DistributedDataSet
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
+    t0 = time.perf_counter()
+    model = dist_model("lm")
+    p0 = dist_sample(model)
+    batches = dist_lm_batches(world, rank)
+    if mode == "local":
+        opt = Optimizer(model, DataSet.array(batches, seed=0),
+                        FusedLMHeadCriterion(), device="cuda")
+    else:   # the same shuffles on every rank: seed 0
+        opt = Optimizer(model, DistributedDataSet(
+            batches, shard_by_process=False, seed=0),
+            FusedLMHeadCriterion(), device="cuda", sync_mode=mode)
+    (opt.set_precision(precision)
+        .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                weightdecay=TRAIN_DECAY))
+        .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+        .set_end_when(Trigger.max_iteration(DIST_ITERS)))
+    ckpt = resume_dir or os.path.join(out, "fsdp_snapshot")
+    if save_at is not None or resume_dir is not None:
+        at = -1 if save_at is None else save_at + 1   # -1: never
+        opt.set_checkpoint(ckpt, Trigger(lambda s: int(s["neval"]) == at,
+                                         "snapshot"), sharded=True)
+    if resume_dir is not None:
+        opt.auto_resume()
+    if dump is not None:
+        dist_dump_at(opt, "_resume_state" if resume_dir is not None
+                     else "_checkpoint_trees", rank, dump)
+    if drop_rank is not None:
+        dist_drop_rank(opt, rank, drop_rank)
+    res = dist_run(opt, None)
+    if digest:
+        res["digest"] = dist_digest(model)
+    res["param_shapes"] = [list(p.shape) for p in model.parameters()]
+    res["float_buffers"] = any(t.is_floating_point()
+                               for t in model.buffers())
+    np.savez(os.path.join(out, f"{tag or f'lm_{mode}_w{world}'}.{rank}.npz"),
+             p0=p0, p=dist_sample(model))
+    res["run_s"] = time.perf_counter() - t0
+    del opt, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_resnet_run(world: int, rank: int, out: str,
+                    synchronized: bool = True, drop_rank: int = None,
+                    precision: str = "bf16", tag: str = "resnet") -> dict:
+    """ResNet-50, both fusion gates, bf16 (or ``precision``), SGD(0.1,
+    momentum 0.9), allreduce: one constant global batch of RESNET_BATCH
+    from seed 5, this rank's rows, DIST_RESNET_ITERS iterations; the
+    running statistics after the first iteration's forward and the
+    parameters after its update are kept too (from equal weights: no
+    earlier step's rounding in them). The controls: ``synchronized=False``
+    keeps each rank's batch statistics its own, ``drop_rank`` drops that
+    rank's gradients."""
+    import contextlib
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet, MiniBatch
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.fused import _FusedConvBN
+    from bigdl_tpu_torch.nn.normalization import BatchNormalization
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import distri_optimizer
+    t0 = time.perf_counter()
+    model = dist_model("resnet")
+    p0 = dist_sample(model)
+    b0 = dist_buffers(model)
+    x, y = imagenet_batch(RESNET_BATCH, seed=5)
+    per = RESNET_BATCH // world
+    mine = MiniBatch(x[rank * per:(rank + 1) * per],
+                     y[rank * per:(rank + 1) * per])
+    opt = (Optimizer(model, DistributedDataSet(
+        [mine] * DIST_RESNET_ITERS, shard_by_process=False, seed=0),
+        ClassNLLCriterion(), device="cuda", sync_mode="allreduce")
+        .set_precision(precision)
+        .set_optim_method(SGD(learningrate=RESNET_LR,
+                              momentum=RESNET_MOMENTUM))
+        .set_end_when(Trigger.max_iteration(DIST_RESNET_ITERS)))
+    t1 = time.perf_counter()
+    first = []
+    apply_grads = opt._apply_grads
+
+    def apply_first(*args, **kwargs):
+        now = not first
+        if now:   # the first forward's statistics, weights still equal
+            first.append(dist_buffers(model))
+        res = apply_grads(*args, **kwargs)
+        if now:   # the first update
+            first.append(dist_sample(model))
+        return res
+    opt._apply_grads = apply_first
+    if drop_rank is not None:
+        dist_drop_rank(opt, rank, drop_rank)
+    sync = distri_optimizer.synchronized
+    if not synchronized:
+        distri_optimizer.synchronized = lambda mesh: contextlib.nullcontext()
+    try:
+        res = dist_run(opt, DIST_RESNET_ITERS)
+    finally:
+        distri_optimizer.synchronized = sync
+    res["setup_s"] = t1 - t0
+    res["first_iteration_s"] = opt.history[0]["seconds"]
+    res["fused_bn"] = sum(isinstance(m, _FusedConvBN)
+                          for m in model.modules())
+    res["plain_bn"] = sum(isinstance(m, BatchNormalization)
+                          for m in model.modules())
+    res["param_shapes"] = [list(p.shape) for p in model.parameters()]
+    res["digest"] = dist_digest(model)
+    res["buffers_digest"] = dist_digest(model, buffers=True)
+    np.savez(os.path.join(out, f"{tag}_w{world}.{rank}.npz"), p0=p0,
+             p=dist_sample(model), p1=first[1], b0=b0, b1=first[0],
+             b=dist_buffers(model))
+    del opt, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_resume_runs(world: int, rank: int, out: str) -> dict:
+    """(e): the world-2 fsdp snapshot resumed by this world to DIST_ITERS
+    (its restored state written for the bit-for-bit check against the
+    state world 2 saved), uninterrupted but for a snapshot after
+    iteration DIST_ITERS - 1; then that snapshot resumed for the last
+    iteration; the resumes counted by ``elastic``."""
+    from bigdl_tpu_torch.resilience import coordinator
+    from bigdl_tpu_torch.telemetry import get_registry, instruments
+    snap = os.path.join(out, "fsdp_snapshot")
+    point = coordinator.latest_resume_point(snap)
+    family = instruments(get_registry()).resilience_resumes_total
+    before = {e: family.labels(elastic=e).value for e in ("true", "false")}
+    whole = dist_lm_run("fsdp", world, rank, out, resume_dir=snap,
+                        save_at=DIST_ITERS - 1, tag="lm_fsdp_w1_resumed",
+                        dump=os.path.join(out, "restored_w1.pt"))
+    last = dist_lm_run("fsdp", world, rank, os.path.join(out, "again"),
+                       resume_dir=snap, tag="lm_fsdp_w1_resumed_last")
+    return {"whole": whole, "last": last, "snapshot_neval": point.neval,
+            "marker_mesh": point.marker["mesh"], "elastic": {
+                e: family.labels(elastic=e).value - n
+                for e, n in before.items()}}
+
+
+DIST_JOBS = {
+    # world 2: (b) every mode, fsdp saving (e)'s snapshot and its full
+    # state; (c)
+    "lm_w2": lambda w, r, out: {mode: dist_lm_run(
+        mode, w, r, out, save_at=DIST_SAVE_AT if mode == "fsdp" else None,
+        dump=os.path.join(out, "saved_w2.pt") if mode == "fsdp" else None)
+        for mode in ("allreduce", "sharded", "fsdp")},
+    "resnet": lambda w, r, out: dist_resnet_run(w, r, out),
+    # world 1: (a) LocalOptimizer and every mode; (e)'s resumes
+    "lm_w1": lambda w, r, out: {mode: dist_lm_run(
+        mode, w, r, out, digest=mode in ("local", "allreduce"))
+        for mode in ("local", "allreduce", "sharded", "fsdp")},
+    "resume": dist_resume_runs,
+    # --distributed-controls: (b) in f32 at both worlds, (b) with rank 1's
+    # gradients dropped, (c) with per-replica statistics
+    "lm_w1_controls": lambda w, r, out: {"fp32": dist_lm_run(
+        "allreduce", w, r, out, precision="fp32",
+        tag="lm_allreduce_w1_fp32")},
+    "lm_w2_controls": lambda w, r, out: {
+        "fp32": dist_lm_run("allreduce", w, r, out, precision="fp32",
+                            tag="lm_allreduce_w2_fp32"),
+        "drop_rank1": dist_lm_run("allreduce", w, r, out, drop_rank=1,
+                                  tag="lm_allreduce_w2_drop_rank1")},
+    "resnet_controls": lambda w, r, out: {
+        "per_replica": dist_resnet_run(w, r, out, synchronized=False,
+                                       tag="resnet_per_replica"),
+        "drop_rank1": dist_resnet_run(w, r, out, drop_rank=1,
+                                      tag="resnet_drop_rank1"),
+        "fp32": dist_resnet_run(w, r, out, precision="fp32",
+                                tag="resnet_fp32")},
+    # world 1: (c) again (run-to-run) and in f32
+    "resnet_w1_controls": lambda w, r, out: {
+        "again": dist_resnet_run(w, r, out, tag="resnet_again"),
+        "fp32": dist_resnet_run(w, r, out, precision="fp32",
+                                tag="resnet_fp32")},
+}
+
+
+def run_distributed_rank(jobs: str, out: str, backend: str) -> int:
+    """One rank of phase 3o: joins the group from the BIGDL_* environment
+    and writes each job's readings to ``out/<job>.<rank>.json``."""
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init_distributed(backend=backend)
+    rank, world = Engine.process_index(), Engine.process_count()
+    os.makedirs(os.path.join(out, "again"), exist_ok=True)
+    try:
+        for job in jobs.split(","):
+            t0 = time.perf_counter()
+            res = DIST_JOBS[job](world, rank, out)
+            res["job_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, f"{job}.w{world}.{rank}.json"),
+                      "w") as f:
+                json.dump(res, f)
+    finally:
+        Engine.shutdown_distributed()
+    return 0
+
+
+#: each rank job's seconds, by job and world (rank 0's)
+DIST_JOB_S = {}
+
+
+def dist_read(out: str, job: str, world: int, rank: int = 0) -> dict:
+    """A job's readings (its seconds go to DIST_JOB_S)."""
+    with open(os.path.join(out, f"{job}.w{world}.{rank}.json")) as f:
+        res = json.load(f)
+    seconds = res.pop("job_s")
+    if rank == 0:
+        DIST_JOB_S[f"{job}_w{world}"] = seconds
+    return res
+
+
+def dist_update_distance(out: str, a: str, b: str, at: str = "p") -> float:
+    """Relative L2 distance of two runs' updates over the sample (rank 0's
+    files): ||(p_a - p0) - (p_b - p0)|| / ||p_b - p0||, at the end
+    (``at="p"``) or after the first update (``"p1"``)."""
+    za, zb = (np.load(os.path.join(out, f"{t}.0.npz")) for t in (a, b))
+    check(np.array_equal(za["p0"], zb["p0"]), f"{a} and {b} started apart")
+    upd = zb[at].astype(np.float64) - zb["p0"]
+    return float(np.linalg.norm(za[at].astype(np.float64) - zb[at])
+                 / max(np.linalg.norm(upd), 1e-30))
+
+
+def dist_buffer_distance(out: str, a: str, b: str, at: str = "b") -> float:
+    """The same distance over the running statistics (every float
+    buffer) at the end (``at="b"``) or after the first iteration's forward
+    (``"b1"``), rank 0's files."""
+    za, zb = (np.load(os.path.join(out, f"{t}.0.npz")) for t in (a, b))
+    check(np.array_equal(za["b0"], zb["b0"]), f"{a} and {b} started apart")
+    upd = zb[at].astype(np.float64) - zb["b0"]
+    return float(np.linalg.norm(za[at].astype(np.float64) - zb[at])
+                 / max(np.linalg.norm(upd), 1e-30))
+
+
+def dist_same_state(out: str, a: str, b: str) -> dict:
+    """Two ``dist_full_state`` files compared leaf by leaf, bit for bit
+    (a tensor's dtype, shape and values; any other leaf by ``==``)."""
+    sa, sb = (torch.load(os.path.join(out, f), weights_only=False)
+              for f in (a, b))
+
+    def same(x, y):
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            return (torch.is_tensor(x) and torch.is_tensor(y)
+                    and x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x, y))
+        return type(x) is type(y) and x == y
+    differ = sorted(k for k in set(sa) | set(sb)
+                    if k not in sa or k not in sb or not same(sa[k], sb[k]))
+    return {"leaves": len(sa),
+            "tensors": sum(torch.is_tensor(v) for v in sa.values()),
+            "differ": differ[:8], "n_differ": len(differ)}
+
+
+def dist_loss_gap(a: list, b: list) -> float:
+    check(len(a) == len(b), f"{len(a)} losses against {len(b)}")
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def dist_lm_structure(model_sizes) -> dict:
+    """Each mode's collectives a step by the path's structure: the
+    allreduce mode's gradient buckets and the loss; ZeRO-1's flat
+    reduce-scatter and all-gather, the clip's and the buffers' all-reduce
+    and the loss; fsdp's gather and reduce-scatter a sharded leaf, the
+    replicated leaves' buckets, the clip and the loss."""
+    from bigdl_tpu_torch.parallel.distri_optimizer import (BUCKET_BYTES,
+                                                           _buckets)
+    from bigdl_tpu_torch.parallel.fsdp import shard_dim
+    params, has_float_buffers, world = model_sizes
+    like = [torch.empty(s, dtype=torch.float32, device="meta")
+            for s in params]
+    ar = len(_buckets(like, BUCKET_BYTES)) + 1
+    sharded = [s for s in params if shard_dim(s, world) is not None]
+    rep = [t for t, s in zip(like, params) if shard_dim(s, world) is None]
+    return {"allreduce": {"all_reduce": ar},
+            "sharded": {"reduce_scatter": 1, "all_gather": 1,
+                        "all_reduce": 2 + int(has_float_buffers)},
+            "fsdp": {"all_gather": len(sharded),
+                     "reduce_scatter": len(sharded),
+                     "all_reduce": len(_buckets(rep, BUCKET_BYTES)) + 2}}
+
+
+def dist_resnet_structure(run: dict, world: int) -> dict:
+    """ResNet-50's collectives a step in allreduce mode with synchronized
+    batch norm: forward, an all-reduce of each fused op's sums and an
+    all-gather of each plain BN's moments; backward, an all-reduce of
+    each BN's two sums; the gradient buckets and the loss."""
+    from bigdl_tpu_torch.parallel.distri_optimizer import (BUCKET_BYTES,
+                                                           _buckets)
+    like = [torch.empty(s, dtype=torch.float32, device="meta")
+            for s in run["param_shapes"]]
+    fused, plain = run["fused_bn"], run["plain_bn"]
+    return {"all_reduce": fused + (fused + plain)
+            + len(_buckets(like, BUCKET_BYTES)) + 1,
+            "all_gather": plain}
+
+
+def dist_controls(out: str, w1: dict, b: dict, c: dict) -> dict:
+    """The controls' readings beside the sound ones, and the checks they
+    fail (``failed``): each control must fall outside the tolerance it
+    sets, or that tolerance cannot tell a fault from rounding."""
+    cw1 = dist_read(out, "lm_w1_controls", 1)
+    cw2 = dist_read(out, "lm_w2_controls", 2)
+    cres = [dist_read(out, "resnet_controls", 2, r) for r in range(2)]
+    rep = [r["per_replica"] for r in cres]
+    fp32 = {"update_distance": dist_update_distance(
+                out, "lm_allreduce_w2_fp32", "lm_allreduce_w1_fp32"),
+            "loss_gap": dist_loss_gap(cw2["fp32"]["losses"],
+                                      cw1["fp32"]["losses"]),
+            "losses_w2": cw2["fp32"]["losses"],
+            "losses_w1": cw1["fp32"]["losses"],
+            "bf16_update_distance": b["allreduce"]["update_distance"],
+            "bf16_loss_gap": b["allreduce"]["loss_gap"]}
+    drop = {"update_distance": dist_update_distance(
+                out, "lm_allreduce_w2_drop_rank1", "lm_allreduce_w1"),
+            "loss_gap": dist_loss_gap(cw2["drop_rank1"]["losses"],
+                                      w1["allreduce"]["losses"]),
+            "losses": cw2["drop_rank1"]["losses"]}
+    cres1 = dist_read(out, "resnet_w1_controls", 1)
+    resnet = {}
+    for name, tag, run in (
+            ("per_replica", "resnet_per_replica_w2", rep[0]),
+            ("drop_rank1", "resnet_drop_rank1_w2", cres[0]["drop_rank1"]),
+            ("again_w1", "resnet_again_w1", cres1["again"]),
+            ("fp32", "resnet_fp32_w2", cres[0]["fp32"])):
+        yard = "resnet_fp32_w1" if name == "fp32" else "resnet_w1"
+        w1_losses = (cres1["fp32"]["losses"] if name == "fp32"
+                     else c["losses_w1"])
+        resnet[name] = {
+            "first_update_distance": dist_update_distance(out, tag, yard,
+                                                          at="p1"),
+            "update_distance": dist_update_distance(out, tag, yard),
+            "first_buffer_distance": dist_buffer_distance(out, tag, yard,
+                                                          at="b1"),
+            "buffer_distance": dist_buffer_distance(out, tag, yard),
+            "loss_gap": dist_loss_gap(run["losses"], w1_losses),
+            "losses": run["losses"],
+            "collectives_per_step": run["collectives_per_step"]}
+    per_replica, resnet_drop = resnet["per_replica"], resnet["drop_rank1"]
+    per_replica["ranks_buffers_bit_equal"] = (rep[0]["buffers_digest"]
+                                              == rep[1]["buffers_digest"])
+    failed = []
+    if (drop["update_distance"] <= DIST_W2_UPDATE_TOL
+            and drop["loss_gap"] <= DIST_W2_LOSS_TOL):
+        failed.append(f"control: (b) with rank 1's gradients dropped passes "
+                      f"(b)'s tolerance: {drop}")
+    # per-replica statistics must fail both the statistics' distance and
+    # the ranks' equal statistics
+    if (per_replica["first_buffer_distance"] <= DIST_RESNET_BUFFER_TOL
+            or per_replica["ranks_buffers_bit_equal"]):
+        failed.append(f"control: (c) with per-replica statistics passes "
+                      f"(c)'s statistics checks: {per_replica}")
+    if resnet_drop["loss_gap"] <= DIST_RESNET_LOSS_TOL:
+        failed.append(f"control: (c) with rank 1's gradients dropped passes "
+                      f"(c)'s loss tolerance: {resnet_drop}")
+    return {"b_fp32": fp32, "b_drop_rank1": drop,
+            **{f"c_{k}": v for k, v in resnet.items()}, "failed": failed}
+
+
+def run_distributed(controls: bool = False) -> dict:
+    """Phase 3o; returns its K1-K3 and K5/K6 launches, every rank's.
+    ``controls``: also the runs that set its tolerances (PERF.md §6): (b)
+    in f32 at both worlds, (b) with rank 1's gradients dropped, and (c)
+    with per-replica batch statistics, each control held to fail the
+    check it sets."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="bigdl_dist_")
+    spawn_s = {}
+    failed = []   # every check's verdict, raised after the line is logged
+
+    def defer(cond, what):
+        if not cond:
+            failed.append(what)
+    try:
+        # world 2 over the one card (gloo): (b), (c), (e)'s snapshot
+        spawn_s["w2"] = dist_spawn(2, "gloo", ["lm_w2", "resnet"] + (
+            ["lm_w2_controls", "resnet_controls"] if controls else []), out)
+        # world 1 (NCCL): (a), (c)'s yardstick, (e)'s resumes
+        spawn_s["w1"] = dist_spawn(1, "nccl", ["lm_w1", "resnet", "resume"]
+                                   + (["lm_w1_controls", "resnet_w1_controls"]
+                                      if controls else []), out)
+        # (d): the perf harness at world 2
+        perf_argv = [sys.executable, "-m", "bigdl_tpu_torch.apps.perf",
+                     "--model", DIST_PERF_MODEL, "--distributed",
+                     "--backend", "gloo", "-b", str(RESNET_BATCH), "-i",
+                     str(DIST_PERF_ITERS), "--warmup", "1", "--records",
+                     str(RESNET_BATCH)]
+        saved = {g: os.environ.get(g) for g in FUSION_GATES}
+        os.environ.update({g: "1" for g in FUSION_GATES})
+        try:
+            spawn_s["perf"] = dist_spawn(2, "gloo", ["perf"], out,
+                                         argv=perf_argv)
+        finally:
+            for g, v in saved.items():
+                if v is None:
+                    os.environ.pop(g, None)
+                else:
+                    os.environ[g] = v
+        perf_lines = []
+        for r in range(2):
+            with open(os.path.join(out, f"perf.w2.rank{r}.log")) as f:
+                lines = [ln for ln in f.read().splitlines()
+                         if ln.startswith("{") and '"harness"' in ln]
+            check(lines, f"(d) rank {r} printed no perf line")
+            perf_lines.append(json.loads(lines[-1]))
+
+        w1, w2 = dist_read(out, "lm_w1", 1), [dist_read(out, "lm_w2", 2, r)
+                                              for r in range(2)]
+        res2 = [dist_read(out, "resnet", 2, r) for r in range(2)]
+        res1 = dist_read(out, "resnet", 1)
+        resumed = dist_read(out, "resume", 1)
+        # (a) world 1 on NCCL
+        a = {"allreduce_bit_equal": w1["allreduce"]["digest"]
+             == w1["local"]["digest"]
+             and w1["allreduce"]["losses"] == w1["local"]["losses"],
+             "losses": {m: r["losses"] for m, r in w1.items()},
+             "ms_per_iteration": {m: r["ms_per_iteration"]
+                                  for m, r in w1.items()}}
+        defer(a["allreduce_bit_equal"], "(a) allreduce at world 1 differs "
+              "from LocalOptimizer's run")
+        for mode in ("sharded", "fsdp"):
+            a[mode] = {"update_distance": dist_update_distance(
+                out, f"lm_{mode}_w1", "lm_allreduce_w1"),
+                "loss_gap": dist_loss_gap(w1[mode]["losses"],
+                                          w1["allreduce"]["losses"])}
+            defer(a[mode]["update_distance"] <= DIST_W1_UPDATE_TOL
+                  and a[mode]["loss_gap"] <= DIST_W1_LOSS_TOL,
+                  f"(a) {mode} at world 1 against allreduce: {a[mode]}")
+        layers = CONFIG["num_layers"]
+        flash_want = {k: layers * DIST_ITERS for k in flash_counters()}
+        for mode, run in w1.items():
+            got = {k: run["launches"][k] for k in flash_want}
+            defer(got == flash_want, f"(a) {mode}: K1-K3 launches {got}, "
+                  f"want {flash_want}")
+        # (b) world 2 over the one card
+        structure = dist_lm_structure((
+            [tuple(s) for s in w1["local"]["param_shapes"]],
+            w1["local"]["float_buffers"], 2))
+        b = {}
+        for mode in ("allreduce", "sharded", "fsdp"):
+            r0 = w2[0][mode]
+            b[mode] = {
+                "update_distance": dist_update_distance(
+                    out, f"lm_{mode}_w2", f"lm_{mode}_w1"),
+                "loss_gap": dist_loss_gap(r0["losses"], w1[mode]["losses"]),
+                "ranks_bit_equal": w2[0][mode]["digest"]
+                == w2[1][mode]["digest"],
+                "collectives_per_step": r0["collectives_per_step"],
+                "collective_mib_per_step": r0["collective_mib_per_step"],
+                "resident_mib": r0["resident_mib"],
+                "ms_per_iteration": r0["ms_per_iteration"],
+                "collective_share": r0["collective_share"],
+                "losses": r0["losses"], "run_s": r0["run_s"]}
+            if mode != "allreduce":   # logged, not held
+                b[mode]["update_distance_to_allreduce"] = \
+                    dist_update_distance(out, f"lm_{mode}_w2",
+                                         "lm_allreduce_w2")
+            defer(b[mode]["ranks_bit_equal"],
+                  f"(b) {mode}: the two ranks' parameters differ")
+            defer(b[mode]["update_distance"] <= DIST_W2_UPDATE_TOL
+                  and b[mode]["loss_gap"] <= DIST_W2_LOSS_TOL,
+                  f"(b) {mode} at world 2 against world 1: {b[mode]}")
+            defer(r0["collectives_per_step"] == structure[mode],
+                  f"(b) {mode}: collectives a step "
+                  f"{r0['collectives_per_step']}, want {structure[mode]}")
+            for rank in range(2):
+                got = {k: w2[rank][mode]["launches"][k] for k in flash_want}
+                defer(got == flash_want, f"(b) {mode} rank {rank}: K1-K3 "
+                      f"{got}, want {flash_want}")
+        for mode in ("sharded", "fsdp"):
+            defer(b[mode]["resident_mib"]["optim"]
+                  < 0.6 * b["allreduce"]["resident_mib"]["optim"],
+                  f"(b) {mode}'s optim state is not split: {b[mode]}")
+        defer(b["fsdp"]["resident_mib"]["params"]
+              < 0.6 * b["allreduce"]["resident_mib"]["params"],
+              f"(b) fsdp's parameters are not split: {b['fsdp']}")
+        # (c) ResNet-50 at global B=256 with synchronized batch norm
+        c = {"update_distance": dist_update_distance(out, "resnet_w2",
+                                                     "resnet_w1"),
+             "first_update_distance": dist_update_distance(
+                 out, "resnet_w2", "resnet_w1", at="p1"),
+             "loss_gap": dist_loss_gap(res2[0]["losses"], res1["losses"]),
+             "losses_w2": res2[0]["losses"], "losses_w1": res1["losses"],
+             "ms_per_iteration_w2": res2[0]["ms_per_iteration"],
+             "ms_per_iteration_w1": res1["ms_per_iteration"],
+             "setup_s": [res2[0]["setup_s"], res1["setup_s"]],
+             "first_iteration_s": [res2[0]["first_iteration_s"],
+                                   res1["first_iteration_s"]],
+             "collective_share_w2": res2[0]["collective_share"],
+             "collectives_per_step": res2[0]["collectives_per_step"],
+             "structure": dist_resnet_structure(res2[0], 2),
+             "buffer_distance": dist_buffer_distance(out, "resnet_w2",
+                                                     "resnet_w1"),
+             "first_buffer_distance": dist_buffer_distance(
+                 out, "resnet_w2", "resnet_w1", at="b1"),
+             "ranks_buffers_bit_equal": res2[0]["buffers_digest"]
+             == res2[1]["buffers_digest"],
+             "ranks_bit_equal": res2[0]["digest"] == res2[1]["digest"]}
+        defer(c["first_buffer_distance"] <= DIST_RESNET_BUFFER_TOL
+              and c["loss_gap"] <= DIST_RESNET_LOSS_TOL,
+              f"(c) ResNet-50 at world 2 against world 1: {c}")
+        # the ranks' statistics are the global batch's: bit-equal buffers
+        defer(c["ranks_buffers_bit_equal"] and c["ranks_bit_equal"],
+              "(c) the two ranks' parameters or running statistics differ")
+        for rank in range(2):
+            got = res2[rank]["collectives_per_step"]
+            defer(got == c["structure"], f"(c) rank {rank}: collectives a "
+                  f"step {got}, want {c['structure']}")
+        conv_want = {"matmul_bn": K5_PER_STEP * DIST_RESNET_ITERS,
+                     "matmul_bn_mma": K5_PER_STEP * DIST_RESNET_ITERS,
+                     "conv3x3_bn": K6_PER_STEP * DIST_RESNET_ITERS,
+                     "conv3x3_bn_mma": K6_PER_STEP * DIST_RESNET_ITERS}
+        for name, run in (("w1", res1), ("w2 rank 0", res2[0]),
+                          ("w2 rank 1", res2[1])):
+            got = {k: run["launches"][k] for k in conv_want}
+            defer(got == conv_want, f"(c) {name}: K5/K6 {got}, want "
+                  f"{conv_want}")
+        # (d) perf --distributed
+        d = perf_lines[0]
+        defer(d["distributed"] is True and d["records_per_sec"] > 0,
+              f"(d) perf line {d}")
+        # (e) the world-2 fsdp snapshot resumed by world 1
+        whole, last = resumed["whole"], resumed["last"]
+        e = {"snapshot_neval": resumed["snapshot_neval"],
+             "marker_mesh": resumed["marker_mesh"],
+             "elastic_resumes": resumed["elastic"],
+             "restore": dist_same_state(out, "saved_w2.pt",
+                                        "restored_w1.pt"),
+             "last_iteration_bit_equal": last["digest"] == whole["digest"]
+             and last["losses"] == whole["losses"][-1:],
+             "losses": whole["losses"],
+             "update_distance_to_w2": dist_update_distance(
+                 out, "lm_fsdp_w1_resumed", "lm_fsdp_w2"),
+             "run_s": [whole["run_s"], last["run_s"]]}
+        # the elastic restore: world 1's state right after loading world
+        # 2's fsdp slabs is, leaf by leaf, the full state world 2 held
+        # when it saved them (parameters, buffers, AdamW's moments)
+        defer(e["restore"]["n_differ"] == 0 and e["restore"]["tensors"]
+              >= 3 * len(w1["local"]["param_shapes"]),
+              f"(e) the elastic restore differs from the state world 2 "
+              f"saved: {e['restore']}")
+        defer(e["last_iteration_bit_equal"], f"(e) the resumed last "
+              f"iteration differs from the uninterrupted run's: {e}")
+        defer(e["elastic_resumes"] == {"true": 1, "false": 1},
+              f"(e) resumes counted {e['elastic_resumes']}, want one "
+              "elastic (world 2 -> 1) and one not")
+        defer(e["snapshot_neval"] == DIST_SAVE_AT + 1
+              and e["marker_mesh"] == {"process_count": 2, "device_count": 2,
+                                       "mesh_shape": {"data": 2},
+                                       "sync_mode": "fsdp"},
+              f"(e) the world-2 snapshot's record: {e}")
+        defer(len(e["losses"]) == DIST_ITERS - DIST_SAVE_AT
+              and len(last["losses"]) == 1,
+              f"(e) resumed iterations {e['losses']}, {last['losses']}")
+        defer(e["update_distance_to_w2"] <= DIST_RESUME_UPDATE_TOL,
+              f"(e) the resumed run against world 2's: {e}")
+        if controls:
+            ctl = dist_controls(out, w1, b, c)
+            for what in ctl.pop("failed"):
+                defer(False, what)
+        launches = collections.Counter()
+        runs = [*w1.values(), res1, whole, last,
+                *(w[m] for w in w2 for m in w), *res2]
+        for run in runs:
+            launches.update(run["launches"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log({"distributed": {
+        "a_world1_nccl": a, "b_world2_gloo": b, "c_resnet50_b256": c,
+        "d_perf": d, "e_elastic_resume": e,
+        **({"controls": ctl} if controls else {}),
+        "tolerances": {"w1_update": DIST_W1_UPDATE_TOL,
+                       "w1_loss": DIST_W1_LOSS_TOL,
+                       "w2_update": DIST_W2_UPDATE_TOL,
+                       "w2_loss": DIST_W2_LOSS_TOL,
+                       "resnet_buffer": DIST_RESNET_BUFFER_TOL,
+                       "resnet_loss": DIST_RESNET_LOSS_TOL,
+                       "resume_update": DIST_RESUME_UPDATE_TOL},
+        "staged_collectives": "none (gloo takes CUDA tensors)",
+        "launches": dict(launches), "spawn_s": spawn_s,
+        "job_s": DIST_JOB_S,
+        "phase_s": time.perf_counter() - t_phase}})
+    check(not failed, "3o: " + " | ".join(failed))
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -8575,6 +9454,26 @@ def main(argv=None) -> int:
              "MFU, sharded snapshots, the scoreboard) and print its lines "
              "(no result line)")
     parser.add_argument(
+        "--distributed-only", action="store_true",
+        help="run only the kernels' build and phase 3o (the data-parallel "
+             "plane: DistriOptimizer's modes at world 1 and 2, ResNet-50 "
+             "with synchronized batch norm, perf --distributed, an elastic "
+             "resume) and print its lines (no result line)")
+    parser.add_argument(
+        "--distributed-controls", action="store_true",
+        help="with --distributed-only: also run the controls that set phase "
+             "3o's tolerances ((b) in f32 at both worlds, (b) with rank 1's "
+             "gradients dropped, (c) with per-replica batch statistics), "
+             "each held to fail the check it sets")
+    parser.add_argument(
+        "--distributed-rank", metavar="JOBS",
+        help="phase 3o's rank process: run JOBS (comma-separated) in the "
+             "process group of the BIGDL_* environment")
+    parser.add_argument("--dist-out", help="with --distributed-rank: the "
+                        "folder for the readings")
+    parser.add_argument("--dist-backend", default="nccl",
+                        help="with --distributed-rank: the group's backend")
+    parser.add_argument(
         "--layers-only", action="store_true",
         help="run only the kernels' build and phase 3k (the layer zoo, the "
              "autoencoder app and module timing on the card) and print its "
@@ -8590,6 +9489,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.resume_helper:
         return resume_helper(args.resume_helper, args.steps_per_dispatch)
+    if args.distributed_rank:
+        return run_distributed_rank(args.distributed_rank, args.dist_out,
+                                    args.dist_backend)
     t0 = time.perf_counter()
     card = environment()
     graph_census()
@@ -8627,6 +9529,11 @@ def main(argv=None) -> int:
     if args.platform_only:
         platform_launches = run_platform()
         log({"platform_launches": platform_launches,
+             "total_s": time.perf_counter() - t0, "card": card})
+        return 0
+    if args.distributed_only:
+        dist_launches = run_distributed(args.distributed_controls)
+        log({"distributed_launches": dist_launches,
              "total_s": time.perf_counter() - t0, "card": card})
         return 0
     if args.text_only:
@@ -8680,16 +9587,18 @@ def main(argv=None) -> int:
     text_launches = timed("3l", run_text)
     timed("3m", run_files)
     plat_launches = timed("3n", run_platform)
-    resnet_launches = {k: n + plat_launches[k]
+    dist_launches = timed("3o", run_distributed)
+    resnet_launches = {k: n + plat_launches[k] + dist_launches[k]
                        for k, n in resnet_launches.items()}
     roof, roof_launches = timed("4a", run_roofline)
     t_timing = time.perf_counter()
     kernels = [time_flash({k: launches[k] + cont_launches[k]
                            + plane_launches[k] + train_launches[k]
                            + published_launches[k] + text_launches[k]
-                           + plat_launches[k]
+                           + plat_launches[k] + dist_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd({k: n + text_launches[k] + plat_launches[k]
+                                + dist_launches[k]
                                 for k, n in train_launches.items()}),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]

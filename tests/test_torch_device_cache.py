@@ -8,7 +8,8 @@ dataset is read once; a stochastic stage below the cache raises;
 ``cast_dtype`` halves the cache's bytes; training through the cache equals
 the host path at k = 1 and k = 4 (shuffles pinned to the identity, so any
 difference would be the compute path's), and a k = 4 window over the
-cache equals k = 1; ``set_mesh`` stops at ROADMAP A.4.
+cache equals k = 1; ``set_mesh`` serves a rank's share of each global
+batch.
 """
 
 import numpy as np
@@ -144,8 +145,25 @@ def test_cast_dtype_halves_the_cache():
 
 
 def test_set_mesh_and_no_card_stop():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        _cache(_samples(8), 4).set_mesh(object())
+    from bigdl_tpu_torch.parallel.mesh import Mesh
+    cache = _cache(_samples(8, shape=(1,)), 4)
+    cache.set_mesh(Mesh(2, 1, "cpu", None))   # rank 1 of 2: 2 rows a step
+    assert cache.is_distributed()
+    RandomGenerator.RNG().set_seed(7)
+    batches = list(cache.data(train=True))
+    assert [b.size() for b in batches] == [2] * 4
+    rows = np.concatenate([b.data.numpy().ravel() for b in batches])
+    every = np.concatenate([s.feature for s in _samples(8, shape=(1,))])
+    np.testing.assert_array_equal(np.sort(rows), np.sort(every))
+    # the second of two permutations drawn in rank order
+    rng = RandomGenerator(7)
+    rng.randperm(8)
+    np.testing.assert_array_equal(rows, every[rng.randperm(8) - 1])
+    assert [b.size() for b in cache.data(train=False)] == [2] * 4
+    with pytest.raises(RuntimeError, match="already materialized"):
+        cache.set_mesh(Mesh(4, 0, "cpu", None))
+    with pytest.raises(ValueError, match="divide"):
+        _cache(_samples(8), 4).set_mesh(Mesh(3, 0, "cpu", None))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DeviceCachedDataSet(DataSet.array(_samples(8)), 4)

@@ -1,7 +1,8 @@
 """``utils/digraph.py`` and ``utils/engine.py`` of the port against the
 reference's on the CPU: ``DirectedGraph``'s orders equal the reference's on
 seeded random DAGs; ``Engine``'s topology, ``io_pool``,
-``check_singleton`` and ``default_mesh`` refusing, citing ROADMAP A.4.
+``check_singleton`` and ``default_mesh`` (a data mesh of one without a
+process group).
 """
 
 import os
@@ -85,8 +86,12 @@ def test_engine_topology_on_the_cpu(engine, monkeypatch):
     assert (engine.node_number(), engine.core_number()) == (1, 3)
     assert threads == [3]
     assert (engine.process_index(), engine.process_count()) == (0, 1)
-    with pytest.raises(NotImplementedError, match=r"A\.4 \(distributed"):
-        engine.default_mesh()
+    mesh = engine.default_mesh()
+    assert (mesh.size, mesh.rank, mesh.shape, mesh.device) == (
+        1, 0, {"data": 1}, torch.device("cpu"))
+    assert not mesh.distributed
+    with pytest.raises(ValueError, match="'data' axis only"):
+        engine.default_mesh("model")
 
 
 def test_engine_without_a_card_raises(engine):

@@ -118,7 +118,9 @@ def test_same_batches_as_the_reference(corpus, chain, serial):
     # the decoder drops a short tail batch, as the reference's does
     assert len(got[0]) == (N_SHARDS * PER_SHARD if chain == "records"
                            else N_SHARDS * PER_SHARD // 4)
-    assert ours.size() == N_SHARDS * PER_SHARD and not ours.is_distributed()
+    # this process's shard files, as the reference's: data-parallel
+    assert ours.size() == N_SHARDS * PER_SHARD
+    assert ours.is_distributed() and ref.is_distributed()
 
 
 def test_cpu_feed_hands_host_tensors_over(corpus):

@@ -33,6 +33,7 @@ from bigdl_tpu_torch.dataset.ingest import PrefetchingDataSet
 from bigdl_tpu_torch.telemetry import __main__ as telemetry_cli
 from bigdl_tpu_torch.telemetry import scoreboard
 from bigdl_tpu_torch.utils.engine import Engine
+from bigdl_tpu_torch.parallel import MeshTopology
 from bigdl_tpu_torch.dataset.device_cache import DeviceCachedDataSet
 from bigdl_tpu_torch.models import (alexnet, autoencoder, inception, lenet,
                                     resnet, rnn, vgg, vit)
@@ -97,7 +98,7 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
 def test_new_subpackages_are_part_of_the_port():
     """The serving plane's subpackages ship inside the package and stand
     alone like the rest (the import check above walks them)."""
-    for sub in ("telemetry", "resilience", "apps"):
+    for sub in ("telemetry", "resilience", "apps", "parallel"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     for mod in ("models/router.py", "nn/recurrent.py", "apps/common.py",
                 "resilience/serving_drill.py", "resilience/__main__.py",
@@ -130,7 +131,11 @@ def test_new_subpackages_are_part_of_the_port():
                 "utils/sharded_checkpoint.py", "dataset/ingest/__init__.py",
                 "dataset/ingest/reorder.py", "dataset/ingest/engine.py",
                 "dataset/ingest/dataset.py", "apps/ingest_bench.py",
-                "telemetry/scoreboard.py", "telemetry/__main__.py"):
+                "telemetry/scoreboard.py", "telemetry/__main__.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/compression.py", "parallel/fsdp.py",
+                "parallel/model_broadcast.py",
+                "parallel/distri_optimizer.py"):
         text = (PKG / mod).read_text()
         assert "bigdl_tpu/" in text.split('"""')[1], mod  # names its mirror
 
@@ -225,7 +230,10 @@ def test_build_lm_raises_without_card():
                                    "ingest_bench.main train",
                                    "ingest_bench.main pipeline",
                                    "scoreboard.run",
-                                   "telemetry.main scoreboard"])
+                                   "telemetry.main scoreboard",
+                                   "DistriOptimizer", "MeshTopology.build",
+                                   "Engine.default_mesh",
+                                   "Engine.init_distributed"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     _require_no_card()
     model = _tiny().evaluate_mode()
@@ -292,6 +300,14 @@ def test_entry_points_raise_without_card(entry, tmp_path):
         "vit.build": lambda: vit.build(10, image_size=32, patch_size=8),
         "rnn.build": lambda: rnn.build(4, 4, 4),
         "rnn.build_classifier": lambda: rnn.build_classifier(10, 4, 4, 2),
+        # the data-parallel plane: a rank's device is a card unless asked
+        "DistriOptimizer": lambda: Optimizer(
+            model, DataSet.array(synthetic_corpus(2, 4, 50), distributed=True)
+            >> SampleToBatch(2), FusedLMHeadCriterion()),
+        "MeshTopology.build": lambda: MeshTopology(data=1).build(),
+        "Engine.default_mesh": lambda: Engine.default_mesh(),
+        "Engine.init_distributed": lambda: Engine.init_distributed(
+            "127.0.0.1:1", 1, 0),
         "DeviceCachedDataSet": lambda: DeviceCachedDataSet(
             DataSet.array(synthetic_corpus(2, 4, 50)), 2),
         "perf.main": lambda: perf_app.main(["--model", "lenet5", "-b", "2",

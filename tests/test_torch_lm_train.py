@@ -237,8 +237,20 @@ def test_unported_setters_raise(setter, tmp_path):
 
 
 def test_distributed_dataset_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataSet.array(synthetic_corpus(B, S, V), distributed=True)
+    """A distributed dataset trains data-parallel (``DistriOptimizer``,
+    here a mesh of one); a model-parallel mesh axis raises, naming its
+    ROADMAP item."""
+    from bigdl_tpu_torch.parallel import DistriOptimizer, MeshTopology
+    ds = DataSet.array(synthetic_corpus(B, S, V), distributed=True)
+    assert ds.is_distributed() and ds.size() == B
+    model = build_lm(V, **LLAMA, device="cpu", seed=0)
+    opt = Optimizer(model, ds >> SampleToBatch(B), FusedLMHeadCriterion(),
+                    device="cpu")
+    assert isinstance(opt, DistriOptimizer)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP A\.4 \(distributed plane: model"):
+        Optimizer(model, ds, FusedLMHeadCriterion(), device="cpu",
+                  topology=MeshTopology(data=1, tensor=2))
 
 
 def test_sample_to_batch_remainder_matches_reference():

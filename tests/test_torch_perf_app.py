@@ -65,6 +65,16 @@ def test_k_windows_leave_the_first_windows_out():
     (["--distributed"], "A.4 (distributed plane)"),
     (["--moeExperts", "4"], "A.4 (expert)")])
 def test_unported_modes_stop_naming_roadmap(flag, item):
+    """``--moeExperts`` stops naming its ROADMAP item; ``--distributed``
+    (the distributed plane, ported) trains data-parallel, here over a
+    mesh of one, and says so in its line."""
+    if flag == ["--distributed"]:
+        result, opt = perf.run(["--model", "lenet5", "-b", "4", "-i", "2",
+                                "--warmup", "1", *flag, "--device", "cpu"])
+        assert result["distributed"] is True
+        assert type(opt).__name__ == "DistriOptimizer"
+        assert len(opt.history) == 3
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}".replace(
             "(", r"\(").replace(")", r"\)")):
         perf.main(["--model", "transformer", *flag, "--device", "cpu"])

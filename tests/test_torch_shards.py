@@ -147,7 +147,8 @@ def test_files_and_stream(tmp_path):
     ds = shards.ShardFolder.stream(str(tmp_path))
     ref = jshards.ShardFolder.stream(str(tmp_path))
     assert ds.size() == ref.size() == 23
-    assert not ds.is_distributed()   # one process on one card
+    # this process's shard files, as the reference's: data-parallel
+    assert ds.is_distributed() and ref.is_distributed()
     assert [(r.label, r.data) for r in ds.data(train=True)] == records
     RandomGenerator.RNG().set_seed(3)
     JaxRNG.RNG().set_seed(3)
