@@ -73,15 +73,18 @@ def test_parser(prog: str, default_batch: int = 128) -> argparse.ArgumentParser:
 
 
 def build_optimizer(model, train_set, criterion, args, validation_set=None,
-                    methods=None, optim_method=None) -> Optimizer:
+                    methods=None, optim_method=None,
+                    topology=None) -> Optimizer:
     """The per-model ``Train.scala`` body (reference ``build_optimizer``):
     optimizer, SGD from the parsed rates, the epoch end trigger, the
     gradient clippers, resume, checkpoints, preemption, summaries and,
     with a validation set, per-epoch validation, on ``args.device``. The
     summaries' event files are closed (every event flushed) when the
-    program exits. The logs are routed by ``redirect_logs``."""
+    program exits. The logs are routed by ``redirect_logs``. ``topology``:
+    a ``parallel.MeshTopology`` for ``DistriOptimizer``."""
     redirect_logs()
-    opt = Optimizer(model, train_set, criterion, device=args.device)
+    extra = {} if topology is None else {"topology": topology}
+    opt = Optimizer(model, train_set, criterion, device=args.device, **extra)
     opt.set_optim_method(optim_method or SGD(
         learningrate=args.learningRate,
         learningrate_decay=args.learningRateDecay,

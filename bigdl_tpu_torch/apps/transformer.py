@@ -33,9 +33,17 @@ raw HF ids (0-based), and ``generate``'s ``--eosId`` is an HF id in both
 cases, as in the reference.
 
 An HF directory with a SentencePiece ``tokenizer.model`` (the Llama
-family) speaks text through ``interop/sentencepiece.py``. Options whose
-machinery is not ported yet stop with a message naming the ROADMAP item:
-``--contextParallel``, ``--tensorParallel`` and ``--moeExperts`` (A.4).
+family) speaks text through ``interop/sentencepiece.py``.
+
+``train --tensorParallel N`` trains over a data x tensor mesh of the
+group's processes (``MeshTopology(data=world // N, tensor=N)``) through
+``Optimizer``, with sequence-parallel regions when ``--seqLen`` divides by
+N; ``-b`` is the global batch. ``train --contextParallel ring|ulysses``
+(``--ringLayout contiguous|zigzag``) shards the sequence over every
+process (``_train_context_parallel``). Both start the process group from
+the ``BIGDL_*`` environment (``--backend``: ``gloo`` for ranks that share
+a card). ``--moeExperts`` stops with a message naming its ROADMAP item
+(A.4).
 """
 
 from __future__ import annotations
@@ -129,6 +137,10 @@ def optimizer(argv):
                         help="Megatron TP degree")
     parser.add_argument("--ringLayout", default="contiguous",
                         choices=["contiguous", "zigzag"])
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="the process group's backend with "
+                        "--tensorParallel/--contextParallel (default: nccl "
+                        "on cards, gloo on the CPU)")
     parser.add_argument("--fusedHead", action="store_true",
                         help="LMHead + FusedLMHeadCriterion tail: the "
                         "(B,S,V) logits never materialise")
@@ -143,30 +155,189 @@ def optimizer(argv):
                         help="BPE vocabulary size (>= 256: the bytes and "
                         "the merges)")
     args = parser.parse_args(argv)
-    if args.contextParallel:
-        _waits("--contextParallel", "A.4 (distributed plane: context.py)")
-    if args.tensorParallel > 1:
-        _waits("--tensorParallel", "A.4 (distributed plane: "
-               "tensor_parallel.py)")
     if args.moeExperts:
         _waits("--moeExperts", "A.4 (distributed plane: expert.py)")
+    if args.contextParallel and args.tensorParallel > 1:
+        raise SystemExit("--contextParallel and --tensorParallel do not "
+                         "compose yet: pick one")
     if args.textFile:
         samples, args.vocab = text_corpus(args)
     else:
         samples = synthetic_corpus(max(args.synthetic_size, args.batchSize),
                                    args.seqLen, args.vocab)
-    ds = DataSet.array(samples).transform(
-        SampleToBatch(batch_size=args.batchSize))
+    parallel = bool(args.contextParallel) or args.tensorParallel > 1
+    world = _start_group(args) if parallel else 1
+    data = world // args.tensorParallel if args.tensorParallel > 1 else 1
+    if args.tensorParallel > 1 and world % args.tensorParallel:
+        raise SystemExit(f"--tensorParallel {args.tensorParallel} must "
+                         f"divide the process count {world}")
+    if args.batchSize % data:
+        raise SystemExit(f"-b {args.batchSize} must divide by the "
+                         f"{data} data ranks")
+    ds = DataSet.array(samples, distributed=parallel, seed=0).transform(
+        SampleToBatch(batch_size=args.batchSize // data))
     llama = (dict(rope=True, norm="rms", activation="swiglu", bias=False)
              if args.llamaBlock else {})
     model = build_lm(args.vocab, args.embedDim, args.numHeads,
                      ffn_dim=4 * args.embedDim, num_layers=args.numLayers,
                      max_len=max(1024, args.seqLen),
                      fused_head=args.fusedHead, device=args.device, seed=0,
-                     **llama)
+                     seq_axis="seq" if args.contextParallel else None,
+                     seq_mode=args.contextParallel or "ring",
+                     seq_layout=(args.ringLayout
+                                 if args.contextParallel == "ring"
+                                 else "contiguous"), **llama)
     criterion = (FusedLMHeadCriterion() if args.fusedHead
                  else TimeDistributedCriterion(ClassNLLCriterion()))
+    if args.contextParallel:
+        return _ContextParallelRun(model, ds, criterion, args), args
+    if args.tensorParallel > 1:
+        from bigdl_tpu_torch.parallel.mesh import MeshTopology
+        from bigdl_tpu_torch.parallel.tensor_parallel import \
+            enable_sequence_parallel
+        topo = MeshTopology(data=data, tensor=args.tensorParallel)
+        opt = build_optimizer(model, ds, criterion, args, topology=topo)
+        if args.seqLen % args.tensorParallel == 0:
+            enable_sequence_parallel(model, opt.mesh)
+        return opt, args
     return build_optimizer(model, ds, criterion, args), args
+
+
+def _start_group(args) -> int:
+    """The process group of the ``BIGDL_*`` environment (started here
+    unless it is up); its process count."""
+    import os
+
+    from bigdl_tpu_torch.utils.engine import Engine
+    if not Engine.process_group_up() and os.environ.get(
+            "BIGDL_COORDINATOR_ADDRESS"):
+        Engine.init_distributed(
+            device="cpu" if args.device == "cpu" else None,
+            backend=args.backend)
+    return Engine.process_count()
+
+
+class _ContextParallelRun:
+    """``train --contextParallel``'s loop (reference
+    ``_train_context_parallel``): the sequence sharded over every process
+    (``MeshTopology(sequence=world)``); the embedding (and the positional
+    encoding) run on the whole batch, the stack, head and criterion on
+    this rank's shard (``parallel.context.ContextParallelLM``), each rank
+    differentiates its shard's loss over the rank count and the gradients
+    are summed over the ranks (the logged loss is their mean). SGD from the
+    parsed rates; ``--checkpoint`` writes a snapshot pair every epoch from
+    process 0 (the full model's leaves, as the standard loop's), and
+    ``--model/--state`` or ``--autoResume`` resume from one."""
+
+    def __init__(self, model, ds, criterion, args):
+        from bigdl_tpu_torch.apps.common import redirect_logs
+        from bigdl_tpu_torch.optim import SGD
+        from bigdl_tpu_torch.parallel.context import ContextParallelLM
+        from bigdl_tpu_torch.parallel.mesh import MeshTopology
+        from bigdl_tpu_torch.utils.engine import Engine
+        if bool(args.model) != bool(args.state):
+            raise SystemExit("--model and --state must be passed together")
+        redirect_logs()
+        n = Engine.process_count()
+        if args.seqLen % n:
+            raise SystemExit(
+                f"--seqLen {args.seqLen} is not divisible by the process "
+                f"count {n}: sequence parallelism shards the sequence axis "
+                "evenly; pick a multiple")
+        zigzag = (args.contextParallel == "ring"
+                  and args.ringLayout == "zigzag")
+        if zigzag and args.seqLen % (2 * n):
+            raise SystemExit(f"--ringLayout zigzag needs --seqLen divisible "
+                             f"by 2x the process count ({2 * n})")
+        self.mesh = MeshTopology(sequence=n).build(args.device)
+        # every rank trains the whole batch: the records are not dealt
+        from bigdl_tpu_torch.dataset.base import DistributedDataSet
+        root = ds
+        while not isinstance(root, DistributedDataSet) and hasattr(
+                root, "base"):
+            root = root.base
+        if isinstance(root, DistributedDataSet):
+            root.shard_by_data_rank(0, 1)
+        self.lm = ContextParallelLM(model, self.mesh,
+                                    layout=args.ringLayout if zigzag
+                                    else "contiguous")
+        self.model, self.ds, self.criterion, self.args = (model, ds,
+                                                          criterion, args)
+        self.method = SGD(learningrate=args.learningRate,
+                          learningrate_decay=args.learningRateDecay,
+                          momentum=args.momentum,
+                          weightdecay=args.weightDecay)
+        self.history = []
+
+    def optimize(self):
+        import logging
+
+        import torch
+
+        from bigdl_tpu_torch.resilience import coordinator
+        from bigdl_tpu_torch.utils import file_io
+        log = logging.getLogger("bigdl_tpu_torch.optim")
+        args, model = self.args, self.model
+        params = {n: p for n, p in model.named_parameters()}
+        state = self.method.init_state(params)
+        epoch, neval = 1, 1
+        resume = (args.model, args.state) if args.model else None
+        if resume is None and args.autoResume and args.checkpoint:
+            point = coordinator.latest_resume_point(args.checkpoint)
+            if point is not None:
+                resume = (point.model_path, point.state_path)
+        if resume is not None:
+            from bigdl_tpu_torch.interop.state_dict import import_tree_state
+            from bigdl_tpu_torch.optim.optimizer import _load_into
+            snap = file_io.load(resume[0], device="cpu")
+            st = file_io.load(resume[1], device="cpu")
+            import_tree_state(model, snap["params"], snap.get("buffers", {}))
+            with torch.no_grad():
+                _load_into(state, st["optim"])
+            epoch = int(st["driver"].get("epoch", 1))
+            neval = int(st["driver"].get("neval", 1))
+            log.info("[Resume] context-parallel from %s at epoch %d neval "
+                     "%d", resume[0], epoch, neval)
+        dev = torch.device(args.device)
+        model.train()
+        for epoch in range(epoch, args.maxEpoch + 1):
+            self.ds.shuffle()
+            for batch in self.ds.data(train=True):
+                tokens = torch.as_tensor(batch.data).to(dev)
+                targets = torch.as_tensor(batch.labels).to(dev)
+                loss = self.lm.train_step(tokens, targets, self.criterion,
+                                          self.method, state, params)
+                log.info("[Epoch %d][Iteration %d] loss %.5f (seq-parallel "
+                         "x%d, %s)", epoch, neval, loss, self.mesh.world,
+                         args.contextParallel)
+                self.history.append({"neval": neval, "epoch": epoch,
+                                     "loss": loss})
+                neval += 1
+            if args.checkpoint:
+                self._save(params, state, epoch, neval)
+        return model
+
+    def _save(self, params, state, epoch_done: int, neval: int) -> None:
+        from bigdl_tpu_torch.resilience import coordinator
+        from bigdl_tpu_torch.utils import file_io
+        if self.mesh.process_rank == 0:
+            model_path = file_io.join(self.args.checkpoint, f"model.{neval}")
+            state_path = file_io.join(self.args.checkpoint, f"state.{neval}")
+            host = file_io.to_host({
+                "model": {"params": dict(params), "buffers": {}},
+                "state": {"optim": state, "driver": {
+                    "epoch": epoch_done + 1, "neval": neval}}})
+            files = {"model": file_io.save(host["model"], model_path),
+                     "state": file_io.save(host["state"], state_path)}
+            coordinator.write_marker(
+                state_path, step=neval, epoch=epoch_done + 1, rng=None,
+                epoch_batches=0, epoch_records=0,
+                mesh={"process_count": self.mesh.world,
+                      "device_count": self.mesh.world,
+                      "mesh_shape": dict(self.mesh.shape),
+                      "sync_mode": "context-parallel"},
+                cursor_epoch=epoch_done, files=files)
+        self.mesh.barrier()
 
 
 def train(argv):

@@ -397,18 +397,53 @@ class DistributedDataSet(LocalDataSet):
 
     def __init__(self, data: Sequence, shard_by_process: bool = True,
                  seed: Optional[int] = None):
+        self._all = None
         if shard_by_process:
             from bigdl_tpu_torch.utils.engine import Engine
             p, n = Engine.process_index(), Engine.process_count()
             if n > 1:
-                data = list(data)[p::n]
+                self._all = list(data)
+                data = self._all[p::n]
         super().__init__(data, seed)
+
+    def shard_by_data_rank(self, index: int, count: int) -> None:
+        """Keep ``data[index::count]`` of the records instead of the
+        process's slice: under a tensor or sequence axis the ranks that
+        share a data coordinate train the same rows
+        (``DistriOptimizer`` calls this)."""
+        if self._all is None:
+            return   # the caller dealt this process's records itself
+        self._data = self._all[index::count]
+        self._order = np.arange(len(self._data))
 
     def is_distributed(self) -> bool:
         return True
 
     def to_distributed(self) -> "DistributedDataSet":
         return self
+
+
+def epoch_batches(dataset) -> Optional[int]:
+    """The iterations one epoch of ``dataset`` yields, or None when it
+    cannot be told without reading the epoch: a dataset's own
+    ``batches_per_epoch()``; an in-memory set's records (each one an
+    iteration); a transformed set's records through per-record stages and
+    ``SampleToBatch`` (any other aggregating stage: None)."""
+    own = getattr(dataset, "batches_per_epoch", None)
+    if callable(own):
+        return own()
+    if isinstance(dataset, LocalDataSet):
+        return dataset.size()
+    if isinstance(dataset, TransformedDataSet):
+        n = dataset.base.size()
+        for stage in _flatten_chain(dataset.transformer):
+            if isinstance(stage, SampleToBatch):
+                full, rest = divmod(n, stage.batch_size)
+                n = full + (1 if rest and not stage.drop_remainder else 0)
+            elif stage.aggregating:
+                return None
+        return n
+    return None
 
 
 class DataSet:

@@ -188,6 +188,11 @@ class DeviceCachedDataSet(AbstractDataSet):
         for b in range(n // bs):
             yield CachedSliceBatch(self, idx[b * bs:(b + 1) * bs])
 
+    def batches_per_epoch(self) -> int:
+        """The iterations an epoch yields (the cache is materialised)."""
+        self._materialize()
+        return int(self._x.shape[0]) // self._local_batch()
+
     def size(self) -> int:
         if self._x is not None:
             return int(self._x.shape[0])

@@ -166,10 +166,17 @@ def export_tree_state(model: torch.nn.Module
     ``parameter_tree()`` and ``buffer_tree()`` flattened with dots
     (children ``"0"``, ``"1"``, ..., conv weights HWIO; ``CAdd.bias``,
     ``Mul``/``CMul.weight``, a recurrent cell's ``w_ih``/``w_hh``/bias
-    under ``<Recurrent>.cell``, ``BiRecurrent``'s under ``fwd``/``bwd``)."""
+    under ``<Recurrent>.cell``, ``BiRecurrent``'s under ``fwd``/``bwd``).
+    A model sharded over a tensor axis
+    (``parallel.tensor_parallel.shard_parameters``) exports its full
+    leaves, reassembled over the axis: every rank of it must call."""
     def numpy(t):
         return t.detach().float().cpu().numpy()
-    return ({n: numpy(p) for n, p in model.named_parameters()},
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    if getattr(model, "_tp_mesh", None) is not None:
+        from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
+        params = gather_full(model, params)
+    return ({n: numpy(p) for n, p in params.items()},
             {n: numpy(b) for n, b in model.named_buffers()})
 
 
@@ -190,7 +197,13 @@ def import_tree_state(model: torch.nn.Module, params: Dict[str, Any],
     ``flatten_tree``) into ``model`` in place. Every name must be present
     and no other; every shape is checked before anything is written, so a
     rejected state leaves the model as it was. Values are copied into the
-    existing tensors, on their device and in their dtype."""
+    existing tensors, on their device and in their dtype. Into a model
+    sharded over a tensor axis, the full arrays are cut to this rank's
+    slices (``tensor_parallel.local_slices``) first."""
+    if getattr(model, "_tp_mesh", None) is not None:
+        from bigdl_tpu_torch.parallel.tensor_parallel import local_slices
+        params = local_slices(model, {n: np.asarray(v, np.float32)
+                                      for n, v in params.items()})
     staged = []
     for kind, want, got in (("params", dict(model.named_parameters()), params),
                             ("buffers", dict(model.named_buffers()), buffers)):

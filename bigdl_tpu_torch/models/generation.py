@@ -173,6 +173,7 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
              pad_id: Optional[int] = None,
              repetition_penalty: float = 1.0, min_new_tokens: int = 0,
              num_beams: int = 0, length_penalty: float = 1.0, mesh=None,
+             data_axis: str = "data", tensor_axis: Optional[str] = None,
              rolling_cache: bool = False,
              generator: Optional[torch.Generator] = None,
              device: DeviceLike = "cuda") -> torch.Tensor:
@@ -191,10 +192,26 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
 
     ``rolling_cache=True`` (every attention layer must have a ``window``)
     decodes over ring caches of ``window`` slots instead of ``S +
-    max_new_tokens``; the tokens are the linear cache's."""
+    max_new_tokens``; the tokens are the linear cache's.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank of it calls with the
+    same arguments) decodes distributed: the batch is split over
+    ``data_axis`` (its size must divide it; each data rank decodes its rows
+    and every rank returns the whole batch's tokens, one all-gather), and
+    with ``tensor_axis`` the weights are sharded Megatron-style
+    (``parallel.tensor_parallel.shard_parameters``: each rank its heads,
+    so the KV cache is split by heads too) for the call and made whole
+    again after it. Sampling draws each data rank's rows from its own
+    ``generator``."""
     if mesh is not None:
-        raise NotImplementedError("mesh decoding is not ported yet "
-                                  "(ROADMAP A.4)")
+        return _generate_on_mesh(
+            model, prompt, max_new_tokens, mesh, data_axis, tensor_axis,
+            dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                 greedy=greedy, eos_id=eos_id, pad_id=pad_id,
+                 repetition_penalty=repetition_penalty,
+                 min_new_tokens=min_new_tokens, num_beams=num_beams,
+                 length_penalty=length_penalty, rolling_cache=rolling_cache,
+                 generator=generator, device=device))
     if num_beams > 1 and (top_k or top_p):
         raise ValueError("beam search is deterministic; top_k/top_p do not "
                          "compose with num_beams")
@@ -257,6 +274,59 @@ def generate(model: Module, prompt, max_new_tokens: int, *,
                 m.disable_decode()
             model.train(was_training)
     out = torch.cat([prompt, toks.to(prompt.dtype)], dim=1)
+    return out[0] if squeeze else out
+
+
+def _generate_on_mesh(model, prompt, max_new_tokens, mesh, data_axis,
+                      tensor_axis, kwargs) -> torch.Tensor:
+    """``generate(mesh=...)``: dp-decode over ``data_axis``, tp-decode
+    over ``tensor_axis`` (the reference's checks and errors)."""
+    from bigdl_tpu_torch.nn.attention import TransformerEncoderLayer
+    from bigdl_tpu_torch.parallel import tensor_parallel as tp
+    if tensor_axis is not None and tensor_axis not in mesh.shape:
+        raise ValueError(f"tensor_axis {tensor_axis!r} is not a mesh axis "
+                         f"(mesh has {list(mesh.shape)})")
+    dev = check_module_device(model, kwargs["device"])
+    prompt = torch.as_tensor(prompt, device=dev)
+    squeeze = prompt.dim() == 1
+    if squeeze:
+        prompt = prompt[None]
+    b = prompt.shape[0]
+    if data_axis not in mesh.shape:
+        if tensor_axis is None:
+            raise ValueError(
+                f"mesh has no {data_axis!r} axis (axes: {list(mesh.shape)})"
+                "; pass data_axis=, or tensor_axis= for weight-only "
+                "sharding")
+        n_data, r_data = 1, 0
+    else:
+        n_data = mesh.axis_size(data_axis)
+        r_data = mesh.axis_index(data_axis)
+        if b % n_data:
+            raise ValueError(f"batch {b} is not a multiple of the mesh "
+                             f"'{data_axis}' axis size {n_data}")
+    per = b // n_data
+    rows = prompt[r_data * per:(r_data + 1) * per]
+    sharded_here = (tensor_axis is not None
+                    and getattr(model, "_tp_mesh", None) is not mesh)
+    sp_tags = []
+    if tensor_axis is not None:
+        # decoding runs no sequence-parallel regions
+        for m in model.modules():
+            if isinstance(m, TransformerEncoderLayer) and m._sp is not None:
+                sp_tags.append((m, m._sp))
+                m._sp = None
+        if sharded_here:
+            tp.shard_parameters(model, mesh, tensor_axis)
+    try:
+        out = generate(model, rows, max_new_tokens, **kwargs)
+    finally:
+        if sharded_here:
+            tp.unshard_parameters(model)
+        for m, tag in sp_tags:
+            m._sp = tag
+    if n_data > 1:
+        out = mesh.all_gather(out.contiguous(), data_axis, dim=0)
     return out[0] if squeeze else out
 
 

@@ -20,7 +20,7 @@ from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # the reference's build_lm options that only their defaults may take
 # (nn.attention.NOT_PORTED names the ROADMAP items)
-_NOT_PORTED = ("seq_axis", "seq_mode", "seq_layout", "moe_experts", "moe_k")
+_NOT_PORTED = ("moe_experts", "moe_k")
 
 
 def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
@@ -45,10 +45,13 @@ def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
     ``window`` is sliding-window attention (query i sees keys
     (i - window, i]); ``rope_scaling`` an HF ``rope_scaling`` dict
     (``llama3``, ``linear``, ``yarn``); ``qkv_bias`` biases the q/k/v
-    projections only (Qwen2). The context-parallel and MoE arguments
-    (``seq_axis``, ``seq_mode``, ``seq_layout``, ``moe_experts``,
-    ``moe_k``) raise ``NotImplementedError`` at any non-default value,
-    naming the ROADMAP item that will port them.
+    projections only (Qwen2). ``seq_axis="seq"`` shards every attention
+    layer's sequence over that mesh axis (``seq_mode`` ring or ulysses,
+    ``seq_layout`` contiguous or zigzag; RoPE rotates at the shard's global
+    positions; ``parallel.context.ContextParallelLM`` runs such a model).
+    The MoE arguments (``moe_experts``, ``moe_k``) raise
+    ``NotImplementedError`` at any non-default value, naming the ROADMAP
+    item that will port them.
 
     Parameters are drawn on the CPU from ``seed`` (PyTorch's global
     generator is left as it was) and then moved to ``device``."""
@@ -73,7 +76,9 @@ def lm_modules(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
                bias: bool = True, head_bias: Optional[bool] = None,
                norm_eps: Optional[float] = None, window: Optional[int] = None,
                rope_scaling: Optional[dict] = None,
-               qkv_bias: bool = False) -> Sequential:
+               qkv_bias: bool = False, seq_axis: Optional[str] = None,
+               seq_mode: str = "ring",
+               seq_layout: str = "contiguous") -> Sequential:
     """``build_lm``'s module tree, and the one list of its model options,
     on the current default device, its parameters drawn from PyTorch's
     default generator (the loaders of ``interop/hf.py`` build it on the
@@ -95,7 +100,9 @@ def lm_modules(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
                              norm=norm, num_kv_heads=num_kv_heads,
                              rope_theta=rope_theta, bias=bias, dropout=dropout,
                              norm_eps=norm_eps, window=window,
-                             rope_scaling=rope_scaling, qkv_bias=qkv_bias))
+                             rope_scaling=rope_scaling, qkv_bias=qkv_bias,
+                             seq_axis=seq_axis, seq_mode=seq_mode,
+                             seq_layout=seq_layout))
     hb = bias if head_bias is None else head_bias
     if tie_embeddings:
         m.add(TiedLMHead(embed))

@@ -11,8 +11,13 @@ dropout; incremental decode over a linear KV cache, a rolling ring cache of
 ``window`` slots, and the serving engine's continuous mode with per-row
 positions), and the pre- or post-norm ``TransformerEncoderLayer`` /
 ``TransformerEncoder`` stack with residual dropout and per-block
-recomputation (``remat_blocks``). Context parallelism and
-MoE are later slices (ROADMAP A.4).
+recomputation (``remat_blocks``). ``seq_axis`` shards attention's sequence
+over a mesh axis (ring attention, contiguous or zigzag, or Ulysses:
+``parallel/context.py``), rotating RoPE at the shard's global positions;
+``block_size`` takes the blockwise online-softmax core where kernel K1
+does not run; under ``parallel.tensor_parallel.shard_parameters`` the
+attention runs its local heads and the block its tensor-parallel (and
+sequence-parallel) regions. MoE is a later slice (ROADMAP A.4).
 
 The KV cache is module state (``enable_decode``) that the eager forward
 updates in place; there is no functional-apply layer. Unmasked attention on
@@ -42,12 +47,8 @@ from bigdl_tpu_torch.utils.device import module_device
 _F32_MIN = float(torch.finfo(torch.float32).min)
 
 #: argument -> (its default, the ROADMAP item that will port other values):
-#: the reference's blockwise-attention, context-parallel and MoE options
+#: the reference's MoE options
 NOT_PORTED = {
-    "block_size": (0, "A.4 (distributed plane)"),
-    "seq_axis": (None, "A.4 (distributed plane)"),
-    "seq_mode": ("ring", "A.4 (distributed plane)"),
-    "seq_layout": ("contiguous", "A.4 (distributed plane)"),
     "moe_experts": (0, "A.4 (distributed plane: expert parallelism)"),
     "moe_k": (2, "A.4 (distributed plane: expert parallelism)"),
 }
@@ -304,17 +305,33 @@ class MultiHeadAttention(Module):
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
-        refuse_not_ported("MultiHeadAttention", block_size=block_size,
-                          seq_axis=seq_axis, seq_mode=seq_mode,
-                          seq_layout=seq_layout)
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must divide num_heads")
         if window is not None:
             if not causal:
                 raise ValueError("window (sliding-window attention) "
                                  "requires causal=True")
+            if seq_axis is not None:
+                raise ValueError("sliding-window attention does not "
+                                 "compose with context parallelism yet")
             if window < 1:
                 raise ValueError("window must be >= 1")
+        if seq_axis is not None and seq_layout == "zigzag" \
+                and seq_mode != "ring":
+            raise ValueError("seq_layout='zigzag' is a ring-attention "
+                             "layout; ulysses shards contiguously")
+        if dropout and seq_axis is not None:
+            raise ValueError("attention dropout does not compose with "
+                             "context-parallel attention (the ring/Ulysses "
+                             "cores use online softmax); train with "
+                             "dropout=0 or drop seq_axis")
+        #: 0: the plain core off the card; > 0: the blockwise
+        #: online-softmax core with key blocks of this size
+        self.block_size = block_size
+        #: the mesh axis attention's sequence is sharded over (None: whole)
+        self.seq_axis = seq_axis
+        self.seq_mode = seq_mode
+        self.seq_layout = seq_layout
         self.window = window
         self.num_kv_heads = num_kv_heads or num_heads
         if num_heads % self.num_kv_heads != 0:
@@ -325,6 +342,9 @@ class MultiHeadAttention(Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        # the heads this rank runs (all but under tensor parallelism)
+        self._heads_local = num_heads
+        self._kv_local = self.num_kv_heads
         self.with_bias = with_bias
         self.qkv_bias = qkv_bias
         self.causal = causal
@@ -358,6 +378,18 @@ class MultiHeadAttention(Module):
     #: is replaced instead
     _own_pos = None
 
+    #: the ``parallel.tensor_parallel.TPRole`` of attention sharded by
+    #: heads (``shard_parameters`` sets it)
+    _tp = None
+    #: the ``parallel.mesh.Mesh`` a ``seq_axis`` runs over
+    #: (``parallel.context.ContextParallelLM`` sets it)
+    seq_mesh = None
+
+    def _tp_heads(self, n: int) -> None:
+        """Run ``1/n`` of the q and kv heads (this rank's)."""
+        self._heads_local = self.num_heads // n
+        self._kv_local = self.num_kv_heads // n
+
     def _cache_dtype(self) -> torch.dtype:
         return self.in_proj_weight.dtype
 
@@ -379,13 +411,16 @@ class MultiHeadAttention(Module):
         if rolling and continuous:
             raise ValueError("continuous batching does not compose with "
                              "the rolling ring cache yet")
+        if self.seq_axis is not None:
+            raise ValueError("decode mode is incompatible with "
+                             "context-parallel attention (seq_axis)")
         if rolling and not self.window:
             raise ValueError("rolling cache requires sliding-window "
                              "attention (window=N): an unbounded-context "
                              "model needs every past key")
         dev = module_device(self)
         cache_len = min(self.window, max_len) if rolling else max_len
-        shape = (batch_size, cache_len, self.num_kv_heads, self.head_dim)
+        shape = (batch_size, cache_len, self._kv_local, self.head_dim)
         self.register_buffer("k_cache", torch.zeros(
             shape, dtype=self._cache_dtype(), device=dev), persistent=False)
         self.register_buffer("v_cache", torch.zeros(
@@ -546,11 +581,12 @@ class MultiHeadAttention(Module):
         return x.reshape(b, s, e // self.head_dim, self.head_dim)
 
     def _expand_kv(self, kv):
-        """Repeat kv heads up to num_heads (GQA); identity for full MHA."""
-        n_kv = kv.shape[2]
-        if n_kv == self.num_heads:
+        """Repeat each kv head for its query heads (GQA); identity for full
+        MHA."""
+        group = self.num_heads // self.num_kv_heads
+        if group == 1:
             return kv
-        return torch.repeat_interleave(kv, self.num_heads // n_kv, dim=2)
+        return torch.repeat_interleave(kv, group, dim=2)
 
     def _project(self, x, w, b):
         y = torch.matmul(match_compute(x, w), w.T)
@@ -560,28 +596,37 @@ class MultiHeadAttention(Module):
         """(bq, bk, bv), or Nones when there is no input-projection bias."""
         if not (self.with_bias or self.qkv_bias):
             return None, None, None
-        e, ekv = self.embed_dim, self._e_kv
+        e, ekv = self._local_widths()
         bias = self.in_proj_bias
         return bias[:e], bias[e:e + ekv], bias[e + ekv:]
 
     def _in_projections(self, x):
         """(q, k, v) before the head split; the quantized twin overrides
         this and ``_out_projection`` to run kernel K4 on the int8 rows."""
-        e, ekv = self.embed_dim, self._e_kv
+        e, ekv = self._local_widths()
         w = self.in_proj_weight
         wq, wk, wv = w[:e], w[e:e + ekv], w[e + ekv:]
         bq, bk, bv = self._in_bias()
         return (self._project(x, wq, bq), self._project(x, wk, bk),
                 self._project(x, wv, bv))
 
+    def _local_widths(self):
+        """(q rows, k rows) of this rank's in_proj slice."""
+        return (self._heads_local * self.head_dim,
+                self._kv_local * self.head_dim)
+
     def _out_projection(self, ctx):
         out = torch.matmul(match_compute(ctx, self.out_proj_weight),
                            self.out_proj_weight.T)
+        if self._tp is not None:   # the heads' partial sums, reduced
+            out = self._tp.exit(out)
         if self.with_bias:
             out = out + self.out_proj_bias
         return out
 
     def forward(self, input):
+        if self._tp is not None:
+            input = self._tp.enter(input)
         pq, pk, pv = self._in_projections(input)
         q, k, v = (self._split_heads(pq), self._split_heads(pk),
                    self._split_heads(pv))
@@ -591,6 +636,10 @@ class MultiHeadAttention(Module):
                 pos = self.decode_pos[:, None] + pos[None, :]    # (B, S)
             elif self._decode:
                 pos = pos + self.decode_pos
+            elif self.seq_axis is not None:
+                # this rank holds a shard of the sequence: rotate at its
+                # GLOBAL positions (the long-context Llama recipe)
+                pos = self._shard_positions(q.shape[1], q.device)
             q = rope_rotate(q, pos, self.rope_theta, self.rope_scaling)
             k = rope_rotate(k, pos, self.rope_theta, self.rope_scaling)
         if self._decode:
@@ -598,9 +647,32 @@ class MultiHeadAttention(Module):
         else:
             ctx = self._attend(q, self._expand_kv(k), self._expand_kv(v), None)
         b, s = ctx.shape[:2]
-        return self._out_projection(ctx.reshape(b, s, self.embed_dim))
+        return self._out_projection(ctx.reshape(b, s, -1))
+
+    def _shard_positions(self, chunk: int, device) -> torch.Tensor:
+        """The global positions of this rank's sequence shard: contiguous
+        chunk ``i``, or zigzag chunks ``(i, 2P-1-i)``."""
+        from bigdl_tpu_torch.parallel import context
+        mesh = context._mesh(self.seq_mesh)
+        idx, p = mesh.axis_index(self.seq_axis), mesh.axis_size(self.seq_axis)
+        if self.seq_layout == "zigzag":
+            return context.zigzag_positions(idx, chunk, p, device)
+        return idx * chunk + torch.arange(chunk, device=device)
 
     def _attend(self, q, k, v, mask):
+        if self.seq_axis is not None:
+            from bigdl_tpu_torch.parallel import context
+            if mask is not None:
+                raise ValueError("context-parallel attention supports "
+                                 "causal masking only")
+            if self.seq_mode == "ring":
+                return context.ring_attention(
+                    q, k, v, axis_name=self.seq_axis, causal=self.causal,
+                    layout=self.seq_layout, mesh=self.seq_mesh)
+            return context.ulysses_attention(q, k, v,
+                                             axis_name=self.seq_axis,
+                                             causal=self.causal,
+                                             mesh=self.seq_mesh)
         if self.window:
             # banded causal: query i sees keys (i - window, i]. The band
             # rides the mask, which keeps kernel K1 out (as the reference's
@@ -618,6 +690,10 @@ class MultiHeadAttention(Module):
             return flash_attention.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 causal=self.causal)
+        if self.block_size:
+            return attention_core.blockwise_attention(
+                q, k, v, mask=mask, causal=self.causal,
+                block_size=self.block_size)
         return attention_core.dot_product_attention(q, k, v, mask=mask,
                                                     causal=self.causal)
 
@@ -648,18 +724,24 @@ class TransformerEncoderLayer(Module):
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
-        refuse_not_ported("TransformerEncoderLayer", block_size=block_size,
-                          seq_axis=seq_axis, seq_mode=seq_mode,
-                          seq_layout=seq_layout, moe_experts=moe_experts,
+        refuse_not_ported("TransformerEncoderLayer", moe_experts=moe_experts,
                           moe_k=moe_k)
         if activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}: one of "
                              f"{sorted(_ACTIVATIONS)}")
         self.activation = activation
         self.pre_norm = pre_norm
+        if seq_axis and dropout > 0.0:
+            import warnings
+            warnings.warn(
+                "TransformerEncoderLayer: attention-prob dropout is "
+                f"disabled under context parallelism (seq_axis={seq_axis!r}"
+                "); residual/FFN dropout still applies", stacklevel=2)
         self.self_attn = MultiHeadAttention(
             embed_dim, num_heads, with_bias=bias, causal=causal, rope=rope,
-            num_kv_heads=num_kv_heads, rope_theta=rope_theta, dropout=dropout,
+            num_kv_heads=num_kv_heads, rope_theta=rope_theta,
+            dropout=0.0 if seq_axis else dropout, block_size=block_size,
+            seq_axis=seq_axis, seq_mode=seq_mode, seq_layout=seq_layout,
             window=window, rope_scaling=rope_scaling, qkv_bias=qkv_bias)
         self.drop = Dropout(dropout)
         self.linear1 = Linear(embed_dim, ffn_dim, with_bias=bias)
@@ -669,17 +751,58 @@ class TransformerEncoderLayer(Module):
         self.norm1 = _norm(norm, embed_dim, norm_eps)
         self.norm2 = _norm(norm, embed_dim, norm_eps)
 
+    #: ``parallel.tensor_parallel.enable_sequence_parallel``'s tag: the
+    #: residual stream runs on this rank's sequence block between regions
+    _sp = None
+
     def _ffn(self, x):
+        tp = self.linear2._tp
+        if tp is not None:   # one region entry for up and gate
+            x = tp.enter(x)
         if self.activation == "swiglu":
             return self.linear2(F.silu(self.linear1(x)) * self.linear_gate(x))
         return self.linear2(_ACTIVATIONS[self.activation](self.linear1(x)))
 
     def forward(self, input):
+        """The block; under sequence-parallel regions a whole input is
+        split into this rank's sequence block and the output gathered
+        (``TransformerEncoder`` keeps the stream split between blocks)."""
+        if self._sp is None:
+            return self.block(input)
+        from bigdl_tpu_torch.parallel.tensor_parallel import (gather,
+                                                              sp_constrain)
+        mesh, axis, seq_dim = self._sp[:3]
+        return gather(self.block(sp_constrain(input, self._sp)), mesh, axis,
+                      seq_dim)
+
+    def block(self, input):
+        """The block on the stream as it comes (whole, or this rank's
+        sequence block under sequence-parallel regions)."""
         if self.pre_norm:
             x = input + self.drop(self.self_attn(self.norm1(input)))
             return x + self.drop(self._ffn(self.norm2(x)))
         x = self.norm1(input + self.drop(self.self_attn(input)))
         return self.norm2(x + self.drop(self._ffn(x)))
+
+
+class _StreamBlock(torch.nn.Module):
+    """A block's ``block`` (the stream as it comes) as a module's forward,
+    for ``remat.checkpoint_module``; one a block, kept outside its
+    children."""
+
+    def __init__(self, layer):
+        super().__init__()
+        self.layer = layer
+
+    def forward(self, x):
+        return self.layer.block(x)
+
+    @staticmethod
+    def of(layer) -> "_StreamBlock":
+        run = layer.__dict__.get("_stream_block")
+        if run is None:
+            run = layer.__dict__["_stream_block"] = _StreamBlock(layer)
+        return run
 
 
 _ACTIVATIONS = {
@@ -722,24 +845,39 @@ class TransformerEncoder(Module):
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
-        refuse_not_ported("TransformerEncoder", block_size=block_size,
-                          seq_axis=seq_axis, seq_mode=seq_mode,
-                          seq_layout=seq_layout, moe_experts=moe_experts,
+        refuse_not_ported("TransformerEncoder", moe_experts=moe_experts,
                           moe_k=moe_k)
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerEncoderLayer(
                 embed_dim, num_heads, ffn_dim, activation=activation,
-                causal=causal, rope=rope, norm=norm,
+                causal=causal, rope=rope, norm=norm, block_size=block_size,
+                seq_axis=seq_axis, seq_mode=seq_mode, seq_layout=seq_layout,
                 num_kv_heads=num_kv_heads, rope_theta=rope_theta, bias=bias,
                 dropout=dropout, pre_norm=pre_norm, norm_eps=norm_eps,
                 window=window, rope_scaling=rope_scaling, qkv_bias=qkv_bias))
         self.final_norm = _norm(norm, embed_dim, norm_eps) if pre_norm else None
 
     def forward(self, input):
+        """The stack. Under sequence-parallel regions (every block tagged)
+        the stream is split into this rank's sequence block once at the
+        entry and gathered once after the final norm."""
+        layers = [self._modules[f"layer{i}"] for i in range(self.num_layers)]
+        sp = layers[0]._sp if layers else None
+        if sp is not None and any(l._sp is None for l in layers):
+            raise ValueError("sequence-parallel regions need every block "
+                             "of the stack tagged")
         x = input
+        if sp is not None:
+            from bigdl_tpu_torch.parallel.tensor_parallel import sp_constrain
+            x = sp_constrain(x, sp)
         ckpt = self.remat_blocks and self.training
-        for i in range(self.num_layers):
-            layer = self._modules[f"layer{i}"]
-            x = remat.checkpoint_module(layer, x) if ckpt else layer(x)
-        return x if self.final_norm is None else self.final_norm(x)
+        for layer in layers:
+            run = _StreamBlock.of(layer) if sp is not None else layer
+            x = remat.checkpoint_module(run, x) if ckpt else run(x)
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        if sp is not None:
+            from bigdl_tpu_torch.parallel.tensor_parallel import gather
+            x = gather(x, sp[0], sp[1], sp[2])
+        return x

@@ -50,7 +50,16 @@ class Linear(TensorModule):
                 "bias", _uniform((output_size,), input_size, generator),
                 b_regularizer)
 
+    #: the ``parallel.tensor_parallel.TPRole`` of a sharded Linear
+    #: (``shard_parameters`` sets it): the forward then meets the other
+    #: ranks of its tensor axis
+    _tp = None
+
     def forward(self, input):
+        if self._tp is not None:
+            from bigdl_tpu_torch.parallel.tensor_parallel import \
+                linear_forward
+            return linear_forward(self, input, self._tp)
         y = torch.matmul(match_compute(input, self.weight), self.weight.T)
         if self.with_bias:
             y = y + self.bias
@@ -131,6 +140,10 @@ class LookupTable(TensorModule):
                               0.0, out)
         return out
 
+    #: the ``TPRole`` of a table sharded on its embedding dim: the looked-up
+    #: slices are gathered into whole rows
+    _tp = None
+
     def forward(self, input):
         w = self.weight
         if self.max_norm != float("inf"):
@@ -138,7 +151,20 @@ class LookupTable(TensorModule):
                                              keepdim=True)
             w = torch.where(norms > self.max_norm,
                             w * (self.max_norm / norms), w)
-        return self._pad(input, w[self._ids(input)])
+        out = self._pad(input, w[self._ids(input)])
+        if self._tp is not None:
+            from bigdl_tpu_torch.parallel.tensor_parallel import gather
+            out = gather(out, self._tp.mesh, self._tp.axis, -1)
+        return out
+
+    def full_weight(self, weight=None):
+        """The whole (n_index, n_output) table: the weight, gathered over
+        the tensor axis when the table is sharded (``TiedLMHead``)."""
+        w = self.weight if weight is None else weight
+        if self._tp is None:
+            return w
+        from bigdl_tpu_torch.parallel.tensor_parallel import gather
+        return gather(w, self._tp.mesh, self._tp.axis, -1)
 
 
 class _VocabHead(Module):
@@ -209,7 +235,22 @@ class TiedLMHead(_VocabHead):
         object.__setattr__(self, "embed_ref", embed)
 
     def forward(self, input):
-        w = self.embed_ref.weight
+        tp = self.embed_ref._tp
+        if tp is not None and not self.training:
+            x = self._last(input)
+            if x.numel() // x.shape[-1] < self.embed_ref.n_output:
+                # fewer rows than embedding features (a decode step): the
+                # partial products over this rank's features, all-reduced,
+                # move less than the table
+                r = tp.mesh.axis_index(tp.axis)
+                w = self.embed_ref.weight
+                xs = x.narrow(-1, r * w.shape[1], w.shape[1])
+                y = torch.matmul(match_compute(xs, w), w.T)
+                y = tp.mesh.all_reduce(y.contiguous(), axis=tp.axis)
+                return torch.log_softmax(y, dim=-1)
+        # a table sharded over a tensor axis is gathered whole (the
+        # module docstring of parallel/tensor_parallel.py has its cost)
+        w = self.embed_ref.full_weight()
         if self.training:
             return input, w
         input = self._last(input)

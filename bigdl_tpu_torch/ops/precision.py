@@ -1,5 +1,5 @@
 """Mixed-precision helpers (counterpart of ``bigdl_tpu/ops/precision.py``:
-``match_compute`` and ``DtypePolicy`` are ported).
+``match_compute``, ``DtypePolicy`` and ``cast_tree`` are ported).
 
 Policy: the master parameters stay f32 and the optimizer updates them;
 under ``DtypePolicy.bf16()`` the training forward and backward run on bf16
@@ -56,3 +56,15 @@ class DtypePolicy:
             return dict(params)
         return {name: p.to(self.compute_dtype) if p.is_floating_point() else p
                 for name, p in params.items()}
+
+
+def cast_tree(tree, dtype):
+    """Every floating tensor leaf of a nested dict, list or tuple cast to
+    ``dtype``; any other leaf kept (reference ``cast_tree``)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

@@ -106,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -873,6 +874,11 @@ class LocalOptimizer(Optimizer):
         """The loss a step reports."""
         return loss
 
+    def _epoch_limit(self) -> Optional[int]:
+        """The iterations the next epoch may take (None: all its
+        batches); asked before the epoch's first batch is read."""
+        return None
+
     def _checkpoint_trees(self, opt_state: Dict):
         """(model tree, optim tree) a snapshot writes."""
         model = self.model
@@ -1226,8 +1232,10 @@ class LocalOptimizer(Optimizer):
                 epoch_records = epoch_batches = 0
                 data_wait = 0.0
                 t_data = time.time()
-                batches = iter(self.dataset.data(train=True))
-                self._live_data_iter = batches
+                limit = self._epoch_limit()
+                self._live_data_iter = iter(self.dataset.data(train=True))
+                batches = (self._live_data_iter if limit is None else
+                           itertools.islice(self._live_data_iter, limit))
                 if (resume_cursor is not None
                         and int(resume_cursor.get("epoch", -1)) == epoch):
                     # past the batches the snapshot's epoch trained on

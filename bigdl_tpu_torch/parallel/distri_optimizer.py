@@ -48,26 +48,51 @@ all-gather. The RESUME marker's ``mesh`` records the process and device
 counts, the mesh shape and the sync mode; a preemption notice is agreed
 every ``BIGDL_PREEMPT_SYNC_EVERY`` steps (default 10) by an all-reduce of
 the ranks' flags, so every rank snapshots at the same step. Dropout masks
-draw from generators seeded by (seed, rank): each rank its own masks,
+draw from generators seeded by (seed, data rank): each rank its own masks,
 where the reference draws one global mask.
+
+Epochs: ranks may hold unequal shares of a distributed dataset
+(``data[p::n]``); at each epoch's start the ranks agree its iterations by
+one all-reduce (min) of their batch counts (``dataset.base.epoch_batches``)
+and each ends the epoch there. A dataset that cannot count its batches is
+refused before the first step (ROADMAP C.8).
+
+Tensor parallelism (``topology=MeshTopology(data=d, tensor=t)``, the
+``"allreduce"`` mode): the model is sharded by
+``tensor_parallel.shard_parameters`` (each rank its slices, the Megatron
+regions' collectives inside the forward), a ``DistributedDataSet`` deals
+its records by DATA rank (the tensor ranks of one data coordinate train
+the same rows), the gradients are averaged over the data axis only, a
+replicated leaf inside a sequence-parallel region has its gradient summed
+over the tensor axis first, and the L2 clip adds the tensor-sharded
+leaves' squares over the tensor axis. The optim state is shaped like the
+local slices (``opt_state_specs``). Snapshots hold the full leaves,
+reassembled over the tensor axis (so a tp=2 snapshot resumes at tp=1),
+written by process 0; a resume takes this rank's slices.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 from typing import Callable, Dict, List, Optional
 
 import torch
 
+from bigdl_tpu_torch.dataset.base import DistributedDataSet, epoch_batches
 from bigdl_tpu_torch.dataset.device_cache import DeviceCachedDataSet
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.ops.batch_norm import synchronized
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Tensors,
                                              _load_into, _tensors)
 from bigdl_tpu_torch.parallel.fsdp import shard_dim
-from bigdl_tpu_torch.parallel.mesh import MeshTopology, split_sizes
+from bigdl_tpu_torch.parallel.mesh import (MODEL_PARALLEL, SEQUENCE_AXIS,
+                                           TENSOR_AXIS, MeshTopology,
+                                           split_sizes)
 from bigdl_tpu_torch.utils import sharded_checkpoint as sckpt
+
+logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 SYNC_MODES = ("allreduce", "sharded", "fsdp")
 
@@ -135,6 +160,30 @@ class DistriOptimizer(LocalOptimizer):
                 and self.mesh.device.index != self.device.index):
             raise ValueError(f"this rank's mesh device is {self.mesh.device} "
                              f"but the model is on {self.device}")
+        if self.mesh.axis_size(SEQUENCE_AXIS) > 1:
+            raise ValueError("DistriOptimizer trains over the data and "
+                             "tensor axes; a seq axis trains through "
+                             "apps.transformer --contextParallel")
+        self._tp = self.mesh.axis_size(TENSOR_AXIS) > 1
+        if self._tp:
+            if sync_mode == "sharded":
+                raise ValueError("sync_mode='sharded' does not compose with "
+                                 "a tensor axis (the ZeRO-1 flat vector is "
+                                 "data-axis-only): use 'allreduce'")
+            if sync_mode == "fsdp":
+                raise NotImplementedError(
+                    "sync_mode='fsdp' over a tensor axis is not ported yet: "
+                    f"ROADMAP {MODEL_PARALLEL}; use 'allreduce'")
+            from bigdl_tpu_torch.parallel.tensor_parallel import \
+                shard_parameters
+            shard_parameters(model, self.mesh)
+        if self.mesh.world != self.mesh.size:
+            root = dataset
+            while not isinstance(root, DistributedDataSet) and hasattr(
+                    root, "base"):
+                root = root.base
+            if isinstance(root, DistributedDataSet):
+                root.shard_by_data_rank(self.mesh.rank, self.mesh.size)
         if isinstance(dataset, DeviceCachedDataSet):
             dataset.set_mesh(self.mesh)
         self._full: Dict[str, int] = {}      # fsdp: sharded leaf -> dim
@@ -150,8 +199,8 @@ class DistriOptimizer(LocalOptimizer):
         return f"mesh-{self.sync_mode}"
 
     def _mesh_descriptor(self):
-        return {"process_count": self.mesh.size,
-                "device_count": self.mesh.size,
+        return {"process_count": self.mesh.world,
+                "device_count": self.mesh.world,
                 "mesh_shape": dict(self.mesh.shape),
                 "sync_mode": self.sync_mode}
 
@@ -307,10 +356,12 @@ class DistriOptimizer(LocalOptimizer):
 
     @torch.no_grad()
     def _clip_global(self, grads: Tensors, sharded: List[str],
-                     mask: Optional[torch.Tensor] = None) -> None:
+                     mask: Optional[torch.Tensor] = None,
+                     axis: str = "data") -> None:
         """The clip setting over a gradient whose ``sharded`` entries are
-        this rank's slices of the global one (their squared norms are
-        all-reduced) and whose other entries are whole on every rank."""
+        this rank's slices of the global one along ``axis`` (their squared
+        norms are all-reduced over it) and whose other entries are whole on
+        every rank."""
         const = self._grad_clip.get("constant")
         max_norm = self._grad_clip.get("l2")
         if const is not None:
@@ -324,7 +375,7 @@ class DistriOptimizer(LocalOptimizer):
         part = torch.zeros(1, dtype=torch.float32, device=self.device)
         for name in sharded:
             part += grads[name].float().square().sum()
-        gn_sq = self.mesh.all_reduce(part)[0]
+        gn_sq = self.mesh.all_reduce(part, axis=axis)[0]
         for name, g in grads.items():
             if name not in sharded:
                 gn_sq = gn_sq + g.float().square().sum()
@@ -333,15 +384,62 @@ class DistriOptimizer(LocalOptimizer):
         for g in grads.values():
             g.copy_(g * scale)
 
+    def _epoch_limit(self) -> Optional[int]:
+        """The iterations the data ranks agree for the epoch (C.8)."""
+        if self.mesh.size <= 1:
+            return None
+        mine = epoch_batches(self.dataset)
+        if mine is None:
+            raise ValueError(
+                f"{type(self.dataset).__name__} cannot count its batches, so "
+                "the data ranks cannot agree an epoch's iterations (ROADMAP "
+                "C.8: ranks with unequal shares fall out of step); give the "
+                "dataset a batches_per_epoch() method or batch it with "
+                "SampleToBatch")
+        count = torch.tensor([float(mine)], device=self.mesh.device)
+        agreed = int(self.mesh.all_reduce(count, op="min")[0])
+        if agreed < mine:
+            logger.info("[Epoch] this rank holds %d batches; the ranks "
+                        "agree on %d", mine, agreed)
+        return agreed
+
+    def _tp_sharded(self) -> List[str]:
+        """Parameters whose leaves are this rank's tensor-axis slices."""
+        specs = getattr(self.model, "_tp_specs", {})
+        return [n for n in self._params if TENSOR_AXIS in specs.get(n, ())]
+
+    def _sum_sp_partials(self, grads: Tensors) -> None:
+        """Sum, over the tensor axis, the gradients a rank holds only for
+        its sequence block (the replicated leaves of sequence-parallel
+        regions), in one flat all-reduce."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import \
+            sp_partial_params
+        names = [n for n in sp_partial_params(self.model) if n in grads]
+        if not names:
+            return
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        self.mesh.all_reduce(flat, axis=TENSOR_AXIS)
+        off = 0
+        for n in names:
+            k = grads[n].numel()
+            grads[n] = flat[off:off + k].view(grads[n].shape)
+            off += k
+
     @torch.no_grad()
     def _apply_grads(self, grads: Tensors, opt_state: Dict, params: Tensors,
                      clip: Callable, scalars=None) -> None:
         mode = self._mode()
         if mode == "allreduce":
+            if self._tp:
+                grads = dict(grads)
+                self._sum_sp_partials(grads)
             names = list(grads)
             reduced = self._all_reduce_mean([grads[k] for k in names])
-            grads = clip({k: self._compress(g)
-                          for k, g in zip(names, reduced)})
+            grads = {k: self._compress(g) for k, g in zip(names, reduced)}
+            if self._tp:
+                self._clip_global(grads, self._tp_sharded(), axis=TENSOR_AXIS)
+            else:
+                grads = clip(grads)
             self._update(grads, opt_state, params, scalars)
         else:
             if mode == "sharded":
@@ -428,11 +526,12 @@ class DistriOptimizer(LocalOptimizer):
         if neval % every:
             return False
         flag = torch.tensor([1.0 if local else 0.0], device=self.mesh.device)
-        return bool(self.mesh.all_reduce(flag, op="max")[0] > 0)
+        axis = "data" if self.mesh.world == self.mesh.size else "world"
+        return bool(self.mesh.all_reduce(flag, op="max", axis=axis)[0] > 0)
 
     # --------------------------------------------------------- snapshots
     def _writes_checkpoint(self) -> bool:
-        return self.mesh.rank == 0
+        return self.mesh.process_rank == 0
 
     def _barrier(self) -> None:
         self.mesh.barrier()
@@ -456,8 +555,29 @@ class DistriOptimizer(LocalOptimizer):
             return _map_tensors(opt_state, full)
         return opt_state
 
+    def _tp_full_state(self, opt_state: Dict) -> Dict:
+        """The optim state's tensor-axis slices reassembled (collective)."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
+        sharded = set(self._tp_sharded())
+
+        def full(path, t):
+            name = path[-1] if path else None
+            if name in sharded and t.shape == self._params[name].shape:
+                return gather_full(self.model, {name: t.detach()},
+                                   self.mesh)[name]
+            return t
+        return _map_tensors(opt_state, full)
+
     def _checkpoint_trees(self, opt_state: Dict):
         mode = self._mode()
+        if self._tp:   # full leaves, whole on every rank
+            from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
+            params = gather_full(self.model, {
+                n: p.detach() for n, p in self.model.named_parameters()},
+                self.mesh)
+            return ({"params": params,
+                     "buffers": dict(self.model.named_buffers())},
+                    self._tp_full_state(opt_state))
         if not self._ckpt_sharded:
             if not self._full:
                 return super()._checkpoint_trees(self._full_state(opt_state))
@@ -490,6 +610,25 @@ class DistriOptimizer(LocalOptimizer):
                  "buffers": dict(self.model.named_buffers())}, state)
 
     def _resume_state(self, resume, opt_state, driver_state):
+        if self._tp:   # load the full leaves, then keep this rank's slices
+            from bigdl_tpu_torch.parallel.tensor_parallel import (
+                gather_full, local_slices)
+            named = dict(self.model.named_parameters())
+            full = gather_full(self.model, {n: p.detach()
+                                            for n, p in named.items()},
+                               self.mesh)
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.data = full[n].clone()
+            try:
+                return super()._resume_state(resume, opt_state, driver_state)
+            finally:
+                mine = local_slices(self.model, {n: p.detach()
+                                                 for n, p in named.items()},
+                                    self.mesh)
+                with torch.no_grad():
+                    for n, p in named.items():
+                        p.data = mine[n].contiguous()
         if self.sync_mode == "sharded":
             model_path = (resume.model_path if hasattr(resume, "model_path")
                           else resume[0])
@@ -506,7 +645,17 @@ class DistriOptimizer(LocalOptimizer):
     def _load_opt_state(self, opt_state: Dict, loaded: Dict) -> None:
         """A full-shaped state (any world size's) as this rank's part."""
         n, r = self.mesh.size, self.mesh.rank
-        if self.sync_mode == "sharded":
+        if self._tp:
+            from bigdl_tpu_torch.parallel.tensor_parallel import local_slices
+            sharded = set(self._tp_sharded())
+
+            def mine(path, t):
+                name = path[-1] if path else None
+                if name in sharded and t.shape != self._params[name].shape:
+                    return local_slices(self.model, {name: t},
+                                        self.mesh)[name]
+                return t
+        elif self.sync_mode == "sharded":
             padded = self._flat.numel()
             lo = r * self._chunk
 

@@ -9,8 +9,10 @@ divides by it; any other leaf stays replicated. A spec is a tuple as the
 reference's ``PartitionSpec`` reads: ``()`` replicated, ``(None, "data")``
 sharded on dim 1. ``DistriOptimizer(sync_mode="fsdp")`` keeps each
 sharded leaf and its optimizer state as this rank's slab of that
-dimension. Composing with a tensor axis (``base_specs``) is the next
-slice's: ROADMAP A.4 (distributed plane: model-parallel axes).
+dimension. ``base_specs`` (fsdp x tp): a spec tree from
+``tensor_parallel.infer_param_specs`` whose tensor-axis entries are kept,
+the data axis landing on a dimension the base spec leaves free, as the
+reference's.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
-from bigdl_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_PARALLEL
+from bigdl_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 def shard_dim(shape: Tuple[int, ...], n_dev: int) -> Optional[int]:
@@ -40,23 +42,49 @@ def _spec(leaf, n_dev: int, axis: str) -> Tuple:
     return () if d is None else tuple([None] * d + [axis])
 
 
+def _composed(leaf, base: Tuple, n_dev: int, axis: str) -> Tuple:
+    """``base``'s entries with ``axis`` on the canonical output dim when it
+    is free and divisible, else the first free divisible dim (the base
+    alone when none is)."""
+    shape = tuple(np.shape(leaf)) if not hasattr(leaf, "shape") \
+        else tuple(leaf.shape)
+    if not shape:
+        return base
+    entries = list(base) + [None] * (len(shape) - len(base))
+    canonical = 0 if len(shape) <= 2 else len(shape) - 1
+    for d in [canonical] + [i for i in range(len(shape)) if i != canonical]:
+        if entries[d] is None and shape[d] >= n_dev and shape[d] % n_dev == 0:
+            entries[d] = axis
+            return tuple(entries)
+    return base
+
+
 def fsdp_param_specs(params: Any, n_dev: int, axis: str = DATA_AXIS,
                      base_specs: Any = None) -> Any:
     """A spec tree matching ``params`` (nested dicts, lists and tuples of
-    tensors or arrays); see the module docstring."""
-    if base_specs is not None:
-        raise NotImplementedError(
-            f"fsdp over a tensor axis is not ported yet: ROADMAP "
-            f"{MODEL_PARALLEL}")
+    tensors or arrays); see the module docstring. ``base_specs`` has the
+    structure of ``params`` (a leaf it lacks: replicated)."""
+    def base_of(path):
+        if base_specs is None:
+            return None
+        node = base_specs
+        for key in path:
+            node = node.get(key, ()) if isinstance(node, dict) else node[key]
+        return node
 
-    def walk(tree):
+    def walk(tree, path):
         if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v) for v in tree)
-        return _spec(tree, n_dev, axis)
+            return type(tree)(walk(v, path + (i,))
+                              for i, v in enumerate(tree))
+        base = base_of(path)
+        if base is None:
+            return _spec(tree, n_dev, axis)
+        return _composed(tree, base, n_dev, axis)
 
-    return walk(params)
+    return walk(params, ())
+
 
 
 def _leaves(tree):

@@ -1,25 +1,35 @@
 """Mesh topology (counterpart of ``bigdl_tpu/parallel/mesh.py``) and the
 port's collectives.
 
-The reference's ``MeshTopology(data=N)`` is N devices in one process (XLA
-SPMD). The port's is N processes, one card each (or the CPU), in the
-default ``torch.distributed`` process group: ``build()`` returns a
-``Mesh``, the group with its size, this process's rank and its device.
-Only the ``data`` axis is ported; a ``tensor``, ``pipeline``, ``sequence``
-or ``expert`` axis above 1 raises ``NotImplementedError`` naming
-``MODEL_PARALLEL``. Without a process group a mesh of one is local: every
-collective is then the identity.
+The reference's ``MeshTopology(data=, tensor=, sequence=)`` is devices in
+one process (XLA SPMD). The port's is processes, one card each (or the
+CPU), in the default ``torch.distributed`` process group: ``build()``
+returns a ``Mesh``, this process's view of the group. Process ranks lay
+out over the axes in ``_CANONICAL_ORDER`` with the tensor axis innermost,
+as the reference orders its devices, and each axis above 1 gets its own
+sub-group (``torch.distributed.new_group``): rank r's coordinate on an
+axis is its index among the ranks that share its other coordinates. The
+``pipeline`` and ``expert`` axes above 1 raise ``NotImplementedError``
+naming ``MODEL_PARALLEL``. Without a process group a mesh of one is
+local: every collective is then the identity.
 
-``Mesh``'s collectives (``all_reduce``, ``reduce_scatter``,
-``all_gather``, ``broadcast``, ``all_gather_object``) are
-``torch.distributed``'s, counted per call in ``COLLECTIVES`` (calls,
-payload bytes and host seconds, by op), which ``chip_smoke.py`` holds to
-each sync mode's structure; with ``COLLECTIVES.sync_timing`` a CUDA
-tensor's stream is synchronized before and after each call, so that the
-seconds are the collective's alone (for measurement only). Gloo takes
-CUDA tensors in every op used here (f32 and bf16, torch 2.11 on an H100:
-PERF.md §6), so no collective is staged through the host; gloo copies
-through the host itself.
+``Mesh.size`` and ``Mesh.rank`` are the DATA axis's size and this
+process's coordinate on it (what the data plane divides batches and
+optimizer slices by); ``world`` and ``process_rank`` are the group's.
+The collectives take an ``axis`` (default ``"data"``): ``all_reduce``,
+``reduce_scatter`` and ``all_gather`` (flat, or along a ``dim``),
+``all_to_all``, and ``shift`` (send to the next rank of the axis's ring,
+receive from the previous one); ``broadcast``, ``all_gather_object`` and
+``barrier`` span the whole group. Each is counted in ``COLLECTIVES``
+(calls, payload bytes and host seconds by op, and calls by ``op/axis``),
+which ``chip_smoke.py`` holds to each path's structure; with
+``COLLECTIVES.sync_timing`` a CUDA tensor's stream is synchronized before
+and after each call, so that the seconds are the collective's alone (for
+measurement only). Gloo takes CUDA tensors in all-reduce, reduce-scatter,
+all-gather, broadcast and all-to-all (f32 and bf16, torch 2.11 on an
+H100: PERF.md §6) and copies them through the host itself; it refuses
+them in send/recv, so ``shift`` stages a CUDA tensor through pinned host
+memory, counted as ``shift_staged``.
 """
 
 from __future__ import annotations
@@ -44,16 +54,19 @@ _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQUENCE_AXIS,
 MODEL_PARALLEL = "A.4 (distributed plane: model-parallel axes)"
 
 class _Counts:
-    """Calls, payload bytes and host seconds per collective op."""
+    """Calls, payload bytes and host seconds per collective op, and calls
+    per ``op/axis``."""
 
     def __init__(self) -> None:
         self.calls: Dict[str, int] = collections.Counter()
         self.bytes: Dict[str, int] = collections.Counter()
         self.seconds: Dict[str, float] = collections.Counter()
+        self.by_axis: Dict[str, int] = collections.Counter()
         self.sync_timing = False
 
     @contextlib.contextmanager
-    def count(self, op: str, nbytes: int, t: torch.Tensor = None):
+    def count(self, op: str, nbytes: int, t: torch.Tensor = None,
+              axis: str = DATA_AXIS):
         """Count the collective run inside the block."""
         sync = self.sync_timing and t is not None and t.is_cuda
         if sync:
@@ -65,101 +78,242 @@ class _Counts:
         self.calls[op] += 1
         self.bytes[op] += int(nbytes)
         self.seconds[op] += time.perf_counter() - t0
+        self.by_axis[f"{op}/{axis}"] += 1
 
     def reset(self) -> None:
         self.calls.clear()
         self.bytes.clear()
         self.seconds.clear()
+        self.by_axis.clear()
 
     def snapshot(self) -> Dict[str, Dict]:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
-                "seconds": dict(self.seconds)}
+                "seconds": dict(self.seconds), "by_axis": dict(self.by_axis)}
 
 
 #: every collective a ``Mesh`` ran in this process
 COLLECTIVES = _Counts()
 
-
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _coords(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
+    """A process rank's coordinate on every axis (tensor innermost)."""
+    out = {}
+    for a in reversed(_CANONICAL_ORDER):
+        out[a] = rank % sizes[a]
+        rank //= sizes[a]
+    return out
+
+
+def axis_ranks(sizes: Dict[str, int], axis: str) -> List[List[int]]:
+    """Every group of process ranks along ``axis``: ranks sharing their
+    other coordinates, each group ordered by its coordinate on ``axis``."""
+    world = 1
+    for v in sizes.values():
+        world *= v
+    groups: Dict[tuple, List[int]] = {}
+    for r in range(world):
+        c = _coords(r, sizes)
+        key = tuple(c[a] for a in _CANONICAL_ORDER if a != axis)
+        groups.setdefault(key, []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
 class Mesh:
-    """A data-parallel mesh: the ``size`` processes of the default group
-    (with ``backend``; None: no group, a local mesh of one), this
-    process's ``rank`` and ``device``. ``shape`` is ``{"data": size}`` as
-    the reference's ``mesh.shape``."""
+    """This process's view of a mesh: the axes' sizes (``sizes``; a bare
+    ``Mesh(size, rank, device, backend)`` is a data mesh of ``size``),
+    its rank in the group, its device, the group's ``backend`` (None: no
+    group, a local mesh) and each wide axis's sub-group. ``shape`` is the
+    reference's ``mesh.shape``: the axes above 1 in canonical order
+    (``{"data": 1}`` when none is)."""
 
     def __init__(self, size: int, rank: int, device: torch.device,
-                 backend: Optional[str]):
-        self.size = int(size)
-        self.rank = int(rank)
+                 backend: Optional[str], sizes: Optional[Dict[str, int]] = None,
+                 groups: Optional[Dict[str, object]] = None):
+        if sizes is None:
+            sizes = {DATA_AXIS: int(size)}
+        self.sizes = {a: int(sizes.get(a, 1)) for a in _CANONICAL_ORDER}
+        self.world = 1
+        for v in self.sizes.values():
+            self.world *= v
+        self.process_rank = int(rank)
+        self.coords = _coords(self.process_rank, self.sizes)
         self.device = torch.device(device)
         self.backend = backend
-        self.shape = {DATA_AXIS: self.size}
+        self._groups = dict(groups or {})
+        self.shape = ({a: self.sizes[a] for a in _CANONICAL_ORDER
+                       if self.sizes[a] > 1} or {DATA_AXIS: 1})
+        # the data plane's size and coordinate
+        self.size = self.sizes[DATA_AXIS]
+        self.rank = self.coords[DATA_AXIS]
 
     @property
     def distributed(self) -> bool:
         return self.backend is not None
 
+    def axis_size(self, axis: str) -> int:
+        """The ranks along ``axis`` (``"world"``: every process)."""
+        return self.world if axis == "world" else self.sizes[axis]
+
+    def axis_index(self, axis: str) -> int:
+        return self.process_rank if axis == "world" else self.coords[axis]
+
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.size}, rank={self.rank}, "
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return (f"Mesh({axes}, rank={self.process_rank}, "
                 f"device={self.device}, backend={self.backend})")
 
+    def __deepcopy__(self, memo) -> "Mesh":
+        # a process's handle on its groups: a copied module shares it
+        return self
+
+    def _group(self, axis: str):
+        """(whether ``axis`` has more than one rank here, its group: None
+        for the whole default group)."""
+        if not self.distributed or self.axis_size(axis) <= 1:
+            return False, None
+        return True, self._groups.get(axis)
+
+    def _peer(self, axis: str, coord: int) -> int:
+        """The process rank at ``coord`` on ``axis``, this rank's other
+        coordinates kept."""
+        c = dict(self.coords, **{axis: coord % self.sizes[axis]})
+        r = 0
+        for a in _CANONICAL_ORDER:
+            r = r * self.sizes[a] + c[a]
+        return r
+
     # -------------------------------------------------------- collectives
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over the mesh in place (``"sum"``, ``"max"``,
-        ``"avg"``: the sum over the size); returns ``t``."""
-        if not self.distributed:
+    def all_reduce(self, t: torch.Tensor, op: str = "sum",
+                   axis: str = DATA_AXIS) -> torch.Tensor:
+        """``t`` reduced over ``axis`` in place (``"sum"``, ``"max"``,
+        ``"min"``, ``"avg"``: the sum over the axis's size; ``axis="world"``
+        spans every process); returns ``t``."""
+        wide, group = self._group(axis)
+        if not wide:
             return t
         import torch.distributed as dist
-        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
-        with COLLECTIVES.count("all_reduce", _nbytes(t), t):
-            dist.all_reduce(t, op=red)
+        red = {"max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}.get(op, dist.ReduceOp.SUM)
+        with COLLECTIVES.count("all_reduce", _nbytes(t), t, axis):
+            dist.all_reduce(t, op=red, group=group)
         if op == "avg":
-            t.div_(self.size)
+            t.div_(self.axis_size(axis))
         return t
 
-    def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of the sum of ``flat`` (1-D, its length a
-        multiple of the size) over the mesh."""
-        n = flat.numel() // self.size
-        if not self.distributed:
-            return flat.clone()
-        import torch.distributed as dist
-        out = torch.empty(n, dtype=flat.dtype, device=flat.device)
-        with COLLECTIVES.count("reduce_scatter", _nbytes(flat), flat):
-            dist.reduce_scatter_tensor(out, flat.contiguous())
-        return out
+    def reduce_scatter(self, t: torch.Tensor, axis: str = DATA_AXIS,
+                       dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's part of the sum of ``t`` over ``axis``: with
+        ``dim=None`` its slice of ``t`` flat (1-D, a multiple of the
+        size), else its block of ``dim``."""
+        n = self.sizes[axis]
+        wide, group = self._group(axis)
+        if dim is None:
+            flat = t
+            if not wide:
+                return flat.clone()
+            import torch.distributed as dist
+            out = torch.empty(flat.numel() // n, dtype=flat.dtype,
+                              device=flat.device)
+            with COLLECTIVES.count("reduce_scatter", _nbytes(flat), flat,
+                                   axis):
+                dist.reduce_scatter_tensor(out, flat.contiguous(),
+                                           group=group)
+            return out
+        dim = dim % t.dim()
+        if not wide:
+            return t.clone()
+        moved = t.movedim(dim, 0).contiguous()
+        out = self.reduce_scatter(moved.view(-1), axis)
+        shape = list(moved.shape)
+        shape[0] //= n
+        return out.view(shape).movedim(0, dim)
 
-    def all_gather(self, piece: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``piece`` (1-D, one length) concatenated in rank
-        order."""
-        if not self.distributed:
+    def all_gather(self, piece: torch.Tensor, axis: str = DATA_AXIS,
+                   dim: Optional[int] = None) -> torch.Tensor:
+        """Every rank's ``piece`` over ``axis``, in axis order: with
+        ``dim=None`` concatenated flat (1-D pieces of one length), else
+        along ``dim``."""
+        n = self.sizes[axis]
+        wide, group = self._group(axis)
+        if dim is None:
+            if not wide:
+                return piece.clone()
+            import torch.distributed as dist
+            out = torch.empty(piece.numel() * n, dtype=piece.dtype,
+                              device=piece.device)
+            with COLLECTIVES.count("all_gather", _nbytes(out), piece, axis):
+                dist.all_gather_into_tensor(out, piece.contiguous(),
+                                            group=group)
+            return out
+        dim = dim % piece.dim()
+        if not wide:
             return piece.clone()
+        moved = piece.movedim(dim, 0).contiguous()
+        flat = self.all_gather(moved.view(-1), axis)
+        shape = list(moved.shape)
+        shape[0] *= n
+        return flat.view(shape).movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(tiled=True)``: ``t`` cut into the axis's size
+        blocks along ``split_dim``, block j sent to rank j, the blocks
+        received concatenated along ``concat_dim`` in rank order."""
+        n = self.sizes[axis]
+        wide, group = self._group(axis)
+        if not wide:
+            return t.clone()
         import torch.distributed as dist
-        out = torch.empty(piece.numel() * self.size, dtype=piece.dtype,
-                          device=piece.device)
-        with COLLECTIVES.count("all_gather", _nbytes(out), piece):
-            dist.all_gather_into_tensor(out, piece.contiguous())
-        return out
+        split_dim, concat_dim = split_dim % t.dim(), concat_dim % t.dim()
+        blocks = torch.stack(t.chunk(n, dim=split_dim)).contiguous()
+        got = torch.empty_like(blocks)
+        with COLLECTIVES.count("all_to_all", _nbytes(blocks), t, axis):
+            dist.all_to_all_single(got, blocks, group=group)
+        return torch.cat(got.unbind(0), dim=concat_dim)
+
+    def shift(self, t: torch.Tensor, axis: str, offset: int = 1
+              ) -> torch.Tensor:
+        """The ring step of ``axis``: ``t`` sent to the rank ``offset``
+        ahead, the one ``offset`` behind received (``lax.ppermute``'s
+        ``[(i, i + offset)]``)."""
+        n = self.sizes[axis]
+        wide, _ = self._group(axis)
+        if not wide or offset % n == 0:
+            return t.clone()
+        import torch.distributed as dist
+        me = self.coords[axis]
+        src, op = t.contiguous(), "shift"
+        if src.is_cuda and self.backend == "gloo":
+            # gloo refuses CUDA tensors in send/recv: a pinned host copy
+            src, op = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=True).copy_(src), "shift_staged"
+        got = torch.empty_like(src)
+        with COLLECTIVES.count(op, _nbytes(src), t, axis):
+            ops = [dist.P2POp(dist.isend, src, self._peer(axis, me + offset)),
+                   dist.P2POp(dist.irecv, got, self._peer(axis, me - offset))]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return got.to(t.device, non_blocking=True)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """``t`` overwritten in place with rank ``src``'s."""
+        """``t`` overwritten in place with process ``src``'s."""
         if not self.distributed:
             return t
         import torch.distributed as dist
-        with COLLECTIVES.count("broadcast", _nbytes(t), t):
+        with COLLECTIVES.count("broadcast", _nbytes(t), t, "world"):
             dist.broadcast(t, src)
         return t
 
     def all_gather_object(self, obj) -> List:
-        """Every rank's picklable ``obj``, in rank order."""
+        """Every process's picklable ``obj``, in rank order."""
         if not self.distributed:
             return [obj]
         import torch.distributed as dist
-        out: List = [None] * self.size
-        with COLLECTIVES.count("all_gather_object", 0):
+        out: List = [None] * self.world
+        with COLLECTIVES.count("all_gather_object", 0, axis="world"):
             dist.all_gather_object(out, obj)
         return out
 
@@ -174,8 +328,7 @@ class Mesh:
 
 class MeshTopology:
     """Named parallelism axes over the processes of a group (reference
-    ``MeshTopology``); only ``data`` is ported, see the module
-    docstring."""
+    ``MeshTopology``); see the module docstring."""
 
     def __init__(self, data: int = 1, tensor: int = 1, pipeline: int = 1,
                  sequence: int = 1, expert: int = 1):
@@ -207,14 +360,16 @@ class MeshTopology:
     def build(self, device=None) -> Mesh:
         """This process's ``Mesh``: the default group, which must hold
         ``total()`` processes, on the device ``Engine`` placed this rank
-        on; a mesh of one needs no group and is then on ``device`` (by
-        default the card)."""
-        wide = [a for a in _CANONICAL_ORDER
-                if a != DATA_AXIS and self.sizes[a] > 1]
+        on, with a sub-group per axis above 1 (every process makes every
+        group, in one order); a mesh of one needs no group and is then on
+        ``device`` (by default the card)."""
+        wide = [a for a in (PIPELINE_AXIS, EXPERT_AXIS)
+                if self.sizes[a] > 1]
         if wide:
             raise NotImplementedError(
                 f"mesh axes {wide} are not ported yet: ROADMAP "
-                f"{MODEL_PARALLEL}; the port's mesh has the data axis only")
+                f"{MODEL_PARALLEL}; the port's mesh has the data, tensor "
+                "and seq axes")
         from bigdl_tpu_torch.utils.engine import Engine
         Engine.maybe_init_distributed()
         n = self.total()
@@ -223,8 +378,19 @@ class MeshTopology:
             if world != n:
                 raise ValueError(f"mesh needs {n} processes, the process "
                                  f"group has {world}")
-            return Mesh(world, Engine.process_index(),
-                        Engine.distributed_device(), Engine.backend())
+            import torch.distributed as dist
+            rank = Engine.process_index()
+            groups = {}
+            for axis in _CANONICAL_ORDER:
+                if self.sizes[axis] <= 1 or self.sizes[axis] == world:
+                    continue   # absent, or the whole default group
+                for ranks in axis_ranks(self.sizes, axis):
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[axis] = g
+            return Mesh(self.sizes[DATA_AXIS], rank,
+                        Engine.distributed_device(), Engine.backend(),
+                        sizes=self.sizes, groups=groups)
         if n != 1:
             raise ValueError(
                 f"mesh needs {n} processes and no process group is up: "

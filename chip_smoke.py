@@ -362,7 +362,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    it alone): its ranks are fresh processes of this script with the
    reference's ``BIGDL_*`` environment, awaited with a timeout. (b) world
    2 over the one card (gloo): the 134m recipe of phase 3b (bf16, AdamW,
-   L2 clip 1.0) at global B=8 (4 a rank) for 6 iterations in each of
+   L2 clip 1.0; every collective a step and each epoch's agreed
+   iteration count) at global B=8 (4 a rank) for 6 iterations in each
+   of
    ``DistriOptimizer``'s modes (allreduce, sharded ZeRO-1, fsdp), every
    collective a step held to the mode's structure, the two ranks' weights
    bit-equal, each rank's parameter and optim-state MiB at rest, ms an
@@ -390,6 +392,40 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    runs that set the tolerances ((b) in f32 at both worlds, (b) with rank
    1's gradients dropped, (c) with per-replica statistics) and holds each
    control to fail the check it sets;
+3p. the model-parallel axes (after phase 3o; ``--model-parallel-only``
+   runs it alone): fresh rank processes of ``python3 chip_smoke.py
+   --model-parallel-rank JOBS``, world 2 over the card (gloo) against
+   world 1 (this process), the 134m recipe cut to 4 layers (bf16, AdamW, clip
+   1.0). (a) ``Optimizer(topology=MeshTopology(tensor=2))``, B=8 S=512, 4
+   iterations, without and with sequence-parallel regions: the
+   collectives a step held to the Megatron structure (an all-reduce after
+   the out-projection and the FFN down, and their region entries'
+   backward; with the regions, a reduce-scatter and an all-gather in
+   their place), K1-K3 once a layer a step on each rank, the parameters
+   and AdamW's state at rest under 0.6 of world 1's, the updates and
+   losses within the tolerances of world 1's ``LocalOptimizer``. (b)
+   ``ContextParallelLM`` at cp=2, S=512: ring contiguous, ring zigzag and
+   Ulysses, 3 iterations each; the initial log-probs against world 1's
+   full attention, the first step's gradients (the ranks' sum), K1-K3
+   launches a step by the hops each rank runs (none for a future chunk),
+   the ring's shifts (staged through the host: gloo refuses CUDA tensors
+   in send/recv) and Ulysses' all-to-alls a step. (c) ``generate(mesh=)``
+   of the bf16 model, 4 prompts of 128, 16 greedy tokens: dp-decode
+   (data=2) and tp-decode (tensor=2) against world 1's tokens (or within
+   the teacher-forced gap), ms a token. (d) ``python -m
+   bigdl_tpu_torch.apps.transformer train --tensorParallel 2`` and
+   ``--contextParallel ring`` at world 2, 2 iterations each, exiting 0
+   with finite losses (the two worlds started together). A
+   ``model_parallel`` line logs them;
+   ``--model-parallel-controls`` adds (a) in f32 and with the region
+   entries' backward all-reduce dropped, which must fail (a)'s check.
+   In the whole script 3o's rank processes start before phase 3h and
+   3p's (its world 2 and its CLI worlds) before phase 3i, each in a
+   thread beside this process's phases; 3o and 3p then read and check
+   what they wrote (3p's world-1 yardsticks run in its own slot). No
+   check of either side reads the card's time, but the times of 3h-3n
+   and of 3o's and 3p's ranks are then shared: ``--distributed-only``
+   and ``--model-parallel-only`` give them alone;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -431,7 +467,7 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included), 3c, 3n and 3o (every rank's); phase 3i's rows count
+processes included), 3c, 3n, 3o and 3p (every rank's); phase 3i's rows count
 phase 3i's runs, and
 phase 3j's (K1-K3 at ViT-S/16's and transformer_1b's shapes) its runs
 (c) and (e).
@@ -444,8 +480,9 @@ seed's readings and no result line.
 phase 3i and its kernel rows, printing them and no result line;
 ``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
 phase 3k, ``--files-only`` only phase 3m, ``--platform-only`` only
-phase 3n and ``--distributed-only`` only phase 3o (none of them prints
-kernel rows). Phase 3o's ranks are fresh processes of ``python3
+phase 3n, ``--distributed-only`` only phase 3o and
+``--model-parallel-only`` only phase 3p (none of them prints kernel
+rows). Phase 3o's ranks are fresh processes of ``python3
 chip_smoke.py --distributed-rank JOBS --dist-out DIR --dist-backend B``
 with the ``BIGDL_*`` environment.
 
@@ -8612,8 +8649,13 @@ def dist_free_port() -> int:
         return s.getsockname()[1]
 
 
+#: every rank process a spawn started, killed at the script's exit if it
+#: is still running (a phase's ranks run beside other phases)
+SPAWNED = []
+
+
 def dist_spawn(world: int, backend: str, jobs, out: str,
-               argv=None) -> float:
+               argv=None, timeout: float = None, env: dict = None) -> float:
     """``world`` fresh ranks of ``chip_smoke.py --distributed-rank JOBS``
     (or of ``argv``) with the reference's environment, awaited with a
     timeout; a rank that fails fails the phase (its log's tail in the
@@ -8622,8 +8664,10 @@ def dist_spawn(world: int, backend: str, jobs, out: str,
     procs, logs = [], []
     t0 = time.perf_counter()
     for r in range(world):
-        env = {**os.environ, "BIGDL_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "BIGDL_NUM_PROCESSES": str(world), "BIGDL_PROCESS_ID": str(r)}
+        rank_env = {**os.environ, **(env or {}),
+                    "BIGDL_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                    "BIGDL_NUM_PROCESSES": str(world),
+                    "BIGDL_PROCESS_ID": str(r)}
         cmd = argv or [sys.executable, os.path.abspath(__file__),
                        "--distributed-rank", ",".join(jobs), "--dist-out",
                        out, "--dist-backend", backend]
@@ -8631,10 +8675,11 @@ def dist_spawn(world: int, backend: str, jobs, out: str,
                                  f".w{world}.rank{r}.log")
         logs.append(path)
         with open(path, "wb") as f:
-            procs.append(subprocess.Popen(cmd, env=env, stdout=f,
+            procs.append(subprocess.Popen(cmd, env=rank_env, stdout=f,
                                           stderr=subprocess.STDOUT,
                                           cwd=DIST_ROOT))
-    deadline = time.time() + DIST_TIMEOUT_S
+            SPAWNED.append(procs[-1])
+    deadline = time.time() + (timeout or DIST_TIMEOUT_S)
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.time()))
@@ -8649,7 +8694,7 @@ def dist_spawn(world: int, backend: str, jobs, out: str,
         if p.returncode != 0:
             with open(path, "rb") as f:
                 tail = f.read()[-3000:].decode(errors="replace")
-            raise RuntimeError(f"check failed: 3o rank {r} of {world} "
+            raise RuntimeError(f"check failed: rank {r} of {world} "
                                f"({jobs}) exited {p.returncode}:\n{tail}")
     return time.perf_counter() - t0
 
@@ -9082,8 +9127,9 @@ def dist_loss_gap(a: list, b: list) -> float:
 
 
 def dist_lm_structure(model_sizes) -> dict:
-    """Each mode's collectives a step by the path's structure: the
-    allreduce mode's gradient buckets and the loss; ZeRO-1's flat
+    """Each mode's collectives a step by the path's structure (and the
+    epoch's agreement, one all-reduce a run): the allreduce mode's
+    gradient buckets and the loss; ZeRO-1's flat
     reduce-scatter and all-gather, the clip's and the buffers' all-reduce
     and the loss; fsdp's gather and reduce-scatter a sharded leaf, the
     replicated leaves' buckets, the clip and the loss."""
@@ -9096,27 +9142,33 @@ def dist_lm_structure(model_sizes) -> dict:
     ar = len(_buckets(like, BUCKET_BYTES)) + 1
     sharded = [s for s in params if shard_dim(s, world) is not None]
     rep = [t for t, s in zip(like, params) if shard_dim(s, world) is None]
-    return {"allreduce": {"all_reduce": ar},
+    # and once a run, the epoch's agreed iteration count (one all-reduce)
+    agree = lambda n: (n * DIST_ITERS + 1) / DIST_ITERS
+    return {"allreduce": {"all_reduce": agree(ar)},
             "sharded": {"reduce_scatter": 1, "all_gather": 1,
-                        "all_reduce": 2 + int(has_float_buffers)},
+                        "all_reduce": agree(2 + int(has_float_buffers))},
             "fsdp": {"all_gather": len(sharded),
                      "reduce_scatter": len(sharded),
-                     "all_reduce": len(_buckets(rep, BUCKET_BYTES)) + 2}}
+                     "all_reduce": agree(len(_buckets(rep, BUCKET_BYTES))
+                                         + 2)}}
 
 
 def dist_resnet_structure(run: dict, world: int) -> dict:
     """ResNet-50's collectives a step in allreduce mode with synchronized
     batch norm: forward, an all-reduce of each fused op's sums and an
     all-gather of each plain BN's moments; backward, an all-reduce of
-    each BN's two sums; the gradient buckets and the loss."""
+    each BN's two sums; the gradient buckets and the loss; and once a run
+    the epoch's agreed iteration count."""
     from bigdl_tpu_torch.parallel.distri_optimizer import (BUCKET_BYTES,
                                                            _buckets)
     like = [torch.empty(s, dtype=torch.float32, device="meta")
             for s in run["param_shapes"]]
     fused, plain = run["fused_bn"], run["plain_bn"]
-    return {"all_reduce": fused + (fused + plain)
-            + len(_buckets(like, BUCKET_BYTES)) + 1,
-            "all_gather": plain}
+    per_step = (fused + (fused + plain) + len(_buckets(like, BUCKET_BYTES))
+                + 1)
+    # and once a run, the epoch's agreed iteration count
+    return {"all_reduce": (per_step * DIST_RESNET_ITERS + 1)
+            / DIST_RESNET_ITERS, "all_gather": plain}
 
 
 def dist_controls(out: str, w1: dict, b: dict, c: dict) -> dict:
@@ -9181,46 +9233,76 @@ def dist_controls(out: str, w1: dict, b: dict, c: dict) -> dict:
             **{f"c_{k}": v for k, v in resnet.items()}, "failed": failed}
 
 
-def run_distributed(controls: bool = False) -> dict:
+class Beside:
+    """``fn(*args)`` in a thread beside the script's own work: a phase's
+    rank processes run while earlier phases run in this process (their
+    checks do not depend on the card's time). ``result()`` joins it and
+    returns its value, or raises its error."""
+
+    def __init__(self, fn, *args):
+        self._box = {}
+
+        def run():
+            try:
+                self._box["value"] = fn(*args)
+            except BaseException as e:   # noqa: BLE001 - raised in result()
+                self._box["error"] = e
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["value"]
+
+
+def dist_ranks(controls: bool = False) -> tuple:
+    """Phase 3o's rank processes, in a new folder: world 2 over the card
+    (gloo; (b), (c), (e)'s snapshot), then world 1 (NCCL; (a), (c)'s
+    yardstick, (e)'s resumes), then (d) the perf harness at world 2.
+    Returns (the folder, the spawns' seconds)."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="bigdl_dist_")
+    spawn_s = {}
+    try:
+        spawn_s["w2"] = dist_spawn(2, "gloo", ["lm_w2", "resnet"] + (
+            ["lm_w2_controls", "resnet_controls"] if controls else []), out)
+        spawn_s["w1"] = dist_spawn(1, "nccl", ["lm_w1", "resnet", "resume"]
+                                   + (["lm_w1_controls", "resnet_w1_controls"]
+                                      if controls else []), out)
+        perf_argv = [sys.executable, "-m", "bigdl_tpu_torch.apps.perf",
+                     "--model", DIST_PERF_MODEL, "--distributed",
+                     "--backend", "gloo", "-b", str(RESNET_BATCH), "-i",
+                     str(DIST_PERF_ITERS), "--warmup", "1", "--records",
+                     str(RESNET_BATCH)]
+        spawn_s["perf"] = dist_spawn(2, "gloo", ["perf"], out,
+                                     argv=perf_argv,
+                                     env={g: "1" for g in FUSION_GATES})
+    except BaseException:
+        shutil.rmtree(out, ignore_errors=True)
+        raise
+    return out, spawn_s
+
+
+def run_distributed(controls: bool = False, ranks: "Beside" = None) -> dict:
     """Phase 3o; returns its K1-K3 and K5/K6 launches, every rank's.
     ``controls``: also the runs that set its tolerances (PERF.md §6): (b)
     in f32 at both worlds, (b) with rank 1's gradients dropped, and (c)
     with per-replica batch statistics, each control held to fail the
-    check it sets."""
-    import tempfile
+    check it sets. ``ranks``: ``dist_ranks`` already running beside
+    earlier phases (the whole script starts it before phase 3h); None:
+    they run here."""
     t_phase = time.perf_counter()
-    out = tempfile.mkdtemp(prefix="bigdl_dist_")
-    spawn_s = {}
+    if ranks is None:
+        ranks = Beside(dist_ranks, controls)
+    out, spawn_s = ranks.result()
     failed = []   # every check's verdict, raised after the line is logged
 
     def defer(cond, what):
         if not cond:
             failed.append(what)
     try:
-        # world 2 over the one card (gloo): (b), (c), (e)'s snapshot
-        spawn_s["w2"] = dist_spawn(2, "gloo", ["lm_w2", "resnet"] + (
-            ["lm_w2_controls", "resnet_controls"] if controls else []), out)
-        # world 1 (NCCL): (a), (c)'s yardstick, (e)'s resumes
-        spawn_s["w1"] = dist_spawn(1, "nccl", ["lm_w1", "resnet", "resume"]
-                                   + (["lm_w1_controls", "resnet_w1_controls"]
-                                      if controls else []), out)
-        # (d): the perf harness at world 2
-        perf_argv = [sys.executable, "-m", "bigdl_tpu_torch.apps.perf",
-                     "--model", DIST_PERF_MODEL, "--distributed",
-                     "--backend", "gloo", "-b", str(RESNET_BATCH), "-i",
-                     str(DIST_PERF_ITERS), "--warmup", "1", "--records",
-                     str(RESNET_BATCH)]
-        saved = {g: os.environ.get(g) for g in FUSION_GATES}
-        os.environ.update({g: "1" for g in FUSION_GATES})
-        try:
-            spawn_s["perf"] = dist_spawn(2, "gloo", ["perf"], out,
-                                         argv=perf_argv)
-        finally:
-            for g, v in saved.items():
-                if v is None:
-                    os.environ.pop(g, None)
-                else:
-                    os.environ[g] = v
         perf_lines = []
         for r in range(2):
             with open(os.path.join(out, f"perf.w2.rank{r}.log")) as f:
@@ -9409,6 +9491,649 @@ def run_distributed(controls: bool = False) -> dict:
     return dict(launches)
 
 
+# ------------------------------------------ 3p. the model-parallel axes
+MP_LAYERS = 4             # the 134m recipe cut to 4 layers (PERF.md §4)
+MP_ITERS = 4              # (a): iterations a tensor-parallel run
+MP_CP_ITERS = 3           # (b): iterations a context-parallel mode
+MP_PROMPTS, MP_PROMPT_LEN, MP_NEW = 4, 128, 16   # (c)
+MP_CLI_ITERS = 2          # (d)
+MP_CP_MODES = (("ring", "contiguous"), ("ring", "zigzag"),
+               ("ulysses", "contiguous"))
+MP_SAMPLE_V = 64          # (b): log-probs held over the first 64 words
+MP_TIMEOUT_S = 600        # one spawn's ranks, start to exit
+# the tolerances (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): (a)
+# the relative L2 distance of tp=2's parameter updates from world 1's
+# LocalOptimizer, and the largest relative gap of their losses, set between
+# the bf16 readings (0.0407-0.0409 and 0.0016-0.0020; in f32 1.8e-5 and
+# 1.3e-6, so bf16 rounding is the cause) and the control with the region
+# entries' backward all-reduce dropped (0.713 and 0.308;
+# ``--model-parallel-controls``); (b) the
+# gathered log-probs' largest gap from world 1's full attention, in bf16
+# steps of each value (each rank's partials round apart), and the
+# relative L2 distance of the first step's gradients (the ranks' sum)
+# over a sample; (c) a greedy
+# token that differs must sit within GAP_TOL's bf16 bound under a
+# teacher-forced forward.
+MP_UPDATE_TOL, MP_LOSS_TOL = 0.2, 0.05
+MP_LOGP_TOL, MP_GRAD_TOL = 4.0, 0.05
+MP_GAP_TOL = 0.1
+
+
+def mp_model(dtype=None):
+    """A fresh copy of the 134m recipe cut to MP_LAYERS layers (seed 7),
+    built once a process; ``dtype``: cast (bf16 for (c))."""
+    import copy
+    if "mp" not in DIST_MODELS:
+        from bigdl_tpu_torch.models.transformer import build_lm
+        DIST_MODELS["mp"] = build_lm(VOCAB, **dict(CONFIG,
+                                                   num_layers=MP_LAYERS),
+                                     device="cuda", seed=7)
+    model = copy.deepcopy(DIST_MODELS["mp"])
+    return model if dtype is None else model.to(dtype)
+
+
+def mp_sample(model) -> np.ndarray:
+    """``dist_sample`` of the full leaves: a tensor-parallel model's are
+    reassembled over its axis first (collective)."""
+    if getattr(model, "_tp_mesh", None) is None:
+        return dist_sample(model)
+    from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    full = gather_full(model, named)
+    with torch.no_grad():
+        flat = torch.cat([full[n].float().reshape(-1) for n in named])
+        return flat[::DIST_STRIDE].cpu().numpy()
+
+
+def mp_mib(tensors) -> float:
+    return sum(t.numel() * t.element_size() for t in tensors) / 2 ** 20
+
+
+def mp_collectives(iters: int) -> dict:
+    """COLLECTIVES' calls a step by ``op/axis``, MiB a step by op, and
+    their share of the host clock."""
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    snap = pmesh.COLLECTIVES.snapshot()
+    return {"per_step": {k: n / iters for k, n in snap["by_axis"].items()},
+            "mib_per_step": {k: b / iters / 2 ** 20
+                             for k, b in snap["bytes"].items()},
+            "seconds": sum(snap["seconds"].values())}
+
+
+def mp_reset() -> dict:
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    pmesh.COLLECTIVES.reset()
+    return counters
+
+
+def mp_tp_run(world: int, rank: int, out: str, sp: bool,
+              precision: str = "bf16", tag: str = None,
+              drop_entry_reduce: bool = False) -> dict:
+    """(a): the cut 134m recipe (bf16 unless ``precision``, AdamW, clip
+    1.0) on the whole batches (B=8, S=512, seed 17) for MP_ITERS
+    iterations: at world 1 through ``LocalOptimizer``, at world 2 through
+    ``Optimizer(topology=MeshTopology(tensor=2))`` with (``sp``) or without
+    sequence-parallel regions. ``drop_entry_reduce``: the region entries'
+    backward all-reduce left out (a control)."""
+    import contextlib
+    from unittest import mock
+    from bigdl_tpu_torch.dataset.base import DataSet, DistributedDataSet
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import tensor_parallel as tp
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    t0 = time.perf_counter()
+    model = mp_model()
+    p0 = dist_sample(model)
+    batches = dist_lm_batches(1, 0)[:MP_ITERS]
+    if world == 1:
+        opt = Optimizer(model, DataSet.array(batches, seed=0),
+                        FusedLMHeadCriterion(), device="cuda")
+    else:
+        opt = Optimizer(model, DistributedDataSet(
+            batches, shard_by_process=False, seed=0),
+            FusedLMHeadCriterion(), device="cuda",
+            topology=MeshTopology(tensor=world))
+        if sp:
+            check(tp.enable_sequence_parallel(model, opt.mesh) == MP_LAYERS,
+                  "(a) enable_sequence_parallel tagged another count")
+    box = []
+    init = opt._init_opt_state
+    opt._init_opt_state = lambda params: box.append(init(params)) or box[-1]
+    (opt.set_precision(precision)
+        .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                weightdecay=TRAIN_DECAY))
+        .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+        .set_end_when(Trigger.max_iteration(MP_ITERS)))
+    dropped = (mock.patch.object(tp._CopyToRegion, "backward",
+                                 staticmethod(lambda ctx, g: (g, None, None)))
+               if drop_entry_reduce else contextlib.nullcontext())
+    counters = mp_reset()
+    pmesh.COLLECTIVES.sync_timing = Engine.backend() == "gloo"
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with dropped:
+        opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    pmesh.COLLECTIVES.sync_timing = False
+    res = {"losses": [h["loss"] for h in opt.history],
+           "launches": {k: c.value for k, c in counters.items()},
+           "collectives": mp_collectives(MP_ITERS), "wall_s": wall,
+           "ms_per_iteration": float(np.median(
+               [h["seconds"] for h in opt.history[1:]])) * 1e3,
+           "resident_mib": {"params": mp_mib(model.parameters()),
+                            "optim": mp_mib(
+                                [t for t in _state_tensors(box[0])])}}
+    res["collective_share"] = res["collectives"]["seconds"] / wall
+    name = tag or f"mp_tp{'_sp' if sp else ''}_w{world}"
+    p = mp_sample(model)
+    np.savez(os.path.join(out, f"{name}.{rank}.npz"), p0=p0, p=p)
+    res["run_s"] = time.perf_counter() - t0
+    del opt, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _state_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _state_tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def mp_tp_structure(sp: bool) -> dict:
+    """(a)'s collectives a step at tp=2 by the path's structure: per layer
+    the attention's and the FFN's region entry (backward: an all-reduce)
+    and exit (forward: an all-reduce) or, with sequence-parallel regions,
+    an all-gather in and a reduce-scatter out each way; the embedding's
+    gathered rows and the tied head's gathered table (forward); the
+    clip's squared norm; with sequence-parallel regions the stack's split
+    (backward: a gather) and exit gather (forward) and the sequence
+    blocks' replicated leaves summed."""
+    n = MP_LAYERS
+    if not sp:
+        return {"all_reduce/tensor": 4 * n + 1, "all_gather/tensor": 2}
+    return {"all_gather/tensor": 4 * n + 4, "reduce_scatter/tensor": 4 * n,
+            "all_reduce/tensor": 2}
+
+
+class _FirstGrads:
+    """An optim method that records a sample of the first update's
+    gradients (by parameter order) before delegating."""
+
+    def __init__(self, inner, names):
+        self.inner, self.names, self.sample = inner, names, None
+
+    def update(self, grads, state, params, *rest):
+        if self.sample is None:
+            with torch.no_grad():
+                flat = torch.cat([grads[n].float().reshape(-1)
+                                  for n in self.names])
+                self.sample = flat[::DIST_STRIDE].cpu().numpy()
+        return self.inner.update(grads, state, params, *rest)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def mp_cp_logp(logp: torch.Tensor, targets: torch.Tensor) -> dict:
+    """(b)'s view of a (B, S, V) log-prob tensor: each position's target
+    log-prob and the first MP_SAMPLE_V words'."""
+    tgt = (targets.to(torch.int64) - 1).clamp(0, VOCAB - 1)
+    return {"target": logp.float().gather(-1, tgt[..., None])[..., 0]
+            .cpu().numpy(),
+            "head": logp[..., :MP_SAMPLE_V].float().cpu().numpy()}
+
+
+def mp_cp_run(world: int, rank: int, out: str, mode: str,
+              layout: str) -> dict:
+    """(b): the cut 134m recipe with its attention over the ``seq`` axis
+    (world 2: ``ContextParallelLM``; world 1: the whole model, kernel K1's
+    full attention), bf16, AdamW, clip 1.0, on the first batch (B=8,
+    S=512) for MP_CP_ITERS iterations; the initial log-probs (eval) and
+    the first step's gradients sampled."""
+    from bigdl_tpu_torch.nn import MultiHeadAttention
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.ops.precision import DtypePolicy
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel.context import ContextParallelLM
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    t0 = time.perf_counter()
+    model = mp_model()
+    batch = dist_lm_batches(1, 0)[0]
+    tokens = torch.as_tensor(batch.data).cuda()
+    targets = torch.as_tensor(batch.labels).cuda()
+    crit, policy = FusedLMHeadCriterion(), DtypePolicy.bf16()
+    params = {n: p for n, p in model.named_parameters()}
+    method = _FirstGrads(AdamW(learningrate=TRAIN_LR,
+                               weightdecay=TRAIN_DECAY), list(params))
+    state = method.init_state(params)
+    if world > 1:
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.seq_axis, m.seq_mode, m.seq_layout = "seq", mode, layout
+        lm = ContextParallelLM(model, MeshTopology(sequence=world).build(),
+                               layout=layout)
+        model.eval()
+        with torch.no_grad():
+            logp = lm.unshard(torch.func.functional_call(
+                lm, {f"model.{n}": t for n, t in
+                     policy.cast_params_for_compute(params).items()},
+                (tokens,)))
+        model.train()
+        step = lambda: lm.train_step(tokens, targets, crit, method, state,
+                                     params, precision=policy,
+                                     clip_norm=TRAIN_CLIP)
+    else:
+        from bigdl_tpu_torch.optim.optimizer import make_grad_clipper
+        clip = make_grad_clipper({"l2": TRAIN_CLIP})
+        model.eval()
+        with torch.no_grad():
+            logp = torch.func.functional_call(
+                model, policy.cast_params_for_compute(params), (tokens,))
+        model.train()
+
+        def step():
+            for t in params.values():
+                t.grad = None
+            out = torch.func.functional_call(
+                model, policy.cast_params_for_compute(params), (tokens,))
+            loss = crit.forward(out, targets).float()
+            loss.backward()
+            with torch.no_grad():
+                grads = clip({n: t.grad for n, t in params.items()})
+                method.update(grads, state, params)
+            return float(loss)
+    view = mp_cp_logp(logp, targets)
+    del logp
+    counters = mp_reset()
+    pmesh.COLLECTIVES.sync_timing = (world > 1
+                                     and Engine.backend() == "gloo")
+    losses, seconds = [], []
+    for _ in range(MP_CP_ITERS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t1)
+    pmesh.COLLECTIVES.sync_timing = False
+    tag = f"mp_cp_{mode}_{layout}_w{world}" if world > 1 else "mp_cp_w1"
+    np.savez(os.path.join(out, f"{tag}.{rank}.npz"), grads=method.sample,
+             **{f"logp_{k}": v for k, v in view.items()})
+    res = {"losses": losses,
+           "launches": {k: c.value for k, c in counters.items()},
+           "collectives": mp_collectives(MP_CP_ITERS),
+           "ms_per_iteration": float(np.median(seconds[1:])) * 1e3,
+           "run_s": time.perf_counter() - t0}
+    del model, params, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def mp_cp_k1_structure(mode: str, layout: str, rank: int, p: int) -> int:
+    """K1 launches a layer a step on ``rank`` of ``p`` (causal): a ring
+    hop launches for a past chunk and the diagonal, none for a future
+    one; a zigzag hop launches each live half-pair of its 4; Ulysses one
+    launch of the whole sequence on the local heads."""
+    if mode == "ulysses":
+        return 1
+    n = 0
+    for t in range(p):
+        src = (rank - t) % p
+        if layout == "contiguous":
+            n += src <= rank
+        else:
+            for q in (rank, 2 * p - 1 - rank):
+                for k in (src, 2 * p - 1 - src):
+                    n += k <= q
+    return n
+
+
+def mp_cp_structure(mode: str) -> dict:
+    """(b)'s collectives a step at cp=2: per layer the ring's k and v
+    shifts (P - 1 = 1 each way, staged through the host: gloo refuses CUDA
+    tensors in send/recv) or Ulysses' 4 all-to-alls each way; the
+    gradients' sum and the loss's mean."""
+    n = MP_LAYERS
+    core = ({"shift_staged/seq": 4 * n} if mode == "ring"
+            else {"all_to_all/seq": 8 * n})
+    return {**core, "all_reduce/seq": 2}
+
+
+def mp_decode_run(world: int, rank: int, out: str) -> dict:
+    """(c): the cut 134m recipe in bf16, MP_PROMPTS prompts of
+    MP_PROMPT_LEN (seed 23), MP_NEW greedy tokens: at world 1 ``generate``;
+    at world 2 dp-decode (``mesh=MeshTopology(data=2)``) and tp-decode
+    (``MeshTopology(tensor=2)``, ``tensor_axis="tensor"``), each timed on
+    a second call."""
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    model = mp_model(torch.bfloat16).eval()
+    prompts = torch.as_tensor(np.random.default_rng(23).integers(
+        1, VOCAB + 1, (MP_PROMPTS, MP_PROMPT_LEN)), device="cuda")
+    runs = ({"w1": {}} if world == 1 else
+            {"dp": {"mesh": MeshTopology(data=world).build()},
+             "tp": {"mesh": MeshTopology(tensor=world).build(),
+                    "tensor_axis": "tensor"}})
+    res = {}
+    for name, kw in runs.items():
+        if "tensor_axis" in kw:   # sharded once, not each call
+            from bigdl_tpu_torch.parallel import tensor_parallel as tp
+            tp.shard_parameters(model, kw["mesh"])
+            res["tp_resident_mib"] = mp_mib(model.parameters())
+        generate(model, prompts, 2, greedy=True, **kw)   # warm
+        counters = mp_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompts, MP_NEW, greedy=True, **kw)
+        torch.cuda.synchronize()
+        res[name] = {"tokens": toks[:, MP_PROMPT_LEN:].tolist(),
+                     "ms_per_token": (time.perf_counter() - t0) * 1e3
+                     / MP_NEW,
+                     "launches": {k: c.value for k, c in counters.items()},
+                     "collectives": mp_collectives(1)["per_step"]}
+    if world == 1:
+        res["prompts"] = prompts.tolist()
+    return res
+
+
+MP_JOBS = {
+    "tp": lambda w, r, out: {
+        "tp": mp_tp_run(w, r, out, sp=False),
+        **({"sp": mp_tp_run(w, r, out, sp=True)} if w > 1 else {})},
+    "cp": lambda w, r, out: {f"{m}_{l}": mp_cp_run(w, r, out, m, l)
+                             for m, l in MP_CP_MODES},
+    "cp_w1": lambda w, r, out: {"w1": mp_cp_run(w, r, out, "ring",
+                                                "contiguous")},
+    "decode": mp_decode_run,
+    # --model-parallel-controls: (a) in f32, and with the region entries'
+    # backward all-reduce dropped
+    "tp_controls": lambda w, r, out: {
+        "fp32": mp_tp_run(w, r, out, sp=False, precision="fp32",
+                          tag=f"mp_tp_fp32_w{w}"),
+        **({"dropped": mp_tp_run(w, r, out, sp=False, tag="mp_tp_dropped",
+                                 drop_entry_reduce=True)} if w > 1 else {})},
+}
+
+
+def run_model_parallel_rank(jobs: str, out: str, backend: str) -> int:
+    """One rank of phase 3p's world 2: joins the group from the BIGDL_*
+    environment and writes each job's readings to
+    ``out/<job>.w<world>.<rank>.json``."""
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init_distributed(backend=backend)
+    rank, world = Engine.process_index(), Engine.process_count()
+    try:
+        for job in jobs.split(","):
+            t0 = time.perf_counter()
+            res = MP_JOBS[job](world, rank, out)
+            res["job_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, f"{job}.w{world}.{rank}.json"),
+                      "w") as f:
+                json.dump(res, f)
+    finally:
+        Engine.shutdown_distributed()
+    return 0
+
+
+def mp_world1(jobs, out: str) -> float:
+    """Phase 3p's world-1 yardsticks in this process (no group: a mesh of
+    one needs none), written as a rank's would be; returns the seconds."""
+    t = time.perf_counter()
+    try:
+        for job in jobs:
+            t0 = time.perf_counter()
+            res = MP_JOBS[job](1, 0, out)
+            res["job_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, f"{job}.w1.0.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        DIST_MODELS.pop("mp", None)
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t
+
+
+def mp_spawn(jobs, out: str) -> float:
+    """Phase 3p's world-2 rank processes over the card (gloo), awaited."""
+    argv = [sys.executable, os.path.abspath(__file__),
+            "--model-parallel-rank", ",".join(jobs), "--dist-out", out,
+            "--dist-backend", "gloo"]
+    return dist_spawn(2, "gloo", jobs, out, argv=argv, timeout=MP_TIMEOUT_S)
+
+
+def mp_cli(out: str) -> dict:
+    """(d): ``python -m bigdl_tpu_torch.apps.transformer train`` with
+    ``--tensorParallel 2`` and with ``--contextParallel ring``, each at
+    world 2 over the card (gloo), MP_CLI_ITERS iterations, the two worlds
+    started together; each one's exit, losses and seconds."""
+    import re
+    import threading
+    base = [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer",
+            "train", "--vocab", str(VOCAB), "--embedDim",
+            str(CONFIG["embed_dim"]), "--numHeads", str(CONFIG["num_heads"]),
+            "--numLayers", "2", "--seqLen", str(TRAIN_SEQ), "-b",
+            str(TRAIN_BATCH), "--synthetic-size",
+            str(TRAIN_BATCH * MP_CLI_ITERS), "-e", "1", "--llamaBlock",
+            "--backend", "gloo"]
+    runs = {"tp": ["--tensorParallel", "2"],
+            "cp": ["--contextParallel", "ring"]}
+    res, errors = {}, []
+
+    def one(name):
+        sub = os.path.join(out, f"cli_{name}")
+        os.makedirs(sub, exist_ok=True)
+        try:
+            res[name] = {"spawn_s": dist_spawn(
+                2, "gloo", [name], sub, argv=base + runs[name],
+                timeout=MP_TIMEOUT_S)}
+        except RuntimeError as e:   # read after both have ended
+            errors.append(f"(d) {name}: {e}")
+            return
+        with open(os.path.join(sub, "perf.w2.rank0.log")) as f:
+            text = f.read()
+        losses = [float(m.group(1)) for ln in text.splitlines()
+                  if "Iteration" in ln for m in [re.search(
+                      r"[Ll]oss (?:is )?([-+0-9.eEinaf]+?)\.?(?:\s|$)", ln)]
+                  if m]
+        res[name]["losses"] = losses
+        if len(losses) != MP_CLI_ITERS or not np.isfinite(losses).all():
+            errors.append(f"(d) {name}: losses {losses} in its log:\n"
+                          f"{text[-2000:]}")
+    threads = [threading.Thread(target=one, args=(n,)) for n in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, " | ".join(errors))
+    return res
+
+
+def mp_ranks(controls: bool = False) -> tuple:
+    """Phase 3p's processes, in a new folder: the world-2 ranks, then (d)'s
+    two CLI worlds. Returns (the folder, the spawns' seconds, (d)'s
+    readings)."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="bigdl_mp_")
+    try:
+        spawn_s = {"w2": mp_spawn(["tp", "cp", "decode"] + (
+            ["tp_controls"] if controls else []), out)}
+        return out, spawn_s, mp_cli(out)
+    except BaseException:
+        shutil.rmtree(out, ignore_errors=True)
+        raise
+
+
+def run_model_parallel(controls: bool = False, ranks: Beside = None) -> dict:
+    """Phase 3p; returns its K1-K3 launches, every rank's. ``controls``:
+    also (a) in f32 at both worlds and with the region entries' backward
+    all-reduce dropped, each held to its side of the tolerance.
+    ``ranks``: ``mp_ranks`` already running beside earlier phases (the
+    whole script starts it before phase 3i); None: they run here."""
+    t_phase = time.perf_counter()
+    if ranks is None:
+        ranks = Beside(mp_ranks, controls)
+    out, spawn_s, d = ranks.result()
+    failed = []
+
+    def defer(cond, what):
+        if not cond:
+            failed.append(what)
+    launches = collections.Counter()
+    try:
+        spawn_s["w1_in_process"] = mp_world1(["tp", "cp_w1", "decode"] + (
+            ["tp_controls"] if controls else []), out)
+        w1 = dist_read(out, "tp", 1)
+        w2 = [dist_read(out, "tp", 2, r) for r in range(2)]
+        flash_want = {k: MP_LAYERS * MP_ITERS for k in flash_counters()}
+        # (a) tensor parallelism
+        a = {"w1": {"losses": w1["tp"]["losses"],
+                    "ms_per_iteration": w1["tp"]["ms_per_iteration"],
+                    "resident_mib": w1["tp"]["resident_mib"]}}
+        for mode in ("tp", "sp"):
+            r0 = w2[0][mode]
+            a[mode] = {
+                "update_distance": dist_update_distance(
+                    out, f"mp_{'tp_sp' if mode == 'sp' else 'tp'}_w2",
+                    "mp_tp_w1"),
+                "loss_gap": dist_loss_gap(r0["losses"], w1["tp"]["losses"]),
+                "losses": r0["losses"],
+                "ms_per_iteration": r0["ms_per_iteration"],
+                "collectives_per_step": r0["collectives"]["per_step"],
+                "collective_mib_per_step": r0["collectives"]["mib_per_step"],
+                "collective_share": r0["collective_share"],
+                "resident_mib": r0["resident_mib"], "run_s": r0["run_s"]}
+            want = mp_tp_structure(mode == "sp")
+            for rank in range(2):
+                got = w2[rank][mode]["collectives"]["per_step"]
+                defer(got == want, f"(a) {mode} rank {rank}: collectives a "
+                      f"step {got}, want {want}")
+                got = {k: w2[rank][mode]["launches"][k] for k in flash_want}
+                defer(got == flash_want, f"(a) {mode} rank {rank}: K1-K3 "
+                      f"{got}, want {flash_want}")
+            defer(a[mode]["update_distance"] <= MP_UPDATE_TOL
+                  and a[mode]["loss_gap"] <= MP_LOSS_TOL,
+                  f"(a) {mode} at tp=2 against world 1: {a[mode]}")
+            for part in ("params", "optim"):
+                defer(r0["resident_mib"][part]
+                      < 0.6 * w1["tp"]["resident_mib"][part],
+                      f"(a) {mode}'s {part} are not split: "
+                      f"{r0['resident_mib']} against {w1['tp']}")
+        got = {k: w1["tp"]["launches"][k] for k in flash_want}
+        defer(got == flash_want, f"(a) world 1: K1-K3 {got}")
+        if controls:
+            c1 = dist_read(out, "tp_controls", 1)
+            c2 = dist_read(out, "tp_controls", 2)
+            a["controls"] = {
+                "fp32": {"update_distance": dist_update_distance(
+                    out, "mp_tp_fp32_w2", "mp_tp_fp32_w1"),
+                    "loss_gap": dist_loss_gap(c2["fp32"]["losses"],
+                                              c1["fp32"]["losses"])},
+                "dropped": {"update_distance": dist_update_distance(
+                    out, "mp_tp_dropped", "mp_tp_w1"),
+                    "loss_gap": dist_loss_gap(c2["dropped"]["losses"],
+                                              w1["tp"]["losses"])}}
+            drop = a["controls"]["dropped"]
+            defer(drop["update_distance"] > MP_UPDATE_TOL,
+                  f"control: (a) with the entries' backward all-reduce "
+                  f"dropped passes (a)'s tolerance: {drop}")
+        # (b) context parallelism
+        cw1 = dist_read(out, "cp_w1", 1)["w1"]
+        cw2 = [dist_read(out, "cp", 2, r) for r in range(2)]
+        z1 = np.load(os.path.join(out, "mp_cp_w1.0.npz"))
+        b = {"w1": {"losses": cw1["losses"],
+                    "ms_per_iteration": cw1["ms_per_iteration"]}}
+        for mode, layout in MP_CP_MODES:
+            key = f"{mode}_{layout}"
+            z2 = np.load(os.path.join(out, f"mp_cp_{key}_w2.0.npz"))
+            # in units of the bf16 step at each value (2^-7 |x|, and 2^-7
+            # below 1): the log-probs are bf16
+            gap = max(float((np.abs(z2[f"logp_{v}"] - z1[f"logp_{v}"])
+                             / (2 ** -7 * np.maximum(np.abs(z1[f"logp_{v}"]),
+                                                     1.0))).max())
+                      for v in ("target", "head"))
+            g1, g2 = z1["grads"].astype(np.float64), z2["grads"]
+            gdist = float(np.linalg.norm(g2 - g1) / np.linalg.norm(g1))
+            r0 = cw2[0][key]
+            b[key] = {"logp_gap": gap, "grad_distance": gdist,
+                      "losses": r0["losses"],
+                      "loss_gap": dist_loss_gap(r0["losses"][:1],
+                                                cw1["losses"][:1]),
+                      "ms_per_iteration": r0["ms_per_iteration"],
+                      "collectives_per_step": r0["collectives"]["per_step"],
+                      "collective_mib_per_step":
+                          r0["collectives"]["mib_per_step"],
+                      "run_s": r0["run_s"]}
+            defer(gap <= MP_LOGP_TOL and gdist <= MP_GRAD_TOL,
+                  f"(b) {key} against world 1's full attention: {b[key]}")
+            want = mp_cp_structure(mode)
+            for rank in range(2):
+                run = cw2[rank][key]
+                defer(run["collectives"]["per_step"] == want,
+                      f"(b) {key} rank {rank}: collectives a step "
+                      f"{run['collectives']['per_step']}, want {want}")
+                k1 = MP_LAYERS * MP_CP_ITERS * mp_cp_k1_structure(
+                    mode, layout, rank, 2)
+                kw = {k: k1 for k in flash_counters()}
+                got = {k: run["launches"][k] for k in kw}
+                defer(got == kw, f"(b) {key} rank {rank}: K1-K3 {got}, "
+                      f"want {kw}")
+                b[key][f"k1_per_layer_step_rank{rank}"] = \
+                    mp_cp_k1_structure(mode, layout, rank, 2)
+        # (c) decoding over the mesh
+        d1 = dist_read(out, "decode", 1)
+        d2 = [dist_read(out, "decode", 2, r) for r in range(2)]
+        c = {"w1_ms_per_token": d1["w1"]["ms_per_token"]}
+        twin = mp_model(torch.bfloat16).eval()
+        prompts = d1["prompts"]
+        for name in ("dp", "tp"):
+            got = d2[0][name]["tokens"]
+            defer(got == d2[1][name]["tokens"],
+                  f"(c) {name}: the ranks returned other tokens")
+            differ = sum(g != w for g, w in zip(got, d1["w1"]["tokens"]))
+            gap = greedy_gap(twin, list(zip(prompts, got))) if differ else 0.0
+            c[name] = {"ms_per_token": d2[0][name]["ms_per_token"],
+                       "rows_differing": differ, "greedy_gap": gap,
+                       "collectives": d2[0][name]["collectives"]}
+            defer(not differ or gap <= MP_GAP_TOL,
+                  f"(c) {name}-decode's tokens differ from world 1's with a "
+                  f"teacher-forced gap {gap} > {MP_GAP_TOL}")
+        del twin
+        torch.cuda.empty_cache()
+        by_run = {}   # K1 launches of each run, every rank's
+        for tag, runs in (("w2", w2), ("w2", cw2), ("w2", d2),
+                          ("w1", [w1, {"cp": cw1}, d1])):
+            for run in runs:
+                for name, part in run.items():
+                    if isinstance(part, dict) and "launches" in part:
+                        launches.update(part["launches"])
+                        key = f"{tag}:{name}"
+                        by_run[key] = (by_run.get(key, 0)
+                                       + part["launches"]["flash_fwd"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log({"model_parallel": {
+        "a_tensor_parallel": a, "b_context_parallel": b,
+        "c_mesh_decode": c, "d_cli": d,
+        "tolerances": {"update": MP_UPDATE_TOL, "loss": MP_LOSS_TOL,
+                       "logp": MP_LOGP_TOL, "grad": MP_GRAD_TOL,
+                       "gap": MP_GAP_TOL},
+        "staged_collectives": "shift (gloo refuses CUDA tensors in "
+                              "send/recv); all_to_all takes them",
+        "layers": MP_LAYERS, "launches": dict(launches),
+        "k1_by_run": by_run,
+        "spawn_s": spawn_s, "job_s": DIST_JOB_S,
+        "phase_s": time.perf_counter() - t_phase}})
+    check(not failed, "3p: " + " | ".join(failed))
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -9469,8 +10194,24 @@ def main(argv=None) -> int:
         "--distributed-rank", metavar="JOBS",
         help="phase 3o's rank process: run JOBS (comma-separated) in the "
              "process group of the BIGDL_* environment")
-    parser.add_argument("--dist-out", help="with --distributed-rank: the "
-                        "folder for the readings")
+    parser.add_argument(
+        "--model-parallel-only", action="store_true",
+        help="run only the kernels' build and phase 3p (the tensor and "
+             "sequence axes: tp=2 with and without sequence-parallel "
+             "regions, ring, zigzag and Ulysses context parallelism, dp- "
+             "and tp-decode, the CLI's --tensorParallel/--contextParallel) "
+             "and print its lines (no result line)")
+    parser.add_argument(
+        "--model-parallel-controls", action="store_true",
+        help="with --model-parallel-only: also run the controls that set "
+             "phase 3p's tolerances ((a) in f32 at both worlds, (a) with "
+             "the region entries' backward all-reduce dropped)")
+    parser.add_argument(
+        "--model-parallel-rank", metavar="JOBS",
+        help="phase 3p's rank process: run JOBS (comma-separated) in the "
+             "process group of the BIGDL_* environment")
+    parser.add_argument("--dist-out", help="with --distributed-rank or "
+                        "--model-parallel-rank: the folder for the readings")
     parser.add_argument("--dist-backend", default="nccl",
                         help="with --distributed-rank: the group's backend")
     parser.add_argument(
@@ -9492,6 +10233,9 @@ def main(argv=None) -> int:
     if args.distributed_rank:
         return run_distributed_rank(args.distributed_rank, args.dist_out,
                                     args.dist_backend)
+    if args.model_parallel_rank:
+        return run_model_parallel_rank(args.model_parallel_rank,
+                                       args.dist_out, args.dist_backend)
     t0 = time.perf_counter()
     card = environment()
     graph_census()
@@ -9536,6 +10280,11 @@ def main(argv=None) -> int:
         log({"distributed_launches": dist_launches,
              "total_s": time.perf_counter() - t0, "card": card})
         return 0
+    if args.model_parallel_only:
+        mp_launches = run_model_parallel(args.model_parallel_controls)
+        log({"model_parallel_launches": mp_launches,
+             "total_s": time.perf_counter() - t0, "card": card})
+        return 0
     if args.text_only:
         text_launches = run_text()
         log({"text_launches": text_launches,
@@ -9569,6 +10318,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     published_launches = timed("3g", run_published)
     train_launches, k1_run = timed("3b", run_training)
+    # phase 3o's rank processes run beside phases 3h-3n (PERF.md §6)
+    dist_ranks_beside = Beside(dist_ranks)
     ckpt_launches = timed("3h", run_checkpoints, k1_run)
     graph_train_launches, graph_train_row = timed(
         "3f training", run_graph_training, k1_run)
@@ -9581,13 +10332,17 @@ def main(argv=None) -> int:
     resnet_launches = timed("3c", run_resnet)
     resnet_launches = {k: n + ckpt_launches[k]
                        for k, n in resnet_launches.items()}
+    # phase 3p's rank processes and CLI worlds beside phases 3i-3n
+    mp_ranks_beside = Beside(mp_ranks)
     zoo_launches, zoo_shapes = timed("3i", run_zoo)
     perf_launches, _ = timed("3j", run_perf)
     timed("3k", run_layer_zoo)
     text_launches = timed("3l", run_text)
     timed("3m", run_files)
     plat_launches = timed("3n", run_platform)
-    dist_launches = timed("3o", run_distributed)
+    dist_launches = timed("3o", run_distributed, False, dist_ranks_beside)
+    mp_launches = collections.Counter(timed("3p", run_model_parallel, False,
+                                            mp_ranks_beside))
     resnet_launches = {k: n + plat_launches[k] + dist_launches[k]
                        for k, n in resnet_launches.items()}
     roof, roof_launches = timed("4a", run_roofline)
@@ -9596,9 +10351,10 @@ def main(argv=None) -> int:
                            + plane_launches[k] + train_launches[k]
                            + published_launches[k] + text_launches[k]
                            + plat_launches[k] + dist_launches[k]
+                           + mp_launches[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd({k: n + text_launches[k] + plat_launches[k]
-                                + dist_launches[k]
+                                + dist_launches[k] + mp_launches[k]
                                 for k, n in train_launches.items()}),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]
@@ -9627,5 +10383,17 @@ def main(argv=None) -> int:
     return 0
 
 
+def stop_spawned() -> None:
+    """Kill every rank process still running (a phase failed while
+    another phase's ranks ran beside it)."""
+    for p in SPAWNED:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_spawned()

@@ -117,11 +117,30 @@ def test_encoder_positional(args):
     ("TransformerEncoderLayer", {"moe_experts": 4}),
     ("TransformerEncoder", {"moe_k": 1})])
 def test_unported_arguments_refuse_other_values(cls, kw):
+    """The MoE arguments still raise, naming ROADMAP A.4; the blockwise and
+    context-parallel ones (ported) reach the attention as the
+    reference's do."""
     args = {"MultiHeadAttention": (8, 2),
             "TransformerEncoderLayer": (8, 2, 16),
             "TransformerEncoder": (1, 8, 2, 16)}[cls]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        getattr(nn, cls)(*args, **kw)
+    if any(k.startswith("moe") for k in kw):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+            getattr(nn, cls)(*args, **kw)
+        return
+    jm, tm = getattr(jnn, cls)(*args, **kw), getattr(nn, cls)(*args, **kw)
+    ja = next(m for m in _modules(jm) if isinstance(m, jnn.MultiHeadAttention))
+    ta = next(m for m in tm.modules() if isinstance(m, nn.MultiHeadAttention))
+    for name in ("block_size", "seq_axis", "seq_mode", "seq_layout"):
+        assert getattr(ta, name) == getattr(ja, name), name
+    for name, value in kw.items():
+        assert getattr(ta, name) == value
+
+
+def _modules(m):
+    out = [m]
+    for child in m._modules.values():
+        out += _modules(child)
+    return out
 
 
 def test_sample_to_batch_positional():

@@ -298,7 +298,17 @@ def test_prefill_takes_plain_core_on_cpu():
                                  dict(seq_layout="zigzag"),
                                  dict(moe_experts=4), dict(moe_k=1)])
 def test_build_lm_rejects_unported_options(bad):
+    """The MoE options still raise; the context-parallel ones (ported)
+    build the model with its attention sharded over the axis."""
     kw = dict(LLAMA, **bad)
+    if not any(k.startswith("moe") for k in bad):
+        from bigdl_tpu_torch.nn import MultiHeadAttention
+        model = build_lm(V, **kw, device="cpu")
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                for k, v in bad.items():
+                    assert getattr(m, k) == v
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lm(V, **kw, device="cpu")
 
@@ -308,9 +318,18 @@ def test_build_lm_rejects_unported_options(bad):
     # with the reference's ValueError
     (dict(num_beams=2, rolling_cache=True), ValueError, "sliding window"),
     (dict(rolling_cache=True), ValueError, "sliding window"),
-    (dict(mesh=object()), NotImplementedError, "ROADMAP")])
+    # ported: a mesh of one decodes as without one
+    (dict(mesh="local"), None, None)])
 def test_generate_rejects_unported_options(kw, exc, match):
     _, tm = _pair("llama")
+    if exc is None:
+        from bigdl_tpu_torch.parallel import MeshTopology
+        mesh = MeshTopology(data=1).build(device="cpu")
+        want = generate(tm, _ids(1, 2), 2, greedy=True, device="cpu")
+        got = generate(tm, _ids(1, 2), 2, greedy=True, device="cpu",
+                       mesh=mesh)
+        assert torch.equal(got, want)
+        return
     with pytest.raises(exc, match=match):
         generate(tm, _ids(1, 2), 2, device="cpu", **kw)
     if exc is ValueError:

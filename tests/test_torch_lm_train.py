@@ -238,8 +238,8 @@ def test_unported_setters_raise(setter, tmp_path):
 
 def test_distributed_dataset_raises():
     """A distributed dataset trains data-parallel (``DistriOptimizer``,
-    here a mesh of one); a model-parallel mesh axis raises, naming its
-    ROADMAP item."""
+    here a mesh of one); a tensor axis (ported) needs its ranks, and fsdp
+    over one still raises, naming its ROADMAP item."""
     from bigdl_tpu_torch.parallel import DistriOptimizer, MeshTopology
     ds = DataSet.array(synthetic_corpus(B, S, V), distributed=True)
     assert ds.is_distributed() and ds.size() == B
@@ -247,10 +247,20 @@ def test_distributed_dataset_raises():
     opt = Optimizer(model, ds >> SampleToBatch(B), FusedLMHeadCriterion(),
                     device="cpu")
     assert isinstance(opt, DistriOptimizer)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A\.4 \(distributed plane: model"):
+    with pytest.raises(ValueError, match="no process group"):
         Optimizer(model, ds, FusedLMHeadCriterion(), device="cpu",
                   topology=MeshTopology(data=1, tensor=2))
+    from bigdl_tpu_torch.parallel.mesh import Mesh
+    tensor2 = Mesh(1, 0, "cpu", None, sizes={"tensor": 2})
+    assert tensor2.shape == {"tensor": 2} and tensor2.size == 1
+    import unittest.mock as mock
+    with mock.patch.object(MeshTopology, "build", lambda self, d=None:
+                           tensor2), \
+            pytest.raises(NotImplementedError,
+                          match=r"ROADMAP A\.4 \(distributed plane: model"):
+        Optimizer(model, ds, FusedLMHeadCriterion(), device="cpu",
+                  topology=MeshTopology(data=1, tensor=2),
+                  sync_mode="fsdp")
 
 
 def test_sample_to_batch_remainder_matches_reference():

@@ -75,8 +75,11 @@ def test_fsdp_specs_and_fraction_equal_the_references(models, n):
                        for k, p in params.items())
         frac = shard_fraction(params, n)
         assert per_rank == pytest.approx(full * (1 - frac + frac / n))
-    with pytest.raises(NotImplementedError, match="model-parallel axes"):
-        fsdp_param_specs({"w": torch.zeros(4, 4)}, 2, base_specs={})
+    # over a tensor axis (ported): the base's tensor entry kept, the data
+    # axis on the free dim
+    assert fsdp_param_specs({"w": torch.zeros(4, 4)}, 2,
+                            base_specs={"w": ("tensor", None)}) == {
+        "w": ("tensor", "data")}
 
 
 def test_compressed_tensor_bytes_equal_the_references():
@@ -104,6 +107,10 @@ def test_compressed_tensor_bytes_equal_the_references():
 
 def test_mesh_and_engine_refusals():
     for axis in ("tensor", "pipeline", "sequence", "expert"):
+        if axis in ("tensor", "sequence"):   # ported: they need their ranks
+            with pytest.raises(ValueError, match="no process group"):
+                MeshTopology(**{axis: 2}).build(device="cpu")
+            continue
         with pytest.raises(NotImplementedError, match=MODEL_PARALLEL.replace(
                 "(", r"\(").replace(")", r"\)")):
             MeshTopology(**{axis: 2}).build(device="cpu")
@@ -142,7 +149,8 @@ def test_optimizer_routes_a_distributed_dataset():
         Trigger.max_iteration(2))
     opt.optimize()
     assert len(opt.history) == 2
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    # a tensor axis (ported) needs its ranks
+    with pytest.raises(ValueError, match="no process group"):
         Optimizer(model, DataSet.array(samples, distributed=True),
                   nn.ClassNLLCriterion(), device="cpu",
                   topology=MeshTopology(data=1, tensor=2))

@@ -294,13 +294,296 @@ def job_ckpt_restore(outdir, rank, world):
          ckpt_run(outdir, world, steps=4, resume=True))
 
 
+def job_uneven(outdir, rank, world):
+    """C.8: 5 records over the ranks (3 and 2 at world 2), a batch of one,
+    two epochs: every rank ends, at the agreed iteration count."""
+    rng = np.random.default_rng(11)
+    samples = [Sample(rng.normal(0, 1, (4,)).astype("float32"),
+                      np.float32(rng.normal())) for _ in range(5)]
+    torch.manual_seed(0)
+    model = nn.Linear(4, 1)
+    ds = DataSet.array(samples, distributed=True) >> SampleToBatch(1)
+    opt = Optimizer(model, ds, nn.MSECriterion(), device="cpu",
+                    sync_mode="allreduce")
+    opt.set_optim_method(SGD(learningrate=0.1))
+    opt.set_end_when(Trigger.max_epoch(2))
+    opt.optimize()
+    save(outdir, "uneven", rank, {
+        **export_tree_state(model)[0],
+        "iterations": np.array([len(opt.history)]),
+        "epochs": np.array([h["epoch"] for h in opt.history])})
+
+
+def _grads(module):
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for n, p in module.named_parameters()}
+
+
+def job_tp(outdir, rank, world):
+    """Over MeshTopology(data=2, tensor=2): (1) the TransformerEncoderLayer
+    of ``tp_layer.npz`` sharded over the tensor axis, without and with
+    sequence-parallel regions: forward, input and (reassembled) weight
+    gradients, and the collectives of one forward and backward; (2) the
+    MLP of ``tp_mlp.npz`` trained 4 SGD-momentum steps at dp=2 x tp=2."""
+    from bigdl_tpu_torch.nn.containers import Sequential
+    from bigdl_tpu_torch.parallel import tensor_parallel as tp
+    from bigdl_tpu_torch.parallel.mesh import COLLECTIVES, MeshTopology
+    mesh = MeshTopology(data=2, tensor=2).build()
+    z = np.load(os.path.join(outdir, "tp_layer.npz"))
+    params = {k[2:]: z[k] for k in z.files if k.startswith("p:")}
+    out = {}
+    for sp in (False, True):
+        layer = nn.TransformerEncoderLayer(
+            16, 4, 32, activation="swiglu", rope=True, num_kv_heads=2,
+            causal=True)
+        import_tree_state(layer, params, {})
+        tp.shard_parameters(layer, mesh)
+        if sp:
+            assert tp.enable_sequence_parallel(layer, mesh) == 1
+        x = torch.from_numpy(z["x"]).requires_grad_()
+        COLLECTIVES.reset()
+        y = layer(x)
+        (y * torch.from_numpy(z["cot"])).sum().backward()
+        counts = dict(COLLECTIVES.by_axis)
+        grads = _grads(layer)
+        partial = tp.sp_partial_params(layer)
+        for n in partial:
+            mesh.all_reduce(grads[n], axis="tensor")
+        grads = tp.gather_full(layer, grads)
+        tag = "sp" if sp else "tp"
+        out[f"{tag}:y"] = y.detach().numpy()
+        out[f"{tag}:dx"] = x.grad.numpy()
+        out.update({f"{tag}:g:{n}": g.numpy() for n, g in grads.items()})
+        out[f"{tag}:partial"] = np.array(sorted(partial))
+        with open(os.path.join(outdir, f"tp_counts_{tag}.{rank}.json"),
+                  "w") as f:
+            json.dump(counts, f)
+        # the full leaves, reassembled bit for bit
+        full = export_tree_state(layer)[0]
+        out[f"{tag}:roundtrip"] = np.array(
+            all(np.array_equal(full[k], params[k]) for k in params))
+        out[f"{tag}:in_proj_local"] = layer.self_attn.in_proj_weight \
+            .detach().numpy()
+        # the full arrays carried into the sharded layer: this rank's slices
+        local = {n: p.detach().clone() for n, p in layer.named_parameters()}
+        import_tree_state(layer, params, {})
+        out[f"{tag}:import_local"] = np.array(all(
+            torch.equal(p, local[n]) for n, p in layer.named_parameters()))
+    # (1b) a lone column Linear (its output gathered) and a lone row one
+    # (its input split) against the same layers whole
+    for mode in (tp.COLUMN, tp.ROW):
+        gen = torch.Generator().manual_seed(4)
+        lone = nn.Linear(12, 16, generator=gen)
+        lone.tp_mode = mode
+        whole = nn.Linear(12, 16)
+        whole.load_state_dict(lone.state_dict())
+        tp.shard_parameters(lone, mesh)
+        x = torch.randn(3, 12, generator=gen)
+        xs, xw = x.clone().requires_grad_(), x.clone().requires_grad_()
+        ys, yw = lone(xs), whole(xw)
+        ys.square().sum().backward()
+        yw.square().sum().backward()
+        grads = tp.gather_full(lone, _grads(lone))
+        out[f"lone_{mode}:err"] = np.array(max(
+            (ys - yw).abs().max().item(), (xs.grad - xw.grad).abs().max()
+            .item(), *((grads[n] - p.grad).abs().max().item()
+                       for n, p in whole.named_parameters())))
+    # (2) dp x tp training
+    zm = np.load(os.path.join(outdir, "tp_mlp.npz"))
+    mlp = (Sequential().add(nn.Linear(12, 16)).add(nn.ReLU())
+           .add(nn.Linear(16, 5)).add(nn.LogSoftMax()))
+    import_tree_state(mlp, {k[2:]: zm[k] for k in zm.files
+                            if k.startswith("p:")}, {})
+    samples = [Sample(f, float(l)) for f, l in zip(zm["x"], zm["y"])]
+    ds = DataSet.array(samples, distributed=True) >> SampleToBatch(8)
+    opt = Optimizer(mlp, ds, nn.ClassNLLCriterion(), device="cpu",
+                    topology=MeshTopology(data=2, tensor=2))
+    opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+    ckpt = os.path.join(outdir, "tp_ckpt")
+    opt.set_checkpoint(ckpt, Trigger.several_iteration(2))
+    opt.set_end_when(Trigger.max_iteration(4))
+    opt.optimize()
+    out.update({"mlp:" + k: v for k, v in export_tree_state(mlp)[0].items()})
+    if rank == 0:
+        # the tp=2 snapshot after iteration 1 (``model.2``: the next is 2;
+        # full leaves) resumed by one process without a group, to 4
+        one = (Sequential().add(nn.Linear(12, 16)).add(nn.ReLU())
+               .add(nn.Linear(16, 5)).add(nn.LogSoftMax()))
+        again = Optimizer(one, DataSet.array(samples) >> SampleToBatch(16),
+                          nn.ClassNLLCriterion(), device="cpu")
+        again.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+        again.resume(os.path.join(ckpt, "model.2"),
+                     os.path.join(ckpt, "state.2"))
+        again.set_end_when(Trigger.max_iteration(4))
+        again.optimize()
+        out.update({"mlp_tp1:" + k: v
+                    for k, v in export_tree_state(one)[0].items()})
+        out["mlp_tp1:iterations"] = np.array(len(again.history))
+    out["mlp:local_weight_shape"] = np.array(
+        list(mlp._modules.values())[0].weight.shape)
+    save(outdir, "tp", rank, out)
+
+
+def job_cli(outdir, rank, world):
+    """``apps.transformer train`` at this world: ``--tensorParallel 2``
+    (data = world / 2, sequence-parallel regions) and ``--contextParallel
+    ring --ringLayout zigzag``; each run's losses."""
+    from bigdl_tpu_torch.apps import transformer as app
+    tiny = ["--device", "cpu", "--backend", "gloo", "-e", "1",
+            "--synthetic-size", "8", "--vocab", "16", "--embedDim", "16",
+            "--numHeads", "4", "--numLayers", "1", "--llamaBlock"]
+    runs = {}
+    opt, _ = app.optimizer(tiny + ["-b", "4", "--seqLen", "8",
+                                   "--tensorParallel", "2"])
+    opt.optimize()
+    runs["tp"] = [h["loss"] for h in opt.history]
+    run, _ = app.optimizer(tiny + ["-b", "4", "--seqLen", "16",
+                                   "--contextParallel", "ring",
+                                   "--ringLayout", "zigzag"])
+    run.optimize()
+    runs["cp"] = [h["loss"] for h in run.history]
+    with open(os.path.join(outdir, f"cli.{rank}.json"), "w") as f:
+        json.dump(runs, f)
+
+
+#: ring_self_attention's cases: (mode, layout, use_kernel, causal)
+CP_CASES = [("ring", layout, kernel, causal)
+            for layout in ("contiguous", "zigzag")
+            for kernel in (False, True) for causal in (False, True)] + [
+    ("ulysses", "contiguous", None, causal) for causal in (False, True)]
+#: the tiny Llama-recipe LM of the context-parallel and decode jobs
+TINY_LM = dict(embed_dim=16, num_heads=4, num_kv_heads=2, ffn_dim=32,
+               num_layers=2, max_len=64, rope=True, activation="swiglu",
+               norm="rms", bias=False, tie_embeddings=True)
+CP_LM_CASES = (("ring", "contiguous"), ("ring", "zigzag"),
+               ("ulysses", "contiguous"))
+
+
+def cp_case_name(case):
+    mode, layout, kernel, causal = case
+    return (f"{mode}_{layout}_{'kernel' if kernel else 'partial'}"
+            f"_{'causal' if causal else 'full'}")
+
+
+def job_cp(outdir, rank, world):
+    """Context parallelism over MeshTopology(sequence=world): (1) the
+    attention of ``cp.npz`` through ``ring_self_attention`` in each of
+    CP_CASES, its output and input gradients and collectives; (2) the tiny
+    LM of ``cp_lm.npz`` built with ``seq_axis`` in each of CP_LM_CASES
+    through ``ContextParallelLM``: its gathered log-probs, and its first
+    step's gradients (the ranks' sum) beside the whole model's."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.parallel.context import (ContextParallelLM,
+                                                  ring_self_attention)
+    from bigdl_tpu_torch.parallel.mesh import COLLECTIVES, MeshTopology
+    mesh = MeshTopology(sequence=world).build()
+    z = np.load(os.path.join(outdir, "cp.npz"))
+    out, counts = {}, {}
+    for case in CP_CASES:
+        mode, layout, kernel, causal = case
+        name = cp_case_name(case)
+        q, k, v = (torch.from_numpy(z[a]).requires_grad_()
+                   for a in ("q", "k", "v"))
+        COLLECTIVES.reset()
+        o = ring_self_attention(q, k, v, mesh, "seq", causal=causal,
+                                mode=mode, use_kernel=kernel, layout=layout)
+        (o * torch.from_numpy(z["cot"])).sum().backward()
+        counts[name] = dict(COLLECTIVES.by_axis)
+        out[f"{name}:o"] = o.detach().numpy()
+        for a, t in (("q", q), ("k", k), ("v", v)):
+            out[f"{name}:d{a}"] = t.grad.numpy()
+    zl = np.load(os.path.join(outdir, "cp_lm.npz"))
+    params = {k[2:]: zl[k] for k in zl.files if k.startswith("p:")}
+    tokens = torch.from_numpy(zl["tokens"])
+    targets = torch.from_numpy(zl["targets"])
+    crit = nn.FusedLMHeadCriterion()
+    whole = build_lm(64, **TINY_LM, device="cpu")
+    import_tree_state(whole, params, {})
+    whole.train()
+    crit.forward(whole(tokens), targets).backward()
+    for n, g in _grads(whole).items():
+        out[f"whole:g:{n}"] = g.numpy()
+    for mode, layout in CP_LM_CASES:
+        tag = f"lm_{mode}_{layout}"
+        model = build_lm(64, **TINY_LM, device="cpu", seq_axis="seq",
+                         seq_mode=mode, seq_layout=layout)
+        import_tree_state(model, params, {})
+        lm = ContextParallelLM(model, mesh, layout=layout)
+        model.eval()
+        with torch.no_grad():
+            out[f"{tag}:logp"] = lm.unshard(lm(tokens)).numpy()
+        model.train()
+        loss = crit.forward(lm(tokens), lm.shard(targets)) / world
+        loss.backward()
+        for n, g in _grads(model).items():
+            mesh.all_reduce(g, axis="seq")
+            out[f"{tag}:g:{n}"] = g.numpy()
+    save(outdir, "cp", rank, out)
+    with open(os.path.join(outdir, f"cp_counts.{rank}.json"), "w") as f:
+        json.dump(counts, f)
+
+
+def job_decode(outdir, rank, world):
+    """generate(mesh=...) of the tiny LM of ``decode.npz``: dp-decode over
+    MeshTopology(data=world) and tp-decode over MeshTopology(tensor=world),
+    greedy, and the model whole again after the tp call."""
+    from bigdl_tpu_torch.models.generation import generate
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.parallel.mesh import COLLECTIVES, MeshTopology
+    z = np.load(os.path.join(outdir, "decode.npz"))
+    params = {k[2:]: z[k] for k in z.files if k.startswith("p:")}
+    model = build_lm(64, **TINY_LM, device="cpu")
+    import_tree_state(model, params, {})
+    prompt = torch.from_numpy(z["prompt"])
+    out = {}
+    COLLECTIVES.reset()
+    out["dp"] = generate(model, prompt, 6, greedy=True, device="cpu",
+                         mesh=MeshTopology(data=world).build()).numpy()
+    out["dp_collectives"] = np.array(COLLECTIVES.by_axis.get(
+        "all_gather/data", 0))
+    tmesh = MeshTopology(tensor=world).build()
+    out["tp"] = generate(model, prompt, 6, greedy=True, device="cpu",
+                         mesh=tmesh, tensor_axis="tensor").numpy()
+    out["tp_then_whole"] = np.array(all(
+        np.array_equal(v, params[k])
+        for k, v in export_tree_state(model)[0].items()))
+    with pytest_raises(ValueError, "not a multiple"):
+        generate(model, prompt[:3], 2, greedy=True, device="cpu",
+                 mesh=MeshTopology(data=world).build())
+    with pytest_raises(ValueError, "no 'data' axis"):
+        generate(model, prompt, 2, greedy=True, device="cpu", mesh=tmesh)
+    with pytest_raises(ValueError, "is not a mesh axis"):
+        generate(model, prompt, 2, greedy=True, device="cpu", mesh=tmesh,
+                 tensor_axis="model")
+    save(outdir, "decode", rank, out)
+
+
+class pytest_raises:
+    """``pytest.raises`` for the rank processes (which import no pytest)."""
+
+    def __init__(self, exc, match):
+        self.exc, self.match = exc, match
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, value, tb):
+        if kind is None or not issubclass(kind, self.exc) \
+                or self.match not in str(value):
+            raise AssertionError(f"expected {self.exc.__name__} "
+                                 f"({self.match!r}), got {kind}: {value}")
+        return True
+
+
 JOBS = {"bn_plain": lambda o, r, w: job_bn(o, r, w, False),
         "bn_fused": lambda o, r, w: job_bn(o, r, w, True),
         "broadcast": job_broadcast, "clip": job_clip, "data": job_data,
         "lenet": job_lenet,
         "lenet_bf16": lambda o, r, w: job_lenet(o, r, w, LENET_BF16_RUNS),
         "validation": job_validation, "preempt": job_preempt,
-        "ckpt_save": job_ckpt_save, "ckpt_restore": job_ckpt_restore}
+        "ckpt_save": job_ckpt_save, "ckpt_restore": job_ckpt_restore,
+        "uneven": job_uneven, "tp": job_tp, "cp": job_cp,
+        "decode": job_decode, "cli": job_cli}
 
 
 def spawn(outdir, world, jobs):
