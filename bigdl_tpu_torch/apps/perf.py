@@ -33,8 +33,10 @@ the reference's ``batch * max(2, k)``; runs at several k over the same
 batches give it one value), and ``--memStats`` reading ``torch.cuda``'s
 allocator under the reference's four keys. The weights are drawn from
 seed 0 and the shuffle stream restarts from seed 0, so that two runs in
-one process see the same weights and batches. ``--moeExperts`` stops,
-naming ROADMAP A.4.
+one process see the same weights and batches. ``--moeExperts N`` gives a
+transformer model a top-2 routed mixture of N experts in every block,
+dispatched as ``--moeDispatch`` says (``scatter``, the default, or
+``einsum``), as the reference's.
 
 ``--distributed`` trains data-parallel (``DistriOptimizer``, allreduce)
 over the process group that the reference's environment names
@@ -62,16 +64,21 @@ _LSTM_VOCAB = 20_000
 _TRANSFORMER_VOCAB = 32_000
 
 
-def _build_model(name: str, device, fused_head: bool = True):
+def _build_model(name: str, device, fused_head: bool = True,
+                 moe_experts: int = 0, moe_dispatch: str = "scatter"):
     """(model, feature_shape, n_classes, int_vocab, seq_labels), as the
     reference's ``_build_model``: ``int_vocab > 0`` marks 1-based token
-    features, ``seq_labels`` per-timestep targets (the causal LMs)."""
+    features, ``seq_labels`` per-timestep targets (the causal LMs);
+    ``moe_experts``: every block's FFN a routed MoE (transformer models)
+    with ``moe_dispatch``."""
     from bigdl_tpu_torch.models import (inception, lenet, resnet, rnn,
                                         transformer, vgg, vit)
     kw = dict(device=device, seed=0)
     img = (224, 224, 3)
 
     def lm(*args, **options):
+        if moe_experts:
+            options["moe_experts"] = moe_experts
         return transformer.build_lm(_TRANSFORMER_VOCAB, *args,
                                     fused_head=fused_head, **options, **kw)
 
@@ -117,7 +124,15 @@ def _build_model(name: str, device, fused_head: bool = True):
     }
     if name not in builders:
         raise SystemExit(f"unknown model {name}; one of {sorted(builders)}")
-    return builders[name]()
+    if moe_experts and not name.startswith("transformer"):
+        raise SystemExit("--moeExperts applies to transformer models")
+    out = builders[name]()
+    if moe_experts:
+        from bigdl_tpu_torch.parallel.expert import MoE
+        for m in out[0].modules():
+            if isinstance(m, MoE):
+                m.dispatch = moe_dispatch
+    return out
 
 
 def parser() -> argparse.ArgumentParser:
@@ -147,9 +162,12 @@ def parser() -> argparse.ArgumentParser:
                     help="print the device allocator's statistics after "
                     "the run")
     ap.add_argument("--moeExperts", type=int, default=0,
-                    help="transformer models: routed MoE FFN (ROADMAP A.4)")
+                    help="transformer models: a top-2 routed MoE FFN with "
+                    "this many experts (gelu models only)")
     ap.add_argument("--moeDispatch", choices=("scatter", "einsum"),
-                    default="scatter")
+                    default="scatter",
+                    help="MoE token dispatch: ragged scatter (default) or "
+                    "dense GShard einsum masks")
     ap.add_argument("--no-fused-head", action="store_true",
                     help="LM only: TimeDistributed(Linear) + LogSoftMax and "
                     "ClassNLL instead of LMHead + FusedLMHeadCriterion")
@@ -200,9 +218,6 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
     """Parse ``argv``, train, and return (the JSON line's dict, the
     ``Optimizer``, whose ``history`` holds the losses)."""
     args = parser().parse_args(argv)
-    if args.moeExperts:
-        raise SystemExit("perf --moeExperts is not ported yet: ROADMAP A.4 "
-                         "(expert)")
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset.base import DataSet, Sample, SampleToBatch
     from bigdl_tpu_torch.dataset.device_cache import DeviceCachedDataSet
@@ -227,7 +242,8 @@ def run(argv: Optional[List[str]] = None) -> Tuple[dict, object]:
                              f"does not divide by {world} processes")
     dev = resolve_device(args.device)
     model, shape, n_class, int_vocab, seq_labels = _build_model(
-        args.model, dev, fused_head=not args.no_fused_head)
+        args.model, dev, fused_head=not args.no_fused_head,
+        moe_experts=args.moeExperts, moe_dispatch=args.moeDispatch)
 
     rng = np.random.RandomState(0)
     # enough records that a k-step window fits inside one epoch (epoch

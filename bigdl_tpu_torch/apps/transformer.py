@@ -42,8 +42,11 @@ N; ``-b`` is the global batch. ``train --contextParallel ring|ulysses``
 (``--ringLayout contiguous|zigzag``) shards the sequence over every
 process (``_train_context_parallel``). Both start the process group from
 the ``BIGDL_*`` environment (``--backend``: ``gloo`` for ranks that share
-a card). ``--moeExperts`` stops with a message naming its ROADMAP item
-(A.4).
+a card). ``--moeExperts N`` replaces every block's FFN with a top-2 routed
+mixture of N experts (``parallel.expert.MoE``; not with ``--llamaBlock``,
+as the reference; not with ``--contextParallel``; under
+``--tensorParallel`` without sequence-parallel regions, whose sequence
+blocks the router would see).
 """
 
 from __future__ import annotations
@@ -107,10 +110,6 @@ def text_corpus(args):
     return samples, tok.eos_id
 
 
-def _waits(flag: str, item: str):
-    raise SystemExit(f"{flag} is not ported yet: ROADMAP {item}")
-
-
 def optimizer(argv):
     """The training run of ``argv`` (a causal LM on the synthetic grammar,
     or on ``--textFile``) as an ``Optimizer``, not yet started, and the
@@ -155,8 +154,13 @@ def optimizer(argv):
                         help="BPE vocabulary size (>= 256: the bytes and "
                         "the merges)")
     args = parser.parse_args(argv)
-    if args.moeExperts:
-        _waits("--moeExperts", "A.4 (distributed plane: expert.py)")
+    if args.llamaBlock and args.moeExperts:
+        raise SystemExit("--llamaBlock (swiglu FFN) does not compose with "
+                         "--moeExperts yet")
+    if args.moeExperts and args.contextParallel:
+        raise SystemExit("--moeExperts does not compose with "
+                         "--contextParallel: the router would see this "
+                         "rank's sequence shard, not the batch")
     if args.contextParallel and args.tensorParallel > 1:
         raise SystemExit("--contextParallel and --tensorParallel do not "
                          "compose yet: pick one")
@@ -186,7 +190,8 @@ def optimizer(argv):
                      seq_mode=args.contextParallel or "ring",
                      seq_layout=(args.ringLayout
                                  if args.contextParallel == "ring"
-                                 else "contiguous"), **llama)
+                                 else "contiguous"),
+                     moe_experts=args.moeExperts, **llama)
     criterion = (FusedLMHeadCriterion() if args.fusedHead
                  else TimeDistributedCriterion(ClassNLLCriterion()))
     if args.contextParallel:
@@ -197,7 +202,7 @@ def optimizer(argv):
             enable_sequence_parallel
         topo = MeshTopology(data=data, tensor=args.tensorParallel)
         opt = build_optimizer(model, ds, criterion, args, topology=topo)
-        if args.seqLen % args.tensorParallel == 0:
+        if args.seqLen % args.tensorParallel == 0 and not args.moeExperts:
             enable_sequence_parallel(model, opt.mesh)
         return opt, args
     return build_optimizer(model, ds, criterion, args), args

@@ -71,6 +71,8 @@ def _named_params(model) -> List[Tuple[str, torch.nn.Module, str]]:
         out.append(("pos_embedding.weight", wpes[0], "weight"))
     for i in range(enc.num_layers):
         layer = enc._modules[f"layer{i}"]
+        if layer.moe_experts:
+            raise ValueError("MoE layers have no torch-convention mapping")
         p = f"encoder.layers.{i}"
         attn = layer.self_attn
         out.append((f"{p}.self_attn.in_proj_weight", attn, "in_proj_weight"))
@@ -168,14 +170,18 @@ def export_tree_state(model: torch.nn.Module
     ``Mul``/``CMul.weight``, a recurrent cell's ``w_ih``/``w_hh``/bias
     under ``<Recurrent>.cell``, ``BiRecurrent``'s under ``fwd``/``bwd``).
     A model sharded over a tensor axis
-    (``parallel.tensor_parallel.shard_parameters``) exports its full
-    leaves, reassembled over the axis: every rank of it must call."""
+    (``parallel.tensor_parallel.shard_parameters``) or an expert axis
+    (``parallel.expert.shard_experts``) exports its full leaves,
+    reassembled over the axis: every rank of it must call."""
     def numpy(t):
         return t.detach().float().cpu().numpy()
     params = {n: p.detach() for n, p in model.named_parameters()}
     if getattr(model, "_tp_mesh", None) is not None:
         from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
         params = gather_full(model, params)
+    if getattr(model, "_ep_mesh", None) is not None:
+        from bigdl_tpu_torch.parallel.expert import gather_experts
+        params = gather_experts(model, params)
     return ({n: numpy(p) for n, p in params.items()},
             {n: numpy(b) for n, b in model.named_buffers()})
 
@@ -198,12 +204,17 @@ def import_tree_state(model: torch.nn.Module, params: Dict[str, Any],
     and no other; every shape is checked before anything is written, so a
     rejected state leaves the model as it was. Values are copied into the
     existing tensors, on their device and in their dtype. Into a model
-    sharded over a tensor axis, the full arrays are cut to this rank's
-    slices (``tensor_parallel.local_slices``) first."""
+    sharded over a tensor or an expert axis, the full arrays are cut to
+    this rank's slices (``tensor_parallel.local_slices``,
+    ``expert.local_experts``) first."""
     if getattr(model, "_tp_mesh", None) is not None:
         from bigdl_tpu_torch.parallel.tensor_parallel import local_slices
         params = local_slices(model, {n: np.asarray(v, np.float32)
                                       for n, v in params.items()})
+    if getattr(model, "_ep_mesh", None) is not None:
+        from bigdl_tpu_torch.parallel.expert import local_experts
+        params = local_experts(model, {n: np.asarray(v, np.float32)
+                                       for n, v in params.items()})
     staged = []
     for kind, want, got in (("params", dict(model.named_parameters()), params),
                             ("buffers", dict(model.named_buffers()), buffers)):

@@ -11,8 +11,9 @@ the fused top-k / Gumbel-max path), ``generate`` with greedy, temperature,
 top-k and top-p sampling, ``eos_id`` / ``pad_id``, ``repetition_penalty``,
 ``min_new_tokens`` and beam search (``num_beams``, ``length_penalty``), and
 ``generate_speculative`` (B=1, greedy or rejection-sampled), and the
-rolling ring cache of sliding-window models (``rolling_cache=True``).
-``mesh`` decoding (ROADMAP A.4) raises ``NotImplementedError``.
+rolling ring cache of sliding-window models (``rolling_cache=True``),
+and decoding over a mesh (``mesh=``: the batch split over the data axis,
+or the model over ``tensor_axis``).
 
 Beam search keeps the reference's tie order: among equal scores the lower
 (beam, token) index wins, as in ``jax.lax.top_k`` (a stable descending

@@ -10,17 +10,12 @@ import torch
 from bigdl_tpu_torch.nn.activation import LogSoftMax
 from bigdl_tpu_torch.nn.attention import (LearnedPositionalEncoding,
                                           PositionalEncoding,
-                                          TransformerEncoder,
-                                          refuse_not_ported)
+                                          TransformerEncoder)
 from bigdl_tpu_torch.nn.containers import Sequential
 from bigdl_tpu_torch.nn.linear import LMHead, Linear, LookupTable, TiedLMHead
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
-
-# the reference's build_lm options that only their defaults may take
-# (nn.attention.NOT_PORTED names the ROADMAP items)
-_NOT_PORTED = ("moe_experts", "moe_k")
 
 
 def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
@@ -49,15 +44,11 @@ def build_lm(*args, device: DeviceLike = "cuda", seed: Optional[int] = None,
     layer's sequence over that mesh axis (``seq_mode`` ring or ulysses,
     ``seq_layout`` contiguous or zigzag; RoPE rotates at the shard's global
     positions; ``parallel.context.ContextParallelLM`` runs such a model).
-    The MoE arguments (``moe_experts``, ``moe_k``) raise
-    ``NotImplementedError`` at any non-default value, naming the ROADMAP
-    item that will port them.
+    ``moe_experts`` replaces every block's FFN with a top-``moe_k`` routed
+    mixture of experts (``parallel.expert.MoE``; not with ``swiglu``).
 
     Parameters are drawn on the CPU from ``seed`` (PyTorch's global
     generator is left as it was) and then moved to ``device``."""
-    refuse_not_ported("build_lm", **{name: options.pop(name)
-                                     for name in _NOT_PORTED
-                                     if name in options})
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         if seed is not None:
@@ -78,7 +69,8 @@ def lm_modules(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
                rope_scaling: Optional[dict] = None,
                qkv_bias: bool = False, seq_axis: Optional[str] = None,
                seq_mode: str = "ring",
-               seq_layout: str = "contiguous") -> Sequential:
+               seq_layout: str = "contiguous", moe_experts: int = 0,
+               moe_k: int = 2) -> Sequential:
     """``build_lm``'s module tree, and the one list of its model options,
     on the current default device, its parameters drawn from PyTorch's
     default generator (the loaders of ``interop/hf.py`` build it on the
@@ -102,7 +94,8 @@ def lm_modules(vocab_size: int, embed_dim: int = 128, num_heads: int = 4,
                              norm_eps=norm_eps, window=window,
                              rope_scaling=rope_scaling, qkv_bias=qkv_bias,
                              seq_axis=seq_axis, seq_mode=seq_mode,
-                             seq_layout=seq_layout))
+                             seq_layout=seq_layout, moe_experts=moe_experts,
+                             moe_k=moe_k))
     hb = bias if head_bias is None else head_bias
     if tie_embeddings:
         m.add(TiedLMHead(embed))

@@ -17,7 +17,9 @@ over a mesh axis (ring attention, contiguous or zigzag, or Ulysses:
 ``block_size`` takes the blockwise online-softmax core where kernel K1
 does not run; under ``parallel.tensor_parallel.shard_parameters`` the
 attention runs its local heads and the block its tensor-parallel (and
-sequence-parallel) regions. MoE is a later slice (ROADMAP A.4).
+sequence-parallel) regions. ``moe_experts`` replaces a block's FFN with a
+top-``moe_k`` routed ``parallel.expert.MoE`` (the reference's; not with
+``swiglu``).
 
 The KV cache is module state (``enable_decode``) that the eager forward
 updates in place; there is no functional-apply layer. Unmasked attention on
@@ -45,24 +47,6 @@ from bigdl_tpu_torch.ops.precision import match_compute
 from bigdl_tpu_torch.utils.device import module_device
 
 _F32_MIN = float(torch.finfo(torch.float32).min)
-
-#: argument -> (its default, the ROADMAP item that will port other values):
-#: the reference's MoE options
-NOT_PORTED = {
-    "moe_experts": (0, "A.4 (distributed plane: expert parallelism)"),
-    "moe_k": (2, "A.4 (distributed plane: expert parallelism)"),
-}
-
-
-def refuse_not_ported(owner: str, **values) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for any of
-    ``NOT_PORTED``'s arguments given another value than its default."""
-    for name, value in values.items():
-        default, item = NOT_PORTED[name]
-        if value != default:
-            raise NotImplementedError(
-                f"{owner}({name}={value!r}) is not ported yet: ROADMAP {item}")
-
 
 class LayerNorm(Module):
     """Layer normalisation over the last ``len(normalized_shape)`` axes
@@ -724,8 +708,6 @@ class TransformerEncoderLayer(Module):
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
-        refuse_not_ported("TransformerEncoderLayer", moe_experts=moe_experts,
-                          moe_k=moe_k)
         if activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}: one of "
                              f"{sorted(_ACTIVATIONS)}")
@@ -744,10 +726,18 @@ class TransformerEncoderLayer(Module):
             seq_axis=seq_axis, seq_mode=seq_mode, seq_layout=seq_layout,
             window=window, rope_scaling=rope_scaling, qkv_bias=qkv_bias)
         self.drop = Dropout(dropout)
-        self.linear1 = Linear(embed_dim, ffn_dim, with_bias=bias)
-        self.linear2 = Linear(ffn_dim, embed_dim, with_bias=bias)
-        if activation == "swiglu":
-            self.linear_gate = Linear(embed_dim, ffn_dim, with_bias=bias)
+        self.moe_experts = moe_experts
+        if moe_experts:
+            if activation == "swiglu":
+                raise ValueError("swiglu FFN does not compose with MoE yet")
+            from bigdl_tpu_torch.parallel.expert import MoE
+            self.moe = MoE(embed_dim, ffn_dim, n_experts=moe_experts,
+                           k=moe_k, activation=activation)
+        else:
+            self.linear1 = Linear(embed_dim, ffn_dim, with_bias=bias)
+            self.linear2 = Linear(ffn_dim, embed_dim, with_bias=bias)
+            if activation == "swiglu":
+                self.linear_gate = Linear(embed_dim, ffn_dim, with_bias=bias)
         self.norm1 = _norm(norm, embed_dim, norm_eps)
         self.norm2 = _norm(norm, embed_dim, norm_eps)
 
@@ -756,6 +746,8 @@ class TransformerEncoderLayer(Module):
     _sp = None
 
     def _ffn(self, x):
+        if self.moe_experts:
+            return self.moe(x)
         tp = self.linear2._tp
         if tp is not None:   # one region entry for up and gate
             x = tp.enter(x)
@@ -845,8 +837,6 @@ class TransformerEncoder(Module):
                  rope_scaling: Optional[dict] = None,
                  qkv_bias: bool = False):
         super().__init__()
-        refuse_not_ported("TransformerEncoder", moe_experts=moe_experts,
-                          moe_k=moe_k)
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerEncoderLayer(
@@ -855,7 +845,8 @@ class TransformerEncoder(Module):
                 seq_axis=seq_axis, seq_mode=seq_mode, seq_layout=seq_layout,
                 num_kv_heads=num_kv_heads, rope_theta=rope_theta, bias=bias,
                 dropout=dropout, pre_norm=pre_norm, norm_eps=norm_eps,
-                window=window, rope_scaling=rope_scaling, qkv_bias=qkv_bias))
+                window=window, rope_scaling=rope_scaling, qkv_bias=qkv_bias,
+                moe_experts=moe_experts, moe_k=moe_k))
         self.final_norm = _norm(norm, embed_dim, norm_eps) if pre_norm else None
 
     def forward(self, input):

@@ -50,16 +50,21 @@ _NEG = float(torch.finfo(torch.float32).min)
 
 
 class _Shift(torch.autograd.Function):
-    """``Mesh.shift`` by ``offset``; its gradient shifted back."""
+    """``Mesh.shift`` by ``offset`` (the receive shaped ``recv_shape`` of
+    ``recv_dtype`` where the ranks send unlike tensors); its gradient
+    shifted back."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, offset):
+    def forward(ctx, x, mesh, axis, offset, recv_shape=None, recv_dtype=None):
         ctx.mesh, ctx.axis, ctx.offset = mesh, axis, offset
-        return mesh.shift(x, axis, offset)
+        ctx.x_meta = (tuple(x.shape), x.dtype)
+        return mesh.shift(x, axis, offset, recv_shape, recv_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.shift(g, ctx.axis, -ctx.offset), None, None, None
+        shape, dtype = ctx.x_meta
+        return (ctx.mesh.shift(g, ctx.axis, -ctx.offset, shape, dtype),
+                *([None] * (len(ctx.needs_input_grad) - 1)))
 
 
 class _AllToAll(torch.autograd.Function):

@@ -58,7 +58,7 @@ and each ends the epoch there. A dataset that cannot count its batches is
 refused before the first step (ROADMAP C.8).
 
 Tensor parallelism (``topology=MeshTopology(data=d, tensor=t)``, the
-``"allreduce"`` mode): the model is sharded by
+``"allreduce"`` and ``"fsdp"`` modes): the model is sharded by
 ``tensor_parallel.shard_parameters`` (each rank its slices, the Megatron
 regions' collectives inside the forward), a ``DistributedDataSet`` deals
 its records by DATA rank (the tensor ranks of one data coordinate train
@@ -68,7 +68,21 @@ over the tensor axis first, and the L2 clip adds the tensor-sharded
 leaves' squares over the tensor axis. The optim state is shaped like the
 local slices (``opt_state_specs``). Snapshots hold the full leaves,
 reassembled over the tensor axis (so a tp=2 snapshot resumes at tp=1),
-written by process 0; a resume takes this rank's slices.
+written by process 0; a resume takes this rank's slices. Under ``"fsdp"``
+each tensor slice rests cut once more over the data axis (the reference's
+``fsdp_param_specs(base_specs=...)``: the data axis on a dimension the
+tensor spec leaves free), gathered over the data axis at the step's start
+and its gradient reduce-scattered after the backward.
+
+Expert parallelism (``MeshTopology(data=d, expert=e)``, ``"allreduce"``):
+``expert.shard_experts`` keeps this rank's E / e experts of every ``MoE``,
+and each training step runs inside ``expert.global_routing``, so that
+every ``MoE`` routes the global batch over the data axis (validation and
+inference route each rank's own tokens). The gradients are averaged
+over the data axis only (a replicated leaf's comes out equal on every
+expert rank) and the clip adds the expert leaves' squares over the expert
+axis. ``"sharded"`` with a tensor or expert axis, and ``"fsdp"`` with an
+expert axis, raise the reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -86,10 +100,10 @@ from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.ops.batch_norm import synchronized
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Tensors,
                                              _load_into, _tensors)
-from bigdl_tpu_torch.parallel.fsdp import shard_dim
-from bigdl_tpu_torch.parallel.mesh import (MODEL_PARALLEL, SEQUENCE_AXIS,
-                                           TENSOR_AXIS, MeshTopology,
-                                           split_sizes)
+from bigdl_tpu_torch.parallel.fsdp import _composed, shard_dim
+from bigdl_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                           SEQUENCE_AXIS, TENSOR_AXIS,
+                                           MeshTopology, split_sizes)
 from bigdl_tpu_torch.utils import sharded_checkpoint as sckpt
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
@@ -165,18 +179,22 @@ class DistriOptimizer(LocalOptimizer):
                              "tensor axes; a seq axis trains through "
                              "apps.transformer --contextParallel")
         self._tp = self.mesh.axis_size(TENSOR_AXIS) > 1
+        self._ep = self.mesh.axis_size(EXPERT_AXIS) > 1
+        if (self._tp or self._ep) and (
+                sync_mode == "sharded" or (sync_mode == "fsdp" and self._ep)):
+            # the ZeRO-1 flat vector and expert stacking are
+            # data-axis-only layouts (the reference's refusal)
+            raise ValueError(f"sync_mode={sync_mode!r} does not compose with "
+                             "this topology; combine expert parallelism "
+                             "with sync_mode='allreduce' (fsdp x tensor is "
+                             "supported)")
         if self._tp:
-            if sync_mode == "sharded":
-                raise ValueError("sync_mode='sharded' does not compose with "
-                                 "a tensor axis (the ZeRO-1 flat vector is "
-                                 "data-axis-only): use 'allreduce'")
-            if sync_mode == "fsdp":
-                raise NotImplementedError(
-                    "sync_mode='fsdp' over a tensor axis is not ported yet: "
-                    f"ROADMAP {MODEL_PARALLEL}; use 'allreduce'")
             from bigdl_tpu_torch.parallel.tensor_parallel import \
                 shard_parameters
             shard_parameters(model, self.mesh)
+        if self._ep:
+            from bigdl_tpu_torch.parallel import expert
+            expert.shard_experts(model, self.mesh)
         if self.mesh.world != self.mesh.size:
             root = dataset
             while not isinstance(root, DistributedDataSet) and hasattr(
@@ -264,8 +282,16 @@ class DistriOptimizer(LocalOptimizer):
     def _init_fsdp(self, params: Tensors) -> Dict:
         """ZeRO-3: this rank's slab of each sharded leaf, and their state."""
         n, r = self.mesh.size, self.mesh.rank
-        self._full = {name: d for name, p in params.items()
-                      if (d := shard_dim(tuple(p.shape), n)) is not None}
+        base = getattr(self.model, "_tp_specs", None) if self._tp else None
+        self._full = {}
+        for name, p in params.items():
+            if base is None:
+                d = shard_dim(tuple(p.shape), n)
+            else:   # the data axis on a dim the tensor spec leaves free
+                spec = _composed(p, base.get(name, ()), n, DATA_AXIS)
+                d = spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+            if d is not None:
+                self._full[name] = d
         self._shapes = {name: tuple(p.shape) for name, p in params.items()}
         self._slabs = {}
         for name, d in self._full.items():
@@ -327,6 +353,8 @@ class DistriOptimizer(LocalOptimizer):
             self._gather_full()
         if mode in ("allreduce", "fsdp"):
             stack.enter_context(synchronized(self.mesh))
+        from bigdl_tpu_torch.parallel.expert import global_routing
+        stack.enter_context(global_routing(self.model, self.mesh))
         return stack
 
     def _compress(self, t: torch.Tensor) -> torch.Tensor:
@@ -355,13 +383,13 @@ class DistriOptimizer(LocalOptimizer):
             self.optim_method.update(grads, opt_state, params, scalars)
 
     @torch.no_grad()
-    def _clip_global(self, grads: Tensors, sharded: List[str],
-                     mask: Optional[torch.Tensor] = None,
-                     axis: str = "data") -> None:
+    def _clip_global(self, grads: Tensors, sharded: Dict[str, tuple],
+                     mask: Optional[torch.Tensor] = None) -> None:
         """The clip setting over a gradient whose ``sharded`` entries are
-        this rank's slices of the global one along ``axis`` (their squared
-        norms are all-reduced over it) and whose other entries are whole on
-        every rank."""
+        this rank's slices of the global one over the axes ``sharded``
+        names (their squared norms are all-reduced over each, one
+        all-reduce an axis of each group of entries) and whose other
+        entries are whole on every rank."""
         const = self._grad_clip.get("constant")
         max_norm = self._grad_clip.get("l2")
         if const is not None:
@@ -372,10 +400,16 @@ class DistriOptimizer(LocalOptimizer):
             grads["flat"].mul_(mask)
         if max_norm is None:
             return
-        part = torch.zeros(1, dtype=torch.float32, device=self.device)
-        for name in sharded:
+        parts: Dict[tuple, torch.Tensor] = {}
+        for name, axes in sharded.items():
+            part = parts.setdefault(axes, torch.zeros(
+                1, dtype=torch.float32, device=self.device))
             part += grads[name].float().square().sum()
-        gn_sq = self.mesh.all_reduce(part, axis=axis)[0]
+        gn_sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for axes, part in parts.items():
+            for axis in axes:
+                self.mesh.all_reduce(part, axis=axis)
+            gn_sq = gn_sq + part[0]
         for name, g in grads.items():
             if name not in sharded:
                 gn_sq = gn_sq + g.float().square().sum()
@@ -403,10 +437,44 @@ class DistriOptimizer(LocalOptimizer):
                         "agree on %d", mine, agreed)
         return agreed
 
-    def _tp_sharded(self) -> List[str]:
-        """Parameters whose leaves are this rank's tensor-axis slices."""
-        specs = getattr(self.model, "_tp_specs", {})
-        return [n for n in self._params if TENSOR_AXIS in specs.get(n, ())]
+    def _mp_sharded(self) -> Dict[str, tuple]:
+        """Parameters whose leaves are this rank's slices over a
+        model-parallel axis: {name: (that axis,)}."""
+        out = {}
+        for attr, axis in (("_tp_specs", TENSOR_AXIS),
+                           ("_ep_specs", EXPERT_AXIS)):
+            specs = getattr(self.model, attr, None) or {}
+            for n in self._params:
+                if axis in specs.get(n, ()):
+                    out[n] = (axis,)
+        return out
+
+    @property
+    def _mp(self) -> bool:
+        return self._tp or self._ep
+
+    def _gather_mp(self, tensors: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """``tensors`` (by parameter name, this rank's model-parallel
+        slices) reassembled into full leaves (collective)."""
+        if self._tp:
+            from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
+            tensors = gather_full(self.model, tensors, self.mesh)
+        if self._ep:
+            from bigdl_tpu_torch.parallel.expert import gather_experts
+            tensors = gather_experts(self.model, tensors)
+        return tensors
+
+    def _local_mp(self, tensors: Dict) -> Dict:
+        """Full leaves (tensors or numpy, by parameter name) cut to this
+        rank's model-parallel slices."""
+        if self._tp:
+            from bigdl_tpu_torch.parallel.tensor_parallel import local_slices
+            tensors = local_slices(self.model, tensors, self.mesh)
+        if self._ep:
+            from bigdl_tpu_torch.parallel.expert import local_experts
+            tensors = local_experts(self.model, tensors)
+        return tensors
 
     def _sum_sp_partials(self, grads: Tensors) -> None:
         """Sum, over the tensor axis, the gradients a rank holds only for
@@ -429,15 +497,15 @@ class DistriOptimizer(LocalOptimizer):
     def _apply_grads(self, grads: Tensors, opt_state: Dict, params: Tensors,
                      clip: Callable, scalars=None) -> None:
         mode = self._mode()
+        if self._tp:
+            grads = dict(grads)
+            self._sum_sp_partials(grads)
         if mode == "allreduce":
-            if self._tp:
-                grads = dict(grads)
-                self._sum_sp_partials(grads)
             names = list(grads)
             reduced = self._all_reduce_mean([grads[k] for k in names])
             grads = {k: self._compress(g) for k, g in zip(names, reduced)}
-            if self._tp:
-                self._clip_global(grads, self._tp_sharded(), axis=TENSOR_AXIS)
+            if self._mp:
+                self._clip_global(grads, self._mp_sharded())
             else:
                 grads = clip(grads)
             self._update(grads, opt_state, params, scalars)
@@ -458,7 +526,7 @@ class DistriOptimizer(LocalOptimizer):
             flat = flat.to(torch.bfloat16)
         g = (mesh.reduce_scatter(flat) / n).to(self._flat.dtype)
         g_slice = {"flat": g}
-        self._clip_global(g_slice, ["flat"], self._mask)
+        self._clip_global(g_slice, {"flat": (DATA_AXIS,)}, self._mask)
         self._update(g_slice, opt_state, self._slice, scalars)
         self._flat.copy_(mesh.all_gather(self._slice["flat"]))
         # per-rank batch statistics: the float buffers' rank mean
@@ -477,7 +545,10 @@ class DistriOptimizer(LocalOptimizer):
         for k, g in zip(rep, self._all_reduce_mean([grads[k] for k in rep])):
             out[k] = self._compress(g)
         out = {k: out[k] for k in grads}    # the parameters' order
-        self._clip_global(out, list(self._full))
+        sharded = self._mp_sharded()
+        for name in self._full:
+            sharded[name] = (DATA_AXIS,) + sharded.get(name, ())
+        self._clip_global(out, sharded)
         self._update(out, opt_state, self._opt_params, scalars)
         self._free_full()
 
@@ -555,29 +626,35 @@ class DistriOptimizer(LocalOptimizer):
             return _map_tensors(opt_state, full)
         return opt_state
 
-    def _tp_full_state(self, opt_state: Dict) -> Dict:
-        """The optim state's tensor-axis slices reassembled (collective)."""
-        from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
-        sharded = set(self._tp_sharded())
+    def _local_shape(self, name: str) -> tuple:
+        """A parameter's shape on this rank between steps (its
+        model-parallel slice; under fsdp before the data-axis cut)."""
+        shapes = getattr(self, "_shapes", None)
+        if self._full and shapes:
+            return shapes[name]
+        return tuple(self._params[name].shape)
+
+    def _mp_full_state(self, opt_state: Dict) -> Dict:
+        """The optim state's model-parallel slices reassembled
+        (collective)."""
+        sharded = self._mp_sharded()
 
         def full(path, t):
             name = path[-1] if path else None
-            if name in sharded and t.shape == self._params[name].shape:
-                return gather_full(self.model, {name: t.detach()},
-                                   self.mesh)[name]
+            if name in sharded and tuple(t.shape) == self._local_shape(name):
+                return self._gather_mp({name: t.detach()})[name]
             return t
         return _map_tensors(opt_state, full)
 
     def _checkpoint_trees(self, opt_state: Dict):
         mode = self._mode()
-        if self._tp:   # full leaves, whole on every rank
-            from bigdl_tpu_torch.parallel.tensor_parallel import gather_full
-            params = gather_full(self.model, {
-                n: p.detach() for n, p in self.model.named_parameters()},
-                self.mesh)
+        if self._mp:   # full leaves, whole on every rank
+            with self._full_weights():
+                params = self._gather_mp({
+                    n: p.detach() for n, p in self.model.named_parameters()})
             return ({"params": params,
                      "buffers": dict(self.model.named_buffers())},
-                    self._tp_full_state(opt_state))
+                    self._mp_full_state(self._full_state(opt_state)))
         if not self._ckpt_sharded:
             if not self._full:
                 return super()._checkpoint_trees(self._full_state(opt_state))
@@ -610,25 +687,25 @@ class DistriOptimizer(LocalOptimizer):
                  "buffers": dict(self.model.named_buffers())}, state)
 
     def _resume_state(self, resume, opt_state, driver_state):
-        if self._tp:   # load the full leaves, then keep this rank's slices
-            from bigdl_tpu_torch.parallel.tensor_parallel import (
-                gather_full, local_slices)
+        if self._mp:   # load the full leaves, then keep this rank's slices
             named = dict(self.model.named_parameters())
-            full = gather_full(self.model, {n: p.detach()
-                                            for n, p in named.items()},
-                               self.mesh)
-            with torch.no_grad():
-                for n, p in named.items():
-                    p.data = full[n].clone()
-            try:
-                return super()._resume_state(resume, opt_state, driver_state)
-            finally:
-                mine = local_slices(self.model, {n: p.detach()
-                                                 for n, p in named.items()},
-                                    self.mesh)
+            with self._full_weights():
+                full = self._gather_mp({n: p.detach()
+                                        for n, p in named.items()})
                 with torch.no_grad():
                     for n, p in named.items():
-                        p.data = mine[n].contiguous()
+                        p.data = full[n].clone()
+                try:
+                    return super()._resume_state(resume, opt_state,
+                                                 driver_state)
+                finally:
+                    mine = self._local_mp({n: p.detach()
+                                           for n, p in named.items()})
+                    with torch.no_grad():
+                        for n, p in named.items():
+                            p.data = mine[n].contiguous()
+                    if self._full:
+                        self._refresh_slabs()
         if self.sync_mode == "sharded":
             model_path = (resume.model_path if hasattr(resume, "model_path")
                           else resume[0])
@@ -645,15 +722,19 @@ class DistriOptimizer(LocalOptimizer):
     def _load_opt_state(self, opt_state: Dict, loaded: Dict) -> None:
         """A full-shaped state (any world size's) as this rank's part."""
         n, r = self.mesh.size, self.mesh.rank
-        if self._tp:
-            from bigdl_tpu_torch.parallel.tensor_parallel import local_slices
-            sharded = set(self._tp_sharded())
+        if self._mp:
+            sharded = self._mp_sharded()
 
             def mine(path, t):
                 name = path[-1] if path else None
-                if name in sharded and t.shape != self._params[name].shape:
-                    return local_slices(self.model, {name: t},
-                                        self.mesh)[name]
+                if name in sharded and tuple(t.shape) != \
+                        self._local_shape(name):
+                    t = self._local_mp({name: t})[name]
+                if name in self._full and tuple(t.shape) == \
+                        self._shapes[name]:
+                    d = self._full[name]
+                    s = t.shape[d] // n
+                    return t.narrow(d, r * s, s)
                 return t
         elif self.sync_mode == "sharded":
             padded = self._flat.numel()

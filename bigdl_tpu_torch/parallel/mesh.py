@@ -1,17 +1,17 @@
 """Mesh topology (counterpart of ``bigdl_tpu/parallel/mesh.py``) and the
 port's collectives.
 
-The reference's ``MeshTopology(data=, tensor=, sequence=)`` is devices in
-one process (XLA SPMD). The port's is processes, one card each (or the
+The reference's ``MeshTopology(data=, tensor=, pipeline=, sequence=,
+expert=)`` is devices in one process (XLA SPMD). The port's is processes, one card each (or the
 CPU), in the default ``torch.distributed`` process group: ``build()``
 returns a ``Mesh``, this process's view of the group. Process ranks lay
 out over the axes in ``_CANONICAL_ORDER`` with the tensor axis innermost,
 as the reference orders its devices, and each axis above 1 gets its own
 sub-group (``torch.distributed.new_group``): rank r's coordinate on an
-axis is its index among the ranks that share its other coordinates. The
-``pipeline`` and ``expert`` axes above 1 raise ``NotImplementedError``
-naming ``MODEL_PARALLEL``. Without a process group a mesh of one is
-local: every collective is then the identity.
+axis is its index among the ranks that share its other coordinates (the
+``pipe`` axis runs ``parallel/pipeline.py``'s schedules, the ``expert``
+axis ``parallel/expert.py``'s split experts). Without a process group a
+mesh of one is local: every collective is then the identity.
 
 ``Mesh.size`` and ``Mesh.rank`` are the DATA axis's size and this
 process's coordinate on it (what the data plane divides batches and
@@ -19,7 +19,8 @@ optimizer slices by); ``world`` and ``process_rank`` are the group's.
 The collectives take an ``axis`` (default ``"data"``): ``all_reduce``,
 ``reduce_scatter`` and ``all_gather`` (flat, or along a ``dim``),
 ``all_to_all``, and ``shift`` (send to the next rank of the axis's ring,
-receive from the previous one); ``broadcast``, ``all_gather_object`` and
+receive from the previous one, of its own shape unless ``recv_shape``
+and ``recv_dtype`` say otherwise); ``broadcast``, ``all_gather_object`` and
 ``barrier`` span the whole group. Each is counted in ``COLLECTIVES``
 (calls, payload bytes and host seconds by op, and calls by ``op/axis``),
 which ``chip_smoke.py`` holds to each path's structure; with
@@ -49,9 +50,6 @@ EXPERT_AXIS = "expert"
 
 _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQUENCE_AXIS,
                     TENSOR_AXIS)
-
-#: the label a model-parallel axis raises with (the next slice's work)
-MODEL_PARALLEL = "A.4 (distributed plane: model-parallel axes)"
 
 class _Counts:
     """Calls, payload bytes and host seconds per collective op, and calls
@@ -274,11 +272,12 @@ class Mesh:
             dist.all_to_all_single(got, blocks, group=group)
         return torch.cat(got.unbind(0), dim=concat_dim)
 
-    def shift(self, t: torch.Tensor, axis: str, offset: int = 1
-              ) -> torch.Tensor:
+    def shift(self, t: torch.Tensor, axis: str, offset: int = 1,
+              recv_shape=None, recv_dtype=None) -> torch.Tensor:
         """The ring step of ``axis``: ``t`` sent to the rank ``offset``
         ahead, the one ``offset`` behind received (``lax.ppermute``'s
-        ``[(i, i + offset)]``)."""
+        ``[(i, i + offset)]``), shaped ``recv_shape`` of ``recv_dtype``
+        (default: as ``t``) where the ranks send unlike tensors."""
         n = self.sizes[axis]
         wide, _ = self._group(axis)
         if not wide or offset % n == 0:
@@ -290,7 +289,10 @@ class Mesh:
             # gloo refuses CUDA tensors in send/recv: a pinned host copy
             src, op = torch.empty(src.shape, dtype=src.dtype,
                                   pin_memory=True).copy_(src), "shift_staged"
-        got = torch.empty_like(src)
+        got = torch.empty(
+            src.shape if recv_shape is None else tuple(recv_shape),
+            dtype=src.dtype if recv_dtype is None else recv_dtype,
+            device=src.device)
         with COLLECTIVES.count(op, _nbytes(src), t, axis):
             ops = [dist.P2POp(dist.isend, src, self._peer(axis, me + offset)),
                    dist.P2POp(dist.irecv, got, self._peer(axis, me - offset))]
@@ -363,13 +365,6 @@ class MeshTopology:
         on, with a sub-group per axis above 1 (every process makes every
         group, in one order); a mesh of one needs no group and is then on
         ``device`` (by default the card)."""
-        wide = [a for a in (PIPELINE_AXIS, EXPERT_AXIS)
-                if self.sizes[a] > 1]
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {wide} are not ported yet: ROADMAP "
-                f"{MODEL_PARALLEL}; the port's mesh has the data, tensor "
-                "and seq axes")
         from bigdl_tpu_torch.utils.engine import Engine
         Engine.maybe_init_distributed()
         n = self.total()

@@ -72,9 +72,13 @@ def _linear_specs(mode: Optional[str], axis: str) -> Dict[str, Tuple]:
 def _module_specs(module, axis: str) -> Dict[str, Tuple]:
     """Specs of the module's own parameters (not its children's)."""
     from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.parallel.expert import MoE, expert_param_specs
     mode = getattr(module, "tp_mode", None)
     if mode == REPLICATE:
         return {}
+    if isinstance(module, MoE):
+        # the stacked experts shard over the expert axis, not this one
+        return expert_param_specs(module)
     if isinstance(module, nn.Linear):
         return _linear_specs(mode, axis)
     if isinstance(module, nn.MultiHeadAttention):
@@ -97,6 +101,8 @@ def _tag_children(module) -> None:
     then row."""
     from bigdl_tpu_torch import nn
     if isinstance(module, nn.TransformerEncoderLayer):
+        if module.moe_experts:
+            return   # an MoE FFN: _module_specs gives the expert leaves'
         if not hasattr(module.linear1, "tp_mode"):
             module.linear1.tp_mode = COLUMN
         if not hasattr(module.linear2, "tp_mode"):
@@ -221,14 +227,19 @@ def enable_sequence_parallel(model, mesh, axis: str = TENSOR_AXIS,
     """Tag every ``TransformerEncoderLayer`` under ``model`` to run its
     residual stream on this rank's block of the sequence between its
     tensor-parallel regions; returns the blocks tagged. The sequence
-    length must divide by the axis's size. ``batch_axis`` and
-    ``batch_dim`` are the reference's (the batch stays with the data
-    plane)."""
+    length must divide by the axis's size; an MoE block raises
+    ``ValueError``. ``batch_axis`` and ``batch_dim`` are the reference's
+    (the batch stays with the data plane)."""
     from bigdl_tpu_torch import nn
     batch = batch_axis if batch_axis in mesh.shape else None
     count = 0
     for m in model.modules():
         if isinstance(m, nn.TransformerEncoderLayer):
+            if m.moe_experts:
+                raise ValueError(
+                    "sequence-parallel regions do not compose with an MoE "
+                    "block here: its router would see this rank's sequence "
+                    "block, not the batch")
             m._sp = (mesh, axis, seq_dim, batch, batch_dim)
             count += 1
     return count
@@ -499,7 +510,8 @@ def shard_parameters(model, mesh, axis: str = TENSOR_AXIS) -> Dict[str, Tuple]:
     blocks = {}
     for layer in model.modules():
         if isinstance(layer, nn.TransformerEncoderLayer):
-            for child in (layer.self_attn, layer.linear1, layer.linear2,
+            for child in (layer.self_attn, layer._modules.get("linear1"),
+                          layer._modules.get("linear2"),
                           layer._modules.get("linear_gate")):
                 if child is not None:
                     blocks[id(child)] = layer

@@ -426,6 +426,44 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    check of either side reads the card's time, but the times of 3h-3n
    and of 3o's and 3p's ranks are then shared: ``--distributed-only``
    and ``--model-parallel-only`` give them alone;
+3q. the expert and pipeline axes (after phase 3p; ``--expert-pipeline-only``
+   runs it alone). (a) in this process: ``perf --model transformer_134m
+   --moeExperts 8`` (12 layers, S=1024, about 0.53 B parameters) at B=8,
+   3 iterations after 1: ms an iteration, peak MiB, the dispatch counter,
+   the first forward's dropped share, K1-K3 12 a step; one 134m-8e layer
+   at T=8192 in bf16: sort, scatter and einsum forward and gradients bit
+   for bit, each one's ms; greedy decode of 4 prompts of 128 on the
+   12-layer MoE LM (bf16), ms a token, the tokens equal with every
+   dispatch switched to einsum. Fresh rank processes of ``python3
+   chip_smoke.py --expert-pipeline-rank JOBS``, world 2 over the card
+   (gloo), against world 1 (a process of its own): (b) the 134m-8e LM
+   cut to 4 layers (bf16, AdamW, clip 1.0, B=8 S=512, 3 iterations) at
+   ``MeshTopology(expert=2)`` (4 experts a rank) and at
+   ``MeshTopology(data=2)`` (global routing): updates and losses within
+   the tolerances, the first forward's dropped picks equal to world 1's,
+   the MoE collectives by the structure (per layer and step two
+   all-gathers over ``expert``, or the counts' all-gather over
+   ``data``), K1-K3 once a layer a step, the experts' MiB at rest half of
+   world 1's; (c) a ``PipelineStack`` of 4 causal blocks at the 134m
+   widths (bf16), GPipe with n_micro 4 at B=8 S=512, with and without
+   remat, and the circular schedule (V=2); ``StagePipeline`` of the 4-layer
+   LM (embedding + 2 blocks | 2 blocks + norm + head, f32): the loss and
+   the first step's gradients against ``scan_apply`` /
+   ``sequential_apply`` at world 1, 2 x the schedule length staged
+   shifts a step, K1-K3 by the layers and microbatches each stage runs,
+   remat's gradients bit-equal; (d) world 4 (data 2 x tensor 2): the
+   134m recipe cut to 2 layers, ``sync_mode="fsdp"``, 2 iterations,
+   against world 1, and the MiB at rest; (e) ``transformer train
+   --moeExperts 4`` and ``perf --model transformer --moeExperts 4
+   --moeDispatch einsum`` exit 0. An ``expert_pipeline`` line logs them;
+   ``--expert-pipeline-controls`` adds (b) and (c) in f32, (b) routed per
+   rank (its dropped picks must differ), (c) with a summing psum backward
+   and with no psum forward, ``StagePipeline`` with a summing psum
+   backward and (d) with one data coordinate's gradients dropped, each of
+   which must fail the check whose limit it sets. In the whole script
+   3q's world-2 ranks start before phase 3g, in a thread beside this
+   process's phases 3g and 3b, and its world 4, CLIs and world 1 before
+   phase 3l, beside 3l-3n;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -467,7 +505,7 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included), 3c, 3n, 3o and 3p (every rank's); phase 3i's rows count
+processes included), 3c, 3n, 3o, 3p and 3q (every rank's); phase 3i's rows count
 phase 3i's runs, and
 phase 3j's (K1-K3 at ViT-S/16's and transformer_1b's shapes) its runs
 (c) and (e).
@@ -480,9 +518,9 @@ seed's readings and no result line.
 phase 3i and its kernel rows, printing them and no result line;
 ``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
 phase 3k, ``--files-only`` only phase 3m, ``--platform-only`` only
-phase 3n, ``--distributed-only`` only phase 3o and
-``--model-parallel-only`` only phase 3p (none of them prints kernel
-rows). Phase 3o's ranks are fresh processes of ``python3
+phase 3n, ``--distributed-only`` only phase 3o,
+``--model-parallel-only`` only phase 3p and ``--expert-pipeline-only``
+only phase 3q (none of them prints kernel rows). Phase 3o's ranks are fresh processes of ``python3
 chip_smoke.py --distributed-rank JOBS --dist-out DIR --dist-backend B``
 with the ``BIGDL_*`` environment.
 
@@ -500,12 +538,14 @@ and this one's on one timer, within one machine.
 
 import argparse
 import collections
+import contextlib
 import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -10134,6 +10174,946 @@ def run_model_parallel(controls: bool = False, ranks: Beside = None) -> dict:
     return dict(launches)
 
 
+# ------------------------------------------ 3q. the expert and pipeline axes
+EP_EXPERTS = 8            # the 134m-8e configuration (scripts/moe_ablate.py)
+EP_WIDTHS = dict(embed_dim=768, num_heads=12, ffn_dim=3072, max_len=1024)
+EP_PERF_ITERS = 3         # (a): perf iterations after one warm-up
+EP_LAYER_TOKENS = 8192    # (a): one 134m-8e layer's tokens (moe_ablate's)
+EP_DECODE = (4, 128, 32)  # (a): prompts, prompt length, greedy tokens
+EP_LAYERS = 4             # (b), (c): the 134m-8e LM cut to 4 layers
+EP_ITERS = 3              # (b)
+PP_MICRO = 4              # (c): GPipe's and the circular schedule's n_micro
+PP_INTERLEAVE = 2         # (c): the circular schedule's V
+FT_LAYERS, FT_ITERS = 2, 2   # (d): the 134m recipe cut to 2 layers
+EP_TIMEOUT_S = 600        # one spawn's ranks, start to exit
+# the tolerances (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6), each
+# between the sound readings and the control that breaks its check
+# (``--expert-pipeline-controls``; "sound / control"): (b) the relative
+# L2 distance of world 2's parameter updates from world 1's (bf16:
+# expert=2 0.0, data=2 0.068, f32 2.6e-6 and 1.5e-5, so bf16 rounding is
+# the cause / routed per rank 0.589, which also moves 2,946 of the first
+# forward's picks) and the largest relative gap of their losses (1.9e-5,
+# f32 0.0 / routed per rank 1.5e-4); (c) the relative L2 distance of the
+# first step's gradients from world 1's (GPipe bf16 0.0034, f32 6.8e-7 /
+# a summing psum backward 0.99993), StagePipeline's in f32 (1.3e-6 / a
+# summing psum backward 1.0) and the relative gap of the losses (bf16
+# 0.0, f32 9.8e-8 / no psum forward 0.59); (d) the update distance (bf16
+# 0.0498 / one data coordinate's gradients dropped 0.90) and the loss
+# gap (2.9e-5 / dropped 2.2e-4).
+EP_UPDATE_TOL, EP_LOSS_TOL = 0.2, 5e-5
+PP_GRAD_TOL, PP_LOSS_TOL = 0.1, 1e-4
+PP_STAGE_TOL = 1e-4
+FT_UPDATE_TOL, FT_LOSS_TOL = 0.3, 8e-5
+
+
+def ep_model(layers: int = EP_LAYERS, dtype=None):
+    """The 134m-8e LM (the perf harness's transformer_134m widths, fused
+    head, 8 experts, top-2) cut to ``layers`` layers, seed 7, a fresh copy
+    of one built once a process."""
+    import copy
+    key = f"ep{layers}"
+    if key not in DIST_MODELS:
+        from bigdl_tpu_torch.models.transformer import build_lm
+        DIST_MODELS[key] = build_lm(VOCAB, **EP_WIDTHS, num_layers=layers,
+                                    fused_head=True, moe_experts=EP_EXPERTS,
+                                    device="cuda", seed=7)
+    model = copy.deepcopy(DIST_MODELS[key])
+    return model if dtype is None else model.to(dtype)
+
+
+def ep_moes(model) -> list:
+    from bigdl_tpu_torch.parallel.expert import MoE
+    return [m for m in model.modules() if isinstance(m, MoE)]
+
+
+def ep_sample(model) -> np.ndarray:
+    """``mp_sample`` of the full leaves, experts gathered over their axis
+    (collective)."""
+    if getattr(model, "_ep_mesh", None) is None:
+        return mp_sample(model)
+    from bigdl_tpu_torch.parallel.expert import gather_experts
+    named = gather_experts(model, {n: p.detach()
+                                   for n, p in model.named_parameters()})
+    with torch.no_grad():
+        flat = torch.cat([t.float().reshape(-1) for t in named.values()])
+        return flat[::DIST_STRIDE].cpu().numpy()
+
+
+class _FirstRouting:
+    """Forward hooks keeping each MoE layer's routing of its first call."""
+
+    def __init__(self, model):
+        self.keep, self.handles = {}, []
+        for i, m in enumerate(ep_moes(model)):
+            m.record_routing = True
+            self.handles.append(m.register_forward_hook(self._hook(i)))
+
+    def _hook(self, i):
+        def hook(mod, inp, out):   # returns None: the output stays
+            if i not in self.keep:
+                self.keep[i] = mod.routing["keep"].cpu().numpy()
+        return hook
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def ep_run(world: int, rank: int, out: str, mode: str,
+           precision: str = "bf16", tag: str = None,
+           local_routing: bool = False) -> dict:
+    """(b): the 134m-8e LM cut to EP_LAYERS layers (bf16 unless
+    ``precision``, AdamW, clip 1.0) on the recipe's first EP_ITERS batches
+    (B=8, S=512, seed 17): at world 1 ``LocalOptimizer`` on the whole
+    batches; at world 2 ``mode`` ``"expert"`` (``MeshTopology(expert=2)``,
+    4 experts a rank, the batches on both ranks) or ``"data"``
+    (``MeshTopology(data=2)``, each rank its half of the rows, global
+    routing). The first forward's kept picks of every layer, the
+    collectives, the launches and the experts' MiB at rest.
+    ``local_routing``: each rank routes its tokens alone (a control)."""
+    from unittest import mock
+    from bigdl_tpu_torch.dataset.base import DataSet, DistributedDataSet
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import distri_optimizer as dopt
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    from bigdl_tpu_torch.parallel.expert import MoE
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    from bigdl_tpu_torch.utils.engine import Engine
+    t0 = time.perf_counter()
+    model = ep_model()
+    p0 = dist_sample(model)
+    if world == 1:
+        opt = Optimizer(model, DataSet.array(
+            dist_lm_batches(1, 0)[:EP_ITERS], seed=0),
+            FusedLMHeadCriterion(), device="cuda")
+    else:
+        n_data = world if mode == "data" else 1
+        batches = dist_lm_batches(n_data, rank % n_data)[:EP_ITERS]
+        opt = Optimizer(model, DistributedDataSet(
+            batches, shard_by_process=False, seed=0),
+            FusedLMHeadCriterion(), device="cuda",
+            topology=MeshTopology(**{mode: world}))
+    (opt.set_precision(precision)
+        .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                weightdecay=TRAIN_DECAY))
+        .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+        .set_end_when(Trigger.max_iteration(EP_ITERS)))
+    routing = _FirstRouting(model)
+    local = (mock.patch.object(MoE, "_data_ranks", lambda self: (1, 0))
+             if local_routing else contextlib.nullcontext())
+    counters = mp_reset()
+    pmesh.COLLECTIVES.sync_timing = Engine.backend() == "gloo"
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with local:
+        opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    pmesh.COLLECTIVES.sync_timing = False
+    routing.close()
+    snap = pmesh.COLLECTIVES.snapshot()
+    experts = [getattr(m, n) for m in ep_moes(model)
+               for n in ("w1", "b1", "w2", "b2")]
+    res = {"losses": [h["loss"] for h in opt.history],
+           "launches": {k: c.value for k, c in counters.items()},
+           "collectives": dict(snap["by_axis"]),
+           "collective_share": sum(snap["seconds"].values()) / wall,
+           "wall_s": wall,
+           "ms_per_iteration": float(np.median(
+               [h["seconds"] for h in opt.history[1:]])) * 1e3,
+           "expert_mib": mp_mib(experts),
+           "params_mib": mp_mib(model.parameters()),
+           "grad_buckets": len(dopt._buckets(
+               [p for p in model.parameters() if p.requires_grad],
+               dopt.BUCKET_BYTES))}
+    name = tag or f"ep_{mode}_w{world}"
+    keep = np.stack([routing.keep[i] for i in sorted(routing.keep)])
+    np.savez(os.path.join(out, f"{name}.{rank}.npz"), p0=p0,
+             p=ep_sample(model), keep=keep)
+    res["run_s"] = time.perf_counter() - t0
+    del opt, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_structure(mode: str, buckets: int, layers: int = EP_LAYERS,
+                 iters: int = EP_ITERS) -> dict:
+    """(b)'s collectives over a run by the path's structure: under an
+    expert axis, per layer and step, the experts' outputs all-gathered
+    (forward) and the buffer's gradient all-gathered (the split's
+    backward), and a step's clip of the expert leaves' squared norm;
+    under a data axis, per layer and step, the counts all-gathered and
+    ``frac`` all-reduced, and the data plane's ``buckets`` gradient
+    all-reduces and the loss's a step and the epoch's agreement once."""
+    if mode == "expert":
+        return {"all_gather/expert": 2 * layers * iters,
+                "all_reduce/expert": iters}
+    return {"all_gather/data": layers * iters,
+            "all_reduce/data": (layers + buckets + 1) * iters + 1}
+
+
+PP_BLOCK = dict(embed_dim=768, num_heads=12, ffn_dim=3072)
+
+
+def pp_stack(dtype):
+    """(c)'s ``PipelineStack`` of 4 causal blocks at the 134m widths
+    (seed 7), in ``dtype``."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.parallel.pipeline import PipelineStack
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        stack = PipelineStack(lambda: nn.TransformerEncoderLayer(
+            PP_BLOCK["embed_dim"], PP_BLOCK["num_heads"], PP_BLOCK["ffn_dim"],
+            causal=True), EP_LAYERS, device="cuda")
+    return stack.to(dtype)
+
+
+def pp_batch(dtype):
+    gen = torch.Generator().manual_seed(29)
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, PP_BLOCK["embed_dim"],
+                    generator=gen)
+    y = torch.randn(x.shape, generator=gen)
+    return x.to("cuda", dtype), y.cuda()
+
+
+def _grad_sample(grads) -> np.ndarray:
+    with torch.no_grad():
+        flat = torch.cat([g.float().reshape(-1) for g in grads])
+        return flat[::DIST_STRIDE].cpu().numpy()
+
+
+def pp_fault(mesh, fault: str = None):
+    """A planted fault in the pipelines' closing psum, for a control:
+    ``"summing"``, its backward all-reduces (P times the gradients);
+    ``"no_psum"``, its forward leaves each rank its own outputs (a stage
+    before the last keeps zeros); None, no fault."""
+    from unittest import mock
+    from bigdl_tpu_torch.parallel import tensor_parallel as tpmod
+    if fault is None:
+        return contextlib.nullcontext()
+    if fault == "summing":
+        return mock.patch.object(
+            tpmod._ReduceFromRegion, "backward", staticmethod(
+                lambda ctx, g: (mesh.all_reduce(g.contiguous().clone(),
+                                                axis="pipe"), None, None)))
+    return mock.patch.object(tpmod._ReduceFromRegion, "forward", staticmethod(
+        lambda ctx, x, m, axis: x.contiguous().clone()))
+
+
+def pp_run(world: int, rank: int, out: str, kind: str,
+           precision: str = "bf16", remat: bool = False, tag: str = None,
+           fault: str = None) -> dict:
+    """(c): one loss and backward of the 4-block stack (``kind``
+    ``"gpipe"`` or ``"circular"``, V=2) over ``MeshTopology(pipeline=2)``,
+    MSE against a random target, B=8 S=512 in PP_MICRO microbatches; at
+    world 1 ``scan_apply`` on the whole batch. The loss, a sample of the
+    first step's gradients (the ranks' rows summed), the shifts and the
+    launches. ``fault``: ``pp_fault``'s (a control)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    from bigdl_tpu_torch.parallel.pipeline import (circular_permutation,
+                                                   gpipe_loss_fn)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    stack = pp_stack(dtype)
+    x, y = pp_batch(dtype)
+    crit = nn.MSECriterion()
+    head = lambda _, f: f.float()   # noqa: E731
+    names = list(stack.parameter_tree())
+    perm = None
+    if world > 1 and kind == "circular":
+        perm = torch.from_numpy(circular_permutation(
+            EP_LAYERS, world, PP_INTERLEAVE)).long().cuda()
+    leaves = {n: (p.detach()[perm] if perm is not None else p.detach())
+              .clone().requires_grad_()
+              for n, p in stack.parameter_tree().items()}
+    if remat:   # the first checkpoint of a process sets itself up
+        from bigdl_tpu_torch.ops import remat as remat_ops
+        remat_ops.checkpoint(lambda t: t * 2, torch.ones(
+            1, device="cuda", requires_grad=True)).sum().backward()
+    counters = mp_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if world == 1:
+        loss = crit.forward(head(None, stack.scan_apply(leaves, x,
+                                                        training=True)), y)
+        loss.backward()
+    else:
+        mesh = MeshTopology(pipeline=world).build()
+        fn = gpipe_loss_fn(stack, crit, mesh, PP_MICRO, head=head,
+                           remat=remat, interleave=(PP_INTERLEAVE if
+                                                    kind == "circular" else 1))
+        with pp_fault(mesh, fault):
+            loss = fn(leaves, None, x, y)
+            loss.backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+    shifts = dict(pmesh.COLLECTIVES.by_axis)
+    grads = [leaves[n].grad for n in names]
+    if world > 1:
+        for g in grads:
+            mesh.all_reduce(g, axis="pipe")
+        if perm is not None:
+            inv = torch.argsort(perm)
+            grads = [g[inv] for g in grads]
+    name = tag or f"pp_{kind}{'_remat' if remat else ''}_w{world}"
+    np.savez(os.path.join(out, f"{name}.{rank}.npz"), g=_grad_sample(grads))
+    res = {"loss": float(loss.detach()), "launches": launches,
+           "collectives": shifts, "ms": wall * 1e3,
+           "stage_mib": mp_mib([t for t in leaves.values()]) / max(
+               1, world)}
+    del stack, leaves, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def stage_lm():
+    """(c)'s heterogeneous LM: the 134m widths (gelu, unfused log-prob
+    tail) cut to EP_LAYERS layers (seed 7), as 2 stages: embedding,
+    position and 2 blocks | 2 blocks, final norm and head."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.containers import Sequential
+    lm = build_lm(VOCAB, **EP_WIDTHS, num_layers=EP_LAYERS, device="cuda",
+                  seed=7)
+    parts = list(lm._modules.values())
+    enc = parts[2]
+    layers = [enc._modules[f"layer{i}"] for i in range(EP_LAYERS)]
+    s0 = Sequential().add(parts[0]).add(parts[1])
+    for layer in layers[:EP_LAYERS // 2]:
+        s0.add(layer)
+    s1 = Sequential()
+    for layer in layers[EP_LAYERS // 2:]:
+        s1.add(layer)
+    s1.add(enc.final_norm)
+    for part in parts[3:]:
+        s1.add(part)
+    return [s0, s1]
+
+
+def stage_run(world: int, rank: int, out: str, tag: str = None,
+              fault: str = None) -> dict:
+    """(c): one loss and backward of ``StagePipeline`` over
+    ``MeshTopology(pipeline=2)`` (f32, PP_MICRO microbatches of 2) on the
+    recipe's first batch; at world 1 ``sequential_apply``. The loss, a
+    sample of the (P, L) gradient, the shifts and the launches.
+    ``fault``: ``pp_fault``'s (a control)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    from bigdl_tpu_torch.parallel.pipeline import (StagePipeline,
+                                                   stage_pipeline_loss_fn)
+    batch = dist_lm_batches(1, 0)[0]
+    ids = torch.as_tensor(batch.data).cuda()
+    tgt = torch.as_tensor(batch.labels).cuda()
+    pipe = StagePipeline(stage_lm(), ids[:TRAIN_BATCH // PP_MICRO].cpu()
+                         .numpy(), device="cuda")
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    stacked = torch.from_numpy(pipe.parameter_tree()).cuda()
+    counters = mp_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if world == 1:
+        full = stacked.clone().requires_grad_()
+        loss = crit.forward(pipe.sequential_apply(full, ids), tgt)
+        loss.backward()
+        grad = full.grad
+    else:
+        mesh = MeshTopology(pipeline=world).build()
+        row = stacked[rank].clone().requires_grad_()
+        with pp_fault(mesh, fault):
+            loss = stage_pipeline_loss_fn(pipe, crit, mesh, PP_MICRO)(
+                row, ids, tgt)
+            loss.backward()
+        grad = mesh.all_gather(row.grad.contiguous(), "pipe", dim=0).view(
+            stacked.shape)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    np.savez(os.path.join(out, f"{tag or f'pp_stage_w{world}'}.{rank}.npz"),
+             g=_grad_sample([grad]))
+    res = {"loss": float(loss.detach()),
+           "launches": {k: c.value for k, c in counters.items()},
+           "collectives": dict(pmesh.COLLECTIVES.by_axis), "ms": wall * 1e3,
+           "max_param_len": pipe.max_param_len}
+    del pipe, stacked, grad
+    torch.cuda.empty_cache()
+    return res
+
+
+def ft_drop_data(opt, dropped: int) -> None:
+    """A planted fault for a control: the ranks of data coordinate
+    ``dropped`` send zeros in place of their gradients (fsdp's
+    reduce-scatters and the replicated leaves' all-reduce then carry the
+    other coordinate's alone)."""
+    if opt.mesh.axis_index("data") == dropped:
+        inner = opt._apply_grads
+        opt._apply_grads = lambda grads, *a, **k: inner(
+            {n: torch.zeros_like(g) for n, g in grads.items()}, *a, **k)
+
+
+def ft_run(world: int, rank: int, out: str, precision: str = "bf16",
+           tag: str = None, drop_data: int = None) -> dict:
+    """(d): the 134m recipe cut to FT_LAYERS layers (bf16, AdamW, clip
+    1.0) for FT_ITERS iterations: at world 1 ``LocalOptimizer`` on the
+    whole batches; at world 4 ``sync_mode="fsdp"`` over
+    ``MeshTopology(data=2, tensor=2)``, each data coordinate its half of
+    the rows. The losses, the update sample, the MiB at rest.
+    ``drop_data``: ``ft_drop_data``'s fault (a control)."""
+    import copy
+    from bigdl_tpu_torch.dataset.base import DataSet, DistributedDataSet
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.nn.criterion import FusedLMHeadCriterion
+    from bigdl_tpu_torch.optim import AdamW, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    from bigdl_tpu_torch.utils.engine import Engine
+    t0 = time.perf_counter()
+    if "ft" not in DIST_MODELS:
+        DIST_MODELS["ft"] = build_lm(VOCAB, **dict(CONFIG,
+                                                   num_layers=FT_LAYERS),
+                                     device="cuda", seed=7)
+    model = copy.deepcopy(DIST_MODELS["ft"])
+    p0 = dist_sample(model)
+    if world == 1:
+        opt = Optimizer(model, DataSet.array(
+            dist_lm_batches(1, 0)[:FT_ITERS], seed=0),
+            FusedLMHeadCriterion(), device="cuda")
+    else:
+        data = rank // 2
+        opt = Optimizer(model, DistributedDataSet(
+            dist_lm_batches(2, data)[:FT_ITERS], shard_by_process=False,
+            seed=0), FusedLMHeadCriterion(), device="cuda",
+            topology=MeshTopology(data=2, tensor=2), sync_mode="fsdp")
+        if drop_data is not None:
+            ft_drop_data(opt, drop_data)
+    (opt.set_precision(precision)
+        .set_optim_method(AdamW(learningrate=TRAIN_LR,
+                                weightdecay=TRAIN_DECAY))
+        .set_gradient_clipping_by_l2_norm(TRAIN_CLIP)
+        .set_end_when(Trigger.max_iteration(FT_ITERS)))
+    box = []
+    init = opt._init_opt_state
+    opt._init_opt_state = lambda params: box.append(init(params)) or box[-1]
+    counters = mp_reset()
+    pmesh.COLLECTIVES.sync_timing = Engine.backend() == "gloo"
+    opt.optimize()
+    torch.cuda.synchronize()
+    pmesh.COLLECTIVES.sync_timing = False
+    resident = (opt.resident_mib() if hasattr(opt, "resident_mib") else
+                {"params": mp_mib(model.parameters()),
+                 "optim": mp_mib(_state_tensors(box[0]))})
+    res = {"losses": [h["loss"] for h in opt.history],
+           "launches": {k: c.value for k, c in counters.items()},
+           "collectives": dict(pmesh.COLLECTIVES.by_axis),
+           "ms_per_iteration": float(np.median(
+               [h["seconds"] for h in opt.history])) * 1e3,
+           "resident_mib": resident}
+    np.savez(os.path.join(out, f"{tag or f'ft_w{world}'}.{rank}.npz"), p0=p0,
+             p=mp_sample(model))
+    res["run_s"] = time.perf_counter() - t0
+    del opt, model
+    torch.cuda.empty_cache()
+    return res
+
+
+EP_JOBS = {
+    "ep": lambda w, r, out: ({"w1": ep_run(w, r, out, "w1")} if w == 1 else
+                             {m: ep_run(w, r, out, m)
+                              for m in ("expert", "data")}),
+    "pp": lambda w, r, out: {
+        "gpipe": pp_run(w, r, out, "gpipe"),
+        **({"gpipe_remat": pp_run(w, r, out, "gpipe", remat=True),
+            "circular": pp_run(w, r, out, "circular")} if w > 1 else {}),
+        "stage": stage_run(w, r, out)},
+    "ft": lambda w, r, out: {"ft": ft_run(w, r, out)},
+    # --expert-pipeline-controls: (b) and (c) in f32, (b) routed per rank,
+    # (c) with a summing psum backward and with no psum forward,
+    # StagePipeline with a summing psum backward, (d) with one data
+    # coordinate's gradients dropped
+    "ep_controls": lambda w, r, out: (
+        {"fp32": ep_run(w, r, out, "w1", "fp32", "ep_fp32_w1")} if w == 1
+        else {"fp32_expert": ep_run(w, r, out, "expert", "fp32",
+                                    "ep_fp32_expert_w2"),
+              "fp32_data": ep_run(w, r, out, "data", "fp32",
+                                  "ep_fp32_data_w2"),
+              "local": ep_run(w, r, out, "data", tag="ep_local_w2",
+                              local_routing=True)}),
+    "pp_controls": lambda w, r, out: {
+        "fp32": pp_run(w, r, out, "gpipe", "fp32",
+                       tag=f"pp_fp32_w{w}"),
+        **({"summing": pp_run(w, r, out, "gpipe", tag="pp_summing_w2",
+                              fault="summing"),
+            "no_psum": pp_run(w, r, out, "gpipe", tag="pp_no_psum_w2",
+                              fault="no_psum"),
+            "stage_summing": stage_run(w, r, out, "pp_stage_summing_w2",
+                                       fault="summing")} if w > 1 else {})},
+    "ft_controls": lambda w, r, out: {
+        "drop_data1": ft_run(w, r, out, tag="ft_drop_data1_w4",
+                             drop_data=1)},
+}
+
+
+def run_expert_pipeline_rank(jobs: str, out: str, backend: str) -> int:
+    """One rank of phase 3q's worlds: joins the group from the BIGDL_*
+    environment and writes each job's readings to
+    ``out/<job>.w<world>.<rank>.json``."""
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init_distributed(backend=backend)
+    rank, world = Engine.process_index(), Engine.process_count()
+    try:
+        for job in jobs.split(","):
+            t0 = time.perf_counter()
+            res = EP_JOBS[job](world, rank, out)
+            res["job_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, f"{job}.w{world}.{rank}.json"),
+                      "w") as f:
+                json.dump(res, f)
+    finally:
+        Engine.shutdown_distributed()
+    return 0
+
+
+def ep_spawn(world: int, jobs, out: str) -> float:
+    argv = [sys.executable, os.path.abspath(__file__),
+            "--expert-pipeline-rank", ",".join(jobs), "--dist-out", out,
+            "--dist-backend", "gloo"]
+    return dist_spawn(world, "gloo", jobs, out, argv=argv,
+                      timeout=EP_TIMEOUT_S)
+
+
+def ep_cli(out: str) -> dict:
+    """(e): ``transformer train --moeExperts 4`` (2 layers, 2 iterations)
+    and ``perf --model transformer --moeExperts 4 --moeDispatch einsum``,
+    two processes on the card at once; each one's exit and seconds."""
+    runs = {"transformer": [
+                "-m", "bigdl_tpu_torch.apps.transformer", "train",
+                "--moeExperts", "4", "--vocab", str(VOCAB), "--embedDim",
+                "768", "--numHeads", "12", "--numLayers", "2", "--seqLen",
+                str(TRAIN_SEQ), "-b", str(TRAIN_BATCH), "--synthetic-size",
+                str(2 * TRAIN_BATCH), "-e", "1"],
+            "perf": ["-m", "bigdl_tpu_torch.apps.perf", "--model",
+                     "transformer", "--moeExperts", "4", "--moeDispatch",
+                     "einsum", "-b", str(TRAIN_BATCH), "-i", "2",
+                     "--warmup", "1"]}
+    res, errors = {}, []
+    t0 = time.perf_counter()
+    procs = {}
+    for name, args in runs.items():   # both at once
+        procs[name] = subprocess.Popen(
+            [sys.executable, *args], cwd=DIST_ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        SPAWNED.append(procs[name])
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        res[name] = {"exit": proc.returncode,
+                     "s": time.perf_counter() - t0}
+        if proc.returncode != 0:
+            errors.append(f"(e) {name} exited {proc.returncode}: "
+                          f"{stderr[-2000:]}")
+        elif name == "perf":
+            res[name]["line"] = json.loads(stdout.strip().splitlines()[-1])
+    check(not errors, " | ".join(errors))
+    return res
+
+
+def ep_ranks(out: str, parts=("w2", "w4"), controls: bool = False) -> dict:
+    """Phase 3q's processes writing to ``out``, ``parts`` in turn:
+    ``"w2"`` the world-2 ranks ((b), (c)), ``"w4"`` the world-4 ranks
+    ((d)) beside (e)'s CLIs, then the world-1 yardsticks in a process of
+    their own. Returns the spawns' seconds by world and (e)'s readings
+    as ``"cli"``."""
+    res = {}
+    if "w2" in parts:
+        res["w2"] = ep_spawn(2, ["ep", "pp"] + (
+            ["ep_controls", "pp_controls"] if controls else []), out)
+    if "w4" in parts:
+        w4 = Beside(ep_spawn, 4, ["ft"] + (
+            ["ft_controls"] if controls else []), out)
+        res["cli"] = ep_cli(out)
+        res["w4"] = w4.result()
+        res["w1"] = ep_spawn(1, ["ep", "pp", "ft"] + (
+            ["ep_controls", "pp_controls"] if controls else []), out)
+    return res
+
+
+def ep_perf_full() -> dict:
+    """(a): ``perf --model transformer_134m --moeExperts 8`` (12 layers,
+    S=1024) at B=8, EP_PERF_ITERS iterations after one: ms an iteration,
+    peak MiB, the dispatch counter, the share of picks dropped (the first
+    forward) and K1-K3 launches a step."""
+    from bigdl_tpu_torch.telemetry import get_registry, instruments
+    fam = instruments(get_registry()).moe_dispatch_total
+    before = fam.labels(path="scatter").value
+    counters = flash_counters()
+    dropped = {}
+
+    def record(opt_model):
+        def hook_of(i):
+            def hook(mod, inp, o):   # returns None: the output stays
+                if i not in dropped:
+                    dropped[i] = float(1.0 - mod.routing["keep"].float()
+                                       .mean())
+            return hook
+        for i, m in enumerate(ep_moes(opt_model)):
+            m.record_routing = True
+            m.register_forward_hook(hook_of(i))
+    from bigdl_tpu_torch.apps import perf as perf_app
+    build = perf_app._build_model
+
+    def built(*a, **k):
+        out = build(*a, **k)
+        record(out[0])
+        return out
+    perf_app._build_model = built
+    try:
+        row, losses, opt = perf_run(
+            ["--model", "transformer_134m", "--moeExperts", str(EP_EXPERTS),
+             "-b", str(TRAIN_BATCH), "-i", str(EP_PERF_ITERS), "--warmup",
+             "1"], counters)
+    finally:
+        perf_app._build_model = build
+    n = EP_PERF_ITERS + 1
+    per_step = {k: v / n for k, v in row["launches"].items()}
+    check(all(per_step[k] == 12 for k in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv")),
+          f"(a) perf 134m-8e: K1-K3 launches a step {per_step}, want 12")
+    res = {"ms_per_iteration": float(np.mean(
+               [h["seconds"] for h in opt.history[1:]])) * 1e3,
+           "peak_allocated_mib": row["peak_allocated_mib"],
+           "records_per_sec": row.get("records_per_sec"),
+           "dispatch_counted": fam.labels(path="scatter").value - before,
+           "dropped_share_first_forward": dropped,
+           "launches_per_step": per_step, "losses": losses,
+           "params": sum(p.numel() for p in opt.model.parameters()),
+           "launches": row["launches"]}
+    check(res["dispatch_counted"] >= 12 * n,
+          f"(a) the dispatch counter read {res['dispatch_counted']}")
+    del opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_dispatch_layer() -> dict:
+    """(a): one 134m-8e layer's MoE at T=8192 (bf16, training mode, the
+    aux loss in): sort, scatter and einsum forward, input and parameter
+    gradients bit for bit, and each one's forward + backward ms."""
+    import copy
+    from bigdl_tpu_torch.parallel.expert import MoE
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        base = MoE(768, 3072, EP_EXPERTS).cuda().to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(EP_LAYER_TOKENS, 768, generator=gen).cuda().to(
+        torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen).cuda().to(torch.bfloat16)
+    runs, res = {}, {}
+    for dispatch in ("sort", "scatter", "einsum"):
+        m = copy.deepcopy(base)
+        m.dispatch = dispatch
+        m.train()
+
+        def step():
+            xx = x.clone().requires_grad_()
+            m.zero_grad()
+            (m(xx).float() * cot.float()).sum().backward()
+            return xx
+        step()   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            xx = step()
+        torch.cuda.synchronize()
+        res[f"{dispatch}_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        with torch.no_grad():
+            y = m(x)
+        runs[dispatch] = (y, xx.grad, {n: p.grad.clone()
+                                       for n, p in m.named_parameters()})
+    y0, dx0, g0 = runs["sort"]
+    for dispatch in ("scatter", "einsum"):
+        y, dx, g = runs[dispatch]
+        same = (torch.equal(y, y0) and torch.equal(dx, dx0)
+                and all(torch.equal(g[n], g0[n]) for n in g0))
+        res[f"{dispatch}_bit_equal"] = same
+        check(same, f"(a) {dispatch} differs from sort on the card")
+    del runs, base
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_decode() -> dict:
+    """(a): greedy decode of 4 prompts of 128 (seed 23), 32 tokens, on the
+    12-layer 134m-8e LM in bf16: ms a token, and the same tokens with
+    every layer's dispatch switched to einsum (the dispatches agree bit
+    for bit)."""
+    from bigdl_tpu_torch.models.generation import generate
+    model = ep_model(12, torch.bfloat16).eval()
+    n, s, new = EP_DECODE
+    prompts = torch.as_tensor(np.random.default_rng(23).integers(
+        1, VOCAB + 1, (n, s)), device="cuda")
+    generate(model, prompts, 2, greedy=True, device="cuda")   # warm
+    counters = mp_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, prompts, new, greedy=True, device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / new
+    launches = {k: c.value for k, c in counters.items()}
+    for m in ep_moes(model):
+        m.dispatch = "einsum"
+    again = generate(model, prompts, new, greedy=True, device="cuda")
+    same = bool(torch.equal(toks, again))
+    check(same, "(a) decode: the einsum dispatch's tokens differ")
+    del model
+    DIST_MODELS.pop("ep12", None)
+    torch.cuda.empty_cache()
+    return {"ms_per_token": ms, "tokens_equal_einsum": same,
+            "launches": launches}
+
+
+def ep_dropped_equal(out: str, a: str, b: str, world_a: int) -> dict:
+    """The first forward's kept picks of run ``a`` (every data rank's,
+    rank-major) against run ``b``'s (world 1): whether every layer's
+    picks are kept alike, the picks that differ and the share dropped."""
+    ka = [np.load(os.path.join(out, f"{a}.{r}.npz"))["keep"]
+          for r in range(world_a)]
+    kb = np.load(os.path.join(out, f"{b}.0.npz"))["keep"]
+    kept = np.concatenate(ka, axis=-1) if a.startswith(("ep_data",
+                                                        "ep_local",
+                                                        "ep_fp32_data")) \
+        else ka[0]
+    differ = int((kept != kb).sum())
+    return {"equal": differ == 0 and kept.shape == kb.shape,
+            "picks_differing": differ,
+            "dropped_share": float(1.0 - kb.mean())}
+
+
+def ep_controls(out: str, w1: dict, p1: dict, f1: dict, z_w1: dict, gdist,
+                defer) -> dict:
+    """Phase 3q's controls against world 1's sound runs: each planted
+    fault must fail the check its limit sets (``defer`` records it)."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    ctl = {}
+    b1 = dist_read(out, "ep_controls", 1)
+    b2 = dist_read(out, "ep_controls", 2)
+    for mode in ("expert", "data"):
+        ctl[f"b_fp32_{mode}"] = {
+            "update_distance": dist_update_distance(
+                out, f"ep_fp32_{mode}_w2", "ep_fp32_w1"),
+            "loss_gap": dist_loss_gap(b2[f"fp32_{mode}"]["losses"],
+                                      b1["fp32"]["losses"]),
+            "dropped": ep_dropped_equal(out, f"ep_fp32_{mode}_w2",
+                                        "ep_fp32_w1", 2)}
+    local = ctl["b_local_routing"] = {
+        "update_distance": dist_update_distance(out, "ep_local_w2",
+                                                "ep_w1_w1"),
+        "loss_gap": dist_loss_gap(b2["local"]["losses"], w1["losses"]),
+        "dropped": ep_dropped_equal(out, "ep_local_w2", "ep_w1_w1", 2)}
+    defer(not local["dropped"]["equal"], "control: (b) routed per rank "
+          "keeps world 1's dropped picks")
+    defer(local["update_distance"] > EP_UPDATE_TOL, f"control: (b) routed "
+          f"per rank within the update limit: {local}")
+    defer(local["loss_gap"] > EP_LOSS_TOL, f"control: (b) routed per rank "
+          f"within the loss limit: {local}")
+    q1 = dist_read(out, "pp_controls", 1)
+    q2 = dist_read(out, "pp_controls", 2)
+    z32 = np.load(os.path.join(out, "pp_fp32_w1.0.npz"))["g"]
+    ctl["c_fp32"] = {"grad_distance": gdist("pp_fp32_w2", z32),
+                     "loss_gap": rel(q2["fp32"]["loss"], q1["fp32"]["loss"])}
+    for name, ref, tol, what in (
+            ("summing", "gpipe", PP_GRAD_TOL, "grad_distance"),
+            ("no_psum", "gpipe", PP_LOSS_TOL, "loss_gap"),
+            ("stage_summing", "stage", PP_STAGE_TOL, "grad_distance")):
+        got = ctl[f"c_{name}"] = {
+            "grad_distance": gdist(f"pp_{name}_w2", z_w1[ref]),
+            "loss_gap": rel(q2[name]["loss"], p1[ref]["loss"])}
+        defer(got[what] > tol, f"control: (c) {name} within its "
+              f"{what} limit {tol}: {got}")
+    f4 = dist_read(out, "ft_controls", 4)
+    drop = ctl["d_drop_data1"] = {
+        "update_distance": dist_update_distance(out, "ft_drop_data1_w4",
+                                                "ft_w1"),
+        "loss_gap": dist_loss_gap(f4["drop_data1"]["losses"],
+                                  f1["losses"])}
+    defer(drop["update_distance"] > FT_UPDATE_TOL, f"control: (d) with a "
+          f"data coordinate dropped within the update limit: {drop}")
+    defer(drop["loss_gap"] > FT_LOSS_TOL, f"control: (d) with a data "
+          f"coordinate dropped within the loss limit: {drop}")
+    ctl["w1"] = {k: v["losses"] if "losses" in v else v["loss"]
+                 for k, v in {**b1, **q1}.items()}
+    return ctl
+
+
+def run_expert_pipeline(controls: bool = False, ranks: tuple = None) -> dict:
+    """Phase 3q; returns its K1-K3 launches, every process's. ``controls``:
+    also (b) and (c) in f32 at both worlds, (b) routed per rank, (c) with
+    a summing psum backward and with no psum forward, ``StagePipeline``
+    with a summing psum backward and (d) with a data coordinate's
+    gradients dropped, each held to its side of the tolerance. ``ranks``:
+    (the folder, the ``ep_ranks`` already running beside earlier phases;
+    the whole script starts the world-2 ranks before phase 3g and the
+    world-4 ranks, the CLIs and world 1 before phase 3l); None: they run
+    here."""
+    from bigdl_tpu_torch.parallel.pipeline import schedule_length
+    t_phase = time.perf_counter()
+    if ranks is None:
+        out = tempfile.mkdtemp(prefix="bigdl_ep_")
+        ranks = (out, [Beside(ep_ranks, out, ("w2", "w4"), controls)])
+    out, besides = ranks
+    failed = []
+
+    def defer(cond, what):
+        if not cond:
+            failed.append(what)
+    launches = collections.Counter()
+    a = {}
+    try:
+        a["perf"] = ep_perf_full()
+        launches.update(a["perf"].pop("launches"))
+        a["layer"] = ep_dispatch_layer()
+        a["decode"] = ep_decode()
+        launches.update(a["decode"].pop("launches"))
+        spawn_s = {}
+        for part in besides:
+            spawn_s.update(part.result())
+        e = spawn_s.pop("cli")
+        flash3 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        # (b) the expert axis and global routing
+        w1 = dist_read(out, "ep", 1)["w1"]
+        w2 = [dist_read(out, "ep", 2, r) for r in range(2)]
+        b = {"w1": {k: w1[k] for k in ("losses", "ms_per_iteration",
+                                       "expert_mib", "params_mib")}}
+        for mode in ("expert", "data"):
+            r0 = w2[0][mode]
+            b[mode] = {
+                "update_distance": dist_update_distance(
+                    out, f"ep_{mode}_w2", "ep_w1_w1"),
+                "loss_gap": dist_loss_gap(r0["losses"], w1["losses"]),
+                "dropped": ep_dropped_equal(out, f"ep_{mode}_w2",
+                                            "ep_w1_w1", 2),
+                **{k: r0[k] for k in ("losses", "ms_per_iteration",
+                                      "expert_mib", "collective_share",
+                                      "run_s")},
+                "collectives": r0["collectives"]}
+            defer(b[mode]["update_distance"] <= EP_UPDATE_TOL
+                  and b[mode]["loss_gap"] <= EP_LOSS_TOL,
+                  f"(b) {mode} against world 1: {b[mode]}")
+            defer(b[mode]["dropped"]["equal"],
+                  f"(b) {mode}: the first forward's dropped picks differ "
+                  f"from world 1's: {b[mode]['dropped']}")
+            want = ep_structure(mode, r0["grad_buckets"])
+            for rank in range(2):
+                got = w2[rank][mode]["collectives"]
+                sub = {k: got.get(k, 0) for k in want}
+                defer(sub == want, f"(b) {mode} rank {rank}: collectives "
+                      f"{sub}, want {want}")
+                got = {k: w2[rank][mode]["launches"][k] for k in flash3}
+                want_k = {k: EP_LAYERS * EP_ITERS for k in flash3}
+                defer(got == want_k, f"(b) {mode} rank {rank}: K1-K3 {got}")
+            if mode == "expert":
+                ratio = r0["expert_mib"] / w1["expert_mib"]
+                b[mode]["expert_mib_ratio"] = ratio
+                defer(0.45 < ratio < 0.55, f"(b) expert MiB at rest "
+                      f"{r0['expert_mib']} against {w1['expert_mib']}")
+        # (c) pipelines
+        p1 = dist_read(out, "pp", 1)
+        p2 = [dist_read(out, "pp", 2, r) for r in range(2)]
+        c = {"w1": {k: {"loss": v["loss"], "ms": v["ms"]}
+                    for k, v in p1.items()}}
+        z_w1 = {k: np.load(os.path.join(out, f"pp_{k}_w1.0.npz"))["g"]
+                for k in ("gpipe", "stage")}
+
+        def gdist(name, ref):
+            g = np.load(os.path.join(out, f"{name}.0.npz"))["g"]
+            r = ref.astype(np.float64)
+            return float(np.linalg.norm(g - r) / np.linalg.norm(r))
+        for kind in ("gpipe", "gpipe_remat", "circular", "stage"):
+            run = p2[0][kind]
+            ref_key = "stage" if kind == "stage" else "gpipe"
+            name = ("pp_stage_w2" if kind == "stage"
+                    else f"pp_{kind}_w2")
+            c[kind] = {"loss": run["loss"],
+                       "loss_gap": abs(run["loss"] - p1[ref_key]["loss"])
+                       / abs(p1[ref_key]["loss"]),
+                       "grad_distance": gdist(name, z_w1[ref_key]),
+                       "ms": run["ms"], "collectives": run["collectives"]}
+            tol = PP_STAGE_TOL if kind == "stage" else PP_GRAD_TOL
+            defer(c[kind]["grad_distance"] <= tol
+                  and c[kind]["loss_gap"] <= PP_LOSS_TOL,
+                  f"(c) {kind} against world 1: {c[kind]}")
+            steps = (schedule_length(PP_MICRO, 2, PP_INTERLEAVE)
+                     if kind == "circular" else schedule_length(PP_MICRO, 2))
+            for rank in range(2):
+                got = p2[rank][kind]["collectives"].get("shift_staged/pipe",
+                                                        0)
+                defer(got == 2 * steps, f"(c) {kind} rank {rank}: "
+                      f"{got} staged shifts, want {2 * steps}")
+                # each stage holds EP_LAYERS / 2 layers; every microbatch
+                # crosses each (remat: the forward once more)
+                k1 = EP_LAYERS // 2 * PP_MICRO
+                want_k = {"flash_fwd": k1 * (2 if kind == "gpipe_remat"
+                                             else 1),
+                          "flash_bwd_dq": k1, "flash_bwd_dkv": k1}
+                got = {k: p2[rank][kind]["launches"][k] for k in want_k}
+                defer(got == want_k, f"(c) {kind} rank {rank}: K1-K3 "
+                      f"{got}, want {want_k}")
+        # remat changes no gradient
+        ga, gb = (np.load(os.path.join(out, f"pp_{k}_w2.0.npz"))["g"]
+                  for k in ("gpipe", "gpipe_remat"))
+        c["remat_grads_equal"] = bool(np.array_equal(ga, gb))
+        defer(c["remat_grads_equal"], "(c) remat moved the gradients")
+        # (d) fsdp x tensor
+        f1 = dist_read(out, "ft", 1)["ft"]
+        f4 = [dist_read(out, "ft", 4, r) for r in range(4)]
+        d = {"w1": {k: f1[k] for k in ("losses", "ms_per_iteration",
+                                       "resident_mib")},
+             "w4": {"update_distance": dist_update_distance(
+                 out, "ft_w4", "ft_w1"),
+                 "loss_gap": dist_loss_gap(f4[0]["ft"]["losses"],
+                                           f1["losses"]),
+                 **{k: f4[0]["ft"][k] for k in ("losses", "ms_per_iteration",
+                                                "resident_mib")}}}
+        defer(d["w4"]["update_distance"] <= FT_UPDATE_TOL
+              and d["w4"]["loss_gap"] <= FT_LOSS_TOL,
+              f"(d) fsdp x tensor against world 1: {d['w4']}")
+        for rank in range(4):
+            mib = f4[rank]["ft"]["resident_mib"]
+            for part in ("params", "optim"):
+                defer(mib[part] < 0.35 * f1["resident_mib"][part],
+                      f"(d) rank {rank}'s {part} at rest {mib[part]} "
+                      f"against world 1's {f1['resident_mib'][part]}")
+            got = {k: f4[rank]["ft"]["launches"][k] for k in flash3}
+            want_k = {k: FT_LAYERS * FT_ITERS for k in flash3}
+            defer(got == want_k, f"(d) rank {rank}: K1-K3 {got}")
+        if controls:
+            c["controls"] = ep_controls(out, w1, p1, f1, z_w1, gdist, defer)
+        for runs in (w2, p2, f4, [dist_read(out, "ep", 1),
+                                  dist_read(out, "pp", 1),
+                                  dist_read(out, "ft", 1)]):
+            for run in runs:
+                for part in run.values():
+                    if isinstance(part, dict) and "launches" in part:
+                        launches.update(part["launches"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log({"expert_pipeline": {
+        "a_moe_full": a, "b_expert_axis": b, "c_pipeline": c,
+        "d_fsdp_tensor": d, "e_cli": e,
+        "tolerances": {"update": EP_UPDATE_TOL, "loss": EP_LOSS_TOL,
+                       "pp_grad": PP_GRAD_TOL, "pp_stage": PP_STAGE_TOL,
+                       "pp_loss": PP_LOSS_TOL,
+                       "ft_update": FT_UPDATE_TOL, "ft_loss": FT_LOSS_TOL},
+        "launches": dict(launches), "spawn_s": spawn_s,
+        "job_s": DIST_JOB_S, "phase_s": time.perf_counter() - t_phase}})
+    check(not failed, "3q: " + " | ".join(failed))
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -10210,8 +11190,25 @@ def main(argv=None) -> int:
         "--model-parallel-rank", metavar="JOBS",
         help="phase 3p's rank process: run JOBS (comma-separated) in the "
              "process group of the BIGDL_* environment")
-    parser.add_argument("--dist-out", help="with --distributed-rank or "
-                        "--model-parallel-rank: the folder for the readings")
+    parser.add_argument(
+        "--expert-pipeline-only", action="store_true",
+        help="run only the kernels' build and phase 3q (the expert and "
+             "pipeline axes: the 134m-8e MoE LM at full width, expert=2 and "
+             "data=2 with global routing, GPipe, circular and StagePipeline "
+             "at pipe=2, fsdp x tensor at world 4, the CLIs' --moeExperts) "
+             "and print its lines (no result line)")
+    parser.add_argument(
+        "--expert-pipeline-controls", action="store_true",
+        help="with --expert-pipeline-only: also run the controls that set "
+             "phase 3q's tolerances ((b) and (c) in f32, (b) routed per "
+             "rank, (c) with a summing psum backward)")
+    parser.add_argument(
+        "--expert-pipeline-rank", metavar="JOBS",
+        help="phase 3q's rank process: run JOBS (comma-separated) in the "
+             "process group of the BIGDL_* environment")
+    parser.add_argument("--dist-out", help="with --distributed-rank, "
+                        "--model-parallel-rank or --expert-pipeline-rank: "
+                        "the folder for the readings")
     parser.add_argument("--dist-backend", default="nccl",
                         help="with --distributed-rank: the group's backend")
     parser.add_argument(
@@ -10236,6 +11233,9 @@ def main(argv=None) -> int:
     if args.model_parallel_rank:
         return run_model_parallel_rank(args.model_parallel_rank,
                                        args.dist_out, args.dist_backend)
+    if args.expert_pipeline_rank:
+        return run_expert_pipeline_rank(args.expert_pipeline_rank,
+                                        args.dist_out, args.dist_backend)
     t0 = time.perf_counter()
     card = environment()
     graph_census()
@@ -10285,6 +11285,11 @@ def main(argv=None) -> int:
         log({"model_parallel_launches": mp_launches,
              "total_s": time.perf_counter() - t0, "card": card})
         return 0
+    if args.expert_pipeline_only:
+        ep_launches = run_expert_pipeline(args.expert_pipeline_controls)
+        log({"expert_pipeline_launches": ep_launches,
+             "total_s": time.perf_counter() - t0, "card": card})
+        return 0
     if args.text_only:
         text_launches = run_text()
         log({"text_launches": text_launches,
@@ -10316,6 +11321,9 @@ def main(argv=None) -> int:
         "3f serving", run_graph_serving, models, cont)
     del models
     torch.cuda.empty_cache()
+    # phase 3q's world-2 ranks beside phases 3g and 3b
+    ep_out = tempfile.mkdtemp(prefix="bigdl_ep_")
+    ep_beside = [Beside(ep_ranks, ep_out, ("w2",))]
     published_launches = timed("3g", run_published)
     train_launches, k1_run = timed("3b", run_training)
     # phase 3o's rank processes run beside phases 3h-3n (PERF.md §6)
@@ -10337,12 +11345,17 @@ def main(argv=None) -> int:
     zoo_launches, zoo_shapes = timed("3i", run_zoo)
     perf_launches, _ = timed("3j", run_perf)
     timed("3k", run_layer_zoo)
+    # its world-4 ranks and CLIs, then its world-1 yardsticks, beside
+    # phases 3l-3n (3p's ranks have ended by then)
+    ep_beside.append(Beside(ep_ranks, ep_out, ("w4",)))
     text_launches = timed("3l", run_text)
     timed("3m", run_files)
     plat_launches = timed("3n", run_platform)
     dist_launches = timed("3o", run_distributed, False, dist_ranks_beside)
     mp_launches = collections.Counter(timed("3p", run_model_parallel, False,
                                             mp_ranks_beside))
+    mp_launches.update(timed("3q", run_expert_pipeline, False,
+                             (ep_out, ep_beside)))
     resnet_launches = {k: n + plat_launches[k] + dist_launches[k]
                        for k, n in resnet_launches.items()}
     roof, roof_launches = timed("4a", run_roofline)

@@ -190,7 +190,10 @@ def test_serve_from_hf_answers_text_as_the_reference_cli():
       "4", "-b", "2", "--seqLen", "8", "--vocab", "16", "--embedDim", "16",
       "--numLayers", "1"], None),
     (["train", "--tensorParallel", "2"], "must divide the process count"),
-    (["train", "--moeExperts", "4"], "ROADMAP A.4"),
+    # ported: a routed MoE FFN trains
+    (["train", "--moeExperts", "4", "-e", "1", "--synthetic-size", "4",
+      "-b", "2", "--seqLen", "8", "--vocab", "16", "--embedDim", "16",
+      "--numLayers", "1"], None),
     (["train", "--textFile", "x.txt", "--bpeVocab", "255"],
      "must be >= 256"),
     (["train", "--summary", "logs", "--textFile", "x.txt", "--bpeVocab",
@@ -207,7 +210,11 @@ def test_serve_from_hf_answers_text_as_the_reference_cli():
     (["serve", "--draft", "d"], "require --continuous"),
     (["serve", "--replicas", "2"], "require --continuous"),
     (["serve", "--continuous", "--disaggregate", "2"], "P:D"),
-    (["bogus"], "usage")])
+    (["bogus"], "usage"),
+    (["train", "--moeExperts", "4", "--llamaBlock"],
+     "does not compose with --moeExperts"),
+    (["train", "--moeExperts", "4", "--contextParallel", "ring"],
+     "does not compose with --contextParallel")])
 def test_waiting_and_bad_options_stop_with_a_message(argv, match,
                                                      monkeypatch):
     # refused before any model is built or trained (match None: the

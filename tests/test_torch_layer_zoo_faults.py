@@ -117,17 +117,21 @@ def test_encoder_positional(args):
     ("TransformerEncoderLayer", {"moe_experts": 4}),
     ("TransformerEncoder", {"moe_k": 1})])
 def test_unported_arguments_refuse_other_values(cls, kw):
-    """The MoE arguments still raise, naming ROADMAP A.4; the blockwise and
-    context-parallel ones (ported) reach the attention as the
-    reference's do."""
+    """Every argument is ported: the MoE ones build the reference's
+    parameter tree (an MoE FFN in place of the dense pair); the blockwise
+    and context-parallel ones reach the attention as the reference's
+    do."""
     args = {"MultiHeadAttention": (8, 2),
             "TransformerEncoderLayer": (8, 2, 16),
             "TransformerEncoder": (1, 8, 2, 16)}[cls]
-    if any(k.startswith("moe") for k in kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            getattr(nn, cls)(*args, **kw)
-        return
     jm, tm = getattr(jnn, cls)(*args, **kw), getattr(nn, cls)(*args, **kw)
+    if any(k.startswith("moe") for k in kw):
+        assert _names(tm) == _names(jm.parameter_tree())
+        layers = [m for m in tm.modules()
+                  if isinstance(m, nn.TransformerEncoderLayer)]
+        assert all(l.moe_experts == kw.get("moe_experts", 0)
+                   for l in layers)
+        return
     ja = next(m for m in _modules(jm) if isinstance(m, jnn.MultiHeadAttention))
     ta = next(m for m in tm.modules() if isinstance(m, nn.MultiHeadAttention))
     for name in ("block_size", "seq_axis", "seq_mode", "seq_layout"):

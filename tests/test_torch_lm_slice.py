@@ -298,8 +298,10 @@ def test_prefill_takes_plain_core_on_cpu():
                                  dict(seq_layout="zigzag"),
                                  dict(moe_experts=4), dict(moe_k=1)])
 def test_build_lm_rejects_unported_options(bad):
-    """The MoE options still raise; the context-parallel ones (ported)
-    build the model with its attention sharded over the axis."""
+    """Every option is ported: the context-parallel ones build the model
+    with its attention sharded over the axis; the MoE ones build the
+    reference's routed FFN on the gelu recipe, and with the Llama recipe's
+    swiglu raise the reference's ValueError."""
     kw = dict(LLAMA, **bad)
     if not any(k.startswith("moe") for k in bad):
         from bigdl_tpu_torch.nn import MultiHeadAttention
@@ -309,8 +311,18 @@ def test_build_lm_rejects_unported_options(bad):
                 for k, v in bad.items():
                     assert getattr(m, k) == v
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(V, **kw, device="cpu")
+    from bigdl_tpu_torch.parallel.expert import MoE
+    if "moe_experts" in bad:
+        with pytest.raises(ValueError, match="swiglu FFN does not compose"):
+            build_lm(V, **kw, device="cpu")
+        with pytest.raises(ValueError, match="swiglu FFN does not compose"):
+            jax_transformer.build_lm(V, **kw)
+    model = build_lm(V, **dict(GPT, **dict(dict(moe_experts=4), **bad)),
+                     device="cpu")
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    assert len(moes) == GPT["num_layers"]
+    assert all(m.n_experts == 4 and m.k == bad.get("moe_k", 2)
+               for m in moes)
 
 
 @pytest.mark.parametrize("kw, exc, match", [

@@ -238,8 +238,9 @@ def test_unported_setters_raise(setter, tmp_path):
 
 def test_distributed_dataset_raises():
     """A distributed dataset trains data-parallel (``DistriOptimizer``,
-    here a mesh of one); a tensor axis (ported) needs its ranks, and fsdp
-    over one still raises, naming its ROADMAP item."""
+    here a mesh of one); a tensor axis needs its ranks; fsdp over one
+    (ported) shards the model over it, and ``sharded`` over one raises
+    the reference's ``ValueError``."""
     from bigdl_tpu_torch.parallel import DistriOptimizer, MeshTopology
     ds = DataSet.array(synthetic_corpus(B, S, V), distributed=True)
     assert ds.is_distributed() and ds.size() == B
@@ -255,12 +256,21 @@ def test_distributed_dataset_raises():
     assert tensor2.shape == {"tensor": 2} and tensor2.size == 1
     import unittest.mock as mock
     with mock.patch.object(MeshTopology, "build", lambda self, d=None:
-                           tensor2), \
-            pytest.raises(NotImplementedError,
-                          match=r"ROADMAP A\.4 \(distributed plane: model"):
-        Optimizer(model, ds, FusedLMHeadCriterion(), device="cpu",
-                  topology=MeshTopology(data=1, tensor=2),
-                  sync_mode="fsdp")
+                           tensor2):
+        opt = Optimizer(model, ds, FusedLMHeadCriterion(), device="cpu",
+                        topology=MeshTopology(data=1, tensor=2),
+                        sync_mode="fsdp")
+        assert isinstance(opt, DistriOptimizer) and opt._tp
+        attn = [m for m in model.modules()
+                if type(m).__name__ == "MultiHeadAttention"]
+        assert attn and all(m._heads_local == LLAMA["num_heads"] // 2
+                            for m in attn)
+        with pytest.raises(ValueError, match="does not compose with this "
+                           "topology"):
+            Optimizer(build_lm(V, **LLAMA, device="cpu", seed=0), ds,
+                      FusedLMHeadCriterion(), device="cpu",
+                      topology=MeshTopology(data=1, tensor=2),
+                      sync_mode="sharded")
 
 
 def test_sample_to_batch_remainder_matches_reference():

@@ -16,7 +16,6 @@ from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
 from bigdl_tpu_torch.parallel import (CompressedTensor, DistriOptimizer,
                                       MeshTopology, SerializerInstance,
                                       fsdp_param_specs, shard_fraction)
-from bigdl_tpu_torch.parallel.mesh import MODEL_PARALLEL
 from bigdl_tpu_torch.utils.engine import Engine
 
 
@@ -107,12 +106,8 @@ def test_compressed_tensor_bytes_equal_the_references():
 
 def test_mesh_and_engine_refusals():
     for axis in ("tensor", "pipeline", "sequence", "expert"):
-        if axis in ("tensor", "sequence"):   # ported: they need their ranks
-            with pytest.raises(ValueError, match="no process group"):
-                MeshTopology(**{axis: 2}).build(device="cpu")
-            continue
-        with pytest.raises(NotImplementedError, match=MODEL_PARALLEL.replace(
-                "(", r"\(").replace(")", r"\)")):
+        # every axis is ported: a wide one needs its ranks
+        with pytest.raises(ValueError, match="no process group"):
             MeshTopology(**{axis: 2}).build(device="cpu")
     with pytest.raises(ValueError, match="no process group"):
         MeshTopology(data=2).build(device="cpu")

@@ -4,8 +4,8 @@
 prints the reference's JSON line (the same keys, ``records_per_sec`` > 0):
 LeNet-5, the LSTM classifier (T=500), ViT-S/16 at full width and a small
 batch, and the 4-layer transformer under ``--remat block --optim adamw
---optStateDtype bf16``; ``--distributed`` and ``--moeExperts`` stop
-citing ROADMAP A.4; ``--memStats`` prints the reference's four keys on a
+--optStateDtype bf16``; ``--distributed`` trains data-parallel and
+``--moeExperts`` a routed MoE FFN; ``--memStats`` prints the reference's four keys on a
 card and nothing on the CPU, on stderr, as the reference does, so that
 stdout holds the result line alone. A summary sink receives ``Loss``,
 ``Throughput`` and ``LearningRate`` for every iteration with k = 1 and
@@ -65,9 +65,11 @@ def test_k_windows_leave_the_first_windows_out():
     (["--distributed"], "A.4 (distributed plane)"),
     (["--moeExperts", "4"], "A.4 (expert)")])
 def test_unported_modes_stop_naming_roadmap(flag, item):
-    """``--moeExperts`` stops naming its ROADMAP item; ``--distributed``
-    (the distributed plane, ported) trains data-parallel, here over a
-    mesh of one, and says so in its line."""
+    """Both modes are ported: ``--distributed`` trains data-parallel, here
+    over a mesh of one, and says so in its line; ``--moeExperts`` trains
+    the transformer with a routed MoE FFN in every block, dispatched as
+    ``--moeDispatch`` says, and refuses a model that is not a
+    transformer."""
     if flag == ["--distributed"]:
         result, opt = perf.run(["--model", "lenet5", "-b", "4", "-i", "2",
                                 "--warmup", "1", *flag, "--device", "cpu"])
@@ -75,9 +77,16 @@ def test_unported_modes_stop_naming_roadmap(flag, item):
         assert type(opt).__name__ == "DistriOptimizer"
         assert len(opt.history) == 3
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}".replace(
-            "(", r"\(").replace(")", r"\)")):
-        perf.main(["--model", "transformer", *flag, "--device", "cpu"])
+    from bigdl_tpu_torch.parallel.expert import MoE
+    result, opt = perf.run(["--model", "transformer", "-b", "2", "-i", "1",
+                            "--warmup", "1", *flag, "--moeDispatch",
+                            "einsum", "--device", "cpu"])
+    moes = [m for m in opt.model.modules() if isinstance(m, MoE)]
+    assert len(moes) == 4 and {m.dispatch for m in moes} == {"einsum"}
+    assert len(opt.history) == 2 and np.isfinite(
+        [h["loss"] for h in opt.history]).all()
+    with pytest.raises(SystemExit, match="applies to transformer models"):
+        perf.main(["--model", "lenet5", *flag, "--device", "cpu"])
 
 
 def test_mem_stats_are_empty_on_the_cpu():

@@ -558,6 +558,332 @@ def job_decode(outdir, rank, world):
     save(outdir, "decode", rank, out)
 
 
+# ------------------------------------------------ expert and pipeline axes
+def _np_grads(module):
+    return {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+
+
+def _moe_from(z, prefix="m:"):
+    from bigdl_tpu_torch.parallel.expert import MoE
+    cfg = json.loads(str(z[prefix + "cfg"]))
+    m = MoE(cfg["d"], cfg["h"], cfg["e"], k=cfg["k"],
+            capacity_factor=cfg["cf"], aux_loss_weight=cfg["aux"])
+    import_tree_state(m, {k[len(prefix) + 2:]: z[k] for k in z.files
+                          if k.startswith(prefix + "p:")}, {})
+    return m
+
+
+def job_ep(outdir, rank, world):
+    """The expert axis and global routing: at world 4 over
+    MeshTopology(expert=4) and MeshTopology(data=2, expert=2), at world 2
+    over MeshTopology(expert=2) and MeshTopology(data=2): the MoE of
+    ``ep.npz``'s forward (eval), its routing, and the gradients of
+    ``sum(y * cot)`` in training mode (aux loss in); then a DistriOptimizer
+    run of ``ep_mlp.npz`` (SGD-momentum, L2 clip, 4 iterations of its one
+    global batch, dealt rank-major by data coordinate) over data x expert,
+    and the refused sync modes."""
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet, MiniBatch
+    from bigdl_tpu_torch.parallel import expert
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    z = np.load(os.path.join(outdir, "ep.npz"))
+    x_all, cot_all = z["x"], z["cot"]
+    topos = ({"e4": dict(expert=4), "d2e2": dict(data=2, expert=2)}
+             if world == 4 else {"e2": dict(expert=2), "d2": dict(data=2)})
+    out = {}
+    for tag, axes in topos.items():
+        mesh = MeshTopology(**axes).build()
+        n_data, r = mesh.axis_size("data"), mesh.axis_index("data")
+        per = x_all.shape[0] // n_data
+        x = x_all[r * per:(r + 1) * per]
+        cot = cot_all[r * per:(r + 1) * per]
+        m = _moe_from(z)
+        if axes.get("expert", 1) > 1:
+            expert.shard_experts(m, mesh)
+        m.record_routing = True
+        with torch.no_grad(), expert.global_routing(m, mesh):
+            y = m.eval()(torch.from_numpy(x))
+        out[f"{tag}:y"] = y.numpy()
+        out[f"{tag}:keep"] = m.routing["keep"].numpy()
+        out[f"{tag}:picks"] = m.routing["picks"].numpy()
+        m.train()
+        xt = torch.from_numpy(x).requires_grad_()
+        with expert.global_routing(m, mesh):
+            (m(xt) * torch.from_numpy(cot)).sum().backward()
+        grads = _np_grads(m)
+        # the data ranks' mean gradient is the global one
+        for n in grads:
+            mesh.all_reduce(grads[n], op="avg")
+        if getattr(m, "_ep_mesh", None) is not None:
+            out[f"{tag}:gate_local"] = grads["gate_weight"].numpy()
+            grads = expert.gather_experts(m, grads)
+        out.update({f"{tag}:g:{n}": g.numpy() for n, g in grads.items()})
+        out[f"{tag}:dx"] = xt.grad.numpy()
+        out[f"{tag}:w1_rows"] = np.array(m.w1.shape[0])
+    # DistriOptimizer over data x expert on the global batches, rank-major
+    topo = (dict(data=2, expert=2) if world == 4 else dict(expert=2))
+    model, opt = _ep_mlp_optimizer(outdir, rank, world, topo)
+    opt.optimize()
+    out.update({"opt:" + k: v for k, v in export_tree_state(model)[0].items()})
+    out["opt:loss"] = np.array([h["loss"] for h in opt.history])
+    for mode in ("sharded", "fsdp"):
+        with pytest_raises(ValueError, "does not compose with this topology"):
+            Optimizer(nn.Linear(4, 4), DistributedDataSet(
+                [MiniBatch(torch.zeros(2, 4), torch.ones(2))],
+                shard_by_process=False), nn.MSECriterion(), device="cpu",
+                topology=MeshTopology(**topo), sync_mode=mode)
+    save(outdir, "ep", rank, out)
+
+
+def _ep_mlp_optimizer(outdir, rank, world, topo):
+    """``ep_mlp.npz``'s model (Linear, ReLU, MoE, Linear, LogSoftMax) and
+    a DistriOptimizer over ``topo`` (SGD-momentum, L2 clip, 4 iterations
+    of its one global batch, dealt rank-major by data coordinate)."""
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet, MiniBatch
+    from bigdl_tpu_torch.nn.containers import Sequential
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    zm = np.load(os.path.join(outdir, "ep_mlp.npz"))
+    n_data = topo.get("data", 1)
+    model = (Sequential().add(nn.Linear(12, 16)).add(nn.ReLU())
+             .add(_moe_from(zm)).add(nn.Linear(16, 5)).add(nn.LogSoftMax()))
+    import_tree_state(model, {k[2:]: zm[k] for k in zm.files
+                              if k.startswith("p:")}, {})
+    coord = rank // (world // n_data)
+    per = zm["x"].shape[1] // n_data
+    batches = [MiniBatch(torch.from_numpy(bx[coord * per:(coord + 1) * per]),
+                         torch.from_numpy(by[coord * per:(coord + 1) * per]))
+               for bx, by in zip(zm["x"], zm["y"])]
+    opt = Optimizer(model, DistributedDataSet(batches, shard_by_process=False),
+                    nn.ClassNLLCriterion(), device="cpu",
+                    topology=MeshTopology(**topo))
+    opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+    opt.set_gradient_clipping_by_l2_norm(0.5)
+    opt.set_end_when(Trigger.max_iteration(4))
+    return model, opt
+
+
+def job_ep_eval(outdir, rank, world):
+    """Global routing stays inside the training step: ``ep_mlp.npz``'s
+    model trained over MeshTopology(data=2) with its validation batches
+    (``vx``, ``vy``) set twice, as a plain set (every rank scores all of
+    it) and as a distributed set dealt unevenly (3 batches: 2 and 1);
+    then a forward of the first validation batch on rank 0 alone."""
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet, MiniBatch
+    from bigdl_tpu_torch.optim.validation import Loss, Top1Accuracy
+    zm = np.load(os.path.join(outdir, "ep_mlp.npz"))
+    val = [MiniBatch(torch.from_numpy(bx), torch.from_numpy(by))
+           for bx, by in zip(zm["vx"], zm["vy"])]
+    out = {}
+    for tag, ds in (("plain", DataSet.array(val)),
+                    ("uneven", DistributedDataSet(val))):
+        model, opt = _ep_mlp_optimizer(outdir, rank, world, dict(data=2))
+        opt.set_validation(Trigger.every_epoch(), ds,
+                           [Top1Accuracy(), Loss(nn.ClassNLLCriterion())])
+        opt.optimize()
+        res = opt.validation_history[-1]
+        out[f"{tag}:records"] = np.array(res["records"])
+        for name, r in res["results"].items():
+            out[f"{tag}:{name}"] = np.array(r.state(), np.float64)
+        out.update({f"{tag}:p:{k}": v
+                    for k, v in export_tree_state(model)[0].items()})
+    if rank == 0:   # nothing runs on rank 1: this forward must not wait
+        with torch.no_grad():
+            out["solo_y"] = model.eval()(val[0].data).numpy()
+    save(outdir, "ep_eval", rank, out)
+
+
+def job_fsdp_tp(outdir, rank, world):
+    """fsdp over a tensor axis: the tiny LM of ``fsdp_tp.npz`` trained 3
+    SGD-momentum steps (L2 clip) over MeshTopology(data=2, tensor=2),
+    sync_mode fsdp, on its one global batch dealt rank-major by data
+    coordinate."""
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet, MiniBatch
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    z = np.load(os.path.join(outdir, "fsdp_tp.npz"))
+    cfg = json.loads(str(z["cfg"]))
+    model = build_lm(cfg.pop("vocab"), **cfg, device="cpu", seed=0)
+    import_tree_state(model, {k[2:]: z[k] for k in z.files
+                              if k.startswith("p:")},
+                      {n: b.numpy() for n, b in model.named_buffers()})
+    coord, per = rank // 2, z["x"].shape[1] // 2
+    batches = [MiniBatch(torch.from_numpy(bx[coord * per:(coord + 1) * per]),
+                         torch.from_numpy(by[coord * per:(coord + 1) * per]))
+               for bx, by in zip(z["x"], z["y"])]
+    opt = Optimizer(model, DistributedDataSet(batches, shard_by_process=False),
+                    nn.TimeDistributedCriterion(nn.ClassNLLCriterion()),
+                    device="cpu", topology=MeshTopology(data=2, tensor=2),
+                    sync_mode="fsdp")
+    opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+    opt.set_gradient_clipping_by_l2_norm(1.0)
+    opt.set_end_when(Trigger.max_iteration(3))
+    opt.optimize()
+    out = {"p:" + k: v for k, v in export_tree_state(model)[0].items()}
+    out["loss"] = np.array([h["loss"] for h in opt.history])
+    out["resident"] = np.array(opt.resident_mib()["params"])
+    out["slabs"] = np.array(sorted(opt._full))
+    save(outdir, "fsdp_tp", rank, out)
+
+
+def _pp_block():
+    return nn.TransformerEncoderLayer(16, 2, 32, pre_norm=True)
+
+
+def _pp_bn_block():
+    return (nn.Sequential()
+            .add(nn.SpatialConvolution(8, 8, 3, 3, 1, 1, 1, 1,
+                                       with_bias=False))
+            .add(nn.SpatialBatchNormalization(8))
+            .add(nn.ReLU()))
+
+
+def _stack_from(z, prefix, factory, depth):
+    from bigdl_tpu_torch.parallel.pipeline import PipelineStack
+    stack = PipelineStack(factory, depth, device="cpu")
+    import_tree_state(
+        stack, {k[len(prefix) + 2:]: z[k] for k in z.files
+                if k.startswith(prefix + "p:")},
+        {k[len(prefix) + 2:]: z[k] for k in z.files
+         if k.startswith(prefix + "b:")})
+    return stack
+
+
+def _pp_grads(stack, loss_fn, x, y, params=None):
+    """(loss, {name: this rank's gradient of each whole stacked leaf}):
+    its stage's rows, zeros elsewhere."""
+    leaves = {n: p.detach().clone().requires_grad_()
+              for n, p in (params or stack.parameter_tree()).items()}
+    loss = loss_fn(leaves, None, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    return float(loss.detach()), {n: t.grad for n, t in leaves.items()}
+
+
+def job_pp(outdir, rank, world):
+    """Pipelines at world 4: GPipe over MeshTopology(pipeline=4) at n_micro
+    4, 8 and 16 (losses; gradients at 4 with and without remat), a
+    batch-norm stack's loss and buffers, the circular schedule V=2 at
+    M=8 and M=P=4 (loss, gradients), dp x pp over MeshTopology(data=2,
+    pipeline=2), and the heterogeneous LM's StagePipeline at 4 stages and
+    at 2 (under dp=2): losses and the stacked gradients."""
+    from bigdl_tpu_torch.parallel import mesh as pmesh
+    from bigdl_tpu_torch.parallel.pipeline import (StagePipeline,
+                                                   circular_permutation,
+                                                   gpipe_loss_fn,
+                                                   stage_pipeline_loss_fn)
+    z = np.load(os.path.join(outdir, "pp.npz"))
+    out = {}
+    mesh = MeshTopology_build(pipeline=4)
+    dp_mesh = MeshTopology_build(data=2, pipeline=2)
+    crit = nn.MSECriterion()
+    stack8 = _stack_from(z, "s8:", _pp_block, 8)
+    for m in (4, 8, 16):
+        loss, _ = _pp_grads(stack8, gpipe_loss_fn(stack8, crit, mesh, m),
+                            z["x16"], z["y16"])
+        out[f"gpipe_m{m}:loss"] = np.array(loss)
+    stack4 = _stack_from(z, "s4:", _pp_block, 4)
+    for remat in (False, True):
+        pmesh.COLLECTIVES.reset()
+        loss, g = _pp_grads(stack4, gpipe_loss_fn(stack4, crit, mesh, 4,
+                                                  remat=remat),
+                            z["x8"], z["y8"])
+        tag = "gpipe_remat" if remat else "gpipe"
+        out[f"{tag}:loss"] = np.array(loss)
+        out[f"{tag}:shifts"] = np.array(pmesh.COLLECTIVES.by_axis.get(
+            "shift/pipe", 0))
+        for n, t in g.items():
+            mesh.all_reduce(t, axis="pipe")
+            out[f"{tag}:g:{n}"] = t.numpy()
+    # the batch-norm stack: loss and the stage's new buffers
+    bn = _stack_from(z, "bn:", _pp_bn_block, 4)
+    fn = gpipe_loss_fn(bn, crit, mesh, 4)
+    loss, bufs = fn(bn.parameter_tree(), bn.buffer_tree(), None,
+                    torch.from_numpy(z["xbn"]), torch.from_numpy(z["ybn"]))
+    out["bn:loss"] = np.array(float(loss))
+    for n, b in bufs.items():
+        out[f"bn:b:{n}"] = mesh.all_gather(b.contiguous(), "pipe",
+                                           dim=0).numpy()
+    # circular, V = 2, on the permuted layers
+    perm = circular_permutation(8, 4, 2)
+    for m in (8, 4):
+        params = {n: p.detach()[torch.from_numpy(perm).long()]
+                  for n, p in stack8.parameter_tree().items()}
+        loss, g = _pp_grads(stack8, gpipe_loss_fn(stack8, crit, mesh, m,
+                                                  interleave=2),
+                            z["x16"], z["y16"], params)
+        out[f"circ_m{m}:loss"] = np.array(loss)
+        inv = torch.from_numpy(np.argsort(perm)).long()
+        for n, t in g.items():
+            mesh.all_reduce(t, axis="pipe")
+            out[f"circ_m{m}:g:{n}"] = t[inv].numpy()
+    # dp x pp: this data rank's half of the batch
+    d = dp_mesh.axis_index("data")
+    xs, ys = z["x8"][4 * d:4 * d + 4], z["y8"][4 * d:4 * d + 4]
+    loss, g = _pp_grads(stack4, gpipe_loss_fn(stack4, crit, dp_mesh, 4,
+                                              data_axis="data"), xs, ys)
+    out["dpp:loss"] = np.array(loss)
+    for n, t in g.items():
+        dp_mesh.all_reduce(t, axis="pipe")
+        out[f"dpp:g:{n}"] = t.numpy()
+    # StagePipeline: the LM in 4 stages, and in 2 under dp=2
+    ids, tgt = z["ids"], z["tgt"]
+    lm_crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    for tag, stages, m_ in (("stage4", _lm_stages(z, 4), mesh),
+                            ("stage2", _lm_stages(z, 2), dp_mesh)):
+        data_axis = "data" if tag == "stage2" else None
+        rows = ids if data_axis is None else ids[4 * d:4 * d + 4]
+        labels = tgt if data_axis is None else tgt[4 * d:4 * d + 4]
+        pipe = StagePipeline(stages, rows[:1].astype(np.float32),
+                             device="cpu")
+        stacked = torch.from_numpy(pipe.parameter_tree().copy())
+        row = stacked[m_.axis_index("pipe")].clone().requires_grad_()
+        pmesh.COLLECTIVES.reset()
+        loss = stage_pipeline_loss_fn(pipe, lm_crit, m_, len(rows),
+                                      data_axis=data_axis)(
+            row, torch.from_numpy(rows.astype(np.float32)),
+            torch.from_numpy(labels.astype(np.float32)))
+        loss.backward()
+        out[f"{tag}:loss"] = np.array(float(loss.detach()))
+        out[f"{tag}:shifts"] = np.array(pmesh.COLLECTIVES.by_axis.get(
+            "shift/pipe", 0))
+        out[f"{tag}:shift_bytes"] = np.array(pmesh.COLLECTIVES.bytes.get(
+            "shift", 0))
+        out[f"{tag}:in_shapes"] = np.array(
+            [int(np.prod(s)) for s in pipe._in_shapes])
+        out[f"{tag}:g"] = m_.all_gather(row.grad.contiguous(), "pipe",
+                                        dim=0).view(stacked.shape).numpy()
+        out[f"{tag}:stacked"] = pipe.parameter_tree()
+    save(outdir, "pp", rank, out)
+
+
+def MeshTopology_build(**axes):
+    from bigdl_tpu_torch.parallel.mesh import MeshTopology
+    return MeshTopology(**axes).build()
+
+
+def _lm_stages(z, n):
+    """The heterogeneous LM (embedding + position + block | blocks | norm
+    + head) in ``n`` stages, with ``pp.npz``'s weights."""
+    from bigdl_tpu_torch.nn.containers import Sequential
+    e, v = 16, 24
+    emb = (Sequential().add(nn.LookupTable(v, e))
+           .add(nn.PositionalEncoding(e, 32))
+           .add(nn.TransformerEncoderLayer(e, 2, 32, causal=True)))
+    mids = [Sequential().add(nn.TransformerEncoderLayer(e, 2, 32,
+                                                        causal=True))
+            for _ in range(2)]
+    head = (Sequential().add(nn.LayerNorm(e))
+            .add(nn.TimeDistributed(nn.Linear(e, v))).add(nn.LogSoftMax()))
+    parts = [emb, *mids, head]
+    for i, part in enumerate(parts):
+        import_tree_state(part, {k[len(f"lm{i}:p:"):]: z[k] for k in z.files
+                                 if k.startswith(f"lm{i}:p:")},
+                          {n: b.numpy() for n, b in part.named_buffers()})
+    if n == 4:
+        return parts
+    first = Sequential().add(parts[0]).add(parts[1])
+    last = Sequential().add(parts[2]).add(parts[3])
+    return [first, last]
+
+
 class pytest_raises:
     """``pytest.raises`` for the rank processes (which import no pytest)."""
 
@@ -583,7 +909,8 @@ JOBS = {"bn_plain": lambda o, r, w: job_bn(o, r, w, False),
         "validation": job_validation, "preempt": job_preempt,
         "ckpt_save": job_ckpt_save, "ckpt_restore": job_ckpt_restore,
         "uneven": job_uneven, "tp": job_tp, "cp": job_cp,
-        "decode": job_decode, "cli": job_cli}
+        "decode": job_decode, "cli": job_cli, "ep": job_ep,
+        "ep_eval": job_ep_eval, "fsdp_tp": job_fsdp_tp, "pp": job_pp}
 
 
 def spawn(outdir, world, jobs):
