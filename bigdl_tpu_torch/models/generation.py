@@ -86,6 +86,7 @@ def _tracked(model: Module, site: str, fn):
         prog = sites.get(site)
         if prog is None:
             ref = weakref.ref(model)
+            # graftlint: ignore[JG013,JG014] -- keyed by the call site's name (a fixed set of literals in this package), one family per site and model; the model's entry goes with the model (WeakKeyDictionary)
             prog = sites[site] = tracked_jit(
                 lambda *a: fn(ref(), *a), site=site)
         return prog

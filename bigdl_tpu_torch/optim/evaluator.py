@@ -113,6 +113,7 @@ def _evaluate_batches(fwd, batches, v_methods, device, cache):
             out = fwd(torch.cat([data, pad]))[:n]
             score(out, labels, acc_v, acc_c)
         else:   # a structured output is scored at the exact shape
+            # graftlint: ignore[JG019] -- acc_v/acc_c are sized by the validation methods' count, fixed for the whole pass (not traffic)
             out = scorer(data, labels, acc_v, acc_c)
             sliceable = torch.is_tensor(out)
         for i, m in enumerate(v_methods):

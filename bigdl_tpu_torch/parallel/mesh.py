@@ -53,13 +53,14 @@ _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQUENCE_AXIS,
 
 class _Counts:
     """Calls, payload bytes and host seconds per collective op, and calls
-    per ``op/axis``."""
+    and payload bytes per ``op/axis``."""
 
     def __init__(self) -> None:
         self.calls: Dict[str, int] = collections.Counter()
         self.bytes: Dict[str, int] = collections.Counter()
         self.seconds: Dict[str, float] = collections.Counter()
         self.by_axis: Dict[str, int] = collections.Counter()
+        self.bytes_by_axis: Dict[str, int] = collections.Counter()
         self.sync_timing = False
 
     @contextlib.contextmanager
@@ -77,16 +78,19 @@ class _Counts:
         self.bytes[op] += int(nbytes)
         self.seconds[op] += time.perf_counter() - t0
         self.by_axis[f"{op}/{axis}"] += 1
+        self.bytes_by_axis[f"{op}/{axis}"] += int(nbytes)
 
     def reset(self) -> None:
         self.calls.clear()
         self.bytes.clear()
         self.seconds.clear()
         self.by_axis.clear()
+        self.bytes_by_axis.clear()
 
     def snapshot(self) -> Dict[str, Dict]:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
-                "seconds": dict(self.seconds), "by_axis": dict(self.by_axis)}
+                "seconds": dict(self.seconds), "by_axis": dict(self.by_axis),
+                "bytes_by_axis": dict(self.bytes_by_axis)}
 
 
 #: every collective a ``Mesh`` ran in this process

@@ -464,6 +464,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    3q's world-2 ranks start before phase 3g, in a thread beside this
    process's phases 3g and 3b, and its world 4, CLIs and world 1 before
    phase 3l, beside 3l-3n;
+3r. the static analyser (``bigdl_tpu_torch/analysis``; after phase 3q;
+   ``--analysis-only`` runs (a) and (b) alone). (a) ``python -m
+   bigdl_tpu_torch.analysis`` on the port tree and this script, as
+   processes beside phase 3c (device-bound): cold (a new cache) and
+   warm, the exit code, files, findings and suppressions by code, and a
+   warm pass that counts the files it parses (none: a cache hit), the
+   host CPU's name (as its ``/proc/cpuinfo`` gives it);
+   (b) in a process of its own (``--capture-rules``), beside phases 3g
+   and 3b: each capture rule's positive and near-miss fixture
+   (``analysis/fixtures.py``: JG001, JG002, JG003, JG006, JG007,
+   JG013/JG019, JG020) linted, then run under ``GraphedProgram`` on the
+   card; the positive must be flagged and show its hazard (the capture
+   raises, the side effect counts the capture only, two replays draw
+   equal numbers, a held output equals the next replay's, one capture a
+   length against the buckets' count, the replay's ``data_ptr`` error),
+   the near-miss must not be flagged, must capture and must replay equal
+   to eager, one ``capture_rule`` line a rule; (c) the byte model
+   (``analysis/commcost.py``) at each run's symbols (the 134m recipe's P
+   and A, the 134m-8e's T and n_moe, the ring's K, the pipelines'
+   boundaries) against the payload bytes ``COLLECTIVES`` counted by op
+   and axis in 3o's world-2 modes, 3p's tp, tp+sp and rings and 3q's
+   expert and data axes, GPipe and ``StagePipeline``, on every rank:
+   exact (``COMM_RTOL``), and the model with its first term dropped must
+   fail. The ranks run gloo over one card, so this holds the payload
+   algebra, not NVLink wire time. An ``analysis`` line logs them;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -519,8 +544,9 @@ phase 3i and its kernel rows, printing them and no result line;
 ``--perf-only`` does the same for phase 3j; ``--layers-only`` runs only
 phase 3k, ``--files-only`` only phase 3m, ``--platform-only`` only
 phase 3n, ``--distributed-only`` only phase 3o,
-``--model-parallel-only`` only phase 3p and ``--expert-pipeline-only``
-only phase 3q (none of them prints kernel rows). Phase 3o's ranks are fresh processes of ``python3
+``--model-parallel-only`` only phase 3p, ``--expert-pipeline-only``
+only phase 3q and ``--analysis-only`` phase 3r's (a) and (b) (none of
+them prints kernel rows). Phase 3o's ranks are fresh processes of ``python3
 chip_smoke.py --distributed-rank JOBS --dist-out DIR --dist-backend B``
 with the ``BIGDL_*`` environment.
 
@@ -8818,6 +8844,7 @@ def dist_run(opt, iters: int = None) -> dict:
            "collective_mib_per_step": {op: b / iters / 2 ** 20
                                        for op, b in snap["bytes"].items()},
            "collective_s": sum(snap["seconds"].values()), "wall_s": wall,
+           "bytes_by_axis": dict(snap.get("bytes_by_axis", {})),
            "ms_per_iteration": float(np.median(
                [h["seconds"] for h in opt.history[2:]])) * 1e3}
     res["collective_share"] = res["collective_s"] / wall
@@ -8940,6 +8967,12 @@ def dist_lm_run(mode: str, world: int, rank: int, out: str,
     if drop_rank is not None:
         dist_drop_rank(opt, rank, drop_rank)
     res = dist_run(opt, None)
+    if world > 1 and mode != "local" and drop_rank is None:
+        from bigdl_tpu_torch.parallel import comm_symbols as cs
+        res["comm_model"] = comm_held(
+            {"allreduce": "dp-allreduce", "sharded": "dp-sharded",
+             "fsdp": "fsdp"}[mode], {"bytes_by_axis": res["bytes_by_axis"]},
+            len(opt.history), cs.dp_symbols(opt))
     if digest:
         res["digest"] = dist_digest(model)
     res["param_shapes"] = [list(p.shape) for p in model.parameters()]
@@ -9410,6 +9443,9 @@ def run_distributed(controls: bool = False, ranks: "Beside" = None) -> dict:
             defer(r0["collectives_per_step"] == structure[mode],
                   f"(b) {mode}: collectives a step "
                   f"{r0['collectives_per_step']}, want {structure[mode]}")
+            b[mode]["comm_model"] = [comm_verdict(
+                "3o", f"{mode}.rank{rank}", w2[rank][mode]["comm_model"],
+                defer) for rank in range(2)]
             for rank in range(2):
                 got = {k: w2[rank][mode]["launches"][k] for k in flash_want}
                 defer(got == flash_want, f"(b) {mode} rank {rank}: K1-K3 "
@@ -9671,6 +9707,12 @@ def mp_tp_run(world: int, rank: int, out: str, sp: bool,
                             "optim": mp_mib(
                                 [t for t in _state_tensors(box[0])])}}
     res["collective_share"] = res["collectives"]["seconds"] / wall
+    if world > 1 and not drop_entry_reduce:
+        from bigdl_tpu_torch.parallel import comm_symbols as cs
+        res["comm_model"] = comm_held(
+            "tp-sp" if sp else "tp-megatron", pmesh.COLLECTIVES.snapshot(),
+            MP_ITERS, cs.tp_symbols(model, opt.mesh, TRAIN_BATCH, TRAIN_SEQ,
+                                    2 if precision == "bf16" else 4, True))
     name = tag or f"mp_tp{'_sp' if sp else ''}_w{world}"
     p = mp_sample(model)
     np.savez(os.path.join(out, f"{name}.{rank}.npz"), p0=p0, p=p)
@@ -9804,6 +9846,12 @@ def mp_cp_run(world: int, rank: int, out: str, mode: str,
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t1)
     pmesh.COLLECTIVES.sync_timing = False
+    held = None
+    if world > 1 and mode == "ring":
+        from bigdl_tpu_torch.parallel import comm_symbols as cs
+        held = comm_held("sp-ring", pmesh.COLLECTIVES.snapshot(), MP_CP_ITERS,
+                         cs.ring_symbols(model, lm.mesh, TRAIN_BATCH,
+                                         TRAIN_SEQ, 2))
     tag = f"mp_cp_{mode}_{layout}_w{world}" if world > 1 else "mp_cp_w1"
     np.savez(os.path.join(out, f"{tag}.{rank}.npz"), grads=method.sample,
              **{f"logp_{k}": v for k, v in view.items()})
@@ -9812,6 +9860,8 @@ def mp_cp_run(world: int, rank: int, out: str, mode: str,
            "collectives": mp_collectives(MP_CP_ITERS),
            "ms_per_iteration": float(np.median(seconds[1:])) * 1e3,
            "run_s": time.perf_counter() - t0}
+    if held is not None:
+        res["comm_model"] = held
     del model, params, state
     torch.cuda.empty_cache()
     return res
@@ -10049,6 +10099,9 @@ def run_model_parallel(controls: bool = False, ranks: Beside = None) -> dict:
                 "collective_mib_per_step": r0["collectives"]["mib_per_step"],
                 "collective_share": r0["collective_share"],
                 "resident_mib": r0["resident_mib"], "run_s": r0["run_s"]}
+            a[mode]["comm_model"] = [comm_verdict(
+                "3p", f"{mode}.rank{rank}", w2[rank][mode]["comm_model"],
+                defer) for rank in range(2)]
             want = mp_tp_structure(mode == "sp")
             for rank in range(2):
                 got = w2[rank][mode]["collectives"]["per_step"]
@@ -10112,6 +10165,10 @@ def run_model_parallel(controls: bool = False, ranks: Beside = None) -> dict:
                       "run_s": r0["run_s"]}
             defer(gap <= MP_LOGP_TOL and gdist <= MP_GRAD_TOL,
                   f"(b) {key} against world 1's full attention: {b[key]}")
+            if mode == "ring":
+                b[key]["comm_model"] = [comm_verdict(
+                    "3p", f"{key}.rank{rank}", cw2[rank][key]["comm_model"],
+                    defer) for rank in range(2)]
             want = mp_cp_structure(mode)
             for rank in range(2):
                 run = cw2[rank][key]
@@ -10313,6 +10370,15 @@ def ep_run(world: int, rank: int, out: str, mode: str,
     pmesh.COLLECTIVES.sync_timing = False
     routing.close()
     snap = pmesh.COLLECTIVES.snapshot()
+    held = None
+    if world > 1 and not local_routing:
+        from bigdl_tpu_torch.parallel import comm_symbols as cs
+        n_data = world if mode == "data" else 1
+        sym = cs.moe_symbols(model, TRAIN_BATCH // n_data * TRAIN_SEQ,
+                             2 if precision == "bf16" else 4, n_data, True)
+        sym.update(P=cs.nbytes(model.parameters()), S_expert=world)
+        held = comm_held("dp x ep" if mode == "data" else "ep", snap,
+                         EP_ITERS, sym)
     experts = [getattr(m, n) for m in ep_moes(model)
                for n in ("w1", "b1", "w2", "b2")]
     res = {"losses": [h["loss"] for h in opt.history],
@@ -10327,6 +10393,8 @@ def ep_run(world: int, rank: int, out: str, mode: str,
            "grad_buckets": len(dopt._buckets(
                [p for p in model.parameters() if p.requires_grad],
                dopt.BUCKET_BYTES))}
+    if held is not None:
+        res["comm_model"] = held
     name = tag or f"ep_{mode}_w{world}"
     keep = np.stack([routing.keep[i] for i in sorted(routing.keep)])
     np.savez(os.path.join(out, f"{name}.{rank}.npz"), p0=p0,
@@ -10451,6 +10519,11 @@ def pp_run(world: int, rank: int, out: str, kind: str,
     wall = time.perf_counter() - t0
     launches = {k: c.value for k, c in counters.items()}
     shifts = dict(pmesh.COLLECTIVES.by_axis)
+    held = None
+    if world > 1 and kind == "gpipe" and not remat and fault is None:
+        from bigdl_tpu_torch.parallel import comm_symbols as cs
+        held = comm_held("pp-gpipe", pmesh.COLLECTIVES.snapshot(), 1,
+                         cs.gpipe_symbols(x, PP_MICRO, mesh))
     grads = [leaves[n].grad for n in names]
     if world > 1:
         for g in grads:
@@ -10464,6 +10537,8 @@ def pp_run(world: int, rank: int, out: str, kind: str,
            "collectives": shifts, "ms": wall * 1e3,
            "stage_mib": mp_mib([t for t in leaves.values()]) / max(
                1, world)}
+    if held is not None:
+        res["comm_model"] = held
     del stack, leaves, grads
     torch.cuda.empty_cache()
     return res
@@ -10526,6 +10601,7 @@ def stage_run(world: int, rank: int, out: str, tag: str = None,
             loss = stage_pipeline_loss_fn(pipe, crit, mesh, PP_MICRO)(
                 row, ids, tgt)
             loss.backward()
+        snap = pmesh.COLLECTIVES.snapshot()
         grad = mesh.all_gather(row.grad.contiguous(), "pipe", dim=0).view(
             stacked.shape)
     torch.cuda.synchronize()
@@ -10536,6 +10612,10 @@ def stage_run(world: int, rank: int, out: str, tag: str = None,
            "launches": {k: c.value for k, c in counters.items()},
            "collectives": dict(pmesh.COLLECTIVES.by_axis), "ms": wall * 1e3,
            "max_param_len": pipe.max_param_len}
+    if world > 1 and fault is None:
+        from bigdl_tpu_torch.parallel import comm_symbols as cs
+        res["comm_model"] = comm_held("pp-stage", snap, 1,
+                                      cs.stage_symbols(pipe, PP_MICRO, mesh))
     del pipe, stacked, grad
     torch.cuda.empty_cache()
     return res
@@ -11006,6 +11086,9 @@ def run_expert_pipeline(controls: bool = False, ranks: tuple = None) -> dict:
             defer(b[mode]["dropped"]["equal"],
                   f"(b) {mode}: the first forward's dropped picks differ "
                   f"from world 1's: {b[mode]['dropped']}")
+            b[mode]["comm_model"] = [comm_verdict(
+                "3q", f"ep_{mode}.rank{rank}", w2[rank][mode]["comm_model"],
+                defer) for rank in range(2)]
             want = ep_structure(mode, r0["grad_buckets"])
             for rank in range(2):
                 got = w2[rank][mode]["collectives"]
@@ -11042,6 +11125,10 @@ def run_expert_pipeline(controls: bool = False, ranks: tuple = None) -> dict:
                        / abs(p1[ref_key]["loss"]),
                        "grad_distance": gdist(name, z_w1[ref_key]),
                        "ms": run["ms"], "collectives": run["collectives"]}
+            if kind in ("gpipe", "stage"):
+                c[kind]["comm_model"] = [comm_verdict(
+                    "3q", f"{kind}.rank{rank}", p2[rank][kind]["comm_model"],
+                    defer) for rank in range(2)]
             tol = PP_STAGE_TOL if kind == "stage" else PP_GRAD_TOL
             defer(c[kind]["grad_distance"] <= tol
                   and c[kind]["loss_gap"] <= PP_LOSS_TOL,
@@ -11112,6 +11199,218 @@ def run_expert_pipeline(controls: bool = False, ranks: tuple = None) -> dict:
         "job_s": DIST_JOB_S, "phase_s": time.perf_counter() - t_phase}})
     check(not failed, "3q: " + " | ".join(failed))
     return dict(launches)
+
+
+# ------------------------------------------------------- 3r. the analyser
+COMM_RTOL = 0.0           # (c): the byte model against the counted bytes
+COMM_HELD = []            # (c): every rank's verdict, gathered by 3o-3q
+COMM_EXPECTED = 22        # 3o 3 modes, 3p tp/sp and 2 rings, 3q 2 + 2; x2
+ANALYSIS_TIMEOUT_S = 600  # (a) each lint process; (b) the rules' process
+
+_LINT_WARM = r"""
+import collections, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+from bigdl_tpu_torch.analysis import core
+from bigdl_tpu_torch.analysis.__main__ import default_paths
+parsed = [0]
+parse = core.FileContext.parse.__func__
+def counted(cls, *a, **k):
+    parsed[0] += 1
+    return parse(cls, *a, **k)
+core.FileContext.parse = classmethod(counted)
+t0 = time.perf_counter()
+warm = core.lint_paths(default_paths())
+print(json.dumps({"warm_s": time.perf_counter() - t0,
+                  "warm_parsed": parsed[0], "files": len(warm),
+                  "json": core.render_json(warm)}))
+"""
+
+
+def comm_held(mode: str, snapshot: dict, steps: int, symbols: dict) -> dict:
+    """(c) of phase 3r in a rank process: the port's byte model for
+    ``mode`` at this run's symbols against the run's ``COLLECTIVES``
+    snapshot (payload bytes by op and axis), and its control, the model
+    with its first term dropped, which must fail the same tolerance."""
+    from bigdl_tpu_torch.parallel import comm_symbols as cs
+    sound = cs.held(mode, snapshot, steps, symbols, rtol=COMM_RTOL)
+    ctl = cs.held(mode, snapshot, steps, symbols, rtol=COMM_RTOL, drop=0)
+    return {"mode": mode, "steps": steps, "ok": sound["ok"],
+            "control_fails": not ctl["ok"],
+            "rows": {r["key"]: [r["model"], r["counted"]]
+                     for r in sound["rows"]},
+            "max_rel_err": max((r["rel_err"] for r in sound["rows"]),
+                               default=0.0)}
+
+
+def comm_verdict(phase: str, run: str, held: dict, defer) -> dict:
+    """Record a rank's (c) verdict for phase 3r and defer its check."""
+    COMM_HELD.append({"phase": phase, "run": run, **held})
+    defer(held["ok"] and held["control_fails"],
+          f"(3r c) {phase} {run}: the byte model against the counted "
+          f"bytes: {held}")
+    return held["rows"]
+
+
+def self_lint() -> dict:
+    """(a): ``python -m bigdl_tpu_torch.analysis`` cold (a new cache) and
+    warm (its hit) as processes, and a warm pass that counts the files it
+    parses; the host CPU's name."""
+    cache_dir = tempfile.mkdtemp(prefix="graftlint_")
+    env = dict(os.environ, GRAFTLINT_CACHE=cache_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    try:
+        for kind in ("cold", "warm"):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m",
+                                "bigdl_tpu_torch.analysis", "--format",
+                                "json"], cwd=root, env=env,
+                               capture_output=True, text=True,
+                               timeout=ANALYSIS_TIMEOUT_S)
+            out[f"{kind}_s"] = time.perf_counter() - t0
+            out[f"{kind}_exit"] = r.returncode
+            report = json.loads(r.stdout)
+            out[f"{kind}_report"] = report
+        probe = subprocess.run([sys.executable, "-c", _LINT_WARM], cwd=root,
+                               env=env, capture_output=True, text=True,
+                               timeout=ANALYSIS_TIMEOUT_S)
+        check(probe.returncode == 0, f"(3r a) the warm probe failed: "
+              f"{probe.stderr[-2000:]}")
+        warm = json.loads(probe.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    cold = out.pop("cold_report")
+    same = out.pop("warm_report") == cold == json.loads(warm.pop("json"))
+    cpu = host_cpu()
+    return {**out, "exit": out["cold_exit"], "files": cold["files"],
+            "findings": collections.Counter(
+                f["code"] for f in cold["findings"]),
+            "suppressed": collections.Counter(
+                f["code"] for f in cold["suppressed"]),
+            "warm_in_process_s": warm["warm_s"],
+            "warm_parsed": warm["warm_parsed"], "warm_equal": same,
+            "host_cpu": cpu, "cpus": os.cpu_count()}
+
+
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it: its model name, vendor,
+    family and model (a sandboxed host may report the name "unknown")."""
+    import platform
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break          # the first processor's block
+                key, _, value = ln.partition(":")
+                fields[key.strip().lower()] = value.strip()
+    except OSError:
+        pass
+    parts = [fields.get(k) for k in ("model name", "vendor_id",
+                                     "cpu family", "model")]
+    named = [p for p in parts if p]
+    return ", ".join(named) or platform.machine()
+
+
+def _run_fixture(src: str, name: str) -> dict:
+    """Execute a fixture's source and call its ``run("cuda")``."""
+    ns = {"__name__": f"graftlint_fixture_{name}"}
+    t0 = time.perf_counter()
+    try:
+        exec(compile(src, f"<{name}>", "exec"), ns)
+        res = ns["run"]("cuda")
+    except Exception as e:   # noqa: BLE001 - a fixture that fails is read
+        res = {"error": f"{type(e).__name__}: {e}"[:300]}
+    torch.cuda.synchronize()
+    res["s"] = time.perf_counter() - t0
+    return {k: v for k, v in res.items()
+            if isinstance(v, (bool, int, float, str, type(None)))}
+
+
+def capture_rules() -> dict:
+    """(b): each capture rule's positive and near-miss fixture linted,
+    then run under ``GraphedProgram`` on the card. A row holds when the
+    analyser flags the positive and not the near-miss, the positive shows
+    its hazard, and the near-miss captures and replays equal to eager."""
+    from bigdl_tpu_torch.analysis import lint_source
+    from bigdl_tpu_torch.analysis.fixtures import FIXTURES, RUNNABLE
+    rows = {}
+    for row, codes in RUNNABLE.items():
+        fire, ok = FIXTURES[codes[0]]
+        tag = row.replace("/", "_").lower()
+        got_fire = {f.code for f in lint_source(f"{tag}_fire.py", fire)
+                    .findings}
+        got_ok = {f.code for f in lint_source(f"{tag}_ok.py", ok).findings}
+        near = _run_fixture(ok, f"{tag}_ok")
+        pos = _run_fixture(fire, f"{tag}_fire")
+        r = {"flags_positive": set(codes) <= got_fire,
+             "flags_near_miss": sorted(got_ok & set(codes)),
+             "hazard_shown": pos.get("hazard") is True,
+             "near_miss_replays_equal_eager": bool(
+                 near.get("captured") and near.get("equal_to_eager")),
+             "positive": pos, "near_miss": near}
+        r["ok"] = (r["flags_positive"] and not r["flags_near_miss"]
+                   and r["hazard_shown"]
+                   and r["near_miss_replays_equal_eager"])
+        rows[row] = r
+    return rows
+
+
+def capture_rules_process() -> dict:
+    """(b) in a process of its own (``python3 chip_smoke.py
+    --capture-rules``): a capture the positives make fail stays out of
+    this process's CUDA context."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--capture-rules"], capture_output=True, text=True,
+                       timeout=ANALYSIS_TIMEOUT_S)
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith('{"capture_rules"')]
+    check(r.returncode == 0 and lines, f"(3r b) the capture-rules process "
+          f"exited {r.returncode}: {r.stderr[-3000:]}")
+    return json.loads(lines[-1])["capture_rules"]
+
+
+def run_analysis(lint: "Beside", rules: "Beside",
+                 comm_required: bool = True) -> None:
+    """Phase 3r: (a) the self-lint's reading, (b) the capture rules held
+    to the card, one row a rule, (c) the byte model's verdicts that
+    phases 3o-3q gathered."""
+    t_phase = time.perf_counter()
+    failed = []
+
+    def defer(cond, what):
+        if not cond:
+            failed.append(what)
+    a = lint.result()
+    defer(a["exit"] == 0 and a["warm_exit"] == 0 and not a["findings"],
+          f"(3r a) the self-lint reports findings: {a}")
+    defer(a["warm_parsed"] == 0 and a["warm_equal"],
+          f"(3r a) the warm pass parsed files or differs: {a}")
+    b = rules.result()
+    for row, r in b.items():
+        log({"capture_rule": row, **r})
+        defer(r["ok"], f"(3r b) {row}: {r}")
+    c = {"held": len(COMM_HELD),
+         "ok": sum(1 for h in COMM_HELD if h["ok"] and h["control_fails"]),
+         "rtol": COMM_RTOL,
+         "runs": {f"{h['phase']}:{h['run']}": {
+             "mode": h["mode"], "ok": h["ok"],
+             "control_fails": h["control_fails"],
+             "max_rel_err": h["max_rel_err"], "rows": h["rows"]}
+             for h in COMM_HELD},
+         "note": "payload algebra over gloo on one card, not NVLink wire "
+                 "time",
+         "hbm_bound": "not held: no tracked_jit site of the port records "
+                      "bytes_accessed (CompileEvent.bytes_accessed is None)"}
+    if comm_required:
+        defer(c["held"] >= COMM_EXPECTED and c["ok"] == c["held"],
+              f"(3r c) {c['ok']} of {c['held']} byte-model verdicts hold "
+              f"(want {COMM_EXPECTED})")
+    log({"analysis": {"a_self_lint": a,
+                      "b_capture_rules": {k: v["ok"] for k, v in b.items()},
+                      "c_comm_model": c,
+                      "phase_s": time.perf_counter() - t_phase}})
+    check(not failed, "3r: " + " | ".join(failed))
 
 
 def main(argv=None) -> int:
@@ -11212,6 +11511,14 @@ def main(argv=None) -> int:
     parser.add_argument("--dist-backend", default="nccl",
                         help="with --distributed-rank: the group's backend")
     parser.add_argument(
+        "--analysis-only", action="store_true",
+        help="run only phase 3r's (a) self-lint and (b) capture rules on "
+             "the card (no kernel build; no result line)")
+    parser.add_argument(
+        "--capture-rules", action="store_true",
+        help="phase 3r (b)'s process: lint and run each capture rule's "
+             "fixtures on the card and print one capture_rules line")
+    parser.add_argument(
         "--layers-only", action="store_true",
         help="run only the kernels' build and phase 3k (the layer zoo, the "
              "autoencoder app and module timing on the card) and print its "
@@ -11236,6 +11543,15 @@ def main(argv=None) -> int:
     if args.expert_pipeline_rank:
         return run_expert_pipeline_rank(args.expert_pipeline_rank,
                                         args.dist_out, args.dist_backend)
+    if args.capture_rules:
+        log({"capture_rules": capture_rules()})
+        return 0
+    if args.analysis_only:
+        t0 = time.perf_counter()
+        timed("3r", run_analysis, Beside(self_lint),
+              Beside(capture_rules_process), False)
+        log({"total_s": time.perf_counter() - t0, "phase_s": PHASE_S})
+        return 0
     t0 = time.perf_counter()
     card = environment()
     graph_census()
@@ -11324,6 +11640,8 @@ def main(argv=None) -> int:
     # phase 3q's world-2 ranks beside phases 3g and 3b
     ep_out = tempfile.mkdtemp(prefix="bigdl_ep_")
     ep_beside = [Beside(ep_ranks, ep_out, ("w2",))]
+    # phase 3r's (b) capture-rules process beside phases 3g and 3b
+    rules_beside = Beside(capture_rules_process)
     published_launches = timed("3g", run_published)
     train_launches, k1_run = timed("3b", run_training)
     # phase 3o's rank processes run beside phases 3h-3n (PERF.md §6)
@@ -11337,6 +11655,9 @@ def main(argv=None) -> int:
                                  if k != "losses"}}})
     train_launches = {k: n + graph_train_launches[k] + ckpt_launches[k]
                       for k, n in train_launches.items()}
+    # phase 3r's (a) self-lint processes (host CPU only) beside phase 3c,
+    # whose ResNet-50 steps keep the card busy
+    lint_beside = Beside(self_lint)
     resnet_launches = timed("3c", run_resnet)
     resnet_launches = {k: n + ckpt_launches[k]
                        for k, n in resnet_launches.items()}
@@ -11356,6 +11677,7 @@ def main(argv=None) -> int:
                                             mp_ranks_beside))
     mp_launches.update(timed("3q", run_expert_pipeline, False,
                              (ep_out, ep_beside)))
+    timed("3r", run_analysis, lint_beside, rules_beside)
     resnet_launches = {k: n + plat_launches[k] + dist_launches[k]
                        for k, n in resnet_launches.items()}
     roof, roof_launches = timed("4a", run_roofline)

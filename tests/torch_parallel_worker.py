@@ -854,6 +854,153 @@ def job_pp(outdir, rank, world):
     save(outdir, "pp", rank, out)
 
 
+#: the comm-model job's tiny LM (the 134m recipe's block at narrow widths)
+COMM_LM = dict(embed_dim=32, num_heads=4, num_kv_heads=2, ffn_dim=64,
+               num_layers=2, max_len=32, rope=True, activation="swiglu",
+               norm="rms", bias=False, tie_embeddings=True)
+COMM_MOE = dict(embed_dim=32, num_heads=4, ffn_dim=64, max_len=32,
+                num_layers=2)
+COMM_V, COMM_B, COMM_S, COMM_STEPS = 64, 4, 16, 3
+
+
+def _comm_batches(n_data, coord):
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import MiniBatch
+    samples = synthetic_corpus(COMM_B * COMM_STEPS, COMM_S, COMM_V, seed=17)
+    per = COMM_B // n_data
+    return [MiniBatch(b.data[coord * per:(coord + 1) * per],
+                      b.labels[coord * per:(coord + 1) * per])
+            for b in SampleToBatch(COMM_B)(iter(samples))]
+
+
+def _comm_optimizer(model, n_data, coord, **kw):
+    from bigdl_tpu_torch.dataset.base import DistributedDataSet
+    from bigdl_tpu_torch.optim import AdamW
+    opt = Optimizer(model, DistributedDataSet(
+        _comm_batches(n_data, coord), shard_by_process=False, seed=0),
+        nn.FusedLMHeadCriterion(), device="cpu", **kw)
+    (opt.set_precision("bf16")
+        .set_optim_method(AdamW(learningrate=3e-3, weightdecay=0.01))
+        .set_gradient_clipping_by_l2_norm(1.0)
+        .set_end_when(Trigger.max_iteration(COMM_STEPS)))
+    return opt
+
+
+def job_comm(outdir, rank, world):
+    """The collective byte model's runs at world 2 (bf16, AdamW, L2 clip
+    1.0, COMM_STEPS steps): DistriOptimizer's allreduce, sharded and fsdp
+    modes; tensor=2 without and with sequence-parallel regions; an MoE LM
+    over data=2 (global routing) and expert=2; ContextParallelLM's ring
+    at sequence=2; GPipe and StagePipeline at pipeline=2. Each run's
+    COLLECTIVES snapshot and its model symbols (read off the live
+    objects) go to ``comm.<rank>.json``."""
+    from bigdl_tpu_torch.models.transformer import build_lm
+    from bigdl_tpu_torch.parallel import comm_symbols as cs
+    from bigdl_tpu_torch.parallel import tensor_parallel as tp
+    from bigdl_tpu_torch.parallel.mesh import COLLECTIVES, MeshTopology
+    runs = {}
+
+    def record(name, mode, symbols, steps=COMM_STEPS):
+        runs[name] = {"mode": mode, "steps": steps, "symbols": symbols,
+                      "snapshot": COLLECTIVES.snapshot()}
+
+    for sync in ("allreduce", "sharded", "fsdp"):
+        model = build_lm(COMM_V, **COMM_LM, device="cpu", seed=7)
+        opt = _comm_optimizer(model, world, rank, sync_mode=sync)
+        COLLECTIVES.reset()
+        opt.optimize()
+        record(sync, {"allreduce": "dp-allreduce", "sharded": "dp-sharded",
+                      "fsdp": "fsdp"}[sync], cs.dp_symbols(opt))
+    for sp in (False, True):
+        model = build_lm(COMM_V, **COMM_LM, device="cpu", seed=7)
+        opt = _comm_optimizer(model, 1, 0,
+                              topology=MeshTopology(tensor=world))
+        if sp:
+            tp.enable_sequence_parallel(model, opt.mesh)
+        COLLECTIVES.reset()
+        opt.optimize()
+        record("tp_sp" if sp else "tp", "tp-sp" if sp else "tp-megatron",
+               cs.tp_symbols(model, opt.mesh, COMM_B, COMM_S, 2, True))
+    for axis in ("data", "expert"):
+        model = build_lm(COMM_V, **COMM_MOE, fused_head=True, moe_experts=4,
+                         device="cpu", seed=7)
+        n_data = world if axis == "data" else 1
+        opt = _comm_optimizer(model, n_data, rank % n_data,
+                              topology=MeshTopology(**{axis: world}))
+        COLLECTIVES.reset()
+        opt.optimize()
+        sym = cs.moe_symbols(model, COMM_B // n_data * COMM_S, 2, n_data,
+                             True)
+        sym.update(P=cs.nbytes(model.parameters()), S_expert=world)
+        record("ep_" + axis, "dp x ep" if axis == "data" else "ep", sym)
+    # the ring: ContextParallelLM.train_step on the whole batch
+    from bigdl_tpu_torch.ops.precision import DtypePolicy
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel.context import ContextParallelLM
+    model = build_lm(COMM_V, **COMM_LM, device="cpu", seed=7)
+    for m in model.modules():
+        if isinstance(m, nn.MultiHeadAttention):
+            m.seq_axis, m.seq_mode, m.seq_layout = "seq", "ring", "contiguous"
+    mesh = MeshTopology(sequence=world).build()
+    lm = ContextParallelLM(model, mesh)
+    batch = _comm_batches(1, 0)[0]
+    params = dict(model.named_parameters())
+    method = AdamW(learningrate=3e-3, weightdecay=0.01)
+    state = method.init_state(params)
+    COLLECTIVES.reset()
+    for _ in range(COMM_STEPS):
+        lm.train_step(torch.as_tensor(batch.data),
+                      torch.as_tensor(batch.labels), nn.FusedLMHeadCriterion(),
+                      method, state, params, precision=DtypePolicy.bf16(),
+                      clip_norm=1.0)
+    record("cp_ring", "sp-ring",
+           cs.ring_symbols(model, mesh, COMM_B, COMM_S, 2))
+    # GPipe: one loss and backward of a 4-block stack in 2 microbatches
+    from bigdl_tpu_torch.parallel.pipeline import (PipelineStack,
+                                                   StagePipeline,
+                                                   gpipe_loss_fn,
+                                                   stage_pipeline_loss_fn)
+    torch.manual_seed(7)
+    stack = PipelineStack(lambda: nn.TransformerEncoderLayer(
+        32, 4, 64, causal=True), 4, device="cpu").to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(29)
+    x = torch.randn(COMM_B, COMM_S, 32, generator=gen).to(torch.bfloat16)
+    y = torch.randn(x.shape, generator=gen)
+    leaves = {n: p.detach().clone().requires_grad_()
+              for n, p in stack.parameter_tree().items()}
+    pmesh = MeshTopology(pipeline=world).build()
+    fn = gpipe_loss_fn(stack, nn.MSECriterion(), pmesh, 2,
+                       head=lambda _, f: f.float())
+    COLLECTIVES.reset()
+    fn(leaves, None, x, y).backward()
+    record("gpipe", "pp-gpipe", cs.gpipe_symbols(x, 2, pmesh), steps=1)
+    # StagePipeline: the tiny LM as two stages, f32
+    lm_whole = build_lm(COMM_V, **dict(COMM_LM, tie_embeddings=False),
+                        device="cpu", seed=7)
+    parts = list(lm_whole._modules.values())
+    at = next(i for i, m in enumerate(parts)
+              if isinstance(m, nn.TransformerEncoder))
+    enc = parts[at]
+    s0, s1 = nn.Sequential(), nn.Sequential()
+    for part in parts[:at]:
+        s0.add(part)
+    s0.add(enc._modules["layer0"])
+    s1.add(enc._modules["layer1"]).add(enc.final_norm)
+    for part in parts[at + 1:]:
+        s1.add(part)
+    ids = torch.as_tensor(batch.data)
+    pipe = StagePipeline([s0, s1], ids[:COMM_B // 2].numpy(), device="cpu")
+    row = torch.from_numpy(pipe.parameter_tree())[rank].clone() \
+        .requires_grad_()
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    COLLECTIVES.reset()
+    stage_pipeline_loss_fn(pipe, crit, pmesh, 2)(
+        row, ids, torch.as_tensor(batch.labels)).backward()
+    record("stage", "pp-stage", cs.stage_symbols(pipe, 2, pmesh), steps=1)
+    with open(os.path.join(outdir, f"comm.{rank}.json"), "w") as f:
+        json.dump(runs, f)
+
+
 def MeshTopology_build(**axes):
     from bigdl_tpu_torch.parallel.mesh import MeshTopology
     return MeshTopology(**axes).build()
@@ -910,7 +1057,8 @@ JOBS = {"bn_plain": lambda o, r, w: job_bn(o, r, w, False),
         "ckpt_save": job_ckpt_save, "ckpt_restore": job_ckpt_restore,
         "uneven": job_uneven, "tp": job_tp, "cp": job_cp,
         "decode": job_decode, "cli": job_cli, "ep": job_ep,
-        "ep_eval": job_ep_eval, "fsdp_tp": job_fsdp_tp, "pp": job_pp}
+        "ep_eval": job_ep_eval, "fsdp_tp": job_fsdp_tp, "pp": job_pp,
+        "comm": job_comm}
 
 
 def spawn(outdir, world, jobs):
