@@ -48,18 +48,29 @@ for a distributed dataset.
 
 __version__ = "0.1.0"
 
-__all__ = ["Engine", "Tensor", "ml", "visualization", "__version__"]
+__all__ = [
+    "Engine", "Table", "T", "Tensor",
+    "nn", "optim", "dataset", "parallel", "utils", "visualization", "interop",
+    "ml", "telemetry",
+    "__version__",
+]
+
+_SUBPACKAGES = ("nn", "optim", "dataset", "parallel", "utils",
+                "visualization", "interop", "ml", "telemetry")
 
 
 def __getattr__(name):
-    """``Engine``, ``Tensor``, ``ml`` and ``visualization`` load on first
-    use, so that importing the package alone (``resilience validate``)
-    does not import torch."""
+    """The reference's public names, each loaded on first use, so that
+    importing the package alone (``resilience validate``) does not import
+    torch: ``import bigdl_tpu_torch as bt; bt.nn.Sequential()``."""
     import importlib
     if name == "Engine":
         return importlib.import_module("bigdl_tpu_torch.utils.engine").Engine
+    if name in ("Table", "T"):
+        return getattr(importlib.import_module("bigdl_tpu_torch.utils.table"),
+                       name)
     if name == "Tensor":
         return importlib.import_module("bigdl_tpu_torch.tensor").Tensor
-    if name in ("ml", "visualization"):
+    if name in _SUBPACKAGES:
         return importlib.import_module(f"bigdl_tpu_torch.{name}")
     raise AttributeError(f"module 'bigdl_tpu_torch' has no attribute {name!r}")

@@ -127,14 +127,13 @@ def run_test(model_path: str, test_set, methods, device="cuda") -> list:
     """The per-model ``Test.scala`` body: a saved module, evaluated;
     prints and returns ``[(result, method)]``."""
     redirect_logs()
-    from bigdl_tpu_torch.optim import Evaluator
     from bigdl_tpu_torch.utils import file_io
     model = file_io.load(model_path, device=device)
     if isinstance(model, dict) and "params" in model:
         raise SystemExit(
             "got a checkpoint dict; pass it through the owning model: "
             "use train --model/--state to resume, or save the module itself")
-    results = Evaluator(model, device=device).test(test_set, methods)
+    results = model.evaluate(test_set, methods)
     for result, method in results:
         logging.getLogger("bigdl_tpu_torch.optim").info(
             "%s is %s", method.name, result)

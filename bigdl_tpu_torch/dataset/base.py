@@ -458,3 +458,11 @@ class DataSet:
         if distributed:
             return DistributedDataSet(data, seed=seed)
         return LocalDataSet(data, seed)
+
+    @staticmethod
+    def sort(data: Sequence, key=lambda s: s.feature.shape[0],
+             distributed: bool = False, seed: Optional[int] = None):
+        """``DataSet.array`` of ``data`` ordered by ``key`` (by default a
+        sample's length): length bucketing for variable-length samples
+        (reference ``DataSet.sort``)."""
+        return DataSet.array(sorted(data, key=key), distributed, seed)

@@ -45,6 +45,7 @@ from bigdl_tpu_torch.nn.regularization import Dropout
 from bigdl_tpu_torch.ops import attention_core, flash_attention, remat
 from bigdl_tpu_torch.ops.precision import match_compute
 from bigdl_tpu_torch.utils.device import module_device
+from bigdl_tpu_torch.utils.table import elements
 
 _F32_MIN = float(torch.finfo(torch.float32).min)
 
@@ -584,15 +585,18 @@ class MultiHeadAttention(Module):
         bias = self.in_proj_bias
         return bias[:e], bias[e:e + ekv], bias[e + ekv:]
 
-    def _in_projections(self, x):
-        """(q, k, v) before the head split; the quantized twin overrides
-        this and ``_out_projection`` to run kernel K4 on the int8 rows."""
+    def _in_projections(self, x, key=None, value=None):
+        """(q, k, v) before the head split, of ``x`` or of (query ``x``,
+        ``key``, ``value``); the quantized twin overrides this and
+        ``_out_projection`` to run kernel K4 on the int8 rows."""
+        key = x if key is None else key
+        value = x if value is None else value
         e, ekv = self._local_widths()
         w = self.in_proj_weight
         wq, wk, wv = w[:e], w[e:e + ekv], w[e + ekv:]
         bq, bk, bv = self._in_bias()
-        return (self._project(x, wq, bq), self._project(x, wk, bk),
-                self._project(x, wv, bv))
+        return (self._project(x, wq, bq), self._project(key, wk, bk),
+                self._project(value, wv, bv))
 
     def _local_widths(self):
         """(q rows, k rows) of this rank's in_proj slice."""
@@ -608,12 +612,45 @@ class MultiHeadAttention(Module):
             out = out + self.out_proj_bias
         return out
 
+    #: the static mask of ``set_mask`` (broadcast to (B, N, Sq, Sk), True
+    #: where attention is allowed); a 4th input element takes its place
+    attn_mask: Optional[torch.Tensor] = None
+
+    def _summary_view(self):
+        # the reference keeps the probability dropout as a rate, not a child
+        own, children = super()._summary_view()
+        return own, [c for c in children if c[0] != "attn_drop"]
+
+    def set_mask(self, mask: Optional[torch.Tensor]) -> "MultiHeadAttention":
+        """Attend under ``mask`` from now on (reference ``set_mask``); a
+        masked attention never takes kernel K1."""
+        self.attn_mask = mask
+        return self
+
     def forward(self, input):
+        """``input`` is the sequence (self-attention), or a ``Table``,
+        list or tuple ``(query, key, value[, mask])``."""
+        mask = self.attn_mask
+        if isinstance(input, (list, tuple, dict)):
+            items = elements(input)
+            query, key, value = items[:3]
+            if len(items) >= 4:
+                mask = items[3]
+        else:
+            query = key = value = input
         if self._tp is not None:
-            input = self._tp.enter(input)
-        pq, pk, pv = self._in_projections(input)
+            entered = {}
+            for t in (query, key, value):
+                if id(t) not in entered:
+                    entered[id(t)] = self._tp.enter(t)
+            query, key, value = (entered[id(query)], entered[id(key)],
+                                 entered[id(value)])
+        pq, pk, pv = self._in_projections(query, key, value)
         q, k, v = (self._split_heads(pq), self._split_heads(pk),
                    self._split_heads(pv))
+        if self.rope and k.shape[1] != q.shape[1]:
+            raise ValueError("rope supports self-attention only (q and k "
+                             "positions coincide)")
         if self.rope:
             pos = torch.arange(q.shape[1], device=q.device)
             if self._decode and self._continuous:
@@ -629,7 +666,10 @@ class MultiHeadAttention(Module):
         if self._decode:
             ctx = self._attend_decode(q, k, v)
         else:
-            ctx = self._attend(q, self._expand_kv(k), self._expand_kv(v), None)
+            if mask is not None:
+                mask = torch.as_tensor(mask, device=q.device)
+            ctx = self._attend(q, self._expand_kv(k), self._expand_kv(v),
+                               mask)
         b, s = ctx.shape[:2]
         return self._out_projection(ctx.reshape(b, s, -1))
 

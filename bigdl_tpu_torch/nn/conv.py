@@ -72,6 +72,19 @@ class SpatialConvolution(TensorModule):
                 "bias", init.default_init((n_output_plane,), fan_in,
                                           generator), b_regularizer)
 
+    def reset(self) -> None:
+        """Draw the kernel (by ``init_method``) and the bias anew, in
+        place, as the constructor does, from PyTorch's default generator
+        (reference ``SpatialConvolution.reset``)."""
+        k = self.kernel_h * self.kernel_w
+        fan_in = k * self.n_input_plane // self.n_group
+        fan_out = k * self.n_output_plane // self.n_group
+        with torch.no_grad():
+            self.weight.copy_(init.conv_weight(
+                self.init_method, tuple(self.weight.shape), fan_in, fan_out))
+            if self.with_bias:
+                self.bias.copy_(init.default_init(self.bias.shape, fan_in))
+
     def forward(self, input):
         squeeze = input.dim() == 3
         if squeeze:  # unbatched (H, W, C)

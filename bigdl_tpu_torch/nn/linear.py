@@ -55,6 +55,17 @@ class Linear(TensorModule):
     #: ranks of its tensor axis
     _tp = None
 
+    def reset(self) -> None:
+        """Draw the weight and bias anew, in place, from the constructor's
+        distribution and PyTorch's default generator (reference
+        ``Linear.reset``, which draws from its global generator)."""
+        with torch.no_grad():
+            self.weight.copy_(init.default_init(self.weight.shape,
+                                                self.input_size))
+            if self.with_bias:
+                self.bias.copy_(init.default_init(self.bias.shape,
+                                                  self.input_size))
+
     def forward(self, input):
         if self._tp is not None:
             from bigdl_tpu_torch.parallel.tensor_parallel import \

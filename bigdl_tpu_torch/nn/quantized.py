@@ -93,6 +93,8 @@ class QuantizedLinear(_QuantizedMixin, Linear):
 
     _quant_weights = {"weight": 0}  # (out, in)
 
+    weight = property(lambda self: self._dequant("weight"))
+
     def forward(self, input):
         return int8_matmul(input, self.weight_q, self.weight_scale,
                            bias=self._bias(), compute_dtype=self.compute_dtype)
@@ -102,6 +104,8 @@ class QuantizedLMHead(_QuantizedMixin, LMHead):
     """LMHead with an int8 vocab projection; eval log-probs only."""
 
     _quant_weights = {"weight": 0}  # (V, E)
+
+    weight = property(lambda self: self._dequant("weight"))
 
     def forward(self, input):
         self._check_eval()
@@ -129,18 +133,23 @@ class QuantizedMultiHeadAttention(_QuantizedMixin, MultiHeadAttention):
 
     _quant_weights = {"in_proj_weight": 0, "out_proj_weight": 0}
 
+    in_proj_weight = property(lambda self: self._dequant("in_proj_weight"))
+    out_proj_weight = property(lambda self: self._dequant("out_proj_weight"))
+
     def _cache_dtype(self) -> torch.dtype:
         return self.compute_dtype
 
-    def _in_projections(self, x):
+    def _in_projections(self, x, key=None, value=None):
+        key = x if key is None else key
+        value = x if value is None else value
         e, ekv = self.embed_dim, self._e_kv
         wq, sq = self.in_proj_weight_q, self.in_proj_weight_scale
         cd = self.compute_dtype
         # under qkv_bias (Qwen2) the q/k/v rows carry a bias without with_bias
         bq, bk, bv = self._in_bias()
         return (int8_matmul(x, wq[:e], sq[:e], bq, cd),
-                int8_matmul(x, wq[e:e + ekv], sq[e:e + ekv], bk, cd),
-                int8_matmul(x, wq[e + ekv:], sq[e + ekv:], bv, cd))
+                int8_matmul(key, wq[e:e + ekv], sq[e:e + ekv], bk, cd),
+                int8_matmul(value, wq[e + ekv:], sq[e + ekv:], bv, cd))
 
     def _out_projection(self, ctx):
         out = int8_matmul(ctx, self.out_proj_weight_q,
@@ -155,6 +164,8 @@ class QuantizedLookupTable(_QuantizedMixin, LookupTable):
     """Embedding that gathers int8 rows and dequantizes only those."""
 
     _quant_weights = {"weight": 0}  # (vocab, dim): per-row scale
+
+    weight = property(lambda self: self._dequant("weight"))
 
     @classmethod
     def _validate(cls, m):

@@ -41,6 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.utils.table import T, Table
+
 Tensors = Dict[str, torch.Tensor]
 
 
@@ -245,6 +247,11 @@ class OptimMethod:
         self._state = state
         return x, [loss]
 
+    def get_hyper_parameter(self) -> Table:
+        """``T(learningRate=..., weightDecay=...)`` (reference
+        ``get_hyper_parameter``)."""
+        return T(learningRate=self.learningrate, weightDecay=self.weightdecay)
+
     def _decayed(self, grads: Tensors, params: Tensors) -> Tensors:
         """Coupled L2 decay: ``g + weightdecay * p`` (new tensors)."""
         if self.weightdecay:
@@ -406,6 +413,11 @@ class AdamW(Adam):
         super().__init__(learningrate, learningrate_decay, beta1, beta2,
                          epsilon, weightdecay=0.0, state_dtype=state_dtype)
         self.decoupled_decay = weightdecay
+
+    def get_hyper_parameter(self) -> Table:
+        """The decoupled decay is the weight decay reported."""
+        return T(learningRate=self.learningrate,
+                 weightDecay=self.decoupled_decay)
 
     def step_scalars(self, state):
         """Adam's three, then the decay's ``1 - lr * decay``."""

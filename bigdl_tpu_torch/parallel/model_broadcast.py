@@ -11,7 +11,6 @@ so the caller's module keeps its own (possibly newer) weights.
 
 from __future__ import annotations
 
-import copy
 from typing import Dict, Tuple
 
 import torch
@@ -43,7 +42,7 @@ class ModelBroadcast:
         """A ``Predictor`` over a structural copy holding the broadcast
         weights, on the model's device."""
         from bigdl_tpu_torch.optim.evaluator import Predictor
-        clone = copy.deepcopy(self.model)
+        clone = self.model.clone_module()
         with torch.no_grad():
             for n, p in clone.named_parameters():
                 p.copy_(self.params[n])

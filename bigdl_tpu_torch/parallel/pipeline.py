@@ -167,6 +167,22 @@ class PipelineStack(Module):
     def buffer_tree(self) -> Dict[str, torch.Tensor]:
         return self._leaves(True)
 
+    def _stacked_targets(self, tree, kind: str, prefix: str):
+        """What ``load_parameter_tree`` / ``load_buffer_tree`` write: the
+        stacked leaves, named as ``parameter_tree()`` names them or
+        nested as the reference's stacked trees (reference
+        ``PipelineStack.load_parameter_tree``), loaded in place."""
+        flat = _dotted(tree)
+        buffers = kind == "_buffers"
+        return [(prefix + name, getattr(m, kind)[leaf], flat[name])
+                for name, m, leaf, is_buf in self._owners
+                if is_buf == buffers and name in flat]
+
+    def _summary_view(self):
+        # as the reference's: no own leaves, the template block once, its
+        # leaves counted unstacked
+        return 0, [("block", self.block, self.depth)]
+
     @property
     def has_buffers(self) -> bool:
         return any(is_buf for *_, is_buf in self._owners)
@@ -212,6 +228,16 @@ class PipelineStack(Module):
 
     def extra_repr(self) -> str:
         return f"depth={self.depth}, block={type(self.block).__name__}"
+
+
+def _dotted(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def pipeline_spec_tree(stack: PipelineStack, axis: str = PIPELINE_AXIS

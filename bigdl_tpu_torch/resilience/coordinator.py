@@ -192,6 +192,10 @@ class ResumePoint:
     sharded: bool
     marker: Optional[Dict[str, Any]] = field(default=None, repr=False)
 
+    def saved_mesh(self) -> Optional[Dict[str, Any]]:
+        """The RESUME marker's ``mesh`` entry, if it has one."""
+        return (self.marker or {}).get("mesh")
+
 
 def _listdir(path: str) -> List[str]:
     if "://" in path:

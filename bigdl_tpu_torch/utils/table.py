@@ -33,6 +33,18 @@ class Table(dict):
             n += 1
         return n
 
+    def insert(self, value: Any) -> "Table":
+        """``value`` as the next positional entry (reference ``insert``)."""
+        self[self.length() + 1] = value
+        return self
+
+    def get_or_else(self, key: Any, default: Any) -> Any:
+        return self.get(key, default)
+
+    def clone(self) -> "Table":
+        """A shallow copy (reference ``clone``)."""
+        return Table(dict(self))
+
 
 def elements(table) -> List[Any]:
     """The positional entries of a ``Table`` (keys 1, 2, ...), or of a list

@@ -119,7 +119,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    freed before the next): (a) the vendored ``tests/resources/
    hf_tiny_gpt2/`` loaded on the card at f32, its log-probs within 5e-5 of
    ``transformers``' golden ones, and ``generate --fromHF`` with a text
-   prompt as a subprocess, its text equal to a direct ``generate``; (b)
+   prompt as a subprocess beside (a) and (b), its text equal to a direct
+   ``generate``; (b)
    GPT-2 small (``openai-community/gpt2``'s config, 124,439,808
    parameters) from seed 21 through ``save_hf_checkpoint`` and
    ``load_hf_checkpoint`` (every parameter bit-equal), its bf16 and int8
@@ -160,7 +161,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bit-equal to (a), K1-K3 12 x 8 launches each, all ``mma`` (and K1's
    f32 validation forward, ``fma``); again with
    ``set_steps_per_dispatch(4)``, windows stopping at the checkpoints, the
-   validation and the kill; (c) ``python -m bigdl_tpu_torch.resilience
+   validation and the kill, its resumed process beside (d) and (e); (c) ``python -m bigdl_tpu_torch.resilience
    chaos corrupt`` on the newest snapshot: ``validate`` reports it
    PARTIAL, ``latest`` names the one before, and a resume from there is
    bit-equal to (a); (d) phase 3c's fused ResNet-50 recipe, 6 iterations
@@ -168,9 +169,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    statistics and the momentum bit-equal, K5 36 x 3 and K6 13 x 3; (e)
    ``transformer train --checkpoint`` at a small size, ``generate
    --model`` and ``serve --continuous --model --draft`` (a saved 2-layer
-   draft) as subprocesses, each answer equal to ``generate``; the 134m's
-   int8 twin saved and loaded: K4 85 launches a forward and the same
-   tokens. A ``checkpoints`` line gives snapshot MB, save and load
+   draft) as subprocesses started before (d) and read after it, each
+   answer equal to ``generate``; the 134m's int8 twin saved and loaded:
+   K4 85 launches a forward and the same tokens. A ``checkpoints`` line gives snapshot MB, save and load
    seconds, seconds to the first resumed step and the validation's
    records/s;
 3c. ResNet-50 (bench.py's resnet50 workload, ``resnet.build(1000, 50)``,
@@ -489,6 +490,33 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    exact (``COMM_RTOL``), and the model with its first term dropped must
    fail. The ranks run gloo over one card, so this holds the payload
    algebra, not NVLink wire time. An ``analysis`` line logs them;
+3s. the module surface (``nn/module.py``'s instance API; inside phases 3b
+   and 3c, on their trained models, ``--surface-only`` runs it alone on
+   freshly trained ones). (a) The 134m LM after 3b's 20 steps:
+   ``backward(x, g)`` of its ``TransformerEncoder`` at (8, 512, 768), f32
+   from a seed, bit-equal to ``torch.autograd.grad`` of a plain forward in
+   the same mode and dropout state, K1, K2 and K3 12 launches each (their
+   ``fma`` variants), every ``.grad`` at its address with its values;
+   ``predict(ids)`` bit-equal to an eval-mode forward under ``no_grad``
+   (K1 12), ``predict_class`` its argmax + 1, every ``output`` None after;
+   ``get_parameters()`` (128,404,224 elements, equal to the sorted-key
+   concatenation, ``unravel`` bit-equal; its ms and added peak MiB);
+   ``clone_module()`` (a bit-equal forward from fresh addresses; one
+   ``Optimizer`` step on the clone, recording on, leaves no ``output`` and
+   the original's flat vector unchanged); ``summary()``'s total against
+   ``n_parameters()``. (b) ResNet-50 after 3c's 20 steps (both gates):
+   ``backward(images, g)`` at B=256 in training mode (f32, ``fma``), K5 36
+   and K6 13 launches, bit-equal to autograd of the same forward with
+   cuDNN held deterministic, every running statistic bit-equal;
+   ``evaluate`` over 4 seeded batches of 256 with Top1, Top5 and
+   ``Loss(ClassNLLCriterion())`` equal to ``Evaluator(model,
+   device="cuda").test``; the trees through numpy into a fresh model, a
+   bit-equal eval forward. (c) ``set_mask`` on one ``MultiHeadAttention``
+   at the LM's widths (bf16): a static causal mask keeps K1 out and comes
+   within SURFACE_MASK_TOL of the unmasked causal K1 output. A
+   ``surface`` line logs them; the earlier phases' own direct forwards
+   run with output recording off, so that no phase holds the activations
+   of another;
 4a. HBM roof: the probe ``python -m bigdl_tpu_torch.scripts.roofline_hbm
    --gib 1`` (``main``, every family, one calibration, no waiting), its
    K7 launch counts against the counts its chains predict, and no reading
@@ -530,7 +558,8 @@ The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}``.
 A kernel row's ``launches`` sums its main paths' runs: phases 3, 3d, 3e,
 3f (the rounds served and the k = 4 training), 3g, 3b, 3h (its resumed
-processes included), 3c, 3n, 3o, 3p and 3q (every rank's); phase 3i's rows count
+processes included), 3c, 3n, 3o, 3p, 3q (every rank's) and 3s (the
+surface's own calls); phase 3i's rows count
 phase 3i's runs, and
 phase 3j's (K1-K3 at ViT-S/16's and transformer_1b's shapes) its runs
 (c) and (e).
@@ -545,8 +574,9 @@ phase 3i and its kernel rows, printing them and no result line;
 phase 3k, ``--files-only`` only phase 3m, ``--platform-only`` only
 phase 3n, ``--distributed-only`` only phase 3o,
 ``--model-parallel-only`` only phase 3p, ``--expert-pipeline-only``
-only phase 3q and ``--analysis-only`` phase 3r's (a) and (b) (none of
-them prints kernel rows). Phase 3o's ranks are fresh processes of ``python3
+only phase 3q, ``--analysis-only`` phase 3r's (a) and (b) and
+``--surface-only`` phase 3s on a 134m LM and a ResNet-50 it trains
+first (none of them prints kernel rows). Phase 3o's ranks are fresh processes of ``python3
 chip_smoke.py --distributed-rank JOBS --dist-out DIR --dist-backend B``
 with the ``BIGDL_*`` environment.
 
@@ -560,14 +590,25 @@ builds its kernels, times K1-K6 as phase 4 does and runs DIR's probe with
 only its K7b (``manual``), K7c (``hbm_dma``) and ``library`` families at
 1 GiB, printing the rows and no result line: an earlier version's kernels
 and this one's on one timer, within one machine.
+
+``python3 chip_smoke.py --gc-trace-of DIR [ARGS...]`` runs DIR's
+``chip_smoke.py`` (this tree's with ``.``, or an earlier commit's) with
+ARGS in this process and, after its output, prints one ``gc_trace`` line:
+every pass of Python's cyclic garbage collector that freed 16 MiB or more
+on the card, with the phase it ran in, its generation, the MiB freed and
+the MiB allocated before it. A phase's peak reading counts the device
+tensors that a reference cycle of an earlier phase still holds; the trace
+shows where each such cycle was finally freed.
 """
 
 import argparse
 import collections
 import contextlib
+import gc
 import itertools
 import json
 import os
+import runpy
 import shutil
 import subprocess
 import sys
@@ -607,6 +648,55 @@ PHASE_S = collections.defaultdict(float)
 #: the wall clock when the script started (phase 3m asks whether the host
 #: library was built since, by this process or by an earlier phase's)
 RUN_T0 = time.time()
+
+
+GC_TRACE_MIB = 16   # the least device memory a logged collection freed
+
+
+def gc_trace(script: str, argv: list) -> int:
+    """``--gc-trace-of``: ``script`` run with ``argv`` in this process
+    under a ``gc.callbacks`` hook that reads ``memory_allocated`` before
+    and after each collection; its exit code. The hook allocates nothing
+    on the card, so the script's own readings stand."""
+    events, before = [], {}
+    t0 = time.perf_counter()
+
+    def phase_of(frame):
+        while frame is not None:   # the innermost ``timed(phase, ...)``
+            if frame.f_code.co_name == "timed" \
+                    and "phase" in frame.f_code.co_varnames:
+                return frame.f_locals.get("phase")
+            frame = frame.f_back
+        return None
+
+    def on_gc(stage, info):
+        if not torch.cuda.is_initialized():
+            return
+        now = torch.cuda.memory_allocated()
+        if stage == "start":
+            before["mib"] = now / 2 ** 20
+            return
+        freed = before.pop("mib", now / 2 ** 20) - now / 2 ** 20
+        if freed >= GC_TRACE_MIB:
+            events.append({"phase": phase_of(sys._getframe(1)),
+                           "generation": info["generation"],
+                           "freed_mib": freed,
+                           "allocated_before_mib": now / 2 ** 20 + freed,
+                           "t_s": time.perf_counter() - t0})
+
+    gc.callbacks.append(on_gc)
+    sys.argv = [script, *argv]
+    rc = 0
+    try:
+        runpy.run_path(script, run_name="__main__")
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else (e.code is not None)
+    finally:
+        gc.callbacks.remove(on_gc)
+        print(json.dumps({"gc_trace": {"script": script, "argv": argv,
+                                       "rc": rc, "events": events}}),
+              flush=True)
+    return rc
 
 
 def timed(phase: str, fn, *args):
@@ -2957,41 +3047,55 @@ def n_params(model) -> int:
     return sum(t.numel() for t in model.parameters())
 
 
+def fixture_cli() -> tuple:
+    """(a)'s ``generate --fromHF`` on the vendored GPT-2 as a subprocess on
+    the card: (the process, its start time). ``run_published`` starts it
+    first and reads it after (b), so it runs beside (a)'s and (b)'s
+    checks."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer", "generate",
+         "--fromHF", os.path.join(root, HF_FIXTURE), "--prompt",
+         FIXTURE_PROMPT, "--maxNewTokens", str(FIXTURE_NEW), "--greedy",
+         "--device", CONT_DEVICE], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return cli, time.perf_counter()
+
+
 def published_fixture() -> dict:
     """(a) The vendored GPT-2 (``tests/resources/hf_tiny_gpt2/``) loaded on
     the card at f32: its log-probs of the golden ids within
-    HF_FIXTURE_BOUND of ``transformers``' golden ones; and ``generate
-    --fromHF`` as a subprocess on the card, started before those checks
-    and run beside them, whose text must equal a direct ``generate`` on
-    the tokenizer's ids."""
+    HF_FIXTURE_BOUND of ``transformers``' golden ones; and the
+    continuation that ``fixture_cli``'s text must equal, a direct
+    ``generate`` on the tokenizer's ids."""
     from bigdl_tpu_torch.interop.hf import load_hf_checkpoint, to_framework_ids
     from bigdl_tpu_torch.interop.hf_tokenizer import load_checkpoint_tokenizer
     from bigdl_tpu_torch.models.generation import generate
     root = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(root, HF_FIXTURE)
-    t0 = time.perf_counter()
-    cli = subprocess.Popen(
-        [sys.executable, "-m", "bigdl_tpu_torch.apps.transformer", "generate",
-         "--fromHF", path, "--prompt", FIXTURE_PROMPT, "--maxNewTokens",
-         str(FIXTURE_NEW), "--greedy", "--device", CONT_DEVICE], cwd=root,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    model = load_hf_checkpoint(path, device=CONT_DEVICE)
+    check(next(model.parameters()).device.type == CONT_DEVICE,
+          "the fixture loaded off the card")
+    ids = np.load(os.path.join(path, "golden_input_ids.npy"))
+    gold = np.load(os.path.join(path, "golden_logprobs.npy"))
+    with torch.inference_mode():
+        lp = model(torch.as_tensor(to_framework_ids(ids),
+                                   device=CONT_DEVICE))
+    err = float(np.abs(lp.float().cpu().numpy() - gold).max())
+    check(lp.shape == gold.shape and err <= HF_FIXTURE_BOUND,
+          f"fixture log-probs {err} from transformers' golden ones")
+    tok = load_checkpoint_tokenizer(path)
+    prompt = tok.encode(FIXTURE_PROMPT)
+    direct = generate(model, [prompt], FIXTURE_NEW, greedy=True,
+                      eos_id=tok.eos_id, device=CONT_DEVICE)[0].tolist()
+    return {"max_abs_err_vs_golden": err, "bound": HF_FIXTURE_BOUND,
+            "cli_continuation": repr(tok.decode(direct[len(prompt):]))}
+
+
+def fixture_cli_result(cli, t0: float, want: str) -> dict:
+    """``fixture_cli``'s process waited for: its text must equal
+    ``want``."""
     try:
-        model = load_hf_checkpoint(path, device=CONT_DEVICE)
-        check(next(model.parameters()).device.type == CONT_DEVICE,
-              "the fixture loaded off the card")
-        ids = np.load(os.path.join(path, "golden_input_ids.npy"))
-        gold = np.load(os.path.join(path, "golden_logprobs.npy"))
-        with torch.inference_mode():
-            lp = model(torch.as_tensor(to_framework_ids(ids),
-                                       device=CONT_DEVICE))
-        err = float(np.abs(lp.float().cpu().numpy() - gold).max())
-        check(lp.shape == gold.shape and err <= HF_FIXTURE_BOUND,
-              f"fixture log-probs {err} from transformers' golden ones")
-        tok = load_checkpoint_tokenizer(path)
-        prompt = tok.encode(FIXTURE_PROMPT)
-        direct = generate(model, [prompt], FIXTURE_NEW, greedy=True,
-                          eos_id=tok.eos_id, device=CONT_DEVICE)[0].tolist()
-        want = repr(tok.decode(direct[len(prompt):]))
         stdout, stderr = cli.communicate(timeout=CLI_TIMEOUT_S)
     finally:
         if cli.poll() is None:
@@ -3003,8 +3107,7 @@ def published_fixture() -> dict:
           f"generate --fromHF printed {stdout[-300:]!r} (rc "
           f"{cli.returncode}, stderr {stderr[-800:]!r}); direct "
           f"generate gives {want}")
-    return {"max_abs_err_vs_golden": err, "bound": HF_FIXTURE_BOUND,
-            "cli_continuation": want, "cli_s": time.perf_counter() - t0}
+    return {"cli_s": time.perf_counter() - t0}
 
 
 def published_gpt2(launches: dict) -> dict:
@@ -3291,9 +3394,20 @@ def run_published() -> dict:
     checks' own excluded)."""
     t0 = time.perf_counter()
     launches = {"flash_fwd": 0, "flash_fwd_mma": 0, "int8_matmul": 0}
-    row = {"fixture": published_fixture()}
+    cli, t_cli = fixture_cli()   # beside (a) and (b)
+    try:
+        row = {"fixture": published_fixture()}
+        row["gpt2"] = published_gpt2(launches)
+    except BaseException:
+        cli.kill()
+        cli.wait()
+        raise
+    row["fixture"].update(fixture_cli_result(
+        cli, t_cli, row["fixture"]["cli_continuation"]))
     log({"published": {"fixture": row["fixture"]}})
-    for key, fn in (("gpt2", published_gpt2), ("llama32_1b", published_llama),
+    log({"published": {"gpt2": row["gpt2"]}})
+    torch.cuda.empty_cache()
+    for key, fn in (("llama32_1b", published_llama),
                     ("qwen2_05b", published_qwen2),
                     ("window", published_window)):
         row[key] = fn(launches)
@@ -3455,6 +3569,8 @@ def run_training() -> tuple:
          "profiled_wall_s": wall, "top_kernels_us_per_step": top,
          "lm_head_ce_peak_mib": lm_head_ce_peak_mib()})
     k1_run["busy"] = busy
+    log({"surface": {"lm": timed_within("3b", "3s", surface_lm, model,
+                                        samples)}})
     del model
     torch.cuda.empty_cache()
     return {"flash_fwd": k1, "flash_fwd_mma": k1_mma, "flash_bwd_dq": k2,
@@ -3783,16 +3899,24 @@ def resume_helper(ckpt_dir: str, k: int) -> int:
 def run_resume_helper(ckpt_dir: str, k: int) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
-                          "--resume-helper", ckpt_dir,
-                          "--steps-per-dispatch", str(k)],
-                         cwd=root, capture_output=True, text=True,
-                         timeout=CLI_TIMEOUT_S)
+    proc = subprocess.Popen([sys.executable,
+                             os.path.join(root, "chip_smoke.py"),
+                             "--resume-helper", ckpt_dir,
+                             "--steps-per-dispatch", str(k)],
+                            cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    SPAWNED.append(proc)   # killed at exit if a phase fails beside it
+    try:
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     rows = [json.loads(line)["resume_helper"] for line in
-            out.stdout.splitlines() if line.startswith('{"resume_helper"')]
-    check(out.returncode == 0 and len(rows) == 1,
-          f"the resumed process (k = {k}): rc {out.returncode}, stdout "
-          f"{out.stdout[-800:]!r}, stderr {out.stderr[-2000:]!r}")
+            stdout.splitlines() if line.startswith('{"resume_helper"')]
+    check(proc.returncode == 0 and len(rows) == 1,
+          f"the resumed process (k = {k}): rc {proc.returncode}, stdout "
+          f"{stdout[-800:]!r}, stderr {stderr[-2000:]!r}")
     rows[0]["process_s"] = time.perf_counter() - t0
     return rows[0]
 
@@ -3881,10 +4005,12 @@ def ckpt_uninterrupted(k1_run: dict, root: str) -> dict:
     return out
 
 
-def ckpt_preempted(root: str, a: dict, k: int) -> dict:
+def ckpt_preempted(root: str, a: dict, k: int):
     """Part (b): the run of (a) with ``set_preemption_handler()`` and
     ``KillAtStep(KILL_AT)`` (a real SIGTERM), then a fresh process that
-    ``auto_resume()``s to the end."""
+    ``auto_resume()``s to the end, started beside what the caller does
+    next. Returns the function that waits for it and gives the part's
+    row."""
     from bigdl_tpu_torch.models.transformer import build_lm
     from bigdl_tpu_torch.resilience import (KillAtStep, TrainingPreempted,
                                             coordinator)
@@ -3923,18 +4049,22 @@ def ckpt_preempted(root: str, a: dict, k: int) -> dict:
     del model, opt
     if CKPT_DEVICE != "cpu":
         torch.cuda.empty_cache()
-    helper = run_resume_helper(d, k)
-    check_resumed_half(helper, a, f"(b, k = {k})")
-    # the resumed k = 4 windows: the checkpoint at 16 ends [13-15], the
-    # validation at 20 ends [16-19]
-    want_windows = [1] * (TRAIN_STEPS - KILL_AT) if k == 1 else [3, 4, 1]
-    check(helper["windows"] == want_windows,
-          f"(b, k = {k}): resumed windows {helper['windows']}")
-    return {"windows": windows, "resumed_windows": helper["windows"],
-            "preempt_save_s": times.save[-1], "launches": launches,
-            "resumed": {key: helper[key] for key in (
-                "process_s", "optimize_s", "load_s", "save_s",
-                "first_step_s", "launches")}}
+    resumed = Beside(run_resume_helper, d, k)
+
+    def finish() -> dict:
+        helper = resumed.result()
+        check_resumed_half(helper, a, f"(b, k = {k})")
+        # the resumed k = 4 windows: the checkpoint at 16 ends [13-15],
+        # the validation at 20 ends [16-19]
+        want_windows = [1] * (TRAIN_STEPS - KILL_AT) if k == 1 else [3, 4, 1]
+        check(helper["windows"] == want_windows,
+              f"(b, k = {k}): resumed windows {helper['windows']}")
+        return {"windows": windows, "resumed_windows": helper["windows"],
+                "preempt_save_s": times.save[-1], "launches": launches,
+                "resumed": {key: helper[key] for key in (
+                    "process_s", "optimize_s", "load_s", "save_s",
+                    "first_step_s", "launches")}}
+    return finish
 
 
 def resilience_cli(*args) -> subprocess.CompletedProcess:
@@ -4079,13 +4209,15 @@ def read_served_port(proc, deadline: float) -> int:
     check(False, f"serve never reported its port: {seen[-20:]}")
 
 
-def ckpt_cli(root: str, model) -> dict:
+def ckpt_cli(root: str):
     """Part (e): ``train --checkpoint DIR`` at a small size on the card,
     ``generate --model DIR/model_final`` and ``serve --continuous --model
-    ... --draft`` (a saved 2-layer draft) as subprocesses, each answer
-    equal to ``generate`` on the loaded module; the 134m's int8 twin saved
-    and loaded on the card: the same K4 launches a forward and the same
-    tokens."""
+    ... --draft`` (a saved 2-layer draft) as subprocesses, started beside
+    what the caller does next, each answer equal to ``generate`` on the
+    loaded module; the 134m's int8 twin saved and loaded on the card: the
+    same K4 launches a forward and the same tokens. Returns the function
+    that, given the 134m, waits for the processes, runs the twin and gives
+    the part's row."""
     import signal
     import urllib.request
 
@@ -4131,62 +4263,67 @@ def ckpt_cli(root: str, model) -> dict:
                                    "--port", "0"] + device,
                             cwd=src, stderr=subprocess.PIPE,
                             stdout=subprocess.DEVNULL, text=True)
-    try:
-        out, err = gen.communicate(timeout=CLI_TIMEOUT_S)
-        res["generate_s"] = time.perf_counter() - t2
-        lines = out.strip().splitlines()
-        check(gen.returncode == 0 and len(lines) == 2
-              and json.loads(lines[1].split(":", 1)[1]) == want,
-              f"(e): generate --model printed {out[-400:]!r} (want "
-              f"{want}), stderr {err[-1500:]!r}")
-        port = read_served_port(proc, time.perf_counter() + CLI_TIMEOUT_S)
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{port}/generate",
-            data=json.dumps({"prompt": prompt}).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=120) as r:
-            served = json.loads(r.read())["ids"]
-        check(served == want, f"(e): serve --draft answered {served}, "
-              f"generate {want}")
-        proc.send_signal(signal.SIGTERM)
-        check(proc.wait(timeout=30) == 0, "(e): serve did not exit 0")
-    finally:
-        for p in (gen, proc):
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    res["serve_draft_s"] = time.perf_counter() - t2
+    SPAWNED.extend((gen, proc))   # killed at exit if a part fails beside
 
-    # the 134m's int8 twin through file_io on the card
-    twin = quantize_model(model, torch.bfloat16, device=CKPT_DEVICE)
-    t3 = time.perf_counter()
-    file_io.save(twin, os.path.join(d, "int8_twin"))
-    res["int8_save_s"] = time.perf_counter() - t3
-    t4 = time.perf_counter()
-    back = file_io.load(os.path.join(d, "int8_twin"), device=CKPT_DEVICE)
-    ckpt_sync()
-    res["int8_load_s"] = time.perf_counter() - t4
-    res["int8_mb"] = os.path.getsize(os.path.join(d, "int8_twin")) / 1e6
-    ids = torch.as_tensor(np.random.default_rng(37).integers(
-        1, VOCAB + 1, (4, 64)), device=CKPT_DEVICE)
-    per = []
-    for m in (twin, back):
-        before = int8_matmul.LAUNCHES.value
-        with torch.no_grad():
-            m(ids)
-        per.append(int8_matmul.LAUNCHES.value - before)
-    toks = [generate(m, ids[:, :16], 8, greedy=True, device=CKPT_DEVICE)
-            for m in (twin, back)]
-    check(CKPT_DEVICE == "cpu"
-          or per == [per_forward(CONFIG["num_layers"])] * 2,
-          f"(e): K4 launches a forward {per}")
-    check(torch.equal(toks[0], toks[1]),
-          "(e): the loaded int8 twin's tokens differ")
-    res["k4_per_forward"] = per
-    res["launches"] = {n: c.value for n, c in counters.items()}
-    del twin, back
-    shutil.rmtree(d)
-    return res
+    def finish(model) -> dict:
+        try:
+            out, err = gen.communicate(timeout=CLI_TIMEOUT_S)
+            res["generate_s"] = time.perf_counter() - t2
+            lines = out.strip().splitlines()
+            check(gen.returncode == 0 and len(lines) == 2
+                  and json.loads(lines[1].split(":", 1)[1]) == want,
+                  f"(e): generate --model printed {out[-400:]!r} (want "
+                  f"{want}), stderr {err[-1500:]!r}")
+            port = read_served_port(proc, time.perf_counter()
+                                    + CLI_TIMEOUT_S)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps({"prompt": prompt}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served = json.loads(r.read())["ids"]
+            check(served == want, f"(e): serve --draft answered {served}, "
+                  f"generate {want}")
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=30) == 0, "(e): serve did not exit 0")
+        finally:
+            for p in (gen, proc):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res["serve_draft_s"] = time.perf_counter() - t2
+
+        # the 134m's int8 twin through file_io on the card
+        twin = quantize_model(model, torch.bfloat16, device=CKPT_DEVICE)
+        t3 = time.perf_counter()
+        file_io.save(twin, os.path.join(d, "int8_twin"))
+        res["int8_save_s"] = time.perf_counter() - t3
+        t4 = time.perf_counter()
+        back = file_io.load(os.path.join(d, "int8_twin"), device=CKPT_DEVICE)
+        ckpt_sync()
+        res["int8_load_s"] = time.perf_counter() - t4
+        res["int8_mb"] = os.path.getsize(os.path.join(d, "int8_twin")) / 1e6
+        ids = torch.as_tensor(np.random.default_rng(37).integers(
+            1, VOCAB + 1, (4, 64)), device=CKPT_DEVICE)
+        per = []
+        for m in (twin, back):
+            before = int8_matmul.LAUNCHES.value
+            with torch.no_grad():
+                m(ids)
+            per.append(int8_matmul.LAUNCHES.value - before)
+        toks = [generate(m, ids[:, :16], 8, greedy=True, device=CKPT_DEVICE)
+                for m in (twin, back)]
+        check(CKPT_DEVICE == "cpu"
+              or per == [per_forward(CONFIG["num_layers"])] * 2,
+              f"(e): K4 launches a forward {per}")
+        check(torch.equal(toks[0], toks[1]),
+              "(e): the loaded int8 twin's tokens differ")
+        res["k4_per_forward"] = per
+        res["launches"] = {n: c.value for n, c in counters.items()}
+        del twin, back
+        shutil.rmtree(d)
+        return res
+    return finish
 
 
 def run_checkpoints(k1_run: dict) -> dict:
@@ -4207,14 +4344,17 @@ def run_checkpoints(k1_run: dict) -> dict:
         a = ckpt_uninterrupted(k1_run, root)
         model = a.pop("model")
         t = time.perf_counter()
-        b1 = ckpt_preempted(root, a, 1)
+        # (c) damages the newest snapshot of k = 1's resumed half, so that
+        # half ends first; k = 4's resumed process runs beside (d) and (e)
+        b1 = ckpt_preempted(root, a, 1)()
         c = ckpt_corrupted(root, a)
-        b4 = ckpt_preempted(root, a, CKPT_K)
-        shutil.rmtree(os.path.join(root, f"b{CKPT_K}"))
+        b4_resumed = ckpt_preempted(root, a, CKPT_K)
         lm_s = time.perf_counter() - t
+        e_served = ckpt_cli(root)   # its processes beside (d)
         d = ckpt_resnet(root)
-        e = ckpt_cli(root, model)
+        e = e_served(model)
         del model
+        b4 = b4_resumed()
     finally:
         shutil.rmtree(root, ignore_errors=True)
         if CKPT_DEVICE != "cpu":
@@ -4226,7 +4366,8 @@ def run_checkpoints(k1_run: dict) -> dict:
                     "validation_records_per_s":
                     a["validation_records_per_s"],
                     "validation_ms_per_batch": a["validation_ms_per_batch"],
-                    "preempt_resume_corrupt_s": lm_s},
+                    "preempt_resume_corrupt_s": lm_s},   # k = 4's
+                    # resumed process excluded (it runs beside (d), (e))
         "preempted_k1": b1, f"preempted_k{CKPT_K}": b4, "corrupted": c,
         "resnet50": d, "cli": e, "phase_s": time.perf_counter() - t_phase}})
     PLAIN_SNAPSHOT.update(model_mb=a["model_mb"], state_mb=a["state_mb"],
@@ -4576,6 +4717,8 @@ def run_resnet() -> dict:
     model.train()
     plain.train()
     fused.update(profile_steps(model, batch, "resnet50 fused steps"))
+    log({"surface": {"resnet50": timed_within("3c", "3s", surface_resnet,
+                                              model, batch)}})
     del model
     torch.cuda.empty_cache()
 
@@ -4607,6 +4750,336 @@ def run_resnet() -> dict:
     del plain
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------ 3s. the module surface
+SURFACE_SEED = 24
+#: the masked bf16 core against K1's unmasked causal output: both round
+#: to bf16 after f32 sums in other orders
+SURFACE_MASK_TOL = 2e-2
+RESNET_EVAL_BATCHES = 4
+#: phase 3s's launches by counter (the surface's own calls), added to the
+#: kernel rows' counts
+SURFACE_LAUNCHES = collections.Counter()
+
+
+def timed_within(outer: str, phase: str, fn, *args):
+    """``fn(*args)`` run inside ``outer``'s ``timed``: its seconds move from
+    PHASE_S[outer] to PHASE_S[phase]."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        dt = time.perf_counter() - t
+        PHASE_S[phase] += dt
+        PHASE_S[outer] -= dt
+
+
+def quiet_outputs():
+    """Output recording off (``nn.module.record_outputs``); a package
+    without it (an earlier commit's, ``--time-kernels-of``) records
+    nothing anyway."""
+    from bigdl_tpu_torch.nn import module
+    rec = getattr(module, "record_outputs", None)
+    return rec(False) if rec is not None else contextlib.nullcontext()
+
+
+def _flash_counts() -> tuple:
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    return tuple(c.value for c in (
+        fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA,
+        fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA))
+
+
+_FLASH_KEYS = ("flash_fwd", "flash_fwd_mma", "flash_bwd_dq",
+               "flash_bwd_dq_mma", "flash_bwd_dkv", "flash_bwd_dkv_mma")
+
+
+def _count_flash(fn):
+    """``fn()`` and K1-K3's launches in it, by ``_FLASH_KEYS``."""
+    before = _flash_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(zip(_FLASH_KEYS, (b - a for a, b in zip(
+        before, _flash_counts()))))
+
+
+def _sorted_concat(tree) -> torch.Tensor:
+    """JAX's ravel order, written out apart from the package's: keys
+    sorted as strings at every level."""
+    parts = []
+
+    def walk(node):
+        for key in sorted(node):
+            v = node[key]
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                parts.append(v.detach().reshape(-1).float())
+    walk(tree)
+    return torch.cat(parts)
+
+
+def _dropout_states(model) -> list:
+    from bigdl_tpu_torch.nn.regularization import Dropout
+    return [(m, m._generator.get_state()) for m in model.modules()
+            if isinstance(m, Dropout) and m._generator is not None]
+
+
+def _no_outputs(model) -> bool:
+    return all(getattr(m, "output", None) is None for m in model.modules())
+
+
+def surface_lm(model, samples) -> dict:
+    """Phase 3s (a) on 3b's trained 134m LM; (c) at its widths."""
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.nn.attention import TransformerEncoder
+    from bigdl_tpu_torch.nn.module import record_outputs
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SURFACE_SEED)
+    enc = next(m for m in model.modules() if isinstance(m, TransformerEncoder))
+    shape = (TRAIN_BATCH, TRAIN_SEQ, CONFIG["embed_dim"])
+    x = torch.randn(shape, generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda")
+    grads = [(p, None if p.grad is None else (p.grad.data_ptr(),
+                                               p.grad.clone()))
+             for p in model.parameters()]
+    drops = _dropout_states(model)
+    with record_outputs(True):
+        t0 = time.perf_counter()
+        got, n = _count_flash(lambda: enc.backward(x, g))
+        out["backward_ms"] = (time.perf_counter() - t0) * 1e3
+    for m, state in drops:
+        m._generator.set_state(state)
+    leaf = x.clone().requires_grad_()
+    with quiet_outputs():
+        (want,) = torch.autograd.grad(enc(leaf), leaf, g)
+    check(torch.equal(got, want) and enc.grad_input is got,
+          "encoder.backward differs from autograd of a plain forward: "
+          f"max {(got - want).abs().max().item()}")
+    check([n[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+          == [CONFIG["num_layers"]] * 3,
+          f"encoder.backward launched K1/K2/K3 {n}, want 12 each")
+    check(all(e is None if p.grad is None else
+              (p.grad.data_ptr() == e[0] and torch.equal(p.grad, e[1]))
+              for p, e in grads),
+          "backward moved or changed a parameter's .grad")
+    SURFACE_LAUNCHES.update(n)
+    out["backward_launches"] = n
+    del got, want, leaf, grads
+
+    ids = torch.randint(1, VOCAB + 1, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=gen, device="cuda")
+    with record_outputs(True):
+        pred, n = _count_flash(lambda: model.predict(ids))
+        check(model.training and _no_outputs(model),
+              "predict left the mode or an output behind")
+    model.eval()
+    with torch.no_grad(), quiet_outputs():
+        plain = model(ids)
+    model.train()
+    check(torch.equal(pred, plain), "predict differs from the eval forward")
+    check(n["flash_fwd"] == CONFIG["num_layers"],
+          f"predict launched K1 {n['flash_fwd']} times, want 12")
+    check(torch.equal(model.predict_class(ids), plain.argmax(-1) + 1),
+          "predict_class is not argmax + 1")
+    SURFACE_LAUNCHES.update({"flash_fwd": n["flash_fwd"],
+                             "flash_fwd_mma": n["flash_fwd_mma"]})
+    out["predict_k1"] = n["flash_fwd"]
+    del pred, plain
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flat, unravel = model.get_parameters()
+    torch.cuda.synchronize()
+    out["get_parameters_ms"] = (time.perf_counter() - t0) * 1e3
+    out["get_parameters_added_peak_mib"] = (
+        torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    out["n_parameters"] = model.n_parameters()
+    check(flat.numel() == out["n_parameters"] == LM_134M_PARAMS,
+          f"get_parameters gave {flat.numel()} elements, n_parameters "
+          f"{out['n_parameters']}, want {LM_134M_PARAMS}")
+    check(torch.equal(flat, _sorted_concat(model.parameter_tree())),
+          "the flat vector is not the sorted-key concatenation")
+    check(torch.equal(_sorted_concat(unravel(flat)), flat),
+          "unravel(flat) does not give the parameters back")
+    total = int(model.summary().splitlines()[-1].split(":")[1]
+                .replace(",", ""))
+    check(total == out["n_parameters"], f"summary's total {total}")
+
+    clone = model.clone_module()
+    check(not {p.data_ptr() for p in clone.parameters()}
+          & {p.data_ptr() for p in model.parameters()},
+          "the clone shares a parameter's storage")
+    clone.eval()
+    model.eval()
+    with torch.no_grad(), quiet_outputs():
+        check(torch.equal(clone(ids), model(ids)),
+              "the clone's forward differs")
+    model.train()
+    clone.train()
+    one = DataSet.array(samples[:TRAIN_BATCH], seed=2) \
+        >> SampleToBatch(TRAIN_BATCH)
+    with record_outputs(True):
+        _train(clone, one, 1)
+        check(_no_outputs(clone), "the Optimizer's step recorded an output")
+    check(torch.equal(model.get_parameters()[0], flat),
+          "a step on the clone changed the original")
+    check(not torch.equal(clone.get_parameters()[0], flat),
+          "the step on the clone moved nothing")
+    del clone, flat, unravel
+    torch.cuda.empty_cache()
+    out["mask"] = surface_mask()
+    return out
+
+
+#: the 134m recipe's parameters (PERF.md, the tied table once)
+LM_134M_PARAMS = 128_404_224
+
+
+def surface_mask() -> dict:
+    """Phase 3s (c): a static causal mask through ``set_mask`` on one
+    bf16 ``MultiHeadAttention`` at the 134m's widths."""
+    from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+    from bigdl_tpu_torch.nn.module import record_outputs
+    torch.manual_seed(SURFACE_SEED)
+    mha = MultiHeadAttention(CONFIG["embed_dim"], CONFIG["num_heads"],
+                             with_bias=False, causal=True, rope=True,
+                             num_kv_heads=CONFIG["num_kv_heads"]).to(
+        "cuda", torch.bfloat16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SURFACE_SEED + 1)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, CONFIG["embed_dim"]),
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad(), record_outputs(False):
+        ref, n_ref = _count_flash(lambda: mha(x))
+        mask = torch.ones((TRAIN_SEQ, TRAIN_SEQ), dtype=torch.bool,
+                          device="cuda").tril()
+        check(mha.set_mask(mask) is mha, "set_mask does not return the module")
+        got, n = _count_flash(lambda: mha(x))
+    check(n_ref["flash_fwd_mma"] == 1, f"the unmasked forward ran {n_ref}")
+    check(n["flash_fwd"] == 0, "a masked attention launched K1")
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    check(torch.isfinite(got).all().item() and err <= SURFACE_MASK_TOL * scale,
+          f"masked attention differs from K1's causal output by {err}")
+    return {"max_abs_err": err, "max_abs_ref": scale, "k1_masked": 0}
+
+
+def surface_resnet(model, batch) -> dict:
+    """Phase 3s (b) on 3c's trained ResNet-50 (both gates)."""
+    from bigdl_tpu_torch.dataset.base import DataSet, MiniBatch
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.module import record_outputs
+    from bigdl_tpu_torch.optim import (Evaluator, Loss, Top1Accuracy,
+                                       Top5Accuracy)
+    out = {}
+    k5, _, k6, _ = conv_bn_counters()
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        model.train()
+        x = torch.as_tensor(batch.data, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SURFACE_SEED)
+        g = torch.randn((x.shape[0], 1000), generator=gen, device="cuda")
+        stats = {n: b.clone() for n, b in model.named_buffers()}
+        before = (k5.value, k6.value)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_outputs(True):
+            got = model.backward(x, g)
+        torch.cuda.synchronize()
+        out["backward_ms"] = (time.perf_counter() - t0) * 1e3
+        n = (k5.value - before[0], k6.value - before[1])
+        check(n == (K5_PER_STEP, K6_PER_STEP),
+              f"ResNet-50 backward launched K5/K6 {n}, want "
+              f"{(K5_PER_STEP, K6_PER_STEP)}")
+        check(all(torch.equal(b, stats[k]) for k, b in
+                  model.named_buffers()),
+              "backward changed a running statistic")
+        check(_no_outputs(model), "backward left an output behind")
+        leaf = x.clone().requires_grad_()
+        with quiet_outputs():
+            (want,) = torch.autograd.grad(model(leaf), leaf, g)
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(stats[k])
+        check(torch.equal(got, want),
+              "ResNet-50 backward differs from autograd of its forward: "
+              f"max {(got - want).abs().max().item()}")
+        SURFACE_LAUNCHES.update({"matmul_bn": n[0], "conv3x3_bn": n[1]})
+        out["backward_k5_k6"] = list(n)
+        del got, want, leaf, g, stats
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(SURFACE_SEED)
+        batches = [MiniBatch(rng.standard_normal(
+            batch.data.shape, dtype=np.float32),
+            (rng.integers(0, 1000, batch.data.shape[0]) + 1)
+            .astype(np.float32)) for _ in range(RESNET_EVAL_BATCHES)]
+        methods = lambda: [Top1Accuracy(), Top5Accuracy(),  # noqa: E731
+                           Loss(ClassNLLCriterion())]
+        t0 = time.perf_counter()
+        with record_outputs(True):
+            res = model.evaluate(DataSet.array(batches), methods())
+            check(_no_outputs(model), "evaluate left an output behind")
+        out["evaluate_s"] = time.perf_counter() - t0
+        ref = Evaluator(model, device="cuda").test(DataSet.array(batches),
+                                                   methods())
+        got_r = [r.result() for r, _ in res]
+        check(got_r == [r.result() for r, _ in ref],
+              f"evaluate {got_r} differs from Evaluator's")
+        out["evaluate"] = {m.name: r.result() for r, m in res}
+
+        model.eval()
+        xe = x[:32]
+        with torch.no_grad(), quiet_outputs():
+            y0 = model(xe)
+            fresh = build_resnet50(True, "cuda", seed=SURFACE_SEED)
+            fresh.load_parameter_tree(_host_tree(model.parameter_tree()))
+            fresh.load_buffer_tree(_host_tree(model.buffer_tree()))
+            fresh.eval()
+            y1 = fresh(xe)
+        check(torch.equal(y0, y1), "the numpy trees gave another forward")
+        model.train()
+        del fresh, x, xe
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = deterministic
+    return out
+
+
+def _host_tree(tree):
+    return {k: _host_tree(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def run_surface_only(card: dict, t0: float) -> None:
+    """``--surface-only``: phase 3s on a 134m LM and a fused ResNet-50,
+    each trained first as phases 3b and 3c train theirs."""
+    from bigdl_tpu_torch.apps.transformer import synthetic_corpus
+    from bigdl_tpu_torch.dataset.base import DataSet, SampleToBatch
+    from bigdl_tpu_torch.models.transformer import build_lm
+    model = build_lm(VOCAB, **CONFIG, device="cuda", seed=7)
+    samples = synthetic_corpus(TRAIN_BATCH * TRAIN_STEPS, TRAIN_SEQ, VOCAB,
+                               seed=17)
+    _train(model, DataSet.array(samples, seed=0)
+           >> SampleToBatch(TRAIN_BATCH), TRAIN_STEPS)
+    lm = timed("3s", surface_lm, model, samples)
+    del model
+    torch.cuda.empty_cache()
+    batch = imagenet_batch(RESNET_BATCH, 5)
+    resnet = build_resnet50(True, "cuda", seed=7)
+    train_resnet(resnet, batch, RESNET_STEPS)
+    rn = timed("3s", surface_resnet, resnet, batch)
+    log({"surface": {"lm": lm, "resnet50": rn,
+                     "launches": dict(SURFACE_LAUNCHES)},
+         "total_s": time.perf_counter() - t0, "phase_s": PHASE_S,
+         "card": card})
 
 
 # ------------------------------------------------------- 3i. the conv zoo
@@ -11427,6 +11900,11 @@ def main(argv=None) -> int:
              "K7b, K7c and copy_ with DIR's probe, and print the rows (no "
              "result line)")
     parser.add_argument(
+        "--gc-trace-of", nargs=argparse.REMAINDER, metavar="DIR",
+        help="run DIR's chip_smoke.py (with the arguments that follow) in "
+             "this process and print one gc_trace line after its output: "
+             "the cyclic collections that freed device memory, by phase")
+    parser.add_argument(
         "--resume-helper", metavar="DIR",
         help="phase 3h's fresh process: auto_resume the 134m run from the "
              "snapshots in DIR, train to its end and print one "
@@ -11519,6 +11997,11 @@ def main(argv=None) -> int:
         help="phase 3r (b)'s process: lint and run each capture rule's "
              "fixtures on the card and print one capture_rules line")
     parser.add_argument(
+        "--surface-only", action="store_true",
+        help="run only the kernels' build and phase 3s (the module surface "
+             "on a 134m LM and a fused ResNet-50 trained first) and print "
+             "its line (no result line)")
+    parser.add_argument(
         "--layers-only", action="store_true",
         help="run only the kernels' build and phase 3k (the layer zoo, the "
              "autoencoder app and module timing on the card) and print its "
@@ -11527,11 +12010,24 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.gc_trace_of:    # before this tree's package is imported
+        script_dir, *rest = args.gc_trace_of
+        return gc_trace(os.path.join(os.path.abspath(script_dir),
+                                     "chip_smoke.py"), rest)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.time_kernels_of:
         sys.path.insert(0, os.path.abspath(args.time_kernels_of))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the script's own direct forwards (its plain versions and checks)
+    # record no output; the port's entry points record none whatever the
+    # switch says (``nn.module``), which phase 3s holds with it on
+    with quiet_outputs():
+        return run_phases(args)
+
+
+def run_phases(args) -> int:
+    """``main``'s phases, as its arguments select them."""
     if args.resume_helper:
         return resume_helper(args.resume_helper, args.steps_per_dispatch)
     if args.distributed_rank:
@@ -11606,6 +12102,9 @@ def main(argv=None) -> int:
         log({"expert_pipeline_launches": ep_launches,
              "total_s": time.perf_counter() - t0, "card": card})
         return 0
+    if args.surface_only:
+        run_surface_only(card, t0)
+        return 0
     if args.text_only:
         text_launches = run_text()
         log({"text_launches": text_launches,
@@ -11679,6 +12178,7 @@ def main(argv=None) -> int:
                              (ep_out, ep_beside)))
     timed("3r", run_analysis, lint_beside, rules_beside)
     resnet_launches = {k: n + plat_launches[k] + dist_launches[k]
+                       + SURFACE_LAUNCHES[k]
                        for k, n in resnet_launches.items()}
     roof, roof_launches = timed("4a", run_roofline)
     t_timing = time.perf_counter()
@@ -11686,10 +12186,11 @@ def main(argv=None) -> int:
                            + plane_launches[k] + train_launches[k]
                            + published_launches[k] + text_launches[k]
                            + plat_launches[k] + dist_launches[k]
-                           + mp_launches[k]
+                           + mp_launches[k] + SURFACE_LAUNCHES[k]
                            for k in ("flash_fwd", "flash_fwd_mma")}),
                *time_flash_bwd({k: n + text_launches[k] + plat_launches[k]
                                 + dist_launches[k] + mp_launches[k]
+                                + SURFACE_LAUNCHES[k]
                                 for k, n in train_launches.items()}),
                dict(time_int8(launches["int8_matmul"]
                               + cont_launches["int8_matmul"]
