@@ -1,5 +1,6 @@
-// The tensor-core tile, bf16 y epilogue and fixed-order column statistics
-// shared by the "mma" variants of K5 (matmul_bn.cu) and K6 (conv3x3_bn.cu).
+// The tensor-core tile, y epilogues and fixed-order column statistics
+// shared by the "mma" variants of K5 (matmul_bn.cu) and K6 (conv3x3_bn.cu)
+// and K6's "tf32x3" variant.
 //
 // Both compute y = A @ B with bf16 A (rows of the output, K deep) and B
 // (K, N) row-major, f32 accumulation, y rounded to bf16, and from the f32
@@ -20,7 +21,11 @@
 // squares over the warp's rows in a fixed shuffle tree; store_tile then
 // writes the tile out in 16-byte pieces and the block's per-column partial
 // (the WARPS_M row warps in turn) to one row of the partials. Rows past M
-// hold zeros (their A rows were zero-filled) and are not stored.
+// hold zeros (their A rows were zero-filled) and are not stored. K6's
+// "tf32x3" variant (f32 y; its own 3xTF32 step into the same Acc tile)
+// takes store_y_f32 in place of stage_y, which writes y straight from the
+// registers in 8-byte pieces (whole 32-byte sectors a row) with the same
+// column sums, and then store_partials, store_tile's second half.
 // reduce_two_pass sums the partials in two fixed-order passes (RED_SLABS
 // slabs of rows, then the slabs): no atomics, the same bits on every run.
 
@@ -117,6 +122,35 @@ __device__ __forceinline__ void mma_step(Acc acc, const __nv_bfloat16* as,
   }
 }
 
+// cs / cq, a lane's sums over its rows of the columns it holds ([n tile]
+// [column 2t + j] of the warp's 32), summed over the 8 lanes that share t
+// in a fixed shuffle tree, into red_s / red_q [WARPS_M][BN]
+__device__ __forceinline__ void warp_column_stats(float cs[4][2], float cq[4][2],
+                                                  float (*red_s)[BN],
+                                                  float (*red_q)[BN], int warp,
+                                                  int lane) {
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], off);
+        cq[nt][j] += __shfl_xor_sync(0xffffffffu, cq[nt][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red_s[wm][wn * 32 + nt * 8 + 2 * t + j] = cs[nt][j];
+        red_q[wm][wn * 32 + nt * 8 + 2 * t + j] = cq[nt][j];
+      }
+  }
+}
+
 // the warp's accumulators as bf16 into ys ([BM][Y_PITCH]), and its
 // columns' sums and sums of squares into red_s / red_q [WARPS_M][BN]
 __device__ __forceinline__ void stage_y(const Acc acc, __nv_bfloat16* ys,
@@ -144,31 +178,64 @@ __device__ __forceinline__ void stage_y(const Acc acc, __nv_bfloat16* ys,
         cq[nt][1] += v1 * v1;
       }
   }
-  // over the 8 lanes that share t, in a fixed tree
+  warp_column_stats(cs, cq, red_s, red_q, warp, lane);
+}
+
+// the warp's y as f32 straight from the registers to y (m, n), rows
+// [m0, m0 + BM) x columns [n0, n0 + BN) of the tile (rows past m and
+// columns past n not stored; n is a multiple of 8), and its columns' sums
+// and sums of squares as stage_y's
+__device__ __forceinline__ void store_y_f32(const Acc acc, float* y,
+                                            float (*red_s)[BN], float (*red_q)[BN],
+                                            int m0, int n0, int m, int n,
+                                            int warp, int lane) {
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int g = lane / 4, t = lane % 4;
+  float cs[4][2], cq[4][2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = n0 + wn * 32 + nt * 8 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < 2; ++j) cs[nt][j] = cq[nt][j] = 0.f;
 #pragma unroll
-      for (int off = 4; off < 32; off *= 2) {
-        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], off);
-        cq[nt][j] += __shfl_xor_sync(0xffffffffu, cq[nt][j], off);
+    for (int mt = 0; mt < WTM; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        const int r = m0 + wm * (BM / WARPS_M) + mt * 16 + g + 8 * half;
+        if (r < m && c < n)
+          *reinterpret_cast<float2*>(y + (long)r * n + c) = make_float2(v0, v1);
+        cs[nt][0] += v0;
+        cs[nt][1] += v1;
+        cq[nt][0] += v0 * v0;
+        cq[nt][1] += v1 * v1;
       }
-  if (g == 0) {
+  }
+  warp_column_stats(cs, cq, red_s, red_q, warp, lane);
+}
+
+// after a __syncthreads that follows every warp's stage_y or store_y_f32:
+// the block's column partials (the row warps in turn) to row `prow` of
+// psum / psq (rows of n)
+__device__ __forceinline__ void store_partials(const float (*red_s)[BN],
+                                               const float (*red_q)[BN],
+                                               float* psum, float* psq, long prow,
+                                               int n0, int n, int tid) {
+  if (tid < BN && n0 + tid < n) {
+    float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red_s[wm][wn * 32 + nt * 8 + 2 * t + j] = cs[nt][j];
-        red_q[wm][wn * 32 + nt * 8 + 2 * t + j] = cq[nt][j];
-      }
+    for (int i = 0; i < WARPS_M; ++i) {
+      s += red_s[i][tid];
+      q += red_q[i][tid];
+    }
+    psum[prow * n + n0 + tid] = s;
+    psq[prow * n + n0 + tid] = q;
   }
 }
 
 // after a __syncthreads that follows every warp's stage_y: the tile's rows
 // [m0, m0 + BM) x columns [n0, n0 + BN) of y (m, n) in 16-byte pieces, and
-// the block's column partials (the row warps in turn) to row `prow` of
-// psum / psq (rows of n)
+// the block's column partials (store_partials)
 __device__ __forceinline__ void store_tile(__nv_bfloat16* y, const __nv_bfloat16* ys,
                                            const float (*red_s)[BN],
                                            const float (*red_q)[BN],
@@ -182,16 +249,7 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* y, const __nv_bfloat16
       *reinterpret_cast<uint4*>(y + (long)(m0 + r) * n + n0 + c) =
           *reinterpret_cast<const uint4*>(ys + r * Y_PITCH + c);
   }
-  if (tid < BN && n0 + tid < n) {
-    float s = 0.f, q = 0.f;
-#pragma unroll
-    for (int i = 0; i < WARPS_M; ++i) {
-      s += red_s[i][tid];
-      q += red_q[i][tid];
-    }
-    psum[prow * n + n0 + tid] = s;
-    psq[prow * n + n0 + tid] = q;
-  }
+  store_partials(red_s, red_q, psum, psq, prow, n0, n, tid);
 }
 
 // sum[y, c] = sum_r psum[r, c] over slab y of the R rows (and the same for

@@ -22,11 +22,13 @@
 // and the statistics are reduced from the f32 accumulator, so y is never
 // re-read for them.
 //
-// Two variants; ops/conv3x3_bn.py:kernel_variant picks one.
+// Three variants; ops/conv3x3_bn.py:kernel_variant picks one: "mma" for
+// bf16 and "tf32x3" for f32 when Cin and Cout are multiples of 8 (every
+// 3x3 conv of ResNet-50 and VGG-16 but VGG's first, Cin = 3), "fma" for
+// the rest in either dtype.
 //
 // "mma" (conv3x3_stats_mma_kernel, C entry bt_conv3x3_stats_mma): bf16 x
-// and w with Cin and Cout multiples of 8, which is every 3x3 conv of
-// ResNet-50. An implicit GEMM on the tensor cores: M is the output pixel
+// and w with Cin and Cout multiples of 8. An implicit GEMM on the tensor cores: M is the output pixel
 // index over N * H * W (a 128-row tile may cross images, so a 7 x 7 stage-4
 // image no longer leaves most of a tile idle), N is Cout (64 a tile), K is
 // 9 * Cin, walked in steps of one tap x 32 input channels, the nine taps of
@@ -52,7 +54,22 @@
 // operations and took 1.5x as long: there the per-tile costs, the ring's
 // fill and the epilogue, take about a third of the time.
 //
-// "fma" (conv3x3_stats_kernel, C entry bt_conv3x3_stats): f32, and bf16
+// "tf32x3" (conv3x3_stats_tf32x3_kernel, C entry bt_conv3x3_stats_tf32x3):
+// f32 x and w with Cin and Cout multiples of 8. The mma variant's implicit
+// GEMM, tile and fixed-order statistics over f32 operands, each product
+// taken as three tf32 products on the tensor cores (mma.sync m16n8k8
+// .tf32: hi * hi + hi * lo + lo * hi of operands split with
+// cvt.rna.tf32.f32, mma_tf32.cuh), so y and the statistics keep f32
+// accuracy (one tf32 pass lands past the f32 limits of both:
+// tests/test_torch_tf32x3.py and chip_smoke.py's controls). A K step is one tap x 16 channels (64 bytes
+// a row, as the mma variant's 32 bf16), summed on the tensor cores from
+// zero and added to the f32 accumulators, as the mma variant does. Bound:
+// the tensor cores' TF32 rate over three passes, 495 / 3 = 165 TFLOP/s
+// by the data sheet (2.5x the CUDA cores' f32 FMA peak); mma.sync, not
+// wgmma, and the splits in registers (three instructions an operand)
+// hold it well below that. Details at the kernel.
+//
+// "fma" (conv3x3_stats_kernel, C entry bt_conv3x3_stats): f32 or bf16
 // with Cin or Cout not a multiple of 8. It is the first port's design and
 // is bound by its own arithmetic: f32 FMA on the CUDA cores (67 TFLOP/s).
 // One block of 256 threads per (image, run of 128 output pixels of
@@ -68,15 +85,16 @@
 // Shared memory is dynamic, (9*16*64 + 16*rows*(W+2)) floats, above 48 KB
 // after cudaFuncSetAttribute.
 //
-// Epilogue and statistics, both variants: y rounded to x's dtype, one f32
+// Epilogue and statistics, all variants: y rounded to x's dtype, one f32
 // partial per (block, channel) summed over the block in a fixed order
-// (mma: a fixed shuffle tree within a warp, then the two row warps in
-// turn), then column_reduce_kernel sums the partials of each channel in a
-// fixed order: in one pass for fma, in two for mma (64 slabs of rows, then
-// the slabs: one pass over stage 1's 6,272 rows ran on 2 blocks and took
-// 46 us). No atomics: the statistics are the same bits on every run. The
-// mma variant's tile, step, y epilogue and both reduction passes live in
-// col_stats.cuh, shared with K5's mma variant (matmul_bn.cu).
+// (mma, tf32x3: a fixed shuffle tree within a warp, then the two row warps
+// in turn), then column_reduce_kernel sums the partials of each channel
+// in a fixed order: in one pass for fma, in two for mma and tf32x3 (64
+// slabs of rows, then the slabs: one pass over stage 1's 6,272 rows ran
+// on 2 blocks and took 46 us). No atomics: y and the statistics are the
+// same bits on every run. The mma and tf32x3 variants' tile, epilogues
+// and both reduction passes live in col_stats.cuh, shared with K5's mma
+// variant (matmul_bn.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +102,7 @@
 
 #include "col_stats.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -371,6 +390,194 @@ int launch_mma(const void* x, const void* w, void* y, void* psum, void* psq,
                                     static_cast<float*>(sumsq), stream);
 }
 
+// ---------------------------------------------------------- tf32x3 variant
+// The mma variant's implicit GEMM and tile (col_stats' Acc, 4 warps of
+// 64 x 32) over f32 operands: a K step is one tap x TBK = 16 input
+// channels (64 bytes a row, as the mma variant's 32 bf16), the sums of a
+// step taken by the tensor cores from zero and added to the f32
+// accumulators, y stored as f32 from the registers.
+//
+// The ring holds f32 as it lands (cp.async, zero-fill as the SAME
+// padding); a warp splits its fragments into tf32 hi + lo in registers.
+// Neither operand can go through ldmatrix (32-bit elements, and B wanted
+// column-major), so both are read with plain shared loads, laid out so
+// that no load of a warp meets a bank twice:
+//  - A rows are 16 floats, unpadded. The mma k indices (kk, t) and
+//    (kk, t + 4) of the step's two k8 halves kk stand for channels
+//    4t + 2kk and 4t + 2kk + 1, so a lane's four A values of a row are one
+//    16-byte load (a quarter warp's 8 loads cover the 32 banks once).
+//  - B rows are 64 floats, their 16-byte chunks XOR-swizzled by
+//    2 * (row / 4): the lanes of a B load read rows 4t + c for t = 0..3
+//    and columns g = 0..7, which the swizzle spreads over the 32 banks.
+constexpr int TBK = 16;                    // input channels of one tap per step
+constexpr int TSTAGES = 4;                 // ring depth
+constexpr int TA_STAGE = MBM * TBK;        // floats
+constexpr int TB_STAGE = TBK * MBN;        // floats
+constexpr int TF32_SMEM = TSTAGES * (TA_STAGE + TB_STAGE) * 4;
+constexpr int TA_ROW_STEP = MMA_THREADS / (TBK / 4);   // rows between a thread's A rows
+constexpr int TA_ROWS_PER_THREAD = MBM / TA_ROW_STEP;
+constexpr int TB_ROW_STEP = MMA_THREADS / (MBN / 4);   // rows between a thread's B rows
+constexpr int TB_ROWS_PER_THREAD = TBK / TB_ROW_STEP;
+
+// the float offset of (row, column) in a B slot: the column's 16-byte chunk
+// swizzled by 2 * (row / 4)
+__device__ __forceinline__ int tb_offset(int row, int col) {
+  return row * MBN + (((col >> 2) ^ (2 * ((row >> 2) & 3))) << 2) + (col & 3);
+}
+
+// one K step from ring slot (as, bs): 3xTF32 products summed on the tensor
+// cores from zero for each 16 x 8 tile, then added to the f32 accumulators
+__device__ __forceinline__ void tf32_step(col_stats::Acc acc, const float* as,
+                                          const float* bs, int warp, int lane) {
+  using namespace mma_tf32;
+  const int wm = warp % col_stats::WARPS_M, wn = warp / col_stats::WARPS_M;
+  const int g = lane / 4, t = lane % 4;
+  uint32_t bh[2][4][2], bl[2][4][2];  // [k half][n tile][register]
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        split(bs[tb_offset(4 * t + 2 * kk + j, wn * 32 + nt * 8 + g)], bh[kk][nt][j],
+              bl[kk][nt][j]);
+  as += wm * (MBM / col_stats::WARPS_M) * TBK;
+#pragma unroll
+  for (int mt = 0; mt < col_stats::WTM; ++mt) {
+    const float4 top = *reinterpret_cast<const float4*>(as + (mt * 16 + g) * TBK + 4 * t);
+    const float4 bot = *reinterpret_cast<const float4*>(as + (mt * 16 + g + 8) * TBK + 4 * t);
+    uint32_t ah[2][4], al[2][4];
+    split(top.x, ah[0][0], al[0][0]);
+    split(bot.x, ah[0][1], al[0][1]);
+    split(top.y, ah[0][2], al[0][2]);
+    split(bot.y, ah[0][3], al[0][3]);
+    split(top.z, ah[1][0], al[1][0]);
+    split(bot.z, ah[1][1], al[1][1]);
+    split(top.w, ah[1][2], al[1][2]);
+    split(bot.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        mma3(part, ah[kk], al[kk], bh[kk][nt][0], bh[kk][nt][1], bl[kk][nt][0],
+             bl[kk][nt][1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MMA_THREADS)
+conv3x3_stats_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                            float* __restrict__ y, float* __restrict__ psum,
+                            float* __restrict__ psq, int H, int W, int Cin,
+                            int Cout, int M) {
+  using mma_bf16::cp_async16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);
+  float* Bs = As + TSTAGES * TA_STAGE;
+  __shared__ float red_s[col_stats::WARPS_M][MBN];
+  __shared__ float red_q[col_stats::WARPS_M][MBN];
+
+  const int n0 = blockIdx.x * MBN;
+  const int m0 = blockIdx.y * MBM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // the A rows this thread copies: rows tid/4 + TA_ROW_STEP i, 4 channels at
+  // (tid % 4) * 4; an image position, or h = -4 (always outside) past M
+  const int a_piece = (tid % 4) * 4;
+  int a_h[TA_ROWS_PER_THREAD], a_w[TA_ROWS_PER_THREAD];
+  long a_off[TA_ROWS_PER_THREAD];  // element offset of (n, h, w, 0) in x
+#pragma unroll
+  for (int i = 0; i < TA_ROWS_PER_THREAD; ++i) {
+    const int p = m0 + tid / 4 + TA_ROW_STEP * i;
+    const int hw = p % (H * W);
+    a_h[i] = p < M ? hw / W : -4;
+    a_w[i] = hw % W;
+    a_off[i] = (long)p * Cin;
+  }
+  // the B pieces this thread copies: rows tid/16 + TB_ROW_STEP i, 4 columns
+  // at (tid % 16) * 4
+  const int b_piece = (tid % 16) * 4;
+  const bool b_col_in = n0 + b_piece < Cout;
+
+  const int chunks = (Cin + TBK - 1) / TBK;
+  const int steps = 9 * chunks;
+
+  // K step s: tap s % 9 of input channels (s / 9) * TBK ..; B is w viewed
+  // as (9 * Cin, Cout)
+  auto load_step = [&](int s, int slot) {
+    const int tap = s % 9, ci0 = (s / 9) * TBK;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const bool ci_in = ci0 + a_piece < Cin;
+    const long shift = ((long)dy * W + dx) * Cin + ci0 + a_piece;
+    float* as = As + slot * TA_STAGE;
+#pragma unroll
+    for (int i = 0; i < TA_ROWS_PER_THREAD; ++i) {
+      const int ih = a_h[i] + dy, iw = a_w[i] + dx;
+      const bool in = ci_in && ih >= 0 && ih < H && iw >= 0 && iw < W;
+      cp_async16(as + (tid / 4 + TA_ROW_STEP * i) * TBK + a_piece,
+                 in ? x + a_off[i] + shift : x, in);
+    }
+    float* bs = Bs + slot * TB_STAGE;
+    const long row0 = (long)tap * Cin + ci0;
+#pragma unroll
+    for (int i = 0; i < TB_ROWS_PER_THREAD; ++i) {
+      const int r = tid / 16 + TB_ROW_STEP * i;
+      const bool in = b_col_in && ci0 + r < Cin;
+      cp_async16(bs + tb_offset(r, b_piece), in ? w + (row0 + r) * Cout + n0 + b_piece : w,
+                 in);
+    }
+  };
+
+  col_stats::Acc acc;
+  col_stats::zero(acc);
+
+#pragma unroll
+  for (int s = 0; s < TSTAGES - 1; ++s) {
+    if (s < steps) load_step(s, s);
+    mma_bf16::cp_async_commit();
+  }
+
+  for (int s = 0; s < steps; ++s) {
+    mma_bf16::cp_async_wait<TSTAGES - 2>();  // step s has landed (this thread's copies)
+    __syncthreads();                         // ... and every thread's; slot of s-1 free
+    const int next = s + TSTAGES - 1;
+    if (next < steps) load_step(next, next % TSTAGES);
+    mma_bf16::cp_async_commit();
+    const int slot = s % TSTAGES;
+    tf32_step(acc, As + slot * TA_STAGE, Bs + slot * TB_STAGE, warp, lane);
+  }
+  mma_bf16::cp_async_wait<0>();
+
+  col_stats::store_y_f32(acc, y, red_s, red_q, m0, n0, M, Cout, warp, lane);
+  __syncthreads();
+  col_stats::store_partials(red_s, red_q, psum, psq, blockIdx.y, n0, Cout, tid);
+}
+
+// psum and psq as launch_mma's (the same BM)
+int launch_tf32x3(const void* x, const void* w, void* y, void* psum, void* psq,
+                  void* sum, void* sumsq, int N, int H, int W, int Cin, int Cout,
+                  cudaStream_t stream) {
+  // set on every launch: the attribute is per device, and the call is cheap
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_stats_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TF32_SMEM);
+  if (err != cudaSuccess) return err;
+  const int M = N * H * W;
+  const dim3 grid((Cout + MBN - 1) / MBN, (M + MBM - 1) / MBM);
+  float* ps = static_cast<float*>(psum);
+  float* pq = static_cast<float*>(psq);
+  conv3x3_stats_tf32x3_kernel<<<grid, MMA_THREADS, TF32_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), ps, pq, H, W, Cin, Cout, M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return col_stats::reduce_two_pass(ps, pq, grid.y, Cout, static_cast<float*>(sum),
+                                    static_cast<float*>(sumsq), stream);
+}
+
 }  // namespace
 
 // y (N, H, W, Cout) in x's dtype; psum, psq f32 (N * ceil(H*W / 128), Cout)
@@ -414,6 +621,21 @@ extern "C" int bt_conv3x3_stats_mma(const void* x, const void* w, void* y,
 // then RED_SLABS for the first pass of the statistics' reduction.
 extern "C" int bt_conv3x3_stats_mma_row_blocks(int N, int H, int W) {
   return (N * H * W + MBM - 1) / MBM + col_stats::RED_SLABS;
+}
+
+// The "tf32x3" variant: f32 x, w and y, Cin and Cout multiples of 8; the
+// other arguments and the partials' rows (bt_conv3x3_stats_mma_row_blocks)
+// as bt_conv3x3_stats_mma's.
+extern "C" int bt_conv3x3_stats_tf32x3(const void* x, const void* w, void* y,
+                                       void* psum, void* psq, void* sum,
+                                       void* sumsq, int N, int H, int W, int Cin,
+                                       int Cout, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 != 0 ||
+      Cout % 8 != 0)
+    return cudaErrorInvalidValue;
+  if ((long)N * H * W > (long)MBM * 65535) return cudaErrorInvalidValue;
+  return launch_tf32x3(x, w, y, psum, psq, sum, sumsq, N, H, W, Cin, Cout,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* bt_cuda_error_string(int code) {

@@ -34,8 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: source -> {C entry: argument types}; pointers and the stream are c_void_p
 ENTRIES = {
-    "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-                  "bt_flash_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
+    "flash_fwd": {"bt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]},
     "flash_bwd": {"bt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
                   "bt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
                   "bt_flash_bwd_dq_mma": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
@@ -48,7 +47,8 @@ ENTRIES = {
     "conv3x3_bn": {"bt_conv3x3_stats": [_P] * 7 + [_I] * 6 + [_P],
                    "bt_conv3x3_stats_row_blocks": [_I] * 3,
                    "bt_conv3x3_stats_mma": [_P] * 7 + [_I] * 5 + [_P],
-                   "bt_conv3x3_stats_mma_row_blocks": [_I] * 3},
+                   "bt_conv3x3_stats_mma_row_blocks": [_I] * 3,
+                   "bt_conv3x3_stats_tf32x3": [_P] * 7 + [_I] * 5 + [_P]},
     "hbm_roof": {"bt_hbm_blocks": [_I] * 3,
                  "bt_hbm_copy": [_P, _P, _L, _I, _I, _I, _P],
                  "bt_hbm_read": [_P] * 4 + [_L, _I, _I, _I, _P],

@@ -6,11 +6,15 @@ stride-1 SAME-padded conv of x (N, H, W, Cin) NHWC with w (3, 3, Cin, Cout)
 HWIO in f32, and from the f32 result, before it is rounded, the per-channel
 sum and sum of squares over (N, H, W) (f32, shape (Cout,)); y is returned
 in x's dtype. On a CUDA tensor this is kernel K6 (``csrc/conv3x3_bn.cu``,
-the port of the Pallas ``_kernel``) in one of two variants that
-``kernel_variant`` picks: ``"mma"``, an implicit GEMM on the tensor cores
-for bf16 with Cin and Cout multiples of 8 (every ResNet-50 3x3), and
-``"fma"``, f32 FMA on the CUDA cores, for the rest. Neither makes a padded
-copy of x, and both take the statistics from the f32 accumulator in a
+the port of the Pallas ``_kernel``) in one of three variants that
+``kernel_variant`` picks, for Cin and Cout multiples of 8 (every 3x3 of
+ResNet-50 and VGG-16 but VGG's first, Cin = 3): ``"mma"``, an implicit
+GEMM on the tensor cores in bf16 for bf16, and ``"tf32x3"``, the same GEMM
+on the tensor cores at f32 accuracy (each product as three tf32 ones of
+the operands' hi and lo pieces) for f32; both are bound by the tensor
+cores' ``mma.sync`` issue rate. ``"fma"``, f32 FMA on the CUDA cores
+(67 TFLOP/s), takes the ragged shapes in either dtype. None makes a padded
+copy of x, and all take the statistics from the f32 accumulator in a
 fixed order (no atomics). On a CPU tensor it is
 ``conv3x3_with_stats_plain``. Mixed dtypes are promoted first, as the
 reference's ``jnp.dot`` would.
@@ -34,22 +38,24 @@ from bigdl_tpu_torch.ops import _build, remat
 from bigdl_tpu_torch.ops.batch_norm import (bn_from_stats, bn_input_grad,
                                             sync_mesh)
 
-#: launches of kernel K6, either variant (counted where the kernel is
-#: launched, nowhere else), and of its "mma" variant alone
+#: launches of kernel K6, any variant (counted where the kernel is
+#: launched, nowhere else), and of its "mma" and "tf32x3" variants alone
 LAUNCHES = _build.LaunchCounter()
 LAUNCHES_MMA = _build.LaunchCounter()
+LAUNCHES_TF32 = _build.LaunchCounter()
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_variant(x: torch.Tensor, w: torch.Tensor) -> str:
     """The K6 variant for x (N, H, W, Cin) and w (3, 3, Cin, Cout) of one
-    dtype: ``"mma"`` (tensor cores) for bf16 with Cin and Cout multiples of
-    8, ``"fma"`` (CUDA cores) otherwise."""
+    dtype: with Cin and Cout multiples of 8, ``"mma"`` (tensor cores, bf16)
+    for bf16 and ``"tf32x3"`` (tensor cores, 3xTF32) for f32; ``"fma"``
+    (CUDA cores) otherwise."""
     cin, cout = w.shape[2], w.shape[3]
-    if x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
-        return "mma"
-    return "fma"
+    if cin % 8 or cout % 8:
+        return "fma"
+    return "mma" if x.dtype == torch.bfloat16 else "tf32x3"
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -78,24 +84,26 @@ def launch_flops(n: int, h: int, w: int, cin: int, cout: int) -> int:
 def conv3x3_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
     """Launch kernel K6 on CUDA tensors: x (N, H, W, Cin) and w
     (3, 3, Cin, Cout) of one dtype (f32 or bf16), both contiguous (and
-    16-byte aligned for the "mma" variant, which reads them with 16-byte
-    copies)."""
+    16-byte aligned for the "mma" and "tf32x3" variants, which read them
+    with 16-byte copies)."""
     if x.dtype != w.dtype or x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"K6 takes f32 or bf16 x and w of one dtype, got "
                          f"{x.dtype} and {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("K6 takes contiguous x and w")
-    mma = kernel_variant(x, w) == "mma"
-    if mma and (x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("K6's mma variant takes 16-byte aligned x and w")
+    variant = kernel_variant(x, w)
+    if variant != "fma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"K6's {variant} variant takes 16-byte aligned x "
+                         "and w")
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError("conv3x3_with_stats_kernel needs x and w on one "
                          "CUDA device")
     lib = _build.load("conv3x3_bn")
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
-    rows = (lib.bt_conv3x3_stats_mma_row_blocks if mma
-            else lib.bt_conv3x3_stats_row_blocks)(n, h, wd)
+    # the tf32x3 variant's tile is the mma variant's: the same partials
+    rows = (lib.bt_conv3x3_stats_row_blocks if variant == "fma"
+            else lib.bt_conv3x3_stats_mma_row_blocks)(n, h, wd)
     dev = x.device
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     partials = torch.empty((2, rows, cout), dtype=torch.float32, device=dev)
@@ -104,16 +112,20 @@ def conv3x3_with_stats_kernel(x: torch.Tensor, w: torch.Tensor) -> Stats:
             partials[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             n, h, wd, cin, cout)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if mma:
-        status = lib.bt_conv3x3_stats_mma(*args, stream)
-    else:
+    if variant == "fma":
         status = lib.bt_conv3x3_stats(*args, int(x.dtype == torch.bfloat16),
                                       stream)
+    elif variant == "mma":
+        status = lib.bt_conv3x3_stats_mma(*args, stream)
+    else:
+        status = lib.bt_conv3x3_stats_tf32x3(*args, stream)
     _build.check_status(lib, "conv3x3_bn", status)
     LAUNCHES.add()
     _build.KERNEL_FLOPS.add(launch_flops(n, h, wd, cin, cout))
-    if mma:
+    if variant == "mma":
         LAUNCHES_MMA.add()
+    elif variant == "tf32x3":
+        LAUNCHES_TF32.add()
     return y, stats[0], stats[1]
 
 

@@ -12,11 +12,16 @@ backward takes cotangents for ``o`` AND ``lse`` and folds the latter into
 ``delta = rowsum(dO * O) - g_lse``. On a CUDA tensor the forward launches
 kernel K1 (``csrc/flash_fwd.cu``, the port of ``_fwd_kernel``) and the
 backward kernels K2 (dQ) and K3 (dK, dV) (``csrc/flash_bwd.cu``, the ports
-of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), each in the variant
-``kernel_variant`` picks (``"mma"``, tensor cores, for bf16; ``"fma"``,
-CUDA cores, for float32), or raises; on a CPU tensor they run
-``flash_attention_plain`` and ``flash_attention_bwd_plain``, the same
-functions in plain PyTorch.
+of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), each in the variant that
+``kernel_variant`` (K1) or ``bwd_kernel_variant`` (K2, K3) picks, or
+raises. Three variants: ``"mma"`` for bf16, on the tensor cores in bf16
+(K1-K3); ``"tf32x3"`` for float32 in K1, on the tensor cores at f32
+accuracy (each product as three tf32 products of the operands' hi and lo
+pieces); ``"fma"`` for float32 in K2 and K3, f32 FMA on the CUDA cores
+(67 TFLOP/s). The tensor-core variants are bound by ``mma.sync``'s issue
+rate and the softmax beside it, ``fma`` by its arithmetic. On a CPU
+tensor they run ``flash_attention_plain`` and
+``flash_attention_bwd_plain``, the same functions in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of kernels K1, K2 and K3 (either variant; ``*_MMA``: the "mma"
-#: variant alone), each counted where the kernel is launched, nowhere else
+#: launches of kernels K1, K2 and K3 (any variant; ``*_MMA``: the "mma"
+#: variant alone; ``LAUNCHES_TF32``: K1's "tf32x3" alone), each counted
+#: where the kernel is launched, nowhere else
 LAUNCHES = _build.LaunchCounter()
 LAUNCHES_MMA = _build.LaunchCounter()
+LAUNCHES_TF32 = _build.LaunchCounter()
 LAUNCHES_DQ = _build.LaunchCounter()
 LAUNCHES_DQ_MMA = _build.LaunchCounter()
 LAUNCHES_DKV = _build.LaunchCounter()
@@ -64,9 +71,16 @@ def launch_flops(kernel: str, b: int, n: int, sq: int, sk: int, d: int,
 
 
 def kernel_variant(q: torch.Tensor) -> str:
-    """The K1, K2 and K3 variant for q of a dtype and head_dim that
-    ``check_args`` takes: ``"mma"`` (tensor cores) for bfloat16, ``"fma"``
-    (CUDA cores) for float32."""
+    """The K1 variant for q of a dtype and head_dim that ``check_args``
+    takes: ``"mma"`` (tensor cores, bf16) for bfloat16, ``"tf32x3"``
+    (tensor cores, 3xTF32) for float32."""
+    return "mma" if q.dtype == torch.bfloat16 else "tf32x3"
+
+
+def bwd_kernel_variant(q: torch.Tensor) -> str:
+    """The K2 and K3 variant for q as ``kernel_variant`` takes it:
+    ``"mma"`` (tensor cores) for bfloat16, ``"fma"`` (CUDA cores) for
+    float32."""
     return "mma" if q.dtype == torch.bfloat16 else "fma"
 
 
@@ -116,9 +130,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     check_args(q, k, v)
-    mma = kernel_variant(q) == "mma"
-    if mma and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("K1's mma variant takes 16-byte aligned q, k and v")
+    variant = kernel_variant(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        # both variants read q, k and v with 16-byte copies
+        raise ValueError(f"K1's {variant} variant takes 16-byte aligned q, "
+                         "k and v")
     if q.device.type != "cuda":
         raise ValueError("K1 needs CUDA tensors")
     lib = _build.load("flash_fwd")
@@ -129,15 +145,11 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, n, sq, sk, d, float(scale), int(causal))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if mma:
-        status = lib.bt_flash_fwd_mma(*args, stream)
-    else:
-        status = lib.bt_flash_fwd(*args, DTYPES[q.dtype], stream)
+    status = lib.bt_flash_fwd(*args, int(variant == "mma"), stream)
     _build.check_status(lib, "flash_fwd", status)
     LAUNCHES.add()
     _build.KERNEL_FLOPS.add(launch_flops("flash_fwd", b, n, sq, sk, d, causal))
-    if mma:
-        LAUNCHES_MMA.add()
+    (LAUNCHES_MMA if variant == "mma" else LAUNCHES_TF32).add()
     return o, lse
 
 
@@ -198,11 +210,11 @@ def _check_bwd_args(q, k, v, g_o, lse, delta) -> None:
 
 def bwd_variant(q, k, v, g_o, lse, delta) -> str:
     """Raise ``ValueError`` for what K2 and K3 do not take, else return the
-    variant both launch for these inputs (``kernel_variant``): the "mma"
-    variant reads q, k, v and g_o with 16-byte copies, so it needs each to
-    start 16-byte aligned."""
+    variant both launch for these inputs (``bwd_kernel_variant``): the
+    "mma" variant reads q, k, v and g_o with 16-byte copies, so it needs
+    each to start 16-byte aligned."""
     _check_bwd_args(q, k, v, g_o, lse, delta)
-    variant = kernel_variant(q)
+    variant = bwd_kernel_variant(q)
     if variant == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, g_o)):
         raise ValueError("K2's and K3's mma variant takes 16-byte aligned q, "
                          "k, v and g_o")

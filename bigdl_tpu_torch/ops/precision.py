@@ -1,5 +1,7 @@
 """Mixed-precision helpers (counterpart of ``bigdl_tpu/ops/precision.py``:
-``match_compute``, ``DtypePolicy`` and ``cast_tree`` are ported).
+``match_compute``, ``DtypePolicy`` and ``cast_tree`` are ported), and
+``split_tf32``, the f32 split of the 3xTF32 kernel variants in plain
+PyTorch (for their checks; no path of the port calls it).
 
 Policy: the master parameters stay f32 and the optimizer updates them;
 under ``DtypePolicy.bf16()`` the training forward and backward run on bf16
@@ -68,3 +70,27 @@ def cast_tree(tree, dtype):
     if torch.is_tensor(tree) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+#: low f32 mantissa bits that tf32 drops (it keeps 10 of the 23)
+_TF32_DROPPED_BITS = 13
+
+
+def to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does; kept as f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    half = 1 << (_TF32_DROPPED_BITS - 1)
+    # sign and magnitude: adding half an ulp to the magnitude's bits and
+    # clearing the dropped ones rounds the magnitude, ties away from zero
+    keep = ~((1 << _TF32_DROPPED_BITS) - 1)
+    return ((bits + half) & keep).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)``: ``hi = tf32(x)``, ``lo = tf32(x - hi)``, both f32, as
+    the kernels' "tf32x3" variants split each operand (``x - hi`` is exact
+    in f32; ``hi + lo`` is x to about 2^-22 of it). A product of two
+    splits to f32 accuracy is ``hi_a hi_b + hi_a lo_b + lo_a hi_b``."""
+    hi = to_tf32(x)
+    return hi, to_tf32(x.float() - hi)

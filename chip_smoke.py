@@ -14,9 +14,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes, with the tolerances stated
    below; K1's, K2's, K3's, K5's and K6's cases each log the variant they
-   took (``mma`` on the tensor cores for bf16, ``fma`` for the rest),
-   checked by the ``LAUNCHES*_MMA`` counters; K4 and K5/K6 give the same
-   bits on a second run; the flash backward (K2, K3) through the
+   took (``mma`` on the tensor cores for bf16; for f32, ``tf32x3`` on the
+   tensor cores in K1 and, with both channel counts multiples of 8, in K6;
+   ``fma`` for the rest), checked by the ``LAUNCHES*_MMA`` and
+   ``LAUNCHES_TF32`` counters; each ``tf32x3`` kernel's control, its plain
+   version on tf32-rounded inputs, must land past the tolerance that the
+   kernel holds; K1 (f32), K4 and K5/K6 give the same bits on a second
+   run; the flash backward (K2, K3) through the
    autograd ``Function`` against ``flash_attention_bwd_plain`` fed the same o, lse and
    cotangents, and against autograd through the plain attention core; the
    fused conv+BN-statistics kernels K5 (1x1 matmul) and K6 (3x3 conv) at
@@ -48,7 +52,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 3d. continuous serving: the same three models (the f32 model, its bf16
    and int8 twins) served through ``ContinuousLMServer`` (8 slots,
    max_len 512, blocks of 8 steps, chunks of 128, greedy, 32 new tokens).
-   First K1 (B=1, S in 64..512, causal, bf16 ``mma`` and f32 ``fma``) and
+   First K1 (B=1, S in 64..512, causal, bf16 ``mma`` and f32 ``tf32x3``) and
    K4 (M in 1, 8, 40, 64, 128, 256 at the five weight shapes) against
    their plain versions at the path's shapes. Then per model, with the
    counters zeroed just before each server: round 1, 16 requests from 16
@@ -58,7 +62,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    384-token prompt cold and on a 256-token prefix hit; round 3 under the
    profiler (busy share); a bucketed-mode server over 8 round-1 prompts
    (K1 launched num_layers times per admission, ``mma`` for bf16 and
-   int8, ``fma`` for f32); and, for the bf16 and int8 targets, a
+   int8, ``tf32x3`` for f32); and, for the bf16 and int8 targets, a
    speculative server (a second ``cast_model`` or ``quantize_model`` of the
    f32 model as draft, spec_len 4) whose acceptance must reach 0.9. The
    trie's hits and the int8 twin's K4 and dequantize counts must equal
@@ -68,7 +72,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    0.1 (bf16, int8) of its position's largest under a teacher-forced plain
    forward of the same model;
 3e. the serving plane, on phase 3's twins (its prefix tries dropped): K1
-   at B=2 S=128 (bf16 ``mma``, f32 ``fma``) and K4 at M = 5 and 8 over the
+   at B=2 S=128 (bf16 ``mma``, f32 ``tf32x3``) and K4 at M = 5 and 8 over the
    five weight shapes against their plain versions first; per twin
    ``generate(num_beams=4)`` on 2 prompts of 128 tokens, 32 new (K1 12
    launches, the int8 twin's K4 85 x 32; ``num_beams=1`` equal to greedy;
@@ -126,7 +130,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``load_hf_checkpoint`` (every parameter bit-equal), its bf16 and int8
    twins serving phase 3's traffic through ``LMServer``, every answer
    equal to ``generate``, K1 12 launches a prefill (``mma`` for bf16; the
-   int8 twin's f32 biases make its q/k/v f32, so ``fma``), K4 73 a decode
+   int8 twin's f32 biases make its q/k/v f32, so ``tf32x3``), K4 73 a decode
    forward; (c) Llama-3.2-1B (``llama3`` rope scaling, GQA 32/8,
    1,235,814,400 parameters) from seed 22 through
    ``export_llama_state_dict`` and ``load_llama``, both twins ``generate``
@@ -140,7 +144,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    Every served token within GAP_TOL of a teacher-forced forward;
 3b. training: the same config built on the card from seed 7. Every
    parameter's gradient on one f32 batch (B=1, S=128) of the synthetic
-   grammar, through K1/K2/K3 (their ``fma`` variants, no ``mma`` launch),
+   grammar, through K1/K2/K3 (K1's ``tf32x3``, K2's and K3's ``fma``
+   variants, no ``mma`` launch),
    must be finite and within GRAD_RTOL (relative L2, per tensor) of a CPU
    copy carrying the same weights, which takes the plain path. Then
    ``Optimizer`` trains 20 iterations at B=8, S=512 with
@@ -159,7 +164,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``auto_resume()`` in a fresh process (``--resume-helper``) from a
    model of another seed: iterations 13-20 and the final parameters
    bit-equal to (a), K1-K3 12 x 8 launches each, all ``mma`` (and K1's
-   f32 validation forward, ``fma``); again with
+   f32 validation forward, ``tf32x3``); again with
    ``set_steps_per_dispatch(4)``, windows stopping at the checkpoints, the
    validation and the kill, its resumed process beside (d) and (e); (c) ``python -m bigdl_tpu_torch.resilience
    chaos corrupt`` on the newest snapshot: ``validate`` reports it
@@ -198,8 +203,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    median distance within twice the unfused card model's); then bench.py's
    recipe (constant N(0, 1) images from seed 0, SGD 0.1 momentum 0.9, bf16
    over f32 masters) for 12 steps of (a) VGG-16 at B=128 with the 3x3 gate
-   (K6 13 a step, all ``fma``: the first fused module sees the f32 images
-   and each keeps its input's dtype, as in the reference), (b) the same
+   (K6 13 a step, all f32: the first fused module sees the f32 images
+   and each keeps its input's dtype, as in the reference; conv1_1, Cin =
+   3, ``fma``, the other 12 ``tf32x3``), (b) the same
    unfused (bf16 cuDNN convs), (c) Inception v1 at
    B=256, (d) Inception v2 at B=256 with both gates (K5 37, K6 27 a step)
    and (e) LeNet at B=256 for 100 steps as a ``Sequential`` and as a
@@ -495,8 +501,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    freshly trained ones). (a) The 134m LM after 3b's 20 steps:
    ``backward(x, g)`` of its ``TransformerEncoder`` at (8, 512, 768), f32
    from a seed, bit-equal to ``torch.autograd.grad`` of a plain forward in
-   the same mode and dropout state, K1, K2 and K3 12 launches each (their
-   ``fma`` variants), every ``.grad`` at its address with its values;
+   the same mode and dropout state, K1, K2 and K3 12 launches each (K1's
+   ``tf32x3``, K2's and K3's ``fma`` variants), every ``.grad`` at its
+   address with its values;
    ``predict(ids)`` bit-equal to an eval-mode forward under ``no_grad``
    (K1 12), ``predict_class`` its argmax + 1, every ``output`` None after;
    ``get_parameters()`` (128,404,224 elements, equal to the sorted-key
@@ -505,8 +512,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``Optimizer`` step on the clone, recording on, leaves no ``output`` and
    the original's flat vector unchanged); ``summary()``'s total against
    ``n_parameters()``. (b) ResNet-50 after 3c's 20 steps (both gates):
-   ``backward(images, g)`` at B=256 in training mode (f32, ``fma``), K5 36
-   and K6 13 launches, bit-equal to autograd of the same forward with
+   ``backward(images, g)`` at B=256 in training mode (f32: K5's ``fma``,
+   K6's ``tf32x3``), K5 36 and K6 13 launches, bit-equal to autograd of the same forward with
    cuDNN held deterministic, every running statistic bit-equal;
    ``evaluate`` over 4 seeded batches of 256 with Top1, Top5 and
    ``Loss(ClassNLLCriterion())`` equal to ``Evaluator(model,
@@ -543,11 +550,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    step's 15 distinct 1x1 shapes, summed over its 36 launches; and, from
    phase 3i, K6 at VGG-16's 224x224 64->64 and 14x14 512->512 at B=128 and
    K5 at Inception v2's largest 1x1 at B=256; from phase 3l, K1, K2 and K3
-   in f32, their ``fma`` variants, at the text LM's causal B=8 S=512 N=12
-   D=64, with the f32 ``scaled_dot_product_attention`` as the library);
+   in f32 (K1's ``tf32x3``, K2's and K3's ``fma`` variants) at the text
+   LM's causal B=8 S=512 N=12 D=64, with the f32
+   ``scaled_dot_product_attention`` as the library; K1's ``f32_prefill``:
+   ``tf32x3`` at the f32 bucketed prefills' B=1 S in 64..512; K6's
+   ``f32``: ``tf32x3`` at ResNet-50's four 3x3 shapes at B=256, and K5's
+   ``f32_step``: its ``fma`` variant at the step's 15 1x1 shapes, as phase
+   3s's f32 ``backward`` launches them, with cuBLAS and cuDNN in f32, TF32
+   off);
    the bound (``bound_ms``) is the larger of the bytes the function must
    move over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM data
-   sheet, bf16 dense; 67 TFLOP/s for the f32 rows), and ``bound_measured_ms`` prices the same bytes at the
+   sheet, bf16 dense; for the f32 ``tf32x3`` rows 495 / 3 TFLOP/s, the
+   tensor cores' TF32 peak over the three passes, with
+   ``bound_f32_fma_ms`` beside it at 67 TFLOP/s, the CUDA cores' f32 FMA
+   peak, which bounds the f32 ``fma`` rows), and ``bound_measured_ms`` prices the same bytes at the
    roof measured in phase 4a. Phase 1 logs each kernel's ``-Xptxas -v``
    report (registers, shared memory, spills) and whether this run built it.
    K7's rows come from phase 4a's run: the best
@@ -586,7 +602,8 @@ and prints one ``resume_helper`` line.
 
 ``python3 chip_smoke.py --time-kernels-of DIR`` imports ``bigdl_tpu_torch``
 from DIR (for example an earlier commit unpacked by ``git archive``),
-builds its kernels, times K1-K6 as phase 4 does and runs DIR's probe with
+builds its kernels, times K1-K6 as phase 4 does (phase 3l's f32 rows and
+phase 3i's VGG-16 rows included) and runs DIR's probe with
 only its K7b (``manual``), K7c (``hbm_dma``) and ``library`` families at
 1 GiB, printing the rows and no result line: an earlier version's kernels
 and this one's on one timer, within one machine.
@@ -622,6 +639,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 BF16_OPS_PER_S = 989e12     # H100 SXM tensor cores, bf16 dense
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+#: H100 SXM tensor cores, TF32 dense, over the three passes of a 3xTF32
+#: product: the ceiling of the f32 "tf32x3" kernel variants
+TF32X3_OPS_PER_S = 495e12 / 3
 CONFIG = dict(embed_dim=768, num_heads=12, num_kv_heads=4, ffn_dim=3072,
               num_layers=12, max_len=512, rope=True, activation="swiglu",
               norm="rms", bias=False, tie_embeddings=True)
@@ -772,8 +792,8 @@ def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
     (``bound_ms``, and which term sets it), with the bytes and operations
     it counts, so that ``add_measured_bound`` can price the bytes at the
     measured HBM roof. ``ops_per_s``: the peak for the operations' type
-    (bf16 tensor cores unless given; an f32 row gives F32_OPS_PER_S and
-    carries it)."""
+    (bf16 tensor cores unless given; an f32 row gives F32_OPS_PER_S, or
+    TF32X3_OPS_PER_S for a ``tf32x3`` variant, and carries it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     out = {"bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -781,6 +801,16 @@ def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
     if ops_per_s != BF16_OPS_PER_S:
         out["ops_per_s"] = ops_per_s
     return out
+
+
+def with_f32_fma_bound(entry: dict) -> dict:
+    """``entry`` (a ``tf32x3`` reading, its ``bound_ms`` at
+    TF32X3_OPS_PER_S) with ``bound_f32_fma_ms``: the same bytes over the
+    HBM rate and the operations at the CUDA cores' f32 FMA peak, the bound
+    of the ``fma`` variants that ``tf32x3`` replaced."""
+    entry["bound_f32_fma_ms"] = max(entry["bytes"] / HBM_BYTES_PER_S,
+                                    entry["operations"] / F32_OPS_PER_S) * 1e3
+    return entry
 
 
 def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
@@ -794,7 +824,8 @@ def add_measured_bound(entry: dict, hbm_bytes_per_s: float) -> dict:
                    "bf16"):
         if second in entry:
             add_measured_bound(entry[second], hbm_bytes_per_s)
-    for key in ("shapes", "continuous", "serving_plane", "published"):
+    for key in ("shapes", "continuous", "serving_plane", "published",
+                "f32_prefill"):
         for shape in entry.get(key, {}).values():
             add_measured_bound(shape, hbm_bytes_per_s)
     return entry
@@ -855,17 +886,51 @@ def flash_o_close(o: torch.Tensor, po: torch.Tensor):
 
 def launched_variant(counters, variant_of, fn):
     """Runs ``fn`` (one launch of each kernel that ``counters`` lists as
-    (``LAUNCHES``, ``LAUNCHES_MMA``) pairs) and returns the variant that
-    ``variant_of`` names, checked against every pair: one launch, and one
-    "mma" launch exactly when the variant is "mma"."""
-    before = [(total.value, mma.value) for total, mma in counters]
+    (``LAUNCHES``, ``LAUNCHES_MMA``) pairs, or (``LAUNCHES``,
+    ``LAUNCHES_MMA``, ``LAUNCHES_TF32``) triples for a kernel with a
+    "tf32x3" variant) and returns the variant that ``variant_of`` names,
+    checked against every entry: one launch, one "mma" launch exactly when
+    the variant is "mma" and one "tf32x3" launch exactly when it is
+    "tf32x3"."""
+    names = ("mma", "tf32x3")
+    before = [tuple(c.value for c in entry) for entry in counters]
     out = fn()
     want = variant_of()
-    for (total, mma), (t0, m0) in zip(counters, before):
-        got = (total.value - t0, mma.value - m0)
-        check(got == (1, int(want == "mma")),
-              f"{want} call counted {got} (launches, mma launches)")
+    for entry, was in zip(counters, before):
+        got = tuple(c.value - v for c, v in zip(entry, was))
+        check(got == (1, *(int(want == n) for n in names[:len(entry) - 1])),
+              f"{want} call counted {got} (launches, mma launches"
+              f"{', tf32x3 launches' if len(entry) > 2 else ''})")
     return want, out
+
+
+def k1_counters() -> list:
+    """K1's entry for ``launched_variant``: its three counters."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    return [(fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_TF32)]
+
+
+def k1_variant_of(dtype) -> str:
+    """The variant K1 takes for q of ``dtype``: mma for bf16, tf32x3 for
+    f32."""
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def k1_f32_control(q, k, v, causal: bool) -> dict:
+    """K1's control: the plain version on tf32-rounded q, k and v
+    (``precision.to_tf32``) against the plain version, which must land
+    past FLASH_ATOL in O or LSE, so that the tolerance tells K1's
+    3xTF32 products from one tf32 pass. Returns both distances."""
+    from bigdl_tpu_torch.ops.flash_attention import flash_attention_plain
+    from bigdl_tpu_torch.ops.precision import to_tf32
+    po, plse = flash_attention_plain(q, k, v, causal=causal)
+    to, tlse = flash_attention_plain(to_tf32(q), to_tf32(k), to_tf32(v),
+                                     causal=causal)
+    out = {"o": (to - po).abs().max().item(),
+           "lse": (tlse - plse).abs().max().item(), "tol": FLASH_ATOL}
+    check(max(out["o"], out["lse"]) > FLASH_ATOL,
+          f"K1's tf32 control landed within FLASH_ATOL: {out}")
+    return out
 
 
 def check_flash():
@@ -873,7 +938,8 @@ def check_flash():
     within FLASH_ATOL), at the served prefill shapes (B=4, S in {384, 128},
     causal), the training shape (B=8, S=512, causal, bf16) and at ragged,
     full, D=128, Sq != Sk and single-row cases; every bf16 case takes the
-    "mma" variant and every f32 case the "fma" one."""
+    "mma" variant and every f32 case the "tf32x3" one, whose second run
+    must give the same bits; then ``k1_f32_control`` at B=2 S=384 causal."""
     from bigdl_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtypes = (torch.float32, torch.bfloat16)
@@ -885,7 +951,7 @@ def check_flash():
               (torch.bfloat16, True, 1, 200, 200, 4, 128),
               (torch.float32, False, 2, 100, 333, 3, 128),
               (torch.float32, True, 4, 1, 1, 12, 64)]
-    counters = [(fa.LAUNCHES, fa.LAUNCHES_MMA)]
+    counters = k1_counters()
     worst, variants = 0.0, {}
     for dt, causal, b, sq, sk, n, d in cases:
         q, k, v = _qkv(gen, b, sq, sk, n, d, dt)
@@ -901,8 +967,12 @@ def check_flash():
               and o.dtype == dt, f"flash output shapes, B={b} Sq={sq}")
         check(ok_o and err_l <= FLASH_ATOL,
               f"flash {what}: |dO|={err_o} |dLSE|={err_l}")
-        check(variant == ("mma" if dt == torch.bfloat16 else "fma"),
+        check(variant == k1_variant_of(dt),
               f"flash {what} took the {variant} variant")
+        if dt == torch.float32:
+            o2, lse2 = fa.flash_attention_with_lse(q, k, v, causal=causal)
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"flash {what}: a second run gave other bits")
         variants[what] = variant
         worst = max(worst, err_o)
     for dt in (torch.float32, torch.bfloat16):
@@ -921,8 +991,10 @@ def check_flash():
         check(torch.isfinite(o.float()).all().item()
               and torch.isfinite(lse).all().item(), f"dead-row finite ({dt})")
         variants[f"{dt} dead row"] = variant
+    q, k, v = _qkv(gen, 2, 384, 384, 12, 64, torch.float32)
+    control = k1_f32_control(q, k, v, True)
     log({"check": "flash_fwd", "cases": len(cases) + 2, "max_abs_err_o": worst,
-         "variants": variants})
+         "variants": variants, "tf32_control_b2_s384": control})
 
 
 BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-5
@@ -977,7 +1049,9 @@ def check_flash_bwd():
     ``check_flash``. Then the Function against autograd through the plain
     attention core at the training shape in f32. Every bf16 case (D=128
     included) must launch K2's and K3's "mma" variants and every f32 case
-    their "fma" ones, by the counters. Returns the worst |error| of dQ (K2)
+    their "fma" ones (``bwd_kernel_variant``), by the counters; an f32
+    case's forward is K1's "tf32x3", whose LSE they read. Returns the worst
+    |error| of dQ (K2)
     and of dK/dV (K3) at the training shape."""
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops.attention_core import dot_product_attention
@@ -989,7 +1063,7 @@ def check_flash_bwd():
 
     def grads_of(q, k, v, g_o, g_lse, causal, what):
         variant, out = launched_variant(
-            counters, lambda: fa.kernel_variant(q),
+            counters, lambda: fa.bwd_kernel_variant(q),
             lambda: _function_grads(q, k, v, g_o, g_lse, causal))
         check(variant == ("mma" if q.dtype == torch.bfloat16 else "fma"),
               f"flash bwd {what} took the {variant} variant")
@@ -1205,21 +1279,25 @@ def stats_close(got, ref, y_ref: torch.Tensor):
 def _stats_case(name, fn, plain, x, w, module, worst):
     """One K5 or K6 case (``name`` starts with "K5" or "K6"): two runs of
     ``fn`` against ``plain``, y as in ``y_close``, the statistics as in
-    ``stats_close`` and bit-identical on the second run, and the variant
-    taken (``module.kernel_variant``) the rule's: bf16 with both channel
-    counts, w's last two dimensions, multiples of 8 is ``mma``, checked by
-    the mma launches counted. Updates ``worst`` ("f32", "K5", "K6",
+    ``stats_close``, y and the statistics bit-identical on the second run,
+    and the variant taken (``module.kernel_variant``) the rule's: with both
+    channel counts, w's last two dimensions, multiples of 8, ``mma`` for
+    bf16 and (K6) ``tf32x3`` for f32, else ``fma``, checked by the mma and
+    tf32x3 launches counted. Updates ``worst`` ("f32", "K5", "K6",
     "stats"); returns the variant."""
     variant = module.kernel_variant(x, w)
-    want = ("mma" if x.dtype == torch.bfloat16 and w.shape[-2] % 8 == 0
-            and w.shape[-1] % 8 == 0 else "fma")
+    aligned = w.shape[-2] % 8 == 0 and w.shape[-1] % 8 == 0
+    tf32 = getattr(module, "LAUNCHES_TF32", None)   # K6 only
+    want = ("fma" if not aligned else "mma" if x.dtype == torch.bfloat16
+            else "tf32x3" if tf32 is not None else "fma")
     mma_before = module.LAUNCHES_MMA.value
+    tf32_before = tf32.value if tf32 is not None else 0
     got, again = fn(x, w), fn(x, w)
     ref = plain(x, w)
     torch.cuda.synchronize()
     err, ex, ok = y_close(got[0], ref[0])
     st, st_ok = stats_close(got[1:], ref[1:], ref[0])
-    same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     check(ok and st_ok and same and got[0].shape == ref[0].shape
           and got[0].dtype == x.dtype,
           f"{name} {x.dtype}: |y err| {err} (excess {ex}), stats {st}, "
@@ -1227,6 +1305,9 @@ def _stats_case(name, fn, plain, x, w, module, worst):
     check(variant == want, f"{name} {x.dtype} took the {variant} variant")
     check(module.LAUNCHES_MMA.value - mma_before == 2 * (variant == "mma"),
           f"{name} {x.dtype}: mma launches")
+    check(tf32 is None
+          or tf32.value - tf32_before == 2 * (variant == "tf32x3"),
+          f"{name} {x.dtype}: tf32x3 launches")
     key = "f32" if x.dtype == torch.float32 else name.split()[0]
     worst[key] = max(worst.get(key, 0.0), ex)
     worst["stats"] = max(worst.get("stats", 0.0), st)
@@ -1242,11 +1323,12 @@ def check_conv_bn():
     Cout off the 64-channel tile), each in f32 and bf16, and at every such
     shape of the training run (B=RESNET_BATCH, bf16): y as in ``y_close``,
     the statistics as in ``stats_close``, and two runs of each kernel give
-    bit-identical statistics. Each case takes the variant its kernel's rule
-    names (bf16 with both channel counts multiples of 8: ``mma``), checked
-    by the ``LAUNCHES_MMA`` counters; K5's and K6's bf16 excess over one
-    step is logged apart, and K5's must stay within half of
-    CONV_BF16_ATOL."""
+    bit-identical y and statistics. Each case takes the variant its
+    kernel's rule names (both channel counts multiples of 8: ``mma`` for
+    bf16, K6's ``tf32x3`` for f32), checked by the ``LAUNCHES_MMA`` and
+    ``LAUNCHES_TF32`` counters; K5's and K6's bf16 excess over one step is
+    logged apart, and K5's must stay within half of CONV_BF16_ATOL. Then
+    ``k6_f32_control`` at the B=32 stage-3 and stage-4 shapes."""
     from bigdl_tpu_torch.ops import conv3x3_bn, matmul_bn
     from bigdl_tpu_torch.ops.conv3x3_bn import (conv3x3_with_stats,
                                                 conv3x3_with_stats_plain)
@@ -1287,7 +1369,10 @@ def check_conv_bn():
     # the mma designs are held to half the bf16 atol (K6 read 1.6e-6)
     check(worst["K5"] <= CONV_BF16_ATOL / 2,
           f"K5 bf16 excess over one step {worst['K5']} > {CONV_BF16_ATOL / 2}")
-    log({"check": "conv_bn_kernels",
+    control = {f"{h}x{w} {cin}->{cout}": k6_f32_control(gen, n, h, w, cin,
+                                                        cout)
+               for n, h, w, cin, cout in threes[2:]}
+    log({"check": "conv_bn_kernels", "k6_tf32_control_b32": control,
          "cases": sum(len(a) + len(b) for _, a, b in runs),
          "k5_shapes_resnet50_b32": len(ones), "k6_shapes_resnet50_b32":
          len(threes), f"k5_k6_shapes_resnet50_b{RESNET_BATCH}_bf16":
@@ -1298,6 +1383,28 @@ def check_conv_bn():
          "k6_bf16_max_excess_over_one_step": worst["K6"],
          "stats_max_err_over_scale": worst["stats"],
          "k5_variants": variants["K5"], "k6_variants": variants["K6"]})
+
+
+def k6_f32_control(gen, n, h, w, cin, cout) -> dict:
+    """K6's control: ``conv3x3_with_stats_plain`` on tf32-rounded x and w
+    (``precision.to_tf32``) against the plain version on x and w, which
+    must land past ``y_close``'s f32 tolerance (CONV_F32_RTOL of max|y|
+    plus CONV_F32_ATOL), so that it tells K6's 3xTF32 products from one
+    tf32 pass. Returns the y error over max|y| and the statistics' error
+    over their scales (``stats_close``)."""
+    from bigdl_tpu_torch.ops.conv3x3_bn import conv3x3_with_stats_plain
+    from bigdl_tpu_torch.ops.precision import to_tf32
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+    wt = torch.randn((3, 3, cin, cout), generator=gen,
+                     device="cuda") / (9 * cin) ** 0.5
+    ref = conv3x3_with_stats_plain(x, wt)
+    got = conv3x3_with_stats_plain(to_tf32(x), to_tf32(wt))
+    _, ex, ok = y_close(got[0], ref[0])
+    st, st_ok = stats_close(got[1:], ref[1:], ref[0])
+    check(not ok, f"K6's tf32 control at N={n} {h}x{w} {cin}->{cout} landed "
+          f"within the f32 tolerance: {ex} of max|y|")
+    return {"y_err_over_max": ex, "rtol": CONV_F32_RTOL, "stats": st,
+            "stats_within_rtol": st_ok}
 
 
 def check_conv_bn_autograd():
@@ -1719,7 +1826,7 @@ def check_continuous_kernels() -> dict:
     """K1 and K4 at phase 3d's shapes against their plain versions, with
     phase 2's tolerances: K1 at B=1, S in K1_BUCKETS (the bucketed
     prefill's buckets), N=12, D=64, causal, bf16 (the ``mma`` variant) and
-    f32 (``fma``); K4 at M in K4_ROWS for the five weight shapes of a
+    f32 (``tf32x3``); K4 at M in K4_ROWS for the five weight shapes of a
     forward, two runs with the same bits. Returns each kernel's largest
     absolute error."""
     from bigdl_tpu_torch.ops import flash_attention as fa
@@ -1731,13 +1838,13 @@ def check_continuous_kernels() -> dict:
         for s in K1_BUCKETS:
             q, k, v = _qkv(gen, 1, s, s, CONFIG["num_heads"], 64, dt)
             variant, (o, lse) = launched_variant(
-                [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+                k1_counters(), lambda: fa.kernel_variant(q),
                 lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
             po, plse = fa.flash_attention_plain(q, k, v, causal=True)
             err_o, ok_o = flash_o_close(o, po)
             err_l = (lse - plse).abs().max().item()
             check(ok_o and err_l <= FLASH_ATOL
-                  and variant == ("mma" if dt == torch.bfloat16 else "fma"),
+                  and variant == k1_variant_of(dt),
                   f"flash {dt} B=1 S={s}: |dO|={err_o} |dLSE|={err_l}, "
                   f"variant {variant}")
             worst["flash_fwd"] = max(worst["flash_fwd"], err_o)
@@ -1958,11 +2065,15 @@ def run_continuous(models: dict, lm_timings: dict) -> tuple:
 
     def driven(fn):
         """Runs one serving path with every count zeroed just before;
-        returns its result and its (K1, K1 mma, K4, dequantize) counts."""
-        for c in counters:
+        returns its result and its (K1, K1 mma, K4, dequantize) counts,
+        every K1 launch checked to be its mma or its tf32x3 variant."""
+        for c in (*counters, flash_attention.LAUNCHES_TF32):
             c.reset()
         out = fn()
         got = tuple(c.value for c in counters)
+        check(got[0] == got[1] + flash_attention.LAUNCHES_TF32.value,
+              f"K1 launched {got[0]} times, {got[1]} mma and "
+              f"{flash_attention.LAUNCHES_TF32.value} tf32x3")
         for key, n in zip(launches, got):
             launches[key] += n
         return out, got
@@ -2078,7 +2189,7 @@ PLANE_K4_ROWS = (SPEC_LEN + 1, BEAM_BATCH * BEAM_WIDTH)
 def check_plane_kernels() -> dict:
     """K1 and K4 at phase 3e's new shapes against their plain versions, with
     phase 2's tolerances: K1 at the beam prefill's B=BEAM_BATCH,
-    S=BEAM_PROMPT (N=12, D=64, causal; bf16 ``mma`` and f32 ``fma``); K4
+    S=BEAM_PROMPT (N=12, D=64, causal; bf16 ``mma`` and f32 ``tf32x3``); K4
     at M in PLANE_K4_ROWS over the five weight shapes of a forward, two runs
     with the same bits. Returns each kernel's largest absolute error."""
     from bigdl_tpu_torch.ops import flash_attention as fa
@@ -2090,13 +2201,13 @@ def check_plane_kernels() -> dict:
         q, k, v = _qkv(gen, BEAM_BATCH, BEAM_PROMPT, BEAM_PROMPT,
                        CONFIG["num_heads"], 64, dt)
         variant, (o, lse) = launched_variant(
-            [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+            k1_counters(), lambda: fa.kernel_variant(q),
             lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
         po, plse = fa.flash_attention_plain(q, k, v, causal=True)
         err_o, ok_o = flash_o_close(o, po)
         err_l = (lse - plse).abs().max().item()
         check(ok_o and err_l <= FLASH_ATOL
-              and variant == ("mma" if dt == torch.bfloat16 else "fma"),
+              and variant == k1_variant_of(dt),
               f"flash {dt} B={BEAM_BATCH} S={BEAM_PROMPT}: |dO|={err_o} "
               f"|dLSE|={err_l}, variant {variant}")
         worst["flash_fwd"] = max(worst["flash_fwd"], err_o)
@@ -3008,7 +3119,7 @@ def check_published_kernels() -> dict:
         q, k, v = _qkv(gen, REQUESTS_PER_LEN, PROMPT_LENS[0], PROMPT_LENS[0],
                        n, 64, torch.bfloat16)
         variant, (o, lse) = launched_variant(
-            [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+            k1_counters(), lambda: fa.kernel_variant(q),
             lambda: fa.flash_attention_with_lse(q, k, v, causal=True))
         po, plse = fa.flash_attention_plain(q, k, v, causal=True)
         err_o, ok_o = flash_o_close(o, po)
@@ -3025,14 +3136,18 @@ def check_published_kernels() -> dict:
 
 def counted(launches: dict, fn):
     """Runs ``fn`` with every count zeroed just before; returns its result
-    and its (K1, K1 mma, K4, dequantize) counts, added to ``launches``."""
+    and its (K1, K1 mma, K4, dequantize) counts, added to ``launches``,
+    every K1 launch checked to be its mma or its tf32x3 variant."""
     from bigdl_tpu_torch.ops import flash_attention, int8_matmul
     counters = (flash_attention.LAUNCHES, flash_attention.LAUNCHES_MMA,
                 int8_matmul.LAUNCHES, int8_matmul.DEQUANT_CALLS)
-    for c in counters:
+    for c in (*counters, flash_attention.LAUNCHES_TF32):
         c.reset()
     out = fn()
     got = tuple(c.value for c in counters)
+    tf32 = flash_attention.LAUNCHES_TF32.value
+    check(got[0] == got[1] + tf32, f"K1 launched {got[0]} times, {got[1]} "
+          f"mma and {tf32} tf32x3")
     for key, n in zip(("flash_fwd", "flash_fwd_mma", "int8_matmul"), got):
         launches[key] += n
     return out, got
@@ -3117,7 +3232,7 @@ def published_gpt2(launches: dict) -> dict:
     traffic through ``LMServer``, every answer equal to ``generate`` and
     within GAP_TOL of a teacher-forced forward; K1 12 launches a prefill
     (``mma`` for bf16; the int8 twin's biases are f32, so its q/k/v are
-    too and K1 takes ``fma``), K4 73 a decode forward."""
+    too and K1 takes ``tf32x3``), K4 73 a decode forward."""
     import tempfile
 
     from bigdl_tpu_torch.interop.hf import (gpt2_lm_kwargs,
@@ -3441,8 +3556,9 @@ def grad_check(model) -> None:
         dev = next(m.parameters()).device
         m.train()
         m.zero_grad(set_to_none=True)
-        for c in (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ,
-                  fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA):
+        for c in (fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_TF32,
+                  fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV,
+                  fa.LAUNCHES_DKV_MMA):
             c.reset()
         ids = torch.as_tensor(sample.feature[None], device=dev)
         tgt = torch.as_tensor(sample.label[None], device=dev)
@@ -3456,6 +3572,9 @@ def grad_check(model) -> None:
             check((fa.LAUNCHES_MMA.value, fa.LAUNCHES_DQ_MMA.value,
                    fa.LAUNCHES_DKV_MMA.value) == (0, 0, 0),
                   "the f32 gradient check ran an mma variant of K1, K2 or K3")
+            check(fa.LAUNCHES_TF32.value == layers,
+                  f"the f32 gradient check ran K1's tf32x3 variant "
+                  f"{fa.LAUNCHES_TF32.value} times, want {layers}")
     model.zero_grad(set_to_none=True)
     worst, worst_name = 0.0, ""
     for name, ref in grads[1].items():
@@ -3735,9 +3854,16 @@ CKPT_CLI = ["--vocab", "512", "--embedDim", "256", "--numHeads", "4",
 CKPT_CLI_VOCAB, CKPT_CLI_EMBED = 512, 256
 
 
+def all_mma_launches(n: int) -> dict:
+    """``flash_counters``' expected counts in a bf16 run with n launches of
+    each of K1, K2 and K3: every one ``mma``, none ``tf32x3``."""
+    return {k: 0 if k == "flash_fwd_tf32" else n for k in flash_counters()}
+
+
 def flash_counters() -> dict:
     from bigdl_tpu_torch.ops import flash_attention as fa
     return {"flash_fwd": fa.LAUNCHES, "flash_fwd_mma": fa.LAUNCHES_MMA,
+            "flash_fwd_tf32": fa.LAUNCHES_TF32,
             "flash_bwd_dq": fa.LAUNCHES_DQ,
             "flash_bwd_dq_mma": fa.LAUNCHES_DQ_MMA,
             "flash_bwd_dkv": fa.LAUNCHES_DKV,
@@ -3937,7 +4063,7 @@ def check_validation(rows: list, want_nevals: list, what: str) -> None:
 def check_resumed_half(got: dict, a: dict, what: str) -> None:
     """A resumed run's iterations KILL_AT+1..20: losses and final
     parameters bit-equal to part (a), K1-K3 12 x 8 times each, all mma,
-    plus K1's f32 validation forward (fma) at 20."""
+    plus K1's f32 validation forward (tf32x3) at 20."""
     check(got["nevals"] == list(range(KILL_AT + 1, TRAIN_STEPS + 1)),
           f"{what}: resumed iterations {got['nevals']}")
     check(got["losses"] == a["losses"][KILL_AT:],
@@ -3948,8 +4074,9 @@ def check_resumed_half(got: dict, a: dict, what: str) -> None:
           f"uninterrupted run's, e.g. {bad[:3]}")
     n = CONFIG["num_layers"] * (TRAIN_STEPS - KILL_AT)
     val = CONFIG["num_layers"] * VAL_BATCHES
-    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_bwd_dq": n,
-            "flash_bwd_dq_mma": n, "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n}
+    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_fwd_tf32": val,
+            "flash_bwd_dq": n, "flash_bwd_dq_mma": n, "flash_bwd_dkv": n,
+            "flash_bwd_dkv_mma": n}
     check(CKPT_DEVICE == "cpu" or got["launches"] == want,
           f"{what}: launches {got['launches']}, want {want}")
     check_validation(got["validation"], [20], what)
@@ -3988,8 +4115,9 @@ def ckpt_uninterrupted(k1_run: dict, root: str) -> dict:
     check_validation(rows, [VAL_EVERY, 2 * VAL_EVERY], "(a)")
     n = CONFIG["num_layers"] * TRAIN_STEPS
     val = CONFIG["num_layers"] * VAL_BATCHES * 2
-    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_bwd_dq": n,
-            "flash_bwd_dq_mma": n, "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n}
+    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_fwd_tf32": val,
+            "flash_bwd_dq": n, "flash_bwd_dq_mma": n, "flash_bwd_dkv": n,
+            "flash_bwd_dkv_mma": n}
     check(CKPT_DEVICE == "cpu" or launches == want,
           f"(a): launches {launches}, want {want}")
     val_s = sum(r["seconds"] for r in rows)
@@ -4029,8 +4157,9 @@ def ckpt_preempted(root: str, a: dict, k: int):
     launches = {n: c.value for n, c in counters.items()}
     n = CONFIG["num_layers"] * KILL_AT
     val = CONFIG["num_layers"] * VAL_BATCHES
-    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_bwd_dq": n,
-            "flash_bwd_dq_mma": n, "flash_bwd_dkv": n, "flash_bwd_dkv_mma": n}
+    want = {"flash_fwd": n + val, "flash_fwd_mma": n, "flash_fwd_tf32": val,
+            "flash_bwd_dq": n, "flash_bwd_dq_mma": n, "flash_bwd_dkv": n,
+            "flash_bwd_dkv_mma": n}
     check(CKPT_DEVICE == "cpu" or launches == want,
           f"(b, k = {k}): launches {launches}, want {want}")
     losses = [h["loss"] for h in opt.history]
@@ -4787,11 +4916,11 @@ def quiet_outputs():
 def _flash_counts() -> tuple:
     from bigdl_tpu_torch.ops import flash_attention as fa
     return tuple(c.value for c in (
-        fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA,
-        fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA))
+        fa.LAUNCHES, fa.LAUNCHES_MMA, fa.LAUNCHES_TF32, fa.LAUNCHES_DQ,
+        fa.LAUNCHES_DQ_MMA, fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA))
 
 
-_FLASH_KEYS = ("flash_fwd", "flash_fwd_mma", "flash_bwd_dq",
+_FLASH_KEYS = ("flash_fwd", "flash_fwd_mma", "flash_fwd_tf32", "flash_bwd_dq",
                "flash_bwd_dq_mma", "flash_bwd_dkv", "flash_bwd_dkv_mma")
 
 
@@ -4857,9 +4986,10 @@ def surface_lm(model, samples) -> dict:
     check(torch.equal(got, want) and enc.grad_input is got,
           "encoder.backward differs from autograd of a plain forward: "
           f"max {(got - want).abs().max().item()}")
-    check([n[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
-          == [CONFIG["num_layers"]] * 3,
-          f"encoder.backward launched K1/K2/K3 {n}, want 12 each")
+    check([n[k] for k in ("flash_fwd", "flash_fwd_tf32", "flash_bwd_dq",
+                          "flash_bwd_dkv")] == [CONFIG["num_layers"]] * 4,
+          f"encoder.backward launched K1/K2/K3 {n}, want 12 each, K1 "
+          "tf32x3")
     check(all(e is None if p.grad is None else
               (p.grad.data_ptr() == e[0] and torch.equal(p.grad, e[1]))
               for p, e in grads),
@@ -4879,12 +5009,13 @@ def surface_lm(model, samples) -> dict:
         plain = model(ids)
     model.train()
     check(torch.equal(pred, plain), "predict differs from the eval forward")
-    check(n["flash_fwd"] == CONFIG["num_layers"],
-          f"predict launched K1 {n['flash_fwd']} times, want 12")
+    check(n["flash_fwd"] == n["flash_fwd_tf32"] == CONFIG["num_layers"],
+          f"predict launched K1 {n['flash_fwd']} times, "
+          f"{n['flash_fwd_tf32']} tf32x3, want 12")
     check(torch.equal(model.predict_class(ids), plain.argmax(-1) + 1),
           "predict_class is not argmax + 1")
-    SURFACE_LAUNCHES.update({"flash_fwd": n["flash_fwd"],
-                             "flash_fwd_mma": n["flash_fwd_mma"]})
+    SURFACE_LAUNCHES.update({k: n[k] for k in ("flash_fwd", "flash_fwd_mma",
+                                               "flash_fwd_tf32")})
     out["predict_k1"] = n["flash_fwd"]
     del pred, plain
 
@@ -4974,8 +5105,10 @@ def surface_resnet(model, batch) -> dict:
     from bigdl_tpu_torch.nn.module import record_outputs
     from bigdl_tpu_torch.optim import (Evaluator, Loss, Top1Accuracy,
                                        Top5Accuracy)
+    from bigdl_tpu_torch.ops import conv3x3_bn
     out = {}
     k5, _, k6, _ = conv_bn_counters()
+    k6_tf32 = conv3x3_bn.LAUNCHES_TF32
     deterministic = (torch.backends.cudnn.deterministic,
                      torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
@@ -4986,17 +5119,18 @@ def surface_resnet(model, batch) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(SURFACE_SEED)
         g = torch.randn((x.shape[0], 1000), generator=gen, device="cuda")
         stats = {n: b.clone() for n, b in model.named_buffers()}
-        before = (k5.value, k6.value)
+        before = (k5.value, k6.value, k6_tf32.value)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with record_outputs(True):
             got = model.backward(x, g)
         torch.cuda.synchronize()
         out["backward_ms"] = (time.perf_counter() - t0) * 1e3
-        n = (k5.value - before[0], k6.value - before[1])
-        check(n == (K5_PER_STEP, K6_PER_STEP),
-              f"ResNet-50 backward launched K5/K6 {n}, want "
-              f"{(K5_PER_STEP, K6_PER_STEP)}")
+        n = (k5.value - before[0], k6.value - before[1],
+             k6_tf32.value - before[2])
+        check(n == (K5_PER_STEP, K6_PER_STEP, K6_PER_STEP),
+              f"ResNet-50 backward launched K5/K6/K6 tf32x3 {n}, want "
+              f"{(K5_PER_STEP, K6_PER_STEP, K6_PER_STEP)}")
         check(all(torch.equal(b, stats[k]) for k, b in
                   model.named_buffers()),
               "backward changed a running statistic")
@@ -5010,8 +5144,9 @@ def surface_resnet(model, batch) -> dict:
         check(torch.equal(got, want),
               "ResNet-50 backward differs from autograd of its forward: "
               f"max {(got - want).abs().max().item()}")
-        SURFACE_LAUNCHES.update({"matmul_bn": n[0], "conv3x3_bn": n[1]})
-        out["backward_k5_k6"] = list(n)
+        SURFACE_LAUNCHES.update({"matmul_bn": n[0], "conv3x3_bn": n[1],
+                                 "conv3x3_bn_tf32": n[2]})
+        out["backward_k5_k6_k6_tf32x3"] = list(n)
         del got, want, leaf, g, stats
         torch.cuda.empty_cache()
 
@@ -5142,8 +5277,9 @@ def check_zoo_kernels() -> dict:
     3i's runs, with phase 2's tolerances: K6 at each of VGG-16's 13 convs
     at B=128 (224x224 down to 14x14) in f32, as run (a) feeds them (its
     first fused module sees the f32 images, and a fused module's output
-    keeps its input's dtype, as in the reference: the ``fma`` variant),
-    and in bf16 (``mma``, but conv1_1's Cin = 3: ``fma``); at each of
+    keeps its input's dtype, as in the reference: the ``tf32x3`` variant,
+    but conv1_1's Cin = 3: ``fma``), and in bf16 (``mma``, conv1_1
+    ``fma``); at each of
     VGG-CIFAR's at B=128 in f32 (``apps.vgg``) and bf16, down to 2x2
     images, where a 128-row tile spans 32 images; and at each of Inception
     v2's 27 stride-1 3x3 pairs at B=256 in bf16 (its stem casts to bf16);
@@ -5248,8 +5384,8 @@ def check_lrn():
 def vgg_cifar_grad_check(seed: int = ZOO_GRAD_SEED) -> dict:
     """VGG-CIFAR, one f32 batch of ZOO_GRAD_BATCH images, dropout 0, three
     models with the same weights: unfused on the card (cuDNN convs,
-    ``batch_norm_train``), fused on the card with the 3x3 gate (K6, the
-    ``fma`` variant in f32), and unfused on the CPU in f64, the reference
+    ``batch_norm_train``), fused on the card with the 3x3 gate (K6 in f32:
+    ``tf32x3``, ``fma`` for the first conv's Cin = 3), and unfused on the CPU in f64, the reference
     each is measured against (phase 3c's plan). The f32 losses agree with
     the f64 one within ZOO_LOSS_RTOL. By phase 3c's rule, every gradient
     and running statistic of the fused model lies within twice the
@@ -5371,13 +5507,16 @@ def zoo_run(name: str, build, gates, data, per_step: dict,
     logged with the peak it reached, then the next is taken), ``steps``
     steps of ``train_resnet`` (bench.py's recipe); finite losses, K5/K6
     launches equal to ``per_step`` x steps (every one ``mma`` unless
-    ``per_step`` says otherwise), f32 master weights that moved, and an
+    ``per_step`` says otherwise; K6's ``tf32x3`` ones as its "K6_tf32"
+    says), f32 master weights that moved, and an
     f32 loss of the batch (``zoo_f32_loss``) lower after the steps than
     before them; then a profiled window of two more steps for the busy
     share. Returns (the row, the launches, the model, the batch, the
     losses)."""
     from bigdl_tpu_torch.nn.fused import FusedConv1x1BN, FusedConv3x3BN
+    from bigdl_tpu_torch.ops import conv3x3_bn
     k5, k5_mma, k6, k6_mma = conv_bn_counters()
+    k6_tf32 = conv3x3_bn.LAUNCHES_TF32
     for b in ZOO_LADDER[name.split(":")[0]]:
         model = batch = None
         try:
@@ -5390,7 +5529,7 @@ def zoo_run(name: str, build, gates, data, per_step: dict,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before_mib = torch.cuda.memory_allocated() / 2 ** 20
-            for c in (k5, k5_mma, k6, k6_mma):
+            for c in (k5, k5_mma, k6, k6_mma, k6_tf32):
                 c.reset()
             history = train_resnet(model, batch, steps)
             break
@@ -5407,7 +5546,8 @@ def zoo_run(name: str, build, gates, data, per_step: dict,
     else:
         raise RuntimeError(f"{name}: no rung of {ZOO_LADDER} fits")
     launches = {"matmul_bn": k5.value, "matmul_bn_mma": k5_mma.value,
-                "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value}
+                "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value,
+                "conv3x3_bn_tf32": k6_tf32.value}
     losses = [h["loss"] for h in history]
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"{name}: losses {losses}")
@@ -5415,7 +5555,7 @@ def zoo_run(name: str, build, gates, data, per_step: dict,
             "matmul_bn_mma": per_step.get("K5", 0) * steps,
             "conv3x3_bn": per_step.get("K6", 0) * steps,
             "conv3x3_bn_mma": per_step.get("K6_mma", per_step.get("K6", 0))
-            * steps}
+            * steps, "conv3x3_bn_tf32": per_step.get("K6_tf32", 0) * steps}
     check(launches == want, f"{name}: launched {launches}, want {want}")
     # a fused conv's pre-BN bias is off the training path: its gradient is
     # 0 and, without weight decay, it stays where it was
@@ -5458,7 +5598,8 @@ def run_zoo_apps() -> dict:
     on the vendored MNIST with per-epoch validation, then ``python -m
     bigdl_tpu_torch.apps.lenet test --model`` as a subprocess, whose Top-1
     must equal the trained model's; ``vgg train`` with the 3x3 gate on
-    synthetic CIFAR at B=128 (K6 13 a step, f32: ``fma``); ``resnet train
+    synthetic CIFAR at B=128 (K6 13 a step, f32: conv1_1 ``fma``, the
+    other 12 ``tf32x3``); ``resnet train
     --depth 20`` on CIFAR binary files the phase writes; ``inception
     train --synthetic-size``. Returns the K5/K6 launches."""
     import tempfile
@@ -5470,8 +5611,10 @@ def run_zoo_apps() -> dict:
     from bigdl_tpu_torch.optim import Evaluator, Top1Accuracy
     root = tempfile.mkdtemp(prefix="bigdl_zoo_")
     res = {}
+    from bigdl_tpu_torch.ops import conv3x3_bn
     k5, k5_mma, k6, k6_mma = conv_bn_counters()
-    for c in (k5, k5_mma, k6, k6_mma):
+    k6_tf32 = conv3x3_bn.LAUNCHES_TF32
+    for c in (k5, k5_mma, k6, k6_mma, k6_tf32):
         c.reset()
     try:
         t0 = time.perf_counter()
@@ -5494,13 +5637,15 @@ def run_zoo_apps() -> dict:
         res["lenet"] = {"top1": top1.result(), "records": top1.count,
                         "s": time.perf_counter() - t0}
         t0 = time.perf_counter()
-        k6.reset()
+        k6_before, tf32_before = k6.value, k6_tf32.value
         m = _with_gates(("BIGDL_TPU_FUSED_3X3",), lambda: vgg_app.train(
             ["--synthetic-size", str(2 * CIFAR_APP_BATCH), "-b",
              str(CIFAR_APP_BATCH), "-e", "2"]))
-        res["vgg"] = {"k6_launches": k6.value, "s": time.perf_counter() - t0}
-        check(k6.value == 13 * 4, f"apps.vgg launched K6 {k6.value} times, "
-              "want 13 x 4 iterations")
+        n6 = (k6.value - k6_before, k6_tf32.value - tf32_before)
+        res["vgg"] = {"k6_launches": n6[0], "k6_tf32x3_launches": n6[1],
+                      "s": time.perf_counter() - t0}
+        check(n6 == (13 * 4, 12 * 4), f"apps.vgg launched K6 {n6[0]} times, "
+              f"{n6[1]} tf32x3, want 13 x 4 iterations, 12 x 4 tf32x3")
         del m
         t0 = time.perf_counter()
         data = os.path.join(root, "cifar")
@@ -5528,7 +5673,8 @@ def run_zoo_apps() -> dict:
     torch.cuda.empty_cache()
     log({"zoo_apps": res})
     return {"matmul_bn": k5.value, "matmul_bn_mma": k5_mma.value,
-            "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value}
+            "conv3x3_bn": k6.value, "conv3x3_bn_mma": k6_mma.value,
+            "conv3x3_bn_tf32": k6_tf32.value}
 
 
 def run_zoo() -> tuple:
@@ -5547,7 +5693,7 @@ def run_zoo() -> tuple:
     runs = [
         ("vgg16", lambda b: vgg.build_imagenet(1000, 16, device="cuda",
                                                seed=21),
-         FUSION_GATES[1:], img, {"K6": 13, "K6_mma": 0}),
+         FUSION_GATES[1:], img, {"K6": 13, "K6_mma": 0, "K6_tf32": 12}),
         ("vgg16:unfused", lambda b: vgg.build_imagenet(
             1000, 16, device="cuda", seed=21), (), img, {}),
         ("inception_v1", lambda b: inception.build(1000, device="cuda",
@@ -5597,15 +5743,17 @@ def run_zoo() -> tuple:
 def time_zoo_kernels(launches: dict, shapes: dict) -> list:
     """The ``kernels`` line's phase 3i rows: K6 at VGG-16's 224x224 64->64
     (conv1_2) and 14x14 512->512 (block 5) at B=128 in f32, the dtype run
-    (a) gives it (the ``fma`` variant; the operations priced at the f32
-    peak), each with a ``bf16`` reading beside it (the ``mma`` variant at
-    the same shape); K5 at Inception v2's largest fused 1x1 (by M*K*N) at
+    (a) gives it (the ``tf32x3`` variant; ``bound_ms`` prices the
+    operations at the 3xTF32 ceiling, ``bound_f32_fma_ms`` at the f32 FMA
+    peak), each with a ``bf16`` reading beside it (the ``mma`` variant
+    at the same shape); K5 at Inception v2's largest fused 1x1 (by M*K*N) at
     B=256 in bf16; each as phase 4's ``_time_stats_kernel`` times K5 and
     K6 (``graph_ms``; the bound counts x, w and y in the row's dtype and
     the two f32 sums; the library's product and ``torch.var_mean``).
     ``launches``: the kernel's launches in phase 3i's runs and apps (all
     shapes); the ``work`` text says how many of a run's convs have this
-    shape, by the structure."""
+    shape, by the structure; ``launches_tf32x3``: those of the tf32x3
+    variant (12 of 13 a step; conv1_1's Cin = 3 takes ``fma``)."""
     from bigdl_tpu_torch.ops.conv3x3_bn import (_conv3x3,
                                                 conv3x3_with_stats_kernel,
                                                 conv3x3_with_stats_plain)
@@ -5620,7 +5768,7 @@ def time_zoo_kernels(launches: dict, shapes: dict) -> list:
         b, h, _, c, co = shape
         name = f"conv3x3_bn vgg16 {h}x{h} {c}->{co}"
         readings = {}
-        for dt, size, peak in ((f32, 4, F32_OPS_PER_S),
+        for dt, size, peak in ((f32, 4, TF32X3_OPS_PER_S),
                                (bf16, 2, BF16_OPS_PER_S)):
             x = rnd(b, h, h, c).to(dt)
             w = (rnd(3, 3, c, co) / (3 * c ** 0.5)).to(dt)
@@ -5637,7 +5785,8 @@ def time_zoo_kernels(launches: dict, shapes: dict) -> list:
             "source": "bigdl_tpu_torch/csrc/conv3x3_bn.cu",
             "replaces": "bigdl_tpu/ops/conv3x3_bn.py:68",
             "launches": launches["conv3x3_bn"],
-            "variant": "fma", **readings[f32],
+            "launches_tf32x3": launches.get("conv3x3_bn_tf32", 0),
+            "variant": "tf32x3", **with_f32_fma_bound(readings[f32]),
             "bf16": {"variant": "mma", **readings[bf16]},
             "work": f"one launch, N={b} {h}x{h} {c}->{co} f32 as run (a) "
                     "feeds it (bf16: the mma variant at this shape); "
@@ -5701,7 +5850,7 @@ def check_perf_kernels() -> dict:
         gen = torch.Generator(device="cuda").manual_seed(31)
         q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
         variant, (o, lse) = launched_variant(
-            [(fa.LAUNCHES, fa.LAUNCHES_MMA)], lambda: fa.kernel_variant(q),
+            k1_counters(), lambda: fa.kernel_variant(q),
             lambda: fa.flash_attention_with_lse(q, k, v, causal=causal))
         check(variant == "mma", f"K1 at {name}'s shape took {variant}")
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -5715,7 +5864,7 @@ def check_perf_kernels() -> dict:
         variant, (o, lse, *grads) = launched_variant(
             [(fa.LAUNCHES_DQ, fa.LAUNCHES_DQ_MMA),
              (fa.LAUNCHES_DKV, fa.LAUNCHES_DKV_MMA)],
-            lambda: fa.kernel_variant(q),
+            lambda: fa.bwd_kernel_variant(q),
             lambda: _function_grads(q, k, v, g_o, g_lse, causal))
         check(variant == "mma", f"K2/K3 at {name}'s shape took {variant}")
         plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
@@ -5737,8 +5886,8 @@ def check_perf_kernels() -> dict:
 
 def vit_grad_check(seed: int = 41) -> dict:
     """Phase 3j (b): ViT-S/16, one f32 batch of VIT_GRAD_BATCH images,
-    through the card model (K1-K3 in their f32 ``fma`` variants, 12
-    launches each), the same model on the card with its attention on the
+    through the card model (K1-K3 in f32, 12 launches each: K1's
+    ``tf32x3``, K2's and K3's ``fma`` variants), the same model on the card with its attention on the
     plain core (no kernel launched), and an f64 CPU copy, the reference;
     all carry the same weights. Every card gradient is finite and within
     GRAD_RTOL or GRAD_TRUTH_FACTOR times the plain card model's distance
@@ -5781,6 +5930,7 @@ def vit_grad_check(seed: int = 41) -> dict:
 
     loss_k, g_k, launched = grads(card, "cuda", True)
     want = {"flash_fwd": VIT_LAYERS, "flash_fwd_mma": 0,
+            "flash_fwd_tf32": VIT_LAYERS,
             "flash_bwd_dq": VIT_LAYERS, "flash_bwd_dq_mma": 0,
             "flash_bwd_dkv": VIT_LAYERS, "flash_bwd_dkv_mma": 0}
     check(launched == want, f"ViT's f32 gradient launched {launched}, "
@@ -5969,7 +6119,8 @@ def run_perf() -> tuple:
                             ("vit_s16:k4", ["-k", str(PERF_K)]),
                             ("vit_s16:host", ["--no-device-cache"])):
             row, losses, opt = perf_run(vit + extra, flash)
-            _per_step(row, flash, iters, {k: VIT_LAYERS for k in flash})
+            _per_step(row, flash, iters, {k: VIT_LAYERS for k in flash
+                                          if k != "flash_fwd_tf32"})
             total.update(row["launches"])
             record(name, row, losses, opt, busy=name != "vit_s16:k4")
             del opt
@@ -6039,7 +6190,9 @@ def flash_rows(name: str, b: int, s: int, n: int, d: int, causal: bool,
                dtype, launches: dict, per_step: str, launched_by: str,
                seed: int = 37) -> list:
     """K1, K2 and K3 at one shape and dtype (bf16: their ``mma`` variants;
-    f32: ``fma``), each checked once more against its plain version, then
+    f32: K1's ``tf32x3``, bound at the 3xTF32 ceiling with
+    ``bound_f32_fma_ms`` beside it, and K2's and K3's ``fma``), each checked once more against its plain
+    version, then
     timed by ``graph_ms`` beside its plain version and
     ``scaled_dot_product_attention`` (forward; for K2 and K3 its backward:
     forward and backward less forward, one call for dQ, dK and dV); the
@@ -6098,19 +6251,23 @@ def flash_rows(name: str, b: int, s: int, n: int, d: int, causal: bool,
     dname = "bf16" if dtype == torch.bfloat16 else "f32"
     shape = (f"{'causal' if causal else 'non-causal'} {dname} B={b} S={s} "
              f"N={n} D={d}")
+    f32 = dtype == torch.float32
     base = {"route": "cuda",
-            "variant": "mma" if dtype == torch.bfloat16 else "fma",
+            "variant": "fma" if f32 else "mma",
             "shape": shape, "sdpa_forward_ms": fwd_ms,
             "sdpa_forward_and_backward_ms": fwd_bwd_ms}
+    k1_bound = bound(4 * bsnd * esize + bns * 4, 4 * d * pairs,
+                     TF32X3_OPS_PER_S if f32 else peak)
     launches_note = (f"launches: {launched_by} (by the structure, "
                      f"{per_step})")
     rows = [
         {"name": f"flash_fwd {name}", **base,
+         "variant": "tf32x3" if f32 else "mma",
          "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "bigdl_tpu/ops/flash_attention.py:104",
          "launches": launches.get("flash_fwd", 0),
          "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
-         **bound(4 * bsnd * esize + bns * 4, 4 * d * pairs, peak),
+         **(with_f32_fma_bound(k1_bound) if f32 else k1_bound),
          "library_ms": fwd_ms,
          "work": f"one forward launch, {shape}; {launches_note}; "
                  "library_ms: scaled_dot_product_attention"},
@@ -6161,14 +6318,17 @@ def time_perf_kernels(launches: dict) -> list:
 
 
 def time_text_kernels(launches: dict) -> list:
-    """The ``kernels`` line's phase 3l rows: K1, K2 and K3 in f32 (their
-    ``fma`` variants) at the text LM's training shape (causal, B=8 S=512
-    N=12 D=64), by ``flash_rows``. ``launches``: phase 3l's counts, all
-    ``fma`` (they are in the K1, K2 and K3 rows' counts too)."""
-    fma = {name: launches[name] - launches[f"{name}_mma"]
-           for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    """The ``kernels`` line's phase 3l rows: K1, K2 and K3 in f32 (K1's
+    ``tf32x3``, K2's and K3's ``fma`` variants) at the text LM's training
+    shape (causal, B=8 S=512 N=12 D=64), by ``flash_rows``. ``launches``:
+    phase 3l's counts, K1's by its tf32x3 counter and K2's and K3's their
+    non-mma launches, all ``fma`` (they are in the K1, K2 and K3 rows'
+    counts too)."""
+    f32 = {"flash_fwd": launches.get("flash_fwd_tf32", 0),
+           **{name: launches[name] - launches[f"{name}_mma"]
+              for name in ("flash_bwd_dq", "flash_bwd_dkv")}}
     rows = flash_rows("text_f32", TRAIN_BATCH, TRAIN_SEQ,
-                      CONFIG["num_heads"], 64, True, torch.float32, fma,
+                      CONFIG["num_heads"], 64, True, torch.float32, f32,
                       "12 of each a training step (12 layers), K1 12 a "
                       "prefill", "phase 3l's text LM training and its "
                       "prefills", seed=41)
@@ -6281,16 +6441,18 @@ def time_probe_families() -> dict:
 
 
 # ----------------------------------------------------------------- 4. timing
-def _time_flash_shape(b: int, s: int, seed: int, n: int = 0) -> dict:
-    """K1 at one causal bf16 shape (N heads, the 134m's 12 by default,
-    D=64): checked once more against its plain version, then its device
-    time, its plain version's and ``scaled_dot_product_attention``'s, and
-    its bound."""
+def _time_flash_shape(b: int, s: int, seed: int, n: int = 0,
+                      dtype=torch.bfloat16) -> dict:
+    """K1 at one causal shape (N heads, the 134m's 12 by default, D=64;
+    bf16 unless ``dtype`` says f32): checked once more against its plain
+    version, then its device time, its plain version's and
+    ``scaled_dot_product_attention``'s, and its bound (for f32, the
+    3xTF32 ceiling's, with ``bound_f32_fma_ms``)."""
     from bigdl_tpu_torch.ops.flash_attention import (flash_attention_plain,
                                                      flash_attention_with_lse)
     n, d = n or CONFIG["num_heads"], 64
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = _qkv(gen, b, s, s, n, d, torch.bfloat16)
+    q, k, v = _qkv(gen, b, s, s, n, d, dtype)
     o, lse = flash_attention_with_lse(q, k, v, causal=True)
     po, plse = flash_attention_plain(q, k, v, causal=True)
     err, ok = flash_o_close(o, po)
@@ -6306,11 +6468,18 @@ def _time_flash_shape(b: int, s: int, seed: int, n: int = 0) -> dict:
                         f"{what} plain", per_graph=5)
     library_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
                           f"{what} library", per_graph=50)
-    nbytes = 4 * b * s * n * d * 2 + b * n * s * 4   # q, k, v, o; lse f32
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = 4 * b * s * n * d * esize + b * n * s * 4   # q, k, v, o; lse f32
     ops = 4 * b * n * d * (s * (s + 1) // 2)         # causal (q, k) pairs
-    return {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+    dname = "bf16"
+    if dtype == torch.float32:
+        dname, limit = "f32", with_f32_fma_bound(bound(nbytes, ops,
+                                                       TF32X3_OPS_PER_S))
+    else:
+        limit = bound(nbytes, ops)
+    return {"ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms, "max_abs_err": err,
-            "shape": f"causal bf16 B={b} S={s} N={n} D={d}"}
+            "shape": f"causal {dname} B={b} S={s} N={n} D={d}"}
 
 
 def time_flash(launches: dict) -> dict:
@@ -6321,11 +6490,17 @@ def time_flash(launches: dict) -> dict:
     beam = _time_flash_shape(BEAM_BATCH, BEAM_PROMPT, 17)
     llama = _time_flash_shape(LLAMA_PROMPTS, PROMPT_LENS[0], 19,
                               LLAMA32_1B["num_attention_heads"])
+    prefill = {f"B=1 S={s}": _time_flash_shape(1, s, 23 + i,
+                                               dtype=torch.float32)
+               for i, s in enumerate(K1_BUCKETS)}
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "bigdl_tpu/ops/flash_attention.py:104",
             "launches": launches["flash_fwd"],
             "launches_mma": launches["flash_fwd_mma"],
+            # each phase checks that every K1 launch of its runs was mma or
+            # tf32x3, the only variants
+            "launches_tf32x3": launches["flash_fwd"] - launches["flash_fwd_mma"],
             "max_abs_err": served["max_abs_err"], "ms": served["ms"],
             "plain_ms": served["plain_ms"],
             **{k: served[k] for k in ("bound_ms", "bound_by", "bytes",
@@ -6336,9 +6511,10 @@ def time_flash(launches: dict) -> dict:
                     "runs (phases 3, 3d and 3e) and training together; "
                     f"train: {train['shape']}; beam_prefill: phase 3e's "
                     f"{beam['shape']}; llama32_1b_prefill: phase 3g's "
-                    f"{llama['shape']}",
+                    f"{llama['shape']}; f32_prefill: the tf32x3 variant at "
+                    "the f32 bucketed prefills' shapes (phases 3d and 3n)",
             "train": train, "beam_prefill": beam,
-            "llama32_1b_prefill": llama}
+            "llama32_1b_prefill": llama, "f32_prefill": prefill}
 
 
 def time_flash_bwd(launches: dict) -> list:
@@ -6603,7 +6779,8 @@ def time_int8(launches: int) -> dict:
 
 
 def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops,
-                       time_plain=True, ops_per_s=BF16_OPS_PER_S):
+                       time_plain=True, ops_per_s=BF16_OPS_PER_S,
+                       per_graph=20):
     """One fused-statistics kernel at one shape: checked once more against
     its plain version, then its device time, its plain version's (unless
     ``time_plain`` is false), and the library's product and one fused
@@ -6617,14 +6794,15 @@ def _time_stats_kernel(name, kernel, plain, library, x, w, nbytes, ops,
     del got, ref
     y = library(x, w)
     y2d = y.reshape(-1, y.shape[-1])
-    ms = graph_ms(lambda: kernel(x, w), name)
+    ms = graph_ms(lambda: kernel(x, w), name, per_graph=per_graph)
     out = {"ms": ms}
     if time_plain:
         out["plain_ms"] = graph_ms(lambda: plain(x, w), f"{name} plain",
                                    per_graph=3, replays=3)
-    product_ms = graph_ms(lambda: library(x, w), f"{name} library")
+    product_ms = graph_ms(lambda: library(x, w), f"{name} library",
+                          per_graph=per_graph)
     reduce_ms = graph_ms(lambda: torch.var_mean(y2d, dim=0, correction=0),
-                         f"{name} library reduction")
+                         f"{name} library reduction", per_graph=per_graph)
     return {**out, **bound(nbytes, ops, ops_per_s),
             "library_ms": product_ms + reduce_ms,
             "library_product_ms": product_ms,
@@ -6642,7 +6820,12 @@ def time_conv_bn(launches: dict) -> list:
     time, bound and library time, and their sums over the step's 36
     launches). The bound counts x, w and y in bf16 and the two f32 sums
     once each, and 2 * M * K * N (K6: 2 * N * H * W * 9 * Cin * Cout)
-    operations."""
+    operations. Then the f32 path of phase 3s's ResNet-50 ``backward`` at
+    B=256 (cuBLAS and cuDNN in f32, TF32 off): K6's ``f32``, its
+    ``tf32x3`` variant at each of the four 3x3 shapes (``bound_ms`` at the
+    3xTF32 ceiling, ``bound_f32_fma_ms`` at the f32 FMA peak), and K5's
+    ``f32_step``, its ``fma`` variant at the step's 15 1x1 shapes, summed
+    over the 36 launches; their launches are phase 3s's."""
     from bigdl_tpu_torch.ops.conv3x3_bn import (_conv3x3,
                                                 conv3x3_with_stats_kernel,
                                                 conv3x3_with_stats_plain)
@@ -6684,6 +6867,33 @@ def time_conv_bn(launches: dict) -> list:
             2 * (2 * b * h * h * c + 9 * c * c) + 8 * c,
             2 * b * h * h * 9 * c * c)
         k6[stage]["shape"] = f"N={b} {h}x{h} {c}->{c} bf16"
+    k6_f32 = {}
+    for _, h, _, c, _ in resnet50_conv_shapes(b)[1]:
+        x, w = rnd(b, h, h, c), rnd(3, 3, c, c) / (3 * c ** 0.5)
+        k6_f32[f"{h}x{h} {c}->{c}"] = with_f32_fma_bound(_time_stats_kernel(
+            f"conv3x3_bn f32 {h}x{h}", conv3x3_with_stats_kernel,
+            conv3x3_with_stats_plain, _conv3x3, x, w,
+            4 * (2 * b * h * h * c + 9 * c * c) + 8 * c,
+            2 * b * h * h * 9 * c * c, ops_per_s=TF32X3_OPS_PER_S,
+            per_graph=5))
+        del x, w
+    k5_f32 = {}
+    for (m, k, n), count in resnet50_1x1_step(b).items():
+        x, w = rnd(m, k), rnd(k, n) / k ** 0.5
+        row = _time_stats_kernel(
+            f"matmul_bn f32 M={m} K={k} N={n}", matmul_with_stats_kernel,
+            matmul_with_stats_plain, lambda x, w: x @ w, x, w,
+            4 * (m * k + k * n + m * n) + 8 * n, 2 * m * k * n,
+            time_plain=False, ops_per_s=F32_OPS_PER_S, per_graph=3)
+        del x, w
+        k5_f32[f"M={m} K={k} N={n}"] = {"count": count, **{
+            key: row[key] for key in ("ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+    torch.cuda.empty_cache()
+    k5_f32_step = {key: sum(r["count"] * r[src] for r in k5_f32.values())
+                   for key, src in (("step_ms", "ms"),
+                                    ("library_step_ms", "library_ms"),
+                                    ("bound_step_ms", "bound_ms"))}
     entries = []
     for name, src, ref, per, lib in (
             ("matmul_bn", "matmul_bn.cu", "bigdl_tpu/ops/matmul_bn.py:67", k5,
@@ -6708,8 +6918,22 @@ def time_conv_bn(launches: dict) -> list:
                     "training run",
             "stage4": per["stage4"]})
     entries[0].update({**k5_step, "step": step})
+    entries[0]["f32_step"] = {
+        "variant": "fma", **k5_f32_step, "step": k5_f32,
+        "launches": SURFACE_LAUNCHES["matmul_bn"],
+        "work": "the 36 launches of ResNet-50's f32 backward at B=256 (phase "
+                "3s), 15 shapes; library: x @ w (cuBLAS, f32) + "
+                "torch.var_mean of y; launches: phase 3s's"}
+    entries[1]["f32"] = {
+        "variant": "tf32x3", "shapes": k6_f32,
+        "launches": SURFACE_LAUNCHES["conv3x3_bn_tf32"],
+        "work": "one launch at each of ResNet-50's four stride-1 3x3 "
+                "shapes at B=256 in f32 (phase 3s's backward: 3, 3, 5 and 2 "
+                "of them, 13 in all); library: F.conv2d (cuDNN, f32) + "
+                "torch.var_mean of y; launches: phase 3s's"}
     log({"conv_bn_timing": {"matmul_bn": k5, "matmul_bn_step": k5_step,
-                            "conv3x3_bn": k6}})
+                            "conv3x3_bn": k6, "conv3x3_bn_f32": k6_f32,
+                            "matmul_bn_f32_step": k5_f32_step}})
     return entries
 
 
@@ -7422,8 +7646,8 @@ def text_train(root: str, launches: dict) -> dict:
           f"text loss did not fall: first {losses[0]}, last {losses[-5:]}")
     want = TEXT_LAYERS * steps
     check(got["flash_fwd"] == got["flash_bwd_dq"] == got["flash_bwd_dkv"]
-          == want, f"text training launched K1/K2/K3 {got}, want {want} "
-          "each (12 a step)")
+          == got["flash_fwd_tf32"] == want, f"text training launched "
+          f"K1/K2/K3 {got}, want {want} each (12 a step), K1 all tf32x3")
 
     # a 2-layer cut at full width: the first batch's f32 loss on the card
     # against the same cut on the CPU
@@ -7519,10 +7743,12 @@ def text_serve(root: str, launches: dict, proc, t_start: float) -> dict:
          "--device", "cuda", *sampling])
     res["generate_cli_s"] = time.perf_counter() - t0
     k1 = counters["flash_fwd"].value
-    launches["flash_fwd"] += k1
-    launches["flash_fwd_mma"] += counters["flash_fwd_mma"].value
-    check(k1 == TEXT_LAYERS, f"generate --tokenizer launched K1 {k1} times, "
-          f"want {TEXT_LAYERS} (one prefill)")
+    for key in ("flash_fwd", "flash_fwd_mma", "flash_fwd_tf32"):
+        launches[key] += counters[key].value
+    check(k1 == TEXT_LAYERS == counters["flash_fwd_tf32"].value,
+          f"generate --tokenizer launched K1 {k1} times, "
+          f"{counters['flash_fwd_tf32'].value} tf32x3, want {TEXT_LAYERS} "
+          "f32 (one prefill)")
     tok = BPETokenizer.load(tok_path)
     model = file_io.load(model_path, device="cuda")
     ids, _, text = text_generated(model, tok, prompt, TEXT_SAMPLE_SEED)
@@ -7634,10 +7860,12 @@ def text_sentencepiece(root: str, launches: dict) -> dict:
          "--maxNewTokens", str(TEXT_NEW_TOKENS), "--device", "cuda"])
     res["generate_fromhf_s"] = time.perf_counter() - t0
     k1 = counters["flash_fwd"].value
-    launches["flash_fwd"] += k1
-    launches["flash_fwd_mma"] += counters["flash_fwd_mma"].value
-    check(k1 == CONFIG["num_layers"], f"generate --fromHF launched K1 {k1} "
-          f"times, want {CONFIG['num_layers']}")
+    for key in ("flash_fwd", "flash_fwd_mma", "flash_fwd_tf32"):
+        launches[key] += counters[key].value
+    check(k1 == CONFIG["num_layers"] == counters["flash_fwd_tf32"].value,
+          f"generate --fromHF launched K1 {k1} times, "
+          f"{counters['flash_fwd_tf32'].value} tf32x3, want "
+          f"{CONFIG['num_layers']} f32")
     model = load_hf_checkpoint(d, device="cuda")
     ids, _, text = text_generated(model, tok, prompt)
     del model
@@ -8951,8 +9179,8 @@ def plat_sharded(root: str) -> tuple:
     del model, opt
     launches = {k: c.value for k, c in counters.items()}
     n = CONFIG["num_layers"] * (len(full) + len(resumed))
-    check(all(v == n for v in launches.values()),
-          f"(c) K1-K3 launches {launches}, want {n} each")
+    check(launches == all_mma_launches(n),
+          f"(c) K1-K3 launches {launches}, want {n} each, all mma")
     # the CLI: validate and latest accept the pair, refuse it once damaged
     lines = resilience_cli("validate", d).stdout.splitlines()
     check(len(lines) == 1 and lines[0].startswith("complete")
@@ -9880,7 +10108,7 @@ def run_distributed(controls: bool = False, ranks: "Beside" = None) -> dict:
                   and a[mode]["loss_gap"] <= DIST_W1_LOSS_TOL,
                   f"(a) {mode} at world 1 against allreduce: {a[mode]}")
         layers = CONFIG["num_layers"]
-        flash_want = {k: layers * DIST_ITERS for k in flash_counters()}
+        flash_want = all_mma_launches(layers * DIST_ITERS)
         for mode, run in w1.items():
             got = {k: run["launches"][k] for k in flash_want}
             defer(got == flash_want, f"(a) {mode}: K1-K3 launches {got}, "
@@ -10554,7 +10782,7 @@ def run_model_parallel(controls: bool = False, ranks: Beside = None) -> dict:
             ["tp_controls"] if controls else []), out)
         w1 = dist_read(out, "tp", 1)
         w2 = [dist_read(out, "tp", 2, r) for r in range(2)]
-        flash_want = {k: MP_LAYERS * MP_ITERS for k in flash_counters()}
+        flash_want = all_mma_launches(MP_LAYERS * MP_ITERS)
         # (a) tensor parallelism
         a = {"w1": {"losses": w1["tp"]["losses"],
                     "ms_per_iteration": w1["tp"]["ms_per_iteration"],
@@ -10650,7 +10878,7 @@ def run_model_parallel(controls: bool = False, ranks: Beside = None) -> dict:
                       f"{run['collectives']['per_step']}, want {want}")
                 k1 = MP_LAYERS * MP_CP_ITERS * mp_cp_k1_structure(
                     mode, layout, rank, 2)
-                kw = {k: k1 for k in flash_counters()}
+                kw = all_mma_launches(k1)
                 got = {k: run["launches"][k] for k in kw}
                 defer(got == kw, f"(b) {key} rank {rank}: K1-K3 {got}, "
                       f"want {kw}")
@@ -12056,10 +12284,18 @@ def run_phases(args) -> int:
         none = collections.defaultdict(int)
         rows = [time_flash(none), *time_flash_bwd(none),
                 dict(time_int8(0), continuous=time_int8_rows()),
-                *time_conv_bn(none)]
-        for row in rows:  # the counts and the variant describe a main path
-            for key in ("launches", "launches_mma", "variant"):
-                row.pop(key, None)
+                *time_conv_bn(none), *time_text_kernels(none),
+                *time_zoo_kernels(none, {
+                    "vgg16": vgg_conv_shapes(ZOO_LADDER["vgg16"][0], 224),
+                    "v2_ones": inception_v2_fused_shapes(
+                        ZOO_LADDER["inception_v2"][0])[0]})]
+        # the counts and the variant describe this tree's main path
+        for row in rows:
+            for part in (row, *(v for v in row.values()
+                                if isinstance(v, dict))):
+                for key in ("launches", "launches_mma", "launches_tf32x3",
+                            "variant"):
+                    part.pop(key, None)
         log({"timed_package": os.path.dirname(bigdl_tpu_torch.__file__),
              "card": card, "total_s": time.perf_counter() - t0,
              "kernels_timed": rows, "k7_timed": time_probe_families()})

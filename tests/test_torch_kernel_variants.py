@@ -1,13 +1,18 @@
 """Which variant of kernels K1, K2, K3, K5 and K6 a CUDA tensor takes, on
 the CPU.
 
-Each kernel has an "mma" variant on the tensor cores and an "fma" one on
-the CUDA cores. ``matmul_bn.kernel_variant``, ``conv3x3_bn.kernel_variant``,
-``flash_attention.kernel_variant`` and ``flash_attention.bwd_variant`` are
-plain functions, so the routing is tested here: every bf16 1x1 and 3x3
-conv of ResNet-50 and every bf16 attention, forward and backward, takes
-"mma", f32 and the ragged shapes take "fma". On CPU tensors the wrappers
-(K4's too) run their plain versions and count no launch of either variant.
+Each kernel has an "mma" variant on the tensor cores in bf16; K1 and K6
+have a "tf32x3" variant on the tensor cores at f32 accuracy; K2, K3, K5
+and K6 have an "fma" one on the CUDA cores. ``matmul_bn.kernel_variant``,
+``conv3x3_bn.kernel_variant``, ``flash_attention.kernel_variant`` (K1),
+``flash_attention.bwd_kernel_variant`` and ``flash_attention.bwd_variant``
+(K2, K3) are plain functions, so the routing is tested here: every bf16
+1x1 and 3x3 conv of ResNet-50 and every bf16 attention, forward and
+backward, takes "mma"; every f32 3x3 conv of ResNet-50 and VGG-16 but
+VGG's first (Cin = 3) and every f32 attention forward take "tf32x3"; f32
+1x1 convs, f32 attention backward and the ragged shapes take "fma". On
+CPU tensors the wrappers (K4's too) run their plain versions and count no
+launch of any variant.
 """
 
 import numpy as np
@@ -113,19 +118,42 @@ def test_every_resnet50_bf16_conv_takes_mma(b):
         x, w = _conv_args(*shape, torch.bfloat16)
         assert conv3x3_bn.kernel_variant(x, w) == "mma", shape
         x, w = _conv_args(*shape, torch.float32)
-        assert conv3x3_bn.kernel_variant(x, w) == "fma", shape
+        assert conv3x3_bn.kernel_variant(x, w) == "tf32x3", shape
 
 
 @pytest.mark.parametrize("cin", [3, 4, 8])
 @pytest.mark.parametrize("cout", [2, 16, 70])
 def test_ragged_convs_take_fma(cin, cout):
-    # the rule: bf16 with Cin and Cout multiples of 8 takes mma, so of these
-    # only Cin=8 -> Cout=16 does
+    # the rule: Cin and Cout multiples of 8 take mma (bf16) or tf32x3
+    # (f32), so of these only Cin=8 -> Cout=16 does
+    aligned = (cin, cout) == (8, 16)
     x, w = _conv_args(2, 5, 7, cin, cout, torch.bfloat16)
-    want = "mma" if (cin, cout) == (8, 16) else "fma"
-    assert conv3x3_bn.kernel_variant(x, w) == want
+    assert conv3x3_bn.kernel_variant(x, w) == ("mma" if aligned else "fma")
     x, w = _conv_args(2, 5, 7, cin, cout, torch.float32)
-    assert conv3x3_bn.kernel_variant(x, w) == "fma"
+    assert conv3x3_bn.kernel_variant(x, w) == ("tf32x3" if aligned
+                                               else "fma")
+
+
+def vgg16_3x3_shapes(b):
+    """(N, H, W, Cin, Cout) of VGG-16's 13 convs at batch b, in model
+    order (as ``chip_smoke.py`` lists them)."""
+    from bigdl_tpu_torch.models.vgg import _IMAGENET_CFG
+    shapes, n_in, hw = [], 3, 224
+    for v in _IMAGENET_CFG[16]:
+        if v == "M":
+            hw = (hw + 1) // 2
+        else:
+            shapes.append((b, hw, hw, n_in, v))
+            n_in = v
+    return shapes
+
+
+def test_vgg16_f32_convs_take_tf32x3_but_the_first():
+    shapes = vgg16_3x3_shapes(2)
+    assert len(shapes) == 13 and shapes[0][3] == 3
+    got = [conv3x3_bn.kernel_variant(*_conv_args(*s, torch.float32))
+           for s in shapes]
+    assert got == ["fma"] + ["tf32x3"] * 12
 
 
 @pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
@@ -133,14 +161,19 @@ def test_flash_variant_by_dtype(d):
     q = torch.zeros((2, 9, 3, d), dtype=torch.bfloat16)
     flash_attention.check_args(q, q, q)
     assert flash_attention.kernel_variant(q) == "mma"
+    assert flash_attention.bwd_kernel_variant(q) == "mma"
     q = q.float()
     flash_attention.check_args(q, q, q)
-    assert flash_attention.kernel_variant(q) == "fma"
+    # K1 takes the tensor cores in f32 too; K2 and K3 stay on the CUDA cores
+    assert flash_attention.kernel_variant(q) == "tf32x3"
+    assert flash_attention.bwd_kernel_variant(q) == "fma"
 
 
 def _counts():
     return (conv3x3_bn.LAUNCHES.value, conv3x3_bn.LAUNCHES_MMA.value,
+            conv3x3_bn.LAUNCHES_TF32.value,
             flash_attention.LAUNCHES.value, flash_attention.LAUNCHES_MMA.value,
+            flash_attention.LAUNCHES_TF32.value,
             matmul_bn.LAUNCHES.value, matmul_bn.LAUNCHES_MMA.value,
             int8_matmul.LAUNCHES.value)
 
@@ -159,6 +192,16 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
                .to(torch.bfloat16) for _ in range(3))
     o, lse = flash_attention.flash_attention_with_lse(q, k, v, causal=True)
     po, plse = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    assert torch.equal(o, po) and torch.equal(lse, plse)
+    # the f32 inputs whose CUDA twins take the tf32x3 variants
+    assert conv3x3_bn.kernel_variant(x, w) == "tf32x3"
+    got = conv3x3_bn.conv3x3_with_stats(x, w)
+    ref = conv3x3_bn.conv3x3_with_stats_plain(x, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    assert flash_attention.kernel_variant(qf) == "tf32x3"
+    o, lse = flash_attention.flash_attention_with_lse(qf, kf, vf, causal=True)
+    po, plse = flash_attention.flash_attention_plain(qf, kf, vf, causal=True)
     assert torch.equal(o, po) and torch.equal(lse, plse)
     x2 = torch.from_numpy(rng.standard_normal((37, 16), np.float32))
     w2 = torch.from_numpy(rng.standard_normal((16, 24), np.float32))
@@ -191,18 +234,24 @@ def _view_at(shape, dtype, offset):
 @pytest.mark.parametrize("which", [0, 1])
 @pytest.mark.parametrize("offset", [1, 4])
 def test_conv_mma_refuses_a_misaligned_view(which, offset):
-    # the mma variant reads x and w with 16-byte copies: a view that starts
-    # 2 or 8 bytes into its buffer is refused before any launch
+    # the mma and tf32x3 variants read x and w with 16-byte copies: a view
+    # that starts 2 or 8 bytes (bf16), 4 or 8 bytes (f32) into its buffer
+    # is refused before any launch
     shapes = ((2, 5, 7, 16), (3, 3, 16, 8))
-    args = [_view_at(s, torch.bfloat16, offset if i == which else 0)
-            for i, s in enumerate(shapes)]
-    assert args[which].is_contiguous() and args[which].data_ptr() % 16
-    assert conv3x3_bn.kernel_variant(*args) == "mma"
-    with pytest.raises(ValueError, match="16-byte"):
-        conv3x3_bn.conv3x3_with_stats_kernel(*args)
-    # the fma variant has no such rule: f32 gets as far as the device check
+    for dt, variant in ((torch.bfloat16, "mma"), (torch.float32, "tf32x3")):
+        skip = offset if dt == torch.bfloat16 else max(1, offset // 2)
+        args = [_view_at(s, dt, skip if i == which else 0)
+                for i, s in enumerate(shapes)]
+        assert args[which].is_contiguous() and args[which].data_ptr() % 16
+        assert conv3x3_bn.kernel_variant(*args) == variant
+        with pytest.raises(ValueError, match="16-byte"):
+            conv3x3_bn.conv3x3_with_stats_kernel(*args)
+    # the fma variant (Cin = 3) has no such rule: f32 gets as far as the
+    # device check
+    shapes = ((2, 5, 7, 3), (3, 3, 3, 8))
     args = [_view_at(s, torch.float32, offset if i == which else 0)
             for i, s in enumerate(shapes)]
+    assert conv3x3_bn.kernel_variant(*args) == "fma"
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3_bn.conv3x3_with_stats_kernel(*args)
 
@@ -231,18 +280,17 @@ def test_matmul_mma_refuses_a_misaligned_view(which, offset):
 
 @pytest.mark.parametrize("which", [0, 1, 2])
 def test_flash_mma_refuses_a_misaligned_view(which):
-    qkv = [_view_at((1, 9, 2, 64), torch.bfloat16, 1 if i == which else 0)
-           for i in range(3)]
-    assert flash_attention.kernel_variant(qkv[0]) == "mma"
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention._flash_fwd_cuda(*qkv, True, 0.125)
-    qkv = [_view_at((1, 9, 2, 64), torch.float32, 1 if i == which else 0)
-           for i in range(3)]
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention._flash_fwd_cuda(*qkv, True, 0.125)
-    aligned = [_view_at((1, 9, 2, 64), torch.bfloat16, 0) for _ in range(3)]
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention._flash_fwd_cuda(*aligned, True, 0.125)
+    # both K1 variants, mma (bf16) and tf32x3 (f32), read q, k and v with
+    # 16-byte copies: a view 2 or 4 bytes into its buffer is refused
+    for dt, variant in ((torch.bfloat16, "mma"), (torch.float32, "tf32x3")):
+        qkv = [_view_at((1, 9, 2, 64), dt, 1 if i == which else 0)
+               for i in range(3)]
+        assert flash_attention.kernel_variant(qkv[0]) == variant
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention._flash_fwd_cuda(*qkv, True, 0.125)
+        aligned = [_view_at((1, 9, 2, 64), dt, 0) for _ in range(3)]
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention._flash_fwd_cuda(*aligned, True, 0.125)
 
 
 def _bwd_args(dtype, d=64, misaligned=None):
